@@ -1,0 +1,451 @@
+"""End-to-end smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the repository root on a machine with a CUDA device and the
+CUDA toolkit. It builds the port's hand-written kernels from
+``elephas_tpu_torch/csrc``, holds each kernel against its plain PyTorch
+version at the shapes the main path gives it, then drives the port's
+two entry points at the full width of the flagship LM config (vocab
+32000, 8 layers, 16 heads, d_model 1024, d_ff 4096; random weights from
+a seed): ``forward`` with the flash-attention kernel, and the paged
+``DecodeEngine`` with the fused paged-attention kernel serving 16
+requests. Every phase prints one JSON line; any failure raises and the
+script exits non-zero without the final result line. The last three
+lines are the card's name and power limit as ``nvidia-smi`` reports
+them, the ``kernels`` summary, and ``{"ok": true, "device": ...}``.
+
+No CPU path: without a CUDA device it exits non-zero at once.
+"""
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense): the
+# roofline bounds below are computed against them.
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def require(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int = 20, flush: torch.Tensor = None) -> float:
+    """Median device time of one call, in ms, with CUDA events around
+    each call. ``flush`` (a buffer larger than the 50 MB L2) is
+    overwritten before every call so each one starts with a cold L2, as
+    a call inside a decode step or a layer stack does."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+# --------------------------------------------------------------- kernels
+def check_paged(flush):
+    """The paged decode kernel against its plain version at the serving
+    path's shapes: B 8, H 16, D 64, block 16, 64 blocks per row, a pool
+    of 513 blocks; shuffled tables and ragged positions."""
+    from elephas_tpu_torch.models.transformer import _alibi_slope_list
+    from elephas_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_plain)
+
+    b, h, d, bs, mb, nb = 8, 16, 64, 16, 64, 513
+    rng = np.random.default_rng(0)
+    tables = rng.permutation(np.arange(1, nb))[:b * mb].reshape(b, mb)
+    # the serving run's positions: prompts of 64-512 tokens + 64 new
+    pos = rng.integers(64, 576, b)
+    tables_t = torch.as_tensor(tables, dtype=torch.int32, device="cuda")
+    pos_t = torch.as_tensor(pos, dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cases = {"main": (16, None, False), "gqa": (4, None, False),
+             "window": (16, 100, False), "alibi": (16, None, True)}
+    results, errs = {}, {}
+    for name, (kvh, window, alibi) in cases.items():
+        q = torch.randn((b, h, d), generator=gen, device="cuda")
+        kp = torch.randn((nb, kvh, bs, d), generator=gen, device="cuda")
+        vp = torch.randn((nb, kvh, bs, d), generator=gen, device="cuda")
+        slopes = _alibi_slope_list(h) if alibi else None
+        ref = paged_decode_attention_plain(q, kp, vp, tables_t, pos_t,
+                                           window, slopes)
+        out32 = paged_decode_attention(q, kp, vp, tables_t, pos_t, window,
+                                       slopes)
+        q16, k16, v16 = q.bfloat16(), kp.bfloat16(), vp.bfloat16()
+        ref16 = paged_decode_attention_plain(q16.float(), k16.float(),
+                                             v16.float(), tables_t, pos_t,
+                                             window, slopes)
+        out16 = paged_decode_attention(q16, k16, v16, tables_t, pos_t,
+                                       window, slopes)
+        torch.cuda.synchronize()
+        e32, e16 = max_err(out32, ref), max_err(out16, ref16)
+        require(bool(torch.isfinite(out16.float()).all()),
+                f"paged {name} bf16 output finite")
+        require(e32 <= 1e-4, f"paged {name} f32 err {e32} <= 1e-4")
+        require(e16 <= 2e-2, f"paged {name} bf16 err {e16} <= 2e-2")
+        errs[name] = {"f32": e32, "bf16": e16}
+        if name == "main":
+            args16 = (q16, k16, v16, tables_t, pos_t)
+    # times at the serving path's dtype (bf16) and shapes
+    ms = time_ms(lambda: paged_decode_attention(*args16), flush=flush)
+    plain_ms = time_ms(lambda: paged_decode_attention_plain(*args16),
+                       flush=flush)
+    q16, k16, v16 = args16[:3]
+    length = mb * bs
+    kpos = torch.arange(length, device="cuda")
+    mask = (kpos[None, :] <= pos_t[:, None].long())[:, None, None, :]
+    idx = tables_t.long()
+
+    def library():
+        ck = k16[idx].transpose(1, 2).reshape(b, h, length, d)
+        cv = v16[idx].transpose(1, 2).reshape(b, h, length, d)
+        return torch.nn.functional.scaled_dot_product_attention(
+            q16[:, :, None], ck, cv, attn_mask=mask)
+
+    lib_ms = time_ms(library, flush=flush)
+    # bytes this data needs: the K/V rows at positions <= pos once (the
+    # main case has KVH = H), q in, o out, the live table entries and
+    # the positions
+    live_blocks = int(np.sum(pos // bs + 1))
+    esize = 2
+    nbytes = (int(np.sum(pos + 1)) * h * d * 2 * esize
+              + 2 * b * h * d * esize + live_blocks * 4 + b * 4)
+    flops = 4 * h * d * int(np.sum(pos + 1))
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+    results = {"max_abs_err": max(e["f32"] for e in errs.values()),
+               "max_abs_err_bf16": max(e["bf16"] for e in errs.values()),
+               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "bytes": nbytes, "flops": flops}
+    emit({"phase": "paged_kernel", "errors": errs, **results,
+          "shape": {"B": b, "H": h, "KVH": 16, "D": d, "block": bs,
+                    "max_blocks": mb, "pool_blocks": nb,
+                    "dtype": "bfloat16"},
+          "tolerance": {"f32": 1e-4, "bf16_vs_f32_plain": 2e-2}})
+    return results
+
+
+def check_flash(flush):
+    """The flash forward kernel against its plain version: the forward
+    path's shape (B 2, H 16, S 1024, D 64, causal), B 4, GQA, a window,
+    ragged lengths, and ring-hop offsets."""
+    from elephas_tpu_torch.ops.flash_attention import (flash_forward,
+                                                       flash_forward_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    # name: (B, H, KVH, Sq, Sk, causal, window, q_offset, k_offset)
+    cases = {"main": (2, 16, 16, 1024, 1024, True, None, 0, 0),
+             "b4": (4, 16, 16, 1024, 1024, True, None, 0, 0),
+             "gqa": (4, 16, 4, 1024, 1024, True, None, 0, 0),
+             "window": (4, 16, 16, 1024, 1024, True, 256, 0, 0),
+             "ragged": (4, 16, 16, 1000, 1000, True, None, 0, 0),
+             "noncausal_ragged": (2, 16, 16, 1000, 777, False, None, 0, 0),
+             "hop_past": (2, 16, 16, 512, 512, True, None, 1024, 512),
+             "hop_future": (2, 16, 16, 512, 512, True, None, 0, 512)}
+    errs = {}
+    for name, (b, h, kvh, sq, sk, causal, window, qo, ko) in cases.items():
+        q = torch.randn((b, h, sq, 64), generator=gen, device="cuda")
+        k = torch.randn((b, kvh, sk, 64), generator=gen, device="cuda")
+        v = torch.randn((b, kvh, sk, 64), generator=gen, device="cuda")
+        o_ref, l_ref = flash_forward_plain(q, k, v, qo, ko, causal, window)
+        o32, l32 = flash_forward(q, k, v, qo, ko, causal, window)
+        q16, k16, v16 = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        o_ref16, l_ref16 = flash_forward_plain(q16.float(), k16.float(),
+                                               v16.float(), qo, ko, causal,
+                                               window)
+        o16, l16 = flash_forward(q16, k16, v16, qo, ko, causal, window)
+        torch.cuda.synchronize()
+        live = l_ref > -1e29
+        e = {"o_f32": max_err(o32, o_ref),
+             "lse_f32": max_err(l32[live], l_ref[live]) if live.any()
+             else 0.0,
+             "o_bf16": max_err(o16, o_ref16),
+             "lse_bf16": max_err(l16[live], l_ref16[live]) if live.any()
+             else 0.0}
+        require(bool(torch.all(l32[~live] < -1e29))
+                and bool(torch.all(o32[~live] == 0)),
+                f"flash {name}: fully masked rows give O = 0, LSE ~ -1e30")
+        require(bool(torch.isfinite(o16.float()).all()),
+                f"flash {name} bf16 output finite")
+        require(e["o_f32"] <= 2e-4 and e["lse_f32"] <= 1e-4,
+                f"flash {name} f32 errors {e}")
+        require(e["o_bf16"] <= 2e-2 and e["lse_bf16"] <= 1e-3,
+                f"flash {name} bf16 errors {e}")
+        errs[name] = e
+        if name == "main":
+            main16 = (q16, k16, v16)
+            b_m, h_m, s_m = b, h, sq
+    q16, k16, v16 = main16
+    ms = time_ms(lambda: flash_forward(q16, k16, v16, causal=True),
+                 flush=flush)
+    plain_ms = time_ms(lambda: flash_forward_plain(q16, k16, v16,
+                                                   causal=True), flush=flush)
+    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q16, k16, v16, is_causal=True), flush=flush)
+    pairs = s_m * (s_m + 1) // 2          # unmasked (q, k) pairs, causal
+    flops = 4 * b_m * h_m * 64 * pairs
+    nbytes = 4 * b_m * h_m * s_m * 64 * 2 + b_m * h_m * s_m * 4
+    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    results = {"max_abs_err": max(max(e["o_f32"], e["lse_f32"])
+                                  for e in errs.values()),
+               "max_abs_err_bf16": max(max(e["o_bf16"], e["lse_bf16"])
+                                       for e in errs.values()),
+               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "bound_ms": max(ops_ms, bytes_ms),
+               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+               "flops": flops, "bytes": nbytes,
+               "achieved_tflops": flops / (ms * 1e-3) / 1e12}
+    emit({"phase": "flash_kernel", "errors": errs, **results,
+          "shape": {"B": b_m, "H": h_m, "S": s_m, "D": 64, "causal": True,
+                    "dtype": "bfloat16"},
+          "tolerance": {"o_f32": 2e-4, "lse_f32": 1e-4,
+                        "o_bf16_vs_f32_plain": 2e-2,
+                        "lse_bf16_vs_f32_plain": 1e-3}})
+    return results
+
+
+# ------------------------------------------------------------ main path
+def reset_counts():
+    from elephas_tpu_torch.ops.flash_attention import flash_forward
+    from elephas_tpu_torch.ops.paged_attention import paged_decode_attention
+    flash_forward.launches = 0
+    paged_decode_attention.launches = 0
+
+
+def read_counts():
+    from elephas_tpu_torch.ops.flash_attention import flash_forward
+    from elephas_tpu_torch.ops.paged_attention import paged_decode_attention
+    return {"flash_fwd": flash_forward.launches,
+            "paged_decode": paged_decode_attention.launches}
+
+
+def run_forward(params, cfg):
+    """``forward`` at full width: flash logits against the plain path in
+    f32, then the bf16 flash forward as the main-path run."""
+    from elephas_tpu_torch.models.transformer import forward
+
+    b, t = 2, 1024
+    tokens = torch.as_tensor(
+        np.random.default_rng(3).integers(0, cfg.vocab_size, (b, t)),
+        device="cuda")
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    flash = forward(params, tokens, dataclasses.replace(
+        c32, attention_impl="flash"))
+    plain = forward(params, tokens, dataclasses.replace(
+        c32, attention_impl="xla"))
+    err = max_err(flash, plain)
+    require(flash.shape == (b, t, cfg.vocab_size), "forward logits shape")
+    require(bool(torch.isfinite(flash).all()), "forward logits finite")
+    require(err <= 1e-3, f"flash vs plain logits err {err} <= 1e-3")
+    del flash, plain
+
+    c16 = dataclasses.replace(cfg, attention_impl="flash")
+    reset_counts()
+    logits = forward(params, tokens, c16)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    require(bool(torch.isfinite(logits).all()), "bf16 logits finite")
+    require(counts["flash_fwd"] == cfg.num_layers,
+            f"forward launched the flash kernel once per layer: {counts}")
+    t0 = time.perf_counter()
+    reps = 5
+    for _ in range(reps):
+        forward(params, tokens, c16)
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t0) / reps
+    emit({"phase": "forward", "batch": b, "seq": t,
+          "max_abs_err_f32_flash_vs_plain": err, "tolerance": 1e-3,
+          "bf16_ms": sec * 1e3, "bf16_tokens_per_s": b * t / sec,
+          "launches": counts})
+    return counts
+
+
+def serve(params, cfg, prompts, kernel, max_new=64, timed=False):
+    from elephas_tpu_torch.serving_engine import DecodeEngine
+
+    eng = DecodeEngine(params, cfg, max_slots=8, paged=(513, 16),
+                       kernel=kernel, device="cuda")
+    t_start = time.perf_counter()
+    rids = [eng.submit(p, max_new) for p in prompts]
+    t_sub = {r: time.perf_counter() for r in rids}
+    first, steps = {}, []
+    while eng.pending:
+        t0 = time.perf_counter()
+        out = eng.step()
+        now = time.perf_counter()
+        steps.append(now - t0)
+        for rid in out:
+            first.setdefault(rid, now)
+    wall = time.perf_counter() - t_start
+    outs = [eng.result(r) for r in rids]
+    info = {"stats": eng.stats, "wall_s": wall}
+    if timed:
+        ttft = sorted(first[r] - t_sub[r] for r in rids)
+        n_tok = sum(len(o) for o in outs)
+        info.update({"output_tokens": n_tok,
+                     "output_tokens_per_s": n_tok / wall,
+                     "ttft_p50_ms": float(np.median(ttft)) * 1e3,
+                     "ttft_max_ms": ttft[-1] * 1e3,
+                     "step_ms_p50": float(np.median(steps)) * 1e3})
+    return outs, info
+
+
+def tie_aware_equal(params, cfg, prompts, ref, out):
+    """Greedy outputs must be equal, except that a row may diverge at a
+    provable argmax near-tie: at its first divergence the reference's
+    next-token logits (recomputed by the plain f32 forward) have a top-2
+    gap below 1e-3."""
+    from elephas_tpu_torch.models.transformer import forward
+
+    c32 = dataclasses.replace(cfg, dtype=torch.float32, attention_impl="xla")
+    ties = []
+    for p, r, o in zip(prompts, ref, out):
+        if r == o:
+            continue
+        i = next((j for j, (x, y) in enumerate(zip(r, o)) if x != y),
+                 min(len(r), len(o)))
+        ctx = torch.as_tensor([list(p) + list(r[:i])], device="cuda")
+        top2 = forward(params, ctx, c32)[0, -1].topk(2).values
+        gap = float(top2[0] - top2[1])
+        require(gap < 1e-3, f"divergence at token {i} with top-2 gap {gap}")
+        ties.append({"index": i, "gap": gap})
+    return ties
+
+
+def run_serving(params, cfg):
+    """The paged engine at full width: 16 requests of 64-512 prompt
+    tokens, 64 new tokens each, 8 slots, a pool of 512 usable blocks of
+    16. f32: the fused kernel's greedy tokens equal the gather path's
+    (tie-aware). bf16: the main-path run, timed."""
+    rng = np.random.default_rng(4)
+    lengths = rng.integers(64, 513, 16)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    gather, _ = serve(params, c32, prompts, "gather")
+    fused, info32 = serve(params, c32, prompts, "fused")
+    require(all(len(o) == 64 for o in fused), "every request got 64 tokens")
+    ties = tie_aware_equal(params, cfg, prompts, gather, fused)
+    require(info32["stats"]["kernel_launches"] > 0,
+            "f32 fused engine launched the paged kernel")
+
+    serve(params, cfg, prompts[:2], "fused", max_new=4)      # warm-up
+    reset_counts()
+    out16, info16 = serve(params, cfg, prompts, "fused", timed=True)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    require(counts["paged_decode"] > 0,
+            f"the serving run launched the paged kernel: {counts}")
+    require(counts["paged_decode"] == info16["stats"]["kernel_launches"],
+            "engine stats agree with the wrapper's count")
+    require(all(len(o) == 64 for o in out16), "bf16: 64 tokens each")
+    require(all(0 <= t < cfg.vocab_size for o in out16 for t in o),
+            "bf16 tokens in the vocabulary")
+    emit({"phase": "serving", "requests": len(prompts),
+          "prompt_lengths": [int(n) for n in lengths], "max_new_tokens": 64,
+          "f32_equal_rows": sum(a == b for a, b in zip(gather, fused)),
+          "f32_near_tie_divergences": ties,
+          "bf16": {k: v for k, v in info16.items() if k != "stats"},
+          "bf16_stats": info16["stats"], "launches": counts})
+    return counts
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the "
+              "GPU", file=sys.stderr)
+        return 2
+    from elephas_tpu_torch.models.transformer import (FLAGSHIP,
+                                                      TransformerConfig,
+                                                      init_params)
+    from elephas_tpu_torch.ops import _kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi()
+    emit({"phase": "device", "name": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    t0 = time.perf_counter()
+    report = _kernels.build(force=True)
+    _kernels.library()
+    resources = [ln.split("ptxas info    : ")[-1].strip()
+                 for ln in report.splitlines()
+                 if "entry function" in ln or "registers" in ln
+                 or "spill" in ln]
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "ptxas": resources})
+
+    # a buffer past the 50 MB L2, overwritten before each timed call
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    paged = check_paged(flush)
+    flash = check_flash(flush)
+    del flush
+
+    cfg = TransformerConfig(**FLAGSHIP)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    fwd_counts = run_forward(params, cfg)
+    srv_counts = run_serving(params, cfg)
+
+    kernels = [
+        {"name": "paged_decode", "route": "cuda",
+         "source": "elephas_tpu_torch/csrc/paged_decode.cu",
+         "replaces": "elephas_tpu/ops/paged_attention.py:59",
+         "launches": srv_counts["paged_decode"],
+         **{k: paged[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms")}},
+        {"name": "flash_fwd", "route": "cuda",
+         "source": "elephas_tpu_torch/csrc/flash_fwd.cu",
+         "replaces": "elephas_tpu/ops/pallas_attention.py:55",
+         "launches": fwd_counts["flash_fwd"],
+         **{k: flash[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms")}},
+    ]
+    print(nvidia_smi(), flush=True)
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

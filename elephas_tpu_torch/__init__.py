@@ -1,0 +1,23 @@
+"""elephas_tpu_torch — the PyTorch and CUDA port of elephas_tpu.
+
+A package beside ``elephas_tpu`` (the JAX reference, which it never
+imports). Plain tensor code is PyTorch; every kernel the JAX package
+wrote in Pallas for the TPU becomes a hand-written CUDA kernel for
+Hopper (``csrc/``), built with ``nvcc`` at first use and bound with
+``ctypes``. Entry points run on the CUDA device unless the caller
+passes ``device="cpu"``; there the kernel wrappers take their plain
+PyTorch versions.
+
+Ported so far: the transformer's inference path (``forward`` with the
+flash-attention forward kernel, ``prefill_cache``), paged decode with
+the fused paged-attention kernel, and the paged ``DecodeEngine``.
+"""
+from .models.paged_decode import decode_step_paged, init_paged_pool
+from .models.transformer import (TransformerConfig, forward, init_params,
+                                 prefill_cache)
+from .serving_engine import DecodeEngine
+from .weights import from_numpy_tree, to_numpy_tree
+
+__all__ = ["TransformerConfig", "init_params", "forward", "prefill_cache",
+           "init_paged_pool", "decode_step_paged", "DecodeEngine",
+           "from_numpy_tree", "to_numpy_tree"]

@@ -1,0 +1,48 @@
+// Shared helpers for the port's hand-written Hopper kernels.
+//
+// Every kernel computes in f32 whatever its storage type, as the TPU
+// kernels it replaces do (f32 accumulators over bf16 or f32 operands).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace etpu {
+
+// The masking sentinel of the JAX package (ops/pallas_attention.py
+// NEG_INF): finite, so a fully masked row stays NaN-free.
+constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// The softmax weights enter the P.V product in the value dtype, as the
+// TPU kernels' ``p.astype(v.dtype)`` does; the row sum keeps f32.
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
+// Opt a kernel into more than 48 KB of dynamic shared memory.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace etpu

@@ -1,0 +1,124 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Marked ``gpu``: they need a CUDA device and the CUDA toolkit, and skip
+elsewhere. On a machine with the card:
+
+    python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
+
+The kernels are built from ``elephas_tpu_torch/csrc`` at first use.
+Tolerances: f32 kernels within 1e-4 of the f32 plain version (another
+summation order); bf16 kernels within 2e-2 of the f32 plain version on
+the same bf16-rounded inputs (the softmax weights enter the P.V product
+in bf16, as in the TPU kernels).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["causal", "noncausal", "gqa", "window",
+                                  "ragged", "hop"])
+def test_flash_kernel_matches_plain(cuda, case, dtype):
+    from elephas_tpu_torch.ops.flash_attention import (flash_forward,
+                                                       flash_forward_plain)
+    b, h, kvh, sq, sk, causal, window, qo, ko = {
+        "causal": (2, 4, 4, 130, 130, True, None, 0, 0),
+        "noncausal": (2, 4, 4, 130, 70, False, None, 0, 0),
+        "gqa": (2, 4, 1, 128, 128, True, None, 0, 0),
+        "window": (2, 4, 2, 200, 200, True, 33, 0, 0),
+        "ragged": (1, 4, 4, 77, 77, True, None, 0, 0),
+        "hop": (1, 4, 4, 64, 64, True, None, 128, 64),
+    }[case]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((b, h, sq, 64), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((b, kvh, sk, 64), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((b, kvh, sk, 64), generator=gen, device=cuda).to(dtype)
+    before = flash_forward.launches
+    o, lse = flash_forward(q, k, v, qo, ko, causal, window)
+    assert flash_forward.launches == before + 1
+    o_ref, lse_ref = flash_forward_plain(q.float(), k.float(), v.float(),
+                                         qo, ko, causal, window)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert o.dtype == dtype
+    torch.testing.assert_close(o.float(), o_ref, atol=tol, rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["base", "gqa", "window", "alibi"])
+def test_paged_kernel_matches_plain(cuda, case, dtype):
+    from elephas_tpu_torch.models.transformer import _alibi_slope_list
+    from elephas_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_plain)
+    kvh = 2 if case == "gqa" else 8
+    window = 21 if case == "window" else None
+    slopes = _alibi_slope_list(8) if case == "alibi" else None
+    b, h, d, bs, mb, nb = 4, 8, 64, 16, 8, 40
+    rng = np.random.default_rng(1)
+    tables = torch.as_tensor(
+        rng.permutation(np.arange(1, nb))[:b * mb].reshape(b, mb),
+        dtype=torch.int32, device=cuda)
+    tables[3] = 0                              # an inactive slot
+    pos = torch.as_tensor([0, 17, 127, 0], dtype=torch.int32, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn((b, h, d), generator=gen, device=cuda).to(dtype)
+    kp = torch.randn((nb, kvh, bs, d), generator=gen, device=cuda).to(dtype)
+    vp = torch.randn((nb, kvh, bs, d), generator=gen, device=cuda).to(dtype)
+    before = paged_decode_attention.launches
+    out = paged_decode_attention(q, kp, vp, tables, pos, window, slopes)
+    assert paged_decode_attention.launches == before + 1
+    ref = paged_decode_attention_plain(q.float(), kp.float(), vp.float(),
+                                       tables, pos, window, slopes)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref, atol=tol, rtol=0)
+
+
+def test_engine_fused_matches_gather_on_card(cuda):
+    from elephas_tpu_torch import DecodeEngine, TransformerConfig, init_params
+    cfg = TransformerConfig(vocab_size=128, num_layers=2, num_heads=4,
+                            d_model=256, d_ff=512, max_seq_len=96,
+                            dtype=torch.float32, num_kv_heads=2)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    prompts = [np.random.default_rng(i).integers(0, 128, n).tolist()
+               for i, n in enumerate((5, 40, 17, 63))]
+
+    def run(kernel, c=cfg):
+        eng = DecodeEngine(params, c, max_slots=2, paged=(24, 16),
+                           kernel=kernel)
+        return eng.run(prompts, 12), eng.stats
+
+    gather, _ = run("gather")
+    fused, stats = run("fused")
+    assert fused == gather
+    assert stats["kernel_launches"] > 0
+    bf16, _ = run("fused", dataclasses.replace(cfg, dtype=torch.bfloat16))
+    assert all(len(o) == 12 for o in bf16)
+
+
+def test_forward_flash_matches_plain_on_card(cuda):
+    from elephas_tpu_torch import TransformerConfig, forward, init_params
+    cfg = TransformerConfig(vocab_size=128, num_layers=2, num_heads=4,
+                            d_model=256, d_ff=512, max_seq_len=200,
+                            dtype=torch.float32, attention_window=50)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    tokens = torch.randint(0, 128, (2, 150), device=cuda)
+    flash = forward(params, tokens, dataclasses.replace(
+        cfg, attention_impl="flash"))
+    plain = forward(params, tokens, dataclasses.replace(
+        cfg, attention_impl="xla"))
+    torch.testing.assert_close(flash, plain, atol=1e-4, rtol=0)
