@@ -5,15 +5,19 @@
 Run from the repository root on a machine with a CUDA device and the
 CUDA toolkit. It builds the port's hand-written kernels from
 ``elephas_tpu_torch/csrc``, holds each kernel against its plain PyTorch
-version at the shapes the main path gives it, then drives the port's
-two entry points at the full width of the flagship LM config (vocab
-32000, 8 layers, 16 heads, d_model 1024, d_ff 4096; random weights from
-a seed): ``forward`` with the flash-attention kernel, and the paged
+version at the shapes the main paths give it, then drives the port's
+entry points at the full width of the flagship LM config (vocab 32000,
+8 layers, 16 heads, d_model 1024, d_ff 4096; random weights from a
+seed): ``forward`` with the flash-attention kernel; the paged
 ``DecodeEngine`` with the fused paged-attention kernel serving 16
-requests. Every phase prints one JSON line; any failure raises and the
-script exits non-zero without the final result line. The last three
-lines are the card's name and power limit as ``nvidia-smi`` reports
-them, the ``kernels`` summary, and ``{"ok": true, "device": ...}``.
+requests; one f32 ``lm_loss`` gradient with the flash kernels against
+the plain path; and training through ``TransformerModel.fit_tokens``
+(bf16, AdamW, batch 8 x 1024, two epochs) with the flash forward and
+backward kernels, after which the trained model serves two requests.
+Every phase prints one JSON line; any failure raises and the script
+exits non-zero without the final result line. The last three lines are
+the card's name and power limit as ``nvidia-smi`` reports them, the
+``kernels`` summary, and ``{"ok": true, "device": ...}``.
 
 No CPU path: without a CUDA device it exits non-zero at once.
 """
@@ -147,8 +151,8 @@ def check_paged(flush):
     flops = 4 * h * d * int(np.sum(pos + 1))
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = flops / PEAK_BF16_FLOPS * 1e3
-    results = {"max_abs_err": max(e["f32"] for e in errs.values()),
-               "max_abs_err_bf16": max(e["bf16"] for e in errs.values()),
+    results = {"max_abs_err": max(max(e.values()) for e in errs.values()),
+               "max_abs_err_f32": max(e["f32"] for e in errs.values()),
                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                "bound_ms": max(bytes_ms, ops_ms),
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -163,14 +167,15 @@ def check_paged(flush):
 
 def check_flash(flush):
     """The flash forward kernel against its plain version: the forward
-    path's shape (B 2, H 16, S 1024, D 64, causal), B 4, GQA, a window,
-    ragged lengths, and ring-hop offsets."""
+    path's shape (B 2, H 16, S 1024, D 64, causal), the training path's
+    (B 8), B 4, GQA, a window, ragged lengths, and ring-hop offsets."""
     from elephas_tpu_torch.ops.flash_attention import (flash_forward,
                                                        flash_forward_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     # name: (B, H, KVH, Sq, Sk, causal, window, q_offset, k_offset)
     cases = {"main": (2, 16, 16, 1024, 1024, True, None, 0, 0),
+             "train": (8, 16, 16, 1024, 1024, True, None, 0, 0),
              "b4": (4, 16, 16, 1024, 1024, True, None, 0, 0),
              "gqa": (4, 16, 4, 1024, 1024, True, None, 0, 0),
              "window": (4, 16, 16, 1024, 1024, True, 256, 0, 0),
@@ -223,10 +228,9 @@ def check_flash(flush):
     nbytes = 4 * b_m * h_m * s_m * 64 * 2 + b_m * h_m * s_m * 4
     ops_ms = flops / PEAK_BF16_FLOPS * 1e3
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    results = {"max_abs_err": max(max(e["o_f32"], e["lse_f32"])
-                                  for e in errs.values()),
-               "max_abs_err_bf16": max(max(e["o_bf16"], e["lse_bf16"])
-                                       for e in errs.values()),
+    results = {"max_abs_err": max(max(e.values()) for e in errs.values()),
+               "max_abs_err_f32": max(max(e["o_f32"], e["lse_f32"])
+                                      for e in errs.values()),
                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                "bound_ms": max(ops_ms, bytes_ms),
                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
@@ -241,18 +245,156 @@ def check_flash(flush):
     return results
 
 
+def library_flash_backward(q, k, v, g):
+    """One PyTorch call computing dQ, dK and dV together on these
+    tensors, as the yardstick (the port never calls it): the causal
+    flash-attention backward op behind SDPA, fed by its own forward."""
+    fwd = torch.ops.aten._scaled_dot_product_flash_attention(
+        q, k, v, 0.0, True)
+    out, lse, cq, ck, mq, mk, seed, offset = fwd[:8]
+    return lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+        g, q, k, v, out, lse, cq, ck, mq, mk, 0.0, True, seed, offset)
+
+
+def check_flash_bwd(flush):
+    """The dQ and dK/dV kernels against their plain versions over the
+    forward phase's cases, with the same lse/delta: f32, and bf16
+    against the f32 plain version on bf16-rounded inputs. Then, at the
+    training shape (B 8, H 16, S 1024, D 64, causal, bf16), each is held
+    against its plain version on the operands it is timed on."""
+    from elephas_tpu_torch.ops.flash_attention import (
+        flash_backward, flash_backward_plain, flash_dkv, flash_dkv_plain,
+        flash_dq, flash_dq_plain, flash_forward_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    # name: (B, H, KVH, Sq, Sk, causal, window, q_offset, k_offset)
+    cases = {"main": (2, 16, 16, 1024, 1024, True, None, 0, 0),
+             "b4": (4, 16, 16, 1024, 1024, True, None, 0, 0),
+             "gqa": (4, 16, 4, 1024, 1024, True, None, 0, 0),
+             "window": (4, 16, 16, 1024, 1024, True, 256, 0, 0),
+             "ragged": (4, 16, 16, 1000, 1000, True, None, 0, 0),
+             "noncausal_ragged": (2, 16, 16, 1000, 777, False, None, 0, 0),
+             "hop_past": (2, 16, 16, 512, 512, True, None, 1024, 512),
+             "hop_future": (2, 16, 16, 512, 512, True, None, 0, 512)}
+    # errors relative to max|ref| of each gradient: f32 another summation
+    # order; bf16 P and dS enter their products in bf16 (the TPU
+    # kernels' casts) over up to 1024 terms
+    tol = {"f32": 1e-4, "bf16": 2e-2}
+    errs = {}
+    for name, (b, h, kvh, sq, sk, causal, window, qo, ko) in cases.items():
+        shape_q, shape_k = (b, h, sq, 64), (b, kvh, sk, 64)
+        q, g = (torch.randn(shape_q, generator=gen, device="cuda")
+                for _ in range(2))
+        k, v = (torch.randn(shape_k, generator=gen, device="cuda")
+                for _ in range(2))
+        e = {}
+        for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            qt, kt, vt, gt = (t.to(dtype) for t in (q, k, v, g))
+            o, lse = flash_forward_plain(qt.float(), kt.float(), vt.float(),
+                                         qo, ko, causal, window)
+            delta = (gt.float() * o).sum(-1)
+            ref = flash_backward_plain(qt.float(), kt.float(), vt.float(),
+                                       gt.float(), lse, delta, qo, ko,
+                                       causal, window)
+            out = flash_backward(qt, kt, vt, gt, lse, delta, qo, ko, causal,
+                                 window)
+            torch.cuda.synchronize()
+            for part, got, want in zip(("dq", "dk", "dv"), out, ref):
+                require(got.dtype == dtype and bool(
+                    torch.isfinite(got.float()).all()),
+                    f"flash bwd {name} {dt} {part} finite, in {dtype}")
+                scale = float(want.abs().max())
+                err = max_err(got, want)
+                if name == "hop_future":
+                    # a hop wholly in the future: every gradient is zero
+                    require(scale == 0.0 and err == 0.0,
+                            f"flash bwd {name} {dt} {part} is zero")
+                rel = err / scale if scale else 0.0
+                require(rel <= tol[dt], f"flash bwd {name} {dt} {part} "
+                        f"err {err} > {tol[dt]} * {scale}")
+                e[f"{part}_{dt}"] = err
+                e[f"{part}_{dt}_rel"] = rel
+        errs[name] = e
+
+    # the training shape, bf16, cold L2
+    b, h, s, d = 8, 16, 1024, 64
+    q, k, v, g = (torch.randn((b, h, s, d), generator=gen, device="cuda")
+                  .bfloat16() for _ in range(4))
+    o, lse = flash_forward_plain(q, k, v, causal=True)
+    delta = (g.float() * o.float()).sum(-1)
+    args = (q, k, v, g, lse, delta)
+    # the main path's shape and dtype: each kernel against its plain
+    # version on the very operands timed below
+    e = {}
+    for part, got, want in zip(
+            ("dq", "dk", "dv"), (flash_dq(*args), *flash_dkv(*args)),
+            (flash_dq_plain(*args), *flash_dkv_plain(*args))):
+        scale = float(want.float().abs().max())
+        err = max_err(got, want)
+        require(bool(torch.isfinite(got.float()).all())
+                and err <= tol["bf16"] * scale,
+                f"flash bwd training shape {part} err {err} > "
+                f"{tol['bf16']} * {scale}")
+        e[f"{part}_bf16"] = err
+        e[f"{part}_bf16_rel"] = err / scale
+    errs["train"] = e
+    ms = {"dq": time_ms(lambda: flash_dq(*args), flush=flush),
+          "dkv": time_ms(lambda: flash_dkv(*args), flush=flush)}
+    plain_ms = {"dq": time_ms(lambda: flash_dq_plain(*args), flush=flush),
+                "dkv": time_ms(lambda: flash_dkv_plain(*args),
+                               flush=flush)}
+    lib_ms = time_ms(library_flash_backward(q, k, v, g), flush=flush)
+    pairs = b * h * s * (s + 1) // 2      # unmasked (q, k) pairs, causal
+    esize = 2
+    tensor = b * h * s * d * esize        # one of q, k, v, dO, dq, dk, dv
+    rows = 2 * b * h * s * 4              # lse and delta, f32
+    work = {"dq": (3 * 2 * d * pairs, 5 * tensor + rows),
+            "dkv": (4 * 2 * d * pairs, 6 * tensor + rows)}
+    grads = {"dq": ("dq",), "dkv": ("dk", "dv")}
+    results = {}
+    for part, (flops, nbytes) in work.items():
+        ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        results[part] = {
+            "max_abs_err": max(err for e in errs.values()
+                               for key, err in e.items()
+                               if key.split("_")[0] in grads[part]
+                               and not key.endswith("_rel")),
+            "max_abs_err_f32": max(e[f"{gr}_f32"] for e in errs.values()
+                                   for gr in grads[part] if f"{gr}_f32" in e),
+            "ms": ms[part], "plain_ms": plain_ms[part], "library_ms": lib_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "flops": flops, "bytes": nbytes,
+            "achieved_tflops": flops / (ms[part] * 1e-3) / 1e12}
+    emit({"phase": "flash_bwd_kernels", "errors": errs, **results,
+          "library": "aten._scaled_dot_product_flash_attention_backward",
+          "library_note": "one call computing dQ, dK and dV together: "
+                          "compare with dq ms + dkv ms",
+          "shape": {"B": b, "H": h, "S": s, "D": d, "causal": True,
+                    "dtype": "bfloat16"},
+          "tolerance_relative_to_max_ref": tol})
+    return results
+
+
 # ------------------------------------------------------------ main path
 def reset_counts():
-    from elephas_tpu_torch.ops.flash_attention import flash_forward
+    from elephas_tpu_torch.ops.flash_attention import (flash_backward,
+                                                       flash_forward)
     from elephas_tpu_torch.ops.paged_attention import paged_decode_attention
     flash_forward.launches = 0
+    flash_backward.dq_launches = 0
+    flash_backward.dkv_launches = 0
     paged_decode_attention.launches = 0
 
 
 def read_counts():
-    from elephas_tpu_torch.ops.flash_attention import flash_forward
+    from elephas_tpu_torch.ops.flash_attention import (flash_backward,
+                                                       flash_forward)
     from elephas_tpu_torch.ops.paged_attention import paged_decode_attention
     return {"flash_fwd": flash_forward.launches,
+            "flash_dq": flash_backward.dq_launches,
+            "flash_dkv": flash_backward.dkv_launches,
             "paged_decode": paged_decode_attention.launches}
 
 
@@ -349,6 +491,19 @@ def tie_aware_equal(params, cfg, prompts, ref, out):
     return ties
 
 
+def greedy_plain(params, cfg, prompt, n):
+    """``n`` greedy tokens after ``prompt`` from the plain f32 forward
+    over the whole sequence at every step (no KV cache, no kernel)."""
+    from elephas_tpu_torch.models.transformer import forward
+
+    c32 = dataclasses.replace(cfg, dtype=torch.float32, attention_impl="xla")
+    seq = list(prompt)
+    for _ in range(n):
+        logits = forward(params, torch.as_tensor([seq], device="cuda"), c32)
+        seq.append(int(logits[0, -1].argmax()))
+    return seq[len(prompt):]
+
+
 def run_serving(params, cfg):
     """The paged engine at full width: 16 requests of 64-512 prompt
     tokens, 64 new tokens each, 8 slots, a pool of 512 usable blocks of
@@ -386,6 +541,123 @@ def run_serving(params, cfg):
     return counts
 
 
+def run_train_parity(params, cfg):
+    """One f32 ``lm_loss`` value and gradient at full width, B 2 x 1024,
+    through the flash kernels (f32 bodies) against the plain attention
+    path; each leaf's error relative to that leaf's max |gradient|."""
+    from elephas_tpu_torch.models.transformer import lm_loss_and_grads
+
+    tokens = torch.as_tensor(
+        np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 1024)),
+        device="cuda")
+    out = {}
+    for impl in ("flash", "xla"):
+        c = dataclasses.replace(cfg, dtype=torch.float32,
+                                attention_impl=impl)
+        loss, grads = lm_loss_and_grads(params, tokens, c)
+        out[impl] = (float(loss), grads)
+    (fl, fg), (pl, pg) = out["flash"], out["xla"]
+    rel = [max_err(a, b) / max(float(b.abs().max()), 1e-30)
+           for a, b in zip(fg, pg)]
+    tol = 1e-3
+    require(np.isfinite(fl) and abs(fl - pl) <= 1e-4,
+            f"f32 loss flash {fl} vs plain {pl}")
+    require(max(rel) <= tol, f"f32 gradient rel err {max(rel)} <= {tol}")
+    emit({"phase": "train_parity", "batch": 2, "seq": 1024,
+          "loss_flash": fl, "loss_plain": pl, "loss_diff": abs(fl - pl),
+          "max_grad_rel_err": max(rel), "leaves": len(rel),
+          "tolerance": {"loss_abs": 1e-4, "grad_rel_to_leaf_max": tol}})
+
+
+def flops_per_token(cfg, seq: int) -> float:
+    """bench.py's model FLOPs per trained token (PaLM accounting):
+    3 x (2 x matmul params + attention scores and values)."""
+    p_matmul = (cfg.num_layers * (4 * cfg.d_model * cfg.d_model
+                                  + 2 * cfg.d_model * cfg.d_ff)
+                + cfg.d_model * cfg.vocab_size)
+    attn = 2 * 2 * (seq / 2) * cfg.d_model
+    return 3 * (2 * p_matmul + cfg.num_layers * attn)
+
+
+def run_train(cfg):
+    """The slice's main path: ``TransformerModel(...).compile(AdamW)``
+    and ``fit_tokens`` at batch 8 x 1024, bf16 over f32 weights, two
+    epochs of four steps over one seeded token set (Zipf-distributed
+    ids, so the loss has somewhere to go). Then the trained model serves
+    two requests through the paged engine: in f32 its greedy tokens must
+    equal the plain forward's argmax and its sampled tokens the gather
+    engine's; in bf16 through ``model.engine``."""
+    from elephas_tpu_torch.models.optimizers import AdamW
+    from elephas_tpu_torch.models.transformer_model import TransformerModel
+    from elephas_tpu_torch.serving_engine import DecodeEngine
+
+    batch, seq, rows, epochs = 8, 1024, 32, 2
+    rng = np.random.default_rng(7)
+    ranks = np.arange(1, cfg.vocab_size + 1, dtype=np.float64)
+    probs = ranks ** -1.1
+    tokens = rng.choice(cfg.vocab_size, size=(rows, seq),
+                        p=probs / probs.sum())
+    model = TransformerModel(cfg, device="cuda").compile(
+        AdamW(3e-4, epsilon=1e-8, weight_decay=1e-4, decay_1d=True), seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    hist = model.fit_tokens(tokens, epochs=epochs, batch_size=batch, seed=0)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    steps = epochs * (rows // batch)
+    losses = hist["loss"]
+    require(all(np.isfinite(losses)), f"finite losses {losses}")
+    require(losses[1] < losses[0], f"epoch 2 loss below epoch 1: {losses}")
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        require(counts[name] == cfg.num_layers * steps,
+                f"{name} launched {cfg.num_layers} times per step: {counts}")
+    step_s = hist["epoch_time"][1] / (rows // batch)
+    tok_s = batch * seq / step_s
+    mfu = flops_per_token(cfg, seq) * tok_s / PEAK_BF16_FLOPS
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # the trained weights through the paged engine, in f32: the fused
+    # kernel's greedy tokens equal the plain forward's argmax
+    # (tie-aware), and, sampled at temperature 1 from one seed (tokens
+    # that vary, where a model this young answers greedy with its most
+    # frequent id), the fused engine's tokens equal the gather engine's;
+    # then the bf16 engine, as a user would build it, serves
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (20, 45)]
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+
+    def engine32(kernel, temperature=0.0):
+        return DecodeEngine(model.params, c32, max_slots=2, paged=(16, 16),
+                            kernel=kernel, temperature=temperature, seed=1,
+                            device="cuda")
+
+    oracle = [greedy_plain(model.params, cfg, p, 8) for p in prompts]
+    fused32 = engine32("fused").run(prompts, 8)
+    ties = tie_aware_equal(model.params, cfg, prompts, oracle, fused32)
+    sampled = {k: engine32(k, 1.0).run(prompts, 8)
+               for k in ("gather", "fused")}
+    require(sampled["fused"] == sampled["gather"],
+            f"f32 sampled tokens, fused vs gather: {sampled}")
+    require(len({t for o in sampled["fused"] for t in o}) > 1,
+            f"the sampled check saw more than one token id: {sampled}")
+    eng = model.engine(max_slots=2, paged=(16, 16), kernel="fused")
+    outs = eng.run(prompts, 8)
+    require(all(len(o) == 8 for o in outs) and all(
+        0 <= t < cfg.vocab_size for o in outs for t in o),
+        f"the trained model served 2 requests: {outs}")
+    emit({"phase": "train", "batch": batch, "seq": seq, "steps": steps,
+          "epoch_losses": losses, "epoch_time_s": hist["epoch_time"],
+          "ms_per_step": step_s * 1e3, "tokens_per_s": tok_s,
+          "flops_per_token": flops_per_token(cfg, seq), "mfu": mfu,
+          "peak_memory_gib": peak_gb, "launches": counts,
+          "launches_per_step": {k: counts[k] / steps
+                                for k in ("flash_fwd", "flash_dq",
+                                          "flash_dkv")},
+          "served_f32": fused32, "plain_argmax_f32": oracle,
+          "f32_near_tie_divergences": ties,
+          "sampled_f32_fused": sampled["fused"], "served": outs})
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -417,6 +689,7 @@ def main() -> int:
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
     paged = check_paged(flush)
     flash = check_flash(flush)
+    bwd = check_flash_bwd(flush)
     del flush
 
     cfg = TransformerConfig(**FLAGSHIP)
@@ -424,7 +697,12 @@ def main() -> int:
                          device="cuda")
     fwd_counts = run_forward(params, cfg)
     srv_counts = run_serving(params, cfg)
+    run_train_parity(params, cfg)
+    del params
+    train_counts = run_train(cfg)
 
+    # max_abs_err: the largest error of any comparison this run made for
+    # the kernel, f32 and bf16, at the main paths' shapes included
     kernels = [
         {"name": "paged_decode", "route": "cuda",
          "source": "elephas_tpu_torch/csrc/paged_decode.cu",
@@ -438,6 +716,14 @@ def main() -> int:
          "launches": fwd_counts["flash_fwd"],
          **{k: flash[k] for k in ("max_abs_err", "ms", "plain_ms",
                                   "bound_ms", "bound_by", "library_ms")}},
+        *({"name": f"flash_{part}", "route": "cuda",
+           "source": "elephas_tpu_torch/csrc/flash_bwd.cu",
+           "replaces": f"elephas_tpu/ops/pallas_attention.py:{line}",
+           "launches": train_counts[f"flash_{part}"],
+           **{k: bwd[part][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")}}
+          for part, line in (("dq", 196), ("dkv", 243))),
     ]
     print(nvidia_smi(), flush=True)
     emit({"kernels": kernels})

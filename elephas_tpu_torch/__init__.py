@@ -10,14 +10,20 @@ PyTorch versions.
 
 Ported so far: the transformer's inference path (``forward`` with the
 flash-attention forward kernel, ``prefill_cache``), paged decode with
-the fused paged-attention kernel, and the paged ``DecodeEngine``.
+the fused paged-attention kernel, the paged ``DecodeEngine``, and
+single-device LM training (``lm_loss``, ``make_train_step``, the SGD /
+Adam / AdamW optimizers and ``TransformerModel``) with the
+flash-attention backward kernels.
 """
+from .models.optimizers import SGD, Adam, AdamW
 from .models.paged_decode import decode_step_paged, init_paged_pool
 from .models.transformer import (TransformerConfig, forward, init_params,
-                                 prefill_cache)
+                                 lm_loss, make_train_step, prefill_cache)
+from .models.transformer_model import TransformerModel
 from .serving_engine import DecodeEngine
 from .weights import from_numpy_tree, to_numpy_tree
 
 __all__ = ["TransformerConfig", "init_params", "forward", "prefill_cache",
-           "init_paged_pool", "decode_step_paged", "DecodeEngine",
+           "lm_loss", "make_train_step", "TransformerModel", "SGD", "Adam",
+           "AdamW", "init_paged_pool", "decode_step_paged", "DecodeEngine",
            "from_numpy_tree", "to_numpy_tree"]

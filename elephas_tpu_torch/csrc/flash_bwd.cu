@@ -1,0 +1,727 @@
+// Flash-attention backward for Hopper (sm_90a): the dQ and dK/dV kernels.
+//
+// Replaces the TPU kernels `_dq_kernel` and `_dkv_kernel` in
+// elephas_tpu/ops/pallas_attention.py (launched by `_bwd_calls`). Given
+// q, k, v, dO, the forward's per-row logsumexp and delta = rowsum(dO*O)
+// (computed outside, and possibly GLOBAL row statistics of a ring), they
+// recompute the probabilities tile by tile and accumulate, in f32,
+//
+//   P = exp(S - lse),  dP = dO V^T,  dS = P * (dP - delta) * scale,
+//   dQ = dS K,  dK = dS^T Q,  dV = P^T dO,
+//
+// masked on global positions (q_offset / k_offset) with the causal and
+// sliding-window rules. Ragged lengths are masked in the kernel, never
+// padded in memory: keys k >= Sk and query rows q >= Sq (whose lse is
+// not a statistic of anything) contribute nothing. A fully masked row
+// (lse ~ -1e30) never reaches the exponential. GQA maps each query head
+// to its kv row; every query head of a group adds into its kv head.
+//
+// Design. The JAX split into two kernels is kept; neither needs atomics,
+// so two runs give the same bits.
+// - dQ: one CTA per (batch*head, 64-row q tile) loops over the 64-row
+//   K/V tiles from the window's lower edge up to the causal diagonal and
+//   keeps dQ in registers, written once.
+// - dK/dV: one CTA per (batch*kv_head, 64-row k tile) loops over the
+//   group's query heads and, for each, over the q tiles that can see
+//   this k tile (the kv-major grid of `_bwd_calls`), keeping dK and dV
+//   in registers, written once.
+// Two bodies share that structure:
+// - bf16 (the working type): 4 warps, each owning 16 rows of the CTA's
+//   tile. All products run on the tensor cores as 16x16x16 WMMA (bf16
+//   in, f32 accumulate) and the accumulators stay in WMMA fragments
+//   across the loop. S and dP pass through per-warp f32 scratch in
+//   shared memory for the masked elementwise step (a fragment's element
+//   layout is opaque), which writes P and dS back in bf16: the casts of
+//   the TPU kernels (`ds.astype(k.dtype)`, `p.astype(do.dtype)`).
+// - f32: 256 threads on the CUDA cores, each holding a 4x4 block of the
+//   64x64 score tile and a 4x(D/16) block of every accumulator.
+//
+// What bounds it on the H100. At the training shape (B 8, H 16, S 1024,
+// D 64, causal, bf16) dQ needs 3 products (S, dP, dQ) and dK/dV 4 (S,
+// dP, dV, dK) of 2*D flops per unmasked (q, k) pair: 25.8 and 34.4
+// GFLOP against about 85 and 102 MB of inputs and outputs, so both sit
+// at the ridge (dQ: 0.026 ms of operations at 989 TFLOP/s, 0.025 ms of
+// bytes at 3.35 TB/s). This first design reaches the tensor cores
+// through mma.sync-class WMMA at 16x16x16, with one blocking tile load
+// and a few barriers per tile and the elementwise step through shared
+// memory. Left for later: wgmma on TMA-staged, double-buffered tiles
+// with the elementwise step kept in registers.
+#include <mma.h>
+
+#include "common.cuh"
+
+namespace {
+
+using namespace etpu;
+namespace wmma = nvcuda::wmma;
+using bf16 = __nv_bfloat16;
+
+constexpr int BQ = 64;          // query rows per tile
+constexpr int BK = 64;          // key rows per tile
+constexpr int WARPS = 4;        // bf16 body: each warp owns 16 rows
+constexpr int WTHREADS = 32 * WARPS;
+constexpr int THREADS = 256;    // f32 body: 16 x 16 threads, 4 x 4 each
+
+using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
+                             wmma::row_major>;
+using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
+                                wmma::row_major>;
+using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
+                                wmma::col_major>;
+using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+// Whole-tile liveness on global positions: the TPU kernels'
+// `diag_reached` (and the window's `in_band`); uniform over a CTA.
+__device__ __forceinline__ bool tile_live(int q0, int k0, int q_offset,
+                                          int k_offset, int causal,
+                                          int window) {
+  bool live = !causal || (k_offset + k0 <= q_offset + q0 + BQ - 1);
+  if (window > 0)
+    live = live && (k_offset + k0 + BK - 1 > q_offset + q0 - window);
+  return live;
+}
+
+// Element validity: key and query in range, causal and window on global
+// positions.
+__device__ __forceinline__ bool pair_valid(int ql, int kl, int Sq, int Sk,
+                                           int q_offset, int k_offset,
+                                           int causal, int window) {
+  const int qg = q_offset + ql, kg = k_offset + kl;
+  bool ok = ql < Sq && kl < Sk;
+  if (causal) ok = ok && kg <= qg;
+  if (window > 0) ok = ok && kg > qg - window;
+  return ok;
+}
+
+// lse and delta of query rows [q0, q0 + BQ) into shared memory; rows past
+// Sq read 0 (they are masked out of every product).
+template <int NT>
+__device__ __forceinline__ void stage_stats(float* lse_s, float* delta_s,
+                                            const float* lse,
+                                            const float* delta, int q0,
+                                            int Sq) {
+  for (int i = threadIdx.x; i < BQ; i += NT) {
+    const bool in = q0 + i < Sq;
+    lse_s[i] = in ? lse[q0 + i] : 0.f;
+    delta_s[i] = in ? delta[q0 + i] : 0.f;
+  }
+}
+
+// ------------------------------------------------------ bf16, WMMA body
+template <int D>
+struct WmmaLayout {
+  // bf16 strides pad by 8 elements (16 bytes): rows stay 16-byte aligned
+  // for vector stores and 32-byte aligned at every 16-row fragment
+  static constexpr int LDT = D + 8;                  // Q, dO, K, V tiles
+  static constexpr int LDP = BK + 8;                 // P, dS (64 columns)
+  static constexpr int LDS = (D > BK ? D : BK) + 4;  // f32 scratch
+  // four operand tiles, P and dS, the S and dP scratch, lse and delta
+  static constexpr size_t bytes =
+      sizeof(bf16) * ((size_t)4 * 64 * LDT + (size_t)2 * 64 * LDP) +
+      sizeof(float) * ((size_t)2 * 64 * LDS + 2 * 64);
+};
+
+template <int D>
+struct WmmaSmem {
+  bf16 *a, *b, *c, *d, *p, *ds;
+  float *s, *dp, *lse, *delta;
+  __device__ explicit WmmaSmem(unsigned char* raw) {
+    using L = WmmaLayout<D>;
+    a = reinterpret_cast<bf16*>(raw);
+    b = a + 64 * L::LDT;
+    c = b + 64 * L::LDT;
+    d = c + 64 * L::LDT;
+    p = d + 64 * L::LDT;
+    ds = p + 64 * L::LDP;
+    s = reinterpret_cast<float*>(ds + 64 * L::LDP);
+    dp = s + 64 * L::LDS;
+    lse = dp + 64 * L::LDS;
+    delta = lse + 64;
+  }
+};
+
+// Two 16 x 64 products of one warp into its f32 scratch rows:
+//   out1 = A1 B1^T, out2 = A2 B2^T, with A1/A2 as KD fragments along the
+// head dim and B1/B2 64-row tiles (row stride LDT) read transposed.
+template <int D>
+__device__ __forceinline__ void scores_and_dp(const FragA* a1,
+                                              const FragA* a2,
+                                              const bf16* b1, const bf16* b2,
+                                              float* out1, float* out2) {
+  using L = WmmaLayout<D>;
+  constexpr int KD = D / 16;
+#pragma unroll
+  for (int n = 0; n < 64 / 16; ++n) {
+    FragC f1, f2;
+    wmma::fill_fragment(f1, 0.f);
+    wmma::fill_fragment(f2, 0.f);
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      FragBCol bf;
+      wmma::load_matrix_sync(bf, b1 + n * 16 * L::LDT + kk * 16, L::LDT);
+      wmma::mma_sync(f1, a1[kk], bf, f1);
+      wmma::load_matrix_sync(bf, b2 + n * 16 * L::LDT + kk * 16, L::LDT);
+      wmma::mma_sync(f2, a2[kk], bf, f2);
+    }
+    wmma::store_matrix_sync(out1 + n * 16, f1, L::LDS, wmma::mem_row_major);
+    wmma::store_matrix_sync(out2 + n * 16, f2, L::LDS, wmma::mem_row_major);
+  }
+}
+
+// acc[dn] += A (16 x 64, bf16 rows of stride LDP) . B (64 x D tile, row
+// stride LDT), for the warp's 16 rows.
+template <int D>
+__device__ __forceinline__ void accumulate(FragC* acc, const bf16* a,
+                                           const bf16* b) {
+  using L = WmmaLayout<D>;
+#pragma unroll
+  for (int kk = 0; kk < 64 / 16; ++kk) {
+    FragA af;
+    wmma::load_matrix_sync(af, a + kk * 16, L::LDP);
+#pragma unroll
+    for (int dn = 0; dn < D / 16; ++dn) {
+      FragBRow bf;
+      wmma::load_matrix_sync(bf, b + kk * 16 * L::LDT + dn * 16, L::LDT);
+      wmma::mma_sync(acc[dn], af, bf, acc[dn]);
+    }
+  }
+}
+
+// The warp's 16 x D accumulator -> rows [row0, row0 + 16) of a (rows, D)
+// bf16 matrix, through its f32 scratch (rows past `limit` are dropped).
+template <int D>
+__device__ __forceinline__ void write_rows(const FragC* acc, float* scratch,
+                                           bf16* out, int row0, int limit) {
+  using L = WmmaLayout<D>;
+  const int lane = threadIdx.x % 32;
+  __syncwarp();
+#pragma unroll
+  for (int dn = 0; dn < D / 16; ++dn)
+    wmma::store_matrix_sync(scratch + dn * 16, acc[dn], L::LDS,
+                            wmma::mem_row_major);
+  __syncwarp();
+  const int r = lane >> 1, half = lane & 1;
+  if (row0 + r < limit) {
+    const float* src = scratch + r * L::LDS + half * (D / 2);
+    bf16* dst = out + (size_t)(row0 + r) * D + half * (D / 2);
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) dst[j] = __float2bfloat16(src[j]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(WTHREADS)
+    flash_dq_wmma_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dq, int H, int KVH, int Sq,
+                         int Sk, int q_offset, int k_offset, int causal,
+                         int window, float scale) {
+  using L = WmmaLayout<D>;
+  constexpr int KD = D / 16;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const WmmaSmem<D> sm(smem_raw);
+  bf16 *Qs = sm.a, *dOs = sm.b, *Ks = sm.c, *Vs = sm.d;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * BQ;
+  const int h = bh % H;
+  // GQA: query row bh = b*H + h reads kv row b*KVH + h / (H / KVH)
+  const int kv_row = (bh / H) * KVH + h / (H / KVH);
+  const bf16* kp = k + (size_t)kv_row * Sk * D;
+  const bf16* vp = v + (size_t)kv_row * Sk * D;
+
+  stage_rows<D, L::LDT, WTHREADS>(Qs, q + (size_t)bh * Sq * D, q0, BQ, Sq);
+  stage_rows<D, L::LDT, WTHREADS>(dOs, dout + (size_t)bh * Sq * D, q0, BQ,
+                                  Sq);
+  stage_stats<WTHREADS>(sm.lse, sm.delta, lse + (size_t)bh * Sq,
+                        delta + (size_t)bh * Sq, q0, Sq);
+  __syncthreads();
+  FragA qf[KD], dof[KD];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) {
+    wmma::load_matrix_sync(qf[kk], Qs + warp * 16 * L::LDT + kk * 16,
+                           L::LDT);
+    wmma::load_matrix_sync(dof[kk], dOs + warp * 16 * L::LDT + kk * 16,
+                           L::LDT);
+  }
+  FragC acc[KD];
+#pragma unroll
+  for (int dn = 0; dn < KD; ++dn) wmma::fill_fragment(acc[dn], 0.f);
+
+  float* Sw = sm.s + warp * 16 * L::LDS;   // this warp's 16-row scratch
+  float* DPw = sm.dp + warp * 16 * L::LDS;
+  bf16* DSw = sm.ds + warp * 16 * L::LDP;
+  const int rl = lane >> 1;               // the lane pair's row
+  const int half = lane & 1;              // which 32 columns it owns
+  const int ql = q0 + warp * 16 + rl;     // local query row
+  const float row_lse = sm.lse[warp * 16 + rl];
+  const float row_delta = sm.delta[warp * 16 + rl];
+
+  const int nk = (Sk + BK - 1) / BK;
+  for (int kj = 0; kj < nk; ++kj) {
+    const int k0 = kj * BK;
+    if (!tile_live(q0, k0, q_offset, k_offset, causal, window)) continue;
+    __syncthreads();  // every warp is done with the previous K/V tile
+    stage_rows<D, L::LDT, WTHREADS>(Ks, kp, k0, BK, Sk);
+    stage_rows<D, L::LDT, WTHREADS>(Vs, vp, k0, BK, Sk);
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T for this warp's 16 rows x 64 keys
+    scores_and_dp<D>(qf, dof, Ks, Vs, Sw, DPw);
+    __syncwarp();
+#pragma unroll 8
+    for (int c = 0; c < 32; ++c) {
+      const int col = half * 32 + c;
+      float ds = 0.f;
+      if (pair_valid(ql, k0 + col, Sq, Sk, q_offset, k_offset, causal,
+                     window)) {
+        const float p = expf(Sw[rl * L::LDS + col] * scale - row_lse);
+        ds = p * (DPw[rl * L::LDS + col] - row_delta) * scale;
+      }
+      DSw[rl * L::LDP + col] = __float2bfloat16(ds);
+    }
+    __syncwarp();
+    accumulate<D>(acc, DSw, Ks);          // dQ += dS K
+  }
+  write_rows<D>(acc, Sw, dq + (size_t)bh * Sq * D, q0 + warp * 16, Sq);
+}
+
+template <int D>
+__global__ void __launch_bounds__(WTHREADS)
+    flash_dkv_wmma_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const bf16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv,
+                          int H, int KVH, int Sq, int Sk, int q_offset,
+                          int k_offset, int causal, int window,
+                          float scale) {
+  using L = WmmaLayout<D>;
+  constexpr int KD = D / 16;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const WmmaSmem<D> sm(smem_raw);
+  bf16 *Ks = sm.a, *Vs = sm.b, *Qs = sm.c, *dOs = sm.d;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int bkv = blockIdx.y;
+  const int k0 = blockIdx.x * BK;
+  const int grp = H / KVH;
+  // the group's query heads: rows b*H + kh*grp + g
+  const int qrow0 = (bkv / KVH) * H + (bkv % KVH) * grp;
+
+  stage_rows<D, L::LDT, WTHREADS>(Ks, k + (size_t)bkv * Sk * D, k0, BK, Sk);
+  stage_rows<D, L::LDT, WTHREADS>(Vs, v + (size_t)bkv * Sk * D, k0, BK, Sk);
+  __syncthreads();
+  FragA kf[KD], vf[KD];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) {
+    wmma::load_matrix_sync(kf[kk], Ks + warp * 16 * L::LDT + kk * 16,
+                           L::LDT);
+    wmma::load_matrix_sync(vf[kk], Vs + warp * 16 * L::LDT + kk * 16,
+                           L::LDT);
+  }
+  FragC dk_acc[KD], dv_acc[KD];
+#pragma unroll
+  for (int dn = 0; dn < KD; ++dn) {
+    wmma::fill_fragment(dk_acc[dn], 0.f);
+    wmma::fill_fragment(dv_acc[dn], 0.f);
+  }
+
+  float* Sw = sm.s + warp * 16 * L::LDS;   // S^T: 16 keys x 64 queries
+  float* DPw = sm.dp + warp * 16 * L::LDS;
+  bf16* Pw = sm.p + warp * 16 * L::LDP;
+  bf16* DSw = sm.ds + warp * 16 * L::LDP;
+  const int rl = lane >> 1, half = lane & 1;
+  const int kl = k0 + warp * 16 + rl;     // this lane pair's local key
+
+  const int nq = (Sq + BQ - 1) / BQ;
+  for (int g = 0; g < grp; ++g) {
+    const size_t bh = (size_t)qrow0 + g;
+    for (int qi = 0; qi < nq; ++qi) {
+      const int q0 = qi * BQ;
+      if (!tile_live(q0, k0, q_offset, k_offset, causal, window)) continue;
+      __syncthreads();  // every warp is done with the previous Q/dO tile
+      stage_rows<D, L::LDT, WTHREADS>(Qs, q + bh * Sq * D, q0, BQ, Sq);
+      stage_rows<D, L::LDT, WTHREADS>(dOs, dout + bh * Sq * D, q0, BQ, Sq);
+      stage_stats<WTHREADS>(sm.lse, sm.delta, lse + bh * Sq,
+                            delta + bh * Sq, q0, Sq);
+      __syncthreads();
+
+      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x 64 queries
+      scores_and_dp<D>(kf, vf, Qs, dOs, Sw, DPw);
+      __syncwarp();
+#pragma unroll 8
+      for (int c = 0; c < 32; ++c) {
+        const int col = half * 32 + c;  // query row within the tile
+        float p = 0.f, ds = 0.f;
+        if (pair_valid(q0 + col, kl, Sq, Sk, q_offset, k_offset, causal,
+                       window)) {
+          p = expf(Sw[rl * L::LDS + col] * scale - sm.lse[col]);
+          ds = p * (DPw[rl * L::LDS + col] - sm.delta[col]) * scale;
+        }
+        Pw[rl * L::LDP + col] = __float2bfloat16(p);
+        DSw[rl * L::LDP + col] = __float2bfloat16(ds);
+      }
+      __syncwarp();
+      accumulate<D>(dv_acc, Pw, dOs);     // dV += P^T dO
+      accumulate<D>(dk_acc, DSw, Qs);     // dK += dS^T Q
+    }
+  }
+  const size_t base = (size_t)bkv * Sk * D;
+  write_rows<D>(dk_acc, Sw, dk + base, k0 + warp * 16, Sk);
+  write_rows<D>(dv_acc, DPw, dv + base, k0 + warp * 16, Sk);
+}
+
+// ------------------------------------------------------- f32, CUDA cores
+template <int D>
+struct F32Layout {
+  static constexpr int LD = D + 1;   // operand tiles; +1 spreads banks
+  static constexpr int LDP = BK + 1;
+  // four operand tiles, two 64 x 64 probability tiles, lse and delta
+  static constexpr size_t bytes =
+      sizeof(float) * ((size_t)4 * 64 * LD + (size_t)2 * 64 * LDP + 2 * 64);
+};
+
+template <int D>
+struct F32Smem {
+  float *a, *b, *c, *d, *p, *ds, *lse, *delta;
+  __device__ explicit F32Smem(float* raw) {
+    using L = F32Layout<D>;
+    a = raw;
+    b = a + 64 * L::LD;
+    c = b + 64 * L::LD;
+    d = c + 64 * L::LD;
+    p = d + 64 * L::LD;
+    ds = p + 64 * L::LDP;
+    lse = ds + 64 * L::LDP;
+    delta = lse + 64;
+  }
+};
+
+// The thread's 4 x 4 blocks of X1 Y1^T and X2 Y2^T: rows ty*4 + i of the
+// X tiles against rows tx + 16*j of the Y tiles (all stride LD).
+template <int D>
+__device__ __forceinline__ void dots4x4(const float* x1, const float* y1,
+                                        const float* x2, const float* y2,
+                                        int ty, int tx, float (&o1)[4][4],
+                                        float (&o2)[4][4]) {
+  constexpr int LD = F32Layout<D>::LD;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o1[i][j] = o2[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float a1[4], a2[4], b1[4], b2[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a1[i] = x1[(ty * 4 + i) * LD + d];
+      a2[i] = x2[(ty * 4 + i) * LD + d];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      b1[j] = y1[(tx + 16 * j) * LD + d];
+      b2[j] = y2[(tx + 16 * j) * LD + d];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        o1[i][j] = fmaf(a1[i], b1[j], o1[i][j]);
+        o2[i][j] = fmaf(a2[i], b2[j], o2[i][j]);
+      }
+  }
+}
+
+// acc[i][j] += sum_c P[ty*4 + i][c] * Y[c][tx + 16*j] over the 64 rows
+// of the Y tile.
+template <int D>
+__device__ __forceinline__ void accumulate4(float (&acc)[4][D / 16],
+                                            const float* p, const float* y,
+                                            int ty, int tx) {
+  constexpr int LD = F32Layout<D>::LD, LDP = F32Layout<D>::LDP;
+#pragma unroll 4
+  for (int c = 0; c < 64; ++c) {
+    float pv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pv[i] = p[(ty * 4 + i) * LDP + c];
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) {
+      const float yv = y[c * LD + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], yv, acc[i][j]);
+    }
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void write4(const float (&acc)[4][D / 16],
+                                       float* out, int row0, int limit,
+                                       int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = row0 + ty * 4 + i;
+    if (r >= limit) continue;
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j)
+      out[(size_t)r * D + tx + 16 * j] = acc[i][j];
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+    flash_dq_f32_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dq, int H, int KVH, int Sq,
+                        int Sk, int q_offset, int k_offset, int causal,
+                        int window, float scale) {
+  using L = F32Layout<D>;
+  extern __shared__ float smem_f[];
+  const F32Smem<D> sm(smem_f);
+  float *Qs = sm.a, *dOs = sm.b, *Ks = sm.c, *Vs = sm.d;
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * BQ;
+  const int h = bh % H;
+  const int kv_row = (bh / H) * KVH + h / (H / KVH);
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+
+  stage_rows<D, L::LD, THREADS>(Qs, q + (size_t)bh * Sq * D, q0, BQ, Sq);
+  stage_rows<D, L::LD, THREADS>(dOs, dout + (size_t)bh * Sq * D, q0, BQ,
+                                Sq);
+  stage_stats<THREADS>(sm.lse, sm.delta, lse + (size_t)bh * Sq,
+                       delta + (size_t)bh * Sq, q0, Sq);
+  float acc[4][D / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
+
+  const int nk = (Sk + BK - 1) / BK;
+  for (int kj = 0; kj < nk; ++kj) {
+    const int k0 = kj * BK;
+    if (!tile_live(q0, k0, q_offset, k_offset, causal, window)) continue;
+    __syncthreads();
+    stage_rows<D, L::LD, THREADS>(Ks, k + (size_t)kv_row * Sk * D, k0, BK,
+                                  Sk);
+    stage_rows<D, L::LD, THREADS>(Vs, v + (size_t)kv_row * Sk * D, k0, BK,
+                                  Sk);
+    __syncthreads();
+    float s[4][4], dp[4][4];
+    dots4x4<D>(Qs, Ks, dOs, Vs, ty, tx, s, dp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty * 4 + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        float ds = 0.f;
+        if (pair_valid(q0 + r, k0 + c, Sq, Sk, q_offset, k_offset, causal,
+                       window)) {
+          const float p = expf(s[i][j] * scale - sm.lse[r]);
+          ds = p * (dp[i][j] - sm.delta[r]) * scale;
+        }
+        sm.ds[r * L::LDP + c] = ds;
+      }
+    }
+    __syncthreads();
+    accumulate4<D>(acc, sm.ds, Ks, ty, tx);   // dQ += dS K
+  }
+  write4<D>(acc, dq + (size_t)bh * Sq * D, q0, Sq, ty, tx);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+    flash_dkv_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         int H, int KVH, int Sq, int Sk, int q_offset,
+                         int k_offset, int causal, int window,
+                         float scale) {
+  using L = F32Layout<D>;
+  extern __shared__ float smem_f[];
+  const F32Smem<D> sm(smem_f);
+  float *Ks = sm.a, *Vs = sm.b, *Qs = sm.c, *dOs = sm.d;
+  const int bkv = blockIdx.y;
+  const int k0 = blockIdx.x * BK;
+  const int grp = H / KVH;
+  const int qrow0 = (bkv / KVH) * H + (bkv % KVH) * grp;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+
+  stage_rows<D, L::LD, THREADS>(Ks, k + (size_t)bkv * Sk * D, k0, BK, Sk);
+  stage_rows<D, L::LD, THREADS>(Vs, v + (size_t)bkv * Sk * D, k0, BK, Sk);
+  float dk_acc[4][D / 16], dv_acc[4][D / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+
+  const int nq = (Sq + BQ - 1) / BQ;
+  for (int g = 0; g < grp; ++g) {
+    const size_t bh = (size_t)qrow0 + g;
+    for (int qi = 0; qi < nq; ++qi) {
+      const int q0 = qi * BQ;
+      if (!tile_live(q0, k0, q_offset, k_offset, causal, window)) continue;
+      __syncthreads();
+      stage_rows<D, L::LD, THREADS>(Qs, q + bh * Sq * D, q0, BQ, Sq);
+      stage_rows<D, L::LD, THREADS>(dOs, dout + bh * Sq * D, q0, BQ, Sq);
+      stage_stats<THREADS>(sm.lse, sm.delta, lse + bh * Sq, delta + bh * Sq,
+                           q0, Sq);
+      __syncthreads();
+      // S^T and dP^T: key rows ty*4 + i against query rows tx + 16*j
+      float s[4][4], dp[4][4];
+      dots4x4<D>(Ks, Qs, Vs, dOs, ty, tx, s, dp);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = ty * 4 + i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = tx + 16 * j;
+          float p = 0.f, ds = 0.f;
+          if (pair_valid(q0 + c, k0 + r, Sq, Sk, q_offset, k_offset, causal,
+                         window)) {
+            p = expf(s[i][j] * scale - sm.lse[c]);
+            ds = p * (dp[i][j] - sm.delta[c]) * scale;
+          }
+          sm.p[r * L::LDP + c] = p;
+          sm.ds[r * L::LDP + c] = ds;
+        }
+      }
+      __syncthreads();
+      accumulate4<D>(dv_acc, sm.p, dOs, ty, tx);   // dV += P^T dO
+      accumulate4<D>(dk_acc, sm.ds, Qs, ty, tx);   // dK += dS^T Q
+    }
+  }
+  const size_t base = (size_t)bkv * Sk * D;
+  write4<D>(dk_acc, dk + base, k0, Sk, ty, tx);
+  write4<D>(dv_acc, dv + base, k0, Sk, ty, tx);
+}
+
+// ------------------------------------------------------------- launch
+struct Args {
+  const void *q, *k, *v, *dout;
+  const float *lse, *delta;
+  void *dq, *dk, *dv;
+  int B, H, KVH, Sq, Sk, q_offset, k_offset, causal, window;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <int D>
+cudaError_t launch_dq(const Args& a, bool bf16_body) {
+  const dim3 grid((a.Sq + BQ - 1) / BQ, a.B * a.H);
+  if (bf16_body) {
+    constexpr size_t smem = WmmaLayout<D>::bytes;
+    auto kernel = flash_dq_wmma_kernel<D>;
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, WTHREADS, smem, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+        a.lse, a.delta, static_cast<bf16*>(a.dq), a.H, a.KVH, a.Sq, a.Sk,
+        a.q_offset, a.k_offset, a.causal, a.window, a.scale);
+  } else {
+    constexpr size_t smem = F32Layout<D>::bytes;
+    auto kernel = flash_dq_f32_kernel<D>;
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, THREADS, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+        a.lse, a.delta, static_cast<float*>(a.dq), a.H, a.KVH, a.Sq, a.Sk,
+        a.q_offset, a.k_offset, a.causal, a.window, a.scale);
+  }
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv(const Args& a, bool bf16_body) {
+  const dim3 grid((a.Sk + BK - 1) / BK, a.B * a.KVH);
+  if (bf16_body) {
+    constexpr size_t smem = WmmaLayout<D>::bytes;
+    auto kernel = flash_dkv_wmma_kernel<D>;
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, WTHREADS, smem, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+        a.lse, a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
+        a.H, a.KVH, a.Sq, a.Sk, a.q_offset, a.k_offset, a.causal, a.window,
+        a.scale);
+  } else {
+    constexpr size_t smem = F32Layout<D>::bytes;
+    auto kernel = flash_dkv_f32_kernel<D>;
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, THREADS, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+        a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
+        a.H, a.KVH, a.Sq, a.Sk, a.q_offset, a.k_offset, a.causal, a.window,
+        a.scale);
+  }
+  return cudaGetLastError();
+}
+
+Args make_args(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, void* dq, void* dk,
+               void* dv, int B, int H, int KVH, int Sq, int Sk, int q_offset,
+               int k_offset, int causal, int window, float scale,
+               void* stream) {
+  return Args{q, k, v, dout, static_cast<const float*>(lse),
+              static_cast<const float*>(delta), dq, dk, dv, B, H, KVH, Sq,
+              Sk, q_offset, k_offset, causal, window, scale,
+              static_cast<cudaStream_t>(stream)};
+}
+
+}  // namespace
+
+// q, dout (B, H, Sq, D); k, v (B, KVH, Sk, D); lse, delta (B, H, Sq) f32;
+// dq like q; dk, dv like k. All contiguous, q/k/v/dout and the outputs
+// of one type (is_bf16 ? bf16 : f32; bf16 pointers 16-byte aligned).
+// window <= 0 means no sliding window. Only head_dim 64 is instantiated
+// (the checked-in configs' head dim). Each returns cudaGetLastError()
+// after its launch.
+extern "C" int etpu_flash_bwd_dq(const void* q, const void* k, const void* v,
+                                 const void* dout, const void* lse,
+                                 const void* delta, void* dq, int B, int H,
+                                 int KVH, int Sq, int Sk, int D,
+                                 int q_offset, int k_offset, int causal,
+                                 int window, float scale, int is_bf16,
+                                 void* stream) {
+  if (B * H == 0 || Sq == 0) return cudaSuccess;
+  if (KVH <= 0 || H % KVH || D != 64) return cudaErrorInvalidValue;
+  const Args a = make_args(q, k, v, dout, lse, delta, dq, nullptr, nullptr,
+                           B, H, KVH, Sq, Sk, q_offset, k_offset, causal,
+                           window, scale, stream);
+  return launch_dq<64>(a, is_bf16 != 0);
+}
+
+extern "C" int etpu_flash_bwd_dkv(const void* q, const void* k,
+                                  const void* v, const void* dout,
+                                  const void* lse, const void* delta,
+                                  void* dk, void* dv, int B, int H, int KVH,
+                                  int Sq, int Sk, int D, int q_offset,
+                                  int k_offset, int causal, int window,
+                                  float scale, int is_bf16, void* stream) {
+  if (B * KVH == 0 || Sk == 0) return cudaSuccess;
+  if (KVH <= 0 || H % KVH || D != 64) return cudaErrorInvalidValue;
+  const Args a = make_args(q, k, v, dout, lse, delta, nullptr, dk, dv, B, H,
+                           KVH, Sq, Sk, q_offset, k_offset, causal, window,
+                           scale, stream);
+  return launch_dkv<64>(a, is_bf16 != 0);
+}

@@ -218,21 +218,6 @@ struct WmmaLayout {
       sizeof(float) * (size_t)WARPS * 16 * LDS;
 };
 
-// rows [r0, r0 + n) of a (rows, D) bf16 matrix -> a padded smem tile,
-// zero past `limit` rows, with 16-byte vector copies
-template <int D>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
-                                           int r0, int n, int limit) {
-  constexpr int V8 = D / 8;
-  for (int i = threadIdx.x; i < n * V8; i += WTHREADS) {
-    const int r = i / V8, c = i % V8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < limit)
-      val = reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D)[c];
-    *reinterpret_cast<uint4*>(dst + r * WmmaLayout<D>::LDQ + c * 8) = val;
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(WTHREADS)
     flash_fwd_wmma_kernel(const bf16* __restrict__ q,
@@ -267,7 +252,7 @@ __global__ void __launch_bounds__(WTHREADS)
   const int qrow = q0 + warp * 16 + rl;  // this lane's local query row
   const int qg = q_offset + qrow;
 
-  stage_rows<D>(Qs, q + (size_t)bh * Sq * D, q0, BQ, Sq);
+  stage_rows<D, L::LDQ, WTHREADS>(Qs, q + (size_t)bh * Sq * D, q0, BQ, Sq);
   __syncthreads();
   wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qf[KD];
 #pragma unroll
@@ -287,8 +272,8 @@ __global__ void __launch_bounds__(WTHREADS)
     if (!live) continue;
 
     __syncthreads();  // every warp is done with the previous K/V tile
-    stage_rows<D>(Ks, kp, k0, BK, Sk);
-    stage_rows<D>(Vs, vp, k0, BK, Sk);
+    stage_rows<D, L::LDQ, WTHREADS>(Ks, kp, k0, BK, Sk);
+    stage_rows<D, L::LDQ, WTHREADS>(Vs, vp, k0, BK, Sk);
     __syncthreads();
 
     // S = Q K^T for this warp's 16 rows x 64 keys

@@ -1,1 +1,2 @@
-"""The inference model stack of the port."""
+"""The model stack of the port: the transformer LM, its optimizers and
+the TransformerModel training entry point."""

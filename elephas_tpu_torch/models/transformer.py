@@ -1,4 +1,4 @@
-"""Transformer LM in PyTorch: the inference subset of the JAX family.
+"""Transformer LM in PyTorch: inference and single-device training.
 
 The counterpart of ``elephas_tpu/models/transformer.py``. A pure
 function over an explicit parameter dict whose nesting and layouts are
@@ -10,27 +10,43 @@ half-split. bfloat16 activations and matmuls by default over f32
 parameters.
 
 Ported here: the config, ``init_params``, the embedding, norms, RoPE,
-ALiBi, the dense MLP (gelu or SwiGLU), single-device ``forward`` with
-the flash kernel or the plain attention path, and ``prefill_cache``.
-Not ported yet (they raise ``NotImplementedError``): mixture of experts,
-the int8 KV cache, rematerialization, dropout, packed ``segment_ids``
-and every mesh argument.
+ALiBi, the dense MLP (gelu or SwiGLU), residual dropout, single-device
+``forward``/``forward_with_aux`` with the flash kernels (differentiable)
+or the plain attention path, rematerialization (``remat_policy`` full
+or dots) through ``torch.utils.checkpoint``, the LM losses
+(``next_token_loss``, the chunked-vocab loss, z-loss, label smoothing)
+in ``lm_loss``, the single-device ``make_train_step``, and
+``prefill_cache``. Not ported yet (they raise ``NotImplementedError``):
+mixture of experts, the int8 KV cache, packed ``segment_ids`` and every
+mesh argument.
+
+Random numbers: a dropout key is a ``torch.Generator``. Masks cannot
+equal JAX's bits; a seed drawn per layer from the step's generator
+(outside any checkpointed region) seeds the layer's own generator, so a
+recomputed layer draws the same masks.
 """
 import dataclasses
 import math
 from functools import partial
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from .._device import DeviceLike, resolve_device
 from ..ops.attention import NEG_INF, attention, einsum
 from ..ops.flash_attention import flash_attention
+from ..weights import tree_flatten, tree_unflatten
 
-__all__ = ["TransformerConfig", "init_params", "forward", "prefill_cache",
-           "init_kv_cache", "embed_apply", "head_logits",
-           "resolve_attention_impl", "NEG_INF", "FLAGSHIP"]
+__all__ = ["TransformerConfig", "init_params", "forward", "forward_with_aux",
+           "lm_loss", "lm_loss_and_grads", "next_token_loss",
+           "chunked_next_token_losses", "make_train_step", "prefill_cache",
+           "init_kv_cache",
+           "embed_apply", "head_logits", "resolve_attention_impl",
+           "NEG_INF", "FLAGSHIP"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +96,11 @@ class TransformerConfig:
                              f"'xla', got {self.attention_impl!r}")
         if not 0.0 <= self.dropout_rate < 1.0:
             raise ValueError("dropout_rate must be in [0, 1)")
+        if not 0.0 <= self.label_smoothing < 1.0:
+            raise ValueError("label_smoothing must be in [0, 1)")
+        if self.remat_policy not in ("full", "dots"):
+            raise ValueError("remat_policy must be 'full' or 'dots', "
+                             f"got {self.remat_policy!r}")
         if self.attention_window is not None and self.attention_window < 1:
             raise ValueError("attention_window must be >= 1")
         if self.mlp_variant not in ("gelu", "swiglu"):
@@ -128,9 +149,6 @@ def check_ported(config: TransformerConfig) -> None:
                                   "ported yet")
     if config.kv_cache_quant:
         raise NotImplementedError("the int8 KV cache is not ported yet")
-    if config.remat:
-        raise NotImplementedError("rematerialization is a training "
-                                  "feature; training is not ported yet")
 
 
 def init_params(config: TransformerConfig, generator: torch.Generator,
@@ -226,6 +244,17 @@ def _apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
+def _dropout(x: torch.Tensor, rate: float,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout; identity when ``generator`` is None (inference)
+    or ``rate`` is 0."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 def _layer_norm(x, gamma, beta, eps=1e-5):
     mean = x.mean(dim=-1, keepdim=True)
     var = x.var(dim=-1, keepdim=True, unbiased=False)
@@ -292,9 +321,11 @@ def _qkv(layer: Dict, h: torch.Tensor, c: TransformerConfig):
 
 
 def _attn_apply(layer: Dict, x: torch.Tensor, c: TransformerConfig,
-                attn_fn) -> torch.Tensor:
+                attn_fn, dropout_gen: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
     """Pre-LN attention sublayer with residual; ``attn_fn(q, k, v) -> o``
-    supplies the attention implementation."""
+    supplies the attention implementation. ``dropout_gen`` enables
+    residual dropout on the sublayer output (training only)."""
     h = _norm(x, layer["ln1"], c).to(c.dtype)
     q, k, v = _qkv(layer, h, c)
     if c.positional == "rope":
@@ -307,11 +338,13 @@ def _attn_apply(layer: Dict, x: torch.Tensor, c: TransformerConfig,
         k = torch.repeat_interleave(k, groups, dim=1)
         v = torch.repeat_interleave(v, groups, dim=1)
     o = attn_fn(q, k, v)
-    return x + einsum("bhtk,hkd->btd", o, layer["attn"]["wo"].to(c.dtype))
+    out = einsum("bhtk,hkd->btd", o, layer["attn"]["wo"].to(c.dtype))
+    return x + _dropout(out, c.dropout_rate, dropout_gen)
 
 
-def _mlp_apply(layer: Dict, x: torch.Tensor,
-               c: TransformerConfig) -> torch.Tensor:
+def _mlp_apply(layer: Dict, x: torch.Tensor, c: TransformerConfig,
+               dropout_gen: Optional[torch.Generator] = None
+               ) -> torch.Tensor:
     """Pre-LN dense MLP sublayer with residual (gelu or SwiGLU)."""
     h = _norm(x, layer["ln2"], c).to(c.dtype)
     mlp = layer["mlp"]
@@ -323,7 +356,7 @@ def _mlp_apply(layer: Dict, x: torch.Tensor,
         h = F.gelu(h @ mlp["w1"].to(c.dtype) + mlp["b1"].to(c.dtype),
                    approximate="tanh")
     h = h @ mlp["w2"].to(c.dtype) + mlp["b2"].to(c.dtype)
-    return x + h
+    return x + _dropout(h, c.dropout_rate, dropout_gen)
 
 
 def resolve_attention_impl(config: TransformerConfig,
@@ -338,52 +371,305 @@ def resolve_attention_impl(config: TransformerConfig,
     return config.attention_impl
 
 
-def forward(params: Dict, tokens: torch.Tensor, config: TransformerConfig,
-            mesh=None, seq_axis=None, batch_axis=None, model_axis=None,
-            dropout_key=None, segment_ids=None) -> torch.Tensor:
-    """Token ids ``(batch, seq)`` -> f32 logits ``(batch, seq, vocab)``
-    on a single device: the device of ``params``. The mesh, dropout and
-    packed-segment arguments of the JAX signature are not ported and
-    raise when given."""
+def _check_single_device(mesh, seq_axis, batch_axis, model_axis,
+                         segment_ids) -> None:
     if any(a is not None for a in (mesh, seq_axis, batch_axis,
                                    model_axis)):
         raise NotImplementedError("mesh parallelism is not ported yet")
-    if dropout_key is not None:
-        raise NotImplementedError("dropout is a training feature; "
-                                  "training is not ported yet")
     if segment_ids is not None:
         raise NotImplementedError("packed segment_ids are not ported yet")
+
+
+def _attention_fn(c: TransformerConfig, device: torch.device, t: int):
+    """The single-device attention of a length-``t`` causal stack: the
+    flash kernels (differentiable; GQA mapped in the kernel) or the
+    plain path, with the window and ALiBi masks it needs."""
+    if resolve_attention_impl(c, device) == "flash":
+        attn_fn = partial(flash_attention, causal=True,
+                          window=c.attention_window)
+        # the kernels map GQA heads themselves: k/v stay narrow
+        attn_fn.handles_gqa = True
+        return attn_fn
+    if c.attention_window is None and c.positional != "alibi":
+        return partial(attention, causal=True)
+    q_pos = torch.arange(t, device=device)[:, None]
+    k_pos = torch.arange(t, device=device)[None, :]
+    mask = (k_pos <= q_pos)[None, None]
+    if c.attention_window is not None:
+        mask = mask & (k_pos > q_pos - c.attention_window)[None, None]
+    bias = None
+    if c.positional == "alibi":
+        slopes = _alibi_slopes(c.num_heads, device)
+        dist = (q_pos - k_pos).to(torch.float32)
+        bias = (-slopes[:, None, None] * dist)[None]
+    return partial(attention, causal=False, mask=mask, bias=bias)
+
+
+def _remat_context(policy: str):
+    """``context_fn`` for ``torch.utils.checkpoint``: ``full`` recomputes
+    the whole block; ``dots`` saves every matmul output and recomputes
+    the rest (``jax.checkpoint_policies.dots_saveable``)."""
+    if policy == "full":
+        return noop_context_fn
+    dots = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default}
+
+    def save_dots(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in dots
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return partial(create_selective_checkpoint_contexts, save_dots)
+
+
+def _layer_seeds(generator: Optional[torch.Generator], rate: float,
+                 n: int) -> List[Optional[int]]:
+    """One dropout seed per layer, drawn from the step's generator (None
+    without dropout) -- the counterpart of ``fold_in(key, i)``."""
+    if generator is None or rate <= 0.0:
+        return [None] * n
+    return torch.randint(0, 2 ** 62, (n,), generator=generator,
+                         device=generator.device).tolist()
+
+
+def _hidden_with_aux(params: Dict, tokens: torch.Tensor,
+                     config: TransformerConfig, mesh=None, seq_axis=None,
+                     batch_axis=None, model_axis=None, dropout_key=None,
+                     segment_ids=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block stack up to (but excluding) the LM head, on the device
+    of ``params``: final hidden states ``(B, T, D)`` and the MoE aux loss
+    (0: dense layers only). ``dropout_key`` (a ``torch.Generator``)
+    enables residual dropout."""
+    _check_single_device(mesh, seq_axis, batch_axis, model_axis,
+                         segment_ids)
+    if dropout_key is not None and not isinstance(dropout_key,
+                                                  torch.Generator):
+        raise TypeError(f"dropout_key must be a torch.Generator, got "
+                        f"{type(dropout_key).__name__}")
     check_ported(config)
     c = config
     device = params["embed"]["tokens"].device
     tokens = torch.as_tensor(tokens, device=device).long()
     x = embed_apply(params["embed"], tokens, c)
-    if resolve_attention_impl(c, device) == "flash":
-        attn_fn = partial(flash_attention, causal=True,
-                          window=c.attention_window)
-        # the kernel maps GQA heads itself: k/v stay narrow
-        attn_fn.handles_gqa = True
-    elif c.attention_window is not None or c.positional == "alibi":
-        t = tokens.shape[1]
-        q_pos = torch.arange(t, device=device)[:, None]
-        k_pos = torch.arange(t, device=device)[None, :]
-        mask = (k_pos <= q_pos)[None, None]
-        if c.attention_window is not None:
-            mask = mask & (k_pos > q_pos - c.attention_window)[None, None]
-        bias = None
-        if c.positional == "alibi":
-            slopes = _alibi_slopes(c.num_heads, device)
-            dist = (q_pos - k_pos).to(torch.float32)
-            bias = (-slopes[:, None, None] * dist)[None]
-        attn_fn = partial(attention, causal=False, mask=mask, bias=bias)
-    else:
-        attn_fn = partial(attention, causal=True)
+    attn_fn = _attention_fn(c, device, tokens.shape[1])
+
+    def layer_apply(layer, x, seed):
+        gen = None
+        if seed is not None:
+            gen = torch.Generator(device=x.device)
+            gen.manual_seed(seed)
+        x = _attn_apply(layer, x, c, attn_fn, gen)
+        return _mlp_apply(layer, x, c, gen)
+
+    if c.remat:
+        # recompute each block's activations in the backward pass instead
+        # of keeping them live; the seed is an argument, so a recompute
+        # rebuilds the same generator and draws the same masks
+        layer_apply = partial(checkpoint, layer_apply, use_reentrant=False,
+                              context_fn=_remat_context(c.remat_policy))
+    seeds = _layer_seeds(dropout_key, c.dropout_rate, c.num_layers)
     for i in range(c.num_layers):
-        layer = params[f"layer_{i}"]
-        x = _attn_apply(layer, x, c, attn_fn)
-        x = _mlp_apply(layer, x, c)
+        x = layer_apply(params[f"layer_{i}"], x, seeds[i])
+    return x, torch.zeros((), dtype=torch.float32, device=device)
+
+
+def forward_with_aux(params: Dict, tokens: torch.Tensor,
+                     config: TransformerConfig, mesh=None, seq_axis=None,
+                     batch_axis=None, model_axis=None, dropout_key=None,
+                     segment_ids=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Like :func:`forward` but also returns the summed MoE auxiliary
+    loss (0 for the dense configs the port carries)."""
+    x, aux = _hidden_with_aux(params, tokens, config, mesh, seq_axis,
+                              batch_axis, model_axis, dropout_key,
+                              segment_ids)
     return head_logits(params["embed"], params["final_ln"], x,
-                       head=params.get("head"), norm=c.norm)
+                       head=params.get("head"), norm=config.norm), aux
+
+
+def forward(params: Dict, tokens: torch.Tensor, config: TransformerConfig,
+            mesh=None, seq_axis=None, batch_axis=None, model_axis=None,
+            dropout_key=None, segment_ids=None) -> torch.Tensor:
+    """Token ids ``(batch, seq)`` -> f32 logits ``(batch, seq, vocab)``
+    on a single device: the device of ``params``. ``dropout_key`` (a
+    ``torch.Generator``) activates residual dropout (training). The mesh
+    and packed-segment arguments of the JAX signature are not ported and
+    raise when given."""
+    logits, _ = forward_with_aux(params, tokens, config, mesh, seq_axis,
+                                 batch_axis, model_axis, dropout_key,
+                                 segment_ids)
+    return logits
+
+
+def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor,
+                    label_smoothing: float = 0.0) -> torch.Tensor:
+    """Next-token cross-entropy, mean over all positions; with label
+    smoothing, eps probability mass spreads uniformly over the vocab.
+    (The packed-row ``weights`` of the JAX signature come with packed
+    ``segment_ids``, not ported yet.)"""
+    targets = tokens[:, 1:].long()
+    logp = torch.log_softmax(logits[:, :-1], dim=-1)
+    ce_pos = -logp.gather(-1, targets[..., None])[..., 0]
+    if label_smoothing:
+        eps = label_smoothing
+        ce_pos = (1.0 - eps) * ce_pos - eps * logp.mean(dim=-1)
+    return ce_pos.mean()
+
+
+def _vocab_chunk_step(h, e_chunk, m, s, tot):
+    """One vocab chunk of the streamed logsumexp (the scan body)."""
+    logits_c = h @ e_chunk.T
+    m_new = torch.maximum(m, logits_c.amax(dim=-1))
+    s = (s * torch.exp(m - m_new)
+         + torch.exp(logits_c - m_new[..., None]).sum(dim=-1))
+    return m_new, s, tot + logits_c.sum(dim=-1)
+
+
+def chunked_next_token_losses(x: torch.Tensor, embed: Dict, final_ln: Dict,
+                              tokens: torch.Tensor, chunk: int,
+                              head: Optional[torch.Tensor] = None,
+                              norm: str = "layernorm"
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Streamed LM loss pieces from the final hidden states:
+    ``(cross_entropy, lse, mean_logits)`` without materializing ``(B, T,
+    V)`` logits. The vocab axis goes in ``chunk``-wide slices, each under
+    ``torch.utils.checkpoint`` (the rematerialized scan body of the JAX
+    package), so a chunk's logits live only transiently in both passes.
+    The last slice is the remainder: no padded vocab row enters the
+    logsumexp."""
+    h = x.to(torch.float32)
+    h = (_rms_norm(h, final_ln["gamma"]) if norm == "rmsnorm"
+         else _layer_norm(h, final_ln["gamma"], final_ln["beta"]))[:, :-1]
+    targets = tokens[:, 1:].long()
+    emb = (head.T if head is not None
+           else embed["tokens"]).to(torch.float32)           # (V, D)
+    v = emb.shape[0]
+    m = torch.full(h.shape[:2], NEG_INF, dtype=torch.float32,
+                   device=h.device)
+    s = torch.zeros(h.shape[:2], dtype=torch.float32, device=h.device)
+    tot = torch.zeros_like(s)
+    for c0 in range(0, v, chunk):
+        m, s, tot = checkpoint(_vocab_chunk_step, h, emb[c0:c0 + chunk], m,
+                               s, tot, use_reentrant=False)
+    lse = m + torch.log(s)                                   # (B, T')
+    # target logit via a row gather: (B, T', D), not (B, T', V)
+    picked = (h * emb[targets]).sum(dim=-1)
+    return (lse - picked).mean(), lse, tot / v
+
+
+def lm_loss(params: Dict, tokens: torch.Tensor, config: TransformerConfig,
+            mesh=None, seq_axis=None, batch_axis=None, model_axis=None,
+            dropout_key=None, segment_ids=None) -> torch.Tensor:
+    """Next-token cross-entropy (mean over all positions), with the
+    config's label smoothing and z-loss; the chunked-vocab loss when
+    ``loss_vocab_chunk`` is set. Single device only."""
+    c = config
+    device = params["embed"]["tokens"].device
+    tokens = torch.as_tensor(tokens, device=device).long()
+    args = (mesh, seq_axis, batch_axis, model_axis, dropout_key,
+            segment_ids)
+    if c.loss_vocab_chunk:
+        x, _ = _hidden_with_aux(params, tokens, c, *args)
+        loss, lse, mean_logits = chunked_next_token_losses(
+            x, params["embed"], params["final_ln"], tokens,
+            int(c.loss_vocab_chunk), head=params.get("head"), norm=c.norm)
+        if c.label_smoothing:
+            # mean_v logp_v = mean_v logits_v - lse
+            eps = c.label_smoothing
+            loss = (1.0 - eps) * loss + eps * (lse - mean_logits).mean()
+        if c.z_loss_weight:
+            loss = loss + c.z_loss_weight * (lse * lse).mean()
+        return loss
+    logits, _ = forward_with_aux(params, tokens, c, *args)
+    loss = next_token_loss(logits, tokens, label_smoothing=c.label_smoothing)
+    if c.z_loss_weight:
+        # PaLM-style z-loss: penalize the log-partition so logits don't
+        # drift large; only predicting positions count
+        z = torch.logsumexp(logits[:, :-1], dim=-1)
+        loss = loss + c.z_loss_weight * (z * z).mean()
+    return loss
+
+
+def lm_loss_and_grads(params: Dict, tokens: torch.Tensor,
+                      config: TransformerConfig, dropout_key=None
+                      ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """``lm_loss`` and its gradient with respect to every parameter
+    leaf, through autograd (the ``value_and_grad`` of the JAX step):
+    ``(loss, grads)`` with the loss detached and ``grads`` in the leaf
+    order of :func:`~elephas_tpu_torch.weights.tree_flatten`. A leaf the
+    loss never reads (rmsnorm's beta) gets a zero gradient. The
+    parameters themselves need not require gradients."""
+    leaves, treedef = tree_flatten(params)
+    # views of the same storage that autograd may differentiate
+    live = [p.detach().requires_grad_(True) for p in leaves]
+    with torch.enable_grad():
+        loss = lm_loss(tree_unflatten(treedef, live), tokens, config,
+                       dropout_key=dropout_key)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+    grads = [torch.zeros_like(p) if gr is None else gr
+             for p, gr in zip(leaves, grads)]
+    return loss.detach(), grads
+
+
+def make_train_step(config: TransformerConfig, tx, mesh=None,
+                    data_axis: Optional[str] = "data",
+                    model_axis: Optional[str] = "model",
+                    seq_axis: Optional[str] = None,
+                    zero_optimizer: bool = False, accum_steps: int = 1,
+                    fsdp: bool = False, packed: bool = False):
+    """The single-device ``(params, opt_state, tokens[, dropout_key]) ->
+    (params, opt_state, loss)`` step, on the device of ``params``:
+    ``lm_loss`` value and gradients through autograd (the flash kernels'
+    backward on a CUDA device), then ``tx`` (a transform of
+    :mod:`~elephas_tpu_torch.models.optimizers`: ``init(params)``,
+    ``update(grads, state, params)``). ``dropout_key`` (a
+    ``torch.Generator``) is read only when ``dropout_rate > 0``.
+
+    Where JAX donates the parameter buffers, this step updates the
+    parameters IN PLACE under ``torch.no_grad()`` and returns the same
+    dict (the optimizer state is a new object). ``accum_steps > 1``
+    splits the batch into that many microbatches, sums their gradients
+    and divides once, as the JAX scan does. The mesh, ``fsdp``,
+    ``zero_optimizer`` and ``packed`` variants are not ported and
+    raise."""
+    if mesh is not None or seq_axis is not None:
+        raise NotImplementedError("mesh parallelism is not ported yet")
+    if fsdp or zero_optimizer:
+        raise NotImplementedError("fsdp and zero_optimizer shard over a "
+                                  "mesh; not ported yet")
+    if packed:
+        raise NotImplementedError("packed segment_ids are not ported yet")
+    accum_steps = max(1, int(accum_steps))
+    use_dropout = config.dropout_rate > 0
+
+    def step(params, opt_state, tokens, dropout_key=None):
+        device = params["embed"]["tokens"].device
+        tokens = torch.as_tensor(tokens, device=device)
+        key = dropout_key if use_dropout else None
+        if accum_steps > 1:
+            if tokens.shape[0] % accum_steps:
+                raise ValueError(
+                    f"batch {tokens.shape[0]} does not split into "
+                    f"{accum_steps} microbatches")
+            loss, grads = 0.0, None
+            for micro in tokens.reshape(accum_steps, -1,
+                                        *tokens.shape[1:]):
+                mloss, mgrads = lm_loss_and_grads(params, micro, config,
+                                                  key)
+                grads = (mgrads if grads is None
+                         else [a + b for a, b in zip(grads, mgrads)])
+                loss = loss + mloss
+            grads = [gr / accum_steps for gr in grads]
+            loss = loss / accum_steps
+        else:
+            loss, grads = lm_loss_and_grads(params, tokens, config, key)
+        leaves = tree_flatten(params)[0]
+        updates, opt_state = tx.update(grads, opt_state, leaves)
+        with torch.no_grad():
+            for p, u in zip(leaves, updates):
+                p.add_(u)
+        return params, opt_state, loss
+
+    return step
 
 
 def init_kv_cache(config: TransformerConfig, batch: int,

@@ -97,6 +97,12 @@ def library() -> ctypes.CDLL:
         lib.etpu_flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
                                        i, i, i, f, i, p]
         lib.etpu_flash_fwd.restype = i
+        # q, k, v, dout, lse, delta, dq | B H KVH Sq Sk D qo ko causal
+        # window | scale | is_bf16 | stream
+        lib.etpu_flash_bwd_dq.argtypes = [p] * 7 + [i] * 10 + [f, i, p]
+        lib.etpu_flash_bwd_dq.restype = i
+        lib.etpu_flash_bwd_dkv.argtypes = [p] * 8 + [i] * 10 + [f, i, p]
+        lib.etpu_flash_bwd_dkv.restype = i
         lib.etpu_paged_decode.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
                                           i, i, i, f, i, p]
         lib.etpu_paged_decode.restype = i

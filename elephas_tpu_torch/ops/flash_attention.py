@@ -1,16 +1,22 @@
-"""Flash-attention forward: a hand-written CUDA kernel and its plain version.
+"""Flash attention: hand-written CUDA kernels and their plain versions.
 
-The counterpart of ``elephas_tpu/ops/pallas_attention.py``: the CUDA
-kernel in ``csrc/flash_fwd.cu`` replaces the TPU kernel ``_fwd_kernel``
-(see the note at the top of that file for its design and what bounds it
-on the H100). :func:`flash_forward` mirrors ``flash_hop_forward`` and
-returns ``(o, lse)``; :func:`flash_attention` mirrors the single-device
-``flash_attention`` forward. The backward kernels are not ported yet.
+The counterpart of ``elephas_tpu/ops/pallas_attention.py``. The CUDA
+kernel in ``csrc/flash_fwd.cu`` replaces the TPU kernel ``_fwd_kernel``;
+the two in ``csrc/flash_bwd.cu`` replace ``_dq_kernel`` and
+``_dkv_kernel`` (see the notes at the top of those files for their
+designs and what bounds them on the H100). :func:`flash_forward` mirrors
+``flash_hop_forward`` and returns ``(o, lse)``; :func:`flash_backward`
+mirrors ``flash_hop_backward``: given the global ``lse`` and ``delta =
+rowsum(dO * O)`` it returns ``(dq, dk, dv)``, launching the dQ kernel
+(:func:`flash_dq`) and the dK/dV kernel (:func:`flash_dkv`).
+:func:`flash_attention` mirrors the single-device, differentiable
+``flash_attention``: a ``torch.autograd.Function`` over the forward and
+the two backward kernels, as the ``_flash`` custom VJP is.
 
-On CPU tensors the wrapper computes the plain version
-:func:`flash_forward_plain`; on CUDA tensors it launches the kernel or
-raises. Shapes follow the JAX package: q ``(B, H, Sq, D)``, k/v ``(B,
-KVH, Sk, D)`` with ``KVH`` dividing ``H`` (GQA), bf16 or f32.
+On CPU tensors each wrapper computes its plain version; on CUDA tensors
+it launches its kernel or raises. Shapes follow the JAX package: q and
+dO ``(B, H, Sq, D)``, k/v ``(B, KVH, Sk, D)`` with ``KVH`` dividing
+``H`` (GQA), lse and delta ``(B, H, Sq)`` f32, bf16 or f32 otherwise.
 """
 import math
 from typing import Optional, Tuple
@@ -21,12 +27,14 @@ from . import _kernels
 from .attention import NEG_INF
 
 __all__ = ["flash_attention", "flash_forward", "flash_forward_plain",
+           "flash_backward", "flash_backward_plain", "flash_dq",
+           "flash_dq_plain", "flash_dkv", "flash_dkv_plain",
            "SUPPORTED_HEAD_DIMS", "BLOCK"]
 
-#: head dims the CUDA kernel is instantiated for (the CPU plain version
-#: takes any)
+#: head dims the CUDA kernels are instantiated for (the CPU plain
+#: versions take any)
 SUPPORTED_HEAD_DIMS = (64,)
-#: the kernel's q and k/v tile rows (``BQ``/``BK`` in csrc/flash_fwd.cu)
+#: the kernels' q and k/v tile rows (``BQ``/``BK`` in csrc/flash_*.cu)
 BLOCK = 64
 
 
@@ -81,6 +89,35 @@ def _check(q, k, v):
                          f"{q.shape[1]} (GQA)")
 
 
+def _kernel_operands(q: torch.Tensor, **tensors: torch.Tensor):
+    """Check the operands of a CUDA flash kernel (``q`` and the named
+    tensors of q's dtype, on q's device, contiguous; head dim
+    instantiated) and return them in order, with bf16 operands cloned
+    where they are not 16-byte aligned."""
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash kernel for device {q.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash kernel takes bf16 or f32, got {q.dtype}")
+    for name, t in (("q", q), *tensors.items()):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"{name} must share q's device and dtype")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.shape[3] not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"flash kernel takes head_dim in "
+                         f"{SUPPORTED_HEAD_DIMS}, got {q.shape[3]}")
+    ops = (q, *tensors.values())
+    if q.dtype == torch.bfloat16:
+        # the bf16 kernels stage rows with 16-byte vector loads
+        ops = tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in ops)
+    return ops
+
+
+def _check_window(window: Optional[int]) -> None:
+    if window is not None and window < 1:
+        raise ValueError("window must be >= 1")
+
+
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   q_offset: int = 0, k_offset: int = 0, causal: bool = True,
                   window: Optional[int] = None
@@ -90,29 +127,13 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``(o, lse)`` with ``o`` in q's dtype and ``lse`` ``(B, H, Sq)`` f32.
     Counts each kernel launch in ``flash_forward.launches``."""
     _check(q, k, v)
-    if window is not None and window < 1:
-        raise ValueError("window must be >= 1")
+    _check_window(window)
     if q.device.type == "cpu":
         return flash_forward_plain(q, k, v, q_offset, k_offset, causal,
                                    window)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash kernel for device {q.device}")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"flash kernel takes bf16 or f32, got {q.dtype}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device or t.dtype != q.dtype:
-            raise ValueError(f"{name} must share q's device and dtype")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    q, k, v = _kernel_operands(q, k=k, v=v)
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head_dim in "
-                         f"{SUPPORTED_HEAD_DIMS}, got {d}")
-    if q.dtype == torch.bfloat16:
-        # the bf16 kernel stages rows with 16-byte vector loads
-        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
-                   for t in (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = _kernels.library()
@@ -130,23 +151,200 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_forward.launches = 0
 
 
+# ----------------------------------------------------------------- backward
+def _bwd_probs(q, k, v, g, lse, delta, q_offset, k_offset, causal, window):
+    """What both backward kernels recompute, in f32 with k/v expanded to
+    the query heads: ``(p, ds, qf, gf, kf)`` with ``p = exp(s - lse)``
+    and ``ds = p * (dp - delta) * scale`` (B, H, Sq, Sk), zero wherever
+    the (q, k) pair is masked on global positions."""
+    d = q.shape[3]
+    groups = q.shape[1] // k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    qf, gf = q.float(), g.float()
+    kf = k.float().repeat_interleave(groups, dim=1)
+    vf = v.float().repeat_interleave(groups, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    valid = _valid_mask(q.shape[2], k.shape[2], int(q_offset),
+                        int(k_offset), causal, window, q.device)
+    # a fully masked row's lse is ~-1e30: exp overflows there, and the
+    # mask drops it
+    p = torch.where(valid, torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", gf, vf)
+    ds = p * (dp - delta[..., None]) * scale
+    return p, ds, qf, gf, kf
+
+
+def flash_dq_plain(q, k, v, g, lse, delta, q_offset: int = 0,
+                   k_offset: int = 0, causal: bool = True,
+                   window: Optional[int] = None) -> torch.Tensor:
+    """The dQ kernel's function in plain PyTorch, in f32: ``dq = ds k``
+    over full rows; returned in q's dtype."""
+    _, ds, _, _, kf = _bwd_probs(q, k, v, g, lse, delta, q_offset,
+                                 k_offset, causal, window)
+    return torch.einsum("bhqk,bhkd->bhqd", ds, kf).to(q.dtype)
+
+
+def flash_dkv_plain(q, k, v, g, lse, delta, q_offset: int = 0,
+                    k_offset: int = 0, causal: bool = True,
+                    window: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dK/dV kernel's function in plain PyTorch, in f32: ``dk = ds^T
+    q`` and ``dv = p^T dO``, each query head of a GQA group adding into
+    its kv head; returned in k's and v's dtypes."""
+    p, ds, qf, gf, _ = _bwd_probs(q, k, v, g, lse, delta, q_offset,
+                                  k_offset, causal, window)
+    b, kvh, sk, d = k.shape
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, gf)
+    dk = dk.reshape(b, kvh, -1, sk, d).sum(2)
+    dv = dv.reshape(b, kvh, -1, sk, d).sum(2)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_backward_plain(q, k, v, g, lse, delta, q_offset: int = 0,
+                         k_offset: int = 0, causal: bool = True,
+                         window: Optional[int] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+    """Both backward kernels' function in plain PyTorch, in f32:
+    ``(dq, dk, dv)`` in the inputs' dtypes."""
+    args = (q, k, v, g, lse, delta, q_offset, k_offset, causal, window)
+    return (flash_dq_plain(*args), *flash_dkv_plain(*args))
+
+
+def _check_bwd(q, k, v, g, lse, delta, window) -> None:
+    _check(q, k, v)
+    _check_window(window)
+    if g.shape != q.shape:
+        raise ValueError(f"the output gradient {tuple(g.shape)} must have "
+                         f"q's shape {tuple(q.shape)}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != q.shape[:3] or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be f32 {tuple(q.shape[:3])}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on q's device")
+
+
+def _bwd_launch(entry: str, q, k, v, g, lse, delta, outs, q_offset,
+                k_offset, causal, window) -> None:
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    lib = _kernels.library()
+    err = getattr(lib, entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
+        b, h, kvh, sq, sk, d, int(q_offset), int(k_offset),
+        int(bool(causal)), 0 if window is None else int(window),
+        1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _kernels.check(err, entry)
+
+
+def flash_dq(q, k, v, g, lse, delta, q_offset: int = 0, k_offset: int = 0,
+             causal: bool = True, window: Optional[int] = None
+             ) -> torch.Tensor:
+    """dQ of one (q, k/v shard) pair given the global ``lse`` and
+    ``delta``: the dQ kernel on CUDA tensors (counted in
+    ``flash_backward.dq_launches``), :func:`flash_dq_plain` on CPU
+    tensors."""
+    _check_bwd(q, k, v, g, lse, delta, window)
+    if q.device.type == "cpu":
+        return flash_dq_plain(q, k, v, g, lse, delta, q_offset, k_offset,
+                              causal, window)
+    q, k, v, g = _kernel_operands(q, k=k, v=v, g=g)
+    dq = torch.empty_like(q)
+    _bwd_launch("etpu_flash_bwd_dq", q, k, v, g, lse, delta, (dq,),
+                q_offset, k_offset, causal, window)
+    flash_backward.dq_launches += 1
+    return dq
+
+
+def flash_dkv(q, k, v, g, lse, delta, q_offset: int = 0, k_offset: int = 0,
+              causal: bool = True, window: Optional[int] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV) of one (q, k/v shard) pair given the global ``lse`` and
+    ``delta``, at the narrow kv width: the dK/dV kernel on CUDA tensors
+    (counted in ``flash_backward.dkv_launches``),
+    :func:`flash_dkv_plain` on CPU tensors."""
+    _check_bwd(q, k, v, g, lse, delta, window)
+    if q.device.type == "cpu":
+        return flash_dkv_plain(q, k, v, g, lse, delta, q_offset, k_offset,
+                               causal, window)
+    q, k, v, g = _kernel_operands(q, k=k, v=v, g=g)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _bwd_launch("etpu_flash_bwd_dkv", q, k, v, g, lse, delta, (dk, dv),
+                q_offset, k_offset, causal, window)
+    flash_backward.dkv_launches += 1
+    return dk, dv
+
+
+def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   g: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                   q_offset: int = 0, k_offset: int = 0, causal: bool = True,
+                   window: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-hop backward with GLOBAL row statistics, as the JAX
+    ``flash_hop_backward``: the softmax over the whole ring factorizes
+    as ``exp(s - lse_global)``, so dq/dk/dv of this shard pair are exact
+    given the global ``lse`` and ``delta = rowsum(dO * O_global)``.
+    Returns ``(dq, dk, dv)`` in the inputs' dtypes, dk/dv at the narrow
+    kv width. On CUDA tensors it launches the dQ and the dK/dV kernels
+    (``g`` must be contiguous: it raises otherwise) and counts them in
+    ``flash_backward.dq_launches`` / ``.dkv_launches``."""
+    args = (q, k, v, g, lse, delta, q_offset, k_offset, causal, window)
+    return (flash_dq(*args), *flash_dkv(*args))
+
+
+flash_backward.dq_launches = 0
+flash_backward.dkv_launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The ``_flash`` custom VJP: the forward kernel, saving the JAX
+    residuals ``(q, k, v, o, lse)``; the backward computes ``delta``
+    outside the kernels (as ``_bwd`` does) and launches both."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        o, lse = flash_forward(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        delta = torch.sum(g.float() * o.float(), dim=-1)
+        dq, dk, dv = flash_backward(q, k, v, g.contiguous(), lse, delta,
+                                    causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, block_q: Optional[int] = None,
                     block_k: Optional[int] = None,
                     window: Optional[int] = None) -> torch.Tensor:
-    """Flash attention forward over ``(batch, heads, seq, head_dim)``
-    tensors (k/v may carry fewer heads: GQA). The kernel's tiles are
-    fixed at :data:`BLOCK` x :data:`BLOCK` rows (``block_q``/``block_k``
-    may only name them); sequence lengths need not be multiples of them.
-    Not differentiable: the backward kernels are not ported yet."""
+    """Flash attention over ``(batch, heads, seq, head_dim)`` tensors
+    (k/v may carry fewer heads: GQA). Differentiable: the backward runs
+    the dQ and dK/dV kernels (their plain versions on the CPU). The
+    kernels' tiles are fixed at :data:`BLOCK` x :data:`BLOCK` rows
+    (``block_q``/``block_k`` may only name them); sequence lengths need
+    not be multiples of them."""
     if q.ndim != 4:
         raise ValueError(f"expected (batch, heads, seq, head_dim), got "
                          f"{tuple(q.shape)}")
     for name, blk in (("block_q", block_q), ("block_k", block_k)):
         if blk is not None and blk != BLOCK:
             raise NotImplementedError(
-                f"{name}={blk}: the CUDA kernel's tiles are fixed at "
+                f"{name}={blk}: the CUDA kernels' tiles are fixed at "
                 f"{BLOCK} rows")
-    o, _ = flash_forward(q.contiguous(), k.contiguous(), v.contiguous(),
-                         causal=causal, window=window)
+    _check_window(window)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    window = None if window is None else int(window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, window)
+    # no graph to record (inference): the forward kernel alone, without
+    # the autograd Function's host cost
+    o, _ = flash_forward(q, k, v, causal=causal, window=window)
     return o

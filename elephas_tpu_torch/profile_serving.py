@@ -28,7 +28,6 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving needs a CUDA device")
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from .models.transformer import FLAGSHIP, TransformerConfig, init_params
@@ -59,24 +58,35 @@ def main() -> None:
         for _ in range(n):
             eng.step()
         torch.cuda.synchronize()
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0), "kernel": args.kernel,
+        "steps": n, "batch": 8, "prompt_tokens": 256,
+        **device_breakdown(prof, n, host_ms, args.top)}))
+
+
+def device_breakdown(prof, steps: int, host_ms: float, top: int) -> dict:
+    """Per-step device time of a profiled window of ``steps`` steps (sum
+    of kernel and copy durations), its share of ``host_ms`` per step,
+    launches per step, and the ``top`` heaviest device entries by name."""
+    from torch.autograd import DeviceType
+
     per_name: dict = {}
     for evt in prof.events():
         if evt.device_type != DeviceType.CUDA:
             continue
         ms, calls = per_name.get(evt.name, (0.0, 0))
         per_name[evt.name] = (ms + evt.device_time_total / 1e3, calls + 1)
-    device_ms = sum(ms for ms, _ in per_name.values()) / n
-    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:args.top]
-    print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "kernel": args.kernel,
-        "steps": n, "batch": 8, "prompt_tokens": 256,
+    device_ms = sum(ms for ms, _ in per_name.values()) / steps
+    heavy = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {
         "host_ms_per_step": host_ms,
         "device_ms_per_step": device_ms,
         "device_busy_share": device_ms / host_ms,
-        "device_launches_per_step": sum(c for _, c in per_name.values()) / n,
-        "top": [{"name": name[:80], "ms_per_step": ms / n,
-                 "calls_per_step": calls / n}
-                for name, (ms, calls) in top]}))
+        "device_launches_per_step": sum(c for _, c in per_name.values())
+        / steps,
+        "top": [{"name": name[:80], "ms_per_step": ms / steps,
+                 "calls_per_step": calls / steps}
+                for name, (ms, calls) in heavy]}
 
 
 if __name__ == "__main__":

@@ -5,15 +5,22 @@ shapes and layouts, so the bridge is a leaf-by-leaf copy through numpy.
 The JAX side hands its tree over as numpy arrays (for example
 ``jax.tree_util.tree_map(np.asarray, params)``); this module imports
 nothing of JAX.
+
+:func:`tree_leaves`, :func:`tree_flatten` and :func:`tree_unflatten`
+walk a tree in JAX's leaf order: dict keys sorted (as strings, so
+``layer_10`` comes before ``layer_2``) at every level, lists and tuples
+in order. A flat weight list of the JAX model (``get_weights``) is
+therefore the port's in the same order.
 """
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ._device import DeviceLike, resolve_device
 
-__all__ = ["from_numpy_tree", "to_numpy_tree", "tree_map"]
+__all__ = ["from_numpy_tree", "to_numpy_tree", "tree_map", "tree_leaves",
+           "tree_flatten", "tree_unflatten"]
 
 
 def from_numpy_tree(tree: Dict[str, Any], device: DeviceLike = None,
@@ -49,3 +56,42 @@ def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def tree_flatten(tree) -> Tuple[List[Any], Any]:
+    """``(leaves, treedef)`` in JAX's leaf order; ``treedef`` is the
+    tree with every leaf replaced by ``None``."""
+    leaves: List[Any] = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(node[k]) for k in sorted(node, key=str)}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(x) for x in node)
+        leaves.append(node)
+        return None
+
+    return leaves, walk(tree)
+
+
+def tree_leaves(tree) -> List[Any]:
+    """The leaves of a nested dict/list/tuple in JAX's leaf order."""
+    return tree_flatten(tree)[0]
+
+
+def tree_unflatten(treedef, leaves):
+    """The inverse of :func:`tree_flatten`."""
+    leaves = list(leaves)
+    places = len(tree_leaves(treedef))
+    if len(leaves) != places:
+        raise ValueError(f"{len(leaves)} leaves for a tree of {places}")
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node, key=str)}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(x) for x in node)
+        return next(it)
+
+    return build(treedef)

@@ -57,6 +57,56 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
 
 
+_BWD_CASES = {
+    # (B, H, KVH, Sq, Sk, causal, window, q_offset, k_offset)
+    "causal": (2, 4, 4, 130, 130, True, None, 0, 0),
+    "noncausal": (2, 4, 4, 130, 70, False, None, 0, 0),
+    "gqa": (2, 4, 1, 128, 128, True, None, 0, 0),
+    "window": (2, 4, 2, 200, 200, True, 33, 0, 0),
+    "ragged": (1, 4, 4, 77, 77, True, None, 0, 0),
+    "hop_past": (1, 4, 4, 64, 100, True, None, 128, 0),
+    "hop_future": (1, 4, 2, 64, 64, True, None, 0, 64),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(_BWD_CASES))
+def test_flash_backward_kernels_match_plain(cuda, case, dtype):
+    """dQ and dK/dV against the f32 plain version on the same (rounded)
+    inputs and the same lse/delta; errors relative to max|ref| (f32
+    1e-4: another summation order; bf16 2e-2: P and dS enter their
+    products in bf16, as in the TPU kernels)."""
+    from elephas_tpu_torch.ops.flash_attention import (flash_backward,
+                                                       flash_backward_plain,
+                                                       flash_forward_plain)
+    b, h, kvh, sq, sk, causal, window, qo, ko = _BWD_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, g = (torch.randn((b, h, sq, 64), generator=gen, device=cuda)
+            .to(dtype) for _ in range(2))
+    k, v = (torch.randn((b, kvh, sk, 64), generator=gen, device=cuda)
+            .to(dtype) for _ in range(2))
+    o, lse = flash_forward_plain(q.float(), k.float(), v.float(), qo, ko,
+                                 causal, window)
+    delta = (g.float() * o).sum(-1)
+    before = (flash_backward.dq_launches, flash_backward.dkv_launches)
+    out = flash_backward(q, k, v, g, lse, delta, qo, ko, causal, window)
+    torch.cuda.synchronize()
+    assert (flash_backward.dq_launches, flash_backward.dkv_launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = flash_backward_plain(q.float(), k.float(), v.float(), g.float(),
+                               lse, delta, qo, ko, causal, window)
+    rel = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, got, want, like in zip(("dq", "dk", "dv"), out, ref,
+                                     (q, k, v)):
+        assert got.dtype == dtype and got.shape == like.shape, name
+        scale = float(want.abs().max())
+        if case == "hop_future":
+            assert scale == 0.0 and bool((got == 0).all()), name
+            continue
+        err = float((got.float() - want).abs().max())
+        assert err <= rel * scale, f"{name}: {err} > {rel} * {scale}"
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", ["base", "gqa", "window", "alibi"])
 def test_paged_kernel_matches_plain(cuda, case, dtype):
@@ -122,3 +172,65 @@ def test_forward_flash_matches_plain_on_card(cuda):
     plain = forward(params, tokens, dataclasses.replace(
         cfg, attention_impl="xla"))
     torch.testing.assert_close(flash, plain, atol=1e-4, rtol=0)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One SGD step (lr 1, so the update is minus the gradient) through
+    the flash kernels on the card against the CPU plain step on the same
+    weights and tokens, in f32; each kernel launches once per layer."""
+    from elephas_tpu_torch import TransformerConfig, init_params
+    from elephas_tpu_torch.models.optimizers import SGD
+    from elephas_tpu_torch.models.transformer import make_train_step
+    from elephas_tpu_torch.ops.flash_attention import (flash_backward,
+                                                       flash_forward)
+    from elephas_tpu_torch.weights import (from_numpy_tree, to_numpy_tree,
+                                           tree_leaves)
+    cfg = TransformerConfig(vocab_size=128, num_layers=2, num_heads=4,
+                            d_model=256, d_ff=512, max_seq_len=160,
+                            dtype=torch.float32, num_kv_heads=2,
+                            attention_window=100)
+    host = to_numpy_tree(init_params(cfg, torch.Generator().manual_seed(0),
+                                     "cpu"))
+    tokens = torch.randint(0, 128, (2, 150),
+                           generator=torch.Generator().manual_seed(1))
+    deltas = []
+    for device in ("cpu", cuda):
+        params = from_numpy_tree(host, device=device)
+        start = [p.clone() for p in tree_leaves(params)]
+        tx = SGD(1.0).to_transform()
+        step = make_train_step(cfg, tx)
+        before = (flash_forward.launches, flash_backward.dq_launches,
+                  flash_backward.dkv_launches)
+        _, _, loss = step(params, tx.init(params), tokens.to(device))
+        after = (flash_forward.launches, flash_backward.dq_launches,
+                 flash_backward.dkv_launches)
+        if device == cuda:
+            assert tuple(a - b for a, b in zip(after, before)) == (2, 2, 2)
+        deltas.append((float(loss), [(p - s).cpu() for p, s in
+                                     zip(tree_leaves(params), start)]))
+    (cpu_loss, cpu_d), (gpu_loss, gpu_d) = deltas
+    assert abs(cpu_loss - gpu_loss) <= 1e-4
+    for a, b in zip(cpu_d, gpu_d):
+        scale = float(a.abs().max())
+        assert float((a - b).abs().max()) <= 1e-3 * scale + 1e-7
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_remat_with_dropout_on_card_keeps_gradients(cuda, policy):
+    """Through the flash kernels on the card, ``remat`` (either policy)
+    recomputes the same forward, dropout masks included: the gradients
+    equal those without remat under the same CUDA generator."""
+    from elephas_tpu_torch import TransformerConfig, init_params
+    from elephas_tpu_torch.models.transformer import lm_loss_and_grads
+    cfg = TransformerConfig(vocab_size=128, num_layers=2, num_heads=4,
+                            d_model=256, d_ff=512, max_seq_len=160,
+                            dtype=torch.float32, dropout_rate=0.2)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    tokens = torch.randint(0, 128, (2, 150), device=cuda)
+    grads = [lm_loss_and_grads(params, tokens, c,
+                               torch.Generator(device=cuda).manual_seed(4))[1]
+             for c in (cfg, dataclasses.replace(cfg, remat=True,
+                                                remat_policy=policy))]
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=0)

@@ -147,10 +147,10 @@ def test_attention_impl_routing():
     assert ttr.resolve_attention_impl(alibi, cuda) == "xla"
 
 
-@pytest.mark.parametrize("feature", ["moe", "quant", "remat"])
+@pytest.mark.parametrize("feature", ["moe", "quant"])
 def test_unported_features_raise(feature):
-    over = {"moe": {"num_experts": 4}, "quant": {"kv_cache_quant": True},
-            "remat": {"remat": True}}[feature]
+    over = {"moe": {"num_experts": 4},
+            "quant": {"kv_cache_quant": True}}[feature]
     cfg = ttr.TransformerConfig(**_BASE, **over)
     with pytest.raises(NotImplementedError):
         ttr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -158,8 +158,12 @@ def test_unported_features_raise(feature):
 
 @pytest.mark.parametrize("arg", ["mesh", "segment_ids", "dropout_key"])
 def test_unported_forward_arguments_raise(arg):
+    """Mesh arguments and packed segments are not ported; a dropout key
+    is ported as a ``torch.Generator``, and anything else (a JAX key)
+    is refused."""
     cfg = ttr.TransformerConfig(**_BASE, dtype=torch.float32)
     params = ttr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError):
+    error = TypeError if arg == "dropout_key" else NotImplementedError
+    with pytest.raises(error):
         ttr.forward(params, torch.zeros((1, 4), dtype=torch.long), cfg,
                     **{arg: object()})

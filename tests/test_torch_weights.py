@@ -15,7 +15,9 @@ from elephas_tpu.models.transformer import init_params as jax_init
 from elephas_tpu_torch import DecodeEngine
 from elephas_tpu_torch.models.transformer import TransformerConfig
 from elephas_tpu_torch.models.transformer import init_params
-from elephas_tpu_torch.weights import from_numpy_tree, to_numpy_tree
+from elephas_tpu_torch.weights import (from_numpy_tree, to_numpy_tree,
+                                       tree_flatten, tree_leaves,
+                                       tree_unflatten)
 
 REPO = Path(__file__).resolve().parent.parent
 _CFG = dict(vocab_size=64, num_layers=2, num_heads=4, d_model=32, d_ff=64,
@@ -56,6 +58,26 @@ def test_bridge_matches_port_init_layout():
                       torch.Generator().manual_seed(1), device="cpu")
     shapes = {k: tuple(v.shape) for k, v in _leaves(own)}
     assert shapes == {k: tuple(v.shape) for k, v in _leaves(bridged)}
+
+
+def test_tree_leaves_follow_jax_order():
+    """Twelve layers: JAX sorts ``layer_10`` before ``layer_2``, and the
+    port's flat leaf list follows it leaf for leaf."""
+    cfg = dict(_CFG, num_layers=12, tied_embedding=False)
+    jp = jax_init(JaxConfig(**cfg), jax.random.PRNGKey(2))
+    params = from_numpy_tree(jax.tree_util.tree_map(np.asarray, jp),
+                             device="cpu")
+    ref = jax.tree_util.tree_leaves(jp)
+    leaves, treedef = tree_flatten(params)
+    assert len(leaves) == len(ref)
+    for a, b in zip(ref, leaves):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    back = tree_unflatten(treedef, [t + 1 for t in leaves])
+    np.testing.assert_array_equal(back["layer_10"]["mlp"]["b1"].numpy(),
+                                  np.asarray(jp["layer_10"]["mlp"]["b1"]) + 1)
+    assert tree_leaves([{"b": 1, "a": 2}, (3,)]) == [2, 1, 3]
+    with pytest.raises(ValueError):
+        tree_unflatten(treedef, leaves[:-1])
 
 
 def test_bridge_casts_to_dtype():
@@ -106,7 +128,7 @@ def test_no_source_of_the_port_imports_jax():
                 continue
             for name in names:
                 assert name.split(".")[0] not in (
-                    "jax", "jaxlib", "elephas_tpu"), (path, name)
+                    "jax", "jaxlib", "optax", "elephas_tpu"), (path, name)
 
 
 def test_device_none_without_cuda_raises(monkeypatch):
