@@ -30,6 +30,8 @@ import time
 import numpy as np
 import torch
 
+from elephas_tpu_torch.profile_kernels import time_ms
+
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense): the
 # roofline bounds below are computed against them.
 PEAK_BF16_FLOPS = 989e12
@@ -53,27 +55,6 @@ def nvidia_smi() -> str:
     if out.returncode:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, reps: int = 20, flush: torch.Tensor = None) -> float:
-    """Median device time of one call, in ms, with CUDA events around
-    each call. ``flush`` (a buffer larger than the 50 MB L2) is
-    overwritten before every call so each one starts with a cold L2, as
-    a call inside a decode step or a layer stack does."""
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(reps):
-        if flush is not None:
-            flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -168,7 +149,8 @@ def check_paged(flush):
 def check_flash(flush):
     """The flash forward kernel against its plain version: the forward
     path's shape (B 2, H 16, S 1024, D 64, causal), the training path's
-    (B 8), B 4, GQA, a window, ragged lengths, and ring-hop offsets."""
+    (B 8), B 4, GQA, a window, ragged lengths, and ring-hop offsets.
+    Timed at both main-path shapes, each beside SDPA."""
     from elephas_tpu_torch.ops.flash_attention import (flash_forward,
                                                        flash_forward_plain)
 
@@ -183,7 +165,7 @@ def check_flash(flush):
              "noncausal_ragged": (2, 16, 16, 1000, 777, False, None, 0, 0),
              "hop_past": (2, 16, 16, 512, 512, True, None, 1024, 512),
              "hop_future": (2, 16, 16, 512, 512, True, None, 0, 512)}
-    errs = {}
+    errs, timed = {}, {}
     for name, (b, h, kvh, sq, sk, causal, window, qo, ko) in cases.items():
         q = torch.randn((b, h, sq, 64), generator=gen, device="cuda")
         k = torch.randn((b, kvh, sk, 64), generator=gen, device="cuda")
@@ -213,29 +195,49 @@ def check_flash(flush):
         require(e["o_bf16"] <= 2e-2 and e["lse_bf16"] <= 1e-3,
                 f"flash {name} bf16 errors {e}")
         errs[name] = e
-        if name == "main":
-            main16 = (q16, k16, v16)
-            b_m, h_m, s_m = b, h, sq
-    q16, k16, v16 = main16
+        if name in ("main", "train"):
+            timed[name] = (q16, k16, v16)
+
+    def causal_bound(b, h, s):
+        """(flops, bytes, bound ms, bound by) of one causal call."""
+        pairs = s * (s + 1) // 2          # unmasked (q, k) pairs, causal
+        flops = 4 * b * h * 64 * pairs
+        nbytes = 4 * b * h * s * 64 * 2 + b * h * s * 4
+        ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        return (flops, nbytes, max(ops_ms, bytes_ms),
+                "operations" if ops_ms >= bytes_ms else "bytes")
+
+    def sdpa(q, k, v):
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True)
+
+    q16, k16, v16 = timed["main"]
+    b_m, h_m, s_m = q16.shape[:3]
     ms = time_ms(lambda: flash_forward(q16, k16, v16, causal=True),
                  flush=flush)
     plain_ms = time_ms(lambda: flash_forward_plain(q16, k16, v16,
                                                    causal=True), flush=flush)
-    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q16, k16, v16, is_causal=True), flush=flush)
-    pairs = s_m * (s_m + 1) // 2          # unmasked (q, k) pairs, causal
-    flops = 4 * b_m * h_m * 64 * pairs
-    nbytes = 4 * b_m * h_m * s_m * 64 * 2 + b_m * h_m * s_m * 4
-    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    lib_ms = time_ms(sdpa(q16, k16, v16), flush=flush)
+    flops, nbytes, bound_ms, bound_by = causal_bound(b_m, h_m, s_m)
+    # the training path's shape (B 8): 64 of the train run's launches
+    q8, k8, v8 = timed["train"]
+    train_ms = time_ms(lambda: flash_forward(q8, k8, v8, causal=True),
+                       flush=flush)
+    train_lib_ms = time_ms(sdpa(q8, k8, v8), flush=flush)
+    t_flops, t_bytes, t_bound_ms, t_bound_by = causal_bound(*q8.shape[:3])
     results = {"max_abs_err": max(max(e.values()) for e in errs.values()),
                "max_abs_err_f32": max(max(e["o_f32"], e["lse_f32"])
                                       for e in errs.values()),
                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-               "bound_ms": max(ops_ms, bytes_ms),
-               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+               "bound_ms": bound_ms, "bound_by": bound_by,
                "flops": flops, "bytes": nbytes,
-               "achieved_tflops": flops / (ms * 1e-3) / 1e12}
+               "achieved_tflops": flops / (ms * 1e-3) / 1e12,
+               "train_shape": {"B": q8.shape[0], "H": q8.shape[1],
+                               "S": q8.shape[2]},
+               "train_ms": train_ms, "train_library_ms": train_lib_ms,
+               "train_bound_ms": t_bound_ms, "train_bound_by": t_bound_by,
+               "train_achieved_tflops": t_flops / (train_ms * 1e-3) / 1e12}
     emit({"phase": "flash_kernel", "errors": errs, **results,
           "shape": {"B": b_m, "H": h_m, "S": s_m, "D": 64, "causal": True,
                     "dtype": "bfloat16"},
@@ -261,7 +263,8 @@ def check_flash_bwd(flush):
     forward phase's cases, with the same lse/delta: f32, and bf16
     against the f32 plain version on bf16-rounded inputs. Then, at the
     training shape (B 8, H 16, S 1024, D 64, causal, bf16), each is held
-    against its plain version on the operands it is timed on."""
+    against its plain version on the operands it is timed on, and two
+    dK/dV launches there must give the same bits."""
     from elephas_tpu_torch.ops.flash_attention import (
         flash_backward, flash_backward_plain, flash_dkv, flash_dkv_plain,
         flash_dq, flash_dq_plain, flash_forward_plain)
@@ -338,6 +341,13 @@ def check_flash_bwd(flush):
         e[f"{part}_bf16"] = err
         e[f"{part}_bf16_rel"] = err / scale
     errs["train"] = e
+    # no atomics: a second dK/dV launch on the same operands gives the
+    # same bits
+    first, second = flash_dkv(*args), flash_dkv(*args)
+    require(all(torch.equal(a.view(torch.int16), b_.view(torch.int16))
+                for a, b_ in zip(first, second)),
+            "two flash_dkv launches give bit-equal dK and dV")
+    del first, second
     ms = {"dq": time_ms(lambda: flash_dq(*args), flush=flush),
           "dkv": time_ms(lambda: flash_dkv(*args), flush=flush)}
     plain_ms = {"dq": time_ms(lambda: flash_dq_plain(*args), flush=flush),
@@ -371,6 +381,7 @@ def check_flash_bwd(flush):
           "library": "aten._scaled_dot_product_flash_attention_backward",
           "library_note": "one call computing dQ, dK and dV together: "
                           "compare with dq ms + dkv ms",
+          "dkv_bit_reproducible": True,
           "shape": {"B": b, "H": h, "S": s, "D": d, "causal": True,
                     "dtype": "bfloat16"},
           "tolerance_relative_to_max_ref": tol})

@@ -36,6 +36,42 @@ __device__ __forceinline__ float round_to(float x) {
   return to_f32(from_f32<T>(x));
 }
 
+// Whether some pair of query rows [q_lo, q_hi] and key rows [k_lo, k_hi]
+// (local indices) is unmasked on global positions: the TPU kernels'
+// `diag_reached` and the window's band test. Uniform over a CTA.
+__device__ __forceinline__ bool rows_meet(int q_lo, int q_hi, int k_lo,
+                                          int k_hi, int q_offset,
+                                          int k_offset, int causal,
+                                          int window) {
+  bool live = !causal || k_offset + k_lo <= q_offset + q_hi;
+  if (window > 0) live = live && k_offset + k_hi > q_offset + q_lo - window;
+  return live;
+}
+
+// Whether every such pair is unmasked by the causal and window rules
+// (ragged lengths are the caller's to check): such a tile needs no
+// per-element mask.
+__device__ __forceinline__ bool rows_all_valid(int q_lo, int q_hi, int k_lo,
+                                               int k_hi, int q_offset,
+                                               int k_offset, int causal,
+                                               int window) {
+  bool all = !causal || k_offset + k_hi <= q_offset + q_lo;
+  if (window > 0) all = all && k_offset + k_lo > q_offset + q_hi - window;
+  return all;
+}
+
+// Element validity: key and query in range, causal and window on global
+// positions.
+__device__ __forceinline__ bool pair_valid(int ql, int kl, int Sq, int Sk,
+                                           int q_offset, int k_offset,
+                                           int causal, int window) {
+  const int qg = q_offset + ql, kg = k_offset + kl;
+  bool ok = ql < Sq && kl < Sk;
+  if (causal) ok = ok && kg <= qg;
+  if (window > 0) ok = ok && kg > qg - window;
+  return ok;
+}
+
 // Rows [r0, r0 + n) of a (rows, D) bf16 matrix -> a shared-memory tile
 // with row stride LD, zero past `limit` rows, with 16-byte vector copies
 // by NT threads (the source must be 16-byte aligned).

@@ -21,34 +21,48 @@
 // - dQ: one CTA per (batch*head, 64-row q tile) loops over the 64-row
 //   K/V tiles from the window's lower edge up to the causal diagonal and
 //   keeps dQ in registers, written once.
-// - dK/dV: one CTA per (batch*kv_head, 64-row k tile) loops over the
+// - dK/dV: one CTA per (batch*kv_head, 128-row k tile) loops over the
 //   group's query heads and, for each, over the q tiles that can see
 //   this k tile (the kv-major grid of `_bwd_calls`), keeping dK and dV
 //   in registers, written once.
-// Two bodies share that structure:
-// - bf16 (the working type): 4 warps, each owning 16 rows of the CTA's
-//   tile. All products run on the tensor cores as 16x16x16 WMMA (bf16
-//   in, f32 accumulate) and the accumulators stay in WMMA fragments
-//   across the loop. S and dP pass through per-warp f32 scratch in
-//   shared memory for the masked elementwise step (a fragment's element
-//   layout is opaque), which writes P and dS back in bf16: the casts of
-//   the TPU kernels (`ds.astype(k.dtype)`, `p.astype(do.dtype)`).
-// - f32: 256 threads on the CUDA cores, each holding a 4x4 block of the
-//   64x64 score tile and a 4x(D/16) block of every accumulator.
+// Bodies:
+// - dK/dV, bf16 (the working type, head_dim 64): CTAs of the first k
+//   tiles (the most live q tiles under causal masking) scheduled first.
+//   One producer warp TMA-loads K and V once and then, per live q tile,
+//   Q and dO into a 6-stage ring of shared memory guarded by full/empty
+//   mbarriers; its lanes stage that tile's lse (times log2 e) and delta
+//   beside them (a 1-D bulk copy would need 16-byte aligned rows, which
+//   a ragged Sq does not give). Two consumer warpgroups of 64 key rows
+//   compute S^T = K Q^T and dP^T = V dO^T with wgmma m64n64k16 from
+//   shared memory, form P = exp2(S^T scale log2 e - lse log2 e) and dS
+//   = P (dP - delta) scale on the accumulators in registers (the
+//   per-element mask only on tiles that hold a masked pair), pack both
+//   to bf16 in registers (the TPU kernels' `p.astype(do.dtype)` and
+//   `ds.astype(q.dtype)`) and feed them as the register A operand of dV
+//   += P^T dO and dK += dS^T Q (dO and Q MN-major from the ring).
+// - dQ, bf16: 4 warps, each owning 16 rows of the q tile, on 16x16x16
+//   WMMA (bf16 in, f32 accumulate) with dQ in WMMA fragments across the
+//   loop; S and dP pass through per-warp f32 scratch in shared memory
+//   for the masked elementwise step (a fragment's element layout is
+//   opaque), which writes dS back in bf16.
+// - f32 (both kernels): 256 threads on the CUDA cores, each holding a
+//   4x4 block of the 64x64 score tile and a 4x(D/16) block of every
+//   accumulator.
 //
 // What bounds it on the H100. At the training shape (B 8, H 16, S 1024,
 // D 64, causal, bf16) dQ needs 3 products (S, dP, dQ) and dK/dV 4 (S,
 // dP, dV, dK) of 2*D flops per unmasked (q, k) pair: 25.8 and 34.4
 // GFLOP against about 85 and 102 MB of inputs and outputs, so both sit
 // at the ridge (dQ: 0.026 ms of operations at 989 TFLOP/s, 0.025 ms of
-// bytes at 3.35 TB/s). This first design reaches the tensor cores
-// through mma.sync-class WMMA at 16x16x16, with one blocking tile load
-// and a few barriers per tile and the elementwise step through shared
-// memory. Left for later: wgmma on TMA-staged, double-buffered tiles
-// with the elementwise step kept in registers.
+// bytes at 3.35 TB/s). The dK/dV body runs its four products in two
+// dependent pairs per q tile within a warpgroup, the second warpgroup
+// and the ring's prefetch overlapping them. The dQ body still reaches
+// the tensor cores through mma.sync-class WMMA with blocking tile loads
+// and its elementwise step through shared memory.
 #include <mma.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -58,7 +72,7 @@ using bf16 = __nv_bfloat16;
 
 constexpr int BQ = 64;          // query rows per tile
 constexpr int BK = 64;          // key rows per tile
-constexpr int WARPS = 4;        // bf16 body: each warp owns 16 rows
+constexpr int WARPS = 4;        // dQ bf16 body: each warp owns 16 rows
 constexpr int WTHREADS = 32 * WARPS;
 constexpr int THREADS = 256;    // f32 body: 16 x 16 threads, 4 x 4 each
 
@@ -69,29 +83,6 @@ using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
 using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
                                 wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// Whole-tile liveness on global positions: the TPU kernels'
-// `diag_reached` (and the window's `in_band`); uniform over a CTA.
-__device__ __forceinline__ bool tile_live(int q0, int k0, int q_offset,
-                                          int k_offset, int causal,
-                                          int window) {
-  bool live = !causal || (k_offset + k0 <= q_offset + q0 + BQ - 1);
-  if (window > 0)
-    live = live && (k_offset + k0 + BK - 1 > q_offset + q0 - window);
-  return live;
-}
-
-// Element validity: key and query in range, causal and window on global
-// positions.
-__device__ __forceinline__ bool pair_valid(int ql, int kl, int Sq, int Sk,
-                                           int q_offset, int k_offset,
-                                           int causal, int window) {
-  const int qg = q_offset + ql, kg = k_offset + kl;
-  bool ok = ql < Sq && kl < Sk;
-  if (causal) ok = ok && kg <= qg;
-  if (window > 0) ok = ok && kg > qg - window;
-  return ok;
-}
 
 // lse and delta of query rows [q0, q0 + BQ) into shared memory; rows past
 // Sq read 0 (they are masked out of every product).
@@ -265,7 +256,9 @@ __global__ void __launch_bounds__(WTHREADS)
   const int nk = (Sk + BK - 1) / BK;
   for (int kj = 0; kj < nk; ++kj) {
     const int k0 = kj * BK;
-    if (!tile_live(q0, k0, q_offset, k_offset, causal, window)) continue;
+    if (!rows_meet(q0, q0 + BQ - 1, k0, k0 + BK - 1, q_offset, k_offset,
+                   causal, window))
+      continue;
     __syncthreads();  // every warp is done with the previous K/V tile
     stage_rows<D, L::LDT, WTHREADS>(Ks, kp, k0, BK, Sk);
     stage_rows<D, L::LDT, WTHREADS>(Vs, vp, k0, BK, Sk);
@@ -289,94 +282,6 @@ __global__ void __launch_bounds__(WTHREADS)
     accumulate<D>(acc, DSw, Ks);          // dQ += dS K
   }
   write_rows<D>(acc, Sw, dq + (size_t)bh * Sq * D, q0 + warp * 16, Sq);
-}
-
-template <int D>
-__global__ void __launch_bounds__(WTHREADS)
-    flash_dkv_wmma_kernel(const bf16* __restrict__ q,
-                          const bf16* __restrict__ k,
-                          const bf16* __restrict__ v,
-                          const bf16* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv,
-                          int H, int KVH, int Sq, int Sk, int q_offset,
-                          int k_offset, int causal, int window,
-                          float scale) {
-  using L = WmmaLayout<D>;
-  constexpr int KD = D / 16;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const WmmaSmem<D> sm(smem_raw);
-  bf16 *Ks = sm.a, *Vs = sm.b, *Qs = sm.c, *dOs = sm.d;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int bkv = blockIdx.y;
-  const int k0 = blockIdx.x * BK;
-  const int grp = H / KVH;
-  // the group's query heads: rows b*H + kh*grp + g
-  const int qrow0 = (bkv / KVH) * H + (bkv % KVH) * grp;
-
-  stage_rows<D, L::LDT, WTHREADS>(Ks, k + (size_t)bkv * Sk * D, k0, BK, Sk);
-  stage_rows<D, L::LDT, WTHREADS>(Vs, v + (size_t)bkv * Sk * D, k0, BK, Sk);
-  __syncthreads();
-  FragA kf[KD], vf[KD];
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    wmma::load_matrix_sync(kf[kk], Ks + warp * 16 * L::LDT + kk * 16,
-                           L::LDT);
-    wmma::load_matrix_sync(vf[kk], Vs + warp * 16 * L::LDT + kk * 16,
-                           L::LDT);
-  }
-  FragC dk_acc[KD], dv_acc[KD];
-#pragma unroll
-  for (int dn = 0; dn < KD; ++dn) {
-    wmma::fill_fragment(dk_acc[dn], 0.f);
-    wmma::fill_fragment(dv_acc[dn], 0.f);
-  }
-
-  float* Sw = sm.s + warp * 16 * L::LDS;   // S^T: 16 keys x 64 queries
-  float* DPw = sm.dp + warp * 16 * L::LDS;
-  bf16* Pw = sm.p + warp * 16 * L::LDP;
-  bf16* DSw = sm.ds + warp * 16 * L::LDP;
-  const int rl = lane >> 1, half = lane & 1;
-  const int kl = k0 + warp * 16 + rl;     // this lane pair's local key
-
-  const int nq = (Sq + BQ - 1) / BQ;
-  for (int g = 0; g < grp; ++g) {
-    const size_t bh = (size_t)qrow0 + g;
-    for (int qi = 0; qi < nq; ++qi) {
-      const int q0 = qi * BQ;
-      if (!tile_live(q0, k0, q_offset, k_offset, causal, window)) continue;
-      __syncthreads();  // every warp is done with the previous Q/dO tile
-      stage_rows<D, L::LDT, WTHREADS>(Qs, q + bh * Sq * D, q0, BQ, Sq);
-      stage_rows<D, L::LDT, WTHREADS>(dOs, dout + bh * Sq * D, q0, BQ, Sq);
-      stage_stats<WTHREADS>(sm.lse, sm.delta, lse + bh * Sq,
-                            delta + bh * Sq, q0, Sq);
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x 64 queries
-      scores_and_dp<D>(kf, vf, Qs, dOs, Sw, DPw);
-      __syncwarp();
-#pragma unroll 8
-      for (int c = 0; c < 32; ++c) {
-        const int col = half * 32 + c;  // query row within the tile
-        float p = 0.f, ds = 0.f;
-        if (pair_valid(q0 + col, kl, Sq, Sk, q_offset, k_offset, causal,
-                       window)) {
-          p = expf(Sw[rl * L::LDS + col] * scale - sm.lse[col]);
-          ds = p * (DPw[rl * L::LDS + col] - sm.delta[col]) * scale;
-        }
-        Pw[rl * L::LDP + col] = __float2bfloat16(p);
-        DSw[rl * L::LDP + col] = __float2bfloat16(ds);
-      }
-      __syncwarp();
-      accumulate<D>(dv_acc, Pw, dOs);     // dV += P^T dO
-      accumulate<D>(dk_acc, DSw, Qs);     // dK += dS^T Q
-    }
-  }
-  const size_t base = (size_t)bkv * Sk * D;
-  write_rows<D>(dk_acc, Sw, dk + base, k0 + warp * 16, Sk);
-  write_rows<D>(dv_acc, DPw, dv + base, k0 + warp * 16, Sk);
 }
 
 // ------------------------------------------------------- f32, CUDA cores
@@ -510,7 +415,9 @@ __global__ void __launch_bounds__(THREADS)
   const int nk = (Sk + BK - 1) / BK;
   for (int kj = 0; kj < nk; ++kj) {
     const int k0 = kj * BK;
-    if (!tile_live(q0, k0, q_offset, k_offset, causal, window)) continue;
+    if (!rows_meet(q0, q0 + BQ - 1, k0, k0 + BK - 1, q_offset, k_offset,
+                   causal, window))
+      continue;
     __syncthreads();
     stage_rows<D, L::LD, THREADS>(Ks, k + (size_t)kv_row * Sk * D, k0, BK,
                                   Sk);
@@ -575,7 +482,9 @@ __global__ void __launch_bounds__(THREADS)
     const size_t bh = (size_t)qrow0 + g;
     for (int qi = 0; qi < nq; ++qi) {
       const int q0 = qi * BQ;
-      if (!tile_live(q0, k0, q_offset, k_offset, causal, window)) continue;
+      if (!rows_meet(q0, q0 + BQ - 1, k0, k0 + BK - 1, q_offset, k_offset,
+                     causal, window))
+        continue;
       __syncthreads();
       stage_rows<D, L::LD, THREADS>(Qs, q + bh * Sq * D, q0, BQ, Sq);
       stage_rows<D, L::LD, THREADS>(dOs, dout + bh * Sq * D, q0, BQ, Sq);
@@ -621,6 +530,251 @@ struct Args {
   cudaStream_t stream;
 };
 
+// ------------------------------------ dK/dV bf16: wgmma over TMA tiles
+namespace dkv {
+
+constexpr int KROWS = 128;          // key rows per CTA: 2 warpgroups x 64
+constexpr int QROWS = 64;           // query rows per ring stage
+constexpr int STAGES = 6;           // Q/dO tiles in flight
+constexpr int THREADS = 2 * 128 + 32;  // 2 consumer warpgroups + producer
+constexpr uint32_t KV_TILE = KROWS * kRowBytes;   // 16 KB
+constexpr uint32_t Q_TILE = QROWS * kRowBytes;    // 8 KB
+
+struct Layout {
+  // K, V (16 KB each), the Q ring, the dO ring, the lse/delta ring (64
+  // + 64 f32 per stage), then the barriers: kvfull, full[STAGES],
+  // empty[STAGES]; +1024 for alignment. 131 KB; no setmaxnreg (see
+  // flash_fwd.cu)
+  static constexpr uint32_t k = 0, v = KV_TILE, q = 2 * KV_TILE,
+                            dout = q + STAGES * Q_TILE,
+                            stats = dout + STAGES * Q_TILE,
+                            bars = stats + STAGES * 2 * QROWS * 4;
+  static constexpr size_t bytes = bars + (1 + 2 * STAGES) * 8 + 1024;
+};
+
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           int BKV, int H, int KVH, int Sq, int Sk,
+                           int q_offset, int k_offset, int causal,
+                           int window, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  uint8_t* Ks = sm + Layout::k;
+  uint8_t* Vs = sm + Layout::v;
+  uint8_t* Qs = sm + Layout::q;
+  uint8_t* dOs = sm + Layout::dout;
+  float* stats = reinterpret_cast<float*>(sm + Layout::stats);
+  uint64_t* kvfull = reinterpret_cast<uint64_t*>(sm + Layout::bars);
+  uint64_t* full = kvfull + 1;
+  uint64_t* empty = full + STAGES;
+
+  // CTAs of the first k tiles (seen by the most q tiles under causal
+  // masking) get the lowest block ids
+  const int k0 = (int)blockIdx.x / BKV * KROWS;
+  const int bkv = blockIdx.x % BKV;
+  const int grp = H / KVH;
+  // the group's query heads: rows b*H + kh*grp + g
+  const int qrow0 = (bkv / KVH) * H + (bkv % KVH) * grp;
+  const int k_last = min(k0 + KROWS, Sk) - 1;
+  const int nq = (Sq + QROWS - 1) / QROWS;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kvfull, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 32);  // every producer lane (lse and delta)
+      mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == 8) {
+    // ---- producer: K and V once; then, for each query head of the
+    // group and each live q tile, Q and dO by TMA and lse*log2(e) and
+    // delta by the warp's lanes (rows past Sq read 0: they are masked)
+    if (lane == 0) {
+      mbar_expect_tx(kvfull, 2 * KV_TILE);
+      tma_load_3d(Ks, &tk, kvfull, 0, k0, bkv);
+      tma_load_3d(Vs, &tv, kvfull, 0, k0, bkv);
+    }
+    int s = 0;
+    uint32_t phase = 0;
+    for (int g = 0; g < grp; ++g) {
+      const int bh = qrow0 + g;
+      for (int qi = 0; qi < nq; ++qi) {
+        const int q0 = qi * QROWS;
+        if (!rows_meet(q0, min(q0 + QROWS, Sq) - 1, k0, k_last, q_offset,
+                       k_offset, causal, window))
+          continue;
+        mbar_wait(&empty[s], phase ^ 1);
+        float* st = stats + s * 2 * QROWS;
+        for (int i = lane; i < QROWS; i += 32) {
+          const bool in = q0 + i < Sq;
+          const size_t row = (size_t)bh * Sq + q0 + i;
+          st[i] = in ? lse[row] * kLog2e : 0.f;
+          st[QROWS + i] = in ? delta[row] : 0.f;
+        }
+        if (lane == 0) {
+          // arrives (after this lane's lse/delta stores) and expects the
+          // two tiles' bytes
+          mbar_expect_tx(&full[s], 2 * Q_TILE);
+          tma_load_3d(Qs + s * Q_TILE, &tq, &full[s], 0, q0, bh);
+          tma_load_3d(dOs + s * Q_TILE, &tdo, &full[s], 0, q0, bh);
+        } else {
+          mbar_arrive(&full[s]);
+        }
+        if (++s == STAGES) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns key rows wk0 .. wk0 + 63
+    const int wg = warp / 4;
+    const int wk0 = k0 + 64 * wg;
+    const int krow = wk0 + 16 * (warp % 4) + lane / 4;  // and krow + 8
+    uint8_t* Kw = Ks + wg * 64 * kRowBytes;
+    uint8_t* Vw = Vs + wg * 64 * kRowBytes;
+    const uint64_t kdesc = desc_sw128(Kw), vdesc = desc_sw128(Vw);
+    float dk_acc[32], dv_acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+    mbar_wait(kvfull, 0);
+    int s = 0;
+    uint32_t phase = 0;
+    for (int g = 0; g < grp; ++g) {
+      for (int qi = 0; qi < nq; ++qi) {
+        const int q0 = qi * QROWS;
+        if (!rows_meet(q0, min(q0 + QROWS, Sq) - 1, k0, k_last, q_offset,
+                       k_offset, causal, window))
+          continue;
+        mbar_wait(&full[s], phase);
+        const uint64_t qdesc = desc_sw128(Qs + s * Q_TILE);
+        const uint64_t dodesc = desc_sw128(dOs + s * Q_TILE);
+        // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries each
+        float st[32], dpt[32];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_n64(st, kdesc + 2 * kk, qdesc + 2 * kk, kk);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_n64(dpt, vdesc + 2 * kk, dodesc + 2 * kk, kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operands(st);
+        fence_operands(dpt);
+
+        // P = exp2(S*scale*log2(e) - lse*log2(e)) and dS = P (dP - delta)
+        // scale on the accumulator layout, packed to bf16 (the TPU
+        // kernels' casts) into the A fragments of the next two products
+        // one k step at a time, so S^T and dP^T die as the fragments
+        // fill. Column c is query q0 + c; this thread's columns come in
+        // pairs (c, c + 1), whose lse and delta it reads as float2.
+        const float2* lse2 =
+            reinterpret_cast<const float2*>(stats + s * 2 * QROWS);
+        const float2* dl = lse2 + QROWS / 2;
+        const bool masked =
+            q0 + QROWS > Sq || wk0 + 64 > Sk ||
+            !rows_all_valid(q0, q0 + QROWS - 1, wk0, wk0 + 63, q_offset,
+                            k_offset, causal, window);
+        const float scale_log2 = scale * kLog2e;
+        uint32_t pa[4][4], dsa[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            const int c = 16 * kk + 8 * jj + 2 * (lane % 4);
+            const float2 ls = lse2[c / 2], de = dl[c / 2];
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int i = 8 * kk + 4 * jj + 2 * hh;  // columns c, c + 1
+              float p0 = exp2_ftz(fmaf(st[i], scale_log2, -ls.x));
+              float p1 = exp2_ftz(fmaf(st[i + 1], scale_log2, -ls.y));
+              if (masked) {
+                // a masked pair never weighs in (a fully masked query
+                // row's lse is ~-1e30: its exponential is dropped here)
+                const int kl = krow + 8 * hh;
+                p0 = pair_valid(q0 + c, kl, Sq, Sk, q_offset, k_offset,
+                                causal, window) ? p0 : 0.f;
+                p1 = pair_valid(q0 + c + 1, kl, Sq, Sk, q_offset, k_offset,
+                                causal, window) ? p1 : 0.f;
+              }
+              pa[kk][2 * jj + hh] = pack_bf16(p0, p1);
+              dsa[kk][2 * jj + hh] =
+                  pack_bf16(p0 * (dpt[i] - de.x) * scale,
+                            p1 * (dpt[i + 1] - de.y) * scale);
+            }
+          }
+
+        // dV += P^T dO and dK += dS^T Q, the A operands from registers,
+        // dO and Q MN-major from the ring
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs_n64_tb(dv_acc, pa[kk], dodesc + 128 * kk);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs_n64_tb(dk_acc, dsa[kk], qdesc + 128 * kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operands(dk_acc);
+        fence_operands(dv_acc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
+        if (++s == STAGES) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    // dK and dV through this warpgroup's K and V rows to 16-byte stores
+    acc_to_tile(dk_acc, 1.f, 1.f, Kw);
+    acc_to_tile(dv_acc, 1.f, 1.f, Vw);
+    wg_barrier(1 + wg);
+    const size_t base = ((size_t)bkv * Sk + wk0) * 64;
+    tile_to_rows(Kw, dk + base, Sk - wk0);
+    tile_to_rows(Vw, dv + base, Sk - wk0);
+  }
+}
+
+cudaError_t launch(const Args& a) {
+  // with Sq == 0 no Q/dO tile is loaded; the maps still need an extent
+  const void* qp = a.Sq > 0 ? a.q : a.k;
+  const void* gp = a.Sq > 0 ? a.dout : a.k;
+  const int qrows = a.Sq > 0 ? a.Sq : a.Sk;
+  const int qslabs = a.Sq > 0 ? a.B * a.H : a.B * a.KVH;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = encode_rows_map(&tq, qp, qrows, qslabs, QROWS);
+  if (err == cudaSuccess)
+    err = encode_rows_map(&tdo, gp, qrows, qslabs, QROWS);
+  if (err == cudaSuccess)
+    err = encode_rows_map(&tk, a.k, a.Sk, a.B * a.KVH, KROWS);
+  if (err == cudaSuccess)
+    err = encode_rows_map(&tv, a.v, a.Sk, a.B * a.KVH, KROWS);
+  if (err != cudaSuccess) return err;
+  constexpr size_t smem = Layout::bytes;
+  err = allow_smem(flash_dkv_wgmma_kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int grid = (a.Sk + KROWS - 1) / KROWS * (a.B * a.KVH);
+  flash_dkv_wgmma_kernel<<<grid, THREADS, smem, a.stream>>>(
+      tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.B * a.KVH, a.H, a.KVH, a.Sq, a.Sk,
+      a.q_offset, a.k_offset, a.causal, a.window, a.scale);
+  return cudaGetLastError();
+}
+
+}  // namespace dkv
+
 template <int D>
 cudaError_t launch_dq(const Args& a, bool bf16_body) {
   const dim3 grid((a.Sq + BQ - 1) / BQ, a.B * a.H);
@@ -650,30 +804,21 @@ cudaError_t launch_dq(const Args& a, bool bf16_body) {
 
 template <int D>
 cudaError_t launch_dkv(const Args& a, bool bf16_body) {
-  const dim3 grid((a.Sk + BK - 1) / BK, a.B * a.KVH);
   if (bf16_body) {
-    constexpr size_t smem = WmmaLayout<D>::bytes;
-    auto kernel = flash_dkv_wmma_kernel<D>;
-    cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, WTHREADS, smem, a.stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-        a.lse, a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
-        a.H, a.KVH, a.Sq, a.Sk, a.q_offset, a.k_offset, a.causal, a.window,
-        a.scale);
-  } else {
-    constexpr size_t smem = F32Layout<D>::bytes;
-    auto kernel = flash_dkv_f32_kernel<D>;
-    cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, THREADS, smem, a.stream>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-        a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
-        a.H, a.KVH, a.Sq, a.Sk, a.q_offset, a.k_offset, a.causal, a.window,
-        a.scale);
+    static_assert(D == 64, "the bf16 body takes 128-byte rows: head_dim 64");
+    return dkv::launch(a);
   }
+  const dim3 grid((a.Sk + BK - 1) / BK, a.B * a.KVH);
+  constexpr size_t smem = F32Layout<D>::bytes;
+  auto kernel = flash_dkv_f32_kernel<D>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, THREADS, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
+      a.H, a.KVH, a.Sq, a.Sk, a.q_offset, a.k_offset, a.causal, a.window,
+      a.scale);
   return cudaGetLastError();
 }
 

@@ -5,39 +5,41 @@
 // flash-attention-2 forward with f32 online softmax, causal and
 // sliding-window masks with whole-tile skipping, ragged lengths, GQA
 // through the kv-row map, and global q/k offsets for ring hops. It
-// returns O and the per-row logsumexp; a fully masked row gets O = 0
-// and LSE ~ -1e30, so a cross-hop merge weights it to zero.
+// returns O and the per-row logsumexp (natural log); a fully masked row
+// gets O = 0 and LSE ~ -1e30, so a cross-hop merge weights it to zero.
 //
-// Design. One CTA owns one (batch*head, 64-row q tile). The TPU's
-// sequential kv grid axis becomes a loop inside the CTA over 64-row K/V
-// tiles staged in shared memory; tiles wholly above the causal diagonal
-// or below the window are skipped before any load. Ragged edges are
-// masked in the kernel (zero-filled tiles, `k < Sk` validity), never
-// padded in device memory. Two bodies share that structure:
+// Design. The TPU's sequential kv grid axis becomes a loop inside the
+// CTA over K/V tiles; tiles wholly above the causal diagonal or below
+// the window are skipped before any load. Ragged edges are masked in
+// the kernel, never padded in device memory. Two bodies:
 //
-// - bf16 (the working type): 4 warps, each owning 16 query rows. Q.K^T
-//   and P.V run on the tensor cores as 16x16x16 WMMA products (bf16 in,
-//   f32 accumulate, as the TPU kernel's MXU dots). Each warp stores its
-//   16x64 score block to shared memory; lane pairs own one row each for
-//   the online softmax and the f32 O accumulator (half the head dim per
-//   lane), and fold in each tile's P.V block from shared memory, since
-//   a WMMA accumulator's row layout is opaque.
+// - bf16 (the working type, head_dim 64): one CTA per (batch*head,
+//   128-row q tile), CTAs of the last q tiles (the most live tiles under
+//   causal masking) scheduled first. One producer warp issues TMA loads:
+//   Q once, then the live 128-row K and V tiles into a 4-stage ring of
+//   shared memory guarded by full/empty mbarriers; TMA zero-fills rows
+//   past each head's length. Two consumer warpgroups of 64 query rows
+//   compute S = Q K^T with wgmma
+//   m64n128k16 from shared memory, run the online softmax on the wgmma
+//   accumulator in registers (each row on the 4 threads of a quad; one
+//   FMA and exp2 per score; the per-element mask only on tiles that
+//   hold a masked pair), pack P to bf16 in registers (the TPU kernel's
+//   `p.astype(v.dtype)`) and feed it as the register A operand of O +=
+//   P V (m64n64k16, V MN-major). O stays in registers across the loop,
+//   and leaves through a swizzled shared tile in 16-byte stores.
 // - f32: 256 threads on the CUDA cores, each holding a 4x4 block of the
 //   64x64 score tile and a 4x(D/16) block of O in registers; row max and
 //   sum reduce over the 16 lanes sharing a row with warp shuffles.
 //
 // What bounds it on the H100. At head_dim 64 a (q, k) pair costs 4*D
-// flops and each operand row is read once per 64-row tile, so the loop
-// is bound by operations. The bf16 body reaches the tensor cores through
-// mma.sync-class WMMA at 16x16x16, staged through shared memory with
-// plain loads and a barrier per tile: far from the 989 TFLOP/s bound.
-// wgmma over TMA-staged tiles, with the softmax kept in registers, is
-// the next step.
-#include <mma.h>
-
+// flops and each operand row is read once per tile, so the loop is
+// bound by operations (989 TFLOP/s in bf16). Within one consumer
+// warpgroup the two products and the softmax run in sequence; the
+// second warpgroup and the ring's prefetch are what overlap them.
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -198,161 +200,246 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// ------------------------------------------------------ bf16, WMMA body
-namespace wmma = nvcuda::wmma;
+// ------------------------------------------ bf16: wgmma over TMA tiles
 using bf16 = __nv_bfloat16;
 
-constexpr int WARPS = 4;               // each warp owns 16 query rows
-constexpr int WTHREADS = 32 * WARPS;
+constexpr int WQ = 128;             // query rows per CTA: 2 warpgroups x 64
+constexpr int WK = 128;             // key rows per K/V tile
+constexpr int STAGES = 4;           // K/V tiles in flight
+constexpr int WTHREADS = 2 * 128 + 32;  // 2 consumer warpgroups + producer
+constexpr uint32_t TILE = WK * kRowBytes;  // one K or V tile, 16 KB
 
-template <int D>
-struct WmmaLayout {
-  // bf16 row strides pad by 8 elements (16 bytes): rows stay 16-byte
-  // aligned for vector stores and 32-byte aligned at every 16-row
-  // fragment, and consecutive rows shift banks
-  static constexpr int LDQ = D + 8;              // Qs, Ks, Vs
-  static constexpr int LDP = BK + 8;             // Ps
-  static constexpr int LDS = (D > BK ? D : BK) + 4;  // f32 scratch
-  static constexpr size_t bytes =
-      sizeof(bf16) * ((size_t)(BQ + 2 * BK) * LDQ + (size_t)BQ * LDP) +
-      sizeof(float) * (size_t)WARPS * 16 * LDS;
+struct WgmmaLayout {
+  // Q (16 KB), the K ring, the V ring, then the barriers: qfull,
+  // kfull[STAGES], vfull[STAGES], empty[STAGES]; +1024 for alignment.
+  // 144 KB. No setmaxnreg: it only moves registers within the CTA's
+  // launch allocation, which one producer warp barely feeds ((R - 40) x
+  // 32 for 256 consumer threads), and a consumer asking for more than
+  // is free waits for good (a hang on the card). ptxas fits the
+  // consumers in the launch allocation without spills.
+  static constexpr uint32_t q = 0, k = WQ * kRowBytes,
+                            v = k + STAGES * TILE, bars = v + STAGES * TILE;
+  static constexpr size_t bytes = bars + (1 + 3 * STAGES) * 8 + 1024;
 };
 
-template <int D>
-__global__ void __launch_bounds__(WTHREADS)
-    flash_fwd_wmma_kernel(const bf16* __restrict__ q,
-                          const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, bf16* __restrict__ o,
-                          float* __restrict__ lse, int H, int KVH, int Sq,
-                          int Sk, int q_offset, int k_offset, int causal,
-                          int window, float scale) {
-  static_assert(D % 16 == 0 && BK == 64, "tile shape");
-  using L = WmmaLayout<D>;
-  constexpr int KD = D / 16;       // fragments along the head dim
-  constexpr int OC = D / 2;        // O columns per lane
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + BQ * L::LDQ;
-  bf16* Vs = Ks + BK * L::LDQ;
-  bf16* Ps = Vs + BK * L::LDQ;
-  float* Sc = reinterpret_cast<float*>(Ps + BQ * L::LDP);
+// The 64 x 128 score tile of one warpgroup's rows against one K tile
+// is masked per element only where it can hold a masked pair: keys past
+// Sk, the causal diagonal, the window's lower edge.
+__device__ __forceinline__ void mask_scores(float (&s)[64], int qrow, int k0,
+                                            int Sq, int Sk, int q_offset,
+                                            int k_offset, int causal,
+                                            int window) {
+  const int l = threadIdx.x % 32;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int kl = k0 + 8 * (i / 4) + 2 * (l % 4) + i % 2;
+    if (!pair_valid(qrow + 8 * ((i / 2) % 2), kl, Sq, Sk, q_offset,
+                    k_offset, causal, window))
+      s[i] = -INFINITY;
+  }
+}
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* Sw = Sc + warp * 16 * L::LDS;   // this warp's 16-row scratch
-  bf16* Pw = Ps + warp * 16 * L::LDP;
-  const int rl = lane >> 1;              // this lane's row in the warp
-  const int half = lane & 1;             // which half of the row it owns
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
+__global__ void __launch_bounds__(WTHREADS, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           bf16* __restrict__ o, float* __restrict__ lse,
+                           int BH, int H, int KVH, int Sq, int Sk,
+                           int q_offset, int k_offset, int causal,
+                           int window, float scale_log2) {
+  using L = WgmmaLayout;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  uint8_t* Qs = sm + L::q;
+  uint8_t* Ks = sm + L::k;
+  uint8_t* Vs = sm + L::v;
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(sm + L::bars);
+  uint64_t* kfull = qfull + 1;
+  uint64_t* vfull = kfull + STAGES;
+  uint64_t* empty = vfull + STAGES;
+
+  // heaviest first: the CTAs of the last q tiles (the most live K/V
+  // tiles under causal masking) get the lowest block ids
+  const int nqt = (Sq + WQ - 1) / WQ;
+  const int q0 = (nqt - 1 - (int)blockIdx.x / BH) * WQ;
+  const int bh = blockIdx.x % BH;
   const int h = bh % H;
   // GQA: query row bh = b*H + h reads kv row b*KVH + h / (H / KVH)
   const int kv_row = (bh / H) * KVH + h / (H / KVH);
-  const bf16* kp = k + (size_t)kv_row * Sk * D;
-  const bf16* vp = v + (size_t)kv_row * Sk * D;
-  const int qrow = q0 + warp * 16 + rl;  // this lane's local query row
-  const int qg = q_offset + qrow;
+  const int q_last = min(q0 + WQ, Sq) - 1;
+  const int nk = (Sk + WK - 1) / WK;
 
-  stage_rows<D, L::LDQ, WTHREADS>(Qs, q + (size_t)bh * Sq * D, q0, BQ, Sq);
+  if (threadIdx.x == 0) {
+    mbar_init(qfull, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&kfull[s], 1);
+      mbar_init(&vfull[s], 1);
+      mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    fence_barrier_init();
+  }
   __syncthreads();
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qf[KD];
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk)
-    wmma::load_matrix_sync(qf[kk], Qs + warp * 16 * L::LDQ + kk * 16,
-                           L::LDQ);
 
-  float m = kNegInf, l = 0.f, acc[OC];
-#pragma unroll
-  for (int j = 0; j < OC; ++j) acc[j] = 0.f;
-
-  const int nk = (Sk + BK - 1) / BK;
-  for (int kj = 0; kj < nk; ++kj) {
-    const int k0 = kj * BK;
-    bool live = !causal || (k_offset + k0 <= q_offset + q0 + BQ - 1);
-    if (window > 0) live = live && (k_offset + k0 + BK - 1 > q_offset + q0 - window);
-    if (!live) continue;
-
-    __syncthreads();  // every warp is done with the previous K/V tile
-    stage_rows<D, L::LDQ, WTHREADS>(Ks, kp, k0, BK, Sk);
-    stage_rows<D, L::LDQ, WTHREADS>(Vs, vp, k0, BK, Sk);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 keys
-#pragma unroll
-    for (int n = 0; n < BK / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf;
-      wmma::fill_fragment(sf, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
-            kf;
-        wmma::load_matrix_sync(kf, Ks + n * 16 * L::LDQ + kk * 16, L::LDQ);
-        wmma::mma_sync(sf, qf[kk], kf, sf);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == 8) {
+    // ---- producer: Q once, then the live K/V tiles through the ring
+    if (lane == 0) {
+      mbar_expect_tx(qfull, WQ * kRowBytes);
+      tma_load_3d(Qs, &tq, qfull, 0, q0, bh);
+      int s = 0;
+      uint32_t phase = 0;
+      for (int kj = 0; kj < nk; ++kj) {
+        const int k0 = kj * WK;
+        if (!rows_meet(q0, q_last, k0, min(k0 + WK, Sk) - 1, q_offset,
+                       k_offset, causal, window))
+          continue;
+        mbar_wait(&empty[s], phase ^ 1);
+        mbar_expect_tx(&kfull[s], TILE);
+        tma_load_3d(Ks + s * TILE, &tk, &kfull[s], 0, k0, kv_row);
+        mbar_expect_tx(&vfull[s], TILE);
+        tma_load_3d(Vs + s * TILE, &tv, &vfull[s], 0, k0, kv_row);
+        if (++s == STAGES) {
+          s = 0;
+          phase ^= 1;
+        }
       }
-      wmma::store_matrix_sync(Sw + n * 16, sf, L::LDS, wmma::mem_row_major);
     }
-    __syncwarp();
+  } else {
+    // ---- consumers: warpgroup wg owns query rows wq0 .. wq0 + 63
+    const int wg = warp / 4;
+    const int wq0 = q0 + 64 * wg;
+    const int qrow = wq0 + 16 * (warp % 4) + lane / 4;  // and qrow + 8
+    uint8_t* Qw = Qs + wg * 64 * kRowBytes;
+    const uint64_t qdesc = desc_sw128(Qw);
+    float oacc[32], m[2] = {-INFINITY, -INFINITY}, lsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) oacc[i] = 0.f;
 
-    // online softmax: the lane pair (rl, half) owns row rl, 32 columns each
-    const float* srow = Sw + rl * L::LDS + half * 32;
-    float sv[32];
-    unsigned valid = 0u;
-    float mx = kNegInf;
+    mbar_wait(qfull, 0);
+    int s = 0;
+    uint32_t phase = 0;
+    for (int kj = 0; kj < nk; ++kj) {
+      const int k0 = kj * WK;
+      const int k_last = min(k0 + WK, Sk) - 1;
+      if (!rows_meet(q0, q_last, k0, k_last, q_offset, k_offset, causal,
+                     window))
+        continue;
+      // S = Q K^T: 64 rows x 128 keys, 4 k16 steps over the head dim
+      float sacc[64];
+      mbar_wait(&kfull[s], phase);
+      const uint64_t kdesc = desc_sw128(Ks + s * TILE);
+      wgmma_fence();
 #pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const int kl = k0 + half * 32 + c;  // local key row
-      const int kg = k_offset + kl;
-      bool ok = kl < Sk;
-      if (causal) ok = ok && kg <= qg;
-      if (window > 0) ok = ok && kg > qg - window;
-      sv[c] = ok ? srow[c] * scale : kNegInf;
-      valid |= (ok ? 1u : 0u) << c;
-      mx = fmaxf(mx, sv[c]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m, mx);
-    float rs = 0.f;
-    bf16* prow = Pw + rl * L::LDP + half * 32;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const float p = (valid >> c) & 1u ? expf(sv[c] - m_new) : 0.f;
-      rs += p;
-      prow[c] = __float2bfloat16(p);  // P enters P.V in bf16, as on the TPU
-    }
-    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-    const float corr = expf(m - m_new);
-    l = l * corr + rs;
-    m = m_new;
-    __syncwarp();  // P written, S read: the scratch takes the P.V block
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_n128(sacc, qdesc + 2 * kk, kdesc + 2 * kk, kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(sacc);
 
-    // this tile's P.V for the warp's 16 rows, into the scratch
+      if (k0 + WK > Sk ||
+          !rows_all_valid(wq0, wq0 + 63, k0, k0 + WK - 1, q_offset,
+                          k_offset, causal, window))
+        mask_scores(sacc, qrow, k0, Sq, Sk, q_offset, k_offset, causal,
+                    window);
+
+      // online softmax in the base-2 domain on the accumulator layout:
+      // this thread's 2 rows x 32 columns; a row spans the 4 threads of a
+      // quad, so max reduces with shuffles over lanes ^1 and ^2
+      float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int dn = 0; dn < KD; ++dn) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> of;
-      wmma::fill_fragment(of, 0.f);
+      for (int i = 0; i < 64; ++i)
+        mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sacc[i]);
+      float mu[2], corr[2];
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-        wmma::load_matrix_sync(pf, Pw + kk * 16, L::LDP);
-        wmma::load_matrix_sync(vf, Vs + kk * 16 * L::LDQ + dn * 16, L::LDQ);
-        wmma::mma_sync(of, pf, vf, of);
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+        // a row with nothing unmasked yet subtracts 0: exp2(-inf) = 0
+        mu[r] = m_new == -INFINITY ? 0.f : m_new;
+        corr[r] = exp2_ftz(m[r] - mu[r]);
+        m[r] = m_new;
+        lsum[r] *= corr[r];
       }
-      wmma::store_matrix_sync(Sw + dn * 16, of, L::LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-    const float* pv = Sw + rl * L::LDS + half * OC;
 #pragma unroll
-    for (int j = 0; j < OC; ++j) acc[j] = fmaf(acc[j], corr, pv[j]);
-    __syncwarp();  // the scratch is read before the next tile's S lands
-  }
+      for (int i = 0; i < 64; ++i) {
+        const int r = (i / 2) % 2;
+        sacc[i] = exp2_ftz(fmaf(sacc[i], scale_log2, -mu[r]));
+        lsum[r] += sacc[i];  // f32; the quad's partial sums meet at the end
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) oacc[i] *= corr[(i / 2) % 2];
 
-  if (qrow < Sq) {
-    const float denom = fmaxf(l, 1e-30f);
-    bf16* orow = o + ((size_t)bh * Sq + qrow) * D + half * OC;
+      // O += P V with P in bf16 registers (the TPU kernel's
+      // p.astype(v.dtype)) and V MN-major from the ring
+      uint32_t pa[8][4];
 #pragma unroll
-    for (int j = 0; j < OC; ++j) orow[j] = __float2bfloat16(acc[j] / denom);
-    if (half == 0) lse[(size_t)bh * Sq + qrow] = m + logf(denom);
+      for (int kk = 0; kk < 8; ++kk) pack_a(sacc, kk, pa[kk]);
+      mbar_wait(&vfull[s], phase);
+      const uint64_t vdesc = desc_sw128(Vs + s * TILE);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_rs_n64_tb(oacc, pa[kk], vdesc + 128 * kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(oacc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      if (++s == STAGES) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 1);
+      lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 2);
+      inv[r] = 1.f / fmaxf(lsum[r], 1e-30f);
+    }
+    // O through this warpgroup's Q rows (read by nothing after its last
+    // product) to 16-byte stores; LSE in natural-log units, kNegInf for a
+    // row with nothing unmasked (O = 0 there)
+    acc_to_tile(oacc, inv[0], inv[1], Qw);
+    wg_barrier(1 + wg);
+    tile_to_rows(Qw, o + ((size_t)bh * Sq + wq0) * 64, Sq - wq0);
+    if (lane % 4 == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = qrow + 8 * r;
+        if (row < Sq)
+          lse[(size_t)bh * Sq + row] =
+              m[r] == -INFINITY
+                  ? kNegInf
+                  : m[r] * kLn2 + logf(fmaxf(lsum[r], 1e-30f));
+      }
+    }
   }
+}
+
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* o, float* lse, int B, int H, int KVH, int Sq,
+                         int Sk, int q_offset, int k_offset, int causal,
+                         int window, float scale, cudaStream_t stream) {
+  // with Sk == 0 no K/V tile is loaded; the maps still need an extent
+  const void* kp = Sk > 0 ? k : q;
+  const void* vp = Sk > 0 ? v : q;
+  const int krows = Sk > 0 ? Sk : Sq, kslabs = Sk > 0 ? B * KVH : B * H;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = encode_rows_map(&tq, q, Sq, B * H, WQ);
+  if (err == cudaSuccess) err = encode_rows_map(&tk, kp, krows, kslabs, WK);
+  if (err == cudaSuccess) err = encode_rows_map(&tv, vp, krows, kslabs, WK);
+  if (err != cudaSuccess) return err;
+  constexpr size_t smem = WgmmaLayout::bytes;
+  err = allow_smem(flash_fwd_wgmma_kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int grid = (Sq + WQ - 1) / WQ * (B * H);
+  flash_fwd_wgmma_kernel<<<grid, WTHREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), lse, B * H, H, KVH, Sq, Sk,
+      q_offset, k_offset, causal, window, scale * kLog2e);
+  return cudaGetLastError();
 }
 
 template <typename T, int D>
@@ -360,17 +447,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int H, int KVH, int Sq, int Sk,
                    int q_offset, int k_offset, int causal, int window,
                    float scale, cudaStream_t stream) {
-  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
   if constexpr (std::is_same_v<T, bf16>) {
-    constexpr size_t smem = WmmaLayout<D>::bytes;
-    auto kernel = flash_fwd_wmma_kernel<D>;
-    cudaError_t err = etpu::allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, WTHREADS, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, H, KVH,
-        Sq, Sk, q_offset, k_offset, causal, window, scale);
+    static_assert(D == 64, "the bf16 body takes 128-byte rows: head_dim 64");
+    return launch_wgmma(q, k, v, o, lse, B, H, KVH, Sq, Sk, q_offset,
+                        k_offset, causal, window, scale, stream);
   } else {
+    const dim3 grid((Sq + BQ - 1) / BQ, B * H);
     constexpr size_t smem = flash_smem_bytes<D>();
     auto kernel = flash_fwd_kernel<T, D>;
     cudaError_t err = etpu::allow_smem(kernel, smem);
@@ -379,8 +461,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(o), lse, H, KVH, Sq, Sk,
         q_offset, k_offset, causal, window, scale);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 template <typename T>

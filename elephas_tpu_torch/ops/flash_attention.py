@@ -34,7 +34,8 @@ __all__ = ["flash_attention", "flash_forward", "flash_forward_plain",
 #: head dims the CUDA kernels are instantiated for (the CPU plain
 #: versions take any)
 SUPPORTED_HEAD_DIMS = (64,)
-#: the kernels' q and k/v tile rows (``BQ``/``BK`` in csrc/flash_*.cu)
+#: the one block size :func:`flash_attention` takes by name; the kernels
+#: pick their own tiles (64 or 128 rows, csrc/flash_*.cu)
 BLOCK = 64
 
 
@@ -108,7 +109,7 @@ def _kernel_operands(q: torch.Tensor, **tensors: torch.Tensor):
                          f"{SUPPORTED_HEAD_DIMS}, got {q.shape[3]}")
     ops = (q, *tensors.values())
     if q.dtype == torch.bfloat16:
-        # the bf16 kernels stage rows with 16-byte vector loads
+        # TMA and the bf16 kernels' vector loads need 16-byte alignment
         ops = tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in ops)
     return ops
 
@@ -328,17 +329,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Flash attention over ``(batch, heads, seq, head_dim)`` tensors
     (k/v may carry fewer heads: GQA). Differentiable: the backward runs
     the dQ and dK/dV kernels (their plain versions on the CPU). The
-    kernels' tiles are fixed at :data:`BLOCK` x :data:`BLOCK` rows
-    (``block_q``/``block_k`` may only name them); sequence lengths need
-    not be multiples of them."""
+    kernels pick their own tiles: ``block_q``/``block_k`` may only be
+    :data:`BLOCK`, and sequence lengths need not be multiples of any
+    tile."""
     if q.ndim != 4:
         raise ValueError(f"expected (batch, heads, seq, head_dim), got "
                          f"{tuple(q.shape)}")
     for name, blk in (("block_q", block_q), ("block_k", block_k)):
         if blk is not None and blk != BLOCK:
             raise NotImplementedError(
-                f"{name}={blk}: the CUDA kernels' tiles are fixed at "
-                f"{BLOCK} rows")
+                f"{name}={blk}: the CUDA kernels pick their own tiles; "
+                f"only {BLOCK} is accepted")
     _check_window(window)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     window = None if window is None else int(window)

@@ -28,20 +28,32 @@ def cuda():
     return torch.device("cuda")
 
 
+_FWD_CASES = {
+    # (B, H, KVH, Sq, Sk, causal, window, q_offset, k_offset)
+    "causal": (2, 4, 4, 130, 130, True, None, 0, 0),
+    "noncausal": (2, 4, 4, 130, 70, False, None, 0, 0),
+    "gqa": (2, 4, 1, 128, 128, True, None, 0, 0),
+    "window": (2, 4, 2, 200, 200, True, 33, 0, 0),
+    "ragged": (1, 4, 4, 77, 77, True, None, 0, 0),
+    "hop": (1, 4, 4, 64, 64, True, None, 128, 64),
+    # the tile edges of the TMA-fed bodies: one partial K tile, a single
+    # query row, lengths off every tile multiple, GQA 4 with a ragged
+    # length, a window narrower than a tile, a ragged past hop
+    "sk_partial": (2, 4, 4, 130, 40, False, None, 0, 0),
+    "sq_one": (2, 4, 2, 1, 200, True, None, 199, 0),
+    "ragged_191_257": (2, 4, 4, 191, 257, True, None, 66, 0),
+    "gqa4_ragged": (2, 8, 2, 191, 191, True, None, 0, 0),
+    "window_17": (2, 4, 4, 200, 200, True, 17, 0, 0),
+    "hop_ragged": (1, 4, 4, 100, 150, True, None, 150, 50),
+}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", ["causal", "noncausal", "gqa", "window",
-                                  "ragged", "hop"])
+@pytest.mark.parametrize("case", sorted(_FWD_CASES))
 def test_flash_kernel_matches_plain(cuda, case, dtype):
     from elephas_tpu_torch.ops.flash_attention import (flash_forward,
                                                        flash_forward_plain)
-    b, h, kvh, sq, sk, causal, window, qo, ko = {
-        "causal": (2, 4, 4, 130, 130, True, None, 0, 0),
-        "noncausal": (2, 4, 4, 130, 70, False, None, 0, 0),
-        "gqa": (2, 4, 1, 128, 128, True, None, 0, 0),
-        "window": (2, 4, 2, 200, 200, True, 33, 0, 0),
-        "ragged": (1, 4, 4, 77, 77, True, None, 0, 0),
-        "hop": (1, 4, 4, 64, 64, True, None, 128, 64),
-    }[case]
+    b, h, kvh, sq, sk, causal, window, qo, ko = _FWD_CASES[case]
     gen = torch.Generator(device=cuda).manual_seed(0)
     q = torch.randn((b, h, sq, 64), generator=gen, device=cuda).to(dtype)
     k = torch.randn((b, kvh, sk, 64), generator=gen, device=cuda).to(dtype)
@@ -66,6 +78,11 @@ _BWD_CASES = {
     "ragged": (1, 4, 4, 77, 77, True, None, 0, 0),
     "hop_past": (1, 4, 4, 64, 100, True, None, 128, 0),
     "hop_future": (1, 4, 2, 64, 64, True, None, 0, 64),
+    "sk_partial": (2, 4, 4, 130, 40, False, None, 0, 0),
+    "sq_one": (2, 4, 2, 1, 200, True, None, 199, 0),
+    "ragged_191_257": (2, 4, 4, 191, 257, True, None, 66, 0),
+    "gqa4_ragged": (2, 8, 2, 191, 191, True, None, 0, 0),
+    "window_17": (2, 4, 4, 200, 200, True, 17, 0, 0),
 }
 
 
@@ -105,6 +122,72 @@ def test_flash_backward_kernels_match_plain(cuda, case, dtype):
             continue
         err = float((got.float() - want).abs().max())
         assert err <= rel * scale, f"{name}: {err} > {rel} * {scale}"
+
+
+def _offset_views(shapes, offset, gen, device):
+    """bf16 tensors of ``shapes`` as contiguous views into one buffer,
+    each starting ``offset`` elements past the previous one's end (a
+    nonzero storage offset; 16-byte aligned only when ``offset`` is a
+    multiple of 8)."""
+    sizes = [int(np.prod(s)) for s in shapes]
+    buf = torch.randn(sum(sizes) + offset * len(shapes), generator=gen,
+                      device=device).bfloat16()
+    views, at = [], 0
+    for shape, n in zip(shapes, sizes):
+        at += offset
+        views.append(buf[at:at + n].view(shape))
+        at += n
+    return views
+
+
+@pytest.mark.parametrize("offset", [8, 3])
+def test_flash_kernels_take_offset_views(cuda, offset):
+    """q/k/v (and dO) as views with a nonzero storage offset, 16-byte
+    aligned (8) or not (3, which the wrappers copy): the forward and
+    dK/dV kernels read the same values as from fresh tensors."""
+    from elephas_tpu_torch.ops.flash_attention import (flash_dkv,
+                                                       flash_dkv_plain,
+                                                       flash_forward,
+                                                       flash_forward_plain)
+    b, h, kvh, sq, sk = 2, 4, 2, 150, 150
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v, g = _offset_views([(b, h, sq, 64), (b, kvh, sk, 64),
+                                (b, kvh, sk, 64), (b, h, sq, 64)], offset,
+                               gen, cuda)
+    assert q.storage_offset() > 0 and q.is_contiguous()
+    o, lse = flash_forward(q, k, v, causal=True)
+    o_ref, lse_ref = flash_forward_plain(q.float(), k.float(), v.float(),
+                                         causal=True)
+    torch.testing.assert_close(o.float(), o_ref, atol=2e-2, rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
+    delta = (g.float() * o_ref).sum(-1)
+    args = (q, k, v, g, lse_ref, delta)
+    ref = flash_dkv_plain(*(t.float() for t in args[:4]), lse_ref, delta)
+    for name, got, want in zip(("dk", "dv"), flash_dkv(*args), ref):
+        scale = float(want.abs().max())
+        err = float((got.float() - want).abs().max())
+        assert err <= 2e-2 * scale, f"{name}: {err} > 2e-2 * {scale}"
+
+
+@pytest.mark.parametrize("case", ["causal", "gqa4_ragged"])
+def test_flash_dkv_kernel_is_bit_reproducible(cuda, case):
+    """No atomics: two dK/dV launches on the same bf16 inputs give the
+    same bits."""
+    from elephas_tpu_torch.ops.flash_attention import (flash_dkv,
+                                                       flash_forward_plain)
+    b, h, kvh, sq, sk, causal, window, qo, ko = _BWD_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q, g = (torch.randn((b, h, sq, 64), generator=gen, device=cuda)
+            .bfloat16() for _ in range(2))
+    k, v = (torch.randn((b, kvh, sk, 64), generator=gen, device=cuda)
+            .bfloat16() for _ in range(2))
+    o, lse = flash_forward_plain(q.float(), k.float(), v.float(), qo, ko,
+                                 causal, window)
+    delta = (g.float() * o).sum(-1)
+    args = (q, k, v, g, lse, delta, qo, ko, causal, window)
+    first, second = flash_dkv(*args), flash_dkv(*args)
+    for a, b_ in zip(first, second):
+        assert torch.equal(a.view(torch.int16), b_.view(torch.int16))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
