@@ -30,8 +30,6 @@ import time
 import numpy as np
 import torch
 
-from elephas_tpu_torch.profile_kernels import time_ms
-
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense): the
 # roofline bounds below are computed against them.
 PEAK_BF16_FLOPS = 989e12
@@ -55,6 +53,44 @@ def nvidia_smi() -> str:
     if out.returncode:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int = 20, flush: torch.Tensor = None,
+            hold_cycles: int = 0) -> float:
+    """Median time of one call, in ms, with CUDA events around each
+    call. ``flush`` (a buffer larger than the 50 MB L2) is overwritten
+    before every call so each one starts with a cold L2, as a call
+    inside a decode step or a layer stack does.
+
+    With ``hold_cycles`` 0 (every ``ms``, ``plain_ms`` and
+    ``library_ms`` below) the events bracket the call as the host issues
+    it: where the host takes longer to issue a call than the device
+    takes to run it, the host's time is what shows. With ``hold_cycles``
+    > 0 (the ``device_ms`` keys) the device first spins that many cycles
+    (``torch.cuda._sleep``), so the whole call is queued before the start
+    event fires and only its device time falls between the events."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
+        if hold_cycles:
+            torch.cuda._sleep(hold_cycles)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def device_ms(fn, flush: torch.Tensor) -> float:
+    """``time_ms`` with the host's issue time hidden: about 0.5 ms of
+    device spin before each start event."""
+    return time_ms(fn, flush=flush, hold_cycles=1_000_000)
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -122,6 +158,8 @@ def check_paged(flush):
             q16[:, :, None], ck, cv, attn_mask=mask)
 
     lib_ms = time_ms(library, flush=flush)
+    dev_ms = device_ms(lambda: paged_decode_attention(*args16), flush)
+    lib_dev_ms = device_ms(library, flush)
     # bytes this data needs: the K/V rows at positions <= pos once (the
     # main case has KVH = H), q in, o out, the live table entries and
     # the positions
@@ -135,6 +173,7 @@ def check_paged(flush):
     results = {"max_abs_err": max(max(e.values()) for e in errs.values()),
                "max_abs_err_f32": max(e["f32"] for e in errs.values()),
                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "device_ms": dev_ms, "library_device_ms": lib_dev_ms,
                "bound_ms": max(bytes_ms, ops_ms),
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                "bytes": nbytes, "flops": flops}
@@ -212,32 +251,44 @@ def check_flash(flush):
         return lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, is_causal=True)
 
+    def port(q, k, v):
+        return lambda: flash_forward(q, k, v, causal=True)
+
+    # each call and SDPA's under both timers: as issued (ms) and device
+    # time alone (device_ms)
     q16, k16, v16 = timed["main"]
     b_m, h_m, s_m = q16.shape[:3]
-    ms = time_ms(lambda: flash_forward(q16, k16, v16, causal=True),
-                 flush=flush)
+    ms = time_ms(port(q16, k16, v16), flush=flush)
     plain_ms = time_ms(lambda: flash_forward_plain(q16, k16, v16,
                                                    causal=True), flush=flush)
     lib_ms = time_ms(sdpa(q16, k16, v16), flush=flush)
+    dev_ms = device_ms(port(q16, k16, v16), flush)
+    lib_dev_ms = device_ms(sdpa(q16, k16, v16), flush)
     flops, nbytes, bound_ms, bound_by = causal_bound(b_m, h_m, s_m)
     # the training path's shape (B 8): 64 of the train run's launches
     q8, k8, v8 = timed["train"]
-    train_ms = time_ms(lambda: flash_forward(q8, k8, v8, causal=True),
-                       flush=flush)
+    train_ms = time_ms(port(q8, k8, v8), flush=flush)
     train_lib_ms = time_ms(sdpa(q8, k8, v8), flush=flush)
+    train_dev_ms = device_ms(port(q8, k8, v8), flush)
+    train_lib_dev_ms = device_ms(sdpa(q8, k8, v8), flush)
     t_flops, t_bytes, t_bound_ms, t_bound_by = causal_bound(*q8.shape[:3])
     results = {"max_abs_err": max(max(e.values()) for e in errs.values()),
                "max_abs_err_f32": max(max(e["o_f32"], e["lse_f32"])
                                       for e in errs.values()),
                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "device_ms": dev_ms, "library_device_ms": lib_dev_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "flops": flops, "bytes": nbytes,
                "achieved_tflops": flops / (ms * 1e-3) / 1e12,
+               "device_tflops": flops / (dev_ms * 1e-3) / 1e12,
                "train_shape": {"B": q8.shape[0], "H": q8.shape[1],
                                "S": q8.shape[2]},
                "train_ms": train_ms, "train_library_ms": train_lib_ms,
+               "train_device_ms": train_dev_ms,
+               "train_library_device_ms": train_lib_dev_ms,
                "train_bound_ms": t_bound_ms, "train_bound_by": t_bound_by,
-               "train_achieved_tflops": t_flops / (train_ms * 1e-3) / 1e12}
+               "train_achieved_tflops": t_flops / (train_ms * 1e-3) / 1e12,
+               "train_device_tflops": t_flops / (train_dev_ms * 1e-3) / 1e12}
     emit({"phase": "flash_kernel", "errors": errs, **results,
           "shape": {"B": b_m, "H": h_m, "S": s_m, "D": 64, "causal": True,
                     "dtype": "bfloat16"},
@@ -354,6 +405,9 @@ def check_flash_bwd(flush):
                 "dkv": time_ms(lambda: flash_dkv_plain(*args),
                                flush=flush)}
     lib_ms = time_ms(library_flash_backward(q, k, v, g), flush=flush)
+    dev_ms = {"dq": device_ms(lambda: flash_dq(*args), flush),
+              "dkv": device_ms(lambda: flash_dkv(*args), flush)}
+    lib_dev_ms = device_ms(library_flash_backward(q, k, v, g), flush)
     pairs = b * h * s * (s + 1) // 2      # unmasked (q, k) pairs, causal
     esize = 2
     tensor = b * h * s * d * esize        # one of q, k, v, dO, dq, dk, dv
@@ -373,10 +427,12 @@ def check_flash_bwd(flush):
             "max_abs_err_f32": max(e[f"{gr}_f32"] for e in errs.values()
                                    for gr in grads[part] if f"{gr}_f32" in e),
             "ms": ms[part], "plain_ms": plain_ms[part], "library_ms": lib_ms,
+            "device_ms": dev_ms[part], "library_device_ms": lib_dev_ms,
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "flops": flops, "bytes": nbytes,
-            "achieved_tflops": flops / (ms[part] * 1e-3) / 1e12}
+            "achieved_tflops": flops / (ms[part] * 1e-3) / 1e12,
+            "device_tflops": flops / (dev_ms[part] * 1e-3) / 1e12}
     emit({"phase": "flash_bwd_kernels", "errors": errs, **results,
           "library": "aten._scaled_dot_product_flash_attention_backward",
           "library_note": "one call computing dQ, dK and dV together: "
@@ -713,27 +769,27 @@ def main() -> int:
     train_counts = run_train(cfg)
 
     # max_abs_err: the largest error of any comparison this run made for
-    # the kernel, f32 and bf16, at the main paths' shapes included
+    # the kernel, f32 and bf16, at the main paths' shapes included; the
+    # times as issued (ms, plain_ms, library_ms) and device time alone
+    # (device_ms, library_device_ms)
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "device_ms", "library_device_ms")
     kernels = [
         {"name": "paged_decode", "route": "cuda",
          "source": "elephas_tpu_torch/csrc/paged_decode.cu",
          "replaces": "elephas_tpu/ops/paged_attention.py:59",
          "launches": srv_counts["paged_decode"],
-         **{k: paged[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                  "bound_ms", "bound_by", "library_ms")}},
+         **{k: paged[k] for k in keys}},
         {"name": "flash_fwd", "route": "cuda",
          "source": "elephas_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "elephas_tpu/ops/pallas_attention.py:55",
          "launches": fwd_counts["flash_fwd"],
-         **{k: flash[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                  "bound_ms", "bound_by", "library_ms")}},
+         **{k: flash[k] for k in keys}},
         *({"name": f"flash_{part}", "route": "cuda",
            "source": "elephas_tpu_torch/csrc/flash_bwd.cu",
            "replaces": f"elephas_tpu/ops/pallas_attention.py:{line}",
            "launches": train_counts[f"flash_{part}"],
-           **{k: bwd[part][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                        "bound_ms", "bound_by",
-                                        "library_ms")}}
+           **{k: bwd[part][k] for k in keys}}
           for part, line in (("dq", 196), ("dkv", 243))),
     ]
     print(nvidia_smi(), flush=True)

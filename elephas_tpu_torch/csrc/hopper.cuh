@@ -11,7 +11,13 @@
 //   (`mbarrier.arrive.expect_tx`: arrive and expect that many bytes),
 //   `mbar_arrive` (`mbarrier.arrive`), `mbar_wait`
 //   (`mbarrier.try_wait.parity` in a loop: returns once the phase of
-//   the given parity has completed).
+//   the given parity has completed). The loop is a watchdog: after
+//   about 4 s by `%globaltimer` it executes `trap`, so a phase that can
+//   never complete (a wrong parity, a producer that skips a tile its
+//   consumers still wait for) aborts the kernel instead of hanging the
+//   card. The error ("unspecified launch failure") surfaces at the
+//   next synchronising call on the stream and leaves the CUDA context
+//   unusable: the process has to exit.
 // - wgmma: `wgmma_fence` / `wgmma_commit` / `wgmma_wait<N>`
 //   (`wgmma.fence`, `commit_group`, `wait_group`), `fence_operands`
 //   (keeps the compiler from touching accumulator registers across an
@@ -82,18 +88,41 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                : "memory");
 }
 
+__device__ __forceinline__ bool mbar_try_wait(uint32_t addr,
+                                              uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(addr), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// The low 32 bits of the global nanosecond timer.
+__device__ __forceinline__ uint32_t globaltimer_lo() {
+  uint32_t t;
+  asm volatile("mov.u32 %0, %%globaltimer_lo;\n" : "=r"(t));
+  return t;
+}
+
+// A wait longer than this traps (see mbar_wait): no phase of these
+// kernels legitimately takes more than a millisecond.
+constexpr uint32_t kWaitTrapNs = 4000000000u;
+
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
+  if (mbar_try_wait(addr, parity)) return;
+  const uint32_t t0 = globaltimer_lo();
+  uint32_t tries = 0;
+  while (!mbar_try_wait(addr, parity)) {
+    // every 1024 tries, check the clock (32-bit differences wrap
+    // correctly across the timer's low word)
+    if ((++tries & 1023u) == 0 && globaltimer_lo() - t0 > kWaitTrapNs)
+      __trap();
+  }
 }
 
 // ------------------------------------------------------------------ TMA

@@ -1,90 +1,62 @@
-"""The flash-attention kernels alone at the main paths' shapes.
+"""Host cost of the flash-attention kernels' calls, beside PyTorch's own.
 
-    python -m elephas_tpu_torch.profile_kernels [--reps 20]
+    python -m elephas_tpu_torch.profile_kernels [--calls 200]
 
-Runs on the CUDA device only. Times, in bf16 with a cold L2 (a 128 MB
-buffer overwritten before each call) and CUDA events around each call
-(median of ``--reps``): the forward kernel at the ``forward`` path's
-shape (B 2, H 16, S 1024, D 64, causal) and the training path's (B 8),
-and the dQ and dK/dV kernels at the training shape; each with its
-achieved TFLOP/s (causal pairs only). Then the host time of one
-``flash_forward`` and one ``flash_dkv`` call at a tiny shape (B 1, H 1,
-S 64), where the device work is negligible: microseconds per call over
-``--host-calls`` calls issued back to back, the wrapper's checks, the
-ctypes call and the kernel's set-up (its tensor maps included), and of
-the C entry points alone, called through ctypes with the pointers
-ready. Prints one JSON line with the card's name and power limit.
+Runs on the CUDA device only. ``chip_smoke.py`` times the kernels on
+the device; this measures what it does not: the host's side of a call.
 
-Run as a file, ``PYTHONPATH=<checkout> python
+- ``host_us_per_call``: microseconds per call over ``--calls`` calls
+  issued back to back at a tiny shape (B 1, H 1, S 64, D 64, causal,
+  bf16), where the device work is negligible, so the host sets the
+  pace: ``flash_forward`` beside SDPA, and ``flash_dkv``.
+- ``entry_us_per_call``: the C entry points alone, called through ctypes
+  with the pointers ready: the kernels' host set-up, tensor maps
+  included, and the launch.
+- ``stream_ms_per_call``: milliseconds per call over ``--calls`` calls
+  issued back to back at the ``forward`` path's shape (B 2, H 16,
+  S 1024), ``flash_forward`` beside SDPA: host and device overlap as in
+  a layer stack, so each reads the larger of its host and device time
+  (warm L2).
+
+Prints one JSON line with the card's name and power limit. Run as a
+file, ``PYTHONPATH=<checkout> python
 elephas_tpu_torch/profile_kernels.py``, it imports ``elephas_tpu_torch``
-from that checkout and measures its kernels: an A/B of two trees on one
-card.
+from that checkout: an A/B of two trees on one card.
 """
 import argparse
 import json
 import subprocess
 import time
 
-import numpy as np
 import torch
 
-# device cycles (about 0.5 ms) spun before each timed call
-HOLD_CYCLES = 1_000_000
 
-
-def time_ms(fn, reps: int = 20, flush: torch.Tensor = None) -> float:
-    """Median device time of one call, in ms, with CUDA events around
-    each call. ``flush`` (a buffer larger than the 50 MB L2) is
-    overwritten before every call so each one starts with a cold L2, as
-    a call inside a decode step or a layer stack does. A spin of the
-    device (``HOLD_CYCLES``) sits before each start event, so the host's
-    time to issue the call falls inside it instead of between the
-    events."""
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(reps):
-        if flush is not None:
-            flush.zero_()
-        torch.cuda._sleep(HOLD_CYCLES)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
-
-
-def host_us(fn, calls: int) -> float:
-    """Host microseconds per call of ``calls`` calls issued back to back
-    (the device keeps up at the tiny shape these are given)."""
+def per_call(fn, calls: int) -> float:
+    """Host seconds per call of ``calls`` calls issued back to back,
+    up to the device finishing the last of them."""
     for _ in range(10):
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(calls):
         fn()
-    sec = time.perf_counter() - t0
     torch.cuda.synchronize()
-    return sec / calls * 1e6
+    return (time.perf_counter() - t0) / calls
 
 
 def operands(b, h, s, gen):
-    q, k, v, g = (torch.randn((b, h, s, 64), generator=gen, device="cuda")
-                  .bfloat16() for _ in range(4))
-    return q, k, v, g
+    return tuple(torch.randn((b, h, s, 64), generator=gen, device="cuda")
+                 .bfloat16() for _ in range(4))
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--host-calls", type=int, default=200)
+    ap.add_argument("--calls", type=int, default=200)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels needs a CUDA device")
-    from elephas_tpu_torch.ops.flash_attention import (flash_dkv, flash_dq,
+    from elephas_tpu_torch.ops import _kernels
+    from elephas_tpu_torch.ops.flash_attention import (flash_dkv,
                                                        flash_forward,
                                                        flash_forward_plain)
 
@@ -93,56 +65,45 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
            "package": __import__("elephas_tpu_torch").__file__}
-
-    def causal_flops(b, h, s, products):
-        return products * 2 * 64 * b * h * s * (s + 1) // 2
-
-    for name, b in (("fwd_b2", 2), ("fwd_b8", 8)):
-        q, k, v, _ = operands(b, 16, 1024, gen)
-        ms = time_ms(lambda: flash_forward(q, k, v, causal=True), args.reps,
-                     flush)
-        out[name] = {"ms": ms, "tflops": causal_flops(b, 16, 1024, 2)
-                     / (ms * 1e-3) / 1e12}
-    q, k, v, g = operands(8, 16, 1024, gen)
-    o, lse = flash_forward_plain(q, k, v, causal=True)
-    delta = (g.float() * o.float()).sum(-1)
-    bwd = (q, k, v, g, lse, delta)
-    for name, fn, products in (("dq_b8", flash_dq, 3),
-                               ("dkv_b8", flash_dkv, 4)):
-        ms = time_ms(lambda: fn(*bwd), args.reps, flush)
-        out[name] = {"ms": ms, "tflops": causal_flops(8, 16, 1024, products)
-                     / (ms * 1e-3) / 1e12}
-    del bwd, q, k, v, g, o, lse, delta, flush
 
     q, k, v, g = operands(1, 1, 64, gen)
     o, lse = flash_forward_plain(q, k, v, causal=True)
     delta = (g.float() * o.float()).sum(-1)
-    out["host_us_per_call"] = {
-        "flash_forward": host_us(lambda: flash_forward(q, k, v, causal=True),
-                                 args.host_calls),
-        "flash_dkv": host_us(lambda: flash_dkv(q, k, v, g, lse, delta),
-                             args.host_calls)}
-    # the C entry points alone (no Python checks): what the kernels' host
-    # set-up costs, tensor maps included
-    from elephas_tpu_torch.ops import _kernels
+    us = {"flash_forward": lambda: flash_forward(q, k, v, causal=True),
+          "sdpa": lambda: sdpa(q, k, v, is_causal=True),
+          "flash_dkv": lambda: flash_dkv(q, k, v, g, lse, delta)}
+    out["host_us_per_call"] = {name: per_call(fn, args.calls) * 1e6
+                               for name, fn in us.items()}
+
     lib = _kernels.library()
     stream = torch.cuda.current_stream().cuda_stream
+    o = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    # B H KVH Sq Sk D q_offset k_offset causal window | scale | bf16 stream
+    dims = (1, 1, 1, 64, 64, 64, 0, 0, 1, 0, 0.125, 1, stream)
     fwd_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                lse.data_ptr(), 1, 1, 1, 64, 64, 64, 0, 0, 1, 0, 0.125, 1,
-                stream)
+                lse.data_ptr(), *dims)
     dkv_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), 1, 1, 1, 64, 64, 64, 0, 0, 1, 0, 0.125, 1,
-                stream)
+                dv.data_ptr(), *dims)
     out["entry_us_per_call"] = {
-        "etpu_flash_fwd": host_us(lambda: lib.etpu_flash_fwd(*fwd_args),
-                                  args.host_calls),
-        "etpu_flash_bwd_dkv": host_us(
-            lambda: lib.etpu_flash_bwd_dkv(*dkv_args), args.host_calls)}
+        "etpu_flash_fwd": per_call(lambda: lib.etpu_flash_fwd(*fwd_args),
+                                   args.calls) * 1e6,
+        "etpu_flash_bwd_dkv": per_call(
+            lambda: lib.etpu_flash_bwd_dkv(*dkv_args), args.calls) * 1e6}
+
+    q, k, v, _ = operands(2, 16, 1024, gen)
+    out["stream_shape"] = {"B": 2, "H": 16, "S": 1024, "D": 64,
+                           "causal": True, "dtype": "bfloat16"}
+    out["stream_ms_per_call"] = {
+        "flash_forward": per_call(lambda: flash_forward(q, k, v,
+                                                        causal=True),
+                                  args.calls) * 1e3,
+        "sdpa": per_call(lambda: sdpa(q, k, v, is_causal=True),
+                         args.calls) * 1e3}
     print(json.dumps(out))
 
 

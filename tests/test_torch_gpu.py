@@ -12,6 +12,8 @@ the same bf16-rounded inputs (the softmax weights enter the P.V product
 in bf16, as in the TPU kernels).
 """
 import dataclasses
+import subprocess
+import time
 
 import numpy as np
 import pytest
@@ -317,3 +319,41 @@ def test_remat_with_dropout_on_card_keeps_gradients(cuda, policy):
                                                 remat_policy=policy))]
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
+
+
+_STUCK_WAIT = r"""
+#include "hopper.cuh"
+#include <cstdio>
+__global__ void stuck() {
+  __shared__ uint64_t bar;
+  if (threadIdx.x == 0) etpu::mbar_init(&bar, 1);
+  __syncthreads();
+  etpu::mbar_wait(&bar, 0);  // nobody arrives: phase 0 never completes
+}
+int main() {
+  stuck<<<1, 32>>>();
+  cudaError_t e = cudaDeviceSynchronize();
+  printf("%s\n", cudaGetErrorString(e));
+  return e == cudaSuccess ? 0 : 3;
+}
+"""
+
+
+def test_mbarrier_wait_that_never_completes_traps(cuda, tmp_path):
+    """``mbar_wait``'s watchdog: a phase nobody completes ends the kernel
+    with a launch error after about 4 s instead of hanging the card. Run
+    in a process of its own, whose CUDA context the trap spoils."""
+    from elephas_tpu_torch.ops import _kernels
+    src = tmp_path / "stuck.cu"
+    src.write_text(_STUCK_WAIT)
+    exe = tmp_path / "stuck"
+    subprocess.run([_kernels._nvcc(), *_kernels.ARCH, "-std=c++17",
+                    f"-I{_kernels.CSRC}", str(src), "-o", str(exe)],
+                   check=True, capture_output=True, timeout=300)
+    t0 = time.perf_counter()
+    run = subprocess.run([str(exe)], capture_output=True,
+                         text=True, timeout=60)
+    seconds = time.perf_counter() - t0
+    assert run.returncode == 3, run.stdout + run.stderr
+    assert "launch failure" in run.stdout
+    assert 3.5 <= seconds <= 30, seconds
