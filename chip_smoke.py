@@ -4,8 +4,11 @@
 
 Run from the repository root on a machine with a CUDA device and the
 CUDA toolkit. It builds the port's hand-written kernels from
-``elephas_tpu_torch/csrc``, holds each kernel against its plain PyTorch
-version at the shapes the main paths give it, then drives the port's
+``elephas_tpu_torch/csrc`` (and fails if any spills registers), holds
+each kernel against its plain PyTorch version at the shapes the main
+paths give it, checks that two launches of the paged, dQ and dK/dV
+kernels give the same bits, times one request's paged decode (B 1, pos
+1000) on a line of its own, then drives the port's
 entry points at the full width of the flagship LM config (vocab 32000,
 8 layers, 16 heads, d_model 1024, d_ff 4096; random weights from a
 seed): ``forward`` with the flash-attention kernel; the paged
@@ -141,6 +144,12 @@ def check_paged(flush):
         errs[name] = {"f32": e32, "bf16": e16}
         if name == "main":
             args16 = (q16, k16, v16, tables_t, pos_t)
+    # no atomics, splits merged in index order: a second bf16 launch on
+    # the same inputs gives the same bits
+    first, second = (paged_decode_attention(*args16) for _ in range(2))
+    require(torch.equal(first.view(torch.int16), second.view(torch.int16)),
+            "two paged_decode launches give bit-equal outputs")
+    del first, second
     # times at the serving path's dtype (bf16) and shapes
     ms = time_ms(lambda: paged_decode_attention(*args16), flush=flush)
     plain_ms = time_ms(lambda: paged_decode_attention_plain(*args16),
@@ -160,29 +169,89 @@ def check_paged(flush):
     lib_ms = time_ms(library, flush=flush)
     dev_ms = device_ms(lambda: paged_decode_attention(*args16), flush)
     lib_dev_ms = device_ms(library, flush)
-    # bytes this data needs: the K/V rows at positions <= pos once (the
-    # main case has KVH = H), q in, o out, the live table entries and
-    # the positions
-    live_blocks = int(np.sum(pos // bs + 1))
-    esize = 2
-    nbytes = (int(np.sum(pos + 1)) * h * d * 2 * esize
-              + 2 * b * h * d * esize + live_blocks * 4 + b * 4)
-    flops = 4 * h * d * int(np.sum(pos + 1))
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
-    results = {"max_abs_err": max(max(e.values()) for e in errs.values()),
+    nbytes, flops, bound_ms, bound_by = paged_bound(pos, h, d, bs)
+    single = check_paged_single_user(flush, nb)
+    results = {"max_abs_err": max(single["max_abs_err"],
+                                  *(max(e.values()) for e in errs.values())),
                "max_abs_err_f32": max(e["f32"] for e in errs.values()),
                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                "device_ms": dev_ms, "library_device_ms": lib_dev_ms,
-               "bound_ms": max(bytes_ms, ops_ms),
-               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "bound_ms": bound_ms, "bound_by": bound_by,
                "bytes": nbytes, "flops": flops}
     emit({"phase": "paged_kernel", "errors": errs, **results,
+          "bit_reproducible": True,
           "shape": {"B": b, "H": h, "KVH": 16, "D": d, "block": bs,
                     "max_blocks": mb, "pool_blocks": nb,
                     "dtype": "bfloat16"},
           "tolerance": {"f32": 1e-4, "bf16_vs_f32_plain": 2e-2}})
     return results
+
+
+def paged_bound(pos, h, d, bs):
+    """(bytes, flops, bound ms, bound by) of one bf16 paged call with
+    KVH = H: the K/V rows at positions <= pos once, q in, o out, the
+    live table entries and the positions."""
+    live_blocks = int(np.sum(pos // bs + 1))
+    esize = 2
+    nbytes = (int(np.sum(pos + 1)) * h * d * 2 * esize
+              + 2 * len(pos) * h * d * esize + live_blocks * 4
+              + len(pos) * 4)
+    flops = 4 * h * d * int(np.sum(pos + 1))
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+    return (nbytes, flops, max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def check_paged_single_user(flush, nb):
+    """One request alone: B 1, H = KVH 16, D 64, 64 blocks of 16, pos
+    1000, bf16 -- a single user's decode latency per layer. Held against
+    the f32 plain version and timed beside gather + SDPA; printed on its
+    own line."""
+    from elephas_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_plain)
+
+    h, d, bs, mb = 16, 64, 16, 64
+    rng = np.random.default_rng(8)
+    tables = torch.as_tensor(rng.permutation(np.arange(1, nb))[:mb][None],
+                             dtype=torch.int32, device="cuda")
+    pos_np = np.array([1000])
+    pos = torch.as_tensor(pos_np, dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q = torch.randn((1, h, d), generator=gen, device="cuda").bfloat16()
+    kp, vp = (torch.randn((nb, h, bs, d), generator=gen,
+                          device="cuda").bfloat16() for _ in range(2))
+    args = (q, kp, vp, tables, pos)
+    out = paged_decode_attention(*args)
+    ref = paged_decode_attention_plain(q.float(), kp.float(), vp.float(),
+                                       tables, pos)
+    err = max_err(out, ref)
+    require(bool(torch.isfinite(out.float()).all()) and err <= 2e-2,
+            f"paged single user bf16 err {err} <= 2e-2")
+    length = mb * bs
+    mask = (torch.arange(length, device="cuda") <= 1000)[None, None, None]
+    idx = tables.long()
+
+    def library():
+        ck = kp[idx].transpose(1, 2).reshape(1, h, length, d)
+        cv = vp[idx].transpose(1, 2).reshape(1, h, length, d)
+        return torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], ck, cv, attn_mask=mask)
+
+    nbytes, flops, bound_ms, bound_by = paged_bound(pos_np, h, d, bs)
+    res = {"max_abs_err": err,
+           "ms": time_ms(lambda: paged_decode_attention(*args),
+                         flush=flush),
+           "device_ms": device_ms(lambda: paged_decode_attention(*args),
+                                  flush),
+           "library_ms": time_ms(library, flush=flush),
+           "library_device_ms": device_ms(library, flush),
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes}
+    emit({"phase": "paged_single_user", **res,
+          "shape": {"B": 1, "H": h, "KVH": h, "D": d, "block": bs,
+                    "max_blocks": mb, "pos": 1000, "dtype": "bfloat16"},
+          "tolerance": {"bf16_vs_f32_plain": 2e-2}})
+    return res
 
 
 def check_flash(flush):
@@ -392,13 +461,15 @@ def check_flash_bwd(flush):
         e[f"{part}_bf16"] = err
         e[f"{part}_bf16_rel"] = err / scale
     errs["train"] = e
-    # no atomics: a second dK/dV launch on the same operands gives the
-    # same bits
-    first, second = flash_dkv(*args), flash_dkv(*args)
-    require(all(torch.equal(a.view(torch.int16), b_.view(torch.int16))
-                for a, b_ in zip(first, second)),
-            "two flash_dkv launches give bit-equal dK and dV")
-    del first, second
+    # no atomics: a second dQ and a second dK/dV launch on the same
+    # operands give the same bits
+    for part, fn in (("dq", flash_dq), ("dkv", flash_dkv)):
+        first, second = fn(*args), fn(*args)
+        pairs = zip(first, second) if part == "dkv" else [(first, second)]
+        require(all(torch.equal(a.view(torch.int16), b_.view(torch.int16))
+                    for a, b_ in pairs),
+                f"two flash_{part} launches give bit-equal outputs")
+        del first, second, pairs
     ms = {"dq": time_ms(lambda: flash_dq(*args), flush=flush),
           "dkv": time_ms(lambda: flash_dkv(*args), flush=flush)}
     plain_ms = {"dq": time_ms(lambda: flash_dq_plain(*args), flush=flush),
@@ -437,7 +508,7 @@ def check_flash_bwd(flush):
           "library": "aten._scaled_dot_product_flash_attention_backward",
           "library_note": "one call computing dQ, dK and dV together: "
                           "compare with dq ms + dkv ms",
-          "dkv_bit_reproducible": True,
+          "dq_bit_reproducible": True, "dkv_bit_reproducible": True,
           "shape": {"B": b, "H": h, "S": s, "D": d, "causal": True,
                     "dtype": "bfloat16"},
           "tolerance_relative_to_max_ref": tol})
@@ -749,8 +820,11 @@ def main() -> int:
                  for ln in report.splitlines()
                  if "entry function" in ln or "registers" in ln
                  or "spill" in ln]
+    spills = [ln for ln in resources if "spill" in ln
+              and "0 bytes spill stores, 0 bytes spill loads" not in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": resources})
+    require(not spills, f"no kernel spills registers: {spills}")
 
     # a buffer past the 50 MB L2, overwritten before each timed call
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")

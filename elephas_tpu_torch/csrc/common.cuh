@@ -72,24 +72,9 @@ __device__ __forceinline__ bool pair_valid(int ql, int kl, int Sq, int Sk,
   return ok;
 }
 
-// Rows [r0, r0 + n) of a (rows, D) bf16 matrix -> a shared-memory tile
-// with row stride LD, zero past `limit` rows, with 16-byte vector copies
-// by NT threads (the source must be 16-byte aligned).
-template <int D, int LD, int NT>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src, int r0,
-                                           int n, int limit) {
-  constexpr int V8 = D / 8;
-  for (int i = threadIdx.x; i < n * V8; i += NT) {
-    const int r = i / V8, c = i % V8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < limit)
-      val = reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D)[c];
-    *reinterpret_cast<uint4*>(dst + r * LD + c * 8) = val;
-  }
-}
-
-// The f32 counterpart, one element per thread step, row stride LD.
+// Rows [r0, r0 + n) of a (rows, D) f32 matrix -> a shared-memory tile
+// with row stride LD, zero past `limit` rows, one element per thread
+// step over NT threads.
 template <int D, int LD, int NT>
 __device__ __forceinline__ void stage_rows(float* dst, const float* src,
                                            int r0, int n, int limit) {

@@ -18,9 +18,9 @@
 //
 // Design. The JAX split into two kernels is kept; neither needs atomics,
 // so two runs give the same bits.
-// - dQ: one CTA per (batch*head, 64-row q tile) loops over the 64-row
-//   K/V tiles from the window's lower edge up to the causal diagonal and
-//   keeps dQ in registers, written once.
+// - dQ: one CTA per (batch*head, q tile) loops over the K/V tiles from
+//   the window's lower edge up to the causal diagonal and keeps dQ in
+//   registers, written once.
 // - dK/dV: one CTA per (batch*kv_head, 128-row k tile) loops over the
 //   group's query heads and, for each, over the q tiles that can see
 //   this k tile (the kv-major grid of `_bwd_calls`), keeping dK and dV
@@ -40,11 +40,20 @@
 //   to bf16 in registers (the TPU kernels' `p.astype(do.dtype)` and
 //   `ds.astype(q.dtype)`) and feed them as the register A operand of dV
 //   += P^T dO and dK += dS^T Q (dO and Q MN-major from the ring).
-// - dQ, bf16: 4 warps, each owning 16 rows of the q tile, on 16x16x16
-//   WMMA (bf16 in, f32 accumulate) with dQ in WMMA fragments across the
-//   loop; S and dP pass through per-warp f32 scratch in shared memory
-//   for the masked elementwise step (a fragment's element layout is
-//   opaque), which writes dS back in bf16.
+// - dQ, bf16: the same shape turned q-major. One CTA per (batch*head,
+//   128-row q tile), the last q tiles (the most live K/V tiles under
+//   causal masking) scheduled first. The producer warp TMA-loads Q and
+//   dO once, then streams the live 64-row K and V tiles through a
+//   6-stage ring under full/empty mbarriers. Each of two consumer
+//   warpgroups owns 64 query rows, whose lse (times log2 e) and delta
+//   it holds in registers (two rows a thread), and per K/V tile computes
+//   S = Q K^T and dP = dO V^T with wgmma m64n64k16 from shared memory
+//   (P formed from S while dP is still in flight), dS = P (dP - delta)
+//   scale on the accumulators, packed to bf16 (`ds.astype(k.dtype)`)
+//   as the register A operand of dQ += dS K (K MN-major from the same
+//   ring slot, with the transpose bit). A warpgroup whose rows meet no
+//   key of a tile skips its products. dQ leaves through the warpgroup's
+//   Q rows in shared memory in 16-byte stores, rows past Sq dropped.
 // - f32 (both kernels): 256 threads on the CUDA cores, each holding a
 //   4x4 block of the 64x64 score tile and a 4x(D/16) block of every
 //   accumulator.
@@ -54,35 +63,21 @@
 // dP, dV, dK) of 2*D flops per unmasked (q, k) pair: 25.8 and 34.4
 // GFLOP against about 85 and 102 MB of inputs and outputs, so both sit
 // at the ridge (dQ: 0.026 ms of operations at 989 TFLOP/s, 0.025 ms of
-// bytes at 3.35 TB/s). The dK/dV body runs its four products in two
-// dependent pairs per q tile within a warpgroup, the second warpgroup
-// and the ring's prefetch overlapping them. The dQ body still reaches
-// the tensor cores through mma.sync-class WMMA with blocking tile loads
-// and its elementwise step through shared memory.
-#include <mma.h>
-
+// bytes at 3.35 TB/s). Both bodies run their products in two dependent
+// steps per tile within a warpgroup (S and dP, then dQ or dV and dK),
+// with the elementwise step between them on the CUDA cores and MUFU;
+// the second warpgroup and the ring's prefetch overlap them.
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
 using namespace etpu;
-namespace wmma = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
 
-constexpr int BQ = 64;          // query rows per tile
-constexpr int BK = 64;          // key rows per tile
-constexpr int WARPS = 4;        // dQ bf16 body: each warp owns 16 rows
-constexpr int WTHREADS = 32 * WARPS;
-constexpr int THREADS = 256;    // f32 body: 16 x 16 threads, 4 x 4 each
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
-                             wmma::row_major>;
-using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                                wmma::row_major>;
-using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                                wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+constexpr int BQ = 64;          // f32 bodies: query rows per tile
+constexpr int BK = 64;          // f32 bodies: key rows per tile
+constexpr int THREADS = 256;    // f32 bodies: 16 x 16 threads, 4 x 4 each
 
 // lse and delta of query rows [q0, q0 + BQ) into shared memory; rows past
 // Sq read 0 (they are masked out of every product).
@@ -96,192 +91,6 @@ __device__ __forceinline__ void stage_stats(float* lse_s, float* delta_s,
     lse_s[i] = in ? lse[q0 + i] : 0.f;
     delta_s[i] = in ? delta[q0 + i] : 0.f;
   }
-}
-
-// ------------------------------------------------------ bf16, WMMA body
-template <int D>
-struct WmmaLayout {
-  // bf16 strides pad by 8 elements (16 bytes): rows stay 16-byte aligned
-  // for vector stores and 32-byte aligned at every 16-row fragment
-  static constexpr int LDT = D + 8;                  // Q, dO, K, V tiles
-  static constexpr int LDP = BK + 8;                 // P, dS (64 columns)
-  static constexpr int LDS = (D > BK ? D : BK) + 4;  // f32 scratch
-  // four operand tiles, P and dS, the S and dP scratch, lse and delta
-  static constexpr size_t bytes =
-      sizeof(bf16) * ((size_t)4 * 64 * LDT + (size_t)2 * 64 * LDP) +
-      sizeof(float) * ((size_t)2 * 64 * LDS + 2 * 64);
-};
-
-template <int D>
-struct WmmaSmem {
-  bf16 *a, *b, *c, *d, *p, *ds;
-  float *s, *dp, *lse, *delta;
-  __device__ explicit WmmaSmem(unsigned char* raw) {
-    using L = WmmaLayout<D>;
-    a = reinterpret_cast<bf16*>(raw);
-    b = a + 64 * L::LDT;
-    c = b + 64 * L::LDT;
-    d = c + 64 * L::LDT;
-    p = d + 64 * L::LDT;
-    ds = p + 64 * L::LDP;
-    s = reinterpret_cast<float*>(ds + 64 * L::LDP);
-    dp = s + 64 * L::LDS;
-    lse = dp + 64 * L::LDS;
-    delta = lse + 64;
-  }
-};
-
-// Two 16 x 64 products of one warp into its f32 scratch rows:
-//   out1 = A1 B1^T, out2 = A2 B2^T, with A1/A2 as KD fragments along the
-// head dim and B1/B2 64-row tiles (row stride LDT) read transposed.
-template <int D>
-__device__ __forceinline__ void scores_and_dp(const FragA* a1,
-                                              const FragA* a2,
-                                              const bf16* b1, const bf16* b2,
-                                              float* out1, float* out2) {
-  using L = WmmaLayout<D>;
-  constexpr int KD = D / 16;
-#pragma unroll
-  for (int n = 0; n < 64 / 16; ++n) {
-    FragC f1, f2;
-    wmma::fill_fragment(f1, 0.f);
-    wmma::fill_fragment(f2, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      FragBCol bf;
-      wmma::load_matrix_sync(bf, b1 + n * 16 * L::LDT + kk * 16, L::LDT);
-      wmma::mma_sync(f1, a1[kk], bf, f1);
-      wmma::load_matrix_sync(bf, b2 + n * 16 * L::LDT + kk * 16, L::LDT);
-      wmma::mma_sync(f2, a2[kk], bf, f2);
-    }
-    wmma::store_matrix_sync(out1 + n * 16, f1, L::LDS, wmma::mem_row_major);
-    wmma::store_matrix_sync(out2 + n * 16, f2, L::LDS, wmma::mem_row_major);
-  }
-}
-
-// acc[dn] += A (16 x 64, bf16 rows of stride LDP) . B (64 x D tile, row
-// stride LDT), for the warp's 16 rows.
-template <int D>
-__device__ __forceinline__ void accumulate(FragC* acc, const bf16* a,
-                                           const bf16* b) {
-  using L = WmmaLayout<D>;
-#pragma unroll
-  for (int kk = 0; kk < 64 / 16; ++kk) {
-    FragA af;
-    wmma::load_matrix_sync(af, a + kk * 16, L::LDP);
-#pragma unroll
-    for (int dn = 0; dn < D / 16; ++dn) {
-      FragBRow bf;
-      wmma::load_matrix_sync(bf, b + kk * 16 * L::LDT + dn * 16, L::LDT);
-      wmma::mma_sync(acc[dn], af, bf, acc[dn]);
-    }
-  }
-}
-
-// The warp's 16 x D accumulator -> rows [row0, row0 + 16) of a (rows, D)
-// bf16 matrix, through its f32 scratch (rows past `limit` are dropped).
-template <int D>
-__device__ __forceinline__ void write_rows(const FragC* acc, float* scratch,
-                                           bf16* out, int row0, int limit) {
-  using L = WmmaLayout<D>;
-  const int lane = threadIdx.x % 32;
-  __syncwarp();
-#pragma unroll
-  for (int dn = 0; dn < D / 16; ++dn)
-    wmma::store_matrix_sync(scratch + dn * 16, acc[dn], L::LDS,
-                            wmma::mem_row_major);
-  __syncwarp();
-  const int r = lane >> 1, half = lane & 1;
-  if (row0 + r < limit) {
-    const float* src = scratch + r * L::LDS + half * (D / 2);
-    bf16* dst = out + (size_t)(row0 + r) * D + half * (D / 2);
-#pragma unroll
-    for (int j = 0; j < D / 2; ++j) dst[j] = __float2bfloat16(src[j]);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(WTHREADS)
-    flash_dq_wmma_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         bf16* __restrict__ dq, int H, int KVH, int Sq,
-                         int Sk, int q_offset, int k_offset, int causal,
-                         int window, float scale) {
-  using L = WmmaLayout<D>;
-  constexpr int KD = D / 16;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const WmmaSmem<D> sm(smem_raw);
-  bf16 *Qs = sm.a, *dOs = sm.b, *Ks = sm.c, *Vs = sm.d;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int h = bh % H;
-  // GQA: query row bh = b*H + h reads kv row b*KVH + h / (H / KVH)
-  const int kv_row = (bh / H) * KVH + h / (H / KVH);
-  const bf16* kp = k + (size_t)kv_row * Sk * D;
-  const bf16* vp = v + (size_t)kv_row * Sk * D;
-
-  stage_rows<D, L::LDT, WTHREADS>(Qs, q + (size_t)bh * Sq * D, q0, BQ, Sq);
-  stage_rows<D, L::LDT, WTHREADS>(dOs, dout + (size_t)bh * Sq * D, q0, BQ,
-                                  Sq);
-  stage_stats<WTHREADS>(sm.lse, sm.delta, lse + (size_t)bh * Sq,
-                        delta + (size_t)bh * Sq, q0, Sq);
-  __syncthreads();
-  FragA qf[KD], dof[KD];
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    wmma::load_matrix_sync(qf[kk], Qs + warp * 16 * L::LDT + kk * 16,
-                           L::LDT);
-    wmma::load_matrix_sync(dof[kk], dOs + warp * 16 * L::LDT + kk * 16,
-                           L::LDT);
-  }
-  FragC acc[KD];
-#pragma unroll
-  for (int dn = 0; dn < KD; ++dn) wmma::fill_fragment(acc[dn], 0.f);
-
-  float* Sw = sm.s + warp * 16 * L::LDS;   // this warp's 16-row scratch
-  float* DPw = sm.dp + warp * 16 * L::LDS;
-  bf16* DSw = sm.ds + warp * 16 * L::LDP;
-  const int rl = lane >> 1;               // the lane pair's row
-  const int half = lane & 1;              // which 32 columns it owns
-  const int ql = q0 + warp * 16 + rl;     // local query row
-  const float row_lse = sm.lse[warp * 16 + rl];
-  const float row_delta = sm.delta[warp * 16 + rl];
-
-  const int nk = (Sk + BK - 1) / BK;
-  for (int kj = 0; kj < nk; ++kj) {
-    const int k0 = kj * BK;
-    if (!rows_meet(q0, q0 + BQ - 1, k0, k0 + BK - 1, q_offset, k_offset,
-                   causal, window))
-      continue;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    stage_rows<D, L::LDT, WTHREADS>(Ks, kp, k0, BK, Sk);
-    stage_rows<D, L::LDT, WTHREADS>(Vs, vp, k0, BK, Sk);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T for this warp's 16 rows x 64 keys
-    scores_and_dp<D>(qf, dof, Ks, Vs, Sw, DPw);
-    __syncwarp();
-#pragma unroll 8
-    for (int c = 0; c < 32; ++c) {
-      const int col = half * 32 + c;
-      float ds = 0.f;
-      if (pair_valid(ql, k0 + col, Sq, Sk, q_offset, k_offset, causal,
-                     window)) {
-        const float p = expf(Sw[rl * L::LDS + col] * scale - row_lse);
-        ds = p * (DPw[rl * L::LDS + col] - row_delta) * scale;
-      }
-      DSw[rl * L::LDP + col] = __float2bfloat16(ds);
-    }
-    __syncwarp();
-    accumulate<D>(acc, DSw, Ks);          // dQ += dS K
-  }
-  write_rows<D>(acc, Sw, dq + (size_t)bh * Sq * D, q0 + warp * 16, Sq);
 }
 
 // ------------------------------------------------------- f32, CUDA cores
@@ -775,30 +584,247 @@ cudaError_t launch(const Args& a) {
 
 }  // namespace dkv
 
+// ----------------------------------------- dQ bf16: wgmma over TMA tiles
+namespace dq {
+
+constexpr int QROWS = 128;          // query rows per CTA: 2 warpgroups x 64
+constexpr int KROWS = 64;           // key rows per ring stage
+constexpr int STAGES = 6;           // K/V tiles in flight
+constexpr int THREADS = 2 * 128 + 32;  // 2 consumer warpgroups + producer
+constexpr uint32_t Q_TILE = QROWS * kRowBytes;    // 16 KB
+constexpr uint32_t KV_TILE = KROWS * kRowBytes;   // 8 KB
+
+struct Layout {
+  // Q, dO (16 KB each), the K ring, the V ring, then the barriers:
+  // qfull, full[STAGES], empty[STAGES]; +1024 for alignment. 129 KB
+  static constexpr uint32_t q = 0, dout = Q_TILE, k = 2 * Q_TILE,
+                            v = k + STAGES * KV_TILE,
+                            bars = v + STAGES * KV_TILE;
+  static constexpr size_t bytes = bars + (1 + 2 * STAGES) * 8 + 1024;
+};
+
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dq, int BH, int H, int KVH,
+                          int Sq, int Sk, int q_offset, int k_offset,
+                          int causal, int window, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  uint8_t* Qs = sm + Layout::q;
+  uint8_t* dOs = sm + Layout::dout;
+  uint8_t* Ks = sm + Layout::k;
+  uint8_t* Vs = sm + Layout::v;
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(sm + Layout::bars);
+  uint64_t* full = qfull + 1;
+  uint64_t* empty = full + STAGES;
+
+  // heaviest first: the CTAs of the last q tiles (the most live K/V
+  // tiles under causal masking) get the lowest block ids
+  const int nqt = (Sq + QROWS - 1) / QROWS;
+  const int q0 = (nqt - 1 - (int)blockIdx.x / BH) * QROWS;
+  const int bh = blockIdx.x % BH;
+  const int h = bh % H;
+  // GQA: query row bh = b*H + h reads kv row b*KVH + h / (H / KVH)
+  const int kv_row = (bh / H) * KVH + h / (H / KVH);
+  const int q_last = min(q0 + QROWS, Sq) - 1;
+  const int nk = (Sk + KROWS - 1) / KROWS;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qfull, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == 8) {
+    // ---- producer: Q and dO once, then the live K/V tiles through the
+    // ring (rows past each head's length arrive as zeros)
+    if (lane == 0) {
+      mbar_expect_tx(qfull, 2 * Q_TILE);
+      tma_load_3d(Qs, &tq, qfull, 0, q0, bh);
+      tma_load_3d(dOs, &tdo, qfull, 0, q0, bh);
+      int s = 0;
+      uint32_t phase = 0;
+      for (int kj = 0; kj < nk; ++kj) {
+        const int k0 = kj * KROWS;
+        if (!rows_meet(q0, q_last, k0, min(k0 + KROWS, Sk) - 1, q_offset,
+                       k_offset, causal, window))
+          continue;
+        mbar_wait(&empty[s], phase ^ 1);
+        mbar_expect_tx(&full[s], 2 * KV_TILE);
+        tma_load_3d(Ks + s * KV_TILE, &tk, &full[s], 0, k0, kv_row);
+        tma_load_3d(Vs + s * KV_TILE, &tv, &full[s], 0, k0, kv_row);
+        if (++s == STAGES) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns query rows wq0 .. wq0 + 63
+    const int wg = warp / 4;
+    const int wq0 = q0 + 64 * wg;
+    const int wq_last = min(wq0 + 63, Sq - 1);
+    const int qrow = wq0 + 16 * (warp % 4) + lane / 4;  // and qrow + 8
+    uint8_t* Qw = Qs + wg * 64 * kRowBytes;
+    const uint64_t qdesc = desc_sw128(Qw);
+    const uint64_t dodesc = desc_sw128(dOs + wg * 64 * kRowBytes);
+    // this thread's two rows' lse * log2(e) and delta (0 past Sq: those
+    // rows are masked)
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = qrow + 8 * r;
+      const bool in = row < Sq;
+      lse2[r] = in ? lse[(size_t)bh * Sq + row] * kLog2e : 0.f;
+      dl[r] = in ? delta[(size_t)bh * Sq + row] : 0.f;
+    }
+    const float scale_log2 = scale * kLog2e;
+    float dq_acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq_acc[i] = 0.f;
+
+    mbar_wait(qfull, 0);
+    int s = 0;
+    uint32_t phase = 0;
+    for (int kj = 0; kj < nk; ++kj) {
+      const int k0 = kj * KROWS;
+      const int k_last = min(k0 + KROWS, Sk) - 1;
+      if (!rows_meet(q0, q_last, k0, k_last, q_offset, k_offset, causal,
+                     window))
+        continue;
+      mbar_wait(&full[s], phase);
+      if (wq0 < Sq && rows_meet(wq0, wq_last, k0, k_last, q_offset,
+                                k_offset, causal, window)) {
+        const uint64_t kdesc = desc_sw128(Ks + s * KV_TILE);
+        const uint64_t vdesc = desc_sw128(Vs + s * KV_TILE);
+        // S = Q K^T and dP = dO V^T (64 queries x 64 keys each) as two
+        // groups, so P is formed while dP is still in flight
+        float st[32], dpt[32];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_n64(st, qdesc + 2 * kk, kdesc + 2 * kk, kk);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_n64(dpt, dodesc + 2 * kk, vdesc + 2 * kk, kk);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_operands(st);
+
+        // P = exp2(S*scale*log2(e) - lse*log2(e)) in place of S, on the
+        // accumulator layout: element i is row qrow + 8*((i/2)%2), key
+        // k0 + 8*(i/4) + 2*(lane%4) + i%2. A masked pair never weighs in
+        // (a fully masked row's lse is ~-1e30: its exponential is
+        // dropped here).
+        const bool masked =
+            wq0 + 64 > Sq || k0 + KROWS > Sk ||
+            !rows_all_valid(wq0, wq0 + 63, k0, k0 + KROWS - 1, q_offset,
+                            k_offset, causal, window);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int r = (i / 2) % 2;
+          float p = exp2_ftz(fmaf(st[i], scale_log2, -lse2[r]));
+          if (masked) {
+            const int kl = k0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+            p = pair_valid(qrow + 8 * r, kl, Sq, Sk, q_offset, k_offset,
+                           causal, window) ? p : 0.f;
+          }
+          st[i] = p;
+        }
+        wgmma_wait<0>();
+        fence_operands(dpt);
+
+        // dS = P (dP - delta) scale, packed to bf16 (the TPU kernel's
+        // ds.astype(k.dtype)) into the A fragments of dQ += dS K
+        uint32_t dsa[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int i = 8 * kk + 2 * j;
+            const float d = dl[j % 2];
+            dsa[kk][j] = pack_bf16(st[i] * (dpt[i] - d) * scale,
+                                   st[i + 1] * (dpt[i + 1] - d) * scale);
+          }
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs_n64_tb(dq_acc, dsa[kk], kdesc + 128 * kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operands(dq_acc);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      if (++s == STAGES) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+    // dQ through this warpgroup's Q rows (read by nothing after its last
+    // product) to 16-byte stores
+    acc_to_tile(dq_acc, 1.f, 1.f, Qw);
+    wg_barrier(1 + wg);
+    tile_to_rows(Qw, dq + ((size_t)bh * Sq + wq0) * 64, Sq - wq0);
+  }
+}
+
+cudaError_t launch(const Args& a) {
+  // with Sk == 0 no K/V tile is loaded; the maps still need an extent
+  const void* kp = a.Sk > 0 ? a.k : a.q;
+  const void* vp = a.Sk > 0 ? a.v : a.q;
+  const int krows = a.Sk > 0 ? a.Sk : a.Sq;
+  const int kslabs = a.Sk > 0 ? a.B * a.KVH : a.B * a.H;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = encode_rows_map(&tq, a.q, a.Sq, a.B * a.H, QROWS);
+  if (err == cudaSuccess)
+    err = encode_rows_map(&tdo, a.dout, a.Sq, a.B * a.H, QROWS);
+  if (err == cudaSuccess)
+    err = encode_rows_map(&tk, kp, krows, kslabs, KROWS);
+  if (err == cudaSuccess)
+    err = encode_rows_map(&tv, vp, krows, kslabs, KROWS);
+  if (err != cudaSuccess) return err;
+  constexpr size_t smem = Layout::bytes;
+  err = allow_smem(flash_dq_wgmma_kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int BH = a.B * a.H;
+  const int grid = (a.Sq + QROWS - 1) / QROWS * BH;
+  flash_dq_wgmma_kernel<<<grid, THREADS, smem, a.stream>>>(
+      tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dq), BH, a.H,
+      a.KVH, a.Sq, a.Sk, a.q_offset, a.k_offset, a.causal, a.window,
+      a.scale);
+  return cudaGetLastError();
+}
+
+}  // namespace dq
+
 template <int D>
 cudaError_t launch_dq(const Args& a, bool bf16_body) {
-  const dim3 grid((a.Sq + BQ - 1) / BQ, a.B * a.H);
   if (bf16_body) {
-    constexpr size_t smem = WmmaLayout<D>::bytes;
-    auto kernel = flash_dq_wmma_kernel<D>;
-    cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, WTHREADS, smem, a.stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-        a.lse, a.delta, static_cast<bf16*>(a.dq), a.H, a.KVH, a.Sq, a.Sk,
-        a.q_offset, a.k_offset, a.causal, a.window, a.scale);
-  } else {
-    constexpr size_t smem = F32Layout<D>::bytes;
-    auto kernel = flash_dq_f32_kernel<D>;
-    cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, THREADS, smem, a.stream>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-        a.lse, a.delta, static_cast<float*>(a.dq), a.H, a.KVH, a.Sq, a.Sk,
-        a.q_offset, a.k_offset, a.causal, a.window, a.scale);
+    static_assert(D == 64, "the bf16 body takes 128-byte rows: head_dim 64");
+    return dq::launch(a);
   }
+  const dim3 grid((a.Sq + BQ - 1) / BQ, a.B * a.H);
+  constexpr size_t smem = F32Layout<D>::bytes;
+  auto kernel = flash_dq_f32_kernel<D>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, THREADS, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, static_cast<float*>(a.dq), a.H, a.KVH, a.Sq, a.Sk,
+      a.q_offset, a.k_offset, a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
 

@@ -24,6 +24,11 @@
 //   asynchronous product), `wgmma_ss_n64` / `wgmma_ss_n128` (m64nNk16
 //   bf16 -> f32, A and B from shared memory) and `wgmma_rs_n64_tb`
 //   (m64n64k16, A from registers, B MN-major from shared memory).
+// - cp.async: `cp_async_16` (`cp.async.cg.shared.global`, 16 bytes from
+//   device memory into shared memory, bypassing L1), `cp_async_commit`
+//   and `cp_async_wait<N>` (`cp.async.commit_group` / `wait_group`:
+//   returns once at most N of this thread's groups are in flight; the
+//   finished copies are then visible to this thread).
 // - `desc_sw128`: the 64-bit shared-memory matrix descriptor of a tile
 //   whose rows are 128 bytes (64 bf16) in the 128-byte swizzle that TMA
 //   writes with CU_TENSOR_MAP_SWIZZLE_128B.
@@ -138,6 +143,21 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
       : "memory");
+}
+
+// ------------------------------------------------------------- cp.async
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---------------------------------------------------------------- wgmma

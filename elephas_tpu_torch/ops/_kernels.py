@@ -103,8 +103,10 @@ def library() -> ctypes.CDLL:
         lib.etpu_flash_bwd_dq.restype = i
         lib.etpu_flash_bwd_dkv.argtypes = [p] * 8 + [i] * 10 + [f, i, p]
         lib.etpu_flash_bwd_dkv.restype = i
-        lib.etpu_paged_decode.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
-                                          i, i, i, f, i, p]
+        # q, k_pool, v_pool, tables, pos, slopes, out | B H KVH bs D MB
+        # window | scale | is_bf16 | workspace | split_blocks | stream
+        lib.etpu_paged_decode.argtypes = [p] * 7 + [i] * 7 + [f, i, p, i,
+                                                              p]
         lib.etpu_paged_decode.restype = i
         lib.etpu_error_string.argtypes = [i]
         lib.etpu_error_string.restype = ctypes.c_char_p

@@ -19,7 +19,7 @@ from . import _kernels
 from .attention import NEG_INF, einsum
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_plain",
-           "paged_attention_gathered"]
+           "paged_attention_gathered", "split_blocks"]
 
 Slopes = Union[None, Sequence[float], torch.Tensor]
 
@@ -32,6 +32,20 @@ def _slopes_tensor(alibi_slopes: Slopes, h: int,
     if sl.shape[0] != h:
         raise ValueError(f"{sl.shape[0]} ALiBi slopes for {h} heads")
     return sl.to(device)
+
+
+def split_blocks(b: int, kvh: int, max_blocks: int, block_size: int) -> int:
+    """Table entries per split of the bf16 kernel's split-K grid (B, KVH,
+    splits): at least 64 positions a split, and at most as many splits
+    as put about 2048 CTAs on the card when every row is full, so the
+    serving shape (B 8, 16 kv heads, 64 blocks of 16) gets 16 splits of
+    4 blocks and one request alone still spreads over 256 CTAs. From the
+    shape alone: reading ``pos`` back to the host would cost more than
+    the kernel."""
+    min_blocks = min(max(1, 64 // block_size), max_blocks)
+    splits = min(-(-max_blocks // min_blocks),
+                 max(1, -(-2048 // (b * kvh))))
+    return max(-(-max_blocks // splits), min_blocks)
 
 
 def paged_attention_gathered(q: torch.Tensor, k_pool: torch.Tensor,
@@ -134,14 +148,21 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                          v_pool.contiguous())
     slopes = _slopes_tensor(alibi_slopes, h, q.device)
     out = torch.empty_like(q)
+    mb = tables.shape[1]
+    is_bf16 = q.dtype == torch.bfloat16
+    # the bf16 body's split length and its per-split (m, l, acc) records
+    per = split_blocks(b, kvh, mb, bs) if is_bf16 else 0
+    splits = -(-mb // per) if per else 1
+    ws = (torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
+                      device=q.device) if splits > 1 else None)
     lib = _kernels.library()
     err = lib.etpu_paged_decode(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         tables.data_ptr(), pos.data_ptr(),
         None if slopes is None else slopes.data_ptr(), out.data_ptr(),
-        b, h, kvh, bs, d, tables.shape[1],
-        0 if window is None else int(window), 1.0 / math.sqrt(d),
-        int(q.dtype == torch.bfloat16),
+        b, h, kvh, bs, d, mb, 0 if window is None else int(window),
+        1.0 / math.sqrt(d), int(is_bf16),
+        None if ws is None else ws.data_ptr(), per,
         torch.cuda.current_stream(q.device).cuda_stream)
     _kernels.check(err, "paged decode")
     paged_decode_attention.launches += 1

@@ -8,7 +8,10 @@ the device; this measures what it does not: the host's side of a call.
 - ``host_us_per_call``: microseconds per call over ``--calls`` calls
   issued back to back at a tiny shape (B 1, H 1, S 64, D 64, causal,
   bf16), where the device work is negligible, so the host sets the
-  pace: ``flash_forward`` beside SDPA, and ``flash_dkv``.
+  pace: ``flash_forward`` beside SDPA, and ``flash_dkv``; and
+  ``paged_decode_attention`` at one request (B 1, H = KVH 16, 64 blocks
+  of 16, pos 10, bf16), whose table still spans 16 splits, so the call
+  includes the split kernel, its workspace and the merge kernel.
 - ``entry_us_per_call``: the C entry points alone, called through ctypes
   with the pointers ready: the kernels' host set-up, tensor maps
   included, and the launch.
@@ -59,6 +62,7 @@ def main() -> None:
     from elephas_tpu_torch.ops.flash_attention import (flash_dkv,
                                                        flash_forward,
                                                        flash_forward_plain)
+    from elephas_tpu_torch.ops.paged_attention import paged_decode_attention
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -72,9 +76,16 @@ def main() -> None:
     q, k, v, g = operands(1, 1, 64, gen)
     o, lse = flash_forward_plain(q, k, v, causal=True)
     delta = (g.float() * o.float()).sum(-1)
+    pq = torch.randn((1, 16, 64), generator=gen, device="cuda").bfloat16()
+    pool = torch.randn((65, 16, 16, 64), generator=gen,
+                       device="cuda").bfloat16()
+    tables = torch.arange(1, 65, dtype=torch.int32, device="cuda")[None]
+    ppos = torch.tensor([10], dtype=torch.int32, device="cuda")
     us = {"flash_forward": lambda: flash_forward(q, k, v, causal=True),
           "sdpa": lambda: sdpa(q, k, v, is_causal=True),
-          "flash_dkv": lambda: flash_dkv(q, k, v, g, lse, delta)}
+          "flash_dkv": lambda: flash_dkv(q, k, v, g, lse, delta),
+          "paged_decode": lambda: paged_decode_attention(pq, pool, pool,
+                                                         tables, ppos)}
     out["host_us_per_call"] = {name: per_call(fn, args.calls) * 1e6
                                for name, fn in us.items()}
 

@@ -85,6 +85,9 @@ _BWD_CASES = {
     "ragged_191_257": (2, 4, 4, 191, 257, True, None, 66, 0),
     "gqa4_ragged": (2, 8, 2, 191, 191, True, None, 0, 0),
     "window_17": (2, 4, 4, 200, 200, True, 17, 0, 0),
+    # the dQ body's 128-row q tiles: one row past a tile, one row short
+    "sq_129": (2, 4, 2, 129, 129, True, None, 0, 0),
+    "sq_255": (1, 4, 4, 255, 300, True, None, 45, 0),
 }
 
 
@@ -171,6 +174,30 @@ def test_flash_kernels_take_offset_views(cuda, offset):
         assert err <= 2e-2 * scale, f"{name}: {err} > 2e-2 * {scale}"
 
 
+def _bwd_args(case, seed, device):
+    b, h, kvh, sq, sk, causal, window, qo, ko = _BWD_CASES[case]
+    from elephas_tpu_torch.ops.flash_attention import flash_forward_plain
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, g = (torch.randn((b, h, sq, 64), generator=gen, device=device)
+            .bfloat16() for _ in range(2))
+    k, v = (torch.randn((b, kvh, sk, 64), generator=gen, device=device)
+            .bfloat16() for _ in range(2))
+    o, lse = flash_forward_plain(q.float(), k.float(), v.float(), qo, ko,
+                                 causal, window)
+    delta = (g.float() * o).sum(-1)
+    return (q, k, v, g, lse, delta, qo, ko, causal, window)
+
+
+@pytest.mark.parametrize("case", ["causal", "gqa4_ragged", "sq_255"])
+def test_flash_dq_kernel_is_bit_reproducible(cuda, case):
+    """No atomics: two dQ launches on the same bf16 inputs give the same
+    bits."""
+    from elephas_tpu_torch.ops.flash_attention import flash_dq
+    args = _bwd_args(case, 6, cuda)
+    first, second = flash_dq(*args), flash_dq(*args)
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+
+
 @pytest.mark.parametrize("case", ["causal", "gqa4_ragged"])
 def test_flash_dkv_kernel_is_bit_reproducible(cuda, case):
     """No atomics: two dK/dV launches on the same bf16 inputs give the
@@ -192,33 +219,77 @@ def test_flash_dkv_kernel_is_bit_reproducible(cuda, case):
         assert torch.equal(a.view(torch.int16), b_.view(torch.int16))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", ["base", "gqa", "window", "alibi"])
-def test_paged_kernel_matches_plain(cuda, case, dtype):
+_PAGED_CASES = {
+    # name: (H, KVH, max_blocks, positions, window, alibi); block 16,
+    # head_dim 64; a row at pos 0 is an inactive slot (a table of
+    # zeros). The bf16 body splits these tables into runs of 4 entries
+    # (64 positions).
+    "base": (8, 8, 8, [0, 17, 127, 0], None, False),
+    "gqa": (8, 2, 8, [0, 17, 127, 0], None, False),
+    "window": (8, 8, 8, [0, 17, 127, 0], 21, False),
+    "alibi": (8, 8, 8, [0, 17, 127, 0], None, True),
+    # a window that leaves the first split of three rows empty
+    "window_empty_split": (8, 8, 8, [127, 100, 90, 0], 21, False),
+    # the last position of split 0, the first of split 1, a block past it
+    "split_boundary": (8, 8, 8, [63, 64, 80, 0], None, False),
+    # 10 table entries: splits of 4, 4 and 2
+    "ragged_max_blocks": (8, 8, 10, [159, 130, 64, 0], None, False),
+    # one long row (64 blocks, pos 1023) beside an inactive slot
+    "long_row": (8, 8, 64, [1023, 0], None, False),
+    "gqa2": (8, 4, 10, [159, 70, 3, 0], None, True),
+    "gqa4": (16, 4, 10, [159, 70, 3, 0], 40, False),
+    # 8-way groups take the generic body
+    "gqa8": (16, 2, 10, [159, 70, 3, 0], None, False),
+}
+
+
+def _paged_inputs(case, dtype, device):
+    h, kvh, mb, positions, window, alibi = _PAGED_CASES[case]
     from elephas_tpu_torch.models.transformer import _alibi_slope_list
-    from elephas_tpu_torch.ops.paged_attention import (
-        paged_decode_attention, paged_decode_attention_plain)
-    kvh = 2 if case == "gqa" else 8
-    window = 21 if case == "window" else None
-    slopes = _alibi_slope_list(8) if case == "alibi" else None
-    b, h, d, bs, mb, nb = 4, 8, 64, 16, 8, 40
+    b, d, bs = len(positions), 64, 16
+    nb = b * mb + 1
     rng = np.random.default_rng(1)
     tables = torch.as_tensor(
         rng.permutation(np.arange(1, nb))[:b * mb].reshape(b, mb),
-        dtype=torch.int32, device=cuda)
-    tables[3] = 0                              # an inactive slot
-    pos = torch.as_tensor([0, 17, 127, 0], dtype=torch.int32, device=cuda)
-    gen = torch.Generator(device=cuda).manual_seed(1)
-    q = torch.randn((b, h, d), generator=gen, device=cuda).to(dtype)
-    kp = torch.randn((nb, kvh, bs, d), generator=gen, device=cuda).to(dtype)
-    vp = torch.randn((nb, kvh, bs, d), generator=gen, device=cuda).to(dtype)
+        dtype=torch.int32, device=device)
+    pos = torch.as_tensor(positions, dtype=torch.int32, device=device)
+    tables[pos == 0] = 0                       # inactive slots
+    gen = torch.Generator(device=device).manual_seed(1)
+    q = torch.randn((b, h, d), generator=gen, device=device).to(dtype)
+    kp = torch.randn((nb, kvh, bs, d), generator=gen,
+                     device=device).to(dtype)
+    vp = torch.randn((nb, kvh, bs, d), generator=gen,
+                     device=device).to(dtype)
+    slopes = _alibi_slope_list(h) if alibi else None
+    return q, kp, vp, tables, pos, window, slopes
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(_PAGED_CASES))
+def test_paged_kernel_matches_plain(cuda, case, dtype):
+    from elephas_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_plain)
+    q, kp, vp, tables, pos, window, slopes = _paged_inputs(case, dtype,
+                                                           cuda)
     before = paged_decode_attention.launches
     out = paged_decode_attention(q, kp, vp, tables, pos, window, slopes)
     assert paged_decode_attention.launches == before + 1
     ref = paged_decode_attention_plain(q.float(), kp.float(), vp.float(),
                                        tables, pos, window, slopes)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert out.dtype == dtype and bool(torch.isfinite(out.float()).all())
     torch.testing.assert_close(out.float(), ref, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["long_row", "gqa4", "window_empty_split"])
+def test_paged_kernel_is_bit_reproducible(cuda, case):
+    """No atomics, splits merged in index order: two bf16 launches on the
+    same inputs give the same bits."""
+    from elephas_tpu_torch.ops.paged_attention import paged_decode_attention
+    args = _paged_inputs(case, torch.bfloat16, cuda)
+    first = paged_decode_attention(*args)
+    second = paged_decode_attention(*args)
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
 
 
 def test_engine_fused_matches_gather_on_card(cuda):
