@@ -17,6 +17,14 @@ requests; one f32 ``lm_loss`` gradient with the flash kernels against
 the plain path; and training through ``TransformerModel.fit_tokens``
 (bf16, AdamW, batch 8 x 1024, two epochs) with the flash forward and
 backward kernels, after which the trained model serves two requests.
+Then the Keras-style models through ``TPUModel(mode="synchronous")`` at
+the bench's MLP width (784-128-128-10) on 60,000 seeded rows of the
+tests' MNIST-like recipe: ``sync_mode="step"`` (samples/s beside a plain
+PyTorch loop of the same MLP) and the default model averaging over 4
+workers with Dropout 0.2, each held to the reference's predict/evaluate
+oracle and a held-out accuracy above 0.9; and ``TPUModel`` over the
+flagship ``TransformerModel`` (one epoch of 2 steps, ``predict``,
+``evaluate``), whose flash kernel launches are counted.
 Every phase prints one JSON line; any failure raises and the script
 exits non-zero without the final result line. The last three lines are
 the card's name and power limit as ``nvidia-smi`` reports them, the
@@ -796,6 +804,251 @@ def run_train(cfg):
     return counts
 
 
+# ------------------------------------------------- Keras-style TPUModel
+def mnist_like(n, seed, dim=784, classes=10, centers_seed=123):
+    """The "MNIST-like" set of ``tests/conftest.py`` (``_make_classification``):
+    class centers fixed across splits, unit-normal noise around them,
+    min-max scaled, one-hot labels."""
+    centers = np.random.default_rng(centers_seed).normal(0.0, 2.0,
+                                                         size=(classes, dim))
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, classes, size=n)
+    x = centers[labels] + rng.normal(0.0, 1.0, size=(n, dim))
+    x = (x - x.min()) / (x.max() - x.min())
+    return x.astype("float32"), np.eye(classes)[labels].astype("float32")
+
+
+def mnist_mlp(dropout: float):
+    """The bench's MLP, 784-128-128-10, with the conftest's Dropout
+    layers when ``dropout`` > 0."""
+    from elephas_tpu_torch.models import (Activation, Dense, Dropout,
+                                          Sequential)
+    drop = [Dropout(dropout)] if dropout else []
+    return Sequential([Dense(128, input_dim=784), Activation("relu"), *drop,
+                       Dense(128), Activation("relu"), *drop, Dense(10),
+                       Activation("softmax")], device="cuda")
+
+
+def tpu_model_oracle(tpu_model, x_test, y_test):
+    """The reference's oracle: distributed predict's argmax equals the
+    master network's; distributed evaluate within 0.01 of the master's.
+    Returns (evaluate, master evaluate)."""
+    preds = tpu_model.predict(x_test)
+    master = tpu_model.master_network.predict(x_test)
+    require(preds.shape == (len(x_test), 10) and np.isfinite(preds).all(),
+            "distributed predictions finite, one row per input")
+    require(np.array_equal(preds.argmax(1), master.argmax(1)),
+            "distributed predict argmax equals the master's")
+    evals = tpu_model.evaluate(x_test, y_test)
+    master_evals = tpu_model.master_network.evaluate(x_test, y_test)
+    require(all(abs(a - b) <= 0.01 for a, b in zip(evals, master_evals)),
+            f"distributed evaluate {evals} within 0.01 of {master_evals}")
+    return evals, master_evals
+
+
+def plain_mlp_samples_per_s(x, y, batch_size=64, epochs=2):
+    """bench.py's hand-written training loop (``bench_pure_jax``) on the
+    card: the same MLP as plain tensors, glorot init, log-softmax
+    cross-entropy, SGD 0.1, a shuffled epoch of full batches; data on
+    the card. Returns the second epoch's samples/s."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def glorot(i, o):
+        limit = float(np.sqrt(6.0 / (i + o)))
+        return (torch.rand((i, o), generator=gen, device="cuda") * 2 - 1) * limit
+
+    params = [glorot(784, 128), torch.zeros(128, device="cuda"),
+              glorot(128, 128), torch.zeros(128, device="cuda"),
+              glorot(128, 10), torch.zeros(10, device="cuda")]
+    for p in params:
+        p.requires_grad_()
+    x, y = torch.as_tensor(x, device="cuda"), torch.as_tensor(y, device="cuda")
+    n = x.shape[0]
+    nb = n // batch_size
+    times = []
+    for _ in range(epochs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        order = torch.randperm(n, generator=gen, device="cuda")
+        for i in range(nb):
+            idx = order[i * batch_size:(i + 1) * batch_size]
+            w1, b1, w2, b2, w3, b3 = params
+            h = torch.relu(x[idx] @ w1 + b1)
+            h = torch.relu(h @ w2 + b2)
+            logp = torch.log_softmax(h @ w3 + b3, dim=-1)
+            loss = -(y[idx] * logp).sum(-1).mean()
+            grads = torch.autograd.grad(loss, params)
+            with torch.no_grad():
+                for p, g in zip(params, grads):
+                    p.sub_(0.1 * g)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    require(bool(torch.isfinite(loss)), "plain loop loss finite")
+    return nb * batch_size / times[-1]
+
+
+def run_keras_sync_step(data):
+    """``TPUModel(mode="synchronous", sync_mode="step")`` on the bench's
+    MLP at full width: SGD, categorical cross-entropy, acc, batch 64, two
+    epochs over 60,000 rows; then the oracle and the held-out accuracy
+    on 10,000 rows, and the plain loop's samples/s beside.
+
+    The learning rate is 0.01, not the bench's 0.1: on this set (every
+    feature min-max scaled around 0.5) SGD 0.1 at batch 64 does not
+    train; its loss rises in the second epoch, in the JAX package as in
+    the port (``tests/test_torch_tpu_model.py::
+    test_sgd_rate_on_the_full_mnist_like_set`` shows both)."""
+    from elephas_tpu_torch import SGD, TPUModel, to_dataset
+
+    (x, y), (x_test, y_test) = data
+    model = mnist_mlp(0.0)
+    model.compile(SGD(learning_rate=0.01), "categorical_crossentropy",
+                  ["acc"], seed=0)
+    tpu_model = TPUModel(model, mode="synchronous", sync_mode="step",
+                         batch_size=64)
+    t0 = time.perf_counter()
+    tpu_model.fit(to_dataset(x, y), epochs=2, batch_size=64,
+                  validation_split=0.0)
+    fit_s = time.perf_counter() - t0
+    hist = tpu_model.training_histories[-1]
+    losses = hist["loss"]
+    require(all(np.isfinite(losses)) and losses[1] < losses[0],
+            f"sync step epoch losses fall: {losses}")
+    evals, master_evals = tpu_model_oracle(tpu_model, x_test, y_test)
+    require(evals[1] > 0.9, f"held-out accuracy {evals[1]} > 0.9")
+    samples_s = len(x) / hist["epoch_time"][1]
+    plain_s = plain_mlp_samples_per_s(x, y)
+    emit({"phase": "keras_sync_step", "rows": len(x), "held_out": len(x_test),
+          "batch": 64, "epochs": 2, "epoch_losses": losses,
+          "epoch_acc": hist["categorical_accuracy"],
+          "epoch_time_s": hist["epoch_time"], "fit_s": fit_s,
+          "samples_per_s": samples_s, "plain_loop_samples_per_s": plain_s,
+          "held_out_loss_acc": evals, "master_loss_acc": master_evals})
+
+
+def check_delta_mean(w0, shards, new_weights, hists):
+    """Retrain the four workers of ``run_keras_sync_average`` (same start,
+    shards, seeds and dropout draws) through ``train_workers`` and
+    recompute the average in plain torch: ``new_weights`` must equal
+    w0 - sum(w0 - trained) / 4, and each copy's losses its history's.
+    Returns the largest weight error."""
+    from elephas_tpu_torch import SGD
+    from elephas_tpu_torch.models import metrics
+    from elephas_tpu_torch.parallel import SyncAverageTrainer
+
+    ref = mnist_mlp(0.2)
+    ref.build()
+    ref.set_weights(w0)
+    loss = "categorical_crossentropy"
+    trainer = SyncAverageTrainer(ref, SGD(learning_rate=0.01), loss,
+                                 [metrics.get("acc", loss=loss)])
+    start = [torch.as_tensor(w, device="cuda") for w in w0]
+    delta = [torch.zeros_like(w) for w in start]
+    trained = 0
+    for w, final, stats in trainer.train_workers(
+            ref.params, shards, epochs=2, batch_size=64,
+            validation_split=0.1):
+        require(np.allclose(stats[:, 0].tolist(), hists[w]["loss"],
+                            rtol=0, atol=1e-6),
+                f"worker {w}'s copy repeats its losses {hists[w]['loss']}")
+        for i, (ln, pn) in enumerate(ref._weight_entries()):
+            delta[i] += start[i] - final[ln][pn].detach()
+        trained += 1
+    require(trained == 4, f"all four workers trained: {trained}")
+    err = max(float((torch.as_tensor(got, device="cuda")
+                     - (s - d / 4)).abs().max())
+              for got, s, d in zip(new_weights, start, delta))
+    require(err <= 1e-6, f"new weights are the start minus the mean "
+            f"delta of the four workers: max error {err}")
+    return err
+
+
+def run_keras_sync_average(data):
+    """``TPUModel(mode="synchronous")`` (model averaging) on the
+    conftest's Dropout-0.2 model at full width: 4 workers, batch 64, two
+    epochs, validation split 0.1, SGD 0.01 as in the step phase; the
+    four worker histories, the oracle and seconds per fit. The master's
+    new weights must be the start minus the mean of the four workers'
+    deltas, recomputed here from each worker's trained copy."""
+    from elephas_tpu_torch import SGD, TPUModel, to_dataset
+
+    (x, y), (x_test, y_test) = data
+    model = mnist_mlp(0.2)
+    model.compile(SGD(learning_rate=0.01), "categorical_crossentropy",
+                  ["acc"], seed=0)
+    w0 = model.get_weights()
+    tpu_model = TPUModel(model, mode="synchronous", num_workers=4,
+                         batch_size=64)
+    dataset = to_dataset(x, y)
+    t0 = time.perf_counter()
+    tpu_model.fit(dataset, epochs=2, batch_size=64, validation_split=0.1)
+    fit_s = time.perf_counter() - t0
+    hists = tpu_model.training_histories
+    require(len(hists) == 4, f"four worker histories: {len(hists)}")
+    for h in hists:
+        require(all(np.isfinite(h["loss"])) and h["loss"][1] < h["loss"][0],
+                f"worker epoch losses fall: {h['loss']}")
+    average_err = check_delta_mean(w0, dataset.repartition(4).partitions(),
+                                   tpu_model.master_network.get_weights(),
+                                   hists)
+    evals, master_evals = tpu_model_oracle(tpu_model, x_test, y_test)
+    require(evals[1] > 0.9, f"held-out accuracy {evals[1]} > 0.9")
+    emit({"phase": "keras_sync_average", "rows": len(x), "workers": 4,
+          "batch": 64, "epochs": 2, "validation_split": 0.1,
+          "worker_histories": hists, "fit_s": fit_s,
+          "delta_mean_max_abs_err": average_err,
+          "trainer_fit_time_s": hists[0]["fit_time"][0],
+          "held_out_loss_acc": evals, "master_loss_acc": master_evals})
+
+
+def run_tpu_model_lm(cfg):
+    """``TPUModel(TransformerModel(flagship))`` in synchronous mode: one
+    epoch of 2 steps at batch 8 x 1024 (18 seeded Zipf rows, 2 held out
+    by the default validation split of 0.1), then ``predict`` on 2 rows
+    and ``evaluate``. The flash kernels must carry the route; evaluate
+    must equal the cross-entropy of predict's logits."""
+    from elephas_tpu_torch import TPUModel
+    from elephas_tpu_torch.models.optimizers import AdamW
+    from elephas_tpu_torch.models.transformer_model import TransformerModel
+
+    rng = np.random.default_rng(11)
+    ranks = np.arange(1, cfg.vocab_size + 1, dtype=np.float64)
+    probs = ranks ** -1.1
+    tokens = rng.choice(cfg.vocab_size, size=(18, 1024), p=probs / probs.sum())
+    model = TransformerModel(cfg, device="cuda").compile(
+        AdamW(3e-4, epsilon=1e-8, weight_decay=1e-4, decay_1d=True), seed=0)
+    tpu_model = TPUModel(model, mode="synchronous", batch_size=8)
+    reset_counts()
+    t0 = time.perf_counter()
+    tpu_model.fit(tokens, epochs=1, batch_size=8, seed=0)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    logits = tpu_model.predict(tokens[:2])
+    loss = tpu_model.evaluate(tokens[:2], None)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    hist = tpu_model.training_histories[-1]
+    require(all(np.isfinite(hist["loss"] + hist["val_loss"])),
+            f"finite LM losses {hist}")
+    require(logits.shape == (2, 1024, cfg.vocab_size)
+            and np.isfinite(logits).all(), "predict logits finite")
+    lg = torch.as_tensor(logits[:, :-1])
+    ce = float(-(torch.log_softmax(lg, -1).gather(
+        -1, torch.as_tensor(tokens[:2, 1:])[..., None])).mean())
+    require(np.isfinite(loss) and abs(loss - ce) <= 1e-3,
+            f"evaluate {loss} equals predict's cross-entropy {ce}")
+    steps = 2
+    for name in ("flash_dq", "flash_dkv"):
+        require(counts[name] == cfg.num_layers * steps,
+                f"{name} launched once per layer and step: {counts}")
+    # forward passes: 2 train steps, the validation loss, predict, evaluate
+    require(counts["flash_fwd"] == cfg.num_layers * (steps + 3),
+            f"flash_fwd launched once per layer and forward: {counts}")
+    emit({"phase": "tpu_model_lm", "batch": 8, "seq": 1024, "steps": steps,
+          "history": hist, "fit_s": fit_s, "evaluate_loss": loss,
+          "predict_cross_entropy": ce, "launches": counts})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -841,6 +1094,11 @@ def main() -> int:
     run_train_parity(params, cfg)
     del params
     train_counts = run_train(cfg)
+
+    data = (mnist_like(60000, seed=0), mnist_like(10000, seed=1))
+    run_keras_sync_step(data)
+    run_keras_sync_average(data)
+    run_tpu_model_lm(cfg)
 
     # max_abs_err: the largest error of any comparison this run made for
     # the kernel, f32 and bf16, at the main paths' shapes included; the

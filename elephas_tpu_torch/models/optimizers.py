@@ -17,13 +17,19 @@ same updates:
 - ``clipvalue`` clamps elementwise, then ``clipnorm`` rescales by the
   global norm over all leaves, both before the update rule.
 
+- RMSprop: ``nu = (1 - rho) * g * g + rho * nu``, the update
+  ``g * rsqrt(nu + eps)`` (eps inside the root, optax's default), then
+  the ``-learning_rate`` scale, then momentum when set.
+
 ``optax.adamw(3e-4)`` (the JAX bench's optimizer) is
 ``AdamW(3e-4, epsilon=1e-8, weight_decay=1e-4, decay_1d=True)`` here.
 
 A transform takes any tree of tensors (nested dicts in JAX leaf order,
 lists, tuples) and returns updates in the structure of ``grads``; the
-state holds flat lists in leaf order. Learning-rate schedules and the
-other optimizers of the JAX package (RMSprop, Adagrad, Adadelta, Nadam,
+state holds flat lists in leaf order. ``serialize``/``deserialize`` use
+the JAX package's ``{"class_name", "config"}`` form, so an optimizer
+config crosses between the packages. Learning-rate schedules and the
+other optimizers of the JAX package (Adagrad, Adadelta, Nadam,
 Adafactor, Lion, LAMB) are not ported yet and raise.
 """
 from typing import Callable, Dict, List, NamedTuple, Optional, Union
@@ -32,8 +38,8 @@ import torch
 
 from ..weights import tree_flatten, tree_leaves, tree_unflatten
 
-__all__ = ["Transform", "Optimizer", "SGD", "Adam", "AdamW", "get",
-           "deserialize"]
+__all__ = ["Transform", "Optimizer", "SGD", "Adam", "AdamW", "RMSprop",
+           "get", "serialize", "deserialize"]
 
 class Transform(NamedTuple):
     """A functional gradient transformation (optax's shape)."""
@@ -128,6 +134,17 @@ def _scale_by_adam(b1: float, b2: float, eps: float,
     return Transform(init, update)
 
 
+def _scale_by_rms(decay: float, eps: float) -> Transform:
+    def init(params):
+        return [torch.zeros_like(p) for p in params]
+
+    def update(g, state, params=None):
+        nu = [(1 - decay) * (x * x) + decay * n for x, n in zip(g, state)]
+        return [torch.rsqrt(n + eps) * x for x, n in zip(g, nu)], nu
+
+    return Transform(init, update)
+
+
 def _add_decayed_weights(weight_decay: float, masked: bool) -> Transform:
     """``g + weight_decay * p``; with ``masked``, only rank >= 2 leaves
     (the JAX package's ``_decay_mask_fn``)."""
@@ -170,6 +187,14 @@ class Optimizer:
     def _rule(self) -> List[Transform]:
         raise NotImplementedError
 
+    def _clip_config(self) -> Dict:
+        config = {}
+        if self.clipnorm is not None:
+            config["clipnorm"] = self.clipnorm
+        if self.clipvalue is not None:
+            config["clipvalue"] = self.clipvalue
+        return config
+
     def to_transform(self) -> Transform:
         """Clipping (value, then global norm), then the update rule."""
         pre = []
@@ -198,6 +223,11 @@ class SGD(Optimizer):
         rule = [_trace(self.momentum, self.nesterov)] if self.momentum else []
         return rule + [_scale(-self.learning_rate)]
 
+    def get_config(self):
+        return {"learning_rate": self.learning_rate,
+                "momentum": self.momentum, "nesterov": self.nesterov,
+                **self._clip_config()}
+
 
 class Adam(Optimizer):
     """``mu_dtype="bfloat16"`` stores the first moment in bf16 (the
@@ -222,6 +252,11 @@ class Adam(Optimizer):
     def _rule(self):
         return [self._adam(), _scale(-self.learning_rate)]
 
+    def get_config(self):
+        return {"learning_rate": self.learning_rate, "beta_1": self.beta_1,
+                "beta_2": self.beta_2, "epsilon": self.epsilon,
+                "mu_dtype": self.mu_dtype, **self._clip_config()}
+
 
 class AdamW(Adam):
     """``decay_1d=False`` (default) decays only rank >= 2 parameters
@@ -240,12 +275,40 @@ class AdamW(Adam):
                 _add_decayed_weights(self.weight_decay, not self.decay_1d),
                 _scale(-self.learning_rate)]
 
+    def get_config(self):
+        return {**super().get_config(), "weight_decay": self.weight_decay,
+                "decay_1d": self.decay_1d}
+
+
+class RMSprop(Optimizer):
+    """optax's ``rmsprop(learning_rate, decay=rho, eps=epsilon,
+    momentum=momentum or None)``, as the JAX package lowers it."""
+
+    def __init__(self, learning_rate: float = 0.001, rho: float = 0.9,
+                 momentum: float = 0.0, epsilon: float = 1e-7, **kwargs):
+        if "lr" in kwargs:
+            learning_rate = kwargs.pop("lr")
+        super().__init__(learning_rate, **kwargs)
+        self.rho, self.momentum = float(rho), float(momentum)
+        self.epsilon = float(epsilon)
+
+    def _rule(self):
+        rule = [_scale_by_rms(self.rho, self.epsilon),
+                _scale(-self.learning_rate)]
+        return rule + ([_trace(self.momentum, False)] if self.momentum
+                       else [])
+
+    def get_config(self):
+        return {"learning_rate": self.learning_rate, "rho": self.rho,
+                "momentum": self.momentum, "epsilon": self.epsilon,
+                **self._clip_config()}
+
 
 _OPTIMIZERS = {"SGD": SGD, "sgd": SGD, "Adam": Adam, "adam": Adam,
-               "AdamW": AdamW, "adamw": AdamW}
+               "AdamW": AdamW, "adamw": AdamW, "RMSprop": RMSprop,
+               "rmsprop": RMSprop}
 #: names the JAX package knows that this port does not carry yet
-_NOT_PORTED = {"RMSprop", "Adagrad", "Adadelta", "Nadam", "Adafactor",
-               "Lion", "LAMB"}
+_NOT_PORTED = {"Adagrad", "Adadelta", "Nadam", "Adafactor", "Lion", "LAMB"}
 
 
 def _lookup(name: str):
@@ -253,8 +316,14 @@ def _lookup(name: str):
     if cls is not None:
         return cls
     if name in _NOT_PORTED or name in {n.lower() for n in _NOT_PORTED}:
-        raise NotImplementedError(f"optimizer {name!r} is not ported yet")
+        raise NotImplementedError(f"optimizer {name!r} is not ported yet "
+                                  "(ROADMAP Queue 1 item 3)")
     raise ValueError(f"Unknown optimizer: {name!r}")
+
+
+def serialize(optimizer: Optimizer) -> Dict:
+    return {"class_name": type(optimizer).__name__,
+            "config": optimizer.get_config()}
 
 
 def deserialize(config: Dict) -> Optimizer:

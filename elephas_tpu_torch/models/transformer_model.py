@@ -12,9 +12,8 @@ parameters in place.
 
 Not ported yet: the mesh arguments (``tensor_parallel``,
 ``sequence_parallel``, ``fsdp``, ``zero_optimizer``, ``mesh``) raise
-unless left at their defaults; ``fit`` takes no callbacks; saving,
-checkpoints, ``generate``/``beam_search`` and speculative decoding are
-not here.
+unless left at their defaults; saving, checkpoints,
+``generate``/``beam_search`` and speculative decoding are not here.
 """
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -70,6 +69,8 @@ class TransformerModel:
         self.params: Optional[Dict] = None
         self.built = False
         self.optimizer: Optional[Optimizer] = None
+        self.loss: Optional[str] = None
+        self.metrics: List = []
         self._tx = None
         self._opt_state = None
         self._seed = 0
@@ -91,6 +92,8 @@ class TransformerModel:
         training loss is always the next-token cross-entropy of
         ``lm_loss``."""
         self.optimizer = get_optimizer(optimizer)
+        self.loss = loss or "lm_cross_entropy"
+        self.metrics = list(metrics or [])
         self._tx = self.optimizer.to_transform()
         if not self.built or (seed is not None and seed != self._seed):
             self.build(seed=seed)
@@ -221,14 +224,27 @@ class TransformerModel:
             verbose: int = 0, validation_split: float = 0.0,
             callbacks=None, seed: int = 0, **kwargs) -> Dict:
         """``fit_tokens`` behind the ``(x, y)`` surface (``y`` is
-        ignored: LM targets are the shifted input). Callbacks are not
-        ported yet: ``callbacks`` must be None or empty."""
-        if callbacks:
-            raise NotImplementedError("training callbacks are not ported "
-                                      "yet")
-        return self.fit_tokens(x, epochs=epochs, batch_size=batch_size,
-                               validation_split=validation_split, seed=seed,
-                               verbose=verbose)
+        ignored: LM targets are the shifted input), with Keras-style
+        ``callbacks``: each epoch's logs go to ``epoch_end``, and a
+        callback that sets ``stop_training`` ends training after that
+        epoch."""
+        from .callbacks import CallbackList
+
+        cbs = CallbackList(callbacks, self)
+        self.stop_training = False
+        cbs.train_begin()
+
+        def epoch_cb(epoch, logs):
+            cbs.epoch_end(epoch, logs)
+            return bool(self.stop_training)
+
+        try:
+            return self.fit_tokens(
+                x, epochs=epochs, batch_size=batch_size,
+                validation_split=validation_split, seed=seed,
+                verbose=verbose, epoch_callback=epoch_cb if cbs else None)
+        finally:
+            cbs.train_end()
 
     def apply_ema(self):
         """Swap the EMA average in as the live parameters (returns the
@@ -242,15 +258,23 @@ class TransformerModel:
     # ------------------------------------------------------ inference/eval
     @torch.no_grad()
     def predict(self, tokens: np.ndarray, batch_size: int = 8,
-                verbose: int = 0) -> np.ndarray:
-        """f32 logits ``(rows, seq, vocab)`` in input order."""
+                verbose: int = 0,
+                out: Optional[np.ndarray] = None) -> np.ndarray:
+        """f32 logits ``(rows, seq, vocab)`` in input order. ``out``: an
+        optional preallocated ``(rows, seq, vocab)`` array (e.g. a
+        writable memmap) receiving each batch's logits in place."""
         tokens = np.asarray(tokens)
-        out = [forward(self.params,
-                       torch.as_tensor(tokens[i:i + batch_size],
-                                       device=self.device),
-                       self.config).cpu().numpy()
-               for i in range(0, tokens.shape[0], batch_size)]
-        return np.concatenate(out, axis=0)
+        outs = []
+        for i in range(0, tokens.shape[0], batch_size):
+            chunk = forward(self.params,
+                            torch.as_tensor(tokens[i:i + batch_size],
+                                            device=self.device),
+                            self.config).cpu().numpy()
+            if out is not None:
+                out[i:i + chunk.shape[0]] = chunk
+            else:
+                outs.append(chunk)
+        return out if out is not None else np.concatenate(outs, axis=0)
 
     @torch.no_grad()
     def evaluate(self, tokens: np.ndarray, y=None, batch_size: int = 8,

@@ -1,5 +1,5 @@
 """Step timing: the part of ``elephas_tpu/utils/tracing.py`` that
-``TransformerModel.fit_tokens`` needs.
+``TransformerModel.fit_tokens`` and the sync trainers need.
 
 :class:`StepTimer` keeps per-step wall times. The JAX package also
 publishes each step to its metrics registry; that waits for the port of
@@ -24,3 +24,7 @@ class StepTimer:
     def stop(self) -> None:
         self.durations.append(time.perf_counter() - self._start)
         self._start = None
+
+    @property
+    def total(self) -> float:
+        return sum(self.durations)

@@ -428,3 +428,47 @@ def test_mbarrier_wait_that_never_completes_traps(cuda, tmp_path):
     assert run.returncode == 3, run.stdout + run.stderr
     assert "launch failure" in run.stdout
     assert 3.5 <= seconds <= 30, seconds
+
+
+def test_sync_trainers_on_card_match_cpu(cuda):
+    """The f32 MLP (784-128-128-10) through ``SyncStepTrainer`` and
+    ``SyncAverageTrainer`` (2 workers) on the card, from the same
+    weights, without shuffling, 1 epoch of 512 rows, TF32 off: weights
+    and losses within atol 1e-5 of the same run on the CPU."""
+    from elephas_tpu_torch.models import (SGD, Dense, Sequential, metrics,
+                                          reset_layer_uids)
+    from elephas_tpu_torch.parallel.sync_trainer import (SyncAverageTrainer,
+                                                         SyncStepTrainer)
+    rng = np.random.default_rng(0)
+    x = rng.random((512, 784), dtype=np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 512)]
+    loss = "categorical_crossentropy"
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runs, w0 = [], None
+    try:
+        for device in ("cpu", cuda):
+            reset_layer_uids()
+            model = Sequential([Dense(128, activation="relu", input_dim=784),
+                                Dense(128, activation="relu"),
+                                Dense(10, activation="softmax")],
+                               device=device)
+            model.build(seed=0)
+            w0 = w0 or model.get_weights()
+            acc = [metrics.get("acc", loss=loss)]
+            sw, sh = SyncStepTrainer(model, SGD(0.1), loss, acc).fit(
+                w0, x, y, epochs=1, batch_size=64, shuffle=False)
+            aw, ah = SyncAverageTrainer(model, SGD(0.1), loss, acc).run(
+                w0, [(x[:256], y[:256]), (x[256:], y[256:])], epochs=1,
+                batch_size=64, shuffle=False)
+            runs.append((sw, sh["loss"], aw, [h["loss"] for h in ah]))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    (cw, cl, caw, cal), (gw, gl, gaw, gal) = runs
+    for a, b in zip(cw + caw, gw + gaw):
+        np.testing.assert_allclose(b, a, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(gl, cl, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(gal, cal, atol=1e-5, rtol=0)

@@ -26,6 +26,7 @@ from elephas_tpu.models import optimizers as jopt
 from elephas_tpu.models import transformer as jtr
 from elephas_tpu.models.transformer_model import TransformerModel as JModel
 from elephas_tpu_torch.models import optimizers as topt
+from elephas_tpu_torch.models.callbacks import LambdaCallback
 from elephas_tpu_torch.models import transformer as ttr
 from elephas_tpu_torch.models.transformer_model import TransformerModel
 from elephas_tpu_torch.weights import (from_numpy_tree, to_numpy_tree,
@@ -91,7 +92,8 @@ def test_fit_tokens_history_matches_jax():
 
 def test_fit_with_accumulation_and_ema():
     """``grad_accum`` splits each batch, EMA tracks the parameters, and
-    ``fit`` is ``fit_tokens`` without callbacks."""
+    ``fit`` is ``fit_tokens`` with callbacks: each epoch's logs reach
+    ``epoch_end``, and ``stop_training`` ends the fit."""
     _, tcfg = _configs()
     tokens = _tokens(7, (8, 17))
     one = TransformerModel(tcfg, device="cpu").compile(topt.SGD(0.5),
@@ -105,8 +107,15 @@ def test_fit_with_accumulation_and_ema():
     moved = [float(np.abs(a - b.numpy()).max())
              for a, b in zip(two.get_weights(), tree_leaves(raw))]
     assert max(moved) > 0                     # the average lags the params
-    with pytest.raises(NotImplementedError):
-        one.fit(tokens, callbacks=[object()])
+    seen = []
+
+    def stop_after_first(epoch, logs):
+        seen.append((epoch, logs["loss"]))
+        one.stop_training = True
+
+    h3 = one.fit(tokens, epochs=3, batch_size=4, seed=1,
+                 callbacks=[LambdaCallback(on_epoch_end=stop_after_first)])
+    assert [e for e, _ in seen] == [0] and h3["loss"] == [seen[0][1]]
 
 
 def test_train_step_with_dropout_takes_a_generator():
