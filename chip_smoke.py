@@ -6,9 +6,12 @@ Run from the repository root on a machine with a CUDA device and the
 CUDA toolkit. It builds the port's hand-written kernels from
 ``elephas_tpu_torch/csrc`` (and fails if any spills registers), holds
 each kernel against its plain PyTorch version at the shapes the main
-paths give it, checks that two launches of the paged, dQ and dK/dV
-kernels give the same bits, times one request's paged decode (B 1, pos
-1000) on a line of its own, then drives the port's
+paths give it (the flash kernels at head dims 16, 32 and 64, f32 and
+bf16, and at the head-dim-32 path's own shapes; the paged kernel at 64
+and, on its general body, at 16 and 32),
+checks that two launches of the paged, dQ and dK/dV kernels give the
+same bits, times one request's paged decode (B 1, pos 1000) on a line
+of its own, then drives the port's
 entry points at the full width of the flagship LM config (vocab 32000,
 8 layers, 16 heads, d_model 1024, d_ff 4096; random weights from a
 seed): ``forward`` with the flash-attention kernel; the paged
@@ -24,8 +27,15 @@ PyTorch loop of the same MLP) and the default model averaging over 4
 workers with Dropout 0.2, each held to the reference's predict/evaluate
 oracle and a held-out accuracy above 0.9; and ``TPUModel`` over the
 flagship ``TransformerModel`` (one epoch of 2 steps, ``predict``,
-``evaluate``), whose flash kernel launches are counted.
-Every phase prints one JSON line; any failure raises and the script
+``evaluate``), whose flash kernel launches are counted. Last,
+``TPUModel`` over the ``examples/transformer_tpumodel.py`` LM (head dim
+32: vocab 512, 4 layers, 8 heads, d_model 256) fits 256 seeded rows for
+up to 5 epochs with ``EarlyStopping`` and serves ``predict`` and
+``evaluate`` through the head-dim-32 flash kernels, and one f32
+gradient at that config through the kernels meets the plain path's;
+and ``forward`` of the ``examples/http_serving.py`` LM (head dim 16,
+f32) runs the head-dim-16 flash kernel and meets the plain path. Every
+phase prints one JSON line; any failure raises and the script
 exits non-zero without the final result line. The last three lines are
 the card's name and power limit as ``nvidia-smi`` reports them, the
 ``kernels`` summary, and ``{"ok": true, "device": ...}``.
@@ -109,26 +119,54 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 # --------------------------------------------------------------- kernels
+# the paged phase's cases, name: (KVH, window, ALiBi), run at every head
+# dim
+PAGED_CASES = {"main": (16, None, False), "gqa": (4, None, False),
+               "window": (16, 100, False), "alibi": (16, None, True)}
+
+
 def check_paged(flush):
     """The paged decode kernel against its plain version at the serving
-    path's shapes: B 8, H 16, D 64, block 16, 64 blocks per row, a pool
-    of 513 blocks; shuffled tables and ragged positions."""
-    from elephas_tpu_torch.models.transformer import _alibi_slope_list
-    from elephas_tpu_torch.ops.paged_attention import (
-        paged_decode_attention, paged_decode_attention_plain)
-
-    b, h, d, bs, mb, nb = 8, 16, 64, 16, 64, 513
+    path's shapes: B 8, H 16, block 16, 64 blocks per row, a pool of 513
+    blocks; shuffled tables and ragged positions; at head dim 64 (the
+    flagship's: the split body in bf16) and 32 and 16 (the general
+    body), each timed; then one request alone at d 64."""
+    b, mb, nb = 8, 64, 513
     rng = np.random.default_rng(0)
     tables = rng.permutation(np.arange(1, nb))[:b * mb].reshape(b, mb)
     # the serving run's positions: prompts of 64-512 tokens + 64 new
     pos = rng.integers(64, 576, b)
     tables_t = torch.as_tensor(tables, dtype=torch.int32, device="cuda")
     pos_t = torch.as_tensor(pos, dtype=torch.int32, device="cuda")
+    by_d = {str(d): paged_at_head_dim(flush, d, tables_t, pos_t, pos, nb)
+            for d in (64, 32, 16)}
+    single = check_paged_single_user(flush, nb)
+    errs = {f"d{d}": t.pop("errors") for d, t in by_d.items()}
+    results = {**by_d["64"],
+               "max_abs_err": max(single["max_abs_err"],
+                                  *(t["max_abs_err"] for t in by_d.values())),
+               "max_abs_err_f32": max(t["max_abs_err_f32"]
+                                      for t in by_d.values()),
+               "by_head_dim": by_d}
+    emit({"phase": "paged_kernel", "errors": errs, **results,
+          "bit_reproducible": True,
+          "tolerance": {"f32": 1e-4, "bf16_vs_f32_plain": 2e-2}})
+    return results
+
+
+def paged_at_head_dim(flush, d, tables_t, pos_t, pos, nb):
+    """The paged cases at head dim ``d`` on the serving shape's tables
+    and positions, f32 and bf16 against the plain version; two bf16
+    launches on the main case bit-equal; then the main case timed in
+    bf16 beside gather + SDPA and the bound."""
+    from elephas_tpu_torch.models.transformer import _alibi_slope_list
+    from elephas_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_plain)
+
+    b, h, bs = tables_t.shape[0], 16, 16
     gen = torch.Generator(device="cuda").manual_seed(1)
-    cases = {"main": (16, None, False), "gqa": (4, None, False),
-             "window": (16, 100, False), "alibi": (16, None, True)}
-    results, errs = {}, {}
-    for name, (kvh, window, alibi) in cases.items():
+    errs = {}
+    for name, (kvh, window, alibi) in PAGED_CASES.items():
         q = torch.randn((b, h, d), generator=gen, device="cuda")
         kp = torch.randn((nb, kvh, bs, d), generator=gen, device="cuda")
         vp = torch.randn((nb, kvh, bs, d), generator=gen, device="cuda")
@@ -145,10 +183,11 @@ def check_paged(flush):
                                        window, slopes)
         torch.cuda.synchronize()
         e32, e16 = max_err(out32, ref), max_err(out16, ref16)
+        what = f"paged {name} d {d}"
         require(bool(torch.isfinite(out16.float()).all()),
-                f"paged {name} bf16 output finite")
-        require(e32 <= 1e-4, f"paged {name} f32 err {e32} <= 1e-4")
-        require(e16 <= 2e-2, f"paged {name} bf16 err {e16} <= 2e-2")
+                f"{what} bf16 output finite")
+        require(e32 <= 1e-4, f"{what} f32 err {e32} <= 1e-4")
+        require(e16 <= 2e-2, f"{what} bf16 err {e16} <= 2e-2")
         errs[name] = {"f32": e32, "bf16": e16}
         if name == "main":
             args16 = (q16, k16, v16, tables_t, pos_t)
@@ -156,43 +195,45 @@ def check_paged(flush):
     # the same inputs gives the same bits
     first, second = (paged_decode_attention(*args16) for _ in range(2))
     require(torch.equal(first.view(torch.int16), second.view(torch.int16)),
-            "two paged_decode launches give bit-equal outputs")
+            f"two paged_decode launches at d {d} give bit-equal outputs")
     del first, second
-    # times at the serving path's dtype (bf16) and shapes
-    ms = time_ms(lambda: paged_decode_attention(*args16), flush=flush)
-    plain_ms = time_ms(lambda: paged_decode_attention_plain(*args16),
-                       flush=flush)
-    q16, k16, v16 = args16[:3]
-    length = mb * bs
-    kpos = torch.arange(length, device="cuda")
-    mask = (kpos[None, :] <= pos_t[:, None].long())[:, None, None, :]
-    idx = tables_t.long()
+    library = gather_sdpa(*args16)
+    nbytes, flops, bound_ms, bound_by = paged_bound(pos, h, d, bs)
+    return {"max_abs_err": max(max(e.values()) for e in errs.values()),
+            "max_abs_err_f32": max(e["f32"] for e in errs.values()),
+            "errors": errs,
+            "ms": time_ms(lambda: paged_decode_attention(*args16),
+                          flush=flush),
+            "plain_ms": time_ms(
+                lambda: paged_decode_attention_plain(*args16), flush=flush),
+            "library_ms": time_ms(library, flush=flush),
+            "device_ms": device_ms(lambda: paged_decode_attention(*args16),
+                                   flush),
+            "library_device_ms": device_ms(library, flush),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "flops": flops,
+            "shape": {"B": b, "H": h, "KVH": h, "D": d, "block": bs,
+                      "max_blocks": tables_t.shape[1], "pool_blocks": nb,
+                      "dtype": "bfloat16"}}
+
+
+def gather_sdpa(q, k_pool, v_pool, tables, pos):
+    """The paged call's library yardstick with KVH = H, as a callable:
+    each row's blocks gathered into a contiguous cache, then SDPA under
+    the position mask (the port never calls it)."""
+    b, h, d = q.shape
+    length = tables.shape[1] * k_pool.shape[2]
+    mask = (torch.arange(length, device=q.device)[None, :]
+            <= pos[:, None].long())[:, None, None, :]
+    idx = tables.long()
 
     def library():
-        ck = k16[idx].transpose(1, 2).reshape(b, h, length, d)
-        cv = v16[idx].transpose(1, 2).reshape(b, h, length, d)
+        ck = k_pool[idx].transpose(1, 2).reshape(b, h, length, d)
+        cv = v_pool[idx].transpose(1, 2).reshape(b, h, length, d)
         return torch.nn.functional.scaled_dot_product_attention(
-            q16[:, :, None], ck, cv, attn_mask=mask)
+            q[:, :, None], ck, cv, attn_mask=mask)
 
-    lib_ms = time_ms(library, flush=flush)
-    dev_ms = device_ms(lambda: paged_decode_attention(*args16), flush)
-    lib_dev_ms = device_ms(library, flush)
-    nbytes, flops, bound_ms, bound_by = paged_bound(pos, h, d, bs)
-    single = check_paged_single_user(flush, nb)
-    results = {"max_abs_err": max(single["max_abs_err"],
-                                  *(max(e.values()) for e in errs.values())),
-               "max_abs_err_f32": max(e["f32"] for e in errs.values()),
-               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-               "device_ms": dev_ms, "library_device_ms": lib_dev_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "bytes": nbytes, "flops": flops}
-    emit({"phase": "paged_kernel", "errors": errs, **results,
-          "bit_reproducible": True,
-          "shape": {"B": b, "H": h, "KVH": 16, "D": d, "block": bs,
-                    "max_blocks": mb, "pool_blocks": nb,
-                    "dtype": "bfloat16"},
-          "tolerance": {"f32": 1e-4, "bf16_vs_f32_plain": 2e-2}})
-    return results
+    return library
 
 
 def paged_bound(pos, h, d, bs):
@@ -236,16 +277,7 @@ def check_paged_single_user(flush, nb):
     err = max_err(out, ref)
     require(bool(torch.isfinite(out.float()).all()) and err <= 2e-2,
             f"paged single user bf16 err {err} <= 2e-2")
-    length = mb * bs
-    mask = (torch.arange(length, device="cuda") <= 1000)[None, None, None]
-    idx = tables.long()
-
-    def library():
-        ck = kp[idx].transpose(1, 2).reshape(1, h, length, d)
-        cv = vp[idx].transpose(1, 2).reshape(1, h, length, d)
-        return torch.nn.functional.scaled_dot_product_attention(
-            q[:, :, None], ck, cv, attn_mask=mask)
-
+    library = gather_sdpa(*args)
     nbytes, flops, bound_ms, bound_by = paged_bound(pos_np, h, d, bs)
     res = {"max_abs_err": err,
            "ms": time_ms(lambda: paged_decode_attention(*args),
@@ -262,30 +294,84 @@ def check_paged_single_user(flush, nb):
     return res
 
 
+# head dims of the flash kernels' bodies: the repo's configurations use
+# all three (64 the flagship, 32 examples/transformer_tpumodel.py, 16
+# examples/http_serving.py)
+HEAD_DIMS = (16, 32, 64)
+# the training path's shape, B 8 x H 16 x S 1024 (causal, bf16): every
+# head dim is timed there
+TIMED = (8, 16, 1024)
+# name: (B, H, KVH, Sq, Sk, causal, window, q_offset, k_offset), run at
+# every head dim
+FLASH_CASES = {"main": (2, 16, 16, 1024, 1024, True, None, 0, 0),
+               "b4": (4, 16, 16, 1024, 1024, True, None, 0, 0),
+               "gqa": (4, 16, 4, 1024, 1024, True, None, 0, 0),
+               "window": (4, 16, 16, 1024, 1024, True, 256, 0, 0),
+               "ragged": (4, 16, 16, 1000, 1000, True, None, 0, 0),
+               "noncausal_ragged": (2, 16, 16, 1000, 777, False, None, 0,
+                                    0),
+               "hop_past": (2, 16, 16, 512, 512, True, None, 1024, 512),
+               "hop_future": (2, 16, 16, 512, 512, True, None, 0, 512)}
+# cases at d 32 only: examples/long_context_windowed_lm.py (GQA 8/2,
+# window 48, S 256), and the tpu_model_lm_d32 phase's own shapes (the
+# examples/transformer_tpumodel.py LM: H 8, S 128; fit batches of 16,
+# predict and evaluate batches of 32)
+D32_CASES = {"long_context_windowed_lm": (4, 8, 2, 256, 256, True, 48, 0, 0),
+             "tpumodel_fit": (16, 8, 8, 128, 128, True, None, 0, 0),
+             "tpumodel_predict": (32, 8, 8, 128, 128, True, None, 0, 0)}
+# the case each head dim is timed at beside the training shape: d 32 at
+# its main path's (tpu_model_lm_d32's fit); d 64's main path is the
+# training shape; d 16 runs on no training path
+PATH_TIMED = {32: "tpumodel_fit"}
+
+
+def flash_cases(extra=None):
+    """(head dim, name, case) over every head dim, then the d 32 cases;
+    ``extra`` cases join at every head dim."""
+    cases = dict(FLASH_CASES, **(extra or {}))
+    return [*((d, n, c) for d in HEAD_DIMS for n, c in cases.items()),
+            *((32, n, c) for n, c in D32_CASES.items())]
+
+
+def bound(flops, nbytes):
+    """(bound ms, bound by): the larger of the operations at the bf16
+    peak and the bytes at the memory rate."""
+    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def causal_bound(b, h, s, d):
+    """(flops, bytes, bound ms, bound by) of one causal bf16 forward:
+    4*d flops per unmasked (q, k) pair; q, k, v in and o out once, the
+    lse out."""
+    pairs = s * (s + 1) // 2
+    flops = 4 * b * h * d * pairs
+    nbytes = 4 * b * h * s * d * 2 + b * h * s * 4
+    return (flops, nbytes, *bound(flops, nbytes))
+
+
 def check_flash(flush):
-    """The flash forward kernel against its plain version: the forward
-    path's shape (B 2, H 16, S 1024, D 64, causal), the training path's
-    (B 8), B 4, GQA, a window, ragged lengths, and ring-hop offsets.
-    Timed at both main-path shapes, each beside SDPA."""
+    """The flash forward kernel against its plain version at head dims
+    16, 32 and 64, f32 and bf16: the forward path's shape (B 2, H 16, S
+    1024, causal), B 4, GQA, a window, ragged lengths, ring-hop offsets,
+    the training path's B 8, and at d 32 the long-context
+    configuration's case (GQA 8/2, window 48) and the tpu_model_lm_d32
+    phase's shapes. Timed beside SDPA: at d 64 at both main-path shapes,
+    at d 32 at its path's fit shape, and at every head dim at B 8."""
     from elephas_tpu_torch.ops.flash_attention import (flash_forward,
                                                        flash_forward_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    # name: (B, H, KVH, Sq, Sk, causal, window, q_offset, k_offset)
-    cases = {"main": (2, 16, 16, 1024, 1024, True, None, 0, 0),
-             "train": (8, 16, 16, 1024, 1024, True, None, 0, 0),
-             "b4": (4, 16, 16, 1024, 1024, True, None, 0, 0),
-             "gqa": (4, 16, 4, 1024, 1024, True, None, 0, 0),
-             "window": (4, 16, 16, 1024, 1024, True, 256, 0, 0),
-             "ragged": (4, 16, 16, 1000, 1000, True, None, 0, 0),
-             "noncausal_ragged": (2, 16, 16, 1000, 777, False, None, 0, 0),
-             "hop_past": (2, 16, 16, 512, 512, True, None, 1024, 512),
-             "hop_future": (2, 16, 16, 512, 512, True, None, 0, 512)}
-    errs, timed = {}, {}
-    for name, (b, h, kvh, sq, sk, causal, window, qo, ko) in cases.items():
-        q = torch.randn((b, h, sq, 64), generator=gen, device="cuda")
-        k = torch.randn((b, kvh, sk, 64), generator=gen, device="cuda")
-        v = torch.randn((b, kvh, sk, 64), generator=gen, device="cuda")
+    errs, timed = {f"d{d}": {} for d in HEAD_DIMS}, {}
+    train = {"train": (*TIMED[:2], TIMED[1], TIMED[2], TIMED[2], True,
+                       None, 0, 0)}
+    for d, name, case in flash_cases(train):
+        b, h, kvh, sq, sk, causal, window, qo, ko = case
+        q = torch.randn((b, h, sq, d), generator=gen, device="cuda")
+        k = torch.randn((b, kvh, sk, d), generator=gen, device="cuda")
+        v = torch.randn((b, kvh, sk, d), generator=gen, device="cuda")
         o_ref, l_ref = flash_forward_plain(q, k, v, qo, ko, causal, window)
         o32, l32 = flash_forward(q, k, v, qo, ko, causal, window)
         q16, k16, v16 = q.bfloat16(), k.bfloat16(), v.bfloat16()
@@ -301,28 +387,20 @@ def check_flash(flush):
              "o_bf16": max_err(o16, o_ref16),
              "lse_bf16": max_err(l16[live], l_ref16[live]) if live.any()
              else 0.0}
+        what = f"flash {name} d {d}"
         require(bool(torch.all(l32[~live] < -1e29))
                 and bool(torch.all(o32[~live] == 0)),
-                f"flash {name}: fully masked rows give O = 0, LSE ~ -1e30")
+                f"{what}: fully masked rows give O = 0, LSE ~ -1e30")
         require(bool(torch.isfinite(o16.float()).all()),
-                f"flash {name} bf16 output finite")
+                f"{what} bf16 output finite")
         require(e["o_f32"] <= 2e-4 and e["lse_f32"] <= 1e-4,
-                f"flash {name} f32 errors {e}")
+                f"{what} f32 errors {e}")
         require(e["o_bf16"] <= 2e-2 and e["lse_bf16"] <= 1e-3,
-                f"flash {name} bf16 errors {e}")
-        errs[name] = e
-        if name in ("main", "train"):
-            timed[name] = (q16, k16, v16)
-
-    def causal_bound(b, h, s):
-        """(flops, bytes, bound ms, bound by) of one causal call."""
-        pairs = s * (s + 1) // 2          # unmasked (q, k) pairs, causal
-        flops = 4 * b * h * 64 * pairs
-        nbytes = 4 * b * h * s * 64 * 2 + b * h * s * 4
-        ops_ms = flops / PEAK_BF16_FLOPS * 1e3
-        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-        return (flops, nbytes, max(ops_ms, bytes_ms),
-                "operations" if ops_ms >= bytes_ms else "bytes")
+                f"{what} bf16 errors {e}")
+        errs[f"d{d}"][name] = e
+        if name in ("main", "train", *PATH_TIMED.values()):
+            timed[name, d] = (q16, k16, v16)
+        del q, k, v, o_ref, o32, o_ref16, o16
 
     def sdpa(q, k, v):
         return lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -331,41 +409,53 @@ def check_flash(flush):
     def port(q, k, v):
         return lambda: flash_forward(q, k, v, causal=True)
 
-    # each call and SDPA's under both timers: as issued (ms) and device
-    # time alone (device_ms)
-    q16, k16, v16 = timed["main"]
-    b_m, h_m, s_m = q16.shape[:3]
-    ms = time_ms(port(q16, k16, v16), flush=flush)
-    plain_ms = time_ms(lambda: flash_forward_plain(q16, k16, v16,
-                                                   causal=True), flush=flush)
-    lib_ms = time_ms(sdpa(q16, k16, v16), flush=flush)
-    dev_ms = device_ms(port(q16, k16, v16), flush)
-    lib_dev_ms = device_ms(sdpa(q16, k16, v16), flush)
-    flops, nbytes, bound_ms, bound_by = causal_bound(b_m, h_m, s_m)
-    # the training path's shape (B 8): 64 of the train run's launches
-    q8, k8, v8 = timed["train"]
-    train_ms = time_ms(port(q8, k8, v8), flush=flush)
-    train_lib_ms = time_ms(sdpa(q8, k8, v8), flush=flush)
-    train_dev_ms = device_ms(port(q8, k8, v8), flush)
-    train_lib_dev_ms = device_ms(sdpa(q8, k8, v8), flush)
-    t_flops, t_bytes, t_bound_ms, t_bound_by = causal_bound(*q8.shape[:3])
-    results = {"max_abs_err": max(max(e.values()) for e in errs.values()),
-               "max_abs_err_f32": max(max(e["o_f32"], e["lse_f32"])
-                                      for e in errs.values()),
-               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-               "device_ms": dev_ms, "library_device_ms": lib_dev_ms,
+    def timing(q, k, v, plain=False):
+        """The call and SDPA's under both timers: as issued (ms) and
+        device time alone (device_ms); the plain version as issued."""
+        flops, nbytes, bound_ms, bound_by = causal_bound(*q.shape)
+        ms = time_ms(port(q, k, v), flush=flush)
+        dev_ms = device_ms(port(q, k, v), flush)
+        out = {"shape": dict(zip("BHS", q.shape[:3])),
+               "ms": ms, "device_ms": dev_ms,
+               "library_ms": time_ms(sdpa(q, k, v), flush=flush),
+               "library_device_ms": device_ms(sdpa(q, k, v), flush),
                "bound_ms": bound_ms, "bound_by": bound_by,
                "flops": flops, "bytes": nbytes,
                "achieved_tflops": flops / (ms * 1e-3) / 1e12,
-               "device_tflops": flops / (dev_ms * 1e-3) / 1e12,
-               "train_shape": {"B": q8.shape[0], "H": q8.shape[1],
-                               "S": q8.shape[2]},
-               "train_ms": train_ms, "train_library_ms": train_lib_ms,
-               "train_device_ms": train_dev_ms,
-               "train_library_device_ms": train_lib_dev_ms,
-               "train_bound_ms": t_bound_ms, "train_bound_by": t_bound_by,
-               "train_achieved_tflops": t_flops / (train_ms * 1e-3) / 1e12,
-               "train_device_tflops": t_flops / (train_dev_ms * 1e-3) / 1e12}
+               "device_tflops": flops / (dev_ms * 1e-3) / 1e12}
+        if plain:
+            out["plain_ms"] = time_ms(lambda: flash_forward_plain(
+                q, k, v, causal=True), flush=flush)
+        return out
+
+    q16, k16, v16 = timed["main", 64]
+    b_m, h_m, s_m = q16.shape[:3]
+    main = timing(q16, k16, v16, plain=True)
+    # each head dim at its main path's shape (d 64: the train run's B 8,
+    # 64 of its launches; d 32: the tpu_model_lm_d32 fit's B 16 x H 8 x S
+    # 128), and at the training shape (B 8) beside it
+    by_d = {}
+    for d in HEAD_DIMS:
+        t = timing(*timed["train", d], plain=True)
+        if d in PATH_TIMED:
+            t = {**timing(*timed[PATH_TIMED[d], d], plain=True),
+                 "at_training_shape": t}
+        t["max_abs_err"] = max(max(e.values())
+                               for e in errs[f"d{d}"].values())
+        by_d[str(d)] = t
+    t64 = by_d["64"]
+    results = {"max_abs_err": max(t["max_abs_err"] for t in by_d.values()),
+               "max_abs_err_f32": max(max(e["o_f32"], e["lse_f32"])
+                                      for es in errs.values()
+                                      for e in es.values()),
+               **main,
+               "train_shape": {"B": TIMED[0], "H": TIMED[1],
+                               "S": TIMED[2]},
+               **{f"train_{k}": t64[k] for k in (
+                   "ms", "library_ms", "device_ms", "library_device_ms",
+                   "bound_ms", "bound_by", "achieved_tflops",
+                   "device_tflops")},
+               "by_head_dim": by_d}
     emit({"phase": "flash_kernel", "errors": errs, **results,
           "shape": {"B": b_m, "H": h_m, "S": s_m, "D": 64, "causal": True,
                     "dtype": "bfloat16"},
@@ -388,32 +478,25 @@ def library_flash_backward(q, k, v, g):
 
 def check_flash_bwd(flush):
     """The dQ and dK/dV kernels against their plain versions over the
-    forward phase's cases, with the same lse/delta: f32, and bf16
-    against the f32 plain version on bf16-rounded inputs. Then, at the
-    training shape (B 8, H 16, S 1024, D 64, causal, bf16), each is held
-    against its plain version on the operands it is timed on, and two
-    dK/dV launches there must give the same bits."""
+    forward phase's cases at head dims 16, 32 and 64 (and the d 32
+    cases), with the same lse/delta: f32, and bf16 against the f32 plain
+    version on bf16-rounded inputs. Then, at the training shape (B 8, H
+    16, S 1024, causal, bf16) at every head dim and at d 32 at its
+    path's fit shape, each is held against its plain version on the
+    operands it is timed on, and two dQ and two dK/dV launches there
+    must give the same bits."""
     from elephas_tpu_torch.ops.flash_attention import (
-        flash_backward, flash_backward_plain, flash_dkv, flash_dkv_plain,
-        flash_dq, flash_dq_plain, flash_forward_plain)
+        flash_backward, flash_backward_plain, flash_forward_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(5)
-    # name: (B, H, KVH, Sq, Sk, causal, window, q_offset, k_offset)
-    cases = {"main": (2, 16, 16, 1024, 1024, True, None, 0, 0),
-             "b4": (4, 16, 16, 1024, 1024, True, None, 0, 0),
-             "gqa": (4, 16, 4, 1024, 1024, True, None, 0, 0),
-             "window": (4, 16, 16, 1024, 1024, True, 256, 0, 0),
-             "ragged": (4, 16, 16, 1000, 1000, True, None, 0, 0),
-             "noncausal_ragged": (2, 16, 16, 1000, 777, False, None, 0, 0),
-             "hop_past": (2, 16, 16, 512, 512, True, None, 1024, 512),
-             "hop_future": (2, 16, 16, 512, 512, True, None, 0, 512)}
     # errors relative to max|ref| of each gradient: f32 another summation
     # order; bf16 P and dS enter their products in bf16 (the TPU
     # kernels' casts) over up to 1024 terms
     tol = {"f32": 1e-4, "bf16": 2e-2}
-    errs = {}
-    for name, (b, h, kvh, sq, sk, causal, window, qo, ko) in cases.items():
-        shape_q, shape_k = (b, h, sq, 64), (b, kvh, sk, 64)
+    errs = {f"d{d}": {} for d in HEAD_DIMS}
+    for d, name, case in flash_cases():
+        b, h, kvh, sq, sk, causal, window, qo, ko = case
+        shape_q, shape_k = (b, h, sq, d), (b, kvh, sk, d)
         q, g = (torch.randn(shape_q, generator=gen, device="cuda")
                 for _ in range(2))
         k, v = (torch.randn(shape_k, generator=gen, device="cuda")
@@ -430,32 +513,66 @@ def check_flash_bwd(flush):
             out = flash_backward(qt, kt, vt, gt, lse, delta, qo, ko, causal,
                                  window)
             torch.cuda.synchronize()
+            what = f"flash bwd {name} d {d} {dt}"
             for part, got, want in zip(("dq", "dk", "dv"), out, ref):
                 require(got.dtype == dtype and bool(
                     torch.isfinite(got.float()).all()),
-                    f"flash bwd {name} {dt} {part} finite, in {dtype}")
+                    f"{what} {part} finite, in {dtype}")
                 scale = float(want.abs().max())
                 err = max_err(got, want)
                 if name == "hop_future":
                     # a hop wholly in the future: every gradient is zero
                     require(scale == 0.0 and err == 0.0,
-                            f"flash bwd {name} {dt} {part} is zero")
+                            f"{what} {part} is zero")
                 rel = err / scale if scale else 0.0
-                require(rel <= tol[dt], f"flash bwd {name} {dt} {part} "
-                        f"err {err} > {tol[dt]} * {scale}")
+                require(rel <= tol[dt], f"{what} {part} err {err} > "
+                        f"{tol[dt]} * {scale}")
                 e[f"{part}_{dt}"] = err
                 e[f"{part}_{dt}_rel"] = rel
-        errs[name] = e
+        errs[f"d{d}"][name] = e
+    by_d = {}
+    for d in HEAD_DIMS:
+        t = bwd_timed(gen, d, TIMED, "train", flush, tol, errs[f"d{d}"])
+        if d in PATH_TIMED:
+            name = PATH_TIMED[d]
+            b, h, _, s, *_ = D32_CASES[name]
+            path = bwd_timed(gen, d, (b, h, s), f"{name}_timed", flush, tol,
+                             errs[f"d{d}"])
+            t = {part: {**path[part], "at_training_shape": t[part]}
+                 for part in t}
+        by_d[str(d)] = t
+    results = {part: {**by_d["64"][part],
+                      "max_abs_err": max(t[part]["max_abs_err"]
+                                         for t in by_d.values()),
+                      "max_abs_err_f32": max(t[part]["max_abs_err_f32"]
+                                             for t in by_d.values()),
+                      "by_head_dim": {k: t[part] for k, t in by_d.items()}}
+               for part in ("dq", "dkv")}
+    emit({"phase": "flash_bwd_kernels", "errors": errs, **results,
+          "library": "aten._scaled_dot_product_flash_attention_backward",
+          "library_note": "one call computing dQ, dK and dV together: "
+                          "compare with dq ms + dkv ms",
+          "dq_bit_reproducible": True, "dkv_bit_reproducible": True,
+          "tolerance_relative_to_max_ref": tol})
+    return results
 
-    # the training shape, bf16, cold L2
-    b, h, s, d = 8, 16, 1024, 64
+
+def bwd_timed(gen, d, shape, label, flush, tol, errs):
+    """dQ and dK/dV at ``shape`` (B, H, S; causal) and head dim ``d``,
+    bf16, cold L2: each against its plain version on the very operands
+    timed here (added to ``errs`` as ``label``), two launches of each
+    bit-equal, and the times of both beside the library backward and
+    the bound."""
+    from elephas_tpu_torch.ops.flash_attention import (
+        flash_dkv, flash_dkv_plain, flash_dq, flash_dq_plain,
+        flash_forward_plain)
+
+    b, h, s = shape
     q, k, v, g = (torch.randn((b, h, s, d), generator=gen, device="cuda")
                   .bfloat16() for _ in range(4))
     o, lse = flash_forward_plain(q, k, v, causal=True)
     delta = (g.float() * o.float()).sum(-1)
     args = (q, k, v, g, lse, delta)
-    # the main path's shape and dtype: each kernel against its plain
-    # version on the very operands timed below
     e = {}
     for part, got, want in zip(
             ("dq", "dk", "dv"), (flash_dq(*args), *flash_dkv(*args)),
@@ -464,11 +581,11 @@ def check_flash_bwd(flush):
         err = max_err(got, want)
         require(bool(torch.isfinite(got.float()).all())
                 and err <= tol["bf16"] * scale,
-                f"flash bwd training shape {part} err {err} > "
+                f"flash bwd {label} d {d} {part} err {err} > "
                 f"{tol['bf16']} * {scale}")
         e[f"{part}_bf16"] = err
         e[f"{part}_bf16_rel"] = err / scale
-    errs["train"] = e
+    errs[label] = e
     # no atomics: a second dQ and a second dK/dV launch on the same
     # operands give the same bits
     for part, fn in (("dq", flash_dq), ("dkv", flash_dkv)):
@@ -476,7 +593,7 @@ def check_flash_bwd(flush):
         pairs = zip(first, second) if part == "dkv" else [(first, second)]
         require(all(torch.equal(a.view(torch.int16), b_.view(torch.int16))
                     for a, b_ in pairs),
-                f"two flash_{part} launches give bit-equal outputs")
+                f"two flash_{part} launches at d {d} give bit-equal outputs")
         del first, second, pairs
     ms = {"dq": time_ms(lambda: flash_dq(*args), flush=flush),
           "dkv": time_ms(lambda: flash_dkv(*args), flush=flush)}
@@ -491,35 +608,29 @@ def check_flash_bwd(flush):
     esize = 2
     tensor = b * h * s * d * esize        # one of q, k, v, dO, dq, dk, dv
     rows = 2 * b * h * s * 4              # lse and delta, f32
+    # dQ: 3 products (S, dP, dQ), dK/dV: 4 (S, dP, dV, dK), 2*d flops
+    # per unmasked pair each
     work = {"dq": (3 * 2 * d * pairs, 5 * tensor + rows),
             "dkv": (4 * 2 * d * pairs, 6 * tensor + rows)}
     grads = {"dq": ("dq",), "dkv": ("dk", "dv")}
     results = {}
     for part, (flops, nbytes) in work.items():
-        ops_ms = flops / PEAK_BF16_FLOPS * 1e3
-        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        bound_ms, bound_by = bound(flops, nbytes)
         results[part] = {
-            "max_abs_err": max(err for e in errs.values()
-                               for key, err in e.items()
+            "shape": {"B": b, "H": h, "S": s},
+            "max_abs_err": max(err for es in errs.values()
+                               for key, err in es.items()
                                if key.split("_")[0] in grads[part]
                                and not key.endswith("_rel")),
-            "max_abs_err_f32": max(e[f"{gr}_f32"] for e in errs.values()
-                                   for gr in grads[part] if f"{gr}_f32" in e),
+            "max_abs_err_f32": max(es[f"{gr}_f32"] for es in errs.values()
+                                   for gr in grads[part]
+                                   if f"{gr}_f32" in es),
             "ms": ms[part], "plain_ms": plain_ms[part], "library_ms": lib_ms,
             "device_ms": dev_ms[part], "library_device_ms": lib_dev_ms,
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "flops": flops, "bytes": nbytes,
             "achieved_tflops": flops / (ms[part] * 1e-3) / 1e12,
             "device_tflops": flops / (dev_ms[part] * 1e-3) / 1e12}
-    emit({"phase": "flash_bwd_kernels", "errors": errs, **results,
-          "library": "aten._scaled_dot_product_flash_attention_backward",
-          "library_note": "one call computing dQ, dK and dV together: "
-                          "compare with dq ms + dkv ms",
-          "dq_bit_reproducible": True, "dkv_bit_reproducible": True,
-          "shape": {"B": b, "H": h, "S": s, "D": d, "causal": True,
-                    "dtype": "bfloat16"},
-          "tolerance_relative_to_max_ref": tol})
     return results
 
 
@@ -582,6 +693,42 @@ def run_forward(params, cfg):
           "max_abs_err_f32_flash_vs_plain": err, "tolerance": 1e-3,
           "bf16_ms": sec * 1e3, "bf16_tokens_per_s": b * t / sec,
           "launches": counts})
+    return counts
+
+
+def run_forward_d16():
+    """``forward`` of the ``examples/http_serving.py`` LM (head dim 16,
+    f32, the byte tokenizer's 259 ids; weights from seed 0) under the
+    default ``attention_impl="auto"`` on 4 sequences of its 96 tokens:
+    the d 16 flash forward must run once per layer, and the logits must
+    equal the plain attention path's."""
+    from elephas_tpu_torch.models.transformer import (TransformerConfig,
+                                                      forward, init_params)
+
+    cfg = TransformerConfig(vocab_size=259, num_layers=2, num_heads=4,
+                            d_model=64, d_ff=128, max_seq_len=96,
+                            dtype=torch.float32)
+    require(cfg.head_dim == 16, f"head dim {cfg.head_dim}")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    tokens = torch.as_tensor(np.random.default_rng(13).integers(
+        0, cfg.vocab_size, (4, cfg.max_seq_len)), device="cuda")
+    reset_counts()
+    logits = forward(params, tokens, cfg)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    plain = forward(params, tokens,
+                    dataclasses.replace(cfg, attention_impl="xla"))
+    err = max_err(logits, plain)
+    require(logits.shape == (4, cfg.max_seq_len, cfg.vocab_size)
+            and bool(torch.isfinite(logits).all()), "d 16 logits finite")
+    require(err <= 1e-4, f"d 16 flash vs plain logits err {err} <= 1e-4")
+    require(counts["flash_fwd"] == cfg.num_layers,
+            f"forward launched the d 16 flash kernel once per layer: "
+            f"{counts}")
+    emit({"phase": "forward_d16", "head_dim": cfg.head_dim, "batch": 4,
+          "seq": cfg.max_seq_len, "max_abs_err_flash_vs_plain": err,
+          "tolerance": 1e-4, "launches": counts})
     return counts
 
 
@@ -687,14 +834,15 @@ def run_serving(params, cfg):
     return counts
 
 
-def run_train_parity(params, cfg):
-    """One f32 ``lm_loss`` value and gradient at full width, B 2 x 1024,
-    through the flash kernels (f32 bodies) against the plain attention
-    path; each leaf's error relative to that leaf's max |gradient|."""
+def run_train_parity(params, cfg, shape=(2, 1024), phase="train_parity"):
+    """One f32 ``lm_loss`` value and gradient at full width, ``shape``
+    tokens, through the flash kernels (f32 bodies) against the plain
+    attention path; each leaf's error relative to that leaf's max
+    |gradient|."""
     from elephas_tpu_torch.models.transformer import lm_loss_and_grads
 
     tokens = torch.as_tensor(
-        np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 1024)),
+        np.random.default_rng(6).integers(0, cfg.vocab_size, shape),
         device="cuda")
     out = {}
     for impl in ("flash", "xla"):
@@ -709,10 +857,18 @@ def run_train_parity(params, cfg):
     require(np.isfinite(fl) and abs(fl - pl) <= 1e-4,
             f"f32 loss flash {fl} vs plain {pl}")
     require(max(rel) <= tol, f"f32 gradient rel err {max(rel)} <= {tol}")
-    emit({"phase": "train_parity", "batch": 2, "seq": 1024,
-          "loss_flash": fl, "loss_plain": pl, "loss_diff": abs(fl - pl),
+    emit({"phase": phase, "batch": shape[0], "seq": shape[1],
+          "head_dim": cfg.head_dim, "loss_flash": fl, "loss_plain": pl, "loss_diff": abs(fl - pl),
           "max_grad_rel_err": max(rel), "leaves": len(rel),
           "tolerance": {"loss_abs": 1e-4, "grad_rel_to_leaf_max": tol}})
+
+
+def zipf_tokens(rng, vocab, shape):
+    """Token ids with Zipf-distributed frequencies (exponent 1.1), so an
+    LM's loss has somewhere to go."""
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    probs = ranks ** -1.1
+    return rng.choice(vocab, size=shape, p=probs / probs.sum())
 
 
 def flops_per_token(cfg, seq: int) -> float:
@@ -739,10 +895,7 @@ def run_train(cfg):
 
     batch, seq, rows, epochs = 8, 1024, 32, 2
     rng = np.random.default_rng(7)
-    ranks = np.arange(1, cfg.vocab_size + 1, dtype=np.float64)
-    probs = ranks ** -1.1
-    tokens = rng.choice(cfg.vocab_size, size=(rows, seq),
-                        p=probs / probs.sum())
+    tokens = zipf_tokens(rng, cfg.vocab_size, (rows, seq))
     model = TransformerModel(cfg, device="cuda").compile(
         AdamW(3e-4, epsilon=1e-8, weight_decay=1e-4, decay_1d=True), seed=0)
     torch.cuda.reset_peak_memory_stats()
@@ -1011,10 +1164,8 @@ def run_tpu_model_lm(cfg):
     from elephas_tpu_torch.models.optimizers import AdamW
     from elephas_tpu_torch.models.transformer_model import TransformerModel
 
-    rng = np.random.default_rng(11)
-    ranks = np.arange(1, cfg.vocab_size + 1, dtype=np.float64)
-    probs = ranks ** -1.1
-    tokens = rng.choice(cfg.vocab_size, size=(18, 1024), p=probs / probs.sum())
+    tokens = zipf_tokens(np.random.default_rng(11), cfg.vocab_size,
+                         (18, 1024))
     model = TransformerModel(cfg, device="cuda").compile(
         AdamW(3e-4, epsilon=1e-8, weight_decay=1e-4, decay_1d=True), seed=0)
     tpu_model = TPUModel(model, mode="synchronous", batch_size=8)
@@ -1047,6 +1198,86 @@ def run_tpu_model_lm(cfg):
     emit({"phase": "tpu_model_lm", "batch": 8, "seq": 1024, "steps": steps,
           "history": hist, "fit_s": fit_s, "evaluate_loss": loss,
           "predict_cross_entropy": ce, "launches": counts})
+    return counts
+
+
+def run_tpu_model_lm_d32():
+    """``TPUModel`` over ``TransformerModel`` at the
+    ``examples/transformer_tpumodel.py`` config (vocab 512, 4 layers, 8
+    heads, d_model 256, d_ff 512, seq 128: head dim 32), bf16 over f32
+    weights, ``Adam(3e-4)``, seed 0, under the default
+    ``attention_impl="auto"``: ``fit`` on 256 seeded Zipf rows x 128 for
+    up to 5 epochs at batch 16 with a validation split of 0.1 and
+    ``EarlyStopping(val_loss, patience 2)``, then ``predict`` and
+    ``evaluate`` on 32 rows. The d 32 flash kernels must carry every
+    forward and step; the loss must fall; evaluate must equal the
+    cross-entropy of predict's logits. Then one f32 gradient at this
+    config through the kernels against the plain path."""
+    from elephas_tpu_torch import Adam, TPUModel
+    from elephas_tpu_torch.models import EarlyStopping
+    from elephas_tpu_torch.models.transformer import (TRANSFORMER_TPUMODEL,
+                                                      TransformerConfig,
+                                                      init_params)
+    from elephas_tpu_torch.models.transformer_model import TransformerModel
+
+    cfg = TransformerConfig(**TRANSFORMER_TPUMODEL)
+    require(cfg.head_dim == 32, f"head dim {cfg.head_dim}")
+    rows, seq, batch, epochs, val = 256, cfg.max_seq_len, 16, 5, 0.1
+    tokens = zipf_tokens(np.random.default_rng(12), cfg.vocab_size,
+                         (rows, seq))
+    model = TransformerModel(cfg, device="cuda").compile(Adam(3e-4), seed=0)
+    tpu_model = TPUModel(model, mode="synchronous")
+    stop = EarlyStopping(monitor="val_loss", patience=2)
+    reset_counts()
+    t0 = time.perf_counter()
+    tpu_model.fit(tokens, epochs=epochs, batch_size=batch,
+                  validation_split=val, callbacks=[stop])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_counts = read_counts()
+    probe = tokens[:32]
+    reset_counts()
+    logits = tpu_model.predict(probe)
+    loss = tpu_model.evaluate(probe, None)
+    torch.cuda.synchronize()
+    infer_counts = read_counts()
+    hist = tpu_model.training_histories[-1]
+    losses = hist["loss"]
+    require(all(np.isfinite(losses + hist["val_loss"])),
+            f"finite LM losses {hist}")
+    require(losses[-1] < losses[0], f"training loss falls: {losses}")
+    require(logits.shape == (32, seq, cfg.vocab_size)
+            and np.isfinite(logits).all(), "predict logits finite")
+    lg = torch.as_tensor(logits[:, :-1])
+    ce = float(-(torch.log_softmax(lg, -1).gather(
+        -1, torch.as_tensor(probe[:, 1:])[..., None])).mean())
+    require(np.isfinite(loss) and abs(loss - ce) <= 1e-3,
+            f"evaluate {loss} equals predict's cross-entropy {ce}")
+    ran = len(losses)
+    steps = ran * ((rows - int(round(rows * val))) // batch)
+    layers = cfg.num_layers
+    for name in ("flash_dq", "flash_dkv"):
+        require(fit_counts[name] == layers * steps,
+                f"{name} launched once per layer and step: {fit_counts}")
+    # forward passes: every train step and each epoch's validation loss
+    require(fit_counts["flash_fwd"] == layers * (steps + ran),
+            f"flash_fwd launched once per layer and forward: {fit_counts}")
+    # one predict and one evaluate batch (TPUModel's batch size, 32)
+    require(infer_counts["flash_fwd"] == 2 * layers,
+            f"predict and evaluate launched flash_fwd: {infer_counts}")
+    counts = {k: fit_counts[k] + infer_counts[k] for k in fit_counts}
+    emit({"phase": "tpu_model_lm_d32", "config": TRANSFORMER_TPUMODEL,
+          "head_dim": cfg.head_dim, "rows": rows, "batch": batch,
+          "epochs_run": ran, "stopped_epoch": stop.stopped_epoch,
+          "steps": steps, "history": hist, "fit_s": fit_s,
+          "evaluate_loss": loss, "predict_cross_entropy": ce,
+          "launches": counts, "launches_fit": fit_counts,
+          "launches_predict_evaluate": infer_counts})
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    run_train_parity(params, cfg, shape=(batch, seq),
+                     phase="train_parity_d32")
+    return counts
 
 
 def main() -> int:
@@ -1098,7 +1329,9 @@ def main() -> int:
     data = (mnist_like(60000, seed=0), mnist_like(10000, seed=1))
     run_keras_sync_step(data)
     run_keras_sync_average(data)
-    run_tpu_model_lm(cfg)
+    lm_counts = run_tpu_model_lm(cfg)
+    d32_counts = run_tpu_model_lm_d32()
+    d16_counts = run_forward_d16()
 
     # max_abs_err: the largest error of any comparison this run made for
     # the kernel, f32 and bf16, at the main paths' shapes included; the
@@ -1106,6 +1339,10 @@ def main() -> int:
     # (device_ms, library_device_ms)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "device_ms", "library_device_ms")
+    # launches on each path, each path's counts set to 0 just before it
+    paths = {"forward": fwd_counts, "serving": srv_counts,
+             "train": train_counts, "tpu_model_lm": lm_counts,
+             "tpu_model_lm_d32": d32_counts, "forward_d16": d16_counts}
     kernels = [
         {"name": "paged_decode", "route": "cuda",
          "source": "elephas_tpu_torch/csrc/paged_decode.cu",
@@ -1124,6 +1361,25 @@ def main() -> int:
            **{k: bwd[part][k] for k in keys}}
           for part, line in (("dq", 196), ("dkv", 243))),
     ]
+    for entry, results in zip(kernels, (paged, flash, bwd["dq"],
+                                        bwd["dkv"])):
+        name = entry["name"]
+        entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}
+        # each head dim's errors and times at the shape named beside them
+        # (flash d 32 also at the training shape), and its instance's
+        # launches on the path that runs it: d 64 the flagship's (as
+        # above), d 32 tpu_model_lm_d32, d 16 forward_d16
+        launches = {"16": d16_counts[name], "32": d32_counts[name],
+                    "64": entry["launches"]}
+        entry["by_head_dim"] = {
+            d: {**{k: t[k] for k in (*keys, "shape") if k in t},
+                "launches": launches[d],
+                **({"at_training_shape": {
+                    k: t["at_training_shape"][k]
+                    for k in (*keys, "shape")
+                    if k in t["at_training_shape"]}}
+                   if "at_training_shape" in t else {})}
+            for d, t in results["by_head_dim"].items()}
     print(nvidia_smi(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -25,21 +25,25 @@
 //   group's query heads and, for each, over the q tiles that can see
 //   this k tile (the kv-major grid of `_bwd_calls`), keeping dK and dV
 //   in registers, written once.
-// Bodies:
-// - dK/dV, bf16 (the working type, head_dim 64): CTAs of the first k
-//   tiles (the most live q tiles under causal masking) scheduled first.
-//   One producer warp TMA-loads K and V once and then, per live q tile,
-//   Q and dO into a 6-stage ring of shared memory guarded by full/empty
+// Every body is instantiated at head_dim 16, 32 and 64, the head dims
+// of the repo's configurations (hopper.cuh `with_head_dim`). Bodies:
+// - dK/dV, bf16 (the working type): CTAs of the first k tiles (the most
+//   live q tiles under causal masking) scheduled first. One producer
+//   warp TMA-loads K and V once and then, per live q tile, Q and dO
+//   into a 6-stage ring of shared memory guarded by full/empty
 //   mbarriers; its lanes stage that tile's lse (times log2 e) and delta
 //   beside them (a 1-D bulk copy would need 16-byte aligned rows, which
-//   a ragged Sq does not give). Two consumer warpgroups of 64 key rows
-//   compute S^T = K Q^T and dP^T = V dO^T with wgmma m64n64k16 from
-//   shared memory, form P = exp2(S^T scale log2 e - lse log2 e) and dS
-//   = P (dP - delta) scale on the accumulators in registers (the
-//   per-element mask only on tiles that hold a masked pair), pack both
-//   to bf16 in registers (the TPU kernels' `p.astype(do.dtype)` and
+//   a ragged Sq does not give). A tile row is the head's 2*D bytes in
+//   the swizzle of that width (128, 64 or 32 bytes; hopper.cuh `Rows`).
+//   Two consumer warpgroups of 64 key rows compute S^T = K Q^T and dP^T
+//   = V dO^T with wgmma m64n64k16 (D/16 k steps) from shared memory,
+//   form P = exp2(S^T scale log2 e - lse log2 e) and dS = P (dP -
+//   delta) scale on the accumulators in registers (the per-element mask
+//   only on tiles that hold a masked pair), pack both to bf16 in
+//   registers (the TPU kernels' `p.astype(do.dtype)` and
 //   `ds.astype(q.dtype)`) and feed them as the register A operand of dV
-//   += P^T dO and dK += dS^T Q (dO and Q MN-major from the ring).
+//   += P^T dO and dK += dS^T Q (m64nDk16, dO and Q MN-major from the
+//   ring).
 // - dQ, bf16: the same shape turned q-major. One CTA per (batch*head,
 //   128-row q tile), the last q tiles (the most live K/V tiles under
 //   causal masking) scheduled first. The producer warp TMA-loads Q and
@@ -50,10 +54,11 @@
 //   S = Q K^T and dP = dO V^T with wgmma m64n64k16 from shared memory
 //   (P formed from S while dP is still in flight), dS = P (dP - delta)
 //   scale on the accumulators, packed to bf16 (`ds.astype(k.dtype)`)
-//   as the register A operand of dQ += dS K (K MN-major from the same
-//   ring slot, with the transpose bit). A warpgroup whose rows meet no
-//   key of a tile skips its products. dQ leaves through the warpgroup's
-//   Q rows in shared memory in 16-byte stores, rows past Sq dropped.
+//   as the register A operand of dQ += dS K (m64nDk16, K MN-major from
+//   the same ring slot, with the transpose bit). A warpgroup whose rows
+//   meet no key of a tile skips its products. dQ leaves through the
+//   warpgroup's Q rows in shared memory in 16-byte stores, rows past Sq
+//   dropped.
 // - f32 (both kernels): 256 threads on the CUDA cores, each holding a
 //   4x4 block of the 64x64 score tile and a 4x(D/16) block of every
 //   accumulator.
@@ -66,7 +71,9 @@
 // bytes at 3.35 TB/s). Both bodies run their products in two dependent
 // steps per tile within a warpgroup (S and dP, then dQ or dV and dK),
 // with the elementwise step between them on the CUDA cores and MUFU;
-// the second warpgroup and the ring's prefetch overlap them.
+// the second warpgroup and the ring's prefetch overlap them. At head_dim
+// 32 and 16 the products shrink with D while the elementwise step per
+// (q, k) pair does not, so it takes a larger share of each tile.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -346,14 +353,16 @@ constexpr int KROWS = 128;          // key rows per CTA: 2 warpgroups x 64
 constexpr int QROWS = 64;           // query rows per ring stage
 constexpr int STAGES = 6;           // Q/dO tiles in flight
 constexpr int THREADS = 2 * 128 + 32;  // 2 consumer warpgroups + producer
-constexpr uint32_t KV_TILE = KROWS * kRowBytes;   // 16 KB
-constexpr uint32_t Q_TILE = QROWS * kRowBytes;    // 8 KB
 
+template <int D>
 struct Layout {
-  // K, V (16 KB each), the Q ring, the dO ring, the lse/delta ring (64
-  // + 64 f32 per stage), then the barriers: kvfull, full[STAGES],
-  // empty[STAGES]; +1024 for alignment. 131 KB; no setmaxnreg (see
-  // flash_fwd.cu)
+  // K, V (16 KB each at D 64), the Q ring, the dO ring (8 KB tiles at D
+  // 64), the lse/delta ring (64 + 64 f32 per stage), then the barriers:
+  // kvfull, full[STAGES], empty[STAGES]; +1024 for alignment. 131 KB at
+  // D 64, 68 KB at D 32, 36 KB at D 16 (the stage count stays, as in
+  // flash_fwd.cu); no setmaxnreg (see flash_fwd.cu)
+  static constexpr uint32_t row = Rows<D>::bytes;
+  static constexpr uint32_t KV_TILE = KROWS * row, Q_TILE = QROWS * row;
   static constexpr uint32_t k = 0, v = KV_TILE, q = 2 * KV_TILE,
                             dout = q + STAGES * Q_TILE,
                             stats = dout + STAGES * Q_TILE,
@@ -361,6 +370,7 @@ struct Layout {
   static constexpr size_t bytes = bars + (1 + 2 * STAGES) * 8 + 1024;
 };
 
+template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
@@ -372,14 +382,16 @@ __global__ void __launch_bounds__(THREADS, 1)
                            int BKV, int H, int KVH, int Sq, int Sk,
                            int q_offset, int k_offset, int causal,
                            int window, float scale) {
+  using L = Layout<D>;
+  constexpr uint32_t KV_TILE = L::KV_TILE, Q_TILE = L::Q_TILE;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align1024(smem_raw);
-  uint8_t* Ks = sm + Layout::k;
-  uint8_t* Vs = sm + Layout::v;
-  uint8_t* Qs = sm + Layout::q;
-  uint8_t* dOs = sm + Layout::dout;
-  float* stats = reinterpret_cast<float*>(sm + Layout::stats);
-  uint64_t* kvfull = reinterpret_cast<uint64_t*>(sm + Layout::bars);
+  uint8_t* Ks = sm + L::k;
+  uint8_t* Vs = sm + L::v;
+  uint8_t* Qs = sm + L::q;
+  uint8_t* dOs = sm + L::dout;
+  float* stats = reinterpret_cast<float*>(sm + L::stats);
+  uint64_t* kvfull = reinterpret_cast<uint64_t*>(sm + L::bars);
   uint64_t* full = kvfull + 1;
   uint64_t* empty = full + STAGES;
 
@@ -450,12 +462,12 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int wg = warp / 4;
     const int wk0 = k0 + 64 * wg;
     const int krow = wk0 + 16 * (warp % 4) + lane / 4;  // and krow + 8
-    uint8_t* Kw = Ks + wg * 64 * kRowBytes;
-    uint8_t* Vw = Vs + wg * 64 * kRowBytes;
-    const uint64_t kdesc = desc_sw128(Kw), vdesc = desc_sw128(Vw);
-    float dk_acc[32], dv_acc[32];
+    uint8_t* Kw = Ks + wg * 64 * L::row;
+    uint8_t* Vw = Vs + wg * 64 * L::row;
+    const uint64_t kdesc = desc_sw<D>(Kw), vdesc = desc_sw<D>(Vw);
+    float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
     mbar_wait(kvfull, 0);
     int s = 0;
@@ -467,16 +479,17 @@ __global__ void __launch_bounds__(THREADS, 1)
                        k_offset, causal, window))
           continue;
         mbar_wait(&full[s], phase);
-        const uint64_t qdesc = desc_sw128(Qs + s * Q_TILE);
-        const uint64_t dodesc = desc_sw128(dOs + s * Q_TILE);
-        // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries each
+        const uint64_t qdesc = desc_sw<D>(Qs + s * Q_TILE);
+        const uint64_t dodesc = desc_sw<D>(dOs + s * Q_TILE);
+        // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries each, D/16
+        // k16 steps over the head dim
         float st[32], dpt[32];
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
+        for (int kk = 0; kk < D / 16; ++kk)
           wgmma_ss_n64(st, kdesc + 2 * kk, qdesc + 2 * kk, kk);
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
+        for (int kk = 0; kk < D / 16; ++kk)
           wgmma_ss_n64(dpt, vdesc + 2 * kk, dodesc + 2 * kk, kk);
         wgmma_commit();
         wgmma_wait<0>();
@@ -530,10 +543,10 @@ __global__ void __launch_bounds__(THREADS, 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs_n64_tb(dv_acc, pa[kk], dodesc + 128 * kk);
+          wgmma_rs_tb<D>(dv_acc, pa[kk], dodesc + L::row * kk);
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs_n64_tb(dk_acc, dsa[kk], qdesc + 128 * kk);
+          wgmma_rs_tb<D>(dk_acc, dsa[kk], qdesc + L::row * kk);
         wgmma_commit();
         wgmma_wait<0>();
         fence_operands(dk_acc);
@@ -547,15 +560,16 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
     }
     // dK and dV through this warpgroup's K and V rows to 16-byte stores
-    acc_to_tile(dk_acc, 1.f, 1.f, Kw);
-    acc_to_tile(dv_acc, 1.f, 1.f, Vw);
+    acc_to_tile<D>(dk_acc, 1.f, 1.f, Kw);
+    acc_to_tile<D>(dv_acc, 1.f, 1.f, Vw);
     wg_barrier(1 + wg);
-    const size_t base = ((size_t)bkv * Sk + wk0) * 64;
-    tile_to_rows(Kw, dk + base, Sk - wk0);
-    tile_to_rows(Vw, dv + base, Sk - wk0);
+    const size_t base = ((size_t)bkv * Sk + wk0) * D;
+    tile_to_rows<D>(Kw, dk + base, Sk - wk0);
+    tile_to_rows<D>(Vw, dv + base, Sk - wk0);
   }
 }
 
+template <int D>
 cudaError_t launch(const Args& a) {
   // with Sq == 0 no Q/dO tile is loaded; the maps still need an extent
   const void* qp = a.Sq > 0 ? a.q : a.k;
@@ -563,19 +577,19 @@ cudaError_t launch(const Args& a) {
   const int qrows = a.Sq > 0 ? a.Sq : a.Sk;
   const int qslabs = a.Sq > 0 ? a.B * a.H : a.B * a.KVH;
   CUtensorMap tq, tk, tv, tdo;
-  cudaError_t err = encode_rows_map(&tq, qp, qrows, qslabs, QROWS);
+  cudaError_t err = encode_rows_map<D>(&tq, qp, qrows, qslabs, QROWS);
   if (err == cudaSuccess)
-    err = encode_rows_map(&tdo, gp, qrows, qslabs, QROWS);
+    err = encode_rows_map<D>(&tdo, gp, qrows, qslabs, QROWS);
   if (err == cudaSuccess)
-    err = encode_rows_map(&tk, a.k, a.Sk, a.B * a.KVH, KROWS);
+    err = encode_rows_map<D>(&tk, a.k, a.Sk, a.B * a.KVH, KROWS);
   if (err == cudaSuccess)
-    err = encode_rows_map(&tv, a.v, a.Sk, a.B * a.KVH, KROWS);
+    err = encode_rows_map<D>(&tv, a.v, a.Sk, a.B * a.KVH, KROWS);
   if (err != cudaSuccess) return err;
-  constexpr size_t smem = Layout::bytes;
-  err = allow_smem(flash_dkv_wgmma_kernel, smem);
+  constexpr size_t smem = Layout<D>::bytes;
+  err = allow_smem(flash_dkv_wgmma_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   const int grid = (a.Sk + KROWS - 1) / KROWS * (a.B * a.KVH);
-  flash_dkv_wgmma_kernel<<<grid, THREADS, smem, a.stream>>>(
+  flash_dkv_wgmma_kernel<D><<<grid, THREADS, smem, a.stream>>>(
       tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dk),
       static_cast<bf16*>(a.dv), a.B * a.KVH, a.H, a.KVH, a.Sq, a.Sk,
       a.q_offset, a.k_offset, a.causal, a.window, a.scale);
@@ -591,18 +605,21 @@ constexpr int QROWS = 128;          // query rows per CTA: 2 warpgroups x 64
 constexpr int KROWS = 64;           // key rows per ring stage
 constexpr int STAGES = 6;           // K/V tiles in flight
 constexpr int THREADS = 2 * 128 + 32;  // 2 consumer warpgroups + producer
-constexpr uint32_t Q_TILE = QROWS * kRowBytes;    // 16 KB
-constexpr uint32_t KV_TILE = KROWS * kRowBytes;   // 8 KB
 
+template <int D>
 struct Layout {
-  // Q, dO (16 KB each), the K ring, the V ring, then the barriers:
-  // qfull, full[STAGES], empty[STAGES]; +1024 for alignment. 129 KB
+  // Q, dO (16 KB each at D 64), the K ring, the V ring (8 KB tiles at D
+  // 64), then the barriers: qfull, full[STAGES], empty[STAGES]; +1024
+  // for alignment. 129 KB at D 64, 65 KB at D 32, 33 KB at D 16
+  static constexpr uint32_t row = Rows<D>::bytes;
+  static constexpr uint32_t Q_TILE = QROWS * row, KV_TILE = KROWS * row;
   static constexpr uint32_t q = 0, dout = Q_TILE, k = 2 * Q_TILE,
                             v = k + STAGES * KV_TILE,
                             bars = v + STAGES * KV_TILE;
   static constexpr size_t bytes = bars + (1 + 2 * STAGES) * 8 + 1024;
 };
 
+template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -613,13 +630,15 @@ __global__ void __launch_bounds__(THREADS, 1)
                           bf16* __restrict__ dq, int BH, int H, int KVH,
                           int Sq, int Sk, int q_offset, int k_offset,
                           int causal, int window, float scale) {
+  using L = Layout<D>;
+  constexpr uint32_t Q_TILE = L::Q_TILE, KV_TILE = L::KV_TILE;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align1024(smem_raw);
-  uint8_t* Qs = sm + Layout::q;
-  uint8_t* dOs = sm + Layout::dout;
-  uint8_t* Ks = sm + Layout::k;
-  uint8_t* Vs = sm + Layout::v;
-  uint64_t* qfull = reinterpret_cast<uint64_t*>(sm + Layout::bars);
+  uint8_t* Qs = sm + L::q;
+  uint8_t* dOs = sm + L::dout;
+  uint8_t* Ks = sm + L::k;
+  uint8_t* Vs = sm + L::v;
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(sm + L::bars);
   uint64_t* full = qfull + 1;
   uint64_t* empty = full + STAGES;
 
@@ -675,9 +694,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int wq0 = q0 + 64 * wg;
     const int wq_last = min(wq0 + 63, Sq - 1);
     const int qrow = wq0 + 16 * (warp % 4) + lane / 4;  // and qrow + 8
-    uint8_t* Qw = Qs + wg * 64 * kRowBytes;
-    const uint64_t qdesc = desc_sw128(Qw);
-    const uint64_t dodesc = desc_sw128(dOs + wg * 64 * kRowBytes);
+    uint8_t* Qw = Qs + wg * 64 * L::row;
+    const uint64_t qdesc = desc_sw<D>(Qw);
+    const uint64_t dodesc = desc_sw<D>(dOs + wg * 64 * L::row);
     // this thread's two rows' lse * log2(e) and delta (0 past Sq: those
     // rows are masked)
     float lse2[2], dl[2];
@@ -689,9 +708,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       dl[r] = in ? delta[(size_t)bh * Sq + row] : 0.f;
     }
     const float scale_log2 = scale * kLog2e;
-    float dq_acc[32];
+    float dq_acc[D / 2];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dq_acc[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
 
     mbar_wait(qfull, 0);
     int s = 0;
@@ -705,18 +724,19 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_wait(&full[s], phase);
       if (wq0 < Sq && rows_meet(wq0, wq_last, k0, k_last, q_offset,
                                 k_offset, causal, window)) {
-        const uint64_t kdesc = desc_sw128(Ks + s * KV_TILE);
-        const uint64_t vdesc = desc_sw128(Vs + s * KV_TILE);
-        // S = Q K^T and dP = dO V^T (64 queries x 64 keys each) as two
-        // groups, so P is formed while dP is still in flight
+        const uint64_t kdesc = desc_sw<D>(Ks + s * KV_TILE);
+        const uint64_t vdesc = desc_sw<D>(Vs + s * KV_TILE);
+        // S = Q K^T and dP = dO V^T (64 queries x 64 keys each, D/16 k16
+        // steps) as two groups, so P is formed while dP is still in
+        // flight
         float st[32], dpt[32];
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
+        for (int kk = 0; kk < D / 16; ++kk)
           wgmma_ss_n64(st, qdesc + 2 * kk, kdesc + 2 * kk, kk);
         wgmma_commit();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
+        for (int kk = 0; kk < D / 16; ++kk)
           wgmma_ss_n64(dpt, dodesc + 2 * kk, vdesc + 2 * kk, kk);
         wgmma_commit();
         wgmma_wait<1>();
@@ -760,7 +780,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs_n64_tb(dq_acc, dsa[kk], kdesc + 128 * kk);
+          wgmma_rs_tb<D>(dq_acc, dsa[kk], kdesc + L::row * kk);
         wgmma_commit();
         wgmma_wait<0>();
         fence_operands(dq_acc);
@@ -774,12 +794,13 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     // dQ through this warpgroup's Q rows (read by nothing after its last
     // product) to 16-byte stores
-    acc_to_tile(dq_acc, 1.f, 1.f, Qw);
+    acc_to_tile<D>(dq_acc, 1.f, 1.f, Qw);
     wg_barrier(1 + wg);
-    tile_to_rows(Qw, dq + ((size_t)bh * Sq + wq0) * 64, Sq - wq0);
+    tile_to_rows<D>(Qw, dq + ((size_t)bh * Sq + wq0) * D, Sq - wq0);
   }
 }
 
+template <int D>
 cudaError_t launch(const Args& a) {
   // with Sk == 0 no K/V tile is loaded; the maps still need an extent
   const void* kp = a.Sk > 0 ? a.k : a.q;
@@ -787,20 +808,20 @@ cudaError_t launch(const Args& a) {
   const int krows = a.Sk > 0 ? a.Sk : a.Sq;
   const int kslabs = a.Sk > 0 ? a.B * a.KVH : a.B * a.H;
   CUtensorMap tq, tk, tv, tdo;
-  cudaError_t err = encode_rows_map(&tq, a.q, a.Sq, a.B * a.H, QROWS);
+  cudaError_t err = encode_rows_map<D>(&tq, a.q, a.Sq, a.B * a.H, QROWS);
   if (err == cudaSuccess)
-    err = encode_rows_map(&tdo, a.dout, a.Sq, a.B * a.H, QROWS);
+    err = encode_rows_map<D>(&tdo, a.dout, a.Sq, a.B * a.H, QROWS);
   if (err == cudaSuccess)
-    err = encode_rows_map(&tk, kp, krows, kslabs, KROWS);
+    err = encode_rows_map<D>(&tk, kp, krows, kslabs, KROWS);
   if (err == cudaSuccess)
-    err = encode_rows_map(&tv, vp, krows, kslabs, KROWS);
+    err = encode_rows_map<D>(&tv, vp, krows, kslabs, KROWS);
   if (err != cudaSuccess) return err;
-  constexpr size_t smem = Layout::bytes;
-  err = allow_smem(flash_dq_wgmma_kernel, smem);
+  constexpr size_t smem = Layout<D>::bytes;
+  err = allow_smem(flash_dq_wgmma_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   const int BH = a.B * a.H;
   const int grid = (a.Sq + QROWS - 1) / QROWS * BH;
-  flash_dq_wgmma_kernel<<<grid, THREADS, smem, a.stream>>>(
+  flash_dq_wgmma_kernel<D><<<grid, THREADS, smem, a.stream>>>(
       tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dq), BH, a.H,
       a.KVH, a.Sq, a.Sk, a.q_offset, a.k_offset, a.causal, a.window,
       a.scale);
@@ -811,10 +832,7 @@ cudaError_t launch(const Args& a) {
 
 template <int D>
 cudaError_t launch_dq(const Args& a, bool bf16_body) {
-  if (bf16_body) {
-    static_assert(D == 64, "the bf16 body takes 128-byte rows: head_dim 64");
-    return dq::launch(a);
-  }
+  if (bf16_body) return dq::launch<D>(a);
   const dim3 grid((a.Sq + BQ - 1) / BQ, a.B * a.H);
   constexpr size_t smem = F32Layout<D>::bytes;
   auto kernel = flash_dq_f32_kernel<D>;
@@ -830,10 +848,7 @@ cudaError_t launch_dq(const Args& a, bool bf16_body) {
 
 template <int D>
 cudaError_t launch_dkv(const Args& a, bool bf16_body) {
-  if (bf16_body) {
-    static_assert(D == 64, "the bf16 body takes 128-byte rows: head_dim 64");
-    return dkv::launch(a);
-  }
+  if (bf16_body) return dkv::launch<D>(a);
   const dim3 grid((a.Sk + BK - 1) / BK, a.B * a.KVH);
   constexpr size_t smem = F32Layout<D>::bytes;
   auto kernel = flash_dkv_f32_kernel<D>;
@@ -864,8 +879,8 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 // q, dout (B, H, Sq, D); k, v (B, KVH, Sk, D); lse, delta (B, H, Sq) f32;
 // dq like q; dk, dv like k. All contiguous, q/k/v/dout and the outputs
 // of one type (is_bf16 ? bf16 : f32; bf16 pointers 16-byte aligned).
-// window <= 0 means no sliding window. Only head_dim 64 is instantiated
-// (the checked-in configs' head dim). Each returns cudaGetLastError()
+// window <= 0 means no sliding window. head_dim D is 16, 32 or 64; any
+// other returns cudaErrorInvalidValue. Each returns cudaGetLastError()
 // after its launch.
 extern "C" int etpu_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
@@ -875,11 +890,13 @@ extern "C" int etpu_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  int window, float scale, int is_bf16,
                                  void* stream) {
   if (B * H == 0 || Sq == 0) return cudaSuccess;
-  if (KVH <= 0 || H % KVH || D != 64) return cudaErrorInvalidValue;
+  if (KVH <= 0 || H % KVH) return cudaErrorInvalidValue;
   const Args a = make_args(q, k, v, dout, lse, delta, dq, nullptr, nullptr,
                            B, H, KVH, Sq, Sk, q_offset, k_offset, causal,
                            window, scale, stream);
-  return launch_dq<64>(a, is_bf16 != 0);
+  return etpu::with_head_dim(D, [&](auto d) {
+    return launch_dq<decltype(d)::value>(a, is_bf16 != 0);
+  });
 }
 
 extern "C" int etpu_flash_bwd_dkv(const void* q, const void* k,
@@ -890,9 +907,11 @@ extern "C" int etpu_flash_bwd_dkv(const void* q, const void* k,
                                   int k_offset, int causal, int window,
                                   float scale, int is_bf16, void* stream) {
   if (B * KVH == 0 || Sk == 0) return cudaSuccess;
-  if (KVH <= 0 || H % KVH || D != 64) return cudaErrorInvalidValue;
+  if (KVH <= 0 || H % KVH) return cudaErrorInvalidValue;
   const Args a = make_args(q, k, v, dout, lse, delta, nullptr, dk, dv, B, H,
                            KVH, Sq, Sk, q_offset, k_offset, causal, window,
                            scale, stream);
-  return launch_dkv<64>(a, is_bf16 != 0);
+  return etpu::with_head_dim(D, [&](auto d) {
+    return launch_dkv<decltype(d)::value>(a, is_bf16 != 0);
+  });
 }

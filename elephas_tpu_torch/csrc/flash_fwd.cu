@@ -11,31 +11,38 @@
 // Design. The TPU's sequential kv grid axis becomes a loop inside the
 // CTA over K/V tiles; tiles wholly above the causal diagonal or below
 // the window are skipped before any load. Ragged edges are masked in
-// the kernel, never padded in device memory. Two bodies:
+// the kernel, never padded in device memory. Both bodies are
+// instantiated at head_dim 16, 32 and 64, the head dims of the repo's
+// configurations (hopper.cuh `with_head_dim`). Two bodies:
 //
-// - bf16 (the working type, head_dim 64): one CTA per (batch*head,
+// - bf16 (the working type): one CTA per (batch*head,
 //   128-row q tile), CTAs of the last q tiles (the most live tiles under
 //   causal masking) scheduled first. One producer warp issues TMA loads:
 //   Q once, then the live 128-row K and V tiles into a 4-stage ring of
 //   shared memory guarded by full/empty mbarriers; TMA zero-fills rows
-//   past each head's length. Two consumer warpgroups of 64 query rows
-//   compute S = Q K^T with wgmma
-//   m64n128k16 from shared memory, run the online softmax on the wgmma
-//   accumulator in registers (each row on the 4 threads of a quad; one
-//   FMA and exp2 per score; the per-element mask only on tiles that
-//   hold a masked pair), pack P to bf16 in registers (the TPU kernel's
-//   `p.astype(v.dtype)`) and feed it as the register A operand of O +=
-//   P V (m64n64k16, V MN-major). O stays in registers across the loop,
-//   and leaves through a swizzled shared tile in 16-byte stores.
+//   past each head's length. A tile row is the head's 2*D bytes in the
+//   swizzle of that width (128, 64 or 32 bytes; hopper.cuh `Rows`), so
+//   a smaller head dim shrinks the tiles and the products and nothing
+//   else. Two consumer warpgroups of 64 query rows compute S = Q K^T
+//   with wgmma m64n128k16 (D/16 k steps) from shared memory, run the
+//   online softmax on the wgmma accumulator in registers (each row on
+//   the 4 threads of a quad; one FMA and exp2 per score; the
+//   per-element mask only on tiles that hold a masked pair), pack P to
+//   bf16 in registers (the TPU kernel's `p.astype(v.dtype)`) and feed
+//   it as the register A operand of O += P V (m64nDk16, V MN-major). O
+//   stays in registers across the loop, and leaves through a swizzled
+//   shared tile in 16-byte stores.
 // - f32: 256 threads on the CUDA cores, each holding a 4x4 block of the
 //   64x64 score tile and a 4x(D/16) block of O in registers; row max and
 //   sum reduce over the 16 lanes sharing a row with warp shuffles.
 //
-// What bounds it on the H100. At head_dim 64 a (q, k) pair costs 4*D
-// flops and each operand row is read once per tile, so the loop is
-// bound by operations (989 TFLOP/s in bf16). Within one consumer
-// warpgroup the two products and the softmax run in sequence; the
-// second warpgroup and the ring's prefetch are what overlap them.
+// What bounds it on the H100. A (q, k) pair costs 4*D flops and each
+// operand row is read once per tile, so at head_dim 64 the loop is
+// bound by operations (989 TFLOP/s in bf16). At 32 and 16 the products
+// shrink with D while the softmax's FMA and exp2 per score do not, so
+// the CUDA cores and MUFU take a larger share of each tile. Within one
+// consumer warpgroup the two products and the softmax run in sequence;
+// the second warpgroup and the ring's prefetch are what overlap them.
 #include <type_traits>
 
 #include "common.cuh"
@@ -57,8 +64,10 @@ constexpr size_t flash_smem_bytes() {
          (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
 }
 
+// The launch bounds ask for one resident CTA per SM, no more: under
+// the default ptxas held the D 32 instance to 64 registers and spilled.
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
                      float* __restrict__ lse, int H, int KVH, int Sq, int Sk,
@@ -207,18 +216,22 @@ constexpr int WQ = 128;             // query rows per CTA: 2 warpgroups x 64
 constexpr int WK = 128;             // key rows per K/V tile
 constexpr int STAGES = 4;           // K/V tiles in flight
 constexpr int WTHREADS = 2 * 128 + 32;  // 2 consumer warpgroups + producer
-constexpr uint32_t TILE = WK * kRowBytes;  // one K or V tile, 16 KB
 
+template <int D>
 struct WgmmaLayout {
-  // Q (16 KB), the K ring, the V ring, then the barriers: qfull,
-  // kfull[STAGES], vfull[STAGES], empty[STAGES]; +1024 for alignment.
-  // 144 KB. No setmaxnreg: it only moves registers within the CTA's
-  // launch allocation, which one producer warp barely feeds ((R - 40) x
-  // 32 for 256 consumer threads), and a consumer asking for more than
-  // is free waits for good (a hang on the card). ptxas fits the
-  // consumers in the launch allocation without spills.
-  static constexpr uint32_t q = 0, k = WQ * kRowBytes,
-                            v = k + STAGES * TILE, bars = v + STAGES * TILE;
+  // Q, the K ring, the V ring, then the barriers: qfull, kfull[STAGES],
+  // vfull[STAGES], empty[STAGES]; +1024 for alignment. 144 KB at D 64
+  // (16 KB tiles), 73 KB at D 32, 37 KB at D 16: the stage count stays,
+  // since the ring's depth hides a load's latency, not its size. No
+  // setmaxnreg: it only moves registers within the CTA's launch
+  // allocation, which one producer warp barely feeds ((R - 40) x 32 for
+  // 256 consumer threads), and a consumer asking for more than is free
+  // waits for good (a hang on the card). ptxas fits the consumers in the
+  // launch allocation without spills.
+  static constexpr uint32_t row = Rows<D>::bytes;
+  static constexpr uint32_t tile = WK * row;  // one K or V tile
+  static constexpr uint32_t q = 0, k = WQ * row, v = k + STAGES * tile,
+                            bars = v + STAGES * tile;
   static constexpr size_t bytes = bars + (1 + 3 * STAGES) * 8 + 1024;
 };
 
@@ -239,6 +252,7 @@ __device__ __forceinline__ void mask_scores(float (&s)[64], int qrow, int k0,
   }
 }
 
+template <int D>
 __global__ void __launch_bounds__(WTHREADS, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
@@ -247,7 +261,8 @@ __global__ void __launch_bounds__(WTHREADS, 1)
                            int BH, int H, int KVH, int Sq, int Sk,
                            int q_offset, int k_offset, int causal,
                            int window, float scale_log2) {
-  using L = WgmmaLayout;
+  using L = WgmmaLayout<D>;
+  constexpr uint32_t TILE = L::tile;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align1024(smem_raw);
   uint8_t* Qs = sm + L::q;
@@ -284,7 +299,7 @@ __global__ void __launch_bounds__(WTHREADS, 1)
   if (warp == 8) {
     // ---- producer: Q once, then the live K/V tiles through the ring
     if (lane == 0) {
-      mbar_expect_tx(qfull, WQ * kRowBytes);
+      mbar_expect_tx(qfull, WQ * L::row);
       tma_load_3d(Qs, &tq, qfull, 0, q0, bh);
       int s = 0;
       uint32_t phase = 0;
@@ -309,11 +324,11 @@ __global__ void __launch_bounds__(WTHREADS, 1)
     const int wg = warp / 4;
     const int wq0 = q0 + 64 * wg;
     const int qrow = wq0 + 16 * (warp % 4) + lane / 4;  // and qrow + 8
-    uint8_t* Qw = Qs + wg * 64 * kRowBytes;
-    const uint64_t qdesc = desc_sw128(Qw);
-    float oacc[32], m[2] = {-INFINITY, -INFINITY}, lsum[2] = {0.f, 0.f};
+    uint8_t* Qw = Qs + wg * 64 * L::row;
+    const uint64_t qdesc = desc_sw<D>(Qw);
+    float oacc[D / 2], m[2] = {-INFINITY, -INFINITY}, lsum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < 32; ++i) oacc[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
 
     mbar_wait(qfull, 0);
     int s = 0;
@@ -324,13 +339,13 @@ __global__ void __launch_bounds__(WTHREADS, 1)
       if (!rows_meet(q0, q_last, k0, k_last, q_offset, k_offset, causal,
                      window))
         continue;
-      // S = Q K^T: 64 rows x 128 keys, 4 k16 steps over the head dim
+      // S = Q K^T: 64 rows x 128 keys, D/16 k16 steps over the head dim
       float sacc[64];
       mbar_wait(&kfull[s], phase);
-      const uint64_t kdesc = desc_sw128(Ks + s * TILE);
+      const uint64_t kdesc = desc_sw<D>(Ks + s * TILE);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
+      for (int kk = 0; kk < D / 16; ++kk)
         wgmma_ss_n128(sacc, qdesc + 2 * kk, kdesc + 2 * kk, kk);
       wgmma_commit();
       wgmma_wait<0>();
@@ -368,7 +383,7 @@ __global__ void __launch_bounds__(WTHREADS, 1)
         lsum[r] += sacc[i];  // f32; the quad's partial sums meet at the end
       }
 #pragma unroll
-      for (int i = 0; i < 32; ++i) oacc[i] *= corr[(i / 2) % 2];
+      for (int i = 0; i < D / 2; ++i) oacc[i] *= corr[(i / 2) % 2];
 
       // O += P V with P in bf16 registers (the TPU kernel's
       // p.astype(v.dtype)) and V MN-major from the ring
@@ -376,11 +391,11 @@ __global__ void __launch_bounds__(WTHREADS, 1)
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk) pack_a(sacc, kk, pa[kk]);
       mbar_wait(&vfull[s], phase);
-      const uint64_t vdesc = desc_sw128(Vs + s * TILE);
+      const uint64_t vdesc = desc_sw<D>(Vs + s * TILE);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk)
-        wgmma_rs_n64_tb(oacc, pa[kk], vdesc + 128 * kk);
+        wgmma_rs_tb<D>(oacc, pa[kk], vdesc + L::row * kk);
       wgmma_commit();
       wgmma_wait<0>();
       fence_operands(oacc);
@@ -402,9 +417,9 @@ __global__ void __launch_bounds__(WTHREADS, 1)
     // O through this warpgroup's Q rows (read by nothing after its last
     // product) to 16-byte stores; LSE in natural-log units, kNegInf for a
     // row with nothing unmasked (O = 0 there)
-    acc_to_tile(oacc, inv[0], inv[1], Qw);
+    acc_to_tile<D>(oacc, inv[0], inv[1], Qw);
     wg_barrier(1 + wg);
-    tile_to_rows(Qw, o + ((size_t)bh * Sq + wq0) * 64, Sq - wq0);
+    tile_to_rows<D>(Qw, o + ((size_t)bh * Sq + wq0) * D, Sq - wq0);
     if (lane % 4 == 0) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -419,6 +434,7 @@ __global__ void __launch_bounds__(WTHREADS, 1)
   }
 }
 
+template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* o, float* lse, int B, int H, int KVH, int Sq,
                          int Sk, int q_offset, int k_offset, int causal,
@@ -428,15 +444,17 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   const void* vp = Sk > 0 ? v : q;
   const int krows = Sk > 0 ? Sk : Sq, kslabs = Sk > 0 ? B * KVH : B * H;
   CUtensorMap tq, tk, tv;
-  cudaError_t err = encode_rows_map(&tq, q, Sq, B * H, WQ);
-  if (err == cudaSuccess) err = encode_rows_map(&tk, kp, krows, kslabs, WK);
-  if (err == cudaSuccess) err = encode_rows_map(&tv, vp, krows, kslabs, WK);
+  cudaError_t err = encode_rows_map<D>(&tq, q, Sq, B * H, WQ);
+  if (err == cudaSuccess)
+    err = encode_rows_map<D>(&tk, kp, krows, kslabs, WK);
+  if (err == cudaSuccess)
+    err = encode_rows_map<D>(&tv, vp, krows, kslabs, WK);
   if (err != cudaSuccess) return err;
-  constexpr size_t smem = WgmmaLayout::bytes;
-  err = allow_smem(flash_fwd_wgmma_kernel, smem);
+  constexpr size_t smem = WgmmaLayout<D>::bytes;
+  err = allow_smem(flash_fwd_wgmma_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   const int grid = (Sq + WQ - 1) / WQ * (B * H);
-  flash_fwd_wgmma_kernel<<<grid, WTHREADS, smem, stream>>>(
+  flash_fwd_wgmma_kernel<D><<<grid, WTHREADS, smem, stream>>>(
       tq, tk, tv, static_cast<bf16*>(o), lse, B * H, H, KVH, Sq, Sk,
       q_offset, k_offset, causal, window, scale * kLog2e);
   return cudaGetLastError();
@@ -448,9 +466,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int q_offset, int k_offset, int causal, int window,
                    float scale, cudaStream_t stream) {
   if constexpr (std::is_same_v<T, bf16>) {
-    static_assert(D == 64, "the bf16 body takes 128-byte rows: head_dim 64");
-    return launch_wgmma(q, k, v, o, lse, B, H, KVH, Sq, Sk, q_offset,
-                        k_offset, causal, window, scale, stream);
+    return launch_wgmma<D>(q, k, v, o, lse, B, H, KVH, Sq, Sk, q_offset,
+                           k_offset, causal, window, scale, stream);
   } else {
     const dim3 grid((Sq + BQ - 1) / BQ, B * H);
     constexpr size_t smem = flash_smem_bytes<D>();
@@ -462,22 +479,6 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
         static_cast<const T*>(v), static_cast<T*>(o), lse, H, KVH, Sq, Sk,
         q_offset, k_offset, causal, window, scale);
     return cudaGetLastError();
-  }
-}
-
-template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
-                       void* o, float* lse, int B, int H, int KVH, int Sq,
-                       int Sk, int q_offset, int k_offset, int causal,
-                       int window, float scale, cudaStream_t stream) {
-  switch (D) {
-    // only the head dim the checked-in configs use; add cases as a
-    // configuration needs them
-    case 64:
-      return launch<T, 64>(q, k, v, o, lse, B, H, KVH, Sq, Sk, q_offset,
-                           k_offset, causal, window, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
   }
 }
 
@@ -496,12 +497,15 @@ extern "C" int etpu_flash_fwd(const void* q, const void* k, const void* v,
   if (KVH <= 0 || H % KVH) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto* l = static_cast<float*>(lse);
-  if (is_bf16)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, o, l, B, H, KVH, Sq, Sk,
-                                     q_offset, k_offset, causal, window,
-                                     scale, s);
-  return dispatch_d<float>(D, q, k, v, o, l, B, H, KVH, Sq, Sk, q_offset,
-                           k_offset, causal, window, scale, s);
+  return etpu::with_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    return is_bf16 ? launch<bf16, kD>(q, k, v, o, l, B, H, KVH, Sq, Sk,
+                                      q_offset, k_offset, causal, window,
+                                      scale, s)
+                   : launch<float, kD>(q, k, v, o, l, B, H, KVH, Sq, Sk,
+                                       q_offset, k_offset, causal, window,
+                                       scale, s);
+  });
 }
 
 extern "C" const char* etpu_error_string(int err) {

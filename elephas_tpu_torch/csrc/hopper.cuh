@@ -3,7 +3,7 @@
 // Small inline-PTX wrappers, each named after what it wraps:
 // - TMA: `tma_load_3d` is `cp.async.bulk.tensor.3d` from a tensor map
 //   into shared memory, completing on an mbarrier's transaction count;
-//   `encode_rows_map` (host) builds the map of a (slabs, rows, 64) bf16
+//   `encode_rows_map` (host) builds the map of a (slabs, rows, D) bf16
 //   tensor with `cuTensorMapEncodeTiled`, fetched through the runtime's
 //   driver entry point, so the library links against no libcuda.
 // - mbarrier: `mbar_init` (`mbarrier.init`), `fence_barrier_init`
@@ -22,24 +22,29 @@
 //   (`wgmma.fence`, `commit_group`, `wait_group`), `fence_operands`
 //   (keeps the compiler from touching accumulator registers across an
 //   asynchronous product), `wgmma_ss_n64` / `wgmma_ss_n128` (m64nNk16
-//   bf16 -> f32, A and B from shared memory) and `wgmma_rs_n64_tb`
-//   (m64n64k16, A from registers, B MN-major from shared memory).
+//   bf16 -> f32, A and B from shared memory) and `wgmma_rs_tb<N>`
+//   (m64nNk16 for N = 16, 32, 64: A from registers, B MN-major from
+//   shared memory).
 // - cp.async: `cp_async_16` (`cp.async.cg.shared.global`, 16 bytes from
 //   device memory into shared memory, bypassing L1), `cp_async_commit`
 //   and `cp_async_wait<N>` (`cp.async.commit_group` / `wait_group`:
 //   returns once at most N of this thread's groups are in flight; the
 //   finished copies are then visible to this thread).
-// - `desc_sw128`: the 64-bit shared-memory matrix descriptor of a tile
-//   whose rows are 128 bytes (64 bf16) in the 128-byte swizzle that TMA
-//   writes with CU_TENSOR_MAP_SWIZZLE_128B.
+// - Tiles of head_dim D: a bf16 row is 2*D bytes (128 at D 64, 64 at D
+//   32, 32 at D 16) and lies in the swizzle of its own width, which TMA
+//   writes (CU_TENSOR_MAP_SWIZZLE_128B / 64B / 32B) and wgmma reads
+//   (`desc_sw<D>`: the 64-bit shared-memory matrix descriptor; `swz<D>`:
+//   the byte offset of a 16-byte chunk under that swizzle).
+// - `with_head_dim` (host): the one switch over the head dims the flash
+//   kernels are instantiated for.
 // - `wg_barrier` (`bar.sync id, 128`): one warpgroup's named barrier.
 // - `exp2_ftz` (`ex2.approx.ftz.f32`): the softmax's exponential.
 // - Accumulator helpers on the documented wgmma D layout (thread t of a
 //   warpgroup holds, for each 8-column group j, rows 16*(t/32) + (t%32)/4
 //   and that + 8 at columns 8j + 2*(t%4) and + 1): `pack_a` turns the
 //   16 columns of one k step into the bf16 A fragment of an RS product,
-//   `acc_to_tile` stores a 64 x 64 accumulator as bf16 into a swizzled
-//   shared tile, and `tile_to_rows` copies such a tile out to device
+//   `acc_to_tile<D>` stores a 64 x D accumulator as bf16 into a swizzled
+//   shared tile, and `tile_to_rows<D>` copies such a tile out to device
 //   memory with 16-byte stores, dropping rows past a limit.
 #pragma once
 
@@ -48,20 +53,59 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace etpu {
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-// one tile row: 64 bf16 = 128 bytes, the width of the 128-byte swizzle
-constexpr int kRowBytes = 128;
+
+// The bf16 tiles of head_dim D: one row is 2*D bytes, stored in the
+// swizzle of that width (TMA and wgmma agree on it). The swizzle XORs
+// address bits 7.. into the 16-byte chunk index (bits 4..): 3 bits at
+// 128-byte rows (chunk c of row r at c ^ (r % 8)), 2 at 64-byte rows (c
+// ^ (r / 2 % 4)), 1 at 32-byte rows (c ^ (r / 4 % 2)); the pattern
+// repeats every 8 rows, 1024, 512 or 256 bytes.
+template <int D>
+struct Rows {
+  static_assert(D == 16 || D == 32 || D == 64,
+                "the bf16 tiles take head_dim 16, 32 or 64");
+  static constexpr int bytes = 2 * D;
+  // the wgmma descriptor's layout type: 1 = 128B, 2 = 64B, 3 = 32B
+  static constexpr uint64_t layout = D == 64 ? 1 : D == 32 ? 2 : 3;
+  // the same swizzle as TMA names it
+  static constexpr CUtensorMapSwizzle tma_swizzle =
+      D == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+      : D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                : CU_TENSOR_MAP_SWIZZLE_32B;
+};
+
+// The head dims the flash kernels are instantiated for, in one place
+// (SUPPORTED_HEAD_DIMS in ops/flash_attention.py names the same set):
+// calls f(std::integral_constant<int, D>{}) and returns its result, or
+// cudaErrorInvalidValue at any other head dim.
+template <typename F>
+inline cudaError_t with_head_dim(int D, F&& f) {
+  switch (D) {
+    case 16:
+      return f(std::integral_constant<int, 16>{});
+    case 32:
+      return f(std::integral_constant<int, 32>{});
+    case 64:
+      return f(std::integral_constant<int, 64>{});
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Dynamic shared memory rounded up to 1024 bytes: the 128-byte swizzle
+// Dynamic shared memory rounded up to 1024 bytes: the widest swizzle
 // repeats every 8 rows (1024 bytes) and both TMA and wgmma apply it on
-// address bits, so every tile starts on such a boundary.
+// address bits, so every tile starts on such a boundary (every tile here
+// is a multiple of 8 rows, so a tile after it does too).
 __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
   return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
 }
@@ -177,19 +221,29 @@ __device__ __forceinline__ void fence_operands(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// Descriptor of a shared tile of 128-byte rows in the 128-byte swizzle:
-// start address >> 4 (bits 0-13); leading and stride byte offsets
-// (bits 16-29, 32-45) both 1024 bytes >> 4, the step between 8-row
-// groups (the leading offset is unused by every product here: a K-major
-// k16 step stays inside one 128-byte row, an MN-major one spans 64
-// columns); layout type 1 = 128-byte swizzle (bits 62-63). A K-major
-// operand steps along K by 32 bytes (+2), an MN-major one by 16 rows
-// (+128).
-__device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
+// Descriptor of a shared tile of head_dim-D rows (2*D bytes) in the
+// swizzle of that width: start address >> 4 (bits 0-13); leading and
+// stride byte offsets (bits 16-29, 32-45) both 8 rows (2*D*8 bytes) >>
+// 4, the step between 8-row groups (the leading offset is unused by
+// every product here: a K-major k16 step stays inside one row, an
+// MN-major operand is one swizzle width, D columns, wide); layout type
+// (bits 62-63) from `Rows<D>`. A K-major operand steps along K by 32
+// bytes (+2), an MN-major one by 16 rows (+2*D).
+template <int D>
+__device__ __forceinline__ uint64_t desc_sw(const void* tile) {
+  constexpr uint64_t group = 8 * Rows<D>::bytes;
   return static_cast<uint64_t>((smem_u32(tile) & 0x3FFFFu) >> 4) |
-         (static_cast<uint64_t>(1024 >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
+         ((group >> 4) << 16) | ((group >> 4) << 32) |
+         (Rows<D>::layout << 62);
+}
+
+// Byte offset of 16-byte chunk `chunk` of row `row` in a swizzled tile
+// of head_dim-D rows (the tile starts on a 1024-byte boundary).
+template <int D>
+__device__ __forceinline__ int swz(int row, int chunk) {
+  constexpr int kRow = Rows<D>::bytes;
+  const int off = row * kRow + chunk * 16;
+  return off ^ (((off >> 7) & (kRow / 16 - 1)) << 4);
 }
 
 // D (64 x 64, f32) (+)= A (64 x 16) . B (16 x 64), bf16 in, both from
@@ -275,6 +329,51 @@ __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// The same at N = 32 (head_dim 32): D 64 x 32.
+__device__ __forceinline__ void wgmma_rs_n32_tb(float (&d)[16],
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// The same at N = 16 (head_dim 16): D 64 x 16.
+__device__ __forceinline__ void wgmma_rs_n16_tb(float (&d)[8],
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7 "
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D (64 x N) += A (64 x 16, registers) . B (16 x N, MN-major), for the
+// products whose N is the head dim.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  if constexpr (N == 64)
+    wgmma_rs_n64_tb(d, a, desc_b);
+  else if constexpr (N == 32)
+    wgmma_rs_n32_tb(d, a, desc_b);
+  else
+    wgmma_rs_n16_tb(d, a, desc_b);
+}
+
 // ---------------------------------------------------- warpgroup sync
 // Barrier `id` (1..15; 0 is __syncthreads) over the 128 threads of one
 // warpgroup.
@@ -309,38 +408,40 @@ __device__ __forceinline__ void pack_a(const float (&d)[R], int kk,
     a[i] = pack_bf16(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
 }
 
-// A 64 x 64 f32 accumulator, row r scaled by `lo` (rows 16w + t%32/4) or
-// `hi` (those + 8), as bf16 into a 64-row tile of 128-byte rows in the
-// 128-byte swizzle (16-byte chunk c of row r at c ^ (r % 8)): a warp's
-// stores then hit 32 distinct banks.
-__device__ __forceinline__ void acc_to_tile(const float (&d)[32], float lo,
-                                            float hi, uint8_t* tile) {
+// A 64 x D f32 accumulator, row r scaled by `lo` (rows 16w + t%32/4)
+// or `hi` (those + 8), as bf16 into a 64-row tile of head_dim-D rows in
+// their swizzle (`swz<D>`): at D 64 a warp's stores hit 32 distinct
+// banks.
+template <int D>
+__device__ __forceinline__ void acc_to_tile(const float (&d)[D / 2],
+                                            float lo, float hi,
+                                            uint8_t* tile) {
   const int t = threadIdx.x % 128, l = t % 32;
   const int r = 16 * (t / 32) + l / 4;
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < D / 8; ++j)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = r + 8 * h;
       const float s = h ? hi : lo;
-      *reinterpret_cast<uint32_t*>(tile + row * kRowBytes +
-                                   ((j ^ (row & 7)) << 4) + (l % 4) * 4) =
+      *reinterpret_cast<uint32_t*>(tile + swz<D>(row, j) + (l % 4) * 4) =
           pack_bf16(d[4 * j + 2 * h] * s, d[4 * j + 2 * h + 1] * s);
     }
 }
 
-// The warpgroup's swizzled 64-row tile -> rows [0, limit) of `dst`
-// (64 bf16 per row), 16 bytes per store, 8 threads to a row.
+// The warpgroup's swizzled 64-row tile -> rows [0, limit) of `dst` (D
+// bf16 per row), 16 bytes per store, D/8 threads to a row.
+template <int D>
 __device__ __forceinline__ void tile_to_rows(const uint8_t* tile,
                                              __nv_bfloat16* dst, int limit) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks per row
   const int t = threadIdx.x % 128;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int idx = t + 128 * i, row = idx / 8, c = idx % 8;
+  for (int i = 0; i < 64 * kChunks / 128; ++i) {
+    const int idx = t + 128 * i, row = idx / kChunks, c = idx % kChunks;
     if (row < limit)
-      *reinterpret_cast<uint4*>(dst + (size_t)row * 64 + c * 8) =
-          *reinterpret_cast<const uint4*>(tile + row * kRowBytes +
-                                          ((c ^ (row & 7)) << 4));
+      *reinterpret_cast<uint4*>(dst + (size_t)row * D + c * 8) =
+          *reinterpret_cast<const uint4*>(tile + swz<D>(row, c));
   }
 }
 
@@ -371,21 +472,25 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The map of a contiguous (slabs, rows, 64) bf16 tensor as dims (64,
-// rows, slabs), boxes of 64 x box_rows x 1 in the 128-byte swizzle; rows
+// The map of a contiguous (slabs, rows, D) bf16 tensor as dims (D, rows,
+// slabs), boxes of D x box_rows x 1 in the swizzle of `Rows<D>`; rows
 // past `rows` of a slab read as zeros. `base` must be 16-byte aligned.
+template <int D>
 inline cudaError_t encode_rows_map(CUtensorMap* map, const void* base,
                                    int rows, int slabs, int box_rows) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {64, (cuuint64_t)rows, (cuuint64_t)slabs};
-  const cuuint64_t strides[2] = {kRowBytes, (cuuint64_t)rows * kRowBytes};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint64_t row_bytes = Rows<D>::bytes;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
+                              (cuuint64_t)slabs};
+  const cuuint64_t strides[2] = {row_bytes, (cuuint64_t)rows * row_bytes};
+  const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult res =
       fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
          dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+         Rows<D>::tma_swizzle,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -46,7 +46,7 @@ __all__ = ["TransformerConfig", "init_params", "forward", "forward_with_aux",
            "chunked_next_token_losses", "make_train_step", "prefill_cache",
            "init_kv_cache",
            "embed_apply", "head_logits", "resolve_attention_impl",
-           "NEG_INF", "FLAGSHIP"]
+           "NEG_INF", "FLAGSHIP", "TRANSFORMER_TPUMODEL"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,6 +140,10 @@ class TransformerConfig:
 #: ``TransformerConfig(**FLAGSHIP)``
 FLAGSHIP = dict(vocab_size=32000, num_layers=8, num_heads=16, d_model=1024,
                 d_ff=4096, max_seq_len=1024)
+#: the LM of ``examples/transformer_tpumodel.py`` (head dim 32):
+#: ``TransformerConfig(**TRANSFORMER_TPUMODEL)``
+TRANSFORMER_TPUMODEL = dict(vocab_size=512, num_layers=4, num_heads=8,
+                            d_model=256, d_ff=512, max_seq_len=128)
 
 
 def check_ported(config: TransformerConfig) -> None:
@@ -363,7 +367,9 @@ def resolve_attention_impl(config: TransformerConfig,
                            device: torch.device) -> str:
     """``"flash"`` or ``"xla"`` (the plain path) for single-device
     attention: ``auto`` picks flash on a CUDA device. ALiBi always takes
-    the plain path, whose bias it needs (the JAX routing rule)."""
+    the plain path, whose bias it needs (the JAX routing rule). A head
+    dim the kernels have no body for raises at the kernel's operand
+    check (``SUPPORTED_HEAD_DIMS``), never falls back."""
     if config.positional == "alibi":
         return "xla"
     if config.attention_impl == "auto":

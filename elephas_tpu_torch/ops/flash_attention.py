@@ -31,9 +31,10 @@ __all__ = ["flash_attention", "flash_forward", "flash_forward_plain",
            "flash_dq_plain", "flash_dkv", "flash_dkv_plain",
            "SUPPORTED_HEAD_DIMS", "BLOCK"]
 
-#: head dims the CUDA kernels are instantiated for (the CPU plain
-#: versions take any)
-SUPPORTED_HEAD_DIMS = (64,)
+#: head dims the CUDA kernels are instantiated for, bf16 and f32 (the
+#: head dims of the repo's configurations; the CPU plain versions take
+#: any)
+SUPPORTED_HEAD_DIMS = (16, 32, 64)
 #: the one block size :func:`flash_attention` takes by name; the kernels
 #: pick their own tiles (64 or 128 rows, csrc/flash_*.cu)
 BLOCK = 64
@@ -91,10 +92,13 @@ def _check(q, k, v):
 
 
 def _kernel_operands(q: torch.Tensor, **tensors: torch.Tensor):
-    """Check the operands of a CUDA flash kernel (``q`` and the named
-    tensors of q's dtype, on q's device, contiguous; head dim
-    instantiated) and return them in order, with bf16 operands cloned
-    where they are not 16-byte aligned."""
+    """Check the operands of a CUDA flash kernel (head dim instantiated;
+    ``q`` and the named tensors of q's dtype, on q's device, contiguous)
+    and return them in order, with bf16 operands cloned where they are
+    not 16-byte aligned."""
+    if q.shape[3] not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"no flash kernel for head_dim {q.shape[3]}: the "
+                         f"kernels take head_dim in {SUPPORTED_HEAD_DIMS}")
     if q.device.type != "cuda":
         raise ValueError(f"no flash kernel for device {q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -104,9 +108,6 @@ def _kernel_operands(q: torch.Tensor, **tensors: torch.Tensor):
             raise ValueError(f"{name} must share q's device and dtype")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if q.shape[3] not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head_dim in "
-                         f"{SUPPORTED_HEAD_DIMS}, got {q.shape[3]}")
     ops = (q, *tensors.values())
     if q.dtype == torch.bfloat16:
         # TMA and the bf16 kernels' vector loads need 16-byte alignment

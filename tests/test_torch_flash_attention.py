@@ -16,7 +16,9 @@ torch = pytest.importorskip("torch")
 from elephas_tpu.ops.pallas_attention import flash_attention as jax_flash
 from elephas_tpu.ops.pallas_attention import flash_hop_forward
 from elephas_tpu_torch.ops.attention import attention
-from elephas_tpu_torch.ops.flash_attention import (flash_attention,
+from elephas_tpu_torch.ops.flash_attention import (SUPPORTED_HEAD_DIMS,
+                                                   _kernel_operands,
+                                                   flash_attention,
                                                    flash_forward,
                                                    flash_forward_plain)
 
@@ -121,3 +123,22 @@ def test_rejects_bad_arguments(bad):
         q = q[0]
     with pytest.raises(ValueError):
         flash_forward(q, k, v, **kwargs)
+
+
+def test_kernels_take_the_repo_head_dims():
+    """The CUDA bodies' head dims: 64 (the flagship), 32
+    (examples/transformer_tpumodel.py) and 16 (examples/http_serving.py);
+    csrc/flash_*.cu dispatch the same set."""
+    assert SUPPORTED_HEAD_DIMS == (16, 32, 64)
+
+
+@pytest.mark.parametrize("head_dim", [48, 8])
+def test_kernel_operand_check_rejects_other_head_dims(head_dim):
+    """A flash kernel call at a head dim with no body raises, naming the
+    head dim and the supported set (checked before the device, so a CPU
+    tensor shows it)."""
+    q, k, v = (torch.from_numpy(a)
+               for a in _qkv(7, 4, 2, 8, 8, d=head_dim))
+    with pytest.raises(ValueError, match=rf"head_dim {head_dim}: .*"
+                       r"\(16, 32, 64\)"):
+        _kernel_operands(q, k=k, v=v)

@@ -6,7 +6,9 @@ elsewhere. On a machine with the card:
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 
 The kernels are built from ``elephas_tpu_torch/csrc`` at first use.
-Tolerances: f32 kernels within 1e-4 of the f32 plain version (another
+The flash kernels are held at head dim 64 over every case and at head
+dims 16 and 32 (the repo's other configurations) over the GQA, window,
+ragged and offset cases. Tolerances: f32 kernels within 1e-4 of the f32 plain version (another
 summation order); bf16 kernels within 2e-2 of the f32 plain version on
 the same bf16-rounded inputs (the softmax weights enter the P.V product
 in bf16, as in the TPU kernels).
@@ -28,6 +30,18 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     return torch.device("cuda")
+
+
+@pytest.fixture
+def no_tf32():
+    """f32 matmuls and convolutions in full f32 for the test's length."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
 
 
 _FWD_CASES = {
@@ -88,24 +102,20 @@ _BWD_CASES = {
     # the dQ body's 128-row q tiles: one row past a tile, one row short
     "sq_129": (2, 4, 2, 129, 129, True, None, 0, 0),
     "sq_255": (1, 4, 4, 255, 300, True, None, 45, 0),
+    # the examples/transformer_tpumodel.py LM's fit batch (H 8, S 128)
+    "tpumodel_fit": (16, 8, 8, 128, 128, True, None, 0, 0),
 }
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", sorted(_BWD_CASES))
-def test_flash_backward_kernels_match_plain(cuda, case, dtype):
-    """dQ and dK/dV against the f32 plain version on the same (rounded)
-    inputs and the same lse/delta; errors relative to max|ref| (f32
-    1e-4: another summation order; bf16 2e-2: P and dS enter their
-    products in bf16, as in the TPU kernels)."""
+def _check_backward(cuda, case, dtype, d):
     from elephas_tpu_torch.ops.flash_attention import (flash_backward,
                                                        flash_backward_plain,
                                                        flash_forward_plain)
     b, h, kvh, sq, sk, causal, window, qo, ko = _BWD_CASES[case]
     gen = torch.Generator(device=cuda).manual_seed(3)
-    q, g = (torch.randn((b, h, sq, 64), generator=gen, device=cuda)
+    q, g = (torch.randn((b, h, sq, d), generator=gen, device=cuda)
             .to(dtype) for _ in range(2))
-    k, v = (torch.randn((b, kvh, sk, 64), generator=gen, device=cuda)
+    k, v = (torch.randn((b, kvh, sk, d), generator=gen, device=cuda)
             .to(dtype) for _ in range(2))
     o, lse = flash_forward_plain(q.float(), k.float(), v.float(), qo, ko,
                                  causal, window)
@@ -127,6 +137,51 @@ def test_flash_backward_kernels_match_plain(cuda, case, dtype):
             continue
         err = float((got.float() - want).abs().max())
         assert err <= rel * scale, f"{name}: {err} > {rel} * {scale}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(_BWD_CASES))
+def test_flash_backward_kernels_match_plain(cuda, case, dtype):
+    """dQ and dK/dV against the f32 plain version on the same (rounded)
+    inputs and the same lse/delta; errors relative to max|ref| (f32
+    1e-4: another summation order; bf16 2e-2: P and dS enter their
+    products in bf16, as in the TPU kernels)."""
+    _check_backward(cuda, case, dtype, 64)
+
+
+# the GQA, window, ragged and offset cases and the head-dim-32 LM's
+# batch, run at head dims 16 and 32
+_SMALL_D_CASES = ["gqa", "window", "window_17", "ragged", "ragged_191_257",
+                  "gqa4_ragged", "sq_one", "sq_129", "hop_past",
+                  "hop_future", "noncausal", "tpumodel_fit"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", _SMALL_D_CASES)
+@pytest.mark.parametrize("head_dim", [16, 32])
+def test_flash_kernels_at_small_head_dims_match_plain(cuda, no_tf32,
+                                                      head_dim, case,
+                                                      dtype):
+    """The forward, dQ and dK/dV kernels at head dims 16 and 32 against
+    their plain versions, with the head-dim-64 tests' tolerances."""
+    from elephas_tpu_torch.ops.flash_attention import (flash_forward,
+                                                       flash_forward_plain)
+    b, h, kvh, sq, sk, causal, window, qo, ko = _BWD_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn((b, h, sq, head_dim), generator=gen,
+                    device=cuda).to(dtype)
+    k, v = (torch.randn((b, kvh, sk, head_dim), generator=gen,
+                        device=cuda).to(dtype) for _ in range(2))
+    before = flash_forward.launches
+    o, lse = flash_forward(q, k, v, qo, ko, causal, window)
+    assert flash_forward.launches == before + 1
+    o_ref, lse_ref = flash_forward_plain(q.float(), k.float(), v.float(),
+                                         qo, ko, causal, window)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert o.dtype == dtype and o.shape == q.shape
+    torch.testing.assert_close(o.float(), o_ref, atol=tol, rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
+    _check_backward(cuda, case, dtype, head_dim)
 
 
 def _offset_views(shapes, offset, gen, device):
@@ -174,13 +229,13 @@ def test_flash_kernels_take_offset_views(cuda, offset):
         assert err <= 2e-2 * scale, f"{name}: {err} > 2e-2 * {scale}"
 
 
-def _bwd_args(case, seed, device):
+def _bwd_args(case, seed, device, d=64):
     b, h, kvh, sq, sk, causal, window, qo, ko = _BWD_CASES[case]
     from elephas_tpu_torch.ops.flash_attention import flash_forward_plain
     gen = torch.Generator(device=device).manual_seed(seed)
-    q, g = (torch.randn((b, h, sq, 64), generator=gen, device=device)
+    q, g = (torch.randn((b, h, sq, d), generator=gen, device=device)
             .bfloat16() for _ in range(2))
-    k, v = (torch.randn((b, kvh, sk, 64), generator=gen, device=device)
+    k, v = (torch.randn((b, kvh, sk, d), generator=gen, device=device)
             .bfloat16() for _ in range(2))
     o, lse = flash_forward_plain(q.float(), k.float(), v.float(), qo, ko,
                                  causal, window)
@@ -198,25 +253,27 @@ def test_flash_dq_kernel_is_bit_reproducible(cuda, case):
     assert torch.equal(first.view(torch.int16), second.view(torch.int16))
 
 
+def _assert_dkv_reproducible(args):
+    from elephas_tpu_torch.ops.flash_attention import flash_dkv
+    first, second = flash_dkv(*args), flash_dkv(*args)
+    for a, b_ in zip(first, second):
+        assert torch.equal(a.view(torch.int16), b_.view(torch.int16))
+
+
 @pytest.mark.parametrize("case", ["causal", "gqa4_ragged"])
 def test_flash_dkv_kernel_is_bit_reproducible(cuda, case):
     """No atomics: two dK/dV launches on the same bf16 inputs give the
     same bits."""
-    from elephas_tpu_torch.ops.flash_attention import (flash_dkv,
-                                                       flash_forward_plain)
-    b, h, kvh, sq, sk, causal, window, qo, ko = _BWD_CASES[case]
-    gen = torch.Generator(device=cuda).manual_seed(6)
-    q, g = (torch.randn((b, h, sq, 64), generator=gen, device=cuda)
-            .bfloat16() for _ in range(2))
-    k, v = (torch.randn((b, kvh, sk, 64), generator=gen, device=cuda)
-            .bfloat16() for _ in range(2))
-    o, lse = flash_forward_plain(q.float(), k.float(), v.float(), qo, ko,
-                                 causal, window)
-    delta = (g.float() * o).sum(-1)
-    args = (q, k, v, g, lse, delta, qo, ko, causal, window)
-    first, second = flash_dkv(*args), flash_dkv(*args)
-    for a, b_ in zip(first, second):
-        assert torch.equal(a.view(torch.int16), b_.view(torch.int16))
+    _assert_dkv_reproducible(_bwd_args(case, 6, cuda))
+
+
+@pytest.mark.parametrize("case", ["causal", "gqa4_ragged", "window_17"])
+@pytest.mark.parametrize("head_dim", [16, 32])
+def test_flash_dkv_kernel_is_bit_reproducible_at_small_head_dims(
+        cuda, head_dim, case):
+    """No atomics at head dims 16 and 32 either: two dK/dV launches on
+    the same bf16 inputs give the same bits."""
+    _assert_dkv_reproducible(_bwd_args(case, 6, cuda, head_dim))
 
 
 _PAGED_CASES = {
@@ -369,6 +426,80 @@ def test_train_step_on_card_matches_cpu(cuda):
     for a, b in zip(cpu_d, gpu_d):
         scale = float(a.abs().max())
         assert float((a - b).abs().max()) <= 1e-3 * scale + 1e-7
+
+
+def test_transformer_tpumodel_config_on_card_matches_cpu(cuda, no_tf32):
+    """The ``transformer_tpumodel`` LM (head dim 32) under the default
+    ``attention_impl="auto"``: on the card it routes to the flash
+    kernels (once per layer each); its ``forward`` logits and one SGD
+    step (lr 1: the update is minus the gradient) equal the CPU plain
+    path's on the same weights and tokens, in f32."""
+    from elephas_tpu_torch import TransformerConfig, forward, init_params
+    from elephas_tpu_torch.models.optimizers import SGD
+    from elephas_tpu_torch.models.transformer import (TRANSFORMER_TPUMODEL,
+                                                      make_train_step)
+    from elephas_tpu_torch.ops.flash_attention import (flash_backward,
+                                                       flash_forward)
+    from elephas_tpu_torch.weights import (from_numpy_tree, to_numpy_tree,
+                                           tree_leaves)
+    cfg = TransformerConfig(**TRANSFORMER_TPUMODEL, dtype=torch.float32)
+    assert cfg.head_dim == 32
+    host = to_numpy_tree(init_params(cfg, torch.Generator().manual_seed(0),
+                                     "cpu"))
+    tokens = torch.randint(0, 512, (4, 128),
+                           generator=torch.Generator().manual_seed(1))
+    logits, deltas = [], []
+    for device in ("cpu", cuda):
+        params = from_numpy_tree(host, device=device)
+        before = flash_forward.launches
+        logits.append(forward(params, tokens.to(device), cfg).cpu())
+        if device == cuda:
+            assert flash_forward.launches - before == cfg.num_layers
+        start = [p.clone() for p in tree_leaves(params)]
+        tx = SGD(1.0).to_transform()
+        before = (flash_forward.launches, flash_backward.dq_launches,
+                  flash_backward.dkv_launches)
+        _, _, loss = make_train_step(cfg, tx)(params, tx.init(params),
+                                              tokens.to(device))
+        after = (flash_forward.launches, flash_backward.dq_launches,
+                 flash_backward.dkv_launches)
+        if device == cuda:
+            assert tuple(a - b for a, b in zip(after, before)) == (
+                (cfg.num_layers,) * 3)
+        deltas.append((float(loss), [(p - s).cpu() for p, s in
+                                     zip(tree_leaves(params), start)]))
+    torch.testing.assert_close(logits[1], logits[0], atol=1e-4, rtol=0)
+    (cpu_loss, cpu_d), (gpu_loss, gpu_d) = deltas
+    assert abs(cpu_loss - gpu_loss) <= 1e-4
+    for a, b in zip(cpu_d, gpu_d):
+        scale = float(a.abs().max())
+        assert float((a - b).abs().max()) <= 1e-3 * scale + 1e-7
+
+
+def test_http_serving_config_forward_on_card_matches_cpu(cuda, no_tf32):
+    """The ``examples/http_serving.py`` LM (head dim 16, f32; the byte
+    tokenizer's vocabulary) under ``attention_impl="auto"``: on the card
+    ``forward`` runs the flash forward kernel once per layer and its
+    logits equal the CPU plain path's on the same weights."""
+    from elephas_tpu_torch import TransformerConfig, forward, init_params
+    from elephas_tpu_torch.ops.flash_attention import flash_forward
+    from elephas_tpu_torch.weights import from_numpy_tree, to_numpy_tree
+    cfg = TransformerConfig(vocab_size=259, num_layers=2, num_heads=4,
+                            d_model=64, d_ff=128, max_seq_len=96,
+                            dtype=torch.float32)
+    assert cfg.head_dim == 16
+    host = to_numpy_tree(init_params(cfg, torch.Generator().manual_seed(0),
+                                     "cpu"))
+    tokens = torch.randint(0, 259, (3, 96),
+                           generator=torch.Generator().manual_seed(2))
+    out = []
+    for device in ("cpu", cuda):
+        before = flash_forward.launches
+        out.append(forward(from_numpy_tree(host, device=device),
+                           tokens.to(device), cfg).cpu())
+        if device == cuda:
+            assert flash_forward.launches - before == cfg.num_layers
+    torch.testing.assert_close(out[1], out[0], atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("policy", ["full", "dots"])

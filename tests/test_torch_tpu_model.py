@@ -20,6 +20,7 @@ epoch losses and accuracies of both).
 """
 from math import isclose
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -35,6 +36,9 @@ from elephas_tpu_torch.models import optimizers as topt
 from elephas_tpu_torch.models.callbacks import LambdaCallback
 from elephas_tpu_torch.models.transformer_model import TransformerModel
 from elephas_tpu_torch.utils import dict_to_model, encode_label, model_to_dict
+from elephas_tpu_torch.weights import to_numpy_tree
+from elephas_tpu.models import transformer as jtr
+from elephas_tpu_torch.models import transformer as ttr
 from tests.test_torch_train import _configs, _tokens
 
 
@@ -259,6 +263,36 @@ def test_tpu_model_routes_a_transformer(tmp_path):
                                atol=1e-4, rtol=0)
     assert abs(tpu_model.evaluate(probe, None)
                - jtpu.evaluate(probe, None)) <= 1e-5
+
+
+def test_tpu_model_lm_at_head_dim_32_matches_jax():
+    """``TPUModel`` over ``TransformerModel`` at head dim 32 (2 layers,
+    d_model 64, 2 heads, vocab 64; the head dim of
+    examples/transformer_tpumodel.py) against the JAX ``TPUModel`` from
+    the same weights (the port's init, handed to the JAX model, whose
+    own init would compile for seconds), f32: the fit history (2
+    epochs, batch 8, the same shuffle seed, validation split 0.2 of 40
+    rows: 8 held out, a multiple of the JAX package's 8-device data
+    axis, to which it trims the held-out rows) within 1e-5."""
+    kw = dict(vocab_size=64, num_layers=2, num_heads=2, d_model=64,
+              d_ff=128, max_seq_len=24)
+    tcfg = ttr.TransformerConfig(dtype=torch.float32, **kw)
+    assert tcfg.head_dim == 32
+    tm = TransformerModel(tcfg, device="cpu").compile(topt.SGD(0.5), seed=3)
+    jm = JModel(jtr.TransformerConfig(dtype=jnp.float32,
+                                      attention_impl="xla", **kw))
+    jm.params, jm.built = to_numpy_tree(tm.params), True
+    jm.compile(jopt.SGD(0.5))
+    tokens = np.random.default_rng(12).integers(0, 64, (40, 17))
+    hists = []
+    for tpu_model in (JTPUModel(jm, mode="synchronous", batch_size=8),
+                      TPUModel(tm, mode="synchronous", batch_size=8)):
+        tpu_model.fit(tokens, epochs=2, validation_split=0.2, seed=1)
+        hists.append(tpu_model.training_histories[-1])
+    want, got = hists
+    assert len(got["val_loss"]) == len(want["val_loss"]) == 2
+    for key in ("loss", "val_loss"):
+        np.testing.assert_allclose(got[key], want[key], atol=1e-5, rtol=0)
 
 
 def _bench_mlp(mod, **kw):

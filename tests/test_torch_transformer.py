@@ -147,6 +147,29 @@ def test_attention_impl_routing():
     assert ttr.resolve_attention_impl(alibi, cuda) == "xla"
 
 
+@pytest.mark.parametrize("impl", ["auto", "flash"])
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 48])
+def test_auto_routes_by_head_dim_on_cuda(head_dim, impl):
+    """Under ``auto`` (or an explicit ``"flash"``) a CUDA device takes
+    the flash kernels at every head dim; at one they have no body for
+    (48) the CUDA operand check raises with the head dim and the
+    supported set, so nothing falls back to the plain path. ``auto`` on
+    the CPU takes the plain path."""
+    from elephas_tpu_torch.ops.flash_attention import _kernel_operands
+    cfg = ttr.TransformerConfig(**dict(_BASE, num_heads=2,
+                                       d_model=2 * head_dim,
+                                       attention_impl=impl))
+    assert cfg.head_dim == head_dim
+    assert ttr.resolve_attention_impl(cfg, torch.device("cuda")) == "flash"
+    assert ttr.resolve_attention_impl(cfg, torch.device("cpu")) == (
+        "xla" if impl == "auto" else "flash")
+    if head_dim == 48:
+        q = torch.zeros((1, 2, 5, head_dim))
+        with pytest.raises(ValueError,
+                           match=r"head_dim 48: .*\(16, 32, 64\)"):
+            _kernel_operands(q, k=q, v=q)
+
+
 @pytest.mark.parametrize("feature", ["moe", "quant"])
 def test_unported_features_raise(feature):
     over = {"moe": {"num_experts": 4},
