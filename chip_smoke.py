@@ -25,7 +25,15 @@ the bench's MLP width (784-128-128-10) on 60,000 seeded rows of the
 tests' MNIST-like recipe: ``sync_mode="step"`` (samples/s beside a plain
 PyTorch loop of the same MLP) and the default model averaging over 4
 workers with Dropout 0.2, each held to the reference's predict/evaluate
-oracle and a held-out accuracy above 0.9; and ``TPUModel`` over the
+oracle and a held-out accuracy above 0.9; ``keras_async``, the
+parameter-server modes on the same rows and the MLP of
+``examples/mnist_mlp_asynchronous.py`` (Dropout 0.2): asynchronous over
+HTTP at epoch frequency and hogwild over the socket at batch frequency
+(4 workers each), and the overlapped batch loop (``async_accum=8``, 2
+workers), each with the oracle, the accuracy check, the server's update
+count against the pushes issued, samples/s and RPC times, then one
+worker's fit on the card against the CPU (no kernel runs there: the
+phase fails if one launches); and ``TPUModel`` over the
 flagship ``TransformerModel`` (one epoch of 2 steps, ``predict``,
 ``evaluate``), whose flash kernel launches are counted. Last,
 ``TPUModel`` over the ``examples/transformer_tpumodel.py`` LM (head dim
@@ -971,7 +979,7 @@ def mnist_like(n, seed, dim=784, classes=10, centers_seed=123):
     return x.astype("float32"), np.eye(classes)[labels].astype("float32")
 
 
-def mnist_mlp(dropout: float):
+def mnist_mlp(dropout: float, device="cuda"):
     """The bench's MLP, 784-128-128-10, with the conftest's Dropout
     layers when ``dropout`` > 0."""
     from elephas_tpu_torch.models import (Activation, Dense, Dropout,
@@ -979,7 +987,7 @@ def mnist_mlp(dropout: float):
     drop = [Dropout(dropout)] if dropout else []
     return Sequential([Dense(128, input_dim=784), Activation("relu"), *drop,
                        Dense(128), Activation("relu"), *drop, Dense(10),
-                       Activation("softmax")], device="cuda")
+                       Activation("softmax")], device=device)
 
 
 def tpu_model_oracle(tpu_model, x_test, y_test):
@@ -1077,6 +1085,7 @@ def run_keras_sync_step(data):
           "epoch_time_s": hist["epoch_time"], "fit_s": fit_s,
           "samples_per_s": samples_s, "plain_loop_samples_per_s": plain_s,
           "held_out_loss_acc": evals, "master_loss_acc": master_evals})
+    return samples_s
 
 
 def check_delta_mean(w0, shards, new_weights, hists):
@@ -1152,6 +1161,154 @@ def run_keras_sync_average(data):
           "delta_mean_max_abs_err": average_err,
           "trainer_fit_time_s": hists[0]["fit_time"][0],
           "held_out_loss_acc": evals, "master_loss_acc": master_evals})
+
+
+def client_rpcs():
+    """``{op: (count, seconds)}`` of the parameter clients' successful
+    pulls and pushes so far in this process (their latency histograms)."""
+    from elephas_tpu_torch.obs.metrics import default_registry
+    family = default_registry().histogram(
+        "ps_client_rpc_latency_seconds",
+        "successful PS client RPC attempt latency", labels=("op",))
+    return {op: (family.labels(op=op).count, family.labels(op=op).sum)
+            for op in ("get_parameters", "update_parameters")}
+
+
+def async_pushes(sizes, frequency, epochs, accum, batch=64):
+    """The pushes the workers issue: one per local epoch at epoch
+    frequency; at batch frequency one per step, or one per window of
+    ``accum`` steps and one for a partial last window."""
+    if frequency == "epoch":
+        return len(sizes) * epochs
+    steps = [epochs * -(-n // batch) for n in sizes if n > batch]
+    return sum(-(-s // accum) for s in steps)
+
+
+def async_card_matches_cpu(data, rows=4096):
+    """One worker at batch frequency (the reference loop, socket, SGD
+    0.01, one epoch of 64 steps) from the same weights, master on the
+    card and on the CPU: the final weights within 1e-4 (TF32 is off).
+
+    The CPU fit runs on one thread: the CPU's GEMMs split their sums by
+    thread count, and on these rows a ReLU input near zero flips sign
+    between thread counts, after which the fits part (2.1e-3 after 64
+    steps with the CPU fit on 8 threads, the check's first run on an
+    H100 host). One thread sums in index order, as the card's f32 GEMMs
+    do with TF32 off."""
+    from elephas_tpu_torch import SGD, TPUModel, to_dataset
+    from elephas_tpu_torch.utils.sockets import free_port
+
+    (x, y), _ = data
+    finals, w0 = [], None
+    threads = torch.get_num_threads()
+    for device in ("cpu", "cuda"):
+        torch.set_num_threads(1 if device == "cpu" else threads)
+        model = mnist_mlp(0.0, device)
+        model.compile(SGD(learning_rate=0.01), "categorical_crossentropy",
+                      seed=0)
+        w0 = w0 or model.get_weights()
+        model.set_weights(w0)
+        tpu_model = TPUModel(model, mode="asynchronous", frequency="batch",
+                             parameter_server_mode="socket", num_workers=1,
+                             port=free_port())
+        tpu_model.fit(to_dataset(x[:rows], y[:rows]), epochs=1,
+                      batch_size=64)
+        finals.append(model.get_weights())
+    err = max(float(np.abs(a - b).max()) for a, b in zip(*finals))
+    emit({"phase": "keras_async_card_vs_cpu", "rows": rows, "steps":
+          rows // 64, "max_abs_err": err})
+    require(err <= 1e-4, f"one async worker on the card matches the CPU "
+            f"within 1e-4: {err}")
+
+
+# (c) runs 2 workers, as the JAX repo's own row for the overlapped loop
+# (benchmarks/baseline_rows.py:106-146): at 4 workers and 8 steps a
+# window neither package, unmodified, trains this set
+# (tests/torch_overlap_workers.py runs both on the CPU at 2 and 4)
+ASYNC_CONFIGS = {
+    "a": dict(mode="asynchronous", parameter_server_mode="http",
+              frequency="epoch", num_workers=4),
+    "b": dict(mode="hogwild", parameter_server_mode="socket",
+              frequency="batch", num_workers=4),
+    "c": dict(mode="asynchronous", parameter_server_mode="http",
+              frequency="batch", async_overlap=True, async_accum=8,
+              num_workers=2),
+}
+
+
+def run_keras_async(data, sync_samples_s):
+    """``TPUModel`` in its parameter-server modes (the default
+    ``mode="asynchronous"`` and ``"hogwild"``) on the rows of the sync
+    phases and the MLP of ``examples/mnist_mlp_asynchronous.py`` (with
+    its Dropout 0.2), workers as threads on the card, SGD 0.01, batch 64,
+    2 epochs, validation split 0.1: (a) asynchronous over HTTP at epoch
+    frequency, 4 workers, (b) hogwild over the socket at batch frequency
+    (the reference loop: a pull, ``set_weights``, a step,
+    ``get_weights`` and a push per batch), 4 workers, (c) asynchronous
+    over HTTP at batch frequency, overlapped, one push per 8 steps, 2
+    workers. Each: the oracle, held-out
+    accuracy above 0.9, the server's update count equal to the pushes
+    the workers issued (by formula and by the clients' RPC counts),
+    samples/s beside the sync step's, and ms per pull and per push.
+    Then one worker on the card against the same fit on the CPU."""
+    from elephas_tpu_torch import SGD, TPUModel, to_dataset
+    from elephas_tpu_torch.utils import native
+    from elephas_tpu_torch.utils.sockets import free_port
+
+    (x, y), (x_test, y_test) = data
+    native.build()
+    codec = "native" if native.available() else "python"
+    epochs, vsplit = 2, 0.1
+    results = {}
+    for name, cfg in ASYNC_CONFIGS.items():
+        workers = cfg["num_workers"]
+        model = mnist_mlp(0.2)
+        model.compile(SGD(learning_rate=0.01), "categorical_crossentropy",
+                      ["acc"], seed=0)
+        tpu_model = TPUModel(model, batch_size=64, port=free_port(), **cfg)
+        dataset = to_dataset(x, y).repartition(workers)
+        sizes = dataset.partition_sizes()
+        before = client_rpcs()
+        t0 = time.perf_counter()
+        tpu_model.fit(dataset, epochs=epochs, batch_size=64,
+                      validation_split=vsplit)
+        fit_s = time.perf_counter() - t0
+        after = client_rpcs()
+        rpc = {op: (after[op][0] - before[op][0],
+                    after[op][1] - before[op][1]) for op in after}
+        report = tpu_model.training_histories[-1]["supervisor"]
+        require(report["completed_shards"] == list(range(workers))
+                and not report["failures"],
+                f"({name}) every worker completed: {report}")
+        pushes = async_pushes(sizes, cfg["frequency"], epochs,
+                              cfg.get("async_accum", 1))
+        updates = tpu_model.parameter_server.num_updates
+        require(updates == pushes == rpc["update_parameters"][0],
+                f"({name}) server updates {updates} equal the pushes "
+                f"issued: {pushes} by count, "
+                f"{rpc['update_parameters'][0]} by the clients")
+        evals, master_evals = tpu_model_oracle(tpu_model, x_test, y_test)
+        require(evals[1] > 0.9, f"({name}) held-out accuracy {evals[1]} "
+                "> 0.9")
+        trained = sum(int(n * (1 - vsplit)) if cfg["frequency"] == "epoch"
+                      else n for n in sizes) * epochs
+        results[name] = {
+            **cfg, "fit_s": fit_s,
+            "samples_per_s": trained / fit_s,
+            "vs_sync_step": trained / fit_s / sync_samples_s,
+            "server_updates": updates,
+            "pulls": rpc["get_parameters"][0],
+            "pull_ms": 1e3 * rpc["get_parameters"][1]
+            / max(rpc["get_parameters"][0], 1),
+            "push_ms": 1e3 * rpc["update_parameters"][1]
+            / max(rpc["update_parameters"][0], 1),
+            "held_out_loss_acc": evals, "master_loss_acc": master_evals}
+    emit({"phase": "keras_async", "rows": len(x), "held_out": len(x_test),
+          "batch": 64, "epochs": epochs, "validation_split": vsplit,
+          "codec": codec, "sync_step_samples_per_s": sync_samples_s,
+          "frame_bytes": sum(w.nbytes for w in model.get_weights()),
+          "configs": results})
+    async_card_matches_cpu(data)
 
 
 def run_tpu_model_lm(cfg):
@@ -1327,8 +1484,13 @@ def main() -> int:
     train_counts = run_train(cfg)
 
     data = (mnist_like(60000, seed=0), mnist_like(10000, seed=1))
-    run_keras_sync_step(data)
+    sync_samples_s = run_keras_sync_step(data)
     run_keras_sync_average(data)
+    reset_counts()
+    run_keras_async(data, sync_samples_s)
+    async_counts = read_counts()
+    require(not any(async_counts.values()),
+            f"no async path launches a kernel: {async_counts}")
     lm_counts = run_tpu_model_lm(cfg)
     d32_counts = run_tpu_model_lm_d32()
     d16_counts = run_forward_d16()
@@ -1342,7 +1504,8 @@ def main() -> int:
     # launches on each path, each path's counts set to 0 just before it
     paths = {"forward": fwd_counts, "serving": srv_counts,
              "train": train_counts, "tpu_model_lm": lm_counts,
-             "tpu_model_lm_d32": d32_counts, "forward_d16": d16_counts}
+             "tpu_model_lm_d32": d32_counts, "forward_d16": d16_counts,
+             "keras_async": async_counts}
     kernels = [
         {"name": "paged_decode", "route": "cuda",
          "source": "elephas_tpu_torch/csrc/paged_decode.cu",

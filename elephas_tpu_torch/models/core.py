@@ -26,6 +26,7 @@ package's checkpoint state API (``training_state``,
 ``restore_training_state``) is not here yet.
 """
 import json
+import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -40,6 +41,8 @@ from .layers import (InputLayer, KTensor, Layer, deserialize_layer,
                      serialize_layer)
 
 _MODEL_UID = [0]
+# async workers build models on threads of their own
+_UID_LOCK = threading.Lock()
 
 
 def _cast_floats(tree, dtype):
@@ -52,8 +55,9 @@ def _cast_floats(tree, dtype):
 
 
 def _auto_name(prefix: str) -> str:
-    _MODEL_UID[0] += 1
-    return f"{prefix}_{_MODEL_UID[0]}"
+    with _UID_LOCK:
+        _MODEL_UID[0] += 1
+        return f"{prefix}_{_MODEL_UID[0]}"
 
 
 def _trainable_copy(tree: Dict) -> Dict:

@@ -24,6 +24,7 @@ the merges) raise ``NotImplementedError`` on deserialization (ROADMAP
 Queue 1 item 3).
 """
 import collections
+import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -32,11 +33,14 @@ from . import activations as activations_mod
 from . import initializers
 
 _LAYER_UIDS: Dict[str, int] = collections.defaultdict(int)
+# async workers build models on threads of their own
+_UID_LOCK = threading.Lock()
 
 
 def _unique_name(prefix: str) -> str:
-    _LAYER_UIDS[prefix] += 1
-    count = _LAYER_UIDS[prefix]
+    with _UID_LOCK:
+        _LAYER_UIDS[prefix] += 1
+        count = _LAYER_UIDS[prefix]
     return prefix if count == 1 else f"{prefix}_{count - 1}"
 
 

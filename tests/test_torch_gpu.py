@@ -603,3 +603,67 @@ def test_sync_trainers_on_card_match_cpu(cuda):
         np.testing.assert_allclose(b, a, atol=1e-5, rtol=0)
     np.testing.assert_allclose(gl, cl, atol=1e-5, rtol=0)
     np.testing.assert_allclose(gal, cal, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+def test_async_tpu_model_on_card_matches_cpu(cuda, no_tf32, overlap):
+    """One asynchronous worker at batch frequency over the socket server
+    (the reference loop, or the overlapped loop with 4 steps a window,
+    whose batches reach the card through pinned staging), on the f32
+    MLP (784-128-128-10), from the same weights, 1 epoch of 1024 rows at
+    batch 64, TF32 off: the final weights within 1e-4 of the same fit
+    with the master on the CPU, and the worker's model on the master's
+    device. The CPU fit runs on one thread, so its sums have one order
+    (a ReLU input near zero flips sign between thread counts)."""
+    from elephas_tpu_torch import SGD, Dense, Sequential, TPUModel, to_dataset
+    from elephas_tpu_torch.utils.sockets import free_port
+    from elephas_tpu_torch.worker import AsyncWorker
+
+    rng = np.random.default_rng(0)
+    x = rng.random((1024, 784), dtype=np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 1024)]
+    devices = []
+    train = AsyncWorker.train
+
+    def spy(worker, *a):
+        devices.append(worker.device)
+        return train(worker, *a)
+
+    finals, w0 = [], None
+    threads = torch.get_num_threads()
+    AsyncWorker.train = spy
+    try:
+        for device in ("cpu", cuda):
+            torch.set_num_threads(1 if device == "cpu" else threads)
+            model = Sequential([Dense(128, activation="relu", input_dim=784),
+                                Dense(128, activation="relu"),
+                                Dense(10, activation="softmax")],
+                               device=device)
+            model.compile(SGD(0.01), "categorical_crossentropy", seed=0)
+            w0 = w0 or model.get_weights()
+            model.set_weights(w0)
+            TPUModel(model, frequency="batch", parameter_server_mode="socket",
+                     num_workers=1, port=free_port(), async_overlap=overlap,
+                     async_accum=4 if overlap else 1).fit(
+                to_dataset(x, y), epochs=1, batch_size=64)
+            finals.append(model.get_weights())
+    finally:
+        AsyncWorker.train = train
+        torch.set_num_threads(threads)
+    assert [d.type for d in devices] == ["cpu", "cuda"]
+    for a, b in zip(*finals):
+        np.testing.assert_allclose(b, a, atol=1e-4, rtol=0)
+
+
+def test_prefetch_to_device_on_card(cuda):
+    from elephas_tpu_torch.utils.prefetch import prefetch_to_device
+
+    rng = np.random.default_rng(0)
+    items = [(rng.random((64, 784), dtype=np.float32),
+              rng.integers(0, 10, 64)) for _ in range(7)]
+    got = list(prefetch_to_device(iter(items), size=2, device=cuda))
+    assert len(got) == len(items)
+    for (gx, gy), (x, y) in zip(got, items):
+        assert gx.device.type == "cuda" and gy.dtype == torch.int64
+        np.testing.assert_array_equal(gx.cpu().numpy(), x)
+        np.testing.assert_array_equal(gy.cpu().numpy(), y)

@@ -12,6 +12,9 @@ same weights (logits atol 1e-4, loss 1e-5, as the LM training tests
 hold them). ``num_workers=None`` takes the dataset's partition count,
 the CUDA device count here (1 without a card; 8 in the JAX package on
 the conftest's CPU mesh), so comparisons with JAX pass it explicitly.
+The async modes construct their parameter server here (their training
+is in ``test_torch_tpu_model_async.py``); a sharded plane and hot
+standbys raise.
 On the full 60,000-row MNIST-like set of ``chip_smoke.py``, sync-step
 SGD at 0.01 trains the bench's MLP in both packages and SGD at 0.1 (the
 bench's rate) does not: its loss rises in the second epoch
@@ -39,6 +42,7 @@ from elephas_tpu_torch.utils import dict_to_model, encode_label, model_to_dict
 from elephas_tpu_torch.weights import to_numpy_tree
 from elephas_tpu.models import transformer as jtr
 from elephas_tpu_torch.models import transformer as ttr
+from elephas_tpu_torch.utils.sockets import free_port
 from tests.test_torch_train import _configs, _tokens
 
 
@@ -173,14 +177,32 @@ def test_config_matches_the_jax_tpu_model():
                      num_workers=2, batch_size=16)
     assert tpu_model.get_config() == jtpu.get_config()
     assert tpu_model.master_optimizer == jopt.serialize(JSGD(0.1))
+    # the async keys: servers are built (not started) at construction
+    async_kw = dict(mode="hogwild", frequency="batch",
+                    parameter_server_mode="socket", async_overlap=True,
+                    async_accum=4, on_worker_failure="continue",
+                    max_worker_restarts=1, min_workers=0.75,
+                    ps_auto_restart=True, ps_probe_interval=1.0,
+                    max_ps_restarts=3, ps_pipeline=True,
+                    delta_compression="int8", num_workers=2)
+    tpu_model = TPUModel(model, port=free_port(), **async_kw)
+    jtpu = JTPUModel(jm, port=free_port(), **async_kw)
+    assert tpu_model.get_config() == jtpu.get_config()
+    assert tpu_model.get_config()["async_accum"] == 4
 
 
 @pytest.mark.parametrize("mode", ["asynchronous", "hogwild"])
 def test_unported_modes_raise(mode):
+    """The async modes run on one parameter server; a sharded plane and
+    hot standbys (ROADMAP Queue 1 item 4's remainder) raise."""
     model = _classification_model()
     model.compile(SGD(0.1), "categorical_crossentropy", seed=0)
+    tpu_model = TPUModel(model, mode=mode, port=free_port())
+    assert tpu_model.parameter_server is not None
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        TPUModel(model, mode=mode)
+        TPUModel(model, mode=mode, ps_shards=2)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        TPUModel(model, mode=mode, ps_shards=2, ps_standby=True)
 
 
 def test_unported_and_invalid_surfaces_raise():
@@ -193,7 +215,7 @@ def test_unported_and_invalid_surfaces_raise():
     tpu_model = TPUModel(model, mode="synchronous")
     with pytest.raises(NotImplementedError):
         tpu_model.save("model.h5")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(AttributeError):   # no server in synchronous mode
         tpu_model.start_server()
     with pytest.raises(ValueError):
         TPUModel(model, mode="bulk").fit(to_dataset(np.zeros((4, 784)),
