@@ -33,13 +33,21 @@ HTTP at epoch frequency and hogwild over the socket at batch frequency
 workers), each with the oracle, the accuracy check, the server's update
 count against the pushes issued, samples/s and RPC times, then one
 worker's fit on the card against the CPU (no kernel runs there: the
-phase fails if one launches); and ``TPUModel`` over the
+phase fails if one launches); ``keras_persist`` (no kernel either):
+the sync-step model through ``TPUModel.save``/``load_tpu_model``
+(predict and evaluate bit-equal), a ``ModelCheckpoint(block=False)``
+fit restored bit-equal into a fresh ``Sequential`` that trains on, and
+``TPUMatrixModel`` on 8,192 LabeledPoints (async, 2 workers) with its
+``mllib`` predict and save; and ``TPUModel`` over the
 flagship ``TransformerModel`` (one epoch of 2 steps, ``predict``,
 ``evaluate``), whose flash kernel launches are counted. Last,
-``TPUModel`` over the ``examples/transformer_tpumodel.py`` LM (head dim
-32: vocab 512, 4 layers, 8 heads, d_model 256) fits 256 seeded rows for
-up to 5 epochs with ``EarlyStopping`` and serves ``predict`` and
-``evaluate`` through the head-dim-32 flash kernels, and one f32
+``examples/transformer_tpumodel.py`` whole: ``TPUModel`` over its LM
+(head dim 32: vocab 512, 4 layers, 8 heads, d_model 256) fits 256
+seeded rows for up to 5 epochs with ``ModelCheckpoint`` and
+``EarlyStopping`` and serves ``predict`` and ``evaluate`` through the
+head-dim-32 flash kernels; a fresh model restores the checkpoint
+bit-equal, trains one more epoch, and goes through ``TPUModel.save``
+and ``load_tpu_model`` to a bit-equal ``predict``; and one f32
 gradient at that config through the kernels meets the plain path's;
 and ``forward`` of the ``examples/http_serving.py`` LM (head dim 16,
 f32) runs the head-dim-16 flash kernel and meets the plain path. Every
@@ -52,9 +60,11 @@ No CPU path: without a CUDA device it exits non-zero at once.
 """
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1085,7 +1095,7 @@ def run_keras_sync_step(data):
           "epoch_time_s": hist["epoch_time"], "fit_s": fit_s,
           "samples_per_s": samples_s, "plain_loop_samples_per_s": plain_s,
           "held_out_loss_acc": evals, "master_loss_acc": master_evals})
-    return samples_s
+    return samples_s, tpu_model
 
 
 def check_delta_mean(w0, shards, new_weights, hists):
@@ -1311,6 +1321,115 @@ def run_keras_async(data, sync_samples_s):
     async_card_matches_cpu(data)
 
 
+def run_keras_persist(data, tpu_model):
+    """Persistence on the sync-step phase's MLP and rows: (1)
+    ``TPUModel.save`` then ``load_tpu_model`` (onto the card): ``predict``
+    and ``evaluate`` bit-equal, the distributed and optimizer configs
+    equal; (2) a Keras ``fit`` (Adam 1e-3, one epoch, batch 64) with
+    ``ModelCheckpoint(block=False)``, then a fresh ``Sequential`` of the
+    same layers (other auto names, another init) restores params and
+    Adam state bit-equal, and one more epoch lowers the loss; (3)
+    ``TPUMatrixModel`` on ``to_labeled_points`` of 8,192 rows
+    (categorical), its default asynchronous mode with 2 workers, 1
+    epoch: ``predict`` on a ``DenseMatrix`` equals the master network's,
+    on a ``DenseVector`` the matrix's first row within 1e-6 (a batch of
+    one takes another GEMM), and a save and ``load_tpu_model`` give a
+    ``TPUMatrixModel`` back."""
+    import tempfile
+
+    from elephas_tpu_torch import (Adam, SGD, TPUMatrixModel, TPUModel,
+                                   load_tpu_model, to_labeled_points)
+    from elephas_tpu_torch.mllib import DenseMatrix, to_matrix, to_vector
+    from elephas_tpu_torch.models import ModelCheckpoint
+    from elephas_tpu_torch.models.optimizers import opt_state_leaves
+    from elephas_tpu_torch.utils.sockets import free_port
+
+    (x, y), (x_test, y_test) = data
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        path = f"{tmp}/mlp.h5"
+        t0 = time.perf_counter()
+        tpu_model.save(path)
+        out["save_ms"] = 1e3 * (time.perf_counter() - t0)
+        out["file_bytes"] = os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded = load_tpu_model(path)
+        torch.cuda.synchronize()
+        out["load_ms"] = 1e3 * (time.perf_counter() - t0)
+        require(type(loaded) is TPUModel
+                and loaded.master_network.device.type == "cuda"
+                and loaded.get_config() == tpu_model.get_config()
+                and loaded.master_optimizer == tpu_model.master_optimizer,
+                "the loaded TPUModel has the saved configs, on the card")
+        require(np.array_equal(loaded.predict(x_test),
+                               tpu_model.predict(x_test)),
+                "the loaded model's predict is bit-equal")
+        evals = loaded.evaluate(x_test, y_test)
+        require(evals == tpu_model.evaluate(x_test, y_test),
+                "the loaded model's evaluate is bit-equal")
+
+        ckpt_dir = f"{tmp}/ckpt"
+        model = mnist_mlp(0.0)
+        model.compile(Adam(1e-3), "categorical_crossentropy", ["acc"],
+                      seed=0)
+        first = model.fit(x, y, epochs=1, batch_size=64, callbacks=[
+            ModelCheckpoint(ckpt_dir, block=False)]).history["loss"][0]
+        fresh = mnist_mlp(0.0)
+        fresh.compile(Adam(1e-3), "categorical_crossentropy", ["acc"],
+                      seed=1)
+        require([l.name for l in fresh.layers]
+                != [l.name for l in model.layers], "other layer names")
+        t0 = time.perf_counter()
+        step = fresh.restore_training_state(ckpt_dir)
+        torch.cuda.synchronize()
+        out["restore_ms"] = 1e3 * (time.perf_counter() - t0)
+        require(step == 0, f"restored step {step}")
+        pairs = (list(zip(fresh.get_weights(), model.get_weights()))
+                 + [(a.cpu().numpy(), b.cpu().numpy()) for a, b in zip(
+                     opt_state_leaves(fresh._opt_state),
+                     opt_state_leaves(model._opt_state))])
+        require(len(pairs) == 6 + 13 and all(
+            a.dtype == b.dtype and np.array_equal(a, b) for a, b in pairs),
+            "params and Adam state restored bit-equal")
+        second = fresh.fit(x, y, epochs=1, batch_size=64).history["loss"][0]
+        require(np.isfinite(second) and second < first,
+                f"the resumed epoch lowers the loss: {first} -> {second}")
+        out.update(first_epoch_loss=first, resumed_epoch_loss=second)
+
+        rows = 8192
+        matrix_model = mnist_mlp(0.0)
+        matrix_model.compile(SGD(learning_rate=0.01),
+                             "categorical_crossentropy", ["acc"], seed=0)
+        before = matrix_model.get_weights()
+        mm = TPUMatrixModel(matrix_model, num_workers=2, batch_size=64,
+                            port=free_port())
+        t0 = time.perf_counter()
+        mm.fit(to_labeled_points(x[:rows], y[:rows], categorical=True),
+               epochs=1, batch_size=64, categorical=True, nb_classes=10)
+        out["matrix_fit_s"] = time.perf_counter() - t0
+        require(mm.parameter_server.num_updates == 2,
+                "one push per worker and epoch")
+        require(any(not np.array_equal(a, b) for a, b in
+                    zip(before, matrix_model.get_weights())),
+                "the matrix model's weights moved")
+        probe = x_test[:16]
+        preds = mm.predict(to_matrix(probe))
+        require(isinstance(preds, DenseMatrix) and np.array_equal(
+            preds.toArray(), matrix_model.predict(probe).astype(np.float64)),
+            "matrix predict equals the master network's")
+        row = mm.predict(to_vector(probe[0])).toArray()
+        out["vector_vs_matrix_err"] = float(
+            np.abs(row - preds.toArray()[0]).max())
+        require(out["vector_vs_matrix_err"] <= 1e-6,
+                "vector predict is the matrix's first row")
+        mm.save(f"{tmp}/matrix.h5")
+        back = load_tpu_model(f"{tmp}/matrix.h5")
+        require(type(back) is TPUMatrixModel and back.num_workers == 2,
+                "a saved TPUMatrixModel loads as one")
+    emit({"phase": "keras_persist", "rows": len(x), "matrix_rows": rows,
+          "held_out_loss_acc": evals, **out})
+
+
 def run_tpu_model_lm(cfg):
     """``TPUModel(TransformerModel(flagship))`` in synchronous mode: one
     epoch of 2 steps at batch 8 x 1024 (18 seeded Zipf rows, 2 held out
@@ -1368,17 +1487,39 @@ def run_tpu_model_lm_d32():
     ``EarlyStopping(val_loss, patience 2)``, then ``predict`` and
     ``evaluate`` on 32 rows. The d 32 flash kernels must carry every
     forward and step; the loss must fall; evaluate must equal the
-    cross-entropy of predict's logits. Then one f32 gradient at this
-    config through the kernels against the plain path."""
-    from elephas_tpu_torch import Adam, TPUModel
-    from elephas_tpu_torch.models import EarlyStopping
+    cross-entropy of predict's logits. The rest of the example follows:
+    ``ModelCheckpoint`` beside ``EarlyStopping`` writes every epoch (the
+    manifest's latest step is the last epoch run, the last 3 kept); a
+    fresh model (seed 7) restores params, Adam moments and count
+    bit-equal; it trains one more epoch through ``TPUModel`` (launches
+    by formula); ``TPUModel.save`` and ``load_tpu_model`` give a model
+    of the same config whose ``predict`` is bit-equal on the kernels.
+    Then one f32 gradient at this config through the kernels against
+    the plain path."""
+    import tempfile
+
+    from elephas_tpu_torch import Adam, TPUModel, load_tpu_model
+    from elephas_tpu_torch.models import EarlyStopping, ModelCheckpoint
+    from elephas_tpu_torch.models.optimizers import opt_state_leaves
     from elephas_tpu_torch.models.transformer import (TRANSFORMER_TPUMODEL,
                                                       TransformerConfig,
                                                       init_params)
     from elephas_tpu_torch.models.transformer_model import TransformerModel
+    from elephas_tpu_torch.weights import tree_leaves
 
     cfg = TransformerConfig(**TRANSFORMER_TPUMODEL)
     require(cfg.head_dim == 32, f"head dim {cfg.head_dim}")
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    ckpt = ModelCheckpoint(f"{tmp.name}/ckpt")
+    save_ms = []
+    blocking_save = ckpt.manager.save
+
+    def timed_save(*args, **kwargs):
+        t = time.perf_counter()
+        blocking_save(*args, **kwargs)
+        save_ms.append(1e3 * (time.perf_counter() - t))
+
+    ckpt.manager.save = timed_save
     rows, seq, batch, epochs, val = 256, cfg.max_seq_len, 16, 5, 0.1
     tokens = zipf_tokens(np.random.default_rng(12), cfg.vocab_size,
                          (rows, seq))
@@ -1388,7 +1529,7 @@ def run_tpu_model_lm_d32():
     reset_counts()
     t0 = time.perf_counter()
     tpu_model.fit(tokens, epochs=epochs, batch_size=batch,
-                  validation_split=val, callbacks=[stop])
+                  validation_split=val, callbacks=[ckpt, stop])
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     fit_counts = read_counts()
@@ -1423,18 +1564,86 @@ def run_tpu_model_lm_d32():
     require(infer_counts["flash_fwd"] == 2 * layers,
             f"predict and evaluate launched flash_fwd: {infer_counts}")
     counts = {k: fit_counts[k] + infer_counts[k] for k in fit_counts}
+
+    # the rest of examples/transformer_tpumodel.py: restore, resume, save
+    manifest = ckpt.manager.manifest()
+    require(manifest["latest_step"] == ran - 1
+            and manifest["steps"] == list(range(max(0, ran - 3), ran)),
+            f"one checkpoint per epoch, the last 3 kept: {manifest}")
+    ckpt_bytes = sum(f.stat().st_size for f in
+                     Path(tmp.name, "ckpt").rglob("*") if f.is_file())
+    resumed = TransformerModel(cfg, device="cuda").compile(Adam(3e-4), seed=7)
+    t0 = time.perf_counter()
+    step = resumed.restore_training_state(f"{tmp.name}/ckpt")
+    torch.cuda.synchronize()
+    restore_ms = 1e3 * (time.perf_counter() - t0)
+    pairs = list(zip(tree_leaves(resumed.params) + opt_state_leaves(
+        resumed._opt_state), tree_leaves(model.params) + opt_state_leaves(
+        model._opt_state)))
+    require(step == ran - 1 and len(pairs) == 1 + 3 * len(
+        tree_leaves(model.params)) and all(
+        a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs),
+        "restore_training_state: params, moments and count bit-equal")
+    resumed_tpu = TPUModel(resumed, mode="synchronous")
+    reset_counts()
+    resumed_tpu.fit(tokens, epochs=1, batch_size=batch, validation_split=val)
+    torch.cuda.synchronize()
+    resumed_counts = read_counts()
+    resumed_hist = resumed_tpu.training_histories[-1]
+    require(np.isfinite(resumed_hist["loss"] + resumed_hist["val_loss"]).all(),
+            f"finite resumed losses {resumed_hist}")
+    resumed_steps = (rows - int(round(rows * val))) // batch
+    for name in ("flash_dq", "flash_dkv"):
+        require(resumed_counts[name] == layers * resumed_steps,
+                f"resumed fit: {name} once per layer and step: "
+                f"{resumed_counts}")
+    require(resumed_counts["flash_fwd"] == layers * (resumed_steps + 1),
+            f"resumed fit: flash_fwd per layer and forward: {resumed_counts}")
+    path = f"{tmp.name}/lm.h5"
+    t0 = time.perf_counter()
+    resumed_tpu.save(path)
+    tpu_save_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    loaded = load_tpu_model(path)
+    torch.cuda.synchronize()
+    tpu_load_ms = 1e3 * (time.perf_counter() - t0)
+    require(type(loaded) is TPUModel
+            and isinstance(loaded.master_network, TransformerModel)
+            and loaded.master_network.get_config() == resumed.get_config(),
+            "load_tpu_model gives a TPUModel over the same LM config")
+    saved_logits = resumed_tpu.predict(probe)
+    reset_counts()
+    loaded_logits = loaded.predict(probe)
+    torch.cuda.synchronize()
+    loaded_counts = read_counts()
+    require(np.array_equal(loaded_logits, saved_logits),
+            "the loaded model's predict is bit-equal to the saved one's")
+    require(loaded_counts["flash_fwd"] == layers,
+            f"the loaded predict ran flash_fwd once per layer: "
+            f"{loaded_counts}")
+    file_bytes = os.path.getsize(path)
+    tmp.cleanup()
     emit({"phase": "tpu_model_lm_d32", "config": TRANSFORMER_TPUMODEL,
           "head_dim": cfg.head_dim, "rows": rows, "batch": batch,
           "epochs_run": ran, "stopped_epoch": stop.stopped_epoch,
           "steps": steps, "history": hist, "fit_s": fit_s,
           "evaluate_loss": loss, "predict_cross_entropy": ce,
           "launches": counts, "launches_fit": fit_counts,
-          "launches_predict_evaluate": infer_counts})
+          "launches_predict_evaluate": infer_counts,
+          "checkpoint": {"manifest_steps": manifest["steps"],
+                         "bytes_on_disk": ckpt_bytes,
+                         "blocking_save_ms_per_epoch": save_ms,
+                         "restore_ms": restore_ms, "restored_step": step},
+          "resumed": {"history": resumed_hist, "steps": resumed_steps,
+                      "launches": resumed_counts},
+          "tpu_model_file": {"save_ms": tpu_save_ms, "load_ms": tpu_load_ms,
+                             "bytes": file_bytes,
+                             "predict_launches": loaded_counts}})
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          device="cuda")
     run_train_parity(params, cfg, shape=(batch, seq),
                      phase="train_parity_d32")
-    return counts
+    return counts, resumed_counts, loaded_counts
 
 
 def main() -> int:
@@ -1484,15 +1693,20 @@ def main() -> int:
     train_counts = run_train(cfg)
 
     data = (mnist_like(60000, seed=0), mnist_like(10000, seed=1))
-    sync_samples_s = run_keras_sync_step(data)
+    sync_samples_s, sync_tpu_model = run_keras_sync_step(data)
     run_keras_sync_average(data)
     reset_counts()
     run_keras_async(data, sync_samples_s)
     async_counts = read_counts()
     require(not any(async_counts.values()),
             f"no async path launches a kernel: {async_counts}")
+    reset_counts()
+    run_keras_persist(data, sync_tpu_model)
+    persist_counts = read_counts()
+    require(not any(persist_counts.values()),
+            f"no Keras persistence path launches a kernel: {persist_counts}")
     lm_counts = run_tpu_model_lm(cfg)
-    d32_counts = run_tpu_model_lm_d32()
+    d32_counts, resumed_counts, loaded_counts = run_tpu_model_lm_d32()
     d16_counts = run_forward_d16()
 
     # max_abs_err: the largest error of any comparison this run made for
@@ -1504,8 +1718,11 @@ def main() -> int:
     # launches on each path, each path's counts set to 0 just before it
     paths = {"forward": fwd_counts, "serving": srv_counts,
              "train": train_counts, "tpu_model_lm": lm_counts,
-             "tpu_model_lm_d32": d32_counts, "forward_d16": d16_counts,
-             "keras_async": async_counts}
+             "tpu_model_lm_d32": d32_counts,
+             "tpu_model_lm_d32_resumed_fit": resumed_counts,
+             "tpu_model_lm_d32_loaded_predict": loaded_counts,
+             "forward_d16": d16_counts, "keras_async": async_counts,
+             "keras_persist": persist_counts}
     kernels = [
         {"name": "paged_decode", "route": "cuda",
          "source": "elephas_tpu_torch/csrc/paged_decode.cu",
@@ -1530,9 +1747,13 @@ def main() -> int:
         entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}
         # each head dim's errors and times at the shape named beside them
         # (flash d 32 also at the training shape), and its instance's
-        # launches on the path that runs it: d 64 the flagship's (as
-        # above), d 32 tpu_model_lm_d32, d 16 forward_d16
-        launches = {"16": d16_counts[name], "32": d32_counts[name],
+        # launches on the paths that run it: d 64 the flagship's (as
+        # above), d 32 tpu_model_lm_d32's three (the first fit with its
+        # predict and evaluate, the resumed fit, the loaded model's
+        # predict), d 16 forward_d16
+        launches = {"16": d16_counts[name],
+                    "32": d32_counts[name] + resumed_counts[name]
+                    + loaded_counts[name],
                     "64": entry["launches"]}
         entry["by_head_dim"] = {
             d: {**{k: t[k] for k in (*keys, "shape") if k in t},

@@ -16,7 +16,12 @@ Adam / AdamW / RMSprop optimizers and ``TransformerModel``) with the
 flash-attention backward kernels, and the Keras-style models
 (``Sequential``, functional ``Model``, Dense / Activation / Dropout /
 Flatten / Reshape) with synchronous data-parallel training through
-``TPUModel`` (``sync_mode`` "average" and "step") on one device.
+``TPUModel`` (``sync_mode`` "average" and "step") on one device, its
+asynchronous and hogwild modes with one parameter server, and
+persistence: model files (``save_model``/``load_model``,
+``TPUModel.save``/``load_tpu_model``), step checkpoints with bit-exact
+resume (``ModelCheckpoint``, ``restore_training_state``) and
+``TPUMatrixModel`` over the ``mllib`` types.
 """
 from .data.dataset import Dataset
 from .models.core import Model, Sequential, model_from_json
@@ -28,8 +33,8 @@ from .models.transformer import (TransformerConfig, forward, init_params,
                                  lm_loss, make_train_step, prefill_cache)
 from .models.transformer_model import TransformerModel
 from .serving_engine import DecodeEngine
-from .tpu_model import TPUModel
-from .utils.dataset_utils import to_dataset
+from .tpu_model import TPUMatrixModel, TPUModel, load_tpu_model
+from .utils.dataset_utils import to_dataset, to_labeled_points
 from .weights import from_numpy_tree, to_numpy_tree
 
 __all__ = ["TransformerConfig", "init_params", "forward", "prefill_cache",
@@ -38,4 +43,5 @@ __all__ = ["TransformerConfig", "init_params", "forward", "prefill_cache",
            "DecodeEngine", "from_numpy_tree", "to_numpy_tree", "Sequential",
            "Model", "model_from_json", "Input", "Dense", "Activation",
            "Dropout", "Flatten", "Reshape", "Dataset", "to_dataset",
-           "TPUModel"]
+           "to_labeled_points", "TPUModel", "TPUMatrixModel",
+           "load_tpu_model"]

@@ -1,9 +1,9 @@
 """Keras-style training callbacks.
 
 The counterpart of ``elephas_tpu/models/callbacks.py``: ``Callback``,
-``CallbackList``, ``EarlyStopping`` and ``LambdaCallback``.
-``ModelCheckpoint`` waits for the checkpoint slice of the port (ROADMAP
-Queue 1 item 3).
+``CallbackList``, ``EarlyStopping``, ``ModelCheckpoint`` (the full
+training state each epoch through :class:`~elephas_tpu_torch.utils.
+checkpoint.CheckpointManager`) and ``LambdaCallback``.
 """
 import math
 import warnings
@@ -11,7 +11,8 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
-__all__ = ["Callback", "CallbackList", "EarlyStopping", "LambdaCallback"]
+__all__ = ["Callback", "CallbackList", "EarlyStopping", "LambdaCallback",
+           "ModelCheckpoint"]
 
 
 class Callback:
@@ -142,6 +143,94 @@ class EarlyStopping(Callback):
         # triggered (epochs may simply have run out mid-plateau)
         if self.restore_best_weights and self._best_weights is not None:
             self.model.set_weights(self._best_weights)
+
+
+class ModelCheckpoint(Callback):
+    """Save the full training state (params + optimizer state) every epoch
+    via :class:`~elephas_tpu_torch.utils.checkpoint.CheckpointManager`.
+
+    Resume with ``model.restore_training_state(directory)``.
+
+    :param save_best_only: only write when ``monitor`` improves.
+    :param block: ``False`` writes checkpoints on a background thread
+        (state is copied to host memory first), so epochs never stall on
+        checkpoint IO; the final write is flushed at ``on_train_end``.
+    :param checkpoint_on_preemption: trap SIGTERM (a preemptible VM's
+        eviction notice) for the duration of training and write one
+        final checkpoint of the live state before exiting (manifest gets
+        ``preempted: true``). Requires fit() to run in the main thread.
+    """
+
+    def __init__(self, directory: str, monitor: str = "loss",
+                 save_best_only: bool = False, mode: str = "min",
+                 max_to_keep: int = 3, block: bool = True,
+                 checkpoint_on_preemption: bool = False):
+        super().__init__()
+        from ..utils.checkpoint import CheckpointManager
+
+        if mode not in ("min", "max"):
+            raise ValueError("mode must be 'min' or 'max'")
+        self.manager = CheckpointManager(directory, max_to_keep=max_to_keep)
+        self.monitor = monitor
+        self.save_best_only = save_best_only
+        self.mode = mode
+        self.best = math.inf if mode == "min" else -math.inf
+        self.block = block
+        self.checkpoint_on_preemption = checkpoint_on_preemption
+        self._uninstall_preemption = None
+        self._cur_epoch = 0
+        self._epoch_offset = 0
+        self._warned_missing = False
+
+    def on_train_begin(self, logs=None):
+        # instance may be reused across fit() calls: reset the best and
+        # number epochs after any already-checkpointed step
+        self.best = math.inf if self.mode == "min" else -math.inf
+        self._warned_missing = False
+        self._cur_epoch = 0   # stale value from a previous fit would
+        latest = self.manager.latest_step()  # stamp a phantom step
+        self._epoch_offset = (latest + 1) if latest is not None else 0
+        if self.checkpoint_on_preemption:
+            from ..utils.checkpoint import install_preemption_checkpoint
+
+            self._uninstall_preemption = install_preemption_checkpoint(
+                self.manager,
+                lambda: (self._epoch_offset + self._cur_epoch,
+                         self.model.training_state()),
+                model_json=self.model.to_json())
+
+    def on_epoch_begin(self, epoch, logs=None):
+        self._cur_epoch = epoch
+
+    def on_epoch_end(self, epoch, logs=None):
+        if self.save_best_only:
+            value = (logs or {}).get(self.monitor)
+            if value is None:
+                # can't judge "best" without the metric — skip the save
+                # (saving anyway would quietly degrade to save-always)
+                if not self._warned_missing:
+                    warnings.warn(
+                        f"ModelCheckpoint(save_best_only=True) conditioned "
+                        f"on {self.monitor!r}, which is not in the epoch "
+                        f"logs {sorted(logs or {})} — no checkpoints will "
+                        "be written")
+                    self._warned_missing = True
+                return
+            improved = (float(value) < self.best if self.mode == "min"
+                        else float(value) > self.best)
+            if not improved:
+                return
+            self.best = float(value)
+        self.manager.save(self._epoch_offset + epoch,
+                          self.model.training_state(),
+                          model_json=self.model.to_json(),
+                          block=self.block)
+
+    def on_train_end(self, logs=None):
+        if self._uninstall_preemption is not None:
+            self._uninstall_preemption()
+            self._uninstall_preemption = None
+        self.manager.wait_until_finished()
 
 
 class LambdaCallback(Callback):

@@ -21,9 +21,10 @@ means the CUDA device; ``device="cpu"`` asks for the CPU).
   ported layer has state yet (BatchNormalization waits for ROADMAP
   Queue 1 item 3).
 
-``save`` raises ``NotImplementedError`` until the saving slice; the JAX
-package's checkpoint state API (``training_state``,
-``restore_training_state``) is not here yet.
+``save`` writes the model file of :mod:`~elephas_tpu_torch.models.
+saving`; ``training_state``/``restore_training_state`` are the JAX
+package's checkpoint state API (params plus the optimizer state's
+leaves in optax's order), so a checkpoint crosses between the packages.
 """
 import json
 import threading
@@ -217,6 +218,64 @@ class BaseModel:
             new_params[ln][pn] = w
         # a new dict: replicas detect a weight change by its identity
         self.params = new_params
+
+    # -------------------------------------------------- checkpoint state api
+    def training_state(self) -> Dict:
+        """Full resumable training state: model params plus the optimizer
+        state's leaves (dict-keyed, in optax's flatten order) — the one
+        shared encoding (``saving.pack_training_state``)."""
+        from .saving import pack_training_state
+
+        if self.params is None:
+            raise ValueError("Model must be built before training_state()")
+        return pack_training_state(self.params, self._opt_state)
+
+    def restore_training_state(self, directory: str,
+                               step: Optional[int] = None) -> Optional[int]:
+        """Restore params + optimizer state saved by
+        :class:`~elephas_tpu_torch.models.callbacks.ModelCheckpoint` (or
+        by the JAX package's) onto this model's device; returns the
+        restored step.
+
+        The model must be built and compiled with the same architecture.
+        Auto-generated layer names differ between model instances (the uid
+        counter keeps running), so param-bearing layers are renamed to the
+        checkpoint's names positionally (order taken from the manifest's
+        model json) before the state is adopted — this also makes the
+        optimizer-state leaf order match the saved flatten order.
+        """
+        from ..utils.checkpoint import CheckpointManager
+        from .saving import restore_params, unpack_opt_state
+
+        if not self.built:
+            raise RuntimeError("build()/compile() the model (same "
+                               "architecture) before restore_training_state")
+        manager = CheckpointManager(directory)
+        state = manager.restore(step)
+        saved_params = state["params"]
+        manifest = manager.manifest()
+        if "model" in manifest:
+            specs = json.loads(manifest["model"])["config"]["layers"]
+            names = [s.get("name") or s["config"]["name"] for s in specs]
+            saved_order = [n for n in names if n in saved_params]
+        else:  # no manifest: fall back to the stored key order
+            saved_order = list(saved_params)
+        current = [layer for layer in self.layers
+                   if self.params and layer.name in self.params]
+        if len(current) != len(saved_order):
+            raise ValueError(
+                f"checkpoint has {len(saved_order)} parameterized layers, "
+                f"model has {len(current)} — architectures differ")
+        template = {}
+        for layer, saved_name in zip(current, saved_order):
+            template[saved_name] = self.params[layer.name]
+            layer.name = saved_name
+        self.params = restore_params(saved_params, template)
+        trainable, _ = self._split_params(self.params)
+        opt_state = unpack_opt_state(state, self._tx, tree_leaves(trainable))
+        if opt_state is not None:
+            self._opt_state = opt_state
+        return step if step is not None else manager.latest_step()
 
     def _split_params(self, params: Dict) -> Tuple[Dict, Dict]:
         """Split into (trainable, non-trainable) collections."""
@@ -521,8 +580,10 @@ class BaseModel:
 
     def save(self, filepath: str, overwrite: bool = True,
              include_optimizer: bool = True):
-        raise NotImplementedError("model saving is not ported yet (ROADMAP "
-                                  "Queue 1 item 3)")
+        from .saving import save_model
+
+        save_model(self, filepath, overwrite=overwrite,
+                   include_optimizer=include_optimizer)
 
     def summary(self) -> str:
         lines = [f'Model: "{self.name}"', "-" * 60]
@@ -762,7 +823,10 @@ def model_from_json(json_string: str, custom_objects: Optional[Dict] = None,
         return Sequential.from_config(config, custom_objects, device)
     if class_name in ("Model", "Functional"):
         return Model.from_config(config, custom_objects, device)
-    if class_name in ("TransformerModel", "SSMModel"):
-        raise NotImplementedError(f"{class_name} JSON is not ported yet "
-                                  "(ROADMAP Queue 1 items 2 and 6)")
+    if class_name == "TransformerModel":
+        from .transformer_model import TransformerModel
+        return TransformerModel.from_config(config, custom_objects, device)
+    if class_name == "SSMModel":
+        raise NotImplementedError("SSMModel is not ported yet (ROADMAP "
+                                  "Queue 1 item 6)")
     raise ValueError(f"Unknown model class: {class_name!r}")

@@ -32,14 +32,15 @@ config crosses between the packages. Learning-rate schedules and the
 other optimizers of the JAX package (Adagrad, Adadelta, Nadam,
 Adafactor, Lion, LAMB) are not ported yet and raise.
 """
-from typing import Callable, Dict, List, NamedTuple, Optional, Union
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Union
 
 import torch
 
 from ..weights import tree_flatten, tree_leaves, tree_unflatten
 
 __all__ = ["Transform", "Optimizer", "SGD", "Adam", "AdamW", "RMSprop",
-           "get", "serialize", "deserialize"]
+           "get", "serialize", "deserialize", "opt_state_leaves",
+           "opt_state_from_leaves"]
 
 class Transform(NamedTuple):
     """A functional gradient transformation (optax's shape)."""
@@ -331,6 +332,37 @@ def deserialize(config: Dict) -> Optimizer:
     ``{"class_name": ..., "config": {...}}``."""
     return _lookup(config["class_name"]).from_config(
         config.get("config", {}))
+
+
+def opt_state_leaves(state) -> List[torch.Tensor]:
+    """An optimizer state's leaves in optax's flatten order, which is
+    the order of the JAX package's ``jax.tree_util.tree_leaves(opt_state)``
+    for the same optimizer: clipping and the learning-rate scale
+    contribute none; Adam and AdamW give the step count (an int32 0-d
+    tensor, optax's ``count``), then every first moment, then every
+    second moment, each in the parameters' leaf order; SGD with momentum
+    and RMSprop give their traces and second moments likewise."""
+    return [torch.tensor(leaf, dtype=torch.int32) if isinstance(leaf, int)
+            else leaf for leaf in tree_leaves(state)]
+
+
+def opt_state_from_leaves(template, leaves) -> Any:
+    """The inverse of :func:`opt_state_leaves`: ``template`` (a fresh
+    ``init`` of the same transform over the same parameters) with its
+    leaves replaced, in order, by ``leaves`` (numpy arrays, bfloat16
+    bits as ``|V2``), each in the template leaf's dtype and on its
+    device. The count comes back a Python int."""
+    from ..utils.checkpoint import tensor_from_host
+
+    ref, treedef = tree_flatten(template)
+    if len(ref) != len(leaves):
+        raise ValueError(f"{len(leaves)} optimizer-state leaves for a "
+                         f"state of {len(ref)}: the optimizers differ")
+    out = []
+    for like, leaf in zip(ref, leaves):
+        out.append(int(leaf) if isinstance(like, int)
+                   else tensor_from_host(leaf, like))
+    return tree_unflatten(treedef, out)
 
 
 def get(identifier: Union[str, Dict, Optimizer]) -> Optimizer:

@@ -8,19 +8,25 @@ carries a JAX model's weights across), an EMA of the parameters, and
 ``engine()`` to serve the trained weights through the port's paged
 ``DecodeEngine``. Training runs :func:`~elephas_tpu_torch.models.
 transformer.make_train_step` on the model's device, which updates the
-parameters in place.
+parameters in place. ``training_state``/``restore_training_state``
+(bit-exact resume from a ``ModelCheckpoint``), the JSON config and
+``save`` follow the JAX package; bfloat16 weights cross ``get_weights``
+and ``set_weights`` as their raw bits (numpy's ``|V2``), since numpy has
+no bfloat16.
 
 Not ported yet: the mesh arguments (``tensor_parallel``,
 ``sequence_parallel``, ``fsdp``, ``zero_optimizer``, ``mesh``) raise
-unless left at their defaults; saving, checkpoints,
-``generate``/``beam_search`` and speculative decoding are not here.
+unless left at their defaults; ``generate``/``beam_search`` and
+speculative decoding are not here.
 """
+import json
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
+from ..utils.checkpoint import host_array, tensor_from_host
 from ..utils.tracing import StepTimer
 from ..weights import tree_flatten, tree_map, tree_unflatten
 from .optimizers import Optimizer
@@ -109,8 +115,7 @@ class TransformerModel:
         """Flat leaf list in JAX pytree order (sorted dict keys)."""
         if self.params is None:
             raise ValueError("Model must be built before get_weights()")
-        return [leaf.detach().cpu().numpy()
-                for leaf in tree_flatten(self.params)[0]]
+        return [host_array(leaf) for leaf in tree_flatten(self.params)[0]]
 
     def set_weights(self, weights: Sequence[np.ndarray]):
         if self.params is None:
@@ -119,14 +124,77 @@ class TransformerModel:
         if len(leaves) != len(weights):
             raise ValueError(
                 f"Expected {len(leaves)} weight arrays, got {len(weights)}")
-        new_leaves = []
-        for ref, w in zip(leaves, weights):
-            w = torch.from_numpy(np.array(w)).to(ref.dtype)
-            if w.shape != ref.shape:
-                raise ValueError(
-                    f"Shape mismatch: {tuple(w.shape)} vs {tuple(ref.shape)}")
-            new_leaves.append(w.to(self.device))
-        self.params = tree_unflatten(treedef, new_leaves)
+        self.params = tree_unflatten(treedef, [
+            tensor_from_host(w, like) for like, w in zip(leaves, weights)])
+
+    # ------------------------------------------------------- checkpoint api
+    def training_state(self) -> Dict:
+        """Same contract as ``BaseModel.training_state``, so
+        :class:`~elephas_tpu_torch.models.callbacks.ModelCheckpoint`
+        drives this model unchanged."""
+        from .saving import pack_training_state
+
+        if self.params is None:
+            raise ValueError("Model must be built before training_state()")
+        return pack_training_state(self.params, self._opt_state)
+
+    def restore_training_state(self, directory: str,
+                               step: Optional[int] = None) -> Optional[int]:
+        """Restore params + optimizer moments saved by ModelCheckpoint
+        onto this model's device; bit-exact resume (no layer renaming
+        needed — the param tree's keys are positional and stable).
+        Returns the restored step."""
+        from ..utils.checkpoint import CheckpointManager
+        from .saving import unpack_training_state
+
+        if not self.built:
+            raise RuntimeError("build()/compile() before "
+                               "restore_training_state")
+        manager = CheckpointManager(directory)
+        params, opt_state = unpack_training_state(manager.restore(step),
+                                                  self._tx, self.params)
+        self.params = params
+        if opt_state is not None:
+            self._opt_state = opt_state
+        return step if step is not None else manager.latest_step()
+
+    # -------------------------------------------------------- serialization
+    def get_config(self) -> Dict:
+        from .saving import transformer_config_to_dict
+
+        return {"name": self.name, "tensor_parallel": 1,
+                "sequence_parallel": 1, "zero_optimizer": False,
+                "grad_accum": self.grad_accum, "fsdp": False,
+                "ema_decay": self.ema_decay,
+                "transformer_config": transformer_config_to_dict(
+                    self.config)}
+
+    def to_json(self, **kwargs) -> str:
+        return json.dumps({"class_name": "TransformerModel",
+                           "config": self.get_config()}, **kwargs)
+
+    @classmethod
+    def from_config(cls, config: Dict, custom_objects: Optional[Dict] = None,
+                    device: DeviceLike = None) -> "TransformerModel":
+        """The model of a :meth:`get_config` dict (the JAX package's
+        too), on ``device``; mesh settings other than the defaults
+        raise, as the constructor does."""
+        from .saving import transformer_config_from_dict
+
+        return cls(transformer_config_from_dict(config["transformer_config"]),
+                   tensor_parallel=config.get("tensor_parallel", 1),
+                   name=config.get("name"),
+                   zero_optimizer=config.get("zero_optimizer", False),
+                   grad_accum=config.get("grad_accum", 1),
+                   fsdp=config.get("fsdp", False),
+                   sequence_parallel=config.get("sequence_parallel", 1),
+                   ema_decay=config.get("ema_decay"), device=device)
+
+    def save(self, filepath: str, overwrite: bool = True,
+             include_optimizer: bool = True):
+        from .saving import save_model
+
+        save_model(self, filepath, overwrite, include_optimizer)
 
     # ------------------------------------------------------------- training
     def fit_tokens(self, tokens: np.ndarray, epochs: int = 1,

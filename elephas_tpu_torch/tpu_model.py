@@ -31,32 +31,73 @@ only, as in the JAX package.
 defaults to the number of visible CUDA devices (1 on one card; the JAX
 package's default is ``jax.device_count()``).
 
+``save`` writes the master model and the distributed config into one
+model file (:mod:`~elephas_tpu_torch.models.saving`: a zip where the JAX
+package writes HDF5), optionally pushed with ``hadoop fs`` or to an
+object store; :func:`load_tpu_model` rebuilds a :class:`TPUModel` or
+:class:`TPUMatrixModel` from it, or from a file the JAX package wrote
+(where ``h5py`` is installed). :class:`TPUMatrixModel` trains on
+LabeledPoint datasets and predicts on the ``mllib`` types.
+
 There is one process: the JAX package's multi-host hooks (the
 coordinator's address broadcast and the barriers of its ``_fit_async``)
 have no counterpart: the one process serves the parameter server. Not ported
 yet, and raising ``NotImplementedError``: a sharded parameter plane
 (``ps_shards > 1``) and hot standbys (``ps_standby``), ROADMAP Queue 1
-item 4's remainder; ``save``, which waits for the saving slice (Queue 1
-item 3), which must pick a format (the JAX package writes h5 through
-h5py).
+item 4's remainder.
 """
+import json
+import subprocess
 import threading
 import time
 import warnings
+from pathlib import Path
 from typing import Any, Dict, List, Optional, Union
+from uuid import uuid4
 
 import numpy as np
 import torch
 
+from ._device import DeviceLike
 from .data.dataset import Dataset
+from .mllib.adapter import from_matrix, from_vector, to_matrix, to_vector
+from .mllib.linalg import Matrix, Vector
 from .models import deserialize_optimizer, serialize_optimizer
+from .models import saving
 from .models.core import BaseModel
 from .models.transformer_model import TransformerModel
 from .parameter.factory import (create_sharded_client, create_sharded_server,
                                 get_transport)
-from .utils.dataset_utils import to_dataset
+from .utils.dataset_utils import lp_to_dataset, to_dataset
 from .utils.serialization import model_to_dict
 from .worker import AsyncWorker
+
+
+def _temp_model_path(file_name: str) -> str:
+    """Unique local staging filename carrying ``file_name``'s suffix —
+    used for hadoop/object-store transfers in both directions."""
+    return str(uuid4()) + "-temp-model-file." + file_name.split(".")[-1]
+
+
+def _run_hadoop(cli, detail: str = ""):
+    """Run a ``hadoop fs`` command, raising on ANY failure — a missing
+    CLI or non-zero exit must never read as success (the reference
+    swallows both, ``spark_model.py:127-134``)."""
+    suffix = f" {detail}" if detail else ""
+    try:
+        proc = subprocess.run(cli, capture_output=True, text=True)
+    except FileNotFoundError:
+        raise RuntimeError(
+            f"hadoop CLI not found — cannot run {' '.join(cli)}{suffix}")
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"{' '.join(cli[:3])} failed (rc={proc.returncode}): "
+            f"{proc.stderr.strip() or proc.stdout.strip()}{suffix}")
+
+
+def _check_suffix(file_name: str):
+    if not file_name.endswith((".h5", ".keras")):
+        raise ValueError("File name must end with either '.h5' or '.keras'")
 
 
 class _EpochAggregator:
@@ -273,8 +314,7 @@ class TPUModel:
         self.parameter_server = None
         self.client = None
         # an LM trains synchronously only (fit raises for the async
-        # modes, as in the JAX package) and has no JSON form in the
-        # port yet, so it gets no parameter server
+        # modes, as in the JAX package), so it gets no parameter server
         if (self.mode != "synchronous"
                 and not isinstance(model, TransformerModel)):
             self.serialized_model = model_to_dict(model)
@@ -406,11 +446,57 @@ class TPUModel:
             self.client.close()  # drop the persistent PS connection
         self.parameter_server.stop()
 
+    # ------------------------------------------------------------------- save
     def save(self, file_name: str, overwrite: bool = False,
              to_hadoop: bool = False):
-        raise NotImplementedError(
-            "TPUModel.save is not ported yet (ROADMAP Queue 1 item 3: the "
-            "saving slice chooses a format; the JAX package writes h5)")
+        """Save the master model + distributed config in one model file,
+        optionally pushing it to a Hadoop cluster (parity:
+        ``elephas/spark_model.py:92-134``).
+
+        ``file_name`` may also be an object-store URL (``gs://...``,
+        ``s3://...``): the file is written locally and uploaded through
+        the scheme's registered :mod:`~elephas_tpu_torch.utils.storage`
+        adapter. A local file is replaced whatever ``overwrite`` says,
+        as in the JAX package; an existing object raises unless
+        ``overwrite``."""
+        _check_suffix(file_name)
+        from .utils.storage import get_store, is_remote
+
+        remote_url = None
+        if is_remote(file_name):
+            if to_hadoop:
+                raise ValueError("to_hadoop and an object-store URL are "
+                                 "mutually exclusive")
+            remote_url = file_name
+            file_name = _temp_model_path(file_name)
+
+        if to_hadoop:
+            cluster_file_path = file_name
+            file_name = _temp_model_path(file_name)
+
+        entries = saving.model_entries(self._master_network)
+        entries["distributed_config"] = saving.json_entry(json.dumps({
+            "class_name": self.__class__.__name__,
+            "config": self.get_config()}))
+        saving.write_model_file(file_name, entries)
+
+        if to_hadoop:
+            cli = ["hadoop", "fs", "-moveFromLocal"]
+            if overwrite:
+                cli.append("-f")
+            cli.extend([file_name, cluster_file_path])
+            # a failed put must raise, not silently "succeed"
+            _run_hadoop(cli, f"(local copy kept at {file_name})")
+        elif remote_url is not None:
+            store = get_store(remote_url)
+            if not overwrite and store.exists(remote_url):
+                Path(file_name).unlink()
+                raise FileExistsError(
+                    f"{remote_url} exists (pass overwrite=True)")
+            try:
+                store.put_file(file_name, remote_url)
+            finally:
+                Path(file_name).unlink(missing_ok=True)
 
     # ------------------------------------------------------------------- data
     @staticmethod
@@ -816,3 +902,82 @@ class TPUModel:
         return evaluate(np.asarray(x_test), np.asarray(y_test),
                         batch_size=kwargs.get("batch_size",
                                               max(self.batch_size, 256)))
+
+
+class TPUMatrixModel(TPUModel):
+    """Distributed model over LabeledPoint datasets and dense linalg types
+    (capability mirror of ``SparkMLlibModel``,
+    ``elephas/spark_model.py:311-352``)."""
+
+    def __init__(self, model: BaseModel, mode: str = "asynchronous",
+                 frequency: str = "epoch", parameter_server_mode: str = "http",
+                 num_workers: int = 4, custom_objects: Optional[Dict] = None,
+                 batch_size: int = 32, port: int = 4000, *args, **kwargs):
+        super().__init__(model=model, mode=mode, frequency=frequency,
+                         parameter_server_mode=parameter_server_mode,
+                         num_workers=num_workers,
+                         custom_objects=custom_objects,
+                         batch_size=batch_size, port=port, *args, **kwargs)
+
+    def fit(self, labeled_points: Dataset, epochs: int = 10,
+            batch_size: int = 32, verbose: int = 0,
+            validation_split: float = 0.1, categorical: bool = False,
+            nb_classes: Optional[int] = None):
+        """Train on a Dataset of LabeledPoints."""
+        ds = lp_to_dataset(labeled_points, categorical, nb_classes)
+        ds = ds.repartition(self.num_workers)
+        self._fit(ds, epochs=epochs, batch_size=batch_size, verbose=verbose,
+                  validation_split=validation_split)
+
+    def predict(self, mllib_data: Union[Matrix, Vector]):
+        """Predict on a dense Matrix or Vector, returning the same type."""
+        if isinstance(mllib_data, Matrix):
+            return to_matrix(self._master_network.predict(
+                from_matrix(mllib_data)))
+        if isinstance(mllib_data, Vector):
+            return to_vector(self._master_network.predict(
+                from_vector(mllib_data)[None, :])[0])
+        raise ValueError(
+            f"Provide either a Matrix or Vector, got {type(mllib_data)}")
+
+
+def load_tpu_model(file_name: str, from_hadoop: bool = False,
+                   custom_objects: Optional[Dict] = None,
+                   device: DeviceLike = None
+                   ) -> Union[TPUModel, TPUMatrixModel]:
+    """Load a distributed model saved by :meth:`TPUModel.save` (this
+    package's or the JAX package's), its master model on ``device``
+    (None means the CUDA device; pass ``device="cpu"`` for the CPU)
+    (parity: ``elephas/spark_model.py:355-389``). Object-store URLs
+    (``gs://``, ``s3://``) download through the scheme's registered
+    :mod:`~elephas_tpu_torch.utils.storage` adapter."""
+    from .utils.storage import get_store, is_remote
+
+    _check_suffix(file_name)
+    remote = is_remote(file_name)
+    if from_hadoop and remote:
+        raise ValueError("from_hadoop and an object-store URL are "
+                         "mutually exclusive")
+    temp_download = from_hadoop or remote
+    if from_hadoop:
+        temp_file = _temp_model_path(file_name)
+        _run_hadoop(["hadoop", "fs", "-copyToLocal", file_name, temp_file])
+        file_name = temp_file
+    elif remote:
+        temp_file = _temp_model_path(file_name)
+        get_store(file_name).get_file(file_name, temp_file)
+        file_name = temp_file
+    try:
+        entries = saving.read_model_file(file_name)
+    finally:
+        if temp_download:
+            Path(file_name).unlink()
+    model = saving.model_from_file(entries, custom_objects, device)
+    elephas_conf = json.loads(entries["distributed_config"])
+    class_name = elephas_conf.get("class_name")
+    config = elephas_conf.get("config")
+    if class_name == TPUModel.__name__:
+        return TPUModel(model=model, **config)
+    if class_name == TPUMatrixModel.__name__:
+        return TPUMatrixModel(model=model, **config)
+    raise ValueError(f"Unknown distributed model class {class_name!r}")

@@ -667,3 +667,66 @@ def test_prefetch_to_device_on_card(cuda):
         assert gx.device.type == "cuda" and gy.dtype == torch.int64
         np.testing.assert_array_equal(gx.cpu().numpy(), x)
         np.testing.assert_array_equal(gy.cpu().numpy(), y)
+
+
+def _tiny_lm(device, param_dtype=torch.float32):
+    from elephas_tpu_torch import Adam, TransformerConfig, TransformerModel
+
+    cfg = TransformerConfig(vocab_size=64, num_layers=2, num_heads=2,
+                            d_model=64, d_ff=128, max_seq_len=32,
+                            dtype=torch.float32, param_dtype=param_dtype)
+    return TransformerModel(cfg, device=device).compile(Adam(1e-2), seed=0)
+
+
+@pytest.mark.parametrize("param_dtype", [torch.float32, torch.bfloat16])
+def test_checkpoint_crosses_card_and_cpu_bit_equal(cuda, tmp_path,
+                                                   param_dtype):
+    """A checkpoint written from the card (async: the snapshot copies the
+    card's tensors) restores on the CPU bit-equal, and one written on
+    the CPU restores onto the card, params, moments and count."""
+    from elephas_tpu_torch.models import ModelCheckpoint
+    from elephas_tpu_torch.models.optimizers import opt_state_leaves
+    from elephas_tpu_torch.weights import tree_leaves
+
+    tokens = np.random.default_rng(1).integers(0, 64, (16, 32))
+
+    def assert_same(a, b):
+        for x, y in zip(tree_leaves(a.params) + opt_state_leaves(
+                a._opt_state), tree_leaves(b.params) + opt_state_leaves(
+                b._opt_state)):
+            assert x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())
+
+    trained = _tiny_lm(cuda, param_dtype)
+    trained.fit(tokens, epochs=2, batch_size=8,
+                callbacks=[ModelCheckpoint(str(tmp_path / "card"),
+                                           block=False)])
+    on_cpu = _tiny_lm("cpu", param_dtype)
+    assert on_cpu.restore_training_state(str(tmp_path / "card")) == 1
+    assert_same(on_cpu, trained)
+    on_cpu.fit(tokens, epochs=1, batch_size=8,
+               callbacks=[ModelCheckpoint(str(tmp_path / "cpu"))])
+    back = _tiny_lm(cuda, param_dtype)
+    assert back.restore_training_state(str(tmp_path / "cpu")) == 0
+    assert all(t.device.type == cuda.type for t in tree_leaves(back.params))
+    assert_same(back, on_cpu)
+
+
+def test_load_tpu_model_on_card_predicts_on_the_kernels(cuda, no_tf32,
+                                                       tmp_path):
+    """A model file saved from the CPU loads onto the card; its
+    ``predict`` runs the flash forward (once per layer) and meets the
+    CPU's within 1e-4 in f32."""
+    from elephas_tpu_torch import TPUModel, load_tpu_model
+    from elephas_tpu_torch.ops.flash_attention import flash_forward
+
+    cpu_model = TPUModel(_tiny_lm("cpu"), mode="synchronous", batch_size=4)
+    path = str(tmp_path / "lm.h5")
+    cpu_model.save(path)
+    loaded = load_tpu_model(path, device="cuda")
+    assert loaded.master_network.device.type == "cuda"
+    tokens = np.random.default_rng(2).integers(0, 64, (4, 32))
+    before = flash_forward.launches
+    got = loaded.predict(tokens)
+    assert flash_forward.launches - before == 2
+    np.testing.assert_allclose(got, cpu_model.predict(tokens), atol=1e-4,
+                               rtol=0)

@@ -162,12 +162,16 @@ def test_callbacks_see_each_epoch_and_can_stop(mnist_data, housing_data):
     assert len(h.history["loss"]) == 2 and stop.stopped_epoch == 1
 
 
-def test_unported_optimizers_and_save_raise():
+def test_unported_optimizers_and_save_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         topt.get("nadam")
     tlayers.reset_layer_uids()
     m = tcore.Sequential([tlayers.Dense(2, input_dim=3)], device="cpu")
     m.compile("rmsprop", "mse")
     assert isinstance(m.optimizer, topt.RMSprop)
-    with pytest.raises(NotImplementedError):
-        m.save("model.h5")
+    # saving is ported: the file is written, and only a refused
+    # overwrite raises
+    path = str(tmp_path / "model.h5")
+    m.save(path)
+    with pytest.raises(FileExistsError):
+        m.save(path, overwrite=False)

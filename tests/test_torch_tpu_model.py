@@ -213,8 +213,9 @@ def test_unported_and_invalid_surfaces_raise():
     with pytest.raises(ValueError):
         TPUModel(model, mode="synchronous", sync_mode="bulk")
     tpu_model = TPUModel(model, mode="synchronous")
-    with pytest.raises(NotImplementedError):
-        tpu_model.save("model.h5")
+    # saving is ported; a name without the .h5/.keras suffix raises
+    with pytest.raises(ValueError, match="'.h5' or '.keras'"):
+        tpu_model.save("model.npz")
     with pytest.raises(AttributeError):   # no server in synchronous mode
         tpu_model.start_server()
     with pytest.raises(ValueError):
