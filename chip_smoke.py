@@ -50,7 +50,22 @@ bit-equal, trains one more epoch, and goes through ``TPUModel.save``
 and ``load_tpu_model`` to a bit-equal ``predict``; and one f32
 gradient at that config through the kernels meets the plain path's;
 and ``forward`` of the ``examples/http_serving.py`` LM (head dim 16,
-f32) runs the head-dim-16 flash kernel and meets the plain path. Every
+f32) runs the head-dim-16 flash kernel and meets the plain path.
+Serving over HTTP: ``http_serving_flagship`` puts ``ServingServer`` at
+the flagship width in front of three engines (the default contiguous
+cache; the contiguous cache with a registered system prompt,
+``steps_per_sync=4`` and ``prefill_chunk=64``; the paged pool with the
+fused kernel, the block cache, the registered prompt and
+``steps_per_sync=4``), 16 concurrent streaming clients of a shared
+256-token system prompt plus a 16-128-token suffix and 64 new tokens
+each: f32 tokens equal the port's ``generate``, and in bf16 it prints
+output tokens/s, client TTFT and latency p50/p99, host ms per step,
+prefix reuse and paged-kernel launches, then times ``generate`` and
+``beam_search`` (4 beams) at B 8; ``http_serving_example`` runs
+``examples/http_serving.py``'s program (its LM, engine, registered
+prefix and 5 concurrent text clients, then ``/v1/submit`` and
+``/stats``) with ``kernel="gather"`` and ``kernel="fused"``, each
+client's tokens equal to ``generate``'s. Every
 phase prints one JSON line; any failure raises and the script
 exits non-zero without the final result line. The last three lines are
 the card's name and power limit as ``nvidia-smi`` reports them, the
@@ -849,6 +864,319 @@ def run_serving(params, cfg):
           "f32_near_tie_divergences": ties,
           "bf16": {k: v for k, v in info16.items() if k != "stats"},
           "bf16_stats": info16["stats"], "launches": counts})
+    return counts
+
+
+# ----------------------------------------------------- HTTP serving
+class StepTimer:
+    """Wraps an engine's ``step`` (the ``ServingServer`` loop calls it
+    through the instance) and records each call's host seconds."""
+
+    def __init__(self, engine):
+        self.engine, self.inner, self.seconds = engine, engine.step, []
+        engine.step = self
+
+    def __call__(self):
+        t0 = time.perf_counter()
+        out = self.inner()
+        self.seconds.append(time.perf_counter() - t0)
+        return out
+
+    def restore(self):
+        del self.engine.step
+
+
+def http_open(req, timeout=300):
+    """urlopen with a short retry on a refused connect to a freshly
+    listening loopback socket."""
+    import urllib.error
+    import urllib.request
+
+    for attempt in range(40):
+        try:
+            return urllib.request.urlopen(req, timeout=timeout)
+        except urllib.error.URLError as err:
+            if (isinstance(err, urllib.error.HTTPError)
+                    or not isinstance(err.reason, ConnectionRefusedError)
+                    or attempt == 39):
+                raise
+            time.sleep(0.05)
+
+
+def http_json(port, path, payload=None):
+    import urllib.request
+
+    url = f"http://127.0.0.1:{port}{path}"
+    req = url if payload is None else urllib.request.Request(
+        url, data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    with http_open(req) as resp:
+        return json.loads(resp.read())
+
+
+def http_clients(port, payloads, stream):
+    """One client thread per payload, all released together through
+    ``/v1/generate``. Returns per client (tokens, client TTFT s or None,
+    latency s, final status) and the wall seconds from release to the
+    last reply. Streamed clients time their first token line."""
+    import threading
+    import urllib.request
+
+    out = [None] * len(payloads)
+    gate = threading.Barrier(len(payloads) + 1)
+
+    def client(i):
+        body = dict(payloads[i], stream=stream)
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/v1/generate",
+            data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        gate.wait()
+        t0 = time.perf_counter()
+        with http_open(req) as resp:
+            if not stream:
+                reply = json.loads(resp.read())
+                out[i] = (reply["tokens"], None, time.perf_counter() - t0,
+                          reply.get("status"))
+                return
+            toks, first, status = [], None, None
+            for raw in resp:
+                line = json.loads(raw)
+                if "tokens" in line:
+                    if first is None:
+                        first = time.perf_counter() - t0
+                    toks += line["tokens"]
+                else:
+                    status = line.get("status")
+        out[i] = (toks, first, time.perf_counter() - t0, status)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(payloads))]
+    for t in threads:
+        t.start()
+    gate.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    require(all(o is not None for o in out), "every HTTP client answered")
+    return out, wall
+
+
+def run_http_serving_example():
+    """``examples/http_serving.py``'s program on the port: its LM (byte
+    tokenizer, 2 layers, 4 heads, d_model 64, head dim 16, f32, weights
+    from seed 0), its engine (4 slots, ``steps_per_sync=2``, a pool of 24
+    blocks of 8, "SYSTEM: " registered) behind ``ServingServer``, 5
+    concurrent text clients of 16 new tokens, then ``/v1/submit`` and
+    ``/stats``; once with the example's ``kernel="gather"`` and once
+    with ``kernel="fused"`` (the paged kernel's general body at d 16).
+    Every client's tokens equal the port's ``generate`` on its prompt
+    (tie-aware)."""
+    from elephas_tpu_torch.models.transformer import (TransformerConfig,
+                                                      generate, init_params)
+    from elephas_tpu_torch.serving_engine import DecodeEngine
+    from elephas_tpu_torch.serving_http import ServingServer
+    from elephas_tpu_torch.utils.text import ByteTokenizer
+
+    t_phase = time.perf_counter()
+    tok = ByteTokenizer()
+    cfg = TransformerConfig(vocab_size=tok.vocab_size, num_layers=2,
+                            num_heads=4, d_model=64, d_ff=128,
+                            max_seq_len=96, dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    prompts = ["SYSTEM: hello", "SYSTEM: goodbye", "SYSTEM: what",
+               "plain prompt", "SYSTEM: again"]
+    ids = [tok.encode(p) for p in prompts]
+    ref = [generate(params, [p], 16, cfg)[0].tolist() for p in ids]
+    runs = {}
+    reset_counts()
+    for kernel in ("gather", "fused"):
+        engine = DecodeEngine(params, cfg, max_slots=4, steps_per_sync=2,
+                              paged=(24, 8), kernel=kernel)
+        engine.register_prefix(tok.encode("SYSTEM: "))
+        with ServingServer(engine, tokenizer=tok) as srv:
+            replies, wall = http_clients(
+                srv.port, [{"text": p, "max_new_tokens": 16}
+                           for p in prompts], stream=False)
+            rid = http_json(srv.port, "/v1/submit",
+                            {"text": "one more", "max_new_tokens": 4})["id"]
+            for _ in range(2000):
+                polled = http_json(srv.port, f"/v1/result?id={rid}")
+                if polled["status"] != "pending":
+                    break
+                time.sleep(0.005)
+            stats = http_json(srv.port, "/stats")
+        outs = [r[0] for r in replies]
+        ties = tie_aware_equal(params, cfg, ids, ref, outs)
+        require(polled["status"] == "done" and len(polled["tokens"]) == 4,
+                f"{kernel}: /v1/submit answered: {polled}")
+        require(stats["requests_finished"] == len(prompts) + 1,
+                f"{kernel}: every request finished")
+        runs[kernel] = {"outs": outs, "ties": ties, "wall_s": wall,
+                        "prefix_hits": stats["prefix_hits"],
+                        "prefix_tokens_reused":
+                            stats["prefix_tokens_reused"],
+                        "tokens_per_step": stats["tokens_per_step"],
+                        "kernel_launches": stats["kernel_launches"]}
+    torch.cuda.synchronize()
+    counts = read_counts()
+    ties = tie_aware_equal(params, cfg, ids, runs["gather"]["outs"],
+                           runs["fused"]["outs"])
+    require(runs["gather"]["kernel_launches"] == 0,
+            "the gather engine launched no paged kernel")
+    require(runs["fused"]["kernel_launches"] > 0
+            and counts["paged_decode"] == runs["fused"]["kernel_launches"],
+            f"the fused engine launched the paged kernel: {counts}")
+    emit({"phase": "http_serving_example", "clients": len(prompts),
+          "max_new_tokens": 16,
+          "fused_vs_gather_near_tie_divergences": ties,
+          **{k: {key: v for key, v in r.items() if key != "outs"}
+             for k, r in runs.items()},
+          "launches": counts, "seconds": time.perf_counter() - t_phase})
+    return counts
+
+
+def flagship_http_traffic(cfg, n=16, system_len=256, new=64, seed=9):
+    """Chat traffic with a common system prompt: a shared ``system_len``
+    token prefix plus a 16-128-token suffix per client."""
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, cfg.vocab_size, system_len).tolist()
+    prompts = [system + rng.integers(0, cfg.vocab_size, int(k)).tolist()
+               for k in rng.integers(16, 129, n)]
+    return system, prompts, new
+
+
+FLAGSHIP_ENGINES = {
+    "contiguous": ({}, False),
+    "contiguous_prefix_sync4_chunk64": (dict(steps_per_sync=4,
+                                             prefill_chunk=64), True),
+    "paged_fused_prefix_cache_sync4": (dict(paged=(513, 16), kernel="fused",
+                                            steps_per_sync=4), True),
+}
+
+
+def flagship_engine(params, cfg, name, system):
+    from elephas_tpu_torch.serving_engine import DecodeEngine
+
+    kwargs, register = FLAGSHIP_ENGINES[name]
+    engine = DecodeEngine(params, cfg, **kwargs)
+    if "paged" in kwargs:
+        engine.enable_prefix_cache()        # on by default: a no-op
+    if register:
+        engine.register_prefix(system)
+    return engine
+
+
+def run_http_serving_flagship(params, cfg):
+    """``ServingServer`` at the flagship width (8 slots, 1024 positions)
+    under 16 concurrent streaming clients, each a 256-token shared system
+    prompt plus a 16-128-token suffix, 64 new tokens; three engines: the
+    default contiguous one, the contiguous one with the prefix
+    registered, ``steps_per_sync=4`` and ``prefill_chunk=64``, and the
+    paged one (513 blocks of 16, the fused kernel, the block cache, the
+    prefix registered, ``steps_per_sync=4``). f32: every engine's greedy
+    tokens equal the port's ``generate`` (tie-aware). bf16, after
+    ``warmup``: output tokens/s, client TTFT and request latency p50/p99,
+    host ms per ``step()``, prefix reuse and paged-kernel launches. Then
+    ``generate`` and ``beam_search`` (4 beams) timed at B 8."""
+    from elephas_tpu_torch.models.transformer import beam_search, generate
+    from elephas_tpu_torch.serving_http import ServingServer
+
+    t_phase = time.perf_counter()
+    system, prompts, new = flagship_http_traffic(cfg)
+    payloads = [{"prompt": p, "max_new_tokens": new} for p in prompts]
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    lens = [len(p) for p in prompts]
+    batch = np.zeros((len(prompts), max(lens)), np.int64)
+    for i, p in enumerate(prompts):
+        batch[i, :len(p)] = p
+    ref = generate(params, batch, new, c32, prompt_lengths=lens).tolist()
+    f32 = {}
+    for name in FLAGSHIP_ENGINES:
+        engine = flagship_engine(params, c32, name, system)
+        with ServingServer(engine) as srv:
+            replies, _ = http_clients(srv.port, payloads, stream=True)
+        outs = [r[0] for r in replies]
+        require(all(r[3] == "done" and len(r[0]) == new for r in replies),
+                f"f32 {name}: every stream finished with {new} tokens")
+        f32[name] = tie_aware_equal(params, cfg, prompts, ref, outs)
+        del engine
+    torch.cuda.empty_cache()
+
+    def pct(xs, q):
+        return float(np.percentile(xs, q)) * 1e3
+
+    bf16 = {}
+    reset_counts()
+    for name in FLAGSHIP_ENGINES:
+        engine = flagship_engine(params, cfg, name, system)
+        before = read_counts()["paged_decode"]
+        engine.warmup()
+        timer = StepTimer(engine)
+        with ServingServer(engine) as srv:
+            replies, wall = http_clients(srv.port, payloads, stream=True)
+            stats = http_json(srv.port, "/stats")
+        timer.restore()
+        require(all(r[3] == "done" and len(r[0]) == new for r in replies),
+                f"bf16 {name}: every stream finished with {new} tokens")
+        require(all(0 <= t < cfg.vocab_size for r in replies for t in r[0]),
+                f"bf16 {name}: tokens in the vocabulary")
+        n_tok = sum(len(r[0]) for r in replies)
+        ttft = [r[1] for r in replies]
+        lat = [r[2] for r in replies]
+        steps = timer.seconds
+        bf16[name] = {
+            "output_tokens": n_tok, "wall_s": wall,
+            "output_tokens_per_s": n_tok / wall,
+            "ttft_p50_ms": pct(ttft, 50), "ttft_p99_ms": pct(ttft, 99),
+            "latency_p50_ms": pct(lat, 50), "latency_p99_ms": pct(lat, 99),
+            "step_calls": len(steps),
+            "host_ms_per_step_p50": pct(steps, 50),
+            "host_ms_per_step_p99": pct(steps, 99),
+            "engine_steps": stats["steps"],
+            "tokens_per_step": stats["tokens_per_step"],
+            "prefix_hits": stats.get("prefix_hits", 0),
+            "prefix_tokens_reused": stats.get("prefix_tokens_reused", 0),
+            "paged_launches": read_counts()["paged_decode"] - before}
+        del engine
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    require(counts["paged_decode"] > 0
+            and bf16["paged_fused_prefix_cache_sync4"]["paged_launches"]
+            == counts["paged_decode"],
+            f"the paged engine launched the paged kernel: {counts}")
+    require(bf16["contiguous_prefix_sync4_chunk64"]["prefix_tokens_reused"]
+            >= len(prompts) * len(system)
+            and bf16["paged_fused_prefix_cache_sync4"]
+            ["prefix_tokens_reused"] >= len(prompts) * len(system),
+            "every request reused the system prompt")
+
+    rng = np.random.default_rng(10)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (8, 128)),
+                             device="cuda")
+    timed = {}
+    for name, fn in (("generate", lambda: generate(params, tokens, 64, cfg)),
+                     ("beam_search_4", lambda: beam_search(
+                         params, tokens, 64, cfg, num_beams=4))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        seqs = out if name == "generate" else out[0]
+        require(bool(((seqs >= 0) & (seqs < cfg.vocab_size)).all()),
+                f"{name} tokens in the vocabulary")
+        timed[name] = {"ms": sec * 1e3, "new_tokens_per_s": 8 * 64 / sec}
+    emit({"phase": "http_serving_flagship", "clients": len(prompts),
+          "system_tokens": len(system), "suffix_tokens": [
+              n - len(system) for n in lens], "max_new_tokens": new,
+          "f32_near_tie_divergences": f32, "bf16": bf16,
+          "batch_8_prompt_128_new_64": timed, "launches": counts,
+          "seconds": time.perf_counter() - t_phase})
     return counts
 
 
@@ -1688,6 +2016,7 @@ def main() -> int:
                          device="cuda")
     fwd_counts = run_forward(params, cfg)
     srv_counts = run_serving(params, cfg)
+    flag_counts = run_http_serving_flagship(params, cfg)
     run_train_parity(params, cfg)
     del params
     train_counts = run_train(cfg)
@@ -1708,6 +2037,7 @@ def main() -> int:
     lm_counts = run_tpu_model_lm(cfg)
     d32_counts, resumed_counts, loaded_counts = run_tpu_model_lm_d32()
     d16_counts = run_forward_d16()
+    ex_counts = run_http_serving_example()
 
     # max_abs_err: the largest error of any comparison this run made for
     # the kernel, f32 and bf16, at the main paths' shapes included; the
@@ -1722,12 +2052,16 @@ def main() -> int:
              "tpu_model_lm_d32_resumed_fit": resumed_counts,
              "tpu_model_lm_d32_loaded_predict": loaded_counts,
              "forward_d16": d16_counts, "keras_async": async_counts,
-             "keras_persist": persist_counts}
+             "keras_persist": persist_counts,
+             "http_serving_example": ex_counts,
+             "http_serving_flagship": flag_counts}
     kernels = [
         {"name": "paged_decode", "route": "cuda",
          "source": "elephas_tpu_torch/csrc/paged_decode.cu",
          "replaces": "elephas_tpu/ops/paged_attention.py:59",
-         "launches": srv_counts["paged_decode"],
+         "launches": (srv_counts["paged_decode"]
+                      + flag_counts["paged_decode"]
+                      + ex_counts["paged_decode"]),
          **{k: paged[k] for k in keys}},
         {"name": "flash_fwd", "route": "cuda",
          "source": "elephas_tpu_torch/csrc/flash_fwd.cu",
@@ -1748,13 +2082,14 @@ def main() -> int:
         # each head dim's errors and times at the shape named beside them
         # (flash d 32 also at the training shape), and its instance's
         # launches on the paths that run it: d 64 the flagship's (as
-        # above), d 32 tpu_model_lm_d32's three (the first fit with its
-        # predict and evaluate, the resumed fit, the loaded model's
-        # predict), d 16 forward_d16
-        launches = {"16": d16_counts[name],
+        # above; the paged kernel's serving and http_serving_flagship),
+        # d 32 tpu_model_lm_d32's three (the first fit with its predict
+        # and evaluate, the resumed fit, the loaded model's predict),
+        # d 16 forward_d16 and http_serving_example
+        launches = {"16": d16_counts[name] + ex_counts[name],
                     "32": d32_counts[name] + resumed_counts[name]
                     + loaded_counts[name],
-                    "64": entry["launches"]}
+                    "64": entry["launches"] - ex_counts[name]}
         entry["by_head_dim"] = {
             d: {**{k: t[k] for k in (*keys, "shape") if k in t},
                 "launches": launches[d],

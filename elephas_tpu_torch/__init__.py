@@ -9,8 +9,12 @@ passes ``device="cpu"``; there the kernel wrappers take their plain
 PyTorch versions.
 
 Ported so far: the transformer's inference path (``forward`` with the
-flash-attention forward kernel, ``prefill_cache``), paged decode with
-the fused paged-attention kernel, the paged ``DecodeEngine``,
+flash-attention forward kernel, the cached decode family:
+``prefill_cache``, ``decode_step``, ``generate``, ``beam_search``),
+paged decode with the fused paged-attention kernel, the serving engine
+``DecodeEngine`` (contiguous or paged cache, ``steps_per_sync``,
+chunked prefill, registered prefixes and the automatic prefix cache)
+with its HTTP front ``ServingServer`` and ``TextGenerator``,
 single-device LM training (``lm_loss``, ``make_train_step``, the SGD /
 Adam / AdamW / RMSprop optimizers and ``TransformerModel``) with the
 flash-attention backward kernels, and the Keras-style models
@@ -29,18 +33,23 @@ from .models.layers import (Activation, Dense, Dropout, Flatten, Input,
                             Reshape)
 from .models.optimizers import SGD, Adam, AdamW, RMSprop
 from .models.paged_decode import decode_step_paged, init_paged_pool
-from .models.transformer import (TransformerConfig, forward, init_params,
-                                 lm_loss, make_train_step, prefill_cache)
+from .models.transformer import (TransformerConfig, beam_search, forward,
+                                 generate, init_params, lm_loss,
+                                 make_train_step, prefill_cache)
 from .models.transformer_model import TransformerModel
-from .serving_engine import DecodeEngine
+from .serving import TextGenerator
+from .serving_engine import DecodeEngine, QueueFullError
+from .serving_http import ServingServer
 from .tpu_model import TPUMatrixModel, TPUModel, load_tpu_model
 from .utils.dataset_utils import to_dataset, to_labeled_points
 from .weights import from_numpy_tree, to_numpy_tree
 
 __all__ = ["TransformerConfig", "init_params", "forward", "prefill_cache",
-           "lm_loss", "make_train_step", "TransformerModel", "SGD", "Adam",
-           "AdamW", "RMSprop", "init_paged_pool", "decode_step_paged",
-           "DecodeEngine", "from_numpy_tree", "to_numpy_tree", "Sequential",
+           "generate", "beam_search", "lm_loss", "make_train_step",
+           "TransformerModel", "SGD", "Adam", "AdamW", "RMSprop",
+           "init_paged_pool", "decode_step_paged", "DecodeEngine",
+           "QueueFullError", "ServingServer", "TextGenerator",
+           "from_numpy_tree", "to_numpy_tree", "Sequential",
            "Model", "model_from_json", "Input", "Dense", "Activation",
            "Dropout", "Flatten", "Reshape", "Dataset", "to_dataset",
            "to_labeled_points", "TPUModel", "TPUMatrixModel",

@@ -27,7 +27,7 @@ from .transformer import (TransformerConfig, _alibi_slopes,
                           head_logits)
 
 __all__ = ["validate_paged_config", "init_paged_pool", "install_row_paged",
-           "decode_step_paged", "KERNELS"]
+           "gather_blocks_to_row", "decode_step_paged", "KERNELS"]
 
 #: the paged decode-attention inner loops: ``gather`` materializes each
 #: row's blocks and runs a full-row softmax; ``fused`` runs the CUDA
@@ -66,7 +66,9 @@ def install_row_paged(pool: Dict, row_cache: Dict, block_ids,
     positions ``[start*block_size, nblocks*block_size)`` of
     ``row_cache`` land in ``block_ids[start:nblocks]`` (in place). A
     final block past the row's length holds zero padding that no
-    position ever reads."""
+    position ever reads. ``start > 0`` is the prefix-cache-hit install:
+    the first ``start`` table entries point at shared cached blocks that
+    already hold those positions and are left alone."""
     for name, lc in pool.items():
         bs = lc["k"].shape[2]
         ids = torch.as_tensor(block_ids[start:nblocks], dtype=torch.long,
@@ -83,6 +85,30 @@ def install_row_paged(pool: Dict, row_cache: Dict, block_ids,
             lc[part][ids] = chunk.reshape(h, n_write, bs, d).transpose(
                 0, 1).to(lc[part].dtype)
     return pool
+
+
+def gather_blocks_to_row(pool: Dict, block_ids, max_len: int) -> Dict:
+    """The inverse of :func:`install_row_paged`: read ``block_ids``'
+    pool blocks back into a fresh contiguous batch-1 row cache (``(1,
+    kv_heads, max_len, head_dim)`` per layer k/v, zero past
+    ``len(block_ids) * block_size``). A prefix-cache hit feeds the
+    remainder prefill this way: the cached blocks become the row's head
+    and :func:`~elephas_tpu_torch.models.transformer.decode_block`
+    extends past them."""
+    out = {}
+    for name, lc in pool.items():
+        ids = torch.as_tensor(list(block_ids), dtype=torch.long,
+                              device=lc["k"].device)
+        parts = {}
+        for part in ("k", "v"):
+            sel = lc[part].index_select(0, ids)           # (n, H, bs, D)
+            n, h, bs, d = sel.shape
+            row = torch.zeros((1, h, max_len, d), dtype=sel.dtype,
+                              device=sel.device)
+            row[0, :, :n * bs] = sel.transpose(0, 1).reshape(h, n * bs, d)
+            parts[part] = row
+        out[name] = parts
+    return out
 
 
 def decode_step_paged(params: Dict, pool: Dict, tables: torch.Tensor,

@@ -15,10 +15,11 @@ ALiBi, the dense MLP (gelu or SwiGLU), residual dropout, single-device
 or the plain attention path, rematerialization (``remat_policy`` full
 or dots) through ``torch.utils.checkpoint``, the LM losses
 (``next_token_loss``, the chunked-vocab loss, z-loss, label smoothing)
-in ``lm_loss``, the single-device ``make_train_step``, and
-``prefill_cache``. Not ported yet (they raise ``NotImplementedError``):
-mixture of experts, the int8 KV cache, packed ``segment_ids`` and every
-mesh argument.
+in ``lm_loss``, the single-device ``make_train_step``, and the cached
+decode family: ``prefill_cache`` (whole and chunked), ``decode_block``,
+``decode_step``, ``generate`` and ``beam_search``. Not ported yet (they
+raise ``NotImplementedError``): mixture of experts, the int8 KV cache,
+packed ``segment_ids`` and every mesh argument.
 
 Random numbers: a dropout key is a ``torch.Generator``. Masks cannot
 equal JAX's bits; a seed drawn per layer from the step's generator
@@ -44,7 +45,9 @@ from ..weights import tree_flatten, tree_unflatten
 __all__ = ["TransformerConfig", "init_params", "forward", "forward_with_aux",
            "lm_loss", "lm_loss_and_grads", "next_token_loss",
            "chunked_next_token_losses", "make_train_step", "prefill_cache",
-           "init_kv_cache",
+           "init_kv_cache", "decode_block", "decode_step",
+           "prefill_cache_chunked", "chunked_blocks", "generate",
+           "beam_search",
            "embed_apply", "head_logits", "resolve_attention_impl",
            "NEG_INF", "FLAGSHIP", "TRANSFORMER_TPUMODEL"]
 
@@ -743,3 +746,323 @@ def prefill_cache(params: Dict, tokens: torch.Tensor,
     logits = head_logits(params["embed"], params["final_ln"], x[:, -1],
                          head=params.get("head"), norm=c.norm)
     return logits, cache
+
+
+def decode_block(params: Dict, cache: Dict, tokens: torch.Tensor, pos0,
+                 config: TransformerConfig) -> Tuple[torch.Tensor, Dict]:
+    """Multi-token cached decode: ``(batch, S)`` tokens at positions
+    ``pos0 .. pos0+S-1`` of an ongoing sequence read and write the k/v
+    cache; returns (f32 logits ``(batch, S, vocab)``, the cache).
+    ``pos0`` is a scalar or a ``(batch,)`` vector of per-row offsets.
+    Each block slot ``j`` attends causally to cache positions ``<=
+    pos0+j``; all S slots' k/v are written before attention.
+
+    The JAX function returns an updated copy; here the S positions are
+    written into ``cache`` IN PLACE and the same dict is returned. A
+    position at or past the cache length is out of range and raises
+    (the JAX scatter drops it)."""
+    check_ported(config)
+    c = config
+    device = params["embed"]["tokens"].device
+    tokens = torch.as_tensor(tokens, device=device).long()
+    b, s = tokens.shape
+    vec = getattr(pos0, "ndim", 0) == 1
+    length = next(iter(cache.values()))["k"].shape[2]
+    steps = torch.arange(s, device=device)
+    if vec:
+        pos0 = torch.as_tensor(pos0, device=device).long()
+        blockpos = pos0[:, None] + steps[None, :]      # (B, S)
+    else:
+        start = int(pos0)
+        if start + s > length:
+            raise IndexError(f"positions {start}..{start + s - 1} exceed "
+                             f"the cache length {length}")
+        blockpos = start + steps                       # (S,)
+    x = params["embed"]["tokens"][tokens]
+    if c.positional == "learned":
+        x = x + params["embed"]["pos"][blockpos]
+    elif c.positional == "sinusoidal":
+        x = x + _sinusoidal_table(blockpos, c.d_model)
+    x = x.to(c.dtype)                                  # (B, S, D)
+    kpos = torch.arange(length, device=device)
+    qp = blockpos if vec else blockpos[None, :]        # (B|1, S)
+    mask = kpos[None, None, :] <= qp[:, :, None]       # (B|1, S, L)
+    if c.attention_window is not None:
+        mask = mask & (kpos[None, None, :]
+                       > qp[:, :, None] - c.attention_window)
+    scale = 1.0 / math.sqrt(c.head_dim)
+    rp = blockpos[:, None, :] if vec else blockpos     # rope positions
+    if vec:
+        widx = (torch.arange(b, device=device)[:, None, None],
+                torch.arange(c.kv_heads, device=device)[None, :, None],
+                blockpos[:, None, :])                  # -> (B, H, S)
+    groups = c.num_heads // c.kv_heads
+    slopes = (_alibi_slopes(c.num_heads, device)
+              if c.positional == "alibi" else None)
+    for i in range(c.num_layers):
+        layer = params[f"layer_{i}"]
+        h = _norm(x, layer["ln1"], c).to(c.dtype)
+        q, k_new, v_new = _qkv(layer, h, c)            # (B, heads, S, hd)
+        if c.positional == "rope":
+            q = _apply_rope(q, rp, c)
+            k_new = _apply_rope(k_new, rp, c)
+        lc = cache[f"layer_{i}"]
+        for part, val in (("k", k_new), ("v", v_new)):
+            if vec:
+                lc[part][widx] = val.to(lc[part].dtype)
+            else:
+                lc[part][:, :, start:start + s] = val.to(lc[part].dtype)
+        ck, cv = lc["k"], lc["v"]
+        qg = q.reshape(b, c.kv_heads, groups, s, c.head_dim)
+        scores = einsum("bngsk,bntk->bngst", qg, ck) * scale
+        if slopes is not None:
+            dist = (qp[:, :, None] - kpos[None, None, :]).to(
+                torch.float32)                         # (B|1, S, L)
+            ab = (-slopes[None, :, None, None] * dist[:, None]).reshape(
+                dist.shape[0], c.kv_heads, groups, s, length)
+            scores = scores + ab
+        scores = torch.where(mask[:, None, None], scores, NEG_INF)
+        weights = torch.softmax(scores, dim=-1)
+        o = einsum("bngst,bntk->bngsk", weights, cv)
+        o = o.reshape(b, c.num_heads, s, c.head_dim)
+        x = x + einsum("bhsk,hkd->bsd", o, layer["attn"]["wo"].to(c.dtype))
+        x = _mlp_apply(layer, x, c)
+    logits = head_logits(params["embed"], params["final_ln"], x,
+                         head=params.get("head"), norm=c.norm)
+    return logits, cache
+
+
+def chunked_blocks(block_fn, cache, tokens, pos0: int, chunk: int):
+    """Thread ``(logits, cache)`` through ``block_fn`` over
+    ``chunk``-sized column slices of ``tokens`` ``(B, T)`` starting at
+    position ``pos0``. ``block_fn(cache, block, start_pos, is_first) ->
+    (logits, cache)``; returns the LAST block's logits and the final
+    cache. :func:`prefill_cache_chunked` and the serving engine's
+    chunked admission both ride it."""
+    logits = None
+    for start in range(0, tokens.shape[1], chunk):
+        logits, cache = block_fn(cache, tokens[:, start:start + chunk],
+                                 pos0 + start, start == 0)
+    return logits, cache
+
+
+def prefill_cache_chunked(params: Dict, tokens: torch.Tensor,
+                          config: TransformerConfig, max_len: int,
+                          chunk: int = 512) -> Tuple[torch.Tensor, Dict]:
+    """Chunked prompt prefill: :func:`prefill_cache` in ``chunk``-sized
+    :func:`decode_block` passes (peak attention memory O(chunk * T)
+    instead of O(T^2)). Returns the last position's logits and the
+    filled cache; the tail block is its natural size."""
+    device = params["embed"]["tokens"].device
+    tokens = torch.as_tensor(tokens, device=device).long()
+    logits, cache = chunked_blocks(
+        lambda cache, blk, pos, _first: decode_block(params, cache, blk,
+                                                     pos, config),
+        init_kv_cache(config, tokens.shape[0], max_len, device), tokens, 0,
+        chunk)
+    return logits[:, -1], cache
+
+
+def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor, pos,
+                config: TransformerConfig) -> Tuple[torch.Tensor, Dict]:
+    """One autoregressive step: token ids ``(batch,)`` at position
+    ``pos`` (a scalar, or ``(batch,)`` per-row positions) -> (f32
+    next-token logits ``(batch, vocab)``, the cache, written in place):
+    the S = 1 case of :func:`decode_block`."""
+    device = params["embed"]["tokens"].device
+    tokens = torch.as_tensor(tokens, device=device)
+    logits, cache = decode_block(params, cache, tokens[:, None], pos, config)
+    return logits[:, 0], cache
+
+
+def _filter_logits(logits: torch.Tensor, top_k: Optional[int],
+                   top_p: Optional[float]) -> torch.Tensor:
+    """Sampling filters: keep the top-k logits and/or the nucleus (the
+    smallest set of tokens whose probability mass reaches ``top_p``,
+    always keeping the most probable one); the rest drop to
+    ``NEG_INF``."""
+    if top_k is not None and top_k < logits.shape[-1]:
+        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits = torch.where(logits >= kth, logits, NEG_INF)
+    if top_p is not None and top_p < 1.0:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+        keep_sorted = torch.cat(
+            [torch.ones_like(cum[..., :1], dtype=torch.bool),
+             cum[..., :-1] < top_p], dim=-1)
+        threshold = torch.where(keep_sorted, sorted_logits,
+                                torch.inf).amin(dim=-1, keepdim=True)
+        logits = torch.where(logits >= threshold, logits, NEG_INF)
+    return logits
+
+
+def generate(params: Dict, prompt, max_new_tokens: int,
+             config: TransformerConfig, temperature: float = 0.0,
+             key: Optional[torch.Generator] = None,
+             top_k: Optional[int] = None, top_p: Optional[float] = None,
+             repetition_penalty: float = 1.0, prompt_lengths=None,
+             logits_processor=None) -> torch.Tensor:
+    """Autoregressive generation: ``(batch, prompt_len)`` prompt ids ->
+    ``(batch, max_new_tokens)`` int64 continuations, on the device of
+    ``params``.
+
+    The JAX package's jitted ``lax.scan`` becomes a host loop of
+    :func:`decode_step` over one preallocated cache. Uniform prompts
+    prefill in one :func:`prefill_cache` pass; with ``prompt_lengths``
+    (right-padded ragged prompts) every row teacher-forces its own
+    prompt token by token and its continuation starts at index 0 of the
+    output. ``temperature=0`` is greedy argmax; otherwise categorical
+    sampling from ``key``, a ``torch.Generator`` on the params' device
+    (the JAX PRNG key's counterpart; the draws differ), after
+    temperature scaling and the ``top_k``/``top_p`` filters.
+    ``repetition_penalty > 1`` (CTRL) shrinks the logits of tokens in
+    the prompt or emitted so far. ``logits_processor`` maps every
+    step's ``(batch, vocab)`` logits before penalties and filters."""
+    c = config
+    device = params["embed"]["tokens"].device
+    prompt = torch.as_tensor(prompt, device=device).long()
+    batch, prompt_len = prompt.shape
+    total = prompt_len + max_new_tokens
+    if total > c.max_seq_len:
+        raise ValueError(f"prompt_len + max_new_tokens = {total} exceeds "
+                         f"max_seq_len = {c.max_seq_len}")
+    if temperature > 0 and key is None:
+        raise ValueError("sampling (temperature > 0) requires a "
+                         "torch.Generator key")
+    if top_k is not None and top_k < 1:
+        raise ValueError("top_k must be >= 1")
+    if top_p is not None and not 0.0 < top_p <= 1.0:
+        raise ValueError("top_p must be in (0, 1]")
+    if repetition_penalty < 1.0:
+        raise ValueError("repetition_penalty must be >= 1")
+    if prompt_lengths is not None:
+        lens = torch.as_tensor(prompt_lengths, device=device).long()
+        if lens.shape != (batch,):
+            raise ValueError("prompt_lengths must be (batch,)")
+    else:
+        lens = torch.full((batch,), prompt_len, device=device)
+    if max_new_tokens == 0:
+        return torch.zeros((batch, 0), dtype=torch.long, device=device)
+    use_rep = repetition_penalty != 1.0
+    rows = torch.arange(batch, device=device)
+    seen = torch.zeros((batch, c.vocab_size), dtype=torch.bool,
+                       device=device)
+    if use_rep:
+        valid = torch.arange(prompt_len, device=device)[None, :] < lens[:,
+                                                                        None]
+        seen[rows[:, None].expand_as(prompt)[valid], prompt[valid]] = True
+
+    def next_token(logits):
+        if logits_processor is not None:
+            logits = logits_processor(logits)
+        if use_rep:
+            p = repetition_penalty
+            penalized = torch.where(logits > 0, logits / p, logits * p)
+            logits = torch.where(seen, penalized, logits)
+        if temperature > 0:
+            filtered = _filter_logits(logits / temperature, top_k, top_p)
+            probs = torch.softmax(filtered, dim=-1)
+            return torch.multinomial(probs, 1, generator=key)[:, 0]
+        return torch.argmax(logits, dim=-1)
+
+    def mark_seen(nxt, t):
+        if use_rep:
+            emitted = t + 1 >= lens
+            seen[rows[emitted], nxt[emitted]] = True
+
+    out = []
+    if prompt_lengths is None:
+        logits, cache = prefill_cache(params, prompt, c, total)
+        nxt = next_token(logits)
+        mark_seen(nxt, prompt_len - 1)
+        out.append(nxt)
+        for t in range(prompt_len, total - 1):
+            logits, cache = decode_step(params, cache, nxt, t, c)
+            nxt = next_token(logits)
+            mark_seen(nxt, t)
+            out.append(nxt)
+        return torch.stack(out, dim=1)
+    cache = init_kv_cache(c, batch, total, device)
+    prev = prompt[:, 0]
+    for t in range(total - 1):
+        tok = torch.where(t < lens, prompt[:, min(t, prompt_len - 1)], prev)
+        logits, cache = decode_step(params, cache, tok, t, c)
+        prev = next_token(logits)
+        mark_seen(prev, t)
+        out.append(prev)
+    sampled = torch.stack(out, dim=1)                  # (B, total - 1)
+    idx = (lens[:, None] - 1) + torch.arange(max_new_tokens,
+                                             device=device)[None, :]
+    return torch.gather(sampled, 1, idx)
+
+
+def beam_search(params: Dict, prompt, max_new_tokens: int,
+                config: TransformerConfig, num_beams: int = 4,
+                length_penalty: float = 0.0, eos_id: Optional[int] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Beam-search decoding: ``(batch, prompt_len)`` prompts ->
+    ``(sequences, scores)``, sequences ``(batch, num_beams,
+    max_new_tokens)`` sorted best-first. Beams ride the batch axis of
+    one cache (the prompt prefills once per row and repeats across the
+    beams), reordered by a beam gather each step. ``eos_id`` freezes
+    finished beams (they may only emit eos, at no cost);
+    ``length_penalty`` applies the GNMT normalization
+    ``((5+L)/6)**alpha`` at ranking time."""
+    c = config
+    device = params["embed"]["tokens"].device
+    prompt = torch.as_tensor(prompt, device=device).long()
+    batch, prompt_len = prompt.shape
+    total = prompt_len + max_new_tokens
+    if total > c.max_seq_len:
+        raise ValueError("prompt_len + max_new_tokens exceeds max_seq_len")
+    if num_beams < 1:
+        raise ValueError("num_beams must be >= 1")
+    k, v = num_beams, c.vocab_size
+    logits_row, cache_row = prefill_cache(params, prompt, c, total)
+    logits = logits_row.repeat_interleave(k, dim=0)            # (B*K, V)
+    cache = {name: {part: t.repeat_interleave(k, dim=0)
+                    for part, t in lc.items()}
+             for name, lc in cache_row.items()}
+    scores = torch.full((batch, k), NEG_INF, dtype=torch.float32,
+                        device=device)
+    scores[:, 0] = 0.0              # only beam 0 is live (no ties)
+    tokens = torch.zeros((batch, k, max_new_tokens), dtype=torch.long,
+                         device=device)
+    finished = torch.zeros((batch, k), dtype=torch.bool, device=device)
+    if eos_id is not None:
+        frozen = torch.full((v,), NEG_INF, dtype=torch.float32,
+                            device=device)
+        frozen[eos_id] = 0.0
+    offsets = (torch.arange(batch, device=device) * k)[:, None]
+    for t in range(max_new_tokens):
+        logp = torch.log_softmax(logits, dim=-1).reshape(batch, k, v)
+        if eos_id is not None:
+            logp = torch.where(finished[..., None], frozen, logp)
+        flat = (scores[..., None] + logp).reshape(batch, -1)   # (B, K*V)
+        scores, top_flat = torch.topk(flat, k, dim=-1)
+        beam_idx = top_flat // v
+        token = top_flat % v
+        tokens = torch.gather(tokens, 1, beam_idx[..., None].expand(
+            -1, -1, max_new_tokens)).clone()
+        tokens[:, :, t] = token
+        finished = torch.gather(finished, 1, beam_idx)
+        if eos_id is not None:
+            finished = finished | (token == eos_id)
+        gather = (beam_idx + offsets).reshape(-1)
+        cache = {name: {part: a.index_select(0, gather)
+                        for part, a in lc.items()}
+                 for name, lc in cache.items()}
+        logits, cache = decode_step(params, cache, token.reshape(-1),
+                                    prompt_len + t, c)
+    if eos_id is not None:
+        first_eos = torch.argmax((tokens == eos_id).to(torch.int32), dim=-1)
+        lengths = torch.where(finished, 1.0 + first_eos.to(torch.float32),
+                              float(max_new_tokens))
+    else:
+        lengths = torch.full(scores.shape, float(max_new_tokens),
+                             device=device)
+    ranked = scores / ((5.0 + lengths) / 6.0) ** length_penalty
+    order = torch.sort(-ranked, dim=1, stable=True).indices
+    return (torch.gather(tokens, 1, order[..., None].expand(
+                -1, -1, max_new_tokens)),
+            torch.gather(ranked, 1, order))

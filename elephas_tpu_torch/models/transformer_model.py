@@ -360,16 +360,17 @@ class TransformerModel:
 
     def engine(self, draft: Optional["TransformerModel"] = None,
                **engine_kwargs):
-        """The port's paged :class:`~elephas_tpu_torch.serving_engine.
-        DecodeEngine` over this model's parameters, on its device (pass
-        ``paged=(blocks, block_size)``). Speculative drafts are not
-        ported yet."""
+        """The port's :class:`~elephas_tpu_torch.serving_engine.
+        DecodeEngine` over this model's parameters, on its device (the
+        contiguous cache unless ``paged=(blocks, block_size)`` is
+        passed). Speculative drafts are not ported yet (ROADMAP Queue 1
+        item 1, step 5)."""
         from ..serving_engine import DecodeEngine
 
         if self.params is None:
             raise RuntimeError("build() or load weights before serving")
         if draft is not None:
             raise NotImplementedError("speculative decoding is not ported "
-                                      "yet")
+                                      "yet (ROADMAP Queue 1 item 1, step 5)")
         engine_kwargs.setdefault("device", self.device)
         return DecodeEngine(self.params, self.config, **engine_kwargs)

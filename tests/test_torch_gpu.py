@@ -730,3 +730,95 @@ def test_load_tpu_model_on_card_predicts_on_the_kernels(cuda, no_tf32,
     assert flash_forward.launches - before == 2
     np.testing.assert_allclose(got, cpu_model.predict(tokens), atol=1e-4,
                                rtol=0)
+
+
+def _engine_prompts(vocab, system_len=16):
+    rng = np.random.default_rng(21)
+    system = rng.integers(0, vocab, system_len).tolist()
+    return system, ([system + rng.integers(0, vocab, n).tolist()
+                     for n in (5, 19, 2, 11)]
+                    + [rng.integers(0, vocab, 9).tolist()])
+
+
+def _assert_tie_aware_cpu(params, cfg, prompts, ref, out):
+    """Greedy rows equal, except a divergence where the plain f32
+    forward on the CPU has a top-2 logit gap below 1e-3."""
+    from elephas_tpu_torch import forward
+    from elephas_tpu_torch.weights import from_numpy_tree, to_numpy_tree
+    host = from_numpy_tree(to_numpy_tree(params), device="cpu")
+    for p, r, o in zip(prompts, ref, out):
+        if r == o:
+            continue
+        i = next((j for j, (a, b) in enumerate(zip(r, o)) if a != b),
+                 min(len(r), len(o)))
+        top2 = forward(host, torch.as_tensor([p + r[:i]]), dataclasses.replace(
+            cfg, attention_impl="xla"))[0, -1].topk(2).values
+        assert float(top2[0] - top2[1]) < 1e-3, (i, r, o)
+
+
+_CARD_ENGINES = {
+    "contiguous": ({}, False),
+    "contiguous_sync3_chunk_prefix": (dict(steps_per_sync=3,
+                                           prefill_chunk=8), True),
+    "contiguous_prefix_cache": (dict(prefix_cache=True,
+                                     prefix_cache_block_size=8), True),
+    "paged_fused_sync2_prefix": (dict(paged=(40, 8), kernel="fused",
+                                      steps_per_sync=2), True),
+}
+
+
+@pytest.mark.parametrize("name", list(_CARD_ENGINES))
+def test_serving_engines_on_card_match_cpu(cuda, no_tf32, name):
+    """The contiguous and paged engines (the http_serving config, head
+    dim 16, f32) give the same greedy tokens on the card as on the CPU,
+    tie-aware; the fused paged engine launches its kernel on the card."""
+    from elephas_tpu_torch import DecodeEngine, TransformerConfig, init_params
+    from elephas_tpu_torch.weights import from_numpy_tree, to_numpy_tree
+    cfg = TransformerConfig(vocab_size=259, num_layers=2, num_heads=4,
+                            d_model=64, d_ff=128, max_seq_len=96,
+                            dtype=torch.float32)
+    host = to_numpy_tree(init_params(cfg, torch.Generator().manual_seed(0),
+                                     "cpu"))
+    system, prompts = _engine_prompts(259)
+    kwargs, register = _CARD_ENGINES[name]
+    outs = {}
+    for device in ("cpu", "cuda"):
+        eng = DecodeEngine(from_numpy_tree(host, device=device), cfg,
+                           max_slots=2, device=device, **kwargs)
+        if register:
+            eng.register_prefix(system)
+        outs[device] = eng.run(prompts, 20)
+        stats = eng.stats
+    _assert_tie_aware_cpu(from_numpy_tree(host, device="cpu"), cfg, prompts,
+                          outs["cpu"], outs["cuda"])
+    if register:
+        assert stats["prefix_tokens_reused"] > 0
+    if kwargs.get("kernel") == "fused":
+        assert stats["kernel_launches"] > 0
+
+
+def test_fused_paged_under_sync_and_prefix_hits_equals_gather(cuda, no_tf32):
+    """At head dim 64 (the kernel's fast body) and GQA 2: the fused paged
+    engine under ``steps_per_sync=3``, a registered prefix and the block
+    cache's hits gives the gather engine's greedy tokens (f32,
+    tie-aware), launching the kernel on every decode step."""
+    from elephas_tpu_torch import DecodeEngine, TransformerConfig, init_params
+    cfg = TransformerConfig(vocab_size=128, num_layers=2, num_heads=4,
+                            d_model=256, d_ff=512, max_seq_len=96,
+                            dtype=torch.float32, num_kv_heads=2)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    system, prompts = _engine_prompts(128, system_len=24)
+
+    def run(kernel):
+        eng = DecodeEngine(params, cfg, max_slots=2, paged=(40, 8),
+                           kernel=kernel, steps_per_sync=3)
+        eng.register_prefix(system)
+        return eng.run(prompts, 16), eng.stats
+
+    gather, _ = run("gather")
+    fused, stats = run("fused")
+    _assert_tie_aware_cpu(params, cfg, prompts, gather, fused)
+    assert stats["kernel_launches"] == stats["steps"] * 3 * cfg.num_layers
+    assert stats["prefix_tokens_reused"] >= 4 * 24
+    assert stats["kv_cache"]["pinned_blocks"] == 3

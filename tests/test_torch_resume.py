@@ -97,10 +97,14 @@ def test_model_checkpoint_and_resume(tmp_path, block):
     assert CheckpointManager(ckpt_dir).latest_step() == 3
 
 
-def test_async_checkpoint_equals_blocking(tmp_path):
+def _check_async_checkpoint_equals_blocking(tmp_path):
     x, y = _data()
     states = []
     for block in (True, False):
+        # both models get the same layer names, whatever the layer-uid
+        # counter stood at: the restored states are dicts keyed by layer
+        # name, which flatten in string order (dense_10 before dense_9)
+        tlayers.reset_layer_uids()
         model = _mlp()
         model.fit(x, y, epochs=2, batch_size=32, shuffle=False,
                   callbacks=[ModelCheckpoint(str(tmp_path / str(block)),
@@ -110,6 +114,21 @@ def test_async_checkpoint_equals_blocking(tmp_path):
     assert len(flat[0]) == len(flat[1]) == 4 + 9
     for a, b in zip(*flat):
         np.testing.assert_array_equal(a, b)
+
+
+def test_async_checkpoint_equals_blocking(tmp_path):
+    _check_async_checkpoint_equals_blocking(tmp_path)
+
+
+@pytest.mark.parametrize("made_before", [7, 97])
+def test_async_checkpoint_equals_blocking_after_other_layers(tmp_path,
+                                                             made_before):
+    """After 7 or 97 Dense layers, where two models built in a row get
+    names on both sides of a decimal boundary (``dense_9``/``dense_10``)
+    when the counter started at zero."""
+    for _ in range(made_before):
+        tlayers.Dense(1)
+    _check_async_checkpoint_equals_blocking(tmp_path)
 
 
 def test_model_checkpoint_save_best_only(tmp_path):

@@ -63,7 +63,7 @@ def _drive(eng):
 def _port(model, paged, eos_id=None, kernel="fused"):
     _, _, tp, tcfg = model
     eng = DecodeEngine(tp, tcfg, max_slots=2, paged=paged, kernel=kernel,
-                       eos_id=eos_id, device="cpu")
+                       eos_id=eos_id, prefix_cache=False, device="cpu")
     outs, streamed = _drive(eng)
     return eng, outs, streamed
 
@@ -147,8 +147,9 @@ def test_sampling_is_seeded_and_top_k_1_is_greedy(model):
 
 def test_rejects_what_could_never_run(model):
     _, _, tp, tcfg = model
-    with pytest.raises(NotImplementedError):
-        DecodeEngine(tp, tcfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="step 5"):
+        DecodeEngine(tp, tcfg, draft_params=tp, draft_config=tcfg,
+                     device="cpu")
     with pytest.raises(ValueError, match="kernel"):
         DecodeEngine(tp, tcfg, paged=(8, 8), kernel="pallas", device="cpu")
     eng = DecodeEngine(tp, tcfg, paged=(4, 8), device="cpu")
