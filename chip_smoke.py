@@ -28,17 +28,30 @@ workers with Dropout 0.2, each held to the reference's predict/evaluate
 oracle and a held-out accuracy above 0.9; ``keras_async``, the
 parameter-server modes on the same rows and the MLP of
 ``examples/mnist_mlp_asynchronous.py`` (Dropout 0.2): asynchronous over
-HTTP at epoch frequency and hogwild over the socket at batch frequency
-(4 workers each), and the overlapped batch loop (``async_accum=8``, 2
-workers), each with the oracle, the accuracy check, the server's update
-count against the pushes issued, samples/s and RPC times, then one
-worker's fit on the card against the CPU (no kernel runs there: the
-phase fails if one launches); ``keras_persist`` (no kernel either):
-the sync-step model through ``TPUModel.save``/``load_tpu_model``
-(predict and evaluate bit-equal), a ``ModelCheckpoint(block=False)``
-fit restored bit-equal into a fresh ``Sequential`` that trains on, and
-``TPUMatrixModel`` on 8,192 LabeledPoints (async, 2 workers) with its
-``mllib`` predict and save; and ``TPUModel`` over the
+HTTP at epoch frequency (2 workers, once as they come and once with
+every epoch's pushes in lockstep), hogwild over the socket at batch
+frequency (4 workers), and the overlapped batch loop
+(``async_accum=8``, 2 workers), each with the oracle, the accuracy
+check, the server's update count against the pushes issued, samples/s
+and RPC times, then one worker's fit on the card against the CPU (no
+kernel runs there: the phase fails if one launches); ``keras_persist``
+(no kernel either): the sync-step model through
+``TPUModel.save``/``load_tpu_model`` (predict and evaluate bit-equal),
+a ``ModelCheckpoint(block=False)`` fit restored bit-equal into a fresh
+``Sequential`` that trains on, and ``TPUMatrixModel`` on 8,192
+LabeledPoints (async, 2 workers) with its ``mllib`` predict and save;
+``keras_layers`` (no kernel either):
+(a) ``examples/lstm_sequence_classification.py``'s program on the port
+(Embedding -> cuDNN's LSTM -> Dense over 4096 rows, sync step
+``TPUModel`` with 4 workers, 6 epochs, predict) with held-out accuracy,
+samples/s beside a plain ``nn.LSTM`` loop, and one epoch on the card
+against the CPU, (b) the layers and widths of Keras's ``mnist_cnn.py``
+(two Conv2D, MaxPooling2D, Dropout, Dense; Adadelta 1.0) on the 60,000
+rows as 28x28x1 images through ``TPUModel(sync_mode="average")`` for
+2 epochs with the oracle and held-out accuracy, and (c) every layer,
+optimizer and schedule ported with them, and BatchNormalization's
+moving statistics over 3 fit steps, card against CPU at stated
+tolerances; and ``TPUModel`` over the
 flagship ``TransformerModel`` (one epoch of 2 steps, ``predict``,
 ``evaluate``), whose flash kernel launches are counted. Last,
 ``examples/transformer_tpumodel.py`` whole: ``TPUModel`` over its LM
@@ -73,11 +86,13 @@ the card's name and power limit as ``nvidia-smi`` reports them, the
 
 No CPU path: without a CUDA device it exits non-zero at once.
 """
+import contextlib
 import dataclasses
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -919,7 +934,6 @@ def http_clients(port, payloads, stream):
     ``/v1/generate``. Returns per client (tokens, client TTFT s or None,
     latency s, final status) and the wall seconds from release to the
     last reply. Streamed clients time their first token line."""
-    import threading
     import urllib.request
 
     out = [None] * len(payloads)
@@ -1562,10 +1576,17 @@ def async_card_matches_cpu(data, rows=4096):
 # (c) runs 2 workers, as the JAX repo's own row for the overlapped loop
 # (benchmarks/baseline_rows.py:106-146): at 4 workers and 8 steps a
 # window neither package, unmodified, trains this set
-# (tests/torch_overlap_workers.py runs both on the CPU at 2 and 4)
+# (tests/torch_overlap_workers.py runs both on the CPU at 2 and 4).
+# (a) runs 2 workers too: the server subtracts each whole-epoch delta as
+# it comes, so workers that pulled the same weights add their deltas to
+# one base, a step as many times a worker's as there are workers; at 3
+# and 4 such a step leaves the set untrained in both packages, at 2 it
+# trains it (tests/torch_async_epoch_lockstep.py), and
+# ``run_keras_async`` runs (a) once more with every epoch's pushes held
+# to one base
 ASYNC_CONFIGS = {
     "a": dict(mode="asynchronous", parameter_server_mode="http",
-              frequency="epoch", num_workers=4),
+              frequency="epoch", num_workers=2),
     "b": dict(mode="hogwild", parameter_server_mode="socket",
               frequency="batch", num_workers=4),
     "c": dict(mode="asynchronous", parameter_server_mode="http",
@@ -1574,14 +1595,46 @@ ASYNC_CONFIGS = {
 }
 
 
+@contextlib.contextmanager
+def epoch_pushes_in_lockstep(workers, worker_cls=None, timeout=300.0):
+    """Hold epoch-frequency workers in lockstep while the block runs:
+    each push waits until every worker has trained its epoch from its
+    pull, and each next pull until every push has landed, so all of an
+    epoch's deltas share one base (the interleaving in which the
+    server's step is largest, ``workers`` times a worker's). Wraps
+    ``worker_cls._push`` for the duration (the port's ``AsyncWorker``
+    unless another is given)."""
+    if worker_cls is None:
+        from elephas_tpu_torch.worker import AsyncWorker as worker_cls
+
+    trained, landed = (threading.Barrier(workers, timeout=timeout)
+                       for _ in range(2))
+    push = worker_cls._push
+
+    def held(self, delta):
+        trained.wait()
+        out = push(self, delta)
+        if self._pusher is not None:
+            self._pusher.drain()
+        landed.wait()
+        return out
+
+    worker_cls._push = held
+    try:
+        yield
+    finally:
+        worker_cls._push = push
+
+
 def run_keras_async(data, sync_samples_s):
     """``TPUModel`` in its parameter-server modes (the default
     ``mode="asynchronous"`` and ``"hogwild"``) on the rows of the sync
     phases and the MLP of ``examples/mnist_mlp_asynchronous.py`` (with
     its Dropout 0.2), workers as threads on the card, SGD 0.01, batch 64,
     2 epochs, validation split 0.1: (a) asynchronous over HTTP at epoch
-    frequency, 4 workers, (b) hogwild over the socket at batch frequency
-    (the reference loop: a pull, ``set_weights``, a step,
+    frequency, 2 workers, then again with every epoch's pushes in
+    lockstep (``a_lockstep``), (b) hogwild over the socket at batch
+    frequency (the reference loop: a pull, ``set_weights``, a step,
     ``get_weights`` and a push per batch), 4 workers, (c) asynchronous
     over HTTP at batch frequency, overlapped, one push per 8 steps, 2
     workers. Each: the oracle, held-out
@@ -1598,7 +1651,9 @@ def run_keras_async(data, sync_samples_s):
     codec = "native" if native.available() else "python"
     epochs, vsplit = 2, 0.1
     results = {}
-    for name, cfg in ASYNC_CONFIGS.items():
+    runs = [(name, cfg, False) for name, cfg in ASYNC_CONFIGS.items()]
+    runs.insert(1, ("a_lockstep", ASYNC_CONFIGS["a"], True))
+    for name, cfg, lockstep in runs:
         workers = cfg["num_workers"]
         model = mnist_mlp(0.2)
         model.compile(SGD(learning_rate=0.01), "categorical_crossentropy",
@@ -1608,8 +1663,10 @@ def run_keras_async(data, sync_samples_s):
         sizes = dataset.partition_sizes()
         before = client_rpcs()
         t0 = time.perf_counter()
-        tpu_model.fit(dataset, epochs=epochs, batch_size=64,
-                      validation_split=vsplit)
+        with (epoch_pushes_in_lockstep(workers) if lockstep
+              else contextlib.nullcontext()):
+            tpu_model.fit(dataset, epochs=epochs, batch_size=64,
+                          validation_split=vsplit)
         fit_s = time.perf_counter() - t0
         after = client_rpcs()
         rpc = {op: (after[op][0] - before[op][0],
@@ -1631,7 +1688,7 @@ def run_keras_async(data, sync_samples_s):
         trained = sum(int(n * (1 - vsplit)) if cfg["frequency"] == "epoch"
                       else n for n in sizes) * epochs
         results[name] = {
-            **cfg, "fit_s": fit_s,
+            **cfg, "pushes_in_lockstep": lockstep, "fit_s": fit_s,
             "samples_per_s": trained / fit_s,
             "vs_sync_step": trained / fit_s / sync_samples_s,
             "server_updates": updates,
@@ -1974,6 +2031,383 @@ def run_tpu_model_lm_d32():
     return counts, resumed_counts, loaded_counts
 
 
+# ----------------------------------------------------- keras_layers
+def lstm_example_data(n=4096, t=16, vocab=32):
+    """``examples/lstm_sequence_classification.py``'s task: is the count
+    of token 1 in the window even?"""
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, vocab, size=(n, t)).astype("int32")
+    y_bit = ((x == 1).sum(axis=1) % 2 == 0).astype("float32")
+    return x, np.stack([1 - y_bit, y_bit], axis=1)
+
+
+def lstm_example_model(device):
+    from elephas_tpu_torch.models import (LSTM, Adam, Dense, Embedding,
+                                          Sequential)
+    model = Sequential([Embedding(32, 16, input_shape=(16,)), LSTM(32),
+                        Dense(2, activation="softmax")], device=device)
+    model.compile(Adam(learning_rate=5e-3), "categorical_crossentropy",
+                  metrics=["acc"], seed=0)
+    return model
+
+
+def lstm_epoch(device, w0, x, y):
+    """One epoch of the example's model from ``w0`` through
+    ``SyncStepTrainer`` (the sync step ``TPUModel``'s trainer) without
+    shuffling (the card's and the CPU's generators permute differently):
+    ``(epoch losses, weights, seconds)``."""
+    from elephas_tpu_torch.models import Adam, metrics
+    from elephas_tpu_torch.parallel import SyncStepTrainer
+
+    model = lstm_example_model(device)
+    loss = "categorical_crossentropy"
+    trainer = SyncStepTrainer(model, Adam(learning_rate=5e-3), loss,
+                              [metrics.get("acc", loss=loss)])
+    t0 = time.perf_counter()
+    weights, hist = trainer.fit(w0, x, y, epochs=1, batch_size=128,
+                                validation_split=0.1, shuffle=False)
+    return hist["loss"], weights, time.perf_counter() - t0
+
+
+def plain_lstm_samples_per_s(x, y, batch_size=128, epochs=2):
+    """The example's model as a plain PyTorch loop on the card:
+    ``nn.Embedding`` -> ``nn.LSTM`` -> ``nn.Linear``, log-softmax
+    cross-entropy, ``torch.optim.Adam(5e-3)``, shuffled full batches,
+    data on the card. Returns the last epoch's samples/s."""
+    torch.manual_seed(0)
+    emb = torch.nn.Embedding(32, 16).to("cuda")
+    lstm = torch.nn.LSTM(16, 32, batch_first=True).to("cuda")
+    head = torch.nn.Linear(32, 2).to("cuda")
+    params = [*emb.parameters(), *lstm.parameters(), *head.parameters()]
+    opt = torch.optim.Adam(params, lr=5e-3)
+    x = torch.as_tensor(x, device="cuda").long()
+    y = torch.as_tensor(y, device="cuda")
+    n = x.shape[0]
+    nb = n // batch_size
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for _ in range(epochs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        order = torch.randperm(n, generator=gen, device="cuda")
+        for i in range(nb):
+            idx = order[i * batch_size:(i + 1) * batch_size]
+            _, (h, _) = lstm(emb(x[idx]))
+            logp = torch.log_softmax(head(h[0]), dim=-1)
+            loss = -(y[idx] * logp).sum(-1).mean()
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    require(bool(torch.isfinite(loss)), "plain LSTM loop loss finite")
+    return nb * batch_size / seconds
+
+
+def run_lstm_example():
+    """(a) ``examples/lstm_sequence_classification.py``'s program on the
+    port as written: 4096 rows of 16 tokens (vocab 32), Embedding 16 ->
+    LSTM 32 -> Dense 2 softmax, Adam 5e-3, ``TPUModel(mode="synchronous",
+    sync_mode="step", num_workers=4)``, 6 epochs at batch 128 with
+    validation split 0.1, then ``predict`` on 1024 rows. Held-out
+    accuracy on the 410 split rows, samples/s and seconds per epoch, a
+    plain PyTorch loop's samples/s beside; then one epoch from the same
+    weights on the card and on the CPU within 1e-4 (loss) and 1e-3
+    (weights: 29 Adam steps carry cuDNN's and the loop's summation
+    orders)."""
+    from elephas_tpu_torch import TPUModel, to_dataset
+
+    x, y = lstm_example_data()
+    model = lstm_example_model("cuda")
+    w0 = model.get_weights()
+    require(model.layers[1].cudnn_route(
+        torch.zeros((1, 16, 16), device="cuda")),
+        "the example's LSTM takes cuDNN's route on the card")
+    tpu_model = TPUModel(model, mode="synchronous", sync_mode="step",
+                         num_workers=4)
+    t0 = time.perf_counter()
+    tpu_model.fit(to_dataset(x, y), epochs=6, batch_size=128, verbose=1,
+                  validation_split=0.1)
+    fit_s = time.perf_counter() - t0
+    preds = tpu_model.predict(x[:1024])
+    acc = float((np.asarray(preds).argmax(1) == y[:1024].argmax(1)).mean())
+    print("accuracy:", acc, flush=True)
+    hist = tpu_model.training_histories[-1]
+    losses = hist["loss"]
+    require(preds.shape == (1024, 2) and np.isfinite(preds).all()
+            and np.allclose(preds.sum(1), 1.0, atol=1e-5),
+            "example predictions: finite probabilities, one row per input")
+    require(np.array_equal(preds.argmax(1), tpu_model.master_network.predict(
+        x[:1024]).argmax(1)), "distributed predict argmax equals the master's")
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"example epoch losses fall: {losses}")
+    split = int(len(x) * 0.9)
+    held_out = tpu_model.evaluate(x[split:], y[split:])
+    train_rows = split
+    samples_s = train_rows / hist["epoch_time"][-1]
+    plain_s = plain_lstm_samples_per_s(x[:split], y[:split])
+    (cpu_loss, cpu_w, cpu_s), (gpu_loss, gpu_w, gpu_s) = (
+        lstm_epoch(d, w0, x, y) for d in ("cpu", "cuda"))
+    loss_err = float(np.abs(np.asarray(gpu_loss) - cpu_loss).max())
+    weight_err = max(float(np.abs(a - b).max()) for a, b in zip(gpu_w, cpu_w))
+    require(loss_err <= 1e-4 and weight_err <= 1e-3,
+            f"one epoch on the card meets the CPU's: loss {loss_err}, "
+            f"weights {weight_err}")
+    emit({"phase": "keras_layers_lstm_example", "rows": len(x),
+          "train_rows": train_rows, "held_out_rows": len(x) - split,
+          "batch": 128, "epochs": 6, "epoch_losses": losses,
+          "epoch_acc": hist["categorical_accuracy"],
+          "epoch_time_s": hist["epoch_time"], "fit_s": fit_s,
+          "samples_per_s": samples_s, "plain_loop_samples_per_s": plain_s,
+          "held_out_loss_acc": held_out, "example_accuracy_1024": acc,
+          "card_vs_cpu_epoch": {"loss_max_abs_err": loss_err,
+                                "weight_max_abs_err": weight_err,
+                                "loss_tol": 1e-4, "weight_tol": 1e-3,
+                                "cpu_epoch_s": cpu_s, "card_epoch_s": gpu_s}})
+    return samples_s
+
+
+def mnist_cnn(device):
+    """The layers and widths of Keras's published ``examples/mnist_cnn.py``
+    (and its optimizer, Adadelta at learning rate 1.0)."""
+    from elephas_tpu_torch.models import (Adadelta, Conv2D, Dense, Dropout,
+                                          Flatten, MaxPooling2D, Sequential)
+    model = Sequential([
+        Conv2D(32, kernel_size=(3, 3), activation="relu",
+               input_shape=(28, 28, 1)),
+        Conv2D(64, (3, 3), activation="relu"),
+        MaxPooling2D(pool_size=(2, 2)), Dropout(0.25), Flatten(),
+        Dense(128, activation="relu"), Dropout(0.5),
+        Dense(10, activation="softmax")], device=device)
+    model.compile(Adadelta(learning_rate=1.0, rho=0.95, epsilon=1e-7),
+                  "categorical_crossentropy", ["acc"], seed=0)
+    return model
+
+
+def run_mnist_cnn(data):
+    """(b) The ``mnist_cnn.py`` model on the 60,000 MNIST-like rows as
+    28x28x1 images through ``TPUModel(sync_mode="average")`` (one worker
+    on the one card) for 2 epochs at batch 128; the oracle and held-out
+    accuracy on 10,000 rows; samples/s with TF32 off, then one more epoch
+    with cuDNN's TF32 on (PyTorch's default for convolutions)."""
+    from elephas_tpu_torch import TPUModel, to_dataset
+
+    (x, y), (x_test, y_test) = data
+    x = x.reshape(-1, 28, 28, 1)
+    x_test = x_test.reshape(-1, 28, 28, 1)
+    model = mnist_cnn("cuda")
+    tpu_model = TPUModel(model, mode="synchronous", sync_mode="average")
+    t0 = time.perf_counter()
+    tpu_model.fit(to_dataset(x, y), epochs=2, batch_size=128,
+                  validation_split=0.0)
+    fit_s = time.perf_counter() - t0
+    hist = tpu_model.training_histories[-1]
+    require(all(np.isfinite(hist["loss"]))
+            and hist["loss"][1] < hist["loss"][0],
+            f"CNN epoch losses fall: {hist['loss']}")
+    evals, master_evals = tpu_model_oracle(tpu_model, x_test, y_test)
+    require(evals[1] > 0.9, f"CNN held-out accuracy {evals[1]} > 0.9")
+    samples_s = 2 * len(x) / hist["fit_time"][0]
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tpu_model.fit(to_dataset(x, y), epochs=1, batch_size=128,
+                      validation_split=0.0)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    tf32_s = len(x) / tpu_model.training_histories[-1]["fit_time"][0]
+    emit({"phase": "keras_layers_mnist_cnn", "rows": len(x),
+          "held_out": len(x_test), "batch": 128, "epochs": 2,
+          "optimizer": "Adadelta(1.0)", "epoch_losses": hist["loss"],
+          "epoch_acc": hist["categorical_accuracy"], "fit_s": fit_s,
+          "trainer_fit_time_s": hist["fit_time"][0],
+          "samples_per_s": samples_s,
+          "samples_per_s_cudnn_tf32": tf32_s,
+          "held_out_loss_acc": evals, "master_loss_acc": master_evals})
+    return samples_s
+
+
+# name: (layer, batch-less input shape, integer ids, training); the
+# shapes of (a) and (b)'s paths where a layer is on one
+CARD_LAYERS = {
+    "Conv2D_28x28x1_32": (lambda m: m.Conv2D(32, 3, activation="relu"),
+                          (28, 28, 1), False, True),
+    "Conv2D_26x26x32_64": (lambda m: m.Conv2D(64, 3, activation="relu"),
+                           (26, 26, 32), False, True),
+    "Conv2D_same_stride2_odd": (lambda m: m.Conv2D(8, (3, 2), strides=2,
+                                                   padding="same"),
+                                (9, 7, 3), False, True),
+    "MaxPooling2D_24x24x64": (lambda m: m.MaxPooling2D(2), (24, 24, 64),
+                              False, True),
+    "MaxPooling2D_same": (lambda m: m.MaxPooling2D(3, strides=2,
+                                                   padding="same"),
+                          (9, 7, 4), False, True),
+    "AveragePooling2D_same": (lambda m: m.AveragePooling2D(
+        3, strides=2, padding="same"), (9, 7, 4), False, True),
+    "GlobalAveragePooling2D": (lambda m: m.GlobalAveragePooling2D(),
+                               (7, 7, 16), False, True),
+    "Embedding_32x16": (lambda m: m.Embedding(32, 16), (16,), True, True),
+    "LSTM_32_cudnn": (lambda m: m.LSTM(32), (16, 16), False, True),
+    "LSTM_relu_loop": (lambda m: m.LSTM(16, activation="relu",
+                                        return_sequences=True),
+                       (16, 16), False, True),
+    "GRU_32": (lambda m: m.GRU(32), (16, 16), False, True),
+    "LayerNormalization": (lambda m: m.LayerNormalization(), (16, 32),
+                           False, True),
+    "BatchNormalization_training": (lambda m: m.BatchNormalization(),
+                                    (13, 13, 32), False, True),
+    "BatchNormalization_inference": (lambda m: m.BatchNormalization(),
+                                     (13, 13, 32), False, False),
+}
+LAYER_TOL = 1e-4
+
+
+def scaled_err(got: np.ndarray, want: np.ndarray) -> float:
+    """max |got - want| over max(1, max |want|)."""
+    return float(np.abs(got - want).max(initial=0.0)
+                 / max(1.0, float(np.abs(want).max(initial=0.0))))
+
+
+def layer_card_vs_cpu(make, shape, integer, training, batch=64):
+    """A layer's forward and the gradient of ``sum(out * r)`` (every
+    parameter and the input) on the card against the CPU from the same
+    seeded parameters: the worst :func:`scaled_err`, and the card's
+    route for an LSTM."""
+    from elephas_tpu_torch.models import layers
+
+    layer = make(layers)
+    rng = np.random.default_rng(0)
+    built = layer.build(torch.Generator().manual_seed(0), shape)
+    params = {k: (rng.uniform(0.5, 1.5, v.shape)
+                  if k in ("gamma", "moving_variance")
+                  else 0.3 * rng.normal(size=v.shape)).astype(np.float32)
+              for k, v in built.items()}
+    x = (rng.integers(0, 32, (batch,) + shape).astype(np.int32) if integer
+         else rng.normal(size=(batch,) + shape).astype(np.float32))
+    r, results, route = None, [], None
+    for device in ("cpu", "cuda"):
+        p = {k: torch.tensor(v, device=device, requires_grad=True)
+             for k, v in params.items()}
+        xt = torch.tensor(x, device=device, requires_grad=not integer)
+        if device == "cuda" and isinstance(layer, layers.LSTM):
+            route = "cudnn" if layer.cudnn_route(xt) else "loop"
+        out = layer.call(p, xt, training, None)
+        if r is None:
+            r = rng.normal(size=tuple(out.shape)).astype(np.float32)
+        wrt = [p[k] for k in sorted(p)] + ([] if integer else [xt])
+        grads = torch.autograd.grad(
+            (out * torch.as_tensor(r, device=device)).sum(), wrt,
+            allow_unused=True)
+        results.append([out.detach().cpu().numpy()] + [
+            np.zeros(w.shape, np.float32) if g is None else g.cpu().numpy()
+            for g, w in zip(grads, wrt)])
+    return max(scaled_err(b, a) for a, b in zip(*results)), route
+
+
+def bn_fit_card_vs_cpu():
+    """3 steps of ``fit`` (batch 32, no shuffle) on Conv2D -> BatchNorm
+    -> Dense on the card and the CPU from the same weights: the largest
+    weight error (moving statistics included) and how far the moving
+    mean moved."""
+    from elephas_tpu_torch.models import (Adam, BatchNormalization, Conv2D,
+                                          Dense, Flatten, Sequential)
+    rng = np.random.default_rng(0)
+    x = rng.normal(0.5, 1.0, (96, 14, 14, 3)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 96)]
+    finals, w0 = [], None
+    for device in ("cpu", "cuda"):
+        model = Sequential([Conv2D(16, 3, use_bias=False,
+                                   input_shape=(14, 14, 3)),
+                            BatchNormalization(momentum=0.9), Flatten(),
+                            Dense(10, activation="softmax")], device=device)
+        model.compile(Adam(1e-2), "categorical_crossentropy", seed=0)
+        w0 = w0 or model.get_weights()
+        model.set_weights(w0)
+        model.fit(x, y, epochs=1, batch_size=32, shuffle=False)
+        finals.append(model.get_weights())
+    err = max(float(np.abs(a - b).max()) for a, b in zip(*finals))
+    # weights: kernel, gamma, beta, moving_mean, moving_variance, ...
+    return err, float(np.abs(finals[1][3]).max())
+
+
+CARD_OPTIMIZERS = {
+    "Adagrad": lambda m: m.Adagrad(1e-1),
+    "Adadelta": lambda m: m.Adadelta(1.0),
+    "Nadam": lambda m: m.Nadam(1e-2),
+    "Adafactor_factored": lambda m: m.Adafactor(min_dim_size_to_factor=32,
+                                                weight_decay_rate=0.01),
+    "Lion": lambda m: m.Lion(1e-3, weight_decay=0.1),
+    "LAMB": lambda m: m.LAMB(1e-2, weight_decay=0.1),
+    "Adam_ExponentialDecay": lambda m: m.Adam(m.schedules.ExponentialDecay(
+        1e-2, 2, 0.5)),
+    "SGD_CosineDecay": lambda m: m.SGD(m.schedules.CosineDecay(0.1, 4),
+                                       momentum=0.9),
+    "RMSprop_PiecewiseConstantDecay": lambda m: m.RMSprop(
+        m.schedules.PiecewiseConstantDecay([2], [1e-2, 1e-3])),
+    "LAMB_WarmupCosine": lambda m: m.LAMB(m.schedules.WarmupCosine(
+        1e-2, 2, 6)),
+}
+# of scale: the card's reductions (Adafactor's moments, LAMB's norms)
+# sum in another order than the CPU's
+OPT_TOL = 1e-5
+
+
+def optimizer_card_vs_cpu(make):
+    """5 updates of the example LSTM's kernels' shapes ((16, 128) and
+    (32, 128)) and a (128,) bias on the card against the CPU: the largest
+    :func:`scaled_err` over the parameters and the state's leaves."""
+    from elephas_tpu_torch.models import optimizers
+    rng = np.random.default_rng(0)
+    params = [rng.normal(size=s).astype(np.float32)
+              for s in ((16, 128), (32, 128), (128,))]
+    grads = [[rng.normal(size=p.shape).astype(np.float32) for p in params]
+             for _ in range(5)]
+    finals = []
+    for device in ("cpu", "cuda"):
+        tx = make(optimizers).to_transform()
+        p = [torch.tensor(a, device=device) for a in params]
+        state = tx.init(p)
+        for g in grads:
+            updates, state = tx.update(
+                [torch.tensor(a, device=device) for a in g], state, p)
+            p = [w + u for w, u in zip(p, updates)]
+        finals.append([t.cpu().numpy() for t in
+                       p + optimizers.opt_state_leaves(state)])
+    return max(scaled_err(b, a) for a, b in zip(*finals))
+
+
+def run_keras_layers(data):
+    """``keras_layers``: (a) the LSTM example, (b) the MNIST CNN, (c)
+    every layer, optimizer and schedule ported with them, card against
+    CPU (TF32 off, as for the whole run)."""
+    lstm_s = run_lstm_example()
+    cnn_s = run_mnist_cnn(data)
+    layer_errs, routes = {}, {}
+    for name, (make, shape, integer, training) in CARD_LAYERS.items():
+        layer_errs[name], route = layer_card_vs_cpu(make, shape, integer,
+                                                    training)
+        if route is not None:
+            routes[name] = route
+    require(routes == {"LSTM_32_cudnn": "cudnn", "LSTM_relu_loop": "loop"},
+            f"LSTM routes on the card: {routes}")
+    bad = {k: v for k, v in layer_errs.items() if not v <= LAYER_TOL}
+    require(not bad, f"layers on the card meet the CPU within {LAYER_TOL} "
+            f"of scale: {bad}")
+    bn_err, bn_moved = bn_fit_card_vs_cpu()
+    require(bn_err <= 1e-5 and bn_moved > 1e-3,
+            f"BatchNormalization fit on the card meets the CPU: {bn_err}, "
+            f"moving mean moved {bn_moved}")
+    opt_errs = {name: optimizer_card_vs_cpu(make)
+                for name, make in CARD_OPTIMIZERS.items()}
+    bad = {k: v for k, v in opt_errs.items() if not v <= OPT_TOL}
+    require(not bad, f"optimizers on the card meet the CPU within "
+            f"{OPT_TOL}: {bad}")
+    emit({"phase": "keras_layers_card_vs_cpu",
+          "layer_max_scaled_err": layer_errs, "layer_tol": LAYER_TOL,
+          "lstm_routes": routes, "bn_fit_weight_max_abs_err": bn_err,
+          "bn_fit_tol": 1e-5, "bn_moving_mean_max": bn_moved,
+          "optimizer_max_scaled_err": opt_errs, "optimizer_tol": OPT_TOL})
+    return lstm_s, cnn_s
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -2034,6 +2468,11 @@ def main() -> int:
     persist_counts = read_counts()
     require(not any(persist_counts.values()),
             f"no Keras persistence path launches a kernel: {persist_counts}")
+    reset_counts()
+    run_keras_layers(data)
+    layers_counts = read_counts()
+    require(not any(layers_counts.values()),
+            f"no Keras layer path launches a kernel: {layers_counts}")
     lm_counts = run_tpu_model_lm(cfg)
     d32_counts, resumed_counts, loaded_counts = run_tpu_model_lm_d32()
     d16_counts = run_forward_d16()
@@ -2053,6 +2492,7 @@ def main() -> int:
              "tpu_model_lm_d32_loaded_predict": loaded_counts,
              "forward_d16": d16_counts, "keras_async": async_counts,
              "keras_persist": persist_counts,
+             "keras_layers": layers_counts,
              "http_serving_example": ex_counts,
              "http_serving_flagship": flag_counts}
     kernels = [

@@ -15,11 +15,15 @@ paged decode with the fused paged-attention kernel, the serving engine
 ``DecodeEngine`` (contiguous or paged cache, ``steps_per_sync``,
 chunked prefill, registered prefixes and the automatic prefix cache)
 with its HTTP front ``ServingServer`` and ``TextGenerator``,
-single-device LM training (``lm_loss``, ``make_train_step``, the SGD /
-Adam / AdamW / RMSprop optimizers and ``TransformerModel``) with the
-flash-attention backward kernels, and the Keras-style models
-(``Sequential``, functional ``Model``, Dense / Activation / Dropout /
-Flatten / Reshape) with synchronous data-parallel training through
+single-device LM training (``lm_loss``, ``make_train_step``,
+``TransformerModel``) with the flash-attention backward kernels, every
+optimizer of the JAX package (SGD, Adam, AdamW, RMSprop, Adagrad,
+Adadelta, Nadam, Adafactor, Lion, LAMB) and its learning-rate
+schedules, and the Keras-style models (``Sequential``, functional
+``Model``, and every layer of the JAX package: Dense, Activation,
+Dropout, Flatten, Reshape, Conv2D and the pools, Embedding, LSTM, GRU,
+LayerNormalization, BatchNormalization with its moving statistics, and
+the merges) with synchronous data-parallel training through
 ``TPUModel`` (``sync_mode`` "average" and "step") on one device, its
 asynchronous and hogwild modes with one parameter server, and
 persistence: model files (``save_model``/``load_model``,
@@ -29,9 +33,14 @@ resume (``ModelCheckpoint``, ``restore_training_state``) and
 """
 from .data.dataset import Dataset
 from .models.core import Model, Sequential, model_from_json
-from .models.layers import (Activation, Dense, Dropout, Flatten, Input,
+from .models.layers import (GRU, LSTM, Activation, Add, AveragePooling2D,
+                            BatchNormalization, Concatenate, Conv2D, Dense,
+                            Dropout, Embedding, Flatten,
+                            GlobalAveragePooling2D, Input,
+                            LayerNormalization, MaxPooling2D, Multiply,
                             Reshape)
-from .models.optimizers import SGD, Adam, AdamW, RMSprop
+from .models.optimizers import (LAMB, SGD, Adadelta, Adafactor, Adagrad,
+                                Adam, AdamW, Lion, Nadam, RMSprop)
 from .models.paged_decode import decode_step_paged, init_paged_pool
 from .models.transformer import (TransformerConfig, beam_search, forward,
                                  generate, init_params, lm_loss,
@@ -47,10 +56,14 @@ from .weights import from_numpy_tree, to_numpy_tree
 __all__ = ["TransformerConfig", "init_params", "forward", "prefill_cache",
            "generate", "beam_search", "lm_loss", "make_train_step",
            "TransformerModel", "SGD", "Adam", "AdamW", "RMSprop",
+           "Adagrad", "Adadelta", "Nadam", "Adafactor", "Lion", "LAMB",
            "init_paged_pool", "decode_step_paged", "DecodeEngine",
            "QueueFullError", "ServingServer", "TextGenerator",
            "from_numpy_tree", "to_numpy_tree", "Sequential",
            "Model", "model_from_json", "Input", "Dense", "Activation",
-           "Dropout", "Flatten", "Reshape", "Dataset", "to_dataset",
+           "Dropout", "Flatten", "Reshape", "Conv2D", "MaxPooling2D",
+           "AveragePooling2D", "GlobalAveragePooling2D", "Embedding",
+           "LSTM", "GRU", "LayerNormalization", "BatchNormalization",
+           "Add", "Multiply", "Concatenate", "Dataset", "to_dataset",
            "to_labeled_points", "TPUModel", "TPUMatrixModel",
            "load_tpu_model"]

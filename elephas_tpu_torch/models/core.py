@@ -17,9 +17,11 @@ means the CUDA device; ``device="cpu"`` asks for the CPU).
   reads them once per epoch (and per batch only when callbacks are
   given, whose ``batch_end`` receives the batch loss).
 - Trainable parameters and non-trainable state are kept apart
-  (``_split_params``/``_merge_params``), as the trainers expect; no
-  ported layer has state yet (BatchNormalization waits for ROADMAP
-  Queue 1 item 3).
+  (``_split_params``/``_merge_params``), as the trainers expect. The
+  state is BatchNormalization's moving statistics: the training forward
+  collects their updates (``_apply_internal(..., collect_updates=True)``)
+  and :func:`train_step` writes them into the state after the step, as
+  the JAX package's trainers merge them.
 
 ``save`` writes the model file of :mod:`~elephas_tpu_torch.models.
 saving`; ``training_state``/``restore_training_state`` are the JAX
@@ -73,7 +75,9 @@ def train_step(model: "BaseModel", tx, loss_fn: Callable,
                swb: Optional[torch.Tensor] = None,
                gen: Optional[torch.Generator] = None):
     """One optimizer step on one batch, updating the leaves of
-    ``trainable`` in place; returns ``(opt_state, stats)``.
+    ``trainable`` in place and replacing the entries of ``state`` that
+    the batch moves (BatchNormalization's moving statistics); returns
+    ``(opt_state, stats)``.
 
     The loss is the batch mean, or with sample weights ``swb`` (1.0 for
     real rows, 0.0 for padding) ``sum(loss * swb) / max(sum(swb), 1)``,
@@ -81,8 +85,8 @@ def train_step(model: "BaseModel", tx, loss_fn: Callable,
     ``[loss * count, count, sum of each metric over the counted rows]``,
     for sample-weighted epoch means."""
     leaves = tree_leaves(trainable)
-    preds = model._apply_for_training(model._merge_params(trainable, state),
-                                      xb, gen)
+    preds, updates = model._apply_for_training(
+        model._merge_params(trainable, state), xb, gen)
     per = loss_fn(yb, preds)
     if swb is None:
         count = per.new_full((), float(per.shape[0]))
@@ -92,9 +96,11 @@ def train_step(model: "BaseModel", tx, loss_fn: Callable,
         loss = (per * swb).sum() / count.clamp(min=1.0)
     grads = torch.autograd.grad(loss, leaves)
     with torch.no_grad():
-        updates, opt_state = tx.update(list(grads), opt_state, leaves)
-        for p, u in zip(leaves, updates):
+        opt_updates, opt_state = tx.update(list(grads), opt_state, leaves)
+        for p, u in zip(leaves, opt_updates):
             p.add_(u)
+        for ln, lu in updates.items():
+            state[ln].update(lu)
         preds = preds.detach()
         stats = [loss.detach() * count, count]
         for fn in metric_fns:
@@ -305,22 +311,39 @@ class BaseModel:
         """Forward pass. Under mixed precision
         (``compile(compute_dtype='bfloat16')``) params and inputs cast
         down for the compute and predictions cast back to f32."""
+        return self._forward(params, inputs, training, gen, False)[0]
+
+    def _apply_for_training(self, params, inputs, gen):
+        """Training forward, ``(predictions, state updates)``: the entry
+        point of every training objective (``fit`` and the sync
+        trainers), so mixed precision holds on all paths."""
+        return self._forward(params, inputs, True, gen, True)
+
+    def _forward(self, params, inputs, training, gen, collect_updates):
+        """:meth:`_apply_internal` with the compile-level mixed-precision
+        casts; predictions and updates come back in f32."""
         if self._compute_dtype is not None:
             params = _cast_floats(params, self._compute_dtype)
             inputs = _cast_floats(inputs, self._compute_dtype)
-        y = self._apply_internal(params, inputs, training, gen)
+        y, updates = self._apply_internal(params, inputs, training, gen,
+                                          collect_updates)
         if self._compute_dtype is not None:
             y = _cast_floats(y, torch.float32)
-        return y
+            updates = _cast_floats(updates, torch.float32)
+        return y, updates
 
-    def _apply_internal(self, params, inputs, training, gen):
+    def _apply_internal(self, params, inputs, training, gen,
+                        collect_updates: bool = False):
+        """``(outputs, updates)``: with ``collect_updates`` in training,
+        ``updates`` maps each BatchNormalization layer to its moving
+        statistics after this batch."""
         raise NotImplementedError
 
-    def _apply_for_training(self, params, inputs, gen):
-        """Training forward with the compile-level mixed-precision casts:
-        the entry point of every training objective (``fit`` and the
-        sync trainers), so mixed precision holds on all paths."""
-        return self.apply(params, inputs, training=True, gen=gen)
+    @staticmethod
+    def _collect(updates: Dict, layer: Layer, layer_params: Dict, x,
+                 training: bool, collect_updates: bool):
+        if collect_updates and training and hasattr(layer, "moving_updates"):
+            updates[layer.name] = layer.moving_updates(layer_params, x)
 
     # ---------------------------------------------------------------- compile
     def compile(self, optimizer="rmsprop", loss=None, metrics=None,
@@ -660,11 +683,16 @@ class Sequential(BaseModel):
             raise ValueError("Model not built")
         return self._output_shape
 
-    def _apply_internal(self, params, inputs, training, gen):
+    def _apply_internal(self, params, inputs, training, gen,
+                        collect_updates: bool = False):
+        updates: Dict[str, Dict] = {}
         x = inputs
         for layer in self._layers:
-            x = layer.call(params.get(layer.name, {}), x, training, gen)
-        return x
+            layer_params = params.get(layer.name, {})
+            self._collect(updates, layer, layer_params, x, training,
+                          collect_updates)
+            x = layer.call(layer_params, x, training, gen)
+        return x, updates
 
     def get_config(self) -> Dict:
         return {"name": self.name,
@@ -753,7 +781,9 @@ class Model(BaseModel):
     def output_shape(self) -> Tuple:
         return self._output_shape
 
-    def _apply_internal(self, params, inputs, training, gen):
+    def _apply_internal(self, params, inputs, training, gen,
+                        collect_updates: bool = False):
+        updates: Dict[str, Dict] = {}
         values: Dict[int, Any] = {}
         input_list = inputs if isinstance(inputs, (list, tuple)) else [inputs]
         if len(input_list) != len(self.inputs):
@@ -770,10 +800,12 @@ class Model(BaseModel):
                 continue
             args = [values[id(p)] for p in parents]
             arg = args if len(args) > 1 else args[0]
-            values[id(t)] = layer.call(params.get(layer.name, {}), arg,
-                                       training, gen)
+            layer_params = params.get(layer.name, {})
+            self._collect(updates, layer, layer_params, arg, training,
+                          collect_updates)
+            values[id(t)] = layer.call(layer_params, arg, training, gen)
         outs = [values[id(o)] for o in self.outputs]
-        return outs if len(outs) > 1 else outs[0]
+        return (outs if len(outs) > 1 else outs[0]), updates
 
     def get_config(self) -> Dict:
         tensor_names: Dict[int, str] = {}

@@ -13,6 +13,13 @@ ROADMAP Queue 1 item 3's multi-GPU step):
 - :class:`SyncStepTrainer`: per-step synchronous SGD over the global
   batch.
 
+BatchNormalization's moving statistics move with every step, as in the
+JAX trainers; under the average they are averaged like the weights.
+Conv models take the same per-batch loop as any other: the JAX
+package's switch of conv models to a per-batch path works round an XLA
+layout problem torch does not have, and its per-batch path computes the
+arithmetic of its vmapped program, which is this loop's.
+
 Both keep the JAX package's shard-size rules bit for bit: partitions
 are padded to a common, batch-multiple length and the padding rows
 carry sample weight 0; the validation split is the LAST fraction of
@@ -182,15 +189,18 @@ class SyncAverageTrainer:
             gen = torch.Generator(device=device).manual_seed(
                 _worker_seed(seed, w))
             trainable = _trainable_copy(trainable0)
+            # each copy moves its own moving statistics, averaged with
+            # the weights
+            state = {ln: dict(lp) for ln, lp in state0.items()}
             opt_state = self.tx.init(tree_leaves(trainable))
             per_epoch = []
             for _ in range(int(epochs)):
                 opt_state, totals = _run_epoch(
                     model, self.tx, self.loss_fn, self.metric_fns, trainable,
-                    state0, opt_state, x, y, sw, batch_size,
+                    state, opt_state, x, y, sw, batch_size,
                     _epoch_permutation(n_pad, shuffle, gen, device), gen)
                 per_epoch.append(epoch_stats(totals))
-            yield (w, model._merge_params(trainable, state0),
+            yield (w, model._merge_params(trainable, state),
                    torch.stack(per_epoch))
 
     def _history_dicts(self, stats: Dict[int, List[List[float]]],

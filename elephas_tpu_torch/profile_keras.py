@@ -4,11 +4,15 @@ asynchronous worker's reference batch loop.
 
     python -m elephas_tpu_torch.profile_keras [--steps 200] [--batch 64]
     python -m elephas_tpu_torch.profile_keras --mode async_batch
+    python -m elephas_tpu_torch.profile_keras --model lstm --batch 128
 
 Runs on the CUDA device only. Builds the bench's MLP (784-128-128-10,
 f32, weights from a seed) compiled as ``chip_smoke.py``'s
 ``keras_sync_step`` phase compiles it (SGD, categorical cross-entropy,
-acc), makes ``--steps`` x ``--batch`` seeded rows, warms 20 steps,
+acc), or with ``--model lstm`` the model of
+``examples/lstm_sequence_classification.py`` (Embedding 16 over 32
+tokens -> LSTM 32 -> Dense 2, Adam 5e-3, rows of 16 tokens; cuDNN's
+LSTM), makes ``--steps`` x ``--batch`` seeded rows, warms 20 steps,
 times ``--steps`` steps and profiles as many more. Prints one JSON
 line: the host time per step (untraced window), the device time per
 step (sum of kernel and copy durations, traced window), the device's
@@ -36,16 +40,38 @@ import numpy as np
 import torch
 
 
-def _sync_step_runner(model, rng, n, b):
+def _mlp(rng, rows):
+    from .models import SGD, Activation, Dense, Sequential
+
+    model = Sequential([Dense(128, input_dim=784), Activation("relu"),
+                        Dense(128), Activation("relu"), Dense(10),
+                        Activation("softmax")], device="cuda")
+    model.compile(SGD(0.01), "categorical_crossentropy", ["acc"], seed=0)
+    x = rng.random((rows, 784), dtype=np.float32)
+    return model, x, np.eye(10, dtype=np.float32)[rng.integers(0, 10, rows)]
+
+
+def _lstm(rng, rows):
+    from .models import LSTM, Adam, Dense, Embedding, Sequential
+
+    model = Sequential([Embedding(32, 16, input_shape=(16,)), LSTM(32),
+                        Dense(2, activation="softmax")], device="cuda")
+    model.compile(Adam(5e-3), "categorical_crossentropy", ["acc"], seed=0)
+    x = rng.integers(0, 32, (rows, 16)).astype(np.int32)
+    return model, x, np.eye(2, dtype=np.float32)[rng.integers(0, 2, rows)]
+
+
+_MODELS = {"mlp": _mlp, "lstm": _lstm}
+
+
+def _sync_step_runner(model, x, y, b):
     """``run(steps)``: the sync trainers' step over device rows."""
     from .models.core import _trainable_copy, train_step
     from .weights import tree_leaves
 
-    x = torch.as_tensor(rng.random((n * b, 784), dtype=np.float32),
-                        device="cuda")
-    y = torch.as_tensor(np.eye(10, dtype=np.float32)[
-        rng.integers(0, 10, n * b)], device="cuda")
-    sw = torch.ones(n * b, device="cuda")
+    x = torch.as_tensor(x, device="cuda")
+    y = torch.as_tensor(y, device="cuda")
+    sw = torch.ones(x.shape[0], device="cuda")
     trainable, state = model._split_params(model.params)
     trainable = _trainable_copy(trainable)
     opt_state = model._tx.init(tree_leaves(trainable))
@@ -64,7 +90,7 @@ def _sync_step_runner(model, rng, n, b):
     return run, lambda: None
 
 
-def _async_batch_runner(model, rng, n, b):
+def _async_batch_runner(model, x, y, b):
     """``run(steps)``: one async worker's reference batch loop over
     ``steps`` batches of host rows, against a local socket server."""
     from .models import serialize_optimizer
@@ -73,8 +99,6 @@ def _async_batch_runner(model, rng, n, b):
     from .utils.sockets import free_port
     from .worker import AsyncWorker
 
-    x = rng.random((n * b, 784), dtype=np.float32)
-    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, n * b)]
     port = free_port()
     server = SocketServer(model_to_dict(model), port, "asynchronous")
     server.start()
@@ -106,24 +130,20 @@ def main() -> None:
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--mode", choices=("sync_step", "async_batch"),
                     default="sync_step")
+    ap.add_argument("--model", choices=sorted(_MODELS), default="mlp")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_keras needs a CUDA device")
     from torch.profiler import ProfilerActivity, profile
 
-    from .models import SGD, Activation, Dense, Sequential
     from .profile_serving import device_breakdown
 
-    model = Sequential([Dense(128, input_dim=784), Activation("relu"),
-                        Dense(128), Activation("relu"), Dense(10),
-                        Activation("softmax")], device="cuda")
-    model.compile(SGD(0.01), "categorical_crossentropy", ["acc"], seed=0)
-    rng = np.random.default_rng(0)
     n, b = args.steps, args.batch
+    model, x, y = _MODELS[args.model](np.random.default_rng(0), n * b)
     if args.mode == "sync_step":
-        run, close = _sync_step_runner(model, rng, n, b)
+        run, close = _sync_step_runner(model, x, y, b)
     else:
-        run, close = _async_batch_runner(model, rng, n, b)
+        run, close = _async_batch_runner(model, x, y, b)
     try:
         run(20)
         torch.cuda.synchronize()
@@ -139,6 +159,7 @@ def main() -> None:
         close()
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "mode": args.mode,
+        "model": args.model,
         "steps": n, "batch": b, "loss": loss,
         "samples_per_s": b / host_ms * 1e3,
         **device_breakdown(prof, n, host_ms, args.top)}))

@@ -48,6 +48,19 @@ _OPTIMIZERS = {
                                         decay_1d=True),
     "rmsprop_momentum": lambda m: m.RMSprop(1e-2, momentum=0.9),
     "adam_clipped": lambda m: m.Adam(1e-2, clipvalue=0.05, clipnorm=0.5),
+    # the schedule's own count is the last leaf
+    "adam_scheduled": lambda m: m.Adam(m.schedules.WarmupCosine(
+        1e-2, warmup_steps=2, decay_steps=10)),
+    "adagrad": lambda m: m.Adagrad(1e-2),
+    "adadelta": lambda m: m.Adadelta(1.0),
+    "nadam": lambda m: m.Nadam(1e-2),
+    # FactoredState: the count, then row, column and full moments, each
+    # a (1,) placeholder where a leaf does not use it
+    "adafactor": lambda m: m.Adafactor(),
+    "adafactor_factored": lambda m: m.Adafactor(
+        1e-2, min_dim_size_to_factor=2),
+    "lion": lambda m: m.Lion(1e-3, weight_decay=0.1),
+    "lamb": lambda m: m.LAMB(1e-2, weight_decay=0.1),
 }
 
 

@@ -8,7 +8,12 @@ elsewhere. On a machine with the card:
 The kernels are built from ``elephas_tpu_torch/csrc`` at first use.
 The flash kernels are held at head dim 64 over every case and at head
 dims 16 and 32 (the repo's other configurations) over the GQA, window,
-ragged and offset cases. Tolerances: f32 kernels within 1e-4 of the f32 plain version (another
+ragged and offset cases. The Keras layers, optimizers and schedules
+ported with Conv2D (no kernel of the repo's: cuDNN, cuBLAS and torch
+loops) are held against the CPU, TF32 off: layers within 1e-4 of each
+array's scale, optimizers within 1e-5 of scale, a BatchNormalization fit within
+1e-5, and the LSTM example's first epoch (cuDNN's LSTM against the CPU
+loop) within 1e-4 in loss and 1e-3 in weights. Tolerances: f32 kernels within 1e-4 of the f32 plain version (another
 summation order); bf16 kernels within 2e-2 of the f32 plain version on
 the same bf16-rounded inputs (the softmax weights enter the P.V product
 in bf16, as in the TPU kernels).
@@ -822,3 +827,215 @@ def test_fused_paged_under_sync_and_prefix_hits_equals_gather(cuda, no_tf32):
     assert stats["kernel_launches"] == stats["steps"] * 3 * cfg.num_layers
     assert stats["prefix_tokens_reused"] >= 4 * 24
     assert stats["kv_cache"]["pinned_blocks"] == 3
+
+
+# ------------------------------------------- the rest of the Keras layers
+def _close_scaled(got, want, tol, what=""):
+    """``|got - want| <= tol * max(1, max |want|)``."""
+    want = np.asarray(want)
+    scale = max(1.0, float(np.abs(want).max(initial=0.0)))
+    np.testing.assert_allclose(got, want, atol=tol * scale, rtol=0,
+                               err_msg=what)
+
+
+def _images(shape, n=4, seed=1):
+    return np.random.default_rng(seed).normal(size=(n,) + shape).astype(
+        np.float32)
+
+
+_CARD_LAYERS = {
+    # name: (layer, batch-less input shape, integer input)
+    "conv_valid": (lambda m: m.Conv2D(32, 3, activation="relu"),
+                   (28, 28, 1), False),
+    "conv_same_stride2_odd": (lambda m: m.Conv2D(8, (3, 2), strides=2,
+                                                 padding="same"),
+                              (9, 7, 3), False),
+    "max_pool_same": (lambda m: m.MaxPooling2D(3, strides=2,
+                                               padding="same"),
+                      (9, 7, 2), False),
+    "avg_pool_same": (lambda m: m.AveragePooling2D(3, strides=2,
+                                                   padding="same"),
+                      (9, 7, 2), False),
+    "global_avg_pool": (lambda m: m.GlobalAveragePooling2D(), (5, 6, 3),
+                        False),
+    "embedding": (lambda m: m.Embedding(32, 16), (16,), True),
+    "lstm_cudnn": (lambda m: m.LSTM(32), (16, 16), False),
+    "lstm_cudnn_sequences": (lambda m: m.LSTM(8, return_sequences=True),
+                             (12, 5), False),
+    "lstm_loop_relu": (lambda m: m.LSTM(8, activation="relu"), (12, 5),
+                       False),
+    "gru": (lambda m: m.GRU(16, return_sequences=True), (12, 5), False),
+    "layer_norm": (lambda m: m.LayerNormalization(), (6, 10), False),
+    "batch_norm_training": (lambda m: m.BatchNormalization(), (5, 5, 4),
+                            False),
+    "batch_norm_inference": (lambda m: m.BatchNormalization(), (5, 5, 4),
+                             False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_CARD_LAYERS))
+def test_new_layers_on_card_match_cpu(cuda, no_tf32, case):
+    """Each layer ported with Conv2D and the rest: forward and the
+    gradient of ``sum(out * r)`` (parameters and input) on the card
+    against the CPU from the same seeded parameters, f32 with TF32 off,
+    within 1e-4 of the larger of 1 and each array's largest magnitude
+    (cuDNN's convolutions and LSTM sum in other orders than the CPU's
+    loops). The default LSTM takes cuDNN's route on the card."""
+    from elephas_tpu_torch.models import layers
+
+    make, shape, integer = _CARD_LAYERS[case]
+    training = case != "batch_norm_inference"
+    layer = make(layers)
+    rng = np.random.default_rng(0)
+    built = layer.build(torch.Generator().manual_seed(0), shape)
+    params = {k: (rng.uniform(0.5, 1.5, v.shape)
+                  if k in ("gamma", "moving_variance")
+                  else 0.3 * rng.normal(size=v.shape)).astype(np.float32)
+              for k, v in built.items()}
+    x = (rng.integers(-32, 32, (8,) + shape).astype(np.int32) if integer
+         else _images(shape, n=8))
+    r = None
+    results = []
+    for device in ("cpu", cuda):
+        p = {k: torch.tensor(v, device=device, requires_grad=True)
+             for k, v in params.items()}
+        xt = torch.tensor(x, device=device, requires_grad=not integer)
+        if isinstance(layer, layers.LSTM):
+            assert layer.cudnn_route(xt) == (
+                device != "cpu" and case.startswith("lstm_cudnn"))
+        out = layer.call(p, xt, training, None)
+        if r is None:
+            r = torch.from_numpy(rng.normal(size=tuple(out.shape)).astype(
+                np.float32))
+        wrt = [p[k] for k in sorted(p)] + ([] if integer else [xt])
+        grads = torch.autograd.grad((out * r.to(device)).sum(), wrt,
+                                    allow_unused=True)
+        results.append([out.detach().cpu().numpy()] + [
+            np.zeros(w.shape, np.float32) if g is None else g.cpu().numpy()
+            for g, w in zip(grads, wrt)])
+    for i, (a, b) in enumerate(zip(*results)):
+        # the embedding's out-of-range ids give NaN rows on both
+        np.testing.assert_array_equal(np.isnan(b), np.isnan(a))
+        _close_scaled(np.nan_to_num(b), np.nan_to_num(a), 1e-4,
+                      f"{case} #{i}")
+
+
+_CARD_OPTIMIZERS = {
+    "adagrad": lambda m: m.Adagrad(1e-1),
+    "adadelta": lambda m: m.Adadelta(1.0),
+    "nadam": lambda m: m.Nadam(1e-2),
+    "adafactor": lambda m: m.Adafactor(min_dim_size_to_factor=2,
+                                       weight_decay_rate=0.01),
+    "lion": lambda m: m.Lion(1e-3, weight_decay=0.1),
+    "lamb": lambda m: m.LAMB(1e-2, weight_decay=0.1),
+    "adam_exponential": lambda m: m.Adam(m.schedules.ExponentialDecay(
+        1e-2, 2, 0.5)),
+    "sgd_cosine": lambda m: m.SGD(m.schedules.CosineDecay(0.1, 4),
+                                  momentum=0.9),
+    "rmsprop_piecewise": lambda m: m.RMSprop(
+        m.schedules.PiecewiseConstantDecay([2], [1e-2, 1e-3])),
+    "lamb_warmup_cosine": lambda m: m.LAMB(m.schedules.WarmupCosine(
+        1e-2, 2, 6)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_CARD_OPTIMIZERS))
+def test_new_optimizers_on_card_match_cpu(cuda, name):
+    """Each optimizer ported with the layers, and each schedule: 5
+    updates of a (64, 32) matrix and a (32,) vector on the card against
+    the CPU, the parameters and the state's leaves within 1e-5 of the
+    larger of 1 and each array's largest magnitude (the card's
+    reductions, Adafactor's moments and LAMB's norms, sum in another
+    order)."""
+    from elephas_tpu_torch.models import optimizers
+
+    rng = np.random.default_rng(0)
+    params = [rng.normal(size=(64, 32)).astype(np.float32),
+              rng.normal(size=(32,)).astype(np.float32)]
+    grads = [[rng.normal(size=p.shape).astype(np.float32) for p in params]
+             for _ in range(5)]
+    finals = []
+    for device in ("cpu", cuda):
+        tx = _CARD_OPTIMIZERS[name](optimizers).to_transform()
+        p = [torch.tensor(a, device=device) for a in params]
+        state = tx.init(p)
+        for g in grads:
+            updates, state = tx.update(
+                [torch.tensor(a, device=device) for a in g], state, p)
+            p = [w + u for w, u in zip(p, updates)]
+        finals.append([t.cpu().numpy() for t in
+                       p + optimizers.opt_state_leaves(state)])
+    for a, b in zip(*finals):
+        _close_scaled(b, a, 1e-5, name)
+
+
+def _bn_conv_model(device):
+    from elephas_tpu_torch.models import (Adam, BatchNormalization, Conv2D,
+                                          Dense, Flatten, Sequential,
+                                          reset_layer_uids)
+    reset_layer_uids()
+    model = Sequential([Conv2D(8, 3, use_bias=False,
+                               input_shape=(10, 10, 3)),
+                        BatchNormalization(momentum=0.9), Flatten(),
+                        Dense(4, activation="softmax")], device=device)
+    model.compile(Adam(1e-2), "categorical_crossentropy", seed=0)
+    return model
+
+
+def test_bn_moving_statistics_on_card_match_cpu(cuda, no_tf32):
+    """3 steps of ``fit`` (batch 16, no shuffle) on a Conv2D ->
+    BatchNormalization model: every weight, the moving statistics
+    included, within 1e-5 of the CPU's, and the statistics moved."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(0.5, 1.0, (48, 10, 10, 3)).astype(np.float32)
+    y = np.eye(4, dtype=np.float32)[rng.integers(0, 4, 48)]
+    finals, w0 = [], None
+    for device in ("cpu", cuda):
+        model = _bn_conv_model(device)
+        w0 = w0 or model.get_weights()
+        model.set_weights(w0)
+        model.fit(x, y, epochs=1, batch_size=16, shuffle=False)
+        finals.append(model.get_weights())
+    for a, b in zip(*finals):
+        np.testing.assert_allclose(b, a, atol=1e-5, rtol=0)
+    assert np.abs(finals[1][2]).max() > 1e-3   # the moving mean moved
+
+
+def test_lstm_example_first_epoch_on_card_matches_cpu(cuda, no_tf32):
+    """``examples/lstm_sequence_classification.py``'s model and data at
+    full size (4096 rows of 16 tokens, vocab 32; Embedding 16 -> LSTM 32
+    -> Dense 2; Adam 5e-3, batch 128, validation split 0.1) through
+    ``SyncStepTrainer`` (the sync step ``TPUModel``'s trainer; without
+    shuffling, whose permutations differ between the card's and the
+    CPU's generators), one epoch from the same weights on the card
+    (cuDNN's LSTM) and on the CPU (the loop): the epoch loss within
+    1e-4, every weight within 1e-3 (29 Adam steps carry the two
+    summation orders' rounding), predictions within 1e-3."""
+    from elephas_tpu_torch import LSTM, Adam, Dense, Embedding, Sequential
+    from elephas_tpu_torch.models import metrics, reset_layer_uids
+    from elephas_tpu_torch.parallel.sync_trainer import SyncStepTrainer
+
+    rng = np.random.default_rng(0)
+    n, t, vocab = 4096, 16, 32
+    x = rng.integers(0, vocab, size=(n, t)).astype("int32")
+    y_bit = ((x == 1).sum(axis=1) % 2 == 0).astype("float32")
+    y = np.stack([1 - y_bit, y_bit], axis=1)
+    loss = "categorical_crossentropy"
+    runs, w0 = [], None
+    for device in ("cpu", cuda):
+        reset_layer_uids()
+        model = Sequential([Embedding(vocab, 16, input_shape=(t,)),
+                            LSTM(32), Dense(2, activation="softmax")],
+                           device=device)
+        model.build(seed=0)
+        w0 = w0 or model.get_weights()
+        trainer = SyncStepTrainer(model, Adam(learning_rate=5e-3), loss,
+                                  [metrics.get("acc", loss=loss)])
+        weights, hist = trainer.fit(w0, x, y, epochs=1, batch_size=128,
+                                    validation_split=0.1, shuffle=False)
+        runs.append((hist["loss"], weights, model.predict(x[:256])))
+    (cl, cw, cp), (gl, gw, gp) = runs
+    np.testing.assert_allclose(gl, cl, atol=1e-4, rtol=0)
+    for a, b in zip(cw, gw):
+        np.testing.assert_allclose(b, a, atol=1e-3, rtol=0)
+    np.testing.assert_allclose(gp, cp, atol=1e-3, rtol=0)

@@ -285,12 +285,20 @@ def test_to_json_loads_in_the_other_package(kind):
     assert json.loads(to_jax.to_json()) == json.loads(tm.to_json())
 
 
-def test_unported_layers_raise():
+def test_conv_model_json_loads_and_unknown_layers_raise():
+    """Every layer class of the JAX package deserializes here: a Conv2D
+    model's JSON loads and predicts as the JAX model on its weights; an
+    unknown class name raises ``ValueError``."""
     jlayers.reset_layer_uids()
     jm = jcore.Sequential([jlayers.Conv2D(4, 3, input_shape=(8, 8, 1)),
                            jlayers.Flatten(), jlayers.Dense(2)])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        tcore.model_from_json(jm.to_json(), device="cpu")
+    jm.build(seed=0)
+    tm = tcore.model_from_json(jm.to_json(), device="cpu")
+    tm.set_weights(jm.get_weights())
+    x = np.random.default_rng(7).normal(size=(5, 8, 8, 1)).astype(np.float32)
+    np.testing.assert_allclose(tm.predict(x), np.asarray(jm.predict(x)),
+                               atol=1e-5, rtol=0)
+    assert set(tlayers._LAYERS) == set(jlayers._LAYERS)
     with pytest.raises(ValueError):
         tlayers.deserialize_layer({"class_name": "NoSuchLayer"})
 

@@ -1,6 +1,6 @@
 """The port's optimizers against the JAX package's optax transforms.
 
-The same numpy parameters and three rounds of numpy gradients go
+The same numpy parameters and five rounds of numpy gradients go
 through ``Optimizer.to_optax()`` of the JAX package and
 ``Optimizer.to_transform()`` of the port (each built from the other's
 config), and the parameters after each update must agree within atol
@@ -18,6 +18,7 @@ torch = pytest.importorskip("torch")
 
 from elephas_tpu.models import optimizers as jopt
 from elephas_tpu_torch.models import optimizers as topt
+from elephas_tpu_torch.models import schedules as tsched
 
 _CASES = {
     "sgd": lambda m: m.SGD(0.1),
@@ -37,6 +38,22 @@ _CASES = {
     "rmsprop_momentum": lambda m: m.RMSprop(1e-2, rho=0.8, momentum=0.9,
                                             epsilon=1e-6),
     "rmsprop_clipnorm": lambda m: m.RMSprop(1e-2, clipnorm=1.0),
+    "adagrad": lambda m: m.Adagrad(1e-1),
+    "adagrad_clipvalue": lambda m: m.Adagrad(1e-1, epsilon=1e-5,
+                                             clipvalue=1.0),
+    "adadelta": lambda m: m.Adadelta(1.0, rho=0.9),
+    "nadam": lambda m: m.Nadam(1e-2),
+    "nadam_mu_bf16": lambda m: m.Nadam(1e-2, mu_dtype="bfloat16"),
+    # default: no leaf reaches 128, so every second moment is full
+    "adafactor": lambda m: m.Adafactor(),
+    # factored: the (4, 3) and (2, 2, 2) leaves keep row and column means
+    "adafactor_factored": lambda m: m.Adafactor(
+        1e-1, min_dim_size_to_factor=2, weight_decay_rate=0.01),
+    "lion": lambda m: m.Lion(1e-3),
+    "lion_decay": lambda m: m.Lion(1e-3, beta_1=0.8, weight_decay=0.5),
+    "lamb": lambda m: m.LAMB(1e-2),
+    "lamb_decay_clipnorm": lambda m: m.LAMB(1e-2, weight_decay=0.1,
+                                            clipnorm=1.0),
 }
 
 
@@ -54,7 +71,7 @@ def test_updates_match_optax(case):
     params = _tree(rng)
     grads = [jax.tree_util.tree_map(
         lambda p: (3 * rng.standard_normal(p.shape)).astype(np.float32),
-        params) for _ in range(3)]
+        params) for _ in range(5)]
     jo = _CASES[case](jopt)
     to = topt.deserialize(jopt.serialize(jo))
     tx = jo.to_optax()
@@ -124,14 +141,27 @@ def test_get_by_name_and_config(ident):
         assert opt.learning_rate == 0.5 and opt.momentum == 0.9
 
 
-@pytest.mark.parametrize("name", ["adagrad", "Lion", "LAMB", "adafactor"])
-def test_unported_optimizers_raise(name):
-    with pytest.raises(NotImplementedError):
-        topt.get(name)
+@pytest.mark.parametrize("name", ["adagrad", "Lion", "LAMB", "adafactor",
+                                  "Adadelta", "nadam"])
+def test_the_jax_packages_names_resolve(name):
+    """Every name the JAX package's ``get`` takes gives the same class
+    and default config here."""
+    opt = topt.get(name)
+    assert type(opt).__name__ == type(jopt.get(name)).__name__
+    assert opt.get_config() == jopt.get(name).get_config()
 
 
 def test_unknown_optimizer_and_schedules_raise():
     with pytest.raises(ValueError):
         topt.get("nope")
-    with pytest.raises(NotImplementedError):
-        topt.Adam(learning_rate={"class_name": "ExponentialDecay"})
+    with pytest.raises(ValueError):
+        topt.Adam(learning_rate={"class_name": "NoSuchDecay"})
+    # a serialized schedule resolves, and serializes back as the JAX
+    # package writes it
+    spec = {"class_name": "ExponentialDecay",
+            "config": {"initial_learning_rate": 0.1, "decay_steps": 10,
+                       "decay_rate": 0.5, "staircase": True}}
+    opt = topt.Adam(learning_rate=spec)
+    assert isinstance(opt.learning_rate, tsched.ExponentialDecay)
+    assert topt.serialize(opt)["config"]["learning_rate"] == spec
+    assert jopt.serialize(jopt.Adam(learning_rate=spec)) == topt.serialize(opt)

@@ -11,7 +11,10 @@ with one batch per epoch; Adam, no dropout): the per-epoch losses the
 callbacks see and the final weights within 1e-5, also with
 ``ps_pipeline`` and with int8 ``delta_compression``. Then the
 supervision and callback plumbing: ``EarlyStopping`` stops the workers
-through ``_EpochAggregator``, a worker killed at
+through ``_EpochAggregator`` (the worker whose report fires the stopping
+epoch pushes no further epoch; the other is held in step by nothing, so
+a worker made late at ``worker.epoch`` lets it run all 10 epochs, 12
+updates in both packages), a worker killed at
 ``fault_site("worker.epoch")`` is re-run under
 ``on_worker_failure="reassign"`` with the supervisor's report in
 ``training_histories``, dropped under ``"continue"`` (or the fit raises
@@ -20,6 +23,7 @@ in the JAX package; a parameter server stopped mid-fit is restarted
 from its snapshot under ``ps_auto_restart``; and a ``TransformerModel``
 refuses the async modes with the JAX package's message.
 """
+import collections
 import threading
 import time
 from math import isclose
@@ -31,6 +35,7 @@ torch = pytest.importorskip("torch")
 
 from elephas_tpu.models import Adam as JAdam
 from elephas_tpu.models import Dense as JDense
+from elephas_tpu.models import EarlyStopping as JEarlyStopping
 from elephas_tpu.models import LambdaCallback as JLambdaCallback
 from elephas_tpu.models import SGD as JSGD
 from elephas_tpu.models import Sequential as JSequential
@@ -39,6 +44,7 @@ from elephas_tpu.tpu_model import TPUModel as JTPUModel
 from elephas_tpu.utils import delta_compression as jdc
 from elephas_tpu.utils import faults as jfaults
 from elephas_tpu.utils.dataset_utils import to_dataset as jto_dataset
+from elephas_tpu.worker import AsyncWorker as JAsyncWorker
 from elephas_tpu_torch import SGD, Adam, Dense, Sequential, TPUModel, to_dataset
 from elephas_tpu_torch.models.callbacks import EarlyStopping, LambdaCallback
 from elephas_tpu_torch.models.transformer_model import TransformerModel
@@ -47,6 +53,7 @@ from elephas_tpu_torch.utils import delta_compression as tdc
 from elephas_tpu_torch.utils import faults as tfaults
 from elephas_tpu_torch.utils.faults import FaultPlan, clear_plan, install_plan
 from elephas_tpu_torch.utils.sockets import free_port
+from elephas_tpu_torch.worker import AsyncWorker
 from tests.test_torch_async_worker import land_each_push
 from tests.test_torch_tpu_model import _classification_model
 from tests.test_torch_train import _configs
@@ -169,23 +176,89 @@ def _regression_data(n=128):
     return x, (x @ rng.random((4, 1), dtype=np.float32)).astype(np.float32)
 
 
-def test_early_stopping_stops_the_workers():
-    """With an unbeatable min_delta, patience 0 stops after epoch 1 of
-    10: the aggregator's stop flag reaches the workers."""
+def _count_pushes(monkeypatch, *worker_classes):
+    """Count each worker thread's pushes (both packages' workers push
+    from their supervisor slot's thread)."""
+    pushes = collections.Counter()
+    for cls in worker_classes:
+        def counted(self, delta, _push=cls._push):
+            pushes[threading.current_thread().name] += 1
+            return _push(self, delta)
+
+        monkeypatch.setattr(cls, "_push", counted)
+    return pushes
+
+
+def _early_stopping_fit(package, plan=None):
+    """2 workers, 10 epochs at epoch frequency, patience 0 and an
+    unbeatable min_delta: epoch 1 stops the fit. Returns the epochs that
+    fired, the stopped epoch, the thread whose report fired each epoch
+    and the server's update count."""
+    if package == "port":
+        net, tpu_cls, ds = _small_model(), TPUModel, to_dataset
+        es_cls, cb_cls, faults = EarlyStopping, LambdaCallback, tfaults
+    else:
+        net = JSequential([JDense(8, activation="relu", input_dim=4),
+                           JDense(1)])
+        net.compile(JSGD(learning_rate=0.05), "mse", seed=0)
+        tpu_cls, ds, es_cls = JTPUModel, jto_dataset, JEarlyStopping
+        cb_cls, faults = JLambdaCallback, jfaults
     x, y = _regression_data()
-    tpu_model = TPUModel(_small_model(), mode="asynchronous",
-                         frequency="epoch", parameter_server_mode="http",
-                         port=free_port(), num_workers=2)
-    events = []
-    es = EarlyStopping(monitor="loss", patience=0, min_delta=1e9)
-    tpu_model.fit(to_dataset(x, y), epochs=10, batch_size=32,
-                  validation_split=0.0, callbacks=[LambdaCallback(
-                      on_epoch_end=lambda e, logs: events.append(e)), es])
-    assert es.stopped_epoch == 1
+    tpu_model = tpu_cls(net, mode="asynchronous", frequency="epoch",
+                        parameter_server_mode="http", port=free_port(),
+                        num_workers=2)
+    events, firer = [], {}
+
+    def on_epoch_end(epoch, logs):
+        events.append(epoch)
+        firer[epoch] = threading.current_thread().name
+
+    es = es_cls(monitor="loss", patience=0, min_delta=1e9)
+    if plan is not None:
+        faults.install_plan(plan)
+    try:
+        tpu_model.fit(ds(x, y), epochs=10, batch_size=32,
+                      validation_split=0.0,
+                      callbacks=[cb_cls(on_epoch_end=on_epoch_end), es])
+    finally:
+        if plan is not None:
+            faults.clear_plan()
+    return events, es.stopped_epoch, firer, \
+        tpu_model.parameter_server.num_updates
+
+
+def test_early_stopping_stops_the_workers(monkeypatch):
+    """With an unbeatable min_delta, patience 0 stops after epoch 1 of
+    10: the aggregator fires epoch 1 once both workers reported it, on
+    the thread of the last to report, and that worker, which checks the
+    stop flag as it starts an epoch, pushes no third epoch. The other
+    worker is held in step by nothing and may have run ahead, so the
+    server's count is only below the 20 updates of an unstopped fit."""
+    pushes = _count_pushes(monkeypatch, AsyncWorker)
+    events, stopped, firer, updates = _early_stopping_fit("port")
+    assert stopped == 1
     assert events == [0, 1]   # epochs 2..9 never fired
-    # a worker checks the stop flag as it starts an epoch, so the faster
-    # one may have begun epoch 2 before epoch 1 fired; none ran epoch 3
-    assert 4 <= tpu_model.parameter_server.num_updates <= 6
+    assert pushes[firer[1]] == 2
+    assert updates == sum(pushes.values()) < 20
+
+
+@pytest.mark.parametrize("package", ["port", "jax"])
+def test_early_stopping_with_a_late_worker(package, monkeypatch):
+    """The first worker to start an epoch sleeps 2 s there (a ``delay``
+    at ``worker.epoch``): the other runs all 10 epochs meanwhile, then
+    the late one pushes epochs 0 and 1, fires epoch 1 and stops. 12
+    updates in both packages (the reference's design: no barrier holds
+    the workers in step), past the 4-6 a lockstep fit would give."""
+    pushes = _count_pushes(monkeypatch, AsyncWorker, JAsyncWorker)
+    faults = tfaults if package == "port" else jfaults
+    plan = faults.FaultPlan([{"site": "worker.epoch", "action": "delay",
+                              "delay": 2.0}])
+    events, stopped, firer, updates = _early_stopping_fit(package, plan)
+    assert plan.fired("worker.epoch")
+    assert stopped == 1 and events == [0, 1]
+    assert pushes[firer[1]] == 2
+    assert sorted(pushes.values()) == [2, 10]
+    assert updates == 12
 
 
 def test_worker_crash_is_reassigned():
