@@ -6,9 +6,10 @@ Run from the repository root on a machine with a CUDA device and the
 CUDA toolkit. It builds the port's hand-written kernels from
 ``elephas_tpu_torch/csrc`` (and fails if any spills registers), holds
 each kernel against its plain PyTorch version at the shapes the main
-paths give it (the flash kernels at head dims 16, 32 and 64, f32 and
-bf16, and at the head-dim-32 path's own shapes; the paged kernel at 64
-and, on its general body, at 16 and 32),
+paths give it (the flash kernels at head dims 16, 32, 64 and 128, f32
+and bf16, and at the head-dim-32 and head-dim-128 paths' own shapes;
+the paged kernel at 64 and, on its general body, at 16, 32 and 128, the
+last at Mistral-7B's groups of 4),
 checks that two launches of the paged, dQ and dK/dV kernels give the
 same bits, times one request's paged decode (B 1, pos 1000) on a line
 of its own, then drives the port's
@@ -20,6 +21,11 @@ requests; one f32 ``lm_loss`` gradient with the flash kernels against
 the plain path; and training through ``TransformerModel.fit_tokens``
 (bf16, AdamW, batch 8 x 1024, two epochs) with the flash forward and
 backward kernels, after which the trained model serves two requests.
+``lm_d128`` does the same at Mistral-7B-v0.1's widths (head dim 128,
+32 heads over 8 kv heads, SwiGLU, RMSNorm, RoPE, window 4096, untied
+head; random weights): ``forward`` and the paged engine over all 32
+layers, an f32 gradient and f32 greedy tokens against ``generate`` at
+2 layers, and ``fit_tokens`` at 4 (the cuts are printed with it).
 Then the Keras-style models through ``TPUModel(mode="synchronous")`` at
 the bench's MLP width (784-128-128-10) on 60,000 seeded rows of the
 tests' MNIST-like recipe: ``sync_mode="step"`` (samples/s beside a plain
@@ -88,6 +94,7 @@ No CPU path: without a CUDA device it exits non-zero at once.
 """
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -177,8 +184,9 @@ def check_paged(flush):
     """The paged decode kernel against its plain version at the serving
     path's shapes: B 8, H 16, block 16, 64 blocks per row, a pool of 513
     blocks; shuffled tables and ragged positions; at head dim 64 (the
-    flagship's: the split body in bf16) and 32 and 16 (the general
-    body), each timed; then one request alone at d 64."""
+    flagship's: the split body in bf16) and 32, 16 and 128 (the general
+    body), each timed (d 128 at Mistral-7B's H 32 over KVH 8, the
+    lm_d128 serving run's shape); then one request alone at d 64."""
     b, mb, nb = 8, 64, 513
     rng = np.random.default_rng(0)
     tables = rng.permutation(np.arange(1, nb))[:b * mb].reshape(b, mb)
@@ -186,8 +194,9 @@ def check_paged(flush):
     pos = rng.integers(64, 576, b)
     tables_t = torch.as_tensor(tables, dtype=torch.int32, device="cuda")
     pos_t = torch.as_tensor(pos, dtype=torch.int32, device="cuda")
-    by_d = {str(d): paged_at_head_dim(flush, d, tables_t, pos_t, pos, nb)
-            for d in (64, 32, 16)}
+    by_d = {str(d): paged_at_head_dim(flush, d, tables_t, pos_t, pos, nb,
+                                      *PAGED_TIMED_HEADS.get(d, (16, 16)))
+            for d in (64, 32, 16, 128)}
     single = check_paged_single_user(flush, nb)
     errs = {f"d{d}": t.pop("errors") for d, t in by_d.items()}
     results = {**by_d["64"],
@@ -202,11 +211,17 @@ def check_paged(flush):
     return results
 
 
-def paged_at_head_dim(flush, d, tables_t, pos_t, pos, nb):
+# the (H, KVH) each head dim's paged call is timed at: H = KVH 16 (the
+# flagship's), and at d 128 Mistral-7B's 32 over 8 (groups of 4)
+PAGED_TIMED_HEADS = {128: (32, 8)}
+
+
+def paged_at_head_dim(flush, d, tables_t, pos_t, pos, nb, h_t, kvh_t):
     """The paged cases at head dim ``d`` on the serving shape's tables
-    and positions, f32 and bf16 against the plain version; two bf16
-    launches on the main case bit-equal; then the main case timed in
-    bf16 beside gather + SDPA and the bound."""
+    and positions, f32 and bf16 against the plain version; then, at
+    ``h_t`` query over ``kvh_t`` kv heads (the main case where both are
+    16), two bf16 launches bit-equal, held against the f32 plain version
+    and timed beside gather + SDPA and the bound."""
     from elephas_tpu_torch.models.transformer import _alibi_slope_list
     from elephas_tpu_torch.ops.paged_attention import (
         paged_decode_attention, paged_decode_attention_plain)
@@ -237,8 +252,22 @@ def paged_at_head_dim(flush, d, tables_t, pos_t, pos, nb):
         require(e32 <= 1e-4, f"{what} f32 err {e32} <= 1e-4")
         require(e16 <= 2e-2, f"{what} bf16 err {e16} <= 2e-2")
         errs[name] = {"f32": e32, "bf16": e16}
-        if name == "main":
+        if name == "main" and (h_t, kvh_t) == (h, h):
             args16 = (q16, k16, v16, tables_t, pos_t)
+    if (h_t, kvh_t) != (h, h):
+        # the timed shape of its own, held against the plain version
+        q16 = torch.randn((b, h_t, d), generator=gen,
+                          device="cuda").bfloat16()
+        k16, v16 = (torch.randn((nb, kvh_t, bs, d), generator=gen,
+                                device="cuda").bfloat16() for _ in range(2))
+        args16 = (q16, k16, v16, tables_t, pos_t)
+        e16 = max_err(paged_decode_attention(*args16),
+                      paged_decode_attention_plain(
+                          q16.float(), k16.float(), v16.float(), tables_t,
+                          pos_t))
+        require(e16 <= 2e-2, f"paged timed H {h_t} KVH {kvh_t} d {d} bf16 "
+                             f"err {e16} <= 2e-2")
+        errs["timed"] = {"bf16": e16}
     # no atomics, splits merged in index order: a second bf16 launch on
     # the same inputs gives the same bits
     first, second = (paged_decode_attention(*args16) for _ in range(2))
@@ -246,9 +275,10 @@ def paged_at_head_dim(flush, d, tables_t, pos_t, pos, nb):
             f"two paged_decode launches at d {d} give bit-equal outputs")
     del first, second
     library = gather_sdpa(*args16)
-    nbytes, flops, bound_ms, bound_by = paged_bound(pos, h, d, bs)
+    nbytes, flops, bound_ms, bound_by = paged_bound(pos, h_t, d, bs, kvh_t)
     return {"max_abs_err": max(max(e.values()) for e in errs.values()),
-            "max_abs_err_f32": max(e["f32"] for e in errs.values()),
+            "max_abs_err_f32": max(e["f32"] for e in errs.values()
+                                   if "f32" in e),
             "errors": errs,
             "ms": time_ms(lambda: paged_decode_attention(*args16),
                           flush=flush),
@@ -260,37 +290,41 @@ def paged_at_head_dim(flush, d, tables_t, pos_t, pos, nb):
             "library_device_ms": device_ms(library, flush),
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
             "flops": flops,
-            "shape": {"B": b, "H": h, "KVH": h, "D": d, "block": bs,
+            "shape": {"B": b, "H": h_t, "KVH": kvh_t, "D": d, "block": bs,
                       "max_blocks": tables_t.shape[1], "pool_blocks": nb,
                       "dtype": "bfloat16"}}
 
 
 def gather_sdpa(q, k_pool, v_pool, tables, pos):
-    """The paged call's library yardstick with KVH = H, as a callable:
-    each row's blocks gathered into a contiguous cache, then SDPA under
-    the position mask (the port never calls it)."""
+    """The paged call's library yardstick, as a callable: each row's
+    blocks gathered into a contiguous cache, then SDPA under the
+    position mask (GQA: the narrow cache through ``enable_gqa``; the
+    port never calls it)."""
     b, h, d = q.shape
+    kvh = k_pool.shape[1]
     length = tables.shape[1] * k_pool.shape[2]
     mask = (torch.arange(length, device=q.device)[None, :]
             <= pos[:, None].long())[:, None, None, :]
     idx = tables.long()
+    gqa = {"enable_gqa": True} if kvh != h else {}
 
     def library():
-        ck = k_pool[idx].transpose(1, 2).reshape(b, h, length, d)
-        cv = v_pool[idx].transpose(1, 2).reshape(b, h, length, d)
+        ck = k_pool[idx].transpose(1, 2).reshape(b, kvh, length, d)
+        cv = v_pool[idx].transpose(1, 2).reshape(b, kvh, length, d)
         return torch.nn.functional.scaled_dot_product_attention(
-            q[:, :, None], ck, cv, attn_mask=mask)
+            q[:, :, None], ck, cv, attn_mask=mask, **gqa)
 
     return library
 
 
-def paged_bound(pos, h, d, bs):
-    """(bytes, flops, bound ms, bound by) of one bf16 paged call with
-    KVH = H: the K/V rows at positions <= pos once, q in, o out, the
-    live table entries and the positions."""
+def paged_bound(pos, h, d, bs, kvh=None):
+    """(bytes, flops, bound ms, bound by) of one bf16 paged call: the K/V
+    rows of the ``kvh`` heads (default h) at positions <= pos once, q in,
+    o out, the live table entries and the positions."""
+    kvh = h if kvh is None else kvh
     live_blocks = int(np.sum(pos // bs + 1))
     esize = 2
-    nbytes = (int(np.sum(pos + 1)) * h * d * 2 * esize
+    nbytes = (int(np.sum(pos + 1)) * kvh * d * 2 * esize
               + 2 * len(pos) * h * d * esize + live_blocks * 4
               + len(pos) * 4)
     flops = 4 * h * d * int(np.sum(pos + 1))
@@ -343,9 +377,9 @@ def check_paged_single_user(flush, nb):
 
 
 # head dims of the flash kernels' bodies: the repo's configurations use
-# all three (64 the flagship, 32 examples/transformer_tpumodel.py, 16
-# examples/http_serving.py)
-HEAD_DIMS = (16, 32, 64)
+# three (64 the flagship, 32 examples/transformer_tpumodel.py, 16
+# examples/http_serving.py), and 128 is Mistral-7B's (the lm_d128 phase)
+HEAD_DIMS = (16, 32, 64, 128)
 # the training path's shape, B 8 x H 16 x S 1024 (causal, bf16): every
 # head dim is timed there
 TIMED = (8, 16, 1024)
@@ -367,18 +401,23 @@ FLASH_CASES = {"main": (2, 16, 16, 1024, 1024, True, None, 0, 0),
 D32_CASES = {"long_context_windowed_lm": (4, 8, 2, 256, 256, True, 48, 0, 0),
              "tpumodel_fit": (16, 8, 8, 128, 128, True, None, 0, 0),
              "tpumodel_predict": (32, 8, 8, 128, 128, True, None, 0, 0)}
+# the case at d 128 only: the lm_d128 phase's training batch (Mistral-7B:
+# H 32 over KVH 8, window 4096; B 4 x S 1024)
+D128_CASES = {"lm_d128_fit": (4, 32, 8, 1024, 1024, True, 4096, 0, 0)}
 # the case each head dim is timed at beside the training shape: d 32 at
-# its main path's (tpu_model_lm_d32's fit); d 64's main path is the
-# training shape; d 16 runs on no training path
-PATH_TIMED = {32: "tpumodel_fit"}
+# its main path's (tpu_model_lm_d32's fit), d 128 at lm_d128's fit; d
+# 64's main path is the training shape; d 16 runs on no training path
+PATH_TIMED = {32: "tpumodel_fit", 128: "lm_d128_fit"}
+PATH_CASES = {32: D32_CASES, 128: D128_CASES}
 
 
 def flash_cases(extra=None):
-    """(head dim, name, case) over every head dim, then the d 32 cases;
-    ``extra`` cases join at every head dim."""
+    """(head dim, name, case) over every head dim, then the d 32 and d
+    128 cases; ``extra`` cases join at every head dim."""
     cases = dict(FLASH_CASES, **(extra or {}))
     return [*((d, n, c) for d in HEAD_DIMS for n, c in cases.items()),
-            *((32, n, c) for n, c in D32_CASES.items())]
+            *((d, n, c) for d, more in PATH_CASES.items()
+              for n, c in more.items())]
 
 
 def bound(flops, nbytes):
@@ -390,24 +429,35 @@ def bound(flops, nbytes):
             "operations" if ops_ms >= bytes_ms else "bytes")
 
 
-def causal_bound(b, h, s, d):
+def causal_pairs(s, window=None):
+    """Unmasked (q, k) pairs of one causal head of length ``s`` under a
+    sliding ``window`` (None: none)."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def causal_bound(b, h, s, d, kvh=None, window=None):
     """(flops, bytes, bound ms, bound by) of one causal bf16 forward:
-    4*d flops per unmasked (q, k) pair; q, k, v in and o out once, the
-    lse out."""
-    pairs = s * (s + 1) // 2
-    flops = 4 * b * h * d * pairs
-    nbytes = 4 * b * h * s * d * 2 + b * h * s * 4
+    4*d flops per unmasked (q, k) pair of each query head; q in and o
+    out once, k and v in once at their ``kvh`` heads (GQA; default h),
+    the lse out."""
+    kvh = h if kvh is None else kvh
+    flops = 4 * b * h * d * causal_pairs(s, window)
+    nbytes = (2 * b * h + 2 * b * kvh) * s * d * 2 + b * h * s * 4
     return (flops, nbytes, *bound(flops, nbytes))
 
 
 def check_flash(flush):
     """The flash forward kernel against its plain version at head dims
-    16, 32 and 64, f32 and bf16: the forward path's shape (B 2, H 16, S
-    1024, causal), B 4, GQA, a window, ragged lengths, ring-hop offsets,
-    the training path's B 8, and at d 32 the long-context
+    16, 32, 64 and 128, f32 and bf16: the forward path's shape (B 2, H
+    16, S 1024, causal), B 4, GQA, a window, ragged lengths, ring-hop
+    offsets, the training path's B 8, at d 32 the long-context
     configuration's case (GQA 8/2, window 48) and the tpu_model_lm_d32
-    phase's shapes. Timed beside SDPA: at d 64 at both main-path shapes,
-    at d 32 at its path's fit shape, and at every head dim at B 8."""
+    phase's shapes, and at d 128 the lm_d128 phase's training batch (H
+    32 over KVH 8, window 4096). Timed beside SDPA: at d 64 at both
+    main-path shapes, at d 32 and 128 at their paths' fit shapes, and at
+    every head dim at B 8."""
     from elephas_tpu_torch.ops.flash_attention import (flash_forward,
                                                        flash_forward_plain)
 
@@ -447,23 +497,31 @@ def check_flash(flush):
                 f"{what} bf16 errors {e}")
         errs[f"d{d}"][name] = e
         if name in ("main", "train", *PATH_TIMED.values()):
-            timed[name, d] = (q16, k16, v16)
+            timed[name, d] = (q16, k16, v16, window)
         del q, k, v, o_ref, o32, o_ref16, o16
 
     def sdpa(q, k, v):
+        # GQA: SDPA reads the narrow k/v itself (enable_gqa); a window
+        # at least the length is the causal mask SDPA applies
+        gqa = {"enable_gqa": True} if k.shape[1] != q.shape[1] else {}
         return lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=True)
+            q, k, v, is_causal=True, **gqa)
 
-    def port(q, k, v):
-        return lambda: flash_forward(q, k, v, causal=True)
+    def port(q, k, v, window):
+        return lambda: flash_forward(q, k, v, causal=True, window=window)
 
-    def timing(q, k, v, plain=False):
+    def timing(q, k, v, window, plain=False):
         """The call and SDPA's under both timers: as issued (ms) and
         device time alone (device_ms); the plain version as issued."""
-        flops, nbytes, bound_ms, bound_by = causal_bound(*q.shape)
-        ms = time_ms(port(q, k, v), flush=flush)
-        dev_ms = device_ms(port(q, k, v), flush)
-        out = {"shape": dict(zip("BHS", q.shape[:3])),
+        b, h, s, d = q.shape
+        require(window is None or window >= s,
+                "a timed window spans the sequence (SDPA's causal mask)")
+        flops, nbytes, bound_ms, bound_by = causal_bound(
+            b, h, s, d, kvh=k.shape[1], window=window)
+        ms = time_ms(port(q, k, v, window), flush=flush)
+        dev_ms = device_ms(port(q, k, v, window), flush)
+        out = {"shape": {"B": b, "H": h, "KVH": k.shape[1], "S": s,
+                         "window": window},
                "ms": ms, "device_ms": dev_ms,
                "library_ms": time_ms(sdpa(q, k, v), flush=flush),
                "library_device_ms": device_ms(sdpa(q, k, v), flush),
@@ -473,15 +531,16 @@ def check_flash(flush):
                "device_tflops": flops / (dev_ms * 1e-3) / 1e12}
         if plain:
             out["plain_ms"] = time_ms(lambda: flash_forward_plain(
-                q, k, v, causal=True), flush=flush)
+                q, k, v, causal=True, window=window), flush=flush)
         return out
 
-    q16, k16, v16 = timed["main", 64]
+    q16, k16, v16, _ = timed["main", 64]
     b_m, h_m, s_m = q16.shape[:3]
-    main = timing(q16, k16, v16, plain=True)
+    main = timing(q16, k16, v16, None, plain=True)
     # each head dim at its main path's shape (d 64: the train run's B 8,
     # 64 of its launches; d 32: the tpu_model_lm_d32 fit's B 16 x H 8 x S
-    # 128), and at the training shape (B 8) beside it
+    # 128; d 128: the lm_d128 fit's B 4 x H 32 x KVH 8 x S 1024), and at
+    # the training shape (B 8) beside it
     by_d = {}
     for d in HEAD_DIMS:
         t = timing(*timed["train", d], plain=True)
@@ -526,13 +585,13 @@ def library_flash_backward(q, k, v, g):
 
 def check_flash_bwd(flush):
     """The dQ and dK/dV kernels against their plain versions over the
-    forward phase's cases at head dims 16, 32 and 64 (and the d 32
-    cases), with the same lse/delta: f32, and bf16 against the f32 plain
-    version on bf16-rounded inputs. Then, at the training shape (B 8, H
-    16, S 1024, causal, bf16) at every head dim and at d 32 at its
-    path's fit shape, each is held against its plain version on the
-    operands it is timed on, and two dQ and two dK/dV launches there
-    must give the same bits."""
+    forward phase's cases at head dims 16, 32, 64 and 128 (and the d 32
+    and d 128 cases), with the same lse/delta: f32, and bf16 against the
+    f32 plain version on bf16-rounded inputs. Then, at the training shape
+    (B 8, H 16, S 1024, causal, bf16) at every head dim and at d 32 and
+    128 at their paths' fit shapes, each is held against its plain
+    version on the operands it is timed on, and two dQ and two dK/dV
+    launches there must give the same bits."""
     from elephas_tpu_torch.ops.flash_attention import (
         flash_backward, flash_backward_plain, flash_forward_plain)
 
@@ -579,13 +638,14 @@ def check_flash_bwd(flush):
                 e[f"{part}_{dt}_rel"] = rel
         errs[f"d{d}"][name] = e
     by_d = {}
+    train = (TIMED[0], TIMED[1], TIMED[1], TIMED[2], None)
     for d in HEAD_DIMS:
-        t = bwd_timed(gen, d, TIMED, "train", flush, tol, errs[f"d{d}"])
+        t = bwd_timed(gen, d, train, "train", flush, tol, errs[f"d{d}"])
         if d in PATH_TIMED:
             name = PATH_TIMED[d]
-            b, h, _, s, *_ = D32_CASES[name]
-            path = bwd_timed(gen, d, (b, h, s), f"{name}_timed", flush, tol,
-                             errs[f"d{d}"])
+            b, h, kvh, s, _, _, window, _, _ = PATH_CASES[d][name]
+            path = bwd_timed(gen, d, (b, h, kvh, s, window),
+                             f"{name}_timed", flush, tol, errs[f"d{d}"])
             t = {part: {**path[part], "at_training_shape": t[part]}
                  for part in t}
         by_d[str(d)] = t
@@ -599,28 +659,32 @@ def check_flash_bwd(flush):
     emit({"phase": "flash_bwd_kernels", "errors": errs, **results,
           "library": "aten._scaled_dot_product_flash_attention_backward",
           "library_note": "one call computing dQ, dK and dV together: "
-                          "compare with dq ms + dkv ms",
+                          "compare with dq ms + dkv ms; under GQA on k/v "
+                          "expanded to the query heads (dK, dV per query "
+                          "head, not summed)",
           "dq_bit_reproducible": True, "dkv_bit_reproducible": True,
           "tolerance_relative_to_max_ref": tol})
     return results
 
 
-def bwd_timed(gen, d, shape, label, flush, tol, errs):
-    """dQ and dK/dV at ``shape`` (B, H, S; causal) and head dim ``d``,
-    bf16, cold L2: each against its plain version on the very operands
-    timed here (added to ``errs`` as ``label``), two launches of each
-    bit-equal, and the times of both beside the library backward and
+def bwd_timed(gen, d, case, label, flush, tol, errs):
+    """dQ and dK/dV at ``case`` (B, H, KVH, S, window; causal) and head
+    dim ``d``, bf16, cold L2: each against its plain version on the very
+    operands timed here (added to ``errs`` as ``label``), two launches of
+    each bit-equal, and the times of both beside the library backward and
     the bound."""
     from elephas_tpu_torch.ops.flash_attention import (
         flash_dkv, flash_dkv_plain, flash_dq, flash_dq_plain,
         flash_forward_plain)
 
-    b, h, s = shape
-    q, k, v, g = (torch.randn((b, h, s, d), generator=gen, device="cuda")
-                  .bfloat16() for _ in range(4))
-    o, lse = flash_forward_plain(q, k, v, causal=True)
+    b, h, kvh, s, window = case
+    q, g = (torch.randn((b, h, s, d), generator=gen, device="cuda")
+            .bfloat16() for _ in range(2))
+    k, v = (torch.randn((b, kvh, s, d), generator=gen, device="cuda")
+            .bfloat16() for _ in range(2))
+    o, lse = flash_forward_plain(q, k, v, causal=True, window=window)
     delta = (g.float() * o.float()).sum(-1)
-    args = (q, k, v, g, lse, delta)
+    args = (q, k, v, g, lse, delta, 0, 0, True, window)
     e = {}
     for part, got, want in zip(
             ("dq", "dk", "dv"), (flash_dq(*args), *flash_dkv(*args)),
@@ -641,31 +705,42 @@ def bwd_timed(gen, d, shape, label, flush, tol, errs):
         pairs = zip(first, second) if part == "dkv" else [(first, second)]
         require(all(torch.equal(a.view(torch.int16), b_.view(torch.int16))
                     for a, b_ in pairs),
-                f"two flash_{part} launches at d {d} give bit-equal outputs")
+                f"two flash_{part} launches at d {d} ({label}) give "
+                f"bit-equal outputs")
         del first, second, pairs
+    # the library backward takes no GQA: k/v expanded outside the timing;
+    # a window at least the length is its causal mask
+    require(window is None or window >= s, "a timed window spans S")
+    k_lib, v_lib = (t.repeat_interleave(h // kvh, dim=1).contiguous()
+                    for t in (k, v))
     ms = {"dq": time_ms(lambda: flash_dq(*args), flush=flush),
           "dkv": time_ms(lambda: flash_dkv(*args), flush=flush)}
     plain_ms = {"dq": time_ms(lambda: flash_dq_plain(*args), flush=flush),
                 "dkv": time_ms(lambda: flash_dkv_plain(*args),
                                flush=flush)}
-    lib_ms = time_ms(library_flash_backward(q, k, v, g), flush=flush)
+    lib_ms = time_ms(library_flash_backward(q, k_lib, v_lib, g),
+                     flush=flush)
     dev_ms = {"dq": device_ms(lambda: flash_dq(*args), flush),
               "dkv": device_ms(lambda: flash_dkv(*args), flush)}
-    lib_dev_ms = device_ms(library_flash_backward(q, k, v, g), flush)
-    pairs = b * h * s * (s + 1) // 2      # unmasked (q, k) pairs, causal
+    lib_dev_ms = device_ms(library_flash_backward(q, k_lib, v_lib, g),
+                           flush)
+    del k_lib, v_lib
+    # unmasked (q, k) pairs of every query head, causal (and windowed)
+    pairs = b * h * causal_pairs(s, window)
     esize = 2
-    tensor = b * h * s * d * esize        # one of q, k, v, dO, dq, dk, dv
+    qsize = b * h * s * d * esize         # one of q, dO, dq
+    kvsize = b * kvh * s * d * esize      # one of k, v, dk, dv
     rows = 2 * b * h * s * 4              # lse and delta, f32
     # dQ: 3 products (S, dP, dQ), dK/dV: 4 (S, dP, dV, dK), 2*d flops
     # per unmasked pair each
-    work = {"dq": (3 * 2 * d * pairs, 5 * tensor + rows),
-            "dkv": (4 * 2 * d * pairs, 6 * tensor + rows)}
+    work = {"dq": (3 * 2 * d * pairs, 3 * qsize + 2 * kvsize + rows),
+            "dkv": (4 * 2 * d * pairs, 2 * qsize + 4 * kvsize + rows)}
     grads = {"dq": ("dq",), "dkv": ("dk", "dv")}
     results = {}
     for part, (flops, nbytes) in work.items():
         bound_ms, bound_by = bound(flops, nbytes)
         results[part] = {
-            "shape": {"B": b, "H": h, "S": s},
+            "shape": {"B": b, "H": h, "KVH": kvh, "S": s, "window": window},
             "max_abs_err": max(err for es in errs.values()
                                for key, err in es.items()
                                if key.split("_")[0] in grads[part]
@@ -1233,11 +1308,20 @@ def zipf_tokens(rng, vocab, shape):
 
 def flops_per_token(cfg, seq: int) -> float:
     """bench.py's model FLOPs per trained token (PaLM accounting):
-    3 x (2 x matmul params + attention scores and values)."""
-    p_matmul = (cfg.num_layers * (4 * cfg.d_model * cfg.d_model
-                                  + 2 * cfg.d_model * cfg.d_ff)
-                + cfg.d_model * cfg.vocab_size)
-    attn = 2 * 2 * (seq / 2) * cfg.d_model
+    3 x (2 x matmul params + attention scores and values). The matmul
+    params of a layer: the q and o projections (d_model^2 each), k and v
+    at the kv heads' width (GQA), the MLP's two matrices (three under
+    SwiGLU); then the head, d_model x vocab whether tied or not. A
+    token's query meets seq / 2 keys under the causal mask, or fewer
+    under a window narrower than seq. For the flagship (MHA, GELU, tied)
+    this is bench.py's count."""
+    d, w = cfg.d_model, cfg.attention_window
+    mlp = 3 if cfg.mlp_variant == "swiglu" else 2
+    p_matmul = (cfg.num_layers * (2 * d * d + 2 * d * cfg.kv_heads
+                                  * cfg.head_dim + mlp * d * cfg.d_ff)
+                + d * cfg.vocab_size)
+    keys = seq / 2 if w is None or w >= seq else causal_pairs(seq, w) / seq
+    attn = 2 * 2 * keys * d
     return 3 * (2 * p_matmul + cfg.num_layers * attn)
 
 
@@ -1315,6 +1399,229 @@ def run_train(cfg):
           "f32_near_tie_divergences": ties,
           "sampled_f32_fused": sampled["fused"], "served": outs})
     return counts
+
+
+# ----------------------------------------- an LM at Mistral-7B's widths
+# mistralai/Mistral-7B-v0.1 config.json: hidden_size 4096,
+# num_attention_heads 32, num_key_value_heads 8 (head dim 128, GQA groups
+# of 4), intermediate_size 14336, num_hidden_layers 32, vocab_size 32000,
+# rope_theta 10000, sliding_window 4096, tie_word_embeddings false,
+# RMSNorm, SiLU-gated MLP; as a config of the repo's LM family (whose MLP
+# carries zero-initialised biases Mistral lacks). max_seq_len is cut to
+# the phase's longest sequence (Mistral's 32768 positions bound nothing
+# here: RoPE has no table).
+MISTRAL_7B = dict(vocab_size=32000, num_layers=32, num_heads=32,
+                  num_kv_heads=8, d_model=4096, d_ff=14336, max_seq_len=1024,
+                  positional="rope", rope_theta=10000.0,
+                  attention_window=4096, mlp_variant="swiglu",
+                  norm="rmsnorm", tied_embedding=False)
+# the cuts of scale, printed with the phase
+LM_D128_REDUCED = [
+    "training (d) runs 4 of the 32 layers: AdamW over f32 parameters "
+    "takes 16 bytes a parameter, 116 GB for 7.24 B, past the card's 80 GB "
+    "(1.13 B at 4 layers, about 18 GB)",
+    "the f32 gradient and greedy checks (c) run 2 of the 32 layers at B 1 "
+    "x 512 (an f32 graph of all 32 is the training case's memory again)",
+    "max_seq_len 1024 of 32768: no sequence here is longer, so the 4096 "
+    "window masks nothing on the path (the kernel phases check it at "
+    "window 256)",
+    "weights random from a seed: nothing is downloaded"]
+
+
+def lm_d128_config(num_layers=MISTRAL_7B["num_layers"]):
+    from elephas_tpu_torch.models.transformer import TransformerConfig
+
+    return TransformerConfig(**dict(MISTRAL_7B, num_layers=num_layers))
+
+
+def run_lm_d128():
+    """The LM at Mistral-7B-v0.1's widths (head dim 128, GQA groups of
+    4): (a) ``forward`` at B 2 x T 1024 over all 32 layers, bf16 over f32
+    parameters, with one flash forward launch per layer, its f32 logits
+    against the plain path's; (b) the paged ``DecodeEngine`` with the
+    fused kernel (the general body at D 128, G 4) over all 32 layers,
+    serving the flagship serving phase's 16 requests (64-512 prompt
+    tokens, 64 new each); (c) at 2 layers an f32 ``lm_loss`` gradient
+    through the f32 kernels against the plain path (B 1 x 512), and the
+    f32 paged engine's greedy tokens against the port's ``generate``
+    (tie-aware); (d) ``TransformerModel.fit_tokens`` at 4 layers, bf16
+    over f32, AdamW 3e-4, B 4 x 1024, 2 epochs on Zipf rows: the loss
+    falls and all three flash kernels run once per layer and step. Each
+    part prints its line as it ends. Returns the launch counts of (a),
+    (b), (c) and (d)."""
+    from elephas_tpu_torch.models.optimizers import AdamW
+    from elephas_tpu_torch.models.transformer import (forward, generate,
+                                                      init_params)
+    from elephas_tpu_torch.models.transformer_model import TransformerModel
+    from elephas_tpu_torch.serving_engine import DecodeEngine
+    from elephas_tpu_torch.weights import tree_leaves
+
+    t_phase = time.perf_counter()
+    counts = {}
+    free_memory()
+    cfg = lm_d128_config()
+    require(cfg.head_dim == 128 and cfg.num_heads // cfg.kv_heads == 4,
+            f"head dim {cfg.head_dim}, groups of "
+            f"{cfg.num_heads // cfg.kv_heads}")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    emit({"phase": "lm_d128",
+          "config": {**MISTRAL_7B, "head_dim": cfg.head_dim,
+                     "source": "mistralai/Mistral-7B-v0.1 config.json"},
+          "params": sum(t.numel() for t in tree_leaves(params)),
+          "init_s": init_s, "reduced": LM_D128_REDUCED})
+
+    # (a) forward, all 32 layers: f32 flash against f32 plain, then the
+    # bf16 main-path run
+    b, t = 2, 1024
+    tokens = torch.as_tensor(
+        np.random.default_rng(3).integers(0, cfg.vocab_size, (b, t)),
+        device="cuda")
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    flash32 = forward(params, tokens, dataclasses.replace(
+        c32, attention_impl="flash"))
+    plain32 = forward(params, tokens, dataclasses.replace(
+        c32, attention_impl="xla"))
+    scale = float(plain32.abs().max())
+    err = max_err(flash32, plain32)
+    del flash32, plain32
+    require(err <= 1e-4 * max(scale, 1.0),
+            f"f32 logits flash vs plain err {err} <= 1e-4 * {scale}")
+    c16 = dataclasses.replace(cfg, attention_impl="flash")
+    reset_counts()
+    logits = forward(params, tokens, c16)
+    torch.cuda.synchronize()
+    counts["forward"] = read_counts()
+    require(logits.shape == (b, t, cfg.vocab_size)
+            and bool(torch.isfinite(logits).all()), "bf16 logits finite")
+    require(counts["forward"]["flash_fwd"] == cfg.num_layers,
+            f"forward launched the d 128 flash kernel once per layer: "
+            f"{counts['forward']}")
+    del logits
+    t0 = time.perf_counter()
+    reps = 3
+    for _ in range(reps):
+        forward(params, tokens, c16)
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t0) / reps
+    emit({
+        "phase": "lm_d128_forward", "batch": b, "seq": t,
+        "layers": cfg.num_layers,
+        "f32_flash_vs_plain_max_abs_err": err, "f32_logit_scale": scale,
+        "tolerance": "1e-4 x max(|logit|, 1)", "bf16_ms": sec * 1e3,
+        "bf16_tokens_per_s": b * t / sec, "launches": counts["forward"]})
+
+    # (b) the paged engine, fused, all 32 layers, the flagship serving
+    # phase's traffic
+    rng = np.random.default_rng(4)
+    lengths = rng.integers(64, 513, 16)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
+    serve(params, cfg, prompts[:2], "fused", max_new=4)      # warm-up
+    reset_counts()
+    outs, info = serve(params, cfg, prompts, "fused", timed=True)
+    torch.cuda.synchronize()
+    counts["serving"] = read_counts()
+    require(counts["serving"]["paged_decode"] > 0
+            and counts["serving"]["paged_decode"]
+            == info["stats"]["kernel_launches"],
+            f"the serving run launched the paged kernel at D 128: "
+            f"{counts['serving']}, {info['stats']['kernel_launches']}")
+    require(all(len(o) == 64 for o in outs) and all(
+        0 <= x < cfg.vocab_size for o in outs for x in o),
+        "bf16: 64 tokens each, in the vocabulary")
+    emit({
+        "phase": "lm_d128_serving", "requests": len(prompts),
+        "prompt_lengths": [int(n) for n in lengths], "max_new_tokens": 64,
+        "layers": cfg.num_layers,
+        "bf16": {k: v for k, v in info.items() if k != "stats"},
+        "launches": counts["serving"]})
+    # the engines sit in reference cycles: collect them, and the 29 GB of
+    # parameters they hold, before the next part allocates
+    del params
+    free_memory()
+
+    # (c) 2 layers: the f32 gradient through the f32 kernels, and the f32
+    # paged engine's greedy tokens against generate
+    cfg2 = lm_d128_config(num_layers=2)
+    params2 = init_params(cfg2, torch.Generator(device="cuda").manual_seed(1),
+                          device="cuda")
+    reset_counts()
+    run_train_parity(params2, cfg2, shape=(1, 512), phase="lm_d128_grad")
+    counts["grad"] = read_counts()
+    require(all(counts["grad"][k] > 0
+                for k in ("flash_fwd", "flash_dq", "flash_dkv")),
+            f"the f32 gradient ran the three f32 kernels: {counts['grad']}")
+    c32 = dataclasses.replace(cfg2, dtype=torch.float32)
+    greedy_prompts = [rng.integers(0, cfg2.vocab_size, n).tolist()
+                      for n in (37, 120, 300)]
+    eng = DecodeEngine(params2, c32, max_slots=4, paged=(96, 16),
+                       kernel="fused", device="cuda")
+    engine_out = eng.run(greedy_prompts, 16)
+    ref = [generate(params2, [p], 16, c32)[0].tolist()
+           for p in greedy_prompts]
+    ties = tie_aware_equal(params2, cfg2, greedy_prompts, ref, engine_out)
+    require(eng.stats["kernel_launches"] > 0,
+            "the f32 engine launched the paged kernel")
+    emit({
+        "phase": "lm_d128_f32_greedy", "layers": 2,
+        "prompt_lengths": [len(p) for p in greedy_prompts],
+        "new_tokens": 16,
+        "equal_rows": sum(a == b_ for a, b_ in zip(ref, engine_out)),
+        "near_tie_divergences": ties,
+        "paged_launches": eng.stats["kernel_launches"]})
+    del params2, eng
+    free_memory()
+
+    # (d) fit_tokens at 4 layers, bf16 over f32, AdamW 3e-4
+    cfg4 = lm_d128_config(num_layers=4)
+    batch, seq, rows, epochs = 4, 1024, 16, 2
+    tokens = zipf_tokens(np.random.default_rng(7), cfg4.vocab_size,
+                         (rows, seq))
+    model = TransformerModel(cfg4, device="cuda").compile(
+        AdamW(3e-4, epsilon=1e-8, weight_decay=1e-4, decay_1d=True), seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    hist = model.fit_tokens(tokens, epochs=epochs, batch_size=batch, seed=0)
+    torch.cuda.synchronize()
+    counts["train"] = read_counts()
+    steps = epochs * (rows // batch)
+    losses = hist["loss"]
+    require(all(np.isfinite(losses)) and losses[1] < losses[0],
+            f"the d 128 LM's loss falls: {losses}")
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        require(counts["train"][name] == cfg4.num_layers * steps,
+                f"{name} launched {cfg4.num_layers} times per step: "
+                f"{counts['train']}")
+    step_s = hist["epoch_time"][1] / (rows // batch)
+    tok_s = batch * seq / step_s
+    fpt = flops_per_token(cfg4, seq)
+    emit({
+        "phase": "lm_d128_train", "layers": 4, "batch": batch, "seq": seq,
+        "steps": steps,
+        "params": sum(t.numel() for t in tree_leaves(model.params)),
+        "epoch_losses": losses, "epoch_time_s": hist["epoch_time"],
+        "ms_per_step": step_s * 1e3, "tokens_per_s": tok_s,
+        "flops_per_token": fpt, "mfu": fpt * tok_s / PEAK_BF16_FLOPS,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "launches": counts["train"],
+        "launches_per_step": {k: counts["train"][k] / steps
+                              for k in ("flash_fwd", "flash_dq",
+                                        "flash_dkv")},
+        "phase_seconds": time.perf_counter() - t_phase})
+    del model
+    free_memory()
+    return counts
+
+
+def free_memory():
+    """Collect unreachable objects (engines and models in reference
+    cycles hold their parameters until then) and return the freed
+    device memory to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------- Keras-style TPUModel
@@ -2454,6 +2761,7 @@ def main() -> int:
     run_train_parity(params, cfg)
     del params
     train_counts = run_train(cfg)
+    d128 = run_lm_d128()
 
     data = (mnist_like(60000, seed=0), mnist_like(10000, seed=1))
     sync_samples_s, sync_tpu_model = run_keras_sync_step(data)
@@ -2494,7 +2802,8 @@ def main() -> int:
              "keras_persist": persist_counts,
              "keras_layers": layers_counts,
              "http_serving_example": ex_counts,
-             "http_serving_flagship": flag_counts}
+             "http_serving_flagship": flag_counts,
+             **{f"lm_d128_{part}": c for part, c in d128.items()}}
     kernels = [
         {"name": "paged_decode", "route": "cuda",
          "source": "elephas_tpu_torch/csrc/paged_decode.cu",
@@ -2525,11 +2834,13 @@ def main() -> int:
         # above; the paged kernel's serving and http_serving_flagship),
         # d 32 tpu_model_lm_d32's three (the first fit with its predict
         # and evaluate, the resumed fit, the loaded model's predict),
-        # d 16 forward_d16 and http_serving_example
+        # d 16 forward_d16 and http_serving_example, d 128 lm_d128's four
+        # (forward, serving, the f32 gradient, the fit)
         launches = {"16": d16_counts[name] + ex_counts[name],
                     "32": d32_counts[name] + resumed_counts[name]
                     + loaded_counts[name],
-                    "64": entry["launches"] - ex_counts[name]}
+                    "64": entry["launches"] - ex_counts[name],
+                    "128": sum(c[name] for c in d128.values())}
         entry["by_head_dim"] = {
             d: {**{k: t[k] for k in (*keys, "shape") if k in t},
                 "launches": launches[d],

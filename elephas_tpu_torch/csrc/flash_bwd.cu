@@ -25,8 +25,9 @@
 //   group's query heads and, for each, over the q tiles that can see
 //   this k tile (the kv-major grid of `_bwd_calls`), keeping dK and dV
 //   in registers, written once.
-// Every body is instantiated at head_dim 16, 32 and 64, the head dims
-// of the repo's configurations (hopper.cuh `with_head_dim`). Bodies:
+// Every body is instantiated at head_dim 16, 32, 64 and 128 (hopper.cuh
+// `with_head_dim`): 16, 32 and 64 are the head dims of the repo's
+// configurations, 128 that of most published LMs. Bodies:
 // - dK/dV, bf16 (the working type): CTAs of the first k tiles (the most
 //   live q tiles under causal masking) scheduled first. One producer
 //   warp TMA-loads K and V once and then, per live q tile, Q and dO
@@ -44,18 +45,35 @@
 //   `ds.astype(q.dtype)`) and feed them as the register A operand of dV
 //   += P^T dO and dK += dS^T Q (m64nDk16, dO and Q MN-major from the
 //   ring).
+//   At D 128 a warpgroup owning 64 key rows would hold dK and dV at 64
+//   x 128 each, 128 f32 a thread before S^T and dP^T: past what a
+//   9-warp CTA gives without spilling. So there a CTA owns 64 key rows,
+//   and its two warpgroups split the head dim: both compute the same S^T
+//   and dP^T over the whole head dim (the same instructions on the same
+//   tiles, so the same bits), and warpgroup w accumulates dK and dV in
+//   columns 64w .. 64w + 63 only (dO's and Q's column block w, one
+//   m64n64k16 a k step), 64 f32 a thread. The S^T and dP^T products are
+//   done twice: 12*D flops a (q, k) pair where the split rows take 8*D.
+//   K and V (16 KB each) stay resident beside a 4-stage ring of 16 KB Q
+//   and dO tiles (162 KB).
 // - dQ, bf16: the same shape turned q-major. One CTA per (batch*head,
 //   128-row q tile), the last q tiles (the most live K/V tiles under
 //   causal masking) scheduled first. The producer warp TMA-loads Q and
 //   dO once, then streams the live 64-row K and V tiles through a
-//   6-stage ring under full/empty mbarriers. Each of two consumer
+//   6-stage ring under full/empty mbarriers (4 stages at D 128, where Q
+//   and dO take 64 KB and a stage 32 KB). At D 128 dQ's accumulator is
+//   64 f32 a thread, and S and dP of a whole 64-key tile beside it (32
+//   each) took the consumer past the 9-warp CTA's 168 registers (ptxas
+//   spilled); there each tile runs as two chunks of 32 keys (m64n32k16
+//   products, 16 f32 each). Each of two consumer
 //   warpgroups owns 64 query rows, whose lse (times log2 e) and delta
 //   it holds in registers (two rows a thread), and per K/V tile computes
 //   S = Q K^T and dP = dO V^T with wgmma m64n64k16 from shared memory
 //   (P formed from S while dP is still in flight), dS = P (dP - delta)
 //   scale on the accumulators, packed to bf16 (`ds.astype(k.dtype)`)
 //   as the register A operand of dQ += dS K (m64nDk16, K MN-major from
-//   the same ring slot, with the transpose bit). A warpgroup whose rows
+//   the same ring slot, with the transpose bit; at D 128 one m64n64k16
+//   per column block). A warpgroup whose rows
 //   meet no key of a tile skips its products. dQ leaves through the
 //   warpgroup's Q rows in shared memory in 16-byte stores, rows past Sq
 //   dropped.
@@ -73,7 +91,9 @@
 // with the elementwise step between them on the CUDA cores and MUFU;
 // the second warpgroup and the ring's prefetch overlap them. At head_dim
 // 32 and 16 the products shrink with D while the elementwise step per
-// (q, k) pair does not, so it takes a larger share of each tile.
+// (q, k) pair does not, so it takes a larger share of each tile. At 128
+// both are bound by operations, and dK/dV does 1.5x the products' work
+// (the repeated S^T and dP^T above).
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -349,19 +369,24 @@ struct Args {
 // ------------------------------------ dK/dV bf16: wgmma over TMA tiles
 namespace dkv {
 
-constexpr int KROWS = 128;          // key rows per CTA: 2 warpgroups x 64
 constexpr int QROWS = 64;           // query rows per ring stage
-constexpr int STAGES = 6;           // Q/dO tiles in flight
 constexpr int THREADS = 2 * 128 + 32;  // 2 consumer warpgroups + producer
 
 template <int D>
 struct Layout {
-  // K, V (16 KB each at D 64), the Q ring, the dO ring (8 KB tiles at D
-  // 64), the lse/delta ring (64 + 64 f32 per stage), then the barriers:
-  // kvfull, full[STAGES], empty[STAGES]; +1024 for alignment. 131 KB at
-  // D 64, 68 KB at D 32, 36 KB at D 16 (the stage count stays, as in
+  // at D 128 the warpgroups split the head dim over 64 key rows (see
+  // the note at the top); else each owns 64 of 128 key rows
+  static constexpr bool SPLIT_D = D == 128;
+  static constexpr int KROWS = SPLIT_D ? 64 : 128;  // key rows per CTA
+  static constexpr int STAGES = SPLIT_D ? 4 : 6;    // Q/dO tiles in flight
+  // K, V (16 KB each at D 64 and 128), the Q ring, the dO ring (8 KB
+  // tiles at D 64, 16 KB at 128), the lse/delta ring (64 + 64 f32 per
+  // stage), then the barriers: kvfull, full[STAGES], empty[STAGES];
+  // +1024 for alignment. 162 KB at D 128, 131 KB at D 64, 68 KB at D
+  // 32, 36 KB at D 16 (below D 128 the stage count stays, as in
   // flash_fwd.cu); no setmaxnreg (see flash_fwd.cu)
   static constexpr uint32_t row = Rows<D>::bytes;
+  static constexpr uint32_t atom = Rows<D>::atom;
   static constexpr uint32_t KV_TILE = KROWS * row, Q_TILE = QROWS * row;
   static constexpr uint32_t k = 0, v = KV_TILE, q = 2 * KV_TILE,
                             dout = q + STAGES * Q_TILE,
@@ -384,6 +409,10 @@ __global__ void __launch_bounds__(THREADS, 1)
                            int window, float scale) {
   using L = Layout<D>;
   constexpr uint32_t KV_TILE = L::KV_TILE, Q_TILE = L::Q_TILE;
+  constexpr int KROWS = L::KROWS, STAGES = L::STAGES;
+  // the head-dim columns of dK and dV a warpgroup accumulates: all D, or
+  // one 64-column block at D 128
+  constexpr int DW = L::SPLIT_D ? 64 : D;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align1024(smem_raw);
   uint8_t* Ks = sm + L::k;
@@ -422,8 +451,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     // delta by the warp's lanes (rows past Sq read 0: they are masked)
     if (lane == 0) {
       mbar_expect_tx(kvfull, 2 * KV_TILE);
-      tma_load_3d(Ks, &tk, kvfull, 0, k0, bkv);
-      tma_load_3d(Vs, &tv, kvfull, 0, k0, bkv);
+      tma_load_tile<D, KROWS>(Ks, &tk, kvfull, k0, bkv);
+      tma_load_tile<D, KROWS>(Vs, &tv, kvfull, k0, bkv);
     }
     int s = 0;
     uint32_t phase = 0;
@@ -446,8 +475,9 @@ __global__ void __launch_bounds__(THREADS, 1)
           // arrives (after this lane's lse/delta stores) and expects the
           // two tiles' bytes
           mbar_expect_tx(&full[s], 2 * Q_TILE);
-          tma_load_3d(Qs + s * Q_TILE, &tq, &full[s], 0, q0, bh);
-          tma_load_3d(dOs + s * Q_TILE, &tdo, &full[s], 0, q0, bh);
+          tma_load_tile<D, QROWS>(Qs + s * Q_TILE, &tq, &full[s], q0, bh);
+          tma_load_tile<D, QROWS>(dOs + s * Q_TILE, &tdo, &full[s], q0,
+                                  bh);
         } else {
           mbar_arrive(&full[s]);
         }
@@ -458,16 +488,20 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
     }
   } else {
-    // ---- consumers: warpgroup wg owns key rows wk0 .. wk0 + 63
+    // ---- consumers: warpgroup wg owns key rows wk0 .. wk0 + 63 (at D
+    // 128 both own the CTA's 64 rows, wg the head-dim columns 64wg ..)
     const int wg = warp / 4;
-    const int wk0 = k0 + 64 * wg;
+    const int wrow = L::SPLIT_D ? 0 : 64 * wg;  // first row in the tile
+    const int wk0 = k0 + wrow;
     const int krow = wk0 + 16 * (warp % 4) + lane / 4;  // and krow + 8
-    uint8_t* Kw = Ks + wg * 64 * L::row;
-    uint8_t* Vw = Vs + wg * 64 * L::row;
+    uint8_t* Kw = Ks + wrow * L::atom;
+    uint8_t* Vw = Vs + wrow * L::atom;
     const uint64_t kdesc = desc_sw<D>(Kw), vdesc = desc_sw<D>(Vw);
-    float dk_acc[D / 2], dv_acc[D / 2];
+    // at D 128 the dO and Q operands of dV and dK are column block wg
+    const uint64_t blk = L::SPLIT_D ? (wg * QROWS * L::atom) >> 4 : 0;
+    float dk_acc[DW / 2], dv_acc[DW / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    for (int i = 0; i < DW / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
     mbar_wait(kvfull, 0);
     int s = 0;
@@ -487,10 +521,12 @@ __global__ void __launch_bounds__(THREADS, 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss_n64(st, kdesc + 2 * kk, qdesc + 2 * kk, kk);
+          wgmma_ss_n64(st, desc_k<D, KROWS>(kdesc, kk),
+                       desc_k<D, QROWS>(qdesc, kk), kk);
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss_n64(dpt, vdesc + 2 * kk, dodesc + 2 * kk, kk);
+          wgmma_ss_n64(dpt, desc_k<D, KROWS>(vdesc, kk),
+                       desc_k<D, QROWS>(dodesc, kk), kk);
         wgmma_commit();
         wgmma_wait<0>();
         fence_operands(st);
@@ -539,14 +575,14 @@ __global__ void __launch_bounds__(THREADS, 1)
           }
 
         // dV += P^T dO and dK += dS^T Q, the A operands from registers,
-        // dO and Q MN-major from the ring
+        // dO and Q MN-major from the ring (at D 128 column block wg)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs_tb<D>(dv_acc, pa[kk], dodesc + L::row * kk);
+          wgmma_rs_rows<DW, QROWS>(dv_acc, pa[kk], dodesc + blk, kk);
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs_tb<D>(dk_acc, dsa[kk], qdesc + L::row * kk);
+          wgmma_rs_rows<DW, QROWS>(dk_acc, dsa[kk], qdesc + blk, kk);
         wgmma_commit();
         wgmma_wait<0>();
         fence_operands(dk_acc);
@@ -559,13 +595,25 @@ __global__ void __launch_bounds__(THREADS, 1)
         }
       }
     }
-    // dK and dV through this warpgroup's K and V rows to 16-byte stores
-    acc_to_tile<D>(dk_acc, 1.f, 1.f, Kw);
-    acc_to_tile<D>(dv_acc, 1.f, 1.f, Vw);
-    wg_barrier(1 + wg);
     const size_t base = ((size_t)bkv * Sk + wk0) * D;
-    tile_to_rows<D>(Kw, dk + base, Sk - wk0);
-    tile_to_rows<D>(Vw, dv + base, Sk - wk0);
+    if constexpr (L::SPLIT_D) {
+      // both warpgroups read all of K and V up to their last product:
+      // wait for both, write dK's and dV's column block wg into K's and
+      // V's, wait again, then warpgroup 0 stores dK and 1 dV, 16 bytes
+      // a store
+      consumers_barrier(3);
+      acc_to_tile<DW, KROWS>(dk_acc, 1.f, 1.f, Ks + wg * KROWS * L::atom);
+      acc_to_tile<DW, KROWS>(dv_acc, 1.f, 1.f, Vs + wg * KROWS * L::atom);
+      consumers_barrier(3);
+      tile_to_rows<D, KROWS>(wg ? Vs : Ks, (wg ? dv : dk) + base, Sk - wk0);
+    } else {
+      // dK and dV through this warpgroup's K and V rows to 16-byte stores
+      acc_to_tile<D, KROWS>(dk_acc, 1.f, 1.f, Kw);
+      acc_to_tile<D, KROWS>(dv_acc, 1.f, 1.f, Vw);
+      wg_barrier(1 + wg);
+      tile_to_rows<D, KROWS>(Kw, dk + base, Sk - wk0);
+      tile_to_rows<D, KROWS>(Vw, dv + base, Sk - wk0);
+    }
   }
 }
 
@@ -580,6 +628,7 @@ cudaError_t launch(const Args& a) {
   cudaError_t err = encode_rows_map<D>(&tq, qp, qrows, qslabs, QROWS);
   if (err == cudaSuccess)
     err = encode_rows_map<D>(&tdo, gp, qrows, qslabs, QROWS);
+  constexpr int KROWS = Layout<D>::KROWS;
   if (err == cudaSuccess)
     err = encode_rows_map<D>(&tk, a.k, a.Sk, a.B * a.KVH, KROWS);
   if (err == cudaSuccess)
@@ -603,15 +652,21 @@ namespace dq {
 
 constexpr int QROWS = 128;          // query rows per CTA: 2 warpgroups x 64
 constexpr int KROWS = 64;           // key rows per ring stage
-constexpr int STAGES = 6;           // K/V tiles in flight
 constexpr int THREADS = 2 * 128 + 32;  // 2 consumer warpgroups + producer
 
 template <int D>
 struct Layout {
-  // Q, dO (16 KB each at D 64), the K ring, the V ring (8 KB tiles at D
-  // 64), then the barriers: qfull, full[STAGES], empty[STAGES]; +1024
-  // for alignment. 129 KB at D 64, 65 KB at D 32, 33 KB at D 16
+  // K/V tiles in flight: 6, or 4 at D 128 (6 would take 256 KB)
+  static constexpr int STAGES = D == 128 ? 4 : 6;
+  // keys per S and dP product: the whole tile, or 32 at D 128 (see the
+  // note at the top)
+  static constexpr int KN = D == 128 ? 32 : KROWS;
+  // Q, dO (16 KB each at D 64, 32 KB at 128), the K ring, the V ring (8
+  // KB tiles at D 64, 16 KB at 128), then the barriers: qfull,
+  // full[STAGES], empty[STAGES]; +1024 for alignment. 193 KB at D 128,
+  // 129 KB at D 64, 65 KB at D 32, 33 KB at D 16
   static constexpr uint32_t row = Rows<D>::bytes;
+  static constexpr uint32_t atom = Rows<D>::atom;
   static constexpr uint32_t Q_TILE = QROWS * row, KV_TILE = KROWS * row;
   static constexpr uint32_t q = 0, dout = Q_TILE, k = 2 * Q_TILE,
                             v = k + STAGES * KV_TILE,
@@ -632,6 +687,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                           int causal, int window, float scale) {
   using L = Layout<D>;
   constexpr uint32_t Q_TILE = L::Q_TILE, KV_TILE = L::KV_TILE;
+  constexpr int STAGES = L::STAGES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align1024(smem_raw);
   uint8_t* Qs = sm + L::q;
@@ -669,8 +725,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     // ring (rows past each head's length arrive as zeros)
     if (lane == 0) {
       mbar_expect_tx(qfull, 2 * Q_TILE);
-      tma_load_3d(Qs, &tq, qfull, 0, q0, bh);
-      tma_load_3d(dOs, &tdo, qfull, 0, q0, bh);
+      tma_load_tile<D, QROWS>(Qs, &tq, qfull, q0, bh);
+      tma_load_tile<D, QROWS>(dOs, &tdo, qfull, q0, bh);
       int s = 0;
       uint32_t phase = 0;
       for (int kj = 0; kj < nk; ++kj) {
@@ -680,8 +736,10 @@ __global__ void __launch_bounds__(THREADS, 1)
           continue;
         mbar_wait(&empty[s], phase ^ 1);
         mbar_expect_tx(&full[s], 2 * KV_TILE);
-        tma_load_3d(Ks + s * KV_TILE, &tk, &full[s], 0, k0, kv_row);
-        tma_load_3d(Vs + s * KV_TILE, &tv, &full[s], 0, k0, kv_row);
+        tma_load_tile<D, KROWS>(Ks + s * KV_TILE, &tk, &full[s], k0,
+                                kv_row);
+        tma_load_tile<D, KROWS>(Vs + s * KV_TILE, &tv, &full[s], k0,
+                                kv_row);
         if (++s == STAGES) {
           s = 0;
           phase ^= 1;
@@ -694,9 +752,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int wq0 = q0 + 64 * wg;
     const int wq_last = min(wq0 + 63, Sq - 1);
     const int qrow = wq0 + 16 * (warp % 4) + lane / 4;  // and qrow + 8
-    uint8_t* Qw = Qs + wg * 64 * L::row;
+    uint8_t* Qw = Qs + wg * 64 * L::atom;  // its rows in block 0
     const uint64_t qdesc = desc_sw<D>(Qw);
-    const uint64_t dodesc = desc_sw<D>(dOs + wg * 64 * L::row);
+    const uint64_t dodesc = desc_sw<D>(dOs + wg * 64 * L::atom);
     // this thread's two rows' lse * log2(e) and delta (0 past Sq: those
     // rows are masked)
     float lse2[2], dl[2];
@@ -726,64 +784,74 @@ __global__ void __launch_bounds__(THREADS, 1)
                                 k_offset, causal, window)) {
         const uint64_t kdesc = desc_sw<D>(Ks + s * KV_TILE);
         const uint64_t vdesc = desc_sw<D>(Vs + s * KV_TILE);
-        // S = Q K^T and dP = dO V^T (64 queries x 64 keys each, D/16 k16
-        // steps) as two groups, so P is formed while dP is still in
-        // flight
-        float st[32], dpt[32];
-        wgmma_fence();
+        constexpr int KN = L::KN;
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss_n64(st, qdesc + 2 * kk, kdesc + 2 * kk, kk);
-        wgmma_commit();
+        for (int c = 0; c < KROWS / KN; ++c) {
+          // keys kc .. kc + KN - 1: rows c * KN .. of the K and V tiles
+          const int kc = k0 + c * KN;
+          const uint64_t crows = (c * KN * L::atom) >> 4;
+          // S = Q K^T and dP = dO V^T (64 queries x KN keys each, D/16
+          // k16 steps) as two groups, so P is formed while dP is still
+          // in flight
+          float st[KN / 2], dpt[KN / 2];
+          wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss_n64(dpt, dodesc + 2 * kk, vdesc + 2 * kk, kk);
-        wgmma_commit();
-        wgmma_wait<1>();
-        fence_operands(st);
+          for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_ss<KN>(st, desc_k<D, QROWS>(qdesc, kk),
+                         desc_k<D, KROWS>(kdesc + crows, kk), kk);
+          wgmma_commit();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_ss<KN>(dpt, desc_k<D, QROWS>(dodesc, kk),
+                         desc_k<D, KROWS>(vdesc + crows, kk), kk);
+          wgmma_commit();
+          wgmma_wait<1>();
+          fence_operands(st);
 
-        // P = exp2(S*scale*log2(e) - lse*log2(e)) in place of S, on the
-        // accumulator layout: element i is row qrow + 8*((i/2)%2), key
-        // k0 + 8*(i/4) + 2*(lane%4) + i%2. A masked pair never weighs in
-        // (a fully masked row's lse is ~-1e30: its exponential is
-        // dropped here).
-        const bool masked =
-            wq0 + 64 > Sq || k0 + KROWS > Sk ||
-            !rows_all_valid(wq0, wq0 + 63, k0, k0 + KROWS - 1, q_offset,
-                            k_offset, causal, window);
+          // P = exp2(S*scale*log2(e) - lse*log2(e)) in place of S, on the
+          // accumulator layout: element i is row qrow + 8*((i/2)%2), key
+          // kc + 8*(i/4) + 2*(lane%4) + i%2. A masked pair never weighs
+          // in (a fully masked row's lse is ~-1e30: its exponential is
+          // dropped here).
+          const bool masked =
+              wq0 + 64 > Sq || kc + KN > Sk ||
+              !rows_all_valid(wq0, wq0 + 63, kc, kc + KN - 1, q_offset,
+                              k_offset, causal, window);
 #pragma unroll
-        for (int i = 0; i < 32; ++i) {
-          const int r = (i / 2) % 2;
-          float p = exp2_ftz(fmaf(st[i], scale_log2, -lse2[r]));
-          if (masked) {
-            const int kl = k0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
-            p = pair_valid(qrow + 8 * r, kl, Sq, Sk, q_offset, k_offset,
-                           causal, window) ? p : 0.f;
+          for (int i = 0; i < KN / 2; ++i) {
+            const int r = (i / 2) % 2;
+            float p = exp2_ftz(fmaf(st[i], scale_log2, -lse2[r]));
+            if (masked) {
+              const int kl = kc + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+              p = pair_valid(qrow + 8 * r, kl, Sq, Sk, q_offset, k_offset,
+                             causal, window) ? p : 0.f;
+            }
+            st[i] = p;
           }
-          st[i] = p;
+          wgmma_wait<0>();
+          fence_operands(dpt);
+
+          // dS = P (dP - delta) scale, packed to bf16 (the TPU kernel's
+          // ds.astype(k.dtype)) into the A fragments of dQ += dS K
+          uint32_t dsa[KN / 16][4];
+#pragma unroll
+          for (int kk = 0; kk < KN / 16; ++kk)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int i = 8 * kk + 2 * j;
+              const float d = dl[j % 2];
+              dsa[kk][j] = pack_bf16(st[i] * (dpt[i] - d) * scale,
+                                     st[i + 1] * (dpt[i + 1] - d) * scale);
+            }
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < KN / 16; ++kk)
+            wgmma_rs_rows<D, KROWS>(dq_acc, dsa[kk], kdesc,
+                                    c * (KN / 16) + kk);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_operands(dq_acc);
         }
-        wgmma_wait<0>();
-        fence_operands(dpt);
-
-        // dS = P (dP - delta) scale, packed to bf16 (the TPU kernel's
-        // ds.astype(k.dtype)) into the A fragments of dQ += dS K
-        uint32_t dsa[4][4];
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int i = 8 * kk + 2 * j;
-            const float d = dl[j % 2];
-            dsa[kk][j] = pack_bf16(st[i] * (dpt[i] - d) * scale,
-                                   st[i + 1] * (dpt[i + 1] - d) * scale);
-          }
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs_tb<D>(dq_acc, dsa[kk], kdesc + L::row * kk);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_operands(dq_acc);
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[s]);
@@ -794,9 +862,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     // dQ through this warpgroup's Q rows (read by nothing after its last
     // product) to 16-byte stores
-    acc_to_tile<D>(dq_acc, 1.f, 1.f, Qw);
+    acc_to_tile<D, QROWS>(dq_acc, 1.f, 1.f, Qw);
     wg_barrier(1 + wg);
-    tile_to_rows<D>(Qw, dq + ((size_t)bh * Sq + wq0) * D, Sq - wq0);
+    tile_to_rows<D, QROWS>(Qw, dq + ((size_t)bh * Sq + wq0) * D,
+                           Sq - wq0);
   }
 }
 
@@ -879,8 +948,8 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 // q, dout (B, H, Sq, D); k, v (B, KVH, Sk, D); lse, delta (B, H, Sq) f32;
 // dq like q; dk, dv like k. All contiguous, q/k/v/dout and the outputs
 // of one type (is_bf16 ? bf16 : f32; bf16 pointers 16-byte aligned).
-// window <= 0 means no sliding window. head_dim D is 16, 32 or 64; any
-// other returns cudaErrorInvalidValue. Each returns cudaGetLastError()
+// window <= 0 means no sliding window. head_dim D is 16, 32, 64 or 128;
+// any other returns cudaErrorInvalidValue. Each returns cudaGetLastError()
 // after its launch.
 extern "C" int etpu_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,

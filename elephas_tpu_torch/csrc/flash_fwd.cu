@@ -12,8 +12,10 @@
 // CTA over K/V tiles; tiles wholly above the causal diagonal or below
 // the window are skipped before any load. Ragged edges are masked in
 // the kernel, never padded in device memory. Both bodies are
-// instantiated at head_dim 16, 32 and 64, the head dims of the repo's
-// configurations (hopper.cuh `with_head_dim`). Two bodies:
+// instantiated at head_dim 16, 32, 64 and 128 (hopper.cuh
+// `with_head_dim`): 16, 32 and 64 are the head dims of the repo's
+// configurations, 128 that of most published LMs (Llama-2-7B,
+// Mistral-7B, Llama-3-8B). Two bodies:
 //
 // - bf16 (the working type): one CTA per (batch*head,
 //   128-row q tile), CTAs of the last q tiles (the most live tiles under
@@ -21,24 +23,30 @@
 //   Q once, then the live 128-row K and V tiles into a 4-stage ring of
 //   shared memory guarded by full/empty mbarriers; TMA zero-fills rows
 //   past each head's length. A tile row is the head's 2*D bytes in the
-//   swizzle of that width (128, 64 or 32 bytes; hopper.cuh `Rows`), so
-//   a smaller head dim shrinks the tiles and the products and nothing
-//   else. Two consumer warpgroups of 64 query rows compute S = Q K^T
-//   with wgmma m64n128k16 (D/16 k steps) from shared memory, run the
+//   swizzle of that width (128, 64 or 32 bytes; at D 128 two 64-column
+//   blocks of 128 bytes, hopper.cuh `Rows`), so a smaller head dim
+//   shrinks the tiles and the products and nothing else. At D 128 the
+//   K/V tiles are 64 rows: four stages of 128-row tiles beside Q would
+//   take 288 KB of the 227 KB a CTA may use, and a 64 x 64 score tile
+//   keeps the consumer's registers (O's 64 f32, S's 32, P's 16) far
+//   from a spill in the 9-warp CTA. Two consumer warpgroups of 64 query
+//   rows compute S = Q K^T with wgmma m64n128k16 (m64n64k16 at D 128;
+//   D/16 k steps) from shared memory, run the
 //   online softmax on the wgmma accumulator in registers (each row on
 //   the 4 threads of a quad; one FMA and exp2 per score; the
 //   per-element mask only on tiles that hold a masked pair), pack P to
 //   bf16 in registers (the TPU kernel's `p.astype(v.dtype)`) and feed
-//   it as the register A operand of O += P V (m64nDk16, V MN-major). O
-//   stays in registers across the loop, and leaves through a swizzled
-//   shared tile in 16-byte stores.
+//   it as the register A operand of O += P V (m64nDk16, V MN-major; at
+//   D 128 one m64n64k16 per column block). O stays in registers across
+//   the loop, and leaves through a swizzled shared tile in 16-byte
+//   stores.
 // - f32: 256 threads on the CUDA cores, each holding a 4x4 block of the
 //   64x64 score tile and a 4x(D/16) block of O in registers; row max and
 //   sum reduce over the 16 lanes sharing a row with warp shuffles.
 //
 // What bounds it on the H100. A (q, k) pair costs 4*D flops and each
-// operand row is read once per tile, so at head_dim 64 the loop is
-// bound by operations (989 TFLOP/s in bf16). At 32 and 16 the products
+// operand row is read once per tile, so at head_dim 64 and 128 the loop
+// is bound by operations (989 TFLOP/s in bf16). At 32 and 16 the products
 // shrink with D while the softmax's FMA and exp2 per score do not, so
 // the CUDA cores and MUFU take a larger share of each tile. Within one
 // consumer warpgroup the two products and the softmax run in sequence;
@@ -213,38 +221,43 @@ __global__ void __launch_bounds__(THREADS, 1)
 using bf16 = __nv_bfloat16;
 
 constexpr int WQ = 128;             // query rows per CTA: 2 warpgroups x 64
-constexpr int WK = 128;             // key rows per K/V tile
 constexpr int STAGES = 4;           // K/V tiles in flight
 constexpr int WTHREADS = 2 * 128 + 32;  // 2 consumer warpgroups + producer
 
 template <int D>
 struct WgmmaLayout {
+  // key rows per K/V tile: 128, or 64 at D 128 (see the note at the top)
+  static constexpr int WK = D == 128 ? 64 : 128;
   // Q, the K ring, the V ring, then the barriers: qfull, kfull[STAGES],
-  // vfull[STAGES], empty[STAGES]; +1024 for alignment. 144 KB at D 64
-  // (16 KB tiles), 73 KB at D 32, 37 KB at D 16: the stage count stays,
-  // since the ring's depth hides a load's latency, not its size. No
-  // setmaxnreg: it only moves registers within the CTA's launch
-  // allocation, which one producer warp barely feeds ((R - 40) x 32 for
-  // 256 consumer threads), and a consumer asking for more than is free
-  // waits for good (a hang on the card). ptxas fits the consumers in the
-  // launch allocation without spills.
-  static constexpr uint32_t row = Rows<D>::bytes;
+  // vfull[STAGES], empty[STAGES]; +1024 for alignment. 160 KB at D 128
+  // (32 KB of Q, 16 KB tiles), 144 KB at D 64 (16 KB tiles), 73 KB at D
+  // 32, 37 KB at D 16: the stage count stays, since the ring's depth
+  // hides a load's latency, not its size. No setmaxnreg: it only moves
+  // registers within the CTA's launch allocation, which one producer
+  // warp barely feeds ((R - 40) x 32 for 256 consumer threads), and a
+  // consumer asking for more than is free waits for good (a hang on the
+  // card). ptxas fits the consumers in the launch allocation without
+  // spills.
+  static constexpr uint32_t row = Rows<D>::bytes;   // bytes of a whole row
+  static constexpr uint32_t atom = Rows<D>::atom;   // ... in one block
   static constexpr uint32_t tile = WK * row;  // one K or V tile
   static constexpr uint32_t q = 0, k = WQ * row, v = k + STAGES * tile,
                             bars = v + STAGES * tile;
   static constexpr size_t bytes = bars + (1 + 3 * STAGES) * 8 + 1024;
 };
 
-// The 64 x 128 score tile of one warpgroup's rows against one K tile
-// is masked per element only where it can hold a masked pair: keys past
-// Sk, the causal diagonal, the window's lower edge.
-__device__ __forceinline__ void mask_scores(float (&s)[64], int qrow, int k0,
+// The 64 x (2N) score tile of one warpgroup's rows against one K tile
+// (N accumulator registers a thread) is masked per element only where it
+// can hold a masked pair: keys past Sk, the causal diagonal, the
+// window's lower edge.
+template <int N>
+__device__ __forceinline__ void mask_scores(float (&s)[N], int qrow, int k0,
                                             int Sq, int Sk, int q_offset,
                                             int k_offset, int causal,
                                             int window) {
   const int l = threadIdx.x % 32;
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < N; ++i) {
     const int kl = k0 + 8 * (i / 4) + 2 * (l % 4) + i % 2;
     if (!pair_valid(qrow + 8 * ((i / 2) % 2), kl, Sq, Sk, q_offset,
                     k_offset, causal, window))
@@ -263,6 +276,7 @@ __global__ void __launch_bounds__(WTHREADS, 1)
                            int window, float scale_log2) {
   using L = WgmmaLayout<D>;
   constexpr uint32_t TILE = L::tile;
+  constexpr int WK = L::WK;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align1024(smem_raw);
   uint8_t* Qs = sm + L::q;
@@ -300,7 +314,7 @@ __global__ void __launch_bounds__(WTHREADS, 1)
     // ---- producer: Q once, then the live K/V tiles through the ring
     if (lane == 0) {
       mbar_expect_tx(qfull, WQ * L::row);
-      tma_load_3d(Qs, &tq, qfull, 0, q0, bh);
+      tma_load_tile<D, WQ>(Qs, &tq, qfull, q0, bh);
       int s = 0;
       uint32_t phase = 0;
       for (int kj = 0; kj < nk; ++kj) {
@@ -310,9 +324,9 @@ __global__ void __launch_bounds__(WTHREADS, 1)
           continue;
         mbar_wait(&empty[s], phase ^ 1);
         mbar_expect_tx(&kfull[s], TILE);
-        tma_load_3d(Ks + s * TILE, &tk, &kfull[s], 0, k0, kv_row);
+        tma_load_tile<D, WK>(Ks + s * TILE, &tk, &kfull[s], k0, kv_row);
         mbar_expect_tx(&vfull[s], TILE);
-        tma_load_3d(Vs + s * TILE, &tv, &vfull[s], 0, k0, kv_row);
+        tma_load_tile<D, WK>(Vs + s * TILE, &tv, &vfull[s], k0, kv_row);
         if (++s == STAGES) {
           s = 0;
           phase ^= 1;
@@ -324,7 +338,7 @@ __global__ void __launch_bounds__(WTHREADS, 1)
     const int wg = warp / 4;
     const int wq0 = q0 + 64 * wg;
     const int qrow = wq0 + 16 * (warp % 4) + lane / 4;  // and qrow + 8
-    uint8_t* Qw = Qs + wg * 64 * L::row;
+    uint8_t* Qw = Qs + wg * 64 * L::atom;  // its rows in block 0
     const uint64_t qdesc = desc_sw<D>(Qw);
     float oacc[D / 2], m[2] = {-INFINITY, -INFINITY}, lsum[2] = {0.f, 0.f};
 #pragma unroll
@@ -339,14 +353,15 @@ __global__ void __launch_bounds__(WTHREADS, 1)
       if (!rows_meet(q0, q_last, k0, k_last, q_offset, k_offset, causal,
                      window))
         continue;
-      // S = Q K^T: 64 rows x 128 keys, D/16 k16 steps over the head dim
-      float sacc[64];
+      // S = Q K^T: 64 rows x WK keys, D/16 k16 steps over the head dim
+      float sacc[WK / 2];
       mbar_wait(&kfull[s], phase);
       const uint64_t kdesc = desc_sw<D>(Ks + s * TILE);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n128(sacc, qdesc + 2 * kk, kdesc + 2 * kk, kk);
+        wgmma_ss<WK>(sacc, desc_k<D, WQ>(qdesc, kk),
+                     desc_k<D, WK>(kdesc, kk), kk);
       wgmma_commit();
       wgmma_wait<0>();
       fence_operands(sacc);
@@ -358,11 +373,11 @@ __global__ void __launch_bounds__(WTHREADS, 1)
                     window);
 
       // online softmax in the base-2 domain on the accumulator layout:
-      // this thread's 2 rows x 32 columns; a row spans the 4 threads of a
-      // quad, so max reduces with shuffles over lanes ^1 and ^2
+      // this thread's 2 rows x WK/4 columns; a row spans the 4 threads of
+      // a quad, so max reduces with shuffles over lanes ^1 and ^2
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int i = 0; i < 64; ++i)
+      for (int i = 0; i < WK / 2; ++i)
         mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sacc[i]);
       float mu[2], corr[2];
 #pragma unroll
@@ -377,7 +392,7 @@ __global__ void __launch_bounds__(WTHREADS, 1)
         lsum[r] *= corr[r];
       }
 #pragma unroll
-      for (int i = 0; i < 64; ++i) {
+      for (int i = 0; i < WK / 2; ++i) {
         const int r = (i / 2) % 2;
         sacc[i] = exp2_ftz(fmaf(sacc[i], scale_log2, -mu[r]));
         lsum[r] += sacc[i];  // f32; the quad's partial sums meet at the end
@@ -387,15 +402,15 @@ __global__ void __launch_bounds__(WTHREADS, 1)
 
       // O += P V with P in bf16 registers (the TPU kernel's
       // p.astype(v.dtype)) and V MN-major from the ring
-      uint32_t pa[8][4];
+      uint32_t pa[WK / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) pack_a(sacc, kk, pa[kk]);
+      for (int kk = 0; kk < WK / 16; ++kk) pack_a(sacc, kk, pa[kk]);
       mbar_wait(&vfull[s], phase);
       const uint64_t vdesc = desc_sw<D>(Vs + s * TILE);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
-        wgmma_rs_tb<D>(oacc, pa[kk], vdesc + L::row * kk);
+      for (int kk = 0; kk < WK / 16; ++kk)
+        wgmma_rs_rows<D, WK>(oacc, pa[kk], vdesc, kk);
       wgmma_commit();
       wgmma_wait<0>();
       fence_operands(oacc);
@@ -417,9 +432,9 @@ __global__ void __launch_bounds__(WTHREADS, 1)
     // O through this warpgroup's Q rows (read by nothing after its last
     // product) to 16-byte stores; LSE in natural-log units, kNegInf for a
     // row with nothing unmasked (O = 0 there)
-    acc_to_tile<D>(oacc, inv[0], inv[1], Qw);
+    acc_to_tile<D, WQ>(oacc, inv[0], inv[1], Qw);
     wg_barrier(1 + wg);
-    tile_to_rows<D>(Qw, o + ((size_t)bh * Sq + wq0) * D, Sq - wq0);
+    tile_to_rows<D, WQ>(Qw, o + ((size_t)bh * Sq + wq0) * D, Sq - wq0);
     if (lane % 4 == 0) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -445,6 +460,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   const int krows = Sk > 0 ? Sk : Sq, kslabs = Sk > 0 ? B * KVH : B * H;
   CUtensorMap tq, tk, tv;
   cudaError_t err = encode_rows_map<D>(&tq, q, Sq, B * H, WQ);
+  constexpr int WK = WgmmaLayout<D>::WK;
   if (err == cudaSuccess)
     err = encode_rows_map<D>(&tk, kp, krows, kslabs, WK);
   if (err == cudaSuccess)

@@ -3,9 +3,11 @@
 // Small inline-PTX wrappers, each named after what it wraps:
 // - TMA: `tma_load_3d` is `cp.async.bulk.tensor.3d` from a tensor map
 //   into shared memory, completing on an mbarrier's transaction count;
-//   `encode_rows_map` (host) builds the map of a (slabs, rows, D) bf16
-//   tensor with `cuTensorMapEncodeTiled`, fetched through the runtime's
-//   driver entry point, so the library links against no libcuda.
+//   `tma_load_tile` loads a tile of head-dim rows block by block (see
+//   below); `encode_rows_map` (host) builds the map of a (slabs, rows,
+//   D) bf16 tensor with `cuTensorMapEncodeTiled`, fetched through the
+//   runtime's driver entry point, so the library links against no
+//   libcuda.
 // - mbarrier: `mbar_init` (`mbarrier.init`), `fence_barrier_init`
 //   (`fence.mbarrier_init`), `mbar_expect_tx`
 //   (`mbarrier.arrive.expect_tx`: arrive and expect that many bytes),
@@ -21,20 +23,28 @@
 // - wgmma: `wgmma_fence` / `wgmma_commit` / `wgmma_wait<N>`
 //   (`wgmma.fence`, `commit_group`, `wait_group`), `fence_operands`
 //   (keeps the compiler from touching accumulator registers across an
-//   asynchronous product), `wgmma_ss_n64` / `wgmma_ss_n128` (m64nNk16
-//   bf16 -> f32, A and B from shared memory) and `wgmma_rs_tb<N>`
-//   (m64nNk16 for N = 16, 32, 64: A from registers, B MN-major from
-//   shared memory).
+//   asynchronous product), `wgmma_ss_n32` / `_n64` / `_n128` and
+//   `wgmma_ss<N>` over them (m64nNk16 bf16 -> f32, A and B from shared
+//   memory), `wgmma_rs_n16_tb` / `_n32_tb` / `_n64_tb` (m64nNk16: A from
+//   registers, B MN-major from shared memory) and `wgmma_rs_rows<D, R>`
+//   over them (N the head dim; one n64 product per column block at D
+//   128).
 // - cp.async: `cp_async_16` (`cp.async.cg.shared.global`, 16 bytes from
 //   device memory into shared memory, bypassing L1), `cp_async_commit`
 //   and `cp_async_wait<N>` (`cp.async.commit_group` / `wait_group`:
 //   returns once at most N of this thread's groups are in flight; the
 //   finished copies are then visible to this thread).
-// - Tiles of head_dim D: a bf16 row is 2*D bytes (128 at D 64, 64 at D
-//   32, 32 at D 16) and lies in the swizzle of its own width, which TMA
-//   writes (CU_TENSOR_MAP_SWIZZLE_128B / 64B / 32B) and wgmma reads
-//   (`desc_sw<D>`: the 64-bit shared-memory matrix descriptor; `swz<D>`:
-//   the byte offset of a 16-byte chunk under that swizzle).
+// - Tiles of head_dim D: a bf16 row is 2*D bytes (256 at D 128, 128 at
+//   D 64, 64 at D 32, 32 at D 16). Up to D 64 it lies in the swizzle of
+//   its own width, which TMA writes (CU_TENSOR_MAP_SWIZZLE_128B / 64B /
+//   32B) and wgmma reads. Neither takes a swizzle wider than 128 bytes,
+//   so at D 128 a tile of R rows is stored as two column blocks, each an
+//   R x 64 tile in the 128-byte swizzle, block 1 (columns 64-127) R *
+//   128 bytes after block 0: exactly two D 64 tiles (`Rows<D>`).
+//   `desc_sw<D>` is the 64-bit shared-memory matrix descriptor of a
+//   block, `desc_k<D, R>` that of one k16 step of a K-major operand
+//   (which stays inside one block), `swz<D, R>` the byte offset of a
+//   16-byte chunk.
 // - `with_head_dim` (host): the one switch over the head dims the flash
 //   kernels are instantiated for.
 // - `wg_barrier` (`bar.sync id, 128`): one warpgroup's named barrier.
@@ -43,9 +53,11 @@
 //   warpgroup holds, for each 8-column group j, rows 16*(t/32) + (t%32)/4
 //   and that + 8 at columns 8j + 2*(t%4) and + 1): `pack_a` turns the
 //   16 columns of one k step into the bf16 A fragment of an RS product,
-//   `acc_to_tile<D>` stores a 64 x D accumulator as bf16 into a swizzled
-//   shared tile, and `tile_to_rows<D>` copies such a tile out to device
-//   memory with 16-byte stores, dropping rows past a limit.
+//   `acc_to_tile<D, R>` stores a 64 x D accumulator as bf16 into 64 rows
+//   of a swizzled shared tile of R rows, and `tile_to_rows<D, R>` copies
+//   such rows out to device memory with 16-byte stores, dropping rows
+//   past a limit. At D 128 the accumulator's first 32 registers are
+//   columns 0-63 (block 0), the last 32 columns 64-127 (block 1).
 #pragma once
 
 #include <cuda.h>
@@ -61,23 +73,32 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // The bf16 tiles of head_dim D: one row is 2*D bytes, stored in the
-// swizzle of that width (TMA and wgmma agree on it). The swizzle XORs
-// address bits 7.. into the 16-byte chunk index (bits 4..): 3 bits at
-// 128-byte rows (chunk c of row r at c ^ (r % 8)), 2 at 64-byte rows (c
-// ^ (r / 2 % 4)), 1 at 32-byte rows (c ^ (r / 4 % 2)); the pattern
-// repeats every 8 rows, 1024, 512 or 256 bytes.
+// swizzle of that width up to 128 bytes (TMA and wgmma agree on it). The
+// swizzle XORs address bits 7.. into the 16-byte chunk index (bits
+// 4..): 3 bits at 128-byte rows (chunk c of row r at c ^ (r % 8)), 2 at
+// 64-byte rows (c ^ (r / 2 % 4)), 1 at 32-byte rows (c ^ (r / 4 % 2));
+// the pattern repeats every 8 rows, 1024, 512 or 256 bytes. A 256-byte
+// row (D 128) is split into two 128-byte column blocks, each stored as
+// a tile of its own (block b of an R-row tile at b * R * 128 bytes).
 template <int D>
 struct Rows {
-  static_assert(D == 16 || D == 32 || D == 64,
-                "the bf16 tiles take head_dim 16, 32 or 64");
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128,
+                "the bf16 tiles take head_dim 16, 32, 64 or 128");
   static constexpr int bytes = 2 * D;
+  // the bytes of one row inside a column block, the block's columns,
+  // and the blocks of a row
+  static constexpr int atom = bytes < 128 ? bytes : 128;
+  static constexpr int cols = atom / 2;
+  static constexpr int blocks = D / cols;
+  // k16 steps (32 bytes of a K-major row) inside one block
+  static constexpr int ksteps = atom / 32;
   // the wgmma descriptor's layout type: 1 = 128B, 2 = 64B, 3 = 32B
-  static constexpr uint64_t layout = D == 64 ? 1 : D == 32 ? 2 : 3;
+  static constexpr uint64_t layout = atom == 128 ? 1 : atom == 64 ? 2 : 3;
   // the same swizzle as TMA names it
   static constexpr CUtensorMapSwizzle tma_swizzle =
-      D == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-      : D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                : CU_TENSOR_MAP_SWIZZLE_32B;
+      atom == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : atom == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                   : CU_TENSOR_MAP_SWIZZLE_32B;
 };
 
 // The head dims the flash kernels are instantiated for, in one place
@@ -93,6 +114,8 @@ inline cudaError_t with_head_dim(int D, F&& f) {
       return f(std::integral_constant<int, 32>{});
     case 64:
       return f(std::integral_constant<int, 64>{});
+    case 128:
+      return f(std::integral_constant<int, 128>{});
     default:
       return cudaErrorInvalidValue;
   }
@@ -189,6 +212,20 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The tile of R rows starting at row r0 of slab `slab` of `map` into
+// `dst`, one box per column block (block b at dst + b * R * atom);
+// completes R * 2 * D bytes on `bar`. One thread issues it.
+template <int D, int R>
+__device__ __forceinline__ void tma_load_tile(uint8_t* dst,
+                                              const CUtensorMap* map,
+                                              uint64_t* bar, int r0,
+                                              int slab) {
+#pragma unroll
+  for (int b = 0; b < Rows<D>::blocks; ++b)
+    tma_load_3d(dst + b * R * Rows<D>::atom, map, bar, b * Rows<D>::cols,
+                r0, slab);
+}
+
 // ------------------------------------------------------------- cp.async
 __device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
@@ -221,29 +258,43 @@ __device__ __forceinline__ void fence_operands(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// Descriptor of a shared tile of head_dim-D rows (2*D bytes) in the
-// swizzle of that width: start address >> 4 (bits 0-13); leading and
-// stride byte offsets (bits 16-29, 32-45) both 8 rows (2*D*8 bytes) >>
-// 4, the step between 8-row groups (the leading offset is unused by
-// every product here: a K-major k16 step stays inside one row, an
-// MN-major operand is one swizzle width, D columns, wide); layout type
-// (bits 62-63) from `Rows<D>`. A K-major operand steps along K by 32
-// bytes (+2), an MN-major one by 16 rows (+2*D).
+// Descriptor of a column block of a shared tile of head_dim-D rows
+// (`Rows<D>::atom` bytes a row) in the swizzle of that width: start
+// address >> 4 (bits 0-13); leading and stride byte offsets (bits 16-29,
+// 32-45) both 8 rows (8 * atom bytes) >> 4, the step between 8-row
+// groups (the leading offset is unused by every product here: a K-major
+// k16 step stays inside one block, and an MN-major operand is read one
+// block, at most 64 columns, per product); layout type (bits 62-63)
+// from `Rows<D>`. A K-major operand steps along K by 32 bytes (+2; see
+// `desc_k`), an MN-major one by 16 rows (+atom).
 template <int D>
 __device__ __forceinline__ uint64_t desc_sw(const void* tile) {
-  constexpr uint64_t group = 8 * Rows<D>::bytes;
+  constexpr uint64_t group = 8 * Rows<D>::atom;
   return static_cast<uint64_t>((smem_u32(tile) & 0x3FFFFu) >> 4) |
          ((group >> 4) << 16) | ((group >> 4) << 32) |
          (Rows<D>::layout << 62);
 }
 
-// Byte offset of 16-byte chunk `chunk` of row `row` in a swizzled tile
-// of head_dim-D rows (the tile starts on a 1024-byte boundary).
-template <int D>
+// The descriptor of k step kk (head-dim columns 16kk .. 16kk + 15) of a
+// K-major operand held in an R-row tile whose block 0 `desc` describes
+// (desc_sw of the operand's first row): block kk / ksteps, 32 bytes a
+// step inside it.
+template <int D, int R>
+__device__ __forceinline__ uint64_t desc_k(uint64_t desc, int kk) {
+  constexpr int S = Rows<D>::ksteps;
+  return desc + static_cast<uint64_t>(((kk / S) * R * Rows<D>::atom) >> 4) +
+         static_cast<uint64_t>(2 * (kk % S));
+}
+
+// Byte offset of 16-byte chunk `chunk` (columns 8 * chunk ..) of row
+// `row` in a swizzled tile of R head_dim-D rows (the tile starts on a
+// 1024-byte boundary; chunk / (atom / 16) picks the column block).
+template <int D, int R>
 __device__ __forceinline__ int swz(int row, int chunk) {
-  constexpr int kRow = Rows<D>::bytes;
-  const int off = row * kRow + chunk * 16;
-  return off ^ (((off >> 7) & (kRow / 16 - 1)) << 4);
+  constexpr int kAtom = Rows<D>::atom, kChunks = kAtom / 16;
+  const int off = row * kAtom + (chunk % kChunks) * 16;
+  return (chunk / kChunks) * R * kAtom +
+         (off ^ (((off >> 7) & (kChunks - 1)) << 4));
 }
 
 // D (64 x 64, f32) (+)= A (64 x 16) . B (16 x 64), bf16 in, both from
@@ -266,6 +317,23 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 32, f32) (+)= A (64 x 16) . B (16 x 32), bf16 in, both from
+// shared memory K-major (no transpose); scale_d == 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
@@ -304,12 +372,28 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// D (64 x N) (+)= A (64 x 16) . B (16 x N), both K-major from shared
+// memory, for N = 32, 64, 128.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  if constexpr (N == 128)
+    wgmma_ss_n128(d, desc_a, desc_b, scale_d);
+  else if constexpr (N == 64)
+    wgmma_ss_n64(d, desc_a, desc_b, scale_d);
+  else
+    wgmma_ss_n32(d, desc_a, desc_b, scale_d);
+}
+
 // D (64 x 64, f32) += A (64 x 16) . B (16 x 64), bf16 in: A from
 // registers (the fragment `pack_a` makes), B from shared memory stored
-// MN-major (N contiguous), so its transpose bit is set.
-__device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32],
+// MN-major (N contiguous), so its transpose bit is set. D is registers
+// O .. O + 31 of the accumulator `d`.
+template <int O = 0, int R>
+__device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[R],
                                                const uint32_t (&a)[4],
                                                uint64_t desc_b) {
+  static_assert(O >= 0 && O + 32 <= R, "32 accumulator registers");
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -318,14 +402,14 @@ __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32],
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31 "
       "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "+f"(d[O + 0]), "+f"(d[O + 1]), "+f"(d[O + 2]), "+f"(d[O + 3]),
+        "+f"(d[O + 4]), "+f"(d[O + 5]), "+f"(d[O + 6]), "+f"(d[O + 7]),
+        "+f"(d[O + 8]), "+f"(d[O + 9]), "+f"(d[O + 10]), "+f"(d[O + 11]),
+        "+f"(d[O + 12]), "+f"(d[O + 13]), "+f"(d[O + 14]), "+f"(d[O + 15]),
+        "+f"(d[O + 16]), "+f"(d[O + 17]), "+f"(d[O + 18]), "+f"(d[O + 19]),
+        "+f"(d[O + 20]), "+f"(d[O + 21]), "+f"(d[O + 22]), "+f"(d[O + 23]),
+        "+f"(d[O + 24]), "+f"(d[O + 25]), "+f"(d[O + 26]), "+f"(d[O + 27]),
+        "+f"(d[O + 28]), "+f"(d[O + 29]), "+f"(d[O + 30]), "+f"(d[O + 31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
@@ -360,18 +444,34 @@ __device__ __forceinline__ void wgmma_rs_n16_tb(float (&d)[8],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
-// D (64 x N) += A (64 x 16, registers) . B (16 x N, MN-major), for the
-// products whose N is the head dim.
-template <int N>
-__device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2],
-                                            const uint32_t (&a)[4],
-                                            uint64_t desc_b) {
-  if constexpr (N == 64)
-    wgmma_rs_n64_tb(d, a, desc_b);
-  else if constexpr (N == 32)
-    wgmma_rs_n32_tb(d, a, desc_b);
-  else
-    wgmma_rs_n16_tb(d, a, desc_b);
+// D (64 x D) += A (64 x 16, registers) . B (16 x D): rows 16kk ..
+// 16kk + 15 of an MN-major R-row tile of head_dim-D rows whose block 0
+// `desc` describes, for the products whose N is the head dim. At D 128
+// one n64 product per column block, block b into accumulator registers
+// 32b .. 32b + 31.
+template <int D, int R>
+__device__ __forceinline__ void wgmma_rs_rows(float (&d)[D / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc, int kk) {
+  constexpr uint64_t kAtom = Rows<D>::atom;  // 16 rows, in 16-byte units
+  const uint64_t step = kAtom * static_cast<uint64_t>(kk);
+  if constexpr (D == 128) {
+    wgmma_rs_n64_tb<0>(d, a, desc + step);
+    wgmma_rs_n64_tb<32>(d, a, desc + ((R * kAtom) >> 4) + step);
+  } else if constexpr (D == 64) {
+    wgmma_rs_n64_tb(d, a, desc + step);
+  } else if constexpr (D == 32) {
+    wgmma_rs_n32_tb(d, a, desc + step);
+  } else {
+    wgmma_rs_n16_tb(d, a, desc + step);
+  }
+}
+
+// ------------------------------------------------ consumer sync
+// Barrier `id` over the 256 threads of both consumer warpgroups (warps
+// 0-7; the producer warp does not take part).
+__device__ __forceinline__ void consumers_barrier(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
 }
 
 // ---------------------------------------------------- warpgroup sync
@@ -409,10 +509,11 @@ __device__ __forceinline__ void pack_a(const float (&d)[R], int kk,
 }
 
 // A 64 x D f32 accumulator, row r scaled by `lo` (rows 16w + t%32/4)
-// or `hi` (those + 8), as bf16 into a 64-row tile of head_dim-D rows in
-// their swizzle (`swz<D>`): at D 64 a warp's stores hit 32 distinct
+// or `hi` (those + 8), as bf16 into 64 rows of an R-row tile of
+// head_dim-D rows in their swizzle (`swz<D, R>`; `tile` is the first of
+// the 64 rows in block 0): at D 64 a warp's stores hit 32 distinct
 // banks.
-template <int D>
+template <int D, int R>
 __device__ __forceinline__ void acc_to_tile(const float (&d)[D / 2],
                                             float lo, float hi,
                                             uint8_t* tile) {
@@ -424,14 +525,15 @@ __device__ __forceinline__ void acc_to_tile(const float (&d)[D / 2],
     for (int h = 0; h < 2; ++h) {
       const int row = r + 8 * h;
       const float s = h ? hi : lo;
-      *reinterpret_cast<uint32_t*>(tile + swz<D>(row, j) + (l % 4) * 4) =
+      *reinterpret_cast<uint32_t*>(tile + swz<D, R>(row, j) + (l % 4) * 4) =
           pack_bf16(d[4 * j + 2 * h] * s, d[4 * j + 2 * h + 1] * s);
     }
 }
 
-// The warpgroup's swizzled 64-row tile -> rows [0, limit) of `dst` (D
-// bf16 per row), 16 bytes per store, D/8 threads to a row.
-template <int D>
+// The warpgroup's 64 swizzled rows of an R-row tile (`tile` as in
+// acc_to_tile) -> rows [0, limit) of `dst` (D bf16 per row), 16 bytes
+// per store, D/8 threads to a row.
+template <int D, int R>
 __device__ __forceinline__ void tile_to_rows(const uint8_t* tile,
                                              __nv_bfloat16* dst, int limit) {
   constexpr int kChunks = D / 8;  // 16-byte chunks per row
@@ -441,7 +543,7 @@ __device__ __forceinline__ void tile_to_rows(const uint8_t* tile,
     const int idx = t + 128 * i, row = idx / kChunks, c = idx % kChunks;
     if (row < limit)
       *reinterpret_cast<uint4*>(dst + (size_t)row * D + c * 8) =
-          *reinterpret_cast<const uint4*>(tile + swz<D>(row, c));
+          *reinterpret_cast<const uint4*>(tile + swz<D, R>(row, c));
   }
 }
 
@@ -473,8 +575,9 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // The map of a contiguous (slabs, rows, D) bf16 tensor as dims (D, rows,
-// slabs), boxes of D x box_rows x 1 in the swizzle of `Rows<D>`; rows
-// past `rows` of a slab read as zeros. `base` must be 16-byte aligned.
+// slabs), boxes of one column block x box_rows x 1 (`Rows<D>::cols`
+// columns: D, or 64 at D 128) in the swizzle of `Rows<D>`; rows past
+// `rows` of a slab read as zeros. `base` must be 16-byte aligned.
 template <int D>
 inline cudaError_t encode_rows_map(CUtensorMap* map, const void* base,
                                    int rows, int slabs, int box_rows) {
@@ -484,7 +587,8 @@ inline cudaError_t encode_rows_map(CUtensorMap* map, const void* base,
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
                               (cuuint64_t)slabs};
   const cuuint64_t strides[2] = {row_bytes, (cuuint64_t)rows * row_bytes};
-  const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)box_rows, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)Rows<D>::cols,
+                             (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult res =
       fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),

@@ -14,7 +14,9 @@ rowsum(dO * O)`` it returns ``(dq, dk, dv)``, launching the dQ kernel
 the two backward kernels, as the ``_flash`` custom VJP is.
 
 On CPU tensors each wrapper computes its plain version; on CUDA tensors
-it launches its kernel or raises. Shapes follow the JAX package: q and
+it launches its kernel or raises (any head dim outside
+:data:`SUPPORTED_HEAD_DIMS` raises: there is no plain fallback). Shapes
+follow the JAX package: q and
 dO ``(B, H, Sq, D)``, k/v ``(B, KVH, Sk, D)`` with ``KVH`` dividing
 ``H`` (GQA), lse and delta ``(B, H, Sq)`` f32, bf16 or f32 otherwise.
 """
@@ -31,10 +33,10 @@ __all__ = ["flash_attention", "flash_forward", "flash_forward_plain",
            "flash_dq_plain", "flash_dkv", "flash_dkv_plain",
            "SUPPORTED_HEAD_DIMS", "BLOCK"]
 
-#: head dims the CUDA kernels are instantiated for, bf16 and f32 (the
-#: head dims of the repo's configurations; the CPU plain versions take
-#: any)
-SUPPORTED_HEAD_DIMS = (16, 32, 64)
+#: head dims the CUDA kernels are instantiated for, bf16 and f32: 16, 32
+#: and 64 (the repo's configurations) and 128 (most published LMs:
+#: Llama-2-7B, Mistral-7B, Llama-3-8B); the CPU plain versions take any
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 #: the one block size :func:`flash_attention` takes by name; the kernels
 #: pick their own tiles (64 or 128 rows, csrc/flash_*.cu)
 BLOCK = 64
@@ -97,8 +99,10 @@ def _kernel_operands(q: torch.Tensor, **tensors: torch.Tensor):
     and return them in order, with bf16 operands cloned where they are
     not 16-byte aligned."""
     if q.shape[3] not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"no flash kernel for head_dim {q.shape[3]}: the "
-                         f"kernels take head_dim in {SUPPORTED_HEAD_DIMS}")
+        raise ValueError(
+            f"no flash kernel for head_dim {q.shape[3]}: the kernels take "
+            f"head_dim in {SUPPORTED_HEAD_DIMS[:-1]} (the repo's "
+            f"configurations) or {SUPPORTED_HEAD_DIMS[-1]} (published LMs)")
     if q.device.type != "cuda":
         raise ValueError(f"no flash kernel for device {q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16):

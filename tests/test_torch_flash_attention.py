@@ -3,9 +3,10 @@
 The same numpy inputs go through the JAX ``flash_hop_forward`` (the
 Pallas ``_fwd_kernel`` in interpret mode) and the port's
 ``flash_forward``, which on CPU tensors runs the kernel's plain
-version: O and the per-row LSE, at zero and nonzero global offsets.
-f32; atol 2e-5 on O and 1e-4 on LSE (a logsumexp of up to ~100 terms
-reassociated).
+version: O and the per-row LSE, at zero and nonzero global offsets, at
+head dim 16 and, in one case (GQA groups of 4 under a window, the shape
+Mistral-7B gives the kernels), 128. f32; atol 2e-5 on O and 1e-4 on LSE
+(a logsumexp of up to ~100 terms reassociated).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -33,7 +34,10 @@ _CASES = {
     "hop_past": (True, 4, None, 32, 32, 64, 32),
     "hop_future": (True, 2, None, 32, 32, 0, 32),
     "hop_window": (True, 4, 20, 32, 32, 64, 32),
+    "d128_gqa4_window": (True, 1, 40, 64, 64, 0, 0),
 }
+# the cases at head dim 128; the rest run at 16
+_HEAD_DIM = {"d128_gqa4_window": 128}
 
 
 def _qkv(seed, h, kvh, sq, sk, b=2, d=16):
@@ -47,7 +51,7 @@ def _qkv(seed, h, kvh, sq, sk, b=2, d=16):
 @pytest.mark.parametrize("case", sorted(_CASES))
 def test_forward_and_lse_match_jax_hop(case):
     causal, kvh, window, sq, sk, qo, ko = _CASES[case]
-    q, k, v = _qkv(3, 4, kvh, sq, sk)
+    q, k, v = _qkv(3, 4, kvh, sq, sk, d=_HEAD_DIM.get(case, 16))
     o_ref, lse_ref = flash_hop_forward(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), qo, ko,
         causal=causal, window=window, block_q=16, block_k=16,
@@ -75,15 +79,18 @@ def test_hop_in_the_future_is_fully_masked():
     assert torch.all(lse < -1e29)
 
 
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("kvh", [4, 2])
-def test_flash_attention_matches_jax_flash(causal, kvh):
-    q, k, v = _qkv(9, 4, kvh, 33, 33)
+@pytest.mark.parametrize("causal,kvh,window,seq,d", [
+    *(pytest.param(causal, kvh, None, 33, 16, id=f"{kvh}-{causal}")
+      for kvh in (4, 2) for causal in (True, False)),
+    # head dim 128, H 4 over KVH 1 (groups of 4), causal under a window
+    pytest.param(True, 1, 40, 64, 128, id="d128-1-True-40")])
+def test_flash_attention_matches_jax_flash(causal, kvh, window, seq, d):
+    q, k, v = _qkv(9, 4, kvh, seq, seq, d=d)
     ref = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k),
                                jnp.asarray(v), causal=causal, block_q=16,
-                               block_k=16, interpret=True))
+                               block_k=16, interpret=True, window=window))
     out = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
-                          torch.from_numpy(v), causal=causal)
+                          torch.from_numpy(v), causal=causal, window=window)
     np.testing.assert_allclose(out.numpy(), ref, atol=2e-5, rtol=0)
 
 
@@ -127,9 +134,10 @@ def test_rejects_bad_arguments(bad):
 
 def test_kernels_take_the_repo_head_dims():
     """The CUDA bodies' head dims: 64 (the flagship), 32
-    (examples/transformer_tpumodel.py) and 16 (examples/http_serving.py);
+    (examples/transformer_tpumodel.py), 16 (examples/http_serving.py) and
+    128 (most published LMs: Llama-2-7B, Mistral-7B, Llama-3-8B);
     csrc/flash_*.cu dispatch the same set."""
-    assert SUPPORTED_HEAD_DIMS == (16, 32, 64)
+    assert SUPPORTED_HEAD_DIMS == (16, 32, 64, 128)
 
 
 @pytest.mark.parametrize("head_dim", [48, 8])

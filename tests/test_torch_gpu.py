@@ -7,8 +7,9 @@ elsewhere. On a machine with the card:
 
 The kernels are built from ``elephas_tpu_torch/csrc`` at first use.
 The flash kernels are held at head dim 64 over every case and at head
-dims 16 and 32 (the repo's other configurations) over the GQA, window,
-ragged and offset cases. The Keras layers, optimizers and schedules
+dims 16 and 32 (the repo's other configurations) and 128 (most published
+LMs) over the GQA, window, ragged and offset cases; the paged kernel at
+64 and, on its general body, at 128 with groups of 4. The Keras layers, optimizers and schedules
 ported with Conv2D (no kernel of the repo's: cuDNN, cuBLAS and torch
 loops) are held against the CPU, TF32 off: layers within 1e-4 of each
 array's scale, optimizers within 1e-5 of scale, a BatchNormalization fit within
@@ -109,6 +110,9 @@ _BWD_CASES = {
     "sq_255": (1, 4, 4, 255, 300, True, None, 45, 0),
     # the examples/transformer_tpumodel.py LM's fit batch (H 8, S 128)
     "tpumodel_fit": (16, 8, 8, 128, 128, True, None, 0, 0),
+    # Mistral-7B's attention shape cut in length: H 32 over KVH 8 (groups
+    # of 4), a window narrower than the sequence, lengths off every tile
+    "gqa4_window": (1, 32, 8, 300, 300, True, 100, 0, 0),
 }
 
 
@@ -155,20 +159,21 @@ def test_flash_backward_kernels_match_plain(cuda, case, dtype):
 
 
 # the GQA, window, ragged and offset cases and the head-dim-32 LM's
-# batch, run at head dims 16 and 32
+# batch, run at head dims 16, 32 and 128
 _SMALL_D_CASES = ["gqa", "window", "window_17", "ragged", "ragged_191_257",
                   "gqa4_ragged", "sq_one", "sq_129", "hop_past",
-                  "hop_future", "noncausal", "tpumodel_fit"]
+                  "hop_future", "noncausal", "tpumodel_fit", "gqa4_window"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", _SMALL_D_CASES)
-@pytest.mark.parametrize("head_dim", [16, 32])
+@pytest.mark.parametrize("head_dim", [16, 32, 128])
 def test_flash_kernels_at_small_head_dims_match_plain(cuda, no_tf32,
                                                       head_dim, case,
                                                       dtype):
-    """The forward, dQ and dK/dV kernels at head dims 16 and 32 against
-    their plain versions, with the head-dim-64 tests' tolerances."""
+    """The forward, dQ and dK/dV kernels at head dims 16, 32 and 128 (the
+    head dims besides the flagship's 64) against their plain versions,
+    with the head-dim-64 tests' tolerances."""
     from elephas_tpu_torch.ops.flash_attention import (flash_forward,
                                                        flash_forward_plain)
     b, h, kvh, sq, sk, causal, window, qo, ko = _BWD_CASES[case]
@@ -273,12 +278,23 @@ def test_flash_dkv_kernel_is_bit_reproducible(cuda, case):
 
 
 @pytest.mark.parametrize("case", ["causal", "gqa4_ragged", "window_17"])
-@pytest.mark.parametrize("head_dim", [16, 32])
+@pytest.mark.parametrize("head_dim", [16, 32, 128])
 def test_flash_dkv_kernel_is_bit_reproducible_at_small_head_dims(
         cuda, head_dim, case):
-    """No atomics at head dims 16 and 32 either: two dK/dV launches on
-    the same bf16 inputs give the same bits."""
+    """No atomics at head dims 16, 32 and 128 either: two dK/dV launches
+    on the same bf16 inputs give the same bits (at 128 both warpgroups
+    recompute S^T and dP^T and each writes its own column block)."""
     _assert_dkv_reproducible(_bwd_args(case, 6, cuda, head_dim))
+
+
+@pytest.mark.parametrize("case", ["causal", "gqa4_window", "sq_255"])
+def test_flash_dq_kernel_is_bit_reproducible_at_head_dim_128(cuda, case):
+    """No atomics at head dim 128: two dQ launches on the same bf16
+    inputs give the same bits."""
+    from elephas_tpu_torch.ops.flash_attention import flash_dq
+    args = _bwd_args(case, 6, cuda, 128)
+    first, second = flash_dq(*args), flash_dq(*args)
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
 
 
 _PAGED_CASES = {
@@ -305,10 +321,10 @@ _PAGED_CASES = {
 }
 
 
-def _paged_inputs(case, dtype, device):
+def _paged_inputs(case, dtype, device, d=64):
     h, kvh, mb, positions, window, alibi = _PAGED_CASES[case]
     from elephas_tpu_torch.models.transformer import _alibi_slope_list
-    b, d, bs = len(positions), 64, 16
+    b, bs = len(positions), 16
     nb = b * mb + 1
     rng = np.random.default_rng(1)
     tables = torch.as_tensor(
@@ -340,6 +356,25 @@ def test_paged_kernel_matches_plain(cuda, case, dtype):
                                        tables, pos, window, slopes)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     assert out.dtype == dtype and bool(torch.isfinite(out.float()).all())
+    torch.testing.assert_close(out.float(), ref, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["gqa4", "long_row", "window"])
+def test_paged_kernel_at_head_dim_128_matches_plain(cuda, case, dtype):
+    """The paged kernel at head dim 128 (its general body; Mistral-7B's
+    groups of 4 in ``gqa4``) against its plain version, with the head-dim
+    64 tolerances."""
+    from elephas_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_plain)
+    q, kp, vp, tables, pos, window, slopes = _paged_inputs(case, dtype,
+                                                           cuda, d=128)
+    out = paged_decode_attention(q, kp, vp, tables, pos, window, slopes)
+    ref = paged_decode_attention_plain(q.float(), kp.float(), vp.float(),
+                                       tables, pos, window, slopes)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert out.dtype == dtype and out.shape == q.shape
+    assert bool(torch.isfinite(out.float()).all())
     torch.testing.assert_close(out.float(), ref, atol=tol, rtol=0)
 
 
