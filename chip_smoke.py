@@ -8,8 +8,9 @@ CUDA toolkit. It builds the port's hand-written kernels from
 each kernel against its plain PyTorch version at the shapes the main
 paths give it (the flash kernels at head dims 16, 32, 64 and 128, f32
 and bf16, and at the head-dim-32 and head-dim-128 paths' own shapes;
-the paged kernel at 64 and, on its general body, at 16, 32 and 128, the
-last at Mistral-7B's groups of 4),
+the paged kernel at 16, 32, 64 and 128, the last at Mistral-7B's
+groups of 4, each bf16 call on its split-K body and each f32 call on
+its general body, as the wrapper's ``split_launches`` count shows),
 checks that two launches of the paged, dQ and dK/dV kernels give the
 same bits, times one request's paged decode (B 1, pos 1000) on a line
 of its own, then drives the port's
@@ -24,7 +25,9 @@ backward kernels, after which the trained model serves two requests.
 ``lm_d128`` does the same at Mistral-7B-v0.1's widths (head dim 128,
 32 heads over 8 kv heads, SwiGLU, RMSNorm, RoPE, window 4096, untied
 head; random weights): ``forward`` and the paged engine over all 32
-layers, an f32 gradient and f32 greedy tokens against ``generate`` at
+layers (every bf16 paged launch on the split body; the paged kernels'
+device ms per decode step from a profiled window beside ``step()``'s
+p50), an f32 gradient and f32 greedy tokens against ``generate`` at
 2 layers, and ``fit_tokens`` at 4 (the cuts are printed with it).
 Then the Keras-style models through ``TPUModel(mode="synchronous")`` at
 the bench's MLP width (784-128-128-10) on 60,000 seeded rows of the
@@ -183,10 +186,11 @@ PAGED_CASES = {"main": (16, None, False), "gqa": (4, None, False),
 def check_paged(flush):
     """The paged decode kernel against its plain version at the serving
     path's shapes: B 8, H 16, block 16, 64 blocks per row, a pool of 513
-    blocks; shuffled tables and ragged positions; at head dim 64 (the
-    flagship's: the split body in bf16) and 32, 16 and 128 (the general
-    body), each timed (d 128 at Mistral-7B's H 32 over KVH 8, the
-    lm_d128 serving run's shape); then one request alone at d 64."""
+    blocks; shuffled tables and ragged positions; at head dims 64 (the
+    flagship's), 32, 16 and 128, each timed (d 128 at Mistral-7B's H 32
+    over KVH 8, the lm_d128 serving run's shape), every bf16 call on the
+    split body and every f32 call on the general one (``body`` per head
+    dim); then one request alone at d 64."""
     b, mb, nb = 8, 64, 513
     rng = np.random.default_rng(0)
     tables = rng.permutation(np.arange(1, nb))[:b * mb].reshape(b, mb)
@@ -216,6 +220,16 @@ def check_paged(flush):
 PAGED_TIMED_HEADS = {128: (32, 8)}
 
 
+def paged_call_body(fn):
+    """``fn()`` (one paged_decode_attention call) and the body it took:
+    "split" when the wrapper's ``split_launches`` rose, else "general"."""
+    from elephas_tpu_torch.ops.paged_attention import paged_decode_attention
+    before = paged_decode_attention.split_launches
+    out = fn()
+    return out, ("split" if paged_decode_attention.split_launches > before
+                 else "general")
+
+
 def paged_at_head_dim(flush, d, tables_t, pos_t, pos, nb, h_t, kvh_t):
     """The paged cases at head dim ``d`` on the serving shape's tables
     and positions, f32 and bf16 against the plain version; then, at
@@ -228,7 +242,7 @@ def paged_at_head_dim(flush, d, tables_t, pos_t, pos, nb, h_t, kvh_t):
 
     b, h, bs = tables_t.shape[0], 16, 16
     gen = torch.Generator(device="cuda").manual_seed(1)
-    errs = {}
+    errs, bodies = {}, set()
     for name, (kvh, window, alibi) in PAGED_CASES.items():
         q = torch.randn((b, h, d), generator=gen, device="cuda")
         kp = torch.randn((nb, kvh, bs, d), generator=gen, device="cuda")
@@ -236,17 +250,21 @@ def paged_at_head_dim(flush, d, tables_t, pos_t, pos, nb, h_t, kvh_t):
         slopes = _alibi_slope_list(h) if alibi else None
         ref = paged_decode_attention_plain(q, kp, vp, tables_t, pos_t,
                                            window, slopes)
-        out32 = paged_decode_attention(q, kp, vp, tables_t, pos_t, window,
-                                       slopes)
+        out32, body32 = paged_call_body(lambda: paged_decode_attention(
+            q, kp, vp, tables_t, pos_t, window, slopes))
         q16, k16, v16 = q.bfloat16(), kp.bfloat16(), vp.bfloat16()
         ref16 = paged_decode_attention_plain(q16.float(), k16.float(),
                                              v16.float(), tables_t, pos_t,
                                              window, slopes)
-        out16 = paged_decode_attention(q16, k16, v16, tables_t, pos_t,
-                                       window, slopes)
+        out16, body16 = paged_call_body(lambda: paged_decode_attention(
+            q16, k16, v16, tables_t, pos_t, window, slopes))
         torch.cuda.synchronize()
         e32, e16 = max_err(out32, ref), max_err(out16, ref16)
         what = f"paged {name} d {d}"
+        require(body16 == "split" and body32 == "general",
+                f"{what}: bf16 on the split body ({body16}), f32 on the "
+                f"general one ({body32})")
+        bodies.update({("f32", body32), ("bf16", body16)})
         require(bool(torch.isfinite(out16.float()).all()),
                 f"{what} bf16 output finite")
         require(e32 <= 1e-4, f"{what} f32 err {e32} <= 1e-4")
@@ -261,12 +279,14 @@ def paged_at_head_dim(flush, d, tables_t, pos_t, pos, nb, h_t, kvh_t):
         k16, v16 = (torch.randn((nb, kvh_t, bs, d), generator=gen,
                                 device="cuda").bfloat16() for _ in range(2))
         args16 = (q16, k16, v16, tables_t, pos_t)
-        e16 = max_err(paged_decode_attention(*args16),
-                      paged_decode_attention_plain(
-                          q16.float(), k16.float(), v16.float(), tables_t,
-                          pos_t))
+        out16, body16 = paged_call_body(
+            lambda: paged_decode_attention(*args16))
+        e16 = max_err(out16, paged_decode_attention_plain(
+            q16.float(), k16.float(), v16.float(), tables_t, pos_t))
         require(e16 <= 2e-2, f"paged timed H {h_t} KVH {kvh_t} d {d} bf16 "
                              f"err {e16} <= 2e-2")
+        require(body16 == "split", f"paged timed H {h_t} KVH {kvh_t} d {d} "
+                                   f"bf16 on the split body: {body16}")
         errs["timed"] = {"bf16": e16}
     # no atomics, splits merged in index order: a second bf16 launch on
     # the same inputs gives the same bits
@@ -280,6 +300,7 @@ def paged_at_head_dim(flush, d, tables_t, pos_t, pos, nb, h_t, kvh_t):
             "max_abs_err_f32": max(e["f32"] for e in errs.values()
                                    if "f32" in e),
             "errors": errs,
+            "body": dict(sorted(bodies)),
             "ms": time_ms(lambda: paged_decode_attention(*args16),
                           flush=flush),
             "plain_ms": time_ms(
@@ -766,6 +787,7 @@ def reset_counts():
     flash_backward.dq_launches = 0
     flash_backward.dkv_launches = 0
     paged_decode_attention.launches = 0
+    paged_decode_attention.split_launches = 0
 
 
 def read_counts():
@@ -775,7 +797,8 @@ def read_counts():
     return {"flash_fwd": flash_forward.launches,
             "flash_dq": flash_backward.dq_launches,
             "flash_dkv": flash_backward.dkv_launches,
-            "paged_decode": paged_decode_attention.launches}
+            "paged_decode": paged_decode_attention.launches,
+            "paged_split": paged_decode_attention.split_launches}
 
 
 def run_forward(params, cfg):
@@ -885,6 +908,58 @@ def serve(params, cfg, prompts, kernel, max_new=64, timed=False):
     return outs, info
 
 
+def paged_device_per_decode_step(params, cfg, prompts, steps=8):
+    """The paged engine of ``serve`` on ``prompts`` (64 new tokens each)
+    under torch.profiler for ``steps`` steady ``step()`` calls, after
+    the first 8 requests are admitted and decoding: the paged kernels'
+    device ms per decode step (split, merge and general kernels; decode
+    steps = paged launches / layers), beside every kernel's and copy's
+    device ms per step and the heaviest entries by name (``top``), host
+    ms per step of 8 untraced steps just before the traced window (the
+    profiler slows the host, not the device), and the bodies'
+    launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from elephas_tpu_torch.profile_serving import device_breakdown
+    from elephas_tpu_torch.serving_engine import DecodeEngine
+
+    eng = DecodeEngine(params, cfg, max_slots=8, paged=(513, 16),
+                       kernel="fused", device="cuda")
+    for p in prompts:
+        eng.submit(p, 64)
+    for _ in range(4):                      # admission and first decodes
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / steps * 1e3
+    reset_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    counts = read_counts()
+    decode_steps = counts["paged_decode"] / cfg.num_layers
+    require(decode_steps > 0 and counts["paged_split"]
+            == counts["paged_decode"],
+            f"the profiled window ran the split body: {counts}")
+    breakdown = device_breakdown(prof, steps, host_ms, top=8)
+    paged_ms = sum(e.device_time_total for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and "paged_" in e.name) / 1e3
+    require(paged_ms > 0, "the profiler saw the paged kernels' device time")
+    del eng
+    return {"paged_device_ms_per_decode_step": paged_ms / decode_steps,
+            "paged_device_ms_per_launch":
+                paged_ms / counts["paged_decode"],
+            "decode_steps": decode_steps, "step_calls": steps,
+            "launches": counts, **breakdown}
+
+
 def tie_aware_equal(params, cfg, prompts, ref, out):
     """Greedy outputs must be equal, except that a row may diverge at a
     provable argmax near-tie: at its first divergence the reference's
@@ -945,6 +1020,8 @@ def run_serving(params, cfg):
             f"the serving run launched the paged kernel: {counts}")
     require(counts["paged_decode"] == info16["stats"]["kernel_launches"],
             "engine stats agree with the wrapper's count")
+    require(counts["paged_split"] == counts["paged_decode"],
+            f"every bf16 paged launch took the split body: {counts}")
     require(all(len(o) == 64 for o in out16), "bf16: 64 tokens each")
     require(all(0 <= t < cfg.vocab_size for o in out16 for t in o),
             "bf16 tokens in the vocabulary")
@@ -1237,6 +1314,8 @@ def run_http_serving_flagship(params, cfg):
             and bf16["paged_fused_prefix_cache_sync4"]["paged_launches"]
             == counts["paged_decode"],
             f"the paged engine launched the paged kernel: {counts}")
+    require(counts["paged_split"] == counts["paged_decode"],
+            f"every bf16 paged launch took the split body: {counts}")
     require(bf16["contiguous_prefix_sync4_chunk64"]["prefix_tokens_reused"]
             >= len(prompts) * len(system)
             and bf16["paged_fused_prefix_cache_sync4"]
@@ -1439,9 +1518,12 @@ def run_lm_d128():
     4): (a) ``forward`` at B 2 x T 1024 over all 32 layers, bf16 over f32
     parameters, with one flash forward launch per layer, its f32 logits
     against the plain path's; (b) the paged ``DecodeEngine`` with the
-    fused kernel (the general body at D 128, G 4) over all 32 layers,
+    fused kernel (the split body at D 128, G 4) over all 32 layers,
     serving the flagship serving phase's 16 requests (64-512 prompt
-    tokens, 64 new each); (c) at 2 layers an f32 ``lm_loss`` gradient
+    tokens, 64 new each), every paged launch on the split body, then a
+    profiled window of 8 steps of the same traffic: the paged kernels'
+    device ms per decode step beside the timed run's ``step()`` p50;
+    (c) at 2 layers an f32 ``lm_loss`` gradient
     through the f32 kernels against the plain path (B 1 x 512), and the
     f32 paged engine's greedy tokens against the port's ``generate``
     (tie-aware); (d) ``TransformerModel.fit_tokens`` at 4 layers, bf16
@@ -1529,15 +1611,24 @@ def run_lm_d128():
             == info["stats"]["kernel_launches"],
             f"the serving run launched the paged kernel at D 128: "
             f"{counts['serving']}, {info['stats']['kernel_launches']}")
+    require(counts["serving"]["paged_split"]
+            == counts["serving"]["paged_decode"],
+            f"every bf16 paged launch at D 128 took the split body: "
+            f"{counts['serving']}")
     require(all(len(o) == 64 for o in outs) and all(
         0 <= x < cfg.vocab_size for o in outs for x in o),
         "bf16: 64 tokens each, in the vocabulary")
+    gc.collect()
+    window = paged_device_per_decode_step(params, cfg, prompts)
     emit({
         "phase": "lm_d128_serving", "requests": len(prompts),
         "prompt_lengths": [int(n) for n in lengths], "max_new_tokens": 64,
         "layers": cfg.num_layers,
         "bf16": {k: v for k, v in info.items() if k != "stats"},
-        "launches": counts["serving"]})
+        "step_ms_p50": info["step_ms_p50"],
+        "paged_device_ms_per_decode_step":
+            window["paged_device_ms_per_decode_step"],
+        "profiled_window": window, "launches": counts["serving"]})
     # the engines sit in reference cycles: collect them, and the 29 GB of
     # parameters they hold, before the next part allocates
     del params
@@ -2811,6 +2902,11 @@ def main() -> int:
          "launches": (srv_counts["paged_decode"]
                       + flag_counts["paged_decode"]
                       + ex_counts["paged_decode"]),
+         # the launches above by body: bf16 on the split body, f32 (the
+         # http_serving.py engine) on the general one
+         "split_launches": (srv_counts["paged_split"]
+                            + flag_counts["paged_split"]
+                            + ex_counts["paged_split"]),
          **{k: paged[k] for k in keys}},
         {"name": "flash_fwd", "route": "cuda",
          "source": "elephas_tpu_torch/csrc/flash_fwd.cu",
@@ -2824,6 +2920,8 @@ def main() -> int:
            **{k: bwd[part][k] for k in keys}}
           for part, line in (("dq", 196), ("dkv", 243))),
     ]
+    kernels[0]["general_launches"] = (kernels[0]["launches"]
+                                      - kernels[0]["split_launches"])
     for entry, results in zip(kernels, (paged, flash, bwd["dq"],
                                         bwd["dkv"])):
         name = entry["name"]
@@ -2841,9 +2939,21 @@ def main() -> int:
                     + loaded_counts[name],
                     "64": entry["launches"] - ex_counts[name],
                     "128": sum(c[name] for c in d128.values())}
+        if name == "paged_decode":
+            split = {"16": d16_counts["paged_split"]
+                     + ex_counts["paged_split"],
+                     "32": d32_counts["paged_split"]
+                     + resumed_counts["paged_split"]
+                     + loaded_counts["paged_split"],
+                     "64": srv_counts["paged_split"]
+                     + flag_counts["paged_split"],
+                     "128": sum(c["paged_split"] for c in d128.values())}
         entry["by_head_dim"] = {
-            d: {**{k: t[k] for k in (*keys, "shape") if k in t},
+            d: {**{k: t[k] for k in (*keys, "shape", "body") if k in t},
                 "launches": launches[d],
+                **({"split_launches": split[d],
+                    "general_launches": launches[d] - split[d]}
+                   if name == "paged_decode" else {}),
                 **({"at_training_shape": {
                     k: t["at_training_shape"][k]
                     for k in (*keys, "shape")

@@ -9,49 +9,71 @@
 // never read; GQA shares each kv head's block among its query group;
 // optional ALiBi slopes.
 //
-// What bounds it on the H100. Decode reads every live K/V byte once
-// for ~4 * groups flops per element, far below the card's ~295
-// flops-per-byte balance point: it is bound by bytes. At the serving
-// shape (B 8, 16 kv heads, block 16, head_dim 64, positions 64-576) the
-// live K/V is 11 MB, 3.3 us at 3.35 TB/s; only many loads in flight
-// on every SM come near that.
+// What bounds it on the H100. Decode reads every live K/V element once
+// for about 4 * G flops (G query heads per kv head: a dot product and a
+// P.V term each), far below the card's ~295 flops-per-byte balance
+// point: it is bound by bytes, so the tensor cores have nothing to do.
+// At the serving shapes (B 8, block 16, positions 64-576; 16 kv heads
+// at D 64, or Mistral-7B's 8 kv heads over 32 query heads at D 128)
+// the live K/V is about 11 MB, 3.3 us at 3.35 TB/s; only many loads in
+// flight on every SM come near that.
 //
-// Design, bf16 at head_dim 64 with groups 1, 2 or 4 (the working type;
-// flash-decoding):
+// Two bodies; the wrapper (ops/paged_attention.py `paged_body`) picks
+// one and passes it in `body`, and a call the chosen body cannot take
+// fails (cudaErrorInvalidValue) instead of running the other.
+//
+// The split body: bf16 at head dims 16, 32, 64 and 128 with groups of
+// 1, 2 or 4 (the working type; flash-decoding), templated on D and G.
 // - Split-K. The grid is (splits, KVH, B): split s owns table entries
-//   [s*L, s*L + L) of its row, L from the wrapper (from max_blocks and
-//   the shape, never from pos: reading pos back to the host would cost
-//   more than the kernel). Each CTA reads its own pos[b] and clips its
-//   run to the row's live blocks, from the window's first block to
-//   pos / bs; a CTA with nothing live exits before any other read, so
-//   no table entry past pos / bs is ever read (entries past the row's
-//   allocation are not valid block ids).
-// - Loads in flight. Each 16-byte chunk of a (block, kv head) K or V
-//   slab (bs x 64 contiguous bf16) is copied by one thread with
-//   cp.async into a 4-stage ring in shared memory, 4 blocks ahead of the
-//   math. The thread that copies a chunk is the only one that reads it,
-//   so the loop has no barrier: cp.async.wait_group alone orders it.
-// - Math on every thread. 8 lanes x 16 bytes hold one key row; a warp
-//   scores 4 keys at once (8-term dot products, then shuffles inside
-//   each 8-lane group), for all G query heads of the kv head on the same
-//   loaded row. Each 8-lane group keeps its own online softmax in f32
-//   (in base 2, one ex2 per key: the larger of the old max and the new
-//   score gets weight 1) and its 8 columns of the accumulator; P enters
+//   [s*L, s*L + L) of its row, L from the wrapper (`split_blocks`, from
+//   max_blocks and the shape, never from pos: reading pos back to the
+//   host would cost more than the kernel). Each CTA reads its own pos[b]
+//   and clips its run to the row's live blocks, from the window's first
+//   block to pos / bs; a CTA with nothing live exits before any other
+//   read, so no table entry past pos / bs is ever read (entries past
+//   the row's allocation are not valid block ids). The run's table
+//   entries are staged in shared memory once (one barrier), so no copy
+//   waits on a table read.
+// - Lanes per key row from D. A bf16 row is D / 8 chunks of 16 bytes:
+//   LANES = 16 lanes hold a row at D 128, 8 at 64, 4 at 32, 2 at 16, so
+//   one pass of the 128 threads covers ROWS = 8, 16, 32 or 64 key rows.
+//   The run's rows are taken as one sequence (row i at position
+//   j0 * bs + i, in table entry j0 + i / bs), so at small D one pass
+//   spans several blocks (four of 16 at d 16) and every thread has a
+//   row whatever the block size.
+// - Loads in flight. A ring stage in shared memory holds one pass: its
+//   K rows then its V rows, 4 KB at every D. Each thread copies the two
+//   16-byte chunks it will read (cp.async), STAGES passes ahead of the
+//   math: 8 at D 128 (a whole 64-row split, 32 KB), 4 below (16 KB).
+//   The thread that copies a chunk is the only one that reads it, so
+//   the loop has no barrier: cp.async.wait_group alone orders it.
+// - Math on every thread. A row's LANES lanes take 8-term dot products
+//   and sum them with log2(LANES) shuffles, for all G query heads of the
+//   kv head on the same loaded row. Each row group keeps its own online
+//   softmax in f32 (base 2, one ex2 per key: the larger of the old max
+//   and the new score gets weight 1) and its 8 columns of the
+//   accumulator (qf[G][8] and acc[G][8] a thread at every D); P enters
 //   P.V cast to bf16 (the TPU kernel's `p.astype(v.dtype)`), the row sum
-//   stays f32. At the end the 16 groups merge: shuffles inside a warp,
+//   stays f32. At the end the row groups merge: shuffles inside a warp,
 //   then the 4 warps through shared memory, in a fixed order.
 // - Merge. One split writes acc / max(l, 1e-30) as the output. With
-//   more, each writes its (m, l, acc[64]) in f32 to a workspace the
+//   more, each writes its (m, l, acc[D]) in f32 to a workspace the
 //   wrapper allocates, and a second small kernel (one warp per query
-//   head) takes the live splits in index order: m* = max m_i, l = sum
-//   l_i 2^(m_i - m*), o = sum acc_i 2^(m_i - m*) / max(l, 1e-30); a split
-//   with no valid key (m = -inf) weighs 0. No atomics: two launches give
-//   the same bits.
+//   head: D / 32 columns a lane, half the warp at d 16) takes the live
+//   splits in index order: m* = max m_i, l = sum l_i 2^(m_i - m*), o =
+//   sum acc_i 2^(m_i - m*) / max(l, 1e-30); a split with no valid key
+//   (m = -inf) weighs 0. No atomics: two launches give the same bits.
 //
-// f32 (and bf16 at other head dims, group sizes or unaligned operands):
-// one CTA of 128 threads per (row, kv head) loops over the live blocks,
-// staging each K and V block in shared memory as f32 with four barriers
-// a block.
+// The general body: f32 at any D, and bf16 at any other head dim or
+// group size (8-way groups, head dims the flash kernels lack). One CTA
+// of 128 threads per (row, kv head) loops over the live blocks, staging
+// each K and V block in shared memory as f32 with four barriers a block.
+// It stays for f32 because f32 is the parity path, held within 1e-4 of
+// the plain version, not the type any timed path serves in: a split
+// body for it would double the variants above (a 16-byte chunk holds 4
+// f32, so the lane layout differs) for no path that waits on it. f32 is
+// also the only type the `examples/http_serving.py` d 16 engine runs, so
+// that engine stays on this body.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -169,10 +191,23 @@ __global__ void __launch_bounds__(THREADS)
 namespace split {
 
 using bf16 = __nv_bfloat16;
-constexpr int D = 64;
-constexpr int THREADS = 128;  // 16 groups of 8 lanes, one key row each
-constexpr int STAGES = 4;     // blocks in flight per CTA
-constexpr int REC = D + 2;    // workspace record: m (base 2), l, acc[D]
+constexpr int THREADS = 128;
+constexpr int WARPS = THREADS / 32;
+
+// The layout at head dim D (see the note at the top): LANES lanes of 16
+// bytes hold a key row, a pass of the CTA covers ROWS rows, a ring
+// stage holds one pass (K rows, then V rows: 4 KB), STAGES passes are
+// in flight (at least 64 rows), and a workspace record is (m, l, acc).
+template <int D>
+struct Layout {
+  static constexpr int LANES = D / 8;
+  static constexpr int ROWS = THREADS / LANES;
+  static constexpr int STAGES = ROWS >= 16 ? 4 : 64 / ROWS;
+  static constexpr int STAGE = 2 * ROWS * D;  // bf16 elements
+  static constexpr int REC = D + 2;
+  static_assert(LANES >= 2 && LANES <= 32 && ROWS * LANES == THREADS,
+                "a key row is 2 to 32 chunks of 16 bytes");
+};
 
 // The row's live blocks [j_lo, j_hi] (empty when j_lo > j_hi): j*bs <=
 // pos, and with a window j*bs + bs - 1 > pos - window, as the TPU
@@ -203,14 +238,19 @@ __device__ __forceinline__ float weight(float m, float m_joint) {
   return m == -INFINITY ? 0.f : exp2_ftz(m - m_joint);
 }
 
-inline size_t smem_bytes(int G, int bs) {
-  // the K and V ring, then the 4 warps' (m, l, acc[D]) per query head
-  return (size_t)STAGES * 2 * bs * D * sizeof(bf16) +
-         sizeof(float) * 4 * (size_t)G * REC;
+template <int D>
+inline size_t smem_bytes(int G, int L) {
+  // the K/V ring, the warps' (m, l, acc[D]) per query head, the run's
+  // table entries
+  using Lay = Layout<D>;
+  return (size_t)Lay::STAGES * Lay::STAGE * sizeof(bf16) +
+         sizeof(float) * WARPS * (size_t)G * Lay::REC + sizeof(int) * L;
 }
 
-template <int G>
-__global__ void __launch_bounds__(THREADS)
+// 4 CTAs an SM: up to 128 registers a thread (G 4 takes about 126), so
+// ptxas never trades a spill for occupancy
+template <int D, int G>
+__global__ void __launch_bounds__(THREADS, 4)
     paged_split_kernel(const bf16* __restrict__ q,
                        const bf16* __restrict__ kpool,
                        const bf16* __restrict__ vpool,
@@ -220,16 +260,19 @@ __global__ void __launch_bounds__(THREADS)
                        bf16* __restrict__ out, float* __restrict__ ws,
                        int H, int KVH, int bs, int MB, int L, int window,
                        float scale_log2) {
+  using Lay = Layout<D>;
+  constexpr int LANES = Lay::LANES, ROWS = Lay::ROWS;
+  constexpr int STAGES = Lay::STAGES, REC = Lay::REC;
   extern __shared__ __align__(16) uint8_t smem_raw[];
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // [stage][K|V][bs][D]
-  float* part = reinterpret_cast<float*>(smem_raw + (size_t)STAGES * 2 *
-                                                        bs * D * sizeof(bf16));
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // [stage][K|V][ROWS][D]
+  float* part = reinterpret_cast<float*>(ring + STAGES * Lay::STAGE);
+  int* tbl = reinterpret_cast<int*>(part + WARPS * G * REC);
 
   const int s = blockIdx.x, n = blockIdx.y, b = blockIdx.z;
   const int nsplit = gridDim.x;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int c = tid % 8;   // the thread's 16-byte chunk: columns 8c..8c+7
-  const int rg = tid / 8;  // its key rows: rg, rg + 16, ...
+  const int c = tid % LANES;   // the thread's 16-byte chunk: columns 8c..
+  const int rg = tid / LANES;  // its row of each pass
   const int p = pos[b];
   int j_lo, j_hi;
   live_blocks(p, window, bs, MB, j_lo, j_hi);
@@ -237,33 +280,37 @@ __global__ void __launch_bounds__(THREADS)
   const size_t orow = (size_t)b * H + n * G;  // first query head's row
   if (j0 > j1) {
     // nothing of this split is live; alone (one split) it still owns the
-    // output, which is then 0 as in the generic body
+    // output, which is then 0 as in the general body
     if (nsplit == 1)
       for (int i = tid; i < G * D; i += THREADS)
         out[orow * D + i] = __float2bfloat16(0.f);
     return;
   }
-  const int* row_table = tables + (size_t)b * MB;
+  const int nblk = j1 - j0 + 1;
+  const int rows = nblk * bs;  // the run's key rows: row i at j0*bs + i
+  for (int i = tid; i < nblk; i += THREADS)
+    tbl[i] = tables[(size_t)b * MB + j0 + i];
+  __syncthreads();
   const size_t slab = (size_t)bs * D;
 
-  // this thread's chunks of block jj into ring stage st (a group per
-  // block, empty past the run, so wait_group counts blocks)
-  auto issue = [&](int jj, int st) {
-    if (jj <= j1) {
-      const size_t base = ((size_t)row_table[jj] * KVH + n) * slab;
-      bf16* ks = ring + (size_t)st * 2 * slab;
-      for (int r = rg; r < bs; r += 16) {
-        const size_t off = (size_t)r * D + c * 8;
-        cp_async_16(ks + off, kpool + base + off);
-        cp_async_16(ks + slab + off, vpool + base + off);
-      }
+  // this thread's chunk of pass t into ring stage st (a group per pass,
+  // empty past the run, so wait_group counts passes)
+  auto issue = [&](int t, int st) {
+    const int i = t * ROWS + rg;
+    if (i < rows) {
+      const int jb = i / bs, r = i - jb * bs;
+      const size_t src =
+          ((size_t)tbl[jb] * KVH + n) * slab + (size_t)r * D + c * 8;
+      bf16* dst = ring + st * Lay::STAGE + rg * D + c * 8;
+      cp_async_16(dst, kpool + src);
+      cp_async_16(dst + ROWS * D, vpool + src);
     }
     cp_async_commit();
   };
 #pragma unroll
-  for (int i = 0; i < STAGES; ++i) issue(j0 + i, i);
+  for (int t = 0; t < STAGES; ++t) issue(t, t);
 
-  // q (pre-scaled into base 2), the ALiBi slopes in base 2, and the
+  // q (pre-scaled into base 2), the ALiBi slopes in base 2, and the row
   // group's online-softmax state for each of the G query heads
   float qf[G][8], sl2[G], m[G], l[G], acc[G][8];
 #pragma unroll
@@ -281,71 +328,72 @@ __global__ void __launch_bounds__(THREADS)
     l[g] = 0.f;
   }
 
-  for (int jj = j0, it = 0; jj <= j1; ++jj, ++it) {
-    const int st = it % STAGES;
-    cp_async_wait<STAGES - 1>();  // this thread's chunks of block jj
-    const bf16* ks = ring + (size_t)st * 2 * slab;
-    for (int r0 = 0; r0 < bs; r0 += 16) {
-      // every lane runs the shuffles; rows past bs weigh nothing
-      const int r = r0 + rg;
-      const bool in = r < bs;
-      float kf[8], vf[8];
-      const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-      bf16x8_to_f32(in ? *reinterpret_cast<const uint4*>(ks + r * D + c * 8)
-                       : zero, kf);
-      bf16x8_to_f32(in ? *reinterpret_cast<const uint4*>(ks + slab + r * D +
-                                                         c * 8)
-                       : zero, vf);
-      const int kpos = jj * bs + r;
-      const bool valid =
-          in && kpos <= p && (window <= 0 || kpos > p - window);
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float sc = 0.f;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) sc = fmaf(qf[g][i], kf[i], sc);
-        sc += __shfl_xor_sync(0xffffffffu, sc, 1);
-        sc += __shfl_xor_sync(0xffffffffu, sc, 2);
-        sc += __shfl_xor_sync(0xffffffffu, sc, 4);
-        if (!valid) continue;  // uniform over the 8-lane group
-        sc -= sl2[g] * (float)(p - kpos);
-        // one ex2 a key: the larger of the running max and the score
-        // weighs 1, the other 2^-(their distance); from m = -inf the
-        // correction is 0
-        const float diff = sc - m[g];
-        const float e = exp2_ftz(-fabsf(diff));
-        const bool up = diff > 0.f;
-        const float corr = up ? e : 1.f, pr = up ? 1.f : e;
-        m[g] = up ? sc : m[g];
-        l[g] = fmaf(l[g], corr, pr);
-        const float pv = round_to<bf16>(pr);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) acc[g][i] = fmaf(acc[g][i], corr,
-                                                     pv * vf[i]);
-      }
+  const int passes = (rows + ROWS - 1) / ROWS;
+  for (int t = 0; t < passes; ++t) {
+    const int st = t % STAGES;
+    cp_async_wait<STAGES - 1>();  // this thread's chunks of pass t
+    // every lane runs the shuffles; rows past the run weigh nothing
+    const int i = t * ROWS + rg;
+    const bool in = i < rows;
+    const bf16* kr = ring + st * Lay::STAGE + rg * D + c * 8;
+    uint4 ku = make_uint4(0u, 0u, 0u, 0u), vu = ku;
+    if (in) {
+      ku = *reinterpret_cast<const uint4*>(kr);
+      vu = *reinterpret_cast<const uint4*>(kr + ROWS * D);
     }
-    issue(jj + STAGES, st);  // refill the stage this thread just read
+    float kf[8], vf[8];
+    bf16x8_to_f32(ku, kf);
+    bf16x8_to_f32(vu, vf);
+    const int kpos = j0 * bs + i;
+    const bool valid =
+        in && kpos <= p && (window <= 0 || kpos > p - window);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float sc = 0.f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sc = fmaf(qf[g][e], kf[e], sc);
+#pragma unroll
+      for (int o = 1; o < LANES; o *= 2)
+        sc += __shfl_xor_sync(0xffffffffu, sc, o);
+      if (!valid) continue;  // uniform over the row's lanes
+      sc -= sl2[g] * (float)(p - kpos);
+      // one ex2 a key: the larger of the running max and the score
+      // weighs 1, the other 2^-(their distance); from m = -inf the
+      // correction is 0
+      const float diff = sc - m[g];
+      const float e = exp2_ftz(-fabsf(diff));
+      const bool up = diff > 0.f;
+      const float corr = up ? e : 1.f, pr = up ? 1.f : e;
+      m[g] = up ? sc : m[g];
+      l[g] = fmaf(l[g], corr, pr);
+      const float pv = round_to<bf16>(pr);
+#pragma unroll
+      for (int x = 0; x < 8; ++x)
+        acc[g][x] = fmaf(acc[g][x], corr, pv * vf[x]);
+    }
+    issue(t + STAGES, st);  // refill the stage this thread just read
   }
   cp_async_wait<0>();
 
-  // merge the 4 groups of each warp (lanes ^8, ^16), then the 4 warps
+  // merge the row groups of each warp (lanes ^LANES .. ^16), then the
+  // warps
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int o = 8; o <= 16; o *= 2) {
+    for (int o = LANES; o < 32; o *= 2) {
       const float mo = __shfl_xor_sync(0xffffffffu, m[g], o);
       const float lo = __shfl_xor_sync(0xffffffffu, l[g], o);
       const float mj = fmaxf(m[g], mo);
       const float wa = weight(m[g], mj), wb = weight(mo, mj);
       l[g] = l[g] * wa + lo * wb;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float ao = __shfl_xor_sync(0xffffffffu, acc[g][i], o);
-        acc[g][i] = acc[g][i] * wa + ao * wb;
+      for (int x = 0; x < 8; ++x) {
+        const float ao = __shfl_xor_sync(0xffffffffu, acc[g][x], o);
+        acc[g][x] = acc[g][x] * wa + ao * wb;
       }
       m[g] = mj;
     }
-  if (lane < 8) {
+  if (lane < LANES) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       float* rec = part + (warp * G + g) * REC;
@@ -354,7 +402,7 @@ __global__ void __launch_bounds__(THREADS)
         rec[1] = l[g];
       }
 #pragma unroll
-      for (int i = 0; i < 8; ++i) rec[2 + c * 8 + i] = acc[g][i];
+      for (int x = 0; x < 8; ++x) rec[2 + c * 8 + x] = acc[g][x];
     }
   }
   __syncthreads();
@@ -362,10 +410,10 @@ __global__ void __launch_bounds__(THREADS)
     const int g = i / D, d = i % D;
     float mj = -INFINITY;
 #pragma unroll
-    for (int w = 0; w < 4; ++w) mj = fmaxf(mj, part[(w * G + g) * REC]);
+    for (int w = 0; w < WARPS; ++w) mj = fmaxf(mj, part[(w * G + g) * REC]);
     float ls = 0.f, a = 0.f;
 #pragma unroll
-    for (int w = 0; w < 4; ++w) {
+    for (int w = 0; w < WARPS; ++w) {
       const float* rec = part + (w * G + g) * REC;
       const float wt = weight(rec[0], mj);
       ls += rec[1] * wt;
@@ -385,43 +433,53 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // One warp per (row, query head): the live splits' records in index
-// order -> the output.
+// order -> the output; D / 32 columns a lane, or the first D lanes at d
+// 16.
+template <int D>
 __global__ void __launch_bounds__(128)
     paged_merge_kernel(const float* __restrict__ ws,
                        const int* __restrict__ pos, bf16* __restrict__ out,
                        int B, int H, int bs, int MB, int L, int nsplit,
                        int window) {
+  constexpr int REC = Layout<D>::REC, PER = D >= 32 ? D / 32 : 1;
   const int w = (blockIdx.x * 128 + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
   if (w >= B * H) return;
+  const bool on = lane < D;
   int j_lo, j_hi;
   live_blocks(pos[w / H], window, bs, MB, j_lo, j_hi);
   const float* recs = ws + (size_t)w * nsplit * REC;
   const int s_lo = j_lo / L, s_hi = j_lo > j_hi ? s_lo - 1 : j_hi / L;
   float mj = -INFINITY;
   for (int s = s_lo; s <= s_hi; ++s) mj = fmaxf(mj, recs[s * REC]);
-  float ls = 0.f, a0 = 0.f, a1 = 0.f;
+  float ls = 0.f, a[PER];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) a[k] = 0.f;
   for (int s = s_lo; s <= s_hi; ++s) {
     const float* rec = recs + s * REC;
     const float wt = weight(rec[0], mj);
     ls += rec[1] * wt;
-    a0 += rec[2 + lane] * wt;
-    a1 += rec[2 + 32 + lane] * wt;
+#pragma unroll
+    for (int k = 0; k < PER; ++k)
+      if (on) a[k] += rec[2 + 32 * k + lane] * wt;
   }
   const float denom = fmaxf(ls, 1e-30f);
-  out[(size_t)w * D + lane] = __float2bfloat16(a0 / denom);
-  out[(size_t)w * D + 32 + lane] = __float2bfloat16(a1 / denom);
+  if (on) {
+#pragma unroll
+    for (int k = 0; k < PER; ++k)
+      out[(size_t)w * D + 32 * k + lane] = __float2bfloat16(a[k] / denom);
+  }
 }
 
-template <int G>
-cudaError_t launch_g(const void* q, const void* kpool, const void* vpool,
-                     const int* tables, const int* pos, const float* slopes,
-                     void* out, float* ws, int B, int H, int KVH, int bs,
-                     int MB, int L, int window, float scale,
-                     cudaStream_t stream) {
+template <int D, int G>
+cudaError_t launch_dg(const void* q, const void* kpool, const void* vpool,
+                      const int* tables, const int* pos,
+                      const float* slopes, void* out, float* ws, int B,
+                      int H, int KVH, int bs, int MB, int L, int window,
+                      float scale, cudaStream_t stream) {
   const int nsplit = (MB + L - 1) / L;
-  const size_t smem = smem_bytes(G, bs);
-  auto kernel = paged_split_kernel<G>;
+  const size_t smem = smem_bytes<D>(G, L);
+  auto kernel = paged_split_kernel<D, G>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(nsplit, KVH, B), THREADS, smem, stream>>>(
@@ -431,40 +489,48 @@ cudaError_t launch_g(const void* q, const void* kpool, const void* vpool,
       scale * kLog2e);
   err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return err;
-  paged_merge_kernel<<<(B * H + 3) / 4, 128, 0, stream>>>(
+  paged_merge_kernel<D><<<(B * H + 3) / 4, 128, 0, stream>>>(
       ws, pos, static_cast<bf16*>(out), B, H, bs, MB, L, nsplit, window);
   return cudaGetLastError();
 }
 
-// Whether the split body takes this call: bf16 rows of 64, a group
-// size it is instantiated for, 16-byte aligned operands, and a
-// workspace whenever there is more than one split.
-bool takes(int H, int KVH, int D_, int MB, int L, const void* q,
+// Whether the split body can take this call (the wrapper's
+// `paged_body` mirrors it): bf16 rows at a head dim and a group size it
+// is instantiated for, 16-byte aligned operands, and a workspace
+// whenever there is more than one split.
+bool takes(int H, int KVH, int D, int MB, int L, const void* q,
            const void* kpool, const void* vpool, const void* ws) {
   const int G = H / KVH;
   const uintptr_t bits = reinterpret_cast<uintptr_t>(q) |
                          reinterpret_cast<uintptr_t>(kpool) |
                          reinterpret_cast<uintptr_t>(vpool);
-  return D_ == D && (G == 1 || G == 2 || G == 4) && L > 0 &&
-         (bits & 15) == 0 && (ws != nullptr || L >= MB);
+  return (D == 16 || D == 32 || D == 64 || D == 128) &&
+         (G == 1 || G == 2 || G == 4) && L > 0 && (bits & 15) == 0 &&
+         (ws != nullptr || L >= MB);
 }
 
 cudaError_t launch(const void* q, const void* kpool, const void* vpool,
                    const int* tables, const int* pos, const float* slopes,
                    void* out, float* ws, int B, int H, int KVH, int bs,
-                   int MB, int L, int window, float scale,
+                   int D, int MB, int L, int window, float scale,
                    cudaStream_t stream) {
-  switch (H / KVH) {
-    case 1:
-      return launch_g<1>(q, kpool, vpool, tables, pos, slopes, out, ws, B,
-                         H, KVH, bs, MB, L, window, scale, stream);
-    case 2:
-      return launch_g<2>(q, kpool, vpool, tables, pos, slopes, out, ws, B,
-                         H, KVH, bs, MB, L, window, scale, stream);
-    default:
-      return launch_g<4>(q, kpool, vpool, tables, pos, slopes, out, ws, B,
-                         H, KVH, bs, MB, L, window, scale, stream);
-  }
+  return with_head_dim(D, [&](auto d) {
+    constexpr int Dc = decltype(d)::value;
+    switch (H / KVH) {
+      case 1:
+        return launch_dg<Dc, 1>(q, kpool, vpool, tables, pos, slopes, out,
+                                ws, B, H, KVH, bs, MB, L, window, scale,
+                                stream);
+      case 2:
+        return launch_dg<Dc, 2>(q, kpool, vpool, tables, pos, slopes, out,
+                                ws, B, H, KVH, bs, MB, L, window, scale,
+                                stream);
+      default:
+        return launch_dg<Dc, 4>(q, kpool, vpool, tables, pos, slopes, out,
+                                ws, B, H, KVH, bs, MB, L, window, scale,
+                                stream);
+    }
+  });
 }
 
 }  // namespace split
@@ -486,22 +552,26 @@ cudaError_t launch(const void* q, const void* kpool, const void* vpool,
   return cudaGetLastError();
 }
 
+
 }  // namespace
 
 // q (B, H, D); k_pool/v_pool (NB, KVH, bs, D); out (B, H, D), all
 // contiguous and of one type (is_bf16 ? bf16 : f32); tables (B, MB) and
 // pos (B,) int32; slopes (H,) f32 or null. window <= 0 means no sliding
 // window. Every table entry a row reaches (j <= pos / bs) must be a valid
-// block id. The bf16 split body (see the note at the top) runs splits of
-// `split_blocks` table entries and, with more than one split, needs
-// `workspace`: B * H * ceil(MB / split_blocks) * (D + 2) floats; other
-// calls ignore both. Returns cudaGetLastError() after the last launch.
+// block id. `body` is the wrapper's choice (see the note at the top):
+// 1 the split body, which runs splits of `split_blocks` table entries
+// and, with more than one split, needs `workspace`: B * H *
+// ceil(MB / split_blocks) * (D + 2) floats; 0 the general body, which
+// ignores both. A call the chosen body cannot take returns
+// cudaErrorInvalidValue and launches nothing. Returns cudaGetLastError()
+// after the last launch.
 extern "C" int etpu_paged_decode(const void* q, const void* kpool,
                                  const void* vpool, const void* tables,
                                  const void* pos, const void* slopes,
                                  void* out, int B, int H, int KVH, int bs,
                                  int D, int MB, int window, float scale,
-                                 int is_bf16, void* workspace,
+                                 int is_bf16, int body, void* workspace,
                                  int split_blocks, void* stream) {
   if (B == 0) return cudaSuccess;
   if (KVH <= 0 || H % KVH || bs <= 0 || MB <= 0) return cudaErrorInvalidValue;
@@ -510,10 +580,14 @@ extern "C" int etpu_paged_decode(const void* q, const void* kpool,
   auto* ps = static_cast<const int*>(pos);
   auto* sl = static_cast<const float*>(slopes);
   auto* ws = static_cast<float*>(workspace);
-  if (is_bf16 && split::takes(H, KVH, D, MB, split_blocks, q, kpool, vpool,
-                              ws))
+  if (body == 1) {
+    if (!is_bf16 || !split::takes(H, KVH, D, MB, split_blocks, q, kpool,
+                                  vpool, ws))
+      return cudaErrorInvalidValue;
     return split::launch(q, kpool, vpool, t, ps, sl, out, ws, B, H, KVH, bs,
-                         MB, split_blocks, window, scale, s);
+                         D, MB, split_blocks, window, scale, s);
+  }
+  if (body != 0) return cudaErrorInvalidValue;
   if (is_bf16)
     return launch<__nv_bfloat16>(q, kpool, vpool, t, ps, sl, out, B, H, KVH,
                                  bs, D, MB, window, scale, s);

@@ -8,7 +8,12 @@ block pool through per-row block tables, with no gathered copy.
 
 On CPU tensors the wrapper computes the plain version
 :func:`paged_decode_attention_plain`; on CUDA tensors it launches the
-kernel or raises.
+kernel or raises. The kernel has two bodies, and the wrapper chooses
+(:func:`paged_body`): the split-K body for bf16 at head dims 16, 32, 64
+and 128 with GQA groups of 1, 2 or 4, the general body for the rest (f32
+at any shape, bf16 at other head dims or groups). A bf16 call of the
+split body's shapes that it cannot take raises: nothing drops quietly to
+the general body.
 """
 import math
 from typing import Optional, Sequence, Union
@@ -19,9 +24,17 @@ from . import _kernels
 from .attention import NEG_INF, einsum
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_plain",
-           "paged_attention_gathered", "split_blocks"]
+           "paged_attention_gathered", "split_blocks", "paged_body",
+           "SPLIT_HEAD_DIMS", "SPLIT_GROUPS"]
 
 Slopes = Union[None, Sequence[float], torch.Tensor]
+
+# the shapes the bf16 split body is instantiated for (csrc/paged_decode.cu
+# `split::takes`)
+SPLIT_HEAD_DIMS = (16, 32, 64, 128)
+SPLIT_GROUPS = (1, 2, 4)
+# the `body` argument of the C entry point
+_BODY_IDS = {"general": 0, "split": 1}
 
 
 def _slopes_tensor(alibi_slopes: Slopes, h: int,
@@ -39,13 +52,33 @@ def split_blocks(b: int, kvh: int, max_blocks: int, block_size: int) -> int:
     splits): at least 64 positions a split, and at most as many splits
     as put about 2048 CTAs on the card when every row is full, so the
     serving shape (B 8, 16 kv heads, 64 blocks of 16) gets 16 splits of
-    4 blocks and one request alone still spreads over 256 CTAs. From the
-    shape alone: reading ``pos`` back to the host would cost more than
-    the kernel."""
+    4 blocks and one request alone still spreads over 256 CTAs. At
+    Mistral-7B's 8 kv heads the same 16 splits of 4 make 1,024 CTAs; at
+    D 128 each reads 32 KB of K/V, all of it in flight at once. From the
+    shape alone (not the head dim: a split is 64 positions at every D):
+    reading ``pos`` back to the host would cost more than the kernel."""
     min_blocks = min(max(1, 64 // block_size), max_blocks)
     splits = min(-(-max_blocks // min_blocks),
                  max(1, -(-2048 // (b * kvh))))
     return max(-(-max_blocks // splits), min_blocks)
+
+
+def paged_body(dtype: torch.dtype, head_dim: int, groups: int,
+               aligned: bool = True) -> str:
+    """Which body of the CUDA kernel runs a call: ``"split"`` for bf16 at
+    a head dim of :data:`SPLIT_HEAD_DIMS` with ``groups`` (query heads
+    per kv head) in :data:`SPLIT_GROUPS`, ``"general"`` for any other
+    dtype or shape. Raises ``ValueError`` for a call of the split body's
+    shapes that it cannot take: an operand not 16-byte aligned
+    (``aligned`` False). The Python mirror of ``split::takes`` in
+    ``csrc/paged_decode.cu``, which refuses such a call too."""
+    if (dtype != torch.bfloat16 or head_dim not in SPLIT_HEAD_DIMS
+            or groups not in SPLIT_GROUPS):
+        return "general"
+    if not aligned:
+        raise ValueError("the bf16 paged split body needs q, k_pool and "
+                         "v_pool 16-byte aligned")
+    return "split"
 
 
 def paged_attention_gathered(q: torch.Tensor, k_pool: torch.Tensor,
@@ -118,7 +151,9 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         ``-slope * (pos - kpos)`` ALiBi bias.
     :returns: ``(B, num_heads, head_dim)`` in ``q.dtype``.
 
-    Counts each kernel launch in ``paged_decode_attention.launches``."""
+    Counts each kernel launch in ``paged_decode_attention.launches``,
+    and those that took the split body (:func:`paged_body`) also in
+    ``paged_decode_attention.split_launches``."""
     if q.ndim != 3 or k_pool.ndim != 4 or v_pool.shape != k_pool.shape:
         raise ValueError(f"expected q (B, H, D) and pools (NB, KVH, bs, "
                          f"D), got {tuple(q.shape)}, {tuple(k_pool.shape)},"
@@ -149,10 +184,11 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     slopes = _slopes_tensor(alibi_slopes, h, q.device)
     out = torch.empty_like(q)
     mb = tables.shape[1]
-    is_bf16 = q.dtype == torch.bfloat16
-    # the bf16 body's split length and its per-split (m, l, acc) records
-    per = split_blocks(b, kvh, mb, bs) if is_bf16 else 0
-    splits = -(-mb // per) if per else 1
+    per = split_blocks(b, kvh, mb, bs)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k_pool, v_pool))
+    body = paged_body(q.dtype, d, h // kvh, aligned)
+    # the split body's per-split (m, l, acc) records
+    splits = -(-mb // per) if body == "split" else 1
     ws = (torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
                       device=q.device) if splits > 1 else None)
     lib = _kernels.library()
@@ -161,12 +197,15 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         tables.data_ptr(), pos.data_ptr(),
         None if slopes is None else slopes.data_ptr(), out.data_ptr(),
         b, h, kvh, bs, d, mb, 0 if window is None else int(window),
-        1.0 / math.sqrt(d), int(is_bf16),
-        None if ws is None else ws.data_ptr(), per,
+        1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16),
+        _BODY_IDS[body], None if ws is None else ws.data_ptr(), per,
         torch.cuda.current_stream(q.device).cuda_stream)
-    _kernels.check(err, "paged decode")
+    _kernels.check(err, f"paged decode ({body} body)")
     paged_decode_attention.launches += 1
+    if body == "split":
+        paged_decode_attention.split_launches += 1
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.split_launches = 0

@@ -9,7 +9,9 @@ The kernels are built from ``elephas_tpu_torch/csrc`` at first use.
 The flash kernels are held at head dim 64 over every case and at head
 dims 16 and 32 (the repo's other configurations) and 128 (most published
 LMs) over the GQA, window, ragged and offset cases; the paged kernel at
-64 and, on its general body, at 128 with groups of 4. The Keras layers, optimizers and schedules
+head dims 16, 32, 64 and 128 and block sizes 8 and 16 over every case
+(bf16 on its split body with groups of 1, 2 and 4, f32 and 8-way groups
+on its general body). The Keras layers, optimizers and schedules
 ported with Conv2D (no kernel of the repo's: cuDNN, cuBLAS and torch
 loops) are held against the CPU, TF32 off: layers within 1e-4 of each
 array's scale, optimizers within 1e-5 of scale, a BatchNormalization fit within
@@ -298,10 +300,10 @@ def test_flash_dq_kernel_is_bit_reproducible_at_head_dim_128(cuda, case):
 
 
 _PAGED_CASES = {
-    # name: (H, KVH, max_blocks, positions, window, alibi); block 16,
-    # head_dim 64; a row at pos 0 is an inactive slot (a table of
-    # zeros). The bf16 body splits these tables into runs of 4 entries
-    # (64 positions).
+    # name: (H, KVH, max_blocks, positions, window, alibi); max_blocks at
+    # block 16 (twice as many at block 8); a row at pos 0 is an inactive
+    # slot (a table of zeros). The bf16 split body takes these tables in
+    # runs of 64 positions (4 entries of 16, 8 of 8).
     "base": (8, 8, 8, [0, 17, 127, 0], None, False),
     "gqa": (8, 2, 8, [0, 17, 127, 0], None, False),
     "window": (8, 8, 8, [0, 17, 127, 0], 21, False),
@@ -316,15 +318,16 @@ _PAGED_CASES = {
     "long_row": (8, 8, 64, [1023, 0], None, False),
     "gqa2": (8, 4, 10, [159, 70, 3, 0], None, True),
     "gqa4": (16, 4, 10, [159, 70, 3, 0], 40, False),
-    # 8-way groups take the generic body
+    # 8-way groups take the general body
     "gqa8": (16, 2, 10, [159, 70, 3, 0], None, False),
 }
+PAGED_HEAD_DIMS = (16, 32, 64, 128)
 
 
-def _paged_inputs(case, dtype, device, d=64):
+def _paged_inputs(case, dtype, device, d=64, bs=16):
     h, kvh, mb, positions, window, alibi = _PAGED_CASES[case]
     from elephas_tpu_torch.models.transformer import _alibi_slope_list
-    b, bs = len(positions), 16
+    b, mb = len(positions), mb * 16 // bs
     nb = b * mb + 1
     rng = np.random.default_rng(1)
     tables = torch.as_tensor(
@@ -342,16 +345,25 @@ def _paged_inputs(case, dtype, device, d=64):
     return q, kp, vp, tables, pos, window, slopes
 
 
+@pytest.mark.parametrize("bs", [8, 16])
+@pytest.mark.parametrize("d", PAGED_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", sorted(_PAGED_CASES))
-def test_paged_kernel_matches_plain(cuda, case, dtype):
+def test_paged_kernel_matches_plain(cuda, case, dtype, d, bs):
+    """Every case at every head dim and both block sizes: bf16 with
+    groups of 1, 2 or 4 on the split body (``split_launches`` rises by
+    one), f32 and 8-way groups on the general body (it does not)."""
     from elephas_tpu_torch.ops.paged_attention import (
-        paged_decode_attention, paged_decode_attention_plain)
+        SPLIT_GROUPS, paged_decode_attention, paged_decode_attention_plain)
     q, kp, vp, tables, pos, window, slopes = _paged_inputs(case, dtype,
-                                                           cuda)
+                                                           cuda, d, bs)
+    split = (dtype == torch.bfloat16
+             and q.shape[1] // kp.shape[1] in SPLIT_GROUPS)
     before = paged_decode_attention.launches
+    split_before = paged_decode_attention.split_launches
     out = paged_decode_attention(q, kp, vp, tables, pos, window, slopes)
     assert paged_decode_attention.launches == before + 1
+    assert paged_decode_attention.split_launches == split_before + split
     ref = paged_decode_attention_plain(q.float(), kp.float(), vp.float(),
                                        tables, pos, window, slopes)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
@@ -359,12 +371,29 @@ def test_paged_kernel_matches_plain(cuda, case, dtype):
     torch.testing.assert_close(out.float(), ref, atol=tol, rtol=0)
 
 
+def test_paged_split_body_refuses_unaligned_operands(cuda):
+    """A bf16 call of the split body's shapes with q off the 16-byte grid
+    raises, launching nothing: no quiet fall-back to the general body."""
+    from elephas_tpu_torch.ops.paged_attention import paged_decode_attention
+    q, kp, vp, tables, pos, window, slopes = _paged_inputs(
+        "gqa4", torch.bfloat16, cuda, 128)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
+    shifted = buf[1:].view(q.shape).copy_(q)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    before = (paged_decode_attention.launches,
+              paged_decode_attention.split_launches)
+    with pytest.raises(ValueError, match="aligned"):
+        paged_decode_attention(shifted, kp, vp, tables, pos, window, slopes)
+    assert (paged_decode_attention.launches,
+            paged_decode_attention.split_launches) == before
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", ["gqa4", "long_row", "window"])
 def test_paged_kernel_at_head_dim_128_matches_plain(cuda, case, dtype):
-    """The paged kernel at head dim 128 (its general body; Mistral-7B's
-    groups of 4 in ``gqa4``) against its plain version, with the head-dim
-    64 tolerances."""
+    """The paged kernel at head dim 128 (bf16 on its split body, f32 on
+    the general one; Mistral-7B's groups of 4 in ``gqa4``) against its
+    plain version, with the head-dim 64 tolerances."""
     from elephas_tpu_torch.ops.paged_attention import (
         paged_decode_attention, paged_decode_attention_plain)
     q, kp, vp, tables, pos, window, slopes = _paged_inputs(case, dtype,
@@ -378,12 +407,13 @@ def test_paged_kernel_at_head_dim_128_matches_plain(cuda, case, dtype):
     torch.testing.assert_close(out.float(), ref, atol=tol, rtol=0)
 
 
+@pytest.mark.parametrize("d", PAGED_HEAD_DIMS)
 @pytest.mark.parametrize("case", ["long_row", "gqa4", "window_empty_split"])
-def test_paged_kernel_is_bit_reproducible(cuda, case):
+def test_paged_kernel_is_bit_reproducible(cuda, case, d):
     """No atomics, splits merged in index order: two bf16 launches on the
-    same inputs give the same bits."""
+    same inputs give the same bits, at every head dim."""
     from elephas_tpu_torch.ops.paged_attention import paged_decode_attention
-    args = _paged_inputs(case, torch.bfloat16, cuda)
+    args = _paged_inputs(case, torch.bfloat16, cuda, d)
     first = paged_decode_attention(*args)
     second = paged_decode_attention(*args)
     assert torch.equal(first.view(torch.int16), second.view(torch.int16))

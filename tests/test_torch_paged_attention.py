@@ -16,7 +16,8 @@ from elephas_tpu.models.transformer import _alibi_slope_list
 from elephas_tpu.ops.paged_attention import \
     paged_decode_attention as jax_paged
 from elephas_tpu_torch.ops.paged_attention import (
-    paged_decode_attention, paged_decode_attention_plain, split_blocks)
+    SPLIT_GROUPS, paged_body, paged_decode_attention,
+    paged_decode_attention_plain, split_blocks)
 
 _CASES = {
     "base": dict(h=4, kvh=4, window=None, alibi=False),
@@ -78,8 +79,10 @@ def test_cpu_wrapper_is_the_plain_version_and_launches_nothing():
     q, kp, vp, ids, pos = (torch.from_numpy(a)
                            for a in _inputs(3, 2, 4, 4))
     before = paged_decode_attention.launches
+    split_before = paged_decode_attention.split_launches
     out = paged_decode_attention(q, kp, vp, ids, pos, window=5)
     assert paged_decode_attention.launches == before
+    assert paged_decode_attention.split_launches == split_before
     torch.testing.assert_close(
         out, paged_decode_attention_plain(q, kp, vp, ids, pos, window=5),
         rtol=0, atol=0)
@@ -190,6 +193,68 @@ def test_split_merge_matches_jax_kernel_and_plain(case):
     np.testing.assert_allclose(got, out.numpy(), rtol=2e-5, atol=2e-5)
 
 
+# name: (split length, window, ALiBi, positions); the table is 8 blocks of
+# 8, so positions reach 63
+_DIM_CASES = {
+    16: (3, None, True, [63, 8, 0]),
+    32: (2, 13, False, [58, 23, 0]),
+    128: (3, 9, True, [60, 40, 0]),
+}
+
+
+@pytest.mark.parametrize("groups", SPLIT_GROUPS)
+@pytest.mark.parametrize("d", sorted(_DIM_CASES))
+def test_split_merge_at_head_dims_and_groups(d, groups):
+    """The split body's arithmetic at its other head dims (16, 32, 128)
+    and every group size it takes (1, 2, 4), each with a window or ALiBi
+    and an inactive slot, against the JAX kernel (interpret mode) and the
+    plain version at rtol = atol = 2e-5."""
+    per, window, alibi, positions = _DIM_CASES[d]
+    h = 4
+    q, kp, vp, ids, pos = _inputs(17 + d, 3, h, h // groups, d=d, mb=8,
+                                  nb=30)
+    pos[:] = positions
+    ids[pos == 0] = 0              # the inactive slot: the scratch block
+    slopes = _alibi_slope_list(h) if alibi else None
+    got = _split_merge(q, kp, vp, ids, pos, per, window, slopes)
+    assert np.isfinite(got).all()
+    ref, out = _both(q, kp, vp, ids, pos, window, slopes)
+    np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got, out.numpy(), rtol=2e-5, atol=2e-5)
+
+
+_BODY_CASES = {
+    # name: ((dtype, head dim, groups, aligned), body or None for a
+    # raise)
+    "bf16_d128_g4": ((torch.bfloat16, 128, 4, True), "split"),
+    "bf16_d64_g1": ((torch.bfloat16, 64, 1, True), "split"),
+    "bf16_d32_g2": ((torch.bfloat16, 32, 2, True), "split"),
+    "bf16_d16_g1": ((torch.bfloat16, 16, 1, True), "split"),
+    "f32_d64": ((torch.float32, 64, 1, True), "general"),
+    "f32_d128_unaligned": ((torch.float32, 128, 4, False), "general"),
+    "bf16_g8": ((torch.bfloat16, 64, 8, True), "general"),
+    "bf16_g3": ((torch.bfloat16, 64, 3, True), "general"),
+    "bf16_d96": ((torch.bfloat16, 96, 1, True), "general"),
+    "bf16_d8_unaligned": ((torch.bfloat16, 8, 1, False), "general"),
+    "bf16_unaligned": ((torch.bfloat16, 128, 4, False), None),
+    "bf16_d16_unaligned": ((torch.bfloat16, 16, 2, False), None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_BODY_CASES))
+def test_paged_body_choice(case):
+    """bf16 at head dims 16-128 with groups of 1, 2 or 4 takes the split
+    body; other dtypes and shapes the general one; a split-body call the
+    body cannot take (unaligned) raises instead of
+    falling back."""
+    args, body = _BODY_CASES[case]
+    if body is None:
+        with pytest.raises(ValueError):
+            paged_body(*args)
+    else:
+        assert paged_body(*args) == body
+
+
 def test_split_length_comes_from_the_shape():
     """The serving shape (B 8, 16 kv heads, 64 blocks of 16) runs 16
     splits of 4 blocks; one request alone the same 16 splits (256 CTAs);
@@ -198,8 +263,16 @@ def test_split_length_comes_from_the_shape():
     assert split_blocks(8, 16, 64, 16) == 4
     assert split_blocks(1, 16, 64, 16) == 4
     assert split_blocks(64, 16, 64, 16) == 32
+    # Mistral-7B's 8 kv heads (D 128, groups of 4) at MB 64: the same 16
+    # splits of 4 blocks (1,024 CTAs at B 8), one request 16 splits (128
+    # CTAs), blocks of 8 splits of 8 entries (still 64 positions)
+    assert split_blocks(8, 8, 64, 16) == 4
+    assert split_blocks(1, 8, 64, 16) == 4
+    assert split_blocks(8, 8, 64, 8) == 8
+    assert split_blocks(32, 8, 64, 16) == 8
     for b, kvh, mb, bs in [(1, 1, 1, 16), (3, 2, 10, 16), (2, 4, 7, 8),
-                           (512, 16, 64, 16), (1, 1, 300, 1)]:
+                           (512, 16, 64, 16), (1, 1, 300, 1),
+                           (8, 8, 64, 16), (16, 8, 64, 8)]:
         per = split_blocks(b, kvh, mb, bs)
         assert 1 <= per <= mb
         assert per * bs >= min(64, mb * bs)
