@@ -4,16 +4,20 @@
 
 Run from the repository root on a machine with a CUDA device and the
 CUDA toolkit. It builds the port's hand-written kernels from
-``elephas_tpu_torch/csrc`` (and fails if any spills registers), holds
-each kernel against its plain PyTorch version at the shapes the main
-paths give it (the flash kernels at head dims 16, 32, 64 and 128, f32
-and bf16, and at the head-dim-32 and head-dim-128 paths' own shapes;
-the paged kernel at 16, 32, 64 and 128, the last at Mistral-7B's
-groups of 4, each bf16 call on its split-K body and each f32 call on
-its general body, as the wrapper's ``split_launches`` count shows),
-checks that two launches of the paged, dQ and dK/dV kernels give the
-same bits, times one request's paged decode (B 1, pos 1000) on a line
-of its own, then drives the port's
+``elephas_tpu_torch/csrc`` (and fails if any spills registers, or if
+the head-dim-128 forward and dK/dV bodies do not launch at 168
+registers with their producer warpgroup at 24 and consumers at 240, as
+ptxas and the SASS's ``setmaxnreg`` show), holds each kernel against
+its plain PyTorch version at the shapes the main paths give it (the
+flash kernels at head dims 16, 32, 64 and 128, f32 and bf16, and at
+the head-dim-32 and head-dim-128 paths' own shapes, at 128 also at the
+edges of its 128-key tiles; the paged kernel at 16, 32, 64 and 128, the
+last at Mistral-7B's groups of 4, each bf16 call on its split-K body
+and each f32 call on its general body, as the wrapper's
+``split_launches`` count shows), checks that two launches of the
+paged, forward, dQ and dK/dV kernels give the same bits, times one
+request's paged decode (B 1, pos 1000) on a line of its own, then
+drives the port's
 entry points at the full width of the flagship LM config (vocab 32000,
 8 layers, 16 heads, d_model 1024, d_ff 4096; random weights from a
 seed): ``forward`` with the flash-attention kernel; the paged
@@ -100,6 +104,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -422,9 +427,34 @@ FLASH_CASES = {"main": (2, 16, 16, 1024, 1024, True, None, 0, 0),
 D32_CASES = {"long_context_windowed_lm": (4, 8, 2, 256, 256, True, 48, 0, 0),
              "tpumodel_fit": (16, 8, 8, 128, 128, True, None, 0, 0),
              "tpumodel_predict": (32, 8, 8, 128, 128, True, None, 0, 0)}
-# the case at d 128 only: the lm_d128 phase's training batch (Mistral-7B:
-# H 32 over KVH 8, window 4096; B 4 x S 1024)
-D128_CASES = {"lm_d128_fit": (4, 32, 8, 1024, 1024, True, 4096, 0, 0)}
+# the cases at d 128 only: the lm_d128 phase's training batch (Mistral-7B:
+# H 32 over KVH 8, window 4096; B 4 x S 1024), and the edges of the d 128
+# bodies' tiles (128 keys in the forward's K/V tiles and dK/dV's CTA, two
+# warpgroups of 64 rows): a key length one past a tile, a q tile whose
+# second warpgroup holds one row or none, a window edge inside a tile,
+# ring hops whose diagonal crosses a tile or leaves the first rows with
+# no key, GQA 8/1
+D128_CASES = {"lm_d128_fit": (4, 32, 8, 1024, 1024, True, 4096, 0, 0),
+              "sk_129": (2, 16, 16, 129, 129, True, None, 0, 0),
+              "sq_65": (2, 16, 4, 65, 300, True, None, 235, 0),
+              "sq_129": (2, 16, 16, 129, 129, True, None, 0, 0),
+              "window_129": (2, 16, 8, 300, 300, True, 129, 0, 0),
+              "hop_crossing": (2, 16, 16, 200, 200, True, None, 256, 128),
+              "hop_first_rows_dead": (2, 16, 16, 150, 150, True, None,
+                                      100, 164),
+              "gqa8": (2, 32, 4, 191, 191, True, None, 0, 0)}
+# the d 128 bodies of the forward and dK/dV kernels: the kernel (a
+# fragment of its mangled name), the object it is built into, and the
+# body as chip_smoke names it
+WIDE_BODIES = {
+    "flash_fwd": ("flash_fwd_pingpong_kernel", "flash_fwd.o",
+                  "persistent ping-pong: a producer warpgroup and two "
+                  "consumer warpgroups (384 threads, setmaxnreg) taking "
+                  "turns, 128-key K/V tiles in a 2-stage ring, one CTA "
+                  "per SM over pairs of q tiles"),
+    "flash_dkv": ("flash_dkv_wgmma_kernelILi128", "flash_bwd.o",
+                  "384 threads (setmaxnreg), 128 key rows a CTA, 64 a "
+                  "consumer warpgroup at the whole head dim")}
 # the case each head dim is timed at beside the training shape: d 32 at
 # its main path's (tpu_model_lm_d32's fit), d 128 at lm_d128's fit; d
 # 64's main path is the training shape; d 16 runs on no training path
@@ -467,6 +497,38 @@ def causal_bound(b, h, s, d, kvh=None, window=None):
     flops = 4 * b * h * d * causal_pairs(s, window)
     nbytes = (2 * b * h + 2 * b * kvh) * s * d * 2 + b * h * s * 4
     return (flops, nbytes, *bound(flops, nbytes))
+
+
+def wide_body_registers(report):
+    """Each d 128 body's registers, from the build: ptxas's count at
+    launch (``-Xptxas -v``) and the ``setmaxnreg`` values of its producer
+    and consumer warpgroups in its SASS (``cuobjdump -sass``)."""
+    from elephas_tpu_torch.ops import _kernels
+
+    launch, cur = {}, None
+    for ln in report.splitlines():
+        if "Compiling entry function" in ln:
+            cur = ln.split("'")[1]
+        elif cur and "Used" in ln and "registers" in ln:
+            for name, (frag, _, _) in WIDE_BODIES.items():
+                if frag in cur:
+                    launch[name] = int(ln.split("Used ")[1].split()[0])
+    out = {}
+    for name, (frag, obj, _) in WIDE_BODIES.items():
+        sass = subprocess.run(
+            [_kernels.cuda_tool("cuobjdump"), "-sass",
+             str(_kernels.BUILD_DIR / obj)], capture_output=True,
+            text=True, check=True, timeout=300).stdout
+        fn, regs = None, {"launch": launch.get(name)}
+        for ln in sass.splitlines():
+            if "Function :" in ln:
+                fn = ln.split(":", 1)[1].strip()
+            elif fn and frag in fn and "USETMAXREG" in ln:
+                count = int(re.findall(r"0x[0-9a-f]+",
+                                       ln.split(";")[0])[-1], 16)
+                regs["producer" if "DEALLOC" in ln else "consumers"] = count
+        out[name] = regs
+    return out
 
 
 def check_flash(flush):
@@ -555,6 +617,19 @@ def check_flash(flush):
                 q, k, v, causal=True, window=window), flush=flush)
         return out
 
+    # no atomics and no data-dependent order: two launches on the same
+    # bf16 operands give the same bits (at d 128 the ping-pong turns order
+    # the warpgroups' issue, not their arithmetic)
+    for (name, d), (q, k, v, window) in timed.items():
+        (o1, l1), (o2, l2) = (flash_forward(q, k, v, causal=True,
+                                            window=window)
+                              for _ in range(2))
+        require(torch.equal(o1.view(torch.int16), o2.view(torch.int16))
+                and torch.equal(l1, l2),
+                f"two flash_forward launches at d {d} ({name}) give "
+                f"bit-equal outputs")
+        del o1, l1, o2, l2
+
     q16, k16, v16, _ = timed["main", 64]
     b_m, h_m, s_m = q16.shape[:3]
     main = timing(q16, k16, v16, None, plain=True)
@@ -585,6 +660,7 @@ def check_flash(flush):
                    "device_tflops")},
                "by_head_dim": by_d}
     emit({"phase": "flash_kernel", "errors": errs, **results,
+          "bit_reproducible": True,
           "shape": {"B": b_m, "H": h_m, "S": s_m, "D": 64, "causal": True,
                     "dtype": "bfloat16"},
           "tolerance": {"o_f32": 2e-4, "lse_f32": 1e-4,
@@ -2832,9 +2908,14 @@ def main() -> int:
                  or "spill" in ln]
     spills = [ln for ln in resources if "spill" in ln
               and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+    wide = wide_body_registers(report)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": resources})
+          "ptxas": resources, "d128_bodies": wide})
     require(not spills, f"no kernel spills registers: {spills}")
+    require(all(r == {"launch": 168, "producer": 24, "consumers": 240}
+                for r in wide.values()),
+            f"the d 128 bodies launch at 168 registers, the producer "
+            f"drops to 24 and the consumers rise to 240: {wide}")
 
     # a buffer past the 50 MB L2, overwritten before each timed call
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
@@ -2960,6 +3041,9 @@ def main() -> int:
                     if k in t["at_training_shape"]}}
                    if "at_training_shape" in t else {})}
             for d, t in results["by_head_dim"].items()}
+        if name in WIDE_BODIES:
+            entry["by_head_dim"]["128"].update(
+                body=WIDE_BODIES[name][2], registers=wide[name])
     print(nvidia_smi(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

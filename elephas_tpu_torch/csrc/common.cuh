@@ -84,6 +84,31 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src,
   }
 }
 
+// The heads of a group (the head-dim-128 forward's work order): as many
+// as keep `bytes_per_head` of operands each within 16 MB of the 50 MB
+// L2, at least one.
+inline int l2_group(long long bytes_per_head, int heads) {
+  const long long fit =
+      (16ll << 20) / (bytes_per_head > 0 ? bytes_per_head : 1);
+  return static_cast<int>(fit < 1 ? 1 : fit < heads ? fit : heads);
+}
+
+// The current device's SM count, looked up once per device.
+inline cudaError_t multiprocessors(int* count) {
+  static int cached[64] = {0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (cached[dev] == 0) {
+    err = cudaDeviceGetAttribute(&cached[dev],
+                                 cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  *count = cached[dev];
+  return cudaSuccess;
+}
+
 // Opt a kernel into more than 48 KB of dynamic shared memory.
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {

@@ -45,17 +45,18 @@
 //   `ds.astype(q.dtype)`) and feed them as the register A operand of dV
 //   += P^T dO and dK += dS^T Q (m64nDk16, dO and Q MN-major from the
 //   ring).
-//   At D 128 a warpgroup owning 64 key rows would hold dK and dV at 64
-//   x 128 each, 128 f32 a thread before S^T and dP^T: past what a
-//   9-warp CTA gives without spilling. So there a CTA owns 64 key rows,
-//   and its two warpgroups split the head dim: both compute the same S^T
-//   and dP^T over the whole head dim (the same instructions on the same
-//   tiles, so the same bits), and warpgroup w accumulates dK and dV in
-//   columns 64w .. 64w + 63 only (dO's and Q's column block w, one
-//   m64n64k16 a k step), 64 f32 a thread. The S^T and dP^T products are
-//   done twice: 12*D flops a (q, k) pair where the split rows take 8*D.
-//   K and V (16 KB each) stay resident beside a 4-stage ring of 16 KB Q
-//   and dO tiles (162 KB).
+//   At D 128 dK and dV of a warpgroup's 64 key rows are 64 x 128 each,
+//   128 f32 a thread before S^T and dP^T (64) and the packed P^T and
+//   dS^T (32): past the 168 a thread that a 288- or 384-thread CTA gets.
+//   There the CTA is 12 warps: a producer warpgroup whose warps drop to
+//   24 registers (`setmaxnreg`; warp 8 loads, warp 9 watches the CTA,
+//   hopper.cuh `mbar_wait_spin`) and two consumer warpgroups that rise
+//   to 240, each owning its own 64 key rows at the whole head dim, so S^T
+//   and dP^T are computed once per key row: 8*D flops a (q, k) pair.
+//   K and V of the CTA's 128 rows (32 KB each) stay resident beside a
+//   4-stage ring of 16 KB Q and dO tiles (195 KB), each Q and dO tile
+//   streamed once per 128 key rows. ptxas: 168 registers at launch, no
+//   spill.
 // - dQ, bf16: the same shape turned q-major. One CTA per (batch*head,
 //   128-row q tile), the last q tiles (the most live K/V tiles under
 //   causal masking) scheduled first. The producer warp TMA-loads Q and
@@ -92,8 +93,7 @@
 // the second warpgroup and the ring's prefetch overlap them. At head_dim
 // 32 and 16 the products shrink with D while the elementwise step per
 // (q, k) pair does not, so it takes a larger share of each tile. At 128
-// both are bound by operations, and dK/dV does 1.5x the products' work
-// (the repeated S^T and dP^T above).
+// both are bound by operations.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -370,21 +370,21 @@ struct Args {
 namespace dkv {
 
 constexpr int QROWS = 64;           // query rows per ring stage
-constexpr int THREADS = 2 * 128 + 32;  // 2 consumer warpgroups + producer
+constexpr int KROWS = 128;          // key rows per CTA: 2 warpgroups x 64
 
 template <int D>
 struct Layout {
-  // at D 128 the warpgroups split the head dim over 64 key rows (see
-  // the note at the top); else each owns 64 of 128 key rows
-  static constexpr bool SPLIT_D = D == 128;
-  static constexpr int KROWS = SPLIT_D ? 64 : 128;  // key rows per CTA
-  static constexpr int STAGES = SPLIT_D ? 4 : 6;    // Q/dO tiles in flight
-  // K, V (16 KB each at D 64 and 128), the Q ring, the dO ring (8 KB
-  // tiles at D 64, 16 KB at 128), the lse/delta ring (64 + 64 f32 per
-  // stage), then the barriers: kvfull, full[STAGES], empty[STAGES];
-  // +1024 for alignment. 162 KB at D 128, 131 KB at D 64, 68 KB at D
-  // 32, 36 KB at D 16 (below D 128 the stage count stays, as in
-  // flash_fwd.cu); no setmaxnreg (see flash_fwd.cu)
+  // at D 128 a producer warpgroup and register reallocation (see the
+  // note at the top); else one producer warp
+  static constexpr bool WIDE = D == 128;
+  static constexpr int THREADS = WIDE ? kWideThreads : 2 * 128 + 32;
+  static constexpr int STAGES = WIDE ? 4 : 6;    // Q/dO tiles in flight
+  // K, V (32 KB each at D 128, 16 KB at 64), the Q ring, the dO ring (16
+  // KB tiles at D 128, 8 KB at 64), the lse/delta ring (64 + 64 f32 per
+  // stage), then the barriers: kvfull, full[STAGES], empty[STAGES],
+  // done (used at D 128); +1024 for alignment. 195 KB at D 128, 131 KB
+  // at D 64, 68 KB at D 32, 36 KB at D 16 (below D 128 the stage count
+  // stays, as in flash_fwd.cu)
   static constexpr uint32_t row = Rows<D>::bytes;
   static constexpr uint32_t atom = Rows<D>::atom;
   static constexpr uint32_t KV_TILE = KROWS * row, Q_TILE = QROWS * row;
@@ -392,11 +392,11 @@ struct Layout {
                             dout = q + STAGES * Q_TILE,
                             stats = dout + STAGES * Q_TILE,
                             bars = stats + STAGES * 2 * QROWS * 4;
-  static constexpr size_t bytes = bars + (1 + 2 * STAGES) * 8 + 1024;
+  static constexpr size_t bytes = bars + (2 + 2 * STAGES) * 8 + 1024;
 };
 
 template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(Layout<D>::THREADS, 1)
     flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
@@ -409,10 +409,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                            int window, float scale) {
   using L = Layout<D>;
   constexpr uint32_t KV_TILE = L::KV_TILE, Q_TILE = L::Q_TILE;
-  constexpr int KROWS = L::KROWS, STAGES = L::STAGES;
-  // the head-dim columns of dK and dV a warpgroup accumulates: all D, or
-  // one 64-column block at D 128
-  constexpr int DW = L::SPLIT_D ? 64 : D;
+  constexpr int STAGES = L::STAGES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align1024(smem_raw);
   uint8_t* Ks = sm + L::k;
@@ -423,6 +420,15 @@ __global__ void __launch_bounds__(THREADS, 1)
   uint64_t* kvfull = reinterpret_cast<uint64_t*>(sm + L::bars);
   uint64_t* full = kvfull + 1;
   uint64_t* empty = full + STAGES;
+  uint64_t* done = empty + STAGES;
+  // at D 128 the waits spin and warp 9 is the CTA's watchdog (hopper.cuh
+  // mbar_wait_spin); below it each wait has its own
+  auto wait = [](uint64_t* bar, uint32_t parity) {
+    if constexpr (L::WIDE)
+      mbar_wait_spin(bar, parity);
+    else
+      mbar_wait(bar, parity);
+  };
 
   // CTAs of the first k tiles (seen by the most q tiles under causal
   // masking) get the lowest block ids
@@ -437,73 +443,85 @@ __global__ void __launch_bounds__(THREADS, 1)
   if (threadIdx.x == 0) {
     mbar_init(kvfull, 1);
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 32);  // every producer lane (lse and delta)
+      mbar_init(&full[s], 32);  // every lane of warp 8 (lse and delta)
       mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
     }
+    if constexpr (L::WIDE)
+      mbar_init(done, 8);  // lane 0 of each consumer warp, at its end
     fence_barrier_init();
   }
   __syncthreads();
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (warp == 8) {
-    // ---- producer: K and V once; then, for each query head of the
-    // group and each live q tile, Q and dO by TMA and lse*log2(e) and
-    // delta by the warp's lanes (rows past Sq read 0: they are masked)
-    if (lane == 0) {
-      mbar_expect_tx(kvfull, 2 * KV_TILE);
-      tma_load_tile<D, KROWS>(Ks, &tk, kvfull, k0, bkv);
-      tma_load_tile<D, KROWS>(Vs, &tv, kvfull, k0, bkv);
+  // (at D 128 known to be uniform over the warp, so the warpgroup's
+  // descriptors take uniform registers; below it the body stays as it
+  // was)
+  const int warp = L::WIDE ? warp_index() : (int)threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (warp >= 8) {
+    // ---- producer: at D 128 every warp of the producer warpgroup gives
+    // its registers back first, and warp 8 works alone. K and V once;
+    // then, for each query head of the group and each live q tile, Q and
+    // dO by TMA and lse*log2(e) and delta by the warp's lanes (rows past
+    // Sq read 0: they are masked)
+    if constexpr (L::WIDE) {
+      setmaxnreg_dec<kProducerRegs>();
+      if (warp == 9) cta_watchdog(done);
     }
-    int s = 0;
-    uint32_t phase = 0;
-    for (int g = 0; g < grp; ++g) {
-      const int bh = qrow0 + g;
-      for (int qi = 0; qi < nq; ++qi) {
-        const int q0 = qi * QROWS;
-        if (!rows_meet(q0, min(q0 + QROWS, Sq) - 1, k0, k_last, q_offset,
-                       k_offset, causal, window))
-          continue;
-        mbar_wait(&empty[s], phase ^ 1);
-        float* st = stats + s * 2 * QROWS;
-        for (int i = lane; i < QROWS; i += 32) {
-          const bool in = q0 + i < Sq;
-          const size_t row = (size_t)bh * Sq + q0 + i;
-          st[i] = in ? lse[row] * kLog2e : 0.f;
-          st[QROWS + i] = in ? delta[row] : 0.f;
-        }
-        if (lane == 0) {
-          // arrives (after this lane's lse/delta stores) and expects the
-          // two tiles' bytes
-          mbar_expect_tx(&full[s], 2 * Q_TILE);
-          tma_load_tile<D, QROWS>(Qs + s * Q_TILE, &tq, &full[s], q0, bh);
-          tma_load_tile<D, QROWS>(dOs + s * Q_TILE, &tdo, &full[s], q0,
-                                  bh);
-        } else {
-          mbar_arrive(&full[s]);
-        }
-        if (++s == STAGES) {
-          s = 0;
-          phase ^= 1;
+    if (warp == 8) {
+      if (lane == 0) {
+        mbar_expect_tx(kvfull, 2 * KV_TILE);
+        tma_load_tile<D, KROWS>(Ks, &tk, kvfull, k0, bkv);
+        tma_load_tile<D, KROWS>(Vs, &tv, kvfull, k0, bkv);
+      }
+      int s = 0;
+      uint32_t phase = 0;
+      for (int g = 0; g < grp; ++g) {
+        const int bh = qrow0 + g;
+        for (int qi = 0; qi < nq; ++qi) {
+          const int q0 = qi * QROWS;
+          if (!rows_meet(q0, min(q0 + QROWS, Sq) - 1, k0, k_last, q_offset,
+                         k_offset, causal, window))
+            continue;
+          wait(&empty[s], phase ^ 1);
+          float* st = stats + s * 2 * QROWS;
+          for (int i = lane; i < QROWS; i += 32) {
+            const bool in = q0 + i < Sq;
+            const size_t row = (size_t)bh * Sq + q0 + i;
+            st[i] = in ? lse[row] * kLog2e : 0.f;
+            st[QROWS + i] = in ? delta[row] : 0.f;
+          }
+          if (lane == 0) {
+            // arrives (after this lane's lse/delta stores) and expects
+            // the two tiles' bytes
+            mbar_expect_tx(&full[s], 2 * Q_TILE);
+            tma_load_tile<D, QROWS>(Qs + s * Q_TILE, &tq, &full[s], q0, bh);
+            tma_load_tile<D, QROWS>(dOs + s * Q_TILE, &tdo, &full[s], q0,
+                                    bh);
+          } else {
+            mbar_arrive(&full[s]);
+          }
+          if (++s == STAGES) {
+            s = 0;
+            phase ^= 1;
+          }
         }
       }
     }
   } else {
-    // ---- consumers: warpgroup wg owns key rows wk0 .. wk0 + 63 (at D
-    // 128 both own the CTA's 64 rows, wg the head-dim columns 64wg ..)
+    // ---- consumers: warpgroup wg owns key rows wk0 .. wk0 + 63 at the
+    // whole head dim
+    if constexpr (L::WIDE) setmaxnreg_inc<kConsumerRegs>();
     const int wg = warp / 4;
-    const int wrow = L::SPLIT_D ? 0 : 64 * wg;  // first row in the tile
-    const int wk0 = k0 + wrow;
+    const int wk0 = k0 + 64 * wg;
     const int krow = wk0 + 16 * (warp % 4) + lane / 4;  // and krow + 8
-    uint8_t* Kw = Ks + wrow * L::atom;
-    uint8_t* Vw = Vs + wrow * L::atom;
+    uint8_t* Kw = Ks + 64 * wg * L::atom;
+    uint8_t* Vw = Vs + 64 * wg * L::atom;
     const uint64_t kdesc = desc_sw<D>(Kw), vdesc = desc_sw<D>(Vw);
-    // at D 128 the dO and Q operands of dV and dK are column block wg
-    const uint64_t blk = L::SPLIT_D ? (wg * QROWS * L::atom) >> 4 : 0;
-    float dk_acc[DW / 2], dv_acc[DW / 2];
+    float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
-    for (int i = 0; i < DW / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
-    mbar_wait(kvfull, 0);
+    wait(kvfull, 0);
     int s = 0;
     uint32_t phase = 0;
     for (int g = 0; g < grp; ++g) {
@@ -512,7 +530,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         if (!rows_meet(q0, min(q0 + QROWS, Sq) - 1, k0, k_last, q_offset,
                        k_offset, causal, window))
           continue;
-        mbar_wait(&full[s], phase);
+        wait(&full[s], phase);
         const uint64_t qdesc = desc_sw<D>(Qs + s * Q_TILE);
         const uint64_t dodesc = desc_sw<D>(dOs + s * Q_TILE);
         // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries each, D/16
@@ -575,14 +593,14 @@ __global__ void __launch_bounds__(THREADS, 1)
           }
 
         // dV += P^T dO and dK += dS^T Q, the A operands from registers,
-        // dO and Q MN-major from the ring (at D 128 column block wg)
+        // dO and Q MN-major from the ring
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs_rows<DW, QROWS>(dv_acc, pa[kk], dodesc + blk, kk);
+          wgmma_rs_rows<D, QROWS>(dv_acc, pa[kk], dodesc, kk);
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs_rows<DW, QROWS>(dk_acc, dsa[kk], qdesc + blk, kk);
+          wgmma_rs_rows<D, QROWS>(dk_acc, dsa[kk], qdesc, kk);
         wgmma_commit();
         wgmma_wait<0>();
         fence_operands(dk_acc);
@@ -595,24 +613,17 @@ __global__ void __launch_bounds__(THREADS, 1)
         }
       }
     }
+    // dK and dV through this warpgroup's K and V rows (read by nothing
+    // after its last product) to 16-byte stores
     const size_t base = ((size_t)bkv * Sk + wk0) * D;
-    if constexpr (L::SPLIT_D) {
-      // both warpgroups read all of K and V up to their last product:
-      // wait for both, write dK's and dV's column block wg into K's and
-      // V's, wait again, then warpgroup 0 stores dK and 1 dV, 16 bytes
-      // a store
-      consumers_barrier(3);
-      acc_to_tile<DW, KROWS>(dk_acc, 1.f, 1.f, Ks + wg * KROWS * L::atom);
-      acc_to_tile<DW, KROWS>(dv_acc, 1.f, 1.f, Vs + wg * KROWS * L::atom);
-      consumers_barrier(3);
-      tile_to_rows<D, KROWS>(wg ? Vs : Ks, (wg ? dv : dk) + base, Sk - wk0);
-    } else {
-      // dK and dV through this warpgroup's K and V rows to 16-byte stores
-      acc_to_tile<D, KROWS>(dk_acc, 1.f, 1.f, Kw);
-      acc_to_tile<D, KROWS>(dv_acc, 1.f, 1.f, Vw);
-      wg_barrier(1 + wg);
-      tile_to_rows<D, KROWS>(Kw, dk + base, Sk - wk0);
-      tile_to_rows<D, KROWS>(Vw, dv + base, Sk - wk0);
+    acc_to_tile<D, KROWS>(dk_acc, 1.f, 1.f, Kw);
+    acc_to_tile<D, KROWS>(dv_acc, 1.f, 1.f, Vw);
+    wg_barrier(1 + wg);
+    tile_to_rows<D, KROWS>(Kw, dk + base, Sk - wk0);
+    tile_to_rows<D, KROWS>(Vw, dv + base, Sk - wk0);
+    if constexpr (L::WIDE) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(done);
     }
   }
 }
@@ -628,7 +639,6 @@ cudaError_t launch(const Args& a) {
   cudaError_t err = encode_rows_map<D>(&tq, qp, qrows, qslabs, QROWS);
   if (err == cudaSuccess)
     err = encode_rows_map<D>(&tdo, gp, qrows, qslabs, QROWS);
-  constexpr int KROWS = Layout<D>::KROWS;
   if (err == cudaSuccess)
     err = encode_rows_map<D>(&tk, a.k, a.Sk, a.B * a.KVH, KROWS);
   if (err == cudaSuccess)
@@ -638,7 +648,8 @@ cudaError_t launch(const Args& a) {
   err = allow_smem(flash_dkv_wgmma_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   const int grid = (a.Sk + KROWS - 1) / KROWS * (a.B * a.KVH);
-  flash_dkv_wgmma_kernel<D><<<grid, THREADS, smem, a.stream>>>(
+  constexpr int threads = Layout<D>::THREADS;
+  flash_dkv_wgmma_kernel<D><<<grid, threads, smem, a.stream>>>(
       tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dk),
       static_cast<bf16*>(a.dv), a.B * a.KVH, a.H, a.KVH, a.Sq, a.Sk,
       a.q_offset, a.k_offset, a.causal, a.window, a.scale);

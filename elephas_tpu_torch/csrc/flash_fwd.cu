@@ -17,29 +17,53 @@
 // configurations, 128 that of most published LMs (Llama-2-7B,
 // Mistral-7B, Llama-3-8B). Two bodies:
 //
-// - bf16 (the working type): one CTA per (batch*head,
-//   128-row q tile), CTAs of the last q tiles (the most live tiles under
-//   causal masking) scheduled first. One producer warp issues TMA loads:
-//   Q once, then the live 128-row K and V tiles into a 4-stage ring of
-//   shared memory guarded by full/empty mbarriers; TMA zero-fills rows
-//   past each head's length. A tile row is the head's 2*D bytes in the
-//   swizzle of that width (128, 64 or 32 bytes; at D 128 two 64-column
-//   blocks of 128 bytes, hopper.cuh `Rows`), so a smaller head dim
-//   shrinks the tiles and the products and nothing else. At D 128 the
-//   K/V tiles are 64 rows: four stages of 128-row tiles beside Q would
-//   take 288 KB of the 227 KB a CTA may use, and a 64 x 64 score tile
-//   keeps the consumer's registers (O's 64 f32, S's 32, P's 16) far
-//   from a spill in the 9-warp CTA. Two consumer warpgroups of 64 query
-//   rows compute S = Q K^T with wgmma m64n128k16 (m64n64k16 at D 128;
-//   D/16 k steps) from shared memory, run the
-//   online softmax on the wgmma accumulator in registers (each row on
-//   the 4 threads of a quad; one FMA and exp2 per score; the
-//   per-element mask only on tiles that hold a masked pair), pack P to
-//   bf16 in registers (the TPU kernel's `p.astype(v.dtype)`) and feed
-//   it as the register A operand of O += P V (m64nDk16, V MN-major; at
-//   D 128 one m64n64k16 per column block). O stays in registers across
-//   the loop, and leaves through a swizzled shared tile in 16-byte
-//   stores.
+// - bf16 (the working type) at head_dim 16, 32 and 64: one CTA per
+//   (batch*head, 128-row q tile), CTAs of the last q tiles (the most
+//   live tiles under causal masking) scheduled first. One producer warp
+//   issues TMA loads: Q once, then the live 128-row K and V tiles into a
+//   4-stage ring of shared memory guarded by full/empty mbarriers; TMA
+//   zero-fills rows past each head's length. A tile row is the head's
+//   2*D bytes in the swizzle of that width (128, 64 or 32 bytes,
+//   hopper.cuh `Rows`), so a smaller head dim shrinks the tiles and the
+//   products and nothing else. Two consumer warpgroups of 64 query rows
+//   compute S = Q K^T with wgmma m64n128k16 (D/16 k steps) from shared
+//   memory, run the online softmax on the wgmma accumulator in
+//   registers (each row on the 4 threads of a quad; one FMA and exp2 per
+//   score; the per-element mask only on tiles that hold a masked pair),
+//   pack P to bf16 in registers (the TPU kernel's `p.astype(v.dtype)`)
+//   and feed it as the register A operand of O += P V (m64nDk16, V
+//   MN-major). O stays in registers across the loop, and leaves through
+//   a swizzled shared tile in 16-byte stores.
+// - bf16 at head_dim 128 (`flash_fwd_pingpong_kernel`): the same tiles,
+//   products, softmax and store, each 256-byte row two 64-column blocks
+//   of the 128-byte swizzle (P V one m64n64k16 per block). What bounds
+//   it is registers: O (64 f32 a thread), S of a 128-key tile (64) and
+//   P (32) do not fit the 168 a thread that a 288- or 384-thread CTA
+//   gets. So the CTA is 12 warps: a producer warpgroup, whose warps drop
+//   to 24 registers (`setmaxnreg`), and two consumer warpgroups that
+//   rise to 240 (hopper.cuh). K and V sit in 2-stage rings of 32 KB
+//   tiles with full and empty barriers of their own, so S starts when K
+//   lands and K is released once S is done, V once P V is; Q in a ring
+//   of two, so the next q tile's Q lands while this one runs. Three
+//   producer warps load Q, K and V, each walking the work on its own
+//   (one loader did not fit in 24 registers). A consumer issues tile
+//   j's S and tile j-1's P V in one turn and runs j's softmax while P V
+//   is still in flight (wait_group 1). The turns alternate between the
+//   two warpgroups on named barriers (ping-pong): the tensor cores run
+//   one warpgroup's products while the other does its softmax. Both
+//   take a turn on each live tile, whether their own rows meet it or
+//   not, so the turns always pair up. The softmax keeps 4 independent
+//   max and sum chains a row; the mask is two compares per score
+//   against each row's run of valid keys. The kernel is persistent, one
+//   CTA per SM (225 KB of shared memory): each walks work items, a pair
+//   of q tiles of one head (the t-th heaviest and the t-th lightest, so
+//   every item holds the same work under causal masking), in groups of
+//   heads whose K and V fit in L2. A q tile's O leaves through a staging
+//   tile of its own while the next tile's first S runs, so neither a
+//   CTA's start nor its store leaves the tensor cores idle. The
+//   producer and consumers wait without a watchdog and warp 9 watches
+//   the CTA (hopper.cuh `mbar_wait_spin`). ptxas: 168 registers at
+//   launch, no spill.
 // - f32: 256 threads on the CUDA cores, each holding a 4x4 block of the
 //   64x64 score tile and a 4x(D/16) block of O in registers; row max and
 //   sum reduce over the 16 lanes sharing a row with warp shuffles.
@@ -48,9 +72,14 @@
 // operand row is read once per tile, so at head_dim 64 and 128 the loop
 // is bound by operations (989 TFLOP/s in bf16). At 32 and 16 the products
 // shrink with D while the softmax's FMA and exp2 per score do not, so
-// the CUDA cores and MUFU take a larger share of each tile. Within one
-// consumer warpgroup the two products and the softmax run in sequence;
-// the second warpgroup and the ring's prefetch are what overlap them.
+// the CUDA cores and MUFU take a larger share of each tile. Below D 128,
+// within one consumer warpgroup the two products and the softmax run in
+// sequence, and the second warpgroup and the ring's prefetch are what
+// overlap them; at D 128 the turns and the in-flight P V do. At D 128
+// and S 1024 a head's work is small (36 (q tile, K/V tile) steps under
+// causal masking): K and V read again from HBM by each of a head's 8 q
+// tiles, or a CTA's start and its store, cost as much as the softmax,
+// which is why that body groups heads for L2 and persists.
 #include <type_traits>
 
 #include "common.cuh"
@@ -226,18 +255,12 @@ constexpr int WTHREADS = 2 * 128 + 32;  // 2 consumer warpgroups + producer
 
 template <int D>
 struct WgmmaLayout {
-  // key rows per K/V tile: 128, or 64 at D 128 (see the note at the top)
-  static constexpr int WK = D == 128 ? 64 : 128;
+  static constexpr int WK = 128;  // key rows per K/V tile
   // Q, the K ring, the V ring, then the barriers: qfull, kfull[STAGES],
-  // vfull[STAGES], empty[STAGES]; +1024 for alignment. 160 KB at D 128
-  // (32 KB of Q, 16 KB tiles), 144 KB at D 64 (16 KB tiles), 73 KB at D
-  // 32, 37 KB at D 16: the stage count stays, since the ring's depth
-  // hides a load's latency, not its size. No setmaxnreg: it only moves
-  // registers within the CTA's launch allocation, which one producer
-  // warp barely feeds ((R - 40) x 32 for 256 consumer threads), and a
-  // consumer asking for more than is free waits for good (a hang on the
-  // card). ptxas fits the consumers in the launch allocation without
-  // spills.
+  // vfull[STAGES], empty[STAGES]; +1024 for alignment. 144 KB at D 64
+  // (16 KB tiles), 73 KB at D 32, 37 KB at D 16: the stage count stays,
+  // since the ring's depth hides a load's latency, not its size. (D 128
+  // has a body of its own, `PingPong` below.)
   static constexpr uint32_t row = Rows<D>::bytes;   // bytes of a whole row
   static constexpr uint32_t atom = Rows<D>::atom;   // ... in one block
   static constexpr uint32_t tile = WK * row;  // one K or V tile
@@ -265,6 +288,167 @@ __device__ __forceinline__ void mask_scores(float (&s)[N], int qrow, int k0,
   }
 }
 
+// mask_scores for the head-dim-128 body: each row's valid keys are one
+// run (from the window's lower edge to the causal diagonal, below Sk),
+// so an element costs two compares against its row's bounds, taken
+// relative to this thread's first column. Rows past Sq are left as they
+// are: nothing of theirs is stored.
+template <int N>
+__device__ __forceinline__ void mask_rows(float (&s)[N], int qrow, int k0,
+                                          int Sk, int q_offset,
+                                          int k_offset, int causal,
+                                          int window) {
+  constexpr int kOpen = 1 << 30;
+  const int c0 = k0 + 2 * (threadIdx.x % 4);  // this thread's first key
+  int lo[2], hi[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qk = q_offset + qrow + 8 * r - k_offset - c0;  // diagonal
+    hi[r] = min(Sk - 1 - c0, causal ? qk : kOpen);
+    lo[r] = window > 0 ? qk - window + 1 : -kOpen;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int c = 8 * (i / 4) + i % 2, r = (i / 2) % 2;
+    if (c < lo[r] || c > hi[r]) s[i] = -INFINITY;
+  }
+}
+
+// Whether a warpgroup's rows [wq0, wq0 + 63] against the K tile at k0
+// need mask_scores.
+template <int WK>
+__device__ __forceinline__ bool tile_masked(int wq0, int k0, int Sk,
+                                            int q_offset, int k_offset,
+                                            int causal, int window) {
+  return k0 + WK > Sk || !rows_all_valid(wq0, wq0 + 63, k0, k0 + WK - 1,
+                                         q_offset, k_offset, causal,
+                                         window);
+}
+
+// S = Q K^T, one warpgroup's 64 rows (block 0 of the 128-row Q tile at
+// `qdesc`) x the WK keys of `ktile`: D/16 k16 steps, S overwritten.
+template <int D, int WK>
+__device__ __forceinline__ void issue_scores(float (&s)[WK / 2],
+                                             uint64_t qdesc,
+                                             const uint8_t* ktile) {
+  const uint64_t kdesc = desc_sw<D>(ktile);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<WK>(s, desc_k<D, WQ>(qdesc, kk), desc_k<D, WK>(kdesc, kk), kk);
+}
+
+// O += P V: P as the bf16 A fragments of WK/16 k steps (the TPU kernel's
+// p.astype(v.dtype)), V MN-major from `vtile`.
+template <int D, int WK>
+__device__ __forceinline__ void issue_values(float (&o)[D / 2],
+                                             const uint32_t (&pa)[WK / 16][4],
+                                             const uint8_t* vtile) {
+  const uint64_t vdesc = desc_sw<D>(vtile);
+#pragma unroll
+  for (int kk = 0; kk < WK / 16; ++kk)
+    wgmma_rs_rows<D, WK>(o, pa[kk], vdesc, kk);
+}
+
+// One tile's online softmax in the base-2 domain on the accumulator
+// layout: this thread's 2 rows x N/2 columns, a row spanning the 4
+// threads of a quad (the max reduces with shuffles over lanes ^1 and
+// ^2). The scores become the weights in place; the running max `m` and
+// this thread's partial row sums `lsum` move on (the quad's partial sums
+// meet at the end), and `corr` is the factor O's rows take. With C > 1
+// each row's max and sum run as C independent chains over its 8-column
+// groups, met at the end of the tile, so their latency overlaps (the
+// sum then adds in another order).
+template <int N, int C = 1>
+__device__ __forceinline__ void online_softmax(float (&s)[N], float (&m)[2],
+                                               float (&lsum)[2],
+                                               float (&corr)[2],
+                                               float scale_log2) {
+  float mx[2][C];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int c = 0; c < C; ++c) mx[r][c] = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float& x = mx[(i / 2) % 2][(i / 4) % C];
+    x = fmaxf(x, s[i]);
+  }
+  float mu[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int c = 1; c < C; ++c) mx[r][0] = fmaxf(mx[r][0], mx[r][c]);
+    float x = mx[r][0];
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+    const float m_new = fmaxf(m[r], x * scale_log2);
+    // a row with nothing unmasked yet subtracts 0: exp2(-inf) = 0
+    mu[r] = m_new == -INFINITY ? 0.f : m_new;
+    corr[r] = exp2_ftz(m[r] - mu[r]);
+    m[r] = m_new;
+    lsum[r] *= corr[r];
+  }
+  if constexpr (C == 1) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int r = (i / 2) % 2;
+      s[i] = exp2_ftz(fmaf(s[i], scale_log2, -mu[r]));
+      lsum[r] += s[i];
+    }
+  } else {
+    float sum[2][C];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int c = 0; c < C; ++c) sum[r][c] = 0.f;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int r = (i / 2) % 2;
+      s[i] = exp2_ftz(fmaf(s[i], scale_log2, -mu[r]));
+      sum[r][(i / 4) % C] += s[i];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int c = 1; c < C; ++c) sum[r][0] += sum[r][c];
+      lsum[r] += sum[r][0];
+    }
+  }
+}
+
+// O (a warpgroup's 64 rows) through its 64 rows of a 128-row staging
+// tile in shared memory (`Ow`, block 0) to 16-byte stores, and the LSE
+// in natural-log units: kNegInf for a row with nothing unmasked (O = 0
+// there).
+template <int D>
+__device__ __forceinline__ void store_rows(float (&oacc)[D / 2],
+                                           const float (&m)[2],
+                                           float (&lsum)[2], uint8_t* Ow,
+                                           bf16* o, float* lse, int bh,
+                                           int wq0, int qrow, int Sq,
+                                           int wg) {
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 1);
+    lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 2);
+    inv[r] = 1.f / fmaxf(lsum[r], 1e-30f);
+  }
+  acc_to_tile<D, WQ>(oacc, inv[0], inv[1], Ow);
+  wg_barrier(1 + wg);
+  tile_to_rows<D, WQ>(Ow, o + ((size_t)bh * Sq + wq0) * D, Sq - wq0);
+  if (threadIdx.x % 4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = qrow + 8 * r;
+      if (row < Sq)
+        lse[(size_t)bh * Sq + row] =
+            m[r] == -INFINITY ? kNegInf
+                              : m[r] * kLn2 + logf(fmaxf(lsum[r], 1e-30f));
+    }
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(WTHREADS, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -274,6 +458,7 @@ __global__ void __launch_bounds__(WTHREADS, 1)
                            int BH, int H, int KVH, int Sq, int Sk,
                            int q_offset, int k_offset, int causal,
                            int window, float scale_log2) {
+  static_assert(D < 128, "head_dim 128 runs flash_fwd_pingpong_kernel");
   using L = WgmmaLayout<D>;
   constexpr uint32_t TILE = L::tile;
   constexpr int WK = L::WK;
@@ -356,61 +541,27 @@ __global__ void __launch_bounds__(WTHREADS, 1)
       // S = Q K^T: 64 rows x WK keys, D/16 k16 steps over the head dim
       float sacc[WK / 2];
       mbar_wait(&kfull[s], phase);
-      const uint64_t kdesc = desc_sw<D>(Ks + s * TILE);
       wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<WK>(sacc, desc_k<D, WQ>(qdesc, kk),
-                     desc_k<D, WK>(kdesc, kk), kk);
+      issue_scores<D, WK>(sacc, qdesc, Ks + s * TILE);
       wgmma_commit();
       wgmma_wait<0>();
       fence_operands(sacc);
 
-      if (k0 + WK > Sk ||
-          !rows_all_valid(wq0, wq0 + 63, k0, k0 + WK - 1, q_offset,
-                          k_offset, causal, window))
+      if (tile_masked<WK>(wq0, k0, Sk, q_offset, k_offset, causal, window))
         mask_scores(sacc, qrow, k0, Sq, Sk, q_offset, k_offset, causal,
                     window);
-
-      // online softmax in the base-2 domain on the accumulator layout:
-      // this thread's 2 rows x WK/4 columns; a row spans the 4 threads of
-      // a quad, so max reduces with shuffles over lanes ^1 and ^2
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int i = 0; i < WK / 2; ++i)
-        mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sacc[i]);
-      float mu[2], corr[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float m_new = fmaxf(m[r], mx[r] * scale_log2);
-        // a row with nothing unmasked yet subtracts 0: exp2(-inf) = 0
-        mu[r] = m_new == -INFINITY ? 0.f : m_new;
-        corr[r] = exp2_ftz(m[r] - mu[r]);
-        m[r] = m_new;
-        lsum[r] *= corr[r];
-      }
-#pragma unroll
-      for (int i = 0; i < WK / 2; ++i) {
-        const int r = (i / 2) % 2;
-        sacc[i] = exp2_ftz(fmaf(sacc[i], scale_log2, -mu[r]));
-        lsum[r] += sacc[i];  // f32; the quad's partial sums meet at the end
-      }
+      float corr[2];
+      online_softmax(sacc, m, lsum, corr, scale_log2);
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) oacc[i] *= corr[(i / 2) % 2];
 
-      // O += P V with P in bf16 registers (the TPU kernel's
-      // p.astype(v.dtype)) and V MN-major from the ring
+      // O += P V with P in bf16 registers and V MN-major from the ring
       uint32_t pa[WK / 16][4];
 #pragma unroll
       for (int kk = 0; kk < WK / 16; ++kk) pack_a(sacc, kk, pa[kk]);
       mbar_wait(&vfull[s], phase);
-      const uint64_t vdesc = desc_sw<D>(Vs + s * TILE);
       wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < WK / 16; ++kk)
-        wgmma_rs_rows<D, WK>(oacc, pa[kk], vdesc, kk);
+      issue_values<D, WK>(oacc, pa, Vs + s * TILE);
       wgmma_commit();
       wgmma_wait<0>();
       fence_operands(oacc);
@@ -421,31 +572,340 @@ __global__ void __launch_bounds__(WTHREADS, 1)
         phase ^= 1;
       }
     }
+    // O through this warpgroup's Q rows: read by nothing after its last
+    // product
+    store_rows<D>(oacc, m, lsum, Qw, o, lse, bh, wq0, qrow, Sq, wg);
+  }
+}
 
-    float inv[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 1);
-      lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 2);
-      inv[r] = 1.f / fmaxf(lsum[r], 1e-30f);
+// ------------------------------- bf16 at head_dim 128: ping-pong consumers
+struct PingPong {
+  static constexpr int D = 128;
+  static constexpr int WK = 128;     // key rows per K/V tile
+  static constexpr int STAGES = 2;   // K/V tiles in flight
+  static constexpr int QSTAGES = 2;  // Q tiles: this q tile's and the next
+  static constexpr int CHAINS = 4;   // the softmax's max and sum chains
+  // the consumers' turns: named barrier TURN + w is warpgroup w's (1 and
+  // 2 are wg_barrier's)
+  static constexpr int TURN = 3;
+  // the Q ring (32 KB tiles), O's staging tile (32 KB), the K ring, the
+  // V ring (32 KB tiles), then the barriers: qfull[QSTAGES],
+  // qempty[QSTAGES], kfull[STAGES], vfull[STAGES], kempty[STAGES],
+  // vempty[STAGES], done; +1024 for alignment: 225 KB of the 227
+  static constexpr uint32_t row = Rows<D>::bytes, atom = Rows<D>::atom;
+  static constexpr uint32_t tile = WK * row, qtile = WQ * row;
+  static constexpr uint32_t q = 0, o = QSTAGES * qtile, k = o + qtile,
+                            v = k + STAGES * tile, bars = v + STAGES * tile;
+  static constexpr uint32_t qfull = bars, qempty = bars + 8 * QSTAGES,
+                            kfull = qempty + 8 * QSTAGES,
+                            vfull = kfull + 8 * STAGES,
+                            kempty = vfull + 8 * STAGES,
+                            vempty = kempty + 8 * STAGES,
+                            done = vempty + 8 * STAGES;
+  static constexpr size_t bytes = done + 8 + 1024;
+};
+
+// One q tile of the persistent body's work: a 128-row q tile of one
+// head, or none.
+struct FwdItem {
+  int q0, bh, kv_row;
+  int kj0, n;  // its live K/V tiles, kj0 .. kj0 + n - 1
+};
+
+// Half `half` of work item w. An item is a pair of q tiles of one head,
+// the t-th heaviest and the t-th lightest (t and nqt - 1 - t from the
+// heaviest), so under causal masking every item holds the same work and
+// items dealt round-robin to the CTAs balance. The heads go in groups
+// of `group` (common.cuh l2_group: their K and V fit in L2), each
+// group's `per` items consecutive, the group's heads side by side at
+// each pair. An odd middle tile has no partner (q0 = -1). The live K/V
+// tiles (those rows_meet admits) are one run: the causal rule drops
+// tiles from the end, the window's from the start, and below the ragged
+// last tile the window's test on a tile's last key is (kj + 1) * WK - 1
+// > b. In closed form and unsigned where it divides: the loaders run
+// this in 24 registers.
+__device__ __forceinline__ FwdItem fwd_item(int w, int half, int per,
+                                            int BH, int grp, int group,
+                                            int Sq, int Sk, int q_offset,
+                                            int k_offset, int causal,
+                                            int window) {
+  constexpr int WK = PingPong::WK;
+  const int nqt = (Sq + WQ - 1) / WQ;
+  const unsigned g = (unsigned)w / per, r = (unsigned)w - g * per;
+  const unsigned gh = min(group, BH - (int)g * group);  // heads in g
+  const unsigned p = r / gh;
+  FwdItem x;
+  x.bh = g * group + (r - p * gh);
+  // GQA: query row bh = b*H + h reads kv row b*KVH + h / grp = bh / grp
+  x.kv_row = (unsigned)x.bh / (unsigned)grp;
+  const int t = half ? nqt - 1 - (int)p : (int)p;
+  x.q0 = half && t == (int)p ? -1 : (nqt - 1 - t) * WQ;
+  const int q_last = min(x.q0 + WQ, Sq) - 1;
+  const int nk = (Sk + WK - 1) / WK;
+  int hi = nk - 1, lo = 0;
+  if (causal) {
+    const int a = q_offset + q_last - k_offset;  // the last key allowed
+    hi = a < 0 ? -1 : min(hi, (int)((unsigned)a / WK));
+  }
+  if (window > 0) {
+    const int b = q_offset + x.q0 - window - k_offset;  // keys <= b out
+    lo = b + 1 <= 0 ? 0 : (int)((unsigned)(b + 1) / WK);
+    if (Sk - 1 <= b) hi = min(hi, nk - 2);
+  }
+  x.kj0 = lo;
+  x.n = x.q0 < 0 ? 0 : max(0, hi - lo + 1);
+  return x;
+}
+
+// Persistent: one CTA per SM walks items blockIdx.x, + gridDim.x, ...,
+// each item's two q tiles in turn; the next q tile's Q lands in the Q
+// ring's other slot while this one runs, so its first products follow
+// this tile's last P V at once and overlap its store.
+__global__ void __launch_bounds__(kWideThreads, 1)
+    flash_fwd_pingpong_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              bf16* __restrict__ o, float* __restrict__ lse,
+                              int BH, int grp, int Sq, int Sk, int q_offset,
+                              int k_offset, int causal, int window,
+                              float scale_log2, int group, int per,
+                              int items) {
+  using L = PingPong;
+  constexpr int D = L::D, WK = L::WK, STAGES = L::STAGES;
+  constexpr uint32_t TILE = L::tile;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  uint8_t* Qs = sm + L::q;
+  uint8_t* Os = sm + L::o;
+  uint8_t* Ks = sm + L::k;
+  uint8_t* Vs = sm + L::v;
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(sm + L::qfull);
+  uint64_t* qempty = reinterpret_cast<uint64_t*>(sm + L::qempty);
+  uint64_t* kfull = reinterpret_cast<uint64_t*>(sm + L::kfull);
+  uint64_t* vfull = reinterpret_cast<uint64_t*>(sm + L::vfull);
+  uint64_t* kempty = reinterpret_cast<uint64_t*>(sm + L::kempty);
+  uint64_t* vempty = reinterpret_cast<uint64_t*>(sm + L::vempty);
+  uint64_t* done = reinterpret_cast<uint64_t*>(sm + L::done);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::QSTAGES; ++s) {
+      mbar_init(&qfull[s], 1);
+      mbar_init(&qempty[s], 8);  // lane 0 of each consumer warp
     }
-    // O through this warpgroup's Q rows (read by nothing after its last
-    // product) to 16-byte stores; LSE in natural-log units, kNegInf for a
-    // row with nothing unmasked (O = 0 there)
-    acc_to_tile<D, WQ>(oacc, inv[0], inv[1], Qw);
-    wg_barrier(1 + wg);
-    tile_to_rows<D, WQ>(Qw, o + ((size_t)bh * Sq + wq0) * D, Sq - wq0);
-    if (lane % 4 == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&kfull[s], 1);
+      mbar_init(&vfull[s], 1);
+      mbar_init(&kempty[s], 8);
+      mbar_init(&vempty[s], 8);
+    }
+    mbar_init(done, 8);  // lane 0 of each consumer warp, at its end
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int warp = warp_index(), lane = threadIdx.x % 32;
+  if (warp >= 8) {
+    // ---- producer warpgroup: every warp gives its registers back
+    // first; warp 9 is the CTA's watchdog; lane 0 of warps 8, 10 and 11
+    // loads Q, K and V, each walking the items on its own: Q of each q
+    // tile with a live K/V tile into its slot once the consumers' last S
+    // of the tile before in that slot is done, K and V of the live tiles
+    // into their own rings (K is released after S, V after P V, a turn
+    // later). The rings run on across items: `r` counts what the warp
+    // loaded. Three loaders with no state in common fit in 24 registers
+    // where one did not.
+    setmaxnreg_dec<kProducerRegs>();
+    // shared addresses as offsets from one 32-bit base
+    const uint32_t b = smem_u32(sm);
+    if (warp == 9) {
+      cta_watchdog(done);
+    } else if (warp == 8) {
+      if (lane == 0) {
+        int r = 0;
+        for (int w = blockIdx.x; w < items; w += gridDim.x) {
+          for (int half = 0; half < 2; ++half) {
+            const FwdItem x = fwd_item(w, half, per, BH, grp, group, Sq,
+                                       Sk, q_offset, k_offset, causal,
+                                       window);
+            if (x.n == 0) continue;
+            const uint32_t s = r % L::QSTAGES;
+            mbar_wait_spin(b + L::qempty + 8 * s,
+                           ((r / L::QSTAGES) & 1) ^ 1);
+            mbar_expect_tx(b + L::qfull + 8 * s, L::qtile);
+            tma_load_tile<D, WQ>(b + L::q + s * L::qtile, &tq,
+                                 b + L::qfull + 8 * s, x.q0, x.bh);
+            ++r;
+          }
+        }
+      }
+    } else if (lane == 0) {
+      // one ring, K's or V's (each call with its own map, a constant
+      // address: no register holds it)
+      auto load_ring = [&](const CUtensorMap* map, uint32_t tiles,
+                           uint32_t full, uint32_t empty) {
+        int r = 0;
+        for (int w = blockIdx.x; w < items; w += gridDim.x) {
+          for (int half = 0; half < 2; ++half) {
+            const FwdItem x = fwd_item(w, half, per, BH, grp, group, Sq,
+                                       Sk, q_offset, k_offset, causal,
+                                       window);
+            for (int j = 0; j < x.n; ++j, ++r) {
+              const uint32_t s = r % STAGES;
+              mbar_wait_spin(empty + 8 * s, ((r / STAGES) & 1) ^ 1);
+              mbar_expect_tx(full + 8 * s, TILE);
+              tma_load_tile<D, WK>(tiles + s * TILE, map, full + 8 * s,
+                                   (x.kj0 + j) * WK, x.kv_row);
+            }
+          }
+        }
+      };
+      if (warp == 10)
+        load_ring(&tk, b + L::k, b + L::kfull, b + L::kempty);
+      else
+        load_ring(&tv, b + L::v, b + L::vfull, b + L::vempty);
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns query rows wq0 .. wq0 + 63 of
+    // each item
+    setmaxnreg_inc<kConsumerRegs>();
+    const int wg = warp / 4;
+    uint8_t* Ow = Os + wg * 64 * L::atom;  // its rows in block 0
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    // Turns: a warpgroup issues its products only between its
+    // consumers_barrier(TURN + wg) and its consumers_arrive on the
+    // other's, so the tensor cores run one warpgroup's products while
+    // the other does its softmax. Both take n + 1 turns a q tile (its n
+    // live K/V tiles, whether or not their own rows meet them);
+    // warpgroup 0 goes first, on warpgroup 1's opening arrive, and
+    // takes that of warpgroup 1's last turn at the very end, so every
+    // barrier ends balanced.
+    if (wg == 1) consumers_arrive(L::TURN);
+    int r = 0, qi = 0;
+    // A q tile's O waits in registers for its store until the next
+    // tile's first S is in flight (`pend`: its head, rows, max and sums).
+    float oacc[D / 2], pm[2], psum[2];
+    bool pend = false;
+    int pbh = 0, pwq0 = 0, pqrow = 0;
+    auto store_pending = [&]() {
+      if (!pend) return;
+      // the staging rows are free once the last store's reads are done
+      wg_barrier(1 + wg);
+      store_rows<D>(oacc, pm, psum, Ow, o, lse, pbh, pwq0, pqrow, Sq, wg);
+      pend = false;
+    };
+    for (int w = blockIdx.x; w < items; w += gridDim.x) {
+      for (int half = 0; half < 2; ++half) {
+        const FwdItem x = fwd_item(w, half, per, BH, grp, group, Sq, Sk,
+                                   q_offset, k_offset, causal, window);
+        if (x.q0 < 0) continue;
+        const int wq0 = x.q0 + 64 * wg;
+        const int qrow = wq0 + 16 * (warp % 4) + lane / 4;  // and qrow + 8
+        float m[2] = {-INFINITY, -INFINITY}, lsum[2] = {0.f, 0.f};
+        if (x.n > 0) {
+          const int n = x.n;
+          uint32_t pa[WK / 16][4];
+          float corr[2];
+          const int qs = qi % L::QSTAGES;  // the q tile's Q slot
+          // its rows of the slot, block 0
+          const uint64_t qdesc =
+              desc_sw<D>(Qs + qs * L::qtile + wg * 64 * L::atom);
+          mbar_wait_spin(&qfull[qs], (qi / L::QSTAGES) & 1);
+          ++qi;
+          {
+            // tile 0: S alone, the last q tile's store under it
+            const int s = r % STAGES, k0 = x.kj0 * WK;
+            float sacc[WK / 2];
+            mbar_wait_spin(&kfull[s], (r / STAGES) & 1);
+            consumers_barrier(L::TURN + wg);
+            wgmma_fence();
+            issue_scores<D, WK>(sacc, qdesc, Ks + s * TILE);
+            wgmma_commit();
+            consumers_arrive(L::TURN + (wg ^ 1));
+            store_pending();
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = qrow + 8 * r;
-        if (row < Sq)
-          lse[(size_t)bh * Sq + row] =
-              m[r] == -INFINITY
-                  ? kNegInf
-                  : m[r] * kLn2 + logf(fmaxf(lsum[r], 1e-30f));
+            for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+            wgmma_wait<0>();
+            fence_operands(sacc);
+            release(&kempty[s]);
+            if (n == 1) release(&qempty[qs]);  // the q tile's last S
+            if (tile_masked<WK>(wq0, k0, Sk, q_offset, k_offset, causal,
+                                window))
+              mask_rows(sacc, qrow, k0, Sk, q_offset, k_offset, causal,
+                        window);
+            online_softmax<WK / 2, L::CHAINS>(sacc, m, lsum, corr,
+                                              scale_log2);  // O is 0 yet
+#pragma unroll
+            for (int kk = 0; kk < WK / 16; ++kk) pack_a(sacc, kk, pa[kk]);
+          }
+          for (int j = 1; j < n; ++j) {
+            // S of tile j and P V of tile j - 1 in one turn; the softmax
+            // of j runs while P V is still in flight
+            const int s = (r + j) % STAGES, sp = (r + j - 1) % STAGES;
+            const int k0 = (x.kj0 + j) * WK;
+            float sacc[WK / 2];
+            mbar_wait_spin(&kfull[s], ((r + j) / STAGES) & 1);
+            mbar_wait_spin(&vfull[sp], ((r + j - 1) / STAGES) & 1);
+            consumers_barrier(L::TURN + wg);
+            wgmma_fence();
+            issue_scores<D, WK>(sacc, qdesc, Ks + s * TILE);
+            wgmma_commit();
+            issue_values<D, WK>(oacc, pa, Vs + sp * TILE);
+            wgmma_commit();
+            consumers_arrive(L::TURN + (wg ^ 1));
+            wgmma_wait<1>();
+            fence_operands(sacc);
+            release(&kempty[s]);
+            if (j == n - 1) release(&qempty[qs]);
+            if (tile_masked<WK>(wq0, k0, Sk, q_offset, k_offset, causal,
+                                window))
+              mask_rows(sacc, qrow, k0, Sk, q_offset, k_offset, causal,
+                        window);
+            online_softmax<WK / 2, L::CHAINS>(sacc, m, lsum, corr,
+                                              scale_log2);
+            wgmma_wait<0>();
+            fence_operands(oacc);
+            fence_operands(pa);
+            release(&vempty[sp]);
+#pragma unroll
+            for (int i = 0; i < D / 2; ++i) oacc[i] *= corr[(i / 2) % 2];
+#pragma unroll
+            for (int kk = 0; kk < WK / 16; ++kk) pack_a(sacc, kk, pa[kk]);
+          }
+          // the last tile's P V
+          const int sp = (r + n - 1) % STAGES;
+          mbar_wait_spin(&vfull[sp], ((r + n - 1) / STAGES) & 1);
+          consumers_barrier(L::TURN + wg);
+          wgmma_fence();
+          issue_values<D, WK>(oacc, pa, Vs + sp * TILE);
+          wgmma_commit();
+          consumers_arrive(L::TURN + (wg ^ 1));
+          wgmma_wait<0>();
+          fence_operands(oacc);
+          release(&vempty[sp]);
+          r += n;
+        } else {
+          // no live tile: O = 0
+          store_pending();
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+        }
+        pend = true;
+        pbh = x.bh;
+        pwq0 = wq0;
+        pqrow = qrow;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          pm[i] = m[i];
+          psum[i] = lsum[i];
+        }
       }
     }
+    store_pending();
+    if (wg == 0) consumers_barrier(L::TURN);
+    release(done);
   }
 }
 
@@ -460,19 +920,39 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   const int krows = Sk > 0 ? Sk : Sq, kslabs = Sk > 0 ? B * KVH : B * H;
   CUtensorMap tq, tk, tv;
   cudaError_t err = encode_rows_map<D>(&tq, q, Sq, B * H, WQ);
-  constexpr int WK = WgmmaLayout<D>::WK;
+  constexpr int WK = 128;  // both bodies' K/V tile
+  static_assert(WgmmaLayout<D>::WK == WK && PingPong::WK == WK, "tiles");
   if (err == cudaSuccess)
     err = encode_rows_map<D>(&tk, kp, krows, kslabs, WK);
   if (err == cudaSuccess)
     err = encode_rows_map<D>(&tv, vp, krows, kslabs, WK);
   if (err != cudaSuccess) return err;
-  constexpr size_t smem = WgmmaLayout<D>::bytes;
-  err = allow_smem(flash_fwd_wgmma_kernel<D>, smem);
-  if (err != cudaSuccess) return err;
   const int grid = (Sq + WQ - 1) / WQ * (B * H);
-  flash_fwd_wgmma_kernel<D><<<grid, WTHREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<bf16*>(o), lse, B * H, H, KVH, Sq, Sk,
-      q_offset, k_offset, causal, window, scale * kLog2e);
+  if constexpr (D == 128) {
+    constexpr size_t smem = PingPong::bytes;
+    err = allow_smem(flash_fwd_pingpong_kernel, smem);
+    if (err != cudaSuccess) return err;
+    // a head's K and V: Sk rows of 2 * 128 bytes each
+    const int group = l2_group(4ll * D * Sk, B * H);
+    // persistent: one CTA per SM, at most one per item
+    int sms = 0;
+    err = multiprocessors(&sms);
+    if (err != cudaSuccess) return err;
+    // work items (pairs of q tiles of a head), and those of one group
+    const int pairs = (Sq + 2 * WQ - 1) / (2 * WQ), items = pairs * B * H;
+    flash_fwd_pingpong_kernel<<<min(items, sms), kWideThreads, smem,
+                                stream>>>(
+        tq, tk, tv, static_cast<bf16*>(o), lse, B * H, H / KVH, Sq, Sk,
+        q_offset, k_offset, causal, window, scale * kLog2e, group,
+        group * pairs, items);
+  } else {
+    constexpr size_t smem = WgmmaLayout<D>::bytes;
+    err = allow_smem(flash_fwd_wgmma_kernel<D>, smem);
+    if (err != cudaSuccess) return err;
+    flash_fwd_wgmma_kernel<D><<<grid, WTHREADS, smem, stream>>>(
+        tq, tk, tv, static_cast<bf16*>(o), lse, B * H, H, KVH, Sq, Sk,
+        q_offset, k_offset, causal, window, scale * kLog2e);
+  }
   return cudaGetLastError();
 }
 

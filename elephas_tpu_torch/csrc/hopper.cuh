@@ -19,7 +19,9 @@
 //   consumers still wait for) aborts the kernel instead of hanging the
 //   card. The error ("unspecified launch failure") surfaces at the
 //   next synchronising call on the stream and leaves the CUDA context
-//   unusable: the process has to exit.
+//   unusable: the process has to exit. The head-dim-128 bodies wait with
+//   `mbar_wait_spin` instead and leave the trap to one watchdog warp a
+//   CTA (`cta_watchdog`), which also covers their named barriers.
 // - wgmma: `wgmma_fence` / `wgmma_commit` / `wgmma_wait<N>`
 //   (`wgmma.fence`, `commit_group`, `wait_group`), `fence_operands`
 //   (keeps the compiler from touching accumulator registers across an
@@ -47,7 +49,26 @@
 //   16-byte chunk.
 // - `with_head_dim` (host): the one switch over the head dims the flash
 //   kernels are instantiated for.
-// - `wg_barrier` (`bar.sync id, 128`): one warpgroup's named barrier.
+// - `wg_barrier` (`bar.sync id, 128`): one warpgroup's named barrier;
+//   `consumers_barrier` / `consumers_arrive` (`bar.sync` / `bar.arrive
+//   id, 256`): the two consumer warpgroups' named barrier, waited on or
+//   only arrived at (the ping-pong turns of the head-dim-128 bodies). No
+//   watchdog covers a named barrier: a turn that is never given hangs
+//   the card, so both warpgroups must take the same number of turns.
+// - `setmaxnreg_dec<N>` / `setmaxnreg_inc<N>`
+//   (`setmaxnreg.dec/inc.sync.aligned.u32 N`): a whole warpgroup gives
+//   its registers back to the CTA's pool down to N a thread, or waits
+//   until the pool holds enough to raise it to N. The head-dim-128
+//   bodies launch 384 threads (`__launch_bounds__(384, 1)`: 168 each,
+//   64,512 in all); the producer warpgroup drops to 24 and the two
+//   consumer warpgroups rise to 240, 128 * 24 + 256 * 240 = 64,512, so
+//   the pool always holds what the consumers ask for. (An earlier
+//   9-warp CTA tried this with a one-warp producer: that warp alone can
+//   free at most (168 - 24) * 32 registers, the consumers asked for
+//   more, and `inc` waited for good.) Every warp of the producer
+//   warpgroup executes its `dec` first thing, before any branch or
+//   exit; the roles are one if/else that never reconverges, or ptxas
+//   ignores the instruction.
 // - `exp2_ftz` (`ex2.approx.ftz.f32`): the softmax's exponential.
 // - Accumulator helpers on the documented wgmma D layout (thread t of a
 //   warpgroup holds, for each 8-column group j, rows 16*(t/32) + (t%32)/4
@@ -145,13 +166,20 @@ __device__ __forceinline__ void fence_barrier_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+// (Each mbarrier and TMA helper also takes a barrier or tile as its
+// 32-bit shared address: code that runs in few registers keeps one base
+// address, not a 64-bit pointer per barrier.)
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
                                                uint32_t bytes) {
   asm volatile(
       "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
+          bar),
       "r"(bytes)
       : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  mbar_expect_tx(smem_u32(bar), bytes);
 }
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
@@ -197,18 +225,42 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// mbar_wait without the watchdog, for the head-dim-128 bodies: a `trap`
+// anywhere in their consumers' code makes ptxas serialize every wgmma
+// ("C7512 ... insufficient register resources") and spill. Their CTA has
+// a watchdog warp instead (`cta_watchdog`).
+__device__ __forceinline__ void mbar_wait_spin(uint32_t addr,
+                                               uint32_t parity) {
+  while (!mbar_try_wait(addr, parity)) {
+  }
+}
+__device__ __forceinline__ void mbar_wait_spin(uint64_t* bar,
+                                               uint32_t parity) {
+  mbar_wait_spin(smem_u32(bar), parity);
+}
+
+// The watchdog of a CTA whose warps wait with mbar_wait_spin: run by one
+// otherwise idle warp, it waits (with mbar_wait's trap) on `done`, at
+// which every consumer warp arrives once after its last store. A wait,
+// mbarrier or named barrier, that never ends keeps `done` open, and the
+// trap ends the kernel about 4 s after the CTA started.
+__device__ __forceinline__ void cta_watchdog(uint64_t* done) {
+  mbar_wait(done, 0);
+}
+
 // ------------------------------------------------------------------ TMA
 // The box at coordinates (c0, c1, c2) = (column, row, slab) of `map`
 // into shared memory at `dst`; completes `bytes` on `bar`. Rows past the
 // map's row extent arrive as zeros.
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
                                             int c2) {
   asm volatile(
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
       : "memory");
 }
 
@@ -216,14 +268,21 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
 // `dst`, one box per column block (block b at dst + b * R * atom);
 // completes R * 2 * D bytes on `bar`. One thread issues it.
 template <int D, int R>
-__device__ __forceinline__ void tma_load_tile(uint8_t* dst,
+__device__ __forceinline__ void tma_load_tile(uint32_t dst,
                                               const CUtensorMap* map,
-                                              uint64_t* bar, int r0,
+                                              uint32_t bar, int r0,
                                               int slab) {
 #pragma unroll
   for (int b = 0; b < Rows<D>::blocks; ++b)
     tma_load_3d(dst + b * R * Rows<D>::atom, map, bar, b * Rows<D>::cols,
                 r0, slab);
+}
+template <int D, int R>
+__device__ __forceinline__ void tma_load_tile(uint8_t* dst,
+                                              const CUtensorMap* map,
+                                              uint64_t* bar, int r0,
+                                              int slab) {
+  tma_load_tile<D, R>(smem_u32(dst), map, smem_u32(bar), r0, slab);
 }
 
 // ------------------------------------------------------------- cp.async
@@ -256,6 +315,15 @@ template <int R>
 __device__ __forceinline__ void fence_operands(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// The same for register A fragments an asynchronous product still reads:
+// placed after its wait, it keeps them live (and unwritten) until then.
+template <int K>
+__device__ __forceinline__ void fence_operands(uint32_t (&a)[K][4]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[k][i])::"memory");
 }
 
 // Descriptor of a column block of a shared tile of head_dim-D rows
@@ -469,9 +537,44 @@ __device__ __forceinline__ void wgmma_rs_rows(float (&d)[D / 2],
 
 // ------------------------------------------------ consumer sync
 // Barrier `id` over the 256 threads of both consumer warpgroups (warps
-// 0-7; the producer warp does not take part).
+// 0-7; the producer does not take part).
 __device__ __forceinline__ void consumers_barrier(int id) {
   asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// Arrive at barrier `id` over the two consumer warpgroups without
+// waiting: the arriving warpgroup lets the other one pass its
+// `consumers_barrier(id)`.
+__device__ __forceinline__ void consumers_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// ----------------------------------------------- register reallocation
+template <uint32_t N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  static_assert(N >= 24 && N <= 256 && N % 8 == 0, "24..256, step 8");
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <uint32_t N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  static_assert(N >= 24 && N <= 256 && N % 8 == 0, "24..256, step 8");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// The register split of the 384-thread head-dim-128 bodies (see the note
+// at the top): the launch gives 168 a thread.
+constexpr int kWideThreads = 3 * 128;
+constexpr uint32_t kProducerRegs = 24, kConsumerRegs = 240;
+static_assert(128 * kProducerRegs + 256 * kConsumerRegs <=
+                  kWideThreads * 168,
+              "the consumers ask for no more than the producer frees");
+
+// This thread's warp index, which the compiler then knows is the same
+// across the warp (a broadcast from lane 0): what derives from it (the
+// warpgroup, its tiles' descriptors) can live in uniform registers and
+// leaves the vector registers to the accumulators.
+__device__ __forceinline__ int warp_index() {
+  return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 32, 0);
 }
 
 // ---------------------------------------------------- warpgroup sync

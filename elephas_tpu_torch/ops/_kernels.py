@@ -16,7 +16,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["library", "build", "check", "BUILD_DIR"]
+__all__ = ["library", "build", "check", "cuda_tool", "BUILD_DIR"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -36,6 +36,15 @@ def _nvcc() -> str:
     if not path.exists():
         raise RuntimeError("nvcc not found: the CUDA kernels are built on "
                            "a machine with the CUDA toolkit")
+    return str(path)
+
+
+def cuda_tool(name: str) -> str:
+    """The path of a CUDA toolkit program (``cuobjdump``, ...) beside
+    ``nvcc``."""
+    path = Path(_nvcc()).parent / name
+    if not path.exists():
+        raise RuntimeError(f"{name} not found beside nvcc")
     return str(path)
 
 

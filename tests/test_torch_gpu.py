@@ -8,7 +8,8 @@ elsewhere. On a machine with the card:
 The kernels are built from ``elephas_tpu_torch/csrc`` at first use.
 The flash kernels are held at head dim 64 over every case and at head
 dims 16 and 32 (the repo's other configurations) and 128 (most published
-LMs) over the GQA, window, ragged and offset cases; the paged kernel at
+LMs) over the GQA, window, ragged and offset cases, and at 128 over the
+edges of its 128-key tiles; the paged kernel at
 head dims 16, 32, 64 and 128 and block sizes 8 and 16 over every case
 (bf16 on its split body with groups of 1, 2 and 4, f32 and 8-way groups
 on its general body). The Keras layers, optimizers and schedules
@@ -118,11 +119,11 @@ _BWD_CASES = {
 }
 
 
-def _check_backward(cuda, case, dtype, d):
+def _check_backward(cuda, case, dtype, d, cases=_BWD_CASES):
     from elephas_tpu_torch.ops.flash_attention import (flash_backward,
                                                        flash_backward_plain,
                                                        flash_forward_plain)
-    b, h, kvh, sq, sk, causal, window, qo, ko = _BWD_CASES[case]
+    b, h, kvh, sq, sk, causal, window, qo, ko = cases[case]
     gen = torch.Generator(device=cuda).manual_seed(3)
     q, g = (torch.randn((b, h, sq, d), generator=gen, device=cuda)
             .to(dtype) for _ in range(2))
@@ -194,6 +195,84 @@ def test_flash_kernels_at_small_head_dims_match_plain(cuda, no_tf32,
     torch.testing.assert_close(o.float(), o_ref, atol=tol, rtol=0)
     torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
     _check_backward(cuda, case, dtype, head_dim)
+
+
+# the edges of the head-dim-128 bodies' tiles (128 keys in the forward's
+# K/V tiles and dK/dV's CTA, two warpgroups of 64 query or key rows):
+# key lengths one past a tile, inside one and one short of two; query
+# lengths where the second warpgroup holds one row or none; window edges
+# inside a tile and one past it; ring hops whose diagonal crosses a tile
+# and whose first query rows see no key; GQA 4/1 and 8/1
+_D128_EDGE_CASES = {
+    # (B, H, KVH, Sq, Sk, causal, window, q_offset, k_offset)
+    "sk_129": (2, 4, 4, 129, 129, True, None, 0, 0),
+    "sk_191": (1, 4, 4, 191, 191, True, None, 0, 0),
+    "sk_255_noncausal": (1, 4, 2, 100, 255, False, None, 0, 0),
+    "sq_65": (2, 4, 4, 65, 300, True, None, 235, 0),
+    "sq_129": (1, 4, 4, 129, 129, True, None, 0, 0),
+    "window_100": (1, 4, 4, 400, 400, True, 100, 0, 0),
+    "window_129": (1, 4, 2, 300, 300, True, 129, 0, 0),
+    "hop_crossing": (1, 4, 4, 200, 200, True, None, 256, 128),
+    "hop_first_rows_dead": (1, 4, 4, 150, 150, True, None, 100, 164),
+    "gqa4": (2, 8, 2, 255, 255, True, None, 0, 0),
+    "gqa8": (1, 8, 1, 191, 191, True, None, 0, 0),
+}
+
+
+def _d128_forward_inputs(case, dtype, device, seed=7):
+    b, h, kvh, sq, sk, causal, window, qo, ko = _D128_EDGE_CASES[case]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((b, h, sq, 128), generator=gen, device=device).to(dtype)
+    k, v = (torch.randn((b, kvh, sk, 128), generator=gen, device=device)
+            .to(dtype) for _ in range(2))
+    return q, k, v, qo, ko, causal, window
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(_D128_EDGE_CASES))
+def test_flash_fwd_at_head_dim_128_tile_edges_matches_plain(cuda, no_tf32,
+                                                            case, dtype):
+    """The forward kernel at head dim 128 against its plain version where
+    its 128-key tiles and 64-row warpgroups meet the causal diagonal,
+    the window's edge, ragged lengths and ring-hop offsets: O within
+    1e-4 (f32) or 2e-2 (bf16) and the LSE within 1e-3 of the f32 plain
+    version, O = 0 and LSE ~ -1e30 on rows that see no key."""
+    from elephas_tpu_torch.ops.flash_attention import (flash_forward,
+                                                       flash_forward_plain)
+    q, k, v, qo, ko, causal, window = _d128_forward_inputs(case, dtype,
+                                                            cuda)
+    before = flash_forward.launches
+    o, lse = flash_forward(q, k, v, qo, ko, causal, window)
+    assert flash_forward.launches == before + 1
+    o_ref, lse_ref = flash_forward_plain(q.float(), k.float(), v.float(),
+                                         qo, ko, causal, window)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert o.dtype == dtype and o.shape == q.shape
+    torch.testing.assert_close(o.float(), o_ref, atol=tol, rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
+    dead = lse_ref < -1e29
+    assert bool((lse[dead] < -1e29).all()) and bool((o[dead] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(_D128_EDGE_CASES))
+def test_flash_dkv_at_head_dim_128_tile_edges_matches_plain(cuda, no_tf32,
+                                                            case, dtype):
+    """dK/dV (and dQ) at head dim 128 over the same edges, with the
+    head-dim-64 tests' tolerances."""
+    _check_backward(cuda, case, dtype, 128, _D128_EDGE_CASES)
+
+
+@pytest.mark.parametrize("case", ["gqa4", "sq_65", "window_100",
+                                  "hop_first_rows_dead"])
+def test_flash_fwd_kernel_is_bit_reproducible_at_head_dim_128(cuda, case):
+    """Two forward launches at head dim 128 on the same bf16 inputs give
+    the same bits (the ping-pong turns order issue, not arithmetic)."""
+    from elephas_tpu_torch.ops.flash_attention import flash_forward
+    args = _d128_forward_inputs(case, torch.bfloat16, cuda)
+    (o1, l1), (o2, l2) = flash_forward(*args), flash_forward(*args)
+    assert torch.equal(o1.view(torch.int16), o2.view(torch.int16))
+    assert torch.equal(l1, l2)
 
 
 def _offset_views(shapes, offset, gen, device):
@@ -284,8 +363,8 @@ def test_flash_dkv_kernel_is_bit_reproducible(cuda, case):
 def test_flash_dkv_kernel_is_bit_reproducible_at_small_head_dims(
         cuda, head_dim, case):
     """No atomics at head dims 16, 32 and 128 either: two dK/dV launches
-    on the same bf16 inputs give the same bits (at 128 both warpgroups
-    recompute S^T and dP^T and each writes its own column block)."""
+    on the same bf16 inputs give the same bits (each warpgroup owns its
+    key rows and writes them alone)."""
     _assert_dkv_reproducible(_bwd_args(case, 6, cuda, head_dim))
 
 

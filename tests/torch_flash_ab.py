@@ -1,0 +1,86 @@
+"""The flash kernels and ``lm_d128`` in one tree: the A/B side of a tree.
+
+Times the bf16 flash forward, dK/dV and dQ beside SDPA with
+``chip_smoke``'s timer (``device_ms``: cold L2, median of 20 calls,
+device time alone) at the training shape (B 8, H 16, S 1024, causal) at
+head dims 128, 64, 32 and 16, and at ``lm_d128``'s fit shape (B 4, H 32
+over KVH 8, S 1024, window 4096) at 128, and prints them as one JSON
+line; then runs ``chip_smoke``'s ``lm_d128`` phase (``forward`` over 32
+layers, the paged engine, the 2-layer gradient and tokens, the 4-layer
+fit), which prints its own lines (``bf16_ms`` of ``forward``,
+``ms_per_step`` of the fit). A script, not a test: it needs the card.
+
+    python tests/torch_flash_ab.py [TREE]
+
+As in tests/torch_paged_serving_ab.py, ``chip_smoke`` and
+``elephas_tpu_torch`` are imported from TREE (by default this
+checkout). Copy this checkout's chip_smoke.py into the other tree, so
+that both sides use one timer, and run parent, change, change, parent
+on one card.
+"""
+import json
+import os
+import sys
+
+TREE = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), os.pardir))
+sys.path.insert(0, TREE)
+
+import torch  # noqa: E402
+
+import chip_smoke  # noqa: E402
+import elephas_tpu_torch  # noqa: E402
+from elephas_tpu_torch.ops import _kernels  # noqa: E402
+from elephas_tpu_torch.ops.flash_attention import (  # noqa: E402
+    flash_dkv, flash_dq, flash_forward, flash_forward_plain)
+
+# name: (B, H, KVH, S, window), causal, and the head dims timed there
+SHAPES = {"b8": ((8, 16, 16, 1024, None), (128, 64, 32, 16)),
+          "path": ((4, 32, 8, 1024, 4096), (128,))}
+
+
+def kernel_times(flush):
+    """{shape_d: {fwd, sdpa, dkv, dq}} in device ms."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for name, ((b, h, kvh, s, window), dims) in SHAPES.items():
+        for d in dims:
+            q, g = (torch.randn((b, h, s, d), generator=gen, device="cuda")
+                    .bfloat16() for _ in range(2))
+            k, v = (torch.randn((b, kvh, s, d), generator=gen,
+                                device="cuda").bfloat16() for _ in range(2))
+            gqa = {"enable_gqa": True} if kvh != h else {}
+            o, lse = flash_forward_plain(q, k, v, causal=True, window=window)
+            delta = (g.float() * o.float()).sum(-1)
+            args = (q, k, v, g, lse, delta, 0, 0, True, window)
+            out[f"{name}_d{d}"] = {
+                "fwd": chip_smoke.device_ms(lambda: flash_forward(
+                    q, k, v, causal=True, window=window), flush),
+                "sdpa": chip_smoke.device_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        q, k, v, is_causal=True, **gqa), flush),
+                "dkv": chip_smoke.device_ms(lambda: flash_dkv(*args), flush),
+                "dq": chip_smoke.device_ms(lambda: flash_dq(*args), flush)}
+            del q, k, v, g, o, lse, delta, args
+    return out
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_flash_ab needs a CUDA device")
+    pkg_tree = os.path.dirname(os.path.dirname(elephas_tpu_torch.__file__))
+    if pkg_tree != TREE:
+        raise SystemExit(f"imported {elephas_tpu_torch.__file__}, not "
+                         f"the package of {TREE}")
+    _kernels.library()
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    print(json.dumps({"tree": TREE, "card": chip_smoke.nvidia_smi(),
+                      **kernel_times(flush)}), flush=True)
+    del flush
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    chip_smoke.run_lm_d128()
+
+
+if __name__ == "__main__":
+    main()
