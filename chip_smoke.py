@@ -10,11 +10,15 @@ registers with their producer warpgroup at 24 and consumers at 240, as
 ptxas and the SASS's ``setmaxnreg`` show), holds each kernel against
 its plain PyTorch version at the shapes the main paths give it (the
 flash kernels at head dims 16, 32, 64 and 128, f32 and bf16, and at
-the head-dim-32 and head-dim-128 paths' own shapes, at 128 also at the
-edges of its 128-key tiles; the paged kernel at 16, 32, 64 and 128, the
+the head-dim-32, head-dim-96 and head-dim-128 paths' own shapes, at 128
+also at the edges of its 128-key tiles; at head dims 8, 24, 40, 72,
+80, 96 and 120, which run a wider body on columns TMA fills with zeros,
+over ragged lengths, GQA 4:1, a window edge and ring offsets, 96 and 80
+timed beside SDPA; the paged kernel at 16, 32, 64 and 128, the
 last at Mistral-7B's groups of 4, each bf16 call on its split-K body
 and each f32 call on its general body, as the wrapper's
-``split_launches`` count shows), checks that two launches of the
+``split_launches`` count shows, and at 96, Phi-3-mini's, every call on
+its general body), checks that two launches of the
 paged, forward, dQ and dK/dV kernels give the same bits, times one
 request's paged decode (B 1, pos 1000) on a line of its own, then
 drives the port's
@@ -33,6 +37,12 @@ layers (every bf16 paged launch on the split body; the paged kernels'
 device ms per decode step from a profiled window beside ``step()``'s
 p50), an f32 gradient and f32 greedy tokens against ``generate`` at
 2 layers, and ``fit_tokens`` at 4 (the cuts are printed with it).
+``lm_d96`` does the same at Phi-3-mini's widths (head dim 96 on the
+flash kernels' 128-wide bodies, 32 heads over 32 kv heads, d_ff 8192
+SwiGLU, RMSNorm, RoPE, window 2047, untied head, vocab 32064):
+``forward`` at B 2 x 2048 and the paged engine (every launch on the
+general body) over all 32 layers, an f32 gradient and f32 greedy
+tokens against the plain argmax at 2 layers, ``fit_tokens`` at 8.
 Then the Keras-style models through ``TPUModel(mode="synchronous")`` at
 the bench's MLP width (784-128-128-10) on 60,000 seeded rows of the
 tests' MNIST-like recipe: ``sync_mode="step"`` (samples/s beside a plain
@@ -192,10 +202,11 @@ def check_paged(flush):
     """The paged decode kernel against its plain version at the serving
     path's shapes: B 8, H 16, block 16, 64 blocks per row, a pool of 513
     blocks; shuffled tables and ragged positions; at head dims 64 (the
-    flagship's), 32, 16 and 128, each timed (d 128 at Mistral-7B's H 32
-    over KVH 8, the lm_d128 serving run's shape), every bf16 call on the
-    split body and every f32 call on the general one (``body`` per head
-    dim); then one request alone at d 64."""
+    flagship's), 32, 16, 128 and 96, each timed (d 128 at Mistral-7B's H
+    32 over KVH 8, the lm_d128 serving run's shape; d 96 at Phi-3-mini's
+    H = KVH 32, lm_d96's), every bf16 call on the split body and every
+    f32 call on the general one at 16-128, every call on the general body
+    at 96 (``body`` per head dim); then one request alone at d 64."""
     b, mb, nb = 8, 64, 513
     rng = np.random.default_rng(0)
     tables = rng.permutation(np.arange(1, nb))[:b * mb].reshape(b, mb)
@@ -205,7 +216,7 @@ def check_paged(flush):
     pos_t = torch.as_tensor(pos, dtype=torch.int32, device="cuda")
     by_d = {str(d): paged_at_head_dim(flush, d, tables_t, pos_t, pos, nb,
                                       *PAGED_TIMED_HEADS.get(d, (16, 16)))
-            for d in (64, 32, 16, 128)}
+            for d in (64, 32, 16, 128, 96)}
     single = check_paged_single_user(flush, nb)
     errs = {f"d{d}": t.pop("errors") for d, t in by_d.items()}
     results = {**by_d["64"],
@@ -221,8 +232,9 @@ def check_paged(flush):
 
 
 # the (H, KVH) each head dim's paged call is timed at: H = KVH 16 (the
-# flagship's), and at d 128 Mistral-7B's 32 over 8 (groups of 4)
-PAGED_TIMED_HEADS = {128: (32, 8)}
+# flagship's), at d 128 Mistral-7B's 32 over 8 (groups of 4), at d 96
+# Phi-3-mini's 32 over 32
+PAGED_TIMED_HEADS = {128: (32, 8), 96: (32, 32)}
 
 
 def paged_call_body(fn):
@@ -240,12 +252,14 @@ def paged_at_head_dim(flush, d, tables_t, pos_t, pos, nb, h_t, kvh_t):
     and positions, f32 and bf16 against the plain version; then, at
     ``h_t`` query over ``kvh_t`` kv heads (the main case where both are
     16), two bf16 launches bit-equal, held against the f32 plain version
-    and timed beside gather + SDPA and the bound."""
+    and timed beside gather + SDPA and the bound. bf16 calls take the
+    split body at its head dims, the general body at others."""
     from elephas_tpu_torch.models.transformer import _alibi_slope_list
     from elephas_tpu_torch.ops.paged_attention import (
-        paged_decode_attention, paged_decode_attention_plain)
+        SPLIT_HEAD_DIMS, paged_decode_attention, paged_decode_attention_plain)
 
     b, h, bs = tables_t.shape[0], 16, 16
+    bf16_body = "split" if d in SPLIT_HEAD_DIMS else "general"
     gen = torch.Generator(device="cuda").manual_seed(1)
     errs, bodies = {}, set()
     for name, (kvh, window, alibi) in PAGED_CASES.items():
@@ -266,9 +280,9 @@ def paged_at_head_dim(flush, d, tables_t, pos_t, pos, nb, h_t, kvh_t):
         torch.cuda.synchronize()
         e32, e16 = max_err(out32, ref), max_err(out16, ref16)
         what = f"paged {name} d {d}"
-        require(body16 == "split" and body32 == "general",
-                f"{what}: bf16 on the split body ({body16}), f32 on the "
-                f"general one ({body32})")
+        require(body16 == bf16_body and body32 == "general",
+                f"{what}: bf16 on the {bf16_body} body ({body16}), f32 on "
+                f"the general one ({body32})")
         bodies.update({("f32", body32), ("bf16", body16)})
         require(bool(torch.isfinite(out16.float()).all()),
                 f"{what} bf16 output finite")
@@ -290,8 +304,9 @@ def paged_at_head_dim(flush, d, tables_t, pos_t, pos, nb, h_t, kvh_t):
             q16.float(), k16.float(), v16.float(), tables_t, pos_t))
         require(e16 <= 2e-2, f"paged timed H {h_t} KVH {kvh_t} d {d} bf16 "
                              f"err {e16} <= 2e-2")
-        require(body16 == "split", f"paged timed H {h_t} KVH {kvh_t} d {d} "
-                                   f"bf16 on the split body: {body16}")
+        require(body16 == bf16_body,
+                f"paged timed H {h_t} KVH {kvh_t} d {d} bf16 on the "
+                f"{bf16_body} body: {body16}")
         errs["timed"] = {"bf16": e16}
     # no atomics, splits merged in index order: a second bf16 launch on
     # the same inputs gives the same bits
@@ -406,8 +421,15 @@ def check_paged_single_user(flush, nb):
 # three (64 the flagship, 32 examples/transformer_tpumodel.py, 16
 # examples/http_serving.py), and 128 is Mistral-7B's (the lm_d128 phase)
 HEAD_DIMS = (16, 32, 64, 128)
+# head dims that run a wider body, TMA filling the columns past the head
+# dim with zeros: 96 is Phi-3-mini's (the lm_d96 phase) and 80 Phi-2's
+# (both timed, on the 128-wide body); 8 (the repo's small LMs) on the
+# 16-wide body, 24 on 32, 40 (Stable Diffusion 1.x) on 64, 72 (DiT-XL/2)
+# and 120 on 128 are checked, not timed
+FILLED_HEAD_DIMS = (8, 24, 40, 72, 80, 96, 120)
+FILLED_TIMED = (96, 80)
 # the training path's shape, B 8 x H 16 x S 1024 (causal, bf16): every
-# head dim is timed there
+# body's head dim and the filled ones timed are timed there
 TIMED = (8, 16, 1024)
 # name: (B, H, KVH, Sq, Sk, causal, window, q_offset, k_offset), run at
 # every head dim
@@ -443,6 +465,20 @@ D128_CASES = {"lm_d128_fit": (4, 32, 8, 1024, 1024, True, 4096, 0, 0),
               "hop_first_rows_dead": (2, 16, 16, 150, 150, True, None,
                                       100, 164),
               "gqa8": (2, 32, 4, 191, 191, True, None, 0, 0)}
+# the cases at the filled head dims: ragged lengths under GQA 4:1, a
+# window edge inside a 128-key tile, a ring hop whose diagonal crosses a
+# tile, a one-row query tile past 128, non-causal ragged Sq and Sk
+FILLED_CASES = {"gqa4_ragged": (2, 16, 4, 1000, 1000, True, None, 0, 0),
+                "window_129": (2, 16, 8, 300, 300, True, 129, 0, 0),
+                "hop_crossing": (2, 16, 16, 200, 200, True, None, 256,
+                                 128),
+                "sq_129": (2, 16, 16, 129, 129, True, None, 0, 0),
+                "noncausal_ragged": (2, 16, 16, 1000, 777, False, None, 0,
+                                     0)}
+# the case at d 96 only: the lm_d96 phase's training batch (Phi-3-mini:
+# H = KVH 32, window 2047; B 2 x S 2048, so the window masks one pair,
+# inside the last key tile, of each head)
+D96_CASES = {"lm_d96_fit": (2, 32, 32, 2048, 2048, True, 2047, 0, 0)}
 # the d 128 bodies of the forward and dK/dV kernels: the kernel (a
 # fragment of its mangled name), the object it is built into, and the
 # body as chip_smoke names it
@@ -456,17 +492,25 @@ WIDE_BODIES = {
                   "384 threads (setmaxnreg), 128 key rows a CTA, 64 a "
                   "consumer warpgroup at the whole head dim")}
 # the case each head dim is timed at beside the training shape: d 32 at
-# its main path's (tpu_model_lm_d32's fit), d 128 at lm_d128's fit; d
-# 64's main path is the training shape; d 16 runs on no training path
-PATH_TIMED = {32: "tpumodel_fit", 128: "lm_d128_fit"}
-PATH_CASES = {32: D32_CASES, 128: D128_CASES}
+# its main path's (tpu_model_lm_d32's fit), d 128 at lm_d128's fit, d 96
+# at lm_d96's; d 64's main path is the training shape; d 16 and 80 run
+# on no training path
+PATH_TIMED = {32: "tpumodel_fit", 128: "lm_d128_fit", 96: "lm_d96_fit"}
+PATH_CASES = {32: D32_CASES, 128: D128_CASES, 96: D96_CASES}
+# every head dim a kernel phase checks, and those it times
+CHECKED_HEAD_DIMS = (*HEAD_DIMS, *FILLED_HEAD_DIMS)
+TIMED_HEAD_DIMS = (*HEAD_DIMS, *FILLED_TIMED)
 
 
 def flash_cases(extra=None):
-    """(head dim, name, case) over every head dim, then the d 32 and d
-    128 cases; ``extra`` cases join at every head dim."""
+    """(head dim, name, case) over every body's head dim, the filled
+    head dims' cases, then the d 32, d 96 and d 128 path cases;
+    ``extra`` cases join at every timed head dim."""
     cases = dict(FLASH_CASES, **(extra or {}))
+    filled = dict(FILLED_CASES, **(extra or {}))
     return [*((d, n, c) for d in HEAD_DIMS for n, c in cases.items()),
+            *((d, n, c) for d in FILLED_HEAD_DIMS for n, c in
+              (filled if d in FILLED_TIMED else FILLED_CASES).items()),
             *((d, n, c) for d, more in PATH_CASES.items()
               for n, c in more.items())]
 
@@ -538,14 +582,17 @@ def check_flash(flush):
     offsets, the training path's B 8, at d 32 the long-context
     configuration's case (GQA 8/2, window 48) and the tpu_model_lm_d32
     phase's shapes, and at d 128 the lm_d128 phase's training batch (H
-    32 over KVH 8, window 4096). Timed beside SDPA: at d 64 at both
-    main-path shapes, at d 32 and 128 at their paths' fit shapes, and at
-    every head dim at B 8."""
+    32 over KVH 8, window 4096); at the filled head dims 8, 24, 40, 72,
+    80, 96 and 120 over ``FILLED_CASES`` (d 96 and 80 also at B 8, d 96
+    at the lm_d96 phase's training batch, H 32, S 2048, window 2047).
+    Timed beside SDPA: at d 64 at both main-path shapes, at d 32, 96 and
+    128 at their paths' fit shapes, and at d 16-128 and 96 and 80 at B
+    8."""
     from elephas_tpu_torch.ops.flash_attention import (flash_forward,
                                                        flash_forward_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    errs, timed = {f"d{d}": {} for d in HEAD_DIMS}, {}
+    errs, timed = {f"d{d}": {} for d in CHECKED_HEAD_DIMS}, {}
     train = {"train": (*TIMED[:2], TIMED[1], TIMED[2], TIMED[2], True,
                        None, 0, 0)}
     for d, name, case in flash_cases(train):
@@ -597,8 +644,9 @@ def check_flash(flush):
         """The call and SDPA's under both timers: as issued (ms) and
         device time alone (device_ms); the plain version as issued."""
         b, h, s, d = q.shape
-        require(window is None or window >= s,
-                "a timed window spans the sequence (SDPA's causal mask)")
+        require(window is None or window >= s - 1,
+                "a timed window spans the sequence (SDPA's causal mask), "
+                "or all of it but the one pair (S - 1, 0) of each head")
         flops, nbytes, bound_ms, bound_by = causal_bound(
             b, h, s, d, kvh=k.shape[1], window=window)
         ms = time_ms(port(q, k, v, window), flush=flush)
@@ -635,10 +683,11 @@ def check_flash(flush):
     main = timing(q16, k16, v16, None, plain=True)
     # each head dim at its main path's shape (d 64: the train run's B 8,
     # 64 of its launches; d 32: the tpu_model_lm_d32 fit's B 16 x H 8 x S
-    # 128; d 128: the lm_d128 fit's B 4 x H 32 x KVH 8 x S 1024), and at
-    # the training shape (B 8) beside it
+    # 128; d 128: the lm_d128 fit's B 4 x H 32 x KVH 8 x S 1024; d 96: the
+    # lm_d96 fit's B 2 x H 32 x S 2048), and at the training shape (B 8)
+    # beside it
     by_d = {}
-    for d in HEAD_DIMS:
+    for d in TIMED_HEAD_DIMS:
         t = timing(*timed["train", d], plain=True)
         if d in PATH_TIMED:
             t = {**timing(*timed[PATH_TIMED[d], d], plain=True),
@@ -659,6 +708,9 @@ def check_flash(flush):
                    "bound_ms", "bound_by", "achieved_tflops",
                    "device_tflops")},
                "by_head_dim": by_d}
+    results["max_abs_err_by_head_dim"] = {
+        k: max(max(e.values()) for e in es.values())
+        for k, es in errs.items()}
     emit({"phase": "flash_kernel", "errors": errs, **results,
           "bit_reproducible": True,
           "shape": {"B": b_m, "H": h_m, "S": s_m, "D": 64, "causal": True,
@@ -682,13 +734,14 @@ def library_flash_backward(q, k, v, g):
 
 def check_flash_bwd(flush):
     """The dQ and dK/dV kernels against their plain versions over the
-    forward phase's cases at head dims 16, 32, 64 and 128 (and the d 32
-    and d 128 cases), with the same lse/delta: f32, and bf16 against the
-    f32 plain version on bf16-rounded inputs. Then, at the training shape
-    (B 8, H 16, S 1024, causal, bf16) at every head dim and at d 32 and
-    128 at their paths' fit shapes, each is held against its plain
-    version on the operands it is timed on, and two dQ and two dK/dV
-    launches there must give the same bits."""
+    forward phase's cases at head dims 16, 32, 64 and 128, at the filled
+    head dims 8, 24, 40, 72, 80, 96 and 120 (and the d 32, d 96 and d
+    128 cases), with the same lse/delta: f32, and bf16 against the f32
+    plain version on bf16-rounded inputs. Then, at the training shape
+    (B 8, H 16, S 1024, causal, bf16) at every timed head dim and at d
+    32, 96 and 128 at their paths' fit shapes, each is held against its
+    plain version on the operands it is timed on, and two dQ and two
+    dK/dV launches there must give the same bits."""
     from elephas_tpu_torch.ops.flash_attention import (
         flash_backward, flash_backward_plain, flash_forward_plain)
 
@@ -697,7 +750,7 @@ def check_flash_bwd(flush):
     # order; bf16 P and dS enter their products in bf16 (the TPU
     # kernels' casts) over up to 1024 terms
     tol = {"f32": 1e-4, "bf16": 2e-2}
-    errs = {f"d{d}": {} for d in HEAD_DIMS}
+    errs = {f"d{d}": {} for d in CHECKED_HEAD_DIMS}
     for d, name, case in flash_cases():
         b, h, kvh, sq, sk, causal, window, qo, ko = case
         shape_q, shape_k = (b, h, sq, d), (b, kvh, sk, d)
@@ -736,7 +789,7 @@ def check_flash_bwd(flush):
         errs[f"d{d}"][name] = e
     by_d = {}
     train = (TIMED[0], TIMED[1], TIMED[1], TIMED[2], None)
-    for d in HEAD_DIMS:
+    for d in TIMED_HEAD_DIMS:
         t = bwd_timed(gen, d, train, "train", flush, tol, errs[f"d{d}"])
         if d in PATH_TIMED:
             name = PATH_TIMED[d]
@@ -746,11 +799,18 @@ def check_flash_bwd(flush):
             t = {part: {**path[part], "at_training_shape": t[part]}
                  for part in t}
         by_d[str(d)] = t
+    grads = {"dq": ("dq",), "dkv": ("dk", "dv")}
     results = {part: {**by_d["64"][part],
                       "max_abs_err": max(t[part]["max_abs_err"]
                                          for t in by_d.values()),
                       "max_abs_err_f32": max(t[part]["max_abs_err_f32"]
                                              for t in by_d.values()),
+                      "max_abs_err_by_head_dim": {
+                          dk: max(err for e in es.values()
+                                  for key, err in e.items()
+                                  if key.split("_")[0] in grads[part]
+                                  and not key.endswith("_rel"))
+                          for dk, es in errs.items()},
                       "by_head_dim": {k: t[part] for k, t in by_d.items()}}
                for part in ("dq", "dkv")}
     emit({"phase": "flash_bwd_kernels", "errors": errs, **results,
@@ -806,8 +866,9 @@ def bwd_timed(gen, d, case, label, flush, tol, errs):
                 f"bit-equal outputs")
         del first, second, pairs
     # the library backward takes no GQA: k/v expanded outside the timing;
-    # a window at least the length is its causal mask
-    require(window is None or window >= s, "a timed window spans S")
+    # a window at least the length is its causal mask (S - 1 leaves it
+    # one pair of each head's)
+    require(window is None or window >= s - 1, "a timed window spans S")
     k_lib, v_lib = (t.repeat_interleave(h // kvh, dim=1).contiguous()
                     for t in (k, v))
     ms = {"dq": time_ms(lambda: flash_dq(*args), flush=flush),
@@ -993,10 +1054,12 @@ def paged_device_per_decode_step(params, cfg, prompts, steps=8):
     device ms per step and the heaviest entries by name (``top``), host
     ms per step of 8 untraced steps just before the traced window (the
     profiler slows the host, not the device), and the bodies'
-    launches."""
+    launches: every one on the split body at a head dim it takes
+    (``SPLIT_HEAD_DIMS``, bf16), on the general body otherwise."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from elephas_tpu_torch.ops.paged_attention import SPLIT_HEAD_DIMS
     from elephas_tpu_torch.profile_serving import device_breakdown
     from elephas_tpu_torch.serving_engine import DecodeEngine
 
@@ -1013,23 +1076,27 @@ def paged_device_per_decode_step(params, cfg, prompts, steps=8):
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) / steps * 1e3
     reset_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    # device activity only: nothing here reads the host's op events
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
     counts = read_counts()
     decode_steps = counts["paged_decode"] / cfg.num_layers
-    require(decode_steps > 0 and counts["paged_split"]
-            == counts["paged_decode"],
-            f"the profiled window ran the split body: {counts}")
+    split = (counts["paged_decode"] if cfg.head_dim in SPLIT_HEAD_DIMS
+             else 0)
+    require(decode_steps > 0 and counts["paged_split"] == split,
+            f"the profiled window ran the body for d {cfg.head_dim}: "
+            f"{counts}")
     breakdown = device_breakdown(prof, steps, host_ms, top=8)
     paged_ms = sum(e.device_time_total for e in prof.events()
                    if e.device_type == DeviceType.CUDA
                    and "paged_" in e.name) / 1e3
     require(paged_ms > 0, "the profiler saw the paged kernels' device time")
     del eng
-    return {"paged_device_ms_per_decode_step": paged_ms / decode_steps,
+    return {"profile_s": time.perf_counter() - t0,
+            "paged_device_ms_per_decode_step": paged_ms / decode_steps,
             "paged_device_ms_per_launch":
                 paged_ms / counts["paged_decode"],
             "decode_steps": decode_steps, "step_calls": steps,
@@ -1677,7 +1744,9 @@ def run_lm_d128():
     rng = np.random.default_rng(4)
     lengths = rng.integers(64, 513, 16)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
+    t0 = time.perf_counter()
     serve(params, cfg, prompts[:2], "fused", max_new=4)      # warm-up
+    warmup_s = time.perf_counter() - t0
     reset_counts()
     outs, info = serve(params, cfg, prompts, "fused", timed=True)
     torch.cuda.synchronize()
@@ -1695,7 +1764,9 @@ def run_lm_d128():
         0 <= x < cfg.vocab_size for o in outs for x in o),
         "bf16: 64 tokens each, in the vocabulary")
     gc.collect()
+    t0 = time.perf_counter()
     window = paged_device_per_decode_step(params, cfg, prompts)
+    window_s = time.perf_counter() - t0
     emit({
         "phase": "lm_d128_serving", "requests": len(prompts),
         "prompt_lengths": [int(n) for n in lengths], "max_new_tokens": 64,
@@ -1704,7 +1775,9 @@ def run_lm_d128():
         "step_ms_p50": info["step_ms_p50"],
         "paged_device_ms_per_decode_step":
             window["paged_device_ms_per_decode_step"],
-        "profiled_window": window, "launches": counts["serving"]})
+        "profiled_window": window, "launches": counts["serving"],
+        "seconds": {"warm_up": warmup_s, "timed": info["wall_s"],
+                    "profiled_window": window_s}})
     # the engines sit in reference cycles: collect them, and the 29 GB of
     # parameters they hold, before the next part allocates
     del params
@@ -1774,6 +1847,236 @@ def run_lm_d128():
         "flops_per_token": fpt, "mfu": fpt * tok_s / PEAK_BF16_FLOPS,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "launches": counts["train"],
+        "launches_per_step": {k: counts["train"][k] / steps
+                              for k in ("flash_fwd", "flash_dq",
+                                        "flash_dkv")},
+        "phase_seconds": time.perf_counter() - t_phase})
+    del model
+    free_memory()
+    return counts
+
+
+# lm_d96 runs PHI3_MINI (models/transformer.py); the cuts of scale,
+# printed with the phase
+LM_D96_REDUCED = [
+    "training (d) runs 8 of the 32 layers: AdamW over f32 parameters "
+    "takes 16 bytes a parameter, 61 GB for 3.82 B beside the activations "
+    "of B 2 x 2048 (1.11 B at 8 layers, about 18 GB)",
+    "the f32 gradient and greedy checks (c) run 2 of the 32 layers at B 1 "
+    "x 512 (an f32 graph of all 32 is the training case's memory again)",
+    "max_seq_len 2048 of 4096: no sequence here is longer; at T 2048 the "
+    "2047 window masks one pair of each head, inside the last key tile",
+    "weights random from a seed: nothing is downloaded"]
+
+
+def lm_d96_config(num_layers=32):
+    from elephas_tpu_torch.models.transformer import (PHI3_MINI,
+                                                      TransformerConfig)
+
+    return TransformerConfig(**dict(PHI3_MINI, num_layers=num_layers))
+
+
+def run_lm_d96():
+    """The LM at Phi-3-mini's widths (head dim 96: the flash kernels run
+    it on their 128-wide bodies, columns 96-127 of each tile filled with
+    zeros by TMA; the paged kernel on its general body): (a) ``forward``
+    at B 2 x T 2048 over all 32 layers, bf16 over f32 parameters, one
+    flash forward launch per layer, its f32 logits against the plain
+    path's; (b) the paged ``DecodeEngine`` with the fused kernel over all
+    32 layers serving 16 requests (64-512 prompt tokens, 64 new each),
+    every paged launch on the general body, then a profiled window of 8
+    steps: the general body's device ms per decode step beside
+    ``step()``'s p50; (c) at 2 layers an f32 ``lm_loss`` gradient
+    through the f32 kernels against the plain path (B 1 x 512), and the
+    f32 paged engine's greedy tokens against the plain f32 forward's
+    argmax (tie-aware); (d) ``TransformerModel.fit_tokens`` at 8 layers,
+    bf16 over f32, AdamW 3e-4, B 2 x 2048, 2 epochs on Zipf rows: the
+    loss falls and all three flash kernels run once per layer and step.
+    Each part prints its line as it ends. Returns the launch counts of
+    (a), (b), (c) and (d)."""
+    from elephas_tpu_torch.models.optimizers import AdamW
+    from elephas_tpu_torch.models.transformer import (PHI3_MINI, forward,
+                                                      init_params)
+    from elephas_tpu_torch.models.transformer_model import TransformerModel
+    from elephas_tpu_torch.serving_engine import DecodeEngine
+    from elephas_tpu_torch.weights import tree_leaves
+
+    t_phase = time.perf_counter()
+    counts = {}
+    free_memory()
+    cfg = lm_d96_config()
+    require(cfg.head_dim == 96 and cfg.num_heads == cfg.kv_heads,
+            f"head dim {cfg.head_dim}, {cfg.num_heads} heads over "
+            f"{cfg.kv_heads}")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    emit({"phase": "lm_d96",
+          "config": {**PHI3_MINI, "head_dim": cfg.head_dim,
+                     "source": "microsoft/Phi-3-mini-4k-instruct "
+                               "config.json"},
+          "params": sum(t.numel() for t in tree_leaves(params)),
+          "init_s": init_s, "reduced": LM_D96_REDUCED})
+
+    # (a) forward, all 32 layers: f32 flash against f32 plain, then the
+    # bf16 main-path run
+    b, t = 2, 2048
+    tokens = torch.as_tensor(
+        np.random.default_rng(3).integers(0, cfg.vocab_size, (b, t)),
+        device="cuda")
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    flash32 = forward(params, tokens, dataclasses.replace(
+        c32, attention_impl="flash"))
+    plain32 = forward(params, tokens, dataclasses.replace(
+        c32, attention_impl="xla"))
+    scale = float(plain32.abs().max())
+    err = max_err(flash32, plain32)
+    del flash32, plain32
+    require(err <= 1e-4 * max(scale, 1.0),
+            f"f32 logits flash vs plain err {err} <= 1e-4 * {scale}")
+    c16 = dataclasses.replace(cfg, attention_impl="flash")
+    reset_counts()
+    logits = forward(params, tokens, c16)
+    torch.cuda.synchronize()
+    counts["forward"] = read_counts()
+    require(logits.shape == (b, t, cfg.vocab_size)
+            and bool(torch.isfinite(logits).all()), "bf16 logits finite")
+    require(counts["forward"]["flash_fwd"] == cfg.num_layers,
+            f"forward launched the d 96 flash kernel once per layer: "
+            f"{counts['forward']}")
+    del logits
+    t0 = time.perf_counter()
+    reps = 3
+    for _ in range(reps):
+        forward(params, tokens, c16)
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t0) / reps
+    emit({
+        "phase": "lm_d96_forward", "batch": b, "seq": t,
+        "layers": cfg.num_layers,
+        "f32_flash_vs_plain_max_abs_err": err, "f32_logit_scale": scale,
+        "tolerance": "1e-4 x max(|logit|, 1)", "bf16_ms": sec * 1e3,
+        "bf16_tokens_per_s": b * t / sec, "launches": counts["forward"],
+        "launches_by_body": {"flash_fwd": {
+            "bf16_width_128": counts["forward"]["flash_fwd"]}}})
+
+    # (b) the paged engine, fused, all 32 layers, the flagship serving
+    # phase's traffic, on the paged kernel's general body (12 lanes of 16
+    # bytes a key row do not tile the split body's 128 threads)
+    rng = np.random.default_rng(4)
+    lengths = rng.integers(64, 513, 16)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
+    t0 = time.perf_counter()
+    serve(params, cfg, prompts[:2], "fused", max_new=4)      # warm-up
+    warmup_s = time.perf_counter() - t0
+    reset_counts()
+    outs, info = serve(params, cfg, prompts, "fused", timed=True)
+    torch.cuda.synchronize()
+    counts["serving"] = read_counts()
+    require(counts["serving"]["paged_decode"] > 0
+            and counts["serving"]["paged_decode"]
+            == info["stats"]["kernel_launches"],
+            f"the serving run launched the paged kernel at D 96: "
+            f"{counts['serving']}, {info['stats']['kernel_launches']}")
+    require(counts["serving"]["paged_split"] == 0,
+            f"every paged launch at D 96 took the general body: "
+            f"{counts['serving']}")
+    require(all(len(o) == 64 for o in outs) and all(
+        0 <= x < cfg.vocab_size for o in outs for x in o),
+        "bf16: 64 tokens each, in the vocabulary")
+    gc.collect()
+    t0 = time.perf_counter()
+    window = paged_device_per_decode_step(params, cfg, prompts)
+    window_s = time.perf_counter() - t0
+    emit({
+        "phase": "lm_d96_serving", "requests": len(prompts),
+        "prompt_lengths": [int(n) for n in lengths], "max_new_tokens": 64,
+        "layers": cfg.num_layers,
+        "bf16": {k: v for k, v in info.items() if k != "stats"},
+        "step_ms_p50": info["step_ms_p50"],
+        "paged_device_ms_per_decode_step":
+            window["paged_device_ms_per_decode_step"],
+        "profiled_window": window, "launches": counts["serving"],
+        "seconds": {"warm_up": warmup_s, "timed": info["wall_s"],
+                    "profiled_window": window_s},
+        "launches_by_body": {"paged_decode": {
+            "general": counts["serving"]["paged_decode"]
+            - counts["serving"]["paged_split"],
+            "split": counts["serving"]["paged_split"]}}})
+    # the engines sit in reference cycles: collect them, and the 15 GB of
+    # parameters they hold, before the next part allocates
+    del params
+    free_memory()
+
+    # (c) 2 layers: the f32 gradient through the f32 kernels, and the f32
+    # paged engine's greedy tokens against the plain forward's argmax
+    cfg2 = lm_d96_config(num_layers=2)
+    params2 = init_params(cfg2, torch.Generator(device="cuda").manual_seed(1),
+                          device="cuda")
+    reset_counts()
+    run_train_parity(params2, cfg2, shape=(1, 512), phase="lm_d96_grad")
+    counts["grad"] = read_counts()
+    require(all(counts["grad"][k] > 0
+                for k in ("flash_fwd", "flash_dq", "flash_dkv")),
+            f"the f32 gradient ran the three f32 kernels: {counts['grad']}")
+    c32 = dataclasses.replace(cfg2, dtype=torch.float32)
+    greedy_prompts = [rng.integers(0, cfg2.vocab_size, n).tolist()
+                      for n in (37, 120, 300)]
+    eng = DecodeEngine(params2, c32, max_slots=4, paged=(96, 16),
+                       kernel="fused", device="cuda")
+    engine_out = eng.run(greedy_prompts, 16)
+    ref = [greedy_plain(params2, cfg2, p, 16) for p in greedy_prompts]
+    ties = tie_aware_equal(params2, cfg2, greedy_prompts, ref, engine_out)
+    require(eng.stats["kernel_launches"] > 0,
+            "the f32 engine launched the paged kernel")
+    emit({
+        "phase": "lm_d96_f32_greedy", "layers": 2,
+        "prompt_lengths": [len(p) for p in greedy_prompts],
+        "new_tokens": 16,
+        "equal_rows": sum(a == b_ for a, b_ in zip(ref, engine_out)),
+        "near_tie_divergences": ties,
+        "paged_launches": eng.stats["kernel_launches"]})
+    del params2, eng
+    free_memory()
+
+    # (d) fit_tokens at 8 layers, bf16 over f32, AdamW 3e-4
+    cfg8 = lm_d96_config(num_layers=8)
+    batch, seq, rows, epochs = 2, 2048, 8, 2
+    tokens = zipf_tokens(np.random.default_rng(7), cfg8.vocab_size,
+                         (rows, seq))
+    model = TransformerModel(cfg8, device="cuda").compile(
+        AdamW(3e-4, epsilon=1e-8, weight_decay=1e-4, decay_1d=True), seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    hist = model.fit_tokens(tokens, epochs=epochs, batch_size=batch, seed=0)
+    torch.cuda.synchronize()
+    counts["train"] = read_counts()
+    steps = epochs * (rows // batch)
+    losses = hist["loss"]
+    require(all(np.isfinite(losses)) and losses[1] < losses[0],
+            f"the d 96 LM's loss falls: {losses}")
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        require(counts["train"][name] == cfg8.num_layers * steps,
+                f"{name} launched {cfg8.num_layers} times per step: "
+                f"{counts['train']}")
+    step_s = hist["epoch_time"][1] / (rows // batch)
+    tok_s = batch * seq / step_s
+    fpt = flops_per_token(cfg8, seq)
+    emit({
+        "phase": "lm_d96_train", "layers": 8, "batch": batch, "seq": seq,
+        "steps": steps,
+        "params": sum(t.numel() for t in tree_leaves(model.params)),
+        "epoch_losses": losses, "epoch_time_s": hist["epoch_time"],
+        "ms_per_step": step_s * 1e3, "tokens_per_s": tok_s,
+        "flops_per_token": fpt, "mfu": fpt * tok_s / PEAK_BF16_FLOPS,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "launches": counts["train"],
+        "launches_by_body": {
+            name: {"bf16_width_128": counts["train"][name],
+                   "f32_in_the_gradient_check": counts["grad"][name]}
+            for name in ("flash_fwd", "flash_dq", "flash_dkv")},
         "launches_per_step": {k: counts["train"][k] / steps
                               for k in ("flash_fwd", "flash_dq",
                                         "flash_dkv")},
@@ -2894,6 +3197,16 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_run = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        # each phase's wall seconds, printed in one line at the end
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
+
     smi = nvidia_smi()
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
@@ -2919,44 +3232,50 @@ def main() -> int:
 
     # a buffer past the 50 MB L2, overwritten before each timed call
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    paged = check_paged(flush)
-    flash = check_flash(flush)
-    bwd = check_flash_bwd(flush)
+    paged = timed("paged_kernel", check_paged, flush)
+    flash = timed("flash_kernel", check_flash, flush)
+    bwd = timed("flash_bwd_kernels", check_flash_bwd, flush)
     del flush
 
     cfg = TransformerConfig(**FLAGSHIP)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          device="cuda")
-    fwd_counts = run_forward(params, cfg)
-    srv_counts = run_serving(params, cfg)
-    flag_counts = run_http_serving_flagship(params, cfg)
-    run_train_parity(params, cfg)
+    fwd_counts = timed("forward", run_forward, params, cfg)
+    srv_counts = timed("serving", run_serving, params, cfg)
+    flag_counts = timed("http_serving_flagship", run_http_serving_flagship,
+                        params, cfg)
+    timed("train_parity", run_train_parity, params, cfg)
     del params
-    train_counts = run_train(cfg)
-    d128 = run_lm_d128()
+    train_counts = timed("train", run_train, cfg)
+    d128 = timed("lm_d128", run_lm_d128)
+    d96 = timed("lm_d96", run_lm_d96)
 
     data = (mnist_like(60000, seed=0), mnist_like(10000, seed=1))
-    sync_samples_s, sync_tpu_model = run_keras_sync_step(data)
-    run_keras_sync_average(data)
+    sync_samples_s, sync_tpu_model = timed(
+        "keras_sync_step", run_keras_sync_step, data)
+    timed("keras_sync_average", run_keras_sync_average, data)
     reset_counts()
-    run_keras_async(data, sync_samples_s)
+    timed("keras_async", run_keras_async, data, sync_samples_s)
     async_counts = read_counts()
     require(not any(async_counts.values()),
             f"no async path launches a kernel: {async_counts}")
     reset_counts()
-    run_keras_persist(data, sync_tpu_model)
+    timed("keras_persist", run_keras_persist, data, sync_tpu_model)
     persist_counts = read_counts()
     require(not any(persist_counts.values()),
             f"no Keras persistence path launches a kernel: {persist_counts}")
     reset_counts()
-    run_keras_layers(data)
+    timed("keras_layers", run_keras_layers, data)
     layers_counts = read_counts()
     require(not any(layers_counts.values()),
             f"no Keras layer path launches a kernel: {layers_counts}")
-    lm_counts = run_tpu_model_lm(cfg)
-    d32_counts, resumed_counts, loaded_counts = run_tpu_model_lm_d32()
-    d16_counts = run_forward_d16()
-    ex_counts = run_http_serving_example()
+    lm_counts = timed("tpu_model_lm", run_tpu_model_lm, cfg)
+    d32_counts, resumed_counts, loaded_counts = timed(
+        "tpu_model_lm_d32", run_tpu_model_lm_d32)
+    d16_counts = timed("forward_d16", run_forward_d16)
+    ex_counts = timed("http_serving_example", run_http_serving_example)
+    emit({"phase": "seconds", "phases": seconds,
+          "total": time.perf_counter() - t_run})
 
     # max_abs_err: the largest error of any comparison this run made for
     # the kernel, f32 and bf16, at the main paths' shapes included; the
@@ -2975,7 +3294,8 @@ def main() -> int:
              "keras_layers": layers_counts,
              "http_serving_example": ex_counts,
              "http_serving_flagship": flag_counts,
-             **{f"lm_d128_{part}": c for part, c in d128.items()}}
+             **{f"lm_d128_{part}": c for part, c in d128.items()},
+             **{f"lm_d96_{part}": c for part, c in d96.items()}}
     kernels = [
         {"name": "paged_decode", "route": "cuda",
          "source": "elephas_tpu_torch/csrc/paged_decode.cu",
@@ -3014,12 +3334,14 @@ def main() -> int:
         # d 32 tpu_model_lm_d32's three (the first fit with its predict
         # and evaluate, the resumed fit, the loaded model's predict),
         # d 16 forward_d16 and http_serving_example, d 128 lm_d128's four
-        # (forward, serving, the f32 gradient, the fit)
+        # (forward, serving, the f32 gradient, the fit), d 96 lm_d96's
+        # four; no driven path runs d 80: its launches are null
         launches = {"16": d16_counts[name] + ex_counts[name],
                     "32": d32_counts[name] + resumed_counts[name]
                     + loaded_counts[name],
                     "64": entry["launches"] - ex_counts[name],
-                    "128": sum(c[name] for c in d128.values())}
+                    "128": sum(c[name] for c in d128.values()),
+                    "96": sum(c[name] for c in d96.values())}
         if name == "paged_decode":
             split = {"16": d16_counts["paged_split"]
                      + ex_counts["paged_split"],
@@ -3028,10 +3350,12 @@ def main() -> int:
                      + loaded_counts["paged_split"],
                      "64": srv_counts["paged_split"]
                      + flag_counts["paged_split"],
-                     "128": sum(c["paged_split"] for c in d128.values())}
+                     "128": sum(c["paged_split"] for c in d128.values()),
+                     "96": sum(c["paged_split"] for c in d96.values())}
         entry["by_head_dim"] = {
             d: {**{k: t[k] for k in (*keys, "shape", "body") if k in t},
-                "launches": launches[d],
+                **({"launches": launches[d]} if d in launches
+                   else {"launches": None, "driven_path": None}),
                 **({"split_launches": split[d],
                     "general_launches": launches[d] - split[d]}
                    if name == "paged_decode" else {}),
@@ -3044,6 +3368,17 @@ def main() -> int:
         if name in WIDE_BODIES:
             entry["by_head_dim"]["128"].update(
                 body=WIDE_BODIES[name][2], registers=wide[name])
+        if name != "paged_decode":
+            # d 96 and 80 on the 128-wide bodies, columns past the head
+            # dim filled with zeros; the other multiples of 8 checked
+            for d in map(str, FILLED_TIMED):
+                entry["by_head_dim"][d]["body"] = (
+                    "the 128-wide body, columns past the head dim "
+                    "zero-filled by TMA")
+            entry["checked_not_timed"] = {
+                str(d): {"max_abs_err":
+                         results["max_abs_err_by_head_dim"][f"d{d}"]}
+                for d in FILLED_HEAD_DIMS if d not in FILLED_TIMED}
     print(nvidia_smi(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

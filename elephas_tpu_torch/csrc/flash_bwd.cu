@@ -25,16 +25,25 @@
 //   group's query heads and, for each, over the q tiles that can see
 //   this k tile (the kv-major grid of `_bwd_calls`), keeping dK and dV
 //   in registers, written once.
-// Every body is instantiated at head_dim 16, 32, 64 and 128 (hopper.cuh
+// Every body is instantiated at widths 16, 32, 64 and 128 (hopper.cuh
 // `with_head_dim`): 16, 32 and 64 are the head dims of the repo's
-// configurations, 128 that of most published LMs. Bodies:
+// configurations, 128 that of most published LMs. A head dim d that is a
+// multiple of 8 up to 128 runs the body of the smallest width W >= d (96,
+// Phi-3-mini's, and 72-120 on W 128; 40-56 on W 64; 24 on W 32; 8 on W
+// 16): the tensor maps hold d, TMA fills each tile's columns d .. W - 1
+// with zeros, and the products run at W. Zero columns of Q, K, V and dO
+// add nothing to S or dP and give zero columns of dQ = dS K, dK = dS^T Q
+// and dV = P^T dO, which the stores drop: only each row's first d
+// columns are written. The f32 bodies load zeros past d and store
+// columns below it. The tensor cores then do W / d times the work of d
+// (1.33x at 96); the bytes read stay those of d. Bodies:
 // - dK/dV, bf16 (the working type): CTAs of the first k tiles (the most
 //   live q tiles under causal masking) scheduled first. One producer
 //   warp TMA-loads K and V once and then, per live q tile, Q and dO
 //   into a 6-stage ring of shared memory guarded by full/empty
 //   mbarriers; its lanes stage that tile's lse (times log2 e) and delta
 //   beside them (a 1-D bulk copy would need 16-byte aligned rows, which
-//   a ragged Sq does not give). A tile row is the head's 2*D bytes in
+//   a ragged Sq does not give). A tile row is the body's 2*W bytes in
 //   the swizzle of that width (128, 64 or 32 bytes; hopper.cuh `Rows`).
 //   Two consumer warpgroups of 64 key rows compute S^T = K Q^T and dP^T
 //   = V dO^T with wgmma m64n64k16 (D/16 k steps) from shared memory,
@@ -202,17 +211,19 @@ __device__ __forceinline__ void accumulate4(float (&acc)[4][D / 16],
   }
 }
 
+// The thread's 4 x (D/16) block of an accumulator -> rows of `out` (hd
+// values a row), rows past `limit` and columns past hd dropped.
 template <int D>
 __device__ __forceinline__ void write4(const float (&acc)[4][D / 16],
                                        float* out, int row0, int limit,
-                                       int ty, int tx) {
+                                       int hd, int ty, int tx) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = row0 + ty * 4 + i;
     if (r >= limit) continue;
 #pragma unroll
     for (int j = 0; j < D / 16; ++j)
-      out[(size_t)r * D + tx + 16 * j] = acc[i][j];
+      if (tx + 16 * j < hd) out[(size_t)r * hd + tx + 16 * j] = acc[i][j];
   }
 }
 
@@ -225,8 +236,8 @@ __global__ void __launch_bounds__(THREADS)
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         float* __restrict__ dq, int H, int KVH, int Sq,
-                        int Sk, int q_offset, int k_offset, int causal,
-                        int window, float scale) {
+                        int Sk, int hd, int q_offset, int k_offset,
+                        int causal, int window, float scale) {
   using L = F32Layout<D>;
   extern __shared__ float smem_f[];
   const F32Smem<D> sm(smem_f);
@@ -237,9 +248,10 @@ __global__ void __launch_bounds__(THREADS)
   const int kv_row = (bh / H) * KVH + h / (H / KVH);
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 
-  stage_rows<D, L::LD, THREADS>(Qs, q + (size_t)bh * Sq * D, q0, BQ, Sq);
-  stage_rows<D, L::LD, THREADS>(dOs, dout + (size_t)bh * Sq * D, q0, BQ,
-                                Sq);
+  stage_rows<D, L::LD, THREADS>(Qs, q + (size_t)bh * Sq * hd, q0, BQ, Sq,
+                                hd);
+  stage_rows<D, L::LD, THREADS>(dOs, dout + (size_t)bh * Sq * hd, q0, BQ,
+                                Sq, hd);
   stage_stats<THREADS>(sm.lse, sm.delta, lse + (size_t)bh * Sq,
                        delta + (size_t)bh * Sq, q0, Sq);
   float acc[4][D / 16];
@@ -255,10 +267,10 @@ __global__ void __launch_bounds__(THREADS)
                    causal, window))
       continue;
     __syncthreads();
-    stage_rows<D, L::LD, THREADS>(Ks, k + (size_t)kv_row * Sk * D, k0, BK,
-                                  Sk);
-    stage_rows<D, L::LD, THREADS>(Vs, v + (size_t)kv_row * Sk * D, k0, BK,
-                                  Sk);
+    stage_rows<D, L::LD, THREADS>(Ks, k + (size_t)kv_row * Sk * hd, k0, BK,
+                                  Sk, hd);
+    stage_rows<D, L::LD, THREADS>(Vs, v + (size_t)kv_row * Sk * hd, k0, BK,
+                                  Sk, hd);
     __syncthreads();
     float s[4][4], dp[4][4];
     dots4x4<D>(Qs, Ks, dOs, Vs, ty, tx, s, dp);
@@ -280,7 +292,7 @@ __global__ void __launch_bounds__(THREADS)
     __syncthreads();
     accumulate4<D>(acc, sm.ds, Ks, ty, tx);   // dQ += dS K
   }
-  write4<D>(acc, dq + (size_t)bh * Sq * D, q0, Sq, ty, tx);
+  write4<D>(acc, dq + (size_t)bh * Sq * hd, q0, Sq, hd, ty, tx);
 }
 
 template <int D>
@@ -292,8 +304,8 @@ __global__ void __launch_bounds__(THREADS)
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          float* __restrict__ dk, float* __restrict__ dv,
-                         int H, int KVH, int Sq, int Sk, int q_offset,
-                         int k_offset, int causal, int window,
+                         int H, int KVH, int Sq, int Sk, int hd,
+                         int q_offset, int k_offset, int causal, int window,
                          float scale) {
   using L = F32Layout<D>;
   extern __shared__ float smem_f[];
@@ -305,8 +317,10 @@ __global__ void __launch_bounds__(THREADS)
   const int qrow0 = (bkv / KVH) * H + (bkv % KVH) * grp;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 
-  stage_rows<D, L::LD, THREADS>(Ks, k + (size_t)bkv * Sk * D, k0, BK, Sk);
-  stage_rows<D, L::LD, THREADS>(Vs, v + (size_t)bkv * Sk * D, k0, BK, Sk);
+  stage_rows<D, L::LD, THREADS>(Ks, k + (size_t)bkv * Sk * hd, k0, BK, Sk,
+                                hd);
+  stage_rows<D, L::LD, THREADS>(Vs, v + (size_t)bkv * Sk * hd, k0, BK, Sk,
+                                hd);
   float dk_acc[4][D / 16], dv_acc[4][D / 16];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -322,8 +336,9 @@ __global__ void __launch_bounds__(THREADS)
                      causal, window))
         continue;
       __syncthreads();
-      stage_rows<D, L::LD, THREADS>(Qs, q + bh * Sq * D, q0, BQ, Sq);
-      stage_rows<D, L::LD, THREADS>(dOs, dout + bh * Sq * D, q0, BQ, Sq);
+      stage_rows<D, L::LD, THREADS>(Qs, q + bh * Sq * hd, q0, BQ, Sq, hd);
+      stage_rows<D, L::LD, THREADS>(dOs, dout + bh * Sq * hd, q0, BQ, Sq,
+                                    hd);
       stage_stats<THREADS>(sm.lse, sm.delta, lse + bh * Sq, delta + bh * Sq,
                            q0, Sq);
       __syncthreads();
@@ -351,9 +366,9 @@ __global__ void __launch_bounds__(THREADS)
       accumulate4<D>(dk_acc, sm.ds, Qs, ty, tx);   // dK += dS^T Q
     }
   }
-  const size_t base = (size_t)bkv * Sk * D;
-  write4<D>(dk_acc, dk + base, k0, Sk, ty, tx);
-  write4<D>(dv_acc, dv + base, k0, Sk, ty, tx);
+  const size_t base = (size_t)bkv * Sk * hd;
+  write4<D>(dk_acc, dk + base, k0, Sk, hd, ty, tx);
+  write4<D>(dv_acc, dv + base, k0, Sk, hd, ty, tx);
 }
 
 // ------------------------------------------------------------- launch
@@ -361,7 +376,7 @@ struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
   void *dq, *dk, *dv;
-  int B, H, KVH, Sq, Sk, q_offset, k_offset, causal, window;
+  int B, H, KVH, Sq, Sk, hd, q_offset, k_offset, causal, window;
   float scale;
   cudaStream_t stream;
 };
@@ -404,7 +419,7 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
                            const float* __restrict__ lse,
                            const float* __restrict__ delta,
                            bf16* __restrict__ dk, bf16* __restrict__ dv,
-                           int BKV, int H, int KVH, int Sq, int Sk,
+                           int BKV, int H, int KVH, int Sq, int Sk, int hd,
                            int q_offset, int k_offset, int causal,
                            int window, float scale) {
   using L = Layout<D>;
@@ -614,13 +629,14 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
       }
     }
     // dK and dV through this warpgroup's K and V rows (read by nothing
-    // after its last product) to 16-byte stores
-    const size_t base = ((size_t)bkv * Sk + wk0) * D;
+    // after its last product) to 16-byte stores of each row's first hd
+    // columns
+    const size_t base = ((size_t)bkv * Sk + wk0) * hd;
     acc_to_tile<D, KROWS>(dk_acc, 1.f, 1.f, Kw);
     acc_to_tile<D, KROWS>(dv_acc, 1.f, 1.f, Vw);
     wg_barrier(1 + wg);
-    tile_to_rows<D, KROWS>(Kw, dk + base, Sk - wk0);
-    tile_to_rows<D, KROWS>(Vw, dv + base, Sk - wk0);
+    tile_to_rows<D, KROWS>(Kw, dk + base, Sk - wk0, hd);
+    tile_to_rows<D, KROWS>(Vw, dv + base, Sk - wk0, hd);
     if constexpr (L::WIDE) {
       __syncwarp();
       if (lane == 0) mbar_arrive(done);
@@ -636,13 +652,13 @@ cudaError_t launch(const Args& a) {
   const int qrows = a.Sq > 0 ? a.Sq : a.Sk;
   const int qslabs = a.Sq > 0 ? a.B * a.H : a.B * a.KVH;
   CUtensorMap tq, tk, tv, tdo;
-  cudaError_t err = encode_rows_map<D>(&tq, qp, qrows, qslabs, QROWS);
+  cudaError_t err = encode_rows_map<D>(&tq, qp, a.hd, qrows, qslabs, QROWS);
   if (err == cudaSuccess)
-    err = encode_rows_map<D>(&tdo, gp, qrows, qslabs, QROWS);
+    err = encode_rows_map<D>(&tdo, gp, a.hd, qrows, qslabs, QROWS);
   if (err == cudaSuccess)
-    err = encode_rows_map<D>(&tk, a.k, a.Sk, a.B * a.KVH, KROWS);
+    err = encode_rows_map<D>(&tk, a.k, a.hd, a.Sk, a.B * a.KVH, KROWS);
   if (err == cudaSuccess)
-    err = encode_rows_map<D>(&tv, a.v, a.Sk, a.B * a.KVH, KROWS);
+    err = encode_rows_map<D>(&tv, a.v, a.hd, a.Sk, a.B * a.KVH, KROWS);
   if (err != cudaSuccess) return err;
   constexpr size_t smem = Layout<D>::bytes;
   err = allow_smem(flash_dkv_wgmma_kernel<D>, smem);
@@ -651,7 +667,7 @@ cudaError_t launch(const Args& a) {
   constexpr int threads = Layout<D>::THREADS;
   flash_dkv_wgmma_kernel<D><<<grid, threads, smem, a.stream>>>(
       tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dk),
-      static_cast<bf16*>(a.dv), a.B * a.KVH, a.H, a.KVH, a.Sq, a.Sk,
+      static_cast<bf16*>(a.dv), a.B * a.KVH, a.H, a.KVH, a.Sq, a.Sk, a.hd,
       a.q_offset, a.k_offset, a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
@@ -694,8 +710,9 @@ __global__ void __launch_bounds__(THREADS, 1)
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
                           bf16* __restrict__ dq, int BH, int H, int KVH,
-                          int Sq, int Sk, int q_offset, int k_offset,
-                          int causal, int window, float scale) {
+                          int Sq, int Sk, int hd, int q_offset,
+                          int k_offset, int causal, int window,
+                          float scale) {
   using L = Layout<D>;
   constexpr uint32_t Q_TILE = L::Q_TILE, KV_TILE = L::KV_TILE;
   constexpr int STAGES = L::STAGES;
@@ -872,11 +889,11 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
     }
     // dQ through this warpgroup's Q rows (read by nothing after its last
-    // product) to 16-byte stores
+    // product) to 16-byte stores of each row's first hd columns
     acc_to_tile<D, QROWS>(dq_acc, 1.f, 1.f, Qw);
     wg_barrier(1 + wg);
-    tile_to_rows<D, QROWS>(Qw, dq + ((size_t)bh * Sq + wq0) * D,
-                           Sq - wq0);
+    tile_to_rows<D, QROWS>(Qw, dq + ((size_t)bh * Sq + wq0) * hd,
+                           Sq - wq0, hd);
   }
 }
 
@@ -888,13 +905,14 @@ cudaError_t launch(const Args& a) {
   const int krows = a.Sk > 0 ? a.Sk : a.Sq;
   const int kslabs = a.Sk > 0 ? a.B * a.KVH : a.B * a.H;
   CUtensorMap tq, tk, tv, tdo;
-  cudaError_t err = encode_rows_map<D>(&tq, a.q, a.Sq, a.B * a.H, QROWS);
+  cudaError_t err =
+      encode_rows_map<D>(&tq, a.q, a.hd, a.Sq, a.B * a.H, QROWS);
   if (err == cudaSuccess)
-    err = encode_rows_map<D>(&tdo, a.dout, a.Sq, a.B * a.H, QROWS);
+    err = encode_rows_map<D>(&tdo, a.dout, a.hd, a.Sq, a.B * a.H, QROWS);
   if (err == cudaSuccess)
-    err = encode_rows_map<D>(&tk, kp, krows, kslabs, KROWS);
+    err = encode_rows_map<D>(&tk, kp, a.hd, krows, kslabs, KROWS);
   if (err == cudaSuccess)
-    err = encode_rows_map<D>(&tv, vp, krows, kslabs, KROWS);
+    err = encode_rows_map<D>(&tv, vp, a.hd, krows, kslabs, KROWS);
   if (err != cudaSuccess) return err;
   constexpr size_t smem = Layout<D>::bytes;
   err = allow_smem(flash_dq_wgmma_kernel<D>, smem);
@@ -903,7 +921,7 @@ cudaError_t launch(const Args& a) {
   const int grid = (a.Sq + QROWS - 1) / QROWS * BH;
   flash_dq_wgmma_kernel<D><<<grid, THREADS, smem, a.stream>>>(
       tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dq), BH, a.H,
-      a.KVH, a.Sq, a.Sk, a.q_offset, a.k_offset, a.causal, a.window,
+      a.KVH, a.Sq, a.Sk, a.hd, a.q_offset, a.k_offset, a.causal, a.window,
       a.scale);
   return cudaGetLastError();
 }
@@ -922,7 +940,7 @@ cudaError_t launch_dq(const Args& a, bool bf16_body) {
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       a.lse, a.delta, static_cast<float*>(a.dq), a.H, a.KVH, a.Sq, a.Sk,
-      a.q_offset, a.k_offset, a.causal, a.window, a.scale);
+      a.hd, a.q_offset, a.k_offset, a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
 
@@ -938,44 +956,44 @@ cudaError_t launch_dkv(const Args& a, bool bf16_body) {
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
-      a.H, a.KVH, a.Sq, a.Sk, a.q_offset, a.k_offset, a.causal, a.window,
-      a.scale);
+      a.H, a.KVH, a.Sq, a.Sk, a.hd, a.q_offset, a.k_offset, a.causal,
+      a.window, a.scale);
   return cudaGetLastError();
 }
 
 Args make_args(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dq, void* dk,
-               void* dv, int B, int H, int KVH, int Sq, int Sk, int q_offset,
-               int k_offset, int causal, int window, float scale,
-               void* stream) {
+               void* dv, int B, int H, int KVH, int Sq, int Sk, int hd,
+               int q_offset, int k_offset, int causal, int window,
+               float scale, void* stream) {
   return Args{q, k, v, dout, static_cast<const float*>(lse),
               static_cast<const float*>(delta), dq, dk, dv, B, H, KVH, Sq,
-              Sk, q_offset, k_offset, causal, window, scale,
+              Sk, hd, q_offset, k_offset, causal, window, scale,
               static_cast<cudaStream_t>(stream)};
 }
 
 }  // namespace
 
-// q, dout (B, H, Sq, D); k, v (B, KVH, Sk, D); lse, delta (B, H, Sq) f32;
-// dq like q; dk, dv like k. All contiguous, q/k/v/dout and the outputs
-// of one type (is_bf16 ? bf16 : f32; bf16 pointers 16-byte aligned).
-// window <= 0 means no sliding window. head_dim D is 16, 32, 64 or 128;
-// any other returns cudaErrorInvalidValue. Each returns cudaGetLastError()
-// after its launch.
+// q, dout (B, H, Sq, hd); k, v (B, KVH, Sk, hd); lse, delta (B, H, Sq)
+// f32; dq like q; dk, dv like k. All contiguous, q/k/v/dout and the
+// outputs of one type (is_bf16 ? bf16 : f32; bf16 pointers 16-byte
+// aligned). window <= 0 means no sliding window. hd is a multiple of 8
+// from 8 to 128; any other returns cudaErrorInvalidValue. Each returns
+// cudaGetLastError() after its launch.
 extern "C" int etpu_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dq, int B, int H,
-                                 int KVH, int Sq, int Sk, int D,
+                                 int KVH, int Sq, int Sk, int hd,
                                  int q_offset, int k_offset, int causal,
                                  int window, float scale, int is_bf16,
                                  void* stream) {
   if (B * H == 0 || Sq == 0) return cudaSuccess;
   if (KVH <= 0 || H % KVH) return cudaErrorInvalidValue;
   const Args a = make_args(q, k, v, dout, lse, delta, dq, nullptr, nullptr,
-                           B, H, KVH, Sq, Sk, q_offset, k_offset, causal,
+                           B, H, KVH, Sq, Sk, hd, q_offset, k_offset, causal,
                            window, scale, stream);
-  return etpu::with_head_dim(D, [&](auto d) {
-    return launch_dq<decltype(d)::value>(a, is_bf16 != 0);
+  return etpu::with_head_dim(hd, [&](auto w) {
+    return launch_dq<decltype(w)::value>(a, is_bf16 != 0);
   });
 }
 
@@ -983,15 +1001,15 @@ extern "C" int etpu_flash_bwd_dkv(const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const void* lse, const void* delta,
                                   void* dk, void* dv, int B, int H, int KVH,
-                                  int Sq, int Sk, int D, int q_offset,
+                                  int Sq, int Sk, int hd, int q_offset,
                                   int k_offset, int causal, int window,
                                   float scale, int is_bf16, void* stream) {
   if (B * KVH == 0 || Sk == 0) return cudaSuccess;
   if (KVH <= 0 || H % KVH) return cudaErrorInvalidValue;
   const Args a = make_args(q, k, v, dout, lse, delta, nullptr, dk, dv, B, H,
-                           KVH, Sq, Sk, q_offset, k_offset, causal, window,
-                           scale, stream);
-  return etpu::with_head_dim(D, [&](auto d) {
-    return launch_dkv<decltype(d)::value>(a, is_bf16 != 0);
+                           KVH, Sq, Sk, hd, q_offset, k_offset, causal,
+                           window, scale, stream);
+  return etpu::with_head_dim(hd, [&](auto w) {
+    return launch_dkv<decltype(w)::value>(a, is_bf16 != 0);
   });
 }

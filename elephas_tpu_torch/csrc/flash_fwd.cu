@@ -12,19 +12,26 @@
 // CTA over K/V tiles; tiles wholly above the causal diagonal or below
 // the window are skipped before any load. Ragged edges are masked in
 // the kernel, never padded in device memory. Both bodies are
-// instantiated at head_dim 16, 32, 64 and 128 (hopper.cuh
-// `with_head_dim`): 16, 32 and 64 are the head dims of the repo's
-// configurations, 128 that of most published LMs (Llama-2-7B,
-// Mistral-7B, Llama-3-8B). Two bodies:
+// instantiated at widths 16, 32, 64 and 128 (hopper.cuh
+// `with_head_dim`), and a head dim d that is a multiple of 8 up to 128
+// runs the body of the smallest width W >= d: 16, 32 and 64 are the head
+// dims of the repo's configurations, 128 that of most published LMs
+// (Llama-2-7B, Mistral-7B, Llama-3-8B), and 96 (Phi-3-mini), 80 (Phi-2)
+// or 72 (DiT-XL/2) run on the W 128 body, 40 (Stable Diffusion 1.x) on W
+// 64, 8 on W 16. The tensor maps hold d: TMA reads each row's d columns
+// and fills the tile's columns d .. W - 1 with zeros, the products run
+// at W unchanged (zero columns add nothing to S and give zero columns
+// of O), and the store writes O's first d columns; the f32 body loads
+// zeros past d and stores none of them. Two bodies:
 //
-// - bf16 (the working type) at head_dim 16, 32 and 64: one CTA per
+// - bf16 (the working type) at widths 16, 32 and 64: one CTA per
 //   (batch*head, 128-row q tile), CTAs of the last q tiles (the most
 //   live tiles under causal masking) scheduled first. One producer warp
 //   issues TMA loads: Q once, then the live 128-row K and V tiles into a
 //   4-stage ring of shared memory guarded by full/empty mbarriers; TMA
-//   zero-fills rows past each head's length. A tile row is the head's
-//   2*D bytes in the swizzle of that width (128, 64 or 32 bytes,
-//   hopper.cuh `Rows`), so a smaller head dim shrinks the tiles and the
+//   zero-fills rows past each head's length. A tile row is the body's
+//   2*W bytes in the swizzle of that width (128, 64 or 32 bytes,
+//   hopper.cuh `Rows`), so a smaller body shrinks the tiles and the
 //   products and nothing else. Two consumer warpgroups of 64 query rows
 //   compute S = Q K^T with wgmma m64n128k16 (D/16 k steps) from shared
 //   memory, run the online softmax on the wgmma accumulator in
@@ -34,7 +41,7 @@
 //   and feed it as the register A operand of O += P V (m64nDk16, V
 //   MN-major). O stays in registers across the loop, and leaves through
 //   a swizzled shared tile in 16-byte stores.
-// - bf16 at head_dim 128 (`flash_fwd_pingpong_kernel`): the same tiles,
+// - bf16 at width 128 (`flash_fwd_pingpong_kernel`): the same tiles,
 //   products, softmax and store, each 256-byte row two 64-column blocks
 //   of the 128-byte swizzle (P V one m64n64k16 per block). What bounds
 //   it is registers: O (64 f32 a thread), S of a 128-key tile (64) and
@@ -67,6 +74,10 @@
 // - f32: 256 threads on the CUDA cores, each holding a 4x4 block of the
 //   64x64 score tile and a 4x(D/16) block of O in registers; row max and
 //   sum reduce over the 16 lanes sharing a row with warp shuffles.
+//
+// At a head dim below its body's width W the tensor cores also multiply
+// the filled zeros: W / d times the work at d, 1.33x at 96, 1.6x at 80,
+// 1.78x at 72. Bytes read from device memory stay those of d.
 //
 // What bounds it on the H100. A (q, k) pair costs 4*D flops and each
 // operand row is read once per tile, so at head_dim 64 and 128 the loop
@@ -108,9 +119,11 @@ __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
                      float* __restrict__ lse, int H, int KVH, int Sq, int Sk,
-                     int q_offset, int k_offset, int causal, int window,
-                     float scale) {
-  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
+                     int hd, int q_offset, int k_offset, int causal,
+                     int window, float scale) {
+  // D is the body's width, hd <= D the head dim (columns past it are
+  // zeros in shared memory)
+  static_assert(D % 16 == 0, "the body's width must be a multiple of 16");
   constexpr int RC = D / 16;  // accumulator columns per thread
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -123,9 +136,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int h = bh % H;
   // GQA: query row bh = b*H + h reads kv row b*KVH + h / (H / KVH)
   const int kv_row = (bh / H) * KVH + h / (H / KVH);
-  const T* qp = q + (size_t)bh * Sq * D;
-  const T* kp = k + (size_t)kv_row * Sk * D;
-  const T* vp = v + (size_t)kv_row * Sk * D;
+  const T* qp = q + (size_t)bh * Sq * hd;
+  const T* kp = k + (size_t)kv_row * Sk * hd;
+  const T* vp = v + (size_t)kv_row * Sk * hd;
 
   const int tid = threadIdx.x;
   const int ty = tid / 16;  // rows ty*4 .. ty*4+3 of the tile
@@ -133,8 +146,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, c = i % D;
-    Qs[r * (D + 1) + c] =
-        q0 + r < Sq ? to_f32(qp[(size_t)(q0 + r) * D + c]) : 0.f;
+    Qs[r * (D + 1) + c] = q0 + r < Sq && c < hd
+                              ? to_f32(qp[(size_t)(q0 + r) * hd + c])
+                              : 0.f;
   }
 
   float m[4], l[4], acc[4][RC];
@@ -158,9 +172,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     __syncthreads();  // the previous tile's Ks/Vs/Ps reads are done
     for (int i = tid; i < BK * D; i += THREADS) {
       const int r = i / D, c = i % D;
-      const bool in = k0 + r < Sk;
-      Ks[r * (D + 1) + c] = in ? to_f32(kp[(size_t)(k0 + r) * D + c]) : 0.f;
-      Vs[i] = in ? to_f32(vp[(size_t)(k0 + r) * D + c]) : 0.f;
+      const bool in = k0 + r < Sk && c < hd;
+      Ks[r * (D + 1) + c] = in ? to_f32(kp[(size_t)(k0 + r) * hd + c]) : 0.f;
+      Vs[i] = in ? to_f32(vp[(size_t)(k0 + r) * hd + c]) : 0.f;
     }
     __syncthreads();
 
@@ -238,10 +252,11 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int r = q0 + ty * 4 + i;
     if (r >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* orow = o + ((size_t)bh * Sq + r) * D;
+    T* orow = o + ((size_t)bh * Sq + r) * hd;
 #pragma unroll
     for (int j = 0; j < RC; ++j)
-      orow[tx + 16 * j] = etpu::from_f32<T>(acc[i][j] / denom);
+      if (tx + 16 * j < hd)
+        orow[tx + 16 * j] = etpu::from_f32<T>(acc[i][j] / denom);
     if (tx == 0) lse[(size_t)bh * Sq + r] = m[i] + logf(denom);
   }
 }
@@ -417,16 +432,16 @@ __device__ __forceinline__ void online_softmax(float (&s)[N], float (&m)[2],
 }
 
 // O (a warpgroup's 64 rows) through its 64 rows of a 128-row staging
-// tile in shared memory (`Ow`, block 0) to 16-byte stores, and the LSE
-// in natural-log units: kNegInf for a row with nothing unmasked (O = 0
-// there).
+// tile in shared memory (`Ow`, block 0) to 16-byte stores of each row's
+// first hd columns, and the LSE in natural-log units: kNegInf for a row
+// with nothing unmasked (O = 0 there).
 template <int D>
 __device__ __forceinline__ void store_rows(float (&oacc)[D / 2],
                                            const float (&m)[2],
                                            float (&lsum)[2], uint8_t* Ow,
                                            bf16* o, float* lse, int bh,
                                            int wq0, int qrow, int Sq,
-                                           int wg) {
+                                           int hd, int wg) {
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -436,7 +451,7 @@ __device__ __forceinline__ void store_rows(float (&oacc)[D / 2],
   }
   acc_to_tile<D, WQ>(oacc, inv[0], inv[1], Ow);
   wg_barrier(1 + wg);
-  tile_to_rows<D, WQ>(Ow, o + ((size_t)bh * Sq + wq0) * D, Sq - wq0);
+  tile_to_rows<D, WQ>(Ow, o + ((size_t)bh * Sq + wq0) * hd, Sq - wq0, hd);
   if (threadIdx.x % 4 == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -455,10 +470,10 @@ __global__ void __launch_bounds__(WTHREADS, 1)
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
                            bf16* __restrict__ o, float* __restrict__ lse,
-                           int BH, int H, int KVH, int Sq, int Sk,
+                           int BH, int H, int KVH, int Sq, int Sk, int hd,
                            int q_offset, int k_offset, int causal,
                            int window, float scale_log2) {
-  static_assert(D < 128, "head_dim 128 runs flash_fwd_pingpong_kernel");
+  static_assert(D < 128, "width 128 runs flash_fwd_pingpong_kernel");
   using L = WgmmaLayout<D>;
   constexpr uint32_t TILE = L::tile;
   constexpr int WK = L::WK;
@@ -574,11 +589,11 @@ __global__ void __launch_bounds__(WTHREADS, 1)
     }
     // O through this warpgroup's Q rows: read by nothing after its last
     // product
-    store_rows<D>(oacc, m, lsum, Qw, o, lse, bh, wq0, qrow, Sq, wg);
+    store_rows<D>(oacc, m, lsum, Qw, o, lse, bh, wq0, qrow, Sq, hd, wg);
   }
 }
 
-// ------------------------------- bf16 at head_dim 128: ping-pong consumers
+// ---------------------------------- bf16 at width 128: ping-pong consumers
 struct PingPong {
   static constexpr int D = 128;
   static constexpr int WK = 128;     // key rows per K/V tile
@@ -666,10 +681,10 @@ __global__ void __launch_bounds__(kWideThreads, 1)
                               const __grid_constant__ CUtensorMap tk,
                               const __grid_constant__ CUtensorMap tv,
                               bf16* __restrict__ o, float* __restrict__ lse,
-                              int BH, int grp, int Sq, int Sk, int q_offset,
-                              int k_offset, int causal, int window,
-                              float scale_log2, int group, int per,
-                              int items) {
+                              int BH, int grp, int Sq, int Sk, int hd,
+                              int q_offset, int k_offset, int causal,
+                              int window, float scale_log2, int group,
+                              int per, int items) {
   using L = PingPong;
   constexpr int D = L::D, WK = L::WK, STAGES = L::STAGES;
   constexpr uint32_t TILE = L::tile;
@@ -793,7 +808,8 @@ __global__ void __launch_bounds__(kWideThreads, 1)
       if (!pend) return;
       // the staging rows are free once the last store's reads are done
       wg_barrier(1 + wg);
-      store_rows<D>(oacc, pm, psum, Ow, o, lse, pbh, pwq0, pqrow, Sq, wg);
+      store_rows<D>(oacc, pm, psum, Ow, o, lse, pbh, pwq0, pqrow, Sq, hd,
+                    wg);
       pend = false;
     };
     for (int w = blockIdx.x; w < items; w += gridDim.x) {
@@ -912,28 +928,29 @@ __global__ void __launch_bounds__(kWideThreads, 1)
 template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* o, float* lse, int B, int H, int KVH, int Sq,
-                         int Sk, int q_offset, int k_offset, int causal,
-                         int window, float scale, cudaStream_t stream) {
+                         int Sk, int hd, int q_offset, int k_offset,
+                         int causal, int window, float scale,
+                         cudaStream_t stream) {
   // with Sk == 0 no K/V tile is loaded; the maps still need an extent
   const void* kp = Sk > 0 ? k : q;
   const void* vp = Sk > 0 ? v : q;
   const int krows = Sk > 0 ? Sk : Sq, kslabs = Sk > 0 ? B * KVH : B * H;
   CUtensorMap tq, tk, tv;
-  cudaError_t err = encode_rows_map<D>(&tq, q, Sq, B * H, WQ);
+  cudaError_t err = encode_rows_map<D>(&tq, q, hd, Sq, B * H, WQ);
   constexpr int WK = 128;  // both bodies' K/V tile
   static_assert(WgmmaLayout<D>::WK == WK && PingPong::WK == WK, "tiles");
   if (err == cudaSuccess)
-    err = encode_rows_map<D>(&tk, kp, krows, kslabs, WK);
+    err = encode_rows_map<D>(&tk, kp, hd, krows, kslabs, WK);
   if (err == cudaSuccess)
-    err = encode_rows_map<D>(&tv, vp, krows, kslabs, WK);
+    err = encode_rows_map<D>(&tv, vp, hd, krows, kslabs, WK);
   if (err != cudaSuccess) return err;
   const int grid = (Sq + WQ - 1) / WQ * (B * H);
   if constexpr (D == 128) {
     constexpr size_t smem = PingPong::bytes;
     err = allow_smem(flash_fwd_pingpong_kernel, smem);
     if (err != cudaSuccess) return err;
-    // a head's K and V: Sk rows of 2 * 128 bytes each
-    const int group = l2_group(4ll * D * Sk, B * H);
+    // a head's K and V: Sk rows of 2 * hd bytes each
+    const int group = l2_group(4ll * hd * Sk, B * H);
     // persistent: one CTA per SM, at most one per item
     int sms = 0;
     err = multiprocessors(&sms);
@@ -942,7 +959,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
     const int pairs = (Sq + 2 * WQ - 1) / (2 * WQ), items = pairs * B * H;
     flash_fwd_pingpong_kernel<<<min(items, sms), kWideThreads, smem,
                                 stream>>>(
-        tq, tk, tv, static_cast<bf16*>(o), lse, B * H, H / KVH, Sq, Sk,
+        tq, tk, tv, static_cast<bf16*>(o), lse, B * H, H / KVH, Sq, Sk, hd,
         q_offset, k_offset, causal, window, scale * kLog2e, group,
         group * pairs, items);
   } else {
@@ -950,7 +967,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
     err = allow_smem(flash_fwd_wgmma_kernel<D>, smem);
     if (err != cudaSuccess) return err;
     flash_fwd_wgmma_kernel<D><<<grid, WTHREADS, smem, stream>>>(
-        tq, tk, tv, static_cast<bf16*>(o), lse, B * H, H, KVH, Sq, Sk,
+        tq, tk, tv, static_cast<bf16*>(o), lse, B * H, H, KVH, Sq, Sk, hd,
         q_offset, k_offset, causal, window, scale * kLog2e);
   }
   return cudaGetLastError();
@@ -958,11 +975,11 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int B, int H, int KVH, int Sq, int Sk,
+                   float* lse, int B, int H, int KVH, int Sq, int Sk, int hd,
                    int q_offset, int k_offset, int causal, int window,
                    float scale, cudaStream_t stream) {
   if constexpr (std::is_same_v<T, bf16>) {
-    return launch_wgmma<D>(q, k, v, o, lse, B, H, KVH, Sq, Sk, q_offset,
+    return launch_wgmma<D>(q, k, v, o, lse, B, H, KVH, Sq, Sk, hd, q_offset,
                            k_offset, causal, window, scale, stream);
   } else {
     const dim3 grid((Sq + BQ - 1) / BQ, B * H);
@@ -973,34 +990,35 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     kernel<<<grid, THREADS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(o), lse, H, KVH, Sq, Sk,
-        q_offset, k_offset, causal, window, scale);
+        hd, q_offset, k_offset, causal, window, scale);
     return cudaGetLastError();
   }
 }
 
 }  // namespace
 
-// q (B, H, Sq, D), k/v (B, KVH, Sk, D), o (B, H, Sq, D), all contiguous
-// and of one type (is_bf16 ? bf16 : f32; bf16 q/k/v 16-byte aligned);
-// lse (B, H, Sq) f32. window <= 0 means no sliding window. Returns
-// cudaGetLastError() after the launch.
+// q (B, H, Sq, hd), k/v (B, KVH, Sk, hd), o (B, H, Sq, hd), all
+// contiguous and of one type (is_bf16 ? bf16 : f32; bf16 q/k/v 16-byte
+// aligned); lse (B, H, Sq) f32. hd is a multiple of 8 from 8 to 128 (any
+// other returns cudaErrorInvalidValue). window <= 0 means no sliding
+// window. Returns cudaGetLastError() after the launch.
 extern "C" int etpu_flash_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, int B, int H, int KVH,
-                              int Sq, int Sk, int D, int q_offset,
+                              int Sq, int Sk, int hd, int q_offset,
                               int k_offset, int causal, int window,
                               float scale, int is_bf16, void* stream) {
   if (B * H == 0 || Sq == 0) return cudaSuccess;
   if (KVH <= 0 || H % KVH) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto* l = static_cast<float*>(lse);
-  return etpu::with_head_dim(D, [&](auto d) {
-    constexpr int kD = decltype(d)::value;
-    return is_bf16 ? launch<bf16, kD>(q, k, v, o, l, B, H, KVH, Sq, Sk,
+  return etpu::with_head_dim(hd, [&](auto w) {
+    constexpr int W = decltype(w)::value;
+    return is_bf16 ? launch<bf16, W>(q, k, v, o, l, B, H, KVH, Sq, Sk, hd,
+                                     q_offset, k_offset, causal, window,
+                                     scale, s)
+                   : launch<float, W>(q, k, v, o, l, B, H, KVH, Sq, Sk, hd,
                                       q_offset, k_offset, causal, window,
-                                      scale, s)
-                   : launch<float, kD>(q, k, v, o, l, B, H, KVH, Sq, Sk,
-                                       q_offset, k_offset, causal, window,
-                                       scale, s);
+                                      scale, s);
   });
 }
 

@@ -5,7 +5,7 @@
 //   into shared memory, completing on an mbarrier's transaction count;
 //   `tma_load_tile` loads a tile of head-dim rows block by block (see
 //   below); `encode_rows_map` (host) builds the map of a (slabs, rows,
-//   D) bf16 tensor with `cuTensorMapEncodeTiled`, fetched through the
+//   d) bf16 tensor with `cuTensorMapEncodeTiled`, fetched through the
 //   runtime's driver entry point, so the library links against no
 //   libcuda.
 // - mbarrier: `mbar_init` (`mbarrier.init`), `fence_barrier_init`
@@ -36,19 +36,30 @@
 //   and `cp_async_wait<N>` (`cp.async.commit_group` / `wait_group`:
 //   returns once at most N of this thread's groups are in flight; the
 //   finished copies are then visible to this thread).
-// - Tiles of head_dim D: a bf16 row is 2*D bytes (256 at D 128, 128 at
-//   D 64, 64 at D 32, 32 at D 16). Up to D 64 it lies in the swizzle of
+// - Tiles of body width W: the bodies are instantiated at W = 16, 32, 64
+//   and 128, and a head dim d (a multiple of 8, 8 <= d <= 128) runs the
+//   body of the smallest W >= d: 8 and 16 on W 16, 24 and 32 on W 32,
+//   40-64 on W 64, 72-128 on W 128. A tile row is 2*W bytes in shared
+//   memory (256 at W 128, 128 at 64, 64 at 32, 32 at 16), of which the
+//   first 2*d bytes are the head's and the rest zeros: the tensor map
+//   holds the real d (its row stride is 2*d bytes, so d must be a
+//   multiple of 8 for TMA's 16-byte strides), and TMA fills the box's
+//   columns past d with zeros without reading them. Zero columns add
+//   nothing to a product over the head dim (S = Q K^T) and give zero
+//   columns in a product whose N is the head dim (P V, dS K, P^T dO,
+//   dS^T Q), which the stores drop: `tile_to_rows` writes only the
+//   first d columns of a row. Up to W 64 a row lies in the swizzle of
 //   its own width, which TMA writes (CU_TENSOR_MAP_SWIZZLE_128B / 64B /
 //   32B) and wgmma reads. Neither takes a swizzle wider than 128 bytes,
-//   so at D 128 a tile of R rows is stored as two column blocks, each an
+//   so at W 128 a tile of R rows is stored as two column blocks, each an
 //   R x 64 tile in the 128-byte swizzle, block 1 (columns 64-127) R *
-//   128 bytes after block 0: exactly two D 64 tiles (`Rows<D>`).
-//   `desc_sw<D>` is the 64-bit shared-memory matrix descriptor of a
-//   block, `desc_k<D, R>` that of one k16 step of a K-major operand
-//   (which stays inside one block), `swz<D, R>` the byte offset of a
-//   16-byte chunk.
-// - `with_head_dim` (host): the one switch over the head dims the flash
-//   kernels are instantiated for.
+//   128 bytes after block 0: exactly two W 64 tiles (`Rows<W>`); at d
+//   72-120 block 1 is partly real. `desc_sw<W>` is the 64-bit
+//   shared-memory matrix descriptor of a block, `desc_k<W, R>` that of
+//   one k16 step of a K-major operand (which stays inside one block),
+//   `swz<W, R>` the byte offset of a 16-byte chunk.
+// - `with_head_dim` (host): the one switch from a head dim to the body
+//   width the flash kernels are instantiated for.
 // - `wg_barrier` (`bar.sync id, 128`): one warpgroup's named barrier;
 //   `consumers_barrier` / `consumers_arrive` (`bar.sync` / `bar.arrive
 //   id, 256`): the two consumer warpgroups' named barrier, waited on or
@@ -74,11 +85,12 @@
 //   warpgroup holds, for each 8-column group j, rows 16*(t/32) + (t%32)/4
 //   and that + 8 at columns 8j + 2*(t%4) and + 1): `pack_a` turns the
 //   16 columns of one k step into the bf16 A fragment of an RS product,
-//   `acc_to_tile<D, R>` stores a 64 x D accumulator as bf16 into 64 rows
-//   of a swizzled shared tile of R rows, and `tile_to_rows<D, R>` copies
-//   such rows out to device memory with 16-byte stores, dropping rows
-//   past a limit. At D 128 the accumulator's first 32 registers are
-//   columns 0-63 (block 0), the last 32 columns 64-127 (block 1).
+//   `acc_to_tile<W, R>` stores a 64 x W accumulator as bf16 into 64 rows
+//   of a swizzled shared tile of R rows, and `tile_to_rows<W, R>` copies
+//   the first d columns of such rows out to device memory (rows of d
+//   values) with 16-byte stores, dropping rows past a limit. At W 128 the
+//   accumulator's first 32 registers are columns 0-63 (block 0), the
+//   last 32 columns 64-127 (block 1).
 #pragma once
 
 #include <cuda.h>
@@ -93,18 +105,20 @@ namespace etpu {
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// The bf16 tiles of head_dim D: one row is 2*D bytes, stored in the
-// swizzle of that width up to 128 bytes (TMA and wgmma agree on it). The
-// swizzle XORs address bits 7.. into the 16-byte chunk index (bits
-// 4..): 3 bits at 128-byte rows (chunk c of row r at c ^ (r % 8)), 2 at
-// 64-byte rows (c ^ (r / 2 % 4)), 1 at 32-byte rows (c ^ (r / 4 % 2));
-// the pattern repeats every 8 rows, 1024, 512 or 256 bytes. A 256-byte
-// row (D 128) is split into two 128-byte column blocks, each stored as
-// a tile of its own (block b of an R-row tile at b * R * 128 bytes).
+// The bf16 tiles of body width D (16, 32, 64 or 128; a head dim d <= D
+// fills the first d columns, see the note at the top): one row is 2*D
+// bytes, stored in the swizzle of that width up to 128 bytes (TMA and
+// wgmma agree on it). The swizzle XORs address bits 7.. into the 16-byte
+// chunk index (bits 4..): 3 bits at 128-byte rows (chunk c of row r at c
+// ^ (r % 8)), 2 at 64-byte rows (c ^ (r / 2 % 4)), 1 at 32-byte rows (c
+// ^ (r / 4 % 2)); the pattern repeats every 8 rows, 1024, 512 or 256
+// bytes. A 256-byte row (D 128) is split into two 128-byte column
+// blocks, each stored as a tile of its own (block b of an R-row tile at
+// b * R * 128 bytes).
 template <int D>
 struct Rows {
   static_assert(D == 16 || D == 32 || D == 64 || D == 128,
-                "the bf16 tiles take head_dim 16, 32, 64 or 128");
+                "the bf16 bodies are 16, 32, 64 or 128 columns wide");
   static constexpr int bytes = 2 * D;
   // the bytes of one row inside a column block, the block's columns,
   // and the blocks of a row
@@ -122,24 +136,25 @@ struct Rows {
                    : CU_TENSOR_MAP_SWIZZLE_32B;
 };
 
-// The head dims the flash kernels are instantiated for, in one place
-// (SUPPORTED_HEAD_DIMS in ops/flash_attention.py names the same set):
-// calls f(std::integral_constant<int, D>{}) and returns its result, or
-// cudaErrorInvalidValue at any other head dim.
+// Whether the flash kernels take head dim d (kernel_takes_head_dim in
+// ops/flash_attention.py is the same rule): a multiple of 8, so a row of
+// d bf16 values is a multiple of TMA's 16-byte stride unit, from 8 to
+// the widest body's 128.
+inline bool takes_head_dim(int d) { return d % 8 == 0 && d >= 8 && d <= 128; }
+
+// The one switch from a head dim to a body: calls
+// f(std::integral_constant<int, W>{}) with W the smallest of 16, 32, 64
+// and 128 that is at least d, and returns its result (the caller passes
+// the real d on to the kernel at run time), or cudaErrorInvalidValue at
+// a head dim the kernels do not take. The paged split body takes only
+// 16, 32, 64 and 128 (split::takes) and refuses a W that is not d.
 template <typename F>
-inline cudaError_t with_head_dim(int D, F&& f) {
-  switch (D) {
-    case 16:
-      return f(std::integral_constant<int, 16>{});
-    case 32:
-      return f(std::integral_constant<int, 32>{});
-    case 64:
-      return f(std::integral_constant<int, 64>{});
-    case 128:
-      return f(std::integral_constant<int, 128>{});
-    default:
-      return cudaErrorInvalidValue;
-  }
+inline cudaError_t with_head_dim(int d, F&& f) {
+  if (!takes_head_dim(d)) return cudaErrorInvalidValue;
+  if (d <= 16) return f(std::integral_constant<int, 16>{});
+  if (d <= 32) return f(std::integral_constant<int, 32>{});
+  if (d <= 64) return f(std::integral_constant<int, 64>{});
+  return f(std::integral_constant<int, 128>{});
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -250,8 +265,9 @@ __device__ __forceinline__ void cta_watchdog(uint64_t* done) {
 
 // ------------------------------------------------------------------ TMA
 // The box at coordinates (c0, c1, c2) = (column, row, slab) of `map`
-// into shared memory at `dst`; completes `bytes` on `bar`. Rows past the
-// map's row extent arrive as zeros.
+// into shared memory at `dst`; completes the box's bytes on `bar`. Rows
+// and columns past the map's extents arrive as zeros, and count in the
+// box's bytes all the same.
 __device__ __forceinline__ void tma_load_3d(uint32_t dst,
                                             const CUtensorMap* map,
                                             uint32_t bar, int c0, int c1,
@@ -634,18 +650,22 @@ __device__ __forceinline__ void acc_to_tile(const float (&d)[D / 2],
 }
 
 // The warpgroup's 64 swizzled rows of an R-row tile (`tile` as in
-// acc_to_tile) -> rows [0, limit) of `dst` (D bf16 per row), 16 bytes
-// per store, D/8 threads to a row.
+// acc_to_tile) -> rows [0, limit) of `dst` (d bf16 per row, d <= D a
+// multiple of 8), 16 bytes per store, D/8 threads to a row: a thread
+// whose chunk lies at or past column d stores nothing (the tile's
+// columns there are the zeros of the filled columns), so no byte past a
+// row's d values is written.
 template <int D, int R>
 __device__ __forceinline__ void tile_to_rows(const uint8_t* tile,
-                                             __nv_bfloat16* dst, int limit) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  const int t = threadIdx.x % 128;
+                                             __nv_bfloat16* dst, int limit,
+                                             int d) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks per tile row
+  const int t = threadIdx.x % 128, chunks = d / 8;
 #pragma unroll
   for (int i = 0; i < 64 * kChunks / 128; ++i) {
     const int idx = t + 128 * i, row = idx / kChunks, c = idx % kChunks;
-    if (row < limit)
-      *reinterpret_cast<uint4*>(dst + (size_t)row * D + c * 8) =
+    if (row < limit && c < chunks)
+      *reinterpret_cast<uint4*>(dst + (size_t)row * d + c * 8) =
           *reinterpret_cast<const uint4*>(tile + swz<D, R>(row, c));
   }
 }
@@ -677,17 +697,22 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The map of a contiguous (slabs, rows, D) bf16 tensor as dims (D, rows,
-// slabs), boxes of one column block x box_rows x 1 (`Rows<D>::cols`
-// columns: D, or 64 at D 128) in the swizzle of `Rows<D>`; rows past
-// `rows` of a slab read as zeros. `base` must be 16-byte aligned.
+// The map of a contiguous (slabs, rows, d) bf16 tensor as dims (d, rows,
+// slabs) for a body of width D >= d: boxes of one column block x
+// box_rows x 1 (`Rows<D>::cols` columns: D, or 64 at D 128) in the
+// swizzle of `Rows<D>`. Columns past d and rows past `rows` of a slab
+// read as zeros (CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE fills with zeros; the
+// NaN fill would poison the products), and a box still completes its
+// whole size in bytes on its mbarrier. `base` must be 16-byte aligned
+// and d a multiple of 8 (the row stride, 2*d bytes, a multiple of 16).
 template <int D>
-inline cudaError_t encode_rows_map(CUtensorMap* map, const void* base,
+inline cudaError_t encode_rows_map(CUtensorMap* map, const void* base, int d,
                                    int rows, int slabs, int box_rows) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t row_bytes = Rows<D>::bytes;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
+  if (d > D || !takes_head_dim(d)) return cudaErrorInvalidValue;
+  const cuuint64_t row_bytes = 2 * (cuuint64_t)d;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
                               (cuuint64_t)slabs};
   const cuuint64_t strides[2] = {row_bytes, (cuuint64_t)rows * row_bytes};
   const cuuint32_t box[3] = {(cuuint32_t)Rows<D>::cols,

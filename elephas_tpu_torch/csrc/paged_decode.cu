@@ -516,6 +516,8 @@ cudaError_t launch(const void* q, const void* kpool, const void* vpool,
                    cudaStream_t stream) {
   return with_head_dim(D, [&](auto d) {
     constexpr int Dc = decltype(d)::value;
+    // the split body has no filled columns: its rows are exactly Dc wide
+    if (Dc != D) return cudaErrorInvalidValue;
     switch (H / KVH) {
       case 1:
         return launch_dg<Dc, 1>(q, kpool, vpool, tables, pos, slopes, out,

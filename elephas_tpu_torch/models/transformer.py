@@ -147,6 +147,16 @@ FLAGSHIP = dict(vocab_size=32000, num_layers=8, num_heads=16, d_model=1024,
 #: ``TransformerConfig(**TRANSFORMER_TPUMODEL)``
 TRANSFORMER_TPUMODEL = dict(vocab_size=512, num_layers=4, num_heads=8,
                             d_model=256, d_ff=512, max_seq_len=128)
+#: ``microsoft/Phi-3-mini-4k-instruct``'s ``config.json``: vocab 32064,
+#: 32 layers, 32 heads over 32 kv heads (MHA), hidden 3072 (head dim 96),
+#: intermediate 8192 (SwiGLU), RMSNorm at eps 1e-5 (the repo's), RoPE
+#: theta 10000, sliding window 2047, untied head; ``max_seq_len`` 2048 of
+#: its 4096: ``TransformerConfig(**PHI3_MINI)``
+PHI3_MINI = dict(vocab_size=32064, num_layers=32, num_heads=32,
+                 num_kv_heads=32, d_model=3072, d_ff=8192, max_seq_len=2048,
+                 positional="rope", rope_theta=10000.0,
+                 attention_window=2047, mlp_variant="swiglu",
+                 norm="rmsnorm", tied_embedding=False)
 
 
 def check_ported(config: TransformerConfig) -> None:
@@ -371,8 +381,8 @@ def resolve_attention_impl(config: TransformerConfig,
     """``"flash"`` or ``"xla"`` (the plain path) for single-device
     attention: ``auto`` picks flash on a CUDA device. ALiBi always takes
     the plain path, whose bias it needs (the JAX routing rule). A head
-    dim the kernels have no body for raises at the kernel's operand
-    check (``SUPPORTED_HEAD_DIMS``), never falls back."""
+    dim the kernels do not take raises at the kernel's operand check
+    (``kernel_takes_head_dim``), never falls back."""
     if config.positional == "alibi":
         return "xla"
     if config.attention_impl == "auto":

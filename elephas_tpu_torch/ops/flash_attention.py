@@ -14,11 +14,16 @@ rowsum(dO * O)`` it returns ``(dq, dk, dv)``, launching the dQ kernel
 the two backward kernels, as the ``_flash`` custom VJP is.
 
 On CPU tensors each wrapper computes its plain version; on CUDA tensors
-it launches its kernel or raises (any head dim outside
-:data:`SUPPORTED_HEAD_DIMS` raises: there is no plain fallback). Shapes
-follow the JAX package: q and
-dO ``(B, H, Sq, D)``, k/v ``(B, KVH, Sk, D)`` with ``KVH`` dividing
-``H`` (GQA), lse and delta ``(B, H, Sq)`` f32, bf16 or f32 otherwise.
+it launches its kernel or raises: a head dim the kernels do not take
+(:func:`kernel_takes_head_dim`: a multiple of 8 from 8 to 128) raises,
+there is no plain fallback. The kernels have bodies 16, 32, 64 and 128
+columns wide; a head dim d runs the narrowest body at least d wide, its
+tensor maps holding d, so TMA reads each row's d values and fills the
+tile's other columns with zeros in shared memory, and the kernels store
+only each row's first d columns. The wrappers pad nothing in device
+memory. Shapes follow the JAX package: q and dO ``(B, H, Sq, D)``, k/v
+``(B, KVH, Sk, D)`` with ``KVH`` dividing ``H`` (GQA), lse and delta
+``(B, H, Sq)`` f32, bf16 or f32 otherwise.
 """
 import math
 from typing import Optional, Tuple
@@ -31,12 +36,19 @@ from .attention import NEG_INF
 __all__ = ["flash_attention", "flash_forward", "flash_forward_plain",
            "flash_backward", "flash_backward_plain", "flash_dq",
            "flash_dq_plain", "flash_dkv", "flash_dkv_plain",
-           "SUPPORTED_HEAD_DIMS", "BLOCK"]
+           "kernel_takes_head_dim", "BLOCK"]
 
-#: head dims the CUDA kernels are instantiated for, bf16 and f32: 16, 32
-#: and 64 (the repo's configurations) and 128 (most published LMs:
-#: Llama-2-7B, Mistral-7B, Llama-3-8B); the CPU plain versions take any
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+
+def kernel_takes_head_dim(d: int) -> bool:
+    """Whether the CUDA kernels take head dim ``d``, bf16 and f32: a
+    multiple of 8 (a row of d bf16 values is then a multiple of the
+    tensor maps' 16-byte stride unit) from 8 to 128, the widest body
+    (``takes_head_dim`` in ``csrc/hopper.cuh``). That covers the repo's
+    configurations (16, 32, 64), most published LMs (128: Llama-2-7B,
+    Mistral-7B), Phi-3-mini (96), Phi-2 (80), DiT-XL/2 (72). The CPU
+    plain versions take any."""
+    return d % 8 == 0 and 8 <= d <= 128
+
 #: the one block size :func:`flash_attention` takes by name; the kernels
 #: pick their own tiles (64 or 128 rows, csrc/flash_*.cu)
 BLOCK = 64
@@ -94,15 +106,14 @@ def _check(q, k, v):
 
 
 def _kernel_operands(q: torch.Tensor, **tensors: torch.Tensor):
-    """Check the operands of a CUDA flash kernel (head dim instantiated;
-    ``q`` and the named tensors of q's dtype, on q's device, contiguous)
-    and return them in order, with bf16 operands cloned where they are
-    not 16-byte aligned."""
-    if q.shape[3] not in SUPPORTED_HEAD_DIMS:
+    """Check the operands of a CUDA flash kernel (a head dim the kernels
+    take; ``q`` and the named tensors of q's dtype, on q's device,
+    contiguous) and return them in order, with bf16 operands cloned
+    where they are not 16-byte aligned."""
+    if not kernel_takes_head_dim(q.shape[3]):
         raise ValueError(
             f"no flash kernel for head_dim {q.shape[3]}: the kernels take "
-            f"head_dim in {SUPPORTED_HEAD_DIMS[:-1]} (the repo's "
-            f"configurations) or {SUPPORTED_HEAD_DIMS[-1]} (published LMs)")
+            f"a head_dim that is a multiple of 8 from 8 to 128")
     if q.device.type != "cuda":
         raise ValueError(f"no flash kernel for device {q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -138,20 +149,28 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_forward_plain(q, k, v, q_offset, k_offset, causal,
                                    window)
     q, k, v = _kernel_operands(q, k=k, v=v)
-    b, h, sq, d = q.shape
-    kvh, sk = k.shape[1], k.shape[2]
+    b, h, sq, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    lib = _kernels.library()
-    err = lib.etpu_flash_fwd(
+    _fwd_launch(q, k, v, o, lse, q_offset, k_offset, causal, window)
+    flash_forward.launches += 1
+    return o, lse
+
+
+def _fwd_launch(q, k, v, o, lse, q_offset, k_offset, causal,
+                window) -> None:
+    """The forward kernel on checked operands, into ``o`` (q's shape)
+    and ``lse``; it writes each row's head_dim values and nothing
+    past them."""
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    err = _kernels.library().etpu_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), b, h, kvh, sq, sk, d, int(q_offset), int(k_offset),
         int(bool(causal)), 0 if window is None else int(window),
         1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     _kernels.check(err, "flash forward")
-    flash_forward.launches += 1
-    return o, lse
 
 
 flash_forward.launches = 0

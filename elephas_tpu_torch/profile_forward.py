@@ -2,11 +2,14 @@
 torch.profiler.
 
     python -m elephas_tpu_torch.profile_forward [--reps 20] [--batch 2]
+        [--config flagship|phi3_mini]
 
-Runs on the CUDA device only. Builds the flagship LM config (vocab
-32000, 8 layers, 16 heads, d_model 1024, d_ff 4096, bf16 compute over
-f32 weights from a seed) and calls ``forward`` with the flash kernel on
-``--batch`` x 1024 seeded token ids: three warm-up calls, then
+Runs on the CUDA device only. Builds the LM config (``flagship``: vocab
+32000, 8 layers, 16 heads, d_model 1024, d_ff 4096; ``phi3_mini``:
+Phi-3-mini-4k-instruct's widths, 32 layers, head dim 96, ``PHI3_MINI``;
+bf16 compute over f32 weights from a seed) and calls ``forward`` with
+the flash kernel on ``--batch`` x the config's sequence length (1024 or
+2048) of seeded token ids: three warm-up calls, then
 ``--reps`` calls each clocked on the host with a device sync after it,
 then ``--reps`` more under the profiler. Prints one JSON line: the
 median and minimum host time per call (untraced window), the device
@@ -28,21 +31,25 @@ def main() -> None:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--top", type=int, default=10)
+    ap.add_argument("--config", default="flagship",
+                    choices=("flagship", "phi3_mini"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward needs a CUDA device")
     from torch.profiler import ProfilerActivity, profile
 
-    from .models.transformer import (FLAGSHIP, TransformerConfig, forward,
-                                     init_params)
+    from .models.transformer import (FLAGSHIP, PHI3_MINI, TransformerConfig,
+                                     forward, init_params)
     from .profile_serving import device_breakdown
 
-    cfg = dataclasses.replace(TransformerConfig(**FLAGSHIP),
+    widths = FLAGSHIP if args.config == "flagship" else PHI3_MINI
+    cfg = dataclasses.replace(TransformerConfig(**widths),
                               attention_impl="flash")
+    seq = cfg.max_seq_len
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
     tokens = torch.as_tensor(np.random.default_rng(3).integers(
-        0, cfg.vocab_size, (args.batch, 1024)), device="cuda")
+        0, cfg.vocab_size, (args.batch, seq)), device="cuda")
     for _ in range(3):
         forward(params, tokens, cfg)
     torch.cuda.synchronize()
@@ -59,9 +66,10 @@ def main() -> None:
             forward(params, tokens, cfg)
         torch.cuda.synchronize()
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "reps": args.reps,
-        "batch": args.batch, "seq": 1024, "host_ms_min": min(times),
-        "tokens_per_s": args.batch * 1024 / host_ms * 1e3,
+        "device": torch.cuda.get_device_name(0), "config": args.config,
+        "reps": args.reps, "batch": args.batch, "seq": seq,
+        "host_ms_min": min(times),
+        "tokens_per_s": args.batch * seq / host_ms * 1e3,
         **device_breakdown(prof, args.reps, host_ms, args.top)}))
 
 

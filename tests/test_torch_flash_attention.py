@@ -4,9 +4,12 @@ The same numpy inputs go through the JAX ``flash_hop_forward`` (the
 Pallas ``_fwd_kernel`` in interpret mode) and the port's
 ``flash_forward``, which on CPU tensors runs the kernel's plain
 version: O and the per-row LSE, at zero and nonzero global offsets, at
-head dim 16 and, in one case (GQA groups of 4 under a window, the shape
-Mistral-7B gives the kernels), 128. f32; atol 2e-5 on O and 1e-4 on LSE
-(a logsumexp of up to ~100 terms reassociated).
+head dim 16 and, in one case each, at 128 (GQA groups of 4 under a
+window, the shape Mistral-7B gives the kernels), 96 (Phi-3-mini's head
+dim, under a window), 80 (Phi-2's, ragged) and 8 (the repo's small LMs,
+a ring hop): the head dims the kernels run on a wider body's
+zero-filled columns. f32; atol 2e-5 on O and 1e-4 on LSE (a logsumexp
+of up to ~100 terms reassociated).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -17,11 +20,11 @@ torch = pytest.importorskip("torch")
 from elephas_tpu.ops.pallas_attention import flash_attention as jax_flash
 from elephas_tpu.ops.pallas_attention import flash_hop_forward
 from elephas_tpu_torch.ops.attention import attention
-from elephas_tpu_torch.ops.flash_attention import (SUPPORTED_HEAD_DIMS,
-                                                   _kernel_operands,
+from elephas_tpu_torch.ops.flash_attention import (_kernel_operands,
                                                    flash_attention,
                                                    flash_forward,
-                                                   flash_forward_plain)
+                                                   flash_forward_plain,
+                                                   kernel_takes_head_dim)
 
 # (causal, kvh, window, sq, sk, q_offset, k_offset)
 _CASES = {
@@ -35,9 +38,13 @@ _CASES = {
     "hop_future": (True, 2, None, 32, 32, 0, 32),
     "hop_window": (True, 4, 20, 32, 32, 64, 32),
     "d128_gqa4_window": (True, 1, 40, 64, 64, 0, 0),
+    "d96_window": (True, 4, 9, 24, 24, 0, 0),
+    "d80_ragged": (True, 2, None, 21, 21, 0, 0),
+    "d8_hop_past": (True, 4, None, 16, 16, 32, 16),
 }
-# the cases at head dim 128; the rest run at 16
-_HEAD_DIM = {"d128_gqa4_window": 128}
+# the cases at another head dim than 16
+_HEAD_DIM = {"d128_gqa4_window": 128, "d96_window": 96, "d80_ragged": 80,
+             "d8_hop_past": 8}
 
 
 def _qkv(seed, h, kvh, sq, sk, b=2, d=16):
@@ -83,7 +90,12 @@ def test_hop_in_the_future_is_fully_masked():
     *(pytest.param(causal, kvh, None, 33, 16, id=f"{kvh}-{causal}")
       for kvh in (4, 2) for causal in (True, False)),
     # head dim 128, H 4 over KVH 1 (groups of 4), causal under a window
-    pytest.param(True, 1, 40, 64, 128, id="d128-1-True-40")])
+    pytest.param(True, 1, 40, 64, 128, id="d128-1-True-40"),
+    # the head dims of a wider body's filled columns: 96 (Phi-3-mini) MHA
+    # under a window, 80 (Phi-2) with GQA 2, 8 non-causal
+    pytest.param(True, 4, 9, 24, 96, id="d96-4-True-9"),
+    pytest.param(True, 2, None, 21, 80, id="d80-2-True"),
+    pytest.param(False, 4, None, 16, 8, id="d8-4-False")])
 def test_flash_attention_matches_jax_flash(causal, kvh, window, seq, d):
     q, k, v = _qkv(9, 4, kvh, seq, seq, d=d)
     ref = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k),
@@ -133,20 +145,24 @@ def test_rejects_bad_arguments(bad):
 
 
 def test_kernels_take_the_repo_head_dims():
-    """The CUDA bodies' head dims: 64 (the flagship), 32
-    (examples/transformer_tpumodel.py), 16 (examples/http_serving.py) and
-    128 (most published LMs: Llama-2-7B, Mistral-7B, Llama-3-8B);
-    csrc/flash_*.cu dispatch the same set."""
-    assert SUPPORTED_HEAD_DIMS == (16, 32, 64, 128)
+    """The CUDA kernels take every multiple of 8 from 8 to 128 (bodies
+    16, 32, 64 and 128 wide, a head dim below a body's width on its
+    zero-filled columns: 64 the flagship, 32 and 16 the examples, 128
+    most published LMs, 96 Phi-3-mini, 80 Phi-2, 8 the repo's small
+    LMs); csrc/hopper.cuh ``takes_head_dim`` is the same rule. Not 4,
+    100 (not multiples of 8), 136 or 256 (past the widest body)."""
+    assert all(kernel_takes_head_dim(d) for d in range(8, 129, 8))
+    assert not any(kernel_takes_head_dim(d)
+                   for d in (0, 4, 12, 100, 127, 136, 256))
 
 
-@pytest.mark.parametrize("head_dim", [48, 8])
+@pytest.mark.parametrize("head_dim", [100, 136, 256])
 def test_kernel_operand_check_rejects_other_head_dims(head_dim):
-    """A flash kernel call at a head dim with no body raises, naming the
-    head dim and the supported set (checked before the device, so a CPU
-    tensor shows it)."""
+    """A flash kernel call at a head dim the kernels do not take raises,
+    naming the head dim and the rule (checked before the device, so a
+    CPU tensor shows it)."""
     q, k, v = (torch.from_numpy(a)
                for a in _qkv(7, 4, 2, 8, 8, d=head_dim))
     with pytest.raises(ValueError, match=rf"head_dim {head_dim}: .*"
-                       r"\(16, 32, 64\)"):
+                       r"multiple of 8 from 8 to 128"):
         _kernel_operands(q, k=k, v=v)

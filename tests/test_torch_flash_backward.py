@@ -6,9 +6,12 @@ interpret mode) and the port's ``flash_backward``, which on CPU tensors
 runs the kernels' plain versions; f32, atol 2e-6 on dq/dk/dv (sums of
 at most ~200 f32 products reassociated). One case of each parity test
 runs at head dim 128 (H 4 over KVH 1, causal under a window, the shape
-Mistral-7B gives the kernels), the rest at 16; at 128 the S and dP dot
-products run over 8 times the terms and dq reaches |4|, so its atol is
-4e-6 (about 8 ulps of the largest gradient). Autograd through the port's
+Mistral-7B gives the kernels), one each at 96 (Phi-3-mini's head dim),
+80 (Phi-2's) and 8 (the repo's small LMs), the head dims the kernels run
+on a wider body's zero-filled columns, the rest at 16; at 128, 96 and
+80 the S and dP dot products run over 5-8 times the terms and dq
+reaches |4|, so their atol is 4e-6 (about 8 ulps of the largest
+gradient). Autograd through the port's
 ``flash_attention`` is held against ``jax.grad`` of the JAX
 ``flash_attention`` at the JAX package's own gradient tolerances
 (``tests/ops/test_pallas_attention.py``: atol 5e-5, rtol 5e-4).
@@ -40,9 +43,13 @@ _CASES = {
     "hop_future": (True, 2, None, 32, 32, 0, 32),
     "hop_window": (True, 4, 20, 32, 32, 64, 32),
     "d128_gqa4_window": (True, 1, 40, 64, 64, 0, 0),
+    "d96_window": (True, 4, 9, 24, 24, 0, 0),
+    "d80_ragged": (True, 2, None, 21, 21, 0, 0),
+    "d8_hop_past": (True, 4, None, 16, 16, 32, 16),
 }
-# the cases at head dim 128; the rest run at 16
-_HEAD_DIM = {"d128_gqa4_window": 128}
+# the cases at another head dim than 16
+_HEAD_DIM = {"d128_gqa4_window": 128, "d96_window": 96, "d80_ragged": 80,
+             "d8_hop_past": 8}
 
 
 def _inputs(seed, case, b=2, h=4):
@@ -68,7 +75,7 @@ def test_backward_matches_jax_hop(case):
                              block_k=16, interpret=True)
     out = flash_backward(*(torch.from_numpy(a) for a in arrays), qo, ko,
                          causal, window)
-    atol = 4e-6 if _HEAD_DIM.get(case) == 128 else 2e-6
+    atol = 4e-6 if _HEAD_DIM.get(case, 16) >= 80 else 2e-6
     for name, got, want, like in zip(("dq", "dk", "dv"), out, ref,
                                      arrays[:3]):
         assert got.shape == like.shape and got.dtype == torch.float32
@@ -97,7 +104,12 @@ def test_split_kernels_equal_the_pair(case):
                    id=f"{kvh}-{causal}-{window}")
       for kvh in (4, 2) for causal in (True, False) for window in (None, 9)),
     # head dim 128, H 4 over KVH 1 (groups of 4), causal under a window
-    pytest.param(1, True, 40, 64, 128, id="d128-1-True-40")])
+    pytest.param(1, True, 40, 64, 128, id="d128-1-True-40"),
+    # the head dims of a wider body's filled columns: 96 (Phi-3-mini) MHA
+    # under a window, 80 (Phi-2) with GQA 2, 8 non-causal
+    pytest.param(4, True, 9, 16, 96, id="d96-4-True-9"),
+    pytest.param(2, True, None, 16, 80, id="d80-2-True-None"),
+    pytest.param(4, False, None, 16, 8, id="d8-4-False-None")])
 def test_autograd_matches_jax_grad(causal, kvh, window, seq, d):
     rng = np.random.default_rng(9)
     q = rng.standard_normal((2, 4, seq, d)).astype(np.float32)

@@ -9,7 +9,10 @@ The kernels are built from ``elephas_tpu_torch/csrc`` at first use.
 The flash kernels are held at head dim 64 over every case and at head
 dims 16 and 32 (the repo's other configurations) and 128 (most published
 LMs) over the GQA, window, ragged and offset cases, and at 128 over the
-edges of its 128-key tiles; the paged kernel at
+edges of its 128-key tiles; at head dims 8, 24, 40, 72, 80, 96 and 120,
+which run a wider body on zero-filled columns, over the same cases, with
+a sentinel check that no byte past a row's head_dim values is written;
+the paged kernel at
 head dims 16, 32, 64 and 128 and block sizes 8 and 16 over every case
 (bf16 on its split body with groups of 1, 2 and 4, f32 and 8-way groups
 on its general body). The Keras layers, optimizers and schedules
@@ -177,6 +180,10 @@ def test_flash_kernels_at_small_head_dims_match_plain(cuda, no_tf32,
     """The forward, dQ and dK/dV kernels at head dims 16, 32 and 128 (the
     head dims besides the flagship's 64) against their plain versions,
     with the head-dim-64 tests' tolerances."""
+    _check_all_three(cuda, head_dim, case, dtype)
+
+
+def _check_all_three(cuda, head_dim, case, dtype):
     from elephas_tpu_torch.ops.flash_attention import (flash_forward,
                                                        flash_forward_plain)
     b, h, kvh, sq, sk, causal, window, qo, ko = _BWD_CASES[case]
@@ -273,6 +280,137 @@ def test_flash_fwd_kernel_is_bit_reproducible_at_head_dim_128(cuda, case):
     (o1, l1), (o2, l2) = flash_forward(*args), flash_forward(*args)
     assert torch.equal(o1.view(torch.int16), o2.view(torch.int16))
     assert torch.equal(l1, l2)
+
+
+# head dims below their body's width (8 on the 16-wide body, 24 on 32,
+# 40 on 64, 72-120 on 128; 96 is Phi-3-mini's, 80 Phi-2's): TMA fills
+# the columns past the head dim with zeros and the stores drop them
+_FILLED_HEAD_DIMS = [8, 24, 40, 72, 80, 96, 120]
+# GQA 4:1, ragged lengths, a window edge, ring offsets, one query row,
+# one past a 128-row tile
+_FILLED_CASES = ["gqa", "gqa4_ragged", "window_17", "ragged_191_257",
+                 "sq_one", "sq_129", "hop_past", "hop_future", "noncausal",
+                 "gqa4_window"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", _FILLED_CASES)
+@pytest.mark.parametrize("head_dim", _FILLED_HEAD_DIMS)
+def test_flash_kernels_at_filled_head_dims_match_plain(cuda, no_tf32,
+                                                       head_dim, case,
+                                                       dtype):
+    """The forward, dQ and dK/dV kernels at head dims that run a wider
+    body on zero-filled columns, against their plain versions with the
+    head-dim-64 tests' tolerances."""
+    _check_all_three(cuda, head_dim, case, dtype)
+
+
+def _sentinel_views(shapes, dtype, device):
+    """Tensors of ``shapes`` as contiguous views into one buffer filled
+    with a sentinel bit pattern (a NaN), each followed by 256 bytes of
+    sentinel: returns the views and a function that says whether every
+    guard still holds the sentinel."""
+    guard = 256 // torch.empty((), dtype=dtype).element_size()
+    sizes = [int(np.prod(sh)) for sh in shapes]
+    buf = torch.full((sum(sizes) + guard * len(shapes),), float("nan"),
+                     dtype=dtype, device=device)
+    views, guards, at = [], [], 0
+    for shape, n in zip(shapes, sizes):
+        views.append(buf[at:at + n].view(shape))
+        guards.append(buf[at + n:at + n + guard])
+        at += n + guard
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    pattern = buf[-1:].view(bits).clone()
+
+    def intact():
+        return all(bool((g.view(bits) == pattern).all()) for g in guards)
+    return views, intact
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["sq_one", "ragged_191_257", "gqa4_ragged",
+                                  "sq_129"])
+@pytest.mark.parametrize("head_dim", _FILLED_HEAD_DIMS)
+def test_flash_kernels_write_no_byte_past_the_head_dim(cuda, no_tf32,
+                                                       head_dim, case,
+                                                       dtype):
+    """Outputs into sentinel-filled memory: every value of O, dQ, dK and
+    dV is written (no sentinel left), matches the plain version, and the
+    256 bytes after each tensor keep the sentinel. A store of the filled
+    columns would land past a row's head_dim values: in the next row, or
+    past the tensor's last row into the guard."""
+    from elephas_tpu_torch.ops import flash_attention as fa
+    b, h, kvh, sq, sk, causal, window, qo, ko = _BWD_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q, g = (torch.randn((b, h, sq, head_dim), generator=gen, device=cuda)
+            .to(dtype) for _ in range(2))
+    k, v = (torch.randn((b, kvh, sk, head_dim), generator=gen, device=cuda)
+            .to(dtype) for _ in range(2))
+    o_ref, lse_ref = fa.flash_forward_plain(q.float(), k.float(), v.float(),
+                                            qo, ko, causal, window)
+    delta = (g.float() * o_ref).sum(-1)
+    ref = fa.flash_backward_plain(q.float(), k.float(), v.float(), g.float(),
+                                  lse_ref, delta, qo, ko, causal, window)
+    (o, dq, dk, dv), intact = _sentinel_views(
+        [q.shape, q.shape, k.shape, v.shape], dtype, cuda)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=cuda)
+    offs = (qo, ko, causal, window)
+    fa._fwd_launch(q, k, v, o, lse, *offs)
+    fa._bwd_launch("etpu_flash_bwd_dq", q, k, v, g, lse_ref, delta, (dq,),
+                   *offs)
+    fa._bwd_launch("etpu_flash_bwd_dkv", q, k, v, g, lse_ref, delta,
+                   (dk, dv), *offs)
+    torch.cuda.synchronize()
+    assert intact(), "a store past the last row's head_dim values"
+    rel = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(o.float(), o_ref, atol=rel, rtol=0)
+    for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        assert not bool(torch.isnan(got).any()), f"{name} not all written"
+        scale = float(want.abs().max())
+        err = float((got.float() - want).abs().max())
+        assert err <= rel * max(scale, 1e-30), f"{name}: {err} > {rel} * "\
+            f"{scale}"
+
+
+@pytest.mark.parametrize("case", ["gqa4_ragged", "gqa4_window", "sq_255"])
+def test_flash_kernels_are_bit_reproducible_at_head_dim_96(cuda, case):
+    """Two launches each of the forward, dQ and dK/dV kernels at head dim
+    96 (Phi-3-mini's, on the 128-wide bodies) on the same bf16 inputs give
+    the same bits."""
+    from elephas_tpu_torch.ops.flash_attention import flash_dq, flash_forward
+    args = _bwd_args(case, 6, cuda, 96)
+    q, k, v = args[:3]
+    fwd = (args[6], args[7], args[8], args[9])
+    (o1, l1), (o2, l2) = (flash_forward(q, k, v, *fwd) for _ in range(2))
+    assert torch.equal(o1.view(torch.int16), o2.view(torch.int16))
+    assert torch.equal(l1, l2)
+    first, second = flash_dq(*args), flash_dq(*args)
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+    _assert_dkv_reproducible(args)
+
+
+@pytest.mark.parametrize("head_dim", [100, 136, 256])
+def test_flash_kernels_refuse_other_head_dims_on_card(cuda, head_dim):
+    """At a head dim that is not a multiple of 8, or is above 128, the
+    wrappers raise on CUDA tensors, naming the rule (no plain fallback,
+    no launch), and the C entry returns cudaErrorInvalidValue (1)."""
+    from elephas_tpu_torch.ops import _kernels
+    from elephas_tpu_torch.ops.flash_attention import (flash_attention,
+                                                       flash_forward)
+    q = torch.zeros((1, 2, 16, head_dim), device=cuda,
+                    dtype=torch.bfloat16)
+    before = flash_forward.launches
+    for call in (lambda: flash_forward(q, q, q),
+                 lambda: flash_attention(q, q, q, causal=True)):
+        with pytest.raises(ValueError, match=r"multiple of 8 from 8 to 128"):
+            call()
+    assert flash_forward.launches == before
+    lse = torch.empty((1, 2, 16), device=cuda)
+    err = _kernels.library().etpu_flash_fwd(
+        q.data_ptr(), q.data_ptr(), q.data_ptr(), q.data_ptr(),
+        lse.data_ptr(), 1, 2, 2, 16, 16, head_dim, 0, 0, 1, 0, 0.1, 1,
+        torch.cuda.current_stream(cuda).cuda_stream)
+    assert err == 1
 
 
 def _offset_views(shapes, offset, gen, device):

@@ -148,12 +148,13 @@ def test_attention_impl_routing():
 
 
 @pytest.mark.parametrize("impl", ["auto", "flash"])
-@pytest.mark.parametrize("head_dim", [16, 32, 64, 48])
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 48, 100])
 def test_auto_routes_by_head_dim_on_cuda(head_dim, impl):
     """Under ``auto`` (or an explicit ``"flash"``) a CUDA device takes
-    the flash kernels at every head dim; at one they have no body for
-    (48) the CUDA operand check raises with the head dim and the
-    supported set, so nothing falls back to the plain path. ``auto`` on
+    the flash kernels at every head dim; 48 (a multiple of 8, on the
+    64-wide body) passes the CUDA operand check's head-dim rule, and at
+    one the kernels do not take (100) the check raises with the head dim
+    and the rule, so nothing falls back to the plain path. ``auto`` on
     the CPU takes the plain path."""
     from elephas_tpu_torch.ops.flash_attention import _kernel_operands
     cfg = ttr.TransformerConfig(**dict(_BASE, num_heads=2,
@@ -163,10 +164,14 @@ def test_auto_routes_by_head_dim_on_cuda(head_dim, impl):
     assert ttr.resolve_attention_impl(cfg, torch.device("cuda")) == "flash"
     assert ttr.resolve_attention_impl(cfg, torch.device("cpu")) == (
         "xla" if impl == "auto" else "flash")
-    if head_dim == 48:
-        q = torch.zeros((1, 2, 5, head_dim))
-        with pytest.raises(ValueError,
-                           match=r"head_dim 48: .*\(16, 32, 64\)"):
+    q = torch.zeros((1, 2, 5, head_dim))
+    if head_dim == 100:
+        with pytest.raises(ValueError, match=r"head_dim 100: .*"
+                           r"multiple of 8 from 8 to 128"):
+            _kernel_operands(q, k=q, v=q)
+    elif head_dim == 48:
+        # the head dim is taken: what stops a CPU tensor is the device
+        with pytest.raises(ValueError, match=r"for device cpu"):
             _kernel_operands(q, k=q, v=q)
 
 

@@ -3,12 +3,16 @@
 Times the bf16 flash forward, dK/dV and dQ beside SDPA with
 ``chip_smoke``'s timer (``device_ms``: cold L2, median of 20 calls,
 device time alone) at the training shape (B 8, H 16, S 1024, causal) at
-head dims 128, 64, 32 and 16, and at ``lm_d128``'s fit shape (B 4, H 32
-over KVH 8, S 1024, window 4096) at 128, and prints them as one JSON
-line; then runs ``chip_smoke``'s ``lm_d128`` phase (``forward`` over 32
-layers, the paged engine, the 2-layer gradient and tokens, the 4-layer
-fit), which prints its own lines (``bf16_ms`` of ``forward``,
-``ms_per_step`` of the fit). A script, not a test: it needs the card.
+head dims 128, 64, 32, 16, 96 and 80, at ``lm_d128``'s fit shape (B 4,
+H 32 over KVH 8, S 1024, window 4096) at 128 and at ``lm_d96``'s (B 2, H
+32, S 2048, window 2047) at 96, with a digest (sha256) of each call's
+outputs, O, LSE, dQ, dK and dV, on the same seeded inputs, so two trees'
+bits can be compared; a tree whose kernels refuse a head dim says so
+there. It prints them as one JSON line, then runs ``chip_smoke``'s
+``lm_d128`` phase (``forward`` over 32 layers, the paged engine, the
+2-layer gradient and tokens, the 4-layer fit), which prints its own
+lines (``bf16_ms`` of ``forward``, ``ms_per_step`` of the fit). A
+script, not a test: it needs the card.
 
     python tests/torch_flash_ab.py [TREE]
 
@@ -18,6 +22,7 @@ checkout). Copy this checkout's chip_smoke.py into the other tree, so
 that both sides use one timer, and run parent, change, change, parent
 on one card.
 """
+import hashlib
 import json
 import os
 import sys
@@ -35,12 +40,22 @@ from elephas_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_dkv, flash_dq, flash_forward, flash_forward_plain)
 
 # name: (B, H, KVH, S, window), causal, and the head dims timed there
-SHAPES = {"b8": ((8, 16, 16, 1024, None), (128, 64, 32, 16)),
-          "path": ((4, 32, 8, 1024, 4096), (128,))}
+SHAPES = {"b8": ((8, 16, 16, 1024, None), (128, 64, 32, 16, 96, 80)),
+          "path": ((4, 32, 8, 1024, 4096), (128,)),
+          "path_d96": ((2, 32, 32, 2048, 2047), (96,))}
+
+
+def digest(*tensors):
+    """sha256 of the tensors' bytes, in order."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def kernel_times(flush):
-    """{shape_d: {fwd, sdpa, dkv, dq}} in device ms."""
+    """{shape_d: {fwd, sdpa, dkv, dq, digest}} in device ms; ``refused``
+    where this tree's kernels do not take the head dim."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {}
     for name, ((b, h, kvh, s, window), dims) in SHAPES.items():
@@ -53,7 +68,14 @@ def kernel_times(flush):
             o, lse = flash_forward_plain(q, k, v, causal=True, window=window)
             delta = (g.float() * o.float()).sum(-1)
             args = (q, k, v, g, lse, delta, 0, 0, True, window)
+            try:
+                outs = (*flash_forward(q, k, v, causal=True, window=window),
+                        flash_dq(*args), *flash_dkv(*args))
+            except ValueError as e:
+                out[f"{name}_d{d}"] = {"refused": str(e)}
+                continue
             out[f"{name}_d{d}"] = {
+                "digest": digest(*outs),
                 "fwd": chip_smoke.device_ms(lambda: flash_forward(
                     q, k, v, causal=True, window=window), flush),
                 "sdpa": chip_smoke.device_ms(
@@ -61,7 +83,7 @@ def kernel_times(flush):
                         q, k, v, is_causal=True, **gqa), flush),
                 "dkv": chip_smoke.device_ms(lambda: flash_dkv(*args), flush),
                 "dq": chip_smoke.device_ms(lambda: flash_dq(*args), flush)}
-            del q, k, v, g, o, lse, delta, args
+            del q, k, v, g, o, lse, delta, args, outs
     return out
 
 
