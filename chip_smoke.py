@@ -101,7 +101,20 @@ prefix reuse and paged-kernel launches, then times ``generate`` and
 ``examples/http_serving.py``'s program (its LM, engine, registered
 prefix and 5 concurrent text clients, then ``/v1/submit`` and
 ``/stats``) with ``kernel="gather"`` and ``kernel="fused"``, each
-client's tokens equal to ``generate``'s. Every
+client's tokens equal to ``generate``'s. Speculative decoding:
+``speculative_flagship`` distils a 1-layer draft of the flagship's
+widths with ``make_distill_step`` at B 8 x 1024 (the three flash
+kernels), runs ``speculative_generate`` at B 8 (gamma 4; the target as
+its own draft, the truncated and the distilled draft) beside
+``generate``, then a paged ``DecodeEngine`` with the draft and a plain
+paged engine with ``interleave_prefill`` (the paged split body) on the
+serving phase's 16 requests, with tokens/s, target rounds per token,
+acceptance and ``step()`` times; at 2 layers in f32 greedy speculative
+tokens and both engines' outputs equal ``generate`` (tie-aware) and the
+target as its own draft accepts every proposal.
+``speculative_example`` runs ``examples/speculative_serving.py``'s
+program (head dim 16, f32: its training and distillation on the d 16
+flash kernels). Every
 phase prints one JSON line; any failure raises and the script
 exits non-zero without the final result line. The last three lines are
 the card's name and power limit as ``nvidia-smi`` reports them, the
@@ -1015,11 +1028,15 @@ def run_forward_d16():
     return counts
 
 
-def serve(params, cfg, prompts, kernel, max_new=64, timed=False):
+def serve(params, cfg, prompts, kernel="gather", max_new=64, timed=False,
+          **engine_kw):
+    """The paged engine (8 slots, 512 usable blocks of 16) on
+    ``prompts``: (outputs, info); ``timed`` adds tokens/s, TTFT and each
+    ``step()``'s host ms."""
     from elephas_tpu_torch.serving_engine import DecodeEngine
 
     eng = DecodeEngine(params, cfg, max_slots=8, paged=(513, 16),
-                       kernel=kernel, device="cuda")
+                       kernel=kernel, device="cuda", **engine_kw)
     t_start = time.perf_counter()
     rids = [eng.submit(p, max_new) for p in prompts]
     t_sub = {r: time.perf_counter() for r in rids}
@@ -1041,7 +1058,10 @@ def serve(params, cfg, prompts, kernel, max_new=64, timed=False):
                      "output_tokens_per_s": n_tok / wall,
                      "ttft_p50_ms": float(np.median(ttft)) * 1e3,
                      "ttft_max_ms": ttft[-1] * 1e3,
-                     "step_ms_p50": float(np.median(steps)) * 1e3})
+                     "steps": len(steps),
+                     "step_ms_p50": float(np.median(steps)) * 1e3,
+                     "step_ms_p99": float(np.percentile(steps, 99)) * 1e3,
+                     "host_ms_per_step_mean": float(np.mean(steps)) * 1e3})
     return outs, info
 
 
@@ -1344,6 +1364,331 @@ def run_http_serving_example():
           **{k: {key: v for key, v in r.items() if key != "outs"}
              for k, r in runs.items()},
           "launches": counts, "seconds": time.perf_counter() - t_phase})
+    return counts
+
+
+# ------------------------------------------------ speculative decoding
+def timed_call(fn):
+    """``fn()`` and its wall seconds, the device synchronized."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def first_layers(params, n):
+    """The embeddings, head and first ``n`` layers of an LM's params."""
+    return {k: v for k, v in params.items()
+            if not k.startswith("layer_") or int(k.split("_")[1]) < n}
+
+
+def run_speculative_flagship(params, cfg):
+    """Speculative decoding at the flagship width (bf16 over f32
+    masters) with a 1-layer draft of the same widths (the shape of
+    ``examples/speculative_serving.py``'s draft: same widths, fewer
+    layers), initialised as the target truncated to its embeddings and
+    first layer: (a) ``make_distill_step`` (Adam 1e-3, temperature 2,
+    hard weight 0.1) distils the draft for 9 steps at B 8 x 1024 (the
+    flash forward, dQ and dK/dV at d 64, bf16); (b)
+    ``speculative_generate`` at B 8 x 128, 64 new tokens, gamma 4,
+    greedy, with the target as its own draft, the truncated draft and
+    the distilled draft, beside ``generate``; (c) a paged ``DecodeEngine`` with the
+    distilled draft (8 slots, gamma 4) and (d) a plain paged engine with
+    the fused kernel, ``prefill_chunk=64`` and ``interleave_prefill`` on
+    the serving phase's 16 requests (64-512 prompt tokens, 64 new each;
+    the paged kernel's split body), each with tokens/s, ``step()`` p50
+    and host ms per step. The exactness checks run 2 of the 8 layers in
+    f32: greedy speculative tokens equal ``generate``'s (tie-aware), the
+    target as its own draft accepts every proposal, and the speculative
+    and interleaved paged engines' outputs equal solo ``generate``
+    (tie-aware)."""
+    from elephas_tpu_torch.models.distill import make_distill_step
+    from elephas_tpu_torch.models.optimizers import Adam
+    from elephas_tpu_torch.models.speculative import speculative_generate
+    from elephas_tpu_torch.models.transformer import generate
+    from elephas_tpu_torch.serving_engine import DecodeEngine
+    from elephas_tpu_torch.weights import tree_map
+
+    t_phase = time.perf_counter()
+    dcfg = dataclasses.replace(cfg, num_layers=1)
+    truncated = first_layers(params, 1)
+    draft = tree_map(torch.clone, truncated)
+    parts = {}
+
+    # (a) distillation on the flash kernels
+    rng = np.random.default_rng(11)
+    tokens = torch.as_tensor(zipf_tokens(rng, cfg.vocab_size, (8, 1024)),
+                             device="cuda")
+    tx = Adam(1e-3, epsilon=1e-8).to_transform()
+    step = make_distill_step(dcfg, cfg, tx, temperature=2.0,
+                             hard_weight=0.1)
+    opt = tx.init(draft)
+    reset_counts()
+    losses = []
+    _, opt, loss = step(draft, params, opt, tokens)          # warm-up
+    losses.append(float(loss))
+    steps = 8
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        _, opt, loss = step(draft, params, opt, tokens)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    distill_ms = (time.perf_counter() - t0) / steps * 1e3
+    parts["distill"] = counts = read_counts()
+    require(all(np.isfinite(losses)), f"finite distill losses {losses}")
+    for name, per_step in (("flash_fwd", cfg.num_layers + 1),
+                           ("flash_dq", 1), ("flash_dkv", 1)):
+        require(counts[name] == per_step * (steps + 1),
+                f"the distill step launched {name} {per_step} times a "
+                f"step: {counts}")
+    distill = {"batch": 8, "seq": 1024, "steps": steps + 1,
+               "losses": losses, "ms_per_step": distill_ms,
+               "launches": counts,
+               "launches_per_step": {k: counts[k] / (steps + 1)
+                                     for k in ("flash_fwd", "flash_dq",
+                                               "flash_dkv")}}
+    del opt, tokens
+
+    # (b) speculative_generate at B 8 beside generate
+    prompt = rng.integers(0, cfg.vocab_size, (8, 128))
+    new, gamma = 64, 4
+    speculative_generate(params, draft, prompt[:, :16], 4, cfg, dcfg,
+                         gamma=gamma)                        # warm-up
+    generate(params, prompt[:, :16], 4, cfg)
+    reset_counts()
+    ref, plain_s = timed_call(lambda: generate(params, prompt, new, cfg))
+    gen = {"generate": {"output_tokens_per_s": 8 * new / plain_s,
+                        "seconds": plain_s}}
+    for name, (dp, dc) in (("target_as_draft", (params, cfg)),
+                           ("truncated_draft", (truncated, dcfg)),
+                           ("distilled_draft", (draft, dcfg))):
+        (toks, stats), sec = timed_call(lambda: speculative_generate(
+            params, dp, prompt, new, cfg, dc, gamma=gamma,
+            return_stats=True))
+        require(toks.shape == (8, new) and bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()),
+            f"{name}: tokens in the vocabulary")
+        gen[name] = {"output_tokens_per_s": 8 * new / sec, "seconds": sec,
+                     "rounds": stats["rounds"],
+                     "target_rounds_per_generated_token":
+                         stats["rounds"] / new,
+                     "draft_acceptance": stats["draft_acceptance"],
+                     "bf16_rows_equal_to_generate": int(
+                         (toks == ref).all(dim=1).sum())}
+    parts["speculative_generate"] = read_counts()
+
+    # (c, d) the engines on the serving phase's requests
+    srng = np.random.default_rng(4)
+    lengths = srng.integers(64, 513, 16)
+    prompts = [srng.integers(0, cfg.vocab_size, n).tolist()
+               for n in lengths]
+    spec_kw = dict(draft_params=draft, draft_config=dcfg, gamma=gamma)
+    inter_kw = dict(kernel="fused", prefill_chunk=64,
+                    interleave_prefill=True)
+    engines = {}
+    for name, kw in (("speculative_paged", spec_kw),
+                     ("interleaved_paged_fused", inter_kw)):
+        serve(params, cfg, prompts[:2], max_new=4, **kw)        # warm-up
+        reset_counts()
+        outs, info = serve(params, cfg, prompts, max_new=new, timed=True,
+                           **kw)
+        torch.cuda.synchronize()
+        parts[name] = read_counts()
+        require(all(len(o) == new for o in outs)
+                and all(0 <= t < cfg.vocab_size for o in outs for t in o),
+                f"{name}: {new} tokens each in the vocabulary")
+        engines[name] = info
+    stats = engines["speculative_paged"]["stats"]
+    require(stats["speculative_rounds"] > 0
+            and stats["draft_acceptance"] is not None,
+            f"the speculative engine ran rounds: {stats}")
+    inter = engines["interleaved_paged_fused"]["stats"]
+    require(inter["prefill_chunks_interleaved"] > 0,
+            f"the engine interleaved its prefills: {inter}")
+    counts = parts["interleaved_paged_fused"]
+    require(counts["paged_decode"] > 0
+            and counts["paged_split"] == counts["paged_decode"]
+            and counts["paged_decode"] == inter["kernel_launches"],
+            f"the interleaved engine ran the paged split body: {counts}")
+
+    # exactness at 2 layers, f32
+    c2 = dataclasses.replace(cfg, num_layers=2, dtype=torch.float32)
+    d2 = dataclasses.replace(dcfg, dtype=torch.float32)
+    p2 = first_layers(params, 2)
+    small = rng.integers(0, cfg.vocab_size, (4, 64))
+    ref2 = generate(p2, small, 32, c2).tolist()
+    spec2, st2 = speculative_generate(p2, draft, small, 32, c2, d2,
+                                      gamma=gamma, return_stats=True)
+    ties = tie_aware_equal(p2, c2, small.tolist(), ref2, spec2.tolist())
+    same, st_same = speculative_generate(p2, p2, small, 32, c2, c2,
+                                         gamma=gamma, return_stats=True)
+    require(st_same["draft_acceptance"] == 1.0,
+            f"f32: the target as its own draft accepts every proposal: "
+            f"{st_same}")
+    ties += tie_aware_equal(p2, c2, small.tolist(), ref2, same.tolist())
+    few = prompts[:6]
+    solo = [generate(p2, [p], 16, c2)[0].tolist() for p in few]
+    f32_engines = {}
+    for name, kw in (("speculative_paged", spec_kw),
+                     ("interleaved_paged_fused", inter_kw)):
+        kw = {**kw, "draft_config": d2} if "draft_config" in kw else kw
+        eng = DecodeEngine(p2, c2, max_slots=2, paged=(257, 16),
+                           device="cuda", **kw)
+        outs = eng.run(few, 16)
+        ties += tie_aware_equal(p2, c2, few, solo, outs)
+        f32_engines[name] = {
+            "rows_equal_to_generate": sum(a == b for a, b in
+                                          zip(outs, solo)),
+            **{k: eng.stats[k] for k in ("draft_acceptance",
+                                          "prefill_chunks_interleaved",
+                                          "kernel_launches")
+               if k in eng.stats}}
+    require(f32_engines["interleaved_paged_fused"][
+        "prefill_chunks_interleaved"] > 0,
+        "f32: the check's engine interleaved its prefills")
+    emit({"phase": "speculative_flagship", "gamma": gamma,
+          "draft_layers": dcfg.num_layers, "distill": distill,
+          "speculative_generate": {"batch": 8, "prompt": 128,
+                                   "max_new_tokens": new, **gen},
+          "engines": {"requests": len(prompts),
+                      "prompt_lengths": [int(n) for n in lengths],
+                      "max_new_tokens": new, **engines},
+          "f32_2_layers": {"speculative_generate_draft_acceptance":
+                               st2["draft_acceptance"],
+                           "target_as_draft_acceptance":
+                               st_same["draft_acceptance"],
+                           "engines": f32_engines,
+                           "near_tie_divergences": ties},
+          "launches": parts, "seconds": time.perf_counter() - t_phase})
+    del draft, truncated
+    gc.collect()
+    return parts
+
+
+def run_speculative_example():
+    """``examples/speculative_serving.py``'s program on the port, at its
+    own widths (vocab 256, 4 layers, 4 heads, d_model 64: head dim 16,
+    f32; a 1-layer draft): greedy ``speculative_generate`` with the
+    target as its draft and with a random draft; the target trained 40
+    steps (Adam 1e-2) on a 4-letter corpus and a draft distilled against
+    it for 120 steps (Adam 3e-3, temperature 2, hard weight 0.1), both
+    on the d 16 f32 flash kernels; the distilled draft's speculative
+    decode; continuous batching (6 requests through 2 slots); the
+    speculative engine with the distilled draft; prefix caching. Every
+    output equals ``generate`` (tie-aware), as the example asserts."""
+    from elephas_tpu_torch.models.distill import make_distill_step
+    from elephas_tpu_torch.models.optimizers import Adam
+    from elephas_tpu_torch.models.speculative import speculative_generate
+    from elephas_tpu_torch.models.transformer import (TransformerConfig,
+                                                      generate, init_params,
+                                                      make_train_step)
+    from elephas_tpu_torch.serving_engine import DecodeEngine
+    from elephas_tpu_torch.weights import tree_map
+
+    t_phase = time.perf_counter()
+    target_cfg = TransformerConfig(vocab_size=256, num_layers=4,
+                                   num_heads=4, d_model=64, d_ff=128,
+                                   max_seq_len=96, dtype=torch.float32)
+    draft_cfg = dataclasses.replace(target_cfg, num_layers=1)
+    require(target_cfg.head_dim == 16, f"head dim {target_cfg.head_dim}")
+    params = init_params(target_cfg,
+                         torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    draft = init_params(draft_cfg,
+                        torch.Generator(device="cuda").manual_seed(7),
+                        device="cuda")
+    rng = np.random.default_rng(0)
+    reset_counts()
+    out, ties = {}, []
+
+    def check(params, prompt, n, got):
+        ref = generate(params, prompt, n, target_cfg).tolist()
+        ties.extend(tie_aware_equal(params, target_cfg,
+                                    np.asarray(prompt).tolist(), ref,
+                                    np.asarray(got).tolist()))
+
+    prompt = rng.integers(0, 256, (4, 8))
+    for name, (dp, dc) in (("perfect_draft", (params, target_cfg)),
+                           ("random_draft", (draft, draft_cfg))):
+        spec, stats = speculative_generate(params, dp, prompt, 24,
+                                           target_cfg, dc, gamma=4,
+                                           return_stats=True)
+        check(params, prompt, 24, spec.tolist())
+        out[name] = stats
+    require(out["perfect_draft"]["draft_acceptance"] == 1.0,
+            f"the perfect draft accepts every proposal: {out}")
+
+    rows = torch.as_tensor(rng.integers(0, 4, (8, 33)) + 97, device="cuda")
+    undistilled = tree_map(torch.clone, draft)
+    tx = Adam(1e-2, epsilon=1e-8).to_transform()
+    opt = tx.init(params)
+    train = make_train_step(target_cfg, tx)
+    for _ in range(40):
+        params, opt, loss = train(params, opt, rows)
+    out["target_loss"] = float(loss)
+    dtx = Adam(3e-3, epsilon=1e-8).to_transform()
+    dopt = dtx.init(draft)
+    distill = make_distill_step(draft_cfg, target_cfg, dtx,
+                                temperature=2.0, hard_weight=0.1)
+    for _ in range(120):
+        draft, dopt, dloss = distill(draft, params, dopt, rows)
+    out["distill_loss"] = float(dloss)
+    prompt2 = rows[:4, :8].cpu().numpy()
+    spec, stats = speculative_generate(params, draft, prompt2, 24,
+                                       target_cfg, draft_cfg, gamma=4,
+                                       return_stats=True)
+    check(params, prompt2, 24, spec.tolist())
+    out["distilled_draft"] = stats
+    _, before = speculative_generate(params, undistilled, prompt2, 24,
+                                     target_cfg, draft_cfg, gamma=4,
+                                     return_stats=True)
+    out["undistilled_draft_on_the_trained_target"] = before
+    require(stats["draft_acceptance"] > before["draft_acceptance"],
+            f"distillation raised the acceptance on the same prompts: "
+            f"{out}")
+
+    prompts = [rng.integers(0, 256, int(n)).tolist()
+               for n in rng.integers(4, 12, 6)]
+    solo = [generate(params, [p], 12, target_cfg)[0].tolist()
+            for p in prompts]
+    outs = DecodeEngine(params, target_cfg, max_slots=2).run(prompts, 12)
+    ties.extend(tie_aware_equal(params, target_cfg, prompts, solo, outs))
+    spec_eng = DecodeEngine(params, target_cfg, max_slots=2,
+                            draft_params=draft, draft_config=draft_cfg,
+                            gamma=4)
+    rids = [spec_eng.submit(p, 12) for p in prompts]
+    steps = 0
+    while spec_eng.pending:
+        spec_eng.step()
+        steps += 1
+    outs = [spec_eng.result(r) for r in rids]
+    ties.extend(tie_aware_equal(params, target_cfg, prompts, solo, outs))
+    out["speculative_engine"] = {
+        "host_steps": steps,
+        "draft_acceptance": spec_eng.stats["draft_acceptance"]}
+
+    system = rng.integers(0, 256, 10).tolist()
+    chats = [system + rng.integers(0, 256, int(n)).tolist()
+             for n in (3, 5, 3, 7)]
+    pc_eng = DecodeEngine(params, target_cfg, max_slots=2)
+    pc_eng.register_prefix(system)
+    outs = pc_eng.run(chats, 12)
+    ties.extend(tie_aware_equal(
+        params, target_cfg, chats,
+        [generate(params, [p], 12, target_cfg)[0].tolist() for p in chats],
+        outs))
+    require(pc_eng.stats["prefix_hits"] == len(chats),
+            f"every chat reused the system prompt: {pc_eng.stats}")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        require(counts[name] > 0, f"the example's training and distillation "
+                f"launched {name} at d 16: {counts}")
+    emit({"phase": "speculative_example", "head_dim": target_cfg.head_dim,
+          **out, "near_tie_divergences": ties, "launches": counts,
+          "seconds": time.perf_counter() - t_phase})
     return counts
 
 
@@ -2186,8 +2531,7 @@ def run_keras_sync_step(data):
     The learning rate is 0.01, not the bench's 0.1: on this set (every
     feature min-max scaled around 0.5) SGD 0.1 at batch 64 does not
     train; its loss rises in the second epoch, in the JAX package as in
-    the port (``tests/test_torch_tpu_model.py::
-    test_sgd_rate_on_the_full_mnist_like_set`` shows both)."""
+    the port (``tests/test_torch_sgd_rate_0_1.py`` shows both)."""
     from elephas_tpu_torch import SGD, TPUModel, to_dataset
 
     (x, y), (x_test, y_test) = data
@@ -3245,6 +3589,8 @@ def main() -> int:
     flag_counts = timed("http_serving_flagship", run_http_serving_flagship,
                         params, cfg)
     timed("train_parity", run_train_parity, params, cfg)
+    spec = timed("speculative_flagship", run_speculative_flagship, params,
+                 cfg)
     del params
     train_counts = timed("train", run_train, cfg)
     d128 = timed("lm_d128", run_lm_d128)
@@ -3274,6 +3620,7 @@ def main() -> int:
         "tpu_model_lm_d32", run_tpu_model_lm_d32)
     d16_counts = timed("forward_d16", run_forward_d16)
     ex_counts = timed("http_serving_example", run_http_serving_example)
+    spex_counts = timed("speculative_example", run_speculative_example)
     emit({"phase": "seconds", "phases": seconds,
           "total": time.perf_counter() - t_run})
 
@@ -3294,30 +3641,35 @@ def main() -> int:
              "keras_layers": layers_counts,
              "http_serving_example": ex_counts,
              "http_serving_flagship": flag_counts,
+             **{f"speculative_flagship_{part}": c
+                for part, c in spec.items()},
+             "speculative_example": spex_counts,
              **{f"lm_d128_{part}": c for part, c in d128.items()},
              **{f"lm_d96_{part}": c for part, c in d96.items()}}
+    # the main paths' paged engines: the flagship serving phases, the
+    # speculative phase's interleaved engine, the http_serving.py example
+    paged_paths = (srv_counts, flag_counts,
+                   spec["interleaved_paged_fused"], ex_counts)
     kernels = [
         {"name": "paged_decode", "route": "cuda",
          "source": "elephas_tpu_torch/csrc/paged_decode.cu",
          "replaces": "elephas_tpu/ops/paged_attention.py:59",
-         "launches": (srv_counts["paged_decode"]
-                      + flag_counts["paged_decode"]
-                      + ex_counts["paged_decode"]),
+         "launches": sum(c["paged_decode"] for c in paged_paths),
          # the launches above by body: bf16 on the split body, f32 (the
          # http_serving.py engine) on the general one
-         "split_launches": (srv_counts["paged_split"]
-                            + flag_counts["paged_split"]
-                            + ex_counts["paged_split"]),
+         "split_launches": sum(c["paged_split"] for c in paged_paths),
          **{k: paged[k] for k in keys}},
         {"name": "flash_fwd", "route": "cuda",
          "source": "elephas_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "elephas_tpu/ops/pallas_attention.py:55",
-         "launches": fwd_counts["flash_fwd"],
+         "launches": sum(c["flash_fwd"] for c in (
+             fwd_counts, spec["distill"], spex_counts)),
          **{k: flash[k] for k in keys}},
         *({"name": f"flash_{part}", "route": "cuda",
            "source": "elephas_tpu_torch/csrc/flash_bwd.cu",
            "replaces": f"elephas_tpu/ops/pallas_attention.py:{line}",
-           "launches": train_counts[f"flash_{part}"],
+           "launches": sum(c[f"flash_{part}"] for c in (
+               train_counts, spec["distill"], spex_counts)),
            **{k: bwd[part][k] for k in keys}}
           for part, line in (("dq", 196), ("dkv", 243))),
     ]
@@ -3330,26 +3682,32 @@ def main() -> int:
         # each head dim's errors and times at the shape named beside them
         # (flash d 32 also at the training shape), and its instance's
         # launches on the paths that run it: d 64 the flagship's (as
-        # above; the paged kernel's serving and http_serving_flagship),
-        # d 32 tpu_model_lm_d32's three (the first fit with its predict
-        # and evaluate, the resumed fit, the loaded model's predict),
-        # d 16 forward_d16 and http_serving_example, d 128 lm_d128's four
-        # (forward, serving, the f32 gradient, the fit), d 96 lm_d96's
-        # four; no driven path runs d 80: its launches are null
-        launches = {"16": d16_counts[name] + ex_counts[name],
+        # above; the paged kernel's serving, http_serving_flagship and
+        # the speculative phase's interleaved engine), d 32
+        # tpu_model_lm_d32's three (the first fit with its predict and
+        # evaluate, the resumed fit, the loaded model's predict), d 16
+        # forward_d16, http_serving_example and speculative_example,
+        # d 128 lm_d128's four (forward, serving, the f32 gradient, the
+        # fit), d 96 lm_d96's four; no driven path runs d 80: its
+        # launches are null
+        launches = {"16": d16_counts[name] + ex_counts[name]
+                    + spex_counts[name],
                     "32": d32_counts[name] + resumed_counts[name]
                     + loaded_counts[name],
-                    "64": entry["launches"] - ex_counts[name],
+                    "64": entry["launches"] - ex_counts[name]
+                    - spex_counts[name],
                     "128": sum(c[name] for c in d128.values()),
                     "96": sum(c[name] for c in d96.values())}
         if name == "paged_decode":
             split = {"16": d16_counts["paged_split"]
-                     + ex_counts["paged_split"],
+                     + ex_counts["paged_split"]
+                     + spex_counts["paged_split"],
                      "32": d32_counts["paged_split"]
                      + resumed_counts["paged_split"]
                      + loaded_counts["paged_split"],
                      "64": srv_counts["paged_split"]
-                     + flag_counts["paged_split"],
+                     + flag_counts["paged_split"]
+                     + spec["interleaved_paged_fused"]["paged_split"],
                      "128": sum(c["paged_split"] for c in d128.values()),
                      "96": sum(c["paged_split"] for c in d96.values())}
         entry["by_head_dim"] = {

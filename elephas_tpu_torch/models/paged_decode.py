@@ -1,7 +1,7 @@
 """Paged KV cache: block-pool decode for the serving engine.
 
 The counterpart of ``elephas_tpu/models/paged_decode.py`` (the subset
-the engine's paged decode path runs). Cache lives in fixed
+the engine's paged decode and speculative verify paths run). Cache lives in fixed
 ``block_size``-position blocks of one shared pool; each slot holds a
 small block table. Block id 0 is a reserved scratch sink that is never
 allocated: an inactive slot (table of zeros, position 0) writes and
@@ -13,12 +13,13 @@ here are updated IN PLACE (``index_put_`` / slice assignment): one
 pool, no per-step copy. The functions still return the pool so the
 call sites read as in the JAX package.
 """
+import math
 from typing import Dict, Tuple
 
 import torch
 
 from .._device import DeviceLike, resolve_device
-from ..ops.attention import einsum
+from ..ops.attention import NEG_INF, einsum
 from ..ops.paged_attention import (paged_attention_gathered,
                                    paged_decode_attention)
 from .transformer import (TransformerConfig, _alibi_slopes,
@@ -27,7 +28,8 @@ from .transformer import (TransformerConfig, _alibi_slopes,
                           head_logits)
 
 __all__ = ["validate_paged_config", "init_paged_pool", "install_row_paged",
-           "gather_blocks_to_row", "decode_step_paged", "KERNELS"]
+           "gather_blocks_to_row", "decode_step_paged", "decode_block_paged",
+           "KERNELS"]
 
 #: the paged decode-attention inner loops: ``gather`` materializes each
 #: row's blocks and runs a full-row softmax; ``fused`` runs the CUDA
@@ -184,5 +186,102 @@ def decode_step_paged(params: Dict, pool: Dict, tables: torch.Tensor,
         x = x + einsum("bhsk,hkd->bsd", o, layer["attn"]["wo"].to(c.dtype))
         x = _mlp_apply(layer, x, c)
     logits = head_logits(params["embed"], params["final_ln"], x[:, 0],
+                         head=params.get("head"), norm=c.norm)
+    return logits, pool
+
+
+def decode_block_paged(params: Dict, pool: Dict, tables: torch.Tensor,
+                       tokens: torch.Tensor, pos0,
+                       config: TransformerConfig) -> Tuple[torch.Tensor,
+                                                           Dict]:
+    """Multi-token cached decode over the block pool: ``(B, S)`` tokens
+    at per-row positions ``pos0 .. pos0+S-1`` (``pos0`` is ``(B,)``);
+    each position's k/v is scattered into the owning block of that
+    row's table IN PLACE, and (f32 logits ``(B, S, vocab)``, the pool)
+    is returned.
+
+    The counterpart of ``decode_block_paged`` in
+    ``elephas_tpu/models/paged_decode.py:415``: the paged mirror of
+    :func:`~elephas_tpu_torch.models.transformer.decode_block` and the
+    verify pass of paged speculative decoding. All S positions' k/v are
+    written before attention; each block slot ``j`` attends causally to
+    cache positions ``<= pos0 + j`` of its row's gathered blocks, with
+    einsum attention as in the JAX package (no kernel on this path).
+    Writes stay inside the row's own table: a row's rejected tail
+    positions are masked until later rounds overwrite them, and inactive
+    rows (tables of zeros) write only into the scratch block 0."""
+    check_ported(config)
+    c = config
+    device = params["embed"]["tokens"].device
+    tokens = torch.as_tensor(tokens, device=device).long()
+    b, s = tokens.shape
+    first = next(iter(pool.values()))["k"]
+    bs = first.shape[2]
+    tables = torch.as_tensor(tables, device=device).long()
+    mb = tables.shape[1]
+    length = mb * bs                               # gathered view length
+    pos0 = torch.as_tensor(pos0, device=device).long().reshape(-1)
+    blockpos = pos0[:, None] + torch.arange(s, device=device)[None, :]
+    blk = torch.gather(tables, 1, blockpos // bs)  # (B, S)
+    off = blockpos % bs
+
+    x = params["embed"]["tokens"][tokens]          # (B, S, D)
+    if c.positional == "learned":
+        x = x + params["embed"]["pos"][blockpos]
+    elif c.positional == "sinusoidal":
+        x = x + _sinusoidal_table(blockpos, c.d_model)
+    x = x.to(c.dtype)
+
+    kpos = torch.arange(length, device=device)
+    mask = kpos[None, None, :] <= blockpos[:, :, None]       # (B, S, L)
+    if c.attention_window is not None:
+        mask = mask & (kpos[None, None, :]
+                       > blockpos[:, :, None] - c.attention_window)
+    scale = 1.0 / math.sqrt(c.head_dim)
+    rp = blockpos[:, None, :]                      # (B, 1, S) rope angles
+    groups = c.num_heads // c.kv_heads
+    hidx = torch.arange(c.kv_heads, device=device)
+    # scatter target per (b, s, head): rows own disjoint tables and a
+    # row's S positions are distinct (block, offset) pairs; only
+    # inactive rows collide, on the scratch sink
+    widx = (blk[:, :, None], hidx[None, None, :], off[:, :, None])
+    slopes = (_alibi_slopes(c.num_heads, device)
+              if c.positional == "alibi" else None)
+    for i in range(c.num_layers):
+        layer = params[f"layer_{i}"]
+        h = _norm(x, layer["ln1"], c).to(c.dtype)
+        q, k_new, v_new = _qkv(layer, h, c)        # (B, heads, S, hd)
+        if c.positional == "rope":
+            q = _apply_rope(q, rp, c)
+            k_new = _apply_rope(k_new, rp, c)
+
+        lc = pool[f"layer_{i}"]
+        pk, pv = lc["k"], lc["v"]
+        # (B, H, S, D) -> (B, S, H, D) to line up with the scatter index
+        pk.index_put_(widx, k_new.transpose(1, 2).to(pk.dtype))
+        pv.index_put_(widx, v_new.transpose(1, 2).to(pv.dtype))
+
+        # each row's blocks in attention order: (B, MB, H, bs, D) ->
+        # (B, H, MB*bs, D); positions past the row's allocation read
+        # stale or scratch data and are masked
+        ck = pk[tables].transpose(1, 2).reshape(b, c.kv_heads, length,
+                                                c.head_dim)
+        cv = pv[tables].transpose(1, 2).reshape(b, c.kv_heads, length,
+                                                c.head_dim)
+        qg = q.reshape(b, c.kv_heads, groups, s, c.head_dim)
+        scores = einsum("bngsk,bntk->bngst", qg, ck) * scale
+        if slopes is not None:
+            dist = (blockpos[:, :, None] - kpos[None, None, :]).to(
+                torch.float32)                     # (B, S, L)
+            ab = (-slopes[None, :, None, None] * dist[:, None]).reshape(
+                b, c.kv_heads, groups, s, length)
+            scores = scores + ab
+        scores = torch.where(mask[:, None, None], scores, NEG_INF)
+        weights = torch.softmax(scores, dim=-1)
+        o = einsum("bngst,bntk->bngsk", weights, cv)
+        o = o.reshape(b, c.num_heads, s, c.head_dim)
+        x = x + einsum("bhsk,hkd->bsd", o, layer["attn"]["wo"].to(c.dtype))
+        x = _mlp_apply(layer, x, c)
+    logits = head_logits(params["embed"], params["final_ln"], x,
                          head=params.get("head"), norm=c.norm)
     return logits, pool

@@ -43,7 +43,8 @@ from ..ops.flash_attention import flash_attention
 from ..weights import tree_flatten, tree_unflatten
 
 __all__ = ["TransformerConfig", "init_params", "forward", "forward_with_aux",
-           "lm_loss", "lm_loss_and_grads", "next_token_loss",
+           "lm_loss", "lm_loss_and_grads", "value_and_grads",
+           "apply_updates", "next_token_loss",
            "chunked_next_token_losses", "make_train_step", "prefill_cache",
            "init_kv_cache", "decode_block", "decode_step",
            "prefill_cache_chunked", "chunked_blocks", "generate",
@@ -608,25 +609,48 @@ def lm_loss(params: Dict, tokens: torch.Tensor, config: TransformerConfig,
     return loss
 
 
-def lm_loss_and_grads(params: Dict, tokens: torch.Tensor,
-                      config: TransformerConfig, dropout_key=None
-                      ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """``lm_loss`` and its gradient with respect to every parameter
-    leaf, through autograd (the ``value_and_grad`` of the JAX step):
-    ``(loss, grads)`` with the loss detached and ``grads`` in the leaf
-    order of :func:`~elephas_tpu_torch.weights.tree_flatten`. A leaf the
-    loss never reads (rmsnorm's beta) gets a zero gradient. The
-    parameters themselves need not require gradients."""
+def value_and_grads(loss_fn, params: Dict
+                    ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """``loss_fn(params)`` and its gradient with respect to every leaf
+    of ``params``, through autograd (JAX's ``value_and_grad``): ``(loss,
+    grads)`` with the loss detached and ``grads`` in the leaf order of
+    :func:`~elephas_tpu_torch.weights.tree_flatten`. A leaf the loss
+    never reads (rmsnorm's beta) gets a zero gradient. The parameters
+    themselves need not require gradients."""
     leaves, treedef = tree_flatten(params)
     # views of the same storage that autograd may differentiate
     live = [p.detach().requires_grad_(True) for p in leaves]
     with torch.enable_grad():
-        loss = lm_loss(tree_unflatten(treedef, live), tokens, config,
-                       dropout_key=dropout_key)
+        loss = loss_fn(tree_unflatten(treedef, live))
         grads = torch.autograd.grad(loss, live, allow_unused=True)
     grads = [torch.zeros_like(p) if gr is None else gr
              for p, gr in zip(leaves, grads)]
     return loss.detach(), grads
+
+
+def lm_loss_and_grads(params: Dict, tokens: torch.Tensor,
+                      config: TransformerConfig, dropout_key=None
+                      ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """``lm_loss`` and its gradient (:func:`value_and_grads`), the JAX
+    step's ``value_and_grad``."""
+    return value_and_grads(
+        lambda p: lm_loss(p, tokens, config, dropout_key=dropout_key),
+        params)
+
+
+def apply_updates(tx, grads: List[torch.Tensor], opt_state,
+                  params: Dict):
+    """One step of ``tx`` (a transform of :mod:`~elephas_tpu_torch.
+    models.optimizers`) on ``grads`` in :func:`~elephas_tpu_torch.
+    weights.tree_flatten` order: ``params`` is updated IN PLACE (where
+    JAX's ``optax.apply_updates`` makes new buffers); returns the new
+    optimizer state."""
+    leaves = tree_flatten(params)[0]
+    updates, opt_state = tx.update(grads, opt_state, leaves)
+    with torch.no_grad():
+        for p, u in zip(leaves, updates):
+            p.add_(u)
+    return opt_state
 
 
 def make_train_step(config: TransformerConfig, tx, mesh=None,
@@ -681,12 +705,7 @@ def make_train_step(config: TransformerConfig, tx, mesh=None,
             loss = loss / accum_steps
         else:
             loss, grads = lm_loss_and_grads(params, tokens, config, key)
-        leaves = tree_flatten(params)[0]
-        updates, opt_state = tx.update(grads, opt_state, leaves)
-        with torch.no_grad():
-            for p, u in zip(leaves, updates):
-                p.add_(u)
-        return params, opt_state, loss
+        return params, apply_updates(tx, grads, opt_state, params), loss
 
     return step
 

@@ -4,9 +4,11 @@ training surface, on one device.
 The counterpart of ``elephas_tpu/models/transformer_model.py``:
 ``build``/``compile``/``fit``/``fit_tokens``/``evaluate``/``predict``,
 flat weights in JAX leaf order (so ``set_weights(jax_model.get_weights())``
-carries a JAX model's weights across), an EMA of the parameters, and
-``engine()`` to serve the trained weights through the port's paged
-``DecodeEngine``. Training runs :func:`~elephas_tpu_torch.models.
+carries a JAX model's weights across), an EMA of the parameters,
+``generate``/``beam_search``/``speculative_generate`` over the trained
+weights, and ``engine()``/``serve()`` to serve them through the port's
+``DecodeEngine`` (with a draft model: speculative stepping) and
+``ServingServer``. Training runs :func:`~elephas_tpu_torch.models.
 transformer.make_train_step` on the model's device, which updates the
 parameters in place. ``training_state``/``restore_training_state``
 (bit-exact resume from a ``ModelCheckpoint``), the JSON config and
@@ -16,8 +18,7 @@ no bfloat16.
 
 Not ported yet: the mesh arguments (``tensor_parallel``,
 ``sequence_parallel``, ``fsdp``, ``zero_optimizer``, ``mesh``) raise
-unless left at their defaults; ``generate``/``beam_search`` and
-speculative decoding are not here.
+unless left at their defaults.
 """
 import json
 from typing import Callable, Dict, List, Optional, Sequence
@@ -31,8 +32,8 @@ from ..utils.tracing import StepTimer
 from ..weights import tree_flatten, tree_map, tree_unflatten
 from .optimizers import Optimizer
 from .optimizers import get as get_optimizer
-from .transformer import (TransformerConfig, forward, init_params, lm_loss,
-                          make_train_step)
+from .transformer import (TransformerConfig, beam_search, forward,
+                          generate, init_params, lm_loss, make_train_step)
 
 __all__ = ["TransformerModel"]
 
@@ -358,19 +359,88 @@ class TransformerModel:
             count += len(chunk)
         return total / max(count, 1)
 
+    def _key(self, seed: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(int(seed))
+
+    @torch.no_grad()
+    def generate(self, prompt: np.ndarray, max_new_tokens: int,
+                 temperature: float = 0.0, seed: int = 0,
+                 top_k: Optional[int] = None,
+                 top_p: Optional[float] = None,
+                 prompt_lengths=None) -> np.ndarray:
+        """Autoregressive continuation of ``(batch, prompt_len)`` token
+        ids through the KV-cache decode loop: ``temperature=0`` greedy,
+        otherwise categorical sampling from a ``torch.Generator`` seeded
+        with ``seed``, optionally top-k and/or nucleus filtered."""
+        return generate(self.params, np.asarray(prompt),
+                        int(max_new_tokens), self.config,
+                        temperature=temperature, key=self._key(seed),
+                        top_k=top_k, top_p=top_p,
+                        prompt_lengths=prompt_lengths).cpu().numpy()
+
     def engine(self, draft: Optional["TransformerModel"] = None,
                **engine_kwargs):
         """The port's :class:`~elephas_tpu_torch.serving_engine.
         DecodeEngine` over this model's parameters, on its device (the
         contiguous cache unless ``paged=(blocks, block_size)`` is
-        passed). Speculative drafts are not ported yet (ROADMAP Queue 1
-        item 1, step 5)."""
+        passed). ``draft=`` (a smaller model on the same vocabulary)
+        switches it to speculative stepping."""
         from ..serving_engine import DecodeEngine
 
         if self.params is None:
             raise RuntimeError("build() or load weights before serving")
         if draft is not None:
-            raise NotImplementedError("speculative decoding is not ported "
-                                      "yet (ROADMAP Queue 1 item 1, step 5)")
+            if draft.params is None:
+                raise RuntimeError("the draft model needs build() or "
+                                   "loaded weights before serving")
+            engine_kwargs.setdefault("draft_params", draft.params)
+            engine_kwargs.setdefault("draft_config", draft.config)
         engine_kwargs.setdefault("device", self.device)
         return DecodeEngine(self.params, self.config, **engine_kwargs)
+
+    def serve(self, host: str = "127.0.0.1", port: int = 0,
+              tokenizer=None, draft: Optional["TransformerModel"] = None,
+              warmup_lengths=(), **engine_kwargs):
+        """A running :class:`~elephas_tpu_torch.serving_http.
+        ServingServer` over :meth:`engine` (optionally warmed at the
+        given prompt lengths); ``.port`` has the bound port and
+        ``.stop()`` shuts it down."""
+        from ..serving_http import ServingServer
+
+        eng = self.engine(draft=draft, **engine_kwargs)
+        if warmup_lengths:
+            eng.warmup(prompt_lengths=warmup_lengths)
+        return ServingServer(eng, host=host, port=port,
+                             tokenizer=tokenizer).start()
+
+    def speculative_generate(self, draft: "TransformerModel",
+                             prompt: np.ndarray, max_new_tokens: int,
+                             gamma: int = 4, temperature: float = 0.0,
+                             seed: int = 0, return_stats: bool = False):
+        """Draft-and-verify decoding: ``draft`` proposes ``gamma`` tokens
+        a round and this model verifies them in one cached block
+        forward. Greedy output equals :meth:`generate`'s; sampling draws
+        from a ``torch.Generator`` seeded with ``seed``."""
+        from .speculative import speculative_generate
+
+        out = speculative_generate(
+            self.params, draft.params, np.asarray(prompt),
+            int(max_new_tokens), self.config, draft.config, gamma=gamma,
+            temperature=temperature, key=self._key(seed),
+            return_stats=return_stats)
+        if return_stats:
+            return out[0].cpu().numpy(), out[1]
+        return out.cpu().numpy()
+
+    @torch.no_grad()
+    def beam_search(self, prompt: np.ndarray, max_new_tokens: int,
+                    num_beams: int = 4, length_penalty: float = 0.0,
+                    eos_id: Optional[int] = None):
+        """Beam-search continuations ``(batch, num_beams,
+        max_new_tokens)`` with per-beam scores, best first."""
+        seqs, scores = beam_search(self.params, np.asarray(prompt),
+                                   int(max_new_tokens), self.config,
+                                   num_beams=num_beams,
+                                   length_penalty=length_penalty,
+                                   eos_id=eos_id)
+        return seqs.cpu().numpy(), scores.cpu().numpy()

@@ -5,7 +5,8 @@ rewritten on the port's :func:`~elephas_tpu_torch.models.transformer.
 generate`. ``TextGenerator`` ties a tokenizer to the LM's batched
 ragged-prompt decode loop: prompts of different lengths batch into one
 call (right-padded, with per-row lengths), with temperature, top-k,
-nucleus and repetition-penalty sampling.
+nucleus and repetition-penalty sampling, and with a draft model,
+speculative decoding for the batches it takes.
 
 Overload safety for this blocking path: ``max_batch_prompts`` /
 ``max_batch_tokens`` bound what one call may dispatch (an oversized
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from ._device import DeviceLike, resolve_device
+from .models.speculative import speculative_generate
 from .models.transformer import TransformerConfig, generate
 from .serving_engine import DeadlineExceededError, QueueFullError
 from .utils.text import ByteTokenizer
@@ -42,11 +44,16 @@ class TextGenerator:
         unbounded)
     :param max_batch_tokens: admission bound on the total encoded prompt
         tokens per call
+    :param draft_params: optional draft-model parameters: uniform-length
+        batches with plain sampling (no top-k, top-p or repetition
+        penalty) that fit ``max_seq_len`` with ``gamma`` positions to
+        spare decode through :func:`~elephas_tpu_torch.models.
+        speculative.speculative_generate`; every other call stays on
+        :func:`generate`
+    :param draft_config: the draft's config (same vocabulary)
+    :param gamma: draft tokens proposed per verify round
     :param device: where generation runs; ``None`` means the CUDA device
         and raises without one
-
-    ``draft_params``/``draft_config``/``gamma`` (speculative decoding)
-    raise ``NotImplementedError``: ROADMAP Queue 1 item 1, step 5.
     """
 
     def __init__(self, params, config: TransformerConfig, tokenizer=None,
@@ -54,14 +61,23 @@ class TextGenerator:
                  max_batch_prompts: Optional[int] = None,
                  max_batch_tokens: Optional[int] = None,
                  device: DeviceLike = None):
-        if draft_params is not None or draft_config is not None or gamma != 4:
-            raise NotImplementedError(
-                "speculative decoding (draft_params, draft_config, gamma) "
-                "is not ported yet (ROADMAP Queue 1 item 1, step 5)")
+        if (draft_params is None) != (draft_config is None):
+            raise ValueError("draft_params and draft_config go together")
+        if draft_config is not None:
+            if draft_config.vocab_size != config.vocab_size:
+                raise ValueError(
+                    f"draft vocab {draft_config.vocab_size} != target "
+                    f"vocab {config.vocab_size}")
+            if gamma < 1:
+                raise ValueError("gamma must be >= 1")
         self.device = resolve_device(device)
         self.params = tree_map(
             lambda t: torch.as_tensor(t).to(self.device), params)
         self.config = config
+        self.draft_params = (None if draft_params is None else tree_map(
+            lambda t: torch.as_tensor(t).to(self.device), draft_params))
+        self.draft_config = draft_config
+        self.gamma = int(gamma)
         self.tokenizer = tokenizer or ByteTokenizer()
         self.max_batch_prompts = (None if max_batch_prompts is None
                                   else int(max_batch_prompts))
@@ -129,10 +145,24 @@ class TextGenerator:
             batch[i, :len(e)] = e
         uniform = int(lens.min()) == batch.shape[1]
         key = torch.Generator(device=self.device).manual_seed(int(seed))
-        out = generate(self.params, batch, int(max_new_tokens), self.config,
-                       temperature=temperature, key=key, top_k=top_k,
-                       top_p=top_p, repetition_penalty=repetition_penalty,
-                       prompt_lengths=None if uniform else lens)
+        plain_sampling = (top_k is None and top_p is None
+                          and repetition_penalty == 1.0)
+        # the speculative cache needs gamma positions past the last
+        # token: calls near max_seq_len stay on generate()
+        fits = self.draft_config is not None and all(
+            batch.shape[1] + int(max_new_tokens) + self.gamma
+            <= c.max_seq_len for c in (self.config, self.draft_config))
+        if uniform and plain_sampling and fits:
+            out = speculative_generate(
+                self.params, self.draft_params, batch, int(max_new_tokens),
+                self.config, self.draft_config, gamma=self.gamma,
+                temperature=temperature, key=key)
+        else:
+            out = generate(self.params, batch, int(max_new_tokens),
+                           self.config, temperature=temperature, key=key,
+                           top_k=top_k, top_p=top_p,
+                           repetition_penalty=repetition_penalty,
+                           prompt_lengths=None if uniform else lens)
         stop = stop_id if stop_id is not None else getattr(tok, "eos_id",
                                                            None)
         texts = []

@@ -27,19 +27,30 @@ Two cache layouts, as in the JAX package:
 On top of either: ``steps_per_sync`` (K decode steps issued back to
 back with one device-to-host read of their tokens), ``prefill_chunk``
 (admission prefill in fixed-size :func:`~elephas_tpu_torch.models.
-transformer.decode_block` passes), explicit prefixes
-(:meth:`DecodeEngine.register_prefix`), the automatic content-addressed
-prefix cache (:meth:`DecodeEngine.enable_prefix_cache`; on by default in
-paged mode, where hits are block-table pointers, host block copies on a
-contiguous engine), :meth:`DecodeEngine.warmup`, cancellation and a
-bounded queue (:class:`QueueFullError`).
+transformer.decode_block` passes), ``interleave_prefill`` (those chunks
+fed between decode steps, one a step, instead of at admission),
+explicit prefixes (:meth:`DecodeEngine.register_prefix`), the automatic
+content-addressed prefix cache (:meth:`DecodeEngine.enable_prefix_cache`;
+on by default in paged mode, where hits are block-table pointers, host
+block copies on a contiguous engine), :meth:`DecodeEngine.warmup`,
+cancellation and a bounded queue (:class:`QueueFullError`).
+
+Speculative mode (``draft_params``/``draft_config``): each step is one
+draft-propose / target-verify round
+(:func:`~elephas_tpu_torch.models.speculative.speculative_round`, or
+:func:`~elephas_tpu_torch.models.speculative.speculative_round_paged`
+over the pool), so a slot advances by ``1 + accepted`` tokens a step.
+Every capacity rule reserves ``gamma`` positions of verify slack per
+slot; ``adaptive_gamma`` steers the operating depth from an EWMA of the
+measured acceptance. The draft's cache stays contiguous and is
+prefilled at every admission.
 
 Not ported yet, each refused with ``NotImplementedError`` naming its
-ROADMAP Queue 1 item-1 step: interleaved prefill (4), speculative
-decoding (5), QoS, deadlines, per-request seeds and priorities (7),
-KV spill, sessions and the disaggregated tier (8), the metrics
-registry and the loop profiler (9). Unlike the JAX package, the caches
-and the pool are updated IN PLACE.
+ROADMAP Queue 1 item-1 step: live draft weight staging (6), QoS,
+deadlines, per-request seeds and priorities (7), KV spill, sessions and
+the disaggregated tier (8), the metrics registry and the loop profiler
+(9). Unlike the JAX package, the caches and the pool are updated IN
+PLACE.
 """
 import time
 from collections import deque
@@ -53,6 +64,7 @@ from .models.block_cache import BlockCache, chain_keys
 from .models.paged_decode import (KERNELS, decode_step_paged,
                                   gather_blocks_to_row, init_paged_pool,
                                   install_row_paged, validate_paged_config)
+from .models.speculative import speculative_round, speculative_round_paged
 from .models.transformer import (NEG_INF, TransformerConfig, chunked_blocks,
                                  decode_block, decode_step, init_kv_cache,
                                  prefill_cache)
@@ -129,6 +141,12 @@ def _not_ported(what: str, step: int) -> NotImplementedError:
 _LATER_SUBMIT_ARGS = {"deadline_ms": 7, "tenant": 7, "priority": 7,
                       "seed": 7, "resume_from": 8, "session": 8}
 
+#: adaptive gamma: EWMA smoothing of each round's pooled acceptance (0.4
+#: weights the last ~4 rounds), and rounds between depth adjustments of
+#: one step each (hysteresis against chattering); the JAX engine's values
+GAMMA_EWMA_ALPHA = 0.4
+GAMMA_ADJUST_EVERY = 4
+
 
 class DecodeEngine:
     """Slot-based continuous batching over one parameter dict.
@@ -171,14 +189,34 @@ class DecodeEngine:
     :param kernel: paged decode attention: ``"gather"`` (materialize
         each row's blocks) or ``"fused"`` (the CUDA kernel reading the
         pool directly; its plain version on the CPU)
+    :param draft_params: draft-model parameters switching every slot to
+        speculative stepping: each :meth:`step` runs one draft-propose /
+        target-verify round at the engine ``temperature`` (per-request
+        sampling overrides apply to the admission token only, as in the
+        JAX engine); per-request greedy output is unchanged (still
+        equal to solo ``generate``), only the number of steps shrinks
+    :param draft_config: the draft's config (same vocabulary)
+    :param gamma: draft tokens proposed per round; the ceiling under
+        ``adaptive_gamma``. Every capacity rule (``max_len``, the paged
+        per-slot blocks) reserves ``gamma`` positions of verify slack
+    :param adaptive_gamma: steer the operating depth between
+        ``gamma_min`` and ``gamma`` from an EWMA of the measured
+        acceptance, one step at most every ``GAMMA_ADJUST_EVERY``
+        rounds (greedy output is the same under any depth schedule)
+    :param gamma_min: adaptive gamma's floor
+    :param interleave_prefill: feed chunked admission prefills between
+        decode steps (one ``prefill_chunk`` chunk a step, the JAX
+        engine's budget without a loop profiler) instead of running each
+        to completion at admission, so a long prompt no longer stalls
+        in-flight decodes; outputs are unchanged. Requires
+        ``prefill_chunk``
     :param device: where the engine runs; ``None`` means the CUDA device
         and raises without one
 
-    The remaining arguments of the JAX signature (``draft_params``,
-    ``draft_config``, ``gamma``, ``adaptive_gamma``, ``gamma_min``,
-    ``qos``, ``clock``, ``kv_spill``, ``session_store``, ``tier``,
-    ``registry``, ``profiler``, ``interleave_prefill``) raise
-    ``NotImplementedError`` when set to anything but their defaults.
+    The remaining arguments of the JAX signature (``qos``, ``clock``,
+    ``kv_spill``, ``session_store``, ``tier``, ``registry``,
+    ``profiler``) raise ``NotImplementedError`` when set to anything but
+    their defaults.
     """
 
     def __init__(self, params: Dict, config: TransformerConfig,
@@ -201,12 +239,6 @@ class DecodeEngine:
                  adaptive_gamma: bool = False, gamma_min: int = 1,
                  interleave_prefill: bool = False,
                  device: DeviceLike = None):
-        if (draft_params is not None or draft_config is not None
-                or adaptive_gamma or gamma != 4 or gamma_min != 1):
-            raise _not_ported("speculative decoding (draft_params, "
-                              "draft_config, gamma, adaptive_gamma)", 5)
-        if interleave_prefill:
-            raise _not_ported("interleave_prefill", 4)
         if qos is not None or clock is not None:
             raise _not_ported("QoS and deadlines (qos, clock)", 7)
         if kv_spill or session_store or tier != "colocated":
@@ -229,13 +261,58 @@ class DecodeEngine:
                              f"config.max_seq_len {config.max_seq_len}")
         self.temperature = float(temperature)
         self.eos_id = eos_id
+        if (draft_params is None) != (draft_config is None):
+            raise ValueError("draft_params and draft_config go together")
+        if draft_config is not None:
+            if draft_config.vocab_size != config.vocab_size:
+                raise ValueError(
+                    f"draft vocab {draft_config.vocab_size} != target "
+                    f"vocab {config.vocab_size}")
+            if gamma < 1:
+                raise ValueError("gamma must be >= 1")
+            if self.max_len > draft_config.max_seq_len:
+                raise ValueError(
+                    f"max_len {self.max_len} exceeds draft max_seq_len "
+                    f"{draft_config.max_seq_len}")
+        self.draft_config = draft_config
+        self.gamma = int(gamma)
+        # ``gamma`` is the CEILING: the verify slack and the paged block
+        # budget are sized to it, so the adaptive controller can only
+        # shrink the operating depth ``_gamma_now`` below what admission
+        # reserved
+        self.adaptive_gamma = bool(adaptive_gamma)
+        self.gamma_min = int(gamma_min)
+        if self.adaptive_gamma and draft_config is None:
+            raise ValueError("adaptive_gamma requires a draft model "
+                             "(draft_params/draft_config)")
+        if draft_config is not None and not (
+                1 <= self.gamma_min <= self.gamma):
+            raise ValueError(f"gamma_min {self.gamma_min} must satisfy "
+                             f"1 <= gamma_min <= gamma ({self.gamma})")
+        self._gamma_now = self.gamma
+        self._accept_ewma: Optional[float] = None
+        self._rounds_since_adjust = 0
+        # a round writes up to gamma positions past the last emitted
+        # token: every capacity rule reserves them
+        self._slack = self.gamma if draft_config is not None else 0
         self.steps_per_sync = int(steps_per_sync)
         if self.steps_per_sync < 1:
             raise ValueError("steps_per_sync must be >= 1")
+        if self.steps_per_sync > 1 and draft_config is not None:
+            raise ValueError("steps_per_sync > 1 applies to plain "
+                             "stepping; speculative mode already "
+                             "amortizes dispatches via draft rounds")
         self.prefill_chunk = (None if prefill_chunk is None
                               else int(prefill_chunk))
         if self.prefill_chunk is not None and self.prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
+        self.interleave_prefill = bool(interleave_prefill)
+        if self.interleave_prefill and self.prefill_chunk is None:
+            raise ValueError("interleave_prefill requires prefill_chunk")
+        # slot -> state of an admission whose prompt is fed chunk by
+        # chunk between decode steps: the slot is reserved (not free)
+        # but not decoding yet
+        self._pending_prefill: Dict[int, Dict] = {}
         if kernel not in KERNELS:
             raise ValueError(f"unknown kernel {kernel!r}; expected one of "
                              f"{KERNELS}")
@@ -255,6 +332,8 @@ class DecodeEngine:
         self.kernel = kernel
         self.params = tree_map(
             lambda t: torch.as_tensor(t).to(self.device), params)
+        self.draft_params = (None if draft_params is None else tree_map(
+            lambda t: torch.as_tensor(t).to(self.device), draft_params))
         self._gen = torch.Generator(device=self.device).manual_seed(
             int(seed))
         if self.paged is not None:
@@ -270,6 +349,11 @@ class DecodeEngine:
             self.pool = None
             self.cache = init_kv_cache(config, self.max_slots, self.max_len,
                                        self.device)
+        # the draft's KV: contiguous, private to the proposer, prefilled
+        # at every admission and never cached
+        self.draft_cache = (None if draft_config is None else
+                            init_kv_cache(draft_config, self.max_slots,
+                                          self.max_len, self.device))
         # per slot: PRIVATE pool block ids, and the SHARED prefix-cache
         # entries its table points at (refcounted, released on retirement)
         self._slot_blocks: List[List[int]] = [[] for _ in
@@ -308,12 +392,18 @@ class DecodeEngine:
         self._latency_window: deque = deque(maxlen=1024)
         self._steps = self._emitted = self._finished = self._shed = 0
         self._prefix_hits = self._prefix_tokens = 0
+        # speculative counters (accepted and proposed over active slots,
+        # slot-rounds) and per-request [accepted, proposed], kept until
+        # the result is read
+        self._accepted = self._proposed = self._spec_rounds = 0
+        self._accept: Dict[int, List[int]] = {}
+        self._interleaved = 0
         self._launch_base = paged_decode_attention.launches
         #: chain keys are seeded with the served weight version (always 0:
         #: live weight staging is not ported)
         self.weights_version = 0
         # registered prefixes, longest first: (tokens, last-position
-        # logits (vocab,), batch-1 row cache)
+        # logits (vocab,), batch-1 row cache, the draft's row or None)
         self._prefixes: List[Tuple] = []
         self._kv_cache: Optional[BlockCache] = None
         self._kv_cache_bs: Optional[int] = None
@@ -336,26 +426,35 @@ class DecodeEngine:
         install. Needs an idle engine: it writes into free slot 0's row
         (the scratch block in paged mode), which the next admission
         overwrites."""
-        if any(r is not None for r in self._rid) or self._queue:
+        if (any(r is not None for r in self._rid) or self._queue
+                or self._pending_prefill):
             raise RuntimeError("warmup() needs an idle engine")
-        self._decode_tokens(np.zeros(self.max_slots, np.int32),
-                            np.zeros(self.max_slots, bool))
+        idle = np.zeros(self.max_slots, np.int32)
+        if self.draft_config is not None:
+            self._spec_round(idle, self._gamma_now)
+        else:
+            self._decode_tokens(idle, np.zeros(self.max_slots, bool))
         for length in sorted(set(int(n) for n in prompt_lengths)):
             if not 1 <= length < self.max_len:
                 raise ValueError(f"prompt length {length} out of range")
-            _, row = self._prefill_with_prefixes(
-                np.zeros(length, np.int32), None)
+            fake = np.zeros(length, np.int32)
+            _, row = self._prefill_with_prefixes(fake, None)
             if self.paged is not None:
                 install_row_paged(self.pool, row, self._tables[0],
                                   -(-length // self.paged[1]))
             else:
-                self._install(0, row)
+                self._install(self.cache, 0, row)
+            if self.draft_config is not None:
+                _, d_row = self._prefill_with_prefixes(fake, None,
+                                                       draft=True)
+                self._install(self.draft_cache, 0, d_row)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     # ---------------------------------------------------------- prefixes
-    def _fresh_row(self) -> Dict:
-        return init_kv_cache(self.config, 1, self.max_len, self.device)
+    def _fresh_row(self, draft: bool = False) -> Dict:
+        return init_kv_cache(self.draft_config if draft else self.config, 1,
+                             self.max_len, self.device)
 
     def register_prefix(self, tokens: Sequence[int]) -> None:
         """Precompute a shared prompt prefix (a system prompt): any later
@@ -372,7 +471,10 @@ class DecodeEngine:
             raise ValueError(f"prefix ({tokens.size}) must leave room "
                              f"below max_len {self.max_len}")
         logits, row = self._prefill_with_prefixes(tokens, None)
-        self._prefixes.append((tokens, logits, row))
+        d_row = None
+        if self.draft_config is not None:
+            _, d_row = self._prefill_with_prefixes(tokens, None, draft=True)
+        self._prefixes.append((tokens, logits, row, d_row))
         self._prefixes.sort(key=lambda e: -e[0].size)
         if self._kv_cache is not None:
             self._pin_prefix_blocks(tokens, row)
@@ -435,48 +537,49 @@ class DecodeEngine:
                 return entry
         return None
 
-    def _extend_chunked(self, row: Dict, tokens: np.ndarray, pos0: int):
-        """Feed ``tokens`` (1-D) into ``row`` (in place) in
-        ``prefill_chunk``-sized :func:`decode_block` passes. Returns the
-        last block's logits ``(1, S, vocab)`` and the row."""
-        cfg = self.config
-        return chunked_blocks(
-            lambda cache, blk, pos, _first: decode_block(
-                self.params, cache, blk, pos, cfg),
-            row, torch.as_tensor(tokens[None], device=self.device),
-            int(pos0), self.prefill_chunk)
+    def _model(self, draft: bool):
+        """(params, config) of the draft or the target."""
+        if draft:
+            return self.draft_params, self.draft_config
+        return self.params, self.config
 
-    def _extend(self, row: Dict, tokens: np.ndarray, pos0: int):
+    def _extend(self, row: Dict, tokens: np.ndarray, pos0: int,
+                draft: bool = False):
         """Continue ``row`` (engine-owned, written in place) past
-        ``pos0`` with ``tokens``: chunked when ``prefill_chunk`` is set,
-        else one :func:`decode_block`. Returns (last-position logits
-        ``(vocab,)``, row)."""
+        ``pos0`` with ``tokens``: in ``prefill_chunk``-sized
+        :func:`decode_block` passes when ``prefill_chunk`` is set, else
+        one. Returns (last-position logits ``(vocab,)``, row)."""
+        params, cfg = self._model(draft)
+        toks = torch.as_tensor(tokens[None], device=self.device)
         if self.prefill_chunk is not None:
-            logits, row = self._extend_chunked(row, tokens, pos0)
+            logits, row = chunked_blocks(
+                lambda cache, blk, pos, _first: decode_block(
+                    params, cache, blk, pos, cfg),
+                row, toks, int(pos0), self.prefill_chunk)
         else:
-            logits, row = decode_block(
-                self.params, row,
-                torch.as_tensor(tokens[None], device=self.device),
-                int(pos0), self.config)
+            logits, row = decode_block(params, row, toks, int(pos0), cfg)
         return logits[0, -1], row
 
-    def _prefill_with_prefixes(self, prompt: np.ndarray, entry):
-        """Batch-1 prefill that reuses a matched prefix ``entry``'s row
-        (copied: the registered row stays as it is). Returns
-        (last-position logits ``(vocab,)``, row)."""
+    def _prefill_with_prefixes(self, prompt: np.ndarray, entry,
+                               draft: bool = False):
+        """Batch-1 prefill of the target (or the draft) that reuses a
+        matched prefix ``entry``'s row (copied: the registered row stays
+        as it is). Returns (last-position logits ``(vocab,)``, row)."""
+        params, cfg = self._model(draft)
         if entry is None:
             if self.prefill_chunk is not None:
-                return self._extend(self._fresh_row(), prompt, 0)
+                return self._extend(self._fresh_row(draft), prompt, 0,
+                                    draft)
             logits, row = prefill_cache(
-                self.params, torch.as_tensor(prompt[None],
-                                             device=self.device),
-                self.config, self.max_len)
+                params, torch.as_tensor(prompt[None], device=self.device),
+                cfg, self.max_len)
             return logits[0], row
-        ptoks, plogits, prow = entry
+        ptoks, plogits, prow, pdrow = entry
+        prow = pdrow if draft else prow
         if prompt.size == ptoks.size:
             return plogits, prow
         row = tree_map(torch.clone, prow)
-        return self._extend(row, prompt[ptoks.size:], int(ptoks.size))
+        return self._extend(row, prompt[ptoks.size:], int(ptoks.size), draft)
 
     # ------------------------------------------------- automatic KV cache
     def enable_prefix_cache(self, block_size: Optional[int] = None,
@@ -625,16 +728,21 @@ class DecodeEngine:
     def check_admissible(self, prompt_size: int, max_new_tokens: int,
                          prompt: Optional[np.ndarray] = None) -> None:
         """Raise ``ValueError`` for a request that could never run: it
-        exceeds ``max_len``, needs more blocks than the pool can ever
-        give it (pinned prefix blocks never free, except the ones the
-        prompt itself reuses), or its prompt alone exceeds
-        ``max_queued_tokens``."""
-        if prompt_size + max_new_tokens > self.max_len:
+        exceeds ``max_len`` (plus the speculative verify slack), needs
+        more blocks than the pool can ever give it (pinned prefix blocks
+        never free, except the ones the prompt itself reuses), or its
+        prompt alone exceeds ``max_queued_tokens``."""
+        slack = self._slack
+        if prompt_size + max_new_tokens + slack > self.max_len:
             raise ValueError(f"prompt ({prompt_size}) + max_new_tokens "
-                             f"({max_new_tokens}) exceeds max_len "
-                             f"{self.max_len}")
+                             f"({max_new_tokens})"
+                             + (f" + gamma ({slack})" if slack else "")
+                             + f" exceeds max_len {self.max_len}")
         if self.paged is not None:
-            needed = -(-(prompt_size + max_new_tokens) // self.paged[1])
+            # verify writes land up to gamma positions past the budgeted
+            # output: the slot's table owns those blocks too
+            needed = -(-(prompt_size + max_new_tokens + slack)
+                       // self.paged[1])
             allocatable = self.paged[0] - 1      # block 0 never allocates
             if self._kv_cache is not None:
                 pinned = self._kv_cache.pinned_count()
@@ -735,10 +843,17 @@ class DecodeEngine:
                 self._queued_tokens -= int(item[1].size)
                 self._submit_t.pop(rid, None)
                 return True
+        for slot, st in list(self._pending_prefill.items()):
+            if st["item"][0] == rid:
+                self._abort_pending_prefill(slot)
+                self._submit_t.pop(rid, None)
+                self._admit_t.pop(rid, None)
+                return True
         for slot, r in enumerate(self._rid):
             if r is not None and r == rid:
                 self._outputs.pop(rid, None)
                 self._fresh.pop(rid, None)
+                self._accept.pop(rid, None)
                 self._rid[slot] = None
                 self._release_blocks(slot)
                 self._submit_t.pop(rid, None)
@@ -748,7 +863,9 @@ class DecodeEngine:
 
     # -------------------------------------------------------- admission
     def _free_slots(self) -> List[int]:
-        return [s for s in range(self.max_slots) if self._rid[s] is None]
+        # a slot mid-interleaved-prefill is reserved, not free
+        return [s for s in range(self.max_slots)
+                if self._rid[s] is None and s not in self._pending_prefill]
 
     def _allocate(self, slot: int, rid: int, prompt: np.ndarray,
                   max_new: int) -> bool:
@@ -758,7 +875,7 @@ class DecodeEngine:
         blocks the rest. False when the pool is momentarily short: the
         FIFO head then waits (no overtaking, so no starvation)."""
         bsz = self.paged[1]
-        needed = -(-(prompt.size + max_new) // bsz)
+        needed = -(-(prompt.size + max_new + self._slack) // bsz)
         hits = []
         if self._kv_cache is not None:
             walk_keys, _ = self._chain_keys_for(rid, prompt)
@@ -795,26 +912,54 @@ class DecodeEngine:
             if (self.paged is not None
                     and not self._allocate(slot, rid, prompt, max_new)):
                 return
-            self._queue.popleft()
+            item = self._queue.popleft()
             self._queued_tokens -= int(prompt.size)
             self._admit_t[rid] = time.monotonic()
+            if self._interleave_ok(slot, prompt):
+                # the slot is reserved (blocks allocated, hit chain
+                # claimed); its prompt feeds between the coming decode
+                # steps and _finish_interleaved_prefill admits it
+                self._begin_interleaved_prefill(slot, item)
+                continue
             t0 = self._admit_prefill(rid, slot, prompt, temp, topk, topp)
-            self._rid[slot] = rid
-            self._outputs[rid] = []
-            self._pos[slot] = prompt.size - 1
-            self._last[slot] = t0
-            self._budget[slot] = max_new
-            self._temp[slot] = temp
-            self._topk[slot] = topk
-            self._topp[slot] = topp
-            if self._record(slot, t0):
-                self._fresh.setdefault(rid, []).append(t0)
+            self._activate(slot, item, t0)
 
-    def _install(self, slot: int, row: Dict) -> None:
-        """Copy a batch-1 row into the contiguous cache's ``slot``."""
-        for name, lc in self.cache.items():
+    def _activate(self, slot: int, item, t0: int) -> None:
+        """The slot starts decoding ``item``'s request from its first
+        token ``t0``."""
+        rid, prompt, max_new, temp, topk, topp = item
+        self._rid[slot] = rid
+        self._outputs[rid] = []
+        self._pos[slot] = prompt.size - 1
+        self._last[slot] = t0
+        self._budget[slot] = max_new
+        self._temp[slot] = temp
+        self._topk[slot] = topk
+        self._topp[slot] = topp
+        if self._record(slot, t0):
+            self._fresh.setdefault(rid, []).append(t0)
+
+    @staticmethod
+    def _install(cache: Dict, slot: int, row: Dict) -> None:
+        """Copy a batch-1 row into ``slot`` of a contiguous cache (the
+        target's or the draft's)."""
+        for name, lc in cache.items():
             for part in ("k", "v"):
                 lc[part][slot].copy_(row[name][part][0])
+
+    def _install_draft_row(self, slot: int, prompt: np.ndarray,
+                           entry=...) -> None:
+        """Prefill the draft's KV for ``prompt`` into the slot's row of
+        the contiguous draft cache: every admission path runs it, since
+        the prefix cache serves the target's KV only. A registered
+        prefix's draft row still serves as the head (``entry`` is the
+        ``_match_prefix`` result; ``...`` looks it up here)."""
+        if self.draft_config is None:
+            return
+        if entry is ...:
+            entry = self._match_prefix(prompt)
+        _, d_row = self._prefill_with_prefixes(prompt, entry, draft=True)
+        self._install(self.draft_cache, slot, d_row)
 
     def _admit_prefill(self, rid: int, slot: int, prompt: np.ndarray,
                        temp: float, topk: int, topp: float) -> int:
@@ -825,7 +970,8 @@ class DecodeEngine:
                 logits = self._admit_prefill_paged_cached(rid, slot, prompt)
             else:
                 logits, row = self._host_cache_prefill(rid, prompt)
-                self._install(slot, row)
+                self._install(self.cache, slot, row)
+            self._install_draft_row(slot, prompt)
         else:
             entry = self._match_prefix(prompt)
             if entry is not None:
@@ -836,7 +982,14 @@ class DecodeEngine:
                 install_row_paged(self.pool, row, self._tables[slot],
                                   -(-prompt.size // self.paged[1]))
             else:
-                self._install(slot, row)
+                self._install(self.cache, slot, row)
+            self._install_draft_row(slot, prompt, entry)
+        return self._sample_first(logits, temp, topk, topp)
+
+    def _sample_first(self, logits: torch.Tensor, temp: float, topk: int,
+                      topp: float) -> int:
+        """The admission-time first token from final-position logits
+        ``(vocab,)``."""
         return int(self._sample(logits[None],
                                 np.asarray([temp], np.float32),
                                 np.asarray([topk], np.int32),
@@ -932,6 +1085,186 @@ class DecodeEngine:
             toks.append(last)
         return torch.stack(toks, dim=1).cpu().numpy()
 
+    def _spec_round(self, pos: np.ndarray, gamma: int):
+        """One speculative round of every slot from its pending token at
+        ``pos``, at depth ``gamma`` and the engine temperature; ``(emit
+        (B, gamma + 1), a (B,), nxt (B,))`` on the host. Inactive slots
+        verify garbage at position 0 into their free rows, or the
+        scratch block through their zero tables."""
+        dev = self.device
+        last = torch.as_tensor(self._last, device=dev).long()
+        pos_t = torch.as_tensor(pos, device=dev).long()
+        temp = self.temperature
+        greedy = not temp > 0
+        if self.paged is not None:
+            emit, a, nxt, self.pool, self.draft_cache, _ = (
+                speculative_round_paged(
+                    self.params, self.draft_params, self.pool,
+                    torch.as_tensor(self._tables, device=dev),
+                    self.draft_cache, last, pos_t, gamma, self.config,
+                    self.draft_config, temp if temp > 0 else 1.0,
+                    self._gen, greedy))
+        else:
+            emit, a, nxt, self.cache, self.draft_cache, _ = (
+                speculative_round(
+                    self.params, self.draft_params, self.cache,
+                    self.draft_cache, last, pos_t, gamma, self.config,
+                    self.draft_config, temp if temp > 0 else 1.0,
+                    self._gen, greedy))
+        return emit.cpu().numpy(), a.cpu().numpy(), nxt.cpu().numpy()
+
+    def _steer_gamma(self, accepted: int, proposed: int) -> None:
+        """One tick of the adaptive speculative depth: this round's
+        pooled acceptance feeds an EWMA, and at most every
+        ``GAMMA_ADJUST_EVERY`` rounds ``_gamma_now`` moves ONE step
+        toward the depth that acceptance pays for (``1 + round(ewma *
+        gamma)``, within ``[gamma_min, gamma]``). Greedy output is the
+        same under any depth schedule."""
+        if not proposed:
+            return
+        acc = accepted / proposed
+        self._accept_ewma = (acc if self._accept_ewma is None else
+                             GAMMA_EWMA_ALPHA * acc
+                             + (1.0 - GAMMA_EWMA_ALPHA) * self._accept_ewma)
+        self._rounds_since_adjust += 1
+        if self._rounds_since_adjust < GAMMA_ADJUST_EVERY:
+            return
+        self._rounds_since_adjust = 0
+        target = max(self.gamma_min,
+                     min(self.gamma,
+                         1 + int(self._accept_ewma * self.gamma + 0.5)))
+        if target > self._gamma_now:
+            self._gamma_now += 1
+        elif target < self._gamma_now:
+            self._gamma_now -= 1
+
+    # ------------------------------------------------ interleaved prefill
+    def _interleave_ok(self, slot: int, prompt: np.ndarray) -> bool:
+        """Should this admission's chunks feed between decode steps?
+        Only with decodes in flight (an idle engine prefills fastest
+        run to completion) and more than one chunk of compute left after
+        prefix or cache reuse; the contiguous host-cache path stays run
+        to completion. Output tokens do not depend on the answer."""
+        if (not self.interleave_prefill
+                or not any(r is not None for r in self._rid)):
+            return False
+        if self._kv_cache is not None:
+            if self.paged is None:
+                return False
+            est = len(self._slot_cached[slot]) * self._kv_cache_bs
+        else:
+            est = 0
+        if est == 0:
+            entry = self._match_prefix(prompt)
+            est = 0 if entry is None else int(entry[0].size)
+        return prompt.size - est > self.prefill_chunk
+
+    def _begin_interleaved_prefill(self, slot: int, item) -> None:
+        """The front half of admission without the chunk loop: claim
+        whatever serves the prompt's head (the cache-hit chain or a
+        registered prefix row) as the run-to-completion paths do, then
+        park the admission for :meth:`_interleave_prefills`. The slot's
+        table points at the scratch sink while pending: inactive slots'
+        decode writes land on block 0, and this slot's real blocks (some
+        shared through the cache) must not take them."""
+        rid, prompt = item[0], item[1]
+        reused, j, entry, row = 0, 0, None, None
+        if self.paged is not None and self._kv_cache is not None:
+            bs = self._kv_cache_bs
+            j = len(self._slot_cached[slot])
+            walk_keys, _ = self._chain_keys_for(rid, prompt)
+            if j > 0:
+                reused = j * bs
+                self._prefix_tokens += reused
+                self._kv_cache.record_walk(j, True)
+                row = gather_blocks_to_row(
+                    self.pool, [int(b) for b in self._tables[slot, :j]],
+                    self.max_len)
+            else:
+                entry = self._match_prefix(prompt)
+                if entry is None and walk_keys:
+                    self._kv_cache.record_walk(0, True)
+        else:
+            entry = self._match_prefix(prompt)
+        if entry is not None:
+            self._prefix_hits += 1
+            reused = int(entry[0].size)
+            self._prefix_tokens += reused
+        if row is None:
+            # the registered row is copied: chunks write their row in place
+            row = (self._fresh_row() if entry is None
+                   else tree_map(torch.clone, entry[2]))
+        self._pending_prefill[slot] = dict(
+            item=item, row=row, suffix=prompt[reused:], cursor=0,
+            reused=reused, j=j, entry=entry, logits=None,
+            table=(self._tables[slot].copy()
+                   if self.paged is not None else None))
+        if self.paged is not None:
+            self._tables[slot, :] = 0
+
+    def _interleave_prefills(self) -> None:
+        """Feed one ``prefill_chunk`` chunk of the oldest pending
+        admission (the JAX engine's budget without a loop profiler), and
+        admit it if that was its last."""
+        slot = next(iter(self._pending_prefill))
+        if self._feed_prefill_chunk(slot):
+            self._finish_interleaved_prefill(slot)
+
+    def _feed_prefill_chunk(self, slot: int) -> bool:
+        """Feed ONE chunk of the pending prompt, at the chunk boundaries
+        of the run-to-completion path (:meth:`_extend`), so both compute
+        the same logits. Returns whether the suffix is exhausted."""
+        st = self._pending_prefill[slot]
+        suffix, cur = st["suffix"], st["cursor"]
+        blk = suffix[cur:cur + self.prefill_chunk]
+        logits, st["row"] = decode_block(
+            self.params, st["row"],
+            torch.as_tensor(blk[None], device=self.device),
+            st["reused"] + cur, self.config)
+        st["logits"] = logits[0, -1]
+        st["cursor"] = cur + int(blk.size)
+        self._interleaved += 1
+        return st["cursor"] >= suffix.size
+
+    def _finish_interleaved_prefill(self, slot: int) -> None:
+        """The back half of admission once every chunk has fed: install
+        the row (the remainder blocks only, past a shared head), register
+        the new full blocks, prefill the draft, sample the first token
+        and start the slot."""
+        st = self._pending_prefill.pop(slot)
+        item = st["item"]
+        rid, prompt, _, temp, topk, topp = item
+        if self.paged is not None:
+            self._tables[slot] = st["table"]
+            install_row_paged(self.pool, st["row"], self._tables[slot],
+                              -(-prompt.size // self.paged[1]),
+                              start=st["j"])
+            if self._kv_cache is not None:
+                self._insert_full_blocks(slot, prompt, st["j"], rid)
+                self._install_draft_row(slot, prompt)
+            else:
+                self._install_draft_row(slot, prompt, st["entry"])
+        else:
+            self._install(self.cache, slot, st["row"])
+            self._install_draft_row(slot, prompt, st["entry"])
+        self._activate(slot, item,
+                       self._sample_first(st["logits"], temp, topk, topp))
+
+    def _abort_pending_prefill(self, slot: int) -> None:
+        """Drop a pending interleaved prefill: the slot's table comes
+        back so its private blocks free and its claimed chain releases,
+        as an active slot's teardown does."""
+        st = self._pending_prefill.pop(slot)
+        if self.paged is not None:
+            self._tables[slot] = st["table"]
+        self._release_blocks(slot)
+
+    def stage_draft_params(self, draft_params: Dict, version: int,
+                           trace_id: Optional[str] = None) -> None:
+        """Live draft weight staging belongs to the weight plane."""
+        raise _not_ported("live draft weight staging (stage_draft_params)",
+                          6)
+
     # ------------------------------------------------------- retirement
     def _record(self, slot: int, tok: int) -> bool:
         """Book one emitted token; retire the request on eos or an
@@ -980,16 +1313,21 @@ class DecodeEngine:
         """Requests queued or in flight, plus emitted tokens not yet
         surfaced by :meth:`step`."""
         return (len(self._queue) + sum(r is not None for r in self._rid)
-                + len(self._fresh))
+                + len(self._pending_prefill) + len(self._fresh))
 
     def step(self) -> Dict[int, List[int]]:
-        """Advance every active slot by ``steps_per_sync`` tokens (fewer
-        for a slot that finishes); returns ``{request_id: [tokens]}``
-        emitted since the last call (admission-time first tokens
-        included). Finished requests retire and queued ones join between
-        steps."""
+        """Advance every active slot by ``steps_per_sync`` tokens, or by
+        ``1 + accepted`` in speculative mode (fewer for a slot that
+        finishes); returns ``{request_id: [tokens]}`` emitted since the
+        last call (admission-time first tokens included). Finished
+        requests retire and queued ones join between steps; a pending
+        interleaved prefill gets its chunk before the decode."""
         fault_site("serving.step")
         self._admit()
+        if self._pending_prefill:
+            # before reading _fresh: an admission completing here
+            # surfaces its first token in this very step
+            self._interleave_prefills()
         emitted = {rid: list(toks) for rid, toks in self._fresh.items()}
         self._fresh = {}
         active = np.asarray([r is not None for r in self._rid])
@@ -997,6 +1335,10 @@ class DecodeEngine:
             return emitted
         pos = np.where(active, self._pos + 1, 0).astype(np.int32)
         self._steps += 1
+        if self.draft_config is not None:
+            self._spec_step(pos, active, emitted)
+            self._admit()
+            return emitted
         toks = self._decode_tokens(pos, active)                 # (B, K)
         for slot in np.nonzero(active)[0]:
             rid = self._rid[slot]
@@ -1010,6 +1352,33 @@ class DecodeEngine:
         self._admit()
         return emitted
 
+    def _spec_step(self, pos: np.ndarray, active: np.ndarray,
+                   emitted: Dict[int, List[int]]) -> None:
+        """One speculative round: every active slot emits its accepted
+        draft prefix and the target's token, at the operating depth
+        (verify slack was budgeted at the ceiling, so any depth fits)."""
+        g_now = self._gamma_now
+        emit, acc, nxt = self._spec_round(pos, g_now)
+        n_active = int(active.sum())
+        n_accepted = int(acc[active].sum())
+        self._accepted += n_accepted
+        self._proposed += g_now * n_active
+        self._spec_rounds += n_active
+        if self.adaptive_gamma:
+            self._steer_gamma(n_accepted, g_now * n_active)
+        for slot in np.nonzero(active)[0]:
+            rid = self._rid[slot]
+            a_p = self._accept.setdefault(rid, [0, 0])
+            a_p[0] += int(acc[slot])
+            a_p[1] += g_now
+            self._pos[slot] += 1 + acc[slot]
+            self._last[slot] = nxt[slot]
+            for tok in emit[slot, :acc[slot] + 1]:
+                if self._rid[slot] is None:
+                    break       # retired mid-round (eos or budget)
+                if self._record(slot, int(tok)):
+                    emitted.setdefault(rid, []).append(int(tok))
+
     def run(self, requests: Sequence[Sequence[int]],
             max_new_tokens: int) -> List[List[int]]:
         """Submit every request, step until drained, return outputs in
@@ -1022,23 +1391,33 @@ class DecodeEngine:
     def result(self, rid: int) -> Optional[List[int]]:
         """Finished output for ``rid`` (None while in flight). Pops the
         entry: call once per request."""
-        return self._done.pop(rid, None)
+        info = self.result_info(rid)
+        return None if info is None else info["tokens"]
 
     def result_info(self, rid: int) -> Optional[Dict]:
         """Like :meth:`result`, as the JAX engine's outcome dict
         ``{"tokens", "timeout", "expired"}`` (both flags False: deadlines
-        are not ported)."""
+        are not ported); a speculative engine adds the request's own
+        ``draft_accepted`` and ``draft_proposed`` (the JAX engine's
+        terminal trace event carries them)."""
         if rid not in self._done:
             return None
-        return {"tokens": self._done.pop(rid), "timeout": False,
-                "expired": False}
+        out = {"tokens": self._done.pop(rid), "timeout": False,
+               "expired": False}
+        a_p = self._accept.pop(rid, None)
+        if a_p is not None:
+            out.update(draft_accepted=a_p[0], draft_proposed=a_p[1])
+        return out
 
     @property
     def stats(self) -> Dict:
         """Counters since construction: steps (device round trips),
         tokens, finished and shed requests, the queue, the prefix and
         block-cache reuse, the pool, request latency over the recent
-        window, the paged kernel and its launches by this engine."""
+        window, in speculative mode the draft acceptance (accepted over
+        proposed, active slots only), slot-rounds and the operating and
+        ceiling gamma, the interleaved prefill chunks, the paged kernel
+        and its launches by this engine."""
         steps = self._steps
         out = {"steps": steps,
                "tokens_emitted": self._emitted,
@@ -1065,6 +1444,18 @@ class DecodeEngine:
             out["latency_p50_s"] = float(np.quantile(totals, 0.5))
             out["latency_p99_s"] = float(np.quantile(totals, 0.99))
             out["queue_wait_mean_s"] = sum(waits) / len(waits)
+        if self.draft_config is not None:
+            # None before any proposal: an idle engine does not read as
+            # a zero-acceptance (stale) draft
+            out["draft_acceptance"] = (self._accepted / self._proposed
+                                       if self._proposed else None)
+            out["speculative_rounds"] = self._spec_rounds
+            out["draft_weights_version"] = 0
+            out["gamma"] = self._gamma_now
+            out["gamma_ceiling"] = self.gamma
+        if self.interleave_prefill:
+            out["prefill_chunks_interleaved"] = self._interleaved
+            out["pending_prefills"] = len(self._pending_prefill)
         out.update(kernel=self.kernel,
                    kernel_launches=(paged_decode_attention.launches
                                     - self._launch_base),

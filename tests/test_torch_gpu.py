@@ -20,7 +20,13 @@ ported with Conv2D (no kernel of the repo's: cuDNN, cuBLAS and torch
 loops) are held against the CPU, TF32 off: layers within 1e-4 of each
 array's scale, optimizers within 1e-5 of scale, a BatchNormalization fit within
 1e-5, and the LSTM example's first epoch (cuDNN's LSTM against the CPU
-loop) within 1e-4 in loss and 1e-3 in weights. Tolerances: f32 kernels within 1e-4 of the f32 plain version (another
+loop) within 1e-4 in loss and 1e-3 in weights. The speculative
+slice on CUDA tensors: greedy ``speculative_generate`` (f32) against
+``generate`` and the CPU, the distill step on the flash kernels at head
+dims 16 and 64 against the CPU within 1e-4, the interleaved paged engine
+on the paged kernel's split body (bf16, equal to the same engine
+prefilling at admission) and, in f32, the interleaved and speculative
+paged engines against the CPU. Tolerances: f32 kernels within 1e-4 of the f32 plain version (another
 summation order); bf16 kernels within 2e-2 of the f32 plain version on
 the same bf16-rounded inputs (the softmax weights enter the P.V product
 in bf16, as in the TPU kernels).
@@ -1321,3 +1327,159 @@ def test_lstm_example_first_epoch_on_card_matches_cpu(cuda, no_tf32):
     for a, b in zip(cw, gw):
         np.testing.assert_allclose(b, a, atol=1e-3, rtol=0)
     np.testing.assert_allclose(gp, cp, atol=1e-3, rtol=0)
+
+
+# ------------------------------------------- speculative decoding slice
+def _spec_model(device, head_dim=16, layers=2):
+    """A small f32 LM and its first layer as a draft, on ``device`` (the
+    same weights on the CPU and the card)."""
+    from elephas_tpu_torch import TransformerConfig, init_params
+    from elephas_tpu_torch.weights import from_numpy_tree, to_numpy_tree
+    cfg = TransformerConfig(vocab_size=128, num_layers=layers, num_heads=4,
+                            d_model=4 * head_dim, d_ff=128,
+                            max_seq_len=96, dtype=torch.float32)
+    host = to_numpy_tree(init_params(cfg, torch.Generator().manual_seed(0),
+                                     "cpu"))
+    params = from_numpy_tree(host, device=device)
+    draft = {k: v for k, v in params.items() if k != "layer_1"}
+    return params, cfg, draft, dataclasses.replace(cfg, num_layers=1)
+
+
+def test_speculative_generate_on_card_matches_generate(cuda, no_tf32):
+    """Greedy ``speculative_generate`` on CUDA tensors (f32): tokens
+    equal ``generate``'s on the card and the CPU run's (tie-aware), and
+    the target as its own draft accepts every proposal."""
+    from elephas_tpu_torch.models.speculative import speculative_generate
+    from elephas_tpu_torch.models.transformer import generate
+    prompt = np.random.default_rng(3).integers(0, 128, (4, 12))
+    runs = {}
+    for device in ("cpu", cuda):
+        params, cfg, draft, dcfg = _spec_model(device)
+        toks, stats = speculative_generate(params, draft, prompt, 24, cfg,
+                                           dcfg, gamma=4, return_stats=True)
+        assert toks.device.type == torch.device(device).type
+        runs[str(device)] = (toks.cpu().tolist(), stats)
+    ref = generate(params, prompt, 24, cfg).cpu().tolist()
+    _assert_tie_aware_cpu(params, cfg, prompt.tolist(), ref,
+                          runs["cuda"][0])
+    _assert_tie_aware_cpu(params, cfg, prompt.tolist(), runs["cpu"][0],
+                          runs["cuda"][0])
+    assert 1 <= runs["cuda"][1]["rounds"] <= 24
+    _, same = speculative_generate(params, params, prompt, 24, cfg, cfg,
+                                   gamma=4, return_stats=True)
+    assert same["draft_acceptance"] == 1.0
+
+
+def test_distill_step_on_card_runs_the_flash_kernels(cuda, no_tf32):
+    """``make_distill_step`` on the card launches the flash forward (the
+    target's layers and the draft's), dQ and dK/dV once a layer a step
+    at head dims 16 and 64 (f32), and three steps meet the CPU's draft
+    within 1e-4 (the kernels' and the plain path's summation orders)."""
+    from elephas_tpu_torch.models.distill import make_distill_step
+    from elephas_tpu_torch.models.optimizers import SGD
+    from elephas_tpu_torch.ops.flash_attention import (flash_backward,
+                                                       flash_forward)
+    from elephas_tpu_torch.weights import tree_leaves, tree_map
+    tokens = np.random.default_rng(4).integers(0, 128, (2, 64))
+    for head_dim in (16, 64):
+        finals = {}
+        for device in ("cpu", cuda):
+            params, cfg, draft, dcfg = _spec_model(device, head_dim)
+            # the draft shares the target's tensors: train a copy
+            draft = tree_map(torch.clone, draft)
+            tx = SGD(0.1, momentum=0.9).to_transform()
+            step = make_distill_step(dcfg, cfg, tx, temperature=2.0,
+                                     hard_weight=0.1)
+            opt = tx.init(draft)
+            flash_forward.launches = 0
+            flash_backward.dq_launches = flash_backward.dkv_launches = 0
+            for _ in range(3):
+                draft, opt, _ = step(draft, params, opt,
+                                     torch.as_tensor(tokens, device=device))
+            if device == cuda:
+                torch.cuda.synchronize()
+                assert flash_forward.launches == 3 * (cfg.num_layers + 1)
+                assert flash_backward.dq_launches == 3
+                assert flash_backward.dkv_launches == 3
+            finals[str(device)] = [t.cpu() for t in tree_leaves(draft)]
+        for a, b in zip(finals["cpu"], finals["cuda"]):
+            torch.testing.assert_close(b, a, atol=1e-4, rtol=0)
+
+
+def _bf16_engine_case(cuda):
+    from elephas_tpu_torch import TransformerConfig, init_params
+    cfg = TransformerConfig(vocab_size=128, num_layers=2, num_heads=4,
+                            d_model=256, d_ff=512, max_seq_len=128)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    _, prompts = _engine_prompts(128, system_len=24)
+    return params, cfg, prompts
+
+
+def test_interleaved_paged_engine_on_card_runs_the_split_body(cuda):
+    """bf16 at head dim 64: the interleaved paged engine (fused kernel,
+    ``prefill_chunk`` 16) launches the paged kernel's split body on
+    every decode step and gives the tokens of the same engine that
+    prefills at admission (the same chunks, so the same bits)."""
+    from elephas_tpu_torch import DecodeEngine
+    from elephas_tpu_torch.ops.paged_attention import paged_decode_attention
+    params, cfg, prompts = _bf16_engine_case(cuda)
+    kw = dict(max_slots=2, paged=(64, 8), kernel="fused", prefill_chunk=16)
+    base = DecodeEngine(params, cfg, **kw).run(prompts, 12)
+    paged_decode_attention.launches = 0
+    paged_decode_attention.split_launches = 0
+    eng = DecodeEngine(params, cfg, interleave_prefill=True, **kw)
+    outs = eng.run(prompts, 12)
+    torch.cuda.synchronize()
+    assert outs == base
+    assert eng.stats["prefill_chunks_interleaved"] > 0
+    assert paged_decode_attention.launches == eng.stats["kernel_launches"] > 0
+    assert (paged_decode_attention.split_launches
+            == paged_decode_attention.launches)
+
+
+def test_speculative_paged_engine_on_card_in_bf16(cuda):
+    """bf16 at head dim 64: the speculative paged engine with the
+    target's first layer as its draft runs its rounds (the verify is
+    einsum attention over the pool: no paged kernel launches) and emits
+    12 tokens a request in the vocabulary. Token equality is checked in
+    f32 (``test_interleaved_engine_on_card_matches_cpu``): in bf16 the
+    verify block and a decode step round differently at near-ties."""
+    from elephas_tpu_torch import DecodeEngine
+    from elephas_tpu_torch.ops.paged_attention import paged_decode_attention
+    params, cfg, prompts = _bf16_engine_case(cuda)
+    paged_decode_attention.launches = 0
+    eng = DecodeEngine(params, cfg, max_slots=2, paged=(64, 8),
+                       draft_params={k: v for k, v in params.items()
+                                     if k != "layer_1"},
+                       draft_config=dataclasses.replace(cfg, num_layers=1),
+                       gamma=3)
+    outs = eng.run(prompts, 12)
+    torch.cuda.synchronize()
+    assert all(len(o) == 12 and all(0 <= t < 128 for t in o) for o in outs)
+    assert eng.stats["speculative_rounds"] > 0
+    assert 0.0 <= eng.stats["draft_acceptance"] <= 1.0
+    assert paged_decode_attention.launches == 0
+
+
+def test_interleaved_engine_on_card_matches_cpu(cuda, no_tf32):
+    """f32 at head dim 16: the interleaved paged engine with the fused
+    kernel (the general body) gives the CPU engine's tokens
+    (tie-aware), and the speculative paged engine's with a draft."""
+    from elephas_tpu_torch import DecodeEngine
+    _, prompts = _engine_prompts(128)
+    outs = {}
+    for device in ("cpu", cuda):
+        params, cfg, draft, dcfg = _spec_model(device)
+        for name, kw in (("interleaved", dict(kernel="fused",
+                                               prefill_chunk=8,
+                                               interleave_prefill=True)),
+                         ("speculative", dict(draft_params=draft,
+                                              draft_config=dcfg,
+                                              gamma=3))):
+            eng = DecodeEngine(params, cfg, max_slots=2, paged=(48, 8),
+                               device=device, **kw)
+            outs[str(device), name] = eng.run(prompts, 16)
+    for name in ("interleaved", "speculative"):
+        _assert_tie_aware_cpu(params, cfg, prompts, outs["cpu", name],
+                              outs["cuda", name])

@@ -216,15 +216,11 @@ def test_warmup_idle_then_busy(model, solo, kwargs):
 
 
 @pytest.mark.parametrize("kwargs,step", [
-    (dict(draft_params={}, draft_config=object()), 5),
-    (dict(gamma=2), 5), (dict(adaptive_gamma=True), 5),
-    (dict(interleave_prefill=True, prefill_chunk=4), 4),
     (dict(qos={}), 7), (dict(clock=lambda: 0.0), 7),
     (dict(kv_spill=True), 8), (dict(session_store=True), 8),
     (dict(tier="decode"), 8), (dict(registry=object()), 9),
     (dict(profiler=True), 9)],
-    ids=["draft", "gamma", "adaptive_gamma", "interleave_prefill", "qos",
-         "clock", "kv_spill", "session_store", "tier", "registry",
+    ids=["qos", "clock", "kv_spill", "session_store", "tier", "registry",
          "profiler"])
 def test_later_arguments_raise_with_their_step(model, kwargs, step):
     _, _, tp, tcfg = model

@@ -7,6 +7,8 @@ that admission queues): the port's engine with the fused kernel's path
 tokens, where the JAX engine runs its Pallas paged kernel in interpret
 mode. f32 compute, so greedy argmax is deterministic on both sides.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -147,8 +149,9 @@ def test_sampling_is_seeded_and_top_k_1_is_greedy(model):
 
 def test_rejects_what_could_never_run(model):
     _, _, tp, tcfg = model
-    with pytest.raises(NotImplementedError, match="step 5"):
-        DecodeEngine(tp, tcfg, draft_params=tp, draft_config=tcfg,
+    other = dataclasses.replace(tcfg, vocab_size=tcfg.vocab_size + 1)
+    with pytest.raises(ValueError, match="vocab"):
+        DecodeEngine(tp, tcfg, draft_params=tp, draft_config=other,
                      device="cpu")
     with pytest.raises(ValueError, match="kernel"):
         DecodeEngine(tp, tcfg, paged=(8, 8), kernel="pallas", device="cpu")

@@ -10,7 +10,7 @@ gather path and the fused kernel's path (its plain version on the CPU);
 then ``/v1/submit`` with ``/v1/result``, ``/stats``, a streamed
 request and an explicit ``deadline_ms`` (refused with 400: the port's
 engine has no deadlines). ``TextGenerator`` on the port's ``generate``
-meets the JAX package's.
+meets the JAX package's, with the target as its own draft too.
 """
 import json
 import threading
@@ -164,6 +164,11 @@ def test_text_generator_matches_jax(model):
     ref = JaxTextGenerator(jp, jcfg)(prompts, max_new_tokens=6)
     assert TextGenerator(tp, tcfg, device="cpu")(prompts,
                                                  max_new_tokens=6) == ref
-    with pytest.raises(NotImplementedError, match="step 5"):
-        TextGenerator(tp, tcfg, draft_params=tp, draft_config=tcfg,
-                      device="cpu")
+    # with the target as its own draft: uniform prompts decode
+    # speculatively, ragged ones through generate; the same text
+    spec = TextGenerator(tp, tcfg, draft_params=tp, draft_config=tcfg,
+                         device="cpu")
+    assert spec(prompts, max_new_tokens=6) == ref
+    uniform = ["SYSTEM: hi", "0123456789"]
+    assert spec(uniform, max_new_tokens=6) == JaxTextGenerator(jp, jcfg)(
+        uniform, max_new_tokens=6)
