@@ -114,7 +114,27 @@ tokens and both engines' outputs equal ``generate`` (tie-aware) and the
 target as its own draft accepts every proposal.
 ``speculative_example`` runs ``examples/speculative_serving.py``'s
 program (head dim 16, f32: its training and distillation on the d 16
-flash kernels). Every
+flash kernels). The LM's remaining single-device surface:
+``int8_paged_flagship`` serves the flagship's ``quantize_lm_params``
+weights through the paged engine (f32 tokens of the fused kernel equal
+the gather path's, tie-aware; bf16 timed, every launch on the split
+body); ``packed_flagship`` runs ``make_train_step(packed=True)`` at the
+flagship's widths on B 8 rows of 1024 that the byte tokenizer packed
+from seeded documents (the plain attention path with the segment
+mask), and at 2 layers in f32 holds a packed step on one-document rows
+against the unpacked step on the flash kernels; ``lm_moe`` drives an
+MoE LM at OLMoE-1B-7B's widths (``OLMOE_1B_7B``: vocab 50304, 16
+layers, 16 heads of 128, d_model 2048, 64 experts of width 1024, top-8,
+RMSNorm, RoPE, untied; 4.77 B parameters, random, and four departures
+from OLMoE, printed): ``forward`` at B 2 x 1024 over all 16 layers on
+routed dispatch (16 flash launches, its time as issued and on the
+device), the contiguous engine over all 16 layers with the int8 KV
+cache and int8 weights (f32 tokens against ``generate`` on the same
+weights, tie-aware on the cached path's logits; bf16 output tokens/s
+and the cache's bytes against a bf16 cache's), f32 logits and
+gradients through the f32 kernels against the plain path at 2 layers,
+and ``fit_tokens`` (AdamW) at 4; ``packed_example`` runs
+``examples/packed_lm_pretraining.py``'s 40 steps on the port. Every
 phase prints one JSON line; any failure raises and the script
 exits non-zero without the final result line. The last three lines are
 the card's name and power limit as ``nvidia-smi`` reports them, the
@@ -2431,6 +2451,482 @@ def run_lm_d96():
     return counts
 
 
+# ------------------------------------- an MoE LM at OLMoE-1B-7B's widths
+# lm_moe runs OLMOE_1B_7B (models/transformer.py); the cuts of scale and
+# the departures from OLMoE, printed with the phase
+LM_MOE_REDUCED = [
+    "training (c) runs 4 of the 16 layers: AdamW over f32 parameters "
+    "takes 16 bytes a parameter, 76 GB for 4.77 B beside the activations "
+    "(1.35 B at 4 layers, about 22 GB)",
+    "the f32 checks (b) run 2 of the 16 layers at B 1 x 256",
+    "weights random from a seed: nothing is downloaded"]
+LM_MOE_DEPARTURES = [
+    "experts are GELU (tanh) with biases, two matrices (OLMoE: SwiGLU, "
+    "three matrices, no biases)",
+    "the top-8 gates are renormalized to sum to 1 (OLMoE: "
+    "norm_topk_prob false)",
+    "no QK-norm (OLMoE normalizes q and k)",
+    "routing by capacity (factor 1.25) with drops in forward and "
+    "training (OLMoE is dropless); the cached decode family gates densely"]
+
+
+def tree_bytes(tree):
+    from elephas_tpu_torch.weights import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def tie_aware_equal_cached(params, cfg, prompts, ref, out):
+    """``tie_aware_equal`` for the cached decode family's own numerics
+    (an int8 KV cache is read back dequantized, MoE layers gate
+    densely): the reference's next-token logits at a first divergence
+    come from ``prefill_cache`` over the context."""
+    from elephas_tpu_torch.models.transformer import prefill_cache
+
+    ties = []
+    for p, r, o in zip(prompts, ref, out):
+        if r == o:
+            continue
+        i = next((j for j, (x, y) in enumerate(zip(r, o)) if x != y),
+                 min(len(r), len(o)))
+        ctx = torch.as_tensor([list(p) + list(r[:i])], device="cuda")
+        top2 = prefill_cache(params, ctx, cfg, ctx.shape[1])[0][0].topk(
+            2).values
+        gap = float(top2[0] - top2[1])
+        require(gap < 1e-3, f"divergence at token {i} with top-2 gap {gap}")
+        ties.append({"index": i, "gap": gap})
+    return ties
+
+
+def run_lm_moe():
+    """The MoE LM at OLMoE-1B-7B's widths (64 experts, top-8, expert
+    width 1024, head dim 128; four departures, printed): (a) ``forward``
+    at B 2 x T 1024 over all 16 layers, bf16 over f32 parameters, on
+    routed dispatch (the ``auto`` rule's choice at 64 experts), with one
+    flash forward launch per layer, its time as issued and on the device;
+    (d) the contiguous ``DecodeEngine`` over all 16 layers with the int8
+    KV cache and ``quantize_lm_params`` weights (MoE gating densely in
+    prefill and decode): in f32 8 greedy requests' tokens against the
+    port's ``generate`` on the same int8 weights (tie-aware), then in
+    bf16 8 requests of 64 new tokens, timed, with the cache's bytes
+    beside a bf16 cache's; (b) at 2 layers f32 logits and an f32
+    ``lm_loss`` gradient through the f32 kernels against the plain path
+    (B 1 x 256); (c) ``TransformerModel.fit_tokens`` at 4 layers, bf16
+    over f32, AdamW 3e-4, B 4 x 1024, 2 epochs on Zipf rows: the loss
+    falls and the three flash kernels run once per layer and step.
+    Returns the launch counts of (a), (b), (c) and (d)."""
+    from elephas_tpu_torch.models.optimizers import AdamW
+    from elephas_tpu_torch.models.quantization import quantize_lm_params
+    from elephas_tpu_torch.models.transformer import (OLMOE_1B_7B,
+                                                      TransformerConfig,
+                                                      forward, generate,
+                                                      init_params,
+                                                      select_moe_dispatch)
+    from elephas_tpu_torch.models.transformer_model import TransformerModel
+    from elephas_tpu_torch.serving_engine import DecodeEngine
+    from elephas_tpu_torch.weights import tree_leaves
+
+    t_phase = time.perf_counter()
+    counts, seconds = {}, {}
+    free_memory()
+    cfg = TransformerConfig(**OLMOE_1B_7B)
+    require(cfg.head_dim == 128 and select_moe_dispatch(cfg) == "routed",
+            f"head dim {cfg.head_dim}, dispatch {select_moe_dispatch(cfg)}")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    torch.cuda.synchronize()
+    emit({"phase": "lm_moe",
+          "config": {**OLMOE_1B_7B, "head_dim": cfg.head_dim,
+                     "source": "allenai/OLMoE-1B-7B-0924 config.json"},
+          "params": sum(t.numel() for t in tree_leaves(params)),
+          "init_s": time.perf_counter() - t0, "reduced": LM_MOE_REDUCED,
+          "departures": LM_MOE_DEPARTURES})
+
+    # (a) forward, all 16 layers, routed, bf16 over f32
+    t0 = time.perf_counter()
+    b, t = 2, 1024
+    tokens = torch.as_tensor(
+        np.random.default_rng(3).integers(0, cfg.vocab_size, (b, t)),
+        device="cuda")
+    c16 = dataclasses.replace(cfg, attention_impl="flash")
+    forward(params, tokens, c16)                              # warm-up
+    reset_counts()
+    logits = forward(params, tokens, c16)
+    torch.cuda.synchronize()
+    counts["forward"] = read_counts()
+    require(logits.shape == (b, t, cfg.vocab_size)
+            and bool(torch.isfinite(logits).all()), "bf16 logits finite")
+    require(counts["forward"]["flash_fwd"] == cfg.num_layers,
+            f"forward launched the d 128 flash kernel once per layer: "
+            f"{counts['forward']}")
+    del logits
+    reps = 3
+    t1 = time.perf_counter()
+    for _ in range(reps):
+        forward(params, tokens, c16)
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t1) / reps
+    # about 0.2 s of device spin before each start event: the whole call
+    # is queued before the timed window opens
+    dev = time_ms(lambda: forward(params, tokens, c16), reps=reps,
+                  hold_cycles=400_000_000)
+    seconds["forward"] = time.perf_counter() - t0
+    emit({"phase": "lm_moe_forward", "batch": b, "seq": t,
+          "layers": cfg.num_layers, "dispatch": "routed",
+          "capacity_per_expert": int(np.ceil(
+              cfg.moe_capacity_factor * cfg.expert_top_k * b * t
+              / cfg.num_experts)),
+          "bf16_ms": sec * 1e3, "bf16_device_ms": dev,
+          "bf16_tokens_per_s": b * t / sec, "launches": counts["forward"]})
+
+    # (d) the contiguous engine, int8 KV cache and int8 weights, all 16
+    # layers
+    t0 = time.perf_counter()
+    qparams = quantize_lm_params(params)
+    del params
+    free_memory()
+    cq = dataclasses.replace(cfg, kv_cache_quant=True)
+    cq32 = dataclasses.replace(cq, dtype=torch.float32)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in rng.integers(64, 257, 8)]
+    eng = DecodeEngine(qparams, cq32, max_slots=8, max_len=512,
+                       device="cuda")
+    out32 = eng.run(prompts, 16)
+    ref = [generate(qparams, [p], 16, cq32)[0].tolist() for p in prompts]
+    ties = tie_aware_equal_cached(qparams, cq32, prompts, ref, out32)
+    del eng
+    free_memory()
+    DecodeEngine(qparams, cq, max_slots=8, max_len=512,
+                 device="cuda").run(prompts[:2], 4)           # warm-up
+    reset_counts()
+    eng = DecodeEngine(qparams, cq, max_slots=8, max_len=512, device="cuda")
+    t1 = time.perf_counter()
+    rids = [eng.submit(p, 64) for p in prompts]
+    steps = []
+    while eng.pending:
+        t2 = time.perf_counter()
+        eng.step()
+        steps.append(time.perf_counter() - t2)
+    wall = time.perf_counter() - t1
+    outs = [eng.result(r) for r in rids]
+    torch.cuda.synchronize()
+    counts["serving"] = read_counts()
+    require(all(len(o) == 64 for o in outs) and all(
+        0 <= x < cfg.vocab_size for o in outs for x in o),
+        "bf16: 64 tokens each, in the vocabulary")
+    kv_bytes = tree_bytes(eng.cache)
+    fp_bytes = (2 * cfg.num_layers * 8 * cfg.kv_heads * 512 * cfg.head_dim
+                * torch.finfo(cfg.dtype).bits // 8)
+    require(kv_bytes * 256 == fp_bytes * 132,
+            f"int8 cache bytes {kv_bytes} vs bf16 {fp_bytes}")
+    n_tok = sum(len(o) for o in outs)
+    seconds["serving"] = time.perf_counter() - t0
+    emit({"phase": "lm_moe_serving", "layers": cfg.num_layers,
+          "kv_cache_quant": True, "weights": "int8 (quantize_lm_params)",
+          "moe_gating": "dense", "requests": len(prompts),
+          "prompt_lengths": [len(p) for p in prompts],
+          "f32_new_tokens": 16,
+          "f32_equal_rows": sum(a == b_ for a, b_ in zip(ref, out32)),
+          "f32_near_tie_divergences": ties, "bf16_new_tokens": 64,
+          "bf16_output_tokens_per_s": n_tok / wall, "bf16_wall_s": wall,
+          "step_ms_p50": float(np.median(steps)) * 1e3,
+          "steps": len(steps), "kv_cache_bytes": kv_bytes,
+          "bf16_kv_cache_bytes": fp_bytes,
+          "kv_cache_ratio": kv_bytes / fp_bytes,
+          "weight_bytes": tree_bytes(qparams),
+          "launches": counts["serving"]})
+    del eng, qparams
+    free_memory()
+
+    # (b) 2 layers in f32: logits and the gradient through the f32
+    # kernels against the plain path
+    t0 = time.perf_counter()
+    cfg2 = TransformerConfig(**dict(OLMOE_1B_7B, num_layers=2))
+    params2 = init_params(cfg2, torch.Generator(device="cuda").manual_seed(1),
+                          device="cuda")
+    tokens2 = torch.as_tensor(
+        np.random.default_rng(5).integers(0, cfg.vocab_size, (1, 256)),
+        device="cuda")
+    c32 = dataclasses.replace(cfg2, dtype=torch.float32)
+    reset_counts()
+    flash32 = forward(params2, tokens2, dataclasses.replace(
+        c32, attention_impl="flash"))
+    plain32 = forward(params2, tokens2, dataclasses.replace(
+        c32, attention_impl="xla"))
+    scale = float(plain32.abs().max())
+    err = max_err(flash32, plain32)
+    require(err <= 1e-4 * max(scale, 1.0),
+            f"f32 logits flash vs plain err {err} <= 1e-4 * {scale}")
+    run_train_parity(params2, cfg2, shape=(1, 256), phase="lm_moe_grad")
+    counts["grad"] = read_counts()
+    require(all(counts["grad"][k] > 0
+                for k in ("flash_fwd", "flash_dq", "flash_dkv")),
+            f"the f32 checks ran the three f32 kernels: {counts['grad']}")
+    emit({"phase": "lm_moe_f32_forward", "layers": 2, "batch": 1,
+          "seq": 256, "f32_flash_vs_plain_max_abs_err": err,
+          "f32_logit_scale": scale, "tolerance": "1e-4 x max(|logit|, 1)",
+          "launches": counts["grad"]})
+    del params2, flash32, plain32
+    free_memory()
+    seconds["f32_checks"] = time.perf_counter() - t0
+
+    # (c) fit_tokens at 4 layers, bf16 over f32, AdamW 3e-4
+    t0 = time.perf_counter()
+    cfg4 = TransformerConfig(**dict(OLMOE_1B_7B, num_layers=4))
+    batch, seq, rows, epochs = 4, 1024, 16, 2
+    tokens = zipf_tokens(np.random.default_rng(7), cfg4.vocab_size,
+                         (rows, seq))
+    model = TransformerModel(cfg4, device="cuda").compile(
+        AdamW(3e-4, epsilon=1e-8, weight_decay=1e-4, decay_1d=True), seed=0)
+    require(model.config.moe_dispatch == "routed",
+            f"compile pinned routed dispatch: {model.config.moe_dispatch}")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    hist = model.fit_tokens(tokens, epochs=epochs, batch_size=batch, seed=0)
+    torch.cuda.synchronize()
+    counts["train"] = read_counts()
+    steps = epochs * (rows // batch)
+    losses = hist["loss"]
+    require(all(np.isfinite(losses)) and losses[1] < losses[0],
+            f"the MoE LM's loss falls: {losses}")
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        require(counts["train"][name] == cfg4.num_layers * steps,
+                f"{name} launched {cfg4.num_layers} times per step: "
+                f"{counts['train']}")
+    step_s = hist["epoch_time"][1] / (rows // batch)
+    seconds["train"] = time.perf_counter() - t0
+    emit({
+        "phase": "lm_moe_train", "layers": 4, "batch": batch, "seq": seq,
+        "steps": steps, "dispatch": model.config.moe_dispatch,
+        "params": sum(t.numel() for t in tree_leaves(model.params)),
+        "epoch_losses": losses, "epoch_time_s": hist["epoch_time"],
+        "ms_per_step": step_s * 1e3, "tokens_per_s": batch * seq / step_s,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "launches": counts["train"],
+        "launches_per_step": {k: counts["train"][k] / steps
+                              for k in ("flash_fwd", "flash_dq",
+                                        "flash_dkv")},
+        "part_seconds": seconds,
+        "phase_seconds": time.perf_counter() - t_phase})
+    del model
+    free_memory()
+    return counts
+
+
+def run_int8_paged_flagship(params, cfg):
+    """The flagship with ``quantize_lm_params`` weights (int8 attention
+    and MLP matrices, the tied embedding fp) in the paged engine: in f32
+    8 requests of 32 new tokens through the fused kernel and the gather
+    path, tokens equal (tie-aware); in bf16 the serving phase's 16
+    requests (64-512 prompt tokens, 64 new each) through the fused
+    kernel, timed, every launch on the split body. Returns the bf16
+    run's launch counts."""
+    from elephas_tpu_torch.models.quantization import QTensor, \
+        quantize_lm_params
+
+    t0 = time.perf_counter()
+    qparams = quantize_lm_params(params)
+    require(isinstance(qparams["layer_0"]["mlp"]["w1"], QTensor),
+            "the flagship's MLP weights are int8")
+    rng = np.random.default_rng(4)
+    lengths = rng.integers(64, 513, 16)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    gather, _ = serve(qparams, c32, prompts[:8], "gather", max_new=32)
+    fused, info32 = serve(qparams, c32, prompts[:8], "fused", max_new=32)
+    ties = tie_aware_equal(qparams, cfg, prompts[:8], gather, fused)
+    require(info32["stats"]["kernel_launches"] > 0,
+            "the f32 fused engine launched the paged kernel")
+    serve(qparams, cfg, prompts[:2], "fused", max_new=4)     # warm-up
+    reset_counts()
+    outs, info = serve(qparams, cfg, prompts, "fused", timed=True)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    require(counts["paged_decode"] > 0
+            and counts["paged_decode"] == info["stats"]["kernel_launches"],
+            f"the int8 engine launched the paged kernel: {counts}")
+    require(counts["paged_split"] == counts["paged_decode"],
+            f"every bf16 paged launch took the split body: {counts}")
+    require(all(len(o) == 64 for o in outs) and all(
+        0 <= x < cfg.vocab_size for o in outs for x in o),
+        "bf16: 64 tokens each, in the vocabulary")
+    emit({"phase": "int8_paged_flagship", "requests": len(prompts),
+          "weight_bytes": tree_bytes(qparams),
+          "f32_weight_bytes": tree_bytes(params),
+          "f32_requests": 8, "f32_new_tokens": 32,
+          "f32_equal_rows": sum(a == b for a, b in zip(gather, fused)),
+          "f32_near_tie_divergences": ties,
+          "bf16": {k: v for k, v in info.items() if k != "stats"},
+          "launches": counts, "seconds": time.perf_counter() - t0})
+    del qparams
+    free_memory()
+    return counts
+
+
+PACKED_DOCS = ["the quick brown fox jumps over the lazy dog. ",
+               "pack my box with five dozen liquor jugs! ",
+               "sphinx of black quartz, judge my vow. "]
+
+
+def run_packed_example():
+    """``examples/packed_lm_pretraining.py``'s program on the port:
+    three sentences repeated 40 times packed into rows of 64 by the byte
+    tokenizer, the example's LM (2 layers, 4 heads over 2, d_model 64,
+    RoPE, SwiGLU, RMSNorm, chunked-vocab loss, residual dropout 0.1,
+    f32), AdamW 3e-3 (optax.adamw's defaults), 40 steps of
+    ``make_train_step(packed=True)`` with a fresh dropout key each: the
+    loss falls, as the example prints. Packed batches take the plain
+    attention path, so no kernel runs."""
+    from elephas_tpu_torch.models.optimizers import AdamW
+    from elephas_tpu_torch.models.transformer import (TransformerConfig,
+                                                      init_params,
+                                                      make_train_step)
+    from elephas_tpu_torch.utils.text import ByteTokenizer
+
+    t0 = time.perf_counter()
+    tok = ByteTokenizer()
+    rows, segs = tok.pack_documents(PACKED_DOCS * 40, seq_len=64)
+    config = TransformerConfig(
+        vocab_size=tok.vocab_size, num_layers=2, num_heads=4,
+        num_kv_heads=2, d_model=64, d_ff=128, max_seq_len=64,
+        positional="rope", mlp_variant="swiglu", norm="rmsnorm",
+        loss_vocab_chunk=128, dropout_rate=0.1, dtype=torch.float32)
+    params = init_params(config,
+                         torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    tx = AdamW(3e-3, weight_decay=1e-4, epsilon=1e-8,
+               decay_1d=True).to_transform()
+    opt = tx.init(params)
+    step = make_train_step(config, tx, packed=True)
+    tokens = torch.as_tensor(rows, device="cuda")
+    segments = torch.as_tensor(segs, device="cuda")
+    reset_counts()
+    printed = []
+    for i in range(40):
+        key = torch.Generator(device="cuda").manual_seed(i)
+        params, opt, loss = step(params, opt, tokens, key, segments)
+        if (i + 1) % 10 == 0:
+            printed.append(float(loss))
+    counts = read_counts()
+    require(all(np.isfinite(printed)) and printed[-1] < printed[0],
+            f"the packed example's loss falls: {printed}")
+    require(not any(counts.values()),
+            f"packed batches take the plain attention path: {counts}")
+    emit({"phase": "packed_example", "rows": int(rows.shape[0]),
+          "seq": 64, "non_pad_share": float((segs > 0).mean()),
+          "loss_at_steps_10_20_30_40": printed, "launches": counts,
+          "seconds": time.perf_counter() - t0})
+    return counts
+
+
+def packed_corpus(rng, n_docs):
+    """Seeded documents of random lowercase words, 100-3000 bytes each."""
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    docs = []
+    for n in rng.integers(100, 3001, n_docs):
+        words, size = [], 0
+        while size < n:
+            w = "".join(rng.choice(letters, rng.integers(1, 11)))
+            words.append(w)
+            size += len(w) + 1
+        docs.append(" ".join(words)[:n] + ". ")
+    return docs
+
+
+def run_packed_flagship(cfg):
+    """``make_train_step(packed=True)`` at the flagship's widths, bf16
+    over f32, AdamW 3e-4: 3 steps over B 8 rows of 1024 that the byte
+    tokenizer packed from seeded documents (the plain attention path
+    with the segment mask). Then at 2 layers in f32 one SGD step on rows
+    that each hold one document over all 1024 positions: the packed step
+    (plain attention, segment mask) and the unpacked step (the f32 flash
+    kernels) give the same loss and the same update. Returns the bf16
+    steps' launch counts."""
+    from elephas_tpu_torch.models.optimizers import SGD, AdamW
+    from elephas_tpu_torch.models.transformer import (init_params,
+                                                      make_train_step)
+    from elephas_tpu_torch.utils.text import ByteTokenizer
+    from elephas_tpu_torch.weights import tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    tok = ByteTokenizer()
+    rng = np.random.default_rng(8)
+    rows, segs = tok.pack_documents(packed_corpus(rng, 24), seq_len=1024)
+    require(rows.shape[0] >= 8, f"{rows.shape[0]} packed rows")
+    rows, segs = rows[:8], segs[:8]
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(2),
+                         device="cuda")
+    tx = AdamW(3e-4, epsilon=1e-8, weight_decay=1e-4,
+               decay_1d=True).to_transform()
+    opt = tx.init(params)
+    step = make_train_step(cfg, tx, packed=True)
+    tokens = torch.as_tensor(rows, device="cuda")
+    segments = torch.as_tensor(segs, device="cuda")
+    _, opt, _ = step(params, opt, tokens, segments)          # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t1 = time.perf_counter()
+    losses = []
+    for _ in range(3):
+        _, opt, loss = step(params, opt, tokens, segments)
+        losses.append(loss)
+    losses = [float(x) for x in losses]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t1) / 3
+    counts = read_counts()
+    require(all(np.isfinite(losses)), f"finite packed losses {losses}")
+    require(not any(counts.values()),
+            f"packed batches take the plain attention path: {counts}")
+    del params, opt
+    free_memory()
+
+    # 2 layers, f32: one document a row, packed step against unpacked
+    cfg2 = dataclasses.replace(cfg, num_layers=2, dtype=torch.float32)
+    docs = [d for d in packed_corpus(np.random.default_rng(9), 40)
+            if len(d) > 1024][:2]
+    require(len(docs) == 2, "two documents longer than a row")
+    one_doc = torch.as_tensor([tok.encode(d)[:1024] for d in docs],
+                              device="cuda")
+    ones = torch.ones_like(one_doc)
+    base = init_params(cfg2, torch.Generator(device="cuda").manual_seed(3),
+                       device="cuda")
+    sgd = SGD(0.1).to_transform()
+    out = {}
+    for packed in (True, False):
+        p = tree_map(torch.clone, base)
+        before = [t.clone() for t in tree_leaves(p)]
+        st = make_train_step(cfg2, sgd, packed=packed)
+        reset_counts()
+        _, _, loss = (st(p, sgd.init(p), one_doc, ones) if packed
+                      else st(p, sgd.init(p), one_doc))
+        out[packed] = (float(loss), [a - b for a, b in zip(tree_leaves(p),
+                                                           before)],
+                       read_counts())
+    (lp, dp, cp), (lu, du, cu) = out[True], out[False]
+    rel = [max_err(a, b) / max(float(b.abs().max()), 1e-30)
+           for a, b in zip(dp, du)]
+    require(abs(lp - lu) <= 1e-4, f"f32 loss packed {lp} vs unpacked {lu}")
+    require(max(rel) <= 1e-3, f"f32 update rel err {max(rel)} <= 1e-3")
+    require(cu["flash_fwd"] == 2 and not any(cp.values()),
+            f"unpacked on the flash kernels {cu}, packed on plain {cp}")
+    emit({"phase": "packed_flagship", "batch": 8, "seq": 1024,
+          "layers": cfg.num_layers,
+          "docs_per_row": [int(r.max()) for r in segs],
+          "non_pad_share": float((segs > 0).mean()),
+          "bf16_losses": losses, "ms_per_step": step_s * 1e3,
+          "tokens_per_s": 8 * 1024 / step_s,
+          "f32_one_document_rows": {
+              "layers": 2, "batch": 2, "loss_packed": lp,
+              "loss_unpacked": lu, "max_update_rel_err": max(rel),
+              "tolerance": {"loss_abs": 1e-4, "update_rel_to_leaf_max":
+                            1e-3},
+              "unpacked_launches": cu},
+          "launches": counts, "seconds": time.perf_counter() - t0})
+    return counts
+
+
 def free_memory():
     """Collect unreachable objects (engines and models in reference
     cycles hold their parameters until then) and return the freed
@@ -3591,10 +4087,15 @@ def main() -> int:
     timed("train_parity", run_train_parity, params, cfg)
     spec = timed("speculative_flagship", run_speculative_flagship, params,
                  cfg)
+    int8_counts = timed("int8_paged_flagship", run_int8_paged_flagship,
+                        params, cfg)
     del params
+    packed_counts = timed("packed_flagship", run_packed_flagship, cfg)
     train_counts = timed("train", run_train, cfg)
     d128 = timed("lm_d128", run_lm_d128)
     d96 = timed("lm_d96", run_lm_d96)
+    moe = timed("lm_moe", run_lm_moe)
+    packed_ex_counts = timed("packed_example", run_packed_example)
 
     data = (mnist_like(60000, seed=0), mnist_like(10000, seed=1))
     sync_samples_s, sync_tpu_model = timed(
@@ -3645,11 +4146,16 @@ def main() -> int:
                 for part, c in spec.items()},
              "speculative_example": spex_counts,
              **{f"lm_d128_{part}": c for part, c in d128.items()},
-             **{f"lm_d96_{part}": c for part, c in d96.items()}}
+             **{f"lm_d96_{part}": c for part, c in d96.items()},
+             **{f"lm_moe_{part}": c for part, c in moe.items()},
+             "int8_paged_flagship": int8_counts,
+             "packed_flagship": packed_counts,
+             "packed_example": packed_ex_counts}
     # the main paths' paged engines: the flagship serving phases, the
-    # speculative phase's interleaved engine, the http_serving.py example
+    # speculative phase's interleaved engine, the flagship over int8
+    # weights, the http_serving.py example
     paged_paths = (srv_counts, flag_counts,
-                   spec["interleaved_paged_fused"], ex_counts)
+                   spec["interleaved_paged_fused"], int8_counts, ex_counts)
     kernels = [
         {"name": "paged_decode", "route": "cuda",
          "source": "elephas_tpu_torch/csrc/paged_decode.cu",
@@ -3688,6 +4194,7 @@ def main() -> int:
         # evaluate, the resumed fit, the loaded model's predict), d 16
         # forward_d16, http_serving_example and speculative_example,
         # d 128 lm_d128's four (forward, serving, the f32 gradient, the
+        # fit) and lm_moe's four (forward, serving, the f32 checks, the
         # fit), d 96 lm_d96's four; no driven path runs d 80: its
         # launches are null
         launches = {"16": d16_counts[name] + ex_counts[name]
@@ -3696,7 +4203,8 @@ def main() -> int:
                     + loaded_counts[name],
                     "64": entry["launches"] - ex_counts[name]
                     - spex_counts[name],
-                    "128": sum(c[name] for c in d128.values()),
+                    "128": sum(c[name] for c in (*d128.values(),
+                                                 *moe.values())),
                     "96": sum(c[name] for c in d96.values())}
         if name == "paged_decode":
             split = {"16": d16_counts["paged_split"]
@@ -3707,8 +4215,10 @@ def main() -> int:
                      + loaded_counts["paged_split"],
                      "64": srv_counts["paged_split"]
                      + flag_counts["paged_split"]
-                     + spec["interleaved_paged_fused"]["paged_split"],
-                     "128": sum(c["paged_split"] for c in d128.values()),
+                     + spec["interleaved_paged_fused"]["paged_split"]
+                     + int8_counts["paged_split"],
+                     "128": sum(c["paged_split"] for c in (*d128.values(),
+                                                          *moe.values())),
                      "96": sum(c["paged_split"] for c in d96.values())}
         entry["by_head_dim"] = {
             d: {**{k: t[k] for k in (*keys, "shape", "body") if k in t},

@@ -24,8 +24,7 @@ from ..ops.paged_attention import (paged_attention_gathered,
                                    paged_decode_attention)
 from .transformer import (TransformerConfig, _alibi_slopes,
                           _apply_rope, _mlp_apply, _norm,
-                          _qkv, _sinusoidal_table, check_ported,
-                          head_logits)
+                          _qkv, _sinusoidal_table, head_logits)
 
 __all__ = ["validate_paged_config", "init_paged_pool", "install_row_paged",
            "gather_blocks_to_row", "decode_step_paged", "decode_block_paged",
@@ -38,6 +37,9 @@ KERNELS = ("gather", "fused")
 
 
 def validate_paged_config(config: TransformerConfig):
+    """Refuse what paged mode does not carry, with the JAX package's
+    messages: the int8 KV cache (the contiguous engine composes with
+    it) and MoE layers."""
     if config.kv_cache_quant:
         raise ValueError("paged KV mode does not compose with "
                          "kv_cache_quant; use the contiguous engine for "
@@ -133,7 +135,7 @@ def decode_step_paged(params: Dict, pool: Dict, tables: torch.Tensor,
     if kernel not in KERNELS:
         raise ValueError(f"unknown paged decode kernel {kernel!r}; "
                          f"expected one of {KERNELS}")
-    check_ported(config)
+    validate_paged_config(config)
     c = config
     device = params["embed"]["tokens"].device
     tokens = torch.as_tensor(tokens, device=device).long()
@@ -210,7 +212,7 @@ def decode_block_paged(params: Dict, pool: Dict, tables: torch.Tensor,
     Writes stay inside the row's own table: a row's rejected tail
     positions are masked until later rounds overwrite them, and inactive
     rows (tables of zeros) write only into the scratch block 0."""
-    check_ported(config)
+    validate_paged_config(config)
     c = config
     device = params["embed"]["tokens"].device
     tokens = torch.as_tensor(tokens, device=device).long()

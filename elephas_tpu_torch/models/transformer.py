@@ -10,16 +10,22 @@ half-split. bfloat16 activations and matmuls by default over f32
 parameters.
 
 Ported here: the config, ``init_params``, the embedding, norms, RoPE,
-ALiBi, the dense MLP (gelu or SwiGLU), residual dropout, single-device
+ALiBi, the dense MLP (gelu or SwiGLU), the mixture-of-experts layer on
+one device (the f32 router, dense and capacity-routed dispatch, the
+shared expert, the Switch aux loss), residual dropout, single-device
 ``forward``/``forward_with_aux`` with the flash kernels (differentiable)
-or the plain attention path, rematerialization (``remat_policy`` full
-or dots) through ``torch.utils.checkpoint``, the LM losses
-(``next_token_loss``, the chunked-vocab loss, z-loss, label smoothing)
-in ``lm_loss``, the single-device ``make_train_step``, and the cached
-decode family: ``prefill_cache`` (whole and chunked), ``decode_block``,
-``decode_step``, ``generate`` and ``beam_search``. Not ported yet (they
-raise ``NotImplementedError``): mixture of experts, the int8 KV cache,
-packed ``segment_ids`` and every mesh argument.
+or the plain attention path, packed rows (``segment_ids``: the segment
+mask on the plain path and the boundary-masked loss),
+rematerialization (``remat_policy`` full or dots) through
+``torch.utils.checkpoint``, the LM losses (``next_token_loss``, the
+chunked-vocab loss, z-loss, label smoothing, the MoE aux term) in
+``lm_loss``, the single-device ``make_train_step`` (``packed`` too), and
+the cached decode family with the optional int8 KV cache:
+``prefill_cache`` (whole and chunked), ``decode_block``,
+``decode_step``, ``generate`` and ``beam_search``. Weight-only int8
+parameters (:mod:`.quantization`) run through every inference entry
+point. Not ported yet (they raise ``NotImplementedError``): every mesh
+argument, and with it expert parallelism.
 
 Random numbers: a dropout key is a ``torch.Generator``. Masks cannot
 equal JAX's bits; a seed drawn per layer from the step's generator
@@ -41,6 +47,7 @@ from .._device import DeviceLike, resolve_device
 from ..ops.attention import NEG_INF, attention, einsum
 from ..ops.flash_attention import flash_attention
 from ..weights import tree_flatten, tree_unflatten
+from .quantization import quantize_weight
 
 __all__ = ["TransformerConfig", "init_params", "forward", "forward_with_aux",
            "lm_loss", "lm_loss_and_grads", "value_and_grads",
@@ -50,15 +57,15 @@ __all__ = ["TransformerConfig", "init_params", "forward", "forward_with_aux",
            "prefill_cache_chunked", "chunked_blocks", "generate",
            "beam_search",
            "embed_apply", "head_logits", "resolve_attention_impl",
-           "NEG_INF", "FLAGSHIP", "TRANSFORMER_TPUMODEL"]
+           "segment_target_weights", "select_moe_dispatch",
+           "NEG_INF", "FLAGSHIP", "TRANSFORMER_TPUMODEL", "PHI3_MINI",
+           "OLMOE_1B_7B"]
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """The JAX package's config, field for field (see its docstrings).
-    ``dtype``/``param_dtype`` are torch dtypes. Fields of features this
-    slice does not port keep their defaults; setting them raises at the
-    entry points."""
+    ``dtype``/``param_dtype`` are torch dtypes."""
     vocab_size: int = 32000
     num_layers: int = 4
     num_heads: int = 8
@@ -98,6 +105,14 @@ class TransformerConfig:
         if self.attention_impl not in ("auto", "flash", "xla"):
             raise ValueError("attention_impl must be 'auto', 'flash' or "
                              f"'xla', got {self.attention_impl!r}")
+        if self.num_experts > 1 and not (
+                1 <= self.expert_top_k <= self.num_experts):
+            raise ValueError("expert_top_k must be in [1, num_experts]")
+        if self.moe_dispatch not in ("auto", "dense", "routed"):
+            raise ValueError("moe_dispatch must be 'auto', 'dense' or "
+                             f"'routed', got {self.moe_dispatch!r}")
+        if self.moe_capacity_factor <= 0:
+            raise ValueError("moe_capacity_factor must be positive")
         if not 0.0 <= self.dropout_rate < 1.0:
             raise ValueError("dropout_rate must be in [0, 1)")
         if not 0.0 <= self.label_smoothing < 1.0:
@@ -158,15 +173,21 @@ PHI3_MINI = dict(vocab_size=32064, num_layers=32, num_heads=32,
                  positional="rope", rope_theta=10000.0,
                  attention_window=2047, mlp_variant="swiglu",
                  norm="rmsnorm", tied_embedding=False)
-
-
-def check_ported(config: TransformerConfig) -> None:
-    """Raise for the config features this port does not carry yet."""
-    if config.num_experts > 1:
-        raise NotImplementedError("mixture-of-experts layers are not "
-                                  "ported yet")
-    if config.kv_cache_quant:
-        raise NotImplementedError("the int8 KV cache is not ported yet")
+#: ``allenai/OLMoE-1B-7B-0924``'s ``config.json`` as far as the repo's
+#: MoE layer expresses it: vocab 50304, 16 layers, 16 heads over 16 kv
+#: heads (head dim 128), hidden 2048, 64 experts with top-8 routing and
+#: an expert width of 1024, RMSNorm, RoPE theta 10000, untied head,
+#: 4096 positions, router aux weight 0.01. Four departures: the repo's
+#: experts are GELU with biases (two matrices, OLMoE's are SwiGLU), the
+#: top-k gates are renormalized (OLMoE ``norm_topk_prob: false``), no
+#: QK-norm, and routing by capacity with drops (OLMoE is dropless):
+#: ``TransformerConfig(**OLMOE_1B_7B)``
+OLMOE_1B_7B = dict(vocab_size=50304, num_layers=16, num_heads=16,
+                   num_kv_heads=16, d_model=2048, d_ff=1024,
+                   max_seq_len=4096, num_experts=64, expert_top_k=8,
+                   moe_aux_weight=0.01, positional="rope",
+                   rope_theta=10000.0, norm="rmsnorm",
+                   tied_embedding=False)
 
 
 def init_params(config: TransformerConfig, generator: torch.Generator,
@@ -174,7 +195,6 @@ def init_params(config: TransformerConfig, generator: torch.Generator,
     """The parameter dict, drawn from ``generator`` (on the generator's
     device) and placed on ``device``. Same nesting, shapes and scales as
     the JAX ``init_params``; the draws differ (another generator)."""
-    check_ported(config)
     c = config
     device = resolve_device(device)
 
@@ -212,15 +232,32 @@ def init_params(config: TransformerConfig, generator: torch.Generator,
                 "wo": dense((c.num_heads, c.head_dim, c.d_model), c.d_model),
             },
             "ln2": {"gamma": ones(), "beta": zeros(c.d_model)},
-            "mlp": {
+        }
+        if c.num_experts > 1:
+            e = c.num_experts
+            layer["moe"] = {
+                "gate": dense((c.d_model, e), c.d_model),
+                "w1": dense((e, c.d_model, c.d_ff), c.d_model),
+                "b1": zeros((e, c.d_ff)),
+                "w2": dense((e, c.d_ff, c.d_model), c.d_ff),
+                "b2": zeros((e, c.d_model)),
+            }
+            if c.moe_shared_expert:
+                layer["moe"]["shared"] = {
+                    "w1": dense((c.d_model, c.d_ff), c.d_model),
+                    "b1": zeros(c.d_ff),
+                    "w2": dense((c.d_ff, c.d_model), c.d_ff),
+                    "b2": zeros(c.d_model),
+                }
+        else:
+            layer["mlp"] = {
                 "w1": dense((c.d_model, c.d_ff), c.d_model),
                 "b1": zeros(c.d_ff),
                 "w2": dense((c.d_ff, c.d_model), c.d_ff),
                 "b2": zeros(c.d_model),
-            },
-        }
-        if c.mlp_variant == "swiglu":
-            layer["mlp"]["w3"] = dense((c.d_model, c.d_ff), c.d_model)
+            }
+            if c.mlp_variant == "swiglu":
+                layer["mlp"]["w3"] = dense((c.d_model, c.d_ff), c.d_model)
         params[f"layer_{i}"] = layer
     return params
 
@@ -377,6 +414,164 @@ def _mlp_apply(layer: Dict, x: torch.Tensor, c: TransformerConfig,
     return x + _dropout(h, c.dropout_rate, dropout_gen)
 
 
+def select_moe_dispatch(config: TransformerConfig) -> str:
+    """``config.moe_dispatch`` resolved to ``'dense'`` or ``'routed'``:
+    ``auto`` routes (FLOPs proportional to ``top_k``) above 4 experts,
+    the JAX package's rule without a mesh."""
+    if config.moe_dispatch != "auto":
+        return config.moe_dispatch
+    return "dense" if config.num_experts <= 4 else "routed"
+
+
+def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k``: the k largest along the last axis, ties to the
+    lower index (a stable descending sort; ``torch.topk`` promises no
+    order among equal values)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _moe_gates(h: torch.Tensor, moe: Dict, c: TransformerConfig):
+    """The router in f32: softmax probabilities, exact top-k, and the
+    Switch load-balancing aux loss ``E * sum_e f_e * P_e`` (f_e the
+    share of tokens whose top choice is e, P_e e's mean probability).
+    k = 1 scales by the raw probability (Switch); k > 1 renormalizes the
+    selected probabilities (Mixtral). Returns ``(probs, gate_vals,
+    topi, aux)``, ``gate_vals``/``topi`` of shape ``(..., top_k)``."""
+    logits = h.to(torch.float32) @ moe["gate"].to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, topi = _top_k(probs, c.expert_top_k)
+    if c.expert_top_k > 1:
+        gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+    lead = tuple(range(probs.ndim - 1))
+    top1 = F.one_hot(torch.argmax(probs, dim=-1), c.num_experts).to(
+        torch.float32)
+    aux = c.num_experts * (top1.mean(dim=lead) * probs.mean(dim=lead)).sum()
+    return probs, gate_vals, topi, aux
+
+
+def _moe_block(h: torch.Tensor, moe: Dict, c: TransformerConfig,
+               dispatch: Optional[str] = None):
+    """Gated mixture-of-experts MLP over ``(B, T, D)``: ``(out, aux)``.
+    Dense dispatch runs every expert on every token and lets the top-k
+    gates zero the rest; routed dispatch (:func:`_moe_block_routed`)
+    scatters tokens into per-expert capacity buffers."""
+    if dispatch is None:
+        dispatch = select_moe_dispatch(c)
+    if dispatch == "routed":
+        return _moe_block_routed(h, moe, c)
+    _, gate_vals, topi, aux = _moe_gates(h, moe, c)
+    # the top-k gate values back on the expert axis
+    gates = torch.zeros(gate_vals.shape[:-1] + (c.num_experts,),
+                        dtype=gate_vals.dtype, device=gate_vals.device)
+    gates = gates.scatter(-1, topi, gate_vals).to(c.dtype)
+    he = F.gelu(einsum("btd,edf->betf", h, moe["w1"].to(c.dtype))
+                + moe["b1"].to(c.dtype)[None, :, None, :],
+                approximate="tanh")
+    out = (einsum("betf,efd->betd", he, moe["w2"].to(c.dtype))
+           + moe["b2"].to(c.dtype)[None, :, None, :])
+    return einsum("betd,bte->btd", out, gates), aux
+
+
+def _shared_expert(h: torch.Tensor, shared: Dict,
+                   c: TransformerConfig) -> torch.Tensor:
+    """The always-on dense MLP added to the MoE combine (gelu, as the
+    experts)."""
+    g = F.gelu(h @ shared["w1"].to(c.dtype) + shared["b1"].to(c.dtype),
+               approximate="tanh")
+    return g @ shared["w2"].to(c.dtype) + shared["b2"].to(c.dtype)
+
+
+def _routed_capacity(config: TransformerConfig, n_tokens: int) -> int:
+    """Slots per expert buffer: ``ceil(cf * k * n_tokens / E)``, at least
+    1, at most ``n_tokens``; it depends on the call's token count."""
+    cap = int(math.ceil(config.moe_capacity_factor * config.expert_top_k
+                        * n_tokens / config.num_experts))
+    return min(max(cap, 1), n_tokens)
+
+
+def _routed_dispatch(hf: torch.Tensor, gate_vals: torch.Tensor,
+                     topi: torch.Tensor, w1, b1, w2, b2,
+                     c: TransformerConfig, capacity: int) -> torch.Tensor:
+    """Scatter -> expert MLP -> gather over all experts (the JAX
+    function at ``expert_offset=0``). Assignments are flattened
+    token-major, so earlier tokens (and, within a token, higher-ranked
+    choices) win the capacity race; an assignment past its expert's
+    capacity is dropped: it lands in a spare buffer row that no expert
+    output reads back, and its gate is zeroed.
+
+    The JAX function ranks assignments by a cumsum over their one-hot
+    experts; here a stable sort by expert gives the same ranks, and the
+    scatter and gather go through flat ``index_copy``/``index_select``
+    (each a plain copy, with a plain copy or an ``index_add_`` as its
+    gradient), where a cumsum down ``(N*k, E)`` and an accumulating
+    ``index_put`` cost most of a routed layer on the card."""
+    n, d = hf.shape
+    k = c.expert_top_k
+    e = w1.shape[0]
+    experts = topi.reshape(n * k)
+    # each assignment's place in its expert's buffer: the assignments to
+    # that expert before it (a stable sort keeps them in token order)
+    order = torch.argsort(experts, stable=True)
+    counts = torch.bincount(experts, minlength=e)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = (torch.arange(n * k, device=hf.device)
+            - starts[experts[order]])
+    pos = torch.empty_like(rank).scatter_(0, order, rank)
+    keep = pos < capacity
+    # slot (expert, position) of each assignment in a (E, capacity + 1)
+    # buffer whose last row per expert takes the drops
+    slot = experts * (capacity + 1) + torch.where(keep, pos, capacity)
+    xs = hf.to(c.dtype)[:, None, :].expand(n, k, d).reshape(n * k, d)
+    buf = torch.zeros((e * (capacity + 1), d), dtype=c.dtype,
+                      device=hf.device).index_copy(0, slot, xs)
+    buf = buf.reshape(e, capacity + 1, d)[:, :capacity]
+    he = F.gelu(einsum("ecd,edf->ecf", buf, w1.to(c.dtype))
+                + b1.to(c.dtype)[:, None, :], approximate="tanh")
+    out_buf = (einsum("ecf,efd->ecd", he, w2.to(c.dtype))
+               + b2.to(c.dtype)[:, None, :])
+    # the spare rows read back as zeros
+    out_buf = F.pad(out_buf, (0, 0, 0, 1)).reshape(e * (capacity + 1), d)
+    gate_flat = (gate_vals.reshape(n * k)
+                 * keep.to(gate_vals.dtype)).to(c.dtype)
+    picked = out_buf.index_select(0, slot)
+    return (picked * gate_flat[:, None]).reshape(n, k, d).sum(dim=1)
+
+
+def _moe_block_routed(h: torch.Tensor, moe: Dict, c: TransformerConfig):
+    """Capacity-factor routed dispatch (Switch Transformer section 2.2):
+    per-token expert FLOPs scale with ``top_k``, not ``num_experts``."""
+    b, t, d = h.shape
+    hf = h.reshape(b * t, d)
+    _, gate_vals, topi, aux = _moe_gates(hf, moe, c)
+    out = _routed_dispatch(hf, gate_vals, topi, moe["w1"], moe["b1"],
+                           moe["w2"], moe["b2"], c,
+                           _routed_capacity(c, b * t))
+    return out.reshape(b, t, d), aux
+
+
+def _moe_apply(layer: Dict, x: torch.Tensor, c: TransformerConfig,
+               dispatch: str, dropout_gen: Optional[torch.Generator] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pre-LN MoE sublayer with residual (plus the shared expert):
+    ``(x, aux)``."""
+    h = _norm(x, layer["ln2"], c).to(c.dtype)
+    out, aux = _moe_block(h, layer["moe"], c, dispatch=dispatch)
+    if c.moe_shared_expert:
+        out = out + _shared_expert(h, layer["moe"]["shared"], c)
+    return x + _dropout(out, c.dropout_rate, dropout_gen), aux
+
+
+def _ffn_cached(layer: Dict, x: torch.Tensor,
+                c: TransformerConfig) -> torch.Tensor:
+    """The feed-forward sublayer of the cached decode family: the dense
+    MLP, or the MoE layer under DENSE dispatch whatever the config's
+    setting (decode-time gating, as in the JAX package)."""
+    if c.num_experts > 1:
+        return _moe_apply(layer, x, c, "dense")[0]
+    return _mlp_apply(layer, x, c)
+
+
 def resolve_attention_impl(config: TransformerConfig,
                            device: torch.device) -> str:
     """``"flash"`` or ``"xla"`` (the plain path) for single-device
@@ -391,32 +586,39 @@ def resolve_attention_impl(config: TransformerConfig,
     return config.attention_impl
 
 
-def _check_single_device(mesh, seq_axis, batch_axis, model_axis,
-                         segment_ids) -> None:
+def _check_single_device(mesh, seq_axis, batch_axis, model_axis) -> None:
     if any(a is not None for a in (mesh, seq_axis, batch_axis,
                                    model_axis)):
         raise NotImplementedError("mesh parallelism is not ported yet")
-    if segment_ids is not None:
-        raise NotImplementedError("packed segment_ids are not ported yet")
 
 
-def _attention_fn(c: TransformerConfig, device: torch.device, t: int):
+def _attention_fn(c: TransformerConfig, device: torch.device, t: int,
+                  segment_ids: Optional[torch.Tensor] = None):
     """The single-device attention of a length-``t`` causal stack: the
     flash kernels (differentiable; GQA mapped in the kernel) or the
-    plain path, with the window and ALiBi masks it needs."""
-    if resolve_attention_impl(c, device) == "flash":
+    plain path, with the window, ALiBi and segment masks it needs.
+    Packed rows (``segment_ids``, ``(B, T)``, ids > 0, 0 = padding)
+    always take the plain path: a query attends to the keys of its own
+    non-pad segment, and a pad query, every key masked, gets the finite
+    ``NEG_INF`` fill's uniform softmax, as in the JAX package."""
+    if (segment_ids is None
+            and resolve_attention_impl(c, device) == "flash"):
         attn_fn = partial(flash_attention, causal=True,
                           window=c.attention_window)
         # the kernels map GQA heads themselves: k/v stay narrow
         attn_fn.handles_gqa = True
         return attn_fn
-    if c.attention_window is None and c.positional != "alibi":
+    if (c.attention_window is None and c.positional != "alibi"
+            and segment_ids is None):
         return partial(attention, causal=True)
     q_pos = torch.arange(t, device=device)[:, None]
     k_pos = torch.arange(t, device=device)[None, :]
     mask = (k_pos <= q_pos)[None, None]
     if c.attention_window is not None:
         mask = mask & (k_pos > q_pos - c.attention_window)[None, None]
+    if segment_ids is not None:
+        same = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
+        mask = mask & same & (segment_ids > 0)[:, None, None, :]
     bias = None
     if c.positional == "alibi":
         slopes = _alibi_slopes(c.num_heads, device)
@@ -456,21 +658,24 @@ def _hidden_with_aux(params: Dict, tokens: torch.Tensor,
                      batch_axis=None, model_axis=None, dropout_key=None,
                      segment_ids=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The block stack up to (but excluding) the LM head, on the device
-    of ``params``: final hidden states ``(B, T, D)`` and the MoE aux loss
-    (0: dense layers only). ``dropout_key`` (a ``torch.Generator``)
-    enables residual dropout."""
-    _check_single_device(mesh, seq_axis, batch_axis, model_axis,
-                         segment_ids)
+    of ``params``: final hidden states ``(B, T, D)`` and the summed MoE
+    aux loss (0 for dense layers). ``dropout_key`` (a
+    ``torch.Generator``) enables residual dropout; ``segment_ids``
+    (packed rows) isolate documents on the plain attention path."""
+    _check_single_device(mesh, seq_axis, batch_axis, model_axis)
     if dropout_key is not None and not isinstance(dropout_key,
                                                   torch.Generator):
         raise TypeError(f"dropout_key must be a torch.Generator, got "
                         f"{type(dropout_key).__name__}")
-    check_ported(config)
     c = config
     device = params["embed"]["tokens"].device
     tokens = torch.as_tensor(tokens, device=device).long()
+    if segment_ids is not None:
+        segment_ids = torch.as_tensor(segment_ids, device=device)
     x = embed_apply(params["embed"], tokens, c)
-    attn_fn = _attention_fn(c, device, tokens.shape[1])
+    attn_fn = _attention_fn(c, device, tokens.shape[1], segment_ids)
+    dispatch = select_moe_dispatch(c) if c.num_experts > 1 else None
+    zero = torch.zeros((), dtype=torch.float32, device=device)
 
     def layer_apply(layer, x, seed):
         gen = None
@@ -478,7 +683,9 @@ def _hidden_with_aux(params: Dict, tokens: torch.Tensor,
             gen = torch.Generator(device=x.device)
             gen.manual_seed(seed)
         x = _attn_apply(layer, x, c, attn_fn, gen)
-        return _mlp_apply(layer, x, c, gen)
+        if dispatch is not None:
+            return _moe_apply(layer, x, c, dispatch, gen)
+        return _mlp_apply(layer, x, c, gen), zero
 
     if c.remat:
         # recompute each block's activations in the backward pass instead
@@ -487,9 +694,11 @@ def _hidden_with_aux(params: Dict, tokens: torch.Tensor,
         layer_apply = partial(checkpoint, layer_apply, use_reentrant=False,
                               context_fn=_remat_context(c.remat_policy))
     seeds = _layer_seeds(dropout_key, c.dropout_rate, c.num_layers)
+    aux_total = zero
     for i in range(c.num_layers):
-        x = layer_apply(params[f"layer_{i}"], x, seeds[i])
-    return x, torch.zeros((), dtype=torch.float32, device=device)
+        x, aux = layer_apply(params[f"layer_{i}"], x, seeds[i])
+        aux_total = aux_total + aux
+    return x, aux_total
 
 
 def forward_with_aux(params: Dict, tokens: torch.Tensor,
@@ -497,7 +706,7 @@ def forward_with_aux(params: Dict, tokens: torch.Tensor,
                      batch_axis=None, model_axis=None, dropout_key=None,
                      segment_ids=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Like :func:`forward` but also returns the summed MoE auxiliary
-    loss (0 for the dense configs the port carries)."""
+    (load-balancing) loss, 0.0 for dense configs."""
     x, aux = _hidden_with_aux(params, tokens, config, mesh, seq_axis,
                               batch_axis, model_axis, dropout_key,
                               segment_ids)
@@ -510,28 +719,48 @@ def forward(params: Dict, tokens: torch.Tensor, config: TransformerConfig,
             dropout_key=None, segment_ids=None) -> torch.Tensor:
     """Token ids ``(batch, seq)`` -> f32 logits ``(batch, seq, vocab)``
     on a single device: the device of ``params``. ``dropout_key`` (a
-    ``torch.Generator``) activates residual dropout (training). The mesh
-    and packed-segment arguments of the JAX signature are not ported and
-    raise when given."""
+    ``torch.Generator``) activates residual dropout (training);
+    ``segment_ids`` (packed rows, ids > 0, 0 = padding) keep attention
+    within each segment. The mesh arguments of the JAX signature are
+    not ported and raise when given."""
     logits, _ = forward_with_aux(params, tokens, config, mesh, seq_axis,
                                  batch_axis, model_axis, dropout_key,
                                  segment_ids)
     return logits
 
 
+def _weighted_mean(x: torch.Tensor,
+                   weights: Optional[torch.Tensor]) -> torch.Tensor:
+    """The mean of ``x``, or its ``weights``-weighted mean (a zero total
+    weight divides by 1)."""
+    if weights is None:
+        return x.mean()
+    w = weights.to(x.dtype)
+    return (x * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
 def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor,
-                    label_smoothing: float = 0.0) -> torch.Tensor:
-    """Next-token cross-entropy, mean over all positions; with label
-    smoothing, eps probability mass spreads uniformly over the vocab.
-    (The packed-row ``weights`` of the JAX signature come with packed
-    ``segment_ids``, not ported yet.)"""
+                    label_smoothing: float = 0.0,
+                    weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Next-token cross-entropy, mean over all positions (or a
+    ``weights``-weighted mean: packed training zeroes cross-document and
+    padding targets); with label smoothing, eps probability mass spreads
+    uniformly over the vocab."""
     targets = tokens[:, 1:].long()
     logp = torch.log_softmax(logits[:, :-1], dim=-1)
     ce_pos = -logp.gather(-1, targets[..., None])[..., 0]
     if label_smoothing:
         eps = label_smoothing
         ce_pos = (1.0 - eps) * ce_pos - eps * logp.mean(dim=-1)
-    return ce_pos.mean()
+    return _weighted_mean(ce_pos, weights)
+
+
+def segment_target_weights(segment_ids: torch.Tensor) -> torch.Tensor:
+    """Per-target weights of packed rows, ``(B, T) -> (B, T-1)`` f32:
+    target t+1 counts only when positions t and t+1 belong to the same
+    non-pad (id > 0) segment."""
+    a, b = segment_ids[:, :-1], segment_ids[:, 1:]
+    return ((a == b) & (b > 0)).to(torch.float32)
 
 
 def _vocab_chunk_step(h, e_chunk, m, s, tot):
@@ -546,7 +775,8 @@ def _vocab_chunk_step(h, e_chunk, m, s, tot):
 def chunked_next_token_losses(x: torch.Tensor, embed: Dict, final_ln: Dict,
                               tokens: torch.Tensor, chunk: int,
                               head: Optional[torch.Tensor] = None,
-                              norm: str = "layernorm"
+                              norm: str = "layernorm",
+                              weights: Optional[torch.Tensor] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """Streamed LM loss pieces from the final hidden states:
@@ -555,7 +785,7 @@ def chunked_next_token_losses(x: torch.Tensor, embed: Dict, final_ln: Dict,
     ``torch.utils.checkpoint`` (the rematerialized scan body of the JAX
     package), so a chunk's logits live only transiently in both passes.
     The last slice is the remainder: no padded vocab row enters the
-    logsumexp."""
+    logsumexp. ``weights`` make the cross-entropy a weighted mean."""
     h = x.to(torch.float32)
     h = (_rms_norm(h, final_ln["gamma"]) if norm == "rmsnorm"
          else _layer_norm(h, final_ln["gamma"], final_ln["beta"]))[:, :-1]
@@ -573,39 +803,53 @@ def chunked_next_token_losses(x: torch.Tensor, embed: Dict, final_ln: Dict,
     lse = m + torch.log(s)                                   # (B, T')
     # target logit via a row gather: (B, T', D), not (B, T', V)
     picked = (h * emb[targets]).sum(dim=-1)
-    return (lse - picked).mean(), lse, tot / v
+    return _weighted_mean(lse - picked, weights), lse, tot / v
 
 
 def lm_loss(params: Dict, tokens: torch.Tensor, config: TransformerConfig,
             mesh=None, seq_axis=None, batch_axis=None, model_axis=None,
             dropout_key=None, segment_ids=None) -> torch.Tensor:
-    """Next-token cross-entropy (mean over all positions), with the
-    config's label smoothing and z-loss; the chunked-vocab loss when
+    """Next-token cross-entropy (mean over all positions, or over the
+    targets ``segment_ids`` keep), with the config's label smoothing,
+    z-loss and weighted MoE aux loss; the chunked-vocab loss when
     ``loss_vocab_chunk`` is set. Single device only."""
     c = config
     device = params["embed"]["tokens"].device
     tokens = torch.as_tensor(tokens, device=device).long()
+    weights = None
+    if segment_ids is not None:
+        segment_ids = torch.as_tensor(segment_ids, device=device)
+        weights = segment_target_weights(segment_ids)
     args = (mesh, seq_axis, batch_axis, model_axis, dropout_key,
             segment_ids)
+    use_aux = c.num_experts > 1 and c.moe_aux_weight
     if c.loss_vocab_chunk:
-        x, _ = _hidden_with_aux(params, tokens, c, *args)
+        x, aux = _hidden_with_aux(params, tokens, c, *args)
         loss, lse, mean_logits = chunked_next_token_losses(
             x, params["embed"], params["final_ln"], tokens,
-            int(c.loss_vocab_chunk), head=params.get("head"), norm=c.norm)
+            int(c.loss_vocab_chunk), head=params.get("head"), norm=c.norm,
+            weights=weights)
         if c.label_smoothing:
             # mean_v logp_v = mean_v logits_v - lse
             eps = c.label_smoothing
-            loss = (1.0 - eps) * loss + eps * (lse - mean_logits).mean()
+            loss = ((1.0 - eps) * loss
+                    + eps * _weighted_mean(lse - mean_logits, weights))
+        if use_aux:
+            loss = loss + c.moe_aux_weight * aux
         if c.z_loss_weight:
-            loss = loss + c.z_loss_weight * (lse * lse).mean()
+            loss = loss + c.z_loss_weight * _weighted_mean(lse * lse,
+                                                           weights)
         return loss
-    logits, _ = forward_with_aux(params, tokens, c, *args)
-    loss = next_token_loss(logits, tokens, label_smoothing=c.label_smoothing)
+    logits, aux = forward_with_aux(params, tokens, c, *args)
+    loss = next_token_loss(logits, tokens, label_smoothing=c.label_smoothing,
+                           weights=weights)
+    if use_aux:
+        loss = loss + c.moe_aux_weight * aux
     if c.z_loss_weight:
         # PaLM-style z-loss: penalize the log-partition so logits don't
         # drift large; only predicting positions count
         z = torch.logsumexp(logits[:, :-1], dim=-1)
-        loss = loss + c.z_loss_weight * (z * z).mean()
+        loss = loss + c.z_loss_weight * _weighted_mean(z * z, weights)
     return loss
 
 
@@ -629,12 +873,14 @@ def value_and_grads(loss_fn, params: Dict
 
 
 def lm_loss_and_grads(params: Dict, tokens: torch.Tensor,
-                      config: TransformerConfig, dropout_key=None
+                      config: TransformerConfig, dropout_key=None,
+                      segment_ids=None
                       ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """``lm_loss`` and its gradient (:func:`value_and_grads`), the JAX
     step's ``value_and_grad``."""
     return value_and_grads(
-        lambda p: lm_loss(p, tokens, config, dropout_key=dropout_key),
+        lambda p: lm_loss(p, tokens, config, dropout_key=dropout_key,
+                          segment_ids=segment_ids),
         params)
 
 
@@ -666,45 +912,61 @@ def make_train_step(config: TransformerConfig, tx, mesh=None,
     :mod:`~elephas_tpu_torch.models.optimizers`: ``init(params)``,
     ``update(grads, state, params)``). ``dropout_key`` (a
     ``torch.Generator``) is read only when ``dropout_rate > 0``.
+    ``packed=True`` adds a trailing ``segment_ids`` argument (packed-row
+    training: segment-isolated attention and the boundary-masked loss),
+    the JAX positional signature ``(params, opt_state, tokens[,
+    dropout_key], segment_ids)``.
 
     Where JAX donates the parameter buffers, this step updates the
     parameters IN PLACE under ``torch.no_grad()`` and returns the same
     dict (the optimizer state is a new object). ``accum_steps > 1``
-    splits the batch into that many microbatches, sums their gradients
-    and divides once, as the JAX scan does. The mesh, ``fsdp``,
-    ``zero_optimizer`` and ``packed`` variants are not ported and
+    splits the batch (and the segments) into that many microbatches,
+    sums their gradients and divides once, as the JAX scan does; the
+    packed loss is then the mean of per-microbatch weighted means. The
+    mesh, ``fsdp`` and ``zero_optimizer`` variants are not ported and
     raise."""
     if mesh is not None or seq_axis is not None:
         raise NotImplementedError("mesh parallelism is not ported yet")
     if fsdp or zero_optimizer:
         raise NotImplementedError("fsdp and zero_optimizer shard over a "
                                   "mesh; not ported yet")
-    if packed:
-        raise NotImplementedError("packed segment_ids are not ported yet")
     accum_steps = max(1, int(accum_steps))
     use_dropout = config.dropout_rate > 0
+    packed = bool(packed)
 
-    def step(params, opt_state, tokens, dropout_key=None):
+    def step(params, opt_state, tokens, *extra):
+        if len(extra) > 1 + packed or len(extra) < packed:
+            raise TypeError(
+                "the step takes (params, opt_state, tokens[, dropout_key]"
+                + ("], segment_ids)" if packed else "])")
+                + f"; got {3 + len(extra)} arguments")
+        segment_ids = extra[-1] if packed else None
+        dropout_key = extra[0] if len(extra) > packed else None
         device = params["embed"]["tokens"].device
         tokens = torch.as_tensor(tokens, device=device)
+        if segment_ids is not None:
+            segment_ids = torch.as_tensor(segment_ids, device=device)
         key = dropout_key if use_dropout else None
         if accum_steps > 1:
             if tokens.shape[0] % accum_steps:
                 raise ValueError(
                     f"batch {tokens.shape[0]} does not split into "
                     f"{accum_steps} microbatches")
+            micro = tokens.reshape(accum_steps, -1, *tokens.shape[1:])
+            segs = (segment_ids.reshape(micro.shape)
+                    if segment_ids is not None else [None] * accum_steps)
             loss, grads = 0.0, None
-            for micro in tokens.reshape(accum_steps, -1,
-                                        *tokens.shape[1:]):
-                mloss, mgrads = lm_loss_and_grads(params, micro, config,
-                                                  key)
+            for tk, sg in zip(micro, segs):
+                mloss, mgrads = lm_loss_and_grads(params, tk, config, key,
+                                                  sg)
                 grads = (mgrads if grads is None
                          else [a + b for a, b in zip(grads, mgrads)])
                 loss = loss + mloss
             grads = [gr / accum_steps for gr in grads]
             loss = loss / accum_steps
         else:
-            loss, grads = lm_loss_and_grads(params, tokens, config, key)
+            loss, grads = lm_loss_and_grads(params, tokens, config, key,
+                                            segment_ids)
         return params, apply_updates(tx, grads, opt_state, params), loss
 
     return step
@@ -714,16 +976,70 @@ def init_kv_cache(config: TransformerConfig, batch: int,
                   max_len: Optional[int] = None,
                   device: DeviceLike = None) -> Dict:
     """Per-layer ``(batch, kv_heads, max_len, head_dim)`` zero k/v in the
-    compute dtype."""
-    check_ported(config)
+    compute dtype; with ``config.kv_cache_quant``, int8 ``k``/``v`` and
+    f32 per-(position, head) absmax scales ``k_scale``/``v_scale`` of
+    shape ``(batch, kv_heads, max_len, 1)``."""
     c = config
     device = resolve_device(device)
     shape = (batch, c.kv_heads, max_len or c.max_seq_len, c.head_dim)
-    return {f"layer_{i}": {"k": torch.zeros(shape, dtype=c.dtype,
-                                            device=device),
-                           "v": torch.zeros(shape, dtype=c.dtype,
-                                            device=device)}
-            for i in range(c.num_layers)}
+    if c.kv_cache_quant:
+        sshape = shape[:-1] + (1,)
+
+        def layer():
+            return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "k_scale": torch.zeros(sshape, dtype=torch.float32,
+                                           device=device),
+                    "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "v_scale": torch.zeros(sshape, dtype=torch.float32,
+                                           device=device)}
+    else:
+        def layer():
+            return {"k": torch.zeros(shape, dtype=c.dtype, device=device),
+                    "v": torch.zeros(shape, dtype=c.dtype, device=device)}
+    return {f"layer_{i}": layer() for i in range(c.num_layers)}
+
+
+def _kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(..., head_dim)`` k or v -> int8 data and a ``(..., 1)`` f32
+    absmax scale (the one int8 recipe, :func:`.quantization.
+    quantize_weight`)."""
+    q = quantize_weight(x, (-1,))
+    return q.data, q.scale
+
+
+def _dequantize_kv(q8: torch.Tensor, scale: torch.Tensor,
+                   dtype) -> torch.Tensor:
+    return (q8.to(torch.float32) * scale).to(dtype)
+
+
+def _write_kv(lc: Dict, k: torch.Tensor, v: torch.Tensor, index,
+              c: TransformerConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write new k/v ``(B, KVH, S, hd)`` into the layer cache ``lc`` at
+    ``index`` (a slice tuple or an advanced index) in place, quantized
+    under ``kv_cache_quant``; returns the k/v as attention reads them
+    back: the written values, dequantized from int8 under the int8
+    cache."""
+    if not c.kv_cache_quant:
+        for part, val in (("k", k), ("v", v)):
+            lc[part][index] = val.to(lc[part].dtype)
+        return k, v
+    out = []
+    for part, val in (("k", k), ("v", v)):
+        q8, scale = _kv_quantize(val)
+        lc[part][index] = q8
+        lc[part + "_scale"][index] = scale
+        out.append(_dequantize_kv(q8, scale, c.dtype))
+    return tuple(out)
+
+
+def _cache_kv(lc: Dict, c: TransformerConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A layer cache's whole k/v in the compute dtype (dequantized under
+    the int8 cache)."""
+    if c.kv_cache_quant:
+        return (_dequantize_kv(lc["k"], lc["k_scale"], c.dtype),
+                _dequantize_kv(lc["v"], lc["v_scale"], c.dtype))
+    return lc["k"], lc["v"]
 
 
 def prefill_cache(params: Dict, tokens: torch.Tensor,
@@ -733,8 +1049,10 @@ def prefill_cache(params: Dict, tokens: torch.Tensor,
     prompt tokens that writes every position's k/v into a fresh decode
     cache and returns the last position's logits ``(batch, vocab)``.
     Attention here is the plain grouped einsum softmax, as in the JAX
-    package (the flash kernel is not on this path)."""
-    check_ported(config)
+    package (the flash kernel is not on this path). Under the int8 cache
+    it attends over the dequantized prompt k/v, so decode continues
+    from the cache exactly as the step-by-step path would; MoE layers
+    gate densely."""
     c = config
     device = params["embed"]["tokens"].device
     tokens = torch.as_tensor(tokens, device=device).long()
@@ -757,8 +1075,8 @@ def prefill_cache(params: Dict, tokens: torch.Tensor,
         if c.positional == "rope":
             q = _apply_rope(q, positions, c)
             k = _apply_rope(k, positions, c)
-        cache[f"layer_{i}"]["k"][:, :, :t] = k
-        cache[f"layer_{i}"]["v"][:, :, :t] = v
+        k, v = _write_kv(cache[f"layer_{i}"], k, v,
+                         (slice(None), slice(None), slice(0, t)), c)
         qg = q.reshape(b, c.kv_heads, groups, t, c.head_dim)
         scores = einsum("bngqk,bntk->bngqt", qg, k) * scale
         if c.positional == "alibi":
@@ -771,7 +1089,7 @@ def prefill_cache(params: Dict, tokens: torch.Tensor,
         o = einsum("bngqt,bntk->bngqk", weights, v)
         o = o.reshape(b, c.num_heads, t, c.head_dim)
         x = x + einsum("bhtk,hkd->btd", o, layer["attn"]["wo"].to(c.dtype))
-        x = _mlp_apply(layer, x, c)
+        x = _ffn_cached(layer, x, c)
     logits = head_logits(params["embed"], params["final_ln"], x[:, -1],
                          head=params.get("head"), norm=c.norm)
     return logits, cache
@@ -789,8 +1107,9 @@ def decode_block(params: Dict, cache: Dict, tokens: torch.Tensor, pos0,
     The JAX function returns an updated copy; here the S positions are
     written into ``cache`` IN PLACE and the same dict is returned. A
     position at or past the cache length is out of range and raises
-    (the JAX scatter drops it)."""
-    check_ported(config)
+    (the JAX scatter drops it). Under the int8 cache the new k/v are
+    written as int8 and attention reads the whole cache dequantized;
+    MoE layers gate densely."""
     c = config
     device = params["embed"]["tokens"].device
     tokens = torch.as_tensor(tokens, device=device).long()
@@ -836,12 +1155,10 @@ def decode_block(params: Dict, cache: Dict, tokens: torch.Tensor, pos0,
             q = _apply_rope(q, rp, c)
             k_new = _apply_rope(k_new, rp, c)
         lc = cache[f"layer_{i}"]
-        for part, val in (("k", k_new), ("v", v_new)):
-            if vec:
-                lc[part][widx] = val.to(lc[part].dtype)
-            else:
-                lc[part][:, :, start:start + s] = val.to(lc[part].dtype)
-        ck, cv = lc["k"], lc["v"]
+        _write_kv(lc, k_new, v_new,
+                  widx if vec else (slice(None), slice(None),
+                                    slice(start, start + s)), c)
+        ck, cv = _cache_kv(lc, c)
         qg = q.reshape(b, c.kv_heads, groups, s, c.head_dim)
         scores = einsum("bngsk,bntk->bngst", qg, ck) * scale
         if slopes is not None:
@@ -855,7 +1172,7 @@ def decode_block(params: Dict, cache: Dict, tokens: torch.Tensor, pos0,
         o = einsum("bngst,bntk->bngsk", weights, cv)
         o = o.reshape(b, c.num_heads, s, c.head_dim)
         x = x + einsum("bhsk,hkd->bsd", o, layer["attn"]["wo"].to(c.dtype))
-        x = _mlp_apply(layer, x, c)
+        x = _ffn_cached(layer, x, c)
     logits = head_logits(params["embed"], params["final_ln"], x,
                          head=params.get("head"), norm=c.norm)
     return logits, cache

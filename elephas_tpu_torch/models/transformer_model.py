@@ -20,6 +20,7 @@ Not ported yet: the mesh arguments (``tensor_parallel``,
 ``sequence_parallel``, ``fsdp``, ``zero_optimizer``, ``mesh``) raise
 unless left at their defaults.
 """
+import dataclasses
 import json
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -33,7 +34,8 @@ from ..weights import tree_flatten, tree_map, tree_unflatten
 from .optimizers import Optimizer
 from .optimizers import get as get_optimizer
 from .transformer import (TransformerConfig, beam_search, forward,
-                          generate, init_params, lm_loss, make_train_step)
+                          generate, init_params, lm_loss, make_train_step,
+                          select_moe_dispatch)
 
 __all__ = ["TransformerModel"]
 
@@ -97,11 +99,17 @@ class TransformerModel:
                 seed: Optional[int] = None, **kwargs):
         """``loss``/``metrics`` exist for API parity and are not read: the
         training loss is always the next-token cross-entropy of
-        ``lm_loss``."""
+        ``lm_loss`` (with the MoE aux term). An MoE config's
+        ``moe_dispatch='auto'`` is pinned here to the dispatch it
+        resolves to, so training and inference gate alike."""
         self.optimizer = get_optimizer(optimizer)
         self.loss = loss or "lm_cross_entropy"
         self.metrics = list(metrics or [])
         self._tx = self.optimizer.to_transform()
+        if (self.config.num_experts > 1
+                and self.config.moe_dispatch == "auto"):
+            self.config = dataclasses.replace(
+                self.config, moe_dispatch=select_moe_dispatch(self.config))
         if not self.built or (seed is not None and seed != self._seed):
             self.build(seed=seed)
         self._opt_state = None
@@ -331,8 +339,13 @@ class TransformerModel:
                 out: Optional[np.ndarray] = None) -> np.ndarray:
         """f32 logits ``(rows, seq, vocab)`` in input order. ``out``: an
         optional preallocated ``(rows, seq, vocab)`` array (e.g. a
-        writable memmap) receiving each batch's logits in place."""
+        writable memmap) receiving each batch's logits in place. Zero
+        rows without ``out`` give ``(0, seq, vocab)`` zeros with no
+        device call, as the JAX package's shape-only evaluation does."""
         tokens = np.asarray(tokens)
+        if tokens.shape[0] == 0 and out is None:
+            return np.zeros((0, tokens.shape[1], self.config.vocab_size),
+                            np.float32)
         outs = []
         for i in range(0, tokens.shape[0], batch_size):
             chunk = forward(self.params,

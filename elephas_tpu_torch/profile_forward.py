@@ -2,14 +2,16 @@
 torch.profiler.
 
     python -m elephas_tpu_torch.profile_forward [--reps 20] [--batch 2]
-        [--config flagship|phi3_mini]
+        [--config flagship|phi3_mini|olmoe_1b_7b]
 
 Runs on the CUDA device only. Builds the LM config (``flagship``: vocab
 32000, 8 layers, 16 heads, d_model 1024, d_ff 4096; ``phi3_mini``:
 Phi-3-mini-4k-instruct's widths, 32 layers, head dim 96, ``PHI3_MINI``;
-bf16 compute over f32 weights from a seed) and calls ``forward`` with
-the flash kernel on ``--batch`` x the config's sequence length (1024 or
-2048) of seeded token ids: three warm-up calls, then
+``olmoe_1b_7b``: OLMoE-1B-7B's widths, 16 layers, 64 experts top-8 on
+routed dispatch, ``OLMOE_1B_7B``; bf16 compute over f32 weights from a
+seed) and calls ``forward`` with the flash kernel on ``--batch`` x a
+sequence of 1024 (2048 for ``phi3_mini``) seeded token ids: three
+warm-up calls, then
 ``--reps`` calls each clocked on the host with a device sync after it,
 then ``--reps`` more under the profiler. Prints one JSON line: the
 median and minimum host time per call (untraced window), the device
@@ -32,20 +34,21 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--top", type=int, default=10)
     ap.add_argument("--config", default="flagship",
-                    choices=("flagship", "phi3_mini"))
+                    choices=("flagship", "phi3_mini", "olmoe_1b_7b"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward needs a CUDA device")
     from torch.profiler import ProfilerActivity, profile
 
-    from .models.transformer import (FLAGSHIP, PHI3_MINI, TransformerConfig,
-                                     forward, init_params)
+    from .models.transformer import (FLAGSHIP, OLMOE_1B_7B, PHI3_MINI,
+                                     TransformerConfig, forward, init_params)
     from .profile_serving import device_breakdown
 
-    widths = FLAGSHIP if args.config == "flagship" else PHI3_MINI
+    widths = {"flagship": FLAGSHIP, "phi3_mini": PHI3_MINI,
+              "olmoe_1b_7b": OLMOE_1B_7B}[args.config]
     cfg = dataclasses.replace(TransformerConfig(**widths),
                               attention_impl="flash")
-    seq = cfg.max_seq_len
+    seq = min(cfg.max_seq_len, 2048 if args.config == "phi3_mini" else 1024)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
     tokens = torch.as_tensor(np.random.default_rng(3).integers(

@@ -1,12 +1,18 @@
 """Where a decode step's time goes: the paged engine under torch.profiler.
 
     python -m elephas_tpu_torch.profile_serving [--kernel fused] [--steps 16]
+        [--config flagship|olmoe_1b_7b] [--int8]
 
 Runs on the CUDA device only. Builds the flagship LM config (vocab
-32000, 8 layers, 16 heads, d_model 1024, d_ff 4096, bf16 compute over
-f32 weights from a seed), fills all 8 slots of a paged engine (block
-16, 513 blocks) with 256-token prompts, steps until every slot decodes,
-then times ``--steps`` steady decode steps, and profiles as many more.
+32000, 8 layers, 16 heads, d_model 1024, d_ff 4096; or ``olmoe_1b_7b``,
+``OLMOE_1B_7B``: 16 layers, 64 experts top-8, gating densely in decode;
+bf16 compute over f32 weights from a seed), fills all 8 slots of an
+engine with 256-token prompts, steps until every slot decodes, then
+times ``--steps`` steady decode steps, and profiles as many more. The
+flagship runs the paged engine (block 16, 513 blocks, ``--kernel``);
+the MoE LM the contiguous engine (paged mode refuses MoE). ``--int8``
+serves ``quantize_lm_params`` weights, and on the contiguous engine
+the int8 KV cache too.
 Prints one JSON line: the host time per step (untraced window), the
 device time per step (sum of kernel and copy durations, traced window),
 the device's busy share (their ratio), launches per step, and the device
@@ -25,19 +31,33 @@ def main() -> None:
     ap.add_argument("--kernel", default="fused", choices=("gather", "fused"))
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--config", default="flagship",
+                    choices=("flagship", "olmoe_1b_7b"))
+    ap.add_argument("--int8", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving needs a CUDA device")
     from torch.profiler import ProfilerActivity, profile
 
-    from .models.transformer import FLAGSHIP, TransformerConfig, init_params
+    from .models.quantization import quantize_lm_params
+    from .models.transformer import (FLAGSHIP, OLMOE_1B_7B,
+                                     TransformerConfig, init_params)
     from .serving_engine import DecodeEngine
 
-    cfg = TransformerConfig(**FLAGSHIP)
+    moe = args.config == "olmoe_1b_7b"
+    cfg = TransformerConfig(**(OLMOE_1B_7B if moe else FLAGSHIP),
+                            kv_cache_quant=moe and args.int8)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
-    eng = DecodeEngine(params, cfg, max_slots=8, paged=(513, 16),
-                       kernel=args.kernel, device="cuda")
+    if args.int8:
+        params = quantize_lm_params(params)
+        torch.cuda.empty_cache()
+    if moe:
+        eng = DecodeEngine(params, cfg, max_slots=8,
+                           max_len=256 + 2 * args.steps + 16, device="cuda")
+    else:
+        eng = DecodeEngine(params, cfg, max_slots=8, paged=(513, 16),
+                           kernel=args.kernel, device="cuda")
     rng = np.random.default_rng(0)
     for _ in range(8):
         eng.submit(rng.integers(0, cfg.vocab_size, 256).tolist(),
@@ -59,7 +79,8 @@ def main() -> None:
             eng.step()
         torch.cuda.synchronize()
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "kernel": args.kernel,
+        "device": torch.cuda.get_device_name(0), "config": args.config,
+        "int8": args.int8, "kernel": None if moe else args.kernel,
         "steps": n, "batch": 8, "prompt_tokens": 256,
         **device_breakdown(prof, n, host_ms, args.top)}))
 

@@ -667,15 +667,16 @@ class DecodeEngine:
 
     def _host_cache_payloads(self, row: Dict, indices) -> List[Dict]:
         """Host copies of blocks ``indices`` of a device row: one
-        device-to-host transfer per layer k/v, sliced per block."""
+        device-to-host transfer per layer cache tensor (k, v and, under
+        the int8 cache, their scales), sliced per block."""
         if not indices:
             return []
         bs = self._kv_cache_bs
-        host = {name: (lc["k"][0].cpu(), lc["v"][0].cpu())
+        host = {name: {part: t[0].cpu() for part, t in lc.items()}
                 for name, lc in row.items()}
-        return [{name: (k[:, i * bs:(i + 1) * bs].clone(),
-                        v[:, i * bs:(i + 1) * bs].clone())
-                 for name, (k, v) in host.items()}
+        return [{name: {part: t[:, i * bs:(i + 1) * bs].clone()
+                        for part, t in parts.items()}
+                 for name, parts in host.items()}
                 for i in indices]
 
     def _host_cache_row(self, hits) -> Dict:
@@ -684,10 +685,10 @@ class DecodeEngine:
         row = self._fresh_row()
         n = len(hits) * self._kv_cache_bs
         for name, lc in row.items():
-            for idx, part in enumerate(("k", "v")):
-                lc[part][0, :, :n] = torch.cat(
-                    [e.payload[name][idx] for e in hits], dim=1).to(
-                        lc[part].device, lc[part].dtype)
+            for part, t in lc.items():
+                t[0, :, :n] = torch.cat(
+                    [e.payload[name][part] for e in hits], dim=1).to(
+                        t.device, t.dtype)
         return row
 
     def _host_cache_prefill(self, rid: int, prompt: np.ndarray):
@@ -944,8 +945,8 @@ class DecodeEngine:
         """Copy a batch-1 row into ``slot`` of a contiguous cache (the
         target's or the draft's)."""
         for name, lc in cache.items():
-            for part in ("k", "v"):
-                lc[part][slot].copy_(row[name][part][0])
+            for part, t in lc.items():
+                t[slot].copy_(row[name][part][0])
 
     def _install_draft_row(self, slot: int, prompt: np.ndarray,
                            entry=...) -> None:

@@ -11,6 +11,12 @@ walk a tree in JAX's leaf order: dict keys sorted (as strings, so
 ``layer_10`` comes before ``layer_2``) at every level, lists and tuples
 in order. A flat weight list of the JAX model (``get_weights``) is
 therefore the port's in the same order.
+
+A weight-only int8 leaf (:class:`~elephas_tpu_torch.models.quantization.
+QTensor`) is a node of two leaves, ``data`` then ``scale``, as the JAX
+pytree node is. The JAX package's own ``QTensor`` (its children mapped
+to numpy) is recognised by its ``data`` and ``scale`` attributes and
+becomes the port's.
 """
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -51,10 +57,27 @@ def to_numpy_tree(params: Dict[str, Any]) -> Dict[str, Any]:
     return tree_map(leaf, params)
 
 
+def _is_qtensor(node) -> bool:
+    """A quantized weight of either package: ``data`` and ``scale``
+    attributes on something that is not itself an array (a tensor's
+    ``.data`` and an ndarray's buffer do not count)."""
+    return (not isinstance(node, (torch.Tensor, np.ndarray))
+            and hasattr(node, "data") and hasattr(node, "scale"))
+
+
+def _qtensor(data, scale):
+    # imported here: the models package imports this module
+    from .models.quantization import QTensor
+    return QTensor(data, scale)
+
+
 def tree_map(fn, tree):
-    """``fn`` over the leaves of a nested dict, same nesting."""
+    """``fn`` over the leaves of a nested dict, same nesting (a
+    quantized weight's ``data`` and ``scale`` are two leaves)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if _is_qtensor(tree):
+        return _qtensor(fn(tree.data), fn(tree.scale))
     return fn(tree)
 
 
@@ -68,6 +91,8 @@ def tree_flatten(tree) -> Tuple[List[Any], Any]:
             return {k: walk(node[k]) for k in sorted(node, key=str)}
         if isinstance(node, (list, tuple)):
             return type(node)(walk(x) for x in node)
+        if _is_qtensor(node):
+            return _qtensor(walk(node.data), walk(node.scale))
         leaves.append(node)
         return None
 
@@ -92,6 +117,8 @@ def tree_unflatten(treedef, leaves):
             return {k: build(node[k]) for k in sorted(node, key=str)}
         if isinstance(node, (list, tuple)):
             return type(node)(build(x) for x in node)
+        if _is_qtensor(node):
+            return _qtensor(build(node.data), build(node.scale))
         return next(it)
 
     return build(treedef)

@@ -1483,3 +1483,141 @@ def test_interleaved_engine_on_card_matches_cpu(cuda, no_tf32):
     for name in ("interleaved", "speculative"):
         _assert_tie_aware_cpu(params, cfg, prompts, outs["cpu", name],
                               outs["cuda", name])
+
+
+# ------------------------------------------ MoE, packed rows and int8
+def test_routed_moe_at_head_dim_128_on_card_matches_plain(cuda, no_tf32):
+    """An MoE LM at head dim 128 (8 experts, top-2, routed dispatch at
+    capacity factor 1.25) on the flash kernels against the plain path,
+    f32: logits within 1e-4 of their scale, the loss within 1e-5 and
+    every gradient within 1e-3 of its leaf's largest; one forward launch
+    per layer, and the backward's dQ and dK/dV."""
+    from elephas_tpu_torch import TransformerConfig, forward, init_params
+    from elephas_tpu_torch.models.transformer import lm_loss_and_grads
+    from elephas_tpu_torch.ops.flash_attention import (flash_backward,
+                                                       flash_forward)
+    cfg = TransformerConfig(vocab_size=128, num_layers=2, num_heads=2,
+                            d_model=256, d_ff=128, max_seq_len=64,
+                            num_experts=8, expert_top_k=2,
+                            moe_dispatch="routed", positional="rope",
+                            norm="rmsnorm", tied_embedding=False,
+                            dtype=torch.float32)
+    assert cfg.head_dim == 128
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, 128, (2, 64)), device=cuda)
+    flash = dataclasses.replace(cfg, attention_impl="flash")
+    plain = dataclasses.replace(cfg, attention_impl="xla")
+    before = flash_forward.launches
+    got = forward(params, tokens, flash)
+    assert flash_forward.launches == before + cfg.num_layers
+    want = forward(params, tokens, plain)
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got, want, atol=1e-4 * scale, rtol=0)
+    before = (flash_backward.dq_launches, flash_backward.dkv_launches)
+    fl, fg = lm_loss_and_grads(params, tokens, flash)
+    assert (flash_backward.dq_launches, flash_backward.dkv_launches) == (
+        before[0] + cfg.num_layers, before[1] + cfg.num_layers)
+    pl, pg = lm_loss_and_grads(params, tokens, plain)
+    assert abs(float(fl) - float(pl)) <= 1e-5
+    for a, b in zip(fg, pg):
+        assert float((a - b).abs().max()) <= 1e-3 * max(
+            float(b.abs().max()), 1e-30)
+
+
+def test_int8_weight_paged_engine_on_card(cuda, no_tf32):
+    """Weight-only int8 (``quantize_lm_params``) in the paged engine at
+    head dim 64, f32: the fused kernel's greedy tokens equal the gather
+    path's and the CPU engine's (tie-aware), launching the kernel on
+    every decode step."""
+    from elephas_tpu_torch import DecodeEngine, TransformerConfig, init_params
+    from elephas_tpu_torch.models.quantization import (QTensor,
+                                                       quantize_lm_params)
+    from elephas_tpu_torch.weights import from_numpy_tree, to_numpy_tree
+    cfg = TransformerConfig(vocab_size=128, num_layers=2, num_heads=4,
+                            d_model=256, d_ff=512, max_seq_len=96,
+                            dtype=torch.float32, tied_embedding=False)
+    params = quantize_lm_params(init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(3), cuda))
+    assert isinstance(params["head"], QTensor)
+    _, prompts = _engine_prompts(128)
+    outs = {}
+    for kernel in ("gather", "fused"):
+        eng = DecodeEngine(params, cfg, max_slots=2, paged=(40, 8),
+                           kernel=kernel)
+        outs[kernel] = eng.run(prompts, 16)
+    assert eng.stats["kernel_launches"] == (eng.stats["steps"]
+                                            * cfg.num_layers)
+    host = from_numpy_tree(to_numpy_tree(params), device="cpu")
+    cpu = DecodeEngine(host, cfg, max_slots=2, paged=(40, 8),
+                       device="cpu").run(prompts, 16)
+    _assert_tie_aware_cpu(params, cfg, prompts, outs["gather"],
+                          outs["fused"])
+    _assert_tie_aware_cpu(params, cfg, prompts, cpu, outs["fused"])
+
+
+def test_moe_int8_cache_engine_on_card_matches_cpu(cuda, no_tf32):
+    """The contiguous engine over an MoE LM (dense gating in decode) with
+    the int8 KV cache and int8 weights, f32: the card's greedy tokens
+    equal the CPU's, tie-aware on the cached path's own logits."""
+    from elephas_tpu_torch import DecodeEngine, TransformerConfig, init_params
+    from elephas_tpu_torch.models.quantization import quantize_lm_params
+    from elephas_tpu_torch.models.transformer import prefill_cache
+    from elephas_tpu_torch.weights import from_numpy_tree, to_numpy_tree
+    cfg = TransformerConfig(vocab_size=128, num_layers=2, num_heads=2,
+                            d_model=256, d_ff=128, max_seq_len=96,
+                            num_experts=8, expert_top_k=2,
+                            moe_shared_expert=True, kv_cache_quant=True,
+                            dtype=torch.float32)
+    params = quantize_lm_params(init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(4), cuda))
+    host = from_numpy_tree(to_numpy_tree(params), device="cpu")
+    _, prompts = _engine_prompts(128)
+    card = DecodeEngine(params, cfg, max_slots=2, prefill_chunk=8).run(
+        prompts, 16)
+    cpu = DecodeEngine(host, cfg, max_slots=2, prefill_chunk=8,
+                       device="cpu").run(prompts, 16)
+    for p, r, o in zip(prompts, cpu, card):
+        if r == o:
+            continue
+        i = next((j for j, (a, b) in enumerate(zip(r, o)) if a != b),
+                 min(len(r), len(o)))
+        ctx = torch.as_tensor([p + r[:i]])
+        top2 = prefill_cache(host, ctx, cfg, ctx.shape[1])[0][0].topk(2)
+        assert float(top2.values[0] - top2.values[1]) < 1e-3, (i, r, o)
+
+
+def test_packed_step_on_card_matches_cpu(cuda, no_tf32):
+    """``make_train_step(packed=True)`` on CUDA tensors (the plain
+    attention path with the segment mask, which the flash kernels do
+    not take): three SGD steps leave the weights within 1e-5 of the CPU
+    run's, and no flash kernel launches."""
+    from elephas_tpu_torch import TransformerConfig, init_params
+    from elephas_tpu_torch.models.optimizers import SGD
+    from elephas_tpu_torch.models.transformer import make_train_step
+    from elephas_tpu_torch.ops.flash_attention import flash_forward
+    from elephas_tpu_torch.weights import tree_leaves, tree_map
+    cfg = TransformerConfig(vocab_size=128, num_layers=2, num_heads=4,
+                            d_model=256, d_ff=512, max_seq_len=64,
+                            num_kv_heads=2, positional="rope",
+                            dtype=torch.float32)
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, 128, (4, 64))
+    segs = np.repeat(np.arange(1, 9), 8)[None].repeat(4, 0)
+    segs[:, -5:] = 0
+    result = {}
+    for device in ("cpu", cuda):
+        params = tree_map(lambda t: t.to(device), init_params(
+            cfg, torch.Generator().manual_seed(6), "cpu"))
+        tx = SGD(0.5, momentum=0.9).to_transform()
+        step = make_train_step(cfg, tx, packed=True)
+        opt = tx.init(params)
+        before = flash_forward.launches
+        for _ in range(3):
+            params, opt, _ = step(params, opt, torch.as_tensor(
+                tokens, device=device), torch.as_tensor(segs, device=device))
+        assert flash_forward.launches == before
+        result[str(device)] = [t.cpu() for t in tree_leaves(params)]
+    for a, b in zip(result["cpu"], result["cuda"]):
+        torch.testing.assert_close(b, a, atol=1e-5, rtol=0)

@@ -136,7 +136,7 @@ def test_train_step_with_dropout_takes_a_generator():
 
 
 @pytest.mark.parametrize("kw", [{"fsdp": True}, {"zero_optimizer": True},
-                                {"packed": True}, {"mesh": object()}])
+                                {"seq_axis": "seq"}, {"mesh": object()}])
 def test_unported_train_step_variants_raise(kw):
     _, tcfg = _configs()
     with pytest.raises(NotImplementedError):

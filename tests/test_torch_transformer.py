@@ -177,21 +177,35 @@ def test_auto_routes_by_head_dim_on_cuda(head_dim, impl):
 
 @pytest.mark.parametrize("feature", ["moe", "quant"])
 def test_unported_features_raise(feature):
+    """MoE layers and the int8 KV cache are ported; paged mode refuses
+    them, with the JAX package's messages."""
     over = {"moe": {"num_experts": 4},
             "quant": {"kv_cache_quant": True}}[feature]
     cfg = ttr.TransformerConfig(**_BASE, **over)
-    with pytest.raises(NotImplementedError):
-        ttr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    ttr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    jcfg = jtr.TransformerConfig(**_BASE, **over)
+    with pytest.raises(ValueError) as want:
+        jpd.validate_paged_config(jcfg)
+    with pytest.raises(ValueError) as got:
+        tpd.init_paged_pool(cfg, 4, 4, "cpu")
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("arg", ["mesh", "segment_ids", "dropout_key"])
 def test_unported_forward_arguments_raise(arg):
-    """Mesh arguments and packed segments are not ported; a dropout key
-    is ported as a ``torch.Generator``, and anything else (a JAX key)
-    is refused."""
+    """Mesh arguments are not ported; a dropout key is ported as a
+    ``torch.Generator``, and anything else (a JAX key) is refused.
+    Packed segments are ported: one segment over the row is the
+    unpacked forward."""
     cfg = ttr.TransformerConfig(**_BASE, dtype=torch.float32)
     params = ttr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.zeros((1, 4), dtype=torch.long)
+    if arg == "segment_ids":
+        torch.testing.assert_close(
+            ttr.forward(params, tokens, cfg,
+                        segment_ids=torch.ones((1, 4), dtype=torch.long)),
+            ttr.forward(params, tokens, cfg), atol=1e-6, rtol=0)
+        return
     error = TypeError if arg == "dropout_key" else NotImplementedError
     with pytest.raises(error):
-        ttr.forward(params, torch.zeros((1, 4), dtype=torch.long), cfg,
-                    **{arg: object()})
+        ttr.forward(params, tokens, cfg, **{arg: object()})
