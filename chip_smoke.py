@@ -5,20 +5,22 @@
 Run from the repository root on a machine with a CUDA device and the
 CUDA toolkit. It builds the port's hand-written kernels from
 ``elephas_tpu_torch/csrc`` (and fails if any spills registers, or if
-the head-dim-128 forward and dK/dV bodies do not launch at 168
-registers with their producer warpgroup at 24 and consumers at 240, as
-ptxas and the SASS's ``setmaxnreg`` show), holds each kernel against
+the head-dim-128 forward and dK/dV bodies and the head-dim-256 forward,
+dQ and dK/dV bodies do not launch at 168 registers with their producer
+warpgroup at 24 and consumers at 240, as ptxas and the SASS's
+``setmaxnreg`` show), holds each kernel against
 its plain PyTorch version at the shapes the main paths give it (the
-flash kernels at head dims 16, 32, 64 and 128, f32 and bf16, and at
-the head-dim-32, head-dim-96 and head-dim-128 paths' own shapes, at 128
-also at the edges of its 128-key tiles; at head dims 8, 24, 40, 72,
-80, 96 and 120, which run a wider body on columns TMA fills with zeros,
-over ragged lengths, GQA 4:1, a window edge and ring offsets, 96 and 80
-timed beside SDPA; the paged kernel at 16, 32, 64 and 128, the
-last at Mistral-7B's groups of 4, each bf16 call on its split-K body
-and each f32 call on its general body, as the wrapper's
-``split_launches`` count shows, and at 96, Phi-3-mini's, every call on
-its general body), checks that two launches of the
+flash kernels at head dims 16, 32, 64, 128 and 256, f32 and bf16, and at
+the head-dim-32, -96, -128 and -256 paths' own shapes, at 128 and 256
+also at the edges of their tiles; at head dims 8, 24, 40, 72,
+80, 96, 120, 136, 192 and 248, which run a wider body on columns TMA
+fills with zeros, over ragged lengths, GQA 4:1, a window edge and ring
+offsets, 96 and 80 timed beside SDPA; the paged kernel at 16, 32, 64
+and 128, the last at Mistral-7B's groups of 4, each bf16 call on its
+split-K body and each f32 call on its general body, as the wrapper's
+``split_launches`` count shows, and at 96, Phi-3-mini's, and 256,
+Gemma-2B's 8 query heads over 1 kv head, every call on its general
+body), checks that two launches of the
 paged, forward, dQ and dK/dV kernels give the same bits, times one
 request's paged decode (B 1, pos 1000) on a line of its own, then
 drives the port's
@@ -43,6 +45,13 @@ SwiGLU, RMSNorm, RoPE, window 2047, untied head, vocab 32064):
 ``forward`` at B 2 x 2048 and the paged engine (every launch on the
 general body) over all 32 layers, an f32 gradient and f32 greedy
 tokens against the plain argmax at 2 layers, ``fit_tokens`` at 8.
+``lm_d256`` does the same at Gemma-2B's widths (``GEMMA_2B``: head dim
+256 on the flash kernels' 256-wide bodies, 8 heads over 1 kv head,
+d_ff 16384 SwiGLU, RMSNorm, RoPE, tied, vocab 256000; its departures
+from Gemma printed): ``forward`` at B 2 x 1024 (time as issued and on
+the device) and the paged engine (the general body) over all 18
+layers, f32 logits, gradient and greedy tokens at 2, ``fit_tokens`` at
+8 with its peak memory.
 Then the Keras-style models through ``TPUModel(mode="synchronous")`` at
 the bench's MLP width (784-128-128-10) on 60,000 seeded rows of the
 tests' MNIST-like recipe: ``sync_mode="step"`` (samples/s beside a plain
@@ -235,11 +244,13 @@ def check_paged(flush):
     """The paged decode kernel against its plain version at the serving
     path's shapes: B 8, H 16, block 16, 64 blocks per row, a pool of 513
     blocks; shuffled tables and ragged positions; at head dims 64 (the
-    flagship's), 32, 16, 128 and 96, each timed (d 128 at Mistral-7B's H
-    32 over KVH 8, the lm_d128 serving run's shape; d 96 at Phi-3-mini's
-    H = KVH 32, lm_d96's), every bf16 call on the split body and every
-    f32 call on the general one at 16-128, every call on the general body
-    at 96 (``body`` per head dim); then one request alone at d 64."""
+    flagship's), 32, 16, 128, 96 and 256, each timed (d 128 at
+    Mistral-7B's H 32 over KVH 8, the lm_d128 serving run's shape; d 96
+    at Phi-3-mini's H = KVH 32, lm_d96's; d 256 at Gemma-2B's H 8 over
+    KVH 1, lm_d256's, there also in f32), every bf16 call on the split
+    body and every f32 call on the general one at 16-128, every call on
+    the general body at 96 and 256 (``body`` per head dim); then one
+    request alone at d 64."""
     b, mb, nb = 8, 64, 513
     rng = np.random.default_rng(0)
     tables = rng.permutation(np.arange(1, nb))[:b * mb].reshape(b, mb)
@@ -249,7 +260,7 @@ def check_paged(flush):
     pos_t = torch.as_tensor(pos, dtype=torch.int32, device="cuda")
     by_d = {str(d): paged_at_head_dim(flush, d, tables_t, pos_t, pos, nb,
                                       *PAGED_TIMED_HEADS.get(d, (16, 16)))
-            for d in (64, 32, 16, 128, 96)}
+            for d in (64, 32, 16, 128, 96, 256)}
     single = check_paged_single_user(flush, nb)
     errs = {f"d{d}": t.pop("errors") for d, t in by_d.items()}
     results = {**by_d["64"],
@@ -266,8 +277,8 @@ def check_paged(flush):
 
 # the (H, KVH) each head dim's paged call is timed at: H = KVH 16 (the
 # flagship's), at d 128 Mistral-7B's 32 over 8 (groups of 4), at d 96
-# Phi-3-mini's 32 over 32
-PAGED_TIMED_HEADS = {128: (32, 8), 96: (32, 32)}
+# Phi-3-mini's 32 over 32, at d 256 Gemma-2B's 8 over 1
+PAGED_TIMED_HEADS = {128: (32, 8), 96: (32, 32), 256: (8, 1)}
 
 
 def paged_call_body(fn):
@@ -341,6 +352,18 @@ def paged_at_head_dim(flush, d, tables_t, pos_t, pos, nb, h_t, kvh_t):
                 f"paged timed H {h_t} KVH {kvh_t} d {d} bf16 on the "
                 f"{bf16_body} body: {body16}")
         errs["timed"] = {"bf16": e16}
+        if d == 256:
+            # Gemma-2B's groups of 8 in f32 too (the f32 engine's calls)
+            q32, k32, v32 = (t.float() for t in args16[:3])
+            out32, body32 = paged_call_body(lambda: paged_decode_attention(
+                q32, k32, v32, tables_t, pos_t))
+            e32 = max_err(out32, paged_decode_attention_plain(
+                q32, k32, v32, tables_t, pos_t))
+            require(e32 <= 1e-4 and body32 == "general",
+                    f"paged timed H {h_t} KVH {kvh_t} d {d} f32 err {e32} "
+                    f"<= 1e-4, on the general body ({body32})")
+            errs["timed"]["f32"] = e32
+            del q32, k32, v32, out32
     # no atomics, splits merged in index order: a second bf16 launch on
     # the same inputs gives the same bits
     first, second = (paged_decode_attention(*args16) for _ in range(2))
@@ -452,14 +475,15 @@ def check_paged_single_user(flush, nb):
 
 # head dims of the flash kernels' bodies: the repo's configurations use
 # three (64 the flagship, 32 examples/transformer_tpumodel.py, 16
-# examples/http_serving.py), and 128 is Mistral-7B's (the lm_d128 phase)
-HEAD_DIMS = (16, 32, 64, 128)
+# examples/http_serving.py), 128 is Mistral-7B's (the lm_d128 phase) and
+# 256 Gemma-2B's (the lm_d256 phase)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 # head dims that run a wider body, TMA filling the columns past the head
 # dim with zeros: 96 is Phi-3-mini's (the lm_d96 phase) and 80 Phi-2's
 # (both timed, on the 128-wide body); 8 (the repo's small LMs) on the
 # 16-wide body, 24 on 32, 40 (Stable Diffusion 1.x) on 64, 72 (DiT-XL/2)
-# and 120 on 128 are checked, not timed
-FILLED_HEAD_DIMS = (8, 24, 40, 72, 80, 96, 120)
+# and 120 on 128, 136, 192 and 248 on 256 are checked, not timed
+FILLED_HEAD_DIMS = (8, 24, 40, 72, 80, 96, 120, 136, 192, 248)
 FILLED_TIMED = (96, 80)
 # the training path's shape, B 8 x H 16 x S 1024 (causal, bf16): every
 # body's head dim and the filled ones timed are timed there
@@ -512,6 +536,18 @@ FILLED_CASES = {"gqa4_ragged": (2, 16, 4, 1000, 1000, True, None, 0, 0),
 # H = KVH 32, window 2047; B 2 x S 2048, so the window masks one pair,
 # inside the last key tile, of each head)
 D96_CASES = {"lm_d96_fit": (2, 32, 32, 2048, 2048, True, 2047, 0, 0)}
+# the cases at d 256 only: the lm_d256 phase's shape (Gemma-2B: H 8 over
+# KVH 1; B 2 x S 1024, its forward and fit), and the edges of the d 256
+# bodies' tiles (64 keys in the forward's K/V tiles and the dK/dV CTA, 32
+# in dQ's stages): a key length one past a tile, a q tile whose second
+# warpgroup holds one row, a window edge inside a tile, a ring hop whose
+# diagonal crosses a tile, Gemma-2B's groups of 8 on ragged lengths
+D256_CASES = {"lm_d256_fit": (2, 8, 1, 1024, 1024, True, None, 0, 0),
+              "sk_65": (2, 16, 16, 65, 65, True, None, 0, 0),
+              "sq_65": (2, 16, 4, 65, 300, True, None, 235, 0),
+              "window_65": (2, 16, 8, 300, 300, True, 65, 0, 0),
+              "hop_crossing": (2, 16, 16, 200, 200, True, None, 256, 128),
+              "mqa8_ragged": (2, 8, 1, 191, 191, True, None, 0, 0)}
 # the d 128 bodies of the forward and dK/dV kernels: the kernel (a
 # fragment of its mangled name), the object it is built into, and the
 # body as chip_smoke names it
@@ -524,12 +560,28 @@ WIDE_BODIES = {
     "flash_dkv": ("flash_dkv_wgmma_kernelILi128", "flash_bwd.o",
                   "384 threads (setmaxnreg), 128 key rows a CTA, 64 a "
                   "consumer warpgroup at the whole head dim")}
+# the d 256 bodies of the three flash kernels, as WIDE_BODIES names them
+WIDE_256_BODIES = {
+    "flash_fwd": ("flash_fwd_w256_kernel", "flash_fwd.o",
+                  "a producer warpgroup and two consumer warpgroups (384 "
+                  "threads, setmaxnreg) of 64 query rows, 64-key K/V "
+                  "tiles in 2-stage rings, O through each warpgroup's "
+                  "own Q rows; one CTA per 128-row q tile"),
+    "flash_dq": ("flash_dq_wgmma_kernelILi256", "flash_bwd.o",
+                 "384 threads (setmaxnreg), 128 query rows a CTA, 32-key "
+                 "K/V stages in a 3-stage ring"),
+    "flash_dkv": ("flash_dkv_wgmma_kernelILi256", "flash_bwd.o",
+                  "384 threads (setmaxnreg), 64 key rows a CTA, each "
+                  "consumer warpgroup dK and dV at half the head dim, "
+                  "both computing S^T and dP^T")}
 # the case each head dim is timed at beside the training shape: d 32 at
 # its main path's (tpu_model_lm_d32's fit), d 128 at lm_d128's fit, d 96
-# at lm_d96's; d 64's main path is the training shape; d 16 and 80 run
-# on no training path
-PATH_TIMED = {32: "tpumodel_fit", 128: "lm_d128_fit", 96: "lm_d96_fit"}
-PATH_CASES = {32: D32_CASES, 128: D128_CASES, 96: D96_CASES}
+# at lm_d96's, d 256 at lm_d256's; d 64's main path is the training
+# shape; d 16 and 80 run on no training path
+PATH_TIMED = {32: "tpumodel_fit", 128: "lm_d128_fit", 96: "lm_d96_fit",
+              256: "lm_d256_fit"}
+PATH_CASES = {32: D32_CASES, 128: D128_CASES, 96: D96_CASES,
+              256: D256_CASES}
 # every head dim a kernel phase checks, and those it times
 CHECKED_HEAD_DIMS = (*HEAD_DIMS, *FILLED_HEAD_DIMS)
 TIMED_HEAD_DIMS = (*HEAD_DIMS, *FILLED_TIMED)
@@ -576,10 +628,11 @@ def causal_bound(b, h, s, d, kvh=None, window=None):
     return (flops, nbytes, *bound(flops, nbytes))
 
 
-def wide_body_registers(report):
-    """Each d 128 body's registers, from the build: ptxas's count at
-    launch (``-Xptxas -v``) and the ``setmaxnreg`` values of its producer
-    and consumer warpgroups in its SASS (``cuobjdump -sass``)."""
+def wide_body_registers(report, bodies):
+    """Each body's registers (``WIDE_BODIES``, d 128, or
+    ``WIDE_256_BODIES``), from the build: ptxas's count at launch
+    (``-Xptxas -v``) and the ``setmaxnreg`` values of its producer and
+    consumer warpgroups in its SASS (``cuobjdump -sass``)."""
     from elephas_tpu_torch.ops import _kernels
 
     launch, cur = {}, None
@@ -587,11 +640,11 @@ def wide_body_registers(report):
         if "Compiling entry function" in ln:
             cur = ln.split("'")[1]
         elif cur and "Used" in ln and "registers" in ln:
-            for name, (frag, _, _) in WIDE_BODIES.items():
+            for name, (frag, _, _) in bodies.items():
                 if frag in cur:
                     launch[name] = int(ln.split("Used ")[1].split()[0])
     out = {}
-    for name, (frag, obj, _) in WIDE_BODIES.items():
+    for name, (frag, obj, _) in bodies.items():
         sass = subprocess.run(
             [_kernels.cuda_tool("cuobjdump"), "-sass",
              str(_kernels.BUILD_DIR / obj)], capture_output=True,
@@ -610,17 +663,19 @@ def wide_body_registers(report):
 
 def check_flash(flush):
     """The flash forward kernel against its plain version at head dims
-    16, 32, 64 and 128, f32 and bf16: the forward path's shape (B 2, H
-    16, S 1024, causal), B 4, GQA, a window, ragged lengths, ring-hop
+    16, 32, 64, 128 and 256, f32 and bf16: the forward path's shape (B 2,
+    H 16, S 1024, causal), B 4, GQA, a window, ragged lengths, ring-hop
     offsets, the training path's B 8, at d 32 the long-context
     configuration's case (GQA 8/2, window 48) and the tpu_model_lm_d32
-    phase's shapes, and at d 128 the lm_d128 phase's training batch (H
-    32 over KVH 8, window 4096); at the filled head dims 8, 24, 40, 72,
-    80, 96 and 120 over ``FILLED_CASES`` (d 96 and 80 also at B 8, d 96
-    at the lm_d96 phase's training batch, H 32, S 2048, window 2047).
-    Timed beside SDPA: at d 64 at both main-path shapes, at d 32, 96 and
-    128 at their paths' fit shapes, and at d 16-128 and 96 and 80 at B
-    8."""
+    phase's shapes, at d 128 the lm_d128 phase's training batch (H
+    32 over KVH 8, window 4096), at d 256 the lm_d256 phase's (H 8 over
+    KVH 1) and the edges of the 256 bodies' tiles; at the filled head
+    dims 8, 24, 40, 72, 80, 96, 120, 136, 192 and 248 over
+    ``FILLED_CASES`` (d 96 and 80 also at B 8, d 96 at the lm_d96
+    phase's training batch, H 32, S 2048, window 2047). Timed beside
+    SDPA: at d 64 at both main-path shapes, at d 32, 96, 128 and 256 at
+    their paths' fit shapes, and at d 16-256 and 96 and 80 at B 8; at d
+    256 the SDPA kernel's name is recorded (``library_kernel``)."""
     from elephas_tpu_torch.ops.flash_attention import (flash_forward,
                                                        flash_forward_plain)
 
@@ -696,6 +751,8 @@ def check_flash(flush):
         if plain:
             out["plain_ms"] = time_ms(lambda: flash_forward_plain(
                 q, k, v, causal=True, window=window), flush=flush)
+        if d == 256:
+            out["library_kernel"] = device_kernels(sdpa(q, k, v))
         return out
 
     # no atomics and no data-dependent order: two launches on the same
@@ -752,6 +809,23 @@ def check_flash(flush):
                         "o_bf16_vs_f32_plain": 2e-2,
                         "lse_bf16_vs_f32_plain": 1e-3}})
     return results
+
+
+def device_kernels(fn):
+    """The names of the device kernels one call of ``fn`` runs (under
+    torch.profiler): which of SDPA's backends a yardstick call took."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and "memcpy" not in e.name.lower()
+                   and "memset" not in e.name.lower()})
 
 
 def library_flash_backward(q, k, v, g):
@@ -915,6 +989,8 @@ def bwd_timed(gen, d, case, label, flush, tol, errs):
               "dkv": device_ms(lambda: flash_dkv(*args), flush)}
     lib_dev_ms = device_ms(library_flash_backward(q, k_lib, v_lib, g),
                            flush)
+    lib_kernel = (device_kernels(library_flash_backward(q, k_lib, v_lib, g))
+                  if d == 256 else None)
     del k_lib, v_lib
     # unmasked (q, k) pairs of every query head, causal (and windowed)
     pairs = b * h * causal_pairs(s, window)
@@ -945,6 +1021,8 @@ def bwd_timed(gen, d, case, label, flush, tol, errs):
             "flops": flops, "bytes": nbytes,
             "achieved_tflops": flops / (ms[part] * 1e-3) / 1e12,
             "device_tflops": flops / (dev_ms[part] * 1e-3) / 1e12}
+        if lib_kernel is not None:
+            results[part]["library_kernel"] = lib_kernel
     return results
 
 
@@ -2445,6 +2523,264 @@ def run_lm_d96():
         "launches_per_step": {k: counts["train"][k] / steps
                               for k in ("flash_fwd", "flash_dq",
                                         "flash_dkv")},
+        "phase_seconds": time.perf_counter() - t_phase})
+    del model
+    free_memory()
+    return counts
+
+
+# -------------------------------------- an LM at Gemma-2B's widths (d 256)
+# lm_d256 runs GEMMA_2B (models/transformer.py); the cuts of scale and
+# the departures from Gemma-2B, printed with the phase
+LM_D256_REDUCED = [
+    "training (d) runs 8 of the 18 layers: AdamW over f32 parameters "
+    "takes 16 bytes a parameter, 40 GB for 2.51 B before the activations "
+    "(1.41 B at 8 layers, 22.6 GB)",
+    "the f32 logit, gradient and greedy checks (c) run 2 of the 18 "
+    "layers at B 1 x 512",
+    "max_seq_len 2048 of 8192: no sequence here is longer",
+    "weights random from a seed: nothing is downloaded"]
+LM_D256_DEPARTURES = [
+    "SwiGLU in place of GeGLU: the same three matrices, SiLU in place of "
+    "tanh-GELU, and the repo's two MLP bias vectors (zero at "
+    "initialization)",
+    "no sqrt(d_model) scaling of the embedding",
+    "the repo's RMSNorm: eps 1e-5 where Gemma has 1e-6, and x * g where "
+    "Gemma has x * (1 + g), the same function under another "
+    "parametrization"]
+
+
+def lm_d256_config(num_layers=18):
+    from elephas_tpu_torch.models.transformer import (GEMMA_2B,
+                                                      TransformerConfig)
+
+    return TransformerConfig(**dict(GEMMA_2B, num_layers=num_layers))
+
+
+def run_lm_d256():
+    """The LM at Gemma-2B's widths (head dim 256 on the flash kernels'
+    256-wide bodies; 8 query heads over 1 kv head, so the paged kernel's
+    general body): (a) ``forward`` at B 2 x T 1024 over all 18 layers,
+    bf16 over f32 parameters, one flash forward launch per layer, its
+    time as issued and on the device, and its f32 logits against the
+    plain path's; (b) the paged ``DecodeEngine`` with the fused kernel
+    over all 18 layers, 8 slots, serving 16 requests (64-512 prompt
+    tokens, 64 new each), every paged launch on the general body, then a
+    profiled window of 8 steps: the general body's device ms per decode
+    step beside ``step()``'s p50; (c) at 2 layers f32 logits and an f32
+    ``lm_loss`` gradient through the f32 kernels against the plain path
+    (B 1 x 512), and the f32 paged engine's greedy tokens against the
+    plain f32 forward's argmax (tie-aware); (d)
+    ``TransformerModel.fit_tokens`` at 8 layers, bf16 over f32, AdamW
+    3e-4, B 2 x 1024, 2 epochs on Zipf rows: the loss falls and all three
+    flash kernels run once per layer and step. Each part prints its line
+    as it ends. Returns the launch counts of (a), (b), (c) and (d)."""
+    from elephas_tpu_torch.models.optimizers import AdamW
+    from elephas_tpu_torch.models.transformer import (GEMMA_2B, forward,
+                                                      init_params)
+    from elephas_tpu_torch.models.transformer_model import TransformerModel
+    from elephas_tpu_torch.serving_engine import DecodeEngine
+    from elephas_tpu_torch.weights import tree_leaves
+
+    t_phase = time.perf_counter()
+    counts, seconds = {}, {}
+    free_memory()
+    cfg = lm_d256_config()
+    require(cfg.head_dim == 256 and cfg.kv_heads == 1,
+            f"head dim {cfg.head_dim}, {cfg.num_heads} heads over "
+            f"{cfg.kv_heads}")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    torch.cuda.synchronize()
+    emit({"phase": "lm_d256",
+          "config": {**GEMMA_2B, "head_dim": cfg.head_dim,
+                     "source": "google/gemma-2b config.json"},
+          "params": sum(t.numel() for t in tree_leaves(params)),
+          "init_s": time.perf_counter() - t0, "reduced": LM_D256_REDUCED,
+          "departures": LM_D256_DEPARTURES})
+
+    # (a) forward, all 18 layers: f32 flash against f32 plain, then the
+    # bf16 main-path run, timed as issued and on the device
+    t0 = time.perf_counter()
+    b, t = 2, 1024
+    tokens = torch.as_tensor(
+        np.random.default_rng(3).integers(0, cfg.vocab_size, (b, t)),
+        device="cuda")
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    flash32 = forward(params, tokens, dataclasses.replace(
+        c32, attention_impl="flash"))
+    plain32 = forward(params, tokens, dataclasses.replace(
+        c32, attention_impl="xla"))
+    scale = float(plain32.abs().max())
+    err = max_err(flash32, plain32)
+    del flash32, plain32
+    require(err <= 1e-4 * max(scale, 1.0),
+            f"f32 logits flash vs plain err {err} <= 1e-4 * {scale}")
+    c16 = dataclasses.replace(cfg, attention_impl="flash")
+    reset_counts()
+    logits = forward(params, tokens, c16)
+    torch.cuda.synchronize()
+    counts["forward"] = read_counts()
+    require(logits.shape == (b, t, cfg.vocab_size)
+            and bool(torch.isfinite(logits).all()), "bf16 logits finite")
+    require(counts["forward"]["flash_fwd"] == cfg.num_layers,
+            f"forward launched the d 256 flash kernel once per layer: "
+            f"{counts['forward']}")
+    del logits
+    reps = 3
+    t1 = time.perf_counter()
+    for _ in range(reps):
+        forward(params, tokens, c16)
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t1) / reps
+    # about 0.2 s of device spin before each start event: the whole call
+    # is queued before the timed window opens
+    dev = time_ms(lambda: forward(params, tokens, c16), reps=reps,
+                  hold_cycles=400_000_000)
+    seconds["forward"] = time.perf_counter() - t0
+    emit({
+        "phase": "lm_d256_forward", "batch": b, "seq": t,
+        "layers": cfg.num_layers,
+        "f32_flash_vs_plain_max_abs_err": err, "f32_logit_scale": scale,
+        "tolerance": "1e-4 x max(|logit|, 1)", "bf16_ms": sec * 1e3,
+        "bf16_device_ms": dev, "bf16_tokens_per_s": b * t / sec,
+        "launches": counts["forward"],
+        "launches_by_body": {"flash_fwd": {
+            "bf16_width_256": counts["forward"]["flash_fwd"]}}})
+
+    # (b) the paged engine, fused, all 18 layers, the flagship serving
+    # phase's traffic, on the paged kernel's general body (groups of 8)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(4)
+    lengths = rng.integers(64, 513, 16)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
+    serve(params, cfg, prompts[:2], "fused", max_new=4)      # warm-up
+    reset_counts()
+    outs, info = serve(params, cfg, prompts, "fused", timed=True)
+    torch.cuda.synchronize()
+    counts["serving"] = read_counts()
+    require(counts["serving"]["paged_decode"] > 0
+            and counts["serving"]["paged_decode"]
+            == info["stats"]["kernel_launches"],
+            f"the serving run launched the paged kernel at D 256: "
+            f"{counts['serving']}, {info['stats']['kernel_launches']}")
+    require(counts["serving"]["paged_split"] == 0,
+            f"every paged launch at D 256 took the general body: "
+            f"{counts['serving']}")
+    require(all(len(o) == 64 for o in outs) and all(
+        0 <= x < cfg.vocab_size for o in outs for x in o),
+        "bf16: 64 tokens each, in the vocabulary")
+    gc.collect()
+    window = paged_device_per_decode_step(params, cfg, prompts)
+    seconds["serving"] = time.perf_counter() - t0
+    emit({
+        "phase": "lm_d256_serving", "requests": len(prompts),
+        "prompt_lengths": [int(n) for n in lengths], "max_new_tokens": 64,
+        "layers": cfg.num_layers, "slots": 8,
+        "bf16": {k: v for k, v in info.items() if k != "stats"},
+        "step_ms_p50": info["step_ms_p50"],
+        "paged_device_ms_per_decode_step":
+            window["paged_device_ms_per_decode_step"],
+        "profiled_window": window, "launches": counts["serving"],
+        "launches_by_body": {"paged_decode": {
+            "general": counts["serving"]["paged_decode"]
+            - counts["serving"]["paged_split"],
+            "split": counts["serving"]["paged_split"]}}})
+    # the engines sit in reference cycles: collect them, and the 10 GB of
+    # parameters they hold, before the next part allocates
+    del params
+    free_memory()
+
+    # (c) 2 layers: f32 logits and the f32 gradient through the f32
+    # kernels, and the f32 paged engine's greedy tokens against the plain
+    # forward's argmax
+    t0 = time.perf_counter()
+    cfg2 = lm_d256_config(num_layers=2)
+    params2 = init_params(cfg2, torch.Generator(device="cuda").manual_seed(1),
+                          device="cuda")
+    c32 = dataclasses.replace(cfg2, dtype=torch.float32)
+    tokens2 = tokens[:1, :512]
+    reset_counts()
+    flash32 = forward(params2, tokens2, dataclasses.replace(
+        c32, attention_impl="flash"))
+    plain32 = forward(params2, tokens2, dataclasses.replace(
+        c32, attention_impl="xla"))
+    scale2 = float(plain32.abs().max())
+    err2 = max_err(flash32, plain32)
+    del flash32, plain32
+    require(err2 <= 1e-4 * max(scale2, 1.0),
+            f"2-layer f32 logits flash vs plain err {err2} <= 1e-4 * "
+            f"{scale2}")
+    run_train_parity(params2, cfg2, shape=(1, 512), phase="lm_d256_grad")
+    counts["grad"] = read_counts()
+    require(all(counts["grad"][k] > 0
+                for k in ("flash_fwd", "flash_dq", "flash_dkv")),
+            f"the f32 checks ran the three f32 kernels: {counts['grad']}")
+    greedy_prompts = [rng.integers(0, cfg2.vocab_size, n).tolist()
+                      for n in (37, 120, 300)]
+    eng = DecodeEngine(params2, c32, max_slots=4, paged=(96, 16),
+                       kernel="fused", device="cuda")
+    engine_out = eng.run(greedy_prompts, 16)
+    ref = [greedy_plain(params2, cfg2, p, 16) for p in greedy_prompts]
+    ties = tie_aware_equal(params2, cfg2, greedy_prompts, ref, engine_out)
+    require(eng.stats["kernel_launches"] > 0,
+            "the f32 engine launched the paged kernel")
+    seconds["f32_checks"] = time.perf_counter() - t0
+    emit({
+        "phase": "lm_d256_f32", "layers": 2,
+        "logits_flash_vs_plain_max_abs_err": err2,
+        "f32_logit_scale": scale2, "tolerance": "1e-4 x max(|logit|, 1)",
+        "prompt_lengths": [len(p) for p in greedy_prompts],
+        "new_tokens": 16,
+        "equal_rows": sum(a == b_ for a, b_ in zip(ref, engine_out)),
+        "near_tie_divergences": ties,
+        "paged_launches": eng.stats["kernel_launches"]})
+    del params2, eng
+    free_memory()
+
+    # (d) fit_tokens at 8 layers, bf16 over f32, AdamW 3e-4
+    t0 = time.perf_counter()
+    cfg8 = lm_d256_config(num_layers=8)
+    batch, seq, rows, epochs = 2, 1024, 8, 2
+    tokens = zipf_tokens(np.random.default_rng(7), cfg8.vocab_size,
+                         (rows, seq))
+    model = TransformerModel(cfg8, device="cuda").compile(
+        AdamW(3e-4, epsilon=1e-8, weight_decay=1e-4, decay_1d=True), seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    hist = model.fit_tokens(tokens, epochs=epochs, batch_size=batch, seed=0)
+    torch.cuda.synchronize()
+    counts["train"] = read_counts()
+    steps = epochs * (rows // batch)
+    losses = hist["loss"]
+    require(all(np.isfinite(losses)) and losses[1] < losses[0],
+            f"the d 256 LM's loss falls: {losses}")
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        require(counts["train"][name] == cfg8.num_layers * steps,
+                f"{name} launched {cfg8.num_layers} times per step: "
+                f"{counts['train']}")
+    step_s = hist["epoch_time"][1] / (rows // batch)
+    tok_s = batch * seq / step_s
+    fpt = flops_per_token(cfg8, seq)
+    seconds["train"] = time.perf_counter() - t0
+    emit({
+        "phase": "lm_d256_train", "layers": 8, "batch": batch, "seq": seq,
+        "steps": steps,
+        "params": sum(t.numel() for t in tree_leaves(model.params)),
+        "epoch_losses": losses, "epoch_time_s": hist["epoch_time"],
+        "ms_per_step": step_s * 1e3, "tokens_per_s": tok_s,
+        "flops_per_token": fpt, "mfu": fpt * tok_s / PEAK_BF16_FLOPS,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "launches": counts["train"],
+        "launches_by_body": {
+            name: {"bf16_width_256": counts["train"][name],
+                   "f32_in_the_checks": counts["grad"][name]}
+            for name in ("flash_fwd", "flash_dq", "flash_dkv")},
+        "launches_per_step": {k: counts["train"][k] / steps
+                              for k in ("flash_fwd", "flash_dq",
+                                        "flash_dkv")},
+        "seconds": seconds,
         "phase_seconds": time.perf_counter() - t_phase})
     del model
     free_memory()
@@ -4061,14 +4397,16 @@ def main() -> int:
                  or "spill" in ln]
     spills = [ln for ln in resources if "spill" in ln
               and "0 bytes spill stores, 0 bytes spill loads" not in ln]
-    wide = wide_body_registers(report)
+    wide = wide_body_registers(report, WIDE_BODIES)
+    wide256 = wide_body_registers(report, WIDE_256_BODIES)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": resources, "d128_bodies": wide})
+          "ptxas": resources, "d128_bodies": wide, "d256_bodies": wide256})
     require(not spills, f"no kernel spills registers: {spills}")
     require(all(r == {"launch": 168, "producer": 24, "consumers": 240}
-                for r in wide.values()),
-            f"the d 128 bodies launch at 168 registers, the producer "
-            f"drops to 24 and the consumers rise to 240: {wide}")
+                for r in (*wide.values(), *wide256.values())),
+            f"the d 128 and d 256 bodies launch at 168 registers, the "
+            f"producer drops to 24 and the consumers rise to 240: {wide}, "
+            f"{wide256}")
 
     # a buffer past the 50 MB L2, overwritten before each timed call
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
@@ -4094,6 +4432,7 @@ def main() -> int:
     train_counts = timed("train", run_train, cfg)
     d128 = timed("lm_d128", run_lm_d128)
     d96 = timed("lm_d96", run_lm_d96)
+    d256 = timed("lm_d256", run_lm_d256)
     moe = timed("lm_moe", run_lm_moe)
     packed_ex_counts = timed("packed_example", run_packed_example)
 
@@ -4147,6 +4486,7 @@ def main() -> int:
              "speculative_example": spex_counts,
              **{f"lm_d128_{part}": c for part, c in d128.items()},
              **{f"lm_d96_{part}": c for part, c in d96.items()},
+             **{f"lm_d256_{part}": c for part, c in d256.items()},
              **{f"lm_moe_{part}": c for part, c in moe.items()},
              "int8_paged_flagship": int8_counts,
              "packed_flagship": packed_counts,
@@ -4195,8 +4535,8 @@ def main() -> int:
         # forward_d16, http_serving_example and speculative_example,
         # d 128 lm_d128's four (forward, serving, the f32 gradient, the
         # fit) and lm_moe's four (forward, serving, the f32 checks, the
-        # fit), d 96 lm_d96's four; no driven path runs d 80: its
-        # launches are null
+        # fit), d 96 lm_d96's four, d 256 lm_d256's four; no driven
+        # path runs d 80: its launches are null
         launches = {"16": d16_counts[name] + ex_counts[name]
                     + spex_counts[name],
                     "32": d32_counts[name] + resumed_counts[name]
@@ -4205,7 +4545,8 @@ def main() -> int:
                     - spex_counts[name],
                     "128": sum(c[name] for c in (*d128.values(),
                                                  *moe.values())),
-                    "96": sum(c[name] for c in d96.values())}
+                    "96": sum(c[name] for c in d96.values()),
+                    "256": sum(c[name] for c in d256.values())}
         if name == "paged_decode":
             split = {"16": d16_counts["paged_split"]
                      + ex_counts["paged_split"]
@@ -4219,9 +4560,12 @@ def main() -> int:
                      + int8_counts["paged_split"],
                      "128": sum(c["paged_split"] for c in (*d128.values(),
                                                           *moe.values())),
-                     "96": sum(c["paged_split"] for c in d96.values())}
+                     "96": sum(c["paged_split"] for c in d96.values()),
+                     "256": sum(c["paged_split"]
+                                for c in d256.values())}
         entry["by_head_dim"] = {
-            d: {**{k: t[k] for k in (*keys, "shape", "body") if k in t},
+            d: {**{k: t[k] for k in (*keys, "shape", "body",
+                                      "library_kernel") if k in t},
                 **({"launches": launches[d]} if d in launches
                    else {"launches": None, "driven_path": None}),
                 **({"split_launches": split[d],
@@ -4236,6 +4580,11 @@ def main() -> int:
         if name in WIDE_BODIES:
             entry["by_head_dim"]["128"].update(
                 body=WIDE_BODIES[name][2], registers=wide[name])
+        if name in WIDE_256_BODIES:
+            require(launches["256"] > 0,
+                    f"{name} launched its d 256 body on lm_d256")
+            entry["by_head_dim"]["256"].update(
+                body=WIDE_256_BODIES[name][2], registers=wide256[name])
         if name != "paged_decode":
             # d 96 and 80 on the 128-wide bodies, columns past the head
             # dim filled with zeros; the other multiples of 8 checked

@@ -89,7 +89,8 @@
 //   dropped.
 // - f32 (both kernels): 256 threads on the CUDA cores, each holding a
 //   4x4 block of the 64x64 score tile and a 4x(D/16) block of every
-//   accumulator.
+//   accumulator; at D 256, where four 64-row f32 tiles would not fit
+//   shared memory, 32-row tiles and 2x2 and 2x16 blocks.
 //
 // What bounds it on the H100. At the training shape (B 8, H 16, S 1024,
 // D 64, causal, bf16) dQ needs 3 products (S, dP, dQ) and dK/dV 4 (S,
@@ -111,18 +112,16 @@ namespace {
 using namespace etpu;
 using bf16 = __nv_bfloat16;
 
-constexpr int BQ = 64;          // f32 bodies: query rows per tile
-constexpr int BK = 64;          // f32 bodies: key rows per tile
-constexpr int THREADS = 256;    // f32 bodies: 16 x 16 threads, 4 x 4 each
+constexpr int THREADS = 256;    // f32 bodies: 16 x 16 threads
 
-// lse and delta of query rows [q0, q0 + BQ) into shared memory; rows past
+// lse and delta of query rows [q0, q0 + R) into shared memory; rows past
 // Sq read 0 (they are masked out of every product).
-template <int NT>
+template <int NT, int R>
 __device__ __forceinline__ void stage_stats(float* lse_s, float* delta_s,
                                             const float* lse,
                                             const float* delta, int q0,
                                             int Sq) {
-  for (int i = threadIdx.x; i < BQ; i += NT) {
+  for (int i = threadIdx.x; i < R; i += NT) {
     const bool in = q0 + i < Sq;
     lse_s[i] = in ? lse[q0 + i] : 0.f;
     delta_s[i] = in ? delta[q0 + i] : 0.f;
@@ -132,11 +131,17 @@ __device__ __forceinline__ void stage_stats(float* lse_s, float* delta_s,
 // ------------------------------------------------------- f32, CUDA cores
 template <int D>
 struct F32Layout {
+  // query and key rows per tile: 64, or 32 at D 256, where four 64-row
+  // operand tiles alone would take 263 KB; each thread holds an RI x RI
+  // block of the R x R score tile
+  static constexpr int R = D == 256 ? 32 : 64;
+  static constexpr int RI = R / 16;
   static constexpr int LD = D + 1;   // operand tiles; +1 spreads banks
-  static constexpr int LDP = BK + 1;
-  // four operand tiles, two 64 x 64 probability tiles, lse and delta
+  static constexpr int LDP = R + 1;
+  // four operand tiles, two R x R probability tiles, lse and delta: 137
+  // KB at D 256, 162 KB at 128
   static constexpr size_t bytes =
-      sizeof(float) * ((size_t)4 * 64 * LD + (size_t)2 * 64 * LDP + 2 * 64);
+      sizeof(float) * ((size_t)4 * R * LD + (size_t)2 * R * LDP + 2 * R);
 };
 
 template <int D>
@@ -145,81 +150,81 @@ struct F32Smem {
   __device__ explicit F32Smem(float* raw) {
     using L = F32Layout<D>;
     a = raw;
-    b = a + 64 * L::LD;
-    c = b + 64 * L::LD;
-    d = c + 64 * L::LD;
-    p = d + 64 * L::LD;
-    ds = p + 64 * L::LDP;
-    lse = ds + 64 * L::LDP;
-    delta = lse + 64;
+    b = a + L::R * L::LD;
+    c = b + L::R * L::LD;
+    d = c + L::R * L::LD;
+    p = d + L::R * L::LD;
+    ds = p + L::R * L::LDP;
+    lse = ds + L::R * L::LDP;
+    delta = lse + L::R;
   }
 };
 
-// The thread's 4 x 4 blocks of X1 Y1^T and X2 Y2^T: rows ty*4 + i of the
-// X tiles against rows tx + 16*j of the Y tiles (all stride LD).
-template <int D>
-__device__ __forceinline__ void dots4x4(const float* x1, const float* y1,
-                                        const float* x2, const float* y2,
-                                        int ty, int tx, float (&o1)[4][4],
-                                        float (&o2)[4][4]) {
+// The thread's RI x RI blocks of X1 Y1^T and X2 Y2^T: rows ty*RI + i of
+// the X tiles against rows tx + 16*j of the Y tiles (all stride LD).
+template <int D, int RI = F32Layout<D>::RI>
+__device__ __forceinline__ void dots(const float* x1, const float* y1,
+                                     const float* x2, const float* y2,
+                                     int ty, int tx, float (&o1)[RI][RI],
+                                     float (&o2)[RI][RI]) {
   constexpr int LD = F32Layout<D>::LD;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) o1[i][j] = o2[i][j] = 0.f;
+    for (int j = 0; j < RI; ++j) o1[i][j] = o2[i][j] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
-    float a1[4], a2[4], b1[4], b2[4];
+    float a1[RI], a2[RI], b1[RI], b2[RI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a1[i] = x1[(ty * 4 + i) * LD + d];
-      a2[i] = x2[(ty * 4 + i) * LD + d];
+    for (int i = 0; i < RI; ++i) {
+      a1[i] = x1[(ty * RI + i) * LD + d];
+      a2[i] = x2[(ty * RI + i) * LD + d];
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < RI; ++j) {
       b1[j] = y1[(tx + 16 * j) * LD + d];
       b2[j] = y2[(tx + 16 * j) * LD + d];
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         o1[i][j] = fmaf(a1[i], b1[j], o1[i][j]);
         o2[i][j] = fmaf(a2[i], b2[j], o2[i][j]);
       }
   }
 }
 
-// acc[i][j] += sum_c P[ty*4 + i][c] * Y[c][tx + 16*j] over the 64 rows
+// acc[i][j] += sum_c P[ty*RI + i][c] * Y[c][tx + 16*j] over the R rows
 // of the Y tile.
-template <int D>
-__device__ __forceinline__ void accumulate4(float (&acc)[4][D / 16],
-                                            const float* p, const float* y,
-                                            int ty, int tx) {
+template <int D, int RI = F32Layout<D>::RI>
+__device__ __forceinline__ void accumulate(float (&acc)[RI][D / 16],
+                                           const float* p, const float* y,
+                                           int ty, int tx) {
   constexpr int LD = F32Layout<D>::LD, LDP = F32Layout<D>::LDP;
 #pragma unroll 4
-  for (int c = 0; c < 64; ++c) {
-    float pv[4];
+  for (int c = 0; c < F32Layout<D>::R; ++c) {
+    float pv[RI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) pv[i] = p[(ty * 4 + i) * LDP + c];
+    for (int i = 0; i < RI; ++i) pv[i] = p[(ty * RI + i) * LDP + c];
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) {
       const float yv = y[c * LD + tx + 16 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], yv, acc[i][j]);
+      for (int i = 0; i < RI; ++i) acc[i][j] = fmaf(pv[i], yv, acc[i][j]);
     }
   }
 }
 
-// The thread's 4 x (D/16) block of an accumulator -> rows of `out` (hd
+// The thread's RI x (D/16) block of an accumulator -> rows of `out` (hd
 // values a row), rows past `limit` and columns past hd dropped.
-template <int D>
-__device__ __forceinline__ void write4(const float (&acc)[4][D / 16],
-                                       float* out, int row0, int limit,
-                                       int hd, int ty, int tx) {
+template <int D, int RI = F32Layout<D>::RI>
+__device__ __forceinline__ void write_rows(const float (&acc)[RI][D / 16],
+                                           float* out, int row0, int limit,
+                                           int hd, int ty, int tx) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty * 4 + i;
+  for (int i = 0; i < RI; ++i) {
+    const int r = row0 + ty * RI + i;
     if (r >= limit) continue;
 #pragma unroll
     for (int j = 0; j < D / 16; ++j)
@@ -239,46 +244,47 @@ __global__ void __launch_bounds__(THREADS)
                         int Sk, int hd, int q_offset, int k_offset,
                         int causal, int window, float scale) {
   using L = F32Layout<D>;
+  constexpr int R = L::R, RI = L::RI;
   extern __shared__ float smem_f[];
   const F32Smem<D> sm(smem_f);
   float *Qs = sm.a, *dOs = sm.b, *Ks = sm.c, *Vs = sm.d;
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * R;
   const int h = bh % H;
   const int kv_row = (bh / H) * KVH + h / (H / KVH);
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 
-  stage_rows<D, L::LD, THREADS>(Qs, q + (size_t)bh * Sq * hd, q0, BQ, Sq,
+  stage_rows<D, L::LD, THREADS>(Qs, q + (size_t)bh * Sq * hd, q0, R, Sq,
                                 hd);
-  stage_rows<D, L::LD, THREADS>(dOs, dout + (size_t)bh * Sq * hd, q0, BQ,
+  stage_rows<D, L::LD, THREADS>(dOs, dout + (size_t)bh * Sq * hd, q0, R,
                                 Sq, hd);
-  stage_stats<THREADS>(sm.lse, sm.delta, lse + (size_t)bh * Sq,
-                       delta + (size_t)bh * Sq, q0, Sq);
-  float acc[4][D / 16];
+  stage_stats<THREADS, R>(sm.lse, sm.delta, lse + (size_t)bh * Sq,
+                          delta + (size_t)bh * Sq, q0, Sq);
+  float acc[RI][D / 16];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
 
-  const int nk = (Sk + BK - 1) / BK;
+  const int nk = (Sk + R - 1) / R;
   for (int kj = 0; kj < nk; ++kj) {
-    const int k0 = kj * BK;
-    if (!rows_meet(q0, q0 + BQ - 1, k0, k0 + BK - 1, q_offset, k_offset,
+    const int k0 = kj * R;
+    if (!rows_meet(q0, q0 + R - 1, k0, k0 + R - 1, q_offset, k_offset,
                    causal, window))
       continue;
     __syncthreads();
-    stage_rows<D, L::LD, THREADS>(Ks, k + (size_t)kv_row * Sk * hd, k0, BK,
+    stage_rows<D, L::LD, THREADS>(Ks, k + (size_t)kv_row * Sk * hd, k0, R,
                                   Sk, hd);
-    stage_rows<D, L::LD, THREADS>(Vs, v + (size_t)kv_row * Sk * hd, k0, BK,
+    stage_rows<D, L::LD, THREADS>(Vs, v + (size_t)kv_row * Sk * hd, k0, R,
                                   Sk, hd);
     __syncthreads();
-    float s[4][4], dp[4][4];
-    dots4x4<D>(Qs, Ks, dOs, Vs, ty, tx, s, dp);
+    float s[RI][RI], dp[RI][RI];
+    dots<D>(Qs, Ks, dOs, Vs, ty, tx, s, dp);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
+    for (int i = 0; i < RI; ++i) {
+      const int r = ty * RI + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const int c = tx + 16 * j;
         float ds = 0.f;
         if (pair_valid(q0 + r, k0 + c, Sq, Sk, q_offset, k_offset, causal,
@@ -290,9 +296,9 @@ __global__ void __launch_bounds__(THREADS)
       }
     }
     __syncthreads();
-    accumulate4<D>(acc, sm.ds, Ks, ty, tx);   // dQ += dS K
+    accumulate<D>(acc, sm.ds, Ks, ty, tx);   // dQ += dS K
   }
-  write4<D>(acc, dq + (size_t)bh * Sq * hd, q0, Sq, hd, ty, tx);
+  write_rows<D>(acc, dq + (size_t)bh * Sq * hd, q0, Sq, hd, ty, tx);
 }
 
 template <int D>
@@ -308,48 +314,49 @@ __global__ void __launch_bounds__(THREADS)
                          int q_offset, int k_offset, int causal, int window,
                          float scale) {
   using L = F32Layout<D>;
+  constexpr int R = L::R, RI = L::RI;
   extern __shared__ float smem_f[];
   const F32Smem<D> sm(smem_f);
   float *Ks = sm.a, *Vs = sm.b, *Qs = sm.c, *dOs = sm.d;
   const int bkv = blockIdx.y;
-  const int k0 = blockIdx.x * BK;
+  const int k0 = blockIdx.x * R;
   const int grp = H / KVH;
   const int qrow0 = (bkv / KVH) * H + (bkv % KVH) * grp;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 
-  stage_rows<D, L::LD, THREADS>(Ks, k + (size_t)bkv * Sk * hd, k0, BK, Sk,
+  stage_rows<D, L::LD, THREADS>(Ks, k + (size_t)bkv * Sk * hd, k0, R, Sk,
                                 hd);
-  stage_rows<D, L::LD, THREADS>(Vs, v + (size_t)bkv * Sk * hd, k0, BK, Sk,
+  stage_rows<D, L::LD, THREADS>(Vs, v + (size_t)bkv * Sk * hd, k0, R, Sk,
                                 hd);
-  float dk_acc[4][D / 16], dv_acc[4][D / 16];
+  float dk_acc[RI][D / 16], dv_acc[RI][D / 16];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
 
-  const int nq = (Sq + BQ - 1) / BQ;
+  const int nq = (Sq + R - 1) / R;
   for (int g = 0; g < grp; ++g) {
     const size_t bh = (size_t)qrow0 + g;
     for (int qi = 0; qi < nq; ++qi) {
-      const int q0 = qi * BQ;
-      if (!rows_meet(q0, q0 + BQ - 1, k0, k0 + BK - 1, q_offset, k_offset,
+      const int q0 = qi * R;
+      if (!rows_meet(q0, q0 + R - 1, k0, k0 + R - 1, q_offset, k_offset,
                      causal, window))
         continue;
       __syncthreads();
-      stage_rows<D, L::LD, THREADS>(Qs, q + bh * Sq * hd, q0, BQ, Sq, hd);
-      stage_rows<D, L::LD, THREADS>(dOs, dout + bh * Sq * hd, q0, BQ, Sq,
+      stage_rows<D, L::LD, THREADS>(Qs, q + bh * Sq * hd, q0, R, Sq, hd);
+      stage_rows<D, L::LD, THREADS>(dOs, dout + bh * Sq * hd, q0, R, Sq,
                                     hd);
-      stage_stats<THREADS>(sm.lse, sm.delta, lse + bh * Sq, delta + bh * Sq,
-                           q0, Sq);
+      stage_stats<THREADS, R>(sm.lse, sm.delta, lse + bh * Sq,
+                              delta + bh * Sq, q0, Sq);
       __syncthreads();
-      // S^T and dP^T: key rows ty*4 + i against query rows tx + 16*j
-      float s[4][4], dp[4][4];
-      dots4x4<D>(Ks, Qs, Vs, dOs, ty, tx, s, dp);
+      // S^T and dP^T: key rows ty*RI + i against query rows tx + 16*j
+      float s[RI][RI], dp[RI][RI];
+      dots<D>(Ks, Qs, Vs, dOs, ty, tx, s, dp);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty * 4 + i;
+      for (int i = 0; i < RI; ++i) {
+        const int r = ty * RI + i;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < RI; ++j) {
           const int c = tx + 16 * j;
           float p = 0.f, ds = 0.f;
           if (pair_valid(q0 + c, k0 + r, Sq, Sk, q_offset, k_offset, causal,
@@ -362,13 +369,13 @@ __global__ void __launch_bounds__(THREADS)
         }
       }
       __syncthreads();
-      accumulate4<D>(dv_acc, sm.p, dOs, ty, tx);   // dV += P^T dO
-      accumulate4<D>(dk_acc, sm.ds, Qs, ty, tx);   // dK += dS^T Q
+      accumulate<D>(dv_acc, sm.p, dOs, ty, tx);   // dV += P^T dO
+      accumulate<D>(dk_acc, sm.ds, Qs, ty, tx);   // dK += dS^T Q
     }
   }
   const size_t base = (size_t)bkv * Sk * hd;
-  write4<D>(dk_acc, dk + base, k0, Sk, hd, ty, tx);
-  write4<D>(dv_acc, dv + base, k0, Sk, hd, ty, tx);
+  write_rows<D>(dk_acc, dk + base, k0, Sk, hd, ty, tx);
+  write_rows<D>(dv_acc, dv + base, k0, Sk, hd, ty, tx);
 }
 
 // ------------------------------------------------------------- launch
@@ -385,21 +392,27 @@ struct Args {
 namespace dkv {
 
 constexpr int QROWS = 64;           // query rows per ring stage
-constexpr int KROWS = 128;          // key rows per CTA: 2 warpgroups x 64
 
 template <int D>
 struct Layout {
-  // at D 128 a producer warpgroup and register reallocation (see the
-  // note at the top); else one producer warp
-  static constexpr bool WIDE = D == 128;
+  // at D 128 and 256 a producer warpgroup and register reallocation (see
+  // the note at the top); else one producer warp
+  static constexpr bool WIDE = D >= 128;
+  // at D 256 the two consumer warpgroups split the head dim of the same
+  // 64 key rows (SPLIT): each holds dK and dV at 128 of the columns
+  static constexpr bool SPLIT = D == 256;
+  static constexpr int KROWS = SPLIT ? 64 : 128;  // key rows per CTA
+  static constexpr int COLS = SPLIT ? 128 : D;    // a warpgroup's columns
   static constexpr int THREADS = WIDE ? kWideThreads : 2 * 128 + 32;
-  static constexpr int STAGES = WIDE ? 4 : 6;    // Q/dO tiles in flight
-  // K, V (32 KB each at D 128, 16 KB at 64), the Q ring, the dO ring (16
-  // KB tiles at D 128, 8 KB at 64), the lse/delta ring (64 + 64 f32 per
-  // stage), then the barriers: kvfull, full[STAGES], empty[STAGES],
-  // done (used at D 128); +1024 for alignment. 195 KB at D 128, 131 KB
-  // at D 64, 68 KB at D 32, 36 KB at D 16 (below D 128 the stage count
-  // stays, as in flash_fwd.cu)
+  // Q/dO tiles in flight
+  static constexpr int STAGES = SPLIT ? 2 : WIDE ? 4 : 6;
+  // K, V (32 KB each at D 128 and 256, 16 KB at 64), the Q ring, the dO
+  // ring (32 KB tiles at D 256, 16 KB at 128, 8 KB at 64), the lse/delta
+  // ring (64 + 64 f32 per stage), then the barriers: kvfull,
+  // full[STAGES], empty[STAGES], done (used at D 128 and 256); +1024 for
+  // alignment. 194 KB at D 256, 195 KB at D 128, 131 KB at D 64, 68 KB
+  // at D 32, 36 KB at D 16 (below D 128 the stage count stays, as in
+  // flash_fwd.cu)
   static constexpr uint32_t row = Rows<D>::bytes;
   static constexpr uint32_t atom = Rows<D>::atom;
   static constexpr uint32_t KV_TILE = KROWS * row, Q_TILE = QROWS * row;
@@ -408,6 +421,7 @@ struct Layout {
                             stats = dout + STAGES * Q_TILE,
                             bars = stats + STAGES * 2 * QROWS * 4;
   static constexpr size_t bytes = bars + (2 + 2 * STAGES) * 8 + 1024;
+  static_assert(bytes <= 232448, "at most 227 KB of shared memory");
 };
 
 template <int D>
@@ -424,7 +438,7 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
                            int window, float scale) {
   using L = Layout<D>;
   constexpr uint32_t KV_TILE = L::KV_TILE, Q_TILE = L::Q_TILE;
-  constexpr int STAGES = L::STAGES;
+  constexpr int STAGES = L::STAGES, KROWS = L::KROWS;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align1024(smem_raw);
   uint8_t* Ks = sm + L::k;
@@ -436,8 +450,8 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
   uint64_t* full = kvfull + 1;
   uint64_t* empty = full + STAGES;
   uint64_t* done = empty + STAGES;
-  // at D 128 the waits spin and warp 9 is the CTA's watchdog (hopper.cuh
-  // mbar_wait_spin); below it each wait has its own
+  // at D 128 and 256 the waits spin and warp 9 is the CTA's watchdog
+  // (hopper.cuh mbar_wait_spin); below it each wait has its own
   auto wait = [](uint64_t* bar, uint32_t parity) {
     if constexpr (L::WIDE)
       mbar_wait_spin(bar, parity);
@@ -467,13 +481,13 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
   }
   __syncthreads();
 
-  // (at D 128 known to be uniform over the warp, so the warpgroup's
-  // descriptors take uniform registers; below it the body stays as it
-  // was)
+  // (at D 128 and 256 known to be uniform over the warp, so the
+  // warpgroup's descriptors take uniform registers; below it the body
+  // stays as it was)
   const int warp = L::WIDE ? warp_index() : (int)threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (warp >= 8) {
-    // ---- producer: at D 128 every warp of the producer warpgroup gives
+    // ---- producer: at D >= 128 every warp of the producer warpgroup gives
     // its registers back first, and warp 8 works alone. K and V once;
     // then, for each query head of the group and each live q tile, Q and
     // dO by TMA and lse*log2(e) and delta by the warp's lanes (rows past
@@ -524,17 +538,23 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
     }
   } else {
     // ---- consumers: warpgroup wg owns key rows wk0 .. wk0 + 63 at the
-    // whole head dim
+    // whole head dim, or at D 256 the CTA's 64 key rows at columns 128wg
+    // .. 128wg + 127 (both then compute the same S^T and dP^T)
     if constexpr (L::WIDE) setmaxnreg_inc<kConsumerRegs>();
     const int wg = warp / 4;
-    const int wk0 = k0 + 64 * wg;
+    const int wk0 = L::SPLIT ? k0 : k0 + 64 * wg;
     const int krow = wk0 + 16 * (warp % 4) + lane / 4;  // and krow + 8
-    uint8_t* Kw = Ks + 64 * wg * L::atom;
-    uint8_t* Vw = Vs + 64 * wg * L::atom;
+    uint8_t* Kw = Ks + (L::SPLIT ? 0 : 64 * wg * L::atom);
+    uint8_t* Vw = Vs + (L::SPLIT ? 0 : 64 * wg * L::atom);
     const uint64_t kdesc = desc_sw<D>(Kw), vdesc = desc_sw<D>(Vw);
-    float dk_acc[D / 2], dv_acc[D / 2];
+    // at D 256 the first of this warpgroup's column blocks (2wg) of a
+    // ring tile, as an offset of its descriptor: blocks 2wg and 2wg + 1
+    // are a W 128 tile of QROWS rows
+    const uint64_t half = L::SPLIT ? (2 * wg * QROWS * L::atom) >> 4 : 0;
+    constexpr int N = L::COLS;
+    float dk_acc[N / 2], dv_acc[N / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    for (int i = 0; i < N / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
     wait(kvfull, 0);
     int s = 0;
@@ -608,14 +628,15 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
           }
 
         // dV += P^T dO and dK += dS^T Q, the A operands from registers,
-        // dO and Q MN-major from the ring
+        // dO and Q MN-major from the ring (at D 256 this warpgroup's 128
+        // columns of them)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs_rows<D, QROWS>(dv_acc, pa[kk], dodesc, kk);
+          wgmma_rs_rows<N, QROWS>(dv_acc, pa[kk], dodesc + half, kk);
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs_rows<D, QROWS>(dk_acc, dsa[kk], qdesc, kk);
+          wgmma_rs_rows<N, QROWS>(dk_acc, dsa[kk], qdesc + half, kk);
         wgmma_commit();
         wgmma_wait<0>();
         fence_operands(dk_acc);
@@ -632,11 +653,26 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
     // after its last product) to 16-byte stores of each row's first hd
     // columns
     const size_t base = ((size_t)bkv * Sk + wk0) * hd;
-    acc_to_tile<D, KROWS>(dk_acc, 1.f, 1.f, Kw);
-    acc_to_tile<D, KROWS>(dv_acc, 1.f, 1.f, Vw);
-    wg_barrier(1 + wg);
-    tile_to_rows<D, KROWS>(Kw, dk + base, Sk - wk0, hd);
-    tile_to_rows<D, KROWS>(Vw, dv + base, Sk - wk0, hd);
+    if constexpr (L::SPLIT) {
+      // both warpgroups read all of K and V: neither overwrites them
+      // before both are done; then each stores its column blocks (a W
+      // 128 tile) into its columns of each row, those below hd
+      consumers_barrier(3);
+      uint8_t* Kh = Ks + 2 * wg * KROWS * L::atom;
+      uint8_t* Vh = Vs + 2 * wg * KROWS * L::atom;
+      acc_to_tile<N, KROWS>(dk_acc, 1.f, 1.f, Kh);
+      acc_to_tile<N, KROWS>(dv_acc, 1.f, 1.f, Vh);
+      wg_barrier(1 + wg);
+      const int cols = min(N, hd - N * wg);  // hd > 128 at this width
+      tile_to_rows<N, KROWS>(Kh, dk + base + N * wg, Sk - wk0, cols, hd);
+      tile_to_rows<N, KROWS>(Vh, dv + base + N * wg, Sk - wk0, cols, hd);
+    } else {
+      acc_to_tile<D, KROWS>(dk_acc, 1.f, 1.f, Kw);
+      acc_to_tile<D, KROWS>(dv_acc, 1.f, 1.f, Vw);
+      wg_barrier(1 + wg);
+      tile_to_rows<D, KROWS>(Kw, dk + base, Sk - wk0, hd);
+      tile_to_rows<D, KROWS>(Vw, dv + base, Sk - wk0, hd);
+    }
     if constexpr (L::WIDE) {
       __syncwarp();
       if (lane == 0) mbar_arrive(done);
@@ -652,6 +688,7 @@ cudaError_t launch(const Args& a) {
   const int qrows = a.Sq > 0 ? a.Sq : a.Sk;
   const int qslabs = a.Sq > 0 ? a.B * a.H : a.B * a.KVH;
   CUtensorMap tq, tk, tv, tdo;
+  constexpr int KROWS = Layout<D>::KROWS;
   cudaError_t err = encode_rows_map<D>(&tq, qp, a.hd, qrows, qslabs, QROWS);
   if (err == cudaSuccess)
     err = encode_rows_map<D>(&tdo, gp, a.hd, qrows, qslabs, QROWS);
@@ -678,31 +715,39 @@ cudaError_t launch(const Args& a) {
 namespace dq {
 
 constexpr int QROWS = 128;          // query rows per CTA: 2 warpgroups x 64
-constexpr int KROWS = 64;           // key rows per ring stage
-constexpr int THREADS = 2 * 128 + 32;  // 2 consumer warpgroups + producer
 
 template <int D>
 struct Layout {
-  // K/V tiles in flight: 6, or 4 at D 128 (6 would take 256 KB)
-  static constexpr int STAGES = D == 128 ? 4 : 6;
+  // at D 256 (dQ's accumulator alone 128 f32 a thread) a producer
+  // warpgroup and register reallocation, as the wide dK/dV body; else 2
+  // consumer warpgroups and one producer warp
+  static constexpr bool WIDE = D == 256;
+  static constexpr int THREADS = WIDE ? kWideThreads : 2 * 128 + 32;
+  // key rows per ring stage: 64, or 32 at D 256 (Q and dO take 128 KB)
+  static constexpr int KROWS = WIDE ? 32 : 64;
+  // K/V tiles in flight: 6, or 4 at D 128 (6 would take 256 KB), 3 at
+  // 256
+  static constexpr int STAGES = WIDE ? 3 : D == 128 ? 4 : 6;
   // keys per S and dP product: the whole tile, or 32 at D 128 (see the
   // note at the top)
   static constexpr int KN = D == 128 ? 32 : KROWS;
-  // Q, dO (16 KB each at D 64, 32 KB at 128), the K ring, the V ring (8
-  // KB tiles at D 64, 16 KB at 128), then the barriers: qfull,
-  // full[STAGES], empty[STAGES]; +1024 for alignment. 193 KB at D 128,
-  // 129 KB at D 64, 65 KB at D 32, 33 KB at D 16
+  // Q, dO (16 KB each at D 64, 32 KB at 128, 64 KB at 256), the K ring,
+  // the V ring (8 KB tiles at D 64, 16 KB at 128 and 256), then the
+  // barriers: qfull, full[STAGES], empty[STAGES], done (used at D 256);
+  // +1024 for alignment. 225 KB at D 256, 193 KB at D 128, 129 KB at D
+  // 64, 65 KB at D 32, 33 KB at D 16
   static constexpr uint32_t row = Rows<D>::bytes;
   static constexpr uint32_t atom = Rows<D>::atom;
   static constexpr uint32_t Q_TILE = QROWS * row, KV_TILE = KROWS * row;
   static constexpr uint32_t q = 0, dout = Q_TILE, k = 2 * Q_TILE,
                             v = k + STAGES * KV_TILE,
                             bars = v + STAGES * KV_TILE;
-  static constexpr size_t bytes = bars + (1 + 2 * STAGES) * 8 + 1024;
+  static constexpr size_t bytes = bars + (2 + 2 * STAGES) * 8 + 1024;
+  static_assert(bytes <= 232448, "at most 227 KB of shared memory");
 };
 
 template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(Layout<D>::THREADS, 1)
     flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
@@ -715,7 +760,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                           float scale) {
   using L = Layout<D>;
   constexpr uint32_t Q_TILE = L::Q_TILE, KV_TILE = L::KV_TILE;
-  constexpr int STAGES = L::STAGES;
+  constexpr int STAGES = L::STAGES, KROWS = L::KROWS;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align1024(smem_raw);
   uint8_t* Qs = sm + L::q;
@@ -725,6 +770,15 @@ __global__ void __launch_bounds__(THREADS, 1)
   uint64_t* qfull = reinterpret_cast<uint64_t*>(sm + L::bars);
   uint64_t* full = qfull + 1;
   uint64_t* empty = full + STAGES;
+  uint64_t* done = empty + STAGES;
+  // at D 256 the waits spin and warp 9 is the CTA's watchdog (hopper.cuh
+  // mbar_wait_spin); below it each wait has its own
+  auto wait = [](uint64_t* bar, uint32_t parity) {
+    if constexpr (L::WIDE)
+      mbar_wait_spin(bar, parity);
+    else
+      mbar_wait(bar, parity);
+  };
 
   // heaviest first: the CTAs of the last q tiles (the most live K/V
   // tiles under causal masking) get the lowest block ids
@@ -743,15 +797,24 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
     }
+    if constexpr (L::WIDE)
+      mbar_init(done, 8);  // lane 0 of each consumer warp, at its end
     fence_barrier_init();
   }
   __syncthreads();
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (warp == 8) {
-    // ---- producer: Q and dO once, then the live K/V tiles through the
-    // ring (rows past each head's length arrive as zeros)
-    if (lane == 0) {
+  const int warp = L::WIDE ? warp_index() : (int)threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (warp >= 8) {
+    // ---- producer: at D 256 every warp of the producer warpgroup gives
+    // its registers back first, and warp 8 works alone. Q and dO once,
+    // then the live K/V tiles through the ring (rows past each head's
+    // length arrive as zeros)
+    if constexpr (L::WIDE) {
+      setmaxnreg_dec<kProducerRegs>();
+      if (warp == 9) cta_watchdog(done);
+    }
+    if (warp == 8 && lane == 0) {
       mbar_expect_tx(qfull, 2 * Q_TILE);
       tma_load_tile<D, QROWS>(Qs, &tq, qfull, q0, bh);
       tma_load_tile<D, QROWS>(dOs, &tdo, qfull, q0, bh);
@@ -762,7 +825,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         if (!rows_meet(q0, q_last, k0, min(k0 + KROWS, Sk) - 1, q_offset,
                        k_offset, causal, window))
           continue;
-        mbar_wait(&empty[s], phase ^ 1);
+        wait(&empty[s], phase ^ 1);
         mbar_expect_tx(&full[s], 2 * KV_TILE);
         tma_load_tile<D, KROWS>(Ks + s * KV_TILE, &tk, &full[s], k0,
                                 kv_row);
@@ -776,6 +839,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
   } else {
     // ---- consumers: warpgroup wg owns query rows wq0 .. wq0 + 63
+    if constexpr (L::WIDE) setmaxnreg_inc<kConsumerRegs>();
     const int wg = warp / 4;
     const int wq0 = q0 + 64 * wg;
     const int wq_last = min(wq0 + 63, Sq - 1);
@@ -798,7 +862,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
 
-    mbar_wait(qfull, 0);
+    wait(qfull, 0);
     int s = 0;
     uint32_t phase = 0;
     for (int kj = 0; kj < nk; ++kj) {
@@ -807,7 +871,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       if (!rows_meet(q0, q_last, k0, k_last, q_offset, k_offset, causal,
                      window))
         continue;
-      mbar_wait(&full[s], phase);
+      wait(&full[s], phase);
       if (wq0 < Sq && rows_meet(wq0, wq_last, k0, k_last, q_offset,
                                 k_offset, causal, window)) {
         const uint64_t kdesc = desc_sw<D>(Ks + s * KV_TILE);
@@ -894,6 +958,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     wg_barrier(1 + wg);
     tile_to_rows<D, QROWS>(Qw, dq + ((size_t)bh * Sq + wq0) * hd,
                            Sq - wq0, hd);
+    if constexpr (L::WIDE) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(done);
+    }
   }
 }
 
@@ -905,6 +973,7 @@ cudaError_t launch(const Args& a) {
   const int krows = a.Sk > 0 ? a.Sk : a.Sq;
   const int kslabs = a.Sk > 0 ? a.B * a.KVH : a.B * a.H;
   CUtensorMap tq, tk, tv, tdo;
+  constexpr int KROWS = Layout<D>::KROWS;
   cudaError_t err =
       encode_rows_map<D>(&tq, a.q, a.hd, a.Sq, a.B * a.H, QROWS);
   if (err == cudaSuccess)
@@ -919,7 +988,8 @@ cudaError_t launch(const Args& a) {
   if (err != cudaSuccess) return err;
   const int BH = a.B * a.H;
   const int grid = (a.Sq + QROWS - 1) / QROWS * BH;
-  flash_dq_wgmma_kernel<D><<<grid, THREADS, smem, a.stream>>>(
+  constexpr int threads = Layout<D>::THREADS;
+  flash_dq_wgmma_kernel<D><<<grid, threads, smem, a.stream>>>(
       tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dq), BH, a.H,
       a.KVH, a.Sq, a.Sk, a.hd, a.q_offset, a.k_offset, a.causal, a.window,
       a.scale);
@@ -931,7 +1001,8 @@ cudaError_t launch(const Args& a) {
 template <int D>
 cudaError_t launch_dq(const Args& a, bool bf16_body) {
   if (bf16_body) return dq::launch<D>(a);
-  const dim3 grid((a.Sq + BQ - 1) / BQ, a.B * a.H);
+  constexpr int R = F32Layout<D>::R;
+  const dim3 grid((a.Sq + R - 1) / R, a.B * a.H);
   constexpr size_t smem = F32Layout<D>::bytes;
   auto kernel = flash_dq_f32_kernel<D>;
   cudaError_t err = allow_smem(kernel, smem);
@@ -947,7 +1018,8 @@ cudaError_t launch_dq(const Args& a, bool bf16_body) {
 template <int D>
 cudaError_t launch_dkv(const Args& a, bool bf16_body) {
   if (bf16_body) return dkv::launch<D>(a);
-  const dim3 grid((a.Sk + BK - 1) / BK, a.B * a.KVH);
+  constexpr int R = F32Layout<D>::R;
+  const dim3 grid((a.Sk + R - 1) / R, a.B * a.KVH);
   constexpr size_t smem = F32Layout<D>::bytes;
   auto kernel = flash_dkv_f32_kernel<D>;
   cudaError_t err = allow_smem(kernel, smem);
@@ -978,7 +1050,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 // f32; dq like q; dk, dv like k. All contiguous, q/k/v/dout and the
 // outputs of one type (is_bf16 ? bf16 : f32; bf16 pointers 16-byte
 // aligned). window <= 0 means no sliding window. hd is a multiple of 8
-// from 8 to 128; any other returns cudaErrorInvalidValue. Each returns
+// from 8 to 256; any other returns cudaErrorInvalidValue. Each returns
 // cudaGetLastError() after its launch.
 extern "C" int etpu_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,

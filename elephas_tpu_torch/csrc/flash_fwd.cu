@@ -12,13 +12,14 @@
 // CTA over K/V tiles; tiles wholly above the causal diagonal or below
 // the window are skipped before any load. Ragged edges are masked in
 // the kernel, never padded in device memory. Both bodies are
-// instantiated at widths 16, 32, 64 and 128 (hopper.cuh
-// `with_head_dim`), and a head dim d that is a multiple of 8 up to 128
+// instantiated at widths 16, 32, 64, 128 and 256 (hopper.cuh
+// `with_head_dim`), and a head dim d that is a multiple of 8 up to 256
 // runs the body of the smallest width W >= d: 16, 32 and 64 are the head
 // dims of the repo's configurations, 128 that of most published LMs
-// (Llama-2-7B, Mistral-7B, Llama-3-8B), and 96 (Phi-3-mini), 80 (Phi-2)
-// or 72 (DiT-XL/2) run on the W 128 body, 40 (Stable Diffusion 1.x) on W
-// 64, 8 on W 16. The tensor maps hold d: TMA reads each row's d columns
+// (Llama-2-7B, Mistral-7B, Llama-3-8B), 256 that of Gemma-2B and -7B and
+// GPT-J, and 96 (Phi-3-mini), 80 (Phi-2) or 72 (DiT-XL/2) run on the W
+// 128 body, 136-248 on W 256, 40 (Stable Diffusion 1.x) on W 64, 8 on W
+// 16. The tensor maps hold d: TMA reads each row's d columns
 // and fills the tile's columns d .. W - 1 with zeros, the products run
 // at W unchanged (zero columns add nothing to S and give zero columns
 // of O), and the store writes O's first d columns; the f32 body loads
@@ -71,13 +72,29 @@
 //   producer and consumers wait without a watchdog and warp 9 watches
 //   the CTA (hopper.cuh `mbar_wait_spin`). ptxas: 168 registers at
 //   launch, no spill.
+// - bf16 at width 256 (`flash_fwd_w256_kernel`): each 512-byte row four
+//   64-column blocks of the 128-byte swizzle, S = Q K^T 16 k steps, P V
+//   one m64n64k16 per block. O for a warpgroup's 64 rows at 256 columns
+//   is 128 f32 a thread, so the CTA is the same 12 warps (consumers at
+//   240 registers), and K/V tiles are 64 keys: S of a 64-key tile (32
+//   f32) and its packed P (16) fit beside O where a 128-key tile's (64
+//   and 32) would not. Shared memory: Q's 128 rows (64 KB) and K and V
+//   in 2-stage rings of 32 KB tiles, 193 KB; O leaves through each
+//   warpgroup's own Q rows, dead after its last S (no room for a
+//   staging tile of its own). K is released after S, V after P V. One
+//   CTA per (batch*head, 128-row q tile), the heaviest first, not
+//   persistent, and no turns: the two warpgroups overlap each other's
+//   softmax and products as the narrow bodies' do. One producer lane
+//   loads Q, K and V; warp 9 watches the CTA.
 // - f32: 256 threads on the CUDA cores, each holding a 4x4 block of the
 //   64x64 score tile and a 4x(D/16) block of O in registers; row max and
-//   sum reduce over the 16 lanes sharing a row with warp shuffles.
+//   sum reduce over the 16 lanes sharing a row with warp shuffles. At
+//   width 256 its four tiles take 209 KB of shared memory.
 //
 // At a head dim below its body's width W the tensor cores also multiply
 // the filled zeros: W / d times the work at d, 1.33x at 96, 1.6x at 80,
-// 1.78x at 72. Bytes read from device memory stay those of d.
+// 1.78x at 72, 1.88x at 136 (on W 256). Bytes read from device memory
+// stay those of d.
 //
 // What bounds it on the H100. A (q, k) pair costs 4*D flops and each
 // operand row is read once per tile, so at head_dim 64 and 128 the loop
@@ -90,7 +107,11 @@
 // and S 1024 a head's work is small (36 (q tile, K/V tile) steps under
 // causal masking): K and V read again from HBM by each of a head's 8 q
 // tiles, or a CTA's start and its store, cost as much as the softmax,
-// which is why that body groups heads for L2 and persists.
+// which is why that body groups heads for L2 and persists. At D 256 a
+// (q, k) pair costs 1024 flops against the softmax's same FMA and exp2,
+// so the tensor cores bound it more than at 128; the 256 body has no
+// turns and no persistence yet, so its softmax, its CTA's start and its
+// store run beside idle tensor cores (later work, ROADMAP).
 #include <type_traits>
 
 #include "common.cuh"
@@ -925,6 +946,161 @@ __global__ void __launch_bounds__(kWideThreads, 1)
   }
 }
 
+// ------------------------------------------------- bf16 at width 256
+struct Wide256 {
+  static constexpr int D = 256;
+  static constexpr int WK = 64;      // key rows per K/V tile
+  static constexpr int STAGES = 2;   // K/V tiles in flight
+  static constexpr int CHAINS = 4;   // the softmax's max and sum chains
+  // Q (64 KB), the K ring, the V ring (32 KB tiles), then the barriers:
+  // qfull, kfull[STAGES], vfull[STAGES], kempty[STAGES], vempty[STAGES],
+  // done; +1024 for alignment: 193 KB of the 227
+  static constexpr uint32_t row = Rows<D>::bytes, atom = Rows<D>::atom;
+  static constexpr uint32_t tile = WK * row, qtile = WQ * row;
+  static constexpr uint32_t q = 0, k = qtile, v = k + STAGES * tile,
+                            bars = v + STAGES * tile;
+  static constexpr uint32_t qfull = bars, kfull = bars + 8,
+                            vfull = kfull + 8 * STAGES,
+                            kempty = vfull + 8 * STAGES,
+                            vempty = kempty + 8 * STAGES,
+                            done = vempty + 8 * STAGES;
+  static constexpr size_t bytes = done + 8 + 1024;
+};
+
+__global__ void __launch_bounds__(kWideThreads, 1)
+    flash_fwd_w256_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          bf16* __restrict__ o, float* __restrict__ lse,
+                          int BH, int H, int KVH, int Sq, int Sk, int hd,
+                          int q_offset, int k_offset, int causal,
+                          int window, float scale_log2) {
+  using L = Wide256;
+  constexpr int D = L::D, WK = L::WK, STAGES = L::STAGES;
+  constexpr uint32_t TILE = L::tile;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  uint8_t* Qs = sm + L::q;
+  uint8_t* Ks = sm + L::k;
+  uint8_t* Vs = sm + L::v;
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(sm + L::qfull);
+  uint64_t* kfull = reinterpret_cast<uint64_t*>(sm + L::kfull);
+  uint64_t* vfull = reinterpret_cast<uint64_t*>(sm + L::vfull);
+  uint64_t* kempty = reinterpret_cast<uint64_t*>(sm + L::kempty);
+  uint64_t* vempty = reinterpret_cast<uint64_t*>(sm + L::vempty);
+  uint64_t* done = reinterpret_cast<uint64_t*>(sm + L::done);
+
+  // heaviest first, as in flash_fwd_wgmma_kernel
+  const int nqt = (Sq + WQ - 1) / WQ;
+  const int q0 = (nqt - 1 - (int)blockIdx.x / BH) * WQ;
+  const int bh = blockIdx.x % BH;
+  const int h = bh % H;
+  // GQA: query row bh = b*H + h reads kv row b*KVH + h / (H / KVH)
+  const int kv_row = (bh / H) * KVH + h / (H / KVH);
+  const int q_last = min(q0 + WQ, Sq) - 1;
+  const int nk = (Sk + WK - 1) / WK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qfull, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&kfull[s], 1);
+      mbar_init(&vfull[s], 1);
+      mbar_init(&kempty[s], 8);  // lane 0 of each consumer warp
+      mbar_init(&vempty[s], 8);
+    }
+    mbar_init(done, 8);  // lane 0 of each consumer warp, at its end
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int warp = warp_index(), lane = threadIdx.x % 32;
+  if (warp >= 8) {
+    // ---- producer warpgroup: every warp gives its registers back
+    // first; warp 9 watches the CTA; lane 0 of warp 8 loads Q once, then
+    // K and V of each live tile into their rings
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == 9) {
+      cta_watchdog(done);
+    } else if (warp == 8 && lane == 0) {
+      mbar_expect_tx(qfull, L::qtile);
+      tma_load_tile<D, WQ>(Qs, &tq, qfull, q0, bh);
+      int r = 0;
+      for (int kj = 0; kj < nk; ++kj) {
+        const int k0 = kj * WK;
+        if (!rows_meet(q0, q_last, k0, min(k0 + WK, Sk) - 1, q_offset,
+                       k_offset, causal, window))
+          continue;
+        const int s = r % STAGES;
+        const uint32_t free_phase = ((r / STAGES) & 1) ^ 1;
+        ++r;
+        mbar_wait_spin(&kempty[s], free_phase);
+        mbar_expect_tx(&kfull[s], TILE);
+        tma_load_tile<D, WK>(Ks + s * TILE, &tk, &kfull[s], k0, kv_row);
+        mbar_wait_spin(&vempty[s], free_phase);
+        mbar_expect_tx(&vfull[s], TILE);
+        tma_load_tile<D, WK>(Vs + s * TILE, &tv, &vfull[s], k0, kv_row);
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns query rows wq0 .. wq0 + 63
+    setmaxnreg_inc<kConsumerRegs>();
+    const int wg = warp / 4;
+    const int wq0 = q0 + 64 * wg;
+    const int qrow = wq0 + 16 * (warp % 4) + lane / 4;  // and qrow + 8
+    uint8_t* Qw = Qs + wg * 64 * L::atom;  // its rows in block 0
+    const uint64_t qdesc = desc_sw<D>(Qw);
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    float oacc[D / 2], m[2] = {-INFINITY, -INFINITY}, lsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+
+    mbar_wait_spin(qfull, 0);
+    int r = 0;
+    for (int kj = 0; kj < nk; ++kj) {
+      const int k0 = kj * WK;
+      if (!rows_meet(q0, q_last, k0, min(k0 + WK, Sk) - 1, q_offset,
+                     k_offset, causal, window))
+        continue;
+      const int s = r % STAGES;
+      const uint32_t phase = (r / STAGES) & 1;
+      ++r;
+      // S = Q K^T: 64 rows x 64 keys, 16 k16 steps over the head dim
+      float sacc[WK / 2];
+      mbar_wait_spin(&kfull[s], phase);
+      wgmma_fence();
+      issue_scores<D, WK>(sacc, qdesc, Ks + s * TILE);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(sacc);
+      release(&kempty[s]);
+      if (tile_masked<WK>(wq0, k0, Sk, q_offset, k_offset, causal, window))
+        mask_rows(sacc, qrow, k0, Sk, q_offset, k_offset, causal, window);
+      float corr[2];
+      online_softmax<WK / 2, L::CHAINS>(sacc, m, lsum, corr, scale_log2);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) oacc[i] *= corr[(i / 2) % 2];
+      // O += P V with P in bf16 registers and V MN-major from the ring
+      uint32_t pa[WK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < WK / 16; ++kk) pack_a(sacc, kk, pa[kk]);
+      mbar_wait_spin(&vfull[s], phase);
+      wgmma_fence();
+      issue_values<D, WK>(oacc, pa, Vs + s * TILE);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(oacc);
+      release(&vempty[s]);
+    }
+    // O through this warpgroup's Q rows: read by nothing after its last
+    // product
+    store_rows<D>(oacc, m, lsum, Qw, o, lse, bh, wq0, qrow, Sq, hd, wg);
+    release(done);
+  }
+}
+
 template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* o, float* lse, int B, int H, int KVH, int Sq,
@@ -937,15 +1113,23 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   const int krows = Sk > 0 ? Sk : Sq, kslabs = Sk > 0 ? B * KVH : B * H;
   CUtensorMap tq, tk, tv;
   cudaError_t err = encode_rows_map<D>(&tq, q, hd, Sq, B * H, WQ);
-  constexpr int WK = 128;  // both bodies' K/V tile
-  static_assert(WgmmaLayout<D>::WK == WK && PingPong::WK == WK, "tiles");
+  // the K/V tile: 64 rows at width 256, else 128
+  constexpr int WK = D == 256 ? Wide256::WK : 128;
+  static_assert(WgmmaLayout<16>::WK == 128 && PingPong::WK == 128, "tiles");
   if (err == cudaSuccess)
     err = encode_rows_map<D>(&tk, kp, hd, krows, kslabs, WK);
   if (err == cudaSuccess)
     err = encode_rows_map<D>(&tv, vp, hd, krows, kslabs, WK);
   if (err != cudaSuccess) return err;
   const int grid = (Sq + WQ - 1) / WQ * (B * H);
-  if constexpr (D == 128) {
+  if constexpr (D == 256) {
+    constexpr size_t smem = Wide256::bytes;
+    err = allow_smem(flash_fwd_w256_kernel, smem);
+    if (err != cudaSuccess) return err;
+    flash_fwd_w256_kernel<<<grid, kWideThreads, smem, stream>>>(
+        tq, tk, tv, static_cast<bf16*>(o), lse, B * H, H, KVH, Sq, Sk, hd,
+        q_offset, k_offset, causal, window, scale * kLog2e);
+  } else if constexpr (D == 128) {
     constexpr size_t smem = PingPong::bytes;
     err = allow_smem(flash_fwd_pingpong_kernel, smem);
     if (err != cudaSuccess) return err;
@@ -999,7 +1183,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 // q (B, H, Sq, hd), k/v (B, KVH, Sk, hd), o (B, H, Sq, hd), all
 // contiguous and of one type (is_bf16 ? bf16 : f32; bf16 q/k/v 16-byte
-// aligned); lse (B, H, Sq) f32. hd is a multiple of 8 from 8 to 128 (any
+// aligned); lse (B, H, Sq) f32. hd is a multiple of 8 from 8 to 256 (any
 // other returns cudaErrorInvalidValue). window <= 0 means no sliding
 // window. Returns cudaGetLastError() after the launch.
 extern "C" int etpu_flash_fwd(const void* q, const void* k, const void* v,

@@ -30,17 +30,18 @@
 //   memory), `wgmma_rs_n16_tb` / `_n32_tb` / `_n64_tb` (m64nNk16: A from
 //   registers, B MN-major from shared memory) and `wgmma_rs_rows<D, R>`
 //   over them (N the head dim; one n64 product per column block at D
-//   128).
+//   128 and 256).
 // - cp.async: `cp_async_16` (`cp.async.cg.shared.global`, 16 bytes from
 //   device memory into shared memory, bypassing L1), `cp_async_commit`
 //   and `cp_async_wait<N>` (`cp.async.commit_group` / `wait_group`:
 //   returns once at most N of this thread's groups are in flight; the
 //   finished copies are then visible to this thread).
-// - Tiles of body width W: the bodies are instantiated at W = 16, 32, 64
-//   and 128, and a head dim d (a multiple of 8, 8 <= d <= 128) runs the
-//   body of the smallest W >= d: 8 and 16 on W 16, 24 and 32 on W 32,
-//   40-64 on W 64, 72-128 on W 128. A tile row is 2*W bytes in shared
-//   memory (256 at W 128, 128 at 64, 64 at 32, 32 at 16), of which the
+// - Tiles of body width W: the bodies are instantiated at W = 16, 32, 64,
+//   128 and 256, and a head dim d (a multiple of 8, 8 <= d <= 256) runs
+//   the body of the smallest W >= d: 8 and 16 on W 16, 24 and 32 on W 32,
+//   40-64 on W 64, 72-128 on W 128, 136-256 on W 256. A tile row is 2*W
+//   bytes in shared memory (512 at W 256, 256 at 128, 128 at 64, 64 at
+//   32, 32 at 16), of which the
 //   first 2*d bytes are the head's and the rest zeros: the tensor map
 //   holds the real d (its row stride is 2*d bytes, so d must be a
 //   multiple of 8 for TMA's 16-byte strides), and TMA fills the box's
@@ -54,7 +55,11 @@
 //   so at W 128 a tile of R rows is stored as two column blocks, each an
 //   R x 64 tile in the 128-byte swizzle, block 1 (columns 64-127) R *
 //   128 bytes after block 0: exactly two W 64 tiles (`Rows<W>`); at d
-//   72-120 block 1 is partly real. `desc_sw<W>` is the 64-bit
+//   72-120 block 1 is partly real. At W 256 a row is four such blocks
+//   (block b, columns 64b .. 64b + 63, at b * R * 128 bytes), so blocks
+//   2 and 3 of a W 256 tile are a W 128 tile of their own; at d 136-192
+//   block 3, and at d 136 most of block 2, hold only filled zeros, which
+//   TMA still writes and counts. `desc_sw<W>` is the 64-bit
 //   shared-memory matrix descriptor of a block, `desc_k<W, R>` that of
 //   one k16 step of a K-major operand (which stays inside one block),
 //   `swz<W, R>` the byte offset of a 16-byte chunk.
@@ -90,7 +95,11 @@
 //   the first d columns of such rows out to device memory (rows of d
 //   values) with 16-byte stores, dropping rows past a limit. At W 128 the
 //   accumulator's first 32 registers are columns 0-63 (block 0), the
-//   last 32 columns 64-127 (block 1).
+//   last 32 columns 64-127 (block 1); at W 256 registers 32b ..
+//   32b + 31 are block b's columns, the layout of one m64n256 product.
+//   `tile_to_rows` also takes a row stride of its own, so a warpgroup
+//   that holds only 128 of a row's 256 columns stores them as a W 128
+//   tile (blocks 2 and 3 of a W 256 tile) into the middle of each row.
 #pragma once
 
 #include <cuda.h>
@@ -112,13 +121,13 @@ constexpr float kLn2 = 0.6931471805599453f;
 // chunk index (bits 4..): 3 bits at 128-byte rows (chunk c of row r at c
 // ^ (r % 8)), 2 at 64-byte rows (c ^ (r / 2 % 4)), 1 at 32-byte rows (c
 // ^ (r / 4 % 2)); the pattern repeats every 8 rows, 1024, 512 or 256
-// bytes. A 256-byte row (D 128) is split into two 128-byte column
-// blocks, each stored as a tile of its own (block b of an R-row tile at
-// b * R * 128 bytes).
+// bytes. A 256- or 512-byte row (D 128 or 256) is split into two or four
+// 128-byte column blocks, each stored as a tile of its own (block b of
+// an R-row tile at b * R * 128 bytes).
 template <int D>
 struct Rows {
-  static_assert(D == 16 || D == 32 || D == 64 || D == 128,
-                "the bf16 bodies are 16, 32, 64 or 128 columns wide");
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128 || D == 256,
+                "the bf16 bodies are 16, 32, 64, 128 or 256 columns wide");
   static constexpr int bytes = 2 * D;
   // the bytes of one row inside a column block, the block's columns,
   // and the blocks of a row
@@ -139,22 +148,23 @@ struct Rows {
 // Whether the flash kernels take head dim d (kernel_takes_head_dim in
 // ops/flash_attention.py is the same rule): a multiple of 8, so a row of
 // d bf16 values is a multiple of TMA's 16-byte stride unit, from 8 to
-// the widest body's 128.
-inline bool takes_head_dim(int d) { return d % 8 == 0 && d >= 8 && d <= 128; }
+// the widest body's 256.
+inline bool takes_head_dim(int d) { return d % 8 == 0 && d >= 8 && d <= 256; }
 
-// The one switch from a head dim to a body: calls
-// f(std::integral_constant<int, W>{}) with W the smallest of 16, 32, 64
-// and 128 that is at least d, and returns its result (the caller passes
-// the real d on to the kernel at run time), or cudaErrorInvalidValue at
-// a head dim the kernels do not take. The paged split body takes only
-// 16, 32, 64 and 128 (split::takes) and refuses a W that is not d.
+// The one switch from a head dim to a flash body: calls
+// f(std::integral_constant<int, W>{}) with W the smallest of 16, 32, 64,
+// 128 and 256 that is at least d, and returns its result (the caller
+// passes the real d on to the kernel at run time), or
+// cudaErrorInvalidValue at a head dim the kernels do not take. (The
+// paged split body has a switch of its own, split::launch.)
 template <typename F>
 inline cudaError_t with_head_dim(int d, F&& f) {
   if (!takes_head_dim(d)) return cudaErrorInvalidValue;
   if (d <= 16) return f(std::integral_constant<int, 16>{});
   if (d <= 32) return f(std::integral_constant<int, 32>{});
   if (d <= 64) return f(std::integral_constant<int, 64>{});
-  return f(std::integral_constant<int, 128>{});
+  if (d <= 128) return f(std::integral_constant<int, 128>{});
+  return f(std::integral_constant<int, 256>{});
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -240,7 +250,8 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-// mbar_wait without the watchdog, for the head-dim-128 bodies: a `trap`
+// mbar_wait without the watchdog, for the head-dim-128 and -256 bodies
+// (the same reason at 256): a `trap`
 // anywhere in their consumers' code makes ptxas serialize every wgmma
 // ("C7512 ... insufficient register resources") and spill. Their CTA has
 // a watchdog warp instead (`cta_watchdog`).
@@ -531,15 +542,20 @@ __device__ __forceinline__ void wgmma_rs_n16_tb(float (&d)[8],
 // D (64 x D) += A (64 x 16, registers) . B (16 x D): rows 16kk ..
 // 16kk + 15 of an MN-major R-row tile of head_dim-D rows whose block 0
 // `desc` describes, for the products whose N is the head dim. At D 128
-// one n64 product per column block, block b into accumulator registers
-// 32b .. 32b + 31.
+// and 256 one n64 product per column block, block b into accumulator
+// registers 32b .. 32b + 31.
 template <int D, int R>
 __device__ __forceinline__ void wgmma_rs_rows(float (&d)[D / 2],
                                               const uint32_t (&a)[4],
                                               uint64_t desc, int kk) {
   constexpr uint64_t kAtom = Rows<D>::atom;  // 16 rows, in 16-byte units
   const uint64_t step = kAtom * static_cast<uint64_t>(kk);
-  if constexpr (D == 128) {
+  if constexpr (D == 256) {
+    wgmma_rs_n64_tb<0>(d, a, desc + step);
+    wgmma_rs_n64_tb<32>(d, a, desc + ((R * kAtom) >> 4) + step);
+    wgmma_rs_n64_tb<64>(d, a, desc + ((2 * R * kAtom) >> 4) + step);
+    wgmma_rs_n64_tb<96>(d, a, desc + ((3 * R * kAtom) >> 4) + step);
+  } else if constexpr (D == 128) {
     wgmma_rs_n64_tb<0>(d, a, desc + step);
     wgmma_rs_n64_tb<32>(d, a, desc + ((R * kAtom) >> 4) + step);
   } else if constexpr (D == 64) {
@@ -578,7 +594,8 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 }
 
 // The register split of the 384-thread head-dim-128 bodies (see the note
-// at the top): the launch gives 168 a thread.
+// at the top; the head-dim-256 bodies take the same): the launch gives
+// 168 a thread.
 constexpr int kWideThreads = 3 * 128;
 constexpr uint32_t kProducerRegs = 24, kConsumerRegs = 240;
 static_assert(128 * kProducerRegs + 256 * kConsumerRegs <=
@@ -650,24 +667,30 @@ __device__ __forceinline__ void acc_to_tile(const float (&d)[D / 2],
 }
 
 // The warpgroup's 64 swizzled rows of an R-row tile (`tile` as in
-// acc_to_tile) -> rows [0, limit) of `dst` (d bf16 per row, d <= D a
-// multiple of 8), 16 bytes per store, D/8 threads to a row: a thread
-// whose chunk lies at or past column d stores nothing (the tile's
-// columns there are the zeros of the filled columns), so no byte past a
-// row's d values is written.
+// acc_to_tile) -> rows [0, limit) of `dst` (rows `ld` bf16 apart; the
+// first d <= D of each row's tile columns, d a multiple of 8), 16 bytes
+// per store, D/8 threads to a row: a thread whose chunk lies at or past
+// column d stores nothing (the tile's columns there are the zeros of
+// the filled columns), so no byte past a row's d values is written.
 template <int D, int R>
 __device__ __forceinline__ void tile_to_rows(const uint8_t* tile,
                                              __nv_bfloat16* dst, int limit,
-                                             int d) {
+                                             int d, int ld) {
   constexpr int kChunks = D / 8;  // 16-byte chunks per tile row
   const int t = threadIdx.x % 128, chunks = d / 8;
 #pragma unroll
   for (int i = 0; i < 64 * kChunks / 128; ++i) {
     const int idx = t + 128 * i, row = idx / kChunks, c = idx % kChunks;
     if (row < limit && c < chunks)
-      *reinterpret_cast<uint4*>(dst + (size_t)row * d + c * 8) =
+      *reinterpret_cast<uint4*>(dst + (size_t)row * ld + c * 8) =
           *reinterpret_cast<const uint4*>(tile + swz<D, R>(row, c));
   }
+}
+template <int D, int R>
+__device__ __forceinline__ void tile_to_rows(const uint8_t* tile,
+                                             __nv_bfloat16* dst, int limit,
+                                             int d) {
+  tile_to_rows<D, R>(tile, dst, limit, d, d);
 }
 
 // ------------------------------------------------------ host: tensor maps
@@ -699,7 +722,7 @@ inline EncodeTiledFn encode_tiled() {
 
 // The map of a contiguous (slabs, rows, d) bf16 tensor as dims (d, rows,
 // slabs) for a body of width D >= d: boxes of one column block x
-// box_rows x 1 (`Rows<D>::cols` columns: D, or 64 at D 128) in the
+// box_rows x 1 (`Rows<D>::cols` columns: D, or 64 at D 128 and 256) in the
 // swizzle of `Rows<D>`. Columns past d and rows past `rows` of a slab
 // read as zeros (CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE fills with zeros; the
 // NaN fill would poison the products), and a box still completes its

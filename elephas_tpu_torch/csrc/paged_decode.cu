@@ -65,7 +65,9 @@
 //   (m = -inf) weighs 0. No atomics: two launches give the same bits.
 //
 // The general body: f32 at any D, and bf16 at any other head dim or
-// group size (8-way groups, head dims the flash kernels lack). One CTA
+// group size (8-way groups, head dims the split body lacks: 96, and 256
+// with Gemma-2B's 8 query heads over 1 kv head, whose rows are 2 KB of
+// f32 a block row here and 50 KB a CTA at blocks of 16). One CTA
 // of 128 threads per (row, kv head) loops over the live blocks, staging
 // each K and V block in shared memory as f32 with four barriers a block.
 // It stays for f32 because f32 is the parity path, held within 1e-4 of
@@ -514,10 +516,11 @@ cudaError_t launch(const void* q, const void* kpool, const void* vpool,
                    void* out, float* ws, int B, int H, int KVH, int bs,
                    int D, int MB, int L, int window, float scale,
                    cudaStream_t stream) {
-  return with_head_dim(D, [&](auto d) {
+  // the split body's own switch over the head dims it is instantiated
+  // at (its rows are exactly D wide, no filled columns): not the flash
+  // kernels' with_head_dim, which would also instantiate it at 256
+  auto at = [&](auto d) {
     constexpr int Dc = decltype(d)::value;
-    // the split body has no filled columns: its rows are exactly Dc wide
-    if (Dc != D) return cudaErrorInvalidValue;
     switch (H / KVH) {
       case 1:
         return launch_dg<Dc, 1>(q, kpool, vpool, tables, pos, slopes, out,
@@ -532,7 +535,19 @@ cudaError_t launch(const void* q, const void* kpool, const void* vpool,
                                 ws, B, H, KVH, bs, MB, L, window, scale,
                                 stream);
     }
-  });
+  };
+  switch (D) {
+    case 16:
+      return at(std::integral_constant<int, 16>{});
+    case 32:
+      return at(std::integral_constant<int, 32>{});
+    case 64:
+      return at(std::integral_constant<int, 64>{});
+    case 128:
+      return at(std::integral_constant<int, 128>{});
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace split

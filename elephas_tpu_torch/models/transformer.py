@@ -59,7 +59,7 @@ __all__ = ["TransformerConfig", "init_params", "forward", "forward_with_aux",
            "embed_apply", "head_logits", "resolve_attention_impl",
            "segment_target_weights", "select_moe_dispatch",
            "NEG_INF", "FLAGSHIP", "TRANSFORMER_TPUMODEL", "PHI3_MINI",
-           "OLMOE_1B_7B"]
+           "OLMOE_1B_7B", "GEMMA_2B"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,6 +188,22 @@ OLMOE_1B_7B = dict(vocab_size=50304, num_layers=16, num_heads=16,
                    moe_aux_weight=0.01, positional="rope",
                    rope_theta=10000.0, norm="rmsnorm",
                    tied_embedding=False)
+#: ``google/gemma-2b``'s ``config.json``: vocab 256000, 18 layers, 8
+#: heads over 1 kv head (multi-query), hidden 2048 (head dim 256),
+#: intermediate 16384 (gated), RMSNorm, RoPE theta 10000, tied
+#: embeddings; 2.51 B parameters (the tied embedding's 0.524 B plus 18 x
+#: 110.1 M). The departures the repo's config forces: SwiGLU in place
+#: of GeGLU (the same three matrices, SiLU in place of tanh-GELU, and
+#: the repo's two MLP bias vectors, zero at initialization, 18 K
+#: parameters a layer); no sqrt(d_model) scaling of the embedding; the
+#: repo's RMSNorm (eps 1e-5 where Gemma has 1e-6, and ``x * g`` where
+#: Gemma has ``x * (1 + g)``, the same function under another
+#: parametrization); ``max_seq_len`` 2048 of its 8192:
+#: ``TransformerConfig(**GEMMA_2B)``
+GEMMA_2B = dict(vocab_size=256000, num_layers=18, num_heads=8,
+                num_kv_heads=1, d_model=2048, d_ff=16384, max_seq_len=2048,
+                positional="rope", rope_theta=10000.0, norm="rmsnorm",
+                mlp_variant="swiglu", tied_embedding=True)
 
 
 def init_params(config: TransformerConfig, generator: torch.Generator,

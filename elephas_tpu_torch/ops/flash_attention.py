@@ -15,9 +15,9 @@ the two backward kernels, as the ``_flash`` custom VJP is.
 
 On CPU tensors each wrapper computes its plain version; on CUDA tensors
 it launches its kernel or raises: a head dim the kernels do not take
-(:func:`kernel_takes_head_dim`: a multiple of 8 from 8 to 128) raises,
-there is no plain fallback. The kernels have bodies 16, 32, 64 and 128
-columns wide; a head dim d runs the narrowest body at least d wide, its
+(:func:`kernel_takes_head_dim`: a multiple of 8 from 8 to 256) raises,
+there is no plain fallback. The kernels have bodies 16, 32, 64, 128 and
+256 columns wide; a head dim d runs the narrowest body at least d wide, its
 tensor maps holding d, so TMA reads each row's d values and fills the
 tile's other columns with zeros in shared memory, and the kernels store
 only each row's first d columns. The wrappers pad nothing in device
@@ -42,15 +42,15 @@ __all__ = ["flash_attention", "flash_forward", "flash_forward_plain",
 def kernel_takes_head_dim(d: int) -> bool:
     """Whether the CUDA kernels take head dim ``d``, bf16 and f32: a
     multiple of 8 (a row of d bf16 values is then a multiple of the
-    tensor maps' 16-byte stride unit) from 8 to 128, the widest body
+    tensor maps' 16-byte stride unit) from 8 to 256, the widest body
     (``takes_head_dim`` in ``csrc/hopper.cuh``). That covers the repo's
     configurations (16, 32, 64), most published LMs (128: Llama-2-7B,
-    Mistral-7B), Phi-3-mini (96), Phi-2 (80), DiT-XL/2 (72). The CPU
-    plain versions take any."""
-    return d % 8 == 0 and 8 <= d <= 128
+    Mistral-7B), Gemma-2B and -7B and GPT-J (256), Phi-3-mini (96),
+    Phi-2 (80), DiT-XL/2 (72). The CPU plain versions take any."""
+    return d % 8 == 0 and 8 <= d <= 256
 
 #: the one block size :func:`flash_attention` takes by name; the kernels
-#: pick their own tiles (64 or 128 rows, csrc/flash_*.cu)
+#: pick their own tiles (32, 64 or 128 rows, csrc/flash_*.cu)
 BLOCK = 64
 
 
@@ -113,7 +113,7 @@ def _kernel_operands(q: torch.Tensor, **tensors: torch.Tensor):
     if not kernel_takes_head_dim(q.shape[3]):
         raise ValueError(
             f"no flash kernel for head_dim {q.shape[3]}: the kernels take "
-            f"a head_dim that is a multiple of 8 from 8 to 128")
+            f"a head_dim that is a multiple of 8 from 8 to 256")
     if q.device.type != "cuda":
         raise ValueError(f"no flash kernel for device {q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16):

@@ -2,13 +2,15 @@
 torch.profiler.
 
     python -m elephas_tpu_torch.profile_forward [--reps 20] [--batch 2]
-        [--config flagship|phi3_mini|olmoe_1b_7b]
+        [--config flagship|phi3_mini|olmoe_1b_7b|gemma_2b]
 
 Runs on the CUDA device only. Builds the LM config (``flagship``: vocab
 32000, 8 layers, 16 heads, d_model 1024, d_ff 4096; ``phi3_mini``:
 Phi-3-mini-4k-instruct's widths, 32 layers, head dim 96, ``PHI3_MINI``;
 ``olmoe_1b_7b``: OLMoE-1B-7B's widths, 16 layers, 64 experts top-8 on
-routed dispatch, ``OLMOE_1B_7B``; bf16 compute over f32 weights from a
+routed dispatch, ``OLMOE_1B_7B``; ``gemma_2b``: Gemma-2B's widths, 18
+layers, head dim 256 over one kv head, ``GEMMA_2B``; bf16 compute over
+f32 weights from a
 seed) and calls ``forward`` with the flash kernel on ``--batch`` x a
 sequence of 1024 (2048 for ``phi3_mini``) seeded token ids: three
 warm-up calls, then
@@ -34,18 +36,20 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--top", type=int, default=10)
     ap.add_argument("--config", default="flagship",
-                    choices=("flagship", "phi3_mini", "olmoe_1b_7b"))
+                    choices=("flagship", "phi3_mini", "olmoe_1b_7b",
+                             "gemma_2b"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward needs a CUDA device")
     from torch.profiler import ProfilerActivity, profile
 
-    from .models.transformer import (FLAGSHIP, OLMOE_1B_7B, PHI3_MINI,
-                                     TransformerConfig, forward, init_params)
+    from .models.transformer import (FLAGSHIP, GEMMA_2B, OLMOE_1B_7B,
+                                     PHI3_MINI, TransformerConfig, forward,
+                                     init_params)
     from .profile_serving import device_breakdown
 
     widths = {"flagship": FLAGSHIP, "phi3_mini": PHI3_MINI,
-              "olmoe_1b_7b": OLMOE_1B_7B}[args.config]
+              "olmoe_1b_7b": OLMOE_1B_7B, "gemma_2b": GEMMA_2B}[args.config]
     cfg = dataclasses.replace(TransformerConfig(**widths),
                               attention_impl="flash")
     seq = min(cfg.max_seq_len, 2048 if args.config == "phi3_mini" else 1024)

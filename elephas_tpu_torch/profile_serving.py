@@ -1,15 +1,18 @@
 """Where a decode step's time goes: the paged engine under torch.profiler.
 
     python -m elephas_tpu_torch.profile_serving [--kernel fused] [--steps 16]
-        [--config flagship|olmoe_1b_7b] [--int8]
+        [--config flagship|olmoe_1b_7b|gemma_2b] [--int8]
 
 Runs on the CUDA device only. Builds the flagship LM config (vocab
 32000, 8 layers, 16 heads, d_model 1024, d_ff 4096; or ``olmoe_1b_7b``,
 ``OLMOE_1B_7B``: 16 layers, 64 experts top-8, gating densely in decode;
-bf16 compute over f32 weights from a seed), fills all 8 slots of an
+or ``gemma_2b``, ``GEMMA_2B``: 18 layers, head dim 256, 8 heads over 1
+kv head, the paged kernel's general body; bf16 compute over f32 weights
+from a seed), fills all 8 slots of an
 engine with 256-token prompts, steps until every slot decodes, then
 times ``--steps`` steady decode steps, and profiles as many more. The
-flagship runs the paged engine (block 16, 513 blocks, ``--kernel``);
+flagship and Gemma-2B run the paged engine (block 16, 513 blocks,
+``--kernel``);
 the MoE LM the contiguous engine (paged mode refuses MoE). ``--int8``
 serves ``quantize_lm_params`` weights, and on the contiguous engine
 the int8 KV cache too.
@@ -32,7 +35,7 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--config", default="flagship",
-                    choices=("flagship", "olmoe_1b_7b"))
+                    choices=("flagship", "olmoe_1b_7b", "gemma_2b"))
     ap.add_argument("--int8", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -40,12 +43,14 @@ def main() -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from .models.quantization import quantize_lm_params
-    from .models.transformer import (FLAGSHIP, OLMOE_1B_7B,
+    from .models.transformer import (FLAGSHIP, GEMMA_2B, OLMOE_1B_7B,
                                      TransformerConfig, init_params)
     from .serving_engine import DecodeEngine
 
     moe = args.config == "olmoe_1b_7b"
-    cfg = TransformerConfig(**(OLMOE_1B_7B if moe else FLAGSHIP),
+    widths = {"flagship": FLAGSHIP, "olmoe_1b_7b": OLMOE_1B_7B,
+              "gemma_2b": GEMMA_2B}[args.config]
+    cfg = TransformerConfig(**widths,
                             kv_cache_quant=moe and args.int8)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")

@@ -8,7 +8,9 @@ head dim 16 and, in one case each, at 128 (GQA groups of 4 under a
 window, the shape Mistral-7B gives the kernels), 96 (Phi-3-mini's head
 dim, under a window), 80 (Phi-2's, ragged) and 8 (the repo's small LMs,
 a ring hop): the head dims the kernels run on a wider body's
-zero-filled columns. f32; atol 2e-5 on O and 1e-4 on LSE (a logsumexp
+zero-filled columns. ``flash_attention`` also at 256 (Gemma-2B's, H 4
+over KVH 1 under a window) and 200 (a filled head dim of the 256-wide
+bodies). f32; atol 2e-5 on O and 1e-4 on LSE (a logsumexp
 of up to ~100 terms reassociated).
 """
 import jax.numpy as jnp
@@ -95,7 +97,11 @@ def test_hop_in_the_future_is_fully_masked():
     # under a window, 80 (Phi-2) with GQA 2, 8 non-causal
     pytest.param(True, 4, 9, 24, 96, id="d96-4-True-9"),
     pytest.param(True, 2, None, 21, 80, id="d80-2-True"),
-    pytest.param(False, 4, None, 16, 8, id="d8-4-False")])
+    pytest.param(False, 4, None, 16, 8, id="d8-4-False"),
+    # head dim 256, H 4 over KVH 1 (multi-query, Gemma-2B's) under a
+    # window; 200, a filled head dim of the 256-wide bodies, GQA 2
+    pytest.param(True, 1, 11, 24, 256, id="d256-1-True-11"),
+    pytest.param(True, 2, None, 20, 200, id="d200-2-True")])
 def test_flash_attention_matches_jax_flash(causal, kvh, window, seq, d):
     q, k, v = _qkv(9, 4, kvh, seq, seq, d=d)
     ref = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k),
@@ -145,18 +151,19 @@ def test_rejects_bad_arguments(bad):
 
 
 def test_kernels_take_the_repo_head_dims():
-    """The CUDA kernels take every multiple of 8 from 8 to 128 (bodies
-    16, 32, 64 and 128 wide, a head dim below a body's width on its
+    """The CUDA kernels take every multiple of 8 from 8 to 256 (bodies
+    16, 32, 64, 128 and 256 wide, a head dim below a body's width on its
     zero-filled columns: 64 the flagship, 32 and 16 the examples, 128
-    most published LMs, 96 Phi-3-mini, 80 Phi-2, 8 the repo's small
-    LMs); csrc/hopper.cuh ``takes_head_dim`` is the same rule. Not 4,
-    100 (not multiples of 8), 136 or 256 (past the widest body)."""
-    assert all(kernel_takes_head_dim(d) for d in range(8, 129, 8))
+    most published LMs, 256 Gemma-2B, 96 Phi-3-mini, 80 Phi-2, 8 the
+    repo's small LMs); csrc/hopper.cuh ``takes_head_dim`` is the same
+    rule. Not 4, 12, 100, 127 (not multiples of 8), 260 or 264 (past the
+    widest body)."""
+    assert all(kernel_takes_head_dim(d) for d in range(8, 257, 8))
     assert not any(kernel_takes_head_dim(d)
-                   for d in (0, 4, 12, 100, 127, 136, 256))
+                   for d in (0, 4, 12, 100, 127, 260, 264))
 
 
-@pytest.mark.parametrize("head_dim", [100, 136, 256])
+@pytest.mark.parametrize("head_dim", [100, 260, 264])
 def test_kernel_operand_check_rejects_other_head_dims(head_dim):
     """A flash kernel call at a head dim the kernels do not take raises,
     naming the head dim and the rule (checked before the device, so a
@@ -164,5 +171,5 @@ def test_kernel_operand_check_rejects_other_head_dims(head_dim):
     q, k, v = (torch.from_numpy(a)
                for a in _qkv(7, 4, 2, 8, 8, d=head_dim))
     with pytest.raises(ValueError, match=rf"head_dim {head_dim}: .*"
-                       r"multiple of 8 from 8 to 128"):
+                       r"multiple of 8 from 8 to 256"):
         _kernel_operands(q, k=k, v=v)

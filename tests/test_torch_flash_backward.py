@@ -8,7 +8,8 @@ at most ~200 f32 products reassociated). One case of each parity test
 runs at head dim 128 (H 4 over KVH 1, causal under a window, the shape
 Mistral-7B gives the kernels), one each at 96 (Phi-3-mini's head dim),
 80 (Phi-2's) and 8 (the repo's small LMs), the head dims the kernels run
-on a wider body's zero-filled columns, the rest at 16; at 128, 96 and
+on a wider body's zero-filled columns, the rest at 16 (autograd also at
+256, H 4 over KVH 1 under a window, and 200); at 128, 96 and
 80 the S and dP dot products run over 5-8 times the terms and dq
 reaches |4|, so their atol is 4e-6 (about 8 ulps of the largest
 gradient). Autograd through the port's
@@ -109,7 +110,11 @@ def test_split_kernels_equal_the_pair(case):
     # under a window, 80 (Phi-2) with GQA 2, 8 non-causal
     pytest.param(4, True, 9, 16, 96, id="d96-4-True-9"),
     pytest.param(2, True, None, 16, 80, id="d80-2-True-None"),
-    pytest.param(4, False, None, 16, 8, id="d8-4-False-None")])
+    pytest.param(4, False, None, 16, 8, id="d8-4-False-None"),
+    # head dim 256, H 4 over KVH 1 (multi-query, Gemma-2B's) under a
+    # window; 200, a filled head dim of the 256-wide bodies, GQA 2
+    pytest.param(1, True, 11, 24, 256, id="d256-1-True-11"),
+    pytest.param(2, True, None, 20, 200, id="d200-2-True-None")])
 def test_autograd_matches_jax_grad(causal, kvh, window, seq, d):
     rng = np.random.default_rng(9)
     q = rng.standard_normal((2, 4, seq, d)).astype(np.float32)

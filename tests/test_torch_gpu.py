@@ -9,13 +9,16 @@ The kernels are built from ``elephas_tpu_torch/csrc`` at first use.
 The flash kernels are held at head dim 64 over every case and at head
 dims 16 and 32 (the repo's other configurations) and 128 (most published
 LMs) over the GQA, window, ragged and offset cases, and at 128 over the
-edges of its 128-key tiles; at head dims 8, 24, 40, 72, 80, 96 and 120,
-which run a wider body on zero-filled columns, over the same cases, with
-a sentinel check that no byte past a row's head_dim values is written;
-the paged kernel at
+edges of its 128-key tiles; at 256 (Gemma-2B's) over the same cases and
+the edges of its 64-key tiles and 32-key dQ stages; at head dims 8, 24,
+40, 72, 80, 96, 120, 136, 192 and 248, which run a wider body on
+zero-filled columns, over the same cases, with a sentinel check that no
+byte past a row's head_dim values is written; the paged kernel at
 head dims 16, 32, 64 and 128 and block sizes 8 and 16 over every case
 (bf16 on its split body with groups of 1, 2 and 4, f32 and 8-way groups
-on its general body). The Keras layers, optimizers and schedules
+on its general body), and at 256 with Gemma-2B's 8 query heads over 1
+kv head (the general body); a 2-layer LM at Gemma-2B's widths on the
+flash kernels against the plain path in f32. The Keras layers, optimizers and schedules
 ported with Conv2D (no kernel of the repo's: cuDNN, cuBLAS and torch
 loops) are held against the CPU, TF32 off: layers within 1e-4 of each
 array's scale, optimizers within 1e-5 of scale, a BatchNormalization fit within
@@ -189,10 +192,10 @@ def test_flash_kernels_at_small_head_dims_match_plain(cuda, no_tf32,
     _check_all_three(cuda, head_dim, case, dtype)
 
 
-def _check_all_three(cuda, head_dim, case, dtype):
+def _check_all_three(cuda, head_dim, case, dtype, cases=_BWD_CASES):
     from elephas_tpu_torch.ops.flash_attention import (flash_forward,
                                                        flash_forward_plain)
-    b, h, kvh, sq, sk, causal, window, qo, ko = _BWD_CASES[case]
+    b, h, kvh, sq, sk, causal, window, qo, ko = cases[case]
     gen = torch.Generator(device=cuda).manual_seed(1)
     q = torch.randn((b, h, sq, head_dim), generator=gen,
                     device=cuda).to(dtype)
@@ -207,7 +210,69 @@ def _check_all_three(cuda, head_dim, case, dtype):
     assert o.dtype == dtype and o.shape == q.shape
     torch.testing.assert_close(o.float(), o_ref, atol=tol, rtol=0)
     torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
-    _check_backward(cuda, case, dtype, head_dim)
+    _check_backward(cuda, case, dtype, head_dim, cases)
+
+
+# the edges of the head-dim-256 bodies' tiles (64 keys in the forward's
+# K/V tiles and the dK/dV CTA, 32 in dQ's stages; two warpgroups of 64
+# query rows in the forward and dQ, one head-dim half each in dK/dV):
+# key lengths one past a tile and one short; a query tile whose second
+# warpgroup holds one row; a window edge inside a tile; ring hops;
+# Gemma-2B's 8 query heads over 1 kv head, ragged and windowed
+_D256_EDGE_CASES = {
+    # (B, H, KVH, Sq, Sk, causal, window, q_offset, k_offset)
+    "sk_33": (2, 4, 4, 33, 33, True, None, 0, 0),
+    "sk_65_noncausal": (1, 4, 2, 100, 65, False, None, 0, 0),
+    "sk_127": (1, 4, 4, 127, 127, True, None, 0, 0),
+    "sq_65": (2, 4, 4, 65, 300, True, None, 235, 0),
+    "window_65": (1, 4, 2, 300, 300, True, 65, 0, 0),
+    "hop_crossing": (1, 4, 4, 200, 200, True, None, 256, 128),
+    "hop_first_rows_dead": (1, 4, 4, 150, 150, True, None, 100, 164),
+    "mqa8_ragged": (1, 8, 1, 191, 191, True, None, 0, 0),
+    "mqa8_window": (2, 8, 1, 300, 300, True, 100, 0, 0),
+}
+_D256_CASES = {**{c: _BWD_CASES[c] for c in _SMALL_D_CASES},
+               **_D256_EDGE_CASES}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(_D256_CASES))
+def test_flash_kernels_at_head_dim_256_match_plain(cuda, no_tf32, case,
+                                                   dtype):
+    """The forward, dQ and dK/dV kernels at head dim 256 (the 256-wide
+    bodies) against their plain versions over the small head dims' cases
+    and the edges of the 256 bodies' tiles, with the head-dim-64 tests'
+    tolerances."""
+    _check_all_three(cuda, 256, case, dtype, _D256_CASES)
+
+
+@pytest.mark.parametrize("case", ["mqa8_ragged", "mqa8_window", "sq_65",
+                                  "hop_first_rows_dead"])
+def test_flash_kernels_are_bit_reproducible_at_head_dim_256(cuda, case):
+    """Two launches each of the forward, dQ and dK/dV kernels at head
+    dim 256 on the same bf16 inputs give the same bits (no atomics; in
+    dK/dV each warpgroup owns its half of the head dim)."""
+    from elephas_tpu_torch.ops.flash_attention import (flash_dkv, flash_dq,
+                                                       flash_forward,
+                                                       flash_forward_plain)
+    b, h, kvh, sq, sk, causal, window, qo, ko = _D256_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q, g = (torch.randn((b, h, sq, 256), generator=gen, device=cuda)
+            .bfloat16() for _ in range(2))
+    k, v = (torch.randn((b, kvh, sk, 256), generator=gen, device=cuda)
+            .bfloat16() for _ in range(2))
+    (o1, l1), (o2, l2) = (flash_forward(q, k, v, qo, ko, causal, window)
+                          for _ in range(2))
+    assert torch.equal(o1.view(torch.int16), o2.view(torch.int16))
+    assert torch.equal(l1, l2)
+    o, lse = flash_forward_plain(q.float(), k.float(), v.float(), qo, ko,
+                                 causal, window)
+    args = (q, k, v, g, lse, (g.float() * o).sum(-1), qo, ko, causal,
+            window)
+    first, second = flash_dq(*args), flash_dq(*args)
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+    for a, b_ in zip(flash_dkv(*args), flash_dkv(*args)):
+        assert torch.equal(a.view(torch.int16), b_.view(torch.int16))
 
 
 # the edges of the head-dim-128 bodies' tiles (128 keys in the forward's
@@ -289,9 +354,10 @@ def test_flash_fwd_kernel_is_bit_reproducible_at_head_dim_128(cuda, case):
 
 
 # head dims below their body's width (8 on the 16-wide body, 24 on 32,
-# 40 on 64, 72-120 on 128; 96 is Phi-3-mini's, 80 Phi-2's): TMA fills
-# the columns past the head dim with zeros and the stores drop them
-_FILLED_HEAD_DIMS = [8, 24, 40, 72, 80, 96, 120]
+# 40 on 64, 72-120 on 128, 136-248 on 256; 96 is Phi-3-mini's, 80
+# Phi-2's): TMA fills the columns past the head dim with zeros and the
+# stores drop them
+_FILLED_HEAD_DIMS = [8, 24, 40, 72, 80, 96, 120, 136, 192, 248]
 # GQA 4:1, ragged lengths, a window edge, ring offsets, one query row,
 # one past a 128-row tile
 _FILLED_CASES = ["gqa", "gqa4_ragged", "window_17", "ragged_191_257",
@@ -395,9 +461,9 @@ def test_flash_kernels_are_bit_reproducible_at_head_dim_96(cuda, case):
     _assert_dkv_reproducible(args)
 
 
-@pytest.mark.parametrize("head_dim", [100, 136, 256])
+@pytest.mark.parametrize("head_dim", [100, 260, 264])
 def test_flash_kernels_refuse_other_head_dims_on_card(cuda, head_dim):
-    """At a head dim that is not a multiple of 8, or is above 128, the
+    """At a head dim that is not a multiple of 8, or is above 256, the
     wrappers raise on CUDA tensors, naming the rule (no plain fallback,
     no launch), and the C entry returns cudaErrorInvalidValue (1)."""
     from elephas_tpu_torch.ops import _kernels
@@ -408,7 +474,7 @@ def test_flash_kernels_refuse_other_head_dims_on_card(cuda, head_dim):
     before = flash_forward.launches
     for call in (lambda: flash_forward(q, q, q),
                  lambda: flash_attention(q, q, q, causal=True)):
-        with pytest.raises(ValueError, match=r"multiple of 8 from 8 to 128"):
+        with pytest.raises(ValueError, match=r"multiple of 8 from 8 to 256"):
             call()
     assert flash_forward.launches == before
     lse = torch.empty((1, 2, 16), device=cuda)
@@ -543,6 +609,10 @@ _PAGED_CASES = {
     "gqa4": (16, 4, 10, [159, 70, 3, 0], 40, False),
     # 8-way groups take the general body
     "gqa8": (16, 2, 10, [159, 70, 3, 0], None, False),
+    # Gemma-2B's 8 query heads over 1 kv head (the general body)
+    "mqa8": (8, 1, 10, [159, 70, 3, 0], None, False),
+    "mqa8_long_row": (8, 1, 64, [1023, 0], None, False),
+    "mqa8_window": (8, 1, 10, [159, 100, 3, 0], 21, False),
 }
 PAGED_HEAD_DIMS = (16, 32, 64, 128)
 
@@ -628,6 +698,36 @@ def test_paged_kernel_at_head_dim_128_matches_plain(cuda, case, dtype):
     assert out.dtype == dtype and out.shape == q.shape
     assert bool(torch.isfinite(out.float()).all())
     torch.testing.assert_close(out.float(), ref, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("bs", [8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["mqa8", "mqa8_long_row", "mqa8_window"])
+def test_paged_kernel_at_head_dim_256_matches_plain(cuda, case, dtype, bs):
+    """The paged kernel at head dim 256 with groups of 8 (Gemma-2B's
+    decode step), bf16 and f32, on its general body (``split_launches``
+    does not rise), against its plain version with the head-dim-64
+    tolerances; two bf16 launches give the same bits."""
+    from elephas_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_plain)
+    args = _paged_inputs(case, dtype, cuda, 256, bs)
+    before = (paged_decode_attention.launches,
+              paged_decode_attention.split_launches)
+    out = paged_decode_attention(*args)
+    assert (paged_decode_attention.launches,
+            paged_decode_attention.split_launches) == (before[0] + 1,
+                                                       before[1])
+    q, kp, vp, tables, pos, window, slopes = args
+    ref = paged_decode_attention_plain(q.float(), kp.float(), vp.float(),
+                                       tables, pos, window, slopes)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert out.dtype == dtype and bool(torch.isfinite(out.float()).all())
+    torch.testing.assert_close(out.float(), ref, atol=tol, rtol=0)
+    again = paged_decode_attention(*args)
+    assert torch.equal(out.view(torch.int16 if dtype == torch.bfloat16
+                                else torch.int32),
+                       again.view(torch.int16 if dtype == torch.bfloat16
+                                  else torch.int32))
 
 
 @pytest.mark.parametrize("d", PAGED_HEAD_DIMS)
@@ -1515,6 +1615,45 @@ def test_routed_moe_at_head_dim_128_on_card_matches_plain(cuda, no_tf32):
     want = forward(params, tokens, plain)
     scale = max(1.0, float(want.abs().max()))
     torch.testing.assert_close(got, want, atol=1e-4 * scale, rtol=0)
+    before = (flash_backward.dq_launches, flash_backward.dkv_launches)
+    fl, fg = lm_loss_and_grads(params, tokens, flash)
+    assert (flash_backward.dq_launches, flash_backward.dkv_launches) == (
+        before[0] + cfg.num_layers, before[1] + cfg.num_layers)
+    pl, pg = lm_loss_and_grads(params, tokens, plain)
+    assert abs(float(fl) - float(pl)) <= 1e-5
+    for a, b in zip(fg, pg):
+        assert float((a - b).abs().max()) <= 1e-3 * max(
+            float(b.abs().max()), 1e-30)
+
+
+def test_gemma_2b_shaped_lm_on_card_matches_plain(cuda, no_tf32):
+    """Two layers at Gemma-2B's widths (``GEMMA_2B``: head dim 256, 8
+    heads over 1 kv head, d_ff 16384, vocab 256000) on the flash kernels
+    against the plain path, f32, B 1 x 256: logits within 1e-4 of their
+    scale, the loss within 1e-5 and every gradient within 1e-3 of its
+    leaf's largest; one forward launch per layer, and the backward's dQ
+    and dK/dV."""
+    from elephas_tpu_torch import TransformerConfig, forward, init_params
+    from elephas_tpu_torch.models.transformer import (GEMMA_2B,
+                                                      lm_loss_and_grads)
+    from elephas_tpu_torch.ops.flash_attention import (flash_backward,
+                                                       flash_forward)
+    cfg = TransformerConfig(**dict(GEMMA_2B, num_layers=2),
+                            dtype=torch.float32)
+    assert cfg.head_dim == 256 and cfg.kv_heads == 1
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, 256)), device=cuda)
+    flash = dataclasses.replace(cfg, attention_impl="flash")
+    plain = dataclasses.replace(cfg, attention_impl="xla")
+    before = flash_forward.launches
+    got = forward(params, tokens, flash)
+    assert flash_forward.launches == before + cfg.num_layers
+    want = forward(params, tokens, plain)
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got, want, atol=1e-4 * scale, rtol=0)
+    del got, want
     before = (flash_backward.dq_launches, flash_backward.dkv_launches)
     fl, fg = lm_loss_and_grads(params, tokens, flash)
     assert (flash_backward.dq_launches, flash_backward.dkv_launches) == (

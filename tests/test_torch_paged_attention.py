@@ -3,8 +3,9 @@
 The same numpy inputs (shuffled block tables, ragged positions) go
 through the JAX ``paged_decode_attention`` (the Pallas kernel in
 interpret mode) and the port's wrapper, which on CPU tensors runs the
-kernel's plain version. f32 throughout; rtol = atol = 2e-5 covers the
-online-versus-full-row softmax reassociation.
+kernel's plain version (at head dim 16, and at 256 with 8 query heads
+over 1 kv head, Gemma-2B's decode step). f32 throughout; rtol = atol =
+2e-5 covers the online-versus-full-row softmax reassociation.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +27,9 @@ _CASES = {
     "window": dict(h=4, kvh=4, window=11, alibi=False),
     "alibi": dict(h=4, kvh=4, window=None, alibi=True),
     "gqa_window_alibi": dict(h=4, kvh=2, window=9, alibi=True),
+    # Gemma-2B's decode step: head dim 256, 8 query heads over 1 kv head
+    "d256_mqa8": dict(h=8, kvh=1, window=None, alibi=False, d=256),
+    "d256_mqa8_window": dict(h=8, kvh=1, window=11, alibi=False, d=256),
 }
 
 
@@ -55,7 +59,8 @@ def _both(q, kp, vp, ids, pos, window, slopes):
 @pytest.mark.parametrize("case", sorted(_CASES))
 def test_plain_matches_jax_kernel(case):
     cfg = _CASES[case]
-    q, kp, vp, ids, pos = _inputs(7, 3, cfg["h"], cfg["kvh"])
+    q, kp, vp, ids, pos = _inputs(7, 3, cfg["h"], cfg["kvh"],
+                                  d=cfg.get("d", 16))
     pos[0] = 2                       # one row inside its first block
     slopes = _alibi_slope_list(cfg["h"]) if cfg["alibi"] else None
     ref, out = _both(q, kp, vp, ids, pos, cfg["window"], slopes)
@@ -235,6 +240,7 @@ _BODY_CASES = {
     "bf16_g8": ((torch.bfloat16, 64, 8, True), "general"),
     "bf16_g3": ((torch.bfloat16, 64, 3, True), "general"),
     "bf16_d96": ((torch.bfloat16, 96, 1, True), "general"),
+    "bf16_d256_g8": ((torch.bfloat16, 256, 8, True), "general"),
     "bf16_d8_unaligned": ((torch.bfloat16, 8, 1, False), "general"),
     "bf16_unaligned": ((torch.bfloat16, 128, 4, False), None),
     "bf16_d16_unaligned": ((torch.bfloat16, 16, 2, False), None),

@@ -167,7 +167,7 @@ def test_auto_routes_by_head_dim_on_cuda(head_dim, impl):
     q = torch.zeros((1, 2, 5, head_dim))
     if head_dim == 100:
         with pytest.raises(ValueError, match=r"head_dim 100: .*"
-                           r"multiple of 8 from 8 to 128"):
+                           r"multiple of 8 from 8 to 256"):
             _kernel_operands(q, k=q, v=q)
     elif head_dim == 48:
         # the head dim is taken: what stops a CPU tensor is the device
