@@ -15,13 +15,14 @@ the head-dim-32, -96, -128 and -256 paths' own shapes, at 128 and 256
 also at the edges of their tiles; at head dims 8, 24, 40, 72,
 80, 96, 120, 136, 192 and 248, which run a wider body on columns TMA
 fills with zeros, over ragged lengths, GQA 4:1, a window edge and ring
-offsets, 96 and 80 timed beside SDPA; the paged kernel at 16, 32, 64
-and 128, the last at Mistral-7B's groups of 4, each bf16 call on its
-split-K body and each f32 call on its general body, as the wrapper's
-``split_launches`` count shows, and at 96, Phi-3-mini's, and 256,
-Gemma-2B's 8 query heads over 1 kv head, every call on its general
-body), checks that two launches of the
-paged, forward, dQ and dK/dV kernels give the same bits, times one
+offsets, 96 and 80 timed beside SDPA; the paged kernel at 16, 32, 64,
+128 and 256 and at 80, 96 and 136 (chunks past the head dim idle on the
+next body up), 128 at Mistral-7B's groups of 4, 96 at Phi-3-mini's 32
+heads over 32 and 256 at Gemma-2B's 8 query heads over 1 kv head, each
+bf16 call on its split-K body and each f32 call on its general body,
+as the wrapper's ``split_launches`` count shows, with every split
+instantiation's registers from the build), checks that two launches of
+the paged, forward, dQ and dK/dV kernels give the same bits, times one
 request's paged decode (B 1, pos 1000) on a line of its own, then
 drives the port's
 entry points at the full width of the flagship LM config (vocab 32000,
@@ -42,15 +43,17 @@ p50), an f32 gradient and f32 greedy tokens against ``generate`` at
 ``lm_d96`` does the same at Phi-3-mini's widths (head dim 96 on the
 flash kernels' 128-wide bodies, 32 heads over 32 kv heads, d_ff 8192
 SwiGLU, RMSNorm, RoPE, window 2047, untied head, vocab 32064):
-``forward`` at B 2 x 2048 and the paged engine (every launch on the
-general body) over all 32 layers, an f32 gradient and f32 greedy
+``forward`` at B 2 x 2048 and the paged engine (every bf16 launch on
+the split body, 96 on the 128-wide body) over all 32 layers, with the
+paged kernels' device ms per decode step, an f32 gradient and f32 greedy
 tokens against the plain argmax at 2 layers, ``fit_tokens`` at 8.
 ``lm_d256`` does the same at Gemma-2B's widths (``GEMMA_2B``: head dim
 256 on the flash kernels' 256-wide bodies, 8 heads over 1 kv head,
 d_ff 16384 SwiGLU, RMSNorm, RoPE, tied, vocab 256000; its departures
 from Gemma printed): ``forward`` at B 2 x 1024 (time as issued and on
-the device) and the paged engine (the general body) over all 18
-layers, f32 logits, gradient and greedy tokens at 2, ``fit_tokens`` at
+the device) and the paged engine (every bf16 launch on the split body,
+groups of 8) over all 18 layers, with the paged kernels' device ms per
+decode step, f32 logits, gradient and greedy tokens at 2, ``fit_tokens`` at
 8 with its peak memory.
 Then the Keras-style models through ``TPUModel(mode="synchronous")`` at
 the bench's MLP width (784-128-128-10) on 60,000 seeded rows of the
@@ -244,13 +247,13 @@ def check_paged(flush):
     """The paged decode kernel against its plain version at the serving
     path's shapes: B 8, H 16, block 16, 64 blocks per row, a pool of 513
     blocks; shuffled tables and ragged positions; at head dims 64 (the
-    flagship's), 32, 16, 128, 96 and 256, each timed (d 128 at
+    flagship's), 32, 16, 128, 96, 256, 80 and 136, each timed (d 128 at
     Mistral-7B's H 32 over KVH 8, the lm_d128 serving run's shape; d 96
-    at Phi-3-mini's H = KVH 32, lm_d96's; d 256 at Gemma-2B's H 8 over
-    KVH 1, lm_d256's, there also in f32), every bf16 call on the split
-    body and every f32 call on the general one at 16-128, every call on
-    the general body at 96 and 256 (``body`` per head dim); then one
-    request alone at d 64."""
+    at Phi-3-mini's H = KVH 32, lm_d96's, and d 80 at Phi-2's; d 256 at
+    Gemma-2B's H 8 over KVH 1, lm_d256's, there also in f32), every bf16
+    call on the split body (80, 96 on its 128-wide body, 136 on the 256)
+    and every f32 call on the general one (``body`` per head dim); then
+    one request alone at d 64."""
     b, mb, nb = 8, 64, 513
     rng = np.random.default_rng(0)
     tables = rng.permutation(np.arange(1, nb))[:b * mb].reshape(b, mb)
@@ -260,7 +263,7 @@ def check_paged(flush):
     pos_t = torch.as_tensor(pos, dtype=torch.int32, device="cuda")
     by_d = {str(d): paged_at_head_dim(flush, d, tables_t, pos_t, pos, nb,
                                       *PAGED_TIMED_HEADS.get(d, (16, 16)))
-            for d in (64, 32, 16, 128, 96, 256)}
+            for d in PAGED_HEAD_DIMS}
     single = check_paged_single_user(flush, nb)
     errs = {f"d{d}": t.pop("errors") for d, t in by_d.items()}
     results = {**by_d["64"],
@@ -275,10 +278,15 @@ def check_paged(flush):
     return results
 
 
+# the paged phase's head dims: the split body's widths and, on the next
+# width up, 96 (Phi-3-mini), 80 (Phi-2) and 136
+PAGED_HEAD_DIMS = (64, 32, 16, 128, 96, 256, 80, 136)
 # the (H, KVH) each head dim's paged call is timed at: H = KVH 16 (the
 # flagship's), at d 128 Mistral-7B's 32 over 8 (groups of 4), at d 96
-# Phi-3-mini's 32 over 32, at d 256 Gemma-2B's 8 over 1
-PAGED_TIMED_HEADS = {128: (32, 8), 96: (32, 32), 256: (8, 1)}
+# Phi-3-mini's 32 over 32 and at d 80 Phi-2's, at d 256 Gemma-2B's 8
+# over 1
+PAGED_TIMED_HEADS = {128: (32, 8), 96: (32, 32), 80: (32, 32),
+                     256: (8, 1)}
 
 
 def paged_call_body(fn):
@@ -296,14 +304,13 @@ def paged_at_head_dim(flush, d, tables_t, pos_t, pos, nb, h_t, kvh_t):
     and positions, f32 and bf16 against the plain version; then, at
     ``h_t`` query over ``kvh_t`` kv heads (the main case where both are
     16), two bf16 launches bit-equal, held against the f32 plain version
-    and timed beside gather + SDPA and the bound. bf16 calls take the
-    split body at its head dims, the general body at others."""
+    and timed beside gather + SDPA and the bound. Each call takes the body
+    the wrapper's rule (``paged_body``: dtype, head dim, groups) gives."""
     from elephas_tpu_torch.models.transformer import _alibi_slope_list
     from elephas_tpu_torch.ops.paged_attention import (
-        SPLIT_HEAD_DIMS, paged_decode_attention, paged_decode_attention_plain)
+        paged_body, paged_decode_attention, paged_decode_attention_plain)
 
     b, h, bs = tables_t.shape[0], 16, 16
-    bf16_body = "split" if d in SPLIT_HEAD_DIMS else "general"
     gen = torch.Generator(device="cuda").manual_seed(1)
     errs, bodies = {}, set()
     for name, (kvh, window, alibi) in PAGED_CASES.items():
@@ -324,6 +331,7 @@ def paged_at_head_dim(flush, d, tables_t, pos_t, pos, nb, h_t, kvh_t):
         torch.cuda.synchronize()
         e32, e16 = max_err(out32, ref), max_err(out16, ref16)
         what = f"paged {name} d {d}"
+        bf16_body = paged_body(torch.bfloat16, d, h // kvh)
         require(body16 == bf16_body and body32 == "general",
                 f"{what}: bf16 on the {bf16_body} body ({body16}), f32 on "
                 f"the general one ({body32})")
@@ -348,6 +356,7 @@ def paged_at_head_dim(flush, d, tables_t, pos_t, pos, nb, h_t, kvh_t):
             q16.float(), k16.float(), v16.float(), tables_t, pos_t))
         require(e16 <= 2e-2, f"paged timed H {h_t} KVH {kvh_t} d {d} bf16 "
                              f"err {e16} <= 2e-2")
+        bf16_body = paged_body(torch.bfloat16, d, h_t // kvh_t)
         require(body16 == bf16_body,
                 f"paged timed H {h_t} KVH {kvh_t} d {d} bf16 on the "
                 f"{bf16_body} body: {body16}")
@@ -659,6 +668,24 @@ def wide_body_registers(report, bodies):
                 regs["producer" if "DEALLOC" in ln else "consumers"] = count
         out[name] = regs
     return out
+
+
+def paged_split_registers(report):
+    """Each instantiation of the paged split body (``W<width>_G<group>``:
+    widths 16-256, groups 1, 2, 4, 8) and ptxas's register count for it
+    at launch (``-Xptxas -v``): up to 128 a thread at groups of up to 4
+    (4 CTAs of 128 threads an SM), up to 255 at groups of 8 (one CTA of
+    256 threads)."""
+    regs, cur = {}, None
+    for ln in report.splitlines():
+        if "Compiling entry function" in ln:
+            found = re.search(r"paged_split_kernelILi(\d+)ELi(\d+)E", ln)
+            cur = f"W{found[1]}_G{found[2]}" if found else None
+        elif cur and "Used" in ln and "registers" in ln:
+            regs[cur] = int(ln.split("Used ")[1].split()[0])
+            cur = None
+    return dict(sorted(regs.items(), key=lambda kv: tuple(
+        int(x[1:]) for x in kv[0].split("_"))))
 
 
 def check_flash(flush):
@@ -1172,12 +1199,12 @@ def paged_device_per_decode_step(params, cfg, prompts, steps=8):
     device ms per step and the heaviest entries by name (``top``), host
     ms per step of 8 untraced steps just before the traced window (the
     profiler slows the host, not the device), and the bodies'
-    launches: every one on the split body at a head dim it takes
-    (``SPLIT_HEAD_DIMS``, bf16), on the general body otherwise."""
+    launches: every one on the body the wrapper's rule (``paged_body``:
+    the config's dtype, head dim and groups) gives."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from elephas_tpu_torch.ops.paged_attention import SPLIT_HEAD_DIMS
+    from elephas_tpu_torch.ops.paged_attention import paged_body
     from elephas_tpu_torch.profile_serving import device_breakdown
     from elephas_tpu_torch.serving_engine import DecodeEngine
 
@@ -1202,11 +1229,12 @@ def paged_device_per_decode_step(params, cfg, prompts, steps=8):
         torch.cuda.synchronize()
     counts = read_counts()
     decode_steps = counts["paged_decode"] / cfg.num_layers
-    split = (counts["paged_decode"] if cfg.head_dim in SPLIT_HEAD_DIMS
-             else 0)
+    body = paged_body(cfg.dtype, cfg.head_dim,
+                      cfg.num_heads // cfg.kv_heads)
+    split = counts["paged_decode"] if body == "split" else 0
     require(decode_steps > 0 and counts["paged_split"] == split,
-            f"the profiled window ran the body for d {cfg.head_dim}: "
-            f"{counts}")
+            f"the profiled window ran the {body} body for d "
+            f"{cfg.head_dim}: {counts}")
     breakdown = device_breakdown(prof, steps, host_ms, top=8)
     paged_ms = sum(e.device_time_total for e in prof.events()
                    if e.device_type == DeviceType.CUDA
@@ -2322,13 +2350,14 @@ def lm_d96_config(num_layers=32):
 def run_lm_d96():
     """The LM at Phi-3-mini's widths (head dim 96: the flash kernels run
     it on their 128-wide bodies, columns 96-127 of each tile filled with
-    zeros by TMA; the paged kernel on its general body): (a) ``forward``
+    zeros by TMA; the paged kernel on its 128-wide split body, chunks
+    12-15 of each key row idle): (a) ``forward``
     at B 2 x T 2048 over all 32 layers, bf16 over f32 parameters, one
     flash forward launch per layer, its f32 logits against the plain
     path's; (b) the paged ``DecodeEngine`` with the fused kernel over all
     32 layers serving 16 requests (64-512 prompt tokens, 64 new each),
-    every paged launch on the general body, then a profiled window of 8
-    steps: the general body's device ms per decode step beside
+    every paged launch on the split body, then a profiled window of 8
+    steps: the paged kernels' device ms per decode step beside
     ``step()``'s p50; (c) at 2 layers an f32 ``lm_loss`` gradient
     through the f32 kernels against the plain path (B 1 x 512), and the
     f32 paged engine's greedy tokens against the plain f32 forward's
@@ -2406,8 +2435,8 @@ def run_lm_d96():
             "bf16_width_128": counts["forward"]["flash_fwd"]}}})
 
     # (b) the paged engine, fused, all 32 layers, the flagship serving
-    # phase's traffic, on the paged kernel's general body (12 lanes of 16
-    # bytes a key row do not tile the split body's 128 threads)
+    # phase's traffic, on the paged kernel's 128-wide split body (12 of a
+    # key row's 16 lanes of 16 bytes hold the head dim)
     rng = np.random.default_rng(4)
     lengths = rng.integers(64, 513, 16)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
@@ -2423,8 +2452,9 @@ def run_lm_d96():
             == info["stats"]["kernel_launches"],
             f"the serving run launched the paged kernel at D 96: "
             f"{counts['serving']}, {info['stats']['kernel_launches']}")
-    require(counts["serving"]["paged_split"] == 0,
-            f"every paged launch at D 96 took the general body: "
+    require(counts["serving"]["paged_split"]
+            == counts["serving"]["paged_decode"],
+            f"every bf16 paged launch at D 96 took the split body: "
             f"{counts['serving']}")
     require(all(len(o) == 64 for o in outs) and all(
         0 <= x < cfg.vocab_size for o in outs for x in o),
@@ -2559,14 +2589,15 @@ def lm_d256_config(num_layers=18):
 
 def run_lm_d256():
     """The LM at Gemma-2B's widths (head dim 256 on the flash kernels'
-    256-wide bodies; 8 query heads over 1 kv head, so the paged kernel's
-    general body): (a) ``forward`` at B 2 x T 1024 over all 18 layers,
+    256-wide bodies; 8 query heads over 1 kv head, the paged kernel's
+    split body at groups of 8): (a) ``forward`` at B 2 x T 1024 over all
+    18 layers,
     bf16 over f32 parameters, one flash forward launch per layer, its
     time as issued and on the device, and its f32 logits against the
     plain path's; (b) the paged ``DecodeEngine`` with the fused kernel
     over all 18 layers, 8 slots, serving 16 requests (64-512 prompt
-    tokens, 64 new each), every paged launch on the general body, then a
-    profiled window of 8 steps: the general body's device ms per decode
+    tokens, 64 new each), every paged launch on the split body, then a
+    profiled window of 8 steps: the paged kernels' device ms per decode
     step beside ``step()``'s p50; (c) at 2 layers f32 logits and an f32
     ``lm_loss`` gradient through the f32 kernels against the plain path
     (B 1 x 512), and the f32 paged engine's greedy tokens against the
@@ -2650,7 +2681,8 @@ def run_lm_d256():
             "bf16_width_256": counts["forward"]["flash_fwd"]}}})
 
     # (b) the paged engine, fused, all 18 layers, the flagship serving
-    # phase's traffic, on the paged kernel's general body (groups of 8)
+    # phase's traffic, on the paged kernel's 256-wide split body (groups
+    # of 8)
     t0 = time.perf_counter()
     rng = np.random.default_rng(4)
     lengths = rng.integers(64, 513, 16)
@@ -2665,8 +2697,9 @@ def run_lm_d256():
             == info["stats"]["kernel_launches"],
             f"the serving run launched the paged kernel at D 256: "
             f"{counts['serving']}, {info['stats']['kernel_launches']}")
-    require(counts["serving"]["paged_split"] == 0,
-            f"every paged launch at D 256 took the general body: "
+    require(counts["serving"]["paged_split"]
+            == counts["serving"]["paged_decode"],
+            f"every bf16 paged launch at D 256 took the split body: "
             f"{counts['serving']}")
     require(all(len(o) == 64 for o in outs) and all(
         0 <= x < cfg.vocab_size for o in outs for x in o),
@@ -4399,9 +4432,17 @@ def main() -> int:
               and "0 bytes spill stores, 0 bytes spill loads" not in ln]
     wide = wide_body_registers(report, WIDE_BODIES)
     wide256 = wide_body_registers(report, WIDE_256_BODIES)
+    split_regs = paged_split_registers(report)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": resources, "d128_bodies": wide, "d256_bodies": wide256})
+          "ptxas": resources, "d128_bodies": wide, "d256_bodies": wide256,
+          "paged_split_bodies": split_regs})
     require(not spills, f"no kernel spills registers: {spills}")
+    require(sorted(split_regs) == sorted(
+        f"W{w}_G{g}" for w in (16, 32, 64, 128, 256) for g in (1, 2, 4, 8))
+            and all(r <= (255 if k.endswith("_G8") else 128)
+                    for k, r in split_regs.items()),
+            f"the paged split body is built at every width and group, "
+            f"within its register budget: {split_regs}")
     require(all(r == {"launch": 168, "producer": 24, "consumers": 240}
                 for r in (*wide.values(), *wide256.values())),
             f"the d 128 and d 256 bodies launch at 168 registers, the "
@@ -4521,6 +4562,7 @@ def main() -> int:
     ]
     kernels[0]["general_launches"] = (kernels[0]["launches"]
                                       - kernels[0]["split_launches"])
+    kernels[0]["split_body_registers"] = split_regs
     for entry, results in zip(kernels, (paged, flash, bwd["dq"],
                                         bwd["dkv"])):
         name = entry["name"]
@@ -4570,7 +4612,7 @@ def main() -> int:
                    else {"launches": None, "driven_path": None}),
                 **({"split_launches": split[d],
                     "general_launches": launches[d] - split[d]}
-                   if name == "paged_decode" else {}),
+                   if name == "paged_decode" and d in launches else {}),
                 **({"at_training_shape": {
                     k: t["at_training_shape"][k]
                     for k in (*keys, "shape")

@@ -155,8 +155,8 @@ inline bool takes_head_dim(int d) { return d % 8 == 0 && d >= 8 && d <= 256; }
 // f(std::integral_constant<int, W>{}) with W the smallest of 16, 32, 64,
 // 128 and 256 that is at least d, and returns its result (the caller
 // passes the real d on to the kernel at run time), or
-// cudaErrorInvalidValue at a head dim the kernels do not take. (The
-// paged split body has a switch of its own, split::launch.)
+// cudaErrorInvalidValue at a head dim the kernels do not take. The
+// paged split body takes the same switch from 16 up.
 template <typename F>
 inline cudaError_t with_head_dim(int d, F&& f) {
   if (!takes_head_dim(d)) return cudaErrorInvalidValue;

@@ -22,8 +22,12 @@
 // one and passes it in `body`, and a call the chosen body cannot take
 // fails (cudaErrorInvalidValue) instead of running the other.
 //
-// The split body: bf16 at head dims 16, 32, 64 and 128 with groups of
-// 1, 2 or 4 (the working type; flash-decoding), templated on D and G.
+// The split body: bf16 at every head dim D that is a multiple of 8 from
+// 16 to 256, with groups of 1, 2, 4 or 8 (the working type;
+// flash-decoding), templated on a body width W and G. D runs the body
+// of the smallest W >= D of 16, 32, 64, 128 and 256 (the flash kernels'
+// `with_head_dim`), D at run time: Phi-3-mini's 96 and Phi-2's 80 on W
+// 128, 136-256 (Gemma-2B's 256) on W 256.
 // - Split-K. The grid is (splits, KVH, B): split s owns table entries
 //   [s*L, s*L + L) of its row, L from the wrapper (`split_blocks`, from
 //   max_blocks and the shape, never from pos: reading pos back to the
@@ -34,48 +38,74 @@
 //   the row's allocation are not valid block ids). The run's table
 //   entries are staged in shared memory once (one barrier), so no copy
 //   waits on a table read.
-// - Lanes per key row from D. A bf16 row is D / 8 chunks of 16 bytes:
-//   LANES = 16 lanes hold a row at D 128, 8 at 64, 4 at 32, 2 at 16, so
-//   one pass of the 128 threads covers ROWS = 8, 16, 32 or 64 key rows.
-//   The run's rows are taken as one sequence (row i at position
-//   j0 * bs + i, in table entry j0 + i / bs), so at small D one pass
-//   spans several blocks (four of 16 at d 16) and every thread has a
-//   row whatever the block size.
+// - Lanes per key row from W. A bf16 row of the body is W / 8 chunks of
+//   16 bytes: LANES = 32 lanes (a warp) hold a row at W 256, 16 at 128,
+//   8 at 64, 4 at 32, 2 at 16, so one pass of a CTA's THREADS (128; 256
+//   at groups of 8) covers THREADS / LANES key rows: 4, 8, 16, 32 or 64
+//   at 128 threads. A thread whose chunk lies past the head dim (c >= D
+//   / 8: chunks 12-15 at D 96) issues no copy, holds zeros in q, K and V
+//   and adds 0 to the shuffle sums; pool rows stay D wide. The run's
+//   rows are taken as one sequence (row i at position j0 * bs + i, in
+//   table entry j0 + i / bs), so at small W one pass spans several
+//   blocks (four of 16 at W 16) and every thread has a row whatever the
+//   block size.
 // - Loads in flight. A ring stage in shared memory holds one pass: its
-//   K rows then its V rows, 4 KB at every D. Each thread copies the two
-//   16-byte chunks it will read (cp.async), STAGES passes ahead of the
-//   math: 8 at D 128 (a whole 64-row split, 32 KB), 4 below (16 KB).
-//   The thread that copies a chunk is the only one that reads it, so
-//   the loop has no barrier: cp.async.wait_group alone orders it.
+//   K rows then its V rows, W columns apart, 4 KB at 128 threads and 8
+//   KB at 256. Each thread copies the two 16-byte chunks it will read
+//   (cp.async), STAGES passes ahead of the math, at least 64 rows: at
+//   128 threads 16 stages at W 256 and 8 at W 128 (64 and 32 KB), 4
+//   below (16 KB); at 256 threads 8 at W 256 (64 KB), 4 below. The
+//   thread that copies a chunk is the only one that reads it, so the
+//   loop has no barrier: cp.async.wait_group alone orders it.
 // - Math on every thread. A row's LANES lanes take 8-term dot products
-//   and sum them with log2(LANES) shuffles, for all G query heads of the
-//   kv head on the same loaded row. Each row group keeps its own online
-//   softmax in f32 (base 2, one ex2 per key: the larger of the old max
-//   and the new score gets weight 1) and its 8 columns of the
-//   accumulator (qf[G][8] and acc[G][8] a thread at every D); P enters
-//   P.V cast to bf16 (the TPU kernel's `p.astype(v.dtype)`), the row sum
-//   stays f32. At the end the row groups merge: shuffles inside a warp,
-//   then the 4 warps through shared memory, in a fixed order.
+//   for all G query heads of the kv head on the same loaded row and sum
+//   them with log2(LANES) levels of shuffles, each level over all G
+//   scores at once (G independent chains, not G in a row). Each row
+//   group keeps its own online softmax in f32 (base 2, one ex2 per key:
+//   the larger of the old max and the new score gets weight 1) and its
+//   8 columns of the accumulator (qf[G][8] and acc[G][8] a thread at
+//   every W); P enters P.V cast to bf16 (the TPU kernel's
+//   `p.astype(v.dtype)`), the row sum stays f32. At the end the row
+//   groups merge: shuffles inside a warp, then the warps through shared
+//   memory in a fixed order, each head's warp weights computed once:
+//   their (m, l, acc[W]) records reuse the ring's bytes after one
+//   barrier, so a CTA holds the larger of the two (at W 256 and G 8 the
+//   8 warps' records, 66 KB, against a 64 KB ring) and the run's table
+//   entries.
+// - Groups of 8. qf[8][8] and acc[8][8] alone are 128 floats a thread,
+//   the whole budget of 4 CTAs of 128 threads an SM
+//   (`__launch_bounds__(128, 4)`: 128 registers), so G 8 takes a CTA of
+//   its own: 256 threads, one CTA an SM, up to 255 registers a thread
+//   (ptxas takes 246-254 and spills nothing; chip_smoke's build line
+//   reports each instantiation). At Gemma-2B's decode step (B 8, one kv
+//   head) only 47-72 CTAs are live, so 8 warps a CTA halve each CTA's
+//   passes against 4; where CTAs are many (Llama-2-70B's 8 kv heads) one
+//   CTA of 8 warps an SM keeps as many warps as two of 4. Chosen over
+//   two CTAs of 4 heads each (every K/V row read twice, the second from
+//   L2) and over mma.sync with the 8 heads padded to 16 rows (half of
+//   every product wasted, and a layout unlike the lane-per-chunk
+//   softmax of the other groups): the bytes stay read once.
 // - Merge. One split writes acc / max(l, 1e-30) as the output. With
-//   more, each writes its (m, l, acc[D]) in f32 to a workspace the
-//   wrapper allocates, and a second small kernel (one warp per query
-//   head: D / 32 columns a lane, half the warp at d 16) takes the live
-//   splits in index order: m* = max m_i, l = sum l_i 2^(m_i - m*), o =
-//   sum acc_i 2^(m_i - m*) / max(l, 1e-30); a split with no valid key
-//   (m = -inf) weighs 0. No atomics: two launches give the same bits.
+//   more, each writes its (m, l, acc[D]) in f32 (`ws_record`: D + 2
+//   floats) to a workspace the wrapper allocates, and a second small
+//   kernel (one warp per query head and 32 columns, so D 256 at B 8 x H
+//   8 gets 512 warps, not 64) reduces the live splits' m and l across
+//   its lanes in a fixed tree, then sums each column over the splits in
+//   index order: m* = max m_i, l = sum l_i 2^(m_i - m*), o = sum acc_i
+//   2^(m_i - m*) / max(l, 1e-30); a split with no valid key (m = -inf)
+//   weighs 0. No atomics: two launches give the same bits.
 //
-// The general body: f32 at any D, and bf16 at any other head dim or
-// group size (8-way groups, head dims the split body lacks: 96, and 256
-// with Gemma-2B's 8 query heads over 1 kv head, whose rows are 2 KB of
-// f32 a block row here and 50 KB a CTA at blocks of 16). One CTA
-// of 128 threads per (row, kv head) loops over the live blocks, staging
-// each K and V block in shared memory as f32 with four barriers a block.
-// It stays for f32 because f32 is the parity path, held within 1e-4 of
-// the plain version, not the type any timed path serves in: a split
-// body for it would double the variants above (a 16-byte chunk holds 4
-// f32, so the lane layout differs) for no path that waits on it. f32 is
-// also the only type the `examples/http_serving.py` d 16 engine runs, so
-// that engine stays on this body.
+// The general body: f32 at any D, and bf16 where the split body does
+// not reach: D 8, head dims that are not multiples of 8 (or above 256),
+// groups outside {1, 2, 4, 8}. One CTA of 128 threads per (row, kv
+// head) loops over the live blocks, staging each K and V block in
+// shared memory as f32 with four barriers a block. It stays for f32
+// because f32 is the parity path, held within 1e-4 of the plain
+// version, not the type any timed path serves in: a split body for it
+// would double the variants above (a 16-byte chunk holds 4 f32, so the
+// lane layout differs) for no path that waits on it. f32 is also the
+// only type the `examples/http_serving.py` d 16 engine runs, so that
+// engine stays on this body.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -193,23 +223,31 @@ __global__ void __launch_bounds__(THREADS)
 namespace split {
 
 using bf16 = __nv_bfloat16;
-constexpr int THREADS = 128;
-constexpr int WARPS = THREADS / 32;
 
-// The layout at head dim D (see the note at the top): LANES lanes of 16
-// bytes hold a key row, a pass of the CTA covers ROWS rows, a ring
-// stage holds one pass (K rows, then V rows: 4 KB), STAGES passes are
-// in flight (at least 64 rows), and a workspace record is (m, l, acc).
-template <int D>
+// The layout at body width W and groups of G (see the note at the top):
+// THREADS threads a CTA (128 at G <= 4, 4 CTAs an SM; 256 at G 8, one
+// CTA an SM), LANES lanes of 16 bytes hold a key row of up to W columns,
+// a pass of the CTA covers ROWS rows, a ring stage holds one pass (K
+// rows, then V rows, W columns apart: 4 KB at 128 threads, 8 KB at 256),
+// STAGES passes are in flight (at least 64 rows), and a warp's record in
+// shared memory is (m, l, acc[W]).
+template <int W, int G>
 struct Layout {
-  static constexpr int LANES = D / 8;
+  static constexpr int THREADS = G >= 8 ? 256 : 128;
+  static constexpr int WARPS = THREADS / 32;
+  static constexpr int LANES = W / 8;
   static constexpr int ROWS = THREADS / LANES;
   static constexpr int STAGES = ROWS >= 16 ? 4 : 64 / ROWS;
-  static constexpr int STAGE = 2 * ROWS * D;  // bf16 elements
-  static constexpr int REC = D + 2;
+  static constexpr int STAGE = 2 * ROWS * W;  // bf16 elements
+  static constexpr int REC = W + 2;
   static_assert(LANES >= 2 && LANES <= 32 && ROWS * LANES == THREADS,
                 "a key row is 2 to 32 chunks of 16 bytes");
 };
+
+// A split's record in the workspace, at head dim D: (m, l, acc[D]) in
+// f32. The wrapper sizes the workspace by the same formula
+// (ops/paged_attention.py `paged_decode_attention`).
+__host__ __device__ __forceinline__ int ws_record(int D) { return D + 2; }
 
 // The row's live blocks [j_lo, j_hi] (empty when j_lo > j_hi): j*bs <=
 // pos, and with a window j*bs + bs - 1 > pos - window, as the TPU
@@ -240,19 +278,30 @@ __device__ __forceinline__ float weight(float m, float m_joint) {
   return m == -INFINITY ? 0.f : exp2_ftz(m - m_joint);
 }
 
-template <int D>
-inline size_t smem_bytes(int G, int L) {
-  // the K/V ring, the warps' (m, l, acc[D]) per query head, the run's
-  // table entries
-  using Lay = Layout<D>;
-  return (size_t)Lay::STAGES * Lay::STAGE * sizeof(bf16) +
-         sizeof(float) * WARPS * (size_t)G * Lay::REC + sizeof(int) * L;
+// The K/V ring, and after the last pass in the same bytes the warps'
+// (m, l, acc[W]) per query head and each head's warp weights, m and l;
+// then the run's table entries.
+template <int W, int G>
+__host__ __device__ constexpr size_t ring_bytes() {
+  using Lay = Layout<W, G>;
+  const size_t ring = (size_t)Lay::STAGES * Lay::STAGE * sizeof(bf16);
+  const size_t part =
+      sizeof(float) * (size_t)G * (Lay::WARPS * Lay::REC + Lay::WARPS + 2);
+  return ring > part ? ring : part;
 }
 
-// 4 CTAs an SM: up to 128 registers a thread (G 4 takes about 126), so
-// ptxas never trades a spill for occupancy
-template <int D, int G>
-__global__ void __launch_bounds__(THREADS, 4)
+template <int W, int G>
+inline size_t smem_bytes(int L) {
+  return ring_bytes<W, G>() + sizeof(int) * L;
+}
+
+// 4 CTAs of 128 threads an SM for groups of up to 4 (up to 128
+// registers a thread; G 4 takes about 126); one CTA of 256 threads for
+// groups of 8, whose qf[8][8] and acc[8][8] alone are 128 floats a
+// thread (up to 255 registers), so ptxas never trades a spill for
+// occupancy
+template <int W, int G>
+__global__ void __launch_bounds__(Layout<W, G>::THREADS, G >= 8 ? 1 : 4)
     paged_split_kernel(const bf16* __restrict__ q,
                        const bf16* __restrict__ kpool,
                        const bf16* __restrict__ vpool,
@@ -260,21 +309,25 @@ __global__ void __launch_bounds__(THREADS, 4)
                        const int* __restrict__ pos,
                        const float* __restrict__ slopes,
                        bf16* __restrict__ out, float* __restrict__ ws,
-                       int H, int KVH, int bs, int MB, int L, int window,
-                       float scale_log2) {
-  using Lay = Layout<D>;
+                       int H, int KVH, int bs, int D, int MB, int L,
+                       int window, float scale_log2) {
+  using Lay = Layout<W, G>;
+  constexpr int THREADS = Lay::THREADS, WARPS = Lay::WARPS;
   constexpr int LANES = Lay::LANES, ROWS = Lay::ROWS;
   constexpr int STAGES = Lay::STAGES, REC = Lay::REC;
   extern __shared__ __align__(16) uint8_t smem_raw[];
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // [stage][K|V][ROWS][D]
-  float* part = reinterpret_cast<float*>(ring + STAGES * Lay::STAGE);
-  int* tbl = reinterpret_cast<int*>(part + WARPS * G * REC);
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // [stage][K|V][ROWS][W]
+  float* part = reinterpret_cast<float*>(smem_raw);  // after the loop
+  int* tbl = reinterpret_cast<int*>(smem_raw + ring_bytes<W, G>());
 
   const int s = blockIdx.x, n = blockIdx.y, b = blockIdx.z;
   const int nsplit = gridDim.x;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int c = tid % LANES;   // the thread's 16-byte chunk: columns 8c..
   const int rg = tid / LANES;  // its row of each pass
+  // a chunk past the head dim (D < W) is never copied or read: its
+  // thread holds zeros and adds 0 to every shuffle sum
+  const bool has = c < D / 8;
   const int p = pos[b];
   int j_lo, j_hi;
   live_blocks(p, window, bs, MB, j_lo, j_hi);
@@ -299,13 +352,13 @@ __global__ void __launch_bounds__(THREADS, 4)
   // empty past the run, so wait_group counts passes)
   auto issue = [&](int t, int st) {
     const int i = t * ROWS + rg;
-    if (i < rows) {
+    if (has && i < rows) {
       const int jb = i / bs, r = i - jb * bs;
       const size_t src =
           ((size_t)tbl[jb] * KVH + n) * slab + (size_t)r * D + c * 8;
-      bf16* dst = ring + st * Lay::STAGE + rg * D + c * 8;
+      bf16* dst = ring + st * Lay::STAGE + rg * W + c * 8;
       cp_async_16(dst, kpool + src);
-      cp_async_16(dst + ROWS * D, vpool + src);
+      cp_async_16(dst + ROWS * W, vpool + src);
     }
     cp_async_commit();
   };
@@ -317,8 +370,8 @@ __global__ void __launch_bounds__(THREADS, 4)
   float qf[G][8], sl2[G], m[G], l[G], acc[G][8];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    const uint4 u =
-        *reinterpret_cast<const uint4*>(q + (orow + g) * D + c * 8);
+    uint4 u = make_uint4(0u, 0u, 0u, 0u);
+    if (has) u = *reinterpret_cast<const uint4*>(q + (orow + g) * D + c * 8);
     bf16x8_to_f32(u, qf[g]);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -337,11 +390,11 @@ __global__ void __launch_bounds__(THREADS, 4)
     // every lane runs the shuffles; rows past the run weigh nothing
     const int i = t * ROWS + rg;
     const bool in = i < rows;
-    const bf16* kr = ring + st * Lay::STAGE + rg * D + c * 8;
+    const bf16* kr = ring + st * Lay::STAGE + rg * W + c * 8;
     uint4 ku = make_uint4(0u, 0u, 0u, 0u), vu = ku;
-    if (in) {
+    if (in && has) {
       ku = *reinterpret_cast<const uint4*>(kr);
-      vu = *reinterpret_cast<const uint4*>(kr + ROWS * D);
+      vu = *reinterpret_cast<const uint4*>(kr + ROWS * W);
     }
     float kf[8], vf[8];
     bf16x8_to_f32(ku, kf);
@@ -349,36 +402,46 @@ __global__ void __launch_bounds__(THREADS, 4)
     const int kpos = j0 * bs + i;
     const bool valid =
         in && kpos <= p && (window <= 0 || kpos > p - window);
+    // the G scores, each shuffle level over all G at once (G independent
+    // chains in flight, not G chains one after another)
+    float sc[G];
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      float sc = 0.f;
+      sc[g] = 0.f;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) sc = fmaf(qf[g][e], kf[e], sc);
+      for (int e = 0; e < 8; ++e) sc[g] = fmaf(qf[g][e], kf[e], sc[g]);
+    }
 #pragma unroll
-      for (int o = 1; o < LANES; o *= 2)
-        sc += __shfl_xor_sync(0xffffffffu, sc, o);
-      if (!valid) continue;  // uniform over the row's lanes
-      sc -= sl2[g] * (float)(p - kpos);
-      // one ex2 a key: the larger of the running max and the score
-      // weighs 1, the other 2^-(their distance); from m = -inf the
-      // correction is 0
-      const float diff = sc - m[g];
-      const float e = exp2_ftz(-fabsf(diff));
-      const bool up = diff > 0.f;
-      const float corr = up ? e : 1.f, pr = up ? 1.f : e;
-      m[g] = up ? sc : m[g];
-      l[g] = fmaf(l[g], corr, pr);
-      const float pv = round_to<bf16>(pr);
+    for (int o = 1; o < LANES; o *= 2)
 #pragma unroll
-      for (int x = 0; x < 8; ++x)
-        acc[g][x] = fmaf(acc[g][x], corr, pv * vf[x]);
+      for (int g = 0; g < G; ++g)
+        sc[g] += __shfl_xor_sync(0xffffffffu, sc[g], o);
+    if (valid) {  // uniform over the row's lanes
+      const float dist = (float)(p - kpos);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float s2 = sc[g] - sl2[g] * dist;
+        // one ex2 a key: the larger of the running max and the score
+        // weighs 1, the other 2^-(their distance); from m = -inf the
+        // correction is 0
+        const float diff = s2 - m[g];
+        const float e = exp2_ftz(-fabsf(diff));
+        const bool up = diff > 0.f;
+        const float corr = up ? e : 1.f, pr = up ? 1.f : e;
+        m[g] = up ? s2 : m[g];
+        l[g] = fmaf(l[g], corr, pr);
+        const float pv = round_to<bf16>(pr);
+#pragma unroll
+        for (int x = 0; x < 8; ++x)
+          acc[g][x] = fmaf(acc[g][x], corr, pv * vf[x]);
+      }
     }
     issue(t + STAGES, st);  // refill the stage this thread just read
   }
   cp_async_wait<0>();
 
   // merge the row groups of each warp (lanes ^LANES .. ^16), then the
-  // warps
+  // warps through the ring's bytes, once every warp is past the loop
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
@@ -395,6 +458,7 @@ __global__ void __launch_bounds__(THREADS, 4)
       }
       m[g] = mj;
     }
+  __syncthreads();
   if (lane < LANES) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
@@ -408,107 +472,127 @@ __global__ void __launch_bounds__(THREADS, 4)
     }
   }
   __syncthreads();
-  for (int i = tid; i < G * D; i += THREADS) {
-    const int g = i / D, d = i % D;
-    float mj = -INFINITY;
+  // each head's joint maximum, its warps' weights and its row sum, once:
+  // wts[g] = (weight of warp 0 .. WARPS - 1, m, l)
+  float* wts = part + WARPS * G * REC;
+  if (tid < G) {
+    float* wt = wts + tid * (WARPS + 2);
+    float mj = -INFINITY, ls = 0.f;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) mj = fmaxf(mj, part[(w * G + g) * REC]);
-    float ls = 0.f, a = 0.f;
+    for (int w = 0; w < WARPS; ++w)
+      mj = fmaxf(mj, part[(w * G + tid) * REC]);
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) {
-      const float* rec = part + (w * G + g) * REC;
-      const float wt = weight(rec[0], mj);
-      ls += rec[1] * wt;
-      a += rec[2 + d] * wt;
+      const float* rec = part + (w * G + tid) * REC;
+      wt[w] = weight(rec[0], mj);
+      ls += rec[1] * wt[w];
     }
+    wt[WARPS] = mj;
+    wt[WARPS + 1] = ls;
+  }
+  __syncthreads();
+  const int wrec = ws_record(D);
+  for (int i = tid; i < G * D; i += THREADS) {
+    const int g = i / D, d = i - g * D;
+    const float* wt = wts + g * (WARPS + 2);
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w)
+      a += part[(w * G + g) * REC + 2 + d] * wt[w];
     if (nsplit == 1) {
-      out[(orow + g) * D + d] = __float2bfloat16(a / fmaxf(ls, 1e-30f));
+      out[(orow + g) * D + d] =
+          __float2bfloat16(a / fmaxf(wt[WARPS + 1], 1e-30f));
     } else {
-      float* rec = ws + ((orow + g) * nsplit + s) * REC;
+      float* rec = ws + ((orow + g) * nsplit + s) * wrec;
       if (d == 0) {
-        rec[0] = mj;
-        rec[1] = ls;
+        rec[0] = wt[WARPS];
+        rec[1] = wt[WARPS + 1];
       }
       rec[2 + d] = a;
     }
   }
 }
 
-// One warp per (row, query head): the live splits' records in index
-// order -> the output; D / 32 columns a lane, or the first D lanes at d
-// 16.
-template <int D>
+// One warp per (row, query head, 32 columns): the live splits' records
+// -> the output. The lanes read the splits' (m, l) side by side (lane i
+// split s_lo + i, then + 32, ...) and reduce them in a fixed tree, so
+// every warp of a head finds the same weights; then each lane sums its
+// column (32 * slice + lane, if below D) over the splits in index order,
+// eight splits' loads in flight at a time.
 __global__ void __launch_bounds__(128)
     paged_merge_kernel(const float* __restrict__ ws,
                        const int* __restrict__ pos, bf16* __restrict__ out,
-                       int B, int H, int bs, int MB, int L, int nsplit,
-                       int window) {
-  constexpr int REC = Layout<D>::REC, PER = D >= 32 ? D / 32 : 1;
+                       int B, int H, int D, int bs, int MB, int L,
+                       int nsplit, int window) {
+  const int slices = (D + 31) / 32;
   const int w = (blockIdx.x * 128 + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
-  if (w >= B * H) return;
-  const bool on = lane < D;
+  if (w >= B * H * slices) return;
+  const int bh = w / slices, col = (w - bh * slices) * 32 + lane;
+  const int wrec = ws_record(D);
   int j_lo, j_hi;
-  live_blocks(pos[w / H], window, bs, MB, j_lo, j_hi);
-  const float* recs = ws + (size_t)w * nsplit * REC;
+  live_blocks(pos[bh / H], window, bs, MB, j_lo, j_hi);
+  const float* recs = ws + (size_t)bh * nsplit * wrec;
   const int s_lo = j_lo / L, s_hi = j_lo > j_hi ? s_lo - 1 : j_hi / L;
   float mj = -INFINITY;
-  for (int s = s_lo; s <= s_hi; ++s) mj = fmaxf(mj, recs[s * REC]);
-  float ls = 0.f, a[PER];
+  for (int s = s_lo + lane; s <= s_hi; s += 32)
+    mj = fmaxf(mj, recs[s * wrec]);
 #pragma unroll
-  for (int k = 0; k < PER; ++k) a[k] = 0.f;
+  for (int o = 16; o > 0; o /= 2)
+    mj = fmaxf(mj, __shfl_xor_sync(0xffffffffu, mj, o));
+  float ls = 0.f;
+  for (int s = s_lo + lane; s <= s_hi; s += 32)
+    ls += recs[s * wrec + 1] * weight(recs[s * wrec], mj);
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2)
+    ls += __shfl_xor_sync(0xffffffffu, ls, o);
+  if (col >= D) return;
+  float a = 0.f;
+#pragma unroll 8
   for (int s = s_lo; s <= s_hi; ++s) {
-    const float* rec = recs + s * REC;
-    const float wt = weight(rec[0], mj);
-    ls += rec[1] * wt;
-#pragma unroll
-    for (int k = 0; k < PER; ++k)
-      if (on) a[k] += rec[2 + 32 * k + lane] * wt;
+    const float* rec = recs + s * wrec;
+    a += rec[2 + col] * weight(rec[0], mj);
   }
-  const float denom = fmaxf(ls, 1e-30f);
-  if (on) {
-#pragma unroll
-    for (int k = 0; k < PER; ++k)
-      out[(size_t)w * D + 32 * k + lane] = __float2bfloat16(a[k] / denom);
-  }
+  out[(size_t)bh * D + col] = __float2bfloat16(a / fmaxf(ls, 1e-30f));
 }
 
-template <int D, int G>
-cudaError_t launch_dg(const void* q, const void* kpool, const void* vpool,
+template <int W, int G>
+cudaError_t launch_wg(const void* q, const void* kpool, const void* vpool,
                       const int* tables, const int* pos,
                       const float* slopes, void* out, float* ws, int B,
-                      int H, int KVH, int bs, int MB, int L, int window,
-                      float scale, cudaStream_t stream) {
+                      int H, int KVH, int bs, int D, int MB, int L,
+                      int window, float scale, cudaStream_t stream) {
   const int nsplit = (MB + L - 1) / L;
-  const size_t smem = smem_bytes<D>(G, L);
-  auto kernel = paged_split_kernel<D, G>;
+  const size_t smem = smem_bytes<W, G>(L);
+  auto kernel = paged_split_kernel<W, G>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(nsplit, KVH, B), THREADS, smem, stream>>>(
+  kernel<<<dim3(nsplit, KVH, B), Layout<W, G>::THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(kpool),
       static_cast<const bf16*>(vpool), tables, pos, slopes,
-      static_cast<bf16*>(out), ws, H, KVH, bs, MB, L, window,
+      static_cast<bf16*>(out), ws, H, KVH, bs, D, MB, L, window,
       scale * kLog2e);
   err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return err;
-  paged_merge_kernel<D><<<(B * H + 3) / 4, 128, 0, stream>>>(
-      ws, pos, static_cast<bf16*>(out), B, H, bs, MB, L, nsplit, window);
+  const int warps = B * H * ((D + 31) / 32);
+  paged_merge_kernel<<<(warps + 3) / 4, 128, 0, stream>>>(
+      ws, pos, static_cast<bf16*>(out), B, H, D, bs, MB, L, nsplit, window);
   return cudaGetLastError();
 }
 
 // Whether the split body can take this call (the wrapper's
-// `paged_body` mirrors it): bf16 rows at a head dim and a group size it
-// is instantiated for, 16-byte aligned operands, and a workspace
-// whenever there is more than one split.
+// `paged_body` mirrors it): bf16 rows at a head dim that is a multiple
+// of 8 from 16 to 256 and groups of 1, 2, 4 or 8, 16-byte aligned
+// operands, and a workspace whenever there is more than one split.
 bool takes(int H, int KVH, int D, int MB, int L, const void* q,
            const void* kpool, const void* vpool, const void* ws) {
   const int G = H / KVH;
   const uintptr_t bits = reinterpret_cast<uintptr_t>(q) |
                          reinterpret_cast<uintptr_t>(kpool) |
                          reinterpret_cast<uintptr_t>(vpool);
-  return (D == 16 || D == 32 || D == 64 || D == 128) &&
-         (G == 1 || G == 2 || G == 4) && L > 0 && (bits & 15) == 0 &&
-         (ws != nullptr || L >= MB);
+  return D >= 16 && takes_head_dim(D) &&
+         (G == 1 || G == 2 || G == 4 || G == 8) && L > 0 &&
+         (bits & 15) == 0 && (ws != nullptr || L >= MB);
 }
 
 cudaError_t launch(const void* q, const void* kpool, const void* vpool,
@@ -516,38 +600,31 @@ cudaError_t launch(const void* q, const void* kpool, const void* vpool,
                    void* out, float* ws, int B, int H, int KVH, int bs,
                    int D, int MB, int L, int window, float scale,
                    cudaStream_t stream) {
-  // the split body's own switch over the head dims it is instantiated
-  // at (its rows are exactly D wide, no filled columns): not the flash
-  // kernels' with_head_dim, which would also instantiate it at 256
-  auto at = [&](auto d) {
-    constexpr int Dc = decltype(d)::value;
+  // the flash kernels' switch: D runs the body of the smallest width
+  // W >= D, its chunks past D idle
+  return with_head_dim(D, [&](auto w) {
+    constexpr int Wc = decltype(w)::value;
     switch (H / KVH) {
       case 1:
-        return launch_dg<Dc, 1>(q, kpool, vpool, tables, pos, slopes, out,
-                                ws, B, H, KVH, bs, MB, L, window, scale,
+        return launch_wg<Wc, 1>(q, kpool, vpool, tables, pos, slopes, out,
+                                ws, B, H, KVH, bs, D, MB, L, window, scale,
                                 stream);
       case 2:
-        return launch_dg<Dc, 2>(q, kpool, vpool, tables, pos, slopes, out,
-                                ws, B, H, KVH, bs, MB, L, window, scale,
+        return launch_wg<Wc, 2>(q, kpool, vpool, tables, pos, slopes, out,
+                                ws, B, H, KVH, bs, D, MB, L, window, scale,
+                                stream);
+      case 4:
+        return launch_wg<Wc, 4>(q, kpool, vpool, tables, pos, slopes, out,
+                                ws, B, H, KVH, bs, D, MB, L, window, scale,
+                                stream);
+      case 8:
+        return launch_wg<Wc, 8>(q, kpool, vpool, tables, pos, slopes, out,
+                                ws, B, H, KVH, bs, D, MB, L, window, scale,
                                 stream);
       default:
-        return launch_dg<Dc, 4>(q, kpool, vpool, tables, pos, slopes, out,
-                                ws, B, H, KVH, bs, MB, L, window, scale,
-                                stream);
+        return cudaErrorInvalidValue;
     }
-  };
-  switch (D) {
-    case 16:
-      return at(std::integral_constant<int, 16>{});
-    case 32:
-      return at(std::integral_constant<int, 32>{});
-    case 64:
-      return at(std::integral_constant<int, 64>{});
-    case 128:
-      return at(std::integral_constant<int, 128>{});
-    default:
-      return cudaErrorInvalidValue;
-  }
+  });
 }
 
 }  // namespace split
@@ -579,7 +656,8 @@ cudaError_t launch(const void* q, const void* kpool, const void* vpool,
 // block id. `body` is the wrapper's choice (see the note at the top):
 // 1 the split body, which runs splits of `split_blocks` table entries
 // and, with more than one split, needs `workspace`: B * H *
-// ceil(MB / split_blocks) * (D + 2) floats; 0 the general body, which
+// ceil(MB / split_blocks) * (D + 2) floats (`split::ws_record`); 0
+// the general body, which
 // ignores both. A call the chosen body cannot take returns
 // cudaErrorInvalidValue and launches nothing. Returns cudaGetLastError()
 // after the last launch.

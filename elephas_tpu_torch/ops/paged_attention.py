@@ -9,11 +9,13 @@ block pool through per-row block tables, with no gathered copy.
 On CPU tensors the wrapper computes the plain version
 :func:`paged_decode_attention_plain`; on CUDA tensors it launches the
 kernel or raises. The kernel has two bodies, and the wrapper chooses
-(:func:`paged_body`): the split-K body for bf16 at head dims 16, 32, 64
-and 128 with GQA groups of 1, 2 or 4, the general body for the rest (f32
-at any shape, bf16 at other head dims or groups). A bf16 call of the
-split body's shapes that it cannot take raises: nothing drops quietly to
-the general body.
+(:func:`paged_body`): the split-K body for bf16 at every head dim that
+is a multiple of 8 from 16 to 256 (on a body of the next width up of
+16, 32, 64, 128 and 256) with GQA groups of 1, 2, 4 or 8, the general
+body for the rest (f32 at any shape; bf16 at head dim 8, at head dims
+that are not multiples of 8, and at other group sizes). A bf16 call of
+the split body's shapes that it cannot take raises: nothing drops
+quietly to the general body.
 """
 import math
 from typing import Optional, Sequence, Union
@@ -29,10 +31,11 @@ __all__ = ["paged_decode_attention", "paged_decode_attention_plain",
 
 Slopes = Union[None, Sequence[float], torch.Tensor]
 
-# the shapes the bf16 split body is instantiated for (csrc/paged_decode.cu
-# `split::takes`)
-SPLIT_HEAD_DIMS = (16, 32, 64, 128)
-SPLIT_GROUPS = (1, 2, 4)
+# the shapes the bf16 split body takes (csrc/paged_decode.cu
+# `split::takes`): every multiple of 8 from 16 to 256, each on the body
+# of the smallest width of 16, 32, 64, 128 and 256 that holds it
+SPLIT_HEAD_DIMS = tuple(range(16, 257, 8))
+SPLIT_GROUPS = (1, 2, 4, 8)
 # the `body` argument of the C entry point
 _BODY_IDS = {"general": 0, "split": 1}
 
@@ -47,17 +50,25 @@ def _slopes_tensor(alibi_slopes: Slopes, h: int,
     return sl.to(device)
 
 
-def split_blocks(b: int, kvh: int, max_blocks: int, block_size: int) -> int:
+def split_blocks(b: int, kvh: int, max_blocks: int, block_size: int,
+                 groups: int = 1) -> int:
     """Table entries per split of the bf16 kernel's split-K grid (B, KVH,
     splits): at least 64 positions a split, and at most as many splits
     as put about 2048 CTAs on the card when every row is full, so the
     serving shape (B 8, 16 kv heads, 64 blocks of 16) gets 16 splits of
     4 blocks and one request alone still spreads over 256 CTAs. At
     Mistral-7B's 8 kv heads the same 16 splits of 4 make 1,024 CTAs; at
-    D 128 each reads 32 KB of K/V, all of it in flight at once. From the
-    shape alone (not the head dim: a split is 64 positions at every D):
-    reading ``pos`` back to the host would cost more than the kernel."""
-    min_blocks = min(max(1, 64 // block_size), max_blocks)
+    D 128 each reads 32 KB of K/V, all of it in flight at once. With
+    ``groups`` of 8 (query heads per kv head) and at most 8 (row, kv
+    head) pairs, 32 positions: there a CTA takes a whole SM and does 8
+    heads' work a key, and Gemma-2B's decode step (B 8 over one kv head,
+    D 256) ran 9% faster on splits of 32 than of 64, while at 64 pairs
+    (Llama-2-70B's 8 kv heads at B 8) 32 ran 28% slower (an H100 80GB
+    HBM3 at 700 W, ``tests/torch_paged_split_ab.py``). From the shape
+    alone (not the head dim): reading ``pos`` back to the host would
+    cost more than the kernel."""
+    positions = 32 if groups >= 8 and b * kvh <= 8 else 64
+    min_blocks = min(max(1, positions // block_size), max_blocks)
     splits = min(-(-max_blocks // min_blocks),
                  max(1, -(-2048 // (b * kvh))))
     return max(-(-max_blocks // splits), min_blocks)
@@ -66,11 +77,11 @@ def split_blocks(b: int, kvh: int, max_blocks: int, block_size: int) -> int:
 def paged_body(dtype: torch.dtype, head_dim: int, groups: int,
                aligned: bool = True) -> str:
     """Which body of the CUDA kernel runs a call: ``"split"`` for bf16 at
-    a head dim of :data:`SPLIT_HEAD_DIMS` with ``groups`` (query heads
-    per kv head) in :data:`SPLIT_GROUPS`, ``"general"`` for any other
-    dtype or shape. Raises ``ValueError`` for a call of the split body's
-    shapes that it cannot take: an operand not 16-byte aligned
-    (``aligned`` False). The Python mirror of ``split::takes`` in
+    a head dim of :data:`SPLIT_HEAD_DIMS` (a multiple of 8 from 16 to
+    256) with ``groups`` (query heads per kv head) in
+    :data:`SPLIT_GROUPS`, ``"general"`` for any other dtype or shape.
+    Raises ``ValueError`` for a call of the split body's shapes that it
+    cannot take: an operand not 16-byte aligned (``aligned`` False). The Python mirror of ``split::takes`` in
     ``csrc/paged_decode.cu``, which refuses such a call too."""
     if (dtype != torch.bfloat16 or head_dim not in SPLIT_HEAD_DIMS
             or groups not in SPLIT_GROUPS):
@@ -184,10 +195,11 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     slopes = _slopes_tensor(alibi_slopes, h, q.device)
     out = torch.empty_like(q)
     mb = tables.shape[1]
-    per = split_blocks(b, kvh, mb, bs)
+    per = split_blocks(b, kvh, mb, bs, h // kvh)
     aligned = all(t.data_ptr() % 16 == 0 for t in (q, k_pool, v_pool))
     body = paged_body(q.dtype, d, h // kvh, aligned)
-    # the split body's per-split (m, l, acc) records
+    # the split body's per-split (m, l, acc[d]) records: d + 2 floats
+    # each, as `split::ws_record`
     splits = -(-mb // per) if body == "split" else 1
     ws = (torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
                       device=q.device) if splits > 1 else None)

@@ -7,7 +7,8 @@ Runs on the CUDA device only. Builds the flagship LM config (vocab
 32000, 8 layers, 16 heads, d_model 1024, d_ff 4096; or ``olmoe_1b_7b``,
 ``OLMOE_1B_7B``: 16 layers, 64 experts top-8, gating densely in decode;
 or ``gemma_2b``, ``GEMMA_2B``: 18 layers, head dim 256, 8 heads over 1
-kv head, the paged kernel's general body; bf16 compute over f32 weights
+kv head, the paged kernel's split body at groups of 8; bf16 compute
+over f32 weights
 from a seed), fills all 8 slots of an
 engine with 256-token prompts, steps until every slot decodes, then
 times ``--steps`` steady decode steps, and profiles as many more. The

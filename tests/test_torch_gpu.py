@@ -14,11 +14,12 @@ the edges of its 64-key tiles and 32-key dQ stages; at head dims 8, 24,
 40, 72, 80, 96, 120, 136, 192 and 248, which run a wider body on
 zero-filled columns, over the same cases, with a sentinel check that no
 byte past a row's head_dim values is written; the paged kernel at
-head dims 16, 32, 64 and 128 and block sizes 8 and 16 over every case
-(bf16 on its split body with groups of 1, 2 and 4, f32 and 8-way groups
-on its general body), and at 256 with Gemma-2B's 8 query heads over 1
-kv head (the general body); a 2-layer LM at Gemma-2B's widths on the
-flash kernels against the plain path in f32. The Keras layers, optimizers and schedules
+head dims 16, 32, 64, 128 and 256 and at 80, 96 and 136 (a wider body's
+chunks past the head dim idle) and block sizes 8 and 16 over every case
+(bf16 on its split body with groups of 1, 2, 4 and 8, f32 on its
+general body), at 128 with Llama-2-70B's 64 query heads over 8 kv heads
+and at 256 with Gemma-2B's 8 query heads over 1 kv head; a 2-layer LM
+at Gemma-2B's widths on the flash kernels against the plain path in f32. The Keras layers, optimizers and schedules
 ported with Conv2D (no kernel of the repo's: cuDNN, cuBLAS and torch
 loops) are held against the CPU, TF32 off: layers within 1e-4 of each
 array's scale, optimizers within 1e-5 of scale, a BatchNormalization fit within
@@ -607,14 +608,17 @@ _PAGED_CASES = {
     "long_row": (8, 8, 64, [1023, 0], None, False),
     "gqa2": (8, 4, 10, [159, 70, 3, 0], None, True),
     "gqa4": (16, 4, 10, [159, 70, 3, 0], 40, False),
-    # 8-way groups take the general body
+    # 8-way groups (the split body's budget of 2 CTAs an SM in bf16)
     "gqa8": (16, 2, 10, [159, 70, 3, 0], None, False),
-    # Gemma-2B's 8 query heads over 1 kv head (the general body)
+    # Llama-2-70B's 64 query heads over 8 kv heads
+    "gqa8_h64": (64, 8, 10, [159, 70, 3, 0], 40, True),
+    # Gemma-2B's 8 query heads over 1 kv head
     "mqa8": (8, 1, 10, [159, 70, 3, 0], None, False),
     "mqa8_long_row": (8, 1, 64, [1023, 0], None, False),
     "mqa8_window": (8, 1, 10, [159, 100, 3, 0], 21, False),
 }
-PAGED_HEAD_DIMS = (16, 32, 64, 128)
+# the split body's widths, and 80, 96 and 136 on the next width up
+PAGED_HEAD_DIMS = (16, 32, 64, 128, 256, 80, 96, 136)
 
 
 def _paged_inputs(case, dtype, device, d=64, bs=16):
@@ -644,14 +648,13 @@ def _paged_inputs(case, dtype, device, d=64, bs=16):
 @pytest.mark.parametrize("case", sorted(_PAGED_CASES))
 def test_paged_kernel_matches_plain(cuda, case, dtype, d, bs):
     """Every case at every head dim and both block sizes: bf16 with
-    groups of 1, 2 or 4 on the split body (``split_launches`` rises by
-    one), f32 and 8-way groups on the general body (it does not)."""
+    groups of 1, 2, 4 or 8 on the split body (``split_launches`` rises
+    by one), f32 on the general body (it does not)."""
     from elephas_tpu_torch.ops.paged_attention import (
-        SPLIT_GROUPS, paged_decode_attention, paged_decode_attention_plain)
+        paged_decode_attention, paged_decode_attention_plain)
     q, kp, vp, tables, pos, window, slopes = _paged_inputs(case, dtype,
                                                            cuda, d, bs)
-    split = (dtype == torch.bfloat16
-             and q.shape[1] // kp.shape[1] in SPLIT_GROUPS)
+    split = dtype == torch.bfloat16
     before = paged_decode_attention.launches
     split_before = paged_decode_attention.split_launches
     out = paged_decode_attention(q, kp, vp, tables, pos, window, slopes)
@@ -682,11 +685,12 @@ def test_paged_split_body_refuses_unaligned_operands(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", ["gqa4", "long_row", "window"])
+@pytest.mark.parametrize("case", ["gqa4", "long_row", "window", "gqa8_h64"])
 def test_paged_kernel_at_head_dim_128_matches_plain(cuda, case, dtype):
     """The paged kernel at head dim 128 (bf16 on its split body, f32 on
-    the general one; Mistral-7B's groups of 4 in ``gqa4``) against its
-    plain version, with the head-dim 64 tolerances."""
+    the general one; Mistral-7B's groups of 4 in ``gqa4``, Llama-2-70B's
+    groups of 8 in ``gqa8_h64``) against its plain version, with the
+    head-dim 64 tolerances."""
     from elephas_tpu_torch.ops.paged_attention import (
         paged_decode_attention, paged_decode_attention_plain)
     q, kp, vp, tables, pos, window, slopes = _paged_inputs(case, dtype,
@@ -705,9 +709,10 @@ def test_paged_kernel_at_head_dim_128_matches_plain(cuda, case, dtype):
 @pytest.mark.parametrize("case", ["mqa8", "mqa8_long_row", "mqa8_window"])
 def test_paged_kernel_at_head_dim_256_matches_plain(cuda, case, dtype, bs):
     """The paged kernel at head dim 256 with groups of 8 (Gemma-2B's
-    decode step), bf16 and f32, on its general body (``split_launches``
-    does not rise), against its plain version with the head-dim-64
-    tolerances; two bf16 launches give the same bits."""
+    decode step), bf16 on its split body and f32 on its general body
+    (``split_launches`` rises by one for bf16 only), against its plain
+    version with the head-dim-64 tolerances; two launches give the same
+    bits."""
     from elephas_tpu_torch.ops.paged_attention import (
         paged_decode_attention, paged_decode_attention_plain)
     args = _paged_inputs(case, dtype, cuda, 256, bs)
@@ -715,8 +720,8 @@ def test_paged_kernel_at_head_dim_256_matches_plain(cuda, case, dtype, bs):
               paged_decode_attention.split_launches)
     out = paged_decode_attention(*args)
     assert (paged_decode_attention.launches,
-            paged_decode_attention.split_launches) == (before[0] + 1,
-                                                       before[1])
+            paged_decode_attention.split_launches) == (
+        before[0] + 1, before[1] + (dtype == torch.bfloat16))
     q, kp, vp, tables, pos, window, slopes = args
     ref = paged_decode_attention_plain(q.float(), kp.float(), vp.float(),
                                        tables, pos, window, slopes)
@@ -731,7 +736,8 @@ def test_paged_kernel_at_head_dim_256_matches_plain(cuda, case, dtype, bs):
 
 
 @pytest.mark.parametrize("d", PAGED_HEAD_DIMS)
-@pytest.mark.parametrize("case", ["long_row", "gqa4", "window_empty_split"])
+@pytest.mark.parametrize("case", ["long_row", "gqa4", "window_empty_split",
+                                  "mqa8"])
 def test_paged_kernel_is_bit_reproducible(cuda, case, d):
     """No atomics, splits merged in index order: two bf16 launches on the
     same inputs give the same bits, at every head dim."""

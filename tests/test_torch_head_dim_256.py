@@ -3,7 +3,8 @@
 Head dim 256 (d_model 1024 over 4 heads) over one kv head (multi-query),
 SwiGLU, RMSNorm, RoPE and a tied embedding: the shape google/gemma-2b
 gives the flash kernels (their 256-wide bodies) and the paged kernel
-(its general body, groups of 4 here, 8 at Gemma-2B's widths), at 2
+(its general body in f32, groups of 4 here; in bf16 at Gemma-2B's
+widths its 256-wide split body, groups of 8), at 2
 layers, d_ff 256 and vocab 64. Identical weights (the port's initial
 weights as a numpy tree, which the JAX package takes as they are, or
 ``set_weights(jax_model.get_weights())``; the tree's ``wk``/``wv`` are

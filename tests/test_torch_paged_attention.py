@@ -4,8 +4,11 @@ The same numpy inputs (shuffled block tables, ragged positions) go
 through the JAX ``paged_decode_attention`` (the Pallas kernel in
 interpret mode) and the port's wrapper, which on CPU tensors runs the
 kernel's plain version (at head dim 16, and at 256 with 8 query heads
-over 1 kv head, Gemma-2B's decode step). f32 throughout; rtol = atol =
-2e-5 covers the online-versus-full-row softmax reassociation.
+over 1 kv head, Gemma-2B's decode step), and the bf16 kernel's
+split-and-merge arithmetic in numpy at every body width and group size
+(head dims 16, 32, 80, 96, 128, 256; groups of 1, 2, 4 and 8). f32
+throughout; rtol = atol = 2e-5 covers the online-versus-full-row softmax
+reassociation. One torch intra-op thread for the module.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +22,17 @@ from elephas_tpu.ops.paged_attention import \
 from elephas_tpu_torch.ops.paged_attention import (
     SPLIT_GROUPS, paged_body, paged_decode_attention,
     paged_decode_attention_plain, split_blocks)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: these ops are tiny, and under the parallel
+    test run a pool of threads per worker oversubscribes the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 _CASES = {
     "base": dict(h=4, kvh=4, window=None, alibi=False),
@@ -199,23 +213,28 @@ def test_split_merge_matches_jax_kernel_and_plain(case):
 
 
 # name: (split length, window, ALiBi, positions); the table is 8 blocks of
-# 8, so positions reach 63
+# 8, so positions reach 63. 96 and 80 run on the 128-wide body, 256 is
+# Gemma-2B's (with 8 query heads over 1 kv head at groups of 8)
 _DIM_CASES = {
     16: (3, None, True, [63, 8, 0]),
     32: (2, 13, False, [58, 23, 0]),
     128: (3, 9, True, [60, 40, 0]),
+    256: (2, None, False, [61, 30, 0]),
+    96: (3, 11, False, [59, 17, 0]),
+    80: (4, None, True, [62, 33, 0]),
 }
 
 
 @pytest.mark.parametrize("groups", SPLIT_GROUPS)
 @pytest.mark.parametrize("d", sorted(_DIM_CASES))
 def test_split_merge_at_head_dims_and_groups(d, groups):
-    """The split body's arithmetic at its other head dims (16, 32, 128)
-    and every group size it takes (1, 2, 4), each with a window or ALiBi
-    and an inactive slot, against the JAX kernel (interpret mode) and the
-    plain version at rtol = atol = 2e-5."""
+    """The split body's arithmetic at its other head dims (16, 32, 128,
+    256, and 80 and 96 on the 128-wide body) and every group size it
+    takes (1, 2, 4, 8; 4 query heads, 8 at groups of 8), each with a
+    window or ALiBi and an inactive slot, against the JAX kernel
+    (interpret mode) and the plain version at rtol = atol = 2e-5."""
     per, window, alibi, positions = _DIM_CASES[d]
-    h = 4
+    h = max(4, groups)
     q, kp, vp, ids, pos = _inputs(17 + d, 3, h, h // groups, d=d, mb=8,
                                   nb=30)
     pos[:] = positions
@@ -237,11 +256,20 @@ _BODY_CASES = {
     "bf16_d16_g1": ((torch.bfloat16, 16, 1, True), "split"),
     "f32_d64": ((torch.float32, 64, 1, True), "general"),
     "f32_d128_unaligned": ((torch.float32, 128, 4, False), "general"),
-    "bf16_g8": ((torch.bfloat16, 64, 8, True), "general"),
+    "bf16_g8": ((torch.bfloat16, 64, 8, True), "split"),
     "bf16_g3": ((torch.bfloat16, 64, 3, True), "general"),
-    "bf16_d96": ((torch.bfloat16, 96, 1, True), "general"),
-    "bf16_d256_g8": ((torch.bfloat16, 256, 8, True), "general"),
+    "bf16_d96": ((torch.bfloat16, 96, 1, True), "split"),
+    "bf16_d256_g8": ((torch.bfloat16, 256, 8, True), "split"),
+    "bf16_d80_g2": ((torch.bfloat16, 80, 2, True), "split"),
+    "bf16_d136_g8": ((torch.bfloat16, 136, 8, True), "split"),
+    "bf16_d100": ((torch.bfloat16, 100, 1, True), "general"),
+    "bf16_d8": ((torch.bfloat16, 8, 1, True), "general"),
+    "bf16_d264": ((torch.bfloat16, 264, 1, True), "general"),
+    "bf16_g16": ((torch.bfloat16, 128, 16, True), "general"),
+    "f32_d256_g8": ((torch.float32, 256, 8, True), "general"),
     "bf16_d8_unaligned": ((torch.bfloat16, 8, 1, False), "general"),
+    "bf16_d96_unaligned": ((torch.bfloat16, 96, 1, False), None),
+    "bf16_d256_g8_unaligned": ((torch.bfloat16, 256, 8, False), None),
     "bf16_unaligned": ((torch.bfloat16, 128, 4, False), None),
     "bf16_d16_unaligned": ((torch.bfloat16, 16, 2, False), None),
 }
@@ -249,16 +277,26 @@ _BODY_CASES = {
 
 @pytest.mark.parametrize("case", sorted(_BODY_CASES))
 def test_paged_body_choice(case):
-    """bf16 at head dims 16-128 with groups of 1, 2 or 4 takes the split
-    body; other dtypes and shapes the general one; a split-body call the
-    body cannot take (unaligned) raises instead of
-    falling back."""
+    """bf16 at every multiple of 8 from 16 to 256 with groups of 1, 2, 4
+    or 8 takes the split body; other dtypes and shapes (f32, D 8, D
+    100, D 264, groups of 3 or 16) the general one; a split-body call
+    the body cannot take (unaligned) raises instead of falling back."""
     args, body = _BODY_CASES[case]
     if body is None:
         with pytest.raises(ValueError):
             paged_body(*args)
     else:
         assert paged_body(*args) == body
+
+
+def test_split_body_takes_every_multiple_of_8_to_256():
+    """The split body's head dims are 16, 24, ..., 256, each with groups
+    of 1, 2, 4 and 8, and nothing else in between runs it."""
+    assert SPLIT_GROUPS == (1, 2, 4, 8)
+    assert all(paged_body(torch.bfloat16, d, g) == "split"
+               for d in range(16, 257, 8) for g in SPLIT_GROUPS)
+    assert not any(paged_body(torch.bfloat16, d, 1) == "split"
+                   for d in range(1, 300) if d % 8 or not 16 <= d <= 256)
 
 
 def test_split_length_comes_from_the_shape():
@@ -283,3 +321,23 @@ def test_split_length_comes_from_the_shape():
         assert 1 <= per <= mb
         assert per * bs >= min(64, mb * bs)
         assert -(-mb // per) * per - mb < per   # no split wholly empty
+
+
+def test_split_length_at_groups_of_8():
+    """Groups of 8 over at most 8 (row, kv head) pairs split at 32
+    positions: Gemma-2B's decode step in the paged engine (B 8, 8 query
+    heads over 1 kv head, its 128-entry tables of 16 at max_seq_len 2048)
+    runs 64 splits of 2 blocks; Llama-2-70B's 64 heads over 8 at B 8
+    keep 64 positions, as does every shape at smaller groups."""
+    assert split_blocks(8, 1, 128, 16, groups=8) == 2
+    assert split_blocks(8, 1, 64, 16, groups=8) == 2
+    assert split_blocks(1, 8, 64, 16, groups=8) == 2
+    assert split_blocks(8, 8, 64, 16, groups=8) == 4
+    assert split_blocks(8, 1, 128, 16, groups=4) == 4
+    assert split_blocks(8, 1, 128, 8, groups=8) == 4
+    for b, kvh, mb, bs in [(1, 1, 1, 16), (8, 1, 3, 16), (1, 1, 300, 1),
+                           (2, 4, 7, 8)]:
+        per = split_blocks(b, kvh, mb, bs, groups=8)
+        assert 1 <= per <= mb
+        assert per * bs >= min(32, mb * bs)
+        assert -(-mb // per) * per - mb < per
