@@ -22,7 +22,12 @@ heads over 32 and 256 at Gemma-2B's 8 query heads over 1 kv head, each
 bf16 call on its split-K body and each f32 call on its general body,
 as the wrapper's ``split_launches`` count shows, with every split
 instantiation's registers from the build), checks that two launches of
-the paged, forward, dQ and dK/dV kernels give the same bits, times one
+the paged, forward, dQ and dK/dV kernels give the same bits (dK/dV at
+head dim 256 on its split path: the wrapper's plan cuts each k tile's
+walk over its group's query heads into chunks, one CTA each, and a
+reduction kernel sums a split tile's f32 partials; the chunk count and
+the reduction's device time are printed apart, and the reduction is
+held against its plain version and timed on its own), times one
 request's paged decode (B 1, pos 1000) on a line of its own, then
 drives the port's
 entry points at the full width of the flagship LM config (vocab 32000,
@@ -550,13 +555,20 @@ D96_CASES = {"lm_d96_fit": (2, 32, 32, 2048, 2048, True, 2047, 0, 0)}
 # bodies' tiles (64 keys in the forward's K/V tiles and the dK/dV CTA, 32
 # in dQ's stages): a key length one past a tile, a q tile whose second
 # warpgroup holds one row, a window edge inside a tile, a ring hop whose
-# diagonal crosses a tile, Gemma-2B's groups of 8 on ragged lengths
+# diagonal crosses a tile, Gemma-2B's groups of 8 on ragged lengths; and
+# the dK/dV plan's groups of 2, 4, 8 and 16 over ragged lengths, a
+# window and a ring hop, whose plans split some k tiles and not others,
+# with chunks that start inside a query head's run of q tiles
 D256_CASES = {"lm_d256_fit": (2, 8, 1, 1024, 1024, True, None, 0, 0),
               "sk_65": (2, 16, 16, 65, 65, True, None, 0, 0),
               "sq_65": (2, 16, 4, 65, 300, True, None, 235, 0),
               "window_65": (2, 16, 8, 300, 300, True, 65, 0, 0),
               "hop_crossing": (2, 16, 16, 200, 200, True, None, 256, 128),
-              "mqa8_ragged": (2, 8, 1, 191, 191, True, None, 0, 0)}
+              "mqa8_ragged": (2, 8, 1, 191, 191, True, None, 0, 0),
+              "gqa2_ragged": (2, 8, 4, 333, 333, True, None, 0, 0),
+              "gqa4_window": (2, 16, 4, 517, 517, True, 200, 0, 0),
+              "mqa8_hop": (2, 8, 1, 300, 300, True, None, 400, 100),
+              "mqa16_ragged": (1, 16, 1, 700, 700, True, None, 0, 0)}
 # the d 128 bodies of the forward and dK/dV kernels: the kernel (a
 # fragment of its mangled name), the object it is built into, and the
 # body as chip_smoke names it
@@ -572,17 +584,26 @@ WIDE_BODIES = {
 # the d 256 bodies of the three flash kernels, as WIDE_BODIES names them
 WIDE_256_BODIES = {
     "flash_fwd": ("flash_fwd_w256_kernel", "flash_fwd.o",
-                  "a producer warpgroup and two consumer warpgroups (384 "
-                  "threads, setmaxnreg) of 64 query rows, 64-key K/V "
-                  "tiles in 2-stage rings, O through each warpgroup's "
-                  "own Q rows; one CTA per 128-row q tile"),
+                  "the d 128 ping-pong body at width 256: a producer "
+                  "warpgroup and two consumer warpgroups (384 threads, "
+                  "setmaxnreg) of 64 query rows taking turns, S(j) with "
+                  "P V(j-1) in flight, 64-key K/V tiles in 2-stage rings, "
+                  "a 64-row Q tile and a 16 KB O staging tile a "
+                  "warpgroup; one CTA a q tile at one wave, else "
+                  "persistent over pairs of q tiles"),
     "flash_dq": ("flash_dq_wgmma_kernelILi256", "flash_bwd.o",
                  "384 threads (setmaxnreg), 128 query rows a CTA, 32-key "
                  "K/V stages in a 3-stage ring"),
-    "flash_dkv": ("flash_dkv_wgmma_kernelILi256", "flash_bwd.o",
-                  "384 threads (setmaxnreg), 64 key rows a CTA, each "
-                  "consumer warpgroup dK and dV at half the head dim, "
-                  "both computing S^T and dP^T")}
+    "flash_dkv": ("flash_dkv_w256_kernel", "flash_bwd.o",
+                  "384 threads (setmaxnreg), one CTA a chunk of a 64-row "
+                  "k tile's walk over its group's query heads and live q "
+                  "tiles (the wrapper's plan: chunks of about equal work "
+                  "sized to fill the SMs), each consumer warpgroup dK "
+                  "and dV at half the head dim; warpgroup 0 computes "
+                  "S^T, warpgroup 1 dP^T, and both read P^T and dS^T "
+                  "from shared memory; a split tile's chunks write f32 "
+                  "partials that flash_dkv_reduce_kernel sums in chunk "
+                  "order")}
 # the case each head dim is timed at beside the training shape: d 32 at
 # its main path's (tpu_model_lm_d32's fit), d 128 at lm_d128's fit, d 96
 # at lm_d96's, d 256 at lm_d256's; d 64's main path is the training
@@ -1019,6 +1040,7 @@ def bwd_timed(gen, d, case, label, flush, tol, errs):
     lib_kernel = (device_kernels(library_flash_backward(q, k_lib, v_lib, g))
                   if d == 256 else None)
     del k_lib, v_lib
+    split = dkv_split(args, flush) if d == 256 else None
     # unmasked (q, k) pairs of every query head, causal (and windowed)
     pairs = b * h * causal_pairs(s, window)
     esize = 2
@@ -1050,7 +1072,87 @@ def bwd_timed(gen, d, case, label, flush, tol, errs):
             "device_tflops": flops / (dev_ms[part] * 1e-3) / 1e12}
         if lib_kernel is not None:
             results[part]["library_kernel"] = lib_kernel
+    if split is not None:
+        results["dkv"]["split"] = split
     return results
+
+
+def kernel_device_ms(fn, flush, names, reps=10):
+    """Device ms a call of ``fn`` spends in the kernels whose names hold
+    each of ``names``, under torch.profiler over ``reps`` calls, each
+    after a cold L2."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    totals = {n: 0.0 for n in names}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for n in names:
+                if n in e.name:
+                    totals[n] += e.device_time_total
+    return {n: t / reps / 1e3 for n, t in totals.items()}
+
+
+def dkv_split(args, flush):
+    """The d 256 dK/dV call's plan (chunks, split k tiles, partial slots)
+    and, where it splits k tiles, its device ms by kernel, the chunk kernel's and the reduction's
+    apart (profiled), beside the reduction held against its plain version
+    on this call's own partials and timed alone (as issued and on the
+    device) with its bound: the partials read once, the split tiles' rows
+    written once (bytes; its adds are 1 flop a partial float)."""
+    from elephas_tpu_torch.ops.flash_attention import (
+        flash_dkv, flash_dkv_partials, flash_dkv_reduce,
+        flash_dkv_reduce_plain)
+
+    q, k = args[0], args[1]
+    dk, dv, partials, plan = flash_dkv_partials(*args)
+    info = {"chunks": len(plan.chunks), "split_k_tiles": len(plan.reduce),
+            "unsplit_k_tiles": sum(1 for c in plan.chunks if c[4] < 0),
+            "partial_slots": plan.slots,
+            "max_steps_a_chunk": max(c[3] for c in plan.chunks),
+            "sms": torch.cuda.get_device_properties(0).multi_processor_count}
+    if partials is None:
+        return info
+    want = flash_dkv_reduce_plain(partials, plan, dk.clone(), dv.clone())
+    got = flash_dkv_reduce(partials, plan, dk, dv)
+    torch.cuda.synchronize()
+    err = max(max_err(a, b) for a, b in zip(got, want))
+    scale = max(float(t.float().abs().max()) for t in want)
+    # the same f32 sums in the same order, cast once: bit-equal but for
+    # the last bf16 bit where the card's and the CPU's adds differ (none)
+    require(err <= 1e-2 * scale, f"dK/dV reduction err {err} <= 1e-2 * "
+                                 f"{scale}")
+    by_kernel = kernel_device_ms(lambda: flash_dkv(*args), flush,
+                                 ("flash_dkv_w256_kernel",
+                                  "flash_dkv_reduce_kernel"))
+    kvh, sk, d = k.shape[1], k.shape[2], k.shape[3]
+    split_rows = sum(min(64, sk - kt * 64) for kt, *_ in plan.reduce)
+    nbytes = partials.numel() * 4 + 2 * split_rows * d * 2
+    flops = 2 * (plan.slots - len(plan.reduce)) * 64 * d
+    bound_ms, bound_by = bound(flops, nbytes)
+
+    def reduce():
+        return flash_dkv_reduce(partials, plan, dk, dv)
+
+    return {**info, "partial_mb": partials.numel() * 4 / 2 ** 20,
+            "chunk_kernel_device_ms": by_kernel["flash_dkv_w256_kernel"],
+            "reduce_device_ms": by_kernel["flash_dkv_reduce_kernel"],
+            "reduce": {"max_abs_err": err, "scale": scale,
+                       "ms": time_ms(reduce, flush=flush),
+                       "device_ms": device_ms(reduce, flush),
+                       "plain_ms": time_ms(lambda: flash_dkv_reduce_plain(
+                           partials, plan, dk.clone(), dv.clone()),
+                           flush=flush),
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "flops": flops, "bytes": nbytes,
+                       "library_ms": None}}
 
 
 # ------------------------------------------------------------ main path
@@ -1061,6 +1163,7 @@ def reset_counts():
     flash_forward.launches = 0
     flash_backward.dq_launches = 0
     flash_backward.dkv_launches = 0
+    flash_backward.dkv_reduce_launches = 0
     paged_decode_attention.launches = 0
     paged_decode_attention.split_launches = 0
 
@@ -1072,6 +1175,7 @@ def read_counts():
     return {"flash_fwd": flash_forward.launches,
             "flash_dq": flash_backward.dq_launches,
             "flash_dkv": flash_backward.dkv_launches,
+            "flash_dkv_reduce": flash_backward.dkv_reduce_launches,
             "paged_decode": paged_decode_attention.launches,
             "paged_split": paged_decode_attention.split_launches}
 
@@ -2789,7 +2893,9 @@ def run_lm_d256():
     losses = hist["loss"]
     require(all(np.isfinite(losses)) and losses[1] < losses[0],
             f"the d 256 LM's loss falls: {losses}")
-    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+    # the dK/dV plan splits k tiles at this shape: each dK/dV launch is
+    # followed by its reduction
+    for name in ("flash_fwd", "flash_dq", "flash_dkv", "flash_dkv_reduce"):
         require(counts["train"][name] == cfg8.num_layers * steps,
                 f"{name} launched {cfg8.num_layers} times per step: "
                 f"{counts['train']}")
@@ -2812,7 +2918,7 @@ def run_lm_d256():
             for name in ("flash_fwd", "flash_dq", "flash_dkv")},
         "launches_per_step": {k: counts["train"][k] / steps
                               for k in ("flash_fwd", "flash_dq",
-                                        "flash_dkv")},
+                                        "flash_dkv", "flash_dkv_reduce")},
         "seconds": seconds,
         "phase_seconds": time.perf_counter() - t_phase})
     del model
@@ -4627,6 +4733,9 @@ def main() -> int:
                     f"{name} launched its d 256 body on lm_d256")
             entry["by_head_dim"]["256"].update(
                 body=WIDE_256_BODIES[name][2], registers=wide256[name])
+        if name == "flash_dkv":
+            entry["by_head_dim"]["256"]["split"] = (
+                results["by_head_dim"]["256"]["split"])
         if name != "paged_decode":
             # d 96 and 80 on the 128-wide bodies, columns past the head
             # dim filled with zeros; the other multiples of 8 checked
@@ -4638,6 +4747,25 @@ def main() -> int:
                 str(d): {"max_abs_err":
                          results["max_abs_err_by_head_dim"][f"d{d}"]}
                 for d in FILLED_HEAD_DIMS if d not in FILLED_TIMED}
+    # the d 256 dK/dV body's reduction, launched after its kernel wherever
+    # the plan splits a k tile: on the main paths only in lm_d256's fit
+    red = bwd["dkv"]["by_head_dim"]["256"]["split"]
+    reduce_launches = sum(c["flash_dkv_reduce"] for c in d256.values())
+    require(reduce_launches > 0, "lm_d256's fit ran the dK/dV reduction")
+    kernels.append({
+        "name": "flash_dkv_reduce", "route": "cuda",
+        "source": "elephas_tpu_torch/csrc/flash_bwd.cu",
+        "replaces": "elephas_tpu/ops/pallas_attention.py:243",
+        "replaces_note": "the f32 sum over the group's query heads and q "
+                         "tiles that _dkv_kernel carries in scratch and "
+                         "casts once (pallas_attention.py:295-298), where "
+                         "the d 256 plan cuts it into chunks",
+        "launches": reduce_launches,
+        "launches_by_path": {p: c["flash_dkv_reduce"]
+                             for p, c in paths.items()},
+        "shape": bwd["dkv"]["by_head_dim"]["256"]["shape"],
+        "split": {k: v for k, v in red.items() if k != "reduce"},
+        **red["reduce"]})
     print(nvidia_smi(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

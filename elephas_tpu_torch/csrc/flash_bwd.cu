@@ -24,13 +24,16 @@
 // - dK/dV: one CTA per (batch*kv_head, 128-row k tile) loops over the
 //   group's query heads and, for each, over the q tiles that can see
 //   this k tile (the kv-major grid of `_bwd_calls`), keeping dK and dV
-//   in registers, written once.
-// Every body is instantiated at widths 16, 32, 64 and 128 (hopper.cuh
-// `with_head_dim`): 16, 32 and 64 are the head dims of the repo's
-// configurations, 128 that of most published LMs. A head dim d that is a
-// multiple of 8 up to 128 runs the body of the smallest width W >= d (96,
-// Phi-3-mini's, and 72-120 on W 128; 40-56 on W 64; 24 on W 32; 8 on W
-// 16): the tensor maps hold d, TMA fills each tile's columns d .. W - 1
+//   in registers, written once. At width 256 the walk of a 64-row k tile
+//   may be cut into chunks, one CTA each, whose f32 partials a second
+//   kernel sums in a fixed order (below).
+// Every body is instantiated at widths 16, 32, 64, 128 and 256
+// (hopper.cuh `with_head_dim`): 16, 32 and 64 are the head dims of the
+// repo's configurations, 128 that of most published LMs, 256 that of
+// Gemma-2B and -7B. A head dim d that is a multiple of 8 up to 256 runs
+// the body of the smallest width W >= d (96, Phi-3-mini's, and 72-120 on
+// W 128; 136-248 on W 256; 40-56 on W 64; 24 on W 32; 8 on W 16): the
+// tensor maps hold d, TMA fills each tile's columns d .. W - 1
 // with zeros, and the products run at W. Zero columns of Q, K, V and dO
 // add nothing to S or dP and give zero columns of dQ = dS K, dK = dS^T Q
 // and dV = P^T dO, which the stores drop: only each row's first d
@@ -66,6 +69,34 @@
 //   4-stage ring of 16 KB Q and dO tiles (195 KB), each Q and dO tile
 //   streamed once per 128 key rows. ptxas: 168 registers at launch, no
 //   spill.
+// - dK/dV at width 256 (`flash_dkv_w256_kernel`): the same 12 warps, a
+//   CTA of 64 key rows whose two consumer warpgroups split the head dim
+//   (dK and dV at 128 columns each: 128 f32 a thread); K and V resident,
+//   Q and dO through a 2-stage ring of 32 KB tiles. S^T and dP^T are
+//   computed once a step: warpgroup 0 computes S^T and warpgroup 1 dP^T,
+//   warpgroup 1 hands dP^T over in f32 through shared memory, warpgroup 0
+//   forms P and dS (the same arithmetic as the narrower bodies) and
+//   stores P^T and dS^T as bf16 tiles in the 128-byte swizzle, and both
+//   read those as the shared-memory A operand of dV += P^T dO and dK +=
+//   dS^T Q; three named barriers a step order the hand-overs (226 KB of
+//   shared memory). One CTA a 64-row k tile would leave a
+//   multi-query group's walk (all its query heads times the live q
+//   tiles) on few SMs: Gemma-2B's fit (B 2, 8 heads over 1, S 1024) is
+//   32 CTAs on 132 SMs, the heaviest walking 128 (head, q tile) steps.
+//   So the wrapper cuts each k tile's walk into chunks of about equal
+//   length sized to fill the SMs (ops/flash_attention.py `dkv_plan`: a
+//   pure function of the shapes, offsets, mask and SM count; 144 chunks
+//   there) and passes them as a table of int32 rows (k tile, kv row,
+//   first step, step count, partial slot), the heaviest first. A k tile
+//   that is one chunk stores bf16 dK and dV as before; the chunks of a
+//   split one store f32 partials (64 x 256 each, dK and dV) in the
+//   wrapper's scratch, and `flash_dkv_reduce_kernel` sums each split
+//   tile's partials in chunk order and casts once to bf16, as
+//   `_dkv_kernel` casts its f32 accumulator once; no atomics, so two
+//   runs give the same bits. Where no k tile splits (B 8, 16 heads over
+//   16: 2048 k tiles already) the wrapper passes no table, and a CTA
+//   takes its k tile from its block index, reading nothing before its
+//   first load.
 // - dQ, bf16: the same shape turned q-major. One CTA per (batch*head,
 //   128-row q tile), the last q tiles (the most live K/V tiles under
 //   causal masking) scheduled first. The producer warp TMA-loads Q and
@@ -87,6 +118,11 @@
 //   meet no key of a tile skips its products. dQ leaves through the
 //   warpgroup's Q rows in shared memory in 16-byte stores, rows past Sq
 //   dropped.
+// - the reduction: one CTA of 256 threads per (split k tile, dK or dV, 16
+//   rows), each thread summing 4 columns of a row over the tile's slots
+//   in order (16-byte loads) and storing the 4 bf16 columns below hd.
+//   Bound by bytes: the partials read once (17.5 MB of f32 at Gemma-2B's
+//   fit, most of them still in L2) and the split tiles' rows written.
 // - f32 (both kernels): 256 threads on the CUDA cores, each holding a
 //   4x4 block of the 64x64 score tile and a 4x(D/16) block of every
 //   accumulator; at D 256, where four 64-row f32 tiles would not fit
@@ -103,7 +139,11 @@
 // the second warpgroup and the ring's prefetch overlap them. At head_dim
 // 32 and 16 the products shrink with D while the elementwise step per
 // (q, k) pair does not, so it takes a larger share of each tile. At 128
-// both are bound by operations.
+// and 256 both are bound by operations. The 256 dK/dV body streams a 32
+// KB Q and a 32 KB dO tile for every 64 key rows (a 128-row k tile would
+// need dK and dV at 256 f32 a thread), so each step moves 64 KB into the
+// SM for 4 products of 64 x 64 x 256, and its warpgroups wait on each
+// other's hand-overs within a step.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -386,6 +426,11 @@ struct Args {
   int B, H, KVH, Sq, Sk, hd, q_offset, k_offset, causal, window;
   float scale;
   cudaStream_t stream;
+  // the width-256 dK/dV body's plan (`chunks` rows) and the f32
+  // partials of its split k tiles
+  const int* plan;
+  int chunks;
+  float* partials;
 };
 
 // ------------------------------------ dK/dV bf16: wgmma over TMA tiles
@@ -408,18 +453,22 @@ struct Layout {
   static constexpr int STAGES = SPLIT ? 2 : WIDE ? 4 : 6;
   // K, V (32 KB each at D 128 and 256, 16 KB at 64), the Q ring, the dO
   // ring (32 KB tiles at D 256, 16 KB at 128, 8 KB at 64), the lse/delta
-  // ring (64 + 64 f32 per stage), then the barriers: kvfull,
-  // full[STAGES], empty[STAGES], done (used at D 128 and 256); +1024 for
-  // alignment. 194 KB at D 256, 195 KB at D 128, 131 KB at D 64, 68 KB
-  // at D 32, 36 KB at D 16 (below D 128 the stage count stays, as in
-  // flash_fwd.cu)
+  // ring (64 + 64 f32 per stage), at D 256 the step's exchange between
+  // the two warpgroups (P^T and dS^T, 8 KB bf16 tiles each, and dP^T in
+  // f32, 16 KB), then the barriers: kvfull, full[STAGES], empty[STAGES],
+  // done (used at D 128 and 256); +1024 for alignment. 226 KB at D 256,
+  // 195 KB at D 128, 131 KB at D 64, 68 KB at D 32, 36 KB at D 16 (below
+  // D 128 the stage count stays, as in flash_fwd.cu)
   static constexpr uint32_t row = Rows<D>::bytes;
   static constexpr uint32_t atom = Rows<D>::atom;
   static constexpr uint32_t KV_TILE = KROWS * row, Q_TILE = QROWS * row;
   static constexpr uint32_t k = 0, v = KV_TILE, q = 2 * KV_TILE,
                             dout = q + STAGES * Q_TILE,
                             stats = dout + STAGES * Q_TILE,
-                            bars = stats + STAGES * 2 * QROWS * 4;
+                            xch = stats + STAGES * 2 * QROWS * 4,
+                            pt = xch, dst = pt + 64 * 128,
+                            dpx = dst + 64 * 128,
+                            bars = xch + (SPLIT ? 4 * 64 * 128 : 0);
   static constexpr size_t bytes = bars + (2 + 2 * STAGES) * 8 + 1024;
   static_assert(bytes <= 232448, "at most 227 KB of shared memory");
 };
@@ -437,6 +486,7 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
                            int q_offset, int k_offset, int causal,
                            int window, float scale) {
   using L = Layout<D>;
+  static_assert(!L::SPLIT, "width 256 runs flash_dkv_w256_kernel");
   constexpr uint32_t KV_TILE = L::KV_TILE, Q_TILE = L::Q_TILE;
   constexpr int STAGES = L::STAGES, KROWS = L::KROWS;
   extern __shared__ uint8_t smem_raw[];
@@ -450,8 +500,8 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
   uint64_t* full = kvfull + 1;
   uint64_t* empty = full + STAGES;
   uint64_t* done = empty + STAGES;
-  // at D 128 and 256 the waits spin and warp 9 is the CTA's watchdog
-  // (hopper.cuh mbar_wait_spin); below it each wait has its own
+  // at D 128 the waits spin and warp 9 is the CTA's watchdog (hopper.cuh
+  // mbar_wait_spin); below it each wait has its own
   auto wait = [](uint64_t* bar, uint32_t parity) {
     if constexpr (L::WIDE)
       mbar_wait_spin(bar, parity);
@@ -481,9 +531,9 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
   }
   __syncthreads();
 
-  // (at D 128 and 256 known to be uniform over the warp, so the
-  // warpgroup's descriptors take uniform registers; below it the body
-  // stays as it was)
+  // (at D 128 known to be uniform over the warp, so the warpgroup's
+  // descriptors take uniform registers; below it the body stays as it
+  // was)
   const int warp = L::WIDE ? warp_index() : (int)threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (warp >= 8) {
@@ -538,19 +588,14 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
     }
   } else {
     // ---- consumers: warpgroup wg owns key rows wk0 .. wk0 + 63 at the
-    // whole head dim, or at D 256 the CTA's 64 key rows at columns 128wg
-    // .. 128wg + 127 (both then compute the same S^T and dP^T)
+    // whole head dim
     if constexpr (L::WIDE) setmaxnreg_inc<kConsumerRegs>();
     const int wg = warp / 4;
-    const int wk0 = L::SPLIT ? k0 : k0 + 64 * wg;
+    const int wk0 = k0 + 64 * wg;
     const int krow = wk0 + 16 * (warp % 4) + lane / 4;  // and krow + 8
-    uint8_t* Kw = Ks + (L::SPLIT ? 0 : 64 * wg * L::atom);
-    uint8_t* Vw = Vs + (L::SPLIT ? 0 : 64 * wg * L::atom);
+    uint8_t* Kw = Ks + 64 * wg * L::atom;
+    uint8_t* Vw = Vs + 64 * wg * L::atom;
     const uint64_t kdesc = desc_sw<D>(Kw), vdesc = desc_sw<D>(Vw);
-    // at D 256 the first of this warpgroup's column blocks (2wg) of a
-    // ring tile, as an offset of its descriptor: blocks 2wg and 2wg + 1
-    // are a W 128 tile of QROWS rows
-    const uint64_t half = L::SPLIT ? (2 * wg * QROWS * L::atom) >> 4 : 0;
     constexpr int N = L::COLS;
     float dk_acc[N / 2], dv_acc[N / 2];
 #pragma unroll
@@ -628,15 +673,14 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
           }
 
         // dV += P^T dO and dK += dS^T Q, the A operands from registers,
-        // dO and Q MN-major from the ring (at D 256 this warpgroup's 128
-        // columns of them)
+        // dO and Q MN-major from the ring
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs_rows<N, QROWS>(dv_acc, pa[kk], dodesc + half, kk);
+          wgmma_rs_rows<N, QROWS>(dv_acc, pa[kk], dodesc, kk);
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs_rows<N, QROWS>(dk_acc, dsa[kk], qdesc + half, kk);
+          wgmma_rs_rows<N, QROWS>(dk_acc, dsa[kk], qdesc, kk);
         wgmma_commit();
         wgmma_wait<0>();
         fence_operands(dk_acc);
@@ -653,26 +697,11 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
     // after its last product) to 16-byte stores of each row's first hd
     // columns
     const size_t base = ((size_t)bkv * Sk + wk0) * hd;
-    if constexpr (L::SPLIT) {
-      // both warpgroups read all of K and V: neither overwrites them
-      // before both are done; then each stores its column blocks (a W
-      // 128 tile) into its columns of each row, those below hd
-      consumers_barrier(3);
-      uint8_t* Kh = Ks + 2 * wg * KROWS * L::atom;
-      uint8_t* Vh = Vs + 2 * wg * KROWS * L::atom;
-      acc_to_tile<N, KROWS>(dk_acc, 1.f, 1.f, Kh);
-      acc_to_tile<N, KROWS>(dv_acc, 1.f, 1.f, Vh);
-      wg_barrier(1 + wg);
-      const int cols = min(N, hd - N * wg);  // hd > 128 at this width
-      tile_to_rows<N, KROWS>(Kh, dk + base + N * wg, Sk - wk0, cols, hd);
-      tile_to_rows<N, KROWS>(Vh, dv + base + N * wg, Sk - wk0, cols, hd);
-    } else {
-      acc_to_tile<D, KROWS>(dk_acc, 1.f, 1.f, Kw);
-      acc_to_tile<D, KROWS>(dv_acc, 1.f, 1.f, Vw);
-      wg_barrier(1 + wg);
-      tile_to_rows<D, KROWS>(Kw, dk + base, Sk - wk0, hd);
-      tile_to_rows<D, KROWS>(Vw, dv + base, Sk - wk0, hd);
-    }
+    acc_to_tile<D, KROWS>(dk_acc, 1.f, 1.f, Kw);
+    acc_to_tile<D, KROWS>(dv_acc, 1.f, 1.f, Vw);
+    wg_barrier(1 + wg);
+    tile_to_rows<D, KROWS>(Kw, dk + base, Sk - wk0, hd);
+    tile_to_rows<D, KROWS>(Vw, dv + base, Sk - wk0, hd);
     if constexpr (L::WIDE) {
       __syncwarp();
       if (lane == 0) mbar_arrive(done);
@@ -706,6 +735,396 @@ cudaError_t launch(const Args& a) {
       tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dk),
       static_cast<bf16*>(a.dv), a.B * a.KVH, a.H, a.KVH, a.Sq, a.Sk, a.hd,
       a.q_offset, a.k_offset, a.causal, a.window, a.scale);
+  return cudaGetLastError();
+}
+
+// The plan of the width-256 body (ops/flash_attention.py `dkv_plan`):
+// row c of `plan` is chunk c, PLAN_ROW ints: its k tile, its kv row (b *
+// KVH + kv head), its first step, its step count and its partial slot (-1
+// for a k tile that is one chunk). A k tile's steps are its walk over
+// (query head g of the group, live q tile qi), g-major: step t is head t
+// / n and q tile lo + t % n, where lo .. lo + n - 1 are the q tiles
+// rows_meet admits against the k tile (one run: the causal rule drops
+// them from the start, the window's from the end). The reduction's rows
+// follow the chunks': a split k tile, its kv row, its first slot and its
+// slot count.
+constexpr int PLAN_ROW = 5;
+
+// The width-256 body's named barriers between its consumer warpgroups
+// (1 and 2 are wg_barrier's, 3 the final store's): dP^T handed over,
+// P^T and dS^T stored, both warpgroups' products of the step done.
+constexpr int kDpReady = 4, kDsReady = 5, kStepDone = 6;
+
+// The live q tiles of the k tile at k0 (the first, lo, and their count).
+__device__ __forceinline__ int2 live_q_tiles(int k0, int Sq, int Sk,
+                                             int q_offset, int k_offset,
+                                             int causal, int window) {
+  constexpr int KROWS = Layout<256>::KROWS;
+  const int k_last = min(k0 + KROWS, Sk) - 1;
+  const int nq = (Sq + QROWS - 1) / QROWS;
+  int lo = 0, n = 0;
+  for (int qi = 0; qi < nq; ++qi) {
+    const int q0 = qi * QROWS;
+    if (rows_meet(q0, min(q0 + QROWS, Sq) - 1, k0, k_last, q_offset,
+                  k_offset, causal, window)) {
+      if (n == 0) lo = qi;
+      ++n;
+    }
+  }
+  return make_int2(lo, n);
+}
+
+// The width-256 body: one CTA per chunk of the plan, 64 key rows of one
+// kv head; the two consumer warpgroups split the head dim (dK and dV at
+// 128 columns each) and both compute S^T and dP^T. A chunk that is its k
+// tile's only one writes bf16 dK and dV; a chunk of a split k tile writes
+// its f32 partials (64 rows x 256 columns each, dK then dV) into slot
+// `slot` of `partials`, which flash_dkv_reduce_kernel sums. Where the
+// plan splits no k tile the wrapper passes none (`plan` null): CTA i then
+// takes k tile i / BKV of kv row i % BKV whole, the first k tiles (the
+// most live q tiles under causal masking) first, and reads no table
+// before its first load.
+__global__ void __launch_bounds__(kWideThreads, 1)
+    flash_dkv_w256_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          const int* __restrict__ plan,
+                          float* __restrict__ partials,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv,
+                          int BKV, int H, int KVH, int Sq, int Sk, int hd,
+                          int q_offset, int k_offset, int causal,
+                          int window, float scale) {
+  constexpr int D = 256;
+  using L = Layout<D>;
+  constexpr uint32_t KV_TILE = L::KV_TILE, Q_TILE = L::Q_TILE;
+  constexpr int STAGES = L::STAGES, KROWS = L::KROWS;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  uint8_t* Ks = sm + L::k;
+  uint8_t* Vs = sm + L::v;
+  uint8_t* Qs = sm + L::q;
+  uint8_t* dOs = sm + L::dout;
+  float* stats = reinterpret_cast<float*>(sm + L::stats);
+  uint64_t* kvfull = reinterpret_cast<uint64_t*>(sm + L::bars);
+  uint64_t* full = kvfull + 1;
+  uint64_t* empty = full + STAGES;
+  uint64_t* done = empty + STAGES;
+
+  int k0, bkv, first = 0, count = -1, slot = -1;
+  if (plan != nullptr) {
+    const int* row = plan + PLAN_ROW * blockIdx.x;
+    k0 = row[0] * KROWS;
+    bkv = row[1];
+    first = row[2];
+    count = row[3];
+    slot = row[4];
+  } else {
+    k0 = (int)blockIdx.x / BKV * KROWS;
+    bkv = (int)blockIdx.x % BKV;
+  }
+  const int grp = H / KVH;
+  // the group's query heads: rows b*H + kh*grp + g
+  const int qrow0 = (bkv / KVH) * H + (bkv % KVH) * grp;
+  const int2 live = live_q_tiles(k0, Sq, Sk, q_offset, k_offset, causal,
+                                 window);
+  const int last = first + (count < 0 ? grp * live.y : count);
+
+  if (threadIdx.x == 0) {
+    mbar_init(kvfull, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 32);  // every lane of warp 8 (lse and delta)
+      mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    mbar_init(done, 8);  // lane 0 of each consumer warp, at its end
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int warp = warp_index();
+  const int lane = threadIdx.x % 32;
+  if (warp >= 8) {
+    // ---- producer: every warp of the producer warpgroup gives its
+    // registers back first, and warp 8 works alone. K and V once; then,
+    // for each step of the chunk, Q and dO by TMA and lse*log2(e) and
+    // delta by the warp's lanes (rows past Sq read 0: they are masked)
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == 9) cta_watchdog(done);
+    if (warp == 8) {
+      if (lane == 0) {
+        mbar_expect_tx(kvfull, 2 * KV_TILE);
+        tma_load_tile<D, KROWS>(Ks, &tk, kvfull, k0, bkv);
+        tma_load_tile<D, KROWS>(Vs, &tv, kvfull, k0, bkv);
+      }
+      int s = 0;
+      uint32_t phase = 0;
+      for (int t = first; t < last; ++t) {
+        const int g = t / live.y;
+        const int q0 = (live.x + t - g * live.y) * QROWS;
+        const int bh = qrow0 + g;
+        mbar_wait_spin(&empty[s], phase ^ 1);
+        float* st = stats + s * 2 * QROWS;
+        for (int i = lane; i < QROWS; i += 32) {
+          const bool in = q0 + i < Sq;
+          const size_t r = (size_t)bh * Sq + q0 + i;
+          st[i] = in ? lse[r] * kLog2e : 0.f;
+          st[QROWS + i] = in ? delta[r] : 0.f;
+        }
+        if (lane == 0) {
+          // arrives (after this lane's lse/delta stores) and expects the
+          // two tiles' bytes
+          mbar_expect_tx(&full[s], 2 * Q_TILE);
+          tma_load_tile<D, QROWS>(Qs + s * Q_TILE, &tq, &full[s], q0, bh);
+          tma_load_tile<D, QROWS>(dOs + s * Q_TILE, &tdo, &full[s], q0, bh);
+        } else {
+          mbar_arrive(&full[s]);
+        }
+        if (++s == STAGES) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // ---- consumers: the CTA's 64 key rows, dK and dV at columns 128wg
+    // .. 128wg + 127. Per step warpgroup 0 computes S^T = K Q^T and
+    // warpgroup 1 dP^T = V dO^T (64 keys x 64 queries each, 16 k16 steps);
+    // warpgroup 1 hands dP^T over in f32 through shared memory, warpgroup
+    // 0 forms P and dS and stores P^T and dS^T as bf16 tiles, and both
+    // read them as the A operand of their dV and dK products.
+    setmaxnreg_inc<kConsumerRegs>();
+    const int wg = warp / 4;
+    const int t = threadIdx.x % 128;
+    const int krow = k0 + 16 * (warp % 4) + lane / 4;  // and krow + 8
+    // S^T from K and Q, or dP^T from V and dO
+    const uint64_t adesc = desc_sw<D>(wg ? Vs : Ks);
+    // the first of this warpgroup's column blocks (2wg) of a ring tile,
+    // as an offset of its descriptor: blocks 2wg and 2wg + 1 are a W 128
+    // tile of QROWS rows
+    const uint64_t half = (2 * wg * QROWS * L::atom) >> 4;
+    uint8_t* Pt = sm + L::pt;
+    uint8_t* dSt = sm + L::dst;
+    float* dPx = reinterpret_cast<float*>(sm + L::dpx);
+    // P^T and dS^T as K-major A operands: 64 rows (keys) of 64 queries,
+    // the 128-byte swizzle of a W 64 tile
+    const uint64_t pdesc = desc_sw<64>(Pt), dsdesc = desc_sw<64>(dSt);
+    constexpr int N = L::COLS;
+    float dk_acc[N / 2], dv_acc[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+    mbar_wait_spin(kvfull, 0);
+    int s = 0;
+    uint32_t phase = 0;
+    for (int t_ = first; t_ < last; ++t_) {
+      const int g = t_ / live.y;
+      const int q0 = (live.x + t_ - g * live.y) * QROWS;
+      mbar_wait_spin(&full[s], phase);
+      const uint64_t qdesc = desc_sw<D>(Qs + s * Q_TILE);
+      const uint64_t dodesc = desc_sw<D>(dOs + s * Q_TILE);
+      const uint64_t bdesc = wg ? dodesc : qdesc;
+      float acc[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(acc, desc_k<D, KROWS>(adesc, kk),
+                     desc_k<D, QROWS>(bdesc, kk), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(acc);
+      if (wg == 1) {
+        // dP^T to warpgroup 0: element i of thread t at 128 i + t
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dPx[128 * i + t] = acc[i];
+        consumers_arrive(kDpReady);
+        consumers_barrier(kDsReady);
+      } else {
+        // P = exp2(S*scale*log2(e) - lse*log2(e)) in place of S^T, on the
+        // accumulator layout (column c is query q0 + c; this thread's
+        // columns come in pairs (c, c + 1), whose lse and delta it reads
+        // as float2), then dS = P (dP - delta) scale in place of P; each
+        // packed to bf16 (the TPU kernels' casts) into its tile
+        const float2* lse2 =
+            reinterpret_cast<const float2*>(stats + s * 2 * QROWS);
+        const float2* dl = lse2 + QROWS / 2;
+        const bool masked =
+            q0 + QROWS > Sq || k0 + KROWS > Sk ||
+            !rows_all_valid(q0, q0 + QROWS - 1, k0, k0 + KROWS - 1, q_offset,
+                            k_offset, causal, window);
+        const float scale_log2 = scale * kLog2e;
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const int c = 8 * (i / 4) + 2 * (lane % 4);  // columns c, c + 1
+          const float2 ls = lse2[c / 2];
+          float p0 = exp2_ftz(fmaf(acc[i], scale_log2, -ls.x));
+          float p1 = exp2_ftz(fmaf(acc[i + 1], scale_log2, -ls.y));
+          if (masked) {
+            // a masked pair never weighs in (a fully masked query row's
+            // lse is ~-1e30: its exponential is dropped here)
+            const int kl = krow + 8 * ((i / 2) % 2);
+            p0 = pair_valid(q0 + c, kl, Sq, Sk, q_offset, k_offset, causal,
+                            window) ? p0 : 0.f;
+            p1 = pair_valid(q0 + c + 1, kl, Sq, Sk, q_offset, k_offset,
+                            causal, window) ? p1 : 0.f;
+          }
+          acc[i] = p0;
+          acc[i + 1] = p1;
+        }
+        acc_to_tile<64, 64>(acc, 1.f, 1.f, Pt);
+        consumers_barrier(kDpReady);
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const int c = 8 * (i / 4) + 2 * (lane % 4);
+          const float2 de = dl[c / 2];
+          acc[i] = acc[i] * (dPx[128 * i + t] - de.x) * scale;
+          acc[i + 1] = acc[i + 1] * (dPx[128 * (i + 1) + t] - de.y) * scale;
+        }
+        acc_to_tile<64, 64>(acc, 1.f, 1.f, dSt);
+        // the tiles' st.shared before the async proxy's wgmma reads
+        fence_proxy_async();
+        consumers_arrive(kDsReady);
+      }
+
+      // dV += P^T dO and dK += dS^T Q, A from the step's tiles, this
+      // warpgroup's 128 columns of dO and Q MN-major from the ring
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_rows128<QROWS>(dv_acc, desc_k<64, 64>(pdesc, kk),
+                                dodesc + half, kk);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_rows128<QROWS>(dk_acc, desc_k<64, 64>(dsdesc, kk),
+                                qdesc + half, kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(dk_acc);
+      fence_operands(dv_acc);
+      // both warpgroups' products are done with the step's tiles before
+      // the next step writes them
+      consumers_barrier(kStepDone);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      if (++s == STAGES) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+    if (slot < 0) {
+      // the k tile's only chunk: dK and dV through K's and V's rows (both
+      // warpgroups read all of them, so neither overwrites them before
+      // both are done); each warpgroup stores its column blocks (a W 128
+      // tile) into its columns of each row, those below hd
+      const size_t base = ((size_t)bkv * Sk + k0) * hd;
+      consumers_barrier(3);
+      uint8_t* Kh = Ks + 2 * wg * KROWS * L::atom;
+      uint8_t* Vh = Vs + 2 * wg * KROWS * L::atom;
+      acc_to_tile<N, KROWS>(dk_acc, 1.f, 1.f, Kh);
+      acc_to_tile<N, KROWS>(dv_acc, 1.f, 1.f, Vh);
+      wg_barrier(1 + wg);
+      const int cols = min(N, hd - N * wg);  // hd > 128 at this width
+      tile_to_rows<N, KROWS>(Kh, dk + base + N * wg, Sk - k0, cols, hd);
+      tile_to_rows<N, KROWS>(Vh, dv + base + N * wg, Sk - k0, cols, hd);
+    } else {
+      // a split k tile: the f32 partials straight from the accumulators,
+      // rows of D floats (columns past hd hold zeros), 8-byte pairs, a
+      // quad's four one row's 32 bytes of an 8-column group
+      float* pk = partials + (size_t)slot * 2 * KROWS * D;
+      float* pv = pk + KROWS * D;
+      const int r0 = 16 * (warp % 4) + lane / 4;
+      const int c0 = N * wg + 2 * (lane % 4);
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int off = (r0 + 8 * h) * D + c0 + 8 * j;
+          *reinterpret_cast<float2*>(pk + off) =
+              make_float2(dk_acc[4 * j + 2 * h], dk_acc[4 * j + 2 * h + 1]);
+          *reinterpret_cast<float2*>(pv + off) =
+              make_float2(dv_acc[4 * j + 2 * h], dv_acc[4 * j + 2 * h + 1]);
+        }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(done);
+  }
+}
+
+// The reduction of the split k tiles: one CTA per (split k tile, dK or
+// dV, 16 of its 64 rows). Each thread sums 4 columns of a row over the
+// tile's slots in chunk order (the f32 sum of `_dkv_kernel`'s
+// accumulator, cut into chunks), casts once to bf16 (as that kernel's one
+// `astype` of its accumulator) and stores the columns below hd of the
+// rows below Sk. The order is fixed, so two runs give the same bits.
+constexpr int REDUCE_ROWS = 16, REDUCE_THREADS = 256;
+
+__global__ void __launch_bounds__(REDUCE_THREADS)
+    flash_dkv_reduce_kernel(const float* __restrict__ partials,
+                            const int* __restrict__ plan,
+                            bf16* __restrict__ dk, bf16* __restrict__ dv,
+                            int Sk, int hd) {
+  constexpr int D = 256, KROWS = Layout<D>::KROWS;
+  constexpr int PER = REDUCE_ROWS * D / 4 / REDUCE_THREADS;  // float4s
+  const int* row = plan + PLAN_ROW * blockIdx.x;
+  const int k0 = row[0] * KROWS, bkv = row[1], slot0 = row[2], n = row[3];
+  const int part = blockIdx.y;  // 0: dK, 1: dV
+  const int r0 = blockIdx.z * REDUCE_ROWS;
+  const int rows = min(KROWS, Sk - k0);
+  const size_t stride = (size_t)2 * KROWS * D;  // floats a slot
+  const float* src = partials + (size_t)slot0 * stride +
+                     (size_t)part * KROWS * D + (size_t)r0 * D;
+  bf16* out = (part ? dv : dk) + ((size_t)bkv * Sk + k0 + r0) * hd;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int idx = threadIdx.x + REDUCE_THREADS * i;
+    const int r = idx / (D / 4), c = 4 * (idx % (D / 4));
+    if (r0 + r >= rows || c >= hd) continue;
+    float4 acc = *reinterpret_cast<const float4*>(src + r * D + c);
+    for (int k = 1; k < n; ++k) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(src + k * stride + r * D + c);
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
+    }
+    uint2 packed;
+    packed.x = pack_bf16(acc.x, acc.y);
+    packed.y = pack_bf16(acc.z, acc.w);
+    *reinterpret_cast<uint2*>(out + (size_t)r * hd + c) = packed;
+  }
+}
+
+cudaError_t launch_w256(const Args& a) {
+  constexpr int D = 256, KROWS = Layout<D>::KROWS;
+  // the plan's chunks, or one CTA a k tile where it splits none
+  const int BKV = a.B * a.KVH;
+  const int grid =
+      a.plan != nullptr ? a.chunks : (a.Sk + KROWS - 1) / KROWS * BKV;
+  if (grid <= 0) return cudaErrorInvalidValue;
+  // with Sq == 0 no Q/dO tile is loaded; the maps still need an extent
+  const void* qp = a.Sq > 0 ? a.q : a.k;
+  const void* gp = a.Sq > 0 ? a.dout : a.k;
+  const int qrows = a.Sq > 0 ? a.Sq : a.Sk;
+  const int qslabs = a.Sq > 0 ? a.B * a.H : a.B * a.KVH;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = encode_rows_map<D>(&tq, qp, a.hd, qrows, qslabs, QROWS);
+  if (err == cudaSuccess)
+    err = encode_rows_map<D>(&tdo, gp, a.hd, qrows, qslabs, QROWS);
+  if (err == cudaSuccess)
+    err = encode_rows_map<D>(&tk, a.k, a.hd, a.Sk, a.B * a.KVH, KROWS);
+  if (err == cudaSuccess)
+    err = encode_rows_map<D>(&tv, a.v, a.hd, a.Sk, a.B * a.KVH, KROWS);
+  if (err != cudaSuccess) return err;
+  constexpr size_t smem = Layout<D>::bytes;
+  err = allow_smem(flash_dkv_w256_kernel, smem);
+  if (err != cudaSuccess) return err;
+  flash_dkv_w256_kernel<<<grid, kWideThreads, smem, a.stream>>>(
+      tq, tk, tv, tdo, a.lse, a.delta, a.plan, a.partials,
+      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), BKV, a.H, a.KVH,
+      a.Sq, a.Sk, a.hd, a.q_offset, a.k_offset, a.causal, a.window,
+      a.scale);
   return cudaGetLastError();
 }
 
@@ -1017,7 +1436,12 @@ cudaError_t launch_dq(const Args& a, bool bf16_body) {
 
 template <int D>
 cudaError_t launch_dkv(const Args& a, bool bf16_body) {
-  if (bf16_body) return dkv::launch<D>(a);
+  if (bf16_body) {
+    if constexpr (D == 256)
+      return dkv::launch_w256(a);
+    else
+      return dkv::launch<D>(a);
+  }
   constexpr int R = F32Layout<D>::R;
   const dim3 grid((a.Sk + R - 1) / R, a.B * a.KVH);
   constexpr size_t smem = F32Layout<D>::bytes;
@@ -1037,11 +1461,14 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dq, void* dk,
                void* dv, int B, int H, int KVH, int Sq, int Sk, int hd,
                int q_offset, int k_offset, int causal, int window,
-               float scale, void* stream) {
+               float scale, void* stream, const void* plan = nullptr,
+               int chunks = 0, void* partials = nullptr) {
   return Args{q, k, v, dout, static_cast<const float*>(lse),
               static_cast<const float*>(delta), dq, dk, dv, B, H, KVH, Sq,
               Sk, hd, q_offset, k_offset, causal, window, scale,
-              static_cast<cudaStream_t>(stream)};
+              static_cast<cudaStream_t>(stream),
+              static_cast<const int*>(plan), chunks,
+              static_cast<float*>(partials)};
 }
 
 }  // namespace
@@ -1051,7 +1478,12 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 // outputs of one type (is_bf16 ? bf16 : f32; bf16 pointers 16-byte
 // aligned). window <= 0 means no sliding window. hd is a multiple of 8
 // from 8 to 256; any other returns cudaErrorInvalidValue. Each returns
-// cudaGetLastError() after its launch.
+// cudaGetLastError() after its launch. The dK/dV entry at bf16 and hd >
+// 128 (the width-256 body) also takes the plan (`chunks` rows of
+// PLAN_ROW int32 on the device, ops/flash_attention.py `dkv_plan`) and
+// the f32 partials of its split k tiles (2 x 64 x 256 floats a slot),
+// or no plan where it splits no k tile (one CTA a k tile). The other
+// bodies ignore both.
 extern "C" int etpu_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dq, int B, int H,
@@ -1072,16 +1504,36 @@ extern "C" int etpu_flash_bwd_dq(const void* q, const void* k, const void* v,
 extern "C" int etpu_flash_bwd_dkv(const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const void* lse, const void* delta,
-                                  void* dk, void* dv, int B, int H, int KVH,
-                                  int Sq, int Sk, int hd, int q_offset,
-                                  int k_offset, int causal, int window,
-                                  float scale, int is_bf16, void* stream) {
+                                  void* dk, void* dv, const void* plan,
+                                  int chunks, void* partials, int B, int H,
+                                  int KVH, int Sq, int Sk, int hd,
+                                  int q_offset, int k_offset, int causal,
+                                  int window, float scale, int is_bf16,
+                                  void* stream) {
   if (B * KVH == 0 || Sk == 0) return cudaSuccess;
   if (KVH <= 0 || H % KVH) return cudaErrorInvalidValue;
   const Args a = make_args(q, k, v, dout, lse, delta, nullptr, dk, dv, B, H,
                            KVH, Sq, Sk, hd, q_offset, k_offset, causal,
-                           window, scale, stream);
+                           window, scale, stream, plan, chunks, partials);
   return etpu::with_head_dim(hd, [&](auto w) {
     return launch_dkv<decltype(w)::value>(a, is_bf16 != 0);
   });
+}
+
+// The width-256 dK/dV body's reduction: `rows` reduction rows of the plan
+// (PLAN_ROW int32 each, on the device) over `partials`, into the split k
+// tiles' rows of dk and dv (bf16 (B, KVH, Sk, hd), hd 136-256). Returns
+// cudaGetLastError() after its launch.
+extern "C" int etpu_flash_dkv_reduce(const void* partials, const void* plan,
+                                     int rows, void* dk, void* dv, int Sk,
+                                     int hd, void* stream) {
+  if (rows == 0) return cudaSuccess;
+  if (rows < 0 || hd <= 128 || !etpu::takes_head_dim(hd))
+    return cudaErrorInvalidValue;
+  const dim3 grid(rows, 2, dkv::Layout<256>::KROWS / dkv::REDUCE_ROWS);
+  dkv::flash_dkv_reduce_kernel<<<grid, dkv::REDUCE_THREADS, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(partials), static_cast<const int*>(plan),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sk, hd);
+  return cudaGetLastError();
 }

@@ -72,20 +72,30 @@
 //   producer and consumers wait without a watchdog and warp 9 watches
 //   the CTA (hopper.cuh `mbar_wait_spin`). ptxas: 168 registers at
 //   launch, no spill.
-// - bf16 at width 256 (`flash_fwd_w256_kernel`): each 512-byte row four
-//   64-column blocks of the 128-byte swizzle, S = Q K^T 16 k steps, P V
-//   one m64n64k16 per block. O for a warpgroup's 64 rows at 256 columns
-//   is 128 f32 a thread, so the CTA is the same 12 warps (consumers at
-//   240 registers), and K/V tiles are 64 keys: S of a 64-key tile (32
-//   f32) and its packed P (16) fit beside O where a 128-key tile's (64
-//   and 32) would not. Shared memory: Q's 128 rows (64 KB) and K and V
-//   in 2-stage rings of 32 KB tiles, 193 KB; O leaves through each
-//   warpgroup's own Q rows, dead after its last S (no room for a
-//   staging tile of its own). K is released after S, V after P V. One
-//   CTA per (batch*head, 128-row q tile), the heaviest first, not
-//   persistent, and no turns: the two warpgroups overlap each other's
-//   softmax and products as the narrow bodies' do. One producer lane
-//   loads Q, K and V; warp 9 watches the CTA.
+// - bf16 at width 256 (`flash_fwd_w256_kernel`): the width-128
+//   body's design. Each 512-byte row is four 64-column blocks of the
+//   128-byte swizzle, S = Q K^T 16 k steps, P V one m64n64k16 per block.
+//   O for a warpgroup's 64 rows at 256 columns is 128 f32 a thread, so
+//   K/V tiles are 64 keys: S of a 64-key tile (32 f32) and the packed P
+//   of the tile before (16) fit beside O in the consumers' 240 registers
+//   where a 128-key tile's (64 and 32) would not. The same turns on named
+//   barriers, the same S(j) with P V(j-1) in flight, the same three
+//   loaders and watchdog warp. Shared memory: a 64-row Q tile for each
+//   warpgroup (32 KB each), released by that warpgroup's last S of the q
+//   tile, so the next q tile's rows land while it finishes; K and V in
+//   2-stage rings of 32 KB tiles; and a 16 KB O staging tile for each
+//   warpgroup: 225 KB. A second Q slot or a whole O staging tile (64 KB
+//   each for the CTA's 128 rows) would pass the 227 KB, so O leaves in
+//   two 128-column halves through the staging tile (`store_rows_w256`),
+//   right after the q tile's last P V, while the other warpgroup's
+//   products run. (Holding O for the next tile's first S, as at width
+//   128, or storing bf16 pairs straight from the accumulator, took ptxas
+//   past the consumers' 240 registers: it spilled.) The schedule goes
+//   by shape: where the q tiles (128 rows a head) fill at most one wave
+//   of the SMs (`lm_d256`'s B 2 x H 8 x S 1024: 128), one CTA a q tile,
+//   heaviest first; where they fill more (B 8: 1024), persistent, one CTA
+//   an SM over pairs of q tiles in groups of heads whose K and V fit in
+//   L2 (`fwd_item`), as at width 128.
 // - f32: 256 threads on the CUDA cores, each holding a 4x4 block of the
 //   64x64 score tile and a 4x(D/16) block of O in registers; row max and
 //   sum reduce over the 16 lanes sharing a row with warp shuffles. At
@@ -109,9 +119,11 @@
 // tiles, or a CTA's start and its store, cost as much as the softmax,
 // which is why that body groups heads for L2 and persists. At D 256 a
 // (q, k) pair costs 1024 flops against the softmax's same FMA and exp2,
-// so the tensor cores bound it more than at 128; the 256 body has no
-// turns and no persistence yet, so its softmax, its CTA's start and its
-// store run beside idle tensor cores (later work, ROADMAP).
+// so the tensor cores bound it more than at 128; its turns put one
+// warpgroup's softmax under the other's products, and at more than one
+// wave of q tiles its persistence puts a CTA's start and a q tile's store
+// under products too. Each 64-key tile brings 64 KB of K and V into the
+// SM for 128 x 64 pairs: 128 flops a byte read from L2.
 #include <type_traits>
 
 #include "common.cuh"
@@ -361,16 +373,17 @@ __device__ __forceinline__ bool tile_masked(int wq0, int k0, int Sk,
                                          window);
 }
 
-// S = Q K^T, one warpgroup's 64 rows (block 0 of the 128-row Q tile at
-// `qdesc`) x the WK keys of `ktile`: D/16 k16 steps, S overwritten.
-template <int D, int WK>
+// S = Q K^T, one warpgroup's 64 rows (block 0 of the QR-row Q tile at
+// `qdesc`: 128 rows, or the 256 body's 64) x the WK keys of `ktile`: D/16
+// k16 steps, S overwritten.
+template <int D, int WK, int QR = WQ>
 __device__ __forceinline__ void issue_scores(float (&s)[WK / 2],
                                              uint64_t qdesc,
                                              const uint8_t* ktile) {
   const uint64_t kdesc = desc_sw<D>(ktile);
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss<WK>(s, desc_k<D, WQ>(qdesc, kk), desc_k<D, WK>(kdesc, kk), kk);
+    wgmma_ss<WK>(s, desc_k<D, QR>(qdesc, kk), desc_k<D, WK>(kdesc, kk), kk);
 }
 
 // O += P V: P as the bf16 A fragments of WK/16 k steps (the TPU kernel's
@@ -641,31 +654,34 @@ struct PingPong {
   static constexpr size_t bytes = done + 8 + 1024;
 };
 
-// One q tile of the persistent body's work: a 128-row q tile of one
-// head, or none.
+// One q tile of a persistent body's work: a 128-row q tile of one head,
+// or none.
 struct FwdItem {
   int q0, bh, kv_row;
   int kj0, n;  // its live K/V tiles, kj0 .. kj0 + n - 1
 };
 
-// Half `half` of work item w. An item is a pair of q tiles of one head,
-// the t-th heaviest and the t-th lightest (t and nqt - 1 - t from the
-// heaviest), so under causal masking every item holds the same work and
-// items dealt round-robin to the CTAs balance. The heads go in groups
-// of `group` (common.cuh l2_group: their K and V fit in L2), each
+// Half `half` of work item w, over K/V tiles of WK keys (128 in the
+// head-dim-128 body, 64 in the 256 one). An item is a pair of q tiles of
+// one head, the t-th heaviest and the t-th lightest (t and nqt - 1 - t
+// from the heaviest), so under causal masking every item holds the same
+// work and items dealt round-robin to the CTAs balance. The heads go in
+// groups of `group` (common.cuh l2_group: their K and V fit in L2), each
 // group's `per` items consecutive, the group's heads side by side at
-// each pair. An odd middle tile has no partner (q0 = -1). The live K/V
-// tiles (those rows_meet admits) are one run: the causal rule drops
-// tiles from the end, the window's from the start, and below the ragged
-// last tile the window's test on a tile's last key is (kj + 1) * WK - 1
-// > b. In closed form and unsigned where it divides: the loaders run
-// this in 24 registers.
+// each pair. An odd middle tile has no partner (q0 = -1). (With `group`
+// every head and `per` nqt times the heads, half 0 alone walks the q
+// tiles one an item, heaviest first: the 256 body's one-wave schedule.)
+// The live K/V tiles (those rows_meet admits) are one run: the causal
+// rule drops tiles from the end, the window's from the start, and below
+// the ragged last tile the window's test on a tile's last key is (kj +
+// 1) * WK - 1 > b. In closed form and unsigned where it divides: the
+// loaders run this in 24 registers.
+template <int WK>
 __device__ __forceinline__ FwdItem fwd_item(int w, int half, int per,
                                             int BH, int grp, int group,
                                             int Sq, int Sk, int q_offset,
                                             int k_offset, int causal,
                                             int window) {
-  constexpr int WK = PingPong::WK;
   const int nqt = (Sq + WQ - 1) / WQ;
   const unsigned g = (unsigned)w / per, r = (unsigned)w - g * per;
   const unsigned gh = min(group, BH - (int)g * group);  // heads in g
@@ -760,7 +776,7 @@ __global__ void __launch_bounds__(kWideThreads, 1)
         int r = 0;
         for (int w = blockIdx.x; w < items; w += gridDim.x) {
           for (int half = 0; half < 2; ++half) {
-            const FwdItem x = fwd_item(w, half, per, BH, grp, group, Sq,
+            const FwdItem x = fwd_item<WK>(w, half, per, BH, grp, group, Sq,
                                        Sk, q_offset, k_offset, causal,
                                        window);
             if (x.n == 0) continue;
@@ -782,7 +798,7 @@ __global__ void __launch_bounds__(kWideThreads, 1)
         int r = 0;
         for (int w = blockIdx.x; w < items; w += gridDim.x) {
           for (int half = 0; half < 2; ++half) {
-            const FwdItem x = fwd_item(w, half, per, BH, grp, group, Sq,
+            const FwdItem x = fwd_item<WK>(w, half, per, BH, grp, group, Sq,
                                        Sk, q_offset, k_offset, causal,
                                        window);
             for (int j = 0; j < x.n; ++j, ++r) {
@@ -835,7 +851,7 @@ __global__ void __launch_bounds__(kWideThreads, 1)
     };
     for (int w = blockIdx.x; w < items; w += gridDim.x) {
       for (int half = 0; half < 2; ++half) {
-        const FwdItem x = fwd_item(w, half, per, BH, grp, group, Sq, Sk,
+        const FwdItem x = fwd_item<WK>(w, half, per, BH, grp, group, Sq, Sk,
                                    q_offset, k_offset, causal, window);
         if (x.q0 < 0) continue;
         const int wq0 = x.q0 + 64 * wg;
@@ -950,31 +966,105 @@ __global__ void __launch_bounds__(kWideThreads, 1)
 struct Wide256 {
   static constexpr int D = 256;
   static constexpr int WK = 64;      // key rows per K/V tile
+  static constexpr int QR = 64;      // query rows of a warpgroup's Q tile
   static constexpr int STAGES = 2;   // K/V tiles in flight
   static constexpr int CHAINS = 4;   // the softmax's max and sum chains
-  // Q (64 KB), the K ring, the V ring (32 KB tiles), then the barriers:
-  // qfull, kfull[STAGES], vfull[STAGES], kempty[STAGES], vempty[STAGES],
-  // done; +1024 for alignment: 193 KB of the 227
-  static constexpr uint32_t row = Rows<D>::bytes, atom = Rows<D>::atom;
-  static constexpr uint32_t tile = WK * row, qtile = WQ * row;
-  static constexpr uint32_t q = 0, k = qtile, v = k + STAGES * tile,
-                            bars = v + STAGES * tile;
-  static constexpr uint32_t qfull = bars, kfull = bars + 8,
+  // the consumers' turns: named barrier TURN + w is warpgroup w's
+  static constexpr int TURN = 3;
+  // each warpgroup's Q tile (64 rows, 32 KB), the K ring, the V ring (32
+  // KB tiles), each warpgroup's O staging tile (64 rows of 128 columns,
+  // 16 KB), then the barriers: qfull[2], qempty[2] (one each a
+  // warpgroup), kfull[STAGES], vfull[STAGES], kempty[STAGES],
+  // vempty[STAGES], done; +1024 for alignment: 225 KB of the 227
+  static constexpr uint32_t row = Rows<D>::bytes;
+  static constexpr uint32_t tile = WK * row, qtile = QR * row;
+  static constexpr uint32_t otile = QR * Rows<128>::bytes;
+  static constexpr uint32_t q = 0, k = 2 * qtile, v = k + STAGES * tile,
+                            o = v + STAGES * tile, bars = o + 2 * otile;
+  static constexpr uint32_t qfull = bars, qempty = qfull + 16,
+                            kfull = qempty + 16,
                             vfull = kfull + 8 * STAGES,
                             kempty = vfull + 8 * STAGES,
                             vempty = kempty + 8 * STAGES,
                             done = vempty + 8 * STAGES;
   static constexpr size_t bytes = done + 8 + 1024;
+  static_assert(bytes <= 232448, "at most 227 KB of shared memory");
 };
 
+// Columns 128H .. 128H + 127 of a warpgroup's 64 x 256 accumulator, row
+// r scaled by `lo` or `hi` as in acc_to_tile, as bf16 into a 64-row tile
+// of 128-column rows (two blocks of the 128-byte swizzle).
+template <int H>
+__device__ __forceinline__ void acc_half_to_tile(const float (&d)[128],
+                                                 float lo, float hi,
+                                                 uint8_t* tile) {
+  const int t = threadIdx.x % 128, l = t % 32;
+  const int r = 16 * (t / 32) + l / 4;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = 4 * (16 * H + j) + 2 * h;
+      const float s = h ? hi : lo;
+      *reinterpret_cast<uint32_t*>(tile + swz<128, 64>(r + 8 * h, j) +
+                                   (l % 4) * 4) =
+          pack_bf16(d[i] * s, d[i + 1] * s);
+    }
+}
+
+// store_rows at width 256: O leaves in two 128-column halves through the
+// warpgroup's 16 KB staging tile `Ow` (a whole 64 x 256 tile would not
+// fit beside the rings), each half's rows stored with 16-byte stores of
+// their columns below hd.
+__device__ __forceinline__ void store_rows_w256(float (&oacc)[128],
+                                                const float (&m)[2],
+                                                float (&lsum)[2],
+                                                uint8_t* Ow, bf16* o,
+                                                float* lse, int bh, int wq0,
+                                                int qrow, int Sq, int hd,
+                                                int wg) {
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 1);
+    lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 2);
+    inv[r] = 1.f / fmaxf(lsum[r], 1e-30f);
+  }
+  bf16* dst = o + ((size_t)bh * Sq + wq0) * hd;
+  // the staging rows are free once the last store's reads are done
+  wg_barrier(1 + wg);
+  acc_half_to_tile<0>(oacc, inv[0], inv[1], Ow);
+  wg_barrier(1 + wg);
+  tile_to_rows<128, 64>(Ow, dst, Sq - wq0, 128, hd);
+  wg_barrier(1 + wg);
+  acc_half_to_tile<1>(oacc, inv[0], inv[1], Ow);
+  wg_barrier(1 + wg);
+  tile_to_rows<128, 64>(Ow, dst + 128, Sq - wq0, hd - 128, hd);
+  if (threadIdx.x % 4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = qrow + 8 * r;
+      if (row < Sq)
+        lse[(size_t)bh * Sq + row] =
+            m[r] == -INFINITY ? kNegInf
+                              : m[r] * kLn2 + logf(fmaxf(lsum[r], 1e-30f));
+    }
+  }
+}
+
+// The head-dim-128 body's design at width 256 (see the note at the top):
+// persistent over pairs of q tiles where the q tiles outnumber the SMs
+// (`halves` 2), else one q tile a CTA, heaviest first (`halves` 1, with
+// `group` and `per` as fwd_item says).
 __global__ void __launch_bounds__(kWideThreads, 1)
     flash_fwd_w256_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           bf16* __restrict__ o, float* __restrict__ lse,
-                          int BH, int H, int KVH, int Sq, int Sk, int hd,
+                          int BH, int grp, int Sq, int Sk, int hd,
                           int q_offset, int k_offset, int causal,
-                          int window, float scale_log2) {
+                          int window, float scale_log2, int group, int per,
+                          int items, int halves) {
   using L = Wide256;
   constexpr int D = L::D, WK = L::WK, STAGES = L::STAGES;
   constexpr uint32_t TILE = L::tile;
@@ -983,25 +1073,20 @@ __global__ void __launch_bounds__(kWideThreads, 1)
   uint8_t* Qs = sm + L::q;
   uint8_t* Ks = sm + L::k;
   uint8_t* Vs = sm + L::v;
+  uint8_t* Os = sm + L::o;
   uint64_t* qfull = reinterpret_cast<uint64_t*>(sm + L::qfull);
+  uint64_t* qempty = reinterpret_cast<uint64_t*>(sm + L::qempty);
   uint64_t* kfull = reinterpret_cast<uint64_t*>(sm + L::kfull);
   uint64_t* vfull = reinterpret_cast<uint64_t*>(sm + L::vfull);
   uint64_t* kempty = reinterpret_cast<uint64_t*>(sm + L::kempty);
   uint64_t* vempty = reinterpret_cast<uint64_t*>(sm + L::vempty);
   uint64_t* done = reinterpret_cast<uint64_t*>(sm + L::done);
 
-  // heaviest first, as in flash_fwd_wgmma_kernel
-  const int nqt = (Sq + WQ - 1) / WQ;
-  const int q0 = (nqt - 1 - (int)blockIdx.x / BH) * WQ;
-  const int bh = blockIdx.x % BH;
-  const int h = bh % H;
-  // GQA: query row bh = b*H + h reads kv row b*KVH + h / (H / KVH)
-  const int kv_row = (bh / H) * KVH + h / (H / KVH);
-  const int q_last = min(q0 + WQ, Sq) - 1;
-  const int nk = (Sk + WK - 1) / WK;
-
   if (threadIdx.x == 0) {
-    mbar_init(qfull, 1);
+    for (int w = 0; w < 2; ++w) {
+      mbar_init(&qfull[w], 1);
+      mbar_init(&qempty[w], 4);  // lane 0 of each warp of warpgroup w
+    }
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&kfull[s], 1);
       mbar_init(&vfull[s], 1);
@@ -1016,87 +1101,174 @@ __global__ void __launch_bounds__(kWideThreads, 1)
   const int warp = warp_index(), lane = threadIdx.x % 32;
   if (warp >= 8) {
     // ---- producer warpgroup: every warp gives its registers back
-    // first; warp 9 watches the CTA; lane 0 of warp 8 loads Q once, then
-    // K and V of each live tile into their rings
+    // first; warp 9 is the CTA's watchdog; lane 0 of warps 8, 10 and 11
+    // loads Q, K and V, each walking the items on its own: a q tile's two
+    // 64-row Q tiles, each into its warpgroup's slot once that
+    // warpgroup's last S of the tile before is done; K and V of the live
+    // tiles into their own rings (K released after S, V after P V, a
+    // turn later)
     setmaxnreg_dec<kProducerRegs>();
+    const uint32_t b = smem_u32(sm);
     if (warp == 9) {
       cta_watchdog(done);
-    } else if (warp == 8 && lane == 0) {
-      mbar_expect_tx(qfull, L::qtile);
-      tma_load_tile<D, WQ>(Qs, &tq, qfull, q0, bh);
-      int r = 0;
-      for (int kj = 0; kj < nk; ++kj) {
-        const int k0 = kj * WK;
-        if (!rows_meet(q0, q_last, k0, min(k0 + WK, Sk) - 1, q_offset,
-                       k_offset, causal, window))
-          continue;
-        const int s = r % STAGES;
-        const uint32_t free_phase = ((r / STAGES) & 1) ^ 1;
-        ++r;
-        mbar_wait_spin(&kempty[s], free_phase);
-        mbar_expect_tx(&kfull[s], TILE);
-        tma_load_tile<D, WK>(Ks + s * TILE, &tk, &kfull[s], k0, kv_row);
-        mbar_wait_spin(&vempty[s], free_phase);
-        mbar_expect_tx(&vfull[s], TILE);
-        tma_load_tile<D, WK>(Vs + s * TILE, &tv, &vfull[s], k0, kv_row);
+    } else if (warp == 8) {
+      if (lane == 0) {
+        int r = 0;
+        for (int w = blockIdx.x; w < items; w += gridDim.x) {
+          for (int half = 0; half < halves; ++half) {
+            const FwdItem x = fwd_item<WK>(w, half, per, BH, grp, group,
+                                           Sq, Sk, q_offset, k_offset,
+                                           causal, window);
+            if (x.n == 0) continue;
+            for (int g = 0; g < 2; ++g) {
+              mbar_wait_spin(b + L::qempty + 8 * g, (r & 1) ^ 1);
+              mbar_expect_tx(b + L::qfull + 8 * g, L::qtile);
+              tma_load_tile<D, L::QR>(b + L::q + g * L::qtile, &tq,
+                                      b + L::qfull + 8 * g,
+                                      x.q0 + L::QR * g, x.bh);
+            }
+            ++r;
+          }
+        }
       }
+    } else if (lane == 0) {
+      auto load_ring = [&](const CUtensorMap* map, uint32_t tiles,
+                           uint32_t full, uint32_t empty) {
+        int r = 0;
+        for (int w = blockIdx.x; w < items; w += gridDim.x) {
+          for (int half = 0; half < halves; ++half) {
+            const FwdItem x = fwd_item<WK>(w, half, per, BH, grp, group,
+                                           Sq, Sk, q_offset, k_offset,
+                                           causal, window);
+            for (int j = 0; j < x.n; ++j, ++r) {
+              const uint32_t s = r % STAGES;
+              mbar_wait_spin(empty + 8 * s, ((r / STAGES) & 1) ^ 1);
+              mbar_expect_tx(full + 8 * s, TILE);
+              tma_load_tile<D, WK>(tiles + s * TILE, map, full + 8 * s,
+                                   (x.kj0 + j) * WK, x.kv_row);
+            }
+          }
+        }
+      };
+      if (warp == 10)
+        load_ring(&tk, b + L::k, b + L::kfull, b + L::kempty);
+      else
+        load_ring(&tv, b + L::v, b + L::vfull, b + L::vempty);
     }
   } else {
-    // ---- consumers: warpgroup wg owns query rows wq0 .. wq0 + 63
+    // ---- consumers: warpgroup wg owns query rows wq0 .. wq0 + 63 of
+    // each q tile, in its own Q slot
     setmaxnreg_inc<kConsumerRegs>();
     const int wg = warp / 4;
-    const int wq0 = q0 + 64 * wg;
-    const int qrow = wq0 + 16 * (warp % 4) + lane / 4;  // and qrow + 8
-    uint8_t* Qw = Qs + wg * 64 * L::atom;  // its rows in block 0
-    const uint64_t qdesc = desc_sw<D>(Qw);
+    const uint64_t qdesc = desc_sw<D>(Qs + wg * L::qtile);
+    uint8_t* Ow = Os + wg * L::otile;
     auto release = [&](uint64_t* bar) {
       __syncwarp();
       if (lane == 0) mbar_arrive(bar);
     };
-    float oacc[D / 2], m[2] = {-INFINITY, -INFINITY}, lsum[2] = {0.f, 0.f};
+    // Turns as in flash_fwd_pingpong_kernel: both warpgroups take n + 1
+    // turns a q tile, warpgroup 0 first.
+    if (wg == 1) consumers_arrive(L::TURN);
+    int r = 0, qi = 0;
+    float oacc[D / 2];
+    for (int w = blockIdx.x; w < items; w += gridDim.x) {
+      for (int half = 0; half < halves; ++half) {
+        const FwdItem x = fwd_item<WK>(w, half, per, BH, grp, group, Sq, Sk,
+                                       q_offset, k_offset, causal, window);
+        if (x.q0 < 0) continue;
+        const int wq0 = x.q0 + L::QR * wg;
+        const int qrow = wq0 + 16 * (warp % 4) + lane / 4;  // and qrow + 8
+        float m[2] = {-INFINITY, -INFINITY}, lsum[2] = {0.f, 0.f};
+        if (x.n > 0) {
+          const int n = x.n;
+          uint32_t pa[WK / 16][4];
+          float corr[2];
+          mbar_wait_spin(&qfull[wg], qi & 1);
+          ++qi;
+          {
+            // tile 0: S alone
+            const int s = r % STAGES, k0 = x.kj0 * WK;
+            float sacc[WK / 2];
+            mbar_wait_spin(&kfull[s], (r / STAGES) & 1);
+            consumers_barrier(L::TURN + wg);
+            wgmma_fence();
+            issue_scores<D, WK, L::QR>(sacc, qdesc, Ks + s * TILE);
+            wgmma_commit();
+            consumers_arrive(L::TURN + (wg ^ 1));
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
-
-    mbar_wait_spin(qfull, 0);
-    int r = 0;
-    for (int kj = 0; kj < nk; ++kj) {
-      const int k0 = kj * WK;
-      if (!rows_meet(q0, q_last, k0, min(k0 + WK, Sk) - 1, q_offset,
-                     k_offset, causal, window))
-        continue;
-      const int s = r % STAGES;
-      const uint32_t phase = (r / STAGES) & 1;
-      ++r;
-      // S = Q K^T: 64 rows x 64 keys, 16 k16 steps over the head dim
-      float sacc[WK / 2];
-      mbar_wait_spin(&kfull[s], phase);
-      wgmma_fence();
-      issue_scores<D, WK>(sacc, qdesc, Ks + s * TILE);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_operands(sacc);
-      release(&kempty[s]);
-      if (tile_masked<WK>(wq0, k0, Sk, q_offset, k_offset, causal, window))
-        mask_rows(sacc, qrow, k0, Sk, q_offset, k_offset, causal, window);
-      float corr[2];
-      online_softmax<WK / 2, L::CHAINS>(sacc, m, lsum, corr, scale_log2);
+            for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+            wgmma_wait<0>();
+            fence_operands(sacc);
+            release(&kempty[s]);
+            if (n == 1) release(&qempty[wg]);  // the q tile's last S
+            if (tile_masked<WK>(wq0, k0, Sk, q_offset, k_offset, causal,
+                                window))
+              mask_rows(sacc, qrow, k0, Sk, q_offset, k_offset, causal,
+                        window);
+            online_softmax<WK / 2, L::CHAINS>(sacc, m, lsum, corr,
+                                              scale_log2);  // O is 0 yet
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) oacc[i] *= corr[(i / 2) % 2];
-      // O += P V with P in bf16 registers and V MN-major from the ring
-      uint32_t pa[WK / 16][4];
+            for (int kk = 0; kk < WK / 16; ++kk) pack_a(sacc, kk, pa[kk]);
+          }
+          for (int j = 1; j < n; ++j) {
+            // S of tile j and P V of tile j - 1 in one turn; the softmax
+            // of j runs while P V is still in flight
+            const int s = (r + j) % STAGES, sp = (r + j - 1) % STAGES;
+            const int k0 = (x.kj0 + j) * WK;
+            float sacc[WK / 2];
+            mbar_wait_spin(&kfull[s], ((r + j) / STAGES) & 1);
+            mbar_wait_spin(&vfull[sp], ((r + j - 1) / STAGES) & 1);
+            consumers_barrier(L::TURN + wg);
+            wgmma_fence();
+            issue_scores<D, WK, L::QR>(sacc, qdesc, Ks + s * TILE);
+            wgmma_commit();
+            issue_values<D, WK>(oacc, pa, Vs + sp * TILE);
+            wgmma_commit();
+            consumers_arrive(L::TURN + (wg ^ 1));
+            wgmma_wait<1>();
+            fence_operands(sacc);
+            release(&kempty[s]);
+            if (j == n - 1) release(&qempty[wg]);
+            if (tile_masked<WK>(wq0, k0, Sk, q_offset, k_offset, causal,
+                                window))
+              mask_rows(sacc, qrow, k0, Sk, q_offset, k_offset, causal,
+                        window);
+            online_softmax<WK / 2, L::CHAINS>(sacc, m, lsum, corr,
+                                              scale_log2);
+            wgmma_wait<0>();
+            fence_operands(oacc);
+            fence_operands(pa);
+            release(&vempty[sp]);
 #pragma unroll
-      for (int kk = 0; kk < WK / 16; ++kk) pack_a(sacc, kk, pa[kk]);
-      mbar_wait_spin(&vfull[s], phase);
-      wgmma_fence();
-      issue_values<D, WK>(oacc, pa, Vs + s * TILE);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_operands(oacc);
-      release(&vempty[s]);
+            for (int i = 0; i < D / 2; ++i) oacc[i] *= corr[(i / 2) % 2];
+#pragma unroll
+            for (int kk = 0; kk < WK / 16; ++kk) pack_a(sacc, kk, pa[kk]);
+          }
+          // the last tile's P V
+          const int sp = (r + n - 1) % STAGES;
+          mbar_wait_spin(&vfull[sp], ((r + n - 1) / STAGES) & 1);
+          consumers_barrier(L::TURN + wg);
+          wgmma_fence();
+          issue_values<D, WK>(oacc, pa, Vs + sp * TILE);
+          wgmma_commit();
+          consumers_arrive(L::TURN + (wg ^ 1));
+          wgmma_wait<0>();
+          fence_operands(oacc);
+          release(&vempty[sp]);
+          r += n;
+        } else {
+          // no live tile: O = 0
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+        }
+        // O out at once, while the other warpgroup's products run (held
+        // in registers for the next q tile's first S, as at width 128, it
+        // took ptxas past the 240 registers: it spilled)
+        store_rows_w256(oacc, m, lsum, Ow, o, lse, x.bh, wq0, qrow, Sq, hd,
+                        wg);
+      }
     }
-    // O through this warpgroup's Q rows: read by nothing after its last
-    // product
-    store_rows<D>(oacc, m, lsum, Qw, o, lse, bh, wq0, qrow, Sq, hd, wg);
+    if (wg == 0) consumers_barrier(L::TURN);
     release(done);
   }
 }
@@ -1112,23 +1284,39 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   const void* vp = Sk > 0 ? v : q;
   const int krows = Sk > 0 ? Sk : Sq, kslabs = Sk > 0 ? B * KVH : B * H;
   CUtensorMap tq, tk, tv;
-  cudaError_t err = encode_rows_map<D>(&tq, q, hd, Sq, B * H, WQ);
-  // the K/V tile: 64 rows at width 256, else 128
+  // the Q tile: a warpgroup's 64 rows at width 256, else 128; the K/V
+  // tile: 64 rows at width 256, else 128
+  constexpr int QR = D == 256 ? Wide256::QR : WQ;
   constexpr int WK = D == 256 ? Wide256::WK : 128;
   static_assert(WgmmaLayout<16>::WK == 128 && PingPong::WK == 128, "tiles");
+  cudaError_t err = encode_rows_map<D>(&tq, q, hd, Sq, B * H, QR);
   if (err == cudaSuccess)
     err = encode_rows_map<D>(&tk, kp, hd, krows, kslabs, WK);
   if (err == cudaSuccess)
     err = encode_rows_map<D>(&tv, vp, hd, krows, kslabs, WK);
   if (err != cudaSuccess) return err;
-  const int grid = (Sq + WQ - 1) / WQ * (B * H);
+  const int nqt = (Sq + WQ - 1) / WQ;
+  const int grid = nqt * (B * H);
   if constexpr (D == 256) {
     constexpr size_t smem = Wide256::bytes;
     err = allow_smem(flash_fwd_w256_kernel, smem);
     if (err != cudaSuccess) return err;
-    flash_fwd_w256_kernel<<<grid, kWideThreads, smem, stream>>>(
-        tq, tk, tv, static_cast<bf16*>(o), lse, B * H, H, KVH, Sq, Sk, hd,
-        q_offset, k_offset, causal, window, scale * kLog2e);
+    int sms = 0;
+    err = multiprocessors(&sms);
+    if (err != cudaSuccess) return err;
+    // The schedule by shape: where the q tiles fill at most one wave, one
+    // a CTA, heaviest first (pairing them would idle half the SMs);
+    // else persistent over pairs of q tiles in groups of heads whose K
+    // and V fit in L2, as at width 128.
+    const bool paired = grid > sms;
+    const int pairs = (Sq + 2 * WQ - 1) / (2 * WQ);
+    const int group = paired ? l2_group(4ll * hd * Sk, B * H) : B * H;
+    const int per = paired ? group * pairs : grid;
+    const int items = paired ? pairs * B * H : grid;
+    flash_fwd_w256_kernel<<<min(items, sms), kWideThreads, smem, stream>>>(
+        tq, tk, tv, static_cast<bf16*>(o), lse, B * H, H / KVH, Sq, Sk, hd,
+        q_offset, k_offset, causal, window, scale * kLog2e, group, per,
+        items, paired ? 2 : 1);
   } else if constexpr (D == 128) {
     constexpr size_t smem = PingPong::bytes;
     err = allow_smem(flash_fwd_pingpong_kernel, smem);

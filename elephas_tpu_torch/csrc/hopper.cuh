@@ -30,7 +30,10 @@
 //   memory), `wgmma_rs_n16_tb` / `_n32_tb` / `_n64_tb` (m64nNk16: A from
 //   registers, B MN-major from shared memory) and `wgmma_rs_rows<D, R>`
 //   over them (N the head dim; one n64 product per column block at D
-//   128 and 256).
+//   128 and 256); `wgmma_ss_n64_tb` and `wgmma_ss_rows128` the same with
+//   A from shared memory (the 256 dK/dV body's P^T and dS^T tiles), and
+//   `fence_proxy_async` (`fence.proxy.async.shared::cta`) between the
+//   st.shared that write such a tile and the wgmma that reads it.
 // - cp.async: `cp_async_16` (`cp.async.cg.shared.global`, 16 bytes from
 //   device memory into shared memory, bypassing L1), `cp_async_commit`
 //   and `cp_async_wait<N>` (`cp.async.commit_group` / `wait_group`:
@@ -508,6 +511,33 @@ __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[R],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// D (64 x 64, f32) += A (64 x 16) . B (16 x 64), bf16 in, both from
+// shared memory: A K-major, B MN-major (its transpose bit set). D is
+// registers O .. O + 31 of the accumulator `d`.
+template <int O = 0, int R>
+__device__ __forceinline__ void wgmma_ss_n64_tb(float (&d)[R],
+                                               uint64_t desc_a,
+                                               uint64_t desc_b) {
+  static_assert(O >= 0 && O + 32 <= R, "32 accumulator registers");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[O + 0]), "+f"(d[O + 1]), "+f"(d[O + 2]), "+f"(d[O + 3]),
+        "+f"(d[O + 4]), "+f"(d[O + 5]), "+f"(d[O + 6]), "+f"(d[O + 7]),
+        "+f"(d[O + 8]), "+f"(d[O + 9]), "+f"(d[O + 10]), "+f"(d[O + 11]),
+        "+f"(d[O + 12]), "+f"(d[O + 13]), "+f"(d[O + 14]), "+f"(d[O + 15]),
+        "+f"(d[O + 16]), "+f"(d[O + 17]), "+f"(d[O + 18]), "+f"(d[O + 19]),
+        "+f"(d[O + 20]), "+f"(d[O + 21]), "+f"(d[O + 22]), "+f"(d[O + 23]),
+        "+f"(d[O + 24]), "+f"(d[O + 25]), "+f"(d[O + 26]), "+f"(d[O + 27]),
+        "+f"(d[O + 28]), "+f"(d[O + 29]), "+f"(d[O + 30]), "+f"(d[O + 31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
 // The same at N = 32 (head_dim 32): D 64 x 32.
 __device__ __forceinline__ void wgmma_rs_n32_tb(float (&d)[16],
                                                const uint32_t (&a)[4],
@@ -565,6 +595,25 @@ __device__ __forceinline__ void wgmma_rs_rows(float (&d)[D / 2],
   } else {
     wgmma_rs_n16_tb(d, a, desc + step);
   }
+}
+
+// wgmma_rs_rows at width 128 with A from shared memory (`desc_a`, one
+// K-major k16 step): D (64 x 128) += A (64 x 16) . B (16 x 128), rows 16kk
+// .. 16kk + 15 of an MN-major R-row tile whose block 0 `desc` describes.
+template <int R>
+__device__ __forceinline__ void wgmma_ss_rows128(float (&d)[64],
+                                                 uint64_t desc_a,
+                                                 uint64_t desc, int kk) {
+  constexpr uint64_t kAtom = Rows<128>::atom;
+  const uint64_t step = kAtom * static_cast<uint64_t>(kk);
+  wgmma_ss_n64_tb<0>(d, desc_a, desc + step);
+  wgmma_ss_n64_tb<32>(d, desc_a, desc + ((R * kAtom) >> 4) + step);
+}
+
+// Orders this thread's generic-proxy writes to shared memory before the
+// async proxy's reads (a wgmma operand written by st.shared).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ------------------------------------------------ consumer sync

@@ -110,8 +110,14 @@ def library() -> ctypes.CDLL:
         # window | scale | is_bf16 | stream
         lib.etpu_flash_bwd_dq.argtypes = [p] * 7 + [i] * 10 + [f, i, p]
         lib.etpu_flash_bwd_dq.restype = i
-        lib.etpu_flash_bwd_dkv.argtypes = [p] * 8 + [i] * 10 + [f, i, p]
+        # q, k, v, dout, lse, delta, dk, dv, plan | chunks | partials |
+        # B H KVH Sq Sk D qo ko causal window | scale | is_bf16 | stream
+        lib.etpu_flash_bwd_dkv.argtypes = ([p] * 9 + [i, p] + [i] * 10
+                                           + [f, i, p])
         lib.etpu_flash_bwd_dkv.restype = i
+        # partials, plan | rows | dk, dv | Sk hd | stream
+        lib.etpu_flash_dkv_reduce.argtypes = [p, p, i, p, p, i, i, p]
+        lib.etpu_flash_dkv_reduce.restype = i
         # q, k_pool, v_pool, tables, pos, slopes, out | B H KVH bs D MB
         # window | scale | is_bf16 body | workspace | split_blocks |
         # stream

@@ -9,6 +9,12 @@ designs and what bounds them on the H100). :func:`flash_forward` mirrors
 mirrors ``flash_hop_backward``: given the global ``lse`` and ``delta =
 rowsum(dO * O)`` it returns ``(dq, dk, dv)``, launching the dQ kernel
 (:func:`flash_dq`) and the dK/dV kernel (:func:`flash_dkv`).
+At head dims 136-256 in bf16 the dK/dV kernel's 64-row k tiles are cut
+into chunks of about equal work (:func:`dkv_plan`: a pure function of
+the shapes, offsets, mask and the card's SM count), one CTA each, so a
+multi-query group's walk over its query heads spreads over the SMs; a
+split k tile's chunks write f32 partials, which a second kernel sums in
+chunk order (:func:`flash_dkv_reduce`).
 :func:`flash_attention` mirrors the single-device, differentiable
 ``flash_attention``: a ``torch.autograd.Function`` over the forward and
 the two backward kernels, as the ``_flash`` custom VJP is.
@@ -25,8 +31,9 @@ memory. Shapes follow the JAX package: q and dO ``(B, H, Sq, D)``, k/v
 ``(B, KVH, Sk, D)`` with ``KVH`` dividing ``H`` (GQA), lse and delta
 ``(B, H, Sq)`` f32, bf16 or f32 otherwise.
 """
+import functools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -36,7 +43,11 @@ from .attention import NEG_INF
 __all__ = ["flash_attention", "flash_forward", "flash_forward_plain",
            "flash_backward", "flash_backward_plain", "flash_dq",
            "flash_dq_plain", "flash_dkv", "flash_dkv_plain",
-           "kernel_takes_head_dim", "BLOCK"]
+           "flash_dkv_chunked_plain", "flash_dkv_partials",
+           "flash_dkv_reduce",
+           "flash_dkv_reduce_plain", "dkv_plan", "dkv_live_q_tiles",
+           "dkv_step", "DkvPlan", "DKV_ROWS", "kernel_takes_head_dim",
+           "BLOCK"]
 
 
 def kernel_takes_head_dim(d: int) -> bool:
@@ -252,14 +263,20 @@ def _check_bwd(q, k, v, g, lse, delta, window) -> None:
 
 
 def _bwd_launch(entry: str, q, k, v, g, lse, delta, outs, q_offset,
-                k_offset, causal, window) -> None:
+                k_offset, causal, window, extra=None) -> None:
+    """One backward entry on checked operands. The dK/dV entry also takes
+    ``extra`` after its outputs, the plan's table, chunk count and
+    partials (:func:`flash_dkv_partials`); without one its 256-wide body
+    runs one CTA a k tile, whole."""
+    if extra is None:
+        extra = (None, 0, None) if entry == "etpu_flash_bwd_dkv" else ()
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     lib = _kernels.library()
     err = getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
-        b, h, kvh, sq, sk, d, int(q_offset), int(k_offset),
+        *extra, b, h, kvh, sq, sk, d, int(q_offset), int(k_offset),
         int(bool(causal)), 0 if window is None else int(window),
         1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -290,18 +307,47 @@ def flash_dkv(q, k, v, g, lse, delta, q_offset: int = 0, k_offset: int = 0,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV) of one (q, k/v shard) pair given the global ``lse`` and
     ``delta``, at the narrow kv width: the dK/dV kernel on CUDA tensors
-    (counted in ``flash_backward.dkv_launches``),
-    :func:`flash_dkv_plain` on CPU tensors."""
+    (counted in ``flash_backward.dkv_launches``), followed at the
+    256-wide bf16 body by the reduction of its split k tiles where the
+    plan splits one (:func:`flash_dkv_reduce`); :func:`flash_dkv_plain`
+    on CPU tensors."""
     _check_bwd(q, k, v, g, lse, delta, window)
     if q.device.type == "cpu":
         return flash_dkv_plain(q, k, v, g, lse, delta, q_offset, k_offset,
                                causal, window)
+    dk, dv, partials, plan = flash_dkv_partials(
+        q, k, v, g, lse, delta, q_offset, k_offset, causal, window)
+    if partials is not None:
+        flash_dkv_reduce(partials, plan, dk, dv)
+    return dk, dv
+
+
+def flash_dkv_partials(q, k, v, g, lse, delta, q_offset: int = 0,
+                       k_offset: int = 0, causal: bool = True,
+                       window: Optional[int] = None):
+    """The dK/dV kernel alone on CUDA tensors (counted in
+    ``flash_backward.dkv_launches``): ``(dk, dv, partials, plan)``. At
+    the 256-wide bf16 body ``plan`` is the call's :func:`dkv_plan`, and
+    where it splits a k tile that tile's rows of dk and dv are left for
+    :func:`flash_dkv_reduce` and ``partials`` (``(plan.slots, 2, 64,
+    256)`` f32) holds its chunks' sums; elsewhere ``partials`` is None
+    (and ``plan`` too below that body)."""
+    _check_bwd(q, k, v, g, lse, delta, window)
     q, k, v, g = _kernel_operands(q, k=k, v=v, g=g)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    plan = _dkv_plan_for(q, k, q_offset, k_offset, causal, window)
+    extra, partials = (None, 0, None), None
+    if plan is not None and plan.slots:
+        # the table goes to the kernel only where it splits a k tile: else
+        # one CTA a k tile, whole, as the grid gives it
+        partials = torch.empty((plan.slots, 2, DKV_ROWS, _DKV_WIDTH),
+                               dtype=torch.float32, device=q.device)
+        extra = (_plan_table(plan, q.device).data_ptr(), len(plan.chunks),
+                 partials.data_ptr())
     _bwd_launch("etpu_flash_bwd_dkv", q, k, v, g, lse, delta, (dk, dv),
-                q_offset, k_offset, causal, window)
+                q_offset, k_offset, causal, window, extra)
     flash_backward.dkv_launches += 1
-    return dk, dv
+    return dk, dv, partials, plan
 
 
 def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -323,6 +369,231 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_backward.dq_launches = 0
 flash_backward.dkv_launches = 0
+flash_backward.dkv_reduce_launches = 0
+
+
+# ------------------------------------------- dK/dV at head dims 136-256
+#: key rows of a k tile, and query rows of a step, of the 256-wide bf16
+#: dK/dV body (csrc/flash_bwd.cu ``dkv::Layout<256>``)
+DKV_ROWS = 64
+#: columns of a partial row: the body's width
+_DKV_WIDTH = 256
+#: the fewest steps a chunk of a split k tile takes: shorter chunks would
+#: spend more on loading K and V and on the reduction than they spread
+DKV_MIN_STEPS = 4
+
+
+class DkvPlan(NamedTuple):
+    """The 256-wide dK/dV body's work plan (:func:`dkv_plan`).
+
+    ``chunks``: one ``(k tile, kv row, first step, steps, slot)`` a CTA,
+    the heaviest first; a k tile's steps are its walk over (query head of
+    the group, live q tile), head-major (:func:`dkv_step`); ``slot`` is
+    the chunk's partial slot, or -1 where the chunk is its k tile's only
+    one. ``reduce``: one ``(k tile, kv row, first slot, slots)`` a split
+    k tile, its chunks' slots consecutive in walk order. ``slots``: the
+    partial slots in all."""
+    chunks: Tuple[Tuple[int, int, int, int, int], ...]
+    reduce: Tuple[Tuple[int, int, int, int], ...]
+    slots: int
+
+
+def _rows_meet(q_lo, q_hi, k_lo, k_hi, q_offset, k_offset, causal,
+               window) -> bool:
+    """csrc/common.cuh ``rows_meet``: whether some (q, k) pair of the
+    rows is unmasked on global positions."""
+    live = not causal or k_offset + k_lo <= q_offset + q_hi
+    if window:
+        live = live and k_offset + k_hi > q_offset + q_lo - window
+    return live
+
+
+def dkv_live_q_tiles(kt: int, sq: int, sk: int, q_offset: int = 0,
+                     k_offset: int = 0, causal: bool = True,
+                     window: Optional[int] = None) -> range:
+    """The q tiles (64 rows each) that k tile ``kt`` meets: one run, as
+    the kernel's ``live_q_tiles`` finds it (the causal rule drops tiles
+    from the start, the window's from the end)."""
+    k0 = kt * DKV_ROWS
+    k_hi = min(k0 + DKV_ROWS, sk) - 1
+    live = [qi for qi in range(-(-sq // DKV_ROWS))
+            if _rows_meet(qi * DKV_ROWS, min((qi + 1) * DKV_ROWS, sq) - 1,
+                          k0, k_hi, q_offset, k_offset, causal, window)]
+    return range(live[0], live[-1] + 1) if live else range(0)
+
+
+def dkv_step(t: int, live: range) -> Tuple[int, int]:
+    """Step ``t`` of a k tile's walk: (query head of the group, q tile),
+    as the kernel maps it."""
+    g, i = divmod(t, len(live))
+    return g, live.start + i
+
+
+@functools.lru_cache(maxsize=256)
+def dkv_plan(b: int, h: int, kvh: int, sq: int, sk: int, q_offset: int = 0,
+             k_offset: int = 0, causal: bool = True,
+             window: Optional[int] = None, sms: int = 132) -> DkvPlan:
+    """The chunks of the 256-wide dK/dV body for these shapes on a card
+    of ``sms`` SMs. A k tile's steps (its group's ``h // kvh`` query
+    heads times its live q tiles) are cut into chunks of about equal
+    length, as many as a step target of the whole launch's steps over the
+    SMs (at least :data:`DKV_MIN_STEPS`) asks: a k tile of fewer steps
+    than the target stays one chunk, as every k tile does where the k
+    tiles alone fill the card. Every k tile gets a chunk, a dead one too
+    (its dK and dV are zeros). At ``lm_d256``'s fit (B 2, H 8 over KVH 1,
+    S 1024, causal) 2176 steps on 132 SMs make a target of 17: 8, 8, 7,
+    7, ..., 1, 1 chunks for k tiles 0..15, 144 CTAs."""
+    window = int(window) if window else None
+    grp = h // kvh
+    tiles = [(kt, dkv_live_q_tiles(kt, sq, sk, q_offset, k_offset, causal,
+                                   window))
+             for kt in range(-(-sk // DKV_ROWS))]
+    total = b * kvh * grp * sum(len(live) for _, live in tiles)
+    target = max(DKV_MIN_STEPS, -(-total // max(sms, 1)))
+    chunks, reduce, slots = [], [], 0
+    for row in range(b * kvh):
+        for kt, live in tiles:
+            steps = grp * len(live)
+            n = max(1, -(-steps // target))
+            if n > 1:
+                reduce.append((kt, row, slots, n))
+            first = 0
+            for c in range(n):
+                count = steps // n + (c < steps % n)
+                chunks.append((kt, row, first, count,
+                               slots + c if n > 1 else -1))
+                first += count
+            if n > 1:
+                slots += n
+    # heaviest first; among equals the first k tiles, as the unsplit
+    # grid ran them
+    chunks.sort(key=lambda c: (-c[3], c[0], c[1]))
+    return DkvPlan(tuple(chunks), tuple(reduce), slots)
+
+
+@functools.lru_cache(maxsize=None)
+def _multiprocessors(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _dkv_plan_for(q, k, q_offset, k_offset, causal, window):
+    """The plan of a CUDA dK/dV call that runs the 256-wide bf16 body,
+    else None."""
+    if q.dtype != torch.bfloat16 or q.shape[3] <= 128:
+        return None
+    b, h, sq, _ = q.shape
+    return dkv_plan(b, h, k.shape[1], sq, k.shape[2], int(q_offset),
+                    int(k_offset), bool(causal), window,
+                    _multiprocessors(q.device))
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_table(plan: DkvPlan, device: torch.device) -> torch.Tensor:
+    """The plan as the kernels read it: int32 rows of 5 on the device,
+    the chunks' and then the reduction's (padded with a 0); kept per plan
+    and device, so a training loop copies it once."""
+    rows = [*plan.chunks, *(r + (0,) for r in plan.reduce)]
+    return torch.tensor(rows, dtype=torch.int32).reshape(-1, 5).to(device)
+
+
+def flash_dkv_reduce_plain(partials: torch.Tensor, plan: DkvPlan,
+                           dk: torch.Tensor, dv: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reduction kernel's function in plain PyTorch: each split k
+    tile's f32 partials (``partials`` ``(slots, 2, 64, W)``, dK then dV,
+    W >= head_dim) summed in chunk order, cast once to dk's dtype and
+    written into that tile's rows of ``dk`` and ``dv`` (``(B, KVH, Sk,
+    head_dim)``, in place); returns them."""
+    sk, d = dk.shape[2], dk.shape[3]
+    rows_k, rows_v = dk.view(-1, sk, d), dv.view(-1, sk, d)
+    for kt, row, slot0, n in plan.reduce:
+        k0 = kt * DKV_ROWS
+        rows = min(DKV_ROWS, sk - k0)
+        acc = partials[slot0].clone()
+        for slot in range(slot0 + 1, slot0 + n):
+            acc += partials[slot]
+        rows_k[row, k0:k0 + rows] = acc[0, :rows, :d].to(dk.dtype)
+        rows_v[row, k0:k0 + rows] = acc[1, :rows, :d].to(dv.dtype)
+    return dk, dv
+
+
+def flash_dkv_reduce(partials: torch.Tensor, plan: DkvPlan,
+                     dk: torch.Tensor, dv: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reduction of the 256-wide dK/dV body's split k tiles into
+    ``dk`` and ``dv`` (in place; the unsplit tiles' rows untouched): the
+    kernel on CUDA tensors (counted in
+    ``flash_backward.dkv_reduce_launches``), :func:`flash_dkv_reduce_plain`
+    on CPU tensors. The kernel takes bf16 outputs at head dims 136-256
+    and partials ``(plan.slots, 2, 64, 256)`` f32."""
+    if partials.shape[0] != plan.slots or partials.dtype != torch.float32:
+        raise ValueError(f"expected {plan.slots} f32 partial slots, got "
+                         f"{partials.dtype} {tuple(partials.shape)}")
+    if dk.device.type == "cpu":
+        return flash_dkv_reduce_plain(partials, plan, dk, dv)
+    if not plan.reduce:
+        return dk, dv
+    sk, d = dk.shape[2], dk.shape[3]
+    if (dk.dtype != torch.bfloat16 or dv.dtype != torch.bfloat16
+            or dv.shape != dk.shape or not 128 < d <= 256 or d % 8
+            or partials.shape[1:] != (2, DKV_ROWS, _DKV_WIDTH)
+            or not all(t.is_contiguous() and t.device == dk.device
+                       for t in (dv, partials))):
+        raise ValueError("the dK/dV reduction kernel takes bf16 dk/dv at "
+                         "head dims 136-256 and contiguous (slots, 2, 64, "
+                         "256) f32 partials on their device")
+    table = _plan_table(plan, dk.device)
+    err = _kernels.library().etpu_flash_dkv_reduce(
+        partials.data_ptr(), table[len(plan.chunks):].data_ptr(),
+        len(plan.reduce), dk.data_ptr(), dv.data_ptr(), sk, d,
+        torch.cuda.current_stream(dk.device).cuda_stream)
+    _kernels.check(err, "flash dK/dV reduction")
+    flash_backward.dkv_reduce_launches += 1
+    return dk, dv
+
+
+def flash_dkv_chunked_plain(q, k, v, g, lse, delta, q_offset: int = 0,
+                            k_offset: int = 0, causal: bool = True,
+                            window: Optional[int] = None,
+                            plan: Optional[DkvPlan] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The 256-wide dK/dV body's split path in plain PyTorch, in f32: for
+    each chunk of ``plan`` (default: :func:`dkv_plan` on 132 SMs) its
+    steps' ``ds^T q`` and ``p^T dO`` summed into an f32 partial of its k
+    tile (or written whole where the chunk is the tile's only one), then
+    :func:`flash_dkv_reduce_plain`. Returns dk, dv in k's and v's
+    dtypes."""
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    if plan is None:
+        plan = dkv_plan(b, h, kvh, sq, sk, int(q_offset), int(k_offset),
+                        bool(causal), window)
+    p, ds, qf, gf, _ = _bwd_probs(q, k, v, g, lse, delta, q_offset,
+                                  k_offset, causal, window)
+    grp = h // kvh
+    dk = torch.zeros((b, kvh, sk, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    partials = torch.zeros((plan.slots, 2, DKV_ROWS, d),
+                           dtype=torch.float32, device=q.device)
+    for kt, row, first, count, slot in plan.chunks:
+        bi, kh = divmod(row, kvh)
+        k0, k1 = kt * DKV_ROWS, min((kt + 1) * DKV_ROWS, sk)
+        live = dkv_live_q_tiles(kt, sq, sk, int(q_offset), int(k_offset),
+                                causal, window)
+        acc = torch.zeros((2, k1 - k0, d), dtype=torch.float32,
+                          device=q.device)
+        for t in range(first, first + count):
+            gi, qi = dkv_step(t, live)
+            hq = kh * grp + gi
+            q0, q1 = qi * DKV_ROWS, min((qi + 1) * DKV_ROWS, sq)
+            acc[0] += ds[bi, hq, q0:q1, k0:k1].T @ qf[bi, hq, q0:q1]
+            acc[1] += p[bi, hq, q0:q1, k0:k1].T @ gf[bi, hq, q0:q1]
+        if slot < 0:
+            dk[bi, kh, k0:k1], dv[bi, kh, k0:k1] = acc[0], acc[1]
+        else:
+            partials[slot, :, :k1 - k0] = acc
+    flash_dkv_reduce_plain(partials, plan, dk, dv)
+    return dk.to(k.dtype), dv.to(v.dtype)
 
 
 class _FlashAttention(torch.autograd.Function):

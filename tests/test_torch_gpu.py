@@ -231,6 +231,13 @@ _D256_EDGE_CASES = {
     "hop_first_rows_dead": (1, 4, 4, 150, 150, True, None, 100, 164),
     "mqa8_ragged": (1, 8, 1, 191, 191, True, None, 0, 0),
     "mqa8_window": (2, 8, 1, 300, 300, True, 100, 0, 0),
+    # the dK/dV plan's groups of 2, 4, 8 and 16 on ragged lengths, a
+    # window and a ring hop: split and unsplit k tiles, chunks that start
+    # inside a query head's run of q tiles
+    "gqa2_ragged": (2, 8, 4, 333, 333, True, None, 0, 0),
+    "gqa4_window": (1, 16, 4, 517, 517, True, 200, 0, 0),
+    "mqa8_hop": (1, 8, 1, 300, 300, True, None, 400, 100),
+    "mqa16_ragged": (1, 16, 1, 700, 700, True, None, 0, 0),
 }
 _D256_CASES = {**{c: _BWD_CASES[c] for c in _SMALL_D_CASES},
                **_D256_EDGE_CASES}
@@ -248,12 +255,17 @@ def test_flash_kernels_at_head_dim_256_match_plain(cuda, no_tf32, case,
 
 
 @pytest.mark.parametrize("case", ["mqa8_ragged", "mqa8_window", "sq_65",
-                                  "hop_first_rows_dead"])
+                                  "hop_first_rows_dead", "gqa2_ragged",
+                                  "mqa16_ragged"])
 def test_flash_kernels_are_bit_reproducible_at_head_dim_256(cuda, case):
     """Two launches each of the forward, dQ and dK/dV kernels at head
     dim 256 on the same bf16 inputs give the same bits (no atomics; in
-    dK/dV each warpgroup owns its half of the head dim)."""
-    from elephas_tpu_torch.ops.flash_attention import (flash_dkv, flash_dq,
+    dK/dV each warpgroup owns its half of the head dim, and a split k
+    tile's partials are summed in chunk order: the split path, as the
+    reduction's launch count shows, wherever the plan splits)."""
+    from elephas_tpu_torch.ops.flash_attention import (dkv_plan,
+                                                       flash_backward,
+                                                       flash_dkv, flash_dq,
                                                        flash_forward,
                                                        flash_forward_plain)
     b, h, kvh, sq, sk, causal, window, qo, ko = _D256_CASES[case]
@@ -272,8 +284,15 @@ def test_flash_kernels_are_bit_reproducible_at_head_dim_256(cuda, case):
             window)
     first, second = flash_dq(*args), flash_dq(*args)
     assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+    before = flash_backward.dkv_reduce_launches
     for a, b_ in zip(flash_dkv(*args), flash_dkv(*args)):
         assert torch.equal(a.view(torch.int16), b_.view(torch.int16))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = dkv_plan(b, h, kvh, sq, sk, qo, ko, causal, window, sms)
+    split = 2 if plan.reduce else 0
+    assert flash_backward.dkv_reduce_launches == before + split
+    if case in ("mqa8_ragged", "gqa2_ragged", "mqa16_ragged"):
+        assert split, f"{case} runs the split path"
 
 
 # the edges of the head-dim-128 bodies' tiles (128 keys in the forward's

@@ -3,9 +3,10 @@
 Times the bf16 flash forward, dK/dV and dQ beside SDPA with
 ``chip_smoke``'s timer (``device_ms``: cold L2, median of 20 calls,
 device time alone) at the training shape (B 8, H 16, S 1024, causal) at
-head dims 128, 64, 32, 16, 96 and 80, at ``lm_d128``'s fit shape (B 4,
-H 32 over KVH 8, S 1024, window 4096) at 128 and at ``lm_d96``'s (B 2, H
-32, S 2048, window 2047) at 96, with a digest (sha256) of each call's
+head dims 128, 64, 32, 16, 96, 80 and 256, at ``lm_d128``'s fit shape
+(B 4, H 32 over KVH 8, S 1024, window 4096) at 128, at ``lm_d96``'s (B
+2, H 32, S 2048, window 2047) at 96 and at ``lm_d256``'s (B 2, H 8 over
+KVH 1, S 1024) at 256, with a digest (sha256) of each call's
 outputs, O, LSE, dQ, dK and dV, on the same seeded inputs, so two trees'
 bits can be compared; a tree whose kernels refuse a head dim says so
 there. It prints them as one JSON line, then runs ``chip_smoke``'s
@@ -40,9 +41,10 @@ from elephas_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_dkv, flash_dq, flash_forward, flash_forward_plain)
 
 # name: (B, H, KVH, S, window), causal, and the head dims timed there
-SHAPES = {"b8": ((8, 16, 16, 1024, None), (128, 64, 32, 16, 96, 80)),
+SHAPES = {"b8": ((8, 16, 16, 1024, None), (128, 64, 32, 16, 96, 80, 256)),
           "path": ((4, 32, 8, 1024, 4096), (128,)),
-          "path_d96": ((2, 32, 32, 2048, 2047), (96,))}
+          "path_d96": ((2, 32, 32, 2048, 2047), (96,)),
+          "path_d256": ((2, 8, 1, 1024, None), (256,))}
 
 
 def digest(*tensors):
