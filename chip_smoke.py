@@ -552,8 +552,9 @@ FILLED_CASES = {"gqa4_ragged": (2, 16, 4, 1000, 1000, True, None, 0, 0),
 D96_CASES = {"lm_d96_fit": (2, 32, 32, 2048, 2048, True, 2047, 0, 0)}
 # the cases at d 256 only: the lm_d256 phase's shape (Gemma-2B: H 8 over
 # KVH 1; B 2 x S 1024, its forward and fit), and the edges of the d 256
-# bodies' tiles (64 keys in the forward's K/V tiles and the dK/dV CTA, 32
-# in dQ's stages): a key length one past a tile, a q tile whose second
+# bodies' tiles (64 keys in the forward's K/V tiles, the dK/dV CTA and
+# dQ's split body at one wave, 32 in dQ's ping-pong body past one wave):
+# a key length one past a tile, a q tile whose second
 # warpgroup holds one row, a window edge inside a tile, a ring hop whose
 # diagonal crosses a tile, Gemma-2B's groups of 8 on ragged lengths; and
 # the dK/dV plan's groups of 2, 4, 8 and 16 over ragged lengths, a
@@ -569,15 +570,21 @@ D256_CASES = {"lm_d256_fit": (2, 8, 1, 1024, 1024, True, None, 0, 0),
               "gqa4_window": (2, 16, 4, 517, 517, True, 200, 0, 0),
               "mqa8_hop": (2, 8, 1, 300, 300, True, None, 400, 100),
               "mqa16_ragged": (1, 16, 1, 700, 700, True, None, 0, 0)}
-# the d 128 bodies of the forward and dK/dV kernels: the kernel (a
-# fragment of its mangled name), the object it is built into, and the
-# body as chip_smoke names it
+# the d 128 bodies of the three flash kernels: the kernel (a fragment of
+# its mangled name), the object it is built into, and the body as
+# chip_smoke names it
 WIDE_BODIES = {
     "flash_fwd": ("flash_fwd_pingpong_kernel", "flash_fwd.o",
                   "persistent ping-pong: a producer warpgroup and two "
                   "consumer warpgroups (384 threads, setmaxnreg) taking "
                   "turns, 128-key K/V tiles in a 2-stage ring, one CTA "
                   "per SM over pairs of q tiles"),
+    "flash_dq": ("flash_dq_pingpong_kernelILi128", "flash_bwd.o",
+                 "ping-pong: a producer warpgroup and two consumer "
+                 "warpgroups (384 threads, setmaxnreg) of 64 query rows "
+                 "taking turns, each issuing a 64-key tile's S and dP "
+                 "with the tile before's dQ product in flight; 128 query "
+                 "rows a CTA, 64-key K/V tiles in a 5-stage ring"),
     "flash_dkv": ("flash_dkv_wgmma_kernelILi128", "flash_bwd.o",
                   "384 threads (setmaxnreg), 128 key rows a CTA, 64 a "
                   "consumer warpgroup at the whole head dim")}
@@ -591,9 +598,23 @@ WIDE_256_BODIES = {
                   "a 64-row Q tile and a 16 KB O staging tile a "
                   "warpgroup; one CTA a q tile at one wave, else "
                   "persistent over pairs of q tiles"),
-    "flash_dq": ("flash_dq_wgmma_kernelILi256", "flash_bwd.o",
-                 "384 threads (setmaxnreg), 128 query rows a CTA, 32-key "
-                 "K/V stages in a 3-stage ring"),
+    "flash_dq": ("flash_dq_pingpong_kernelILi256", "flash_bwd.o",
+                 "the d 128 ping-pong body at width 256 on 32-key K/V "
+                 "tiles (3 in the ring beside 64 KB Q and dO tiles), 128 "
+                 "query rows a CTA; where 128-row q tiles fill at most one "
+                 "wave of the SMs (lm_d256's fit) the split body "
+                 "(one_wave_body) runs instead"),
+    "flash_dq_one_wave": ("flash_dq_w256_kernel", "flash_bwd.o",
+                          "384 threads (setmaxnreg), 64 query rows a CTA, "
+                          "each consumer warpgroup dQ at half the head "
+                          "dim, Q and dO as register fragments (RS "
+                          "products); warpgroup 0 computes S, warpgroup 1 "
+                          "dP (handed over in f32 through shared memory, "
+                          "the next tile's dP issued before the dS it "
+                          "waits for), both read dS from shared memory; "
+                          "64-key K and V tiles in 3-slot rings of their "
+                          "own, heaviest first in groups of heads whose K "
+                          "and V fit in L2"),
     "flash_dkv": ("flash_dkv_w256_kernel", "flash_bwd.o",
                   "384 threads (setmaxnreg), one CTA a chunk of a 64-row "
                   "k tile's walk over its group's query heads and live q "
@@ -976,7 +997,27 @@ def check_flash_bwd(flush):
                           "head, not summed)",
           "dq_bit_reproducible": True, "dkv_bit_reproducible": True,
           "tolerance_relative_to_max_ref": tol})
+    emit({"phase": "flash_dq_bound_ratio",
+          "by_head_dim": {d: dq_ratios(t) for d, t in by_d.items()}})
     return results
+
+
+def dq_ratios(t):
+    """dQ's device ms over its bound at a head dim's timed shapes (its
+    path's fit shape and the training shape, or the training shape
+    alone), beside dQ + dK/dV against the library backward there."""
+    def one(dq, dkv):
+        return {"shape": dq["shape"], "device_ms": dq["device_ms"],
+                "bound_ms": dq["bound_ms"],
+                "ratio": dq["device_ms"] / dq["bound_ms"],
+                "dq_plus_dkv_device_ms": dq["device_ms"] + dkv["device_ms"],
+                "library_device_ms": dq["library_device_ms"]}
+
+    out = {"timed": one(t["dq"], t["dkv"])}
+    if "at_training_shape" in t["dq"]:
+        out["at_training_shape"] = one(t["dq"]["at_training_shape"],
+                                       t["dkv"]["at_training_shape"])
+    return out
 
 
 def bwd_timed(gen, d, case, label, flush, tol, errs):
@@ -4733,6 +4774,11 @@ def main() -> int:
                     f"{name} launched its d 256 body on lm_d256")
             entry["by_head_dim"]["256"].update(
                 body=WIDE_256_BODIES[name][2], registers=wide256[name])
+        if name == "flash_dq":
+            # the split body lm_d256's fit runs (one wave of q tiles)
+            entry["by_head_dim"]["256"].update(
+                one_wave_body=WIDE_256_BODIES["flash_dq_one_wave"][2],
+                one_wave_registers=wide256["flash_dq_one_wave"])
         if name == "flash_dkv":
             entry["by_head_dim"]["256"]["split"] = (
                 results["by_head_dim"]["256"]["split"])

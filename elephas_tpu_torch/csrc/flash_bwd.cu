@@ -97,27 +97,69 @@
 //   16: 2048 k tiles already) the wrapper passes no table, and a CTA
 //   takes its k tile from its block index, reading nothing before its
 //   first load.
-// - dQ, bf16: the same shape turned q-major. One CTA per (batch*head,
-//   128-row q tile), the last q tiles (the most live K/V tiles under
-//   causal masking) scheduled first. The producer warp TMA-loads Q and
-//   dO once, then streams the live 64-row K and V tiles through a
-//   6-stage ring under full/empty mbarriers (4 stages at D 128, where Q
-//   and dO take 64 KB and a stage 32 KB). At D 128 dQ's accumulator is
-//   64 f32 a thread, and S and dP of a whole 64-key tile beside it (32
-//   each) took the consumer past the 9-warp CTA's 168 registers (ptxas
-//   spilled); there each tile runs as two chunks of 32 keys (m64n32k16
-//   products, 16 f32 each). Each of two consumer
-//   warpgroups owns 64 query rows, whose lse (times log2 e) and delta
-//   it holds in registers (two rows a thread), and per K/V tile computes
-//   S = Q K^T and dP = dO V^T with wgmma m64n64k16 from shared memory
-//   (P formed from S while dP is still in flight), dS = P (dP - delta)
-//   scale on the accumulators, packed to bf16 (`ds.astype(k.dtype)`)
-//   as the register A operand of dQ += dS K (m64nDk16, K MN-major from
-//   the same ring slot, with the transpose bit; at D 128 one m64n64k16
-//   per column block). A warpgroup whose rows
-//   meet no key of a tile skips its products. dQ leaves through the
-//   warpgroup's Q rows in shared memory in 16-byte stores, rows past Sq
-//   dropped.
+// - dQ, bf16, at widths 16, 32 and 64: the same shape turned q-major.
+//   One CTA per (batch*head, 128-row q tile), the last q tiles (the
+//   most live K/V tiles under causal masking) scheduled first. The
+//   producer warp TMA-loads Q and dO once, then streams the live 64-row
+//   K and V tiles through a 6-stage ring under full/empty mbarriers.
+//   Each of two consumer warpgroups owns 64 query rows, whose lse (times
+//   log2 e) and delta it holds in registers (two rows a thread), and per
+//   K/V tile computes S = Q K^T and dP = dO V^T with wgmma m64n64k16
+//   from shared memory (P formed from S while dP is still in flight),
+//   dS = P (dP - delta) scale on the accumulators, packed to bf16
+//   (`ds.astype(k.dtype)`) as the register A operand of dQ += dS K
+//   (m64nDk16, K MN-major from the same ring slot, with the transpose
+//   bit). A warpgroup whose rows meet no key of a tile skips its
+//   products. dQ leaves through the warpgroup's Q rows in shared memory
+//   in 16-byte stores, rows past Sq dropped.
+// - dQ at widths 128 and 256 (`flash_dq_pingpong_kernel`): dQ's
+//   accumulator is 64 f32 a thread at 128, and S and dP of a whole
+//   64-key tile beside it (32 each) and the packed dS (16) pass the 168
+//   a thread that a 288- or 384-thread CTA gets. So the CTA is the
+//   forward's 12 warps: a producer warpgroup at 24 registers
+//   (`setmaxnreg`; warp 8 loads, warp 9 watches the CTA) and two
+//   consumer warpgroups at 240, each owning 64 query rows at the whole
+//   head dim; 128 query rows a CTA, 64-key K/V tiles in a 5-stage ring
+//   (225 KB). At 256 dQ is 128 f32 a thread, so the tiles are 32 keys
+//   (S and dP 16 f32 each), 3 of them in the ring beside Q's and dO's 64
+//   KB each (225 KB). A consumer issues tile j's S and dP and tile
+//   j-1's dQ product in one turn, three groups: P(j) is formed while
+//   dP(j) and dQ(j-1) run, dS(j) while dQ(j-1) does, and dS(j) is
+//   packed into the A fragments once dQ(j-1) has read the old ones. The
+//   turns alternate between the warpgroups on named barriers
+//   (ping-pong, as the forward's): the tensor cores run one warpgroup's
+//   products while the other forms P and dS. Both take a turn on each
+//   live tile of the CTA and one more for the last dQ; every product of
+//   a turn is issued unconditionally (a warpgroup whose rows meet none
+//   of a tile masks all of it, and the first turn's dQ product is one
+//   of zeros), since a product in flight where two paths meet makes
+//   ptxas serialize every wgmma (C7515). The products and the order of
+//   dQ's k16 steps over the keys are those of the narrower bodies. The
+//   CTAs go heaviest first within groups of heads whose K and V fit in
+//   L2 (at B 8, 16 heads their K and V take 64 MB at 128 and 128 MB at
+//   256, past the 50 MB L2, and heaviest first over all heads read them
+//   again from HBM for every q tile), the groups of equal size.
+// - dQ at width 256 where 128-row q tiles fill at most one wave of the
+//   SMs (`flash_dq_w256_kernel`, the split body): there the CTA of the
+//   last q tile walks every key alone (Gemma-2B's fit, B 2, 8 heads over
+//   1, S 1024: 128 CTAs of 4 to 32 32-key tiles), so the CTAs own 64
+//   query rows (256 CTAs of 1 to 16 64-key tiles, heaviest first). Two
+//   warpgroups of one 64-row tile split dQ's columns (128 each: 64 f32 a
+//   thread), as the 256 dK/dV body splits dK and dV: per 64-key tile
+//   warpgroup 0 computes S = Q K^T and warpgroup 1 dP = dO V^T,
+//   warpgroup 1 hands dP over in f32 through shared memory, warpgroup 0
+//   forms P and dS and stores dS as a bf16 tile in the 128-byte swizzle,
+//   and both read it as the shared-memory A operand of dQ += dS K over
+//   their columns. Warpgroup 0 holds Q and warpgroup 1 dO as register A
+//   fragments (64 registers: S and dP are RS products, reading only K or
+//   V from shared memory), read once from the first slot of the K and V
+//   rings, which then stream the tiles (3 slots of 32 KB each): 217 KB.
+//   Warpgroup 1 issues the next tile's dP before it waits for the dS, so
+//   the tensor cores run it while warpgroup 0 forms dS; two named
+//   barriers a tile order the hand-overs. It reads a 64 KB K/V tile for
+//   64 query rows, twice the ping-pong body's bytes a row, and its
+//   warpgroups meet twice a tile, so past one wave the ping-pong body is
+//   faster.
 // - the reduction: one CTA of 256 threads per (split k tile, dK or dV, 16
 //   rows), each thread summing 4 columns of a row over the tile's slots
 //   in order (16-byte loads) and storing the 4 bf16 columns below hd.
@@ -139,11 +181,12 @@
 // the second warpgroup and the ring's prefetch overlap them. At head_dim
 // 32 and 16 the products shrink with D while the elementwise step per
 // (q, k) pair does not, so it takes a larger share of each tile. At 128
-// and 256 both are bound by operations. The 256 dK/dV body streams a 32
-// KB Q and a 32 KB dO tile for every 64 key rows (a 128-row k tile would
-// need dK and dV at 256 f32 a thread), so each step moves 64 KB into the
-// SM for 4 products of 64 x 64 x 256, and its warpgroups wait on each
-// other's hand-overs within a step.
+// and 256 both are bound by operations, and dQ there runs a tile's
+// products under the next tile's (above). The 256 dK/dV body
+// streams a 32 KB Q and a 32 KB dO tile for every 64 key rows (a 128-row
+// k tile would need dK and dV at 256 f32 a thread), so each step moves
+// 64 KB into the SM for 4 products of 64 x 64 x 256, and its warpgroups
+// wait on each other's hand-overs within a step.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -1135,33 +1178,25 @@ namespace dq {
 
 constexpr int QROWS = 128;          // query rows per CTA: 2 warpgroups x 64
 
+// The bodies at widths 16, 32 and 64: two consumer warpgroups and one
+// producer warp.
 template <int D>
 struct Layout {
-  // at D 256 (dQ's accumulator alone 128 f32 a thread) a producer
-  // warpgroup and register reallocation, as the wide dK/dV body; else 2
-  // consumer warpgroups and one producer warp
-  static constexpr bool WIDE = D == 256;
-  static constexpr int THREADS = WIDE ? kWideThreads : 2 * 128 + 32;
-  // key rows per ring stage: 64, or 32 at D 256 (Q and dO take 128 KB)
-  static constexpr int KROWS = WIDE ? 32 : 64;
-  // K/V tiles in flight: 6, or 4 at D 128 (6 would take 256 KB), 3 at
-  // 256
-  static constexpr int STAGES = WIDE ? 3 : D == 128 ? 4 : 6;
-  // keys per S and dP product: the whole tile, or 32 at D 128 (see the
-  // note at the top)
-  static constexpr int KN = D == 128 ? 32 : KROWS;
-  // Q, dO (16 KB each at D 64, 32 KB at 128, 64 KB at 256), the K ring,
-  // the V ring (8 KB tiles at D 64, 16 KB at 128 and 256), then the
-  // barriers: qfull, full[STAGES], empty[STAGES], done (used at D 256);
-  // +1024 for alignment. 225 KB at D 256, 193 KB at D 128, 129 KB at D
-  // 64, 65 KB at D 32, 33 KB at D 16
+  static_assert(D <= 64, "widths 128 and 256 run flash_dq_pingpong_kernel "
+                         "(or flash_dq_w256_kernel)");
+  static constexpr int THREADS = 2 * 128 + 32;
+  static constexpr int KROWS = 64;   // key rows per ring stage
+  static constexpr int STAGES = 6;   // K/V tiles in flight
+  // Q, dO (16 KB each at D 64), the K ring, the V ring (8 KB tiles at D
+  // 64), then the barriers: qfull, full[STAGES], empty[STAGES]; +1024
+  // for alignment. 129 KB at D 64, 65 KB at D 32, 33 KB at D 16
   static constexpr uint32_t row = Rows<D>::bytes;
   static constexpr uint32_t atom = Rows<D>::atom;
   static constexpr uint32_t Q_TILE = QROWS * row, KV_TILE = KROWS * row;
   static constexpr uint32_t q = 0, dout = Q_TILE, k = 2 * Q_TILE,
                             v = k + STAGES * KV_TILE,
                             bars = v + STAGES * KV_TILE;
-  static constexpr size_t bytes = bars + (2 + 2 * STAGES) * 8 + 1024;
+  static constexpr size_t bytes = bars + (1 + 2 * STAGES) * 8 + 1024;
   static_assert(bytes <= 232448, "at most 227 KB of shared memory");
 };
 
@@ -1189,15 +1224,6 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
   uint64_t* qfull = reinterpret_cast<uint64_t*>(sm + L::bars);
   uint64_t* full = qfull + 1;
   uint64_t* empty = full + STAGES;
-  uint64_t* done = empty + STAGES;
-  // at D 256 the waits spin and warp 9 is the CTA's watchdog (hopper.cuh
-  // mbar_wait_spin); below it each wait has its own
-  auto wait = [](uint64_t* bar, uint32_t parity) {
-    if constexpr (L::WIDE)
-      mbar_wait_spin(bar, parity);
-    else
-      mbar_wait(bar, parity);
-  };
 
   // heaviest first: the CTAs of the last q tiles (the most live K/V
   // tiles under causal masking) get the lowest block ids
@@ -1216,24 +1242,16 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
     }
-    if constexpr (L::WIDE)
-      mbar_init(done, 8);  // lane 0 of each consumer warp, at its end
     fence_barrier_init();
   }
   __syncthreads();
 
-  const int warp = L::WIDE ? warp_index() : (int)threadIdx.x / 32;
+  const int warp = (int)threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  if (warp >= 8) {
-    // ---- producer: at D 256 every warp of the producer warpgroup gives
-    // its registers back first, and warp 8 works alone. Q and dO once,
-    // then the live K/V tiles through the ring (rows past each head's
-    // length arrive as zeros)
-    if constexpr (L::WIDE) {
-      setmaxnreg_dec<kProducerRegs>();
-      if (warp == 9) cta_watchdog(done);
-    }
-    if (warp == 8 && lane == 0) {
+  if (warp == 8) {
+    // ---- producer: Q and dO once, then the live K/V tiles through the
+    // ring (rows past each head's length arrive as zeros)
+    if (lane == 0) {
       mbar_expect_tx(qfull, 2 * Q_TILE);
       tma_load_tile<D, QROWS>(Qs, &tq, qfull, q0, bh);
       tma_load_tile<D, QROWS>(dOs, &tdo, qfull, q0, bh);
@@ -1244,7 +1262,7 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
         if (!rows_meet(q0, q_last, k0, min(k0 + KROWS, Sk) - 1, q_offset,
                        k_offset, causal, window))
           continue;
-        wait(&empty[s], phase ^ 1);
+        mbar_wait(&empty[s], phase ^ 1);
         mbar_expect_tx(&full[s], 2 * KV_TILE);
         tma_load_tile<D, KROWS>(Ks + s * KV_TILE, &tk, &full[s], k0,
                                 kv_row);
@@ -1258,7 +1276,6 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
     }
   } else {
     // ---- consumers: warpgroup wg owns query rows wq0 .. wq0 + 63
-    if constexpr (L::WIDE) setmaxnreg_inc<kConsumerRegs>();
     const int wg = warp / 4;
     const int wq0 = q0 + 64 * wg;
     const int wq_last = min(wq0 + 63, Sq - 1);
@@ -1281,7 +1298,7 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
 
-    wait(qfull, 0);
+    mbar_wait(qfull, 0);
     int s = 0;
     uint32_t phase = 0;
     for (int kj = 0; kj < nk; ++kj) {
@@ -1290,79 +1307,71 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
       if (!rows_meet(q0, q_last, k0, k_last, q_offset, k_offset, causal,
                      window))
         continue;
-      wait(&full[s], phase);
+      mbar_wait(&full[s], phase);
       if (wq0 < Sq && rows_meet(wq0, wq_last, k0, k_last, q_offset,
                                 k_offset, causal, window)) {
         const uint64_t kdesc = desc_sw<D>(Ks + s * KV_TILE);
         const uint64_t vdesc = desc_sw<D>(Vs + s * KV_TILE);
-        constexpr int KN = L::KN;
+        // S = Q K^T and dP = dO V^T (64 queries x 64 keys each, D/16
+        // k16 steps) as two groups, so P is formed while dP is still in
+        // flight
+        float st[32], dpt[32];
+        wgmma_fence();
 #pragma unroll
-        for (int c = 0; c < KROWS / KN; ++c) {
-          // keys kc .. kc + KN - 1: rows c * KN .. of the K and V tiles
-          const int kc = k0 + c * KN;
-          const uint64_t crows = (c * KN * L::atom) >> 4;
-          // S = Q K^T and dP = dO V^T (64 queries x KN keys each, D/16
-          // k16 steps) as two groups, so P is formed while dP is still
-          // in flight
-          float st[KN / 2], dpt[KN / 2];
-          wgmma_fence();
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n64(st, desc_k<D, QROWS>(qdesc, kk),
+                       desc_k<D, KROWS>(kdesc, kk), kk);
+        wgmma_commit();
 #pragma unroll
-          for (int kk = 0; kk < D / 16; ++kk)
-            wgmma_ss<KN>(st, desc_k<D, QROWS>(qdesc, kk),
-                         desc_k<D, KROWS>(kdesc + crows, kk), kk);
-          wgmma_commit();
-#pragma unroll
-          for (int kk = 0; kk < D / 16; ++kk)
-            wgmma_ss<KN>(dpt, desc_k<D, QROWS>(dodesc, kk),
-                         desc_k<D, KROWS>(vdesc + crows, kk), kk);
-          wgmma_commit();
-          wgmma_wait<1>();
-          fence_operands(st);
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n64(dpt, desc_k<D, QROWS>(dodesc, kk),
+                       desc_k<D, KROWS>(vdesc, kk), kk);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_operands(st);
 
-          // P = exp2(S*scale*log2(e) - lse*log2(e)) in place of S, on the
-          // accumulator layout: element i is row qrow + 8*((i/2)%2), key
-          // kc + 8*(i/4) + 2*(lane%4) + i%2. A masked pair never weighs
-          // in (a fully masked row's lse is ~-1e30: its exponential is
-          // dropped here).
-          const bool masked =
-              wq0 + 64 > Sq || kc + KN > Sk ||
-              !rows_all_valid(wq0, wq0 + 63, kc, kc + KN - 1, q_offset,
-                              k_offset, causal, window);
+        // P = exp2(S*scale*log2(e) - lse*log2(e)) in place of S, on the
+        // accumulator layout: element i is row qrow + 8*((i/2)%2), key
+        // k0 + 8*(i/4) + 2*(lane%4) + i%2. A masked pair never weighs in
+        // (a fully masked row's lse is ~-1e30: its exponential is
+        // dropped here).
+        const bool masked =
+            wq0 + 64 > Sq || k0 + KROWS > Sk ||
+            !rows_all_valid(wq0, wq0 + 63, k0, k0 + KROWS - 1, q_offset,
+                            k_offset, causal, window);
 #pragma unroll
-          for (int i = 0; i < KN / 2; ++i) {
-            const int r = (i / 2) % 2;
-            float p = exp2_ftz(fmaf(st[i], scale_log2, -lse2[r]));
-            if (masked) {
-              const int kl = kc + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
-              p = pair_valid(qrow + 8 * r, kl, Sq, Sk, q_offset, k_offset,
-                             causal, window) ? p : 0.f;
-            }
-            st[i] = p;
+        for (int i = 0; i < 32; ++i) {
+          const int r = (i / 2) % 2;
+          float p = exp2_ftz(fmaf(st[i], scale_log2, -lse2[r]));
+          if (masked) {
+            const int kl = k0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+            p = pair_valid(qrow + 8 * r, kl, Sq, Sk, q_offset, k_offset,
+                           causal, window) ? p : 0.f;
           }
-          wgmma_wait<0>();
-          fence_operands(dpt);
-
-          // dS = P (dP - delta) scale, packed to bf16 (the TPU kernel's
-          // ds.astype(k.dtype)) into the A fragments of dQ += dS K
-          uint32_t dsa[KN / 16][4];
-#pragma unroll
-          for (int kk = 0; kk < KN / 16; ++kk)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const int i = 8 * kk + 2 * j;
-              const float d = dl[j % 2];
-              dsa[kk][j] = pack_bf16(st[i] * (dpt[i] - d) * scale,
-                                     st[i + 1] * (dpt[i + 1] - d) * scale);
-            }
-          wgmma_fence();
-#pragma unroll
-          for (int kk = 0; kk < KN / 16; ++kk)
-            wgmma_rs_rows<D, KROWS>(dq_acc, dsa[kk], kdesc,
-                                    c * (KN / 16) + kk);
-          wgmma_commit();
-          wgmma_wait<0>();
-          fence_operands(dq_acc);
+          st[i] = p;
         }
+        wgmma_wait<0>();
+        fence_operands(dpt);
+
+        // dS = P (dP - delta) scale, packed to bf16 (the TPU kernel's
+        // ds.astype(k.dtype)) into the A fragments of dQ += dS K
+        uint32_t dsa[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int i = 8 * kk + 2 * j;
+            const float d = dl[j % 2];
+            dsa[kk][j] = pack_bf16(st[i] * (dpt[i] - d) * scale,
+                                   st[i + 1] * (dpt[i + 1] - d) * scale);
+          }
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs_rows<D, KROWS>(dq_acc, dsa[kk], kdesc, kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operands(dq_acc);
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[s]);
@@ -1377,10 +1386,574 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
     wg_barrier(1 + wg);
     tile_to_rows<D, QROWS>(Qw, dq + ((size_t)bh * Sq + wq0) * hd,
                            Sq - wq0, hd);
-    if constexpr (L::WIDE) {
-      __syncwarp();
-      if (lane == 0) mbar_arrive(done);
+  }
+}
+
+// The CTA's q tile and head under the width-128 and -256 bodies' order:
+// the heads in groups of `group` (common.cuh l2_group: their K and V fit
+// in L2), each group's CTAs consecutive, and within a group the last q
+// tiles (the most live K/V tiles under causal masking) first, the
+// group's heads side by side at each q tile. (With `group` every head
+// it is the narrower bodies' order: heaviest first over all heads.)
+struct DqTile {
+  int q0, bh;
+};
+__device__ __forceinline__ DqTile dq_tile(int block, int BH, int group,
+                                          int nqt, int rows) {
+  const int per = group * nqt;  // a whole group's CTAs
+  const int g = block / per, r = block - g * per;
+  const int gh = min(group, BH - g * group);  // heads in group g
+  const int qi = r / gh;
+  return {(nqt - 1 - qi) * rows, g * group + (r - qi * gh)};
+}
+
+// ------------------------------------- bf16 at width 128: ping-pong
+// (see the note at the top): 12 warps, 128 query rows a CTA, 64-key K/V
+// tiles through a 5-stage ring.
+template <int D>
+struct PingPong {
+  // key rows per K/V tile: 64, or 32 at D 256 (dQ there is 128 f32 a
+  // thread)
+  static constexpr int KROWS = D == 256 ? 32 : 64;
+  static constexpr int STAGES = D == 256 ? 3 : 5;   // K/V tiles in flight
+  // the consumers' turns: named barrier TURN + w is warpgroup w's (1 and
+  // 2 are wg_barrier's)
+  static constexpr int TURN = 3;
+  // Q, dO (32 KB each), the K ring, the V ring (16 KB tiles), then the
+  // barriers: qfull, full[STAGES], empty[STAGES], done; +1024 for
+  // alignment: 225 KB of the 227
+  static constexpr uint32_t row = Rows<D>::bytes, atom = Rows<D>::atom;
+  static constexpr uint32_t Q_TILE = QROWS * row, KV_TILE = KROWS * row;
+  static constexpr uint32_t q = 0, dout = Q_TILE, k = 2 * Q_TILE,
+                            v = k + STAGES * KV_TILE,
+                            bars = v + STAGES * KV_TILE;
+  static constexpr size_t bytes = bars + (2 + 2 * STAGES) * 8 + 1024;
+  static_assert(bytes <= 232448, "at most 227 KB of shared memory");
+};
+
+template <int D>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    flash_dq_pingpong_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const __grid_constant__ CUtensorMap tdo,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             bf16* __restrict__ dq, int BH, int H, int KVH,
+                             int Sq, int Sk, int hd, int q_offset,
+                             int k_offset, int causal, int window,
+                             float scale, int group) {
+  using L = PingPong<D>;
+  constexpr int STAGES = L::STAGES, KROWS = L::KROWS;
+  constexpr uint32_t Q_TILE = L::Q_TILE, KV_TILE = L::KV_TILE;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  uint8_t* Qs = sm + L::q;
+  uint8_t* dOs = sm + L::dout;
+  uint8_t* Ks = sm + L::k;
+  uint8_t* Vs = sm + L::v;
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(sm + L::bars);
+  uint64_t* full = qfull + 1;
+  uint64_t* empty = full + STAGES;
+  uint64_t* done = empty + STAGES;
+
+  const int nqt = (Sq + QROWS - 1) / QROWS;
+  const DqTile x = dq_tile(blockIdx.x, BH, group, nqt, QROWS);
+  const int q0 = x.q0, bh = x.bh;
+  const int h = bh % H;
+  const int kv_row = (bh / H) * KVH + h / (H / KVH);
+  const int q_last = min(q0 + QROWS, Sq) - 1;
+  const int nk = (Sk + KROWS - 1) / KROWS;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qfull, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
     }
+    mbar_init(done, 8);  // lane 0 of each consumer warp, at its end
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int warp = warp_index(), lane = threadIdx.x % 32;
+  if (warp >= 8) {
+    // ---- producer warpgroup: every warp gives its registers back
+    // first; warp 9 is the CTA's watchdog; warp 8 loads Q and dO once,
+    // then the live K/V tiles through the ring (rows past each head's
+    // length arrive as zeros)
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == 9) {
+      cta_watchdog(done);
+    } else if (warp == 8 && lane == 0) {
+      mbar_expect_tx(qfull, 2 * Q_TILE);
+      tma_load_tile<D, QROWS>(Qs, &tq, qfull, q0, bh);
+      tma_load_tile<D, QROWS>(dOs, &tdo, qfull, q0, bh);
+      int s = 0;
+      uint32_t phase = 0;
+      for (int kj = 0; kj < nk; ++kj) {
+        const int k0 = kj * KROWS;
+        if (!rows_meet(q0, q_last, k0, min(k0 + KROWS, Sk) - 1, q_offset,
+                       k_offset, causal, window))
+          continue;
+        mbar_wait_spin(&empty[s], phase ^ 1);
+        mbar_expect_tx(&full[s], 2 * KV_TILE);
+        tma_load_tile<D, KROWS>(Ks + s * KV_TILE, &tk, &full[s], k0,
+                                kv_row);
+        tma_load_tile<D, KROWS>(Vs + s * KV_TILE, &tv, &full[s], k0,
+                                kv_row);
+        if (++s == STAGES) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns query rows wq0 .. wq0 + 63 at the
+    // whole head dim
+    setmaxnreg_inc<kConsumerRegs>();
+    const int wg = warp / 4;
+    const int wq0 = q0 + 64 * wg;
+    const int qrow = wq0 + 16 * (warp % 4) + lane / 4;  // and qrow + 8
+    uint8_t* Qw = Qs + wg * 64 * L::atom;  // its rows in block 0
+    const uint64_t qdesc = desc_sw<D>(Qw);
+    const uint64_t dodesc = desc_sw<D>(dOs + wg * 64 * L::atom);
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = qrow + 8 * r;
+      const bool in = row < Sq;
+      lse2[r] = in ? lse[(size_t)bh * Sq + row] * kLog2e : 0.f;
+      dl[r] = in ? delta[(size_t)bh * Sq + row] : 0.f;
+    }
+    const float scale_log2 = scale * kLog2e;
+    float dq_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    // dS of the tile before, packed as the A fragments of its dQ
+    // product, which the next turn issues on the K tile at stage `prev`.
+    // Every product is issued unconditionally: a product left in flight
+    // where two paths meet lets ptxas move its accumulator registers,
+    // and it then serializes every wgmma (C7515). So the first turn
+    // issues a dQ product of zeros (dS 0 on this tile's K: it adds
+    // exactly 0), and a warpgroup whose rows meet no key of a tile (or
+    // lie past Sq) computes its S and dP all the same, every pair masked.
+    uint32_t dsa[KROWS / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < KROWS / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dsa[kk][j] = 0u;
+    int prev = -1;
+    // Turns as in flash_fwd.cu's ping-pong body: a warpgroup issues its
+    // products only between its consumers_barrier(TURN + wg) and its
+    // consumers_arrive on the other's, so the tensor cores run one
+    // warpgroup's products while the other forms P and dS. Both take a
+    // turn on each live K/V tile of the CTA and one more for the last dQ
+    // product; warpgroup 0 goes first, on warpgroup 1's opening arrive,
+    // and takes that of warpgroup 1's last turn at the very end.
+    if (wg == 1) consumers_arrive(L::TURN);
+    mbar_wait_spin(qfull, 0);
+    int s = 0;
+    uint32_t phase = 0;
+    for (int kj = 0; kj < nk; ++kj) {
+      const int k0 = kj * KROWS;
+      const int k_last = min(k0 + KROWS, Sk) - 1;
+      if (!rows_meet(q0, q_last, k0, k_last, q_offset, k_offset, causal,
+                     window))
+        continue;
+      mbar_wait_spin(&full[s], phase);
+      const uint64_t kdesc = desc_sw<D>(Ks + s * KV_TILE);
+      const uint64_t vdesc = desc_sw<D>(Vs + s * KV_TILE);
+      const uint64_t pdesc = desc_sw<D>(Ks + (prev < 0 ? s : prev) * KV_TILE);
+      // one turn: S = Q K^T and dP = dO V^T of this tile (64 queries x
+      // 64 keys, 8 k16 steps each), then dQ += dS K of the tile before;
+      // three groups, so P is formed while dP and that dQ are in flight
+      // and dS while the dQ is
+      float st[KROWS / 2], dpt[KROWS / 2];
+      consumers_barrier(L::TURN + wg);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<KROWS>(st, desc_k<D, QROWS>(qdesc, kk),
+                        desc_k<D, KROWS>(kdesc, kk), kk);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<KROWS>(dpt, desc_k<D, QROWS>(dodesc, kk),
+                        desc_k<D, KROWS>(vdesc, kk), kk);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < KROWS / 16; ++kk)
+        wgmma_rs_rows<D, KROWS>(dq_acc, dsa[kk], pdesc, kk);
+      wgmma_commit();
+      consumers_arrive(L::TURN + (wg ^ 1));
+
+      // P = exp2(S*scale*log2(e) - lse*log2(e)) in place of S, as the
+      // narrower bodies
+      wgmma_wait<2>();
+      fence_operands(st);
+      const bool masked =
+          wq0 + 64 > Sq || k0 + KROWS > Sk ||
+          !rows_all_valid(wq0, wq0 + 63, k0, k0 + KROWS - 1, q_offset,
+                          k_offset, causal, window);
+#pragma unroll
+      for (int i = 0; i < KROWS / 2; ++i) {
+        const int r = (i / 2) % 2;
+        float p = exp2_ftz(fmaf(st[i], scale_log2, -lse2[r]));
+        if (masked) {
+          const int kl = k0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+          p = pair_valid(qrow + 8 * r, kl, Sq, Sk, q_offset, k_offset,
+                         causal, window) ? p : 0.f;
+        }
+        st[i] = p;
+      }
+      // dS = P (dP - delta) scale in place of P
+      wgmma_wait<1>();
+      fence_operands(dpt);
+#pragma unroll
+      for (int i = 0; i < KROWS / 2; ++i)
+        st[i] = st[i] * (dpt[i] - dl[(i / 2) % 2]) * scale;
+      wgmma_wait<0>();
+      fence_operands(dq_acc);
+      fence_operands(dsa);
+      // the tile before is done with (its K read by the dQ product just
+      // waited on); dS packed to bf16 (the TPU kernel's
+      // ds.astype(k.dtype)) into the A fragments of this tile's dQ
+      // product, issued next turn
+      if (prev >= 0) release(&empty[prev]);
+#pragma unroll
+      for (int kk = 0; kk < KROWS / 16; ++kk) pack_a(st, kk, dsa[kk]);
+      prev = s;
+      if (++s == STAGES) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+    // the last dQ product, in a turn of its own (a CTA with no live tile
+    // issues none: no stage holds a K tile)
+    consumers_barrier(L::TURN + wg);
+    if (prev >= 0) {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KROWS / 16; ++kk)
+        wgmma_rs_rows<D, KROWS>(dq_acc, dsa[kk],
+                                desc_sw<D>(Ks + prev * KV_TILE), kk);
+      wgmma_commit();
+      consumers_arrive(L::TURN + (wg ^ 1));
+      wgmma_wait<0>();
+      fence_operands(dq_acc);
+      release(&empty[prev]);
+    } else {
+      consumers_arrive(L::TURN + (wg ^ 1));
+    }
+    if (wg == 0) consumers_barrier(L::TURN);
+    // dQ through this warpgroup's Q rows (read by nothing after its last
+    // S) to 16-byte stores of each row's first hd columns
+    acc_to_tile<D, QROWS>(dq_acc, 1.f, 1.f, Qw);
+    wg_barrier(1 + wg);
+    tile_to_rows<D, QROWS>(Qw, dq + ((size_t)bh * Sq + wq0) * hd,
+                           Sq - wq0, hd);
+    release(done);
+  }
+}
+
+// ------------------------------------------ bf16 at width 256: split
+// (see the note at the top): 12 warps, 64 query rows a CTA, dQ's columns
+// split over the two consumer warpgroups, Q and dO held in registers;
+// where 128-row q tiles fill at most one wave of the SMs.
+struct Split256 {
+  static constexpr int D = 256;
+  static constexpr int QR = 64;      // query rows a CTA
+  static constexpr int KROWS = 64;   // key rows per K/V tile
+  static constexpr int STAGES = 3;   // slots of the K ring and the V ring
+  // the K ring, the V ring (32 KB slots; slot 0 first takes Q and dO),
+  // dP in f32 (16 KB), dS in bf16 (8 KB), then the barriers:
+  // kfull[STAGES], vfull[STAGES], kempty[STAGES], vempty[STAGES], done;
+  // +1024 for alignment: 217 KB
+  static constexpr uint32_t row = Rows<D>::bytes, atom = Rows<D>::atom;
+  static constexpr uint32_t KV_TILE = KROWS * row;
+  static_assert(QR * row == KV_TILE, "Q and dO fill a ring slot each");
+  static constexpr uint32_t k = 0, v = STAGES * KV_TILE,
+                            dpx = v + STAGES * KV_TILE,
+                            ds = dpx + QR * KROWS * 4,
+                            bars = ds + QR * KROWS * 2;
+  static constexpr size_t bytes = bars + (1 + 4 * STAGES) * 8 + 1024;
+  static_assert(bytes <= 232448, "at most 227 KB of shared memory");
+};
+
+// The split body's named barriers between its consumer warpgroups (1 and
+// 2 are wg_barrier's): dP handed over, dS stored.
+constexpr int kDpReady = 4, kDsReady = 5;
+
+__global__ void __launch_bounds__(kWideThreads, 1)
+    flash_dq_w256_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dq, int BH, int H, int KVH,
+                         int Sq, int Sk, int hd, int q_offset, int k_offset,
+                         int causal, int window, float scale, int group) {
+  using L = Split256;
+  constexpr int D = L::D, QR = L::QR, KROWS = L::KROWS, STAGES = L::STAGES;
+  constexpr uint32_t KV_TILE = L::KV_TILE;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  uint8_t* Ks = sm + L::k;
+  uint8_t* Vs = sm + L::v;
+  float* dPx = reinterpret_cast<float*>(sm + L::dpx);
+  uint8_t* dSt = sm + L::ds;
+  uint64_t* kfull = reinterpret_cast<uint64_t*>(sm + L::bars);
+  uint64_t* vfull = kfull + STAGES;
+  uint64_t* kempty = vfull + STAGES;
+  uint64_t* vempty = kempty + STAGES;
+  uint64_t* done = vempty + STAGES;
+
+  const int nqt = (Sq + QR - 1) / QR;
+  const DqTile x = dq_tile(blockIdx.x, BH, group, nqt, QR);
+  const int q0 = x.q0, bh = x.bh;
+  const int h = bh % H;
+  const int kv_row = (bh / H) * KVH + h / (H / KVH);
+  const int q_last = min(q0 + QR, Sq) - 1;
+  const int nk = (Sk + KROWS - 1) / KROWS;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&kfull[s], 1);
+      mbar_init(&vfull[s], 1);
+      mbar_init(&kempty[s], 8);  // lane 0 of each consumer warp
+      mbar_init(&vempty[s], 4);  // lane 0 of each warp of warpgroup 1
+    }
+    mbar_init(done, 8);  // lane 0 of each consumer warp, at its end
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // The rings' uses: use 0 of slot 0 holds Q (K ring) and dO (V ring),
+  // which the consumers read into registers and release; the live K/V
+  // tile j is use j + 1, in slot (j + 1) % STAGES.
+  const int warp = warp_index(), lane = threadIdx.x % 32;
+  if (warp >= 8) {
+    // ---- producer warpgroup: every warp gives its registers back first;
+    // warp 9 is the CTA's watchdog; warp 8 loads Q and dO, then for each
+    // live tile V and K into their rings (V is released after its dP, K
+    // after both dQ products)
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == 9) {
+      cta_watchdog(done);
+    } else if (warp == 8 && lane == 0) {
+      mbar_expect_tx(&kfull[0], KV_TILE);
+      tma_load_tile<D, QR>(Ks, &tq, &kfull[0], q0, bh);
+      mbar_expect_tx(&vfull[0], KV_TILE);
+      tma_load_tile<D, QR>(Vs, &tdo, &vfull[0], q0, bh);
+      int s = 1;
+      uint32_t phase = 0;
+      for (int kj = 0; kj < nk; ++kj) {
+        const int k0 = kj * KROWS;
+        if (!rows_meet(q0, q_last, k0, min(k0 + KROWS, Sk) - 1, q_offset,
+                       k_offset, causal, window))
+          continue;
+        mbar_wait_spin(&vempty[s], phase ^ 1);
+        mbar_expect_tx(&vfull[s], KV_TILE);
+        tma_load_tile<D, KROWS>(Vs + s * KV_TILE, &tv, &vfull[s], k0,
+                                kv_row);
+        mbar_wait_spin(&kempty[s], phase ^ 1);
+        mbar_expect_tx(&kfull[s], KV_TILE);
+        tma_load_tile<D, KROWS>(Ks + s * KV_TILE, &tk, &kfull[s], k0,
+                                kv_row);
+        if (++s == STAGES) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // ---- consumers: the CTA's 64 query rows, dQ at columns 128wg ..
+    // 128wg + 127. Warpgroup 0 holds Q and warpgroup 1 dO as register A
+    // fragments. Per tile warpgroup 0 computes S = Q K^T and warpgroup 1
+    // dP = dO V^T (64 queries x 64 keys each, 16 k16 steps, B from the
+    // ring); warpgroup 1 hands dP over in f32 through shared memory,
+    // warpgroup 0 forms P and dS and stores dS as a bf16 tile, and both
+    // read it as the A operand of their dQ products. Warpgroup 1 issues
+    // the next tile's dP before it waits for the dS, so the tensor cores
+    // run that dP while warpgroup 0 forms dS. No product is left in
+    // flight where two paths meet (ptxas would then serialize every
+    // wgmma, C7515): each iteration waits on all its products, and after
+    // the last tile warpgroup 1 issues its look-ahead dP on that tile's V
+    // all the same (the producer loads nothing more, so the slot still
+    // holds it) and drops the result.
+    setmaxnreg_inc<kConsumerRegs>();
+    const int wg = warp / 4;
+    const int t = threadIdx.x % 128;
+    const int qrow = q0 + 16 * (warp % 4) + lane / 4;  // and qrow + 8
+    // dS as the K-major A operand: 64 rows (queries) of 64 keys, the
+    // 128-byte swizzle of a W 64 tile
+    const uint64_t dsdesc = desc_sw<64>(dSt);
+    // the first of this warpgroup's column blocks (2wg) of a K tile, as
+    // an offset of its descriptor: blocks 2wg and 2wg + 1 are a W 128
+    // tile of KROWS rows
+    const uint64_t half = (2 * wg * KROWS * L::atom) >> 4;
+    float dq_acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dq_acc[i] = 0.f;
+    float acc[32];
+    // Q (warpgroup 0) or dO (warpgroup 1), one A fragment a k16 step
+    uint32_t frag[D / 16][4];
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    // this warpgroup's dQ += dS K over its 128 columns of the K tile in
+    // slot s, waited on with every product before it: the slot's K and
+    // the dS tile are then free of this warpgroup's reads
+    auto dq_step = [&](int s) {
+      const uint64_t kdesc = desc_sw<D>(Ks + s * KV_TILE);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_rows128<KROWS>(dq_acc, desc_k<64, 64>(dsdesc, kk),
+                                kdesc + half, kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(dq_acc);
+      fence_operands(acc);
+      release(&kempty[s]);
+    };
+    // S = Q K^T (warpgroup 0, the K tile in slot s) or dP = dO V^T
+    // (warpgroup 1, the V tile), into acc, left in flight
+    auto issue_scores = [&](const uint8_t* ring, int s) {
+      const uint64_t bdesc = desc_sw<D>(ring + s * KV_TILE);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_rs_n64(acc, frag[kk], desc_k<D, KROWS>(bdesc, kk), kk);
+      wgmma_commit();
+    };
+    // the live tiles from kj on: the next one's index, nk past the last
+    auto next_live = [&](int kj) {
+      for (; kj < nk; ++kj) {
+        const int k0 = kj * KROWS;
+        if (rows_meet(q0, q_last, k0, min(k0 + KROWS, Sk) - 1, q_offset,
+                      k_offset, causal, window))
+          break;
+      }
+      return kj;
+    };
+    // use 0: this warpgroup's operand rows into registers; slot 0 of
+    // both rings is then free of its reads
+    mbar_wait_spin(wg ? &vfull[0] : &kfull[0], 0);
+    tile_to_frags<D, QR>(wg ? Vs : Ks, frag);
+    release(&kempty[0]);
+    if (wg == 1) release(&vempty[0]);
+    int s = 1;
+    uint32_t phase = 0;
+    if (wg == 0) {
+      // this thread's two rows' lse * log2(e) and delta (0 past Sq)
+      float lse2[2], dl[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = qrow + 8 * r;
+        const bool in = row < Sq;
+        lse2[r] = in ? lse[(size_t)bh * Sq + row] * kLog2e : 0.f;
+        dl[r] = in ? delta[(size_t)bh * Sq + row] : 0.f;
+      }
+      const float scale_log2 = scale * kLog2e;
+      for (int kj = next_live(0); kj < nk; kj = next_live(kj + 1)) {
+        const int k0 = kj * KROWS;
+        mbar_wait_spin(&kfull[s], phase);
+        issue_scores(Ks, s);
+        wgmma_wait<0>();
+        fence_operands(acc);
+        // P = exp2(S*scale*log2(e) - lse*log2(e)) in place of S, as the
+        // narrower bodies
+        const bool masked =
+            q0 + QR > Sq || k0 + KROWS > Sk ||
+            !rows_all_valid(q0, q0 + QR - 1, k0, k0 + KROWS - 1, q_offset,
+                            k_offset, causal, window);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int r = (i / 2) % 2;
+          float p = exp2_ftz(fmaf(acc[i], scale_log2, -lse2[r]));
+          if (masked) {
+            const int kl = k0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+            p = pair_valid(qrow + 8 * r, kl, Sq, Sk, q_offset, k_offset,
+                           causal, window) ? p : 0.f;
+          }
+          acc[i] = p;
+        }
+        // dS = P (dP - delta) scale, dP from warpgroup 1 (element i of
+        // thread t at 128 i + t, the same accumulator layout), packed to
+        // bf16 (the TPU kernel's ds.astype(k.dtype)) into the dS tile
+        consumers_barrier(kDpReady);
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          acc[i] = acc[i] * (dPx[128 * i + t] - dl[(i / 2) % 2]) * scale;
+        acc_to_tile<64, 64>(acc, 1.f, 1.f, dSt);
+        // the tile's st.shared before the async proxy's wgmma reads, by
+        // warpgroup 1's after the barrier and by this warpgroup's own
+        // after all its threads have stored their rows
+        fence_proxy_async();
+        consumers_arrive(kDsReady);
+        wg_barrier(1);
+        dq_step(s);
+        if (++s == STAGES) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+    } else {
+      int kj = next_live(0);
+      if (kj < nk) {
+        mbar_wait_spin(&vfull[s], phase);
+        issue_scores(Vs, s);
+        wgmma_wait<0>();
+        fence_operands(acc);
+        release(&vempty[s]);
+      }
+      while (kj < nk) {
+        // this tile's dP (in acc) to warpgroup 0: dPx is free, warpgroup
+        // 0 having read the last one before it stored that tile's dS
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dPx[128 * i + t] = acc[i];
+        consumers_arrive(kDpReady);
+        // the next live tile's dP, or after the last one this tile's
+        // again, runs while warpgroup 0 forms dS; its V slot is free once
+        // it is done
+        const int nkj = next_live(kj + 1);
+        const int ns = s + 1 == STAGES ? 0 : s + 1;
+        const uint32_t nphase = s + 1 == STAGES ? phase ^ 1 : phase;
+        if (nkj < nk) mbar_wait_spin(&vfull[ns], nphase);
+        issue_scores(Vs, nkj < nk ? ns : s);
+        // this tile's K has landed (warpgroup 0 waited on it too) and dS
+        // is stored
+        mbar_wait_spin(&kfull[s], phase);
+        consumers_barrier(kDsReady);
+        dq_step(s);
+        if (nkj < nk) release(&vempty[ns]);
+        s = ns;
+        phase = nphase;
+        kj = nkj;
+      }
+    }
+    // dQ through the dS tile and dP's staging (read by nothing after the
+    // last dQ products, which both warpgroups have waited on): warpgroup
+    // 1 stores its column blocks (a W 128 tile, 16 KB) through dP's
+    // staging, warpgroup 0 through slot 0 of the V ring (no load is in
+    // flight: every tile has been waited on), then each into its columns
+    // of each row, those below hd
+    consumers_barrier(3);
+    uint8_t* stage = wg ? reinterpret_cast<uint8_t*>(dPx) : Vs;
+    acc_to_tile<128, QR>(dq_acc, 1.f, 1.f, stage);
+    wg_barrier(1 + wg);
+    const int cols = min(128, hd - 128 * wg);  // hd > 128 at this width
+    tile_to_rows<128, QR>(stage, dq + ((size_t)bh * Sq + q0) * hd + 128 * wg,
+                          Sq - q0, cols, hd);
+    release(done);
   }
 }
 
@@ -1391,28 +1964,59 @@ cudaError_t launch(const Args& a) {
   const void* vp = a.Sk > 0 ? a.v : a.q;
   const int krows = a.Sk > 0 ? a.Sk : a.Sq;
   const int kslabs = a.Sk > 0 ? a.B * a.KVH : a.B * a.H;
-  CUtensorMap tq, tk, tv, tdo;
-  constexpr int KROWS = Layout<D>::KROWS;
-  cudaError_t err =
-      encode_rows_map<D>(&tq, a.q, a.hd, a.Sq, a.B * a.H, QROWS);
-  if (err == cudaSuccess)
-    err = encode_rows_map<D>(&tdo, a.dout, a.hd, a.Sq, a.B * a.H, QROWS);
-  if (err == cudaSuccess)
-    err = encode_rows_map<D>(&tk, kp, a.hd, krows, kslabs, KROWS);
-  if (err == cudaSuccess)
-    err = encode_rows_map<D>(&tv, vp, a.hd, krows, kslabs, KROWS);
-  if (err != cudaSuccess) return err;
-  constexpr size_t smem = Layout<D>::bytes;
-  err = allow_smem(flash_dq_wgmma_kernel<D>, smem);
-  if (err != cudaSuccess) return err;
   const int BH = a.B * a.H;
-  const int grid = (a.Sq + QROWS - 1) / QROWS * BH;
-  constexpr int threads = Layout<D>::THREADS;
-  flash_dq_wgmma_kernel<D><<<grid, threads, smem, a.stream>>>(
-      tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dq), BH, a.H,
-      a.KVH, a.Sq, a.Sk, a.hd, a.q_offset, a.k_offset, a.causal, a.window,
-      a.scale);
-  return cudaGetLastError();
+  // The body at width 256 goes by shape, as the width-256 forward's
+  // schedule: where 128-row q tiles fill at most one wave of the SMs
+  // (Gemma-2B's fit, B 2 x 8 heads x S 1024: 128) the split body, whose
+  // 64-row q tiles halve the longest walk; else the ping-pong body, whose
+  // 128-row q tiles read each K/V tile once for twice the rows.
+  bool split = false;
+  if constexpr (D == 256) {
+    int sms = 0;
+    const cudaError_t e = multiprocessors(&sms);
+    if (e != cudaSuccess) return e;
+    split = (a.Sq + QROWS - 1) / QROWS * BH <= sms;
+  }
+  // the Q/dO box: a CTA's query rows; the K/V box: a tile's key rows
+  int QR = QROWS, KR = 64;
+  if constexpr (D >= 128) KR = PingPong<D>::KROWS;
+  if (split) {
+    QR = Split256::QR;
+    KR = Split256::KROWS;
+  }
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = encode_rows_map<D>(&tq, a.q, a.hd, a.Sq, a.B * a.H, QR);
+  if (err == cudaSuccess)
+    err = encode_rows_map<D>(&tdo, a.dout, a.hd, a.Sq, a.B * a.H, QR);
+  if (err == cudaSuccess)
+    err = encode_rows_map<D>(&tk, kp, a.hd, krows, kslabs, KR);
+  if (err == cudaSuccess)
+    err = encode_rows_map<D>(&tv, vp, a.hd, krows, kslabs, KR);
+  if (err != cudaSuccess) return err;
+  const int grid = (a.Sq + QR - 1) / QR * BH;
+  // the wide bodies' order: heads in groups whose K and V (Sk rows of 2
+  // * hd bytes each) fit in L2, of equal size (a last group of few heads
+  // would leave their heaviest q tiles to end the launch alone)
+  const int fit = l2_group(4ll * a.hd * a.Sk, BH);
+  const int groups = (BH + fit - 1) / fit;
+  const int group = (BH + groups - 1) / groups;
+  auto run = [&](auto kernel, size_t smem, int threads, auto... extra) {
+    cudaError_t e = allow_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, threads, smem, a.stream>>>(
+        tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dq), BH, a.H,
+        a.KVH, a.Sq, a.Sk, a.hd, a.q_offset, a.k_offset, a.causal,
+        a.window, a.scale, extra...);
+    return cudaGetLastError();
+  };
+  if (split)
+    return run(flash_dq_w256_kernel, Split256::bytes, kWideThreads, group);
+  if constexpr (D >= 128)
+    return run(flash_dq_pingpong_kernel<D>, PingPong<D>::bytes,
+               kWideThreads, group);
+  else
+    return run(flash_dq_wgmma_kernel<D>, Layout<D>::bytes,
+               Layout<D>::THREADS);
 }
 
 }  // namespace dq

@@ -27,8 +27,9 @@
 //   (keeps the compiler from touching accumulator registers across an
 //   asynchronous product), `wgmma_ss_n32` / `_n64` / `_n128` and
 //   `wgmma_ss<N>` over them (m64nNk16 bf16 -> f32, A and B from shared
-//   memory), `wgmma_rs_n16_tb` / `_n32_tb` / `_n64_tb` (m64nNk16: A from
-//   registers, B MN-major from shared memory) and `wgmma_rs_rows<D, R>`
+//   memory), `wgmma_rs_n64` (m64n64k16: A from registers, B K-major
+//   from shared memory), `wgmma_rs_n16_tb` / `_n32_tb` / `_n64_tb`
+//   (m64nNk16: A from registers, B MN-major from shared memory) and `wgmma_rs_rows<D, R>`
 //   over them (N the head dim; one n64 product per column block at D
 //   128 and 256); `wgmma_ss_n64_tb` and `wgmma_ss_rows128` the same with
 //   A from shared memory (the 256 dK/dV body's P^T and dS^T tiles), and
@@ -92,7 +93,8 @@
 // - Accumulator helpers on the documented wgmma D layout (thread t of a
 //   warpgroup holds, for each 8-column group j, rows 16*(t/32) + (t%32)/4
 //   and that + 8 at columns 8j + 2*(t%4) and + 1): `pack_a` turns the
-//   16 columns of one k step into the bf16 A fragment of an RS product,
+//   16 columns of one k step into the bf16 A fragment of an RS product
+//   (`tile_to_frags` reads a shared tile's rows into such fragments),
 //   `acc_to_tile<W, R>` stores a 64 x W accumulator as bf16 into 64 rows
 //   of a swizzled shared tile of R rows, and `tile_to_rows<W, R>` copies
 //   the first d columns of such rows out to device memory (rows of d
@@ -538,6 +540,32 @@ __device__ __forceinline__ void wgmma_ss_n64_tb(float (&d)[R],
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
+// D (64 x 64, f32) (+)= A (64 x 16) . B (16 x 64), bf16 in: A from
+// registers (the fragment layout of `pack_a`), B from shared memory
+// K-major (no transpose); scale_d == 0 overwrites D.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
 // The same at N = 32 (head_dim 32): D 64 x 32.
 __device__ __forceinline__ void wgmma_rs_n32_tb(float (&d)[16],
                                                const uint32_t (&a)[4],
@@ -691,6 +719,24 @@ __device__ __forceinline__ void pack_a(const float (&d)[R], int kk,
 #pragma unroll
   for (int i = 0; i < 4; ++i)
     a[i] = pack_bf16(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
+}
+
+// The A fragments of a warpgroup's 64 rows of a swizzled R-row tile of
+// head_dim-D rows (`tile` is the first of the 64 rows in block 0), one
+// per k16 step over the head dim, for RS products: the layout `pack_a`
+// gives (rows 16w + t%32/4 and + 8, columns 16kk + 2(t%4), + 1 and
+// those + 8), read once as 32-bit words.
+template <int D, int R>
+__device__ __forceinline__ void tile_to_frags(const uint8_t* tile,
+                                              uint32_t (&a)[D / 16][4]) {
+  const int t = threadIdx.x % 128, l = t % 32;
+  const int r = 16 * (t / 32) + l / 4, off = 4 * (l % 4);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[kk][i] = *reinterpret_cast<const uint32_t*>(
+          tile + swz<D, R>(r + 8 * (i % 2), 2 * kk + i / 2) + off);
 }
 
 // A 64 x D f32 accumulator, row r scaled by `lo` (rows 16w + t%32/4)

@@ -2,7 +2,7 @@
 torch.profiler.
 
     python -m elephas_tpu_torch.profile_train [--steps 5] [--batch 8]
-        [--config flagship|transformer_tpumodel|gemma_2b]
+        [--config flagship|transformer_tpumodel|gemma_2b|phi3_mini]
 
 Runs on the CUDA device only. Builds the LM config (``flagship``: vocab
 32000, 8 layers, 16 heads, d_model 1024, d_ff 4096, with the bench's
@@ -11,9 +11,12 @@ optimizer, AdamW 3e-4 at ``optax.adamw``'s defaults;
 4 layers, 8 heads, d_model 256 (head dim 32), d_ff 512, with its
 Adam 3e-4; ``gemma_2b``: Gemma-2B's widths, ``GEMMA_2B``, at 8 of its 18
 layers, head dim 256, with the flagship's AdamW: pass ``--batch 2``, the
-fit of chip_smoke's ``lm_d256``), bf16 compute over f32 weights from a
-seed, warms two steps at ``--batch`` x a sequence of 1024 (128 for
-``transformer_tpumodel``) in tokens,
+fit of chip_smoke's ``lm_d256``; ``phi3_mini``: Phi-3-mini's widths,
+``PHI3_MINI``, at 8 of its 32 layers, head dim 96, with the same AdamW:
+pass ``--batch 2``, the fit of chip_smoke's ``lm_d96``), bf16 compute
+over f32 weights from a seed, warms two steps at ``--batch`` x a
+sequence of 1024 (128 for ``transformer_tpumodel``, 2048 for
+``phi3_mini``) in tokens,
 times ``--steps`` steps, and profiles as many more. Prints one JSON
 line: the host time per step (untraced window), the device time
 per step (sum of kernel and copy durations, traced window), the
@@ -35,14 +38,14 @@ def main() -> None:
     ap.add_argument("--top", type=int, default=14)
     ap.add_argument("--config", default="flagship",
                     choices=("flagship", "transformer_tpumodel",
-                             "gemma_2b"))
+                             "gemma_2b", "phi3_mini"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
     from torch.profiler import ProfilerActivity, profile
 
     from .models.optimizers import Adam, AdamW
-    from .models.transformer import (FLAGSHIP, GEMMA_2B,
+    from .models.transformer import (FLAGSHIP, GEMMA_2B, PHI3_MINI,
                                      TRANSFORMER_TPUMODEL,
                                      TransformerConfig, init_params,
                                      make_train_step)
@@ -52,12 +55,14 @@ def main() -> None:
         cfg = TransformerConfig(**TRANSFORMER_TPUMODEL)
         opt = Adam(3e-4)
     else:
-        # Gemma-2B at 8 layers: AdamW over all 18 (2.51 B f32 parameters)
-        # takes 40 GB before the activations
+        # Gemma-2B and Phi-3-mini at 8 layers: AdamW over all of Gemma-2B's
+        # 18 (2.51 B f32 parameters) takes 40 GB before the activations
+        wide = {"gemma_2b": GEMMA_2B, "phi3_mini": PHI3_MINI}
         cfg = TransformerConfig(**(FLAGSHIP if args.config == "flagship"
-                                   else dict(GEMMA_2B, num_layers=8)))
+                                   else dict(wide[args.config],
+                                             num_layers=8)))
         opt = AdamW(3e-4, epsilon=1e-8, weight_decay=1e-4, decay_1d=True)
-    seq = min(cfg.max_seq_len, 1024)
+    seq = min(cfg.max_seq_len, 2048 if args.config == "phi3_mini" else 1024)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
     tx = opt.to_transform()

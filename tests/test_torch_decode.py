@@ -21,6 +21,7 @@ torch = pytest.importorskip("torch")
 from elephas_tpu.models import transformer as jtr
 from elephas_tpu_torch.models import transformer as ttr
 from elephas_tpu_torch.weights import from_numpy_tree
+from tests.torch_one_thread import one_thread
 
 # the JAX functions jitted: one compile each instead of op-by-op dispatch
 _jprefill = jax.jit(jtr.prefill_cache, static_argnums=(2, 3))

@@ -31,6 +31,7 @@ from elephas_tpu_torch.ops.flash_attention import (flash_attention,
                                                    flash_backward_plain,
                                                    flash_dkv, flash_dq,
                                                    flash_forward_plain)
+from tests.torch_one_thread import one_thread
 
 # (causal, kvh, window, sq, sk, q_offset, k_offset), as the forward tests
 _CASES = {

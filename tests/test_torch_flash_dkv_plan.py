@@ -42,16 +42,9 @@ from elephas_tpu_torch.ops.flash_attention import (
     DKV_ROWS, dkv_live_q_tiles, dkv_plan, dkv_step, flash_backward,
     flash_dkv_chunked_plain, flash_dkv_plain, flash_dkv_reduce,
     flash_dkv_reduce_plain, flash_forward_plain)
+from tests.torch_one_thread import one_thread
 
 ATOL = 8e-6
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 # (B, H, KVH, Sq, Sk, causal, window, q_offset, k_offset, SMs)

@@ -9,8 +9,10 @@ The kernels are built from ``elephas_tpu_torch/csrc`` at first use.
 The flash kernels are held at head dim 64 over every case and at head
 dims 16 and 32 (the repo's other configurations) and 128 (most published
 LMs) over the GQA, window, ragged and offset cases, and at 128 over the
-edges of its 128-key tiles; at 256 (Gemma-2B's) over the same cases and
-the edges of its 64-key tiles and 32-key dQ stages; at head dims 8, 24,
+edges of its 128-key tiles and dQ's 64-key tiles and ping-pong turns
+(and dQ at 96 on them); at 256 (Gemma-2B's) over the same cases and
+the edges of its 64-key tiles and of dQ's two bodies (64-row q tiles
+at one wave of the SMs, 32-key tiles past it); at head dims 8, 24,
 40, 72, 80, 96, 120, 136, 192 and 248, which run a wider body on
 zero-filled columns, over the same cases, with a sentinel check that no
 byte past a row's head_dim values is written; the paged kernel at
@@ -215,8 +217,9 @@ def _check_all_three(cuda, head_dim, case, dtype, cases=_BWD_CASES):
 
 
 # the edges of the head-dim-256 bodies' tiles (64 keys in the forward's
-# K/V tiles and the dK/dV CTA, 32 in dQ's stages; two warpgroups of 64
-# query rows in the forward and dQ, one head-dim half each in dK/dV):
+# K/V tiles, the dK/dV CTA and dQ's split body, 32 in dQ's ping-pong
+# body; two warpgroups of 64 query rows in the forward and dQ's
+# ping-pong body, one head-dim half each in dK/dV and dQ's split body):
 # key lengths one past a tile and one short; a query tile whose second
 # warpgroup holds one row; a window edge inside a tile; ring hops;
 # Gemma-2B's 8 query heads over 1 kv head, ragged and windowed
@@ -238,6 +241,31 @@ _D256_EDGE_CASES = {
     "gqa4_window": (1, 16, 4, 517, 517, True, 200, 0, 0),
     "mqa8_hop": (1, 8, 1, 300, 300, True, None, 400, 100),
     "mqa16_ragged": (1, 16, 1, 700, 700, True, None, 0, 0),
+    # dQ's split body (where 128-row q tiles fill at most one wave of the
+    # SMs): its 64-row q tiles and 64-key K/V tiles: a key length one
+    # short of a tile, a query length one short of two tiles, three live
+    # tiles, a window edge inside a tile, a ring hop whose first 70 query
+    # rows see no key, and Gemma-2B's fit shape (256 CTAs of 1 to 16
+    # tiles, heaviest first: more than one wave)
+    "sk_63": (2, 4, 4, 63, 63, True, None, 0, 0),
+    "sq_127": (1, 4, 2, 127, 200, True, None, 73, 0),
+    "odd_live_tiles": (1, 4, 4, 100, 190, False, None, 0, 0),
+    "window_33": (1, 4, 2, 300, 300, True, 33, 0, 0),
+    "hop_rows_dead_64": (1, 4, 4, 150, 200, True, None, 0, 70),
+    "mqa8_fit": (2, 8, 1, 1024, 1024, True, None, 0, 0),
+    # dQ's ping-pong body (more 128-row q tiles than an H100's 132 SMs:
+    # 136 heads or more): its 32-key tiles and ping-pong turns: a key
+    # length one past a tile, three live tiles, a query length that
+    # leaves the second warpgroup one row or none (GQA 4/1), a window
+    # edge inside a tile, a ring hop whose first rows see no key, and
+    # MQA 8/1 over 17 batch rows
+    "pp_sk_33": (1, 136, 136, 33, 33, True, None, 0, 0),
+    "pp_odd_live_tiles": (1, 136, 136, 100, 95, False, None, 0, 0),
+    "pp_sq_65": (1, 136, 34, 65, 300, True, None, 235, 0),
+    "pp_sq_64": (1, 136, 136, 64, 300, True, None, 236, 0),
+    "pp_window_33": (1, 136, 136, 150, 150, True, 33, 0, 0),
+    "pp_hop_rows_dead": (1, 136, 136, 150, 200, True, None, 0, 70),
+    "pp_mqa8": (17, 8, 1, 191, 191, True, None, 0, 0),
 }
 _D256_CASES = {**{c: _BWD_CASES[c] for c in _SMALL_D_CASES},
                **_D256_EDGE_CASES}
@@ -256,7 +284,10 @@ def test_flash_kernels_at_head_dim_256_match_plain(cuda, no_tf32, case,
 
 @pytest.mark.parametrize("case", ["mqa8_ragged", "mqa8_window", "sq_65",
                                   "hop_first_rows_dead", "gqa2_ragged",
-                                  "mqa16_ragged"])
+                                  "mqa16_ragged", "mqa8_fit",
+                                  "odd_live_tiles", "window_33",
+                                  "hop_rows_dead_64", "pp_mqa8",
+                                  "pp_sq_65", "pp_window_33"])
 def test_flash_kernels_are_bit_reproducible_at_head_dim_256(cuda, case):
     """Two launches each of the forward, dQ and dK/dV kernels at head
     dim 256 on the same bf16 inputs give the same bits (no atomics; in
@@ -300,7 +331,12 @@ def test_flash_kernels_are_bit_reproducible_at_head_dim_256(cuda, case):
 # key lengths one past a tile, inside one and one short of two; query
 # lengths where the second warpgroup holds one row or none; window edges
 # inside a tile and one past it; ring hops whose diagonal crosses a tile
-# and whose first query rows see no key; GQA 4/1 and 8/1
+# and whose first query rows see no key; GQA 4/1 and 8/1. Then the dQ
+# body's 64-key tiles and ping-pong turns: key lengths one short of a
+# tile and one past it, three live tiles (the turns of an odd count), a
+# query length that leaves the second warpgroup no row, a window edge
+# inside a 64-key tile, a ring hop whose first 70 query rows see no key,
+# and 4 query heads over 1 kv head
 _D128_EDGE_CASES = {
     # (B, H, KVH, Sq, Sk, causal, window, q_offset, k_offset)
     "sk_129": (2, 4, 4, 129, 129, True, None, 0, 0),
@@ -314,6 +350,13 @@ _D128_EDGE_CASES = {
     "hop_first_rows_dead": (1, 4, 4, 150, 150, True, None, 100, 164),
     "gqa4": (2, 8, 2, 255, 255, True, None, 0, 0),
     "gqa8": (1, 8, 1, 191, 191, True, None, 0, 0),
+    "sk_63": (2, 4, 4, 63, 63, True, None, 0, 0),
+    "sk_65": (2, 4, 2, 65, 65, True, None, 0, 0),
+    "odd_live_tiles": (1, 4, 4, 100, 190, False, None, 0, 0),
+    "sq_64": (2, 4, 4, 64, 300, True, None, 236, 0),
+    "window_33": (1, 4, 4, 300, 300, True, 33, 0, 0),
+    "hop_rows_dead_64": (1, 4, 4, 150, 200, True, None, 0, 70),
+    "gqa4_1": (2, 4, 1, 200, 200, True, None, 0, 0),
 }
 
 
@@ -359,6 +402,19 @@ def test_flash_dkv_at_head_dim_128_tile_edges_matches_plain(cuda, no_tf32,
     """dK/dV (and dQ) at head dim 128 over the same edges, with the
     head-dim-64 tests' tolerances."""
     _check_backward(cuda, case, dtype, 128, _D128_EDGE_CASES)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["gqa4_1", "odd_live_tiles", "sq_64",
+                                  "sq_65", "window_33", "hop_rows_dead_64",
+                                  "sk_65"])
+def test_flash_dq_at_head_dim_96_on_the_128_body_matches_plain(
+        cuda, no_tf32, case, dtype):
+    """dQ (and dK/dV) at head dim 96 (Phi-3-mini's, on the 128-wide
+    bodies' zero-filled columns) over the dQ body's tile edges, 4 query
+    heads over 1 kv head among them, with the head-dim-64 tests'
+    tolerances."""
+    _check_backward(cuda, case, dtype, 96, _D128_EDGE_CASES)
 
 
 @pytest.mark.parametrize("case", ["gqa4", "sq_65", "window_100",
@@ -550,8 +606,8 @@ def test_flash_kernels_take_offset_views(cuda, offset):
         assert err <= 2e-2 * scale, f"{name}: {err} > 2e-2 * {scale}"
 
 
-def _bwd_args(case, seed, device, d=64):
-    b, h, kvh, sq, sk, causal, window, qo, ko = _BWD_CASES[case]
+def _bwd_args(case, seed, device, d=64, cases=_BWD_CASES):
+    b, h, kvh, sq, sk, causal, window, qo, ko = cases[case]
     from elephas_tpu_torch.ops.flash_attention import flash_forward_plain
     gen = torch.Generator(device=device).manual_seed(seed)
     q, g = (torch.randn((b, h, sq, d), generator=gen, device=device)
@@ -598,12 +654,15 @@ def test_flash_dkv_kernel_is_bit_reproducible_at_small_head_dims(
     _assert_dkv_reproducible(_bwd_args(case, 6, cuda, head_dim))
 
 
-@pytest.mark.parametrize("case", ["causal", "gqa4_window", "sq_255"])
+@pytest.mark.parametrize("case", ["causal", "gqa4_window", "sq_255",
+                                  "odd_live_tiles", "sq_64", "window_33",
+                                  "hop_rows_dead_64", "gqa4_1"])
 def test_flash_dq_kernel_is_bit_reproducible_at_head_dim_128(cuda, case):
     """No atomics at head dim 128: two dQ launches on the same bf16
-    inputs give the same bits."""
+    inputs give the same bits (the ping-pong turns order issue, not
+    arithmetic), over the dQ body's tile edges too."""
     from elephas_tpu_torch.ops.flash_attention import flash_dq
-    args = _bwd_args(case, 6, cuda, 128)
+    args = _bwd_args(case, 6, cuda, 128, {**_D128_EDGE_CASES, **_BWD_CASES})
     first, second = flash_dq(*args), flash_dq(*args)
     assert torch.equal(first.view(torch.int16), second.view(torch.int16))
 

@@ -36,6 +36,7 @@ from elephas_tpu_torch.models import transformer as ttr
 from elephas_tpu_torch.models.transformer_model import TransformerModel
 from elephas_tpu_torch.serving_engine import DecodeEngine
 from elephas_tpu_torch.weights import to_numpy_tree
+from tests.torch_one_thread import one_thread
 
 # Gemma-2B's shape (google/gemma-2b config.json: head dim 256, one kv
 # head, a gated MLP, RMSNorm, RoPE theta 10000, tied embeddings) at the
@@ -44,16 +45,6 @@ _CFG = dict(vocab_size=64, num_layers=2, num_heads=4, num_kv_heads=1,
             d_model=1024, d_ff=256, max_seq_len=48, positional="rope",
             rope_theta=10000.0, norm="rmsnorm", mlp_variant="swiglu",
             tied_embedding=True)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: these ops are small, and under the parallel
-    test run a pool of threads per worker oversubscribes the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

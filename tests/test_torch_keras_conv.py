@@ -35,6 +35,7 @@ from elephas_tpu_torch.models import core as tcore
 from elephas_tpu_torch.models import layers as tlayers
 from elephas_tpu_torch.models import optimizers as topt
 from elephas_tpu_torch.parallel import sync_trainer as tst
+from tests.torch_one_thread import one_thread
 
 
 def layer_parity(make, shape, x, training=False, scale=0.3, seed=0,

@@ -25,6 +25,7 @@ from elephas_tpu_torch.models import core as tcore
 from elephas_tpu_torch.models import layers as tlayers
 from elephas_tpu_torch.models import optimizers as topt
 from elephas_tpu_torch.models.callbacks import EarlyStopping, LambdaCallback
+from tests.torch_one_thread import one_thread
 
 _OPTIMIZERS = {
     # name: (factory(module, lr scale), lr scale per dataset)

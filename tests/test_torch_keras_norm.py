@@ -46,6 +46,7 @@ from elephas_tpu_torch.models.saving import load_model
 from elephas_tpu_torch.parallel import sync_trainer as tst
 from elephas_tpu_torch.utils.sockets import free_port
 from tests.test_torch_keras_conv import layer_parity
+from tests.torch_one_thread import one_thread
 
 
 @pytest.mark.parametrize("training", [True, False])

@@ -36,6 +36,7 @@ from elephas_tpu_torch.models import layers as tlayers
 from elephas_tpu_torch.models import optimizers as topt
 from elephas_tpu_torch.parallel import sync_trainer as tst
 from tests.test_torch_keras_conv import layer_parity
+from tests.torch_one_thread import one_thread
 
 
 def _seq(shape=(8, 3), n=4, seed=1):

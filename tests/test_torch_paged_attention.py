@@ -22,16 +22,7 @@ from elephas_tpu.ops.paged_attention import \
 from elephas_tpu_torch.ops.paged_attention import (
     SPLIT_GROUPS, paged_body, paged_decode_attention,
     paged_decode_attention_plain, split_blocks)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: these ops are tiny, and under the parallel
-    test run a pool of threads per worker oversubscribes the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from tests.torch_one_thread import one_thread
 
 
 _CASES = {

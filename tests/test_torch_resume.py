@@ -45,6 +45,7 @@ from elephas_tpu_torch.models.callbacks import ModelCheckpoint
 from elephas_tpu_torch.models.transformer_model import TransformerModel
 from elephas_tpu_torch.utils.checkpoint import CheckpointManager
 from elephas_tpu_torch.weights import to_numpy_tree, tree_leaves
+from tests.torch_one_thread import one_thread
 
 
 def _data(n=256):

@@ -26,6 +26,7 @@ from elephas_tpu_torch.models.transformer import TransformerConfig
 from elephas_tpu_torch.serving_engine import (DecodeEngine,
                                               _filter_logits_rows)
 from elephas_tpu_torch.weights import from_numpy_tree
+from tests.torch_one_thread import one_thread
 
 _CFG = dict(vocab_size=64, num_layers=2, num_heads=4, d_model=32, d_ff=64,
             max_seq_len=48, num_kv_heads=2)

@@ -37,6 +37,7 @@ from elephas_tpu_torch.models import speculative as tsp
 from elephas_tpu_torch.models import transformer as ttr
 from elephas_tpu_torch.weights import (from_numpy_tree, to_numpy_tree,
                                        tree_leaves)
+from tests.torch_one_thread import one_thread
 
 _BASE = dict(vocab_size=64, num_layers=2, num_heads=4, d_model=32, d_ff=64,
              max_seq_len=40)
@@ -46,16 +47,6 @@ _VARIANTS = {"learned": {},
              "alibi_window": dict(positional="alibi", attention_window=5)}
 _PROMPT_SHAPE = (3, 6)
 _NEW, _GAMMA = 12, 3
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: these ops are tiny, and under the parallel
-    test run a pool of threads per worker oversubscribes the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _configs(variant="learned", **extra):

@@ -33,6 +33,7 @@ from elephas_tpu_torch.models import layers as tlayers
 from elephas_tpu_torch.models import metrics as tmetrics
 from elephas_tpu_torch.models import optimizers as topt
 from elephas_tpu_torch.parallel import sync_trainer as tst
+from tests.torch_one_thread import one_thread
 
 _OPT = {"sgd_momentum": lambda m: m.SGD(0.05, momentum=0.9),
         "adam": lambda m: m.Adam()}

@@ -41,6 +41,7 @@ from elephas_tpu.models import transformer as jtr
 from elephas_tpu_torch.models import transformer as ttr
 from elephas_tpu_torch.utils.sockets import free_port
 from tests.test_torch_train import _configs, _tokens
+from tests.torch_one_thread import one_thread
 
 
 def _classification_model():

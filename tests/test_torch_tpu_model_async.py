@@ -57,6 +57,7 @@ from elephas_tpu_torch.worker import AsyncWorker
 from tests.test_torch_async_worker import land_each_push
 from tests.test_torch_tpu_model import _classification_model
 from tests.test_torch_train import _configs
+from tests.torch_one_thread import one_thread
 
 SWEEP = [(mode, transport, workers)
          for mode in ("asynchronous", "hogwild")

@@ -32,6 +32,7 @@ torch = pytest.importorskip("torch")
 from elephas_tpu.models import transformer as jtr
 from elephas_tpu_torch.models import transformer as ttr
 from elephas_tpu_torch.weights import from_numpy_tree
+from tests.torch_one_thread import one_thread
 
 _BASE = dict(vocab_size=64, num_layers=2, num_heads=4, d_model=32, d_ff=64,
              max_seq_len=48)

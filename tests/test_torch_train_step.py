@@ -32,6 +32,7 @@ from elephas_tpu_torch.models.transformer_model import TransformerModel
 from elephas_tpu_torch.weights import (from_numpy_tree, to_numpy_tree,
                                        tree_leaves)
 from tests.test_torch_train import _configs, _params, _tokens
+from tests.torch_one_thread import one_thread
 
 
 def _run_steps(jo, variant="dense", accum=1, steps=3, seed=5):

@@ -22,6 +22,7 @@ from elephas_tpu.models import transformer as jtr
 from elephas_tpu_torch.models import paged_decode as tpd
 from elephas_tpu_torch.models import transformer as ttr
 from elephas_tpu_torch.weights import from_numpy_tree
+from tests.torch_one_thread import one_thread
 
 _VARIANTS = {
     "base": {},

@@ -10,12 +10,12 @@ of one per primitive), with the config static.
 """
 import jax
 import jax.numpy as jnp
-import pytest
 import torch
 
 from elephas_tpu.models import transformer as jtr
 from elephas_tpu_torch.models import transformer as ttr
 from elephas_tpu_torch.weights import to_numpy_tree
+from tests.torch_one_thread import one_thread
 
 jax_forward = jax.jit(jtr.forward, static_argnums=2)
 jax_forward_with_aux = jax.jit(jtr.forward_with_aux, static_argnums=2)
@@ -38,13 +38,3 @@ def params(tcfg, seed=0):
     """(the JAX tree, the port tree): one seeded draw, both packages."""
     tp = ttr.init_params(tcfg, torch.Generator().manual_seed(seed), "cpu")
     return jax.tree_util.tree_map(jnp.asarray, to_numpy_tree(tp)), tp
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: these ops are tiny, and under the parallel
-    test run a pool of threads per worker oversubscribes the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
