@@ -625,6 +625,47 @@ WIDE_256_BODIES = {
                   "from shared memory; a split tile's chunks write f32 "
                   "partials that flash_dkv_reduce_kernel sums in chunk "
                   "order")}
+# the cases at d 16 and 32: the edges of the narrow forward body's tiles
+# (192-row q tiles of three warpgroups of 64 rows, 128-key K/V tiles,
+# persistent pairs of q tiles past one wave of the SMs): a second q tile
+# of one row (its second and third warpgroups empty), a q tile whose third
+# warpgroup holds one row, one whose second holds one row and third none,
+# a key length one past a tile, a window edge inside a tile, a ring hop
+# whose diagonal crosses a tile, one whose first rows see no key, GQA 8/1
+# and 4/1 on ragged lengths (the 4/1 case paired, with an odd middle q
+# tile and a 9-row last one). B 8 x S 1024's 64-row last q tile is the
+# training shape's (`train`).
+NARROW_CASES = {"sq_193": (2, 16, 16, 193, 193, True, None, 0, 0),
+                "sq_129": (2, 16, 16, 129, 129, True, None, 0, 0),
+                "sq_65": (2, 16, 4, 65, 300, True, None, 235, 0),
+                "sk_129": (2, 16, 16, 200, 129, False, None, 0, 0),
+                "window_129": (2, 16, 8, 300, 300, True, 129, 0, 0),
+                "hop_crossing": (2, 16, 16, 200, 200, True, None, 256,
+                                 128),
+                "hop_first_rows_dead": (2, 16, 16, 150, 150, True, None,
+                                        100, 164),
+                "gqa8_ragged": (2, 32, 4, 391, 391, True, None, 0, 0),
+                "gqa4_ragged": (4, 16, 4, 777, 777, True, None, 0, 0)}
+# the narrow forward body at widths 16 and 32, as WIDE_BODIES names them
+NARROW_BODIES = {
+    d: (f"flash_fwd_narrow_kernelILi{d}", "flash_fwd.o",
+        "a producer warpgroup and three consumer warpgroups of 64 query "
+        "rows (512 threads, setmaxnreg), 192-row q tiles, 128-key K/V "
+        "tiles in 4-stage rings, each warpgroup walking its own run of "
+        "the live tiles, S(j) with P V(j-1) in flight, no turns; one CTA "
+        "a q tile at one wave, else persistent over pairs of q tiles")
+    for d in ("16", "32")}
+# the special-function units' exp2 rate on an H100 SXM5 (Shah et al.,
+# 2024, FlashAttention-3: 3.9 TFLOPS of special functions): one exp2 a
+# causal (q, k) pair bounds the narrow forward bodies (exp_bound_ms)
+PEAK_EXP2_PER_S = 3.9e12
+# the f32 bodies' driven shapes, head dim 16, causal: forward_d16's
+# forward (B 4 x H 4 x S 96), and speculative_example's training and
+# distillation steps (B 8 x H 4 x S 32: rows of 33 tokens)
+F32_TIMED = {"forward_d16": (4, 4, 96), "speculative_example": (8, 4, 32)}
+# the card's f32 peak on the CUDA cores (NVIDIA H100 SXM data sheet), the
+# f32 bodies' operations bound
+PEAK_F32_FLOPS = 67e12
 # the case each head dim is timed at beside the training shape: d 32 at
 # its main path's (tpu_model_lm_d32's fit), d 128 at lm_d128's fit, d 96
 # at lm_d96's, d 256 at lm_d256's; d 64's main path is the training
@@ -640,15 +681,17 @@ TIMED_HEAD_DIMS = (*HEAD_DIMS, *FILLED_TIMED)
 
 def flash_cases(extra=None):
     """(head dim, name, case) over every body's head dim, the filled
-    head dims' cases, then the d 32, d 96 and d 128 path cases;
-    ``extra`` cases join at every timed head dim."""
+    head dims' cases, the d 32, d 96 and d 128 path cases, then the
+    narrow bodies' cases at d 16 and 32; ``extra`` cases join at every
+    timed head dim."""
     cases = dict(FLASH_CASES, **(extra or {}))
     filled = dict(FILLED_CASES, **(extra or {}))
     return [*((d, n, c) for d in HEAD_DIMS for n, c in cases.items()),
             *((d, n, c) for d in FILLED_HEAD_DIMS for n, c in
               (filled if d in FILLED_TIMED else FILLED_CASES).items()),
             *((d, n, c) for d, more in PATH_CASES.items()
-              for n, c in more.items())]
+              for n, c in more.items()),
+            *((d, n, c) for d in (16, 32) for n, c in NARROW_CASES.items())]
 
 
 def bound(flops, nbytes):
@@ -750,6 +793,7 @@ def check_flash(flush):
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     errs, timed = {f"d{d}": {} for d in CHECKED_HEAD_DIMS}, {}
+    narrow = {}
     train = {"train": (*TIMED[:2], TIMED[1], TIMED[2], TIMED[2], True,
                        None, 0, 0)}
     for d, name, case in flash_cases(train):
@@ -785,6 +829,8 @@ def check_flash(flush):
         errs[f"d{d}"][name] = e
         if name in ("main", "train", *PATH_TIMED.values()):
             timed[name, d] = (q16, k16, v16, window)
+        if name in NARROW_CASES:
+            narrow[name, d] = (q16, k16, v16, qo, ko, causal, window)
         del q, k, v, o_ref, o32, o_ref16, o16
 
     def sdpa(q, k, v):
@@ -814,6 +860,10 @@ def check_flash(flush):
                "library_ms": time_ms(sdpa(q, k, v), flush=flush),
                "library_device_ms": device_ms(sdpa(q, k, v), flush),
                "bound_ms": bound_ms, "bound_by": bound_by,
+               # one exp2 a unmasked pair at the special-function rate:
+               # what bounds the narrow bodies (bound() leaves it out)
+               "exp_bound_ms": b * h * causal_pairs(s, window)
+               / PEAK_EXP2_PER_S * 1e3,
                "flops": flops, "bytes": nbytes,
                "achieved_tflops": flops / (ms * 1e-3) / 1e12,
                "device_tflops": flops / (dev_ms * 1e-3) / 1e12}
@@ -826,16 +876,18 @@ def check_flash(flush):
 
     # no atomics and no data-dependent order: two launches on the same
     # bf16 operands give the same bits (at d 128 the ping-pong turns order
-    # the warpgroups' issue, not their arithmetic)
-    for (name, d), (q, k, v, window) in timed.items():
-        (o1, l1), (o2, l2) = (flash_forward(q, k, v, causal=True,
-                                            window=window)
-                              for _ in range(2))
+    # the warpgroups' issue, not their arithmetic; at d 16 and 32 the
+    # narrow body's tile edges too)
+    repro = {**{key: (q, k, v, 0, 0, True, window)
+                for key, (q, k, v, window) in timed.items()}, **narrow}
+    for (name, d), args in repro.items():
+        (o1, l1), (o2, l2) = (flash_forward(*args) for _ in range(2))
         require(torch.equal(o1.view(torch.int16), o2.view(torch.int16))
                 and torch.equal(l1, l2),
                 f"two flash_forward launches at d {d} ({name}) give "
                 f"bit-equal outputs")
         del o1, l1, o2, l2
+    del narrow, repro
 
     q16, k16, v16, _ = timed["main", 64]
     b_m, h_m, s_m = q16.shape[:3]
@@ -878,6 +930,102 @@ def check_flash(flush):
                         "o_bf16_vs_f32_plain": 2e-2,
                         "lse_bf16_vs_f32_plain": 1e-3}})
     return results
+
+
+def check_flash_f32(flush):
+    """The f32 bodies at head dim 16 on their driven paths' shapes
+    (``F32_TIMED``): the forward at both, dQ and dK/dV at
+    speculative_example's; each against its plain version on the operands
+    timed (O within 2e-4, LSE within 1e-4, the gradients within 1e-4 of
+    max|ref|), timed as the bf16 bodies are, beside its bound (the larger
+    of its bytes at the memory rate and its operations at the f32 peak of
+    the CUDA cores) and one f32 PyTorch call: SDPA's forward, and
+    autograd's backward through SDPA (the graph kept, the forward outside
+    the timing) for dQ, dK and dV together."""
+    from elephas_tpu_torch.ops.flash_attention import (
+        flash_dkv, flash_dkv_plain, flash_dq, flash_dq_plain, flash_forward,
+        flash_forward_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    d, out = 16, {}
+
+    def bound_f32(flops, nbytes):
+        ops_ms = flops / PEAK_F32_FLOPS * 1e3
+        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        return {"bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+    def times(fn, plain):
+        return {"ms": time_ms(fn, flush=flush),
+                "device_ms": device_ms(fn, flush),
+                "plain_ms": time_ms(plain, flush=flush)}
+
+    def lib_times(lib):
+        return {"library_ms": time_ms(lib, flush=flush),
+                "library_device_ms": device_ms(lib, flush)}
+
+    for path, (b, h, s) in F32_TIMED.items():
+        q, k, v, g = (torch.randn((b, h, s, d), generator=gen, device="cuda")
+                      for _ in range(4))
+        o, lse = flash_forward(q, k, v, causal=True)
+        o_ref, l_ref = flash_forward_plain(q, k, v, causal=True)
+        err = {"o_f32": max_err(o, o_ref), "lse_f32": max_err(lse, l_ref)}
+        require(err["o_f32"] <= 2e-4 and err["lse_f32"] <= 1e-4,
+                f"flash f32 forward at {path}'s shape: errors {err}")
+        # 4*d flops a unmasked pair; q, k, v in and o out, the lse out
+        pairs = b * h * causal_pairs(s)
+        size = b * h * s * d * 4
+        rows = b * h * s * 4
+        entry = {"fwd": {
+            "shape": {"B": b, "H": h, "S": s, "D": d, "dtype": "float32"},
+            "max_abs_err": max(err.values()),
+            **bound_f32(4 * d * pairs, 4 * size + rows),
+            **times(lambda: flash_forward(q, k, v, causal=True),
+                    lambda: flash_forward_plain(q, k, v, causal=True)),
+            **lib_times(lambda: torch.nn.functional.
+                        scaled_dot_product_attention(q, k, v,
+                                                     is_causal=True))}}
+        if path == "speculative_example":
+            delta = (g * o_ref).sum(-1)
+            args = (q, k, v, g, l_ref, delta, 0, 0, True, None)
+            ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
+            o_lib = torch.nn.functional.scaled_dot_product_attention(
+                ql, kl, vl, is_causal=True)
+
+            # one call for dQ, dK and dV together, timed once
+            lib = lib_times(lambda: torch.autograd.grad(
+                o_lib, (ql, kl, vl), g, retain_graph=True))
+
+            # dQ: 3 products (S, dP, dQ), dK/dV: 4, 2*d flops a pair each;
+            # q, dO, dq or k, v, dk, dv once each, the lse and delta in
+            for part, fn, plain, flops, nbytes in (
+                    ("dq", flash_dq, flash_dq_plain, 3 * 2 * d * pairs,
+                     5 * size + 2 * rows),
+                    ("dkv", flash_dkv, flash_dkv_plain, 4 * 2 * d * pairs,
+                     6 * size + 2 * rows)):
+                got, want = fn(*args), plain(*args)
+                got = got if part == "dkv" else (got,)
+                want = want if part == "dkv" else (want,)
+                rel = max(max_err(a, w) / float(w.abs().max())
+                          for a, w in zip(got, want))
+                require(rel <= 1e-4, f"flash f32 {part} at {path}'s shape: "
+                        f"error {rel} of max|ref|")
+                entry[part] = {
+                    "shape": entry["fwd"]["shape"],
+                    "max_abs_err": max(max_err(a, w)
+                                       for a, w in zip(got, want)),
+                    **bound_f32(flops, nbytes),
+                    **times(lambda: fn(*args), lambda: plain(*args)), **lib,
+                    "library_note": "autograd's backward through f32 SDPA: "
+                                    "dQ, dK and dV together"}
+            del ql, kl, vl, o_lib
+        out[path] = entry
+        del q, k, v, g, o, lse, o_ref, l_ref
+    emit({"phase": "flash_f32_bodies", "head_dim": d, **out,
+          "tolerance": {"o_f32": 2e-4, "lse_f32": 1e-4,
+                        "grad_f32_relative_to_max_ref": 1e-4},
+          "peak_f32_flops": PEAK_F32_FLOPS})
+    return out
 
 
 def device_kernels(fn):
@@ -4579,11 +4727,23 @@ def main() -> int:
               and "0 bytes spill stores, 0 bytes spill loads" not in ln]
     wide = wide_body_registers(report, WIDE_BODIES)
     wide256 = wide_body_registers(report, WIDE_256_BODIES)
+    narrow = wide_body_registers(report, NARROW_BODIES)
     split_regs = paged_split_registers(report)
+    # a product in flight where two paths meet: ptxas serializes every
+    # wgmma of the kernel (C7515), as a trap in a consumer does (C7512)
+    serialized = [ln for ln in report.splitlines()
+                  if "C7515" in ln or "C7512" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": resources, "d128_bodies": wide, "d256_bodies": wide256,
-          "paged_split_bodies": split_regs})
+          "narrow_bodies": narrow, "paged_split_bodies": split_regs,
+          "serialized_wgmma": serialized})
     require(not spills, f"no kernel spills registers: {spills}")
+    require(not any("narrow" in ln for ln in serialized),
+            f"the narrow bodies' wgmma is not serialized: {serialized}")
+    require(all(r == {"launch": 128, "producer": 24, "consumers": 160}
+                for r in narrow.values()),
+            f"the narrow bodies launch at 128 registers, the producer drops "
+            f"to 24 and the consumers rise to 160: {narrow}")
     require(sorted(split_regs) == sorted(
         f"W{w}_G{g}" for w in (16, 32, 64, 128, 256) for g in (1, 2, 4, 8))
             and all(r <= (255 if k.endswith("_G8") else 128)
@@ -4601,6 +4761,7 @@ def main() -> int:
     paged = timed("paged_kernel", check_paged, flush)
     flash = timed("flash_kernel", check_flash, flush)
     bwd = timed("flash_bwd_kernels", check_flash_bwd, flush)
+    f32 = timed("flash_f32_bodies", check_flash_f32, flush)
     del flush
 
     cfg = TransformerConfig(**FLAGSHIP)
@@ -4754,7 +4915,8 @@ def main() -> int:
                                 for c in d256.values())}
         entry["by_head_dim"] = {
             d: {**{k: t[k] for k in (*keys, "shape", "body",
-                                      "library_kernel") if k in t},
+                                      "library_kernel", "exp_bound_ms")
+                   if k in t},
                 **({"launches": launches[d]} if d in launches
                    else {"launches": None, "driven_path": None}),
                 **({"split_launches": split[d],
@@ -4762,13 +4924,26 @@ def main() -> int:
                    if name == "paged_decode" and d in launches else {}),
                 **({"at_training_shape": {
                     k: t["at_training_shape"][k]
-                    for k in (*keys, "shape")
+                    for k in (*keys, "shape", "exp_bound_ms")
                     if k in t["at_training_shape"]}}
                    if "at_training_shape" in t else {})}
             for d, t in results["by_head_dim"].items()}
         if name in WIDE_BODIES:
             entry["by_head_dim"]["128"].update(
                 body=WIDE_BODIES[name][2], registers=wide[name])
+        if name == "flash_fwd":
+            for d, (_, _, body) in NARROW_BODIES.items():
+                entry["by_head_dim"][d].update(body=body,
+                                               registers=narrow[d])
+        # the f32 bodies at d 16 on the shapes of the paths that run them
+        f32_paths = {"forward_d16": d16_counts,
+                     "speculative_example": spex_counts}
+        if name != "paged_decode":
+            part = {"flash_fwd": "fwd", "flash_dq": "dq",
+                    "flash_dkv": "dkv"}[name]
+            entry["by_head_dim"]["16"]["f32_body"] = {
+                p: {**f32[p][part], "launches": f32_paths[p][name]}
+                for p in F32_TIMED if part in f32[p]}
         if name in WIDE_256_BODIES:
             require(launches["256"] > 0,
                     f"{name} launched its d 256 body on lm_d256")

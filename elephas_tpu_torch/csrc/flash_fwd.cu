@@ -23,25 +23,55 @@
 // and fills the tile's columns d .. W - 1 with zeros, the products run
 // at W unchanged (zero columns add nothing to S and give zero columns
 // of O), and the store writes O's first d columns; the f32 body loads
-// zeros past d and stores none of them. Two bodies:
+// zeros past d and stores none of them. The bodies:
 //
-// - bf16 (the working type) at widths 16, 32 and 64: one CTA per
-//   (batch*head, 128-row q tile), CTAs of the last q tiles (the most
-//   live tiles under causal masking) scheduled first. One producer warp
-//   issues TMA loads: Q once, then the live 128-row K and V tiles into a
-//   4-stage ring of shared memory guarded by full/empty mbarriers; TMA
-//   zero-fills rows past each head's length. A tile row is the body's
-//   2*W bytes in the swizzle of that width (128, 64 or 32 bytes,
-//   hopper.cuh `Rows`), so a smaller body shrinks the tiles and the
-//   products and nothing else. Two consumer warpgroups of 64 query rows
-//   compute S = Q K^T with wgmma m64n128k16 (D/16 k steps) from shared
-//   memory, run the online softmax on the wgmma accumulator in
-//   registers (each row on the 4 threads of a quad; one FMA and exp2 per
-//   score; the per-element mask only on tiles that hold a masked pair),
-//   pack P to bf16 in registers (the TPU kernel's `p.astype(v.dtype)`)
-//   and feed it as the register A operand of O += P V (m64nDk16, V
-//   MN-major). O stays in registers across the loop, and leaves through
-//   a swizzled shared tile in 16-byte stores.
+// - bf16 (the working type) at width 64 (`flash_fwd_wgmma_kernel`): one
+//   CTA per (batch*head, 128-row q tile), CTAs of the last q tiles (the
+//   most live tiles under causal masking) scheduled first. One producer
+//   warp issues TMA loads: Q once, then the live 128-row K and V tiles
+//   into a 4-stage ring of shared memory guarded by full/empty
+//   mbarriers; TMA zero-fills rows past each head's length. A tile row
+//   is the body's 2*W bytes in the swizzle of that width (128, 64 or 32
+//   bytes at W 64, 32, 16: hopper.cuh `Rows`). Two consumer warpgroups
+//   of 64 query rows compute S = Q K^T with wgmma m64n128k16 (D/16 k
+//   steps) from shared memory, run the online softmax on the wgmma
+//   accumulator in registers (each row on the 4 threads of a quad; one
+//   FMA and exp2 per score; the per-element mask only on tiles that hold
+//   a masked pair), pack P to bf16 in registers (the TPU kernel's
+//   `p.astype(v.dtype)`) and feed it as the register A operand of O +=
+//   P V (m64nDk16, V MN-major). O stays in registers across the loop,
+//   and leaves through a swizzled shared tile in 16-byte stores.
+// - bf16 at widths 16 and 32 (`flash_fwd_narrow_kernel`): the same tiles,
+//   products, softmax and store, shaped for what bounds these widths, the
+//   softmax. Its exp2 runs on the special-function units, about 3.9 T a
+//   second on an H100 SXM5 (Shah et al., 2024, FlashAttention-3): the 67.2 M
+//   causal (q, k) pairs of B 8 x H 16 x S 1024 take 0.017 ms there, where
+//   the bytes and the tensor cores' operations take 0.0102 ms at d 32 and
+//   0.0052 at d 16. So the CTA is 16 warps, a producer warpgroup at 24
+//   registers and three consumer warpgroups at 160 (`setmaxnreg`; 512
+//   threads launch at 128): three consumer warps a scheduler, where the
+//   width-64 body has two, to hide the softmax's dependent latencies. A q
+//   tile is 192 rows, 64 a warpgroup; K and V (128-key tiles, 4-8 KB) sit in
+//   4-stage rings with full and empty barriers of their own, Q in a ring of
+//   two. Each warpgroup walks its own run of the q tile's live K/V tiles (it
+//   releases the tiles its rows do not meet once they land, so a warpgroup
+//   of rows past the length does no products) and issues tile j's S with
+//   tile j-1's P V, running j's softmax (4 max and sum chains a row, the
+//   scale folded into the exp2's FMA, the two-compare mask only on tiles
+//   that hold a masked pair) while P V is in flight. Every product is issued
+//   unconditionally (one in flight where two paths meet makes ptxas
+//   serialize every wgmma, C7515). The warpgroups run free: turns on named
+//   barriers, as at width 128, would alternate the softmaxes, and at these
+//   widths the softmax is the bound (a build with turns ran 15% slower at B
+//   8: PERF.md). The schedule goes by shape, as at width 256: where the q
+//   tiles fill at most one wave of the SMs (`tpu_model_lm_d32`'s B 16 x H 8
+//   x S 128: 128), one CTA a q tile, heaviest first; where they fill more (B
+//   8 x H 16 x S 1024: 768), persistent, one CTA an SM over pairs of q
+//   tiles, the t-th heaviest with the t-th lightest, a ragged last tile (S
+//   1024 leaves 64 rows) ranked by its rows x live tiles
+//   (`narrow_ragged_rank`). Every head's K and V fit in L2 at these widths
+//   (16.8 MB at d 32, B 8), so heads are not grouped. A q tile's O leaves
+//   through a staging tile while the next tile's first S runs.
 // - bf16 at width 128 (`flash_fwd_pingpong_kernel`): the same tiles,
 //   products, softmax and store, each 256-byte row two 64-column blocks
 //   of the 128-byte swizzle (P V one m64n64k16 per block). What bounds
@@ -110,9 +140,9 @@
 // operand row is read once per tile, so at head_dim 64 and 128 the loop
 // is bound by operations (989 TFLOP/s in bf16). At 32 and 16 the products
 // shrink with D while the softmax's FMA and exp2 per score do not, so
-// the CUDA cores and MUFU take a larger share of each tile. Below D 128,
-// within one consumer warpgroup the two products and the softmax run in
-// sequence, and the second warpgroup and the ring's prefetch are what
+// the special-function units bound them (the narrow body, above). At D
+// 64, within one consumer warpgroup the two products and the softmax run
+// in sequence, and the second warpgroup and the ring's prefetch are what
 // overlap them; at D 128 the turns and the in-flight P V do. At D 128
 // and S 1024 a head's work is small (36 (q tile, K/V tile) steps under
 // causal masking): K and V read again from HBM by each of a head's 8 q
@@ -305,10 +335,9 @@ template <int D>
 struct WgmmaLayout {
   static constexpr int WK = 128;  // key rows per K/V tile
   // Q, the K ring, the V ring, then the barriers: qfull, kfull[STAGES],
-  // vfull[STAGES], empty[STAGES]; +1024 for alignment. 144 KB at D 64
-  // (16 KB tiles), 73 KB at D 32, 37 KB at D 16: the stage count stays,
-  // since the ring's depth hides a load's latency, not its size. (D 128
-  // has a body of its own, `PingPong` below.)
+  // vfull[STAGES], empty[STAGES]; +1024 for alignment: 144 KB at D 64
+  // (16 KB tiles). (The other widths have bodies of their own: `Narrow`
+  // and `PingPong` below.)
   static constexpr uint32_t row = Rows<D>::bytes;   // bytes of a whole row
   static constexpr uint32_t atom = Rows<D>::atom;   // ... in one block
   static constexpr uint32_t tile = WK * row;  // one K or V tile
@@ -507,7 +536,8 @@ __global__ void __launch_bounds__(WTHREADS, 1)
                            int BH, int H, int KVH, int Sq, int Sk, int hd,
                            int q_offset, int k_offset, int causal,
                            int window, float scale_log2) {
-  static_assert(D < 128, "width 128 runs flash_fwd_pingpong_kernel");
+  static_assert(D == 64, "widths 16 and 32 run flash_fwd_narrow_kernel, "
+                         "128 flash_fwd_pingpong_kernel");
   using L = WgmmaLayout<D>;
   constexpr uint32_t TILE = L::tile;
   constexpr int WK = L::WK;
@@ -671,11 +701,33 @@ struct FwdItem {
 // each pair. An odd middle tile has no partner (q0 = -1). (With `group`
 // every head and `per` nqt times the heads, half 0 alone walks the q
 // tiles one an item, heaviest first: the 256 body's one-wave schedule.)
-// The live K/V tiles (those rows_meet admits) are one run: the causal
+// The live K/V tiles of query rows q0 .. q_last (those rows_meet admits,
+// WK keys a tile) are one run, kj0 .. kj0 + n - 1; returns n. The causal
 // rule drops tiles from the end, the window's from the start, and below
 // the ragged last tile the window's test on a tile's last key is (kj +
 // 1) * WK - 1 > b. In closed form and unsigned where it divides: the
-// loaders run this in 24 registers.
+// loaders run this in 24 registers. (Host code uses it too.)
+template <int WK>
+__host__ __device__ __forceinline__ int live_tiles(int q0, int q_last,
+                                                   int Sk, int q_offset,
+                                                   int k_offset, int causal,
+                                                   int window, int& kj0) {
+  const int nk = (Sk + WK - 1) / WK;
+  int hi = nk - 1, lo = 0;
+  if (causal) {
+    const int a = q_offset + q_last - k_offset;  // the last key allowed
+    const int t = a < 0 ? -1 : (int)((unsigned)a / WK);
+    hi = t < hi ? t : hi;
+  }
+  if (window > 0) {
+    const int b = q_offset + q0 - window - k_offset;  // keys <= b out
+    lo = b + 1 <= 0 ? 0 : (int)((unsigned)(b + 1) / WK);
+    if (Sk - 1 <= b && nk - 2 < hi) hi = nk - 2;
+  }
+  kj0 = lo;
+  return hi - lo + 1 > 0 ? hi - lo + 1 : 0;
+}
+
 template <int WK>
 __device__ __forceinline__ FwdItem fwd_item(int w, int half, int per,
                                             int BH, int grp, int group,
@@ -693,19 +745,9 @@ __device__ __forceinline__ FwdItem fwd_item(int w, int half, int per,
   const int t = half ? nqt - 1 - (int)p : (int)p;
   x.q0 = half && t == (int)p ? -1 : (nqt - 1 - t) * WQ;
   const int q_last = min(x.q0 + WQ, Sq) - 1;
-  const int nk = (Sk + WK - 1) / WK;
-  int hi = nk - 1, lo = 0;
-  if (causal) {
-    const int a = q_offset + q_last - k_offset;  // the last key allowed
-    hi = a < 0 ? -1 : min(hi, (int)((unsigned)a / WK));
-  }
-  if (window > 0) {
-    const int b = q_offset + x.q0 - window - k_offset;  // keys <= b out
-    lo = b + 1 <= 0 ? 0 : (int)((unsigned)(b + 1) / WK);
-    if (Sk - 1 <= b) hi = min(hi, nk - 2);
-  }
-  x.kj0 = lo;
-  x.n = x.q0 < 0 ? 0 : max(0, hi - lo + 1);
+  const int n = live_tiles<WK>(x.q0, q_last, Sk, q_offset, k_offset, causal,
+                               window, x.kj0);
+  x.n = x.q0 < 0 ? 0 : n;
   return x;
 }
 
@@ -1273,6 +1315,360 @@ __global__ void __launch_bounds__(kWideThreads, 1)
   }
 }
 
+// ------------------------------------------- bf16 at widths 16 and 32
+struct Narrow {
+  static constexpr int WG = 3;          // consumer warpgroups
+  static constexpr int QT = 64 * WG;    // query rows of a q tile: 192
+  static constexpr int WK = 128;        // key rows per K/V tile
+  static constexpr int STAGES = 4;      // K/V tiles in flight
+  static constexpr int QSTAGES = 2;     // Q tiles: this q tile's and the next
+  static constexpr int CHAINS = 4;      // the softmax's max and sum chains
+  static constexpr int THREADS = 128 * (WG + 1);  // and a producer warpgroup
+  // 512 threads launch at 128 registers each; the producer warpgroup
+  // drops to 24 and the three consumer warpgroups rise to 160
+  static constexpr uint32_t kProducerRegs = 24, kConsumerRegs = 160;
+  static_assert(128 * kProducerRegs + 128 * WG * kConsumerRegs <=
+                    65536,
+                "the consumers ask for no more than the producer frees");
+};
+
+// The Q ring (192-row tiles), O's staging tile (192 rows), the K ring,
+// the V ring (128-row tiles), then the barriers: qfull[QSTAGES],
+// qempty[QSTAGES], kfull[STAGES], vfull[STAGES], kempty[STAGES],
+// vempty[STAGES], done; +1024 for alignment: 101 KB at W 32, 51 KB at 16.
+template <int D>
+struct NarrowLayout : Narrow {
+  static constexpr uint32_t row = Rows<D>::bytes, atom = Rows<D>::atom;
+  static constexpr uint32_t tile = WK * row, qtile = QT * row;
+  static constexpr uint32_t q = 0, o = QSTAGES * qtile, k = o + qtile,
+                            v = k + STAGES * tile, bars = v + STAGES * tile;
+  static constexpr uint32_t qfull = bars, qempty = bars + 8 * QSTAGES,
+                            kfull = qempty + 8 * QSTAGES,
+                            vfull = kfull + 8 * STAGES,
+                            kempty = vfull + 8 * STAGES,
+                            vempty = kempty + 8 * STAGES,
+                            done = vempty + 8 * STAGES;
+  static constexpr size_t bytes = done + 8 + 1024;
+};
+
+// Half `half` of work item w of the narrow body: a 192-row q tile of head
+// bh = w % BH, or none (q0 = -1). A head's q tiles go by rank, heaviest
+// first: the full tiles from the last (under causal masking the later
+// rows meet more K/V tiles), and a ragged last tile, whose fewer rows
+// make it lighter, at rank `ragged` (narrow_ragged_rank). With `halves`
+// 2 item w pairs rank p = w / BH with rank nqt - 1 - p, so items hold
+// about equal work and dealt round-robin to the CTAs balance (an odd
+// middle tile has no partner); with `halves` 1 an item is the q tile of
+// rank p, heaviest first.
+__device__ __forceinline__ FwdItem narrow_item(int w, int half, int BH,
+                                               int grp, int Sq, int Sk,
+                                               int q_offset, int k_offset,
+                                               int causal, int window,
+                                               int ragged) {
+  constexpr int QT = Narrow::QT;
+  const int nqt = (Sq + QT - 1) / QT;
+  const unsigned p = (unsigned)w / (unsigned)BH;
+  FwdItem x;
+  x.bh = w - (int)p * BH;
+  x.kv_row = (unsigned)x.bh / (unsigned)grp;
+  const int rank = half ? nqt - 1 - (int)p : (int)p;
+  const int t = rank == ragged ? nqt - 1
+                : rank < ragged ? nqt - 2 - rank
+                                : nqt - 1 - rank;
+  x.q0 = half && rank == (int)p ? -1 : t * QT;
+  const int n = live_tiles<Narrow::WK>(x.q0, min(x.q0 + QT, Sq) - 1, Sk,
+                                       q_offset, k_offset, causal, window,
+                                       x.kj0);
+  x.n = x.q0 < 0 ? 0 : n;
+  return x;
+}
+
+// The rank of a head's ragged last q tile (fewer than 192 rows) among
+// its q tiles, heaviest first: the number of full tiles whose rows x
+// live K/V tiles outweigh its own (0 where every tile is full).
+inline int narrow_ragged_rank(int Sq, int Sk, int q_offset, int k_offset,
+                              int causal, int window) {
+  constexpr int QT = Narrow::QT, WK = Narrow::WK;
+  const int nqt = (Sq + QT - 1) / QT, last = (nqt - 1) * QT;
+  if (Sq - last == QT) return 0;
+  int kj0, rank = 0;
+  const long long weight =
+      (long long)(Sq - last) * live_tiles<WK>(last, Sq - 1, Sk, q_offset,
+                                              k_offset, causal, window, kj0);
+  for (int t = 0; t < nqt - 1; ++t)
+    rank += (long long)QT * live_tiles<WK>(t * QT, t * QT + QT - 1, Sk,
+                                           q_offset, k_offset, causal,
+                                           window, kj0) > weight;
+  return rank;
+}
+
+// The bf16 body at widths 16 and 32 (see the note at the top): a
+// producer warpgroup and three consumer warpgroups of 64 query rows,
+// each walking its own run of the q tile's live K/V tiles, S(j) issued
+// with P V(j-1) in flight; one CTA a q tile (`halves` 1) or persistent
+// over pairs of q tiles (`halves` 2), `items` work items as narrow_item
+// deals them.
+template <int D>
+__global__ void __launch_bounds__(Narrow::THREADS, 1)
+    flash_fwd_narrow_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            bf16* __restrict__ o, float* __restrict__ lse,
+                            int BH, int grp, int Sq, int Sk, int hd,
+                            int q_offset, int k_offset, int causal,
+                            int window, float scale_log2, int items,
+                            int halves, int ragged) {
+  static_assert(D == 16 || D == 32, "the narrow body is 16 or 32 wide");
+  using L = NarrowLayout<D>;
+  constexpr int WK = L::WK, STAGES = L::STAGES, QS = L::QSTAGES,
+                WG = L::WG;
+  constexpr uint32_t TILE = L::tile;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  uint8_t* Qs = sm + L::q;
+  uint8_t* Os = sm + L::o;
+  uint8_t* Ks = sm + L::k;
+  uint8_t* Vs = sm + L::v;
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(sm + L::qfull);
+  uint64_t* qempty = reinterpret_cast<uint64_t*>(sm + L::qempty);
+  uint64_t* kfull = reinterpret_cast<uint64_t*>(sm + L::kfull);
+  uint64_t* vfull = reinterpret_cast<uint64_t*>(sm + L::vfull);
+  uint64_t* kempty = reinterpret_cast<uint64_t*>(sm + L::kempty);
+  uint64_t* vempty = reinterpret_cast<uint64_t*>(sm + L::vempty);
+  uint64_t* done = reinterpret_cast<uint64_t*>(sm + L::done);
+
+  if (threadIdx.x == 0) {
+    // lane 0 of each consumer warp arrives at the empty barriers
+    for (int s = 0; s < QS; ++s) {
+      mbar_init(&qfull[s], 1);
+      mbar_init(&qempty[s], 4 * WG);
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&kfull[s], 1);
+      mbar_init(&vfull[s], 1);
+      mbar_init(&kempty[s], 4 * WG);
+      mbar_init(&vempty[s], 4 * WG);
+    }
+    mbar_init(done, 4 * WG);  // each consumer warp, at its end
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int warp = warp_index(), lane = threadIdx.x % 32;
+  if (warp >= 4 * WG) {
+    // ---- producer warpgroup, as at width 128: every warp gives its
+    // registers back first; its second warp is the CTA's watchdog; lane
+    // 0 of the others loads Q (each q tile with a live K/V tile into its
+    // slot once every consumer's last S of the tile before in that slot
+    // is done), K and V (the live tiles into their own rings), each
+    // walking the items on its own
+    setmaxnreg_dec<L::kProducerRegs>();
+    const uint32_t b = smem_u32(sm);
+    const int role = warp - 4 * WG;
+    if (role == 1) {
+      cta_watchdog(done);
+    } else if (role == 0) {
+      if (lane == 0) {
+        int r = 0;
+        for (int w = blockIdx.x; w < items; w += gridDim.x) {
+          for (int half = 0; half < halves; ++half) {
+            const FwdItem x = narrow_item(w, half, BH, grp, Sq, Sk,
+                                          q_offset, k_offset, causal,
+                                          window, ragged);
+            if (x.n == 0) continue;
+            const uint32_t s = r % QS;
+            mbar_wait_spin(b + L::qempty + 8 * s, ((r / QS) & 1) ^ 1);
+            mbar_expect_tx(b + L::qfull + 8 * s, L::qtile);
+            tma_load_tile<D, L::QT>(b + L::q + s * L::qtile, &tq,
+                                    b + L::qfull + 8 * s, x.q0, x.bh);
+            ++r;
+          }
+        }
+      }
+    } else if (lane == 0) {
+      auto load_ring = [&](const CUtensorMap* map, uint32_t tiles,
+                           uint32_t full, uint32_t empty) {
+        int r = 0;
+        for (int w = blockIdx.x; w < items; w += gridDim.x) {
+          for (int half = 0; half < halves; ++half) {
+            const FwdItem x = narrow_item(w, half, BH, grp, Sq, Sk,
+                                          q_offset, k_offset, causal,
+                                          window, ragged);
+            for (int j = 0; j < x.n; ++j, ++r) {
+              const uint32_t s = r % STAGES;
+              mbar_wait_spin(empty + 8 * s, ((r / STAGES) & 1) ^ 1);
+              mbar_expect_tx(full + 8 * s, TILE);
+              tma_load_tile<D, WK>(tiles + s * TILE, map, full + 8 * s,
+                                   (x.kj0 + j) * WK, x.kv_row);
+            }
+          }
+        }
+      };
+      if (role == 2)
+        load_ring(&tk, b + L::k, b + L::kfull, b + L::kempty);
+      else
+        load_ring(&tv, b + L::v, b + L::vfull, b + L::vempty);
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns query rows wq0 .. wq0 + 63 of
+    // each q tile
+    setmaxnreg_inc<L::kConsumerRegs>();
+    const int wg = warp / 4;
+    uint8_t* Ow = Os + wg * 64 * L::atom;  // its rows of the staging tile
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    // ring tile t, which this warpgroup's rows do not meet: released
+    // once it has landed (an arrival before would count toward the
+    // slot's last use)
+    auto pass = [&](int t) {
+      const int s = t % STAGES;
+      const uint32_t ph = (t / STAGES) & 1;
+      mbar_wait_spin(&kfull[s], ph);
+      release(&kempty[s]);
+      mbar_wait_spin(&vfull[s], ph);
+      release(&vempty[s]);
+    };
+    int r = 0, qi = 0;
+    // A q tile's O waits in registers for its store until the next
+    // tile's first S is in flight (`pend`: its head, rows, max and sums)
+    float oacc[D / 2], pm[2], psum[2];
+    bool pend = false;
+    int pbh = 0, pwq0 = 0, pqrow = 0;
+    auto store_pending = [&]() {
+      if (!pend) return;
+      // the staging rows are free once the last store's reads are done
+      wg_barrier(1 + wg);
+      store_rows<D>(oacc, pm, psum, Ow, o, lse, pbh, pwq0, pqrow, Sq, hd,
+                    wg);
+      pend = false;
+    };
+    for (int w = blockIdx.x; w < items; w += gridDim.x) {
+      for (int half = 0; half < halves; ++half) {
+        const FwdItem x = narrow_item(w, half, BH, grp, Sq, Sk, q_offset,
+                                      k_offset, causal, window, ragged);
+        if (x.q0 < 0) continue;
+        const int wq0 = x.q0 + 64 * wg;
+        const int qrow = wq0 + 16 * (warp % 4) + lane / 4;  // and qrow + 8
+        float m[2] = {-INFINITY, -INFINITY}, lsum[2] = {0.f, 0.f};
+        if (x.n > 0) {
+          const int qs = qi % QS;  // the q tile's Q slot
+          const uint64_t qdesc =
+              desc_sw<D>(Qs + qs * L::qtile + wg * 64 * L::atom);
+          mbar_wait_spin(&qfull[qs], (qi / QS) & 1);
+          ++qi;
+          // this warpgroup's run of the q tile's live tiles, tiles a ..
+          // a + n - 1 of them; a warpgroup whose rows lie past Sq meets
+          // none
+          int kj0 = x.kj0;
+          const int n =
+              wq0 < Sq ? live_tiles<WK>(wq0, min(wq0 + 64, Sq) - 1, Sk,
+                                        q_offset, k_offset, causal, window,
+                                        kj0)
+                       : 0;
+          const int a = n > 0 ? kj0 - x.kj0 : 0;
+          for (int j = 0; j < a; ++j) pass(r + j);
+          if (n > 0) {
+            const int r0 = r + a;
+            uint32_t pa[WK / 16][4];
+            float corr[2];
+            {
+              // its first tile: S alone, the last q tile's store under it
+              const int s = r0 % STAGES, k0 = (x.kj0 + a) * WK;
+              float sacc[WK / 2];
+              mbar_wait_spin(&kfull[s], (r0 / STAGES) & 1);
+              wgmma_fence();
+              issue_scores<D, WK>(sacc, qdesc, Ks + s * TILE);
+              wgmma_commit();
+              store_pending();
+#pragma unroll
+              for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+              wgmma_wait<0>();
+              fence_operands(sacc);
+              release(&kempty[s]);
+              if (n == 1) release(&qempty[qs]);  // its last S of the tile
+              if (tile_masked<WK>(wq0, k0, Sk, q_offset, k_offset, causal,
+                                  window))
+                mask_rows(sacc, qrow, k0, Sk, q_offset, k_offset, causal,
+                          window);
+              online_softmax<WK / 2, L::CHAINS>(sacc, m, lsum, corr,
+                                                scale_log2);  // O is 0 yet
+#pragma unroll
+              for (int kk = 0; kk < WK / 16; ++kk) pack_a(sacc, kk, pa[kk]);
+            }
+            for (int j = 1; j < n; ++j) {
+              // S of tile j and P V of tile j - 1 issued together; the
+              // softmax of j runs while P V is still in flight
+              const int t = r0 + j, s = t % STAGES, sp = (t - 1) % STAGES;
+              const int k0 = (x.kj0 + a + j) * WK;
+              float sacc[WK / 2];
+              mbar_wait_spin(&kfull[s], (t / STAGES) & 1);
+              mbar_wait_spin(&vfull[sp], ((t - 1) / STAGES) & 1);
+              wgmma_fence();
+              issue_scores<D, WK>(sacc, qdesc, Ks + s * TILE);
+              wgmma_commit();
+              issue_values<D, WK>(oacc, pa, Vs + sp * TILE);
+              wgmma_commit();
+              wgmma_wait<1>();
+              fence_operands(sacc);
+              release(&kempty[s]);
+              if (j == n - 1) release(&qempty[qs]);
+              if (tile_masked<WK>(wq0, k0, Sk, q_offset, k_offset, causal,
+                                  window))
+                mask_rows(sacc, qrow, k0, Sk, q_offset, k_offset, causal,
+                          window);
+              online_softmax<WK / 2, L::CHAINS>(sacc, m, lsum, corr,
+                                                scale_log2);
+              wgmma_wait<0>();
+              fence_operands(oacc);
+              fence_operands(pa);
+              release(&vempty[sp]);
+#pragma unroll
+              for (int i = 0; i < D / 2; ++i) oacc[i] *= corr[(i / 2) % 2];
+#pragma unroll
+              for (int kk = 0; kk < WK / 16; ++kk) pack_a(sacc, kk, pa[kk]);
+            }
+            // its last tile's P V
+            const int t = r0 + n - 1, sp = t % STAGES;
+            mbar_wait_spin(&vfull[sp], (t / STAGES) & 1);
+            wgmma_fence();
+            issue_values<D, WK>(oacc, pa, Vs + sp * TILE);
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_operands(oacc);
+            release(&vempty[sp]);
+          } else {
+            // its rows meet no tile: O = 0
+            release(&qempty[qs]);
+            store_pending();
+#pragma unroll
+            for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+          }
+          for (int j = a + n; j < x.n; ++j) pass(r + j);
+          r += x.n;
+        } else {
+          // no live tile: O = 0
+          store_pending();
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+        }
+        pend = true;
+        pbh = x.bh;
+        pwq0 = wq0;
+        pqrow = qrow;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          pm[i] = m[i];
+          psum[i] = lsum[i];
+        }
+      }
+    }
+    store_pending();
+    release(done);
+  }
+}
+
 template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* o, float* lse, int B, int H, int KVH, int Sq,
@@ -1284,11 +1680,13 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   const void* vp = Sk > 0 ? v : q;
   const int krows = Sk > 0 ? Sk : Sq, kslabs = Sk > 0 ? B * KVH : B * H;
   CUtensorMap tq, tk, tv;
-  // the Q tile: a warpgroup's 64 rows at width 256, else 128; the K/V
-  // tile: 64 rows at width 256, else 128
-  constexpr int QR = D == 256 ? Wide256::QR : WQ;
+  // the Q tile: a warpgroup's 64 rows at width 256, three warpgroups' 192
+  // at 16 and 32, else 128; the K/V tile: 64 rows at width 256, else 128
+  constexpr int QR = D == 256 ? Wide256::QR : D <= 32 ? Narrow::QT : WQ;
   constexpr int WK = D == 256 ? Wide256::WK : 128;
-  static_assert(WgmmaLayout<16>::WK == 128 && PingPong::WK == 128, "tiles");
+  static_assert(WgmmaLayout<64>::WK == 128 && PingPong::WK == 128 &&
+                    Narrow::WK == 128,
+                "tiles");
   cudaError_t err = encode_rows_map<D>(&tq, q, hd, Sq, B * H, QR);
   if (err == cudaSuccess)
     err = encode_rows_map<D>(&tk, kp, hd, krows, kslabs, WK);
@@ -1334,6 +1732,26 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
         tq, tk, tv, static_cast<bf16*>(o), lse, B * H, H / KVH, Sq, Sk, hd,
         q_offset, k_offset, causal, window, scale * kLog2e, group,
         group * pairs, items);
+  } else if constexpr (D <= 32) {
+    constexpr size_t smem = NarrowLayout<D>::bytes;
+    auto kernel = flash_fwd_narrow_kernel<D>;
+    err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    int sms = 0;
+    err = multiprocessors(&sms);
+    if (err != cudaSuccess) return err;
+    // The schedule by shape, as at width 256: where the 192-row q tiles
+    // fill at most one wave, one a CTA, heaviest first; else persistent,
+    // one CTA an SM over pairs of q tiles (every head's K and V fit in L2
+    // at these widths: no groups of heads)
+    const int nqt = (Sq + Narrow::QT - 1) / Narrow::QT;
+    const bool paired = nqt * B * H > sms;
+    const int items = (paired ? (nqt + 1) / 2 : nqt) * B * H;
+    kernel<<<min(items, sms), Narrow::THREADS, smem, stream>>>(
+        tq, tk, tv, static_cast<bf16*>(o), lse, B * H, H / KVH, Sq, Sk, hd,
+        q_offset, k_offset, causal, window, scale * kLog2e, items,
+        paired ? 2 : 1,
+        narrow_ragged_rank(Sq, Sk, q_offset, k_offset, causal, window));
   } else {
     constexpr size_t smem = WgmmaLayout<D>::bytes;
     err = allow_smem(flash_fwd_wgmma_kernel<D>, smem);

@@ -10,7 +10,10 @@ The flash kernels are held at head dim 64 over every case and at head
 dims 16 and 32 (the repo's other configurations) and 128 (most published
 LMs) over the GQA, window, ragged and offset cases, and at 128 over the
 edges of its 128-key tiles and dQ's 64-key tiles and ping-pong turns
-(and dQ at 96 on them); at 256 (Gemma-2B's) over the same cases and
+(and dQ at 96 on them); the forward at 16 and 32 over the edges of its
+narrow body (192-row q tiles of three 64-row warpgroups, 128-key
+tiles, pairs of q tiles past one wave of the SMs); at 256 (Gemma-2B's)
+over the same cases and
 the edges of its 64-key tiles and of dQ's two bodies (64-row q tiles
 at one wave of the SMs, 32-key tiles past it); at head dims 8, 24,
 40, 72, 80, 96, 120, 136, 192 and 248, which run a wider body on
@@ -424,6 +427,84 @@ def test_flash_fwd_kernel_is_bit_reproducible_at_head_dim_128(cuda, case):
     the same bits (the ping-pong turns order issue, not arithmetic)."""
     from elephas_tpu_torch.ops.flash_attention import flash_forward
     args = _d128_forward_inputs(case, torch.bfloat16, cuda)
+    (o1, l1), (o2, l2) = flash_forward(*args), flash_forward(*args)
+    assert torch.equal(o1.view(torch.int16), o2.view(torch.int16))
+    assert torch.equal(l1, l2)
+
+
+# the edges of the narrow forward body's tiles (head dims 8-32: 192-row
+# q tiles of three warpgroups of 64 rows, 128-key K/V tiles, each
+# warpgroup walking its own run of the live tiles, persistent pairs of q
+# tiles past one wave of the SMs): a second q tile of one row, a q tile
+# whose third warpgroup holds one row, one whose second holds one row and
+# third none, a key length one past a tile, a window edge inside a tile,
+# ring hops whose diagonal crosses a tile and whose first rows see no
+# key, GQA 8/1 and 4/1 on ragged lengths, non-causal ragged lengths; then
+# past one wave (more than 132 q tiles): pairs of q tiles with a ragged
+# last tile under GQA 4/1, an odd middle tile under a window
+_NARROW_EDGE_CASES = {
+    # (B, H, KVH, Sq, Sk, causal, window, q_offset, k_offset)
+    "sq_193": (2, 4, 4, 193, 193, True, None, 0, 0),
+    "sq_129": (1, 4, 4, 129, 129, True, None, 0, 0),
+    "sq_65": (2, 4, 4, 65, 300, True, None, 235, 0),
+    "sk_129": (1, 4, 2, 200, 129, False, None, 0, 0),
+    "window_129": (1, 4, 2, 300, 300, True, 129, 0, 0),
+    "hop_crossing": (1, 4, 4, 200, 200, True, None, 256, 128),
+    "hop_first_rows_dead": (1, 4, 4, 150, 150, True, None, 100, 164),
+    "gqa8_ragged": (1, 8, 1, 391, 391, True, None, 0, 0),
+    "gqa4_ragged": (2, 4, 1, 200, 200, True, None, 0, 0),
+    "noncausal_ragged": (1, 4, 4, 500, 333, False, None, 0, 0),
+    "paired_gqa4_ragged": (4, 16, 4, 1000, 1000, True, None, 0, 0),
+    "paired_window": (4, 16, 16, 500, 500, True, 129, 0, 0),
+}
+
+
+def _narrow_forward_inputs(case, dtype, device, d, seed=8):
+    b, h, kvh, sq, sk, causal, window, qo, ko = _NARROW_EDGE_CASES[case]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((b, h, sq, d), generator=gen, device=device).to(dtype)
+    k, v = (torch.randn((b, kvh, sk, d), generator=gen, device=device)
+            .to(dtype) for _ in range(2))
+    return q, k, v, qo, ko, causal, window
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(_NARROW_EDGE_CASES))
+@pytest.mark.parametrize("head_dim", [16, 32])
+def test_flash_fwd_at_narrow_head_dims_tile_edges_matches_plain(
+        cuda, no_tf32, head_dim, case, dtype):
+    """The forward kernel at head dims 16 and 32 (bf16: the narrow body;
+    f32: the f32 body) against its plain version where the narrow body's
+    192-row q tiles, 64-row warpgroups and 128-key tiles meet the causal
+    diagonal, the window's edge, ragged lengths and ring-hop offsets: O
+    within 1e-4 (f32) or 2e-2 (bf16) and the LSE within 1e-3 of the f32
+    plain version, O = 0 and LSE ~ -1e30 on rows that see no key."""
+    from elephas_tpu_torch.ops.flash_attention import (flash_forward,
+                                                       flash_forward_plain)
+    q, k, v, qo, ko, causal, window = _narrow_forward_inputs(
+        case, dtype, cuda, head_dim)
+    before = flash_forward.launches
+    o, lse = flash_forward(q, k, v, qo, ko, causal, window)
+    assert flash_forward.launches == before + 1
+    o_ref, lse_ref = flash_forward_plain(q.float(), k.float(), v.float(),
+                                         qo, ko, causal, window)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert o.dtype == dtype and o.shape == q.shape
+    torch.testing.assert_close(o.float(), o_ref, atol=tol, rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=0)
+    dead = lse_ref < -1e29
+    assert bool((lse[dead] < -1e29).all()) and bool((o[dead] == 0).all())
+
+
+@pytest.mark.parametrize("case", ["sq_193", "sq_65", "window_129",
+                                  "hop_first_rows_dead",
+                                  "paired_gqa4_ragged", "paired_window"])
+def test_flash_fwd_kernel_is_bit_reproducible_at_head_dim_32(cuda, case):
+    """Two forward launches at head dim 32 on the same bf16 inputs give
+    the same bits (the narrow body: no atomics, and its warpgroups' free
+    running orders issue, not arithmetic)."""
+    from elephas_tpu_torch.ops.flash_attention import flash_forward
+    args = _narrow_forward_inputs(case, torch.bfloat16, cuda, 32)
     (o1, l1), (o2, l2) = flash_forward(*args), flash_forward(*args)
     assert torch.equal(o1.view(torch.int16), o2.view(torch.int16))
     assert torch.equal(l1, l2)

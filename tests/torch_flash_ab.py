@@ -5,17 +5,18 @@ Times the bf16 flash forward, dK/dV and dQ beside SDPA with
 device time alone) at the training shape (B 8, H 16, S 1024, causal) at
 head dims 128, 64, 32, 16, 96, 80 and 256, at ``lm_d128``'s fit shape
 (B 4, H 32 over KVH 8, S 1024, window 4096) at 128, at ``lm_d96``'s (B
-2, H 32, S 2048, window 2047) at 96 and at ``lm_d256``'s (B 2, H 8 over
-KVH 1, S 1024) at 256, with a digest (sha256) of each call's
-outputs, O, LSE, dQ, dK and dV, on the same seeded inputs, so two trees'
-bits can be compared; a tree whose kernels refuse a head dim says so
+2, H 32, S 2048, window 2047) at 96, at ``lm_d256``'s (B 2, H 8 over
+KVH 1, S 1024) at 256 and at ``tpu_model_lm_d32``'s (B 16, H 8, S 128)
+at 32, with digests (sha256) of each kernel's outputs, O and LSE, dQ,
+and dK and dV, on the same seeded inputs, so two trees' bits can be
+compared; a tree whose kernels refuse a head dim says so
 there. It prints them as one JSON line, then runs ``chip_smoke``'s
 ``lm_d128`` phase (``forward`` over 32 layers, the paged engine, the
 2-layer gradient and tokens, the 4-layer fit), which prints its own
-lines (``bf16_ms`` of ``forward``, ``ms_per_step`` of the fit). A
-script, not a test: it needs the card.
+lines (``bf16_ms`` of ``forward``, ``ms_per_step`` of the fit), unless
+``--kernels-only`` is given. A script, not a test: it needs the card.
 
-    python tests/torch_flash_ab.py [TREE]
+    python tests/torch_flash_ab.py [--kernels-only] [TREE]
 
 As in tests/torch_paged_serving_ab.py, ``chip_smoke`` and
 ``elephas_tpu_torch`` are imported from TREE (by default this
@@ -28,7 +29,9 @@ import json
 import os
 import sys
 
-TREE = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else os.path.join(
+KERNELS_ONLY = "--kernels-only" in sys.argv[1:]
+_TREES = [a for a in sys.argv[1:] if a != "--kernels-only"]
+TREE = os.path.abspath(_TREES[0] if _TREES else os.path.join(
     os.path.dirname(os.path.abspath(__file__)), os.pardir))
 sys.path.insert(0, TREE)
 
@@ -44,7 +47,8 @@ from elephas_tpu_torch.ops.flash_attention import (  # noqa: E402
 SHAPES = {"b8": ((8, 16, 16, 1024, None), (128, 64, 32, 16, 96, 80, 256)),
           "path": ((4, 32, 8, 1024, 4096), (128,)),
           "path_d96": ((2, 32, 32, 2048, 2047), (96,)),
-          "path_d256": ((2, 8, 1, 1024, None), (256,))}
+          "path_d256": ((2, 8, 1, 1024, None), (256,)),
+          "path_d32": ((16, 8, 8, 128, None), (32,))}
 
 
 def digest(*tensors):
@@ -77,7 +81,8 @@ def kernel_times(flush):
                 out[f"{name}_d{d}"] = {"refused": str(e)}
                 continue
             out[f"{name}_d{d}"] = {
-                "digest": digest(*outs),
+                "digest": {"fwd": digest(*outs[:2]), "dq": digest(outs[2]),
+                           "dkv": digest(*outs[3:])},
                 "fwd": chip_smoke.device_ms(lambda: flash_forward(
                     q, k, v, causal=True, window=window), flush),
                 "sdpa": chip_smoke.device_ms(
@@ -101,6 +106,8 @@ def main() -> None:
     print(json.dumps({"tree": TREE, "card": chip_smoke.nvidia_smi(),
                       **kernel_times(flush)}), flush=True)
     del flush
+    if KERNELS_ONLY:
+        return
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     chip_smoke.run_lm_d128()
