@@ -428,13 +428,67 @@ def gather_sdpa(q, k_pool, v_pool, tables, pos):
     return library
 
 
-def paged_bound(pos, h, d, bs, kvh=None):
+def check_paged_f32_example(flush):
+    """The paged kernel's general body in f32 at http_serving_example's
+    decode shape (its LM: H = KVH 4, head dim 16; its engine: 4 slots,
+    blocks of 8, 12 table entries a row of a 24-block pool; positions of
+    its prompts plus 16 new tokens), held against the plain version
+    (1e-4) and timed as the bf16 calls are, beside its f32 bound (the
+    bytes at the memory rate, the operations at the CUDA cores' f32 peak)
+    and gather + SDPA in f32."""
+    from elephas_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_plain)
+
+    b, h, d, bs, mb, nb = 4, 4, 16, 8, 12, 24
+    rng = np.random.default_rng(12)
+    pos = rng.integers(8, 32, b)
+    blocks = rng.permutation(np.arange(1, nb))
+    tables = np.zeros((b, mb), np.int64)
+    for i, p in enumerate(pos):
+        tables[i, :p // bs + 1] = blocks[:p // bs + 1]
+        blocks = blocks[p // bs + 1:]
+    tables_t = torch.as_tensor(tables, dtype=torch.int32, device="cuda")
+    pos_t = torch.as_tensor(pos, dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    q = torch.randn((b, h, d), generator=gen, device="cuda")
+    kp, vp = (torch.randn((nb, h, bs, d), generator=gen, device="cuda")
+              for _ in range(2))
+    args = (q, kp, vp, tables_t, pos_t)
+    out, body = paged_call_body(lambda: paged_decode_attention(*args))
+    err = max_err(out, paged_decode_attention_plain(*args))
+    require(err <= 1e-4 and body == "general",
+            f"paged f32 at http_serving_example's shape: err {err} <= "
+            f"1e-4, on the general body ({body})")
+    nbytes, flops, _, _ = paged_bound(pos, h, d, bs, esize=4)
+    ops_ms = flops / PEAK_F32_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    library = gather_sdpa(*args)
+    result = {"shape": {"B": b, "H": h, "KVH": h, "D": d, "block": bs,
+                        "max_blocks": mb, "pool_blocks": nb,
+                        "positions": pos.tolist(), "dtype": "float32"},
+              "body": body, "max_abs_err": err,
+              "ms": time_ms(lambda: paged_decode_attention(*args),
+                            flush=flush),
+              "device_ms": device_ms(lambda: paged_decode_attention(*args),
+                                     flush),
+              "plain_ms": time_ms(
+                  lambda: paged_decode_attention_plain(*args), flush=flush),
+              "library_ms": time_ms(library, flush=flush),
+              "library_device_ms": device_ms(library, flush),
+              "bound_ms": max(ops_ms, bytes_ms),
+              "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+              "bytes": nbytes, "flops": flops}
+    emit({"phase": "paged_f32_example", **result})
+    return result
+
+
+def paged_bound(pos, h, d, bs, kvh=None, esize=2):
     """(bytes, flops, bound ms, bound by) of one bf16 paged call: the K/V
     rows of the ``kvh`` heads (default h) at positions <= pos once, q in,
-    o out, the live table entries and the positions."""
+    o out, the live table entries and the positions (``esize`` bytes an
+    element: 4 counts an f32 call's bytes; the ms stay bf16's)."""
     kvh = h if kvh is None else kvh
     live_blocks = int(np.sum(pos // bs + 1))
-    esize = 2
     nbytes = (int(np.sum(pos + 1)) * kvh * d * 2 * esize
               + 2 * len(pos) * h * d * esize + live_blocks * 4
               + len(pos) * 4)
@@ -655,9 +709,44 @@ NARROW_BODIES = {
         "the live tiles, S(j) with P V(j-1) in flight, no turns; one CTA "
         "a q tile at one wave, else persistent over pairs of q tiles")
     for d in ("16", "32")}
+# the narrow backward bodies at widths 16 and 32, as WIDE_BODIES names
+# them (`dq_16`, ..., `dkv_32`)
+NARROW_BWD_BODIES = {
+    f"{part}_{d}": (f"flash_{part}_narrow_kernelILi{d}", "flash_bwd.o",
+                    body)
+    for part, body in (
+        ("dq", "a producer warpgroup and three consumer warpgroups of 64 "
+               "query rows (512 threads, setmaxnreg 32/160), 192-row q "
+               "tiles, 64-key K/V tiles through an 8-stage ring, each "
+               "warpgroup walking its own run of the live tiles, S(j) and "
+               "dP(j) issued with dQ(j-1) in flight, no turns; one CTA a q "
+               "tile at one wave, else persistent over pairs of q tiles"),
+        ("dkv", "a producer warpgroup and three consumer warpgroups of 64 "
+                "key rows (512 threads, setmaxnreg 32/160), 192-row k "
+                "tiles (K and V in two slots), 64-row Q/dO tiles through "
+                "an 8-stage ring (lse and delta beside them by cp.async), "
+                "each warpgroup walking its own run of the live q tiles, "
+                "S^T(j) and dP^T(j) issued with dV/dK(j-1) in flight, no "
+                "turns; one CTA a k tile at one wave, else persistent over "
+                "pairs of k tiles"))
+    for d in ("16", "32")}
+# the narrow backward bodies' tile edges beside NARROW_CASES (which the
+# backward phase runs too): their 192-row tiles are q tiles for dQ (64-key
+# K/V tiles) and k tiles for dK/dV (64-row Q/dO tiles): a third k tile of
+# one key row, a k tile whose second warpgroup holds one key row and third
+# none, a ring hop whose last key rows (and a whole k tile) see no query,
+# and past one wave of k tiles: pairs with a ragged last tile, causal (S
+# 1000) and not (S 450)
+NARROW_BWD_CASES = {
+    "sk_385": (2, 16, 16, 385, 385, True, None, 0, 0),
+    "sk_65": (2, 16, 8, 300, 65, False, None, 0, 0),
+    "hop_keys_dead": (2, 16, 16, 200, 300, True, None, 0, 150),
+    "paired_ragged_1000": (2, 16, 16, 1000, 1000, True, None, 0, 0),
+    "paired_noncausal": (2, 32, 32, 450, 450, False, None, 0, 0)}
 # the special-function units' exp2 rate on an H100 SXM5 (Shah et al.,
 # 2024, FlashAttention-3: 3.9 TFLOPS of special functions): one exp2 a
-# causal (q, k) pair bounds the narrow forward bodies (exp_bound_ms)
+# causal (q, k) pair bounds the narrow forward bodies, and the backward
+# ones recompute it (exp_bound_ms)
 PEAK_EXP2_PER_S = 3.9e12
 # the f32 bodies' driven shapes, head dim 16, causal: forward_d16's
 # forward (B 4 x H 4 x S 96), and speculative_example's training and
@@ -1061,7 +1150,9 @@ def check_flash_bwd(flush):
     forward phase's cases at head dims 16, 32, 64 and 128, at the filled
     head dims 8, 24, 40, 72, 80, 96 and 120 (and the d 32, d 96 and d
     128 cases), with the same lse/delta: f32, and bf16 against the f32
-    plain version on bf16-rounded inputs. Then, at the training shape
+    plain version on bf16-rounded inputs; at d 16 and 32 also over the
+    narrow backward bodies' tile edges (``NARROW_BWD_CASES``), two bf16
+    launches bit-equal at every narrow case. Then, at the training shape
     (B 8, H 16, S 1024, causal, bf16) at every timed head dim and at d
     32, 96 and 128 at their paths' fit shapes, each is held against its
     plain version on the operands it is timed on, and two dQ and two
@@ -1075,7 +1166,9 @@ def check_flash_bwd(flush):
     # kernels' casts) over up to 1024 terms
     tol = {"f32": 1e-4, "bf16": 2e-2}
     errs = {f"d{d}": {} for d in CHECKED_HEAD_DIMS}
-    for d, name, case in flash_cases():
+    narrow = {**NARROW_CASES, **NARROW_BWD_CASES}
+    for d, name, case in [*flash_cases(), *(
+            (d, n, c) for d in (16, 32) for n, c in NARROW_BWD_CASES.items())]:
         b, h, kvh, sq, sk, causal, window, qo, ko = case
         shape_q, shape_k = (b, h, sq, d), (b, kvh, sk, d)
         q, g = (torch.randn(shape_q, generator=gen, device="cuda")
@@ -1095,6 +1188,15 @@ def check_flash_bwd(flush):
                                  window)
             torch.cuda.synchronize()
             what = f"flash bwd {name} d {d} {dt}"
+            if dt == "bf16" and d in (16, 32) and name in narrow:
+                # the narrow bodies' tile edges: two launches, same bits
+                again = flash_backward(qt, kt, vt, gt, lse, delta, qo, ko,
+                                       causal, window)
+                require(all(torch.equal(a.view(torch.int16),
+                                        b_.view(torch.int16))
+                            for a, b_ in zip(out, again)),
+                        f"{what}: two launches give bit-equal outputs")
+                del again
             for part, got, want in zip(("dq", "dk", "dv"), out, ref):
                 require(got.dtype == dtype and bool(
                     torch.isfinite(got.float()).all()),
@@ -1256,6 +1358,10 @@ def bwd_timed(gen, d, case, label, flush, tol, errs):
             "ms": ms[part], "plain_ms": plain_ms[part], "library_ms": lib_ms,
             "device_ms": dev_ms[part], "library_device_ms": lib_dev_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
+            # both recompute one exp2 a unmasked pair at the special-
+            # function rate: what bounds the narrow bodies (bound() leaves
+            # it out)
+            "exp_bound_ms": pairs / PEAK_EXP2_PER_S * 1e3,
             "flops": flops, "bytes": nbytes,
             "achieved_tflops": flops / (ms[part] * 1e-3) / 1e12,
             "device_tflops": flops / (dev_ms[part] * 1e-3) / 1e12}
@@ -4728,6 +4834,7 @@ def main() -> int:
     wide = wide_body_registers(report, WIDE_BODIES)
     wide256 = wide_body_registers(report, WIDE_256_BODIES)
     narrow = wide_body_registers(report, NARROW_BODIES)
+    narrow_bwd = wide_body_registers(report, NARROW_BWD_BODIES)
     split_regs = paged_split_registers(report)
     # a product in flight where two paths meet: ptxas serializes every
     # wgmma of the kernel (C7515), as a trap in a consumer does (C7512)
@@ -4735,15 +4842,22 @@ def main() -> int:
                   if "C7515" in ln or "C7512" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": resources, "d128_bodies": wide, "d256_bodies": wide256,
-          "narrow_bodies": narrow, "paged_split_bodies": split_regs,
+          "narrow_bodies": narrow, "narrow_bwd_bodies": narrow_bwd,
+          "paged_split_bodies": split_regs,
           "serialized_wgmma": serialized})
     require(not spills, f"no kernel spills registers: {spills}")
     require(not any("narrow" in ln for ln in serialized),
-            f"the narrow bodies' wgmma is not serialized: {serialized}")
+            f"the narrow forward and backward bodies' wgmma is not "
+            f"serialized: {serialized}")
     require(all(r == {"launch": 128, "producer": 24, "consumers": 160}
                 for r in narrow.values()),
             f"the narrow bodies launch at 128 registers, the producer drops "
             f"to 24 and the consumers rise to 160: {narrow}")
+    require(all(r == {"launch": 128, "producer": 32, "consumers": 160}
+                for r in narrow_bwd.values()),
+            f"the narrow backward bodies launch at 128 registers, the "
+            f"producer drops to 32 and the consumers rise to 160: "
+            f"{narrow_bwd}")
     require(sorted(split_regs) == sorted(
         f"W{w}_G{g}" for w in (16, 32, 64, 128, 256) for g in (1, 2, 4, 8))
             and all(r <= (255 if k.endswith("_G8") else 128)
@@ -4762,6 +4876,7 @@ def main() -> int:
     flash = timed("flash_kernel", check_flash, flush)
     bwd = timed("flash_bwd_kernels", check_flash_bwd, flush)
     f32 = timed("flash_f32_bodies", check_flash_f32, flush)
+    paged_f32 = timed("paged_f32_example", check_paged_f32_example, flush)
     del flush
 
     cfg = TransformerConfig(**FLAGSHIP)
@@ -4935,6 +5050,12 @@ def main() -> int:
             for d, (_, _, body) in NARROW_BODIES.items():
                 entry["by_head_dim"][d].update(body=body,
                                                registers=narrow[d])
+        if name in ("flash_dq", "flash_dkv"):
+            for d in ("16", "32"):
+                key = f"{name[6:]}_{d}"
+                entry["by_head_dim"][d].update(
+                    body=NARROW_BWD_BODIES[key][2],
+                    registers=narrow_bwd[key])
         # the f32 bodies at d 16 on the shapes of the paths that run them
         f32_paths = {"forward_d16": d16_counts,
                      "speculative_example": spex_counts}
@@ -4944,6 +5065,12 @@ def main() -> int:
             entry["by_head_dim"]["16"]["f32_body"] = {
                 p: {**f32[p][part], "launches": f32_paths[p][name]}
                 for p in F32_TIMED if part in f32[p]}
+        else:
+            # the general body in f32 at the decode shape of the path
+            # that runs it
+            entry["by_head_dim"]["16"]["f32_body"] = {
+                "http_serving_example": {
+                    **paged_f32, "launches": ex_counts[name]}}
         if name in WIDE_256_BODIES:
             require(launches["256"] > 0,
                     f"{name} launched its d 256 body on lm_d256")

@@ -21,12 +21,14 @@
 // - dQ: one CTA per (batch*head, q tile) loops over the K/V tiles from
 //   the window's lower edge up to the causal diagonal and keeps dQ in
 //   registers, written once.
-// - dK/dV: one CTA per (batch*kv_head, 128-row k tile) loops over the
-//   group's query heads and, for each, over the q tiles that can see
+// - dK/dV: one CTA per (batch*kv_head, k tile of 128 rows) loops over
+//   the group's query heads and, for each, over the q tiles that can see
 //   this k tile (the kv-major grid of `_bwd_calls`), keeping dK and dV
 //   in registers, written once. At width 256 the walk of a 64-row k tile
 //   may be cut into chunks, one CTA each, whose f32 partials a second
 //   kernel sums in a fixed order (below).
+// (At widths 16 and 32 the tiles are 192 rows, and past one wave of the
+// SMs a CTA walks pairs of them: below.)
 // Every body is instantiated at widths 16, 32, 64, 128 and 256
 // (hopper.cuh `with_head_dim`): 16, 32 and 64 are the head dims of the
 // repo's configurations, 128 that of most published LMs, 256 that of
@@ -40,10 +42,10 @@
 // columns are written. The f32 bodies load zeros past d and store
 // columns below it. The tensor cores then do W / d times the work of d
 // (1.33x at 96); the bytes read stay those of d. Bodies:
-// - dK/dV, bf16 (the working type): CTAs of the first k tiles (the most
-//   live q tiles under causal masking) scheduled first. One producer
-//   warp TMA-loads K and V once and then, per live q tile, Q and dO
-//   into a 6-stage ring of shared memory guarded by full/empty
+// - dK/dV, bf16 (the working type) at width 64: CTAs of the first k
+//   tiles (the most live q tiles under causal masking) scheduled first.
+//   One producer warp TMA-loads K and V once and then, per live q tile,
+//   Q and dO into a 6-stage ring of shared memory guarded by full/empty
 //   mbarriers; its lanes stage that tile's lse (times log2 e) and delta
 //   beside them (a 1-D bulk copy would need 16-byte aligned rows, which
 //   a ragged Sq does not give). A tile row is the body's 2*W bytes in
@@ -97,7 +99,7 @@
 //   16: 2048 k tiles already) the wrapper passes no table, and a CTA
 //   takes its k tile from its block index, reading nothing before its
 //   first load.
-// - dQ, bf16, at widths 16, 32 and 64: the same shape turned q-major.
+// - dQ, bf16, at width 64: the same shape turned q-major.
 //   One CTA per (batch*head, 128-row q tile), the last q tiles (the
 //   most live K/V tiles under causal masking) scheduled first. The
 //   producer warp TMA-loads Q and dO once, then streams the live 64-row
@@ -160,6 +162,54 @@
 //   64 query rows, twice the ping-pong body's bytes a row, and its
 //   warpgroups meet twice a tile, so past one wave the ping-pong body is
 //   faster.
+// - dQ and dK/dV, bf16, at widths 16 and 32 (8-32; `flash_dq_narrow_kernel`
+//   and `flash_dkv_narrow_kernel`, namespace nb). There the products
+//   shrink with D and the per-pair elementwise step does not: the exp2,
+//   the FMAs of P and dS, the mask, the packs. With the width-64 design
+//   at these widths (two consumer warpgroups, each running its S and dP,
+//   then that step, then its gradient products in sequence) timing-only
+//   builds (tests/torch_flash_bwd_variants.py) ran 57% (dQ) and 41%
+//   (dK/dV) faster with the step removed and 1-3% with only the exp2
+//   replaced by an FMA: the step in sequence held them, not the exp2. So
+//   these bodies are the narrow forward's shape (flash_fwd.cu): 16 warps,
+//   a producer warpgroup that drops to 32 registers and three consumer
+//   warpgroups of 64 rows that rise to 160 (`setmaxnreg`; 512 threads
+//   launch at 128), so three consumer warps a scheduler hide each
+//   other's steps, and within a warpgroup the step runs under products.
+//   A CTA owns 192 rows, resident in one of two slots (the next tile's
+//   rows land while this one runs): query rows and their Q and dO for
+//   dQ, key rows and their K and V for dK/dV. The 64-row tiles of the
+//   other side stream past it through an 8-stage ring under full/empty
+//   mbarriers, each serving all three warpgroups: K and V (dQ, lane 0 of
+//   a producer warp by TMA), Q and dO with the rows' lse and delta (dK/dV:
+//   TMA from lane 0, lse and delta by the warp's 32 lanes as 4-byte
+//   cp.async that zero-fill rows past Sq and arrive on the stage's full
+//   barrier when they land, so the stats never stall the loader).
+//   Each warpgroup walks its own run of the CTA's live tiles: the tiles
+//   its rows do not meet (the diagonal, a window edge, rows past the
+//   length) it releases once they land. Per step it issues S (S^T) and
+//   dP (dP^T) as two commit groups with the previous step's gradient
+//   products behind them (dQ(j-1); dV(j-1) and dK(j-1)), forms P while
+//   dP and those run, dS while the gradient products run, and packs both
+//   once they are done with the A fragments. Registers at W 32: S and dP
+//   64 f32, the packed fragments 16 (dQ) or 32 (P^T and dS^T), dQ 16 or
+//   dK and dV 32; ptxas fits them in 160 without a spill. Every product
+//   is issued unconditionally, nothing left in flight where two paths
+//   meet, no trap in a consumer (C7515, C7512). The mask is two compares
+//   an element against its row's run of valid columns, only on tiles
+//   that hold a masked pair. The exponentials, the FMAs and the order of
+//   every sum are those of the width-64 body, so the gradients are its
+//   bits. The schedule goes by shape: where the 192-row tiles fill at
+//   most one wave of the SMs (`tpu_model_lm_d32`'s B 16 x H 8 x S 128:
+//   128 q tiles, 128 k tiles), one CTA a tile, heaviest first; past it
+//   (B 8 x H 16 x S 1024: 768 of each), persistent, one CTA an SM over
+//   pairs of tiles, the t-th heaviest with the t-th lightest (dQ: the
+//   last q tiles are heaviest under causal masking; dK/dV: the first k
+//   tiles), a ragged last tile ranked by its warpgroups' rows times the
+//   tiles they meet (`ragged_rank`). Every head's operands fit in L2 at
+//   these widths, so heads are not grouped. The dQ and dK/dV of a tile
+//   leave through the warpgroup's own rows of the slot in 16-byte
+//   stores before the slot is released.
 // - the reduction: one CTA of 256 threads per (split k tile, dK or dV, 16
 //   rows), each thread summing 4 columns of a row over the tile's slots
 //   in order (16-byte loads) and storing the 4 bf16 columns below hd.
@@ -180,13 +230,18 @@
 // with the elementwise step between them on the CUDA cores and MUFU;
 // the second warpgroup and the ring's prefetch overlap them. At head_dim
 // 32 and 16 the products shrink with D while the elementwise step per
-// (q, k) pair does not, so it takes a larger share of each tile. At 128
+// (q, k) pair does not: one exp2 a pair at the special-function units'
+// 3.9 T/s (0.0172 ms at B 8, S 1024) is above the bytes-or-operations
+// bound at both widths, and the narrow bodies (above) put the step under
+// the products of three warpgroups. At 128
 // and 256 both are bound by operations, and dQ there runs a tile's
 // products under the next tile's (above). The 256 dK/dV body
 // streams a 32 KB Q and a 32 KB dO tile for every 64 key rows (a 128-row
 // k tile would need dK and dV at 256 f32 a thread), so each step moves
 // 64 KB into the SM for 4 products of 64 x 64 x 256, and its warpgroups
 // wait on each other's hand-overs within a step.
+#include <algorithm>
+
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -500,8 +555,8 @@ struct Layout {
   // the two warpgroups (P^T and dS^T, 8 KB bf16 tiles each, and dP^T in
   // f32, 16 KB), then the barriers: kvfull, full[STAGES], empty[STAGES],
   // done (used at D 128 and 256); +1024 for alignment. 226 KB at D 256,
-  // 195 KB at D 128, 131 KB at D 64, 68 KB at D 32, 36 KB at D 16 (below
-  // D 128 the stage count stays, as in flash_fwd.cu)
+  // 195 KB at D 128, 131 KB at D 64 (widths 16 and 32 run the narrow
+  // body, nb::Layout)
   static constexpr uint32_t row = Rows<D>::bytes;
   static constexpr uint32_t atom = Rows<D>::atom;
   static constexpr uint32_t KV_TILE = KROWS * row, Q_TILE = QROWS * row;
@@ -529,7 +584,8 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
                            int q_offset, int k_offset, int causal,
                            int window, float scale) {
   using L = Layout<D>;
-  static_assert(!L::SPLIT, "width 256 runs flash_dkv_w256_kernel");
+  static_assert(D == 64 || D == 128, "widths 16 and 32 run "
+                "flash_dkv_narrow_kernel, 256 flash_dkv_w256_kernel");
   constexpr uint32_t KV_TILE = L::KV_TILE, Q_TILE = L::Q_TILE;
   constexpr int STAGES = L::STAGES, KROWS = L::KROWS;
   extern __shared__ uint8_t smem_raw[];
@@ -1178,18 +1234,18 @@ namespace dq {
 
 constexpr int QROWS = 128;          // query rows per CTA: 2 warpgroups x 64
 
-// The bodies at widths 16, 32 and 64: two consumer warpgroups and one
-// producer warp.
+// The body at width 64: two consumer warpgroups and one producer warp.
 template <int D>
 struct Layout {
-  static_assert(D <= 64, "widths 128 and 256 run flash_dq_pingpong_kernel "
-                         "(or flash_dq_w256_kernel)");
+  static_assert(D == 64, "widths 16 and 32 run flash_dq_narrow_kernel, 128 "
+                         "and 256 flash_dq_pingpong_kernel (or "
+                         "flash_dq_w256_kernel)");
   static constexpr int THREADS = 2 * 128 + 32;
   static constexpr int KROWS = 64;   // key rows per ring stage
   static constexpr int STAGES = 6;   // K/V tiles in flight
   // Q, dO (16 KB each at D 64), the K ring, the V ring (8 KB tiles at D
   // 64), then the barriers: qfull, full[STAGES], empty[STAGES]; +1024
-  // for alignment. 129 KB at D 64, 65 KB at D 32, 33 KB at D 16
+  // for alignment: 129 KB
   static constexpr uint32_t row = Rows<D>::bytes;
   static constexpr uint32_t atom = Rows<D>::atom;
   static constexpr uint32_t Q_TILE = QROWS * row, KV_TILE = KROWS * row;
@@ -2021,9 +2077,902 @@ cudaError_t launch(const Args& a) {
 
 }  // namespace dq
 
+// ------------------------------------------- bf16 at widths 16 and 32
+// (see the note at the top): 16 warps, a producer warpgroup at 32
+// registers and three consumer warpgroups of 64 rows at 160. A CTA owns a
+// tile of 192 query rows (dQ) or key rows (dK/dV), resident in a slot of
+// shared memory, and the 64-row K/V (dQ) or Q/dO (dK/dV) tiles it meets
+// stream past it through a ring; each warpgroup walks its own run of
+// them.
+namespace nb {
+
+constexpr int WG = 3;                    // consumer warpgroups
+constexpr int TILE = 64 * WG;            // a CTA's rows: 192
+constexpr int STEP = 64;                 // rows of a streamed tile
+constexpr int THREADS = 128 * (WG + 1);  // and a producer warpgroup
+constexpr int STAGES = 8;                // streamed tiles in flight
+constexpr int SLOTS = 2;                 // CTA tiles: this one and the next
+// 512 threads launch at 128 registers each; the producer warpgroup drops
+// to 32 and the three consumer warpgroups rise to 160
+constexpr uint32_t kProducerRegs = 32, kConsumerRegs = 160;
+static_assert(128 * kProducerRegs + 128 * WG * kConsumerRegs <=
+                  128 * THREADS,
+              "the consumers ask for no more than the producer frees");
+
+// The slots' two tiles (dK/dV: K and V; dQ: Q and dO; 192 rows each),
+// the ring's two (dK/dV: Q and dO; dQ: K and V; 64 rows each), the
+// lse/delta ring beside it (dK/dV: 64 + 64 f32 a stage), then the
+// barriers: sfull[SLOTS], sempty[SLOTS], full[STAGES], empty[STAGES],
+// done; +1024 for alignment: 117 KB at W 32, 61 KB at 16.
+template <int D>
+struct Layout {
+  static constexpr uint32_t row = Rows<D>::bytes, atom = Rows<D>::atom;
+  static constexpr uint32_t big = TILE * row, small = STEP * row;
+  static constexpr uint32_t a = 0, b = SLOTS * big, c = 2 * SLOTS * big,
+                            d = c + STAGES * small, stats = d + STAGES * small,
+                            bars = stats + STAGES * 2 * STEP * 4;
+  static constexpr uint32_t sfull = bars, sempty = sfull + 8 * SLOTS,
+                            full = sempty + 8 * SLOTS,
+                            empty = full + 8 * STAGES,
+                            done = empty + 8 * STAGES;
+  static constexpr size_t bytes = done + 8 + 1024;
+  static_assert(bytes <= 232448, "at most 227 KB of shared memory");
+};
+
+// The live 64-key tiles of query rows [q_lo, q_hi] (those rows_meet
+// admits): one run kj0 .. kj0 + n - 1; returns n. The causal rule drops
+// tiles from the end, the window's from the start; a ragged last tile's
+// last key is Sk - 1 (flash_fwd.cu's live_tiles, at 64 keys).
+__host__ __device__ __forceinline__ int live_k_tiles(int q_lo, int q_hi,
+                                                     int Sk, int q_offset,
+                                                     int k_offset,
+                                                     int causal, int window,
+                                                     int& kj0) {
+  const int nk = (Sk + STEP - 1) / STEP;
+  int hi = nk - 1, lo = 0;
+  if (causal) {
+    const int a = q_offset + q_hi - k_offset;  // the last key allowed
+    const int t = a < 0 ? -1 : (int)((unsigned)a / STEP);
+    hi = t < hi ? t : hi;
+  }
+  if (window > 0) {
+    const int b = q_offset + q_lo - window - k_offset;  // keys <= b out
+    lo = b + 1 <= 0 ? 0 : (int)((unsigned)(b + 1) / STEP);
+    if (Sk - 1 <= b && nk - 2 < hi) hi = nk - 2;
+  }
+  kj0 = lo;
+  return hi - lo + 1 > 0 ? hi - lo + 1 : 0;
+}
+
+// The live 64-row q tiles of key rows [k_lo, k_hi]: one run qi0 .. qi0 +
+// n - 1; returns n. The causal rule drops tiles from the start (a ragged
+// last tile's last row is Sq - 1), the window's from the end.
+__host__ __device__ __forceinline__ int live_q_tiles(int k_lo, int k_hi,
+                                                     int Sq, int q_offset,
+                                                     int k_offset,
+                                                     int causal, int window,
+                                                     int& qi0) {
+  const int nq = (Sq + STEP - 1) / STEP;
+  int hi = nq - 1, lo = 0;
+  if (causal) {
+    const int a = k_offset + k_lo - q_offset;  // the first query allowed
+    if (a > Sq - 1)
+      hi = -1;
+    else
+      lo = a <= 0 ? 0 : (int)((unsigned)a / STEP);
+  }
+  if (window > 0) {
+    // queries below b see key k_hi: a tile's first row must be
+    const int b = k_offset + k_hi + window - q_offset;
+    const int t = b <= 0 ? -1 : (int)((unsigned)(b - 1) / STEP);
+    hi = t < hi ? t : hi;
+  }
+  qi0 = lo;
+  return hi - lo + 1 > 0 ? hi - lo + 1 : 0;
+}
+
+// A CTA tile: the head (dQ) or kv row (dK/dV) and its first row, -1 for
+// none.
+struct Item {
+  int row, t0;
+};
+
+// Half `half` of work item w over `rows` heads of nt tiles each. A
+// head's tiles go by rank, heaviest first: the full tiles in order, from
+// the last under LAST_FIRST (dQ: later query rows meet more keys under
+// causal masking) or from the first (dK/dV: earlier keys meet more
+// queries), and a ragged last tile, whose fewer rows make it lighter, at
+// rank `ragged` (ragged_rank). With `halves` 2 item w pairs rank p = w /
+// rows with rank nt - 1 - p, so items hold about equal work and dealt
+// round-robin to the CTAs balance (an odd middle tile has no partner);
+// with `halves` 1 an item is the tile of rank p, heaviest first.
+template <bool LAST_FIRST>
+__device__ __forceinline__ Item item(int w, int half, int rows, int nt,
+                                     int ragged) {
+  const unsigned p = (unsigned)w / (unsigned)rows;
+  const int rank = half ? nt - 1 - (int)p : (int)p;
+  int t;
+  if (LAST_FIRST)
+    t = rank == ragged ? nt - 1 : rank < ragged ? nt - 2 - rank
+                                                : nt - 1 - rank;
+  else
+    t = rank == ragged ? nt - 1 : rank < ragged ? rank : rank - 1;
+  return {w - (int)p * rows, half && rank == (int)p ? -1 : t * TILE};
+}
+
+// The work of the CTA tile at t0: each warpgroup's rows times the
+// streamed tiles they meet.
+template <bool DQ>
+inline long long tile_weight(int t0, int Sq, int Sk, int q_offset,
+                             int k_offset, int causal, int window) {
+  const int n = DQ ? Sq : Sk;
+  long long w = 0;
+  for (int g = 0; g < WG && t0 + 64 * g < n; ++g) {
+    const int lo = t0 + 64 * g, hi = std::min(lo + 63, n - 1);
+    int first;
+    w += (long long)(hi - lo + 1) *
+         (DQ ? live_k_tiles(lo, hi, Sk, q_offset, k_offset, causal, window,
+                            first)
+             : live_q_tiles(lo, hi, Sq, q_offset, k_offset, causal, window,
+                            first));
+  }
+  return w;
+}
+
+// The rank of a head's ragged last tile (fewer than 192 rows) among its
+// tiles, heaviest first: the number of full tiles that outweigh it (with
+// every tile full, the rank that leaves the last tile in its place).
+template <bool DQ>
+inline int ragged_rank(int Sq, int Sk, int q_offset, int k_offset,
+                       int causal, int window) {
+  const int n = DQ ? Sq : Sk;
+  const int nt = (n + TILE - 1) / TILE, last = (nt - 1) * TILE;
+  if (n - last == TILE) return DQ ? 0 : nt - 1;
+  const long long w = tile_weight<DQ>(last, Sq, Sk, q_offset, k_offset,
+                                      causal, window);
+  int rank = 0;
+  for (int t = 0; t < nt - 1; ++t)
+    rank += tile_weight<DQ>(t * TILE, Sq, Sk, q_offset, k_offset, causal,
+                            window) > w;
+  return rank;
+}
+
+// P's mask on a tile that may hold a masked pair, as 0 in place of the
+// exponential (a fully masked query row's lse is ~-1e30: its exponential
+// is dropped here). Each accumulator row's valid columns are one run, so
+// an element costs two compares against its row's bounds, taken relative
+// to this thread's first column. dQ: rows are queries qrow and qrow + 8,
+// columns keys from k0.
+template <int N>
+__device__ __forceinline__ void zero_keys(float (&p)[N], int qrow, int k0,
+                                          int Sq, int Sk, int q_offset,
+                                          int k_offset, int causal,
+                                          int window) {
+  constexpr int kOpen = 1 << 30;
+  const int c0 = k0 + 2 * (threadIdx.x % 4);  // this thread's first key
+  int lo[2], hi[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qk = q_offset + qrow + 8 * r - k_offset - c0;  // diagonal
+    hi[r] = qrow + 8 * r < Sq ? min(Sk - 1 - c0, causal ? qk : kOpen)
+                              : -kOpen;
+    lo[r] = window > 0 ? qk - window + 1 : -kOpen;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int c = 8 * (i / 4) + i % 2, r = (i / 2) % 2;
+    if (c < lo[r] || c > hi[r]) p[i] = 0.f;
+  }
+}
+
+// The same for dK/dV: rows are keys krow and krow + 8, columns queries
+// from q0.
+template <int N>
+__device__ __forceinline__ void zero_queries(float (&p)[N], int krow, int q0,
+                                             int Sq, int Sk, int q_offset,
+                                             int k_offset, int causal,
+                                             int window) {
+  constexpr int kOpen = 1 << 30;
+  const int c0 = q0 + 2 * (threadIdx.x % 4);  // this thread's first query
+  int lo[2], hi[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kq = k_offset + krow + 8 * r - q_offset - c0;  // diagonal
+    lo[r] = causal ? kq : -kOpen;
+    hi[r] = krow + 8 * r < Sk
+                ? min(Sq - 1 - c0, window > 0 ? kq + window - 1 : kOpen)
+                : -kOpen;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int c = 8 * (i / 4) + i % 2, r = (i / 2) % 2;
+    if (c < lo[r] || c > hi[r]) p[i] = 0.f;
+  }
+}
+
+// dK/dV at widths 16 and 32: one CTA a 192-row k tile of a kv row (`halves`
+// 1) or persistent over pairs of them (`halves` 2), `items` work items as
+// item<false> deals them. Warpgroup wg owns key rows 64wg .. 64wg + 63 of
+// the tile at the whole head dim.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_dkv_narrow_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            bf16* __restrict__ dk, bf16* __restrict__ dv,
+                            int BKV, int grp, int Sq, int Sk, int hd,
+                            int q_offset, int k_offset, int causal,
+                            int window, float scale, int items, int halves,
+                            int ragged) {
+  static_assert(D == 16 || D == 32, "the narrow bodies are 16 or 32 wide");
+  using L = Layout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  const uint32_t base = smem_u32(sm);
+  uint8_t* Ks = sm + L::a;
+  uint8_t* Vs = sm + L::b;
+  uint8_t* Qs = sm + L::c;
+  uint8_t* dOs = sm + L::d;
+  const float* stats = reinterpret_cast<const float*>(sm + L::stats);
+  uint64_t* kvfull = reinterpret_cast<uint64_t*>(sm + L::sfull);
+  uint64_t* kvempty = reinterpret_cast<uint64_t*>(sm + L::sempty);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::full);
+  uint64_t* empty = reinterpret_cast<uint64_t*>(sm + L::empty);
+  uint64_t* done = reinterpret_cast<uint64_t*>(sm + L::done);
+  const int nt = (Sk + TILE - 1) / TILE;
+
+  if (threadIdx.x == 0) {
+    // lane 0 of each consumer warp arrives at the empty barriers
+    for (int s = 0; s < SLOTS; ++s) {
+      mbar_init(&kvfull[s], 1);
+      mbar_init(&kvempty[s], 4 * WG);
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      // the loader's lanes, each once its lse and delta have landed, and
+      // lane 0's expect_tx
+      mbar_init(&full[s], 33);
+      mbar_init(&empty[s], 4 * WG);
+    }
+    mbar_init(done, 4 * WG);  // each consumer warp, at its end
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int warp = warp_index(), lane = threadIdx.x % 32;
+  if (warp >= 4 * WG) {
+    // ---- producer warpgroup: every warp gives its registers back first;
+    // its second warp is the CTA's watchdog; the first loads, for each
+    // step (a query head of the group and a live q tile of the k tile),
+    // Q and dO by TMA (lane 0) and the rows' lse and delta by its lanes'
+    // cp.async (0 past Sq: those rows are masked); lane 0 of the third
+    // loads each k tile's K and V into its slot
+    setmaxnreg_dec<kProducerRegs>();
+    const int role = warp - 4 * WG;
+    if (role == 1) {
+      cta_watchdog(done);
+    } else if (role == 0) {
+      int r = 0;
+      for (int w = blockIdx.x; w < items; w += gridDim.x) {
+        for (int half = 0; half < halves; ++half) {
+          const Item x = item<false>(w, half, BKV, nt, ragged);
+          if (x.t0 < 0) continue;
+          int qi0;
+          const int n = live_q_tiles(x.t0, min(x.t0 + TILE, Sk) - 1, Sq,
+                                     q_offset, k_offset, causal, window,
+                                     qi0);
+          for (int g = 0; g < grp; ++g) {
+            const int bh = x.row * grp + g;
+            for (int j = 0; j < n; ++j, ++r) {
+              const int s = r % STAGES, q0 = (qi0 + j) * STEP;
+              const uint32_t fb = base + L::full + 8 * s;
+              mbar_wait_spin(base + L::empty + 8 * s,
+                             ((r / STAGES) & 1) ^ 1);
+              const uint32_t st = base + L::stats + s * 2 * STEP * 4;
+#pragma unroll
+              for (int h = 0; h < STEP / 32; ++h) {
+                const int i = lane + 32 * h;
+                const bool in = q0 + i < Sq;
+                const size_t at = (size_t)bh * Sq + (in ? q0 + i : 0);
+                cp_async_4(st + 4 * i, lse + at, in);
+                cp_async_4(st + 4 * (STEP + i), delta + at, in);
+              }
+              if (lane == 0) {
+                mbar_expect_tx(fb, 2 * L::small);
+                tma_load_tile<D, STEP>(base + L::c + s * L::small, &tq, fb,
+                                       q0, bh);
+                tma_load_tile<D, STEP>(base + L::d + s * L::small, &tdo, fb,
+                                       q0, bh);
+              }
+              cp_async_mbar_arrive(fb);
+            }
+          }
+        }
+      }
+    } else if (role == 2 && lane == 0) {
+      int r = 0;
+      for (int w = blockIdx.x; w < items; w += gridDim.x) {
+        for (int half = 0; half < halves; ++half) {
+          const Item x = item<false>(w, half, BKV, nt, ragged);
+          if (x.t0 < 0) continue;
+          const int s = r % SLOTS;
+          const uint32_t fb = base + L::sfull + 8 * s;
+          mbar_wait_spin(base + L::sempty + 8 * s, ((r / SLOTS) & 1) ^ 1);
+          mbar_expect_tx(fb, 2 * L::big);
+          tma_load_tile<D, TILE>(base + L::a + s * L::big, &tk, fb, x.t0,
+                                 x.row);
+          tma_load_tile<D, TILE>(base + L::b + s * L::big, &tv, fb, x.t0,
+                                 x.row);
+          ++r;
+        }
+      }
+    }
+  } else {
+    // ---- consumers
+    setmaxnreg_inc<kConsumerRegs>();
+    const int wg = warp / 4;
+    const float scale_log2 = scale * kLog2e;
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    // ring step t, whose Q/dO tile this warpgroup's keys do not meet:
+    // released once it has landed (an arrival before would count toward
+    // the slot's last use)
+    auto pass = [&](int t) {
+      const int s = t % STAGES;
+      mbar_wait_spin(&full[s], (t / STAGES) & 1);
+      release(&empty[s]);
+    };
+    int r = 0, kr = 0;
+    for (int w = blockIdx.x; w < items; w += gridDim.x) {
+      for (int half = 0; half < halves; ++half) {
+        const Item x = item<false>(w, half, BKV, nt, ragged);
+        if (x.t0 < 0) continue;
+        const int ks = kr % SLOTS;
+        const uint32_t kph = (kr / SLOTS) & 1;
+        ++kr;
+        const int wk0 = x.t0 + 64 * wg;
+        const int krow = wk0 + 16 * (warp % 4) + lane / 4;  // and krow + 8
+        // the k tile's live q tiles, qi0 .. qi0 + N - 1, and this
+        // warpgroup's run of them, tiles a .. a + n - 1 (none where its
+        // keys lie past Sk)
+        int qi0, wqi0 = 0;
+        const int N = live_q_tiles(x.t0, min(x.t0 + TILE, Sk) - 1, Sq,
+                                   q_offset, k_offset, causal, window, qi0);
+        const int n = wk0 < Sk ? live_q_tiles(wk0, min(wk0 + 63, Sk - 1), Sq,
+                                              q_offset, k_offset, causal,
+                                              window, wqi0)
+                               : 0;
+        const int a = n > 0 ? wqi0 - qi0 : 0;
+        uint8_t* Kw = Ks + ks * L::big + 64 * wg * L::atom;
+        uint8_t* Vw = Vs + ks * L::big + 64 * wg * L::atom;
+        const uint64_t kdesc = desc_sw<D>(Kw), vdesc = desc_sw<D>(Vw);
+        float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+        mbar_wait_spin(&kvfull[ks], kph);
+        for (int g = 0; g < grp; ++g) {
+          for (int j = 0; j < a; ++j) pass(r + j);
+          if (n > 0) {
+            // S^T and dP^T of step t (64 keys x 64 queries each, D/16 k16
+            // steps) as two groups; the packed P^T and dS^T of a step
+            // wait in pa and dsa for its dV and dK products, issued with
+            // the next step's S^T and dP^T
+            float st[32], dpt[32];
+            uint32_t pa[4][4], dsa[4][4];
+            auto scores = [&](int t) {
+              const int s = t % STAGES;
+              const uint64_t qdesc = desc_sw<D>(Qs + s * L::small);
+              const uint64_t dodesc = desc_sw<D>(dOs + s * L::small);
+#pragma unroll
+              for (int kk = 0; kk < D / 16; ++kk)
+                wgmma_ss_n64(st, desc_k<D, TILE>(kdesc, kk),
+                             desc_k<D, STEP>(qdesc, kk), kk);
+              wgmma_commit();
+#pragma unroll
+              for (int kk = 0; kk < D / 16; ++kk)
+                wgmma_ss_n64(dpt, desc_k<D, TILE>(vdesc, kk),
+                             desc_k<D, STEP>(dodesc, kk), kk);
+              wgmma_commit();
+            };
+            // dV += P^T dO and dK += dS^T Q of step t, the A operands
+            // from registers, dO and Q MN-major from the ring
+            auto grads = [&](int t) {
+              const int s = t % STAGES;
+              const uint64_t qdesc = desc_sw<D>(Qs + s * L::small);
+              const uint64_t dodesc = desc_sw<D>(dOs + s * L::small);
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk)
+                wgmma_rs_rows<D, STEP>(dv_acc, pa[kk], dodesc, kk);
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk)
+                wgmma_rs_rows<D, STEP>(dk_acc, dsa[kk], qdesc, kk);
+              wgmma_commit();
+            };
+            // P = exp2(S*scale*log2(e) - lse*log2(e)) in place of S^T on
+            // the accumulator layout: column c is query q0 + c, and this
+            // thread's columns come in pairs (c, c + 1), whose lse it
+            // reads as float2
+            auto probs = [&](int t, int q0) {
+              const float2* ls2 = reinterpret_cast<const float2*>(
+                  stats + (t % STAGES) * 2 * STEP);
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+                for (int jj = 0; jj < 2; ++jj) {
+                  const float2 ls = ls2[8 * kk + 4 * jj + lane % 4];
+                  const float lx = ls.x * kLog2e, ly = ls.y * kLog2e;
+#pragma unroll
+                  for (int hh = 0; hh < 2; ++hh) {
+                    const int i = 8 * kk + 4 * jj + 2 * hh;
+                    st[i] = exp2_ftz(fmaf(st[i], scale_log2, -lx));
+                    st[i + 1] = exp2_ftz(fmaf(st[i + 1], scale_log2, -ly));
+                  }
+                }
+              if (q0 + STEP > Sq || wk0 + 64 > Sk ||
+                  !rows_all_valid(q0, q0 + STEP - 1, wk0, wk0 + 63, q_offset,
+                                  k_offset, causal, window))
+                zero_queries(st, krow, q0, Sq, Sk, q_offset, k_offset,
+                             causal, window);
+            };
+            // dS = P (dP - delta) scale in place of dP^T
+            auto dsoft = [&](int t) {
+              const float2* dl2 = reinterpret_cast<const float2*>(
+                  stats + (t % STAGES) * 2 * STEP + STEP);
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+                for (int jj = 0; jj < 2; ++jj) {
+                  const float2 de = dl2[8 * kk + 4 * jj + lane % 4];
+#pragma unroll
+                  for (int hh = 0; hh < 2; ++hh) {
+                    const int i = 8 * kk + 4 * jj + 2 * hh;
+                    dpt[i] = st[i] * (dpt[i] - de.x) * scale;
+                    dpt[i + 1] = st[i + 1] * (dpt[i + 1] - de.y) * scale;
+                  }
+                }
+            };
+            // P^T and dS^T packed to bf16 (the TPU kernels' casts) as the
+            // A fragments of the step's dV and dK products
+            auto pack = [&]() {
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk) {
+                pack_a(st, kk, pa[kk]);
+                pack_a(dpt, kk, dsa[kk]);
+              }
+            };
+            const int t0 = r + a;
+            {
+              // the first step: S^T and dP^T alone
+              mbar_wait_spin(&full[t0 % STAGES], (t0 / STAGES) & 1);
+              wgmma_fence();
+              scores(t0);
+              wgmma_wait<1>();
+              fence_operands(st);
+              probs(t0, wqi0 * STEP);
+              wgmma_wait<0>();
+              fence_operands(dpt);
+              dsoft(t0);
+              pack();
+            }
+            for (int j = 1; j < n; ++j) {
+              // S^T(j), dP^T(j) and the dV/dK products of j - 1 in flight
+              // together: P(j) is formed while dP^T(j) and those run, dS(j)
+              // while they do, and both are packed once they are done
+              const int t = t0 + j;
+              mbar_wait_spin(&full[t % STAGES], (t / STAGES) & 1);
+              wgmma_fence();
+              scores(t);
+              grads(t - 1);
+              wgmma_wait<2>();
+              fence_operands(st);
+              probs(t, (wqi0 + j) * STEP);
+              wgmma_wait<1>();
+              fence_operands(dpt);
+              dsoft(t);
+              wgmma_wait<0>();
+              fence_operands(dk_acc);
+              fence_operands(dv_acc);
+              fence_operands(pa);
+              fence_operands(dsa);
+              release(&empty[(t - 1) % STAGES]);
+              pack();
+            }
+            // the last step's dV and dK products
+            const int t = t0 + n - 1;
+            wgmma_fence();
+            grads(t);
+            wgmma_wait<0>();
+            fence_operands(dk_acc);
+            fence_operands(dv_acc);
+            release(&empty[t % STAGES]);
+          }
+          for (int j = a + n; j < N; ++j) pass(r + j);
+          r += N;
+        }
+        // dK and dV through this warpgroup's K and V rows (read by
+        // nothing after its last product) to 16-byte stores of each
+        // row's first hd columns; the slot is released once they are out
+        // (the proxy fence orders these st.shared before the next TMA
+        // into the slot)
+        acc_to_tile<D, TILE>(dk_acc, 1.f, 1.f, Kw);
+        acc_to_tile<D, TILE>(dv_acc, 1.f, 1.f, Vw);
+        wg_barrier(1 + wg);
+        if (wk0 < Sk) {
+          const size_t at = ((size_t)x.row * Sk + wk0) * hd;
+          tile_to_rows<D, TILE>(Kw, dk + at, Sk - wk0, hd);
+          tile_to_rows<D, TILE>(Vw, dv + at, Sk - wk0, hd);
+        }
+        fence_proxy_async();
+        release(&kvempty[ks]);
+      }
+    }
+    release(done);
+  }
+}
+
+// dQ at widths 16 and 32: one CTA a 192-row q tile of a head (`halves`
+// 1) or persistent over pairs of them (`halves` 2), `items` work items as
+// item<true> deals them. Warpgroup wg owns query rows 64wg .. 64wg + 63 of
+// the tile at the whole head dim.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_dq_narrow_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           bf16* __restrict__ dq, int BH, int grp, int Sq,
+                           int Sk, int hd, int q_offset, int k_offset,
+                           int causal, int window, float scale, int items,
+                           int halves, int ragged) {
+  static_assert(D == 16 || D == 32, "the narrow bodies are 16 or 32 wide");
+  using L = Layout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  const uint32_t base = smem_u32(sm);
+  uint8_t* Qs = sm + L::a;
+  uint8_t* dOs = sm + L::b;
+  uint8_t* Ks = sm + L::c;
+  uint8_t* Vs = sm + L::d;
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(sm + L::sfull);
+  uint64_t* qempty = reinterpret_cast<uint64_t*>(sm + L::sempty);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::full);
+  uint64_t* empty = reinterpret_cast<uint64_t*>(sm + L::empty);
+  uint64_t* done = reinterpret_cast<uint64_t*>(sm + L::done);
+  const int nt = (Sq + TILE - 1) / TILE;
+
+  if (threadIdx.x == 0) {
+    // lane 0 of each consumer warp arrives at the empty barriers
+    for (int s = 0; s < SLOTS; ++s) {
+      mbar_init(&qfull[s], 1);
+      mbar_init(&qempty[s], 4 * WG);
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * WG);
+    }
+    mbar_init(done, 4 * WG);  // each consumer warp, at its end
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int warp = warp_index(), lane = threadIdx.x % 32;
+  if (warp >= 4 * WG) {
+    // ---- producer warpgroup: every warp gives its registers back first;
+    // its second warp is the CTA's watchdog; lane 0 of the first loads
+    // each q tile's Q and dO into its slot, lane 0 of the third the live
+    // K/V tiles into the ring (rows past each head's length arrive as
+    // zeros), each walking the items on its own
+    setmaxnreg_dec<kProducerRegs>();
+    const int role = warp - 4 * WG;
+    if (role == 1) {
+      cta_watchdog(done);
+    } else if (role == 0 && lane == 0) {
+      int r = 0;
+      for (int w = blockIdx.x; w < items; w += gridDim.x) {
+        for (int half = 0; half < halves; ++half) {
+          const Item x = item<true>(w, half, BH, nt, ragged);
+          if (x.t0 < 0) continue;
+          const int s = r % SLOTS;
+          const uint32_t fb = base + L::sfull + 8 * s;
+          mbar_wait_spin(base + L::sempty + 8 * s, ((r / SLOTS) & 1) ^ 1);
+          mbar_expect_tx(fb, 2 * L::big);
+          tma_load_tile<D, TILE>(base + L::a + s * L::big, &tq, fb, x.t0,
+                                 x.row);
+          tma_load_tile<D, TILE>(base + L::b + s * L::big, &tdo, fb, x.t0,
+                                 x.row);
+          ++r;
+        }
+      }
+    } else if (role == 2 && lane == 0) {
+      int r = 0;
+      for (int w = blockIdx.x; w < items; w += gridDim.x) {
+        for (int half = 0; half < halves; ++half) {
+          const Item x = item<true>(w, half, BH, nt, ragged);
+          if (x.t0 < 0) continue;
+          int kj0;
+          const int n = live_k_tiles(x.t0, min(x.t0 + TILE, Sq) - 1, Sk,
+                                     q_offset, k_offset, causal, window,
+                                     kj0);
+          // GQA: query row b*H + h reads kv row b*KVH + h / grp
+          const int kv_row = x.row / grp;
+          for (int j = 0; j < n; ++j, ++r) {
+            const int s = r % STAGES;
+            const uint32_t fb = base + L::full + 8 * s;
+            mbar_wait_spin(base + L::empty + 8 * s, ((r / STAGES) & 1) ^ 1);
+            mbar_expect_tx(fb, 2 * L::small);
+            tma_load_tile<D, STEP>(base + L::c + s * L::small, &tk, fb,
+                                   (kj0 + j) * STEP, kv_row);
+            tma_load_tile<D, STEP>(base + L::d + s * L::small, &tv, fb,
+                                   (kj0 + j) * STEP, kv_row);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers
+    setmaxnreg_inc<kConsumerRegs>();
+    const int wg = warp / 4;
+    const float scale_log2 = scale * kLog2e;
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    // ring step t, whose K/V tile this warpgroup's rows do not meet:
+    // released once it has landed
+    auto pass = [&](int t) {
+      const int s = t % STAGES;
+      mbar_wait_spin(&full[s], (t / STAGES) & 1);
+      release(&empty[s]);
+    };
+    int r = 0, qi = 0;
+    for (int w = blockIdx.x; w < items; w += gridDim.x) {
+      for (int half = 0; half < halves; ++half) {
+        const Item x = item<true>(w, half, BH, nt, ragged);
+        if (x.t0 < 0) continue;
+        const int qs = qi % SLOTS;
+        const uint32_t qph = (qi / SLOTS) & 1;
+        ++qi;
+        const int wq0 = x.t0 + 64 * wg;
+        const int qrow = wq0 + 16 * (warp % 4) + lane / 4;  // and qrow + 8
+        // the q tile's live K/V tiles, kj0 .. kj0 + N - 1, and this
+        // warpgroup's run of them, tiles a .. a + n - 1 (none where its
+        // rows lie past Sq)
+        int kj0, wkj0 = 0;
+        const int N = live_k_tiles(x.t0, min(x.t0 + TILE, Sq) - 1, Sk,
+                                   q_offset, k_offset, causal, window, kj0);
+        const int n = wq0 < Sq ? live_k_tiles(wq0, min(wq0 + 63, Sq - 1), Sk,
+                                              q_offset, k_offset, causal,
+                                              window, wkj0)
+                               : 0;
+        const int a = n > 0 ? wkj0 - kj0 : 0;
+        // this thread's two rows' lse * log2(e) and delta (0 past Sq:
+        // those rows are masked)
+        float lse2[2], dl[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int row = qrow + 8 * i;
+          const bool in = row < Sq;
+          lse2[i] = in ? lse[(size_t)x.row * Sq + row] * kLog2e : 0.f;
+          dl[i] = in ? delta[(size_t)x.row * Sq + row] : 0.f;
+        }
+        uint8_t* Qw = Qs + qs * L::big + 64 * wg * L::atom;
+        const uint64_t qdesc = desc_sw<D>(Qw);
+        const uint64_t dodesc =
+            desc_sw<D>(dOs + qs * L::big + 64 * wg * L::atom);
+        float dq_acc[D / 2];
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+        mbar_wait_spin(&qfull[qs], qph);
+        for (int j = 0; j < a; ++j) pass(r + j);
+        if (n > 0) {
+          // S and dP of step t (64 queries x 64 keys each, D/16 k16 steps)
+          // as two groups; the packed dS of a step waits in dsa for its
+          // dQ product, issued with the next step's S and dP
+          float st[32], dpt[32];
+          uint32_t dsa[4][4];
+          auto scores = [&](int t) {
+            const int s = t % STAGES;
+            const uint64_t kdesc = desc_sw<D>(Ks + s * L::small);
+            const uint64_t vdesc = desc_sw<D>(Vs + s * L::small);
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk)
+              wgmma_ss_n64(st, desc_k<D, TILE>(qdesc, kk),
+                           desc_k<D, STEP>(kdesc, kk), kk);
+            wgmma_commit();
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk)
+              wgmma_ss_n64(dpt, desc_k<D, TILE>(dodesc, kk),
+                           desc_k<D, STEP>(vdesc, kk), kk);
+            wgmma_commit();
+          };
+          // dQ += dS K of step t, K MN-major from the ring
+          auto grad = [&](int t) {
+            const uint64_t kdesc = desc_sw<D>(Ks + (t % STAGES) * L::small);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_rs_rows<D, STEP>(dq_acc, dsa[kk], kdesc, kk);
+            wgmma_commit();
+          };
+          // P = exp2(S*scale*log2(e) - lse*log2(e)) in place of S, on the
+          // accumulator layout: element i is row qrow + 8*((i/2)%2), key
+          // k0 + 8*(i/4) + 2*(lane%4) + i%2
+          auto probs = [&](int k0) {
+#pragma unroll
+            for (int i = 0; i < 32; ++i)
+              st[i] = exp2_ftz(fmaf(st[i], scale_log2, -lse2[(i / 2) % 2]));
+            if (wq0 + 64 > Sq || k0 + STEP > Sk ||
+                !rows_all_valid(wq0, wq0 + 63, k0, k0 + STEP - 1, q_offset,
+                                k_offset, causal, window))
+              zero_keys(st, qrow, k0, Sq, Sk, q_offset, k_offset, causal,
+                        window);
+          };
+          // dS = P (dP - delta) scale in place of P, then packed to bf16
+          // (the TPU kernel's ds.astype(k.dtype)) as the A fragments of
+          // the step's dQ product
+          auto dsoft = [&]() {
+#pragma unroll
+            for (int i = 0; i < 32; ++i)
+              st[i] = st[i] * (dpt[i] - dl[(i / 2) % 2]) * scale;
+          };
+          auto pack = [&]() {
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) pack_a(st, kk, dsa[kk]);
+          };
+          const int t0 = r + a;
+          {
+            // the first step: S and dP alone
+            mbar_wait_spin(&full[t0 % STAGES], (t0 / STAGES) & 1);
+            wgmma_fence();
+            scores(t0);
+            wgmma_wait<1>();
+            fence_operands(st);
+            probs(wkj0 * STEP);
+            wgmma_wait<0>();
+            fence_operands(dpt);
+            dsoft();
+            pack();
+          }
+          for (int j = 1; j < n; ++j) {
+            // S(j), dP(j) and the dQ product of j - 1 in flight together:
+            // P(j) is formed while dP(j) and that dQ run, dS(j) while the
+            // dQ does, packed once it is done with the fragments
+            const int t = t0 + j;
+            mbar_wait_spin(&full[t % STAGES], (t / STAGES) & 1);
+            wgmma_fence();
+            scores(t);
+            grad(t - 1);
+            wgmma_wait<2>();
+            fence_operands(st);
+            probs((wkj0 + j) * STEP);
+            wgmma_wait<1>();
+            fence_operands(dpt);
+            dsoft();
+            wgmma_wait<0>();
+            fence_operands(dq_acc);
+            fence_operands(dsa);
+            // step j - 1 is done with (its K read by the dQ product just
+            // waited on, its V by its dP)
+            release(&empty[(t - 1) % STAGES]);
+            pack();
+          }
+          // the last step's dQ product
+          const int t = t0 + n - 1;
+          wgmma_fence();
+          grad(t);
+          wgmma_wait<0>();
+          fence_operands(dq_acc);
+          release(&empty[t % STAGES]);
+        }
+        for (int j = a + n; j < N; ++j) pass(r + j);
+        r += N;
+        // dQ through this warpgroup's Q rows (read by nothing after its
+        // last S) to 16-byte stores of each row's first hd columns; the
+        // slot is released once they are out
+        acc_to_tile<D, TILE>(dq_acc, 1.f, 1.f, Qw);
+        wg_barrier(1 + wg);
+        if (wq0 < Sq)
+          tile_to_rows<D, TILE>(Qw, dq + ((size_t)x.row * Sq + wq0) * hd,
+                                Sq - wq0, hd);
+        fence_proxy_async();
+        release(&qempty[qs]);
+      }
+    }
+    release(done);
+  }
+}
+
+// The schedule by shape, as the narrow forward's: where the 192-row tiles
+// fill at most one wave of the SMs (tpu_model_lm_d32's B 16 x H 8 x S
+// 128: 128), one CTA a tile, heaviest first; where they fill more (B 8 x
+// H 16 x S 1024: 768), persistent, one CTA an SM over pairs of tiles.
+// Every head's operands fit in L2 at these widths: no groups of heads.
+template <int D>
+cudaError_t launch_dq(const Args& a) {
+  // with Sk == 0 no K/V tile is loaded; the maps still need an extent
+  const void* kp = a.Sk > 0 ? a.k : a.q;
+  const void* vp = a.Sk > 0 ? a.v : a.q;
+  const int krows = a.Sk > 0 ? a.Sk : a.Sq;
+  const int kslabs = a.Sk > 0 ? a.B * a.KVH : a.B * a.H;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = encode_rows_map<D>(&tq, a.q, a.hd, a.Sq, a.B * a.H, TILE);
+  if (err == cudaSuccess)
+    err = encode_rows_map<D>(&tdo, a.dout, a.hd, a.Sq, a.B * a.H, TILE);
+  if (err == cudaSuccess)
+    err = encode_rows_map<D>(&tk, kp, a.hd, krows, kslabs, STEP);
+  if (err == cudaSuccess)
+    err = encode_rows_map<D>(&tv, vp, a.hd, krows, kslabs, STEP);
+  if (err != cudaSuccess) return err;
+  constexpr size_t smem = Layout<D>::bytes;
+  auto kernel = flash_dq_narrow_kernel<D>;
+  err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  err = multiprocessors(&sms);
+  if (err != cudaSuccess) return err;
+  const int BH = a.B * a.H, nt = (a.Sq + TILE - 1) / TILE;
+  const bool paired = nt * BH > sms;
+  const int items = (paired ? (nt + 1) / 2 : nt) * BH;
+  kernel<<<std::min(items, sms), THREADS, smem, a.stream>>>(
+      tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dq), BH,
+      a.H / a.KVH, a.Sq, a.Sk, a.hd, a.q_offset, a.k_offset, a.causal,
+      a.window, a.scale, items, paired ? 2 : 1,
+      ragged_rank<true>(a.Sq, a.Sk, a.q_offset, a.k_offset, a.causal,
+                        a.window));
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv(const Args& a) {
+  // with Sq == 0 no Q/dO tile is loaded; the maps still need an extent
+  const void* qp = a.Sq > 0 ? a.q : a.k;
+  const void* gp = a.Sq > 0 ? a.dout : a.k;
+  const int qrows = a.Sq > 0 ? a.Sq : a.Sk;
+  const int qslabs = a.Sq > 0 ? a.B * a.H : a.B * a.KVH;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = encode_rows_map<D>(&tq, qp, a.hd, qrows, qslabs, STEP);
+  if (err == cudaSuccess)
+    err = encode_rows_map<D>(&tdo, gp, a.hd, qrows, qslabs, STEP);
+  if (err == cudaSuccess)
+    err = encode_rows_map<D>(&tk, a.k, a.hd, a.Sk, a.B * a.KVH, TILE);
+  if (err == cudaSuccess)
+    err = encode_rows_map<D>(&tv, a.v, a.hd, a.Sk, a.B * a.KVH, TILE);
+  if (err != cudaSuccess) return err;
+  constexpr size_t smem = Layout<D>::bytes;
+  auto kernel = flash_dkv_narrow_kernel<D>;
+  err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  err = multiprocessors(&sms);
+  if (err != cudaSuccess) return err;
+  const int BKV = a.B * a.KVH, nt = (a.Sk + TILE - 1) / TILE;
+  const bool paired = nt * BKV > sms;
+  const int items = (paired ? (nt + 1) / 2 : nt) * BKV;
+  kernel<<<std::min(items, sms), THREADS, smem, a.stream>>>(
+      tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), BKV, a.H / a.KVH, a.Sq, a.Sk, a.hd,
+      a.q_offset, a.k_offset, a.causal, a.window, a.scale, items,
+      paired ? 2 : 1,
+      ragged_rank<false>(a.Sq, a.Sk, a.q_offset, a.k_offset, a.causal,
+                         a.window));
+  return cudaGetLastError();
+}
+
+}  // namespace nb
+
 template <int D>
 cudaError_t launch_dq(const Args& a, bool bf16_body) {
-  if (bf16_body) return dq::launch<D>(a);
+  if (bf16_body) {
+    if constexpr (D <= 32)
+      return nb::launch_dq<D>(a);
+    else
+      return dq::launch<D>(a);
+  }
   constexpr int R = F32Layout<D>::R;
   const dim3 grid((a.Sq + R - 1) / R, a.B * a.H);
   constexpr size_t smem = F32Layout<D>::bytes;
@@ -2043,6 +2992,8 @@ cudaError_t launch_dkv(const Args& a, bool bf16_body) {
   if (bf16_body) {
     if constexpr (D == 256)
       return dkv::launch_w256(a);
+    else if constexpr (D <= 32)
+      return nb::launch_dkv<D>(a);
     else
       return dkv::launch<D>(a);
   }

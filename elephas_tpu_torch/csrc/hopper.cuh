@@ -39,7 +39,11 @@
 //   device memory into shared memory, bypassing L1), `cp_async_commit`
 //   and `cp_async_wait<N>` (`cp.async.commit_group` / `wait_group`:
 //   returns once at most N of this thread's groups are in flight; the
-//   finished copies are then visible to this thread).
+//   finished copies are then visible to this thread); `cp_async_4`
+//   (`cp.async.ca`, 4 bytes, or 4 zero bytes where the source is out of
+//   range) and `cp_async_mbar_arrive` (`cp.async.mbarrier.arrive.noinc`:
+//   an mbarrier arrival once this thread's copies have landed, so the
+//   threads that wait on the barrier see them).
 // - Tiles of body width W: the bodies are instantiated at W = 16, 32, 64,
 //   128 and 256, and a head dim d (a multiple of 8, 8 <= d <= 256) runs
 //   the body of the smallest W >= d: 8 and 16 on W 16, 24 and 32 on W 32,
@@ -330,6 +334,22 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// 4 bytes from device memory into shared memory at `dst`, or 4 zero
+// bytes where `in` is false (a source size of 0 reads nothing).
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+// One arrival at the mbarrier `bar` once every cp.async this thread has
+// issued so far has landed (`cp.async.mbarrier.arrive.noinc`: the
+// barrier's expected count includes this arrival).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(bar)
+               : "memory");
 }
 
 // ---------------------------------------------------------------- wgmma

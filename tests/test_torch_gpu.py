@@ -441,7 +441,13 @@ def test_flash_fwd_kernel_is_bit_reproducible_at_head_dim_128(cuda, case):
 # ring hops whose diagonal crosses a tile and whose first rows see no
 # key, GQA 8/1 and 4/1 on ragged lengths, non-causal ragged lengths; then
 # past one wave (more than 132 q tiles): pairs of q tiles with a ragged
-# last tile under GQA 4/1, an odd middle tile under a window
+# last tile under GQA 4/1, an odd middle tile under a window. The narrow
+# backward bodies take the same 192-row tiles as q tiles (dQ, 64-key K/V
+# tiles) and as k tiles (dK/dV, 64-row Q/dO tiles), each warpgroup 64 of
+# the rows: so also a third k tile of one key row, a k tile whose second
+# warpgroup holds one key row and third none, a ring hop whose last key
+# rows (and a whole k tile) see no query, and past one wave of k tiles
+# too: pairs with a ragged last tile, causal and not
 _NARROW_EDGE_CASES = {
     # (B, H, KVH, Sq, Sk, causal, window, q_offset, k_offset)
     "sq_193": (2, 4, 4, 193, 193, True, None, 0, 0),
@@ -456,6 +462,11 @@ _NARROW_EDGE_CASES = {
     "noncausal_ragged": (1, 4, 4, 500, 333, False, None, 0, 0),
     "paired_gqa4_ragged": (4, 16, 4, 1000, 1000, True, None, 0, 0),
     "paired_window": (4, 16, 16, 500, 500, True, 129, 0, 0),
+    "sk_385": (1, 4, 4, 385, 385, True, None, 0, 0),
+    "sk_65": (1, 4, 2, 300, 65, False, None, 0, 0),
+    "hop_keys_dead": (1, 4, 4, 200, 300, True, None, 0, 150),
+    "paired_ragged_1000": (2, 16, 16, 1000, 1000, True, None, 0, 0),
+    "paired_noncausal": (2, 32, 32, 450, 450, False, None, 0, 0),
 }
 
 
@@ -508,6 +519,36 @@ def test_flash_fwd_kernel_is_bit_reproducible_at_head_dim_32(cuda, case):
     (o1, l1), (o2, l2) = flash_forward(*args), flash_forward(*args)
     assert torch.equal(o1.view(torch.int16), o2.view(torch.int16))
     assert torch.equal(l1, l2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(_NARROW_EDGE_CASES))
+@pytest.mark.parametrize("head_dim", [16, 32])
+def test_flash_bwd_at_narrow_head_dims_tile_edges_matches_plain(
+        cuda, no_tf32, head_dim, case, dtype):
+    """dQ and dK/dV at head dims 16 and 32 (bf16: the narrow bodies; f32:
+    the f32 bodies) against their plain versions where the narrow bodies'
+    192-row q and k tiles, 64-row warpgroups and 64-row streamed tiles
+    meet the causal diagonal, the window's edge, ragged lengths and
+    ring-hop offsets, one CTA a tile and in pairs past one wave, with the
+    head-dim-64 tests' tolerances."""
+    _check_backward(cuda, case, dtype, head_dim, _NARROW_EDGE_CASES)
+
+
+@pytest.mark.parametrize("case", ["sq_193", "sk_385", "sk_65",
+                                  "window_129", "hop_keys_dead",
+                                  "gqa8_ragged", "paired_ragged_1000",
+                                  "paired_noncausal", "paired_window"])
+def test_flash_bwd_kernels_are_bit_reproducible_at_head_dim_32(cuda, case):
+    """Two dQ and two dK/dV launches at head dim 32 on the same bf16
+    inputs give the same bits (the narrow bodies: no atomics, each
+    warpgroup owns its rows and writes them alone, and its free running
+    orders issue, not arithmetic)."""
+    from elephas_tpu_torch.ops.flash_attention import flash_dq
+    args = _bwd_args(case, 6, cuda, 32, _NARROW_EDGE_CASES)
+    first, second = flash_dq(*args), flash_dq(*args)
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+    _assert_dkv_reproducible(args)
 
 
 # head dims below their body's width (8 on the 16-wide body, 24 on 32,
