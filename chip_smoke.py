@@ -103,7 +103,9 @@ bit-equal, trains one more epoch, and goes through ``TPUModel.save``
 and ``load_tpu_model`` to a bit-equal ``predict``; and one f32
 gradient at that config through the kernels meets the plain path's;
 and ``forward`` of the ``examples/http_serving.py`` LM (head dim 16,
-f32) runs the head-dim-16 flash kernel and meets the plain path.
+f32) runs the head-dim-16 flash kernel and meets the plain path (every
+launch on the f32 forward's strip body, as the wrapper's
+``f32_narrow_launches`` count shows).
 Serving over HTTP: ``http_serving_flagship`` puts ``ServingServer`` at
 the flagship width in front of three engines (the default contiguous
 cache; the contiguous cache with a registered system prompt,
@@ -131,7 +133,11 @@ tokens and both engines' outputs equal ``generate`` (tie-aware) and the
 target as its own draft accepts every proposal.
 ``speculative_example`` runs ``examples/speculative_serving.py``'s
 program (head dim 16, f32: its training and distillation on the d 16
-flash kernels). The LM's remaining single-device surface:
+flash kernels, every forward and dK/dV launch on the f32 strip bodies;
+``flash_f32_bodies`` holds the f32 bodies at d 16 against their plain
+versions at both paths' shapes and times them, and the build line's
+``f32_narrow_bodies`` gives the strip bodies' registers, no spill
+allowed). The LM's remaining single-device surface:
 ``int8_paged_flagship`` serves the flagship's ``quantize_lm_params``
 weights through the paged engine (f32 tokens of the fused kernel equal
 the gather path's, tie-aware; bf16 timed, every launch on the split
@@ -743,6 +749,27 @@ NARROW_BWD_CASES = {
     "hop_keys_dead": (2, 16, 16, 200, 300, True, None, 0, 150),
     "paired_ragged_1000": (2, 16, 16, 1000, 1000, True, None, 0, 0),
     "paired_noncausal": (2, 32, 32, 450, 450, False, None, 0, 0)}
+# the f32 strip bodies of the forward and dK/dV at widths 16 and 32 (head
+# dims 8-32; csrc/f32_narrow.cuh), as the build names them: their
+# mangled-name fragments and what each is
+F32_STRIP = ("a warp a strip of 16 {rows} rows (a CTA a warp, heaviest "
+             "strips first) walking only its live {other} in steps of 8, "
+             "the operands by 16-byte cp.async into the warp's ring of two "
+             "64-row stages in one round trip, 3xTF32 products on the "
+             "tensor cores (mma.sync m16n8k8), {elementwise} on the C "
+             "fragments")
+F32_NARROW_BODIES = {
+    **{f"fwd_{d}": (f"flash_fwd_f32_narrow_kernelILi{d}E", F32_STRIP.format(
+        rows="query", other="keys",
+        elementwise="the online softmax")) for d in (16, 32)},
+    **{f"dkv_{d}": (f"flash_dkv_f32_narrow_kernelILi{d}E", F32_STRIP.format(
+        rows="key", other="query rows of each head of the group",
+        elementwise="P and dS")) for d in (16, 32)}}
+# the f32 CUDA-core bodies: dQ at every width, the forward and dK/dV at
+# 64-256
+F32_CUDA_CORE_BODY = ("256 threads on the CUDA cores over 64 x 64 tiles, a 4x4 "
+                "block of each tile a thread (32 x 32 and 2x2 in dQ and "
+                "dK/dV at width 256)")
 # the special-function units' exp2 rate on an H100 SXM5 (Shah et al.,
 # 2024, FlashAttention-3: 3.9 TFLOPS of special functions): one exp2 a
 # causal (q, k) pair bounds the narrow forward bodies, and the backward
@@ -752,6 +779,16 @@ PEAK_EXP2_PER_S = 3.9e12
 # forward (B 4 x H 4 x S 96), and speculative_example's training and
 # distillation steps (B 8 x H 4 x S 32: rows of 33 tokens)
 F32_TIMED = {"forward_d16": (4, 4, 96), "speculative_example": (8, 4, 32)}
+# the f32 CUDA-core body at widths 64-256 on the f32 checks that launch
+# it, path:
+# (head dim, B, H, KVH, S, window), causal: the flagship's train_parity
+# (B 2 x S 1024), and lm_d128's, lm_d96's and lm_d256's f32 gradients at
+# 2 layers (B 1 x S 512 at their heads and windows; lm_moe's f32 checks
+# run the d 128 body at B 1 x S 256)
+F32_WIDE_TIMED = {"train_parity": (64, 2, 16, 16, 1024, None),
+                  "lm_d128_grad": (128, 1, 32, 8, 512, 4096),
+                  "lm_d96_grad": (96, 1, 32, 32, 512, 2047),
+                  "lm_d256_grad": (256, 1, 8, 1, 512, None)}
 # the card's f32 peak on the CUDA cores (NVIDIA H100 SXM data sheet), the
 # f32 bodies' operations bound
 PEAK_F32_FLOPS = 67e12
@@ -841,6 +878,23 @@ def wide_body_registers(report, bodies):
                                        ln.split(";")[0])[-1], 16)
                 regs["producer" if "DEALLOC" in ln else "consumers"] = count
         out[name] = regs
+    return out
+
+
+def f32_narrow_registers(report):
+    """ptxas's registers and spill line for each f32 strip body
+    (``F32_NARROW_BODIES``), from the build report."""
+    out, cur = {}, None
+    for ln in report.splitlines():
+        if "Compiling entry function" in ln:
+            cur = next((name for name, (frag, _) in
+                        F32_NARROW_BODIES.items() if frag in ln), None)
+        elif cur and "spill stores" in ln:
+            out.setdefault(cur, {})["spill"] = ln.strip()
+        elif cur and "Used" in ln and "registers" in ln:
+            out.setdefault(cur, {})["registers"] = int(
+                ln.split("Used ")[1].split()[0])
+            cur = None
     return out
 
 
@@ -1024,7 +1078,11 @@ def check_flash(flush):
 def check_flash_f32(flush):
     """The f32 bodies at head dim 16 on their driven paths' shapes
     (``F32_TIMED``): the forward at both, dQ and dK/dV at
-    speculative_example's; each against its plain version on the operands
+    speculative_example's (the forward and dK/dV the strip bodies,
+    ``F32_NARROW_BODIES``; dQ the CUDA-core body, ``F32_CUDA_CORE_BODY``:
+    each entry's ``body``); then the CUDA-core body at widths 64-256 on
+    the shapes of the f32 checks that launch it (``F32_WIDE_TIMED``, in
+    ``wide_bodies``). Each against its plain version on the operands
     timed (O within 2e-4, LSE within 1e-4, the gradients within 1e-4 of
     max|ref|), timed as the bf16 bodies are, beside its bound (the larger
     of its bytes at the memory rate and its operations at the f32 peak of
@@ -1053,33 +1111,49 @@ def check_flash_f32(flush):
         return {"library_ms": time_ms(lib, flush=flush),
                 "library_device_ms": device_ms(lib, flush)}
 
-    for path, (b, h, s) in F32_TIMED.items():
-        q, k, v, g = (torch.randn((b, h, s, d), generator=gen, device="cuda")
-                      for _ in range(4))
-        o, lse = flash_forward(q, k, v, causal=True)
-        o_ref, l_ref = flash_forward_plain(q, k, v, causal=True)
+    shapes = {**{p: (d, b, h, h, s, None)
+                 for p, (b, h, s) in F32_TIMED.items()},
+              **F32_WIDE_TIMED}
+    wide = {}
+    for path, (dim, b, h, kvh, s, window) in shapes.items():
+        q, g = (torch.randn((b, h, s, dim), generator=gen, device="cuda")
+                for _ in range(2))
+        k, v = (torch.randn((b, kvh, s, dim), generator=gen, device="cuda")
+                for _ in range(2))
+        o, lse = flash_forward(q, k, v, causal=True, window=window)
+        o_ref, l_ref = flash_forward_plain(q, k, v, causal=True,
+                                           window=window)
         err = {"o_f32": max_err(o, o_ref), "lse_f32": max_err(lse, l_ref)}
         require(err["o_f32"] <= 2e-4 and err["lse_f32"] <= 1e-4,
                 f"flash f32 forward at {path}'s shape: errors {err}")
-        # 4*d flops a unmasked pair; q, k, v in and o out, the lse out
+        # 4*d flops a unmasked pair (a window at least S - 1 masks none);
+        # q, k, v in and o out, the lse out
         pairs = b * h * causal_pairs(s)
-        size = b * h * s * d * 4
+        size = b * h * s * dim * 4
+        kv_size = b * kvh * s * dim * 4
         rows = b * h * s * 4
+        gqa = {"enable_gqa": True} if kvh != h else {}
+        narrow = dim <= 32
         entry = {"fwd": {
-            "shape": {"B": b, "H": h, "S": s, "D": d, "dtype": "float32"},
+            "body": (F32_NARROW_BODIES[f"fwd_{dim}"][1] if narrow
+                     else F32_CUDA_CORE_BODY),
+            "shape": {"B": b, "H": h, "KVH": kvh, "S": s, "D": dim,
+                      "window": window, "dtype": "float32"},
             "max_abs_err": max(err.values()),
-            **bound_f32(4 * d * pairs, 4 * size + rows),
-            **times(lambda: flash_forward(q, k, v, causal=True),
-                    lambda: flash_forward_plain(q, k, v, causal=True)),
+            **bound_f32(4 * dim * pairs, 2 * size + 2 * kv_size + rows),
+            **times(lambda: flash_forward(q, k, v, causal=True,
+                                          window=window),
+                    lambda: flash_forward_plain(q, k, v, causal=True,
+                                                window=window)),
             **lib_times(lambda: torch.nn.functional.
-                        scaled_dot_product_attention(q, k, v,
-                                                     is_causal=True))}}
-        if path == "speculative_example":
+                        scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                     **gqa))}}
+        if path in F32_WIDE_TIMED or path == "speculative_example":
             delta = (g * o_ref).sum(-1)
-            args = (q, k, v, g, l_ref, delta, 0, 0, True, None)
+            args = (q, k, v, g, l_ref, delta, 0, 0, True, window)
             ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
             o_lib = torch.nn.functional.scaled_dot_product_attention(
-                ql, kl, vl, is_causal=True)
+                ql, kl, vl, is_causal=True, **gqa)
 
             # one call for dQ, dK and dV together, timed once
             lib = lib_times(lambda: torch.autograd.grad(
@@ -1088,10 +1162,10 @@ def check_flash_f32(flush):
             # dQ: 3 products (S, dP, dQ), dK/dV: 4, 2*d flops a pair each;
             # q, dO, dq or k, v, dk, dv once each, the lse and delta in
             for part, fn, plain, flops, nbytes in (
-                    ("dq", flash_dq, flash_dq_plain, 3 * 2 * d * pairs,
-                     5 * size + 2 * rows),
-                    ("dkv", flash_dkv, flash_dkv_plain, 4 * 2 * d * pairs,
-                     6 * size + 2 * rows)):
+                    ("dq", flash_dq, flash_dq_plain, 3 * 2 * dim * pairs,
+                     3 * size + 2 * kv_size + 2 * rows),
+                    ("dkv", flash_dkv, flash_dkv_plain, 4 * 2 * dim * pairs,
+                     2 * size + 4 * kv_size + 2 * rows)):
                 got, want = fn(*args), plain(*args)
                 got = got if part == "dkv" else (got,)
                 want = want if part == "dkv" else (want,)
@@ -1100,6 +1174,8 @@ def check_flash_f32(flush):
                 require(rel <= 1e-4, f"flash f32 {part} at {path}'s shape: "
                         f"error {rel} of max|ref|")
                 entry[part] = {
+                    "body": (F32_NARROW_BODIES[f"dkv_{dim}"][1]
+                             if part == "dkv" and narrow else F32_CUDA_CORE_BODY),
                     "shape": entry["fwd"]["shape"],
                     "max_abs_err": max(max_err(a, w)
                                        for a, w in zip(got, want)),
@@ -1108,8 +1184,9 @@ def check_flash_f32(flush):
                     "library_note": "autograd's backward through f32 SDPA: "
                                     "dQ, dK and dV together"}
             del ql, kl, vl, o_lib
-        out[path] = entry
+        (wide if path in F32_WIDE_TIMED else out)[path] = entry
         del q, k, v, g, o, lse, o_ref, l_ref
+    out["wide_bodies"] = wide
     emit({"phase": "flash_f32_bodies", "head_dim": d, **out,
           "tolerance": {"o_f32": 2e-4, "lse_f32": 1e-4,
                         "grad_f32_relative_to_max_ref": 1e-4},
@@ -1459,6 +1536,8 @@ def reset_counts():
     flash_backward.dq_launches = 0
     flash_backward.dkv_launches = 0
     flash_backward.dkv_reduce_launches = 0
+    flash_forward.f32_narrow_launches = 0
+    flash_backward.dkv_f32_narrow_launches = 0
     paged_decode_attention.launches = 0
     paged_decode_attention.split_launches = 0
 
@@ -1471,6 +1550,9 @@ def read_counts():
             "flash_dq": flash_backward.dq_launches,
             "flash_dkv": flash_backward.dkv_launches,
             "flash_dkv_reduce": flash_backward.dkv_reduce_launches,
+            # the launches above that ran the f32 strip bodies
+            "flash_fwd_f32_narrow": flash_forward.f32_narrow_launches,
+            "flash_dkv_f32_narrow": flash_backward.dkv_f32_narrow_launches,
             "paged_decode": paged_decode_attention.launches,
             "paged_split": paged_decode_attention.split_launches}
 
@@ -1546,6 +1628,8 @@ def run_forward_d16():
     require(counts["flash_fwd"] == cfg.num_layers,
             f"forward launched the d 16 flash kernel once per layer: "
             f"{counts}")
+    require(counts["flash_fwd_f32_narrow"] == counts["flash_fwd"],
+            f"every f32 d 16 forward launch took the strip body: {counts}")
     emit({"phase": "forward_d16", "head_dim": cfg.head_dim, "batch": 4,
           "seq": cfg.max_seq_len, "max_abs_err_flash_vs_plain": err,
           "tolerance": 1e-4, "launches": counts})
@@ -2211,6 +2295,10 @@ def run_speculative_example():
     for name in ("flash_fwd", "flash_dq", "flash_dkv"):
         require(counts[name] > 0, f"the example's training and distillation "
                 f"launched {name} at d 16: {counts}")
+    for name in ("flash_fwd", "flash_dkv"):
+        require(counts[f"{name}_f32_narrow"] == counts[name],
+                f"every f32 d 16 {name} launch took the strip body: "
+                f"{counts}")
     emit({"phase": "speculative_example", "head_dim": target_cfg.head_dim,
           **out, "near_tie_divergences": ties, "launches": counts,
           "seconds": time.perf_counter() - t_phase})
@@ -4836,6 +4924,7 @@ def main() -> int:
     narrow = wide_body_registers(report, NARROW_BODIES)
     narrow_bwd = wide_body_registers(report, NARROW_BWD_BODIES)
     split_regs = paged_split_registers(report)
+    f32_narrow = f32_narrow_registers(report)
     # a product in flight where two paths meet: ptxas serializes every
     # wgmma of the kernel (C7515), as a trap in a consumer does (C7512)
     serialized = [ln for ln in report.splitlines()
@@ -4844,8 +4933,15 @@ def main() -> int:
           "ptxas": resources, "d128_bodies": wide, "d256_bodies": wide256,
           "narrow_bodies": narrow, "narrow_bwd_bodies": narrow_bwd,
           "paged_split_bodies": split_regs,
+          "f32_narrow_bodies": f32_narrow,
           "serialized_wgmma": serialized})
     require(not spills, f"no kernel spills registers: {spills}")
+    require(sorted(f32_narrow) == sorted(F32_NARROW_BODIES)
+            and all("0 bytes spill stores, 0 bytes spill loads"
+                    in r.get("spill", "") and r.get("registers", 256) <= 255
+                    for r in f32_narrow.values()),
+            f"the f32 strip bodies are built at widths 16 and 32, without a "
+            f"spill: {f32_narrow}")
     require(not any("narrow" in ln for ln in serialized),
             f"the narrow forward and backward bodies' wgmma is not "
             f"serialized: {serialized}")
@@ -4886,7 +4982,9 @@ def main() -> int:
     srv_counts = timed("serving", run_serving, params, cfg)
     flag_counts = timed("http_serving_flagship", run_http_serving_flagship,
                         params, cfg)
+    reset_counts()
     timed("train_parity", run_train_parity, params, cfg)
+    parity_counts = read_counts()
     spec = timed("speculative_flagship", run_speculative_flagship, params,
                  cfg)
     int8_counts = timed("int8_paged_flagship", run_int8_paged_flagship,
@@ -4945,6 +5043,7 @@ def main() -> int:
              "keras_layers": layers_counts,
              "http_serving_example": ex_counts,
              "http_serving_flagship": flag_counts,
+             "train_parity": parity_counts,
              **{f"speculative_flagship_{part}": c
                 for part, c in spec.items()},
              "speculative_example": spex_counts,
@@ -5063,8 +5162,22 @@ def main() -> int:
             part = {"flash_fwd": "fwd", "flash_dq": "dq",
                     "flash_dkv": "dkv"}[name]
             entry["by_head_dim"]["16"]["f32_body"] = {
-                p: {**f32[p][part], "launches": f32_paths[p][name]}
+                p: {**f32[p][part], "launches": f32_paths[p][name],
+                    **({"strip_body_launches":
+                        f32_paths[p][f"{name}_f32_narrow"],
+                        "registers": f32_narrow[f"{part}_16"]}
+                       if part != "dq" else {})}
                 for p in F32_TIMED if part in f32[p]}
+            # the f32 CUDA-core body at 64-256 on the f32 checks that
+            # launch it
+            wide_paths = {"train_parity": parity_counts,
+                          "lm_d128_grad": d128["grad"],
+                          "lm_d96_grad": d96["grad"],
+                          "lm_d256_grad": d256["grad"]}
+            for p, (dim, *_) in F32_WIDE_TIMED.items():
+                entry["by_head_dim"][str(dim)].setdefault("f32_body", {})[
+                    p] = {**f32["wide_bodies"][p][part],
+                          "launches": wide_paths[p][name]}
         else:
             # the general body in f32 at the decode shape of the path
             # that runs it

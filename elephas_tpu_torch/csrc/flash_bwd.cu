@@ -215,10 +215,15 @@
 //   in order (16-byte loads) and storing the 4 bf16 columns below hd.
 //   Bound by bytes: the partials read once (17.5 MB of f32 at Gemma-2B's
 //   fit, most of them still in L2) and the split tiles' rows written.
-// - f32 (both kernels): 256 threads on the CUDA cores, each holding a
-//   4x4 block of the 64x64 score tile and a 4x(D/16) block of every
-//   accumulator; at D 256, where four 64-row f32 tiles would not fit
-//   shared memory, 32-row tiles and 2x2 and 2x16 blocks.
+// - f32 (dQ at every width, dK/dV at 64-256): 256 threads on the CUDA
+//   cores, each holding a 4x4 block of the 64x64 score tile and a
+//   4x(D/16) block of every accumulator; at D 256, where four 64-row f32
+//   tiles would not fit shared memory, 32-row tiles and 2x2 and 2x16
+//   blocks.
+// - f32 dK/dV at widths 16 and 32 (`flash_dkv_f32_narrow_kernel`, below):
+//   a warp a strip of 16 key rows walking only the live query rows of
+//   each head of its group, operands by cp.async in one round trip,
+//   3xTF32 products on the tensor cores (f32_narrow.cuh says why).
 //
 // What bounds it on the H100. At the training shape (B 8, H 16, S 1024,
 // D 64, causal, bf16) dQ needs 3 products (S, dP, dQ) and dK/dV 4 (S,
@@ -243,7 +248,163 @@
 #include <algorithm>
 
 #include "common.cuh"
+#include "f32_narrow.cuh"
 #include "hopper.cuh"
+
+namespace etpu::f32n {
+
+// ------------------------------------- f32 at widths 16 and 32: strips
+// The design is f32_narrow.cuh's. A warp's strip is 16 key rows of one
+// kv head, K and V split once into registers; it walks the live query
+// rows of each query head of the group in turn (the stages of one head,
+// then the next's, through one ring), and per step of 8 query rows forms
+// S^T = K Q^T and dP^T = V dO^T, then on their C fragments P^T = exp(S^T
+// scale - lse) (one exp2 of an FMA) and dS^T = P^T (dP^T - delta) scale,
+// zero on masked pairs, as `_dkv_kernel` does (pallas_attention.py:284-
+// 290), and adds dV += P^T dO and dK += dS^T Q. dK and dV of the group's
+// heads stay in the warp's registers and are stored once.
+template <int W>
+__global__ void __launch_bounds__(kWarps * 32)
+    flash_dkv_f32_narrow_kernel(const float* __restrict__ q,
+                                const float* __restrict__ k,
+                                const float* __restrict__ v,
+                                const float* __restrict__ dout,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ delta,
+                                float* __restrict__ dk,
+                                float* __restrict__ dv, int BKV, int grp,
+                                int Sq, int Sk, int hd, int q_offset,
+                                int k_offset, int causal, int window,
+                                float scale) {
+  Strip<W> strip;  // the warp's strip (dkv)
+  using Smem = DkvSmem<W>;
+  constexpr int L = LD<W>;
+  extern __shared__ __align__(16) float smem_n[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  // a CTA's warps take one strip of kWarps kv heads; blockIdx.y counts
+  // strips from a head's first, so the heaviest are scheduled first
+  const int bkv = blockIdx.x * kWarps + warp;
+  if (bkv >= BKV) return;
+  const int c0 = blockIdx.y * ROWS;
+  // GQA: kv row bkv = b*KVH + kh serves query rows b*H + kh*grp + gi,
+  // that is bkv * grp + gi (H = KVH * grp)
+  const size_t qrow0 = (size_t)bkv * grp;
+  float* Ks = smem_n + warp * Smem::floats;
+  float* Vs = Ks + Smem::strip;
+  float* ring = Vs + Smem::strip;  // stage slot: Q, dO, lse, delta
+
+  int2 run[2];  // the lane's two key rows' runs of queries
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    run[r] = query_run(c0 + g + 8 * r, Sq, Sk, q_offset, k_offset, causal,
+                       window);
+  const Walk walk(
+      query_run(c0, Sq, Sk, q_offset, k_offset, causal, window),
+      query_run(min(c0 + ROWS, Sk) - 1, Sq, Sk, q_offset, k_offset, causal,
+                window));
+  // the ring's order: the stages of the group's first query head, then
+  // the next's; a cursor (head, stage) for the copies and one for the
+  // products, advanced without a run-time division
+  const int total = grp * walk.stages;
+  struct Cursor {
+    int head = 0, stage = 0;
+    __device__ void next(int stages) {
+      if (++stage == stages) stage = 0, ++head;
+    }
+  } in, at;
+
+  // one round trip: K and V with the first stage, every stage the ring
+  // holds issued before the first wait
+  load_rows<W>(Ks, k + (size_t)bkv * Sk * hd, c0, ROWS, Sk, hd, lane);
+  load_rows<W>(Vs, v + (size_t)bkv * Sk * hd, c0, ROWS, Sk, hd, lane);
+  auto issue = [&](int u) {
+    if (u < total) {
+      const size_t bh = qrow0 + in.head;
+      float* slot = ring + (u % STAGES) * Smem::stage;
+      const int r = walk.row(in.stage), n = walk.steps(in.stage) * STEP;
+      load_rows<W>(slot, q + bh * Sq * hd, r, n, Sq, hd, lane);
+      load_rows<W>(slot + Smem::tile, dout + bh * Sq * hd, r, n, Sq, hd,
+                   lane);
+      load_stats(slot + 2 * Smem::tile, lse + bh * Sq, r, n, Sq, lane);
+      load_stats(slot + 2 * Smem::tile + STAGE, delta + bh * Sq, r, n, Sq,
+                 lane);
+      in.next(walk.stages);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int u = 0; u < STAGES; ++u) issue(u);
+
+  Strip<W> vstrip;
+  float dka[W / 8][4], dva[W / 8][4];
+#pragma unroll
+  for (int n = 0; n < W / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+  const float scale_log2 = scale * kLog2e;
+
+  for (int u = 0; u < total; ++u) {
+    cp_async_wait<STAGES - 1>();
+    __syncwarp();
+    if (u == 0) {
+      load_strip<W>(strip, Ks, g, t);
+      load_strip<W>(vstrip, Vs, g, t);
+    }
+    const float* Qs = ring + (u % STAGES) * Smem::stage;
+    const float* dOs = Qs + Smem::tile;
+    const float* ls = Qs + 2 * Smem::tile;
+    const float* des = ls + STAGE;
+    const int q0 = walk.row(at.stage), steps = walk.steps(at.stage);
+    at.next(walk.stages);
+    // the steps a rolled loop, as in the forward
+#pragma unroll 1
+    for (int j = 0; j < steps; ++j) {
+      float st[4], dpt[4];
+      dots<W>(st, strip, Qs + j * STEP * L, g, t);
+      dots<W>(dpt, vstrip, dOs + j * STEP * L, g, t);
+      // the statistics of the lane's two query columns, 2t and 2t + 1
+      const float2 lq =
+          *reinterpret_cast<const float2*>(ls + j * STEP + 2 * t);
+      const float2 dl =
+          *reinterpret_cast<const float2*>(des + j * STEP + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qr = q0 + j * STEP + 2 * t + (e & 1);
+        const int2 rr = run[e / 2];
+        const float lx = (e & 1) ? lq.y : lq.x;
+        const float dx = (e & 1) ? dl.y : dl.x;
+        const float p = qr < rr.x || qr > rr.y
+                            ? 0.f
+                            : exp2f(fmaf(st[e], scale_log2, -lx * kLog2e));
+        st[e] = p;
+        dpt[e] = p * (dpt[e] - dx) * scale;
+      }
+      accum<W>(dva, st, dOs + j * STEP * L, g, t);   // dV += P^T dO
+      accum<W>(dka, dpt, Qs + j * STEP * L, g, t);   // dK += dS^T Q
+    }
+    __syncwarp();  // the slot's last reads are done: refill it
+    issue(u + STAGES);
+  }
+  cp_async_wait<0>();  // no copy outlives the warp (a strip of no step)
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = c0 + g + 8 * r;
+    if (row >= Sk) continue;
+    const size_t off = ((size_t)bkv * Sk + row) * hd + 2 * t;
+#pragma unroll
+    for (int n = 0; n < W / 8; ++n)
+      if (8 * n < hd) {
+        *reinterpret_cast<float2*>(dk + off + 8 * n) =
+            make_float2(dka[n][2 * r], dka[n][2 * r + 1]);
+        *reinterpret_cast<float2*>(dv + off + 8 * n) =
+            make_float2(dva[n][2 * r], dva[n][2 * r + 1]);
+      }
+  }
+}
+
+}  // namespace etpu::f32n
 
 namespace {
 
@@ -2997,19 +3158,36 @@ cudaError_t launch_dkv(const Args& a, bool bf16_body) {
     else
       return dkv::launch<D>(a);
   }
-  constexpr int R = F32Layout<D>::R;
-  const dim3 grid((a.Sk + R - 1) / R, a.B * a.KVH);
-  constexpr size_t smem = F32Layout<D>::bytes;
-  auto kernel = flash_dkv_f32_kernel<D>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, THREADS, smem, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
-      a.H, a.KVH, a.Sq, a.Sk, a.hd, a.q_offset, a.k_offset, a.causal,
-      a.window, a.scale);
-  return cudaGetLastError();
+  if constexpr (D <= 32) {
+    // f32 at widths 16 and 32: a warp a strip of 16 key rows
+    constexpr size_t smem = f32n::DkvSmem<D>::bytes;
+    auto kernel = f32n::flash_dkv_f32_narrow_kernel<D>;
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((a.B * a.KVH + f32n::kWarps - 1) / f32n::kWarps,
+                    (a.Sk + f32n::ROWS - 1) / f32n::ROWS);
+    kernel<<<grid, f32n::kWarps * 32, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+        a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
+        a.B * a.KVH, a.H / a.KVH, a.Sq, a.Sk, a.hd, a.q_offset, a.k_offset,
+        a.causal, a.window, a.scale);
+    return cudaGetLastError();
+  } else {
+    constexpr int R = F32Layout<D>::R;
+    const dim3 grid((a.Sk + R - 1) / R, a.B * a.KVH);
+    constexpr size_t smem = F32Layout<D>::bytes;
+    auto kernel = flash_dkv_f32_kernel<D>;
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, THREADS, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+        a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
+        a.H, a.KVH, a.Sq, a.Sk, a.hd, a.q_offset, a.k_offset, a.causal,
+        a.window, a.scale);
+    return cudaGetLastError();
+  }
 }
 
 Args make_args(const void* q, const void* k, const void* v, const void* dout,

@@ -126,10 +126,15 @@
 //   heaviest first; where they fill more (B 8: 1024), persistent, one CTA
 //   an SM over pairs of q tiles in groups of heads whose K and V fit in
 //   L2 (`fwd_item`), as at width 128.
-// - f32: 256 threads on the CUDA cores, each holding a 4x4 block of the
-//   64x64 score tile and a 4x(D/16) block of O in registers; row max and
-//   sum reduce over the 16 lanes sharing a row with warp shuffles. At
-//   width 256 its four tiles take 209 KB of shared memory.
+// - f32 at widths 64-256: 256 threads on the CUDA cores, each holding a
+//   4x4 block of the 64x64 score tile and a 4x(D/16) block of O in
+//   registers; row max and sum reduce over the 16 lanes sharing a row
+//   with warp shuffles. At width 256 its four tiles take 209 KB of
+//   shared memory.
+// - f32 at widths 16 and 32 (`flash_fwd_f32_narrow_kernel`, below): a
+//   warp a strip of 16 query rows walking only its live keys, operands by
+//   cp.async in one round trip, 3xTF32 products on the tensor cores
+//   (f32_narrow.cuh says why).
 //
 // At a head dim below its body's width W the tensor cores also multiply
 // the filled zeros: W / d times the work at d, 1.33x at 96, 1.6x at 80,
@@ -157,7 +162,151 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "f32_narrow.cuh"
 #include "hopper.cuh"
+
+namespace etpu::f32n {
+
+// ------------------------------------- f32 at widths 16 and 32: strips
+// The design is f32_narrow.cuh's. A warp's strip is 16 query rows of one
+// head; per step of 8 keys it forms the scores, runs the online softmax on
+// the C fragments (a row's max over its quad: 2 shuffle steps; the
+// exponent one exp2 of an FMA with the scale and log2 e folded in), and
+// adds P V. The row sums stay per lane until the end.
+template <int W>
+__global__ void __launch_bounds__(kWarps * 32)
+    flash_fwd_f32_narrow_kernel(const float* __restrict__ q,
+                                const float* __restrict__ k,
+                                const float* __restrict__ v,
+                                float* __restrict__ o,
+                                float* __restrict__ lse, int BH,
+                                FastDiv group, int Sq, int Sk, int hd,
+                                int q_offset, int k_offset, int causal,
+                                int window, float scale_log2) {
+  Strip<W> strip;  // the warp's strip (fwd)
+  using Smem = FwdSmem<W>;
+  constexpr int L = LD<W>;
+  extern __shared__ __align__(16) float smem_n[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  // a CTA's warps take one strip of kWarps query heads; blockIdx.y counts
+  // strips from a head's last, so the heaviest are scheduled first
+  const int bh = blockIdx.x * kWarps + warp;
+  if (bh >= BH) return;
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * ROWS;
+  // GQA: query row bh = b*H + h reads kv row b*KVH + h / group, which is
+  // bh / group (H = KVH * group)
+  const int kv_row = group(bh);
+  const float* qp = q + (size_t)bh * Sq * hd;
+  const float* kp = k + (size_t)kv_row * Sk * hd;
+  const float* vp = v + (size_t)kv_row * Sk * hd;
+  float* Qs = smem_n + warp * Smem::floats;
+  float* ring = Qs + Smem::strip;  // stage slot s: K, then V
+
+  // the lane's two rows' runs of keys, and the strip's walk
+  int2 run[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    run[r] = key_run(r0 + g + 8 * r, Sq, Sk, q_offset, k_offset, causal,
+                     window);
+  const Walk walk(
+      key_run(r0, Sq, Sk, q_offset, k_offset, causal, window),
+      key_run(min(r0 + ROWS, Sq) - 1, Sq, Sk, q_offset, k_offset, causal,
+              window));
+
+  // one round trip: Q with the first stage, every stage the ring holds
+  // issued before the first wait
+  load_rows<W>(Qs, qp, r0, ROWS, Sq, hd, lane);
+  auto issue = [&](int s) {
+    if (s < walk.stages) {
+      float* slot = ring + (s % STAGES) * 2 * Smem::tile;
+      const int n = walk.steps(s) * STEP;
+      load_rows<W>(slot, kp, walk.row(s), n, Sk, hd, lane);
+      load_rows<W>(slot + Smem::tile, vp, walk.row(s), n, Sk, hd, lane);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES; ++s) issue(s);
+
+  // m in log2 units of the scaled scores; l per lane until the end
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[W / 8][4];
+#pragma unroll
+  for (int n = 0; n < W / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int s = 0; s < walk.stages; ++s) {
+    cp_async_wait<STAGES - 1>();
+    __syncwarp();
+    if (s == 0) load_strip<W>(strip, Qs, g, t);
+    const float* Ks = ring + (s % STAGES) * 2 * Smem::tile;
+    const float* Vs = Ks + Smem::tile;
+    const int k0 = walk.row(s);
+    // one online-softmax update a step; each step waits on the one
+    // before (the running max, the accumulators), so the loop stays rolled
+#pragma unroll 1
+    for (int j = 0; j < walk.steps(s); ++j) {
+      float sc[4], mx[2] = {-INFINITY, -INFINITY}, corr[2];
+      dots<W>(sc, strip, Ks + j * STEP * L, g, t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + j * STEP + 2 * t + (e & 1);
+        const int2 rr = run[e / 2];
+        if (key < rr.x || key > rr.y) sc[e] = -INFINITY;
+        mx[e / 2] = fmaxf(mx[e / 2], sc[e]);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        // the scale is positive: the scaled max is the max scaled
+        const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+        corr[r] = exp2f(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= corr[r];
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int n = 0; n < W / 8; ++n) acc[n][e] *= corr[e / 2];
+        // a masked score is -inf: exp2 gives 0
+        sc[e] = exp2f(fmaf(sc[e], scale_log2, -m[e / 2]));
+        l[e / 2] += sc[e];
+      }
+      accum<W>(acc, sc, Vs + j * STEP * L, g, t);
+    }
+    __syncwarp();  // the slot's last reads are done: refill it
+    issue(s + STAGES);
+  }
+  cp_async_wait<0>();  // no copy outlives the warp (a strip of no step)
+
+  // a fully masked row keeps O = 0 and LSE = -1e30 + log(1e-30)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = r0 + g + 8 * r;
+    if (row >= Sq) continue;
+    // one reciprocal a row and the fast log: the IEEE division's and
+    // logf's slow-path branches would order the row's chain (2^-22
+    // relative here, far inside the 1e-4 tolerances)
+    const float denom = fmaxf(l[r], 1e-30f);
+    const float inv = __fdividef(1.f, denom);
+    float* orow = o + ((size_t)bh * Sq + row) * hd;
+#pragma unroll
+    for (int n = 0; n < W / 8; ++n)
+      if (8 * n < hd)
+        *reinterpret_cast<float2*>(orow + 8 * n + 2 * t) = make_float2(
+            acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+    if (t == 0)
+      lse[(size_t)bh * Sq + row] =
+          (m[r] > kNegInf ? m[r] * kLn2 : kNegInf) + __logf(denom);
+  }
+}
+
+}  // namespace etpu::f32n
 
 namespace {
 
@@ -1771,6 +1920,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if constexpr (std::is_same_v<T, bf16>) {
     return launch_wgmma<D>(q, k, v, o, lse, B, H, KVH, Sq, Sk, hd, q_offset,
                            k_offset, causal, window, scale, stream);
+  } else if constexpr (D <= 32) {
+    // f32 at widths 16 and 32: a warp a strip of 16 query rows
+    constexpr size_t smem = f32n::FwdSmem<D>::bytes;
+    auto kernel = f32n::flash_fwd_f32_narrow_kernel<D>;
+    cudaError_t err = etpu::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((B * H + f32n::kWarps - 1) / f32n::kWarps,
+                    (Sq + f32n::ROWS - 1) / f32n::ROWS);
+    kernel<<<grid, f32n::kWarps * 32, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), lse, B * H,
+        f32n::FastDiv::of(H / KVH), Sq, Sk, hd, q_offset, k_offset, causal,
+        window, scale * kLog2e);
+    return cudaGetLastError();
   } else {
     const dim3 grid((Sq + BQ - 1) / BQ, B * H);
     constexpr size_t smem = flash_smem_bytes<D>();

@@ -26,8 +26,13 @@ there is no plain fallback. The kernels have bodies 16, 32, 64, 128 and
 256 columns wide; a head dim d runs the narrowest body at least d wide, its
 tensor maps holding d, so TMA reads each row's d values and fills the
 tile's other columns with zeros in shared memory, and the kernels store
-only each row's first d columns. The wrappers pad nothing in device
-memory. Shapes follow the JAX package: q and dO ``(B, H, Sq, D)``, k/v
+only each row's first d columns. In f32 at head dims 8-32 the forward
+and dK/dV run strip bodies instead (:func:`f32_narrow_body`: a warp a
+strip of 16 rows, 16-byte cp.async, 3xTF32 products on the tensor
+cores; ``csrc/f32_narrow.cuh``), counted apart in
+``flash_forward.f32_narrow_launches`` and
+``flash_backward.dkv_f32_narrow_launches``. The wrappers pad nothing in
+device memory; operands that are not 16-byte aligned are copied. Shapes follow the JAX package: q and dO ``(B, H, Sq, D)``, k/v
 ``(B, KVH, Sk, D)`` with ``KVH`` dividing ``H`` (GQA), lse and delta
 ``(B, H, Sq)`` f32, bf16 or f32 otherwise.
 """
@@ -47,7 +52,7 @@ __all__ = ["flash_attention", "flash_forward", "flash_forward_plain",
            "flash_dkv_reduce",
            "flash_dkv_reduce_plain", "dkv_plan", "dkv_live_q_tiles",
            "dkv_step", "DkvPlan", "DKV_ROWS", "kernel_takes_head_dim",
-           "BLOCK"]
+           "f32_narrow_body", "BLOCK"]
 
 
 def kernel_takes_head_dim(d: int) -> bool:
@@ -59,6 +64,15 @@ def kernel_takes_head_dim(d: int) -> bool:
     Mistral-7B), Gemma-2B and -7B and GPT-J (256), Phi-3-mini (96),
     Phi-2 (80), DiT-XL/2 (72). The CPU plain versions take any."""
     return d % 8 == 0 and 8 <= d <= 256
+
+def f32_narrow_body(dtype: torch.dtype, d: int) -> bool:
+    """Whether a CUDA call at head dim ``d`` runs the f32 forward's and
+    dK/dV's strip bodies (``csrc/f32_narrow.cuh``: a warp a strip of 16
+    rows, 3xTF32 products on the tensor cores): f32 at the bodies of
+    widths 16 and 32, head dims 8-32. Wider f32 head dims run the
+    256-thread CUDA-core bodies; f32 dQ runs those at every width."""
+    return dtype == torch.float32 and d <= 32
+
 
 #: the one block size :func:`flash_attention` takes by name; the kernels
 #: pick their own tiles (32, 64 or 128 rows, csrc/flash_*.cu)
@@ -119,8 +133,8 @@ def _check(q, k, v):
 def _kernel_operands(q: torch.Tensor, **tensors: torch.Tensor):
     """Check the operands of a CUDA flash kernel (a head dim the kernels
     take; ``q`` and the named tensors of q's dtype, on q's device,
-    contiguous) and return them in order, with bf16 operands cloned
-    where they are not 16-byte aligned."""
+    contiguous) and return them in order, cloned where they are not
+    16-byte aligned."""
     if not kernel_takes_head_dim(q.shape[3]):
         raise ValueError(
             f"no flash kernel for head_dim {q.shape[3]}: the kernels take "
@@ -134,11 +148,10 @@ def _kernel_operands(q: torch.Tensor, **tensors: torch.Tensor):
             raise ValueError(f"{name} must share q's device and dtype")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    ops = (q, *tensors.values())
-    if q.dtype == torch.bfloat16:
-        # TMA and the bf16 kernels' vector loads need 16-byte alignment
-        ops = tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in ops)
-    return ops
+    # TMA, the bf16 kernels' vector loads and the f32 strip bodies'
+    # 16-byte cp.async need 16-byte aligned operands
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone()
+                 for t in (q, *tensors.values()))
 
 
 def _check_window(window: Optional[int]) -> None:
@@ -153,7 +166,9 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Block attention of q against one k/v shard, masked on global
     positions (``q_offset``/``k_offset`` place the shards); returns
     ``(o, lse)`` with ``o`` in q's dtype and ``lse`` ``(B, H, Sq)`` f32.
-    Counts each kernel launch in ``flash_forward.launches``."""
+    Counts each kernel launch in ``flash_forward.launches``, and those
+    that ran the f32 strip body (:func:`f32_narrow_body`) also in
+    ``flash_forward.f32_narrow_launches``."""
     _check(q, k, v)
     _check_window(window)
     if q.device.type == "cpu":
@@ -165,6 +180,8 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     _fwd_launch(q, k, v, o, lse, q_offset, k_offset, causal, window)
     flash_forward.launches += 1
+    if f32_narrow_body(q.dtype, q.shape[3]):
+        flash_forward.f32_narrow_launches += 1
     return o, lse
 
 
@@ -185,6 +202,7 @@ def _fwd_launch(q, k, v, o, lse, q_offset, k_offset, causal,
 
 
 flash_forward.launches = 0
+flash_forward.f32_narrow_launches = 0
 
 
 # ----------------------------------------------------------------- backward
@@ -326,7 +344,10 @@ def flash_dkv_partials(q, k, v, g, lse, delta, q_offset: int = 0,
                        k_offset: int = 0, causal: bool = True,
                        window: Optional[int] = None):
     """The dK/dV kernel alone on CUDA tensors (counted in
-    ``flash_backward.dkv_launches``): ``(dk, dv, partials, plan)``. At
+    ``flash_backward.dkv_launches``, and where it ran the f32 strip body,
+    :func:`f32_narrow_body`, also in
+    ``flash_backward.dkv_f32_narrow_launches``): ``(dk, dv, partials,
+    plan)``. At
     the 256-wide bf16 body ``plan`` is the call's :func:`dkv_plan`, and
     where it splits a k tile that tile's rows of dk and dv are left for
     :func:`flash_dkv_reduce` and ``partials`` (``(plan.slots, 2, 64,
@@ -347,6 +368,8 @@ def flash_dkv_partials(q, k, v, g, lse, delta, q_offset: int = 0,
     _bwd_launch("etpu_flash_bwd_dkv", q, k, v, g, lse, delta, (dk, dv),
                 q_offset, k_offset, causal, window, extra)
     flash_backward.dkv_launches += 1
+    if f32_narrow_body(q.dtype, q.shape[3]):
+        flash_backward.dkv_f32_narrow_launches += 1
     return dk, dv, partials, plan
 
 
@@ -370,6 +393,7 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_backward.dq_launches = 0
 flash_backward.dkv_launches = 0
 flash_backward.dkv_reduce_launches = 0
+flash_backward.dkv_f32_narrow_launches = 0
 
 
 # ------------------------------------------- dK/dV at head dims 136-256

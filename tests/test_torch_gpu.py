@@ -12,7 +12,11 @@ LMs) over the GQA, window, ragged and offset cases, and at 128 over the
 edges of its 128-key tiles and dQ's 64-key tiles and ping-pong turns
 (and dQ at 96 on them); the forward at 16 and 32 over the edges of its
 narrow body (192-row q tiles of three 64-row warpgroups, 128-key
-tiles, pairs of q tiles past one wave of the SMs); at 256 (Gemma-2B's)
+tiles, pairs of q tiles past one wave of the SMs); in f32 at 8-32 the
+forward's and dK/dV's strip bodies (a warp a strip of 16 rows, 3xTF32
+products) over lengths of 1 to 1024, windows, GQA 1/2/4, ragged and
+ring-hop offsets, bit-equal reruns and unaligned operands (which the
+wrappers clone); at 256 (Gemma-2B's)
 over the same cases and
 the edges of its 64-key tiles and of dQ's two bodies (64-row q tiles
 at one wave of the SMs, 32-key tiles past it); at head dims 8, 24,
@@ -549,6 +553,154 @@ def test_flash_bwd_kernels_are_bit_reproducible_at_head_dim_32(cuda, case):
     first, second = flash_dq(*args), flash_dq(*args)
     assert torch.equal(first.view(torch.int16), second.view(torch.int16))
     _assert_dkv_reproducible(args)
+
+
+# the f32 strip bodies of the forward and dK/dV at head dims 8-32 (a warp
+# a strip of 16 query or key rows, walked in steps of 8 keys or queries
+# through a ring of two 64-row stages): lengths of 1, 7, 33, 96 and 1024
+# (one step, a ragged step, a ragged strip, a walk of two stages, many
+# stages), the main path's shapes (speculative_example's B 8 x H 4 x S
+# 32, forward_d16's B 4 x H 4 x S 96), causal and full, Sq != Sk both
+# ways, windows narrower than a step and than a stage, GQA groups of 1, 2
+# and 4, ring hops whose first query rows (and last keys) meet nothing, a
+# hop wholly in the past and one wholly in the future
+_F32_STRIP_CASES = {
+    # (B, H, KVH, Sq, Sk, causal, window, q_offset, k_offset)
+    "s1": (2, 4, 4, 1, 1, True, None, 0, 0),
+    "s7_gqa2": (2, 4, 2, 7, 7, True, None, 0, 0),
+    "s33_gqa4": (2, 4, 1, 33, 33, True, None, 0, 0),
+    "speculative_example": (8, 4, 4, 32, 32, True, None, 0, 0),
+    "forward_d16": (4, 4, 4, 96, 96, True, None, 0, 0),
+    "s1024_gqa2": (1, 4, 2, 1024, 1024, True, None, 0, 0),
+    "full_33_96": (2, 4, 4, 33, 96, False, None, 0, 0),
+    "full_96_7_gqa2": (1, 4, 2, 96, 7, False, None, 0, 0),
+    "causal_50_130": (2, 4, 2, 50, 130, True, None, 80, 0),
+    "window_5": (2, 4, 4, 96, 96, True, 5, 0, 0),
+    "window_17": (2, 4, 4, 200, 200, True, 17, 0, 0),
+    "window_full_9": (1, 4, 4, 100, 100, False, 9, 0, 0),
+    "window_100_gqa4": (1, 8, 2, 1024, 1024, True, 100, 0, 0),
+    "hop_rows_dead": (1, 4, 4, 40, 50, True, None, 0, 20),
+    "hop_window": (2, 4, 1, 70, 90, True, 30, 50, 0),
+    "hop_past": (1, 4, 2, 33, 70, True, None, 100, 0),
+    "hop_future": (1, 4, 4, 33, 33, True, None, 0, 64),
+}
+
+
+# the cases where every query meets exactly one key
+_ONE_KEY_CASES = {"s1"}
+
+
+def _f32_strip_inputs(case, device, d, seed=12):
+    b, h, kvh, sq, sk, causal, window, qo, ko = _F32_STRIP_CASES[case]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, g = (torch.randn((b, h, sq, d), generator=gen, device=device)
+            for _ in range(2))
+    k, v = (torch.randn((b, kvh, sk, d), generator=gen, device=device)
+            for _ in range(2))
+    return q, k, v, g, (qo, ko, causal, window)
+
+
+@pytest.mark.parametrize("case", sorted(_F32_STRIP_CASES))
+@pytest.mark.parametrize("head_dim", [8, 16, 24, 32])
+def test_flash_f32_strip_bodies_match_plain(cuda, no_tf32, head_dim, case):
+    """The f32 forward and dK/dV at head dims 8-32 (the strip bodies, as
+    the wrappers' per-body counters show) against their plain versions:
+    O and the LSE within 1e-4, dK and dV within 1e-4 of max|ref| (3xTF32
+    products, another summation order); a row that meets no key keeps O
+    = 0 and LSE ~ -1e30, and a k/v shard no query meets gets dK = dV =
+    0."""
+    from elephas_tpu_torch.ops.flash_attention import (flash_backward,
+                                                       flash_dkv,
+                                                       flash_dkv_plain,
+                                                       flash_forward,
+                                                       flash_forward_plain)
+    q, k, v, g, offs = _f32_strip_inputs(case, cuda, head_dim)
+    before = (flash_forward.launches, flash_forward.f32_narrow_launches,
+              flash_backward.dkv_launches,
+              flash_backward.dkv_f32_narrow_launches)
+    o, lse = flash_forward(q, k, v, *offs)
+    o_ref, lse_ref = flash_forward_plain(q, k, v, *offs)
+    torch.testing.assert_close(o, o_ref, atol=1e-4, rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0)
+    dead = lse_ref < -1e29
+    assert bool((lse[dead] < -1e29).all()) and bool((o[dead] == 0).all())
+    delta = (g * o_ref).sum(-1)
+    got = flash_dkv(q, k, v, g, lse_ref, delta, *offs)
+    torch.cuda.synchronize()
+    assert (flash_forward.launches, flash_forward.f32_narrow_launches,
+            flash_backward.dkv_launches,
+            flash_backward.dkv_f32_narrow_launches) == tuple(
+                n + 1 for n in before)
+    want = flash_dkv_plain(q, k, v, g, lse_ref, delta, *offs)
+    for name, a, w in zip(("dk", "dv"), got, want):
+        assert a.dtype == torch.float32 and a.shape == w.shape, name
+        scale = float(w.abs().max())
+        if case == "hop_future":
+            assert scale == 0.0 and bool((a == 0).all()), name
+            continue
+        if case in _ONE_KEY_CASES and name == "dk":
+            # each query meets one key: its softmax has no gradient, dK is
+            # 0, and both sides hold only the f32 rounding of dP - delta
+            # (about 1e-7 of the terms): held against dV's scale instead
+            scale = float(want[1].abs().max())
+        err = float((a - w).abs().max())
+        assert err <= 1e-4 * scale, f"{name}: {err} > 1e-4 * {scale}"
+
+
+@pytest.mark.parametrize("case", ["s33_gqa4", "forward_d16", "s1024_gqa2",
+                                  "window_17", "hop_rows_dead"])
+@pytest.mark.parametrize("head_dim", [16, 32])
+def test_flash_f32_strip_bodies_are_bit_reproducible(cuda, head_dim, case):
+    """Two launches each of the f32 forward and dK/dV strip bodies on the
+    same inputs give the same bits (no atomics; a warp owns its rows and
+    walks them in one order)."""
+    from elephas_tpu_torch.ops.flash_attention import (flash_dkv,
+                                                       flash_forward,
+                                                       flash_forward_plain)
+    q, k, v, g, offs = _f32_strip_inputs(case, cuda, head_dim, seed=13)
+    (o1, l1), (o2, l2) = (flash_forward(q, k, v, *offs) for _ in range(2))
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
+    o_ref, lse_ref = flash_forward_plain(q, k, v, *offs)
+    args = (q, k, v, g, lse_ref, (g * o_ref).sum(-1), *offs)
+    first, second = flash_dkv(*args), flash_dkv(*args)
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("head_dim", [16, 32])
+def test_flash_f32_strip_bodies_take_unaligned_operands(cuda, no_tf32,
+                                                        head_dim):
+    """f32 q/k/v/dO as views 4 bytes past a 16-byte boundary
+    (``torch.empty(n + 1)[1:]``): the wrappers clone them before the
+    strip bodies' 16-byte cp.async, so the outputs are the bits of the
+    same call on fresh tensors, and match the plain versions."""
+    from elephas_tpu_torch.ops.flash_attention import (flash_dkv,
+                                                       flash_dkv_plain,
+                                                       flash_forward,
+                                                       flash_forward_plain)
+    q, k, v, g, offs = _f32_strip_inputs("forward_d16", cuda, head_dim)
+
+    def offset_view(t):
+        buf = torch.empty(t.numel() + 1, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    views = [offset_view(t) for t in (q, k, v, g)]
+    assert all(t.data_ptr() % 16 == 4 and t.is_contiguous() for t in views)
+    o, lse = flash_forward(*views[:3], *offs)
+    o_fresh, lse_fresh = flash_forward(q, k, v, *offs)
+    assert torch.equal(o, o_fresh) and torch.equal(lse, lse_fresh)
+    o_ref, lse_ref = flash_forward_plain(q, k, v, *offs)
+    torch.testing.assert_close(o, o_ref, atol=1e-4, rtol=0)
+    delta = (g * o_ref).sum(-1)
+    got = flash_dkv(*views, lse_ref, delta, *offs)
+    fresh = flash_dkv(q, k, v, g, lse_ref, delta, *offs)
+    want = flash_dkv_plain(q, k, v, g, lse_ref, delta, *offs)
+    for name, a, f, w in zip(("dk", "dv"), got, fresh, want):
+        assert torch.equal(a, f), name
+        scale = float(w.abs().max())
+        assert float((a - w).abs().max()) <= 1e-4 * scale, name
 
 
 # head dims below their body's width (8 on the 16-wide body, 24 on 32,

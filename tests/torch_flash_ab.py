@@ -7,8 +7,11 @@ head dims 128, 64, 32, 16, 96, 80 and 256, at ``lm_d128``'s fit shape
 (B 4, H 32 over KVH 8, S 1024, window 4096) at 128, at ``lm_d96``'s (B
 2, H 32, S 2048, window 2047) at 96, at ``lm_d256``'s (B 2, H 8 over
 KVH 1, S 1024) at 256 and at ``tpu_model_lm_d32``'s (B 16, H 8, S 128)
-at 32, with digests (sha256) of each kernel's outputs, O and LSE, dQ,
-and dK and dV, on the same seeded inputs, so two trees' bits can be
+at 32, and in f32 (the f32 bodies; SDPA in f32) at head dims 16 and
+32 on the two shapes the main path runs the f32 bodies at,
+``speculative_example``'s (B 8, H 4, S 32) and ``forward_d16``'s (B 4,
+H 4, S 96), with digests (sha256) of each kernel's outputs, O and LSE,
+dQ, and dK and dV, on the same seeded inputs, so two trees' bits can be
 compared; a tree whose kernels refuse a head dim says so
 there. It prints them as one JSON line, then runs ``chip_smoke``'s
 ``lm_d128`` phase (``forward`` over 32 layers, the paged engine, the
@@ -43,12 +46,19 @@ from elephas_tpu_torch.ops import _kernels  # noqa: E402
 from elephas_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_dkv, flash_dq, flash_forward, flash_forward_plain)
 
-# name: (B, H, KVH, S, window), causal, and the head dims timed there
-SHAPES = {"b8": ((8, 16, 16, 1024, None), (128, 64, 32, 16, 96, 80, 256)),
-          "path": ((4, 32, 8, 1024, 4096), (128,)),
-          "path_d96": ((2, 32, 32, 2048, 2047), (96,)),
-          "path_d256": ((2, 8, 1, 1024, None), (256,)),
-          "path_d32": ((16, 8, 8, 128, None), (32,))}
+# name: (B, H, KVH, S, window), causal, the head dims timed there and
+# the dtype (the f32 shapes last, so the bf16 ones draw the same inputs
+# as before they were added)
+SHAPES = {
+    "b8": ((8, 16, 16, 1024, None), (128, 64, 32, 16, 96, 80, 256),
+           torch.bfloat16),
+    "path": ((4, 32, 8, 1024, 4096), (128,), torch.bfloat16),
+    "path_d96": ((2, 32, 32, 2048, 2047), (96,), torch.bfloat16),
+    "path_d256": ((2, 8, 1, 1024, None), (256,), torch.bfloat16),
+    "path_d32": ((16, 8, 8, 128, None), (32,), torch.bfloat16),
+    "f32_speculative_example": ((8, 4, 4, 32, None), (16, 32),
+                                torch.float32),
+    "f32_forward_d16": ((4, 4, 4, 96, None), (16, 32), torch.float32)}
 
 
 def digest(*tensors):
@@ -64,12 +74,12 @@ def kernel_times(flush):
     where this tree's kernels do not take the head dim."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {}
-    for name, ((b, h, kvh, s, window), dims) in SHAPES.items():
+    for name, ((b, h, kvh, s, window), dims, dtype) in SHAPES.items():
         for d in dims:
             q, g = (torch.randn((b, h, s, d), generator=gen, device="cuda")
-                    .bfloat16() for _ in range(2))
+                    .to(dtype) for _ in range(2))
             k, v = (torch.randn((b, kvh, s, d), generator=gen,
-                                device="cuda").bfloat16() for _ in range(2))
+                                device="cuda").to(dtype) for _ in range(2))
             gqa = {"enable_gqa": True} if kvh != h else {}
             o, lse = flash_forward_plain(q, k, v, causal=True, window=window)
             delta = (g.float() * o.float()).sum(-1)
