@@ -133,11 +133,17 @@ tokens and both engines' outputs equal ``generate`` (tie-aware) and the
 target as its own draft accepts every proposal.
 ``speculative_example`` runs ``examples/speculative_serving.py``'s
 program (head dim 16, f32: its training and distillation on the d 16
-flash kernels, every forward and dK/dV launch on the f32 strip bodies;
-``flash_f32_bodies`` holds the f32 bodies at d 16 against their plain
-versions at both paths' shapes and times them, and the build line's
-``f32_narrow_bodies`` gives the strip bodies' registers, no spill
-allowed). The LM's remaining single-device surface:
+flash kernels, every forward, dQ and dK/dV launch on the f32 strip
+bodies; ``flash_f32_bodies`` holds the f32 bodies at d 16 against their
+plain versions at both paths' shapes, and the f32 dQ and dK/dV
+tensor-core bodies at 64-256 at the shapes of the f32 checks that run
+them, names the body each ran, times them beside two bounds (the CUDA
+cores' f32 rate and the tensor cores' TF32 rate counted three times) and
+autograd's backward through f32 SDPA with the kernels it ran; the build
+line's ``f32_narrow_bodies`` and ``f32_wide_bodies`` give their
+registers, no spill allowed; every driven path's f32 dQ and dK/dV
+launches must all be on these bodies, and the kernels line counts them
+by body). The LM's remaining single-device surface:
 ``int8_paged_flagship`` serves the flagship's ``quantize_lm_params``
 weights through the paged engine (f32 tokens of the fused kernel equal
 the gather path's, tie-aware; bf16 timed, every launch on the split
@@ -749,8 +755,8 @@ NARROW_BWD_CASES = {
     "hop_keys_dead": (2, 16, 16, 200, 300, True, None, 0, 150),
     "paired_ragged_1000": (2, 16, 16, 1000, 1000, True, None, 0, 0),
     "paired_noncausal": (2, 32, 32, 450, 450, False, None, 0, 0)}
-# the f32 strip bodies of the forward and dK/dV at widths 16 and 32 (head
-# dims 8-32; csrc/f32_narrow.cuh), as the build names them: their
+# the f32 strip bodies of the forward, dQ and dK/dV at widths 16 and 32
+# (head dims 8-32; csrc/f32_narrow.cuh), as the build names them: their
 # mangled-name fragments and what each is
 F32_STRIP = ("a warp a strip of 16 {rows} rows (a CTA a warp, heaviest "
              "strips first) walking only its live {other} in steps of 8, "
@@ -762,14 +768,30 @@ F32_NARROW_BODIES = {
     **{f"fwd_{d}": (f"flash_fwd_f32_narrow_kernelILi{d}E", F32_STRIP.format(
         rows="query", other="keys",
         elementwise="the online softmax")) for d in (16, 32)},
+    **{f"dq_{d}": (f"flash_dq_f32_narrow_kernelILi{d}E", F32_STRIP.format(
+        rows="query", other="keys", elementwise="P and dS")) for d in (16, 32)},
     **{f"dkv_{d}": (f"flash_dkv_f32_narrow_kernelILi{d}E", F32_STRIP.format(
         rows="key", other="query rows of each head of the group",
         elementwise="P and dS")) for d in (16, 32)}}
-# the f32 CUDA-core bodies: dQ at every width, the forward and dK/dV at
-# 64-256
-F32_CUDA_CORE_BODY = ("256 threads on the CUDA cores over 64 x 64 tiles, a 4x4 "
-                "block of each tile a thread (32 x 32 and 2x2 in dQ and "
-                "dK/dV at width 256)")
+# the f32 tensor-core bodies of dQ and dK/dV at widths 64, 128 and 256
+# (head dims 40-256; csrc/flash_bwd_f32.cu), as the build names them
+F32_WIDE = ("CTAs of 16-row strips ({strips} {rows}, 4 or 2 at width 256) "
+            "sharing a ring of two cp.async stages of 64-row tiles of the "
+            "other operand (32 at 256), a warp 64 columns of a strip, the "
+            "strip's partial S and dP summed through shared memory, "
+            "3xTF32 mma.sync m16n8k8{more}")
+F32_WIDE_BODIES = {
+    **{f"dq_{w}": (f"flash_dq_f32_wide_kernelILi{w}E", F32_WIDE.format(
+        strips="query", rows="rows of one head", more="; the last q tiles "
+        "first")) for w in (64, 128, 256)},
+    **{f"dkv_{w}": (f"flash_dkv_f32_wide_kernelILi{w}E", F32_WIDE.format(
+        strips="key", rows="rows of one kv head", more="; one CTA a chunk "
+        "of its dkv_plan (the group's query heads x the live q tiles), the "
+        "split k tiles' f32 partials summed in chunk order by "
+        "flash_dkv_reduce_kernel")) for w in (64, 128, 256)}}
+# the f32 forward's CUDA-core body at widths 64-256
+F32_CUDA_CORE_BODY = ("256 threads on the CUDA cores over 64 x 64 tiles, a "
+                      "4x4 block of each tile a thread")
 # the special-function units' exp2 rate on an H100 SXM5 (Shah et al.,
 # 2024, FlashAttention-3: 3.9 TFLOPS of special functions): one exp2 a
 # causal (q, k) pair bounds the narrow forward bodies, and the backward
@@ -779,8 +801,8 @@ PEAK_EXP2_PER_S = 3.9e12
 # forward (B 4 x H 4 x S 96), and speculative_example's training and
 # distillation steps (B 8 x H 4 x S 32: rows of 33 tokens)
 F32_TIMED = {"forward_d16": (4, 4, 96), "speculative_example": (8, 4, 32)}
-# the f32 CUDA-core body at widths 64-256 on the f32 checks that launch
-# it, path:
+# the f32 bodies at widths 64-256 on the f32 checks that launch them,
+# path:
 # (head dim, B, H, KVH, S, window), causal: the flagship's train_parity
 # (B 2 x S 1024), and lm_d128's, lm_d96's and lm_d256's f32 gradients at
 # 2 layers (B 1 x S 512 at their heads and windows; lm_moe's f32 checks
@@ -789,9 +811,11 @@ F32_WIDE_TIMED = {"train_parity": (64, 2, 16, 16, 1024, None),
                   "lm_d128_grad": (128, 1, 32, 8, 512, 4096),
                   "lm_d96_grad": (96, 1, 32, 32, 512, 2047),
                   "lm_d256_grad": (256, 1, 8, 1, 512, None)}
-# the card's f32 peak on the CUDA cores (NVIDIA H100 SXM data sheet), the
-# f32 bodies' operations bound
+# the card's f32 peak on the CUDA cores and its dense TF32 peak on the
+# tensor cores (NVIDIA H100 SXM data sheet): the f32 bodies' operations
+# bounds, on the CUDA cores and as 3xTF32 (three TF32 products a term)
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 # the case each head dim is timed at beside the training shape: d 32 at
 # its main path's (tpu_model_lm_d32's fit), d 128 at lm_d128's fit, d 96
 # at lm_d96's, d 256 at lm_d256's; d 64's main path is the training
@@ -881,14 +905,15 @@ def wide_body_registers(report, bodies):
     return out
 
 
-def f32_narrow_registers(report):
-    """ptxas's registers and spill line for each f32 strip body
-    (``F32_NARROW_BODIES``), from the build report."""
+def f32_body_registers(report, bodies):
+    """ptxas's registers and spill line for each f32 body of ``bodies``
+    (``F32_NARROW_BODIES`` or ``F32_WIDE_BODIES``), from the build
+    report."""
     out, cur = {}, None
     for ln in report.splitlines():
         if "Compiling entry function" in ln:
-            cur = next((name for name, (frag, _) in
-                        F32_NARROW_BODIES.items() if frag in ln), None)
+            cur = next((name for name, (frag, _) in bodies.items()
+                        if frag in ln), None)
         elif cur and "spill stores" in ln:
             out.setdefault(cur, {})["spill"] = ln.strip()
         elif cur and "Used" in ln and "registers" in ln:
@@ -1078,17 +1103,22 @@ def check_flash(flush):
 def check_flash_f32(flush):
     """The f32 bodies at head dim 16 on their driven paths' shapes
     (``F32_TIMED``): the forward at both, dQ and dK/dV at
-    speculative_example's (the forward and dK/dV the strip bodies,
-    ``F32_NARROW_BODIES``; dQ the CUDA-core body, ``F32_CUDA_CORE_BODY``:
-    each entry's ``body``); then the CUDA-core body at widths 64-256 on
-    the shapes of the f32 checks that launch it (``F32_WIDE_TIMED``, in
-    ``wide_bodies``). Each against its plain version on the operands
-    timed (O within 2e-4, LSE within 1e-4, the gradients within 1e-4 of
-    max|ref|), timed as the bf16 bodies are, beside its bound (the larger
-    of its bytes at the memory rate and its operations at the f32 peak of
-    the CUDA cores) and one f32 PyTorch call: SDPA's forward, and
-    autograd's backward through SDPA (the graph kept, the forward outside
-    the timing) for dQ, dK and dV together."""
+    speculative_example's (the strip bodies, ``F32_NARROW_BODIES``);
+    then the bodies at widths 64-256 on the shapes of the f32 checks that
+    launch them (``F32_WIDE_TIMED``, in ``wide_bodies``): dQ and dK/dV on
+    the tensor cores (``F32_WIDE_BODIES``), the forward on the CUDA cores
+    (``F32_CUDA_CORE_BODY``). Each entry's ``body`` names the body that
+    ran, as its per-body launch counter shows. Each against its plain
+    version on the operands timed (O within 2e-4, LSE within 1e-4, the
+    gradients within 1e-4 of max|ref|), timed as the bf16 bodies are,
+    beside two bounds (``bounds``): the bytes at the memory rate against
+    the operations at the CUDA cores' f32 peak (``cuda_cores``) and
+    against three times the operations at the tensor cores' TF32 peak
+    (``tf32x3``); ``bound_ms`` is that of the body's route. And beside
+    one f32 PyTorch call: SDPA's forward, and autograd's backward through
+    SDPA (the graph kept, the forward outside the timing) for dQ, dK and
+    dV together, with the device kernels it ran (``library_kernel``)."""
+    from elephas_tpu_torch.ops import flash_attention as fa
     from elephas_tpu_torch.ops.flash_attention import (
         flash_dkv, flash_dkv_plain, flash_dq, flash_dq_plain, flash_forward,
         flash_forward_plain)
@@ -1096,11 +1126,29 @@ def check_flash_f32(flush):
     gen = torch.Generator(device="cuda").manual_seed(11)
     d, out = 16, {}
 
-    def bound_f32(flops, nbytes):
-        ops_ms = flops / PEAK_F32_FLOPS * 1e3
+    def bounds(flops, nbytes, tensor_cores):
         bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-        return {"bound_ms": max(ops_ms, bytes_ms),
-                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+        both = {}
+        for route, ops_ms in (
+                ("cuda_cores", flops / PEAK_F32_FLOPS * 1e3),
+                ("tf32x3", 3 * flops / PEAK_TF32_FLOPS * 1e3)):
+            both[route] = {"ms": max(ops_ms, bytes_ms),
+                           "by": "operations" if ops_ms >= bytes_ms
+                           else "bytes"}
+        own = both["tf32x3" if tensor_cores else "cuda_cores"]
+        return {"bound_ms": own["ms"], "bound_by": own["by"],
+                "bounds": both}
+
+    def ran(fn, counter):
+        """fn's result, after checking that it launched the body counted
+        in flash_backward.<counter> (flash_forward.<counter> for fwd_*)."""
+        owner = (fa.flash_forward if counter.startswith("f32")
+                 else fa.flash_backward)
+        before = getattr(owner, counter)
+        result = fn()
+        require(getattr(owner, counter) == before + 1,
+                f"the call ran the body counted in {counter}")
+        return result
 
     def times(fn, plain):
         return {"ms": time_ms(fn, flush=flush),
@@ -1120,7 +1168,10 @@ def check_flash_f32(flush):
                 for _ in range(2))
         k, v = (torch.randn((b, kvh, s, dim), generator=gen, device="cuda")
                 for _ in range(2))
-        o, lse = flash_forward(q, k, v, causal=True, window=window)
+        narrow = dim <= 32
+        o, lse = ran(lambda: flash_forward(q, k, v, causal=True,
+                                           window=window),
+                     "f32_narrow_launches" if narrow else "f32_launches")
         o_ref, l_ref = flash_forward_plain(q, k, v, causal=True,
                                            window=window)
         err = {"o_f32": max_err(o, o_ref), "lse_f32": max_err(lse, l_ref)}
@@ -1133,14 +1184,15 @@ def check_flash_f32(flush):
         kv_size = b * kvh * s * dim * 4
         rows = b * h * s * 4
         gqa = {"enable_gqa": True} if kvh != h else {}
-        narrow = dim <= 32
+        width = fa.body_width(dim)
         entry = {"fwd": {
             "body": (F32_NARROW_BODIES[f"fwd_{dim}"][1] if narrow
                      else F32_CUDA_CORE_BODY),
             "shape": {"B": b, "H": h, "KVH": kvh, "S": s, "D": dim,
                       "window": window, "dtype": "float32"},
             "max_abs_err": max(err.values()),
-            **bound_f32(4 * dim * pairs, 2 * size + 2 * kv_size + rows),
+            **bounds(4 * dim * pairs, 2 * size + 2 * kv_size + rows,
+                     narrow),
             **times(lambda: flash_forward(q, k, v, causal=True,
                                           window=window),
                     lambda: flash_forward_plain(q, k, v, causal=True,
@@ -1156,8 +1208,10 @@ def check_flash_f32(flush):
                 ql, kl, vl, is_causal=True, **gqa)
 
             # one call for dQ, dK and dV together, timed once
-            lib = lib_times(lambda: torch.autograd.grad(
+            lib_call = (lambda: torch.autograd.grad(
                 o_lib, (ql, kl, vl), g, retain_graph=True))
+            lib = {**lib_times(lib_call),
+                   "library_kernel": device_kernels(lib_call)}
 
             # dQ: 3 products (S, dP, dQ), dK/dV: 4, 2*d flops a pair each;
             # q, dO, dq or k, v, dk, dv once each, the lse and delta in
@@ -1166,7 +1220,9 @@ def check_flash_f32(flush):
                      3 * size + 2 * kv_size + 2 * rows),
                     ("dkv", flash_dkv, flash_dkv_plain, 4 * 2 * dim * pairs,
                      2 * size + 4 * kv_size + 2 * rows)):
-                got, want = fn(*args), plain(*args)
+                got = ran(lambda: fn(*args), f"{part}_f32_"
+                          f"{'narrow' if narrow else 'wide'}_launches")
+                want = plain(*args)
                 got = got if part == "dkv" else (got,)
                 want = want if part == "dkv" else (want,)
                 rel = max(max_err(a, w) / float(w.abs().max())
@@ -1174,12 +1230,12 @@ def check_flash_f32(flush):
                 require(rel <= 1e-4, f"flash f32 {part} at {path}'s shape: "
                         f"error {rel} of max|ref|")
                 entry[part] = {
-                    "body": (F32_NARROW_BODIES[f"dkv_{dim}"][1]
-                             if part == "dkv" and narrow else F32_CUDA_CORE_BODY),
+                    "body": (F32_NARROW_BODIES if narrow else
+                             F32_WIDE_BODIES)[f"{part}_{width}"][1],
                     "shape": entry["fwd"]["shape"],
                     "max_abs_err": max(max_err(a, w)
                                        for a, w in zip(got, want)),
-                    **bound_f32(flops, nbytes),
+                    **bounds(flops, nbytes, True),
                     **times(lambda: fn(*args), lambda: plain(*args)), **lib,
                     "library_note": "autograd's backward through f32 SDPA: "
                                     "dQ, dK and dV together"}
@@ -1190,7 +1246,8 @@ def check_flash_f32(flush):
     emit({"phase": "flash_f32_bodies", "head_dim": d, **out,
           "tolerance": {"o_f32": 2e-4, "lse_f32": 1e-4,
                         "grad_f32_relative_to_max_ref": 1e-4},
-          "peak_f32_flops": PEAK_F32_FLOPS})
+          "peak_f32_flops": PEAK_F32_FLOPS,
+          "peak_tf32_flops": PEAK_TF32_FLOPS})
     return out
 
 
@@ -1536,8 +1593,11 @@ def reset_counts():
     flash_backward.dq_launches = 0
     flash_backward.dkv_launches = 0
     flash_backward.dkv_reduce_launches = 0
+    flash_forward.f32_launches = 0
     flash_forward.f32_narrow_launches = 0
-    flash_backward.dkv_f32_narrow_launches = 0
+    for part in ("dq", "dkv"):
+        for body in ("", "_narrow", "_wide"):
+            setattr(flash_backward, f"{part}_f32{body}_launches", 0)
     paged_decode_attention.launches = 0
     paged_decode_attention.split_launches = 0
 
@@ -1550,9 +1610,15 @@ def read_counts():
             "flash_dq": flash_backward.dq_launches,
             "flash_dkv": flash_backward.dkv_launches,
             "flash_dkv_reduce": flash_backward.dkv_reduce_launches,
-            # the launches above that ran the f32 strip bodies
+            # the f32 launches among them, and those that ran the f32
+            # strip bodies (widths 16 and 32) and the tensor-core bodies
+            # of widths 64-256
+            "flash_fwd_f32": flash_forward.f32_launches,
             "flash_fwd_f32_narrow": flash_forward.f32_narrow_launches,
-            "flash_dkv_f32_narrow": flash_backward.dkv_f32_narrow_launches,
+            **{f"flash_{part}_f32{body}": getattr(
+                flash_backward, f"{part}_f32{body}_launches")
+               for part in ("dq", "dkv") for body in ("", "_narrow",
+                                                      "_wide")},
             "paged_decode": paged_decode_attention.launches,
             "paged_split": paged_decode_attention.split_launches}
 
@@ -2295,7 +2361,7 @@ def run_speculative_example():
     for name in ("flash_fwd", "flash_dq", "flash_dkv"):
         require(counts[name] > 0, f"the example's training and distillation "
                 f"launched {name} at d 16: {counts}")
-    for name in ("flash_fwd", "flash_dkv"):
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
         require(counts[f"{name}_f32_narrow"] == counts[name],
                 f"every f32 d 16 {name} launch took the strip body: "
                 f"{counts}")
@@ -4892,6 +4958,7 @@ def main() -> int:
                                                       TransformerConfig,
                                                       init_params)
     from elephas_tpu_torch.ops import _kernels
+    from elephas_tpu_torch.ops.flash_attention import body_width
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4924,7 +4991,8 @@ def main() -> int:
     narrow = wide_body_registers(report, NARROW_BODIES)
     narrow_bwd = wide_body_registers(report, NARROW_BWD_BODIES)
     split_regs = paged_split_registers(report)
-    f32_narrow = f32_narrow_registers(report)
+    f32_narrow = f32_body_registers(report, F32_NARROW_BODIES)
+    f32_wide = f32_body_registers(report, F32_WIDE_BODIES)
     # a product in flight where two paths meet: ptxas serializes every
     # wgmma of the kernel (C7515), as a trap in a consumer does (C7512)
     serialized = [ln for ln in report.splitlines()
@@ -4933,15 +5001,19 @@ def main() -> int:
           "ptxas": resources, "d128_bodies": wide, "d256_bodies": wide256,
           "narrow_bodies": narrow, "narrow_bwd_bodies": narrow_bwd,
           "paged_split_bodies": split_regs,
-          "f32_narrow_bodies": f32_narrow,
+          "f32_narrow_bodies": f32_narrow, "f32_wide_bodies": f32_wide,
           "serialized_wgmma": serialized})
     require(not spills, f"no kernel spills registers: {spills}")
-    require(sorted(f32_narrow) == sorted(F32_NARROW_BODIES)
-            and all("0 bytes spill stores, 0 bytes spill loads"
-                    in r.get("spill", "") and r.get("registers", 256) <= 255
-                    for r in f32_narrow.values()),
-            f"the f32 strip bodies are built at widths 16 and 32, without a "
-            f"spill: {f32_narrow}")
+    for built, want, what in (
+            (f32_narrow, F32_NARROW_BODIES, "strip bodies at widths 16 and 32"),
+            (f32_wide, F32_WIDE_BODIES,
+             "tensor-core bodies at widths 64, 128 and 256")):
+        require(sorted(built) == sorted(want)
+                and all("0 bytes spill stores, 0 bytes spill loads"
+                        in r.get("spill", "")
+                        and r.get("registers", 256) <= 255
+                        for r in built.values()),
+                f"the f32 {what} are built without a spill: {built}")
     require(not any("narrow" in ln for ln in serialized),
             f"the narrow forward and backward bodies' wgmma is not "
             f"serialized: {serialized}")
@@ -5054,6 +5126,15 @@ def main() -> int:
              "int8_paged_flagship": int8_counts,
              "packed_flagship": packed_counts,
              "packed_example": packed_ex_counts}
+    # every f32 dQ and dK/dV launch of every path on the strip bodies
+    # (widths 16 and 32) or the tensor-core ones (64-256): none left on
+    # the CUDA-core bodies they replaced
+    for p, c in paths.items():
+        for part in ("dq", "dkv"):
+            key = f"flash_{part}_f32"
+            require(c[key] == c[f"{key}_narrow"] + c[f"{key}_wide"],
+                    f"{p}: every f32 {part} launch on the new bodies: {c}")
+
     # the main paths' paged engines: the flagship serving phases, the
     # speculative phase's interleaved engine, the flagship over int8
     # weights, the http_serving.py example
@@ -5084,6 +5165,20 @@ def main() -> int:
     ]
     kernels[0]["general_launches"] = (kernels[0]["launches"]
                                       - kernels[0]["split_launches"])
+    # the f32 launches on all paths by body (the CUDA-core dQ and dK/dV
+    # bodies are gone: none may remain on them)
+    kernels[1]["f32_launches_by_body"] = {
+        "strip": sum(c["flash_fwd_f32_narrow"] for c in paths.values()),
+        "cuda_cores": sum(c["flash_fwd_f32"] - c["flash_fwd_f32_narrow"]
+                          for c in paths.values())}
+    for entry in kernels[2:4]:
+        key = entry["name"] + "_f32"
+        entry["f32_launches_by_body"] = {
+            "strip": sum(c[f"{key}_narrow"] for c in paths.values()),
+            "tensor_cores": sum(c[f"{key}_wide"] for c in paths.values()),
+            "cuda_cores_removed": sum(
+                c[key] - c[f"{key}_narrow"] - c[f"{key}_wide"]
+                for c in paths.values())}
     kernels[0]["split_body_registers"] = split_regs
     for entry, results in zip(kernels, (paged, flash, bwd["dq"],
                                         bwd["dkv"])):
@@ -5163,21 +5258,26 @@ def main() -> int:
                     "flash_dkv": "dkv"}[name]
             entry["by_head_dim"]["16"]["f32_body"] = {
                 p: {**f32[p][part], "launches": f32_paths[p][name],
-                    **({"strip_body_launches":
+                    "strip_body_launches":
                         f32_paths[p][f"{name}_f32_narrow"],
-                        "registers": f32_narrow[f"{part}_16"]}
-                       if part != "dq" else {})}
+                    "registers": f32_narrow[f"{part}_16"]}
                 for p in F32_TIMED if part in f32[p]}
-            # the f32 CUDA-core body at 64-256 on the f32 checks that
-            # launch it
+            # the f32 bodies at 64-256 on the f32 checks that launch them
             wide_paths = {"train_parity": parity_counts,
                           "lm_d128_grad": d128["grad"],
                           "lm_d96_grad": d96["grad"],
                           "lm_d256_grad": d256["grad"]}
             for p, (dim, *_) in F32_WIDE_TIMED.items():
+                c = wide_paths[p]
                 entry["by_head_dim"][str(dim)].setdefault("f32_body", {})[
                     p] = {**f32["wide_bodies"][p][part],
-                          "launches": wide_paths[p][name]}
+                          "launches": c[name],
+                          **({"f32_launches": c[f"{name}_f32"],
+                              "tensor_core_body_launches":
+                                  c[f"{name}_f32_wide"],
+                              "registers": f32_wide[
+                                  f"{part}_{body_width(dim)}"]}
+                             if part != "fwd" else {})}
         else:
             # the general body in f32 at the decode shape of the path
             # that runs it

@@ -72,19 +72,6 @@ __device__ __forceinline__ bool pair_valid(int ql, int kl, int Sq, int Sk,
   return ok;
 }
 
-// Rows [r0, r0 + n) of a (rows, d) f32 matrix -> a shared-memory tile
-// of D >= d columns with row stride LD, zero past `limit` rows and past
-// column d, one element per thread step over NT threads.
-template <int D, int LD, int NT>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
-                                           int r0, int n, int limit, int d) {
-  for (int i = threadIdx.x; i < n * D; i += NT) {
-    const int r = i / D, c = i % D;
-    dst[r * LD + c] =
-        r0 + r < limit && c < d ? src[(size_t)(r0 + r) * d + c] : 0.f;
-  }
-}
-
 // The heads of a group (the head-dim-128 forward's work order): as many
 // as keep `bytes_per_head` of operands each within 16 MB of the 50 MB
 // L2, at least one.

@@ -1,16 +1,19 @@
-// The f32 flash bodies at widths 16 and 32 (head dims 8-32): what the
-// forward (`flash_fwd_f32_narrow_kernel`, flash_fwd.cu) and the dK/dV
-// kernel (`flash_dkv_f32_narrow_kernel`, flash_bwd.cu) share.
+// The f32 flash bodies on the tensor cores: the strip bodies at widths
+// 16 and 32 (head dims 8-32) of the forward (`flash_fwd_f32_narrow_kernel`,
+// flash_fwd.cu), dQ and dK/dV (`flash_dq_f32_narrow_kernel`,
+// `flash_dkv_f32_narrow_kernel`, flash_bwd_f32.cu), and the pieces that
+// the backward's bodies of widths 64-256 (flash_bwd_f32.cu) take from
+// them: the split, the product, the fragment maps, the copies.
 //
-// What bounds them. The f32 paths that run these widths are small: the
-// `speculative_serving.py` LM's training and distillation steps (B 8 x
-// H 4 x S 32, d 16) and the `http_serving.py` LM's forward (B 4 x H 4 x
-// S 96). A call moves about 0.3 MB and needs about 0.1 MFLOP a head, so
-// no rate bounds it but the chain of one warp, from its launch to its
-// last store: the launch itself (an empty kernel takes 4.8 us under
-// chip_smoke's timer on an H100), the copies issued, one round trip, the
-// steps, the stores. The 256-thread CUDA-core bodies of the wider f32
-// heads spent most of a 64 x 64 tile on rows and keys past S at these
+// What bounds the strip bodies. The f32 paths that run these widths are
+// small: the `speculative_serving.py` LM's training and distillation
+// steps (B 8 x H 4 x S 32, d 16) and the `http_serving.py` LM's forward
+// (B 4 x H 4 x S 96). A call moves about 0.3 MB and needs about 0.1
+// MFLOP a head, so no rate bounds it but the chain of one warp, from its
+// launch to its last store: the launch itself (an empty kernel takes 4.8
+// us under chip_smoke's timer on an H100), the copies issued, one round
+// trip, the steps, the stores. The 256-thread CUDA-core bodies they
+// replaced spent most of a 64 x 64 tile on rows and keys past S at these
 // lengths, made two round trips before the first product, and left 100
 // of the 132 SMs idle (32 CTAs). Clock stamps a phase
 // (tests/torch_flash_f32_variants.py `timeline`) put a warp of the
@@ -19,15 +22,16 @@
 //
 // Design.
 // - A warp owns a strip of 16 rows (`ROWS`, the M of
-//   `mma.sync.m16n8k8`): query rows in the forward, key rows in dK/dV.
+//   `mma.sync.m16n8k8`): query rows in the forward and dQ, key rows in
+//   dK/dV.
 //   Nothing is shared between the warps of a CTA, so no CTA barrier is
 //   needed: `kWarps` (picked by timing, PERF.md) only sets how strips
 //   share an SM. The grid is (heads / kWarps, strips), a CTA's warps
 //   taking one strip of kWarps heads, so nothing divides at run time
-//   (the forward's query-to-kv-head map is a `FastDiv`); blockIdx.y orders
-//   strips heaviest first, the forward's from the last rows of a head
-//   (under causal masking the rows that meet the most keys), dK/dV's from
-//   the first key rows.
+//   (the forward's and dQ's query-to-kv-head map is a `FastDiv`);
+//   blockIdx.y orders strips heaviest first, the forward's and dQ's from
+//   the last rows of a head (under causal masking the rows that meet the
+//   most keys), dK/dV's from the first key rows.
 // - A strip walks only its live range of the other operand, in steps of
 //   8 rows (`STEP`): from the run of the strip's first row to that of
 //   its last (`key_run`, `query_run`: the causal diagonal, the window's
@@ -171,11 +175,12 @@ __device__ __forceinline__ void cp16(uint32_t dst, const float* src,
                : "memory");
 }
 
-// Rows [r0, r0 + n) (n <= STAGE, a multiple of 8) of a (rows, hd) f32
-// matrix into a shared tile of stride LD<W>, by the warp's 32 lanes:
-// zeros past `limit` rows and past column hd (hd a multiple of 8: a
-// 16-byte chunk is wholly in or out), the addresses from one base.
-template <int W>
+// Rows [r0, r0 + n) of a (rows, hd) f32 matrix into a shared tile of
+// stride LD<W>, by NT threads (the warp's 32 lanes, or a CTA's), `lane`
+// the thread's index among them: zeros past `limit` rows and past column
+// hd (hd a multiple of 8: a 16-byte chunk is wholly in or out), the
+// addresses from one base.
+template <int W, int NT = 32>
 __device__ __forceinline__ void load_rows(float* tile, const float* src,
                                           int r0, int n, int limit, int hd,
                                           int lane) {
@@ -184,7 +189,7 @@ __device__ __forceinline__ void load_rows(float* tile, const float* src,
   const uint32_t dst = smem_u32(tile);
   const int rows = limit - r0;  // rows that hold data
 #pragma unroll 1
-  for (int i = lane; i < n * CH; i += 32) {
+  for (int i = lane; i < n * CH; i += NT) {
     const int r = i / CH, c = 4 * (i % CH);
     const bool in = r < rows && c < hd;
     cp16(dst + 4 * (r * LD<W> + c), in ? base + r * hd + c : src, in);
@@ -208,11 +213,11 @@ __device__ __forceinline__ void load_stats(float* dst, const float* src,
   }
 }
 
-// The strip's rows (a landed shared tile of ROWS rows) into registers.
-template <int W>
+// The strip's rows (a landed shared tile of ROWS rows, row stride L,
+// its first W columns) into registers.
+template <int W, int L = LD<W>>
 __device__ __forceinline__ void load_strip(Strip<W>& s, const float* tile,
                                            int g, int t) {
-  constexpr int L = LD<W>;
 #pragma unroll
   for (int kc = 0; kc < W / 8; ++kc) {
     const float* p = tile + kc * 8 + t;
@@ -225,11 +230,11 @@ __device__ __forceinline__ void load_strip(Strip<W>& s, const float* tile,
 
 // A step's scores: s (the C fragment: rows g and g + 8 of the strip at
 // step rows 2t and 2t + 1) = the strip's rows dotted with the 8 rows of
-// `tile` (a stage's rows from the step's first).
-template <int W>
+// `tile` (a stage's rows from the step's first, row stride L, their first
+// W columns).
+template <int W, int L = LD<W>>
 __device__ __forceinline__ void dots(float (&s)[4], const Strip<W>& a,
                                      const float* tile, int g, int t) {
-  constexpr int L = LD<W>;
   // B fragment: (k t, n g) and (k t + 4, n g) = step row g at columns
   // 8kc + t and + 4
   float big[4] = {0.f, 0.f, 0.f, 0.f}, small[4] = {0.f, 0.f, 0.f, 0.f};
@@ -247,14 +252,13 @@ __device__ __forceinline__ void dots(float (&s)[4], const Strip<W>& a,
   for (int e = 0; e < 4; ++e) s[e] = big[e] + small[e];
 }
 
-// acc (W / 8 C fragments: rows g and g + 8 at columns 8n + 2t and + 1)
-// += P T: P a step's 16 x 8 C fragment (as `dots` leaves it), T the
-// step's 8 rows of `tile`.
-template <int W>
-__device__ __forceinline__ void accum(float (&acc)[W / 8][4],
-                                      const float (&p)[4],
-                                      const float* tile, int g, int t) {
-  constexpr int L = LD<W>;
+// acc (N C fragments: rows g and g + 8 at columns 8n + 2t and + 1) +=
+// P T: P a step's 16 x 8 C fragment (as `dots` leaves it), T the step's
+// 8 rows of `tile` (row stride L floats), its first 8N columns.
+template <int N, int L>
+__device__ __forceinline__ void accum_n(float (&acc)[N][4],
+                                        const float (&p)[4],
+                                        const float* tile, int g, int t) {
   // A fragment in place: k t <-> step row 2t, k t + 4 <-> 2t + 1
   uint32_t hi[4], lo[4];
   split(p[0], hi[0], lo[0]);
@@ -263,20 +267,28 @@ __device__ __forceinline__ void accum(float (&acc)[W / 8][4],
   split(p[3], hi[3], lo[3]);
   // B fragment (k t, n g), (k t + 4, n g): step rows 2t and 2t + 1 at
   // column 8n + g
-  uint32_t bh[W / 8][2], bl[W / 8][2];
+  uint32_t bh[N][2], bl[N][2];
 #pragma unroll
-  for (int n = 0; n < W / 8; ++n) {
+  for (int n = 0; n < N; ++n) {
     const float* q = tile + 2 * t * L + 8 * n + g;
     split(q[0], bh[n][0], bl[n][0]);
     split(q[L], bh[n][1], bl[n][1]);
   }
-  // small terms first; the W / 8 accumulators are independent chains
+  // small terms first; the N accumulators are independent chains
 #pragma unroll
-  for (int n = 0; n < W / 8; ++n) mma(acc[n], lo, bh[n][0], bh[n][1]);
+  for (int n = 0; n < N; ++n) mma(acc[n], lo, bh[n][0], bh[n][1]);
 #pragma unroll
-  for (int n = 0; n < W / 8; ++n) mma(acc[n], hi, bl[n][0], bl[n][1]);
+  for (int n = 0; n < N; ++n) mma(acc[n], hi, bl[n][0], bl[n][1]);
 #pragma unroll
-  for (int n = 0; n < W / 8; ++n) mma(acc[n], hi, bh[n][0], bh[n][1]);
+  for (int n = 0; n < N; ++n) mma(acc[n], hi, bh[n][0], bh[n][1]);
+}
+
+// accum_n over a stage tile's whole width W
+template <int W>
+__device__ __forceinline__ void accum(float (&acc)[W / 8][4],
+                                      const float (&p)[4],
+                                      const float* tile, int g, int t) {
+  accum_n<W / 8, LD<W>>(acc, p, tile, g, t);
 }
 
 // The run [lo, hi] of local key rows that local query row ql meets
@@ -302,7 +314,9 @@ __device__ __forceinline__ int2 query_run(int kl, int Sq, int Sk,
 }
 
 // A strip's walk: steps of STEP rows from the run of its first row to
-// that of its last, in stages of STAGE rows.
+// that of its last, in stages of R rows (a strip body's STAGE; a CTA's
+// tile in the wide bodies).
+template <int R = STAGE>
 struct Walk {
   int begin = 0, end = 0;  // rows [begin, end), STEP-aligned
   int stages = 0;
@@ -310,14 +324,12 @@ struct Walk {
     if (last.y >= first.x && last.y >= 0) {
       begin = first.x & ~(STEP - 1);
       end = (last.y & ~(STEP - 1)) + STEP;
-      stages = (end - begin + STAGE - 1) / STAGE;
+      stages = (end - begin + R - 1) / R;
     }
   }
   // stage s's first row and its steps
-  __device__ int row(int s) const { return begin + s * STAGE; }
-  __device__ int steps(int s) const {
-    return min(STAGE, end - row(s)) / STEP;
-  }
+  __device__ int row(int s) const { return begin + s * R; }
+  __device__ int steps(int s) const { return min(R, end - row(s)) / STEP; }
 };
 
 }  // namespace f32n

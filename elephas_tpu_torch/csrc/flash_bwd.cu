@@ -212,18 +212,15 @@
 //   stores before the slot is released.
 // - the reduction: one CTA of 256 threads per (split k tile, dK or dV, 16
 //   rows), each thread summing 4 columns of a row over the tile's slots
-//   in order (16-byte loads) and storing the 4 bf16 columns below hd.
+//   in order (16-byte loads) and storing the 4 columns below hd, bf16 (or
+//   f32 for the f32 bodies' plans).
 //   Bound by bytes: the partials read once (17.5 MB of f32 at Gemma-2B's
 //   fit, most of them still in L2) and the split tiles' rows written.
-// - f32 (dQ at every width, dK/dV at 64-256): 256 threads on the CUDA
-//   cores, each holding a 4x4 block of the 64x64 score tile and a
-//   4x(D/16) block of every accumulator; at D 256, where four 64-row f32
-//   tiles would not fit shared memory, 32-row tiles and 2x2 and 2x16
-//   blocks.
-// - f32 dK/dV at widths 16 and 32 (`flash_dkv_f32_narrow_kernel`, below):
-//   a warp a strip of 16 key rows walking only the live query rows of
-//   each head of its group, operands by cp.async in one round trip,
-//   3xTF32 products on the tensor cores (f32_narrow.cuh says why).
+// - f32, every width: flash_bwd_f32.cu, whose entries the C interface
+//   below calls for f32 operands. All run on the tensor cores as 3xTF32
+//   `mma.sync`: strips of 16 rows a warp at widths 16 and 32, CTAs of
+//   strips sharing a ring of tiles at 64-256, dK/dV there on the plan
+//   of the width-256 bf16 body (below) with a reduction of its own.
 //
 // What bounds it on the H100. At the training shape (B 8, H 16, S 1024,
 // D 64, causal, bf16) dQ needs 3 products (S, dP, dQ) and dK/dV 4 (S,
@@ -248,434 +245,13 @@
 #include <algorithm>
 
 #include "common.cuh"
-#include "f32_narrow.cuh"
+#include "flash_bwd_f32.cuh"
 #include "hopper.cuh"
-
-namespace etpu::f32n {
-
-// ------------------------------------- f32 at widths 16 and 32: strips
-// The design is f32_narrow.cuh's. A warp's strip is 16 key rows of one
-// kv head, K and V split once into registers; it walks the live query
-// rows of each query head of the group in turn (the stages of one head,
-// then the next's, through one ring), and per step of 8 query rows forms
-// S^T = K Q^T and dP^T = V dO^T, then on their C fragments P^T = exp(S^T
-// scale - lse) (one exp2 of an FMA) and dS^T = P^T (dP^T - delta) scale,
-// zero on masked pairs, as `_dkv_kernel` does (pallas_attention.py:284-
-// 290), and adds dV += P^T dO and dK += dS^T Q. dK and dV of the group's
-// heads stay in the warp's registers and are stored once.
-template <int W>
-__global__ void __launch_bounds__(kWarps * 32)
-    flash_dkv_f32_narrow_kernel(const float* __restrict__ q,
-                                const float* __restrict__ k,
-                                const float* __restrict__ v,
-                                const float* __restrict__ dout,
-                                const float* __restrict__ lse,
-                                const float* __restrict__ delta,
-                                float* __restrict__ dk,
-                                float* __restrict__ dv, int BKV, int grp,
-                                int Sq, int Sk, int hd, int q_offset,
-                                int k_offset, int causal, int window,
-                                float scale) {
-  Strip<W> strip;  // the warp's strip (dkv)
-  using Smem = DkvSmem<W>;
-  constexpr int L = LD<W>;
-  extern __shared__ __align__(16) float smem_n[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  // a CTA's warps take one strip of kWarps kv heads; blockIdx.y counts
-  // strips from a head's first, so the heaviest are scheduled first
-  const int bkv = blockIdx.x * kWarps + warp;
-  if (bkv >= BKV) return;
-  const int c0 = blockIdx.y * ROWS;
-  // GQA: kv row bkv = b*KVH + kh serves query rows b*H + kh*grp + gi,
-  // that is bkv * grp + gi (H = KVH * grp)
-  const size_t qrow0 = (size_t)bkv * grp;
-  float* Ks = smem_n + warp * Smem::floats;
-  float* Vs = Ks + Smem::strip;
-  float* ring = Vs + Smem::strip;  // stage slot: Q, dO, lse, delta
-
-  int2 run[2];  // the lane's two key rows' runs of queries
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-    run[r] = query_run(c0 + g + 8 * r, Sq, Sk, q_offset, k_offset, causal,
-                       window);
-  const Walk walk(
-      query_run(c0, Sq, Sk, q_offset, k_offset, causal, window),
-      query_run(min(c0 + ROWS, Sk) - 1, Sq, Sk, q_offset, k_offset, causal,
-                window));
-  // the ring's order: the stages of the group's first query head, then
-  // the next's; a cursor (head, stage) for the copies and one for the
-  // products, advanced without a run-time division
-  const int total = grp * walk.stages;
-  struct Cursor {
-    int head = 0, stage = 0;
-    __device__ void next(int stages) {
-      if (++stage == stages) stage = 0, ++head;
-    }
-  } in, at;
-
-  // one round trip: K and V with the first stage, every stage the ring
-  // holds issued before the first wait
-  load_rows<W>(Ks, k + (size_t)bkv * Sk * hd, c0, ROWS, Sk, hd, lane);
-  load_rows<W>(Vs, v + (size_t)bkv * Sk * hd, c0, ROWS, Sk, hd, lane);
-  auto issue = [&](int u) {
-    if (u < total) {
-      const size_t bh = qrow0 + in.head;
-      float* slot = ring + (u % STAGES) * Smem::stage;
-      const int r = walk.row(in.stage), n = walk.steps(in.stage) * STEP;
-      load_rows<W>(slot, q + bh * Sq * hd, r, n, Sq, hd, lane);
-      load_rows<W>(slot + Smem::tile, dout + bh * Sq * hd, r, n, Sq, hd,
-                   lane);
-      load_stats(slot + 2 * Smem::tile, lse + bh * Sq, r, n, Sq, lane);
-      load_stats(slot + 2 * Smem::tile + STAGE, delta + bh * Sq, r, n, Sq,
-                 lane);
-      in.next(walk.stages);
-    }
-    cp_async_commit();
-  };
-#pragma unroll
-  for (int u = 0; u < STAGES; ++u) issue(u);
-
-  Strip<W> vstrip;
-  float dka[W / 8][4], dva[W / 8][4];
-#pragma unroll
-  for (int n = 0; n < W / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
-  const float scale_log2 = scale * kLog2e;
-
-  for (int u = 0; u < total; ++u) {
-    cp_async_wait<STAGES - 1>();
-    __syncwarp();
-    if (u == 0) {
-      load_strip<W>(strip, Ks, g, t);
-      load_strip<W>(vstrip, Vs, g, t);
-    }
-    const float* Qs = ring + (u % STAGES) * Smem::stage;
-    const float* dOs = Qs + Smem::tile;
-    const float* ls = Qs + 2 * Smem::tile;
-    const float* des = ls + STAGE;
-    const int q0 = walk.row(at.stage), steps = walk.steps(at.stage);
-    at.next(walk.stages);
-    // the steps a rolled loop, as in the forward
-#pragma unroll 1
-    for (int j = 0; j < steps; ++j) {
-      float st[4], dpt[4];
-      dots<W>(st, strip, Qs + j * STEP * L, g, t);
-      dots<W>(dpt, vstrip, dOs + j * STEP * L, g, t);
-      // the statistics of the lane's two query columns, 2t and 2t + 1
-      const float2 lq =
-          *reinterpret_cast<const float2*>(ls + j * STEP + 2 * t);
-      const float2 dl =
-          *reinterpret_cast<const float2*>(des + j * STEP + 2 * t);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qr = q0 + j * STEP + 2 * t + (e & 1);
-        const int2 rr = run[e / 2];
-        const float lx = (e & 1) ? lq.y : lq.x;
-        const float dx = (e & 1) ? dl.y : dl.x;
-        const float p = qr < rr.x || qr > rr.y
-                            ? 0.f
-                            : exp2f(fmaf(st[e], scale_log2, -lx * kLog2e));
-        st[e] = p;
-        dpt[e] = p * (dpt[e] - dx) * scale;
-      }
-      accum<W>(dva, st, dOs + j * STEP * L, g, t);   // dV += P^T dO
-      accum<W>(dka, dpt, Qs + j * STEP * L, g, t);   // dK += dS^T Q
-    }
-    __syncwarp();  // the slot's last reads are done: refill it
-    issue(u + STAGES);
-  }
-  cp_async_wait<0>();  // no copy outlives the warp (a strip of no step)
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = c0 + g + 8 * r;
-    if (row >= Sk) continue;
-    const size_t off = ((size_t)bkv * Sk + row) * hd + 2 * t;
-#pragma unroll
-    for (int n = 0; n < W / 8; ++n)
-      if (8 * n < hd) {
-        *reinterpret_cast<float2*>(dk + off + 8 * n) =
-            make_float2(dka[n][2 * r], dka[n][2 * r + 1]);
-        *reinterpret_cast<float2*>(dv + off + 8 * n) =
-            make_float2(dva[n][2 * r], dva[n][2 * r + 1]);
-      }
-  }
-}
-
-}  // namespace etpu::f32n
 
 namespace {
 
 using namespace etpu;
 using bf16 = __nv_bfloat16;
-
-constexpr int THREADS = 256;    // f32 bodies: 16 x 16 threads
-
-// lse and delta of query rows [q0, q0 + R) into shared memory; rows past
-// Sq read 0 (they are masked out of every product).
-template <int NT, int R>
-__device__ __forceinline__ void stage_stats(float* lse_s, float* delta_s,
-                                            const float* lse,
-                                            const float* delta, int q0,
-                                            int Sq) {
-  for (int i = threadIdx.x; i < R; i += NT) {
-    const bool in = q0 + i < Sq;
-    lse_s[i] = in ? lse[q0 + i] : 0.f;
-    delta_s[i] = in ? delta[q0 + i] : 0.f;
-  }
-}
-
-// ------------------------------------------------------- f32, CUDA cores
-template <int D>
-struct F32Layout {
-  // query and key rows per tile: 64, or 32 at D 256, where four 64-row
-  // operand tiles alone would take 263 KB; each thread holds an RI x RI
-  // block of the R x R score tile
-  static constexpr int R = D == 256 ? 32 : 64;
-  static constexpr int RI = R / 16;
-  static constexpr int LD = D + 1;   // operand tiles; +1 spreads banks
-  static constexpr int LDP = R + 1;
-  // four operand tiles, two R x R probability tiles, lse and delta: 137
-  // KB at D 256, 162 KB at 128
-  static constexpr size_t bytes =
-      sizeof(float) * ((size_t)4 * R * LD + (size_t)2 * R * LDP + 2 * R);
-};
-
-template <int D>
-struct F32Smem {
-  float *a, *b, *c, *d, *p, *ds, *lse, *delta;
-  __device__ explicit F32Smem(float* raw) {
-    using L = F32Layout<D>;
-    a = raw;
-    b = a + L::R * L::LD;
-    c = b + L::R * L::LD;
-    d = c + L::R * L::LD;
-    p = d + L::R * L::LD;
-    ds = p + L::R * L::LDP;
-    lse = ds + L::R * L::LDP;
-    delta = lse + L::R;
-  }
-};
-
-// The thread's RI x RI blocks of X1 Y1^T and X2 Y2^T: rows ty*RI + i of
-// the X tiles against rows tx + 16*j of the Y tiles (all stride LD).
-template <int D, int RI = F32Layout<D>::RI>
-__device__ __forceinline__ void dots(const float* x1, const float* y1,
-                                     const float* x2, const float* y2,
-                                     int ty, int tx, float (&o1)[RI][RI],
-                                     float (&o2)[RI][RI]) {
-  constexpr int LD = F32Layout<D>::LD;
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int j = 0; j < RI; ++j) o1[i][j] = o2[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float a1[RI], a2[RI], b1[RI], b2[RI];
-#pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      a1[i] = x1[(ty * RI + i) * LD + d];
-      a2[i] = x2[(ty * RI + i) * LD + d];
-    }
-#pragma unroll
-    for (int j = 0; j < RI; ++j) {
-      b1[j] = y1[(tx + 16 * j) * LD + d];
-      b2[j] = y2[(tx + 16 * j) * LD + d];
-    }
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < RI; ++j) {
-        o1[i][j] = fmaf(a1[i], b1[j], o1[i][j]);
-        o2[i][j] = fmaf(a2[i], b2[j], o2[i][j]);
-      }
-  }
-}
-
-// acc[i][j] += sum_c P[ty*RI + i][c] * Y[c][tx + 16*j] over the R rows
-// of the Y tile.
-template <int D, int RI = F32Layout<D>::RI>
-__device__ __forceinline__ void accumulate(float (&acc)[RI][D / 16],
-                                           const float* p, const float* y,
-                                           int ty, int tx) {
-  constexpr int LD = F32Layout<D>::LD, LDP = F32Layout<D>::LDP;
-#pragma unroll 4
-  for (int c = 0; c < F32Layout<D>::R; ++c) {
-    float pv[RI];
-#pragma unroll
-    for (int i = 0; i < RI; ++i) pv[i] = p[(ty * RI + i) * LDP + c];
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      const float yv = y[c * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RI; ++i) acc[i][j] = fmaf(pv[i], yv, acc[i][j]);
-    }
-  }
-}
-
-// The thread's RI x (D/16) block of an accumulator -> rows of `out` (hd
-// values a row), rows past `limit` and columns past hd dropped.
-template <int D, int RI = F32Layout<D>::RI>
-__device__ __forceinline__ void write_rows(const float (&acc)[RI][D / 16],
-                                           float* out, int row0, int limit,
-                                           int hd, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int r = row0 + ty * RI + i;
-    if (r >= limit) continue;
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j)
-      if (tx + 16 * j < hd) out[(size_t)r * hd + tx + 16 * j] = acc[i][j];
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-    flash_dq_f32_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v,
-                        const float* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        float* __restrict__ dq, int H, int KVH, int Sq,
-                        int Sk, int hd, int q_offset, int k_offset,
-                        int causal, int window, float scale) {
-  using L = F32Layout<D>;
-  constexpr int R = L::R, RI = L::RI;
-  extern __shared__ float smem_f[];
-  const F32Smem<D> sm(smem_f);
-  float *Qs = sm.a, *dOs = sm.b, *Ks = sm.c, *Vs = sm.d;
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * R;
-  const int h = bh % H;
-  const int kv_row = (bh / H) * KVH + h / (H / KVH);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-
-  stage_rows<D, L::LD, THREADS>(Qs, q + (size_t)bh * Sq * hd, q0, R, Sq,
-                                hd);
-  stage_rows<D, L::LD, THREADS>(dOs, dout + (size_t)bh * Sq * hd, q0, R,
-                                Sq, hd);
-  stage_stats<THREADS, R>(sm.lse, sm.delta, lse + (size_t)bh * Sq,
-                          delta + (size_t)bh * Sq, q0, Sq);
-  float acc[RI][D / 16];
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
-
-  const int nk = (Sk + R - 1) / R;
-  for (int kj = 0; kj < nk; ++kj) {
-    const int k0 = kj * R;
-    if (!rows_meet(q0, q0 + R - 1, k0, k0 + R - 1, q_offset, k_offset,
-                   causal, window))
-      continue;
-    __syncthreads();
-    stage_rows<D, L::LD, THREADS>(Ks, k + (size_t)kv_row * Sk * hd, k0, R,
-                                  Sk, hd);
-    stage_rows<D, L::LD, THREADS>(Vs, v + (size_t)kv_row * Sk * hd, k0, R,
-                                  Sk, hd);
-    __syncthreads();
-    float s[RI][RI], dp[RI][RI];
-    dots<D>(Qs, Ks, dOs, Vs, ty, tx, s, dp);
-#pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const int r = ty * RI + i;
-#pragma unroll
-      for (int j = 0; j < RI; ++j) {
-        const int c = tx + 16 * j;
-        float ds = 0.f;
-        if (pair_valid(q0 + r, k0 + c, Sq, Sk, q_offset, k_offset, causal,
-                       window)) {
-          const float p = expf(s[i][j] * scale - sm.lse[r]);
-          ds = p * (dp[i][j] - sm.delta[r]) * scale;
-        }
-        sm.ds[r * L::LDP + c] = ds;
-      }
-    }
-    __syncthreads();
-    accumulate<D>(acc, sm.ds, Ks, ty, tx);   // dQ += dS K
-  }
-  write_rows<D>(acc, dq + (size_t)bh * Sq * hd, q0, Sq, hd, ty, tx);
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-    flash_dkv_f32_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const float* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         float* __restrict__ dk, float* __restrict__ dv,
-                         int H, int KVH, int Sq, int Sk, int hd,
-                         int q_offset, int k_offset, int causal, int window,
-                         float scale) {
-  using L = F32Layout<D>;
-  constexpr int R = L::R, RI = L::RI;
-  extern __shared__ float smem_f[];
-  const F32Smem<D> sm(smem_f);
-  float *Ks = sm.a, *Vs = sm.b, *Qs = sm.c, *dOs = sm.d;
-  const int bkv = blockIdx.y;
-  const int k0 = blockIdx.x * R;
-  const int grp = H / KVH;
-  const int qrow0 = (bkv / KVH) * H + (bkv % KVH) * grp;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-
-  stage_rows<D, L::LD, THREADS>(Ks, k + (size_t)bkv * Sk * hd, k0, R, Sk,
-                                hd);
-  stage_rows<D, L::LD, THREADS>(Vs, v + (size_t)bkv * Sk * hd, k0, R, Sk,
-                                hd);
-  float dk_acc[RI][D / 16], dv_acc[RI][D / 16];
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-
-  const int nq = (Sq + R - 1) / R;
-  for (int g = 0; g < grp; ++g) {
-    const size_t bh = (size_t)qrow0 + g;
-    for (int qi = 0; qi < nq; ++qi) {
-      const int q0 = qi * R;
-      if (!rows_meet(q0, q0 + R - 1, k0, k0 + R - 1, q_offset, k_offset,
-                     causal, window))
-        continue;
-      __syncthreads();
-      stage_rows<D, L::LD, THREADS>(Qs, q + bh * Sq * hd, q0, R, Sq, hd);
-      stage_rows<D, L::LD, THREADS>(dOs, dout + bh * Sq * hd, q0, R, Sq,
-                                    hd);
-      stage_stats<THREADS, R>(sm.lse, sm.delta, lse + bh * Sq,
-                              delta + bh * Sq, q0, Sq);
-      __syncthreads();
-      // S^T and dP^T: key rows ty*RI + i against query rows tx + 16*j
-      float s[RI][RI], dp[RI][RI];
-      dots<D>(Ks, Qs, Vs, dOs, ty, tx, s, dp);
-#pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        const int r = ty * RI + i;
-#pragma unroll
-        for (int j = 0; j < RI; ++j) {
-          const int c = tx + 16 * j;
-          float p = 0.f, ds = 0.f;
-          if (pair_valid(q0 + c, k0 + r, Sq, Sk, q_offset, k_offset, causal,
-                         window)) {
-            p = expf(s[i][j] * scale - sm.lse[c]);
-            ds = p * (dp[i][j] - sm.delta[c]) * scale;
-          }
-          sm.p[r * L::LDP + c] = p;
-          sm.ds[r * L::LDP + c] = ds;
-        }
-      }
-      __syncthreads();
-      accumulate<D>(dv_acc, sm.p, dOs, ty, tx);   // dV += P^T dO
-      accumulate<D>(dk_acc, sm.ds, Qs, ty, tx);   // dK += dS^T Q
-    }
-  }
-  const size_t base = (size_t)bkv * Sk * hd;
-  write_rows<D>(dk_acc, dk + base, k0, Sk, hd, ty, tx);
-  write_rows<D>(dv_acc, dv + base, k0, Sk, hd, ty, tx);
-}
 
 // ------------------------------------------------------------- launch
 struct Args {
@@ -1311,30 +887,32 @@ __global__ void __launch_bounds__(kWideThreads, 1)
   }
 }
 
-// The reduction of the split k tiles: one CTA per (split k tile, dK or
-// dV, 16 of its 64 rows). Each thread sums 4 columns of a row over the
-// tile's slots in chunk order (the f32 sum of `_dkv_kernel`'s
-// accumulator, cut into chunks), casts once to bf16 (as that kernel's one
-// `astype` of its accumulator) and stores the columns below hd of the
-// rows below Sk. The order is fixed, so two runs give the same bits.
+// The reduction of a plan's split k tiles: one CTA per (split k tile, dK
+// or dV, 16 of its `krows` rows). Each thread sums 4 columns of a row
+// over the tile's slots in chunk order (the f32 sum of `_dkv_kernel`'s
+// accumulator, cut into chunks), casts once to T (bf16 as that kernel's
+// one `astype` of its accumulator; f32 stays) and stores the columns
+// below hd of the rows below Sk. A slot holds dK then dV, `krows` rows of
+// D floats each: the width-256 bf16 body's 64 x 256, the f32 bodies'
+// k tile rows x their width (flash_bwd_f32.cu). The order is fixed, so
+// two runs give the same bits.
 constexpr int REDUCE_ROWS = 16, REDUCE_THREADS = 256;
 
+template <typename T, int D>
 __global__ void __launch_bounds__(REDUCE_THREADS)
     flash_dkv_reduce_kernel(const float* __restrict__ partials,
-                            const int* __restrict__ plan,
-                            bf16* __restrict__ dk, bf16* __restrict__ dv,
-                            int Sk, int hd) {
-  constexpr int D = 256, KROWS = Layout<D>::KROWS;
+                            const int* __restrict__ plan, T* __restrict__ dk,
+                            T* __restrict__ dv, int Sk, int hd, int krows) {
   constexpr int PER = REDUCE_ROWS * D / 4 / REDUCE_THREADS;  // float4s
   const int* row = plan + PLAN_ROW * blockIdx.x;
-  const int k0 = row[0] * KROWS, bkv = row[1], slot0 = row[2], n = row[3];
+  const int k0 = row[0] * krows, bkv = row[1], slot0 = row[2], n = row[3];
   const int part = blockIdx.y;  // 0: dK, 1: dV
   const int r0 = blockIdx.z * REDUCE_ROWS;
-  const int rows = min(KROWS, Sk - k0);
-  const size_t stride = (size_t)2 * KROWS * D;  // floats a slot
+  const int rows = min(krows, Sk - k0);
+  const size_t stride = (size_t)2 * krows * D;  // floats a slot
   const float* src = partials + (size_t)slot0 * stride +
-                     (size_t)part * KROWS * D + (size_t)r0 * D;
-  bf16* out = (part ? dv : dk) + ((size_t)bkv * Sk + k0 + r0) * hd;
+                     (size_t)part * krows * D + (size_t)r0 * D;
+  T* out = (part ? dv : dk) + ((size_t)bkv * Sk + k0 + r0) * hd;
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
     const int idx = threadIdx.x + REDUCE_THREADS * i;
@@ -1349,10 +927,14 @@ __global__ void __launch_bounds__(REDUCE_THREADS)
       acc.z += x.z;
       acc.w += x.w;
     }
-    uint2 packed;
-    packed.x = pack_bf16(acc.x, acc.y);
-    packed.y = pack_bf16(acc.z, acc.w);
-    *reinterpret_cast<uint2*>(out + (size_t)r * hd + c) = packed;
+    if constexpr (std::is_same_v<T, float>) {
+      *reinterpret_cast<float4*>(out + (size_t)r * hd + c) = acc;
+    } else {
+      uint2 packed;
+      packed.x = pack_bf16(acc.x, acc.y);
+      packed.y = pack_bf16(acc.z, acc.w);
+      *reinterpret_cast<uint2*>(out + (size_t)r * hd + c) = packed;
+    }
   }
 }
 
@@ -3127,67 +2709,21 @@ cudaError_t launch_dkv(const Args& a) {
 }  // namespace nb
 
 template <int D>
-cudaError_t launch_dq(const Args& a, bool bf16_body) {
-  if (bf16_body) {
-    if constexpr (D <= 32)
-      return nb::launch_dq<D>(a);
-    else
-      return dq::launch<D>(a);
-  }
-  constexpr int R = F32Layout<D>::R;
-  const dim3 grid((a.Sq + R - 1) / R, a.B * a.H);
-  constexpr size_t smem = F32Layout<D>::bytes;
-  auto kernel = flash_dq_f32_kernel<D>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, THREADS, smem, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      a.lse, a.delta, static_cast<float*>(a.dq), a.H, a.KVH, a.Sq, a.Sk,
-      a.hd, a.q_offset, a.k_offset, a.causal, a.window, a.scale);
-  return cudaGetLastError();
+cudaError_t launch_dq(const Args& a) {
+  if constexpr (D <= 32)
+    return nb::launch_dq<D>(a);
+  else
+    return dq::launch<D>(a);
 }
 
 template <int D>
-cudaError_t launch_dkv(const Args& a, bool bf16_body) {
-  if (bf16_body) {
-    if constexpr (D == 256)
-      return dkv::launch_w256(a);
-    else if constexpr (D <= 32)
-      return nb::launch_dkv<D>(a);
-    else
-      return dkv::launch<D>(a);
-  }
-  if constexpr (D <= 32) {
-    // f32 at widths 16 and 32: a warp a strip of 16 key rows
-    constexpr size_t smem = f32n::DkvSmem<D>::bytes;
-    auto kernel = f32n::flash_dkv_f32_narrow_kernel<D>;
-    cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((a.B * a.KVH + f32n::kWarps - 1) / f32n::kWarps,
-                    (a.Sk + f32n::ROWS - 1) / f32n::ROWS);
-    kernel<<<grid, f32n::kWarps * 32, smem, a.stream>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-        a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
-        a.B * a.KVH, a.H / a.KVH, a.Sq, a.Sk, a.hd, a.q_offset, a.k_offset,
-        a.causal, a.window, a.scale);
-    return cudaGetLastError();
-  } else {
-    constexpr int R = F32Layout<D>::R;
-    const dim3 grid((a.Sk + R - 1) / R, a.B * a.KVH);
-    constexpr size_t smem = F32Layout<D>::bytes;
-    auto kernel = flash_dkv_f32_kernel<D>;
-    cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, THREADS, smem, a.stream>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-        a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
-        a.H, a.KVH, a.Sq, a.Sk, a.hd, a.q_offset, a.k_offset, a.causal,
-        a.window, a.scale);
-    return cudaGetLastError();
-  }
+cudaError_t launch_dkv(const Args& a) {
+  if constexpr (D == 256)
+    return dkv::launch_w256(a);
+  else if constexpr (D <= 32)
+    return nb::launch_dkv<D>(a);
+  else
+    return dkv::launch<D>(a);
 }
 
 Args make_args(const void* q, const void* k, const void* v, const void* dout,
@@ -3215,8 +2751,9 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 // 128 (the width-256 body) also takes the plan (`chunks` rows of
 // PLAN_ROW int32 on the device, ops/flash_attention.py `dkv_plan`) and
 // the f32 partials of its split k tiles (2 x 64 x 256 floats a slot),
-// or no plan where it splits no k tile (one CTA a k tile). The other
-// bodies ignore both.
+// or no plan where it splits no k tile (one CTA a k tile); in f32 at hd
+// 40-256 likewise, with partials of 2 x the body's k tile rows x its
+// width floats a slot (flash_bwd_f32.cu). The other bodies ignore both.
 extern "C" int etpu_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dq, int B, int H,
@@ -3226,12 +2763,18 @@ extern "C" int etpu_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  void* stream) {
   if (B * H == 0 || Sq == 0) return cudaSuccess;
   if (KVH <= 0 || H % KVH) return cudaErrorInvalidValue;
+  if (!is_bf16)
+    return etpu::f32_bwd_dq(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<float*>(dq), B, H, KVH, Sq, Sk, hd, q_offset, k_offset,
+        causal, window, scale, static_cast<cudaStream_t>(stream));
   const Args a = make_args(q, k, v, dout, lse, delta, dq, nullptr, nullptr,
                            B, H, KVH, Sq, Sk, hd, q_offset, k_offset, causal,
                            window, scale, stream);
-  return etpu::with_head_dim(hd, [&](auto w) {
-    return launch_dq<decltype(w)::value>(a, is_bf16 != 0);
-  });
+  return etpu::with_head_dim(
+      hd, [&](auto w) { return launch_dq<decltype(w)::value>(a); });
 }
 
 extern "C" int etpu_flash_bwd_dkv(const void* q, const void* k,
@@ -3245,28 +2788,58 @@ extern "C" int etpu_flash_bwd_dkv(const void* q, const void* k,
                                   void* stream) {
   if (B * KVH == 0 || Sk == 0) return cudaSuccess;
   if (KVH <= 0 || H % KVH) return cudaErrorInvalidValue;
+  if (!is_bf16)
+    return etpu::f32_bwd_dkv(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<float*>(dk), static_cast<float*>(dv),
+        static_cast<const int*>(plan), chunks, static_cast<float*>(partials),
+        B, H, KVH, Sq, Sk, hd, q_offset, k_offset, causal, window, scale,
+        static_cast<cudaStream_t>(stream));
   const Args a = make_args(q, k, v, dout, lse, delta, nullptr, dk, dv, B, H,
                            KVH, Sq, Sk, hd, q_offset, k_offset, causal,
                            window, scale, stream, plan, chunks, partials);
-  return etpu::with_head_dim(hd, [&](auto w) {
-    return launch_dkv<decltype(w)::value>(a, is_bf16 != 0);
-  });
+  return etpu::with_head_dim(
+      hd, [&](auto w) { return launch_dkv<decltype(w)::value>(a); });
 }
 
-// The width-256 dK/dV body's reduction: `rows` reduction rows of the plan
-// (PLAN_ROW int32 each, on the device) over `partials`, into the split k
-// tiles' rows of dk and dv (bf16 (B, KVH, Sk, hd), hd 136-256). Returns
-// cudaGetLastError() after its launch.
+// The dK/dV reduction of the plan's split k tiles: `rows` reduction rows
+// of the plan (PLAN_ROW int32 each, on the device) over `partials`, into
+// the split k tiles' rows of dk and dv ((B, KVH, Sk, hd)), k tiles of
+// `krows` rows (a multiple of 16): bf16 at hd 136-256 (the width-256
+// bf16 body's partials, 2 x 64 x 256 floats a slot), or f32 at hd 40-256
+// (the f32 tensor-core bodies', 2 x krows x their width;
+// flash_bwd_f32.cu). Returns cudaGetLastError() after its launch.
 extern "C" int etpu_flash_dkv_reduce(const void* partials, const void* plan,
                                      int rows, void* dk, void* dv, int Sk,
-                                     int hd, void* stream) {
+                                     int hd, int krows, int is_bf16,
+                                     void* stream) {
   if (rows == 0) return cudaSuccess;
-  if (rows < 0 || hd <= 128 || !etpu::takes_head_dim(hd))
+  if (rows < 0 || krows <= 0 || krows % dkv::REDUCE_ROWS ||
+      hd <= (is_bf16 ? 128 : 32) || !etpu::takes_head_dim(hd))
     return cudaErrorInvalidValue;
-  const dim3 grid(rows, 2, dkv::Layout<256>::KROWS / dkv::REDUCE_ROWS);
-  dkv::flash_dkv_reduce_kernel<<<grid, dkv::REDUCE_THREADS, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(partials), static_cast<const int*>(plan),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sk, hd);
-  return cudaGetLastError();
+  const dim3 grid(rows, 2, krows / dkv::REDUCE_ROWS);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* p = static_cast<const float*>(partials);
+  const auto* table = static_cast<const int*>(plan);
+  if (is_bf16) {
+    dkv::flash_dkv_reduce_kernel<bf16, 256>
+        <<<grid, dkv::REDUCE_THREADS, 0, s>>>(p, table, static_cast<bf16*>(dk),
+                                             static_cast<bf16*>(dv), Sk, hd,
+                                             krows);
+    return cudaGetLastError();
+  }
+  return etpu::with_head_dim(hd, [&](auto w) -> cudaError_t {
+    constexpr int W = decltype(w)::value;
+    if constexpr (W >= 64) {
+      dkv::flash_dkv_reduce_kernel<float, W>
+          <<<grid, dkv::REDUCE_THREADS, 0, s>>>(
+              p, table, static_cast<float*>(dk), static_cast<float*>(dv), Sk,
+              hd, krows);
+      return cudaGetLastError();
+    } else {
+      return cudaErrorInvalidValue;
+    }
+  });
 }

@@ -209,7 +209,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   for (int r = 0; r < 2; ++r)
     run[r] = key_run(r0 + g + 8 * r, Sq, Sk, q_offset, k_offset, causal,
                      window);
-  const Walk walk(
+  const Walk<> walk(
       key_run(r0, Sq, Sk, q_offset, k_offset, causal, window),
       key_run(min(r0 + ROWS, Sq) - 1, Sq, Sk, q_offset, k_offset, causal,
               window));

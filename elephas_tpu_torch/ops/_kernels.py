@@ -115,8 +115,8 @@ def library() -> ctypes.CDLL:
         lib.etpu_flash_bwd_dkv.argtypes = ([p] * 9 + [i, p] + [i] * 10
                                            + [f, i, p])
         lib.etpu_flash_bwd_dkv.restype = i
-        # partials, plan | rows | dk, dv | Sk hd | stream
-        lib.etpu_flash_dkv_reduce.argtypes = [p, p, i, p, p, i, i, p]
+        # partials, plan | rows | dk, dv | Sk hd krows | is_bf16 | stream
+        lib.etpu_flash_dkv_reduce.argtypes = [p, p, i, p, p, i, i, i, i, p]
         lib.etpu_flash_dkv_reduce.restype = i
         # q, k_pool, v_pool, tables, pos, slopes, out | B H KVH bs D MB
         # window | scale | is_bf16 body | workspace | split_blocks |

@@ -9,12 +9,12 @@ designs and what bounds them on the H100). :func:`flash_forward` mirrors
 mirrors ``flash_hop_backward``: given the global ``lse`` and ``delta =
 rowsum(dO * O)`` it returns ``(dq, dk, dv)``, launching the dQ kernel
 (:func:`flash_dq`) and the dK/dV kernel (:func:`flash_dkv`).
-At head dims 136-256 in bf16 the dK/dV kernel's 64-row k tiles are cut
-into chunks of about equal work (:func:`dkv_plan`: a pure function of
-the shapes, offsets, mask and the card's SM count), one CTA each, so a
-multi-query group's walk over its query heads spreads over the SMs; a
-split k tile's chunks write f32 partials, which a second kernel sums in
-chunk order (:func:`flash_dkv_reduce`).
+At head dims 136-256 in bf16, and 40-256 in f32, the dK/dV kernel's k
+tiles are cut into chunks of about equal work (:func:`dkv_plan`: a pure
+function of the shapes, offsets, mask and the card's SM count), one CTA
+each, so a multi-query group's walk over its query heads spreads over
+the SMs; a split k tile's chunks write f32 partials, which a second
+kernel sums in chunk order (:func:`flash_dkv_reduce`).
 :func:`flash_attention` mirrors the single-device, differentiable
 ``flash_attention``: a ``torch.autograd.Function`` over the forward and
 the two backward kernels, as the ``_flash`` custom VJP is.
@@ -26,13 +26,17 @@ there is no plain fallback. The kernels have bodies 16, 32, 64, 128 and
 256 columns wide; a head dim d runs the narrowest body at least d wide, its
 tensor maps holding d, so TMA reads each row's d values and fills the
 tile's other columns with zeros in shared memory, and the kernels store
-only each row's first d columns. In f32 at head dims 8-32 the forward
-and dK/dV run strip bodies instead (:func:`f32_narrow_body`: a warp a
-strip of 16 rows, 16-byte cp.async, 3xTF32 products on the tensor
-cores; ``csrc/f32_narrow.cuh``), counted apart in
-``flash_forward.f32_narrow_launches`` and
-``flash_backward.dkv_f32_narrow_launches``. The wrappers pad nothing in
-device memory; operands that are not 16-byte aligned are copied. Shapes follow the JAX package: q and dO ``(B, H, Sq, D)``, k/v
+only each row's first d columns. In f32 the backward runs on the tensor
+cores as 3xTF32 products (``csrc/flash_bwd_f32.cu``): at head dims 8-32
+dQ, dK/dV and the forward run strip bodies (:func:`f32_narrow_body`: a
+warp a strip of 16 rows, 16-byte cp.async; ``csrc/f32_narrow.cuh``), at
+40-256 dQ and dK/dV run CTAs of strips sharing a ring of tiles
+(:func:`f32_wide_body`); f32 launches are counted, and each body's
+apart (``flash_forward.f32_launches``, ``.f32_narrow_launches``,
+``flash_backward.dq_f32_launches``, ``.dq_f32_narrow_launches``,
+``.dq_f32_wide_launches``, and the same for dK/dV). The wrappers
+pad nothing in device memory; operands that are not 16-byte aligned are
+copied. Shapes follow the JAX package: q and dO ``(B, H, Sq, D)``, k/v
 ``(B, KVH, Sk, D)`` with ``KVH`` dividing ``H`` (GQA), lse and delta
 ``(B, H, Sq)`` f32, bf16 or f32 otherwise.
 """
@@ -52,7 +56,7 @@ __all__ = ["flash_attention", "flash_forward", "flash_forward_plain",
            "flash_dkv_reduce",
            "flash_dkv_reduce_plain", "dkv_plan", "dkv_live_q_tiles",
            "dkv_step", "DkvPlan", "DKV_ROWS", "kernel_takes_head_dim",
-           "f32_narrow_body", "BLOCK"]
+           "f32_narrow_body", "f32_wide_body", "body_width", "BLOCK"]
 
 
 def kernel_takes_head_dim(d: int) -> bool:
@@ -65,13 +69,31 @@ def kernel_takes_head_dim(d: int) -> bool:
     Phi-2 (80), DiT-XL/2 (72). The CPU plain versions take any."""
     return d % 8 == 0 and 8 <= d <= 256
 
+
+def body_width(d: int) -> int:
+    """The width of the body a head dim ``d`` runs on: the narrowest of
+    16, 32, 64, 128 and 256 at least ``d`` (``with_head_dim`` in
+    ``csrc/hopper.cuh``)."""
+    return next(w for w in (16, 32, 64, 128, 256) if w >= d)
+
+
 def f32_narrow_body(dtype: torch.dtype, d: int) -> bool:
-    """Whether a CUDA call at head dim ``d`` runs the f32 forward's and
-    dK/dV's strip bodies (``csrc/f32_narrow.cuh``: a warp a strip of 16
-    rows, 3xTF32 products on the tensor cores): f32 at the bodies of
-    widths 16 and 32, head dims 8-32. Wider f32 head dims run the
-    256-thread CUDA-core bodies; f32 dQ runs those at every width."""
+    """Whether a CUDA call at head dim ``d`` runs the f32 strip bodies of
+    the forward, dQ and dK/dV (``csrc/f32_narrow.cuh``: a warp a strip of
+    16 rows, 3xTF32 products on the tensor cores): f32 at the bodies of
+    widths 16 and 32, head dims 8-32. Wider f32 head dims run
+    :func:`f32_wide_body` in the backward and the 256-thread CUDA-core
+    body in the forward."""
     return dtype == torch.float32 and d <= 32
+
+
+def f32_wide_body(dtype: torch.dtype, d: int) -> bool:
+    """Whether a CUDA call at head dim ``d`` runs the f32 backward's
+    tensor-core bodies of widths 64-256 (``csrc/flash_bwd_f32.cu``: CTAs
+    of 16-row strips sharing a ring of tiles, a warp 64 columns of a
+    strip, 3xTF32 products; dK/dV on a :func:`dkv_plan`): f32 at head
+    dims 40-256. The forward there runs the CUDA-core body."""
+    return dtype == torch.float32 and 32 < d <= 256
 
 
 #: the one block size :func:`flash_attention` takes by name; the kernels
@@ -166,8 +188,9 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Block attention of q against one k/v shard, masked on global
     positions (``q_offset``/``k_offset`` place the shards); returns
     ``(o, lse)`` with ``o`` in q's dtype and ``lse`` ``(B, H, Sq)`` f32.
-    Counts each kernel launch in ``flash_forward.launches``, and those
-    that ran the f32 strip body (:func:`f32_narrow_body`) also in
+    Counts each kernel launch in ``flash_forward.launches``, the f32 ones
+    also in ``flash_forward.f32_launches`` and those of them that ran the
+    strip body (:func:`f32_narrow_body`) in
     ``flash_forward.f32_narrow_launches``."""
     _check(q, k, v)
     _check_window(window)
@@ -180,8 +203,10 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     _fwd_launch(q, k, v, o, lse, q_offset, k_offset, causal, window)
     flash_forward.launches += 1
-    if f32_narrow_body(q.dtype, q.shape[3]):
-        flash_forward.f32_narrow_launches += 1
+    if q.dtype == torch.float32:
+        flash_forward.f32_launches += 1
+        if f32_narrow_body(q.dtype, q.shape[3]):
+            flash_forward.f32_narrow_launches += 1
     return o, lse
 
 
@@ -202,6 +227,7 @@ def _fwd_launch(q, k, v, o, lse, q_offset, k_offset, causal,
 
 
 flash_forward.launches = 0
+flash_forward.f32_launches = 0
 flash_forward.f32_narrow_launches = 0
 
 
@@ -306,8 +332,10 @@ def flash_dq(q, k, v, g, lse, delta, q_offset: int = 0, k_offset: int = 0,
              ) -> torch.Tensor:
     """dQ of one (q, k/v shard) pair given the global ``lse`` and
     ``delta``: the dQ kernel on CUDA tensors (counted in
-    ``flash_backward.dq_launches``), :func:`flash_dq_plain` on CPU
-    tensors."""
+    ``flash_backward.dq_launches``, and in f32 also in
+    ``.dq_f32_launches`` and, by body, ``.dq_f32_narrow_launches`` or
+    ``.dq_f32_wide_launches``),
+    :func:`flash_dq_plain` on CPU tensors."""
     _check_bwd(q, k, v, g, lse, delta, window)
     if q.device.type == "cpu":
         return flash_dq_plain(q, k, v, g, lse, delta, q_offset, k_offset,
@@ -317,6 +345,12 @@ def flash_dq(q, k, v, g, lse, delta, q_offset: int = 0, k_offset: int = 0,
     _bwd_launch("etpu_flash_bwd_dq", q, k, v, g, lse, delta, (dq,),
                 q_offset, k_offset, causal, window)
     flash_backward.dq_launches += 1
+    if q.dtype == torch.float32:
+        flash_backward.dq_f32_launches += 1
+        if f32_narrow_body(q.dtype, q.shape[3]):
+            flash_backward.dq_f32_narrow_launches += 1
+        elif f32_wide_body(q.dtype, q.shape[3]):
+            flash_backward.dq_f32_wide_launches += 1
     return dq
 
 
@@ -325,10 +359,11 @@ def flash_dkv(q, k, v, g, lse, delta, q_offset: int = 0, k_offset: int = 0,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV) of one (q, k/v shard) pair given the global ``lse`` and
     ``delta``, at the narrow kv width: the dK/dV kernel on CUDA tensors
-    (counted in ``flash_backward.dkv_launches``), followed at the
-    256-wide bf16 body by the reduction of its split k tiles where the
-    plan splits one (:func:`flash_dkv_reduce`); :func:`flash_dkv_plain`
-    on CPU tensors."""
+    (counted in ``flash_backward.dkv_launches``), followed at the bodies
+    that run a plan (the 256-wide bf16 one, the f32 ones at 40-256) by
+    the reduction of its split k tiles where the plan splits one
+    (:func:`flash_dkv_reduce`); :func:`flash_dkv_plain` on CPU
+    tensors."""
     _check_bwd(q, k, v, g, lse, delta, window)
     if q.device.type == "cpu":
         return flash_dkv_plain(q, k, v, g, lse, delta, q_offset, k_offset,
@@ -344,32 +379,41 @@ def flash_dkv_partials(q, k, v, g, lse, delta, q_offset: int = 0,
                        k_offset: int = 0, causal: bool = True,
                        window: Optional[int] = None):
     """The dK/dV kernel alone on CUDA tensors (counted in
-    ``flash_backward.dkv_launches``, and where it ran the f32 strip body,
-    :func:`f32_narrow_body`, also in
-    ``flash_backward.dkv_f32_narrow_launches``): ``(dk, dv, partials,
-    plan)``. At
-    the 256-wide bf16 body ``plan`` is the call's :func:`dkv_plan`, and
-    where it splits a k tile that tile's rows of dk and dv are left for
-    :func:`flash_dkv_reduce` and ``partials`` (``(plan.slots, 2, 64,
-    256)`` f32) holds its chunks' sums; elsewhere ``partials`` is None
-    (and ``plan`` too below that body)."""
+    ``flash_backward.dkv_launches``, and in f32 also in
+    ``.dkv_f32_launches`` and, by body, ``.dkv_f32_narrow_launches`` or
+    ``.dkv_f32_wide_launches``):
+    ``(dk, dv, partials, plan)``. At the bodies that run a plan (the
+    256-wide bf16 one, :func:`f32_wide_body`) ``plan`` is the call's
+    :func:`dkv_plan`, and where it splits a k tile that tile's rows of dk
+    and dv are left for :func:`flash_dkv_reduce` and ``partials``
+    (``(plan.slots, 2, plan.rows, body width)`` f32) holds its chunks'
+    sums; elsewhere ``partials`` is None (and ``plan`` too at the bodies
+    without one)."""
     _check_bwd(q, k, v, g, lse, delta, window)
     q, k, v, g = _kernel_operands(q, k=k, v=v, g=g)
+    d = q.shape[3]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     plan = _dkv_plan_for(q, k, q_offset, k_offset, causal, window)
+    wide32 = f32_wide_body(q.dtype, d)
     extra, partials = (None, 0, None), None
-    if plan is not None and plan.slots:
-        # the table goes to the kernel only where it splits a k tile: else
-        # one CTA a k tile, whole, as the grid gives it
-        partials = torch.empty((plan.slots, 2, DKV_ROWS, _DKV_WIDTH),
-                               dtype=torch.float32, device=q.device)
+    if plan is not None and (plan.slots or wide32):
+        # the bf16 body gets the table only where it splits a k tile (else
+        # one CTA a k tile, whole, as the grid gives it); the f32 body
+        # always runs one CTA a chunk
+        if plan.slots:
+            partials = torch.empty((plan.slots, 2, plan.rows, body_width(d)),
+                                   dtype=torch.float32, device=q.device)
         extra = (_plan_table(plan, q.device).data_ptr(), len(plan.chunks),
-                 partials.data_ptr())
+                 None if partials is None else partials.data_ptr())
     _bwd_launch("etpu_flash_bwd_dkv", q, k, v, g, lse, delta, (dk, dv),
                 q_offset, k_offset, causal, window, extra)
     flash_backward.dkv_launches += 1
-    if f32_narrow_body(q.dtype, q.shape[3]):
-        flash_backward.dkv_f32_narrow_launches += 1
+    if q.dtype == torch.float32:
+        flash_backward.dkv_f32_launches += 1
+        if f32_narrow_body(q.dtype, d):
+            flash_backward.dkv_f32_narrow_launches += 1
+        elif wide32:
+            flash_backward.dkv_f32_wide_launches += 1
     return dk, dv, partials, plan
 
 
@@ -393,22 +437,30 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_backward.dq_launches = 0
 flash_backward.dkv_launches = 0
 flash_backward.dkv_reduce_launches = 0
+flash_backward.dq_f32_launches = 0
+flash_backward.dq_f32_narrow_launches = 0
+flash_backward.dq_f32_wide_launches = 0
+flash_backward.dkv_f32_launches = 0
 flash_backward.dkv_f32_narrow_launches = 0
+flash_backward.dkv_f32_wide_launches = 0
 
 
-# ------------------------------------------- dK/dV at head dims 136-256
+# ------------------------------------------------ dK/dV on a work plan
 #: key rows of a k tile, and query rows of a step, of the 256-wide bf16
 #: dK/dV body (csrc/flash_bwd.cu ``dkv::Layout<256>``)
 DKV_ROWS = 64
-#: columns of a partial row: the body's width
-_DKV_WIDTH = 256
+#: the f32 tensor-core dK/dV body by width (csrc/flash_bwd_f32.cu
+#: ``Wide<W>``): its k tile's rows (``RES``), a step's q rows (``TILE``)
+#: and its resident CTAs an SM (shared memory: 105 KB at 64, 215 KB at
+#: 128, 211 KB at 256)
+_F32_WIDE = {64: (64, 64, 2), 128: (64, 64, 1), 256: (32, 32, 1)}
 #: the fewest steps a chunk of a split k tile takes: shorter chunks would
 #: spend more on loading K and V and on the reduction than they spread
 DKV_MIN_STEPS = 4
 
 
 class DkvPlan(NamedTuple):
-    """The 256-wide dK/dV body's work plan (:func:`dkv_plan`).
+    """A dK/dV body's work plan (:func:`dkv_plan`).
 
     ``chunks``: one ``(k tile, kv row, first step, steps, slot)`` a CTA,
     the heaviest first; a k tile's steps are its walk over (query head of
@@ -416,10 +468,13 @@ class DkvPlan(NamedTuple):
     the chunk's partial slot, or -1 where the chunk is its k tile's only
     one. ``reduce``: one ``(k tile, kv row, first slot, slots)`` a split
     k tile, its chunks' slots consecutive in walk order. ``slots``: the
-    partial slots in all."""
+    partial slots in all. ``rows`` and ``q_rows``: the rows of a k tile
+    and of a q tile."""
     chunks: Tuple[Tuple[int, int, int, int, int], ...]
     reduce: Tuple[Tuple[int, int, int, int], ...]
     slots: int
+    rows: int = DKV_ROWS
+    q_rows: int = DKV_ROWS
 
 
 def _rows_meet(q_lo, q_hi, k_lo, k_hi, q_offset, k_offset, causal,
@@ -434,14 +489,16 @@ def _rows_meet(q_lo, q_hi, k_lo, k_hi, q_offset, k_offset, causal,
 
 def dkv_live_q_tiles(kt: int, sq: int, sk: int, q_offset: int = 0,
                      k_offset: int = 0, causal: bool = True,
-                     window: Optional[int] = None) -> range:
-    """The q tiles (64 rows each) that k tile ``kt`` meets: one run, as
-    the kernel's ``live_q_tiles`` finds it (the causal rule drops tiles
-    from the start, the window's from the end)."""
-    k0 = kt * DKV_ROWS
-    k_hi = min(k0 + DKV_ROWS, sk) - 1
-    live = [qi for qi in range(-(-sq // DKV_ROWS))
-            if _rows_meet(qi * DKV_ROWS, min((qi + 1) * DKV_ROWS, sq) - 1,
+                     window: Optional[int] = None, rows: int = DKV_ROWS,
+                     q_rows: int = DKV_ROWS) -> range:
+    """The q tiles (``q_rows`` rows each) that k tile ``kt`` (of ``rows``
+    rows) meets: one run, as the kernels' ``live_q_tiles`` find it (the
+    causal rule drops tiles from the start, the window's from the
+    end)."""
+    k0 = kt * rows
+    k_hi = min(k0 + rows, sk) - 1
+    live = [qi for qi in range(-(-sq // q_rows))
+            if _rows_meet(qi * q_rows, min((qi + 1) * q_rows, sq) - 1,
                           k0, k_hi, q_offset, k_offset, causal, window)]
     return range(live[0], live[-1] + 1) if live else range(0)
 
@@ -456,22 +513,25 @@ def dkv_step(t: int, live: range) -> Tuple[int, int]:
 @functools.lru_cache(maxsize=256)
 def dkv_plan(b: int, h: int, kvh: int, sq: int, sk: int, q_offset: int = 0,
              k_offset: int = 0, causal: bool = True,
-             window: Optional[int] = None, sms: int = 132) -> DkvPlan:
-    """The chunks of the 256-wide dK/dV body for these shapes on a card
-    of ``sms`` SMs. A k tile's steps (its group's ``h // kvh`` query
-    heads times its live q tiles) are cut into chunks of about equal
-    length, as many as a step target of the whole launch's steps over the
-    SMs (at least :data:`DKV_MIN_STEPS`) asks: a k tile of fewer steps
-    than the target stays one chunk, as every k tile does where the k
-    tiles alone fill the card. Every k tile gets a chunk, a dead one too
-    (its dK and dV are zeros). At ``lm_d256``'s fit (B 2, H 8 over KVH 1,
-    S 1024, causal) 2176 steps on 132 SMs make a target of 17: 8, 8, 7,
-    7, ..., 1, 1 chunks for k tiles 0..15, 144 CTAs."""
+             window: Optional[int] = None, sms: int = 132,
+             rows: int = DKV_ROWS, q_rows: int = DKV_ROWS) -> DkvPlan:
+    """The chunks of a dK/dV body whose k tiles hold ``rows`` key rows
+    and whose steps ``q_rows`` query rows (the 256-wide bf16 body's 64
+    and 64 by default) for these shapes on a card of ``sms`` SMs (times
+    the body's CTAs an SM). A k tile's steps (its group's ``h // kvh``
+    query heads times its live q tiles) are cut into chunks of about
+    equal length, as many as a step target of the whole launch's steps
+    over the SMs (at least :data:`DKV_MIN_STEPS`) asks: a k tile of fewer
+    steps than the target stays one chunk, as every k tile does where the
+    k tiles alone fill the card. Every k tile gets a chunk, a dead one
+    too (its dK and dV are zeros). At ``lm_d256``'s fit (B 2, H 8 over
+    KVH 1, S 1024, causal) 2176 steps on 132 SMs make a target of 17: 8,
+    8, 7, 7, ..., 1, 1 chunks for k tiles 0..15, 144 CTAs."""
     window = int(window) if window else None
     grp = h // kvh
     tiles = [(kt, dkv_live_q_tiles(kt, sq, sk, q_offset, k_offset, causal,
-                                   window))
-             for kt in range(-(-sk // DKV_ROWS))]
+                                   window, rows, q_rows))
+             for kt in range(-(-sk // rows))]
     total = b * kvh * grp * sum(len(live) for _, live in tiles)
     target = max(DKV_MIN_STEPS, -(-total // max(sms, 1)))
     chunks, reduce, slots = [], [], 0
@@ -492,7 +552,7 @@ def dkv_plan(b: int, h: int, kvh: int, sq: int, sk: int, q_offset: int = 0,
     # heaviest first; among equals the first k tiles, as the unsplit
     # grid ran them
     chunks.sort(key=lambda c: (-c[3], c[0], c[1]))
-    return DkvPlan(tuple(chunks), tuple(reduce), slots)
+    return DkvPlan(tuple(chunks), tuple(reduce), slots, rows, q_rows)
 
 
 @functools.lru_cache(maxsize=None)
@@ -501,14 +561,19 @@ def _multiprocessors(device: torch.device) -> int:
 
 
 def _dkv_plan_for(q, k, q_offset, k_offset, causal, window):
-    """The plan of a CUDA dK/dV call that runs the 256-wide bf16 body,
-    else None."""
-    if q.dtype != torch.bfloat16 or q.shape[3] <= 128:
+    """The plan of a CUDA dK/dV call that runs the 256-wide bf16 body or
+    an f32 tensor-core body at 40-256 (:func:`f32_wide_body`), else
+    None."""
+    b, h, sq, d = q.shape
+    if q.dtype == torch.bfloat16 and d > 128:
+        rows, q_rows, ctas = DKV_ROWS, DKV_ROWS, 1
+    elif f32_wide_body(q.dtype, d):
+        rows, q_rows, ctas = _F32_WIDE[body_width(d)]
+    else:
         return None
-    b, h, sq, _ = q.shape
     return dkv_plan(b, h, k.shape[1], sq, k.shape[2], int(q_offset),
                     int(k_offset), bool(causal), window,
-                    _multiprocessors(q.device))
+                    _multiprocessors(q.device) * ctas, rows, q_rows)
 
 
 @functools.lru_cache(maxsize=256)
@@ -524,15 +589,15 @@ def flash_dkv_reduce_plain(partials: torch.Tensor, plan: DkvPlan,
                            dk: torch.Tensor, dv: torch.Tensor
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reduction kernel's function in plain PyTorch: each split k
-    tile's f32 partials (``partials`` ``(slots, 2, 64, W)``, dK then dV,
-    W >= head_dim) summed in chunk order, cast once to dk's dtype and
-    written into that tile's rows of ``dk`` and ``dv`` (``(B, KVH, Sk,
-    head_dim)``, in place); returns them."""
+    tile's f32 partials (``partials`` ``(slots, 2, plan.rows, W)``, dK
+    then dV, W >= head_dim) summed in chunk order, cast once to dk's
+    dtype and written into that tile's rows of ``dk`` and ``dv`` (``(B,
+    KVH, Sk, head_dim)``, in place); returns them."""
     sk, d = dk.shape[2], dk.shape[3]
     rows_k, rows_v = dk.view(-1, sk, d), dv.view(-1, sk, d)
     for kt, row, slot0, n in plan.reduce:
-        k0 = kt * DKV_ROWS
-        rows = min(DKV_ROWS, sk - k0)
+        k0 = kt * plan.rows
+        rows = min(plan.rows, sk - k0)
         acc = partials[slot0].clone()
         for slot in range(slot0 + 1, slot0 + n):
             acc += partials[slot]
@@ -544,12 +609,13 @@ def flash_dkv_reduce_plain(partials: torch.Tensor, plan: DkvPlan,
 def flash_dkv_reduce(partials: torch.Tensor, plan: DkvPlan,
                      dk: torch.Tensor, dv: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The reduction of the 256-wide dK/dV body's split k tiles into
-    ``dk`` and ``dv`` (in place; the unsplit tiles' rows untouched): the
-    kernel on CUDA tensors (counted in
-    ``flash_backward.dkv_reduce_launches``), :func:`flash_dkv_reduce_plain`
-    on CPU tensors. The kernel takes bf16 outputs at head dims 136-256
-    and partials ``(plan.slots, 2, 64, 256)`` f32."""
+    """The reduction of a dK/dV plan's split k tiles into ``dk`` and
+    ``dv`` (in place; the unsplit tiles' rows untouched): the kernel on
+    CUDA tensors (counted in ``flash_backward.dkv_reduce_launches``),
+    :func:`flash_dkv_reduce_plain` on CPU tensors. The kernel takes bf16
+    outputs at head dims 136-256 or f32 ones at 40-256, and partials
+    ``(plan.slots, 2, plan.rows, W)`` f32, W the body's width
+    (:func:`body_width`)."""
     if partials.shape[0] != plan.slots or partials.dtype != torch.float32:
         raise ValueError(f"expected {plan.slots} f32 partial slots, got "
                          f"{partials.dtype} {tuple(partials.shape)}")
@@ -558,19 +624,21 @@ def flash_dkv_reduce(partials: torch.Tensor, plan: DkvPlan,
     if not plan.reduce:
         return dk, dv
     sk, d = dk.shape[2], dk.shape[3]
-    if (dk.dtype != torch.bfloat16 or dv.dtype != torch.bfloat16
-            or dv.shape != dk.shape or not 128 < d <= 256 or d % 8
-            or partials.shape[1:] != (2, DKV_ROWS, _DKV_WIDTH)
+    bf16 = dk.dtype == torch.bfloat16
+    if ((d <= 128 if bf16 else not f32_wide_body(dk.dtype, d)) or d % 8
+            or dv.dtype != dk.dtype or dv.shape != dk.shape
+            or partials.shape[1:] != (2, plan.rows, body_width(d))
             or not all(t.is_contiguous() and t.device == dk.device
-                       for t in (dv, partials))):
+                       for t in (dk, dv, partials))):
         raise ValueError("the dK/dV reduction kernel takes bf16 dk/dv at "
-                         "head dims 136-256 and contiguous (slots, 2, 64, "
-                         "256) f32 partials on their device")
+                         "head dims 136-256 or f32 ones at 40-256, and "
+                         "contiguous (slots, 2, plan.rows, body width) f32 "
+                         "partials on their device")
     table = _plan_table(plan, dk.device)
     err = _kernels.library().etpu_flash_dkv_reduce(
         partials.data_ptr(), table[len(plan.chunks):].data_ptr(),
-        len(plan.reduce), dk.data_ptr(), dv.data_ptr(), sk, d,
-        torch.cuda.current_stream(dk.device).cuda_stream)
+        len(plan.reduce), dk.data_ptr(), dv.data_ptr(), sk, d, plan.rows,
+        int(bf16), torch.cuda.current_stream(dk.device).cuda_stream)
     _kernels.check(err, "flash dK/dV reduction")
     flash_backward.dkv_reduce_launches += 1
     return dk, dv
@@ -581,12 +649,12 @@ def flash_dkv_chunked_plain(q, k, v, g, lse, delta, q_offset: int = 0,
                             window: Optional[int] = None,
                             plan: Optional[DkvPlan] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The 256-wide dK/dV body's split path in plain PyTorch, in f32: for
-    each chunk of ``plan`` (default: :func:`dkv_plan` on 132 SMs) its
-    steps' ``ds^T q`` and ``p^T dO`` summed into an f32 partial of its k
-    tile (or written whole where the chunk is the tile's only one), then
-    :func:`flash_dkv_reduce_plain`. Returns dk, dv in k's and v's
-    dtypes."""
+    """A dK/dV plan's split path in plain PyTorch, in f32: for each chunk
+    of ``plan`` (default: the 256-wide bf16 body's :func:`dkv_plan` on
+    132 SMs) its steps' ``ds^T q`` and ``p^T dO`` summed into an f32
+    partial of its k tile (or written whole where the chunk is the tile's
+    only one), then :func:`flash_dkv_reduce_plain`. Returns dk, dv in k's
+    and v's dtypes."""
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     if plan is None:
@@ -597,19 +665,20 @@ def flash_dkv_chunked_plain(q, k, v, g, lse, delta, q_offset: int = 0,
     grp = h // kvh
     dk = torch.zeros((b, kvh, sk, d), dtype=torch.float32, device=q.device)
     dv = torch.zeros_like(dk)
-    partials = torch.zeros((plan.slots, 2, DKV_ROWS, d),
+    rows, q_rows = plan.rows, plan.q_rows
+    partials = torch.zeros((plan.slots, 2, rows, d),
                            dtype=torch.float32, device=q.device)
     for kt, row, first, count, slot in plan.chunks:
         bi, kh = divmod(row, kvh)
-        k0, k1 = kt * DKV_ROWS, min((kt + 1) * DKV_ROWS, sk)
+        k0, k1 = kt * rows, min((kt + 1) * rows, sk)
         live = dkv_live_q_tiles(kt, sq, sk, int(q_offset), int(k_offset),
-                                causal, window)
+                                causal, window, rows, q_rows)
         acc = torch.zeros((2, k1 - k0, d), dtype=torch.float32,
                           device=q.device)
         for t in range(first, first + count):
             gi, qi = dkv_step(t, live)
             hq = kh * grp + gi
-            q0, q1 = qi * DKV_ROWS, min((qi + 1) * DKV_ROWS, sq)
+            q0, q1 = qi * q_rows, min((qi + 1) * q_rows, sq)
             acc[0] += ds[bi, hq, q0:q1, k0:k1].T @ qf[bi, hq, q0:q1]
             acc[1] += p[bi, hq, q0:q1, k0:k1].T @ gf[bi, hq, q0:q1]
         if slot < 0:

@@ -13,10 +13,14 @@ edges of its 128-key tiles and dQ's 64-key tiles and ping-pong turns
 (and dQ at 96 on them); the forward at 16 and 32 over the edges of its
 narrow body (192-row q tiles of three 64-row warpgroups, 128-key
 tiles, pairs of q tiles past one wave of the SMs); in f32 at 8-32 the
-forward's and dK/dV's strip bodies (a warp a strip of 16 rows, 3xTF32
-products) over lengths of 1 to 1024, windows, GQA 1/2/4, ragged and
-ring-hop offsets, bit-equal reruns and unaligned operands (which the
-wrappers clone); at 256 (Gemma-2B's)
+forward's, dQ's and dK/dV's strip bodies (a warp a strip of 16 rows,
+3xTF32 products) over lengths of 1 to 1024, windows, GQA 1/2/4, ragged
+and ring-hop offsets, bit-equal reruns and unaligned operands (which the
+wrappers clone); in f32 at 40-256 dQ's and dK/dV's tensor-core bodies
+(CTAs of strips sharing a ring of tiles, dK/dV on a plan whose split k
+tiles a reduction sums) over GQA 1/4/8, windows, ragged lengths, Sq !=
+Sk both ways, one query row, ring hops and S 2048, with bit-equal reruns
+of the split walk; at 256 (Gemma-2B's)
 over the same cases and
 the edges of its 64-key tiles and of dQ's two bodies (64-row q tiles
 at one wave of the SMs, 32-key tiles past it); at head dims 8, 24,
@@ -603,19 +607,23 @@ def _f32_strip_inputs(case, device, d, seed=12):
 @pytest.mark.parametrize("case", sorted(_F32_STRIP_CASES))
 @pytest.mark.parametrize("head_dim", [8, 16, 24, 32])
 def test_flash_f32_strip_bodies_match_plain(cuda, no_tf32, head_dim, case):
-    """The f32 forward and dK/dV at head dims 8-32 (the strip bodies, as
-    the wrappers' per-body counters show) against their plain versions:
-    O and the LSE within 1e-4, dK and dV within 1e-4 of max|ref| (3xTF32
-    products, another summation order); a row that meets no key keeps O
-    = 0 and LSE ~ -1e30, and a k/v shard no query meets gets dK = dV =
-    0."""
+    """The f32 forward, dQ and dK/dV at head dims 8-32 (the strip bodies,
+    as the wrappers' per-body counters show) against their plain
+    versions: O and the LSE within 1e-4, dQ, dK and dV within 1e-4 of
+    max|ref| (3xTF32 products, another summation order); a row that
+    meets no key keeps O = 0 and LSE ~ -1e30, and a k/v shard no query
+    meets gets dQ = dK = dV = 0."""
     from elephas_tpu_torch.ops.flash_attention import (flash_backward,
                                                        flash_dkv,
                                                        flash_dkv_plain,
+                                                       flash_dq,
+                                                       flash_dq_plain,
                                                        flash_forward,
                                                        flash_forward_plain)
     q, k, v, g, offs = _f32_strip_inputs(case, cuda, head_dim)
     before = (flash_forward.launches, flash_forward.f32_narrow_launches,
+              flash_backward.dq_launches,
+              flash_backward.dq_f32_narrow_launches,
               flash_backward.dkv_launches,
               flash_backward.dkv_f32_narrow_launches)
     o, lse = flash_forward(q, k, v, *offs)
@@ -625,24 +633,27 @@ def test_flash_f32_strip_bodies_match_plain(cuda, no_tf32, head_dim, case):
     dead = lse_ref < -1e29
     assert bool((lse[dead] < -1e29).all()) and bool((o[dead] == 0).all())
     delta = (g * o_ref).sum(-1)
-    got = flash_dkv(q, k, v, g, lse_ref, delta, *offs)
+    args = (q, k, v, g, lse_ref, delta, *offs)
+    got = (flash_dq(*args), *flash_dkv(*args))
     torch.cuda.synchronize()
     assert (flash_forward.launches, flash_forward.f32_narrow_launches,
+            flash_backward.dq_launches,
+            flash_backward.dq_f32_narrow_launches,
             flash_backward.dkv_launches,
             flash_backward.dkv_f32_narrow_launches) == tuple(
                 n + 1 for n in before)
-    want = flash_dkv_plain(q, k, v, g, lse_ref, delta, *offs)
-    for name, a, w in zip(("dk", "dv"), got, want):
+    want = (flash_dq_plain(*args), *flash_dkv_plain(*args))
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == torch.float32 and a.shape == w.shape, name
         scale = float(w.abs().max())
         if case == "hop_future":
             assert scale == 0.0 and bool((a == 0).all()), name
             continue
-        if case in _ONE_KEY_CASES and name == "dk":
-            # each query meets one key: its softmax has no gradient, dK is
-            # 0, and both sides hold only the f32 rounding of dP - delta
-            # (about 1e-7 of the terms): held against dV's scale instead
-            scale = float(want[1].abs().max())
+        if case in _ONE_KEY_CASES and name in ("dq", "dk"):
+            # each query meets one key: its softmax has no gradient, dQ and
+            # dK are 0, and both sides hold only the f32 rounding of dP -
+            # delta (about 1e-7 of the terms): held against dV's scale
+            scale = float(want[2].abs().max())
         err = float((a - w).abs().max())
         assert err <= 1e-4 * scale, f"{name}: {err} > 1e-4 * {scale}"
 
@@ -651,10 +662,11 @@ def test_flash_f32_strip_bodies_match_plain(cuda, no_tf32, head_dim, case):
                                   "window_17", "hop_rows_dead"])
 @pytest.mark.parametrize("head_dim", [16, 32])
 def test_flash_f32_strip_bodies_are_bit_reproducible(cuda, head_dim, case):
-    """Two launches each of the f32 forward and dK/dV strip bodies on the
-    same inputs give the same bits (no atomics; a warp owns its rows and
-    walks them in one order)."""
+    """Two launches each of the f32 forward, dQ and dK/dV strip bodies on
+    the same inputs give the same bits (no atomics; a warp owns its rows
+    and walks them in one order)."""
     from elephas_tpu_torch.ops.flash_attention import (flash_dkv,
+                                                       flash_dq,
                                                        flash_forward,
                                                        flash_forward_plain)
     q, k, v, g, offs = _f32_strip_inputs(case, cuda, head_dim, seed=13)
@@ -662,6 +674,7 @@ def test_flash_f32_strip_bodies_are_bit_reproducible(cuda, head_dim, case):
     assert torch.equal(o1, o2) and torch.equal(l1, l2)
     o_ref, lse_ref = flash_forward_plain(q, k, v, *offs)
     args = (q, k, v, g, lse_ref, (g * o_ref).sum(-1), *offs)
+    assert torch.equal(flash_dq(*args), flash_dq(*args))
     first, second = flash_dkv(*args), flash_dkv(*args)
     for a, b_ in zip(first, second):
         assert torch.equal(a, b_)
@@ -701,6 +714,95 @@ def test_flash_f32_strip_bodies_take_unaligned_operands(cuda, no_tf32,
         assert torch.equal(a, f), name
         scale = float(w.abs().max())
         assert float((a - w).abs().max()) <= 1e-4 * scale, name
+
+
+# the f32 tensor-core bodies of dQ and dK/dV at head dims 40-256
+# (csrc/flash_bwd_f32.cu: CTAs of 16-row strips, 64 or 32 resident rows,
+# the other operand's tiles of as many rows through a ring of two stages,
+# a warp 64 columns of a strip; dK/dV one CTA a chunk of its plan):
+# causal and full, Sq != Sk both ways, one query row, GQA groups of 1, 4
+# and 8 (whose plans split k tiles, so the reduction runs), windows
+# narrower than a step and than a tile, ragged lengths, ring hops whose
+# first query rows meet nothing, one wholly in the past and one wholly in
+# the future, and S 2048
+_F32_WIDE_CASES = {
+    # (B, H, KVH, Sq, Sk, causal, window, q_offset, k_offset)
+    "causal_130": (2, 4, 4, 130, 130, True, None, 0, 0),
+    "gqa4_ragged_191": (2, 8, 2, 191, 191, True, None, 0, 0),
+    "gqa8_300": (1, 8, 1, 300, 300, True, None, 0, 0),
+    "window_7": (2, 4, 2, 150, 150, True, 7, 0, 0),
+    "window_100_gqa4": (1, 8, 2, 300, 300, True, 100, 0, 0),
+    "full_130_70": (2, 4, 4, 130, 70, False, None, 0, 0),
+    "full_40_200_gqa4": (1, 8, 2, 40, 200, False, None, 0, 0),
+    "sq_one": (2, 4, 2, 1, 200, True, None, 199, 0),
+    "hop_past": (1, 4, 4, 64, 100, True, None, 128, 0),
+    "hop_rows_dead": (1, 4, 4, 40, 50, True, None, 0, 20),
+    "hop_future": (1, 4, 2, 64, 64, True, None, 0, 64),
+    "s2048_gqa8": (1, 8, 1, 2048, 2048, True, None, 0, 0),
+}
+_F32_WIDE_HEAD_DIMS = [40, 64, 72, 96, 128, 136, 200, 256]
+
+
+def _f32_wide_args(case, device, d, seed=14):
+    from elephas_tpu_torch.ops.flash_attention import flash_forward_plain
+    b, h, kvh, sq, sk, causal, window, qo, ko = _F32_WIDE_CASES[case]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, g = (torch.randn((b, h, sq, d), generator=gen, device=device)
+            for _ in range(2))
+    k, v = (torch.randn((b, kvh, sk, d), generator=gen, device=device)
+            for _ in range(2))
+    o, lse = flash_forward_plain(q, k, v, qo, ko, causal, window)
+    return (q, k, v, g, lse, (g * o).sum(-1), qo, ko, causal, window)
+
+
+@pytest.mark.parametrize("case", sorted(_F32_WIDE_CASES))
+@pytest.mark.parametrize("head_dim", _F32_WIDE_HEAD_DIMS)
+def test_flash_f32_wide_bodies_match_plain(cuda, no_tf32, head_dim, case):
+    """f32 dQ and dK/dV at head dims 40-256 on the tensor-core bodies (as
+    the per-body counters show; the reduction launched where the plan
+    splits a k tile, and not elsewhere) against their plain versions,
+    within 1e-4 of max|ref| (3xTF32 products, another summation order);
+    a shard no query meets gets zeros."""
+    from elephas_tpu_torch.ops import flash_attention as fa
+    args = _f32_wide_args(case, cuda, head_dim)
+    q, k = args[:2]
+    plan = fa._dkv_plan_for(q, k, *args[6:])
+    fb = fa.flash_backward
+    before = (fb.dq_launches, fb.dq_f32_wide_launches, fb.dkv_launches,
+              fb.dkv_f32_wide_launches, fb.dkv_reduce_launches)
+    got = (fa.flash_dq(*args), *fa.flash_dkv(*args))
+    torch.cuda.synchronize()
+    assert (fb.dq_launches, fb.dq_f32_wide_launches, fb.dkv_launches,
+            fb.dkv_f32_wide_launches, fb.dkv_reduce_launches) == (
+        *(n + 1 for n in before[:4]), before[4] + bool(plan.reduce))
+    if case.startswith("gqa8"):
+        assert plan.reduce, "a group of 8 splits the first k tiles"
+    want = (fa.flash_dq_plain(*args), *fa.flash_dkv_plain(*args))
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.float32 and a.shape == w.shape, name
+        scale = float(w.abs().max())
+        if case == "hop_future":
+            assert scale == 0.0 and bool((a == 0).all()), name
+            continue
+        err = float((a - w).abs().max())
+        assert err <= 1e-4 * scale, f"{name}: {err} > 1e-4 * {scale}"
+
+
+@pytest.mark.parametrize("case", ["gqa8_300", "window_100_gqa4",
+                                  "gqa4_ragged_191", "s2048_gqa8"])
+@pytest.mark.parametrize("head_dim", [64, 96, 256])
+def test_flash_f32_wide_bodies_are_bit_reproducible(cuda, head_dim, case):
+    """No atomics in f32 at 40-256 either: two launches of dQ and of
+    dK/dV (its plan's split k tiles summed by the reduction in chunk
+    order) on the same inputs give the same bits."""
+    from elephas_tpu_torch.ops import flash_attention as fa
+    args = _f32_wide_args(case, cuda, head_dim, seed=15)
+    if case.startswith("gqa8"):
+        assert fa._dkv_plan_for(*args[:2], *args[6:]).reduce
+    assert torch.equal(fa.flash_dq(*args), fa.flash_dq(*args))
+    first, second = fa.flash_dkv(*args), fa.flash_dkv(*args)
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
 
 
 # head dims below their body's width (8 on the 16-wide body, 24 on 32,

@@ -8,9 +8,13 @@ head dims 128, 64, 32, 16, 96, 80 and 256, at ``lm_d128``'s fit shape
 2, H 32, S 2048, window 2047) at 96, at ``lm_d256``'s (B 2, H 8 over
 KVH 1, S 1024) at 256 and at ``tpu_model_lm_d32``'s (B 16, H 8, S 128)
 at 32, and in f32 (the f32 bodies; SDPA in f32) at head dims 16 and
-32 on the two shapes the main path runs the f32 bodies at,
+32 on the two shapes the main path runs the f32 strip bodies at,
 ``speculative_example``'s (B 8, H 4, S 32) and ``forward_d16``'s (B 4,
-H 4, S 96), with digests (sha256) of each kernel's outputs, O and LSE,
+H 4, S 96), and at the four shapes of the f32 checks that run the wider
+f32 bodies (``chip_smoke.F32_WIDE_TIMED``: ``train_parity`` d 64, the
+``lm_d128``, ``lm_d96`` and ``lm_d256`` gradients), where the f32
+entries also time autograd's backward through f32 SDPA (``sdpa_bwd``:
+dQ, dK and dV in one call), with digests (sha256) of each kernel's outputs, O and LSE,
 dQ, and dK and dV, on the same seeded inputs, so two trees' bits can be
 compared; a tree whose kernels refuse a head dim says so
 there. It prints them as one JSON line, then runs ``chip_smoke``'s
@@ -58,7 +62,11 @@ SHAPES = {
     "path_d32": ((16, 8, 8, 128, None), (32,), torch.bfloat16),
     "f32_speculative_example": ((8, 4, 4, 32, None), (16, 32),
                                 torch.float32),
-    "f32_forward_d16": ((4, 4, 4, 96, None), (16, 32), torch.float32)}
+    "f32_forward_d16": ((4, 4, 4, 96, None), (16, 32), torch.float32),
+    "f32_train_parity": ((2, 16, 16, 1024, None), (64,), torch.float32),
+    "f32_lm_d128_grad": ((1, 32, 8, 512, 4096), (128,), torch.float32),
+    "f32_lm_d96_grad": ((1, 32, 32, 512, 2047), (96,), torch.float32),
+    "f32_lm_d256_grad": ((1, 8, 1, 512, None), (256,), torch.float32)}
 
 
 def digest(*tensors):
@@ -100,6 +108,14 @@ def kernel_times(flush):
                         q, k, v, is_causal=True, **gqa), flush),
                 "dkv": chip_smoke.device_ms(lambda: flash_dkv(*args), flush),
                 "dq": chip_smoke.device_ms(lambda: flash_dq(*args), flush)}
+            if dtype == torch.float32:
+                ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
+                o_lib = torch.nn.functional.scaled_dot_product_attention(
+                    ql, kl, vl, is_causal=True, **gqa)
+                out[f"{name}_d{d}"]["sdpa_bwd"] = chip_smoke.device_ms(
+                    lambda: torch.autograd.grad(o_lib, (ql, kl, vl), g,
+                                                retain_graph=True), flush)
+                del ql, kl, vl, o_lib
             del q, k, v, g, o, lse, delta, args, outs
     return out
 
